@@ -1,0 +1,24 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of ``paddle_tpu``.
+
+The port serves the Llama causal LM through the continuous-batching
+engine on one NVIDIA Hopper card. Module names follow the JAX package
+(``models/llama.py``, ``models/generation.py``, ``serving/engine.py``,
+...) so every module has an obvious counterpart; the Pallas kernels on
+that path become hand-written CUDA C++ under ``ops/cuda/``.
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    model = LlamaForCausalLM(LlamaConfig.tiny())          # on "cuda"
+    engine = ServingEngine(model)
+    engine.submit([1, 2, 3], max_new_tokens=8)
+    outputs = engine.run()
+
+Public entry points take ``device`` (default ``"cuda"``) and raise when
+no GPU is present unless the caller passes ``device="cpu"``. This package
+imports ``torch`` and never ``jax`` or ``paddle_tpu``.
+"""
+from .framework.device import resolve_device  # noqa: F401
+from .framework.dtype import to_torch_dtype  # noqa: F401
+
+__all__ = ["resolve_device", "to_torch_dtype"]

@@ -1,0 +1,260 @@
+"""The port's Llama model and greedy decode held against the JAX package.
+
+Weights reach the port through ``load_jax_weights`` from the reference
+model's arrays, so both sides compute the same function on the same
+inputs (fp32, ``LlamaConfig.tiny(num_hidden_layers=2)``, plus a GQA
+variant with a sliding window):
+
+- RoPE within 1e-6 and decode logits within 1e-4 (fp32; the two
+  frameworks sum in different orders);
+- greedy ``generate()`` tokens identical, with and without ``kv_int8``;
+- the weights loader's name/shape checks, the entry points' device
+  default, and the options this slice does not port.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu as pt
+from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+from paddle_tpu.models import generate as jax_generate
+from paddle_tpu.models import generation as jgen
+from paddle_tpu.models import llama as jllama
+from paddle_tpu_torch import resolve_device, to_torch_dtype
+from paddle_tpu_torch.models import (
+    LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
+)
+from paddle_tpu_torch.models import generation as tgen
+from paddle_tpu_torch.models import llama as tllama
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CONFIGS = {
+    "mha": dict(num_hidden_layers=2),
+    "gqa_window": dict(num_hidden_layers=2, num_key_value_heads=2,
+                       sliding_window=6),
+}
+
+
+def jax_arrays(model):
+    return {n: np.asarray(p._data) for n, p in model.named_parameters()}
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def pair(request):
+    """(jax model, port model on the CPU with the same weights)."""
+    kw = CONFIGS[request.param]
+    pt.seed(0)
+    jm = JaxLlama(JaxLlamaConfig.tiny(**kw))
+    jm.eval()
+    tm = LlamaForCausalLM(LlamaConfig.tiny(**kw), device="cpu")
+    load_jax_weights(tm, jax_arrays(jm))
+    return jm, tm
+
+
+def _prompts(vocab, seed, b=2, plen=7):
+    return np.random.RandomState(seed).randint(0, vocab, (b, plen)) \
+        .astype(np.int32)
+
+
+def test_parameter_names_and_layout_match_reference(pair):
+    jm, tm = pair
+    want = {n: tuple(p.shape) for n, p in jm.named_parameters()}
+    got = {n: tuple(p.shape) for n, p in tm.named_parameters()}
+    assert got == want
+    for n, p in tm.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(),
+                                      jax_arrays(jm)[n])
+    assert tm.model is tm.llama
+
+
+@pytest.fixture(scope="module")
+def mha_arrays():
+    pt.seed(1)
+    return jax_arrays(JaxLlama(JaxLlamaConfig.tiny(**CONFIGS["mha"])))
+
+
+def _fresh_port_model():
+    return LlamaForCausalLM(LlamaConfig.tiny(**CONFIGS["mha"]),
+                            device="cpu")
+
+
+def test_load_jax_weights_accepts_model_alias(mha_arrays):
+    tm = _fresh_port_model()
+    arrays = {"model." + n[len("llama."):] if n.startswith("llama.")
+              else n: a for n, a in mha_arrays.items()}
+    load_jax_weights(tm, arrays)
+    for n, p in tm.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), mha_arrays[n])
+
+
+@pytest.mark.parametrize("fault", ["missing", "unexpected", "misshaped"])
+def test_load_jax_weights_rejects(mha_arrays, fault):
+    tm = _fresh_port_model()
+    arrays = dict(mha_arrays)
+    before = tm.lm_head.weight.clone()
+    if fault == "missing":
+        del arrays["llama.norm.weight"]
+    elif fault == "unexpected":
+        arrays["llama.extra.weight"] = np.zeros(3, np.float32)
+    else:
+        arrays["lm_head.weight"] = arrays["lm_head.weight"][:, :5]
+    with pytest.raises(KeyError if fault != "misshaped" else ValueError):
+        load_jax_weights(tm, arrays)
+    # nothing is written before every name and shape checked out
+    torch.testing.assert_close(tm.lm_head.weight, before, rtol=0, atol=0)
+
+
+def test_rope_matches_reference():
+    rng = np.random.RandomState(0)
+    q = rng.randn(2, 5, 4, 16).astype(np.float32)
+    k = rng.randn(2, 5, 2, 16).astype(np.float32)
+    pos = rng.randint(0, 100, (2, 5)).astype(np.int32)
+    for p in (None, pos):
+        jq, jk = jllama._rope(jnp.asarray(q), jnp.asarray(k), 10000.0,
+                              jnp.float32,
+                              pos=None if p is None else jnp.asarray(p))
+        tq, tk = tllama._rope(torch.from_numpy(q), torch.from_numpy(k),
+                              10000.0, torch.float32,
+                              pos=None if p is None else torch.from_numpy(p))
+        np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-6)
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-6)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_decode_logits_match_reference(pair, kv_int8):
+    """Prefill logits and two decode steps' logits within 1e-4."""
+    jm, tm = pair
+    ids = _prompts(jm.config.vocab_size, seed=1)
+    b, plen = ids.shape
+    jcfg, tcfg = jgen._GenCfg(jm.config), tgen._GenCfg(tm.config)
+    jp, tp = jgen._collect_params(jm), tgen._collect_params(tm)
+    nh = jcfg.num_attention_heads
+    nkv = jcfg.num_key_value_heads
+    shape = (2, b, plen + 2, nkv, jcfg.hidden_size // nh)
+    jk = jv = jnp.zeros(shape, jnp.float32)
+    tk, tv = torch.zeros(shape), torch.zeros(shape)
+    step_ids = ids
+    for valid in (plen, plen + 1, plen + 2):
+        jl, jk, jv = jgen._forward(jp, jnp.asarray(step_ids), jk, jv,
+                                   jnp.asarray(valid), jcfg,
+                                   kv_int8=kv_int8)
+        tl = tgen._forward(tp, torch.from_numpy(step_ids), tk, tv, valid,
+                           tcfg, kv_int8=kv_int8)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   rtol=0)
+        step_ids = np.asarray(jnp.argmax(jl, -1), np.int32)[:, None]
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_greedy_generate_identical_to_reference(pair, kv_int8):
+    jm, tm = pair
+    ids = _prompts(jm.config.vocab_size, seed=2, b=3, plen=6)
+    want = jax_generate(jm, pt.to_tensor(ids), max_new_tokens=10,
+                        kv_int8=kv_int8).numpy()
+    got = generate(tm, ids, max_new_tokens=10, kv_int8=kv_int8,
+                   device="cpu")
+    assert got.dtype == torch.int32 and got.shape == (3, 10)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_greedy_generate_eos_identical_to_reference(pair):
+    jm, tm = pair
+    ids = _prompts(jm.config.vocab_size, seed=3, b=2, plen=5)
+    free = generate(tm, ids, max_new_tokens=8, device="cpu").numpy()
+    eos = int(free[0, 2])  # a token row 0 emits early
+    want = jax_generate(jm, pt.to_tensor(ids), max_new_tokens=8,
+                        eos_token_id=eos).numpy()
+    got = generate(tm, torch.from_numpy(ids), max_new_tokens=8,
+                   eos_token_id=eos, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[0, 2:] == eos).all()
+
+
+def test_collect_params_follows_weight_updates(pair):
+    _, tm = pair
+    first = tgen._collect_params(tm)
+    assert tgen._collect_params(tm) is first
+    with torch.no_grad():
+        tm.llama.norm.weight.mul_(1.0)  # an in-place write bumps the version
+    again = tgen._collect_params(tm)
+    assert again is not first
+    torch.testing.assert_close(again["norm"], first["norm"])
+
+
+def test_training_forward_waits_for_the_training_slice(pair):
+    _, tm = pair
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tm(torch.zeros(1, 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("given,want", [
+    ("bfloat16", torch.bfloat16), ("float32", torch.float32),
+    (np.int32, torch.int32), (np.dtype("int8"), torch.int8),
+    (jnp.bfloat16, torch.bfloat16), (torch.float16, torch.float16)])
+def test_dtype_names_map_to_torch(given, want):
+    assert to_torch_dtype(given) is want
+
+
+def test_unknown_dtype_and_device_raise():
+    with pytest.raises(ValueError):
+        to_torch_dtype("complex32")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_moe_config_raises():
+    with pytest.raises(NotImplementedError, match="MoE"):
+        LlamaForCausalLM(LlamaConfig.tiny(moe_num_experts=4), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["do_sample", "int8_weights",
+                                    "left_pad_mask"])
+def test_unported_generate_options_raise(pair, option):
+    _, tm = pair
+    ids = np.ones((2, 4), np.int32)
+    kw = {"do_sample": dict(do_sample=True),
+          "int8_weights": dict(int8_weights=True),
+          "left_pad_mask": dict(attention_mask=np.array(
+              [[0, 1, 1, 1], [1, 1, 1, 1]]))}[option]
+    with pytest.raises(NotImplementedError):
+        generate(tm, ids, max_new_tokens=2, device="cpu", **kw)
+    if option == "left_pad_mask":  # an all-ones mask is no mask
+        generate(tm, ids, max_new_tokens=2, device="cpu",
+                 attention_mask=np.ones((2, 4), np.int32))
+
+
+def test_default_device_raises_without_gpu(pair, monkeypatch):
+    _, tm = pair
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(tm, np.ones((1, 3), np.int32), max_new_tokens=2)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, imported in a fresh interpreter, leaves
+    neither ``jax`` nor ``paddle_tpu`` in ``sys.modules``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import paddle_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'paddle_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules "
+        "if n.startswith('paddle_tpu_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every module was imported

@@ -1,0 +1,158 @@
+"""The port's paged-attention decode and int8 KV quantizer held against
+the JAX package.
+
+- The plain versions ``paged_attend_ref``/``paged_attend_int8_ref`` of
+  ``paddle_tpu_torch/ops/cuda/paged_attention.py`` against the Pallas
+  kernels run in interpret mode, on the geometry of
+  ``tests/test_serving.py::test_paged_kernel_parity_vs_attend_lanes``:
+  fp32, atol 2e-5 (both sides compute in fp32; the streaming and the
+  one-pass softmax differ in summation order only).
+- ``quantize_kv``/``dequantize_kv`` bit-identical to the reference.
+- The wrappers' input checks, and their CPU dispatch to the plain
+  version.
+
+The CUDA kernels themselves are held against these plain versions on
+the card by ``tests/test_torch_gpu.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import paged_attention as jpa
+from paddle_tpu.quantization import dequantize_kv as jax_dequantize_kv
+from paddle_tpu.quantization import quantize_kv as jax_quantize_kv
+from paddle_tpu_torch.ops.cuda import paged_attention as pa
+from paddle_tpu_torch.quantization import dequantize_kv, quantize_kv
+
+L, M, B, NKV, G, D = 4, 4, 8, 2, 2, 16
+POS = [0, 5, B + 3, M * B - 1]
+
+
+def _inputs(seed=0, permute=False, nkv=NKV, g=G, d=D, b=B, m=M, lanes=L,
+            pos=POS):
+    rng = np.random.RandomState(seed)
+    nh = nkv * g
+    q = rng.randn(lanes, nh, d).astype(np.float32)
+    kpool = rng.randn(lanes * m + 1, b, nkv, d).astype(np.float32)
+    vpool = rng.randn(lanes * m + 1, b, nkv, d).astype(np.float32)
+    tables = np.arange(lanes * m, dtype=np.int32) + 1
+    if permute:  # blocks of one lane scattered over the pool
+        tables = rng.permutation(tables).astype(np.int32)
+    tables = tables.reshape(lanes, m)
+    return q, kpool, vpool, tables, np.asarray(pos, np.int32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("permute", [False, True])
+def test_paged_ref_matches_pallas(window, permute):
+    q, kp, vp, tab, pos = _inputs(permute=permute)
+    want = np.asarray(jpa.paged_attend(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tab),
+        jnp.asarray(pos), window=window, interpret=True))
+    got = pa.paged_attend_ref(*_t(q, kp, vp, tab, pos), window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_paged_int8_ref_matches_pallas(window):
+    q, kp, vp, tab, pos = _inputs(seed=1)
+    kq, ks = jax_quantize_kv(jnp.asarray(kp))
+    vq, vs = jax_quantize_kv(jnp.asarray(vp))
+    want = np.asarray(jpa.paged_attend_int8(
+        jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(tab), jnp.asarray(pos),
+        window=window, interpret=True))
+    got = pa.paged_attend_int8_ref(
+        *_t(q, np.asarray(kq), np.asarray(vq), np.asarray(ks),
+            np.asarray(vs), tab, pos), window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+def test_quantize_kv_bit_identical():
+    rng = np.random.RandomState(2)
+    x = rng.randn(3, 5, 2, 16).astype(np.float32) * 3
+    # rows whose scale is exactly 1: x / s lands on .5 ties, which both
+    # sides must round half to even
+    x[0, 0, 0] = np.linspace(-7.5, 7.5, 16, dtype=np.float32)
+    x[0, 0, 0, 0] = 127.0
+    x[1, 1, 1] = 0.0  # an all-zero row takes the 1e-12 scale floor
+    jq, js = jax_quantize_kv(jnp.asarray(x))
+    tq, ts = quantize_kv(torch.from_numpy(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        dequantize_kv(tq, ts, torch.float32).numpy(),
+        np.asarray(jax_dequantize_kv(jq, js, jnp.float32)))
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    q, kp, vp, tab, pos = _t(*_inputs(seed=3))
+    before = (pa.paged_attend.launches, pa.paged_attend_int8.launches)
+    torch.testing.assert_close(
+        pa.paged_attend(q, kp, vp, tab, pos, window=6),
+        pa.paged_attend_ref(q, kp, vp, tab, pos, window=6), rtol=0, atol=0)
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    torch.testing.assert_close(
+        pa.paged_attend_int8(q, kq, vq, ks, vs, tab, pos),
+        pa.paged_attend_int8_ref(q, kq, vq, ks, vs, tab, pos), rtol=0,
+        atol=0)
+    # the counters count kernel launches only
+    assert (pa.paged_attend.launches,
+            pa.paged_attend_int8.launches) == before
+
+
+def _bad_inputs(case):
+    q, kp, vp, tab, pos = _t(*_inputs(seed=4))
+    if case == "d_not_multiple_of_8":
+        q, kp, vp, tab, pos = _t(*_inputs(d=12))
+    elif case == "d_over_256":
+        q, kp, vp, tab, pos = _t(*_inputs(d=264))
+    elif case == "heads_not_grouped":
+        q = torch.zeros(L, 3, D)
+    elif case == "pool_not_contiguous":
+        kp = kp.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "dtype_mismatch":
+        q = q.to(torch.bfloat16)
+    elif case == "float16_pool":
+        q, kp, vp = q.half(), kp.half(), vp.half()
+    elif case == "tables_int64":
+        tab = tab.long()
+    elif case == "pos_wrong_shape":
+        pos = pos[:2]
+    elif case == "negative_window":
+        return (q, kp, vp, tab, pos), -1
+    return (q, kp, vp, tab, pos), 0
+
+
+@pytest.mark.parametrize("case", [
+    "d_not_multiple_of_8", "d_over_256", "heads_not_grouped",
+    "pool_not_contiguous", "dtype_mismatch", "float16_pool",
+    "tables_int64", "pos_wrong_shape", "negative_window"])
+def test_paged_attend_rejects(case):
+    args, window = _bad_inputs(case)
+    with pytest.raises(ValueError):
+        pa.paged_attend(*args, window=window)
+
+
+@pytest.mark.parametrize("case", ["float_pool", "scale_shape", "d_not_16"])
+def test_paged_attend_int8_rejects(case):
+    q, kp, vp, tab, pos = _t(*_inputs(seed=5))
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    if case == "float_pool":
+        kq, vq = kp, vp
+    elif case == "scale_shape":
+        ks = ks[:, :, :1].contiguous()
+    elif case == "d_not_16":
+        q, kp, vp, tab, pos = _t(*_inputs(d=8))
+        kq, ks = quantize_kv(kp)
+        vq, vs = quantize_kv(vp)
+    with pytest.raises(ValueError):
+        pa.paged_attend_int8(q, kq, vq, ks, vs, tab, pos)
