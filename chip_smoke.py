@@ -1,8 +1,9 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA Hopper card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+Hopper card.
 
     python3 chip_smoke.py
 
-Five phases in one process; any failure raises and exits non-zero, and
+Eight phases in one process; any failure raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
 1. device: name, capability (must be 9.0), versions, power limit;
@@ -19,7 +20,20 @@ only a run in which every phase passed prints the final line:
    finish, and each kernel's launch count over its run must equal
    layers x decode rounds (> 0);
 5. token identity: a float32 tiny engine under preemption pressure must
-   emit exactly the tokens of the port's own greedy ``generate()``.
+   emit exactly the tokens of the port's own greedy ``generate()``;
+6. flash kernels at full width: the forward, dQ and dK/dV kernels each
+   against its plain PyTorch version on the card, output tile by output
+   tile (causal, sliding window, GQA, sq < sk, non-causal), then timed
+   at the headline shape
+   beside the plain version, ``F.scaled_dot_product_attention`` and the
+   bound;
+7. train: the 0.44B Llama (bf16, random weights from a seed) through
+   ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)`` on one
+   b8 x s1024 batch; the loss must start near ln(vocab), stay finite
+   and fall, and each flash kernel must launch layers x steps times;
+8. train identity: a float32 tiny model trained 10 AdamW steps with
+   global-norm clipping on the card (kernels) and on the CPU (plain
+   versions) from the same weights must agree step by step.
 
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
 line with every kernel's numbers, then as its last line
@@ -34,9 +48,15 @@ import time
 import numpy as np
 import torch
 
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, generate
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import (
+    LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
+)
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops.cuda import _build
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import quantize_kv
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -367,6 +387,354 @@ def phase_identity():
             f"{eng.counters['decode_steps']} paged decode rounds")
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+# (name, b, sq, sk, h, h_kv, causal, window) at d 128, bf16; the first is
+# the training step's shape
+FLASH_CASES = [
+    ("headline", 8, 1024, 1024, 12, 12, True, 0),
+    ("window256", 8, 1024, 1024, 12, 12, True, 256),
+    ("gqa", 2, 1024, 1024, 12, 4, True, 0),
+    ("sq512_sk1024", 2, 512, 1024, 12, 12, True, 0),
+    ("noncausal", 2, 1024, 1024, 12, 12, False, 0),
+]
+# Kernel vs plain version on the same card and bf16 inputs; the plain
+# version runs on fp32 copies of the same values and returns fp32, so
+# only the kernel's own roundings separate them. These shapes run the
+# tensor-core kernels (bf16, d <= 128).
+#
+# The deciding measure is relative and per tile: for each (batch, head)
+# and each 64 rows (the kernels' tile), ||got - want|| / ||want||. A
+# measure scaled by the max abs would take its scale from the first rows
+# and keys, where causal attention is sharpest and |dK|, |dV| are
+# largest (the key at position j is attended with weight ~1/(j+1), so
+# |dV| there is ~sqrt(1/(j+1)) of the first key's); at the max-scaled
+# 2e-2 a late tile off by tens of percent would pass. Expected floor: one
+# bf16 rounding of the output (relative RMS ~2**-8 / sqrt(3) ~ 2.3e-3 at
+# worst) and, in the backward, the bf16 rounding of P and dS as
+# tensor-core operands (~2e-3 each, averaged over the sums); the plain
+# result's own bf16 rounding is printed beside the error as that floor.
+# FLASH_REL_TOL is ~4x the floor, and a tile 10 % off fails it.
+FLASH_REL_TOL = 1e-2
+# also held, as first specified: O within 2e-2 abs (one bf16 rounding of
+# an O(1) value is up to 2**-8 ~ 4e-3), each gradient within 2e-2 of its
+# max abs; lse is fp32 in both, so only the order of the sums separates
+# them (1e-3 on values ~10)
+FLASH_ATOL = 2e-2
+LSE_ATOL = 1e-3
+
+
+def _flash_inputs(b, sq, sk, h, h_kv, gen, d=128):
+    def mk(*shape):
+        return torch.randn(*shape, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+    return mk(b, sq, h, d), mk(b, sk, h_kv, d), mk(b, sk, h_kv, d), \
+        mk(b, sq, h, d)
+
+
+def _normalized_err(got, want):
+    scale = want.float().abs().max().clamp(min=1e-9)
+    return ((got.float() - want.float()) / scale).abs().max().item()
+
+
+def _tile_rel_err(got, want, tile=64):
+    """The largest relative Frobenius error over the output tiles of
+    ``[b, s, h, d]`` tensors: ``tile`` rows of one (batch, head) each. A
+    tile whose reference is exactly zero (rows that see no key) must be
+    exactly zero too."""
+    b, s, h, d = want.shape
+    pad = (0, 0, 0, 0, 0, -s % tile)
+
+    def tile_sq_norms(x):
+        x = torch.nn.functional.pad(x, pad)
+        return x.reshape(b, -1, tile, h, d).square().sum((2, 4))
+
+    dn = tile_sq_norms(got.float() - want.float())
+    wn = tile_sq_norms(want.float())
+    rel = torch.where(wn > 0, dn / wn, torch.where(
+        dn > 0, torch.full((), float("inf"), device=dn.device), 0.0))
+    return rel.max().sqrt().item()
+
+
+def _flash_bound(q, k, causal, window, kernel):
+    """Least time for one call's work at these inputs: the larger of its
+    bytes over the HBM rate (each input read once, each output written
+    once) and its operations over the bf16 peak. Operations count only
+    the visible (row, key) pairs: 2 * d per product per pair, 2 products
+    forward (QK, PV), 3 for dQ (QK, dO.V, dS.K), 4 for dK/dV (QK, dO.V,
+    P^T.dO, dS^T.Q)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    vis = fa._visible(sq, sk, causal, window, "cpu")
+    pairs = sq * sk if vis is None else int(vis.sum())
+    products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+    ops = b * h * pairs * 2 * d * products[kernel]
+    q_bytes = q.numel() * q.element_size()
+    kv_bytes = 2 * k.numel() * k.element_size()
+    row_bytes = b * h * sq * 4  # one fp32 per row: lse, delta
+    nbytes = {"flash_fwd": 2 * q_bytes + kv_bytes + row_bytes,
+              "flash_bwd_dq": 3 * q_bytes + kv_bytes + 2 * row_bytes,
+              "flash_bwd_dkv": 2 * q_bytes + 2 * kv_bytes
+              + 2 * row_bytes}[kernel]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _flash_check(case, gen):
+    name, b, sq, sk, h, h_kv, causal, window = case
+    kw = dict(causal=causal, window=window)
+    q, k, v, do = _flash_inputs(b, sq, sk, h, h_kv, gen)
+    f32 = [t.float() for t in (q, k, v, do)]
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_fwd_ref(*f32[:3], **kw)
+    # the backward's inputs, shared by kernel and plain version: lse and
+    # delta = rowsum(dO * O) from O as the forward hands it on (bf16)
+    delta = (do.float() * want_out.to(q.dtype).float()).sum(-1) \
+        .permute(0, 2, 1).reshape(b * h, sq).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, want_lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, **kw)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(*f32, want_lse, delta, **kw)
+    pairs = {"flash_fwd": [(out, want_out)], "flash_bwd_dq": [(dq, want_dq)],
+             "flash_bwd_dkv": [(dk, want_dk), (dv, want_dv)]}
+    rel = {n: max(_tile_rel_err(g, w) for g, w in p) for n, p in pairs.items()}
+    floor = {n: max(_tile_rel_err(w.to(q.dtype), w) for _, w in p)
+             for n, p in pairs.items()}
+    abs_err = {n: max((g.float() - w).abs().max().item() for g, w in p)
+               for n, p in pairs.items()}
+    loose = {"flash_fwd": abs_err["flash_fwd"],
+             "flash_bwd_dq": _normalized_err(dq, want_dq),
+             "flash_bwd_dkv": max(_normalized_err(dk, want_dk),
+                                  _normalized_err(dv, want_dv))}
+    lse_err = (lse - want_lse).abs().max().item()
+    log(f"[flash] {name} b={b} sq={sq} sk={sk} h={h} h_kv={h_kv} d=128 "
+        f"causal={causal} window={window}: per-tile relative error "
+        + ", ".join(f"{n} {rel[n]:.3e} (bf16 floor {floor[n]:.3e})"
+                    for n in rel)
+        + f" (tol {FLASH_REL_TOL}); O max_abs_err {loose['flash_fwd']:.3e}, "
+        f"dQ {loose['flash_bwd_dq']:.3e}, dK/dV "
+        f"{loose['flash_bwd_dkv']:.3e} of their max (tol {FLASH_ATOL}); "
+        f"lse {lse_err:.3e} (tol {LSE_ATOL})")
+    bad = [n for n in rel if not (rel[n] <= FLASH_REL_TOL
+                                  and loose[n] <= FLASH_ATOL)]
+    if bad or not lse_err <= LSE_ATOL:
+        raise AssertionError(f"{name}: {bad or ['lse']} disagree with the "
+                             f"plain versions: relative {rel}, {loose}, "
+                             f"lse {lse_err}")
+    return abs_err, (q, k, v, do, want_lse, delta)
+
+
+def _time_call(fn, iters=20):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def phase_flash(layers):
+    gen = torch.Generator("cuda").manual_seed(1)
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for case in FLASH_CASES[1:]:
+        e, _ = _flash_check(case, gen)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+    e, (q, k, v, do, lse, delta) = _flash_check(FLASH_CASES[0], gen)
+    errs = {k_: max(errs[k_], e[k_]) for k_ in errs}
+    kw = dict(causal=True, window=0)
+    kernels = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_fwd_ref(q, k, v, **kw)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)),
+    }
+    # the yardstick: PyTorch's fused attention on [b, h, s, d] copies of
+    # the same inputs (top-left causal, equal to bottom-right at sq ==
+    # sk); its backward yields dQ, dK and dV together, so kernels 2 and 3
+    # share one library time. Timed only: the port never calls it.
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib_fwd = _time_call(lambda: sdpa(qt, kt, vt, is_causal=True))
+    out_t = sdpa(qt, kt, vt, is_causal=True)
+    lib_bwd = _time_call(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), dot, retain_graph=True))
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    rows = {}
+    for name, (kern, plain) in kernels.items():
+        ms = _time_call(kern)
+        plain_ms = _time_call(plain, iters=5)
+        bound_ms, bound_by = _flash_bound(q, k, True, 0, name)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms,
+                          library_ms=library[name], bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=errs[name])
+        log(f"[flash] {name} b8 s1024 h12 d128 bf16 causal: kernel_ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{library[name]:.4f} bound_ms {bound_ms:.5f} ({bound_by}); "
+            f"launches per train step = {layers} (layers)")
+    return rows
+
+
+# -- phase 7 ------------------------------------------------------------------
+
+TRAIN = dict(FULL, max_position_embeddings=1024,
+             use_parallel_cross_entropy=False, ce_chunk_size=0)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+FLASH_WRAPPERS = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+
+
+def _train_batch(vocab, b, s, seed=0):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (b, s)).astype(np.int32)
+    labels = rng.randint(0, vocab, (b, s)).astype(np.int32)
+    return (torch.from_numpy(ids).to("cuda"),
+            torch.from_numpy(labels).to("cuda"))
+
+
+def phase_train(card):
+    """bench.py's headline train step on the card: the 0.44B Llama, bf16,
+    b8 x s1024, plain CE, AdamW(1e-4) with fp32 masters, TrainStep."""
+    cfg = LlamaConfig(**TRAIN)
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    step = TrainStep(model, opt, lambda m, i, l: m(i, l))
+    ids, labels = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(ids, labels)) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    for w in FLASH_WRAPPERS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    timed = [step(ids, labels) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    losses += [float(x) for x in timed]
+    layers, steps = cfg.num_hidden_layers, TIMED_STEPS
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not abs(losses[0] - np.log(cfg.vocab_size)) < 0.7:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln(vocab) = {np.log(cfg.vocab_size):.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    for p in model.parameters():
+        master = opt._master_weights[id(p)]
+        if p.dtype != torch.bfloat16 or master.dtype != torch.float32:
+            raise AssertionError(f"param {p.dtype}, master {master.dtype}")
+    for name, n in launches.items():
+        if n != layers * steps or n <= 0:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"steps, expected layers x steps = "
+                                 f"{layers} x {steps}")
+    # one more step, split by CUDA events as TrainStep runs it
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.clear_grad()
+    ev[0].record()
+    loss = model(ids, labels)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    ms = wall / steps * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = model.flops_per_token(TRAIN_SEQ) * tokens / (ms / 1e3) \
+        / PEAK_OPS_PER_S[torch.bfloat16]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] on {card}: {n_params / 1e9:.3f} B parameters, bf16, "
+        f"b{TRAIN_BATCH} x s{TRAIN_SEQ}; losses "
+        f"{[round(x, 4) for x in losses]}; {ms:.2f} ms per step over "
+        f"{steps} steps = {tokens / ms * 1e3:.0f} tokens/s, MFU "
+        f"{mfu:.4f} (flops_per_token x tokens / time / 989e12); one step "
+        f"split: forward {split[0]:.2f} ms, backward {split[1]:.2f} ms, "
+        f"optimizer {split[2]:.2f} ms; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; flash "
+        f"launches {launches}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+IDENTITY_STEPS = 10
+# fp32 on both sides, so the card runs the fp32-FMA kernels; it holds
+# the autograd Function, the model and the optimizer around them, which
+# the bf16 tensor-core kernels of the main path share (those kernels are
+# held in phase 6). The card sums in another order than the CPU. The
+# losses are held to 1e-4 at every step. Params to 2e-3, the tolerance
+# of tests/test_torch_train.py against JAX: Adam's first steps move each
+# weight by about lr * sign(g), so a gradient near 0 whose sign the two
+# summation orders flip moves the weight ~2 lr apart.
+IDENTITY_LOSS_ATOL, IDENTITY_PARAM_ATOL = 1e-4, 2e-3
+
+
+def train_tiny(device, weights, steps=IDENTITY_STEPS):
+    """The tiny fp32 model from ``weights`` trained ``steps`` AdamW steps
+    (lr 1e-3, wd 0.01, global-norm clip 1.0) on seeded batches; returns
+    (losses, model)."""
+    cfg = LlamaConfig.tiny(num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device=device)
+    load_jax_weights(model, weights)
+    step = TrainStep(model, AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                  parameters=model.parameters(),
+                                  grad_clip=ClipGradByGlobalNorm(1.0)))
+    losses = []
+    for i in range(steps):
+        rng = np.random.RandomState(100 + i)
+        ids, labels = (torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(device)
+            for _ in range(2))
+        losses.append(float(step(ids, labels)))
+    return losses, model
+
+
+def phase_train_identity():
+    seed_model = LlamaForCausalLM(
+        LlamaConfig.tiny(num_hidden_layers=2), device="cpu",
+        generator=torch.Generator("cpu").manual_seed(0))
+    weights = {n: p.detach().numpy() for n, p in seed_model.named_parameters()}
+    for w in FLASH_WRAPPERS:
+        w.launches = 0
+    got, gm = train_tiny("cuda", weights)
+    if min(w.launches for w in FLASH_WRAPPERS) <= 0:
+        raise AssertionError("the card's tiny run never launched the flash "
+                             "kernels")
+    want, wm = train_tiny("cpu", weights)
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    pdiff = max((p.detach().cpu() - q.detach()).abs().max().item()
+                for p, q in zip(gm.parameters(), wm.parameters()))
+    log(f"[train-identity] {IDENTITY_STEPS} AdamW steps, fp32 tiny: "
+        f"losses card {[round(x, 6) for x in got]} vs CPU "
+        f"{[round(x, 6) for x in want]}: max diff {diff:.3e} (tol "
+        f"{IDENTITY_LOSS_ATOL}), params max diff {pdiff:.3e} (tol "
+        f"{IDENTITY_PARAM_ATOL})")
+    if not diff <= IDENTITY_LOSS_ATOL or not pdiff <= IDENTITY_PARAM_ATOL:
+        raise AssertionError("the card's training run left the CPU's")
+
+
 def main():
     t0 = time.perf_counter()
     name, smi = phase_device()
@@ -374,13 +742,20 @@ def main():
     rows = phase_kernels()
     launches = phase_serve(name)
     phase_identity()
-    src = "paddle_tpu_torch/ops/cuda/csrc/paged_attention.cu"
-    replaces = {"paged_attend": "paddle_tpu/ops/pallas/paged_attention.py:51",
-                "paged_attend_int8":
-                    "paddle_tpu/ops/pallas/paged_attention.py:170"}
-    kernels = [dict(name=k, route="cuda", source=src, replaces=replaces[k],
-                    launches=launches[k], **rows[k])
-               for k in ("paged_attend", "paged_attend_int8")]
+    rows.update(phase_flash(TRAIN["num_hidden_layers"]))
+    launches.update(phase_train(name))
+    phase_train_identity()
+    pallas = "paddle_tpu/ops/pallas/"
+    sources = {"paged": "paddle_tpu_torch/ops/cuda/csrc/paged_attention.cu",
+               "flash": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"}
+    replaces = {"paged_attend": pallas + "paged_attention.py:51",
+                "paged_attend_int8": pallas + "paged_attention.py:170",
+                "flash_fwd": pallas + "flash_attention.py:129",
+                "flash_bwd_dq": pallas + "flash_attention.py:201",
+                "flash_bwd_dkv": pallas + "flash_attention.py:257"}
+    kernels = [dict(name=k, route="cuda", source=sources[k.split("_")[0]],
+                    replaces=replaces[k], launches=launches[k], **rows[k])
+               for k in replaces]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,20 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of ``paddle_tpu``.
 
-The port serves the Llama causal LM through the continuous-batching
+The port trains the Llama causal LM (``jit.TrainStep`` with
+``optimizer.AdamW``) and serves it through the continuous-batching
 engine on one NVIDIA Hopper card. Module names follow the JAX package
-(``models/llama.py``, ``models/generation.py``, ``serving/engine.py``,
-...) so every module has an obvious counterpart; the Pallas kernels on
-that path become hand-written CUDA C++ under ``ops/cuda/``.
+(``models/llama.py``, ``jit/train_step.py``, ``serving/engine.py``, ...)
+so every module has an obvious counterpart; the Pallas kernels on those
+paths become hand-written CUDA C++ under ``ops/cuda/``.
 
+    from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.serving import ServingEngine
 
     model = LlamaForCausalLM(LlamaConfig.tiny())          # on "cuda"
+    step = TrainStep(model, AdamW(parameters=model.parameters()))
+    loss = step(input_ids, labels)
     engine = ServingEngine(model)
     engine.submit([1, 2, 3], max_new_tokens=8)
     outputs = engine.run()

@@ -1,0 +1,4 @@
+"""The train step (``paddle_tpu/jit``)."""
+from .train_step import TrainStep  # noqa: F401
+
+__all__ = ["TrainStep"]

@@ -5,7 +5,7 @@ compiles prefill plus a ``lax.scan`` of decode steps into one program;
 here the same math runs eagerly: prefill writes the whole prompt into a
 preallocated KV cache ``[layers, b, max_len, kv_heads, head_dim]``, then
 a Python loop feeds one token at a time against it with a length mask.
-The helpers (``_mm``, ``_rms``, ``_rope_at``, ``_attend``) keep the
+The helpers (``_mm``, ``rms_norm``, ``_rope_at``, ``_attend``) keep the
 reference's dtype casts line for line: the serving engine reuses them,
 and greedy ``generate()`` is the engine's token-identity oracle.
 """
@@ -19,6 +19,7 @@ import torch
 
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
+from ..nn.functional.norm import rms_norm
 from ..quantization import dequantize_kv, quantize_kv
 from .llama import _rope
 
@@ -60,12 +61,6 @@ def _collect_params(model) -> dict:
     return params
 
 
-def _rms(x, w, eps):
-    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1,
-                     keepdim=True)
-    return (x.to(torch.float32) * torch.rsqrt(var + eps)).to(x.dtype) * w
-
-
 def _rope_at(q, k, pos, theta):
     """RoPE at per-token absolute positions ``pos`` — the training
     forward's helper (``llama._rope``), so the conventions cannot
@@ -98,7 +93,7 @@ def _attend(q, kc, vc, valid_len, nh, nkv, sliding_window=0):
 
 
 def _mlp(x, layer_p, cfg):
-    h2 = _rms(x, layer_p["ln2"], cfg.rms_norm_eps)
+    h2 = rms_norm(x, layer_p["ln2"], cfg.rms_norm_eps)
     gate, up = _mm(h2, layer_p["gate_up"]).chunk(2, dim=-1)
     act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype)
     return x + _mm(act * up, layer_p["down"])
@@ -111,7 +106,7 @@ def _qkv(x, layer_p, pos, cfg):
     nkv = cfg.num_key_value_heads
     d = cfg.hidden_size // nh
     b, s = x.shape[0], x.shape[1]
-    h = _rms(x, layer_p["ln1"], cfg.rms_norm_eps)
+    h = rms_norm(x, layer_p["ln1"], cfg.rms_norm_eps)
     q, k, v = torch.split(_mm(h, layer_p["qkv"]),
                           [nh * d, nkv * d, nkv * d], dim=-1)
     q, k = _rope_at(q.reshape(b, s, nh, d), k.reshape(b, s, nkv, d), pos,
@@ -153,7 +148,7 @@ def _forward(params, ids, cache_k, cache_v, valid_len, cfg, kv_int8=False):
         layer_p = {k: params[k][li] for k in _LAYER_KEYS}
         x = _block(x, layer_p, cache_k, cache_v, li, pos, valid_len, cfg,
                    kv_int8=kv_int8)
-    x = _rms(x, params["norm"], cfg.rms_norm_eps)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return _mm(x[:, -1], params["lm_head"]).to(torch.float32)
 
 

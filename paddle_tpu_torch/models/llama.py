@@ -6,11 +6,12 @@ model's names (``llama.embed_tokens.weight``,
 and Paddle's ``[in, out]`` weight layout, so :func:`load_jax_weights`
 can fill the port from the reference model's arrays one name at a time.
 
-This slice of the port serves the model (``models/generation.py``,
-``serving/engine.py``); both read the stacked weights through
-``generation._collect_params``. The full-sequence training ``forward``
-needs the flash-attention kernels of the training slice and raises
-until then.
+Two paths read the same trainable parameters: the full-sequence
+``forward`` (training: logits, or the loss given labels), whose
+attention runs through the flash-attention kernels, and the decode path
+(``models/generation.py``, ``serving/engine.py``), which reads the
+stacked weights through ``generation._collect_params`` under
+``no_grad``.
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.mp_layers import ParallelCrossEntropy, masked_token_mean
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
+from ..nn import functional as F
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "load_jax_weights"]
@@ -145,27 +148,51 @@ def _rope(q, k, theta, dtype, pos=None):
 
 
 class _Weight(nn.Module):
-    """One named ``weight`` parameter — the leaf modules of the reference
+    """One named trainable ``weight`` — the leaf modules of the reference
     (``ColumnParallelLinear``/``RowParallelLinear`` in ``[in, out]``
-    layout, ``RMSNorm``, ``VocabParallelEmbedding``) reduced to what the
-    decode path reads."""
+    layout, ``RMSNorm``, ``VocabParallelEmbedding``) at degree 1, where
+    their sharding hints are no-ops."""
 
     def __init__(self, shape, dtype, device):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.empty(shape, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.empty(shape, dtype=dtype, device=device))
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, config, dtype, device):
         super().__init__()
+        self.config = config
         h = config.hidden_size
-        nh = config.num_attention_heads
-        nkv = config.num_key_value_heads
-        d = h // nh
-        self.qkv_proj = _Weight((h, (nh + 2 * nkv) * d), dtype, device)
-        self.o_proj = _Weight((nh * d, h), dtype, device)
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = h // self.num_heads
+        self.qkv_proj = _Weight(
+            (h, (self.num_heads + 2 * self.num_kv_heads) * self.head_dim),
+            dtype, device)
+        self.o_proj = _Weight((self.num_heads * self.head_dim, h), dtype,
+                              device)
+
+    def forward(self, x):
+        cfg = self.config
+        b, s = x.shape[0], x.shape[1]
+        d = self.head_dim
+        q, k, v = torch.split(
+            x @ self.qkv_proj.weight,
+            [self.num_heads * d, self.num_kv_heads * d,
+             self.num_kv_heads * d], dim=-1)
+        q, k = _rope(q.reshape(b, s, self.num_heads, d),
+                     k.reshape(b, s, self.num_kv_heads, d), cfg.rope_theta,
+                     x.dtype)
+        # v stays a strided view of the projection: the kernels read
+        # [b, s, h, d] through strides. GQA runs in the kernels, which
+        # map each q head to its kv head without repeating K/V.
+        v = v.reshape(b, s, self.num_kv_heads, d)
+        if cfg.sliding_window > 0:
+            out = F.sliding_window_attention(q, k, v, cfg.sliding_window)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return out.reshape(b, s, self.num_heads * d) @ self.o_proj.weight
 
 
 class LlamaMLP(nn.Module):
@@ -175,26 +202,49 @@ class LlamaMLP(nn.Module):
         self.gate_up_proj = _Weight((h, 2 * ffn), dtype, device)
         self.down_proj = _Weight((ffn, h), dtype, device)
 
+    def forward(self, x):
+        gate, up = torch.chunk(x @ self.gate_up_proj.weight, 2, dim=-1)
+        return (F.silu(gate) * up) @ self.down_proj.weight
+
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config, dtype, device):
         super().__init__()
+        self.config = config
         h = config.hidden_size
         self.input_layernorm = _Weight((h,), dtype, device)
         self.self_attn = LlamaAttention(config, dtype, device)
         self.post_attention_layernorm = _Weight((h,), dtype, device)
         self.mlp = LlamaMLP(config, dtype, device)
 
+    def forward(self, x):
+        # sequence_parallel only shards the residual stream over 'mp' in
+        # the reference: at degree 1 it is a no-op
+        eps = self.config.rms_norm_eps
+        h = x + self.self_attn(
+            F.rms_norm(x, self.input_layernorm.weight, eps))
+        return h + self.mlp(
+            F.rms_norm(h, self.post_attention_layernorm.weight, eps))
+
 
 class LlamaModel(nn.Module):
     def __init__(self, config, dtype, device):
         super().__init__()
+        self.config = config
         self.embed_tokens = _Weight((config.vocab_size, config.hidden_size),
                                     dtype, device)
         self.layers = nn.ModuleList(
             LlamaDecoderLayer(config, dtype, device)
             for _ in range(config.num_hidden_layers))
         self.norm = _Weight((config.hidden_size,), dtype, device)
+
+    def forward(self, input_ids):
+        x = torch.nn.functional.embedding(input_ids.long(),
+                                          self.embed_tokens.weight)
+        x = x.to(to_torch_dtype(self.config.dtype))
+        for blk in self.layers:
+            x = blk(x)
+        return F.rms_norm(x, self.norm.weight, self.config.rms_norm_eps)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -218,6 +268,8 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, dtype, dev)
         self.lm_head = _Weight((config.hidden_size, config.vocab_size),
                                dtype, dev)
+        self.loss_fn = (ParallelCrossEntropy()
+                        if config.use_parallel_cross_entropy else None)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         with torch.no_grad():
@@ -242,11 +294,50 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head.weight.device
 
     def forward(self, input_ids, labels=None):
-        raise NotImplementedError(
-            "LlamaForCausalLM.forward (full-sequence training) needs the "
-            "flash-attention kernels of the training slice (ROADMAP queue "
-            "B, kernels 1-3); decode with models.generation.generate or "
-            "serving.ServingEngine")
+        """``input_ids`` ``[b, s]`` -> logits ``[b, s, vocab]`` in the
+        model's dtype, or, given ``labels`` ``[b, s]`` (``-100`` =
+        ignored), the fp32 mean loss over the non-ignored tokens: fp32
+        logits into ``ParallelCrossEntropy`` (degree 1) or
+        ``F.cross_entropy``, then ``masked_token_mean``."""
+        cfg = self.config
+        if cfg.context_parallel:
+            raise NotImplementedError(
+                "context_parallel (ring / Ulysses attention over a "
+                "sequence-sharded mesh) belongs to the distributed slice "
+                "of the port (ROADMAP queue A)")
+        if labels is not None and cfg.ce_chunk_size > 0:
+            raise NotImplementedError(
+                "ce_chunk_size > 0 needs F.chunked_softmax_cross_entropy, "
+                "not ported yet (ROADMAP queue A)")
+        logits = self.model(input_ids) @ self.lm_head.weight
+        if labels is None:
+            return logits
+        labels = labels.long()
+        if self.loss_fn is not None:
+            loss = self.loss_fn(logits.to(torch.float32), labels)
+            ignore = self.loss_fn.ignore_index
+        else:
+            loss = F.cross_entropy(logits.to(torch.float32),
+                                   labels.unsqueeze(-1), reduction="none")
+            ignore = -100
+        return masked_token_mean(loss, labels, ignore)
+
+    def flops_per_token(self, seq_len):
+        """Approximate training FLOPs per token (forward and backward,
+        the 6 included) for MFU accounting — the reference's count."""
+        cfg = self.config
+        n_params = (
+            cfg.vocab_size * cfg.hidden_size * 2
+            + cfg.num_hidden_layers * (
+                cfg.hidden_size * (cfg.num_attention_heads
+                                   + 2 * cfg.num_key_value_heads)
+                * (cfg.hidden_size // cfg.num_attention_heads)
+                + cfg.hidden_size * cfg.hidden_size
+                + 3 * cfg.hidden_size * cfg.intermediate_size
+            )
+        )
+        attn = cfg.num_hidden_layers * 2 * cfg.hidden_size * seq_len
+        return 6 * (n_params + attn)
 
     def generate(self, input_ids, max_new_tokens=32, **kw):
         """Greedy KV-cache decoding (see ``models/generation.py``)."""

@@ -1,0 +1,72 @@
+"""Gradient clipping (counterpart of ``paddle_tpu/nn/clip.py``).
+
+Each clip maps ``[(param, grad)]`` to ``[(param, clipped grad)]`` and
+is applied by ``Optimizer.step`` before the update. Norms are taken in
+fp32; a clipped gradient keeps its dtype. A parameter with
+``need_clip = False`` passes through unclipped (and, for the global
+norm, uncounted).
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+
+
+def _skip(p, g):
+    return g is None or not getattr(p, "need_clip", True)
+
+
+class ClipGradByValue:
+    """Clamp every gradient element to ``[min, max]`` (``min`` defaults
+    to ``-max``)."""
+
+    def __init__(self, max, min=None):  # noqa: A002
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    @torch.no_grad()
+    def __call__(self, params_grads):
+        return [(p, g if _skip(p, g) else g.clamp(self.min, self.max))
+                for p, g in params_grads]
+
+
+class ClipGradByNorm:
+    """Scale each gradient to an L2 norm of at most ``clip_norm``."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    @torch.no_grad()
+    def __call__(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            if _skip(p, g):
+                out.append((p, g))
+                continue
+            norm = torch.linalg.vector_norm(g.to(torch.float32))
+            scale = torch.clamp(self.clip_norm / norm.clamp(min=1e-12),
+                                max=1.0)
+            out.append((p, (g * scale).to(g.dtype)))
+        return out
+
+
+class ClipGradByGlobalNorm:
+    """Scale all gradients by ``min(clip_norm / global_norm, 1)``, the
+    global norm over every clipped gradient in fp32."""
+
+    def __init__(self, clip_norm, group_name="default_group"):
+        self.clip_norm = float(clip_norm)
+        self.group_name = group_name
+
+    @torch.no_grad()
+    def __call__(self, params_grads):
+        sq = [torch.sum(torch.square(g.to(torch.float32)))
+              for p, g in params_grads if not _skip(p, g)]
+        if not sq:
+            return params_grads
+        global_norm = torch.sqrt(torch.stack(sq).sum())
+        scale = torch.clamp(self.clip_norm / global_norm.clamp(min=1e-12),
+                            max=1.0)
+        return [(p, g if _skip(p, g) else (g * scale).to(g.dtype))
+                for p, g in params_grads]

@@ -55,8 +55,9 @@ from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..models.generation import (
     _LAYER_KEYS, _GenCfg, _check_model_device, _collect_params, _mlp, _mm,
-    _qkv, _rms,
+    _qkv,
 )
+from ..nn.functional.norm import rms_norm
 from ..ops.cuda import paged_attention as pa
 from ..quantization import dequantize_kv, quantize_kv
 from .kv_cache import BlockPool, blocks_needed
@@ -243,7 +244,7 @@ def _pool_forward(params, kpool, vpool, kscale, vscale, tables, ids, pos,
 
 
 def _greedy(x, params, cfg):
-    x = _rms(x, params["norm"], cfg.rms_norm_eps)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     logits = _mm(x, params["lm_head"]).to(torch.float32)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 

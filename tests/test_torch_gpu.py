@@ -15,8 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, generate
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import (
+    LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
+)
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import quantize_kv
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -138,3 +144,176 @@ def test_engine_launches_kernels_and_matches_generate(cuda, kv_int8):
         want = generate(tm, prompt[None], max_new_tokens=n,
                         kv_int8=kv_int8, device=cuda).cpu().numpy()[0]
         np.testing.assert_array_equal(outs[r.request_id], want)
+
+
+# -- flash attention ----------------------------------------------------------
+
+# (b, sq, sk, h, h_kv, d, causal, window): d 16 (the tiny model), ragged
+# lengths, GQA, a window, sq < sk and sq > sk (rows without keys), a
+# non-causal d 256 case (the fp32-FMA kernels in bf16 too), the 64 x 64
+# tiles' exact fit, and one query row against 5 keys at d 24 (not a
+# multiple of the tensor cores' k16 step)
+_FLASH = [
+    (2, 64, 64, 4, 4, 16, True, 0),
+    (2, 100, 100, 4, 2, 16, True, 0),
+    (1, 100, 100, 4, 2, 64, True, 24),
+    (2, 37, 100, 2, 1, 128, True, 0),
+    (1, 130, 70, 2, 2, 32, True, 0),
+    (1, 90, 90, 2, 2, 256, False, 0),
+    (2, 128, 128, 4, 4, 128, True, 0),
+    (1, 200, 200, 4, 2, 40, True, 50),
+    (1, 1, 5, 2, 1, 24, True, 0),
+]
+
+
+def _flash_inputs(seed, shape, dtype, device):
+    b, sq, sk, h, h_kv, d, _, _ = shape
+    rng = np.random.RandomState(seed)
+    arrs = (rng.randn(b, sq, h, d), rng.randn(b, sk, h_kv, d),
+            rng.randn(b, sk, h_kv, d), rng.randn(b, sq, h, d))
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+            for a in arrs]
+
+
+def _normalized_close(got, want, atol, name):
+    scale = want.float().abs().max().clamp(min=1e-9)
+    torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                               atol=atol, rtol=0, msg=name)
+
+
+def _tile_rel_err(got, want, tile=64):
+    """The largest relative Frobenius error over the output tiles of
+    ``[b, s, h, d]`` tensors: ``tile`` rows (the kernels' tile) of one
+    (batch, head) each. A tile whose reference is exactly zero (rows that
+    see no key) must be exactly zero too."""
+    b, s, h, d = want.shape
+    pad = (0, 0, 0, 0, 0, -s % tile)
+
+    def tile_sq_norms(x):
+        x = torch.nn.functional.pad(x, pad)
+        return x.reshape(b, -1, tile, h, d).square().sum((2, 4))
+
+    dn = tile_sq_norms(got.float() - want.float())
+    wn = tile_sq_norms(want.float())
+    rel = torch.where(wn > 0, dn / wn, torch.where(
+        dn > 0, torch.full((), float("inf"), device=dn.device), 0.0))
+    return rel.max().sqrt().item()
+
+
+# kernel against plain version on the same card and inputs: fp32 within
+# 1e-4 (summation order only: streaming against one-pass softmax); bf16
+# outputs within 2e-2 (one bf16 rounding of an O(1) value is up to
+# 2^-8, plus the order differences); gradients after dividing by their
+# max abs, lse (fp32 in both) within 1e-4.
+# Those limits take their scale from the largest values, which causal
+# attention puts in the first rows and keys. So every output is also
+# held tile by tile against the plain version run on fp32 copies of the
+# same inputs, by its relative error per tile (_tile_rel_err): fp32
+# within 1e-5 (order of the sums only, ~1e-6 expected); bf16 within
+# 1e-2 (one bf16 rounding of the output, relative RMS up to ~2.3e-3, and
+# in the tensor-core kernels the bf16 rounding of P and dS as operands;
+# a tile 10 % off fails).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _FLASH)
+def test_flash_kernels_match_plain(cuda, shape, dtype):
+    causal, window = shape[6], shape[7]
+    q, k, v, do = _flash_inputs(11, shape, dtype, cuda)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    rel_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    kw = dict(causal=causal, window=window)
+    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_fwd_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    b, sq, h = q.shape[:3]
+    delta = (do.float() * want_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, sq).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, want_lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(x + 1 for x in n)
+    want_dq = fa.flash_bwd_dq_ref(q, k, v, do, want_lse, delta, **kw)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(q, k, v, do, want_lse, delta,
+                                            **kw)
+    _normalized_close(dq, want_dq, atol, "dq")
+    _normalized_close(dk, want_dk, atol, "dk")
+    _normalized_close(dv, want_dv, atol, "dv")
+    f32 = [t.float() for t in (q, k, v, do)]
+    want32_out, _ = fa.flash_fwd_ref(*f32[:3], **kw)
+    want32_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, **kw)
+    want32_dk, want32_dv = fa.flash_bwd_dkv_ref(*f32, want_lse, delta, **kw)
+    for name, got, want in (("O", out, want32_out), ("dq", dq, want32_dq),
+                            ("dk", dk, want32_dk), ("dv", dv, want32_dv)):
+        err = _tile_rel_err(got, want)
+        assert err <= rel_tol, f"{name}: per-tile relative error {err}"
+
+
+def test_flash_reads_strided_qkv_views(cuda):
+    """q/k/v as [b, s, h, d] views of one fused projection output (the
+    Llama layout) give the results of contiguous copies, and the
+    autograd Function launches each kernel once per pass."""
+    b, s, h, h_kv, d = 2, 96, 4, 2, 32
+    gen = torch.Generator(cuda).manual_seed(3)
+    qkv = torch.randn(b, s, (h + 2 * h_kv) * d, device=cuda, generator=gen)
+    q, k, v = torch.split(qkv, [h * d, h_kv * d, h_kv * d], dim=-1)
+    q, k, v = (t.reshape(b, s, -1, d).requires_grad_()
+               for t in (q.detach(), k.detach(), v.detach()))
+    assert not q.is_contiguous()
+    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.square().sum().backward()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(x + 1 for x in n)
+    qc, kc, vc = (t.detach().contiguous().requires_grad_()
+                  for t in (q, k, v))
+    outc = fa.flash_attention(qc, kc, vc, causal=True)
+    outc.square().sum().backward()
+    torch.testing.assert_close(out, outc, atol=0, rtol=0)
+    for a, c in ((q, qc), (k, kc), (v, vc)):
+        torch.testing.assert_close(a.grad, c.grad, atol=0, rtol=0)
+
+
+def _train_tiny(device, weights, steps=10):
+    cfg = LlamaConfig.tiny(num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device=device)
+    load_jax_weights(model, weights)
+    step = TrainStep(model, AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                  parameters=model.parameters(),
+                                  grad_clip=ClipGradByGlobalNorm(1.0)))
+    losses = []
+    for i in range(steps):
+        rng = np.random.RandomState(100 + i)
+        ids, labels = (torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(device)
+            for _ in range(2))
+        losses.append(float(step(ids, labels)))
+    return losses, model
+
+
+def test_train_identity_card_vs_cpu(cuda):
+    """10 fp32 AdamW steps with global-norm clipping on the card (flash
+    kernels, one launch each per layer per step) and on the CPU (plain
+    versions) from the same weights: losses within 1e-4 at every step,
+    params within 2e-3 (Adam's first steps move a weight by about
+    lr * sign(g); a near-zero gradient whose sign the summation orders
+    flip moves it ~2 lr apart)."""
+    seed = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
+                            device="cpu")
+    weights = {n: p.detach().numpy() for n, p in seed.named_parameters()}
+    n = fa.flash_fwd.launches, fa.flash_bwd_dq.launches, \
+        fa.flash_bwd_dkv.launches
+    got, gm = _train_tiny(cuda, weights)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(x + 20 for x in n)
+    want, wm = _train_tiny("cpu", weights)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    for (name, p), q in zip(gm.named_parameters(), wm.parameters()):
+        np.testing.assert_allclose(p.detach().cpu().numpy(),
+                                   q.detach().numpy(), atol=2e-3, rtol=0,
+                                   err_msg=name)

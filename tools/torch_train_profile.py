@@ -1,0 +1,95 @@
+#!/usr/bin/env python
+"""Where a training step's time goes in the PyTorch/CUDA port, on the card.
+
+    python tools/torch_train_profile.py [--steps 2] [--top 20]
+
+Runs ``chip_smoke.py``'s training configuration (the 0.44B bf16 Llama,
+b8 x s1024, plain cross-entropy, ``AdamW(1e-4, multi_precision=True)``
+through ``TrainStep``) for two warm-up steps, then ``--steps`` steps
+under ``torch.profiler``. Prints the device-busy share of the profiled
+wall time, device time by kernel family (the flash kernels, matrix
+products, everything else), and the top kernels by device time. Needs a
+CUDA device.
+"""
+import argparse
+import os
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from chip_smoke import (  # noqa: E402
+    TRAIN, TRAIN_BATCH, TRAIN_SEQ, _train_batch,
+)
+from paddle_tpu_torch.jit import TrainStep  # noqa: E402
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa: E402
+from paddle_tpu_torch.optimizer import AdamW  # noqa: E402
+
+# kernel-name fragments of each family
+FAMILIES = (("flash kernels", ("flash_fwd", "flash_bwd")),
+            ("matrix products", ("gemm", "xmma", "cutlass", "nvjet")))
+
+
+def _family(name):
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--top", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = torch.cuda.get_device_name(0)
+    cfg = LlamaConfig(**TRAIN)
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                  parameters=model.parameters(),
+                                  multi_precision=True))
+    ids, labels = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    for _ in range(2):
+        step(ids, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(ids, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # kernels are the CUDA-side events; the CPU ops that launched them
+    # report the same time again, so count only the former
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"card {card}; {args.steps} train steps, b{TRAIN_BATCH} x "
+          f"s{TRAIN_SEQ}: profiled wall {wall_ms:.1f} ms "
+          f"({wall_ms / args.steps:.2f} ms/step); device busy "
+          f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.1%} (idle "
+          f"{1 - busy_ms / wall_ms:.1%}); kernel launches "
+          f"{sum(e.count for e in kernels)}")
+    by_family = {}
+    for e in kernels:
+        fam = _family(e.key)
+        by_family[fam] = by_family.get(fam, 0.0) \
+            + e.self_device_time_total / 1e3
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:16s} {ms / args.steps:9.2f} ms/step  "
+              f"{ms / busy_ms:6.1%} of device time")
+    print(events.table(sort_by="self_device_time_total",
+                       row_limit=args.top, max_name_column_width=60))
+
+
+if __name__ == "__main__":
+    main()
