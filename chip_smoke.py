@@ -1,9 +1,9 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-Hopper card.
+"""Drive the PyTorch/CUDA port's serving, training and encoder-training
+paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Eight phases in one process; any failure raises and exits non-zero, and
+Eleven phases in one process; any failure raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
 1. device: name, capability (must be 9.0), versions, power limit;
@@ -33,7 +33,24 @@ only a run in which every phase passed prints the final line:
    and fall, and each flash kernel must launch layers x steps times;
 8. train identity: a float32 tiny model trained 10 AdamW steps with
    global-norm clipping on the card (kernels) and on the CPU (plain
-   versions) from the same weights must agree step by step.
+   versions) from the same weights must agree step by step;
+9. encoder kernels at full width: the head-batched kernels (4-6) and the
+   key-mask and dropout variants of kernels 1-3, each against its plain
+   version on the card, output tile by output tile and dmask row by row
+   (BERT-base's b64 s512 h12 d64 bf16 with a key mask from seeded
+   lengths and dropout 0.1; the same with dropout only; a window, GQA,
+   sq < sk, and an fp32 case), then timed at BERT's shape beside the
+   plain version, ``F.scaled_dot_product_attention`` with the same mask
+   and dropout, and the bound (padding keys not counted);
+10. BERT-base MLM train: ``BertForMaskedLM`` at full width (bf16 O2
+   through ``amp.decorate``, dropout 0.1, random weights from a seed)
+   through ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)`` on
+   one padded b64 x s512 batch; the loss must start near ln(vocab), stay
+   finite and fall, each head-batched kernel must launch layers x steps
+   times and kernels 1-3 not at all;
+11. encoder identity: a float32 tiny BERT trained 10 AdamW steps on the
+   card and on the CPU from the same weights, with attention dropout
+   0.1 from the same seed words, must agree step by step.
 
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
 line with every kernel's numbers, then as its last line
@@ -48,13 +65,17 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch import amp
+from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (
-    LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
+    BertConfig, BertForMaskedLM, LlamaConfig, LlamaForCausalLM, generate,
+    load_jax_weights,
 )
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import head_flash as hf
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import quantize_kv
@@ -456,29 +477,62 @@ def _tile_rel_err(got, want, tile=64):
     return rel.max().sqrt().item()
 
 
-def _flash_bound(q, k, causal, window, kernel):
+# An additive key-mask value at or below this is padding: its p,
+# exp(score + mask - row max), is exactly 0 in fp32 (exp(-1000) is far
+# below the smallest subnormal), so it adds nothing to O, dQ, dK, dV or
+# dmask, unless every key its query row sees is padding.
+PAD_LEVEL = -1e3
+
+
+def _flash_bound(q, k, causal, window, kernel, kmask=None):
     """Least time for one call's work at these inputs: the larger of its
     bytes over the HBM rate (each input read once, each output written
     once) and its operations over the bf16 peak. Operations count only
-    the visible (row, key) pairs: 2 * d per product per pair, 2 products
+    the (row, key) pairs the function needs: visible (causal, window)
+    and, with ``kmask`` (``[b, 1, sk]`` or ``[b * h, 1, sk]`` fp32, the
+    same row for every head), not padding; a row that sees only padding
+    needs all its visible keys. 2 * d per product per pair, 2 products
     forward (QK, PV), 3 for dQ (QK, dO.V, dS.K), 4 for dK/dV (QK, dO.V,
-    P^T.dO, dS^T.Q)."""
+    P^T.dO, dS^T.Q); the softmax, mask and dropout hash are not counted
+    (other units, far below the products). K and V are read only at the
+    keys some row needs; dK and dV are written in full. kmask's rows are
+    read by each kernel, and dK/dV writes as many dmask rows. Returns
+    (ms, "bytes" or "operations", ms counting every visible pair and
+    all of K and V)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    vis = fa._visible(sq, sk, causal, window, "cpu")
-    pairs = sq * sk if vis is None else int(vis.sum())
-    products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
-    ops = b * h * pairs * 2 * d * products[kernel]
+    vis = fa._visible(sq, sk, causal, window, q.device)
+    vis = torch.ones(sq, sk, dtype=torch.bool, device=q.device) \
+        if vis is None else vis
+    if kmask is None:
+        need = vis.expand(b, sq, sk)
+    else:
+        live = kmask.reshape(b, -1, sk)[:, 0] > PAD_LEVEL  # [b, sk]
+        need = vis & live[:, None]
+        need = need | (vis & ~need.any(-1, keepdim=True))
+    pairs = int(need.sum())  # summed over batch rows
+    live_keys = int(need.any(1).sum())
+    stage = kernel.split("_", 1)[1]  # fwd, bwd_dq, bwd_dkv
+    products = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4}
     q_bytes = q.numel() * q.element_size()
-    kv_bytes = 2 * k.numel() * k.element_size()
+    kv_bytes = 2 * k.numel() * k.element_size()  # K and V in full
     row_bytes = b * h * sq * 4  # one fp32 per row: lse, delta
-    nbytes = {"flash_fwd": 2 * q_bytes + kv_bytes + row_bytes,
-              "flash_bwd_dq": 3 * q_bytes + kv_bytes + 2 * row_bytes,
-              "flash_bwd_dkv": 2 * q_bytes + 2 * kv_bytes
-              + 2 * row_bytes}[kernel]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    km_bytes = 0 if kmask is None else kmask.numel() * 4
+
+    def bound(pairs, kv_read):
+        ops = h * pairs * 2 * d * products[stage]
+        nbytes = {"fwd": 2 * q_bytes + kv_read + row_bytes + km_bytes,
+                  "bwd_dq": 3 * q_bytes + kv_read + 2 * row_bytes + km_bytes,
+                  "bwd_dkv": 2 * q_bytes + kv_read + kv_bytes + 2 * row_bytes
+                  + 2 * km_bytes}[stage]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+        return max(t_bytes, t_ops), \
+            "bytes" if t_bytes >= t_ops else "operations"
+
+    ms, by = bound(pairs, kv_bytes * live_keys // (b * sk))
+    all_pairs_ms, _ = bound(b * int(vis.sum()), kv_bytes)
+    return ms, by, all_pairs_ms
 
 
 def _flash_check(case, gen):
@@ -579,7 +633,7 @@ def phase_flash(layers):
     for name, (kern, plain) in kernels.items():
         ms = _time_call(kern)
         plain_ms = _time_call(plain, iters=5)
-        bound_ms, bound_by = _flash_bound(q, k, True, 0, name)
+        bound_ms, bound_by, _ = _flash_bound(q, k, True, 0, name)
         rows[name] = dict(ms=ms, plain_ms=plain_ms,
                           library_ms=library[name], bound_ms=bound_ms,
                           bound_by=bound_by, max_abs_err=errs[name])
@@ -735,6 +789,355 @@ def phase_train_identity():
         raise AssertionError("the card's training run left the CPU's")
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+# (name, b, sq, sk, h, h_kv, causal, window, dtype, masked) at d 64,
+# each with dropout 0.1 and, where masked, a key mask from seeded lengths
+# 128-512. The first is BERT-base's attention on a padded batch (phase
+# 10's traffic); "dropout_only" is the same without a mask, as
+# benchmarks/baseline_configs.py::bench_bert_mlm calls it (no
+# attention_mask), where kernel 6 takes kernel 3's grid.
+ENC_CASES = [
+    ("bert", 64, 512, 512, 12, 12, False, 0, torch.bfloat16, True),
+    ("dropout_only", 64, 512, 512, 12, 12, False, 0, torch.bfloat16, False),
+    ("window128", 4, 512, 512, 12, 12, True, 128, torch.bfloat16, True),
+    ("gqa", 4, 512, 512, 12, 4, False, 0, torch.bfloat16, True),
+    ("sq256_sk512", 4, 256, 512, 12, 12, True, 0, torch.bfloat16, True),
+    ("fp32", 4, 512, 512, 12, 12, False, 0, torch.float32, True),
+]
+ENC_DROPOUT = 0.1
+ENC_SEED = (20240607, -77)  # the two dropout seed words, fixed
+# Tolerances as phase 6: every output per 64-row tile of each (batch,
+# head) against the plain version on fp32 copies, bf16 within 1e-2; the
+# fp32 case (the fp32-FMA kernels) within 1e-5, which one flipped keep
+# bit breaks (it moves its row by p / (1 - p) of one probability, ~2e-3
+# at s512). dmask, an fp32 sum over heads and rows of fp32 ds terms that
+# partly cancel (from bf16 inputs too), by the relative Frobenius error
+# of each of its rows (batch row, or query head for kernel 3), within
+# 1e-3 (bf16) or 1e-4 (fp32: the order of the sums): one key of a row
+# 10 % off moves that row by ~5e-3. lse (fp32 in both) relative to its
+# size, within 1e-6 (~8 fp32 ulps): a row whose visible keys are all
+# padded has |lse| ~ 1e4, where one ulp is ~1e-3, phase 6's absolute
+# limit.
+ENC_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+DMASK_REL_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+LSE_REL_TOL = 1e-6
+HB_WRAPPERS = (hf.hb_fwd, hf.hb_bwd_dq, hf.hb_bwd_dkv)
+FAMILIES = {
+    "kernels 4-6": (HB_WRAPPERS, (hf.hb_fwd_ref, hf.hb_bwd_dq_ref,
+                                  hf.hb_bwd_dkv_ref)),
+    "kernels 1-3": (FLASH_WRAPPERS, (fa.flash_fwd_ref, fa.flash_bwd_dq_ref,
+                                     fa.flash_bwd_dkv_ref)),
+}
+
+
+def _padding_mask(b, sk, seed=0):
+    """The additive key rows ``[b, 1, sk]`` fp32 of a padded batch with
+    lengths uniform in 128..sk, as ``BertModel`` builds them under bf16
+    (``(mask - 1) * 1e4`` rounds to -9984)."""
+    rng = np.random.RandomState(seed)
+    keep = np.arange(sk)[None] < rng.randint(128, sk + 1, b)[:, None]
+    m = torch.from_numpy(keep).to("cuda", torch.bfloat16)
+    return ((m - 1.0) * 1e4).float().reshape(b, 1, sk)
+
+
+def _row_rel_err(got, want):
+    """The largest relative Frobenius error over the rows of ``[rows, 1,
+    sk]`` tensors; a row whose reference is exactly zero must be too."""
+    dn = (got.float() - want.float()).square().sum((1, 2))
+    wn = want.float().square().sum((1, 2))
+    rel = torch.where(wn > 0, dn / wn, torch.where(
+        dn > 0, torch.full((), float("inf"), device=dn.device), 0.0))
+    return rel.max().sqrt().item()
+
+
+def _enc_check(case, family, gen):
+    """One case of one kernel family against its plain versions; returns
+    the max abs errors by wrapper and the inputs for timing."""
+    name, b, sq, sk, h, h_kv, causal, window, dtype, masked = case
+    (fwd, bdq, bdkv), (fwd_ref, bdq_ref, bdkv_ref) = FAMILIES[family]
+    q, k, v, do = (t.to(dtype) for t in _flash_inputs(b, sq, sk, h, h_kv,
+                                                      gen, d=64))
+    km = _padding_mask(b, sk) if masked else None
+    if masked and family == "kernels 1-3":  # one row per query head
+        km = km.repeat_interleave(h, 0)
+    kw = dict(causal=causal, window=window, kmask=km, seed=ENC_SEED,
+              dropout=ENC_DROPOUT)
+    f32 = [t.float() for t in (q, k, v, do)]
+    out, lse = fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fwd_ref(*f32[:3], **kw)
+    delta = (do.float() * want_out.to(dtype).float()).sum(-1) \
+        .permute(0, 2, 1).reshape(b * h, sq).contiguous()
+    dq = bdq(q, k, v, do, want_lse, delta, **kw)
+    dk, dv, *dm = bdkv(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    want_dq = bdq_ref(*f32, want_lse, delta, **kw)
+    want_dk, want_dv, *want_dm = bdkv_ref(*f32, want_lse, delta, **kw)
+    if len(dm) != masked or len(want_dm) != masked:
+        raise AssertionError(f"{family} {name}: dmask returned "
+                             f"{len(dm)} / {len(want_dm)} times, masked "
+                             f"{masked}")
+    pairs = {fwd.__name__: [(out, want_out)], bdq.__name__: [(dq, want_dq)],
+             bdkv.__name__: [(dk, want_dk), (dv, want_dv)]}
+    rel = {n: max(_tile_rel_err(g, w) for g, w in p) for n, p in pairs.items()}
+    abs_err = {n: max((g.float() - w).abs().max().item() for g, w in p)
+               for n, p in pairs.items()}
+    dm_err = _row_rel_err(dm[0], want_dm[0]) if masked else 0.0
+    lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)) \
+        .max().item()
+    log(f"[encoder] {family} {name} b={b} sq={sq} sk={sk} h={h} h_kv={h_kv} "
+        f"d=64 {str(dtype)[6:]} causal={causal} window={window} "
+        f"{'kmask' if masked else 'no mask'} dropout={ENC_DROPOUT}: "
+        f"per-tile relative error "
+        + ", ".join(f"{n} {rel[n]:.3e}" for n in rel)
+        + f" (tol {ENC_REL_TOL[dtype]}); "
+        + (f"dmask {dm_err:.3e} per row (tol {DMASK_REL_TOL[dtype]}); "
+           if masked else "")
+        + f"lse {lse_err:.3e} of its size (tol {LSE_REL_TOL})")
+    bad = [n for n in rel if not rel[n] <= ENC_REL_TOL[dtype]]
+    if bad or not dm_err <= DMASK_REL_TOL[dtype] \
+            or not lse_err <= LSE_REL_TOL:
+        raise AssertionError(f"{family} {name}: {bad or ['dmask or lse']} "
+                             f"disagree with the plain versions: {rel}, "
+                             f"dmask {dm_err}, lse {lse_err}")
+    return abs_err, (q, k, v, do, want_lse, delta, kw)
+
+
+def _enc_library(q, k, v, do, km_rows):
+    """The yardstick: F.scaled_dot_product_attention on [b, h, s, d]
+    copies with the same additive mask (bf16, [b, 1, 1, s]) and dropout
+    0.1; its backward gives dQ, dK and dV together. Timed only."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    mask = km_rows[:, None].to(q.dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib_fwd = _time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                          dropout_p=ENC_DROPOUT))
+    out_t = sdpa(qt, kt, vt, attn_mask=mask, dropout_p=ENC_DROPOUT)
+    lib_bwd = _time_call(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), dot, retain_graph=True))
+    return lib_fwd, lib_bwd
+
+
+def _time_family(family, inputs):
+    """Each kernel of ``family`` timed on ``inputs``: {name: ms}."""
+    q, k, v, do, lse, delta, kw = inputs
+    fwd, bdq, bdkv = FAMILIES[family][0]
+    return {fwd.__name__: _time_call(lambda: fwd(q, k, v, **kw)),
+            bdq.__name__: _time_call(lambda: bdq(q, k, v, do, lse, delta,
+                                                 **kw)),
+            bdkv.__name__: _time_call(lambda: bdkv(q, k, v, do, lse, delta,
+                                                   **kw))}
+
+
+def phase_encoder_kernels(layers):
+    gen = torch.Generator("cuda").manual_seed(2)
+    errs = dict.fromkeys((w.__name__ for w in HB_WRAPPERS), 0.0)
+    inputs = {}
+    for case in ENC_CASES:
+        for family in FAMILIES:
+            e, inputs[case[0], family] = _enc_check(case, family, gen)
+            errs = {n: max(x, e.get(n, 0.0)) for n, x in errs.items()}
+    # kernels 1-3 with the key-mask and dropout variants at BERT's shape,
+    # and both families on the dropout-only calls
+    variant = _time_family("kernels 1-3", inputs["bert", "kernels 1-3"])
+    drop_only = {**_time_family("kernels 4-6",
+                                inputs["dropout_only", "kernels 4-6"]),
+                 **_time_family("kernels 1-3",
+                                inputs["dropout_only", "kernels 1-3"])}
+    q, k, v, do, lse, delta, kw = inputs["bert", "kernels 4-6"]
+    kernels = {
+        "hb_fwd": (lambda: hf.hb_fwd(q, k, v, **kw),
+                   lambda: hf.hb_fwd_ref(q, k, v, **kw)),
+        "hb_bwd_dq": (
+            lambda: hf.hb_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: hf.hb_bwd_dq_ref(q, k, v, do, lse, delta, **kw)),
+        "hb_bwd_dkv": (
+            lambda: hf.hb_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: hf.hb_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)),
+    }
+    lib_fwd, lib_bwd = _enc_library(q, k, v, do, kw["kmask"])
+    library = {"hb_fwd": lib_fwd, "hb_bwd_dq": lib_bwd, "hb_bwd_dkv": lib_bwd}
+    rows = {}
+    for (name, (kern, plain)), w in zip(kernels.items(), FLASH_WRAPPERS):
+        ms = _time_call(kern)
+        plain_ms = _time_call(plain, iters=3)
+        bound_ms, bound_by, all_pairs_ms = _flash_bound(q, k, False, 0, name,
+                                                        kmask=kw["kmask"])
+        vq, vk, *_, vkw = inputs["bert", "kernels 1-3"]
+        v_bound, v_by, _ = _flash_bound(vq, vk, False, 0, w.__name__,
+                                        kmask=vkw["kmask"])
+        dq_, dk_, *_ = inputs["dropout_only", "kernels 4-6"]
+        d_bound, _, _ = _flash_bound(dq_, dk_, False, 0, name)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms,
+                          library_ms=library[name], bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=errs[name])
+        log(f"[encoder] {name} b64 s512 h12 d64 bf16 non-causal kmask "
+            f"dropout 0.1: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms {library[name]:.4f} bound_ms {bound_ms:.5f} "
+            f"({bound_by}; {all_pairs_ms:.5f} counting every pair and all "
+            f"of K, V); {w.__name__} with a per-head kmask and dropout "
+            f"{variant[w.__name__]:.4f} ms (bound {v_bound:.5f}, {v_by}); "
+            f"dropout only, no mask: {name} {drop_only[name]:.4f} ms, "
+            f"{w.__name__} {drop_only[w.__name__]:.4f} ms (bound "
+            f"{d_bound:.5f}); launches per train step = {layers} "
+            f"(layers)")
+    return rows
+
+
+# -- phase 10 -----------------------------------------------------------------
+
+BERT_BATCH, BERT_SEQ = 64, 512
+
+
+def _mlm_batch(cfg, b, s, seed=0):
+    """A right-padded batch: lengths uniform in 128..s, pad id past each
+    length, MLM labels on 15 % of the real tokens and -100 elsewhere."""
+    rng = np.random.RandomState(seed)
+    mask = (np.arange(s)[None] < rng.randint(128, s + 1, b)[:, None])
+    ids = np.where(mask, rng.randint(0, cfg.vocab_size, (b, s)),
+                   cfg.pad_token_id)
+    labels = np.where(mask & (rng.rand(b, s) < 0.15), ids, -100)
+    return [torch.from_numpy(a.astype(np.int32)).to("cuda")
+            for a in (ids, mask, labels)]
+
+
+def bert_train_step():
+    """bench_bert_mlm's step on the card: BERT-base MLM (random weights
+    from a seed), bf16 O2 through ``amp.decorate``, dropout 0.1,
+    ``AdamW(1e-4)`` with fp32 masters, ``TrainStep``. Returns (model,
+    optimizer, step, the padded batch ``(ids, mask, labels)``)."""
+    trandom.seed(0)
+    cfg = BertConfig(max_position_embeddings=512, dtype="bfloat16")
+    model = BertForMaskedLM(cfg, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    step = TrainStep(model, opt, lambda m, ids, mask, labels: m(
+        ids, None, mask, labels))
+    return model, opt, step, _mlm_batch(cfg, BERT_BATCH, BERT_SEQ)
+
+
+def phase_bert_train(card):
+    model, opt, step, (ids, mask, labels) = bert_train_step()
+    cfg = model.config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(ids, mask, labels)) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    for w in HB_WRAPPERS + FLASH_WRAPPERS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    timed = [step(ids, mask, labels) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in HB_WRAPPERS}
+    flash_launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    losses += [float(x) for x in timed]
+    layers, steps = cfg.num_hidden_layers, TIMED_STEPS
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not abs(losses[0] - np.log(cfg.vocab_size)) < 0.7:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln(vocab) = {np.log(cfg.vocab_size):.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    for n, p in model.named_parameters():
+        # the pooler and the token-type table (no token types given) are
+        # not on the loss's path: no gradient, so no master
+        master = opt._master_weights.get(id(p))
+        if p.dtype != torch.bfloat16 or p.grad is not None \
+                and (master is None or master.dtype != torch.float32):
+            raise AssertionError(f"{n}: {p.dtype} without an fp32 master")
+    for name, n in launches.items():
+        if n != layers * steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"steps, expected layers x steps = "
+                                 f"{layers} x {steps}")
+    if any(flash_launches.values()):
+        raise AssertionError(f"the padded, dropped encoder reached kernels "
+                             f"1-3: {flash_launches}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.clear_grad()
+    ev[0].record()
+    loss = model(ids, None, mask, labels)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    ms = wall / steps * 1e3
+    tokens = BERT_BATCH * BERT_SEQ  # bench_bert_mlm counts batch x seq
+    mfu = model.flops_per_token(BERT_SEQ) * tokens / (ms / 1e3) \
+        / PEAK_OPS_PER_S[torch.bfloat16]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[bert] on {card}: {n_params / 1e6:.2f} M parameters, bf16 O2, "
+        f"b{BERT_BATCH} x s{BERT_SEQ} ({int(mask.sum())} real tokens, "
+        f"{int((labels >= 0).sum())} predicted); losses "
+        f"{[round(x, 4) for x in losses]}; {ms:.2f} ms per step over "
+        f"{steps} steps = {tokens / ms * 1e3:.0f} tokens/s, MFU {mfu:.4f} "
+        f"(flops_per_token x tokens / time / 989e12); one step split: "
+        f"forward {split[0]:.2f} ms, backward {split[1]:.2f} ms, optimizer "
+        f"{split[2]:.2f} ms; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+        f"{launches}, kernels 1-3 {flash_launches}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 11 -----------------------------------------------------------------
+
+def train_tiny_bert(device, weights, steps=IDENTITY_STEPS):
+    """The tiny fp32 BERT from ``weights`` trained ``steps`` AdamW steps
+    (lr 1e-3, wd 0.01) on seeded padded batches, hidden dropout 0 (CPU
+    and CUDA generators differ) and attention dropout 0.1 from seed words
+    drawn alike on both sides (the hash does not depend on the device);
+    returns the losses."""
+    trandom.seed(0)
+    cfg = BertConfig.tiny(hidden_dropout_prob=0.0)
+    model = BertForMaskedLM(cfg, device=device)
+    load_jax_weights(model, weights)
+    step = TrainStep(model, AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                  parameters=model.parameters()))
+    losses = []
+    for i in range(steps):
+        rng = np.random.RandomState(200 + i)
+        ids = rng.randint(0, cfg.vocab_size, (2, 32))
+        mask = np.arange(32)[None] < np.array([[32], [21]])
+        labels = np.where((rng.rand(2, 32) < 0.3) & mask, ids, -100)
+        ids, mask, labels = (torch.from_numpy(a.astype(np.int32)).to(device)
+                             for a in (ids, mask, labels))
+        losses.append(float(step(ids, None, mask, labels)))
+    return losses
+
+
+def phase_bert_identity():
+    seed_model = BertForMaskedLM(BertConfig.tiny(), device="cpu",
+                                 generator=torch.Generator("cpu").manual_seed(0))
+    weights = {n: p.detach().numpy() for n, p in seed_model.named_parameters()}
+    for w in HB_WRAPPERS:
+        w.launches = 0
+    got = train_tiny_bert("cuda", weights)
+    if min(w.launches for w in HB_WRAPPERS) <= 0:
+        raise AssertionError("the card's tiny BERT never launched the "
+                             "head-batched kernels")
+    want = train_tiny_bert("cpu", weights)
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    log(f"[bert-identity] {IDENTITY_STEPS} AdamW steps, fp32 tiny BERT, "
+        f"padded, attention dropout 0.1: losses card "
+        f"{[round(x, 6) for x in got]} vs CPU {[round(x, 6) for x in want]}: "
+        f"max diff {diff:.3e} (tol {IDENTITY_LOSS_ATOL})")
+    if not diff <= IDENTITY_LOSS_ATOL:
+        raise AssertionError("the card's encoder run left the CPU's")
+
+
 def main():
     t0 = time.perf_counter()
     name, smi = phase_device()
@@ -745,14 +1148,21 @@ def main():
     rows.update(phase_flash(TRAIN["num_hidden_layers"]))
     launches.update(phase_train(name))
     phase_train_identity()
+    rows.update(phase_encoder_kernels(BertConfig().num_hidden_layers))
+    launches.update(phase_bert_train(name))
+    phase_bert_identity()
     pallas = "paddle_tpu/ops/pallas/"
+    flash_cu = "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"
     sources = {"paged": "paddle_tpu_torch/ops/cuda/csrc/paged_attention.cu",
-               "flash": "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"}
+               "flash": flash_cu, "hb": flash_cu}
     replaces = {"paged_attend": pallas + "paged_attention.py:51",
                 "paged_attend_int8": pallas + "paged_attention.py:170",
                 "flash_fwd": pallas + "flash_attention.py:129",
                 "flash_bwd_dq": pallas + "flash_attention.py:201",
-                "flash_bwd_dkv": pallas + "flash_attention.py:257"}
+                "flash_bwd_dkv": pallas + "flash_attention.py:257",
+                "hb_fwd": pallas + "head_flash.py:57",
+                "hb_bwd_dq": pallas + "head_flash.py:134",
+                "hb_bwd_dkv": pallas + "head_flash.py:190"}
     kernels = [dict(name=k, route="cuda", source=sources[k.split("_")[0]],
                     replaces=replaces[k], launches=launches[k], **rows[k])
                for k in replaces]

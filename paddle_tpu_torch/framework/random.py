@@ -1,0 +1,60 @@
+"""Global random state for dropout.
+
+Counterpart of ``paddle_tpu/framework/random.py``. There a stateful key
+source splits a fresh JAX key for every consumer (``next_key``), and the
+attention op hands its key's raw uint32 words to the flash kernel as
+its dropout seed (``nn/functional/attention.py:78-83``). Here one seeded
+CPU ``torch.Generator`` plays the key source:
+
+- :func:`next_seed_words` draws the two seed words of one attention
+  call's counter-hash dropout. The generator lives on the host, so a
+  draw costs no device synchronisation, and a card run and a CPU run
+  seeded alike draw the same words (the hash is device-independent);
+- :func:`generator` gives the generator that ``F.dropout`` draws its
+  Bernoulli masks from on a device, seeded from the same seed. CPU and
+  CUDA generators give different streams from one seed.
+
+:func:`seed` resets all of them, as ``paddle.seed`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["seed", "next_seed_words", "generator"]
+
+_state: dict = {}
+
+
+def seed(value: int) -> None:
+    """Reset the dropout seed words and every device generator."""
+    _state.clear()
+    _state["seed"] = int(value)
+    _state["words"] = torch.Generator("cpu").manual_seed(int(value))
+
+
+def _words() -> torch.Generator:
+    if "words" not in _state:
+        seed(0)
+    return _state["words"]
+
+
+def next_seed_words() -> tuple:
+    """Two int32 words for one call's in-kernel dropout (the reference's
+    ``int32[2]`` seed operand), from the host generator."""
+    w = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int64,
+                      generator=_words())
+    return int(w[0]), int(w[1])
+
+
+def generator(device) -> torch.Generator:
+    """The generator of ``device`` for dropout masks, made at first use
+    and seeded from :func:`seed`'s value plus one (so it is not the seed
+    words' stream on the CPU)."""
+    _words()
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = str(dev)
+    if key not in _state:
+        _state[key] = torch.Generator(dev).manual_seed(_state["seed"] + 1)
+    return _state[key]

@@ -15,7 +15,6 @@ stacked weights through ``generation._collect_params`` under
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -23,6 +22,7 @@ from ..distributed.mp_layers import ParallelCrossEntropy, masked_token_mean
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn import functional as F
+from ._weights import load_jax_weights
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "load_jax_weights"]
@@ -252,7 +252,9 @@ class LlamaForCausalLM(nn.Module):
     ``torch.Generator`` on ``device``; a fresh one seeded with 0 when
     None): normal(0, 0.02) for the embedding and projections, ones for
     the RMSNorm scales. :func:`load_jax_weights` replaces them with a
-    reference model's."""
+    reference model's (the ``model.*`` alias of ``llama.*`` included)."""
+
+    _jax_aliases = (("model.", "llama."),)
 
     def __init__(self, config: LlamaConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
@@ -345,47 +347,3 @@ class LlamaForCausalLM(nn.Module):
 
         return _generate(self, input_ids, max_new_tokens=max_new_tokens,
                          **kw)
-
-
-def _to_tensor(arr) -> torch.Tensor:
-    """A numpy array (bfloat16 from ``ml_dtypes`` included) as a CPU
-    tensor with the same bits."""
-    arr = np.array(arr)  # a writable copy: from_numpy shares memory
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
-
-
-def load_jax_weights(model: LlamaForCausalLM, arrays) -> None:
-    """Fill ``model`` with the reference model's weights, so the two
-    packages compute the same function.
-
-    ``arrays`` maps parameter names to numpy arrays, as
-    ``{n: np.asarray(p._data) for n, p in jax_model.named_parameters()}``
-    gives them (``llama.*`` names; the ``model.*`` alias of the same
-    layer is accepted too). Each array is converted to its parameter's
-    dtype and device. Raises ``KeyError`` on a missing or unexpected
-    name and ``ValueError`` on a shape mismatch, before any parameter is
-    written."""
-    params = dict(model.named_parameters())
-    given = {}
-    for name, arr in arrays.items():
-        key = "llama." + name[len("model."):] \
-            if name.startswith("model.") else name
-        if key in given and not np.array_equal(given[key], arr):
-            raise ValueError(f"{name!r} and its alias disagree")
-        given[key] = arr
-    missing = sorted(set(params) - set(given))
-    unexpected = sorted(set(given) - set(params))
-    if missing or unexpected:
-        raise KeyError(f"load_jax_weights: missing {missing}, "
-                       f"unexpected {unexpected}")
-    for name, p in params.items():
-        if tuple(np.shape(given[name])) != tuple(p.shape):
-            raise ValueError(
-                f"load_jax_weights: {name} has shape "
-                f"{tuple(np.shape(given[name]))}, the model expects "
-                f"{tuple(p.shape)}")
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(_to_tensor(given[name]).to(p.dtype))

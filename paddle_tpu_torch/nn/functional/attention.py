@@ -1,31 +1,82 @@
 """Attention (counterpart of ``paddle_tpu/nn/functional/attention.py``).
 
 Both entries take the reference's ``[batch, seq, heads, head_dim]``
-layout (k/v may have fewer heads: GQA) and route to the autograd
-flash-attention Function of ``ops/cuda/flash_attention.py``: the CUDA
-kernels on a CUDA tensor, their plain versions on a CPU tensor. There is
-no crossover to a composite: the TPU path's autotune table
-(``flash_attention.py:657-709``) measured the TPU, and on the card the
-kernel always runs.
+layout (k/v may have fewer heads: GQA) and run hand-written CUDA kernels
+on a CUDA tensor, their plain versions on a CPU tensor. Routing:
+
+- a call with a ``[b, 1, 1, sk]`` key-padding ``attn_mask``, or with
+  dropout while training, goes to the head-batched entry
+  (``ops/cuda/head_flash.py``, kernels 4-6), which takes the mask as one
+  additive row per batch row and draws the dropout mask in the kernel
+  from two seed words per call (``framework/random.py``). This mirrors
+  ``flash_attention_kernel`` (``flash_attention.py:667-684``), which
+  takes ``hb_flash`` wherever the ``flash_headbatch`` tune row engages
+  it; the port has no tune table, and on the card both kernel families
+  read ``[b, s, h, d]`` through strides, so the choice between them is
+  the mask's layout alone, and the per-batch-row layout is what
+  ``BertModel`` builds;
+- every other call (no mask, no dropout: the Llama path) goes to the
+  flash entry (``ops/cuda/flash_attention.py``, kernels 1-3).
+
+A row-varying mask (``[.., sq, sk]``) has no TPU kernel; JAX sends it to
+its composite (``flash_attention.py:633-641``). The port has no
+composite: it raises ``NotImplementedError`` (ROADMAP queue A). There is
+no crossover to a composite on the card either: the TPU path's autotune
+table (``flash_attention.py:657-709``) measured the TPU, and on the card
+the kernel always runs.
 """
 from __future__ import annotations
 
-from ...ops.cuda.flash_attention import _ENCODER_SLICE, flash_attention
+import torch
+
+from ...framework import random
+from ...ops.cuda.flash_attention import NEG_INF, flash_attention
+from ...ops.cuda.head_flash import hb_flash
 
 __all__ = ["scaled_dot_product_attention", "sliding_window_attention"]
+
+
+def _key_padding_additive(mask, q_shape, k_shape):
+    """A ``[b, 1, 1, sk]`` key-padding mask as the additive fp32 ``[b, 1,
+    sk]`` rows the kernels take (the reference's ``_key_padding_additive``,
+    ``flash_attention.py:728``): bool means keep (0, else NEG_INF), a
+    float mask is cast to fp32 and clamped at NEG_INF, so a fully masked
+    row cannot give inf - inf. Any other shape or dtype raises
+    ``NotImplementedError``."""
+    b, sk = q_shape[0], k_shape[1]
+    if tuple(mask.shape) != (b, 1, 1, sk):
+        raise NotImplementedError(
+            f"attn_mask of shape {tuple(mask.shape)}: the port runs only "
+            f"[b, 1, 1, sk] = [{b}, 1, 1, {sk}] key-padding masks (the "
+            f"encoder slice's kernels); row-varying masks are not ported "
+            f"(ROADMAP queue A)")
+    m = mask.reshape(b, 1, sk)
+    if m.dtype == torch.bool:
+        return torch.where(m, 0.0, NEG_INF).to(torch.float32)
+    if not m.is_floating_point():
+        raise NotImplementedError(
+            f"attn_mask of dtype {m.dtype}: pass a bool (keep) or an "
+            f"additive float mask")
+    return torch.clamp(m.to(torch.float32), min=NEG_INF)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
     """Softmax attention with scale ``1/sqrt(head_dim)``; ``is_causal``
-    masks bottom-right aligned. ``attn_mask`` and ``dropout_p > 0``
-    while training raise ``NotImplementedError``."""
+    masks bottom-right aligned; ``attn_mask`` is a ``[b, 1, 1, sk]``
+    key-padding mask (bool keep, or additive float); ``dropout_p`` drops
+    attention probabilities while ``training`` (outside training it is
+    0, as in the reference)."""
+    p = float(dropout_p) if training else 0.0
+    kadd = None
     if attn_mask is not None:
-        raise NotImplementedError(f"attn_mask {_ENCODER_SLICE}")
-    if training and dropout_p > 0.0:
-        raise NotImplementedError(f"attention dropout {_ENCODER_SLICE}")
-    return flash_attention(query, key, value, causal=is_causal)
+        kadd = _key_padding_additive(attn_mask, query.shape, key.shape)
+    if kadd is None and p == 0.0:
+        return flash_attention(query, key, value, causal=is_causal)
+    seed = random.next_seed_words() if p > 0.0 else None
+    return hb_flash(query, key, value, seed=seed, kmask=kadd,
+                    causal=is_causal, dropout=p)
 
 
 def sliding_window_attention(query, key, value, window_size):

@@ -1,19 +1,40 @@
 // FlashAttention-2 forward and backward kernels for Hopper (sm_90a), with
 // a plain C interface for ctypes (built by ops/cuda/_build.py).
 //
-// Replaces the three Pallas TPU kernels of
-// paddle_tpu/ops/pallas/flash_attention.py:
+// Replaces the six Pallas TPU kernels of paddle_tpu/ops/pallas/
+// flash_attention.py and head_flash.py:
 //   flash_fwd_{kernel,tc}      <- _fwd_kernel     (launched by _flash_fwd)
 //   flash_bwd_dq_{kernel,tc}   <- _bwd_dq_kernel  (by _flash_bwd_impl)
 //   flash_bwd_dkv_{kernel,tc}  <- _bwd_dkv_kernel (by _flash_bwd_impl)
-// with the same arithmetic: fp32 scores, bottom-right causal masking
-// (query row r sees key c iff c <= r + sk - sq, and c > r + sk - sq -
-// window when a sliding window is set), masked scores set to the finite
-// -1e30 of the reference, an fp32 streaming softmax, lse = m +
-// log(max(l, 1e-30)), rows that see no key output exactly 0, and the
-// backward recomputes p = exp(s - lse) (0 where lse <= -0.5e30) with
-// ds = p * (dO.V^T - delta) * scale. The key-padding mask and in-kernel
-// dropout variants of the TPU kernels are not ported here.
+// through the pt_flash_* entries, and the head-batched
+//   _hb_fwd_kernel (by _hb_fwd), _hb_dq_kernel, _hb_dkv_kernel (by
+//   _hb_bwd_impl)
+// through the pt_hb_* entries, with the same arithmetic: fp32 scores,
+// bottom-right causal masking (query row r sees key c iff c <= r + sk -
+// sq, and c > r + sk - sq - window when a sliding window is set), masked
+// scores set to the finite -1e30 of the reference, an fp32 streaming
+// softmax, lse = m + log(max(l, 1e-30)), rows that see no key output
+// exactly 0, and the backward recomputes p = exp(s - lse) (0 where lse
+// <= -0.5e30) with ds = p * (dO.V^T - delta) * scale.
+//
+// Variants (template flags KM and DROP of every kernel, so the plain
+// path's code is unchanged):
+//   - KM: an additive fp32 key row is added to the scores after the
+//     scale (after the causal mask), read at km + b * km_b + h * km_h:
+//     one row per query head for pt_flash_* ([b * h, 1, sk]), one per
+//     batch row for pt_hb_* ([b, 1, sk], km_h = 0). The dK/dV kernels
+//     also return its gradient dmask = sum over query rows of ds / scale,
+//     per query head (pt_flash_bwd_dkv) or summed over all heads too
+//     (pt_hb_bwd_dkv), in registers and without atomics.
+//   - DROP: the reference's counter-hash dropout (_keep_mask): a murmur3
+//     fmix32 of the global (query head b * H + h, row, col) and two seed
+//     words in uint32 arithmetic, keep iff hash >= threshold (computed
+//     on the host as min(int(rate * 2^32), 2^32 - 1)). The row sum l keeps
+//     the undropped p; only P.V takes p * keep / (1 - rate). The backward
+//     scales dp by the same mask before ds and uses the dropped p for dV.
+//     The bits are a pure function of those coordinates, so every kernel
+//     and every tile shape regenerates the same mask, bit for bit with
+//     the TPU kernels and the plain versions.
 //
 // Layout. q is read as [b, sq, h, d] and k/v as [b, sk, h_kv, d] through
 // their (batch, seq, head) strides with a unit last stride, so the
@@ -29,7 +50,11 @@
 //     key tiles that intersect the (causal, window) band;
 //   dK/dV: one block per (64 keys, kv head), looping over the group's q
 //     heads x the query tiles that intersect the band. No atomics: the
-//     result is deterministic.
+//     result is deterministic. The head-batched dK/dV (pt_hb_bwd_dkv)
+//     has one block per (64 keys, batch row) that also loops over the kv
+//     heads, so its per-batch dmask sums over every query head inside
+//     the block: the TPU kernel's in-tile head reduction, on a grid of
+//     ceil(sk / 64) x b blocks (512 at b64 s512).
 // Tiles are staged in shared memory in the input's type with 16-byte
 // global loads. Ragged edges (sq or sk not a multiple of the tile) are
 // masked in the kernel, so any sequence length >= 1 works; d is any
@@ -93,7 +118,38 @@ struct Strides {
 struct Geom {
   int B, H, HKV, SQ, SK, d, causal, window;
   float scale;
+  // the variants (read only under the KM / DROP template flags)
+  const float* km;  // additive key row of (b, h): km + b * km_b + h * km_h
+  float* dm;        // its gradient, addressed the same way
+  long long km_b, km_h;
+  uint32_t seed0, seed1, thresh;  // dropout: seed words, keep threshold
+  float dscale;                   // 1 / (1 - rate), rounded on the host
+  // dK/dV: one block per (key tile, batch row) over all kv heads, so the
+  // batch row's dmask is summed in the block; set only with such a mask
+  int hb;
 };
+
+// The dropout hash of one query head: everything but (row, col).
+__device__ __forceinline__ uint32_t head_salt(const Geom& g, int bh) {
+  return g.seed0 * 0x9E3779B9u + (uint32_t)(bh + 1) * 0x85EBCA6Bu + g.seed1;
+}
+
+// Whether element (r, c) of the head with salt `salt` is kept: the
+// reference's _keep_mask (global row r, global key c).
+__device__ __forceinline__ bool keep(const Geom& g, uint32_t salt, int r,
+                                     int c) {
+  uint32_t x = (uint32_t)r * 0x27D4EB2Fu + (uint32_t)c * 0x165667B1u + salt;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= g.thresh;
+}
+
+__device__ __forceinline__ const float* km_row(const Geom& g, int b, int h) {
+  return g.km + b * g.km_b + h * g.km_h;
+}
 
 // Copy rows [row0, row0 + R) of one (batch, head) slice into a shared
 // [R, LD] tile in 16-byte vectors; rows at or past `rows` become zeros.
@@ -175,7 +231,7 @@ __device__ __forceinline__ void query_tiles(const Geom& g, int c0, int* qt0,
 
 // ---------------------------------------------------------------------------
 // Forward: O and lse. grid = (ceil(SQ / BQ), B * H).
-template <typename T, int DMAX, int BQ, int BK>
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -197,6 +253,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d = g.d;
   const T* kg = k + b * sk_.b + hk * sk_.h;
   const T* vg = v + b * sv_.b + hk * sv_.h;
+  const float* kmr = KM ? km_row(g, b, h) : nullptr;
+  const uint32_t salt = DROP ? head_salt(g, bh) : 0u;
   load_tile<T, BQ, LD>(sQ, q + b * sq_.b + h * sq_.h, sq_.s, r0, g.SQ, d);
 
   float m[RM], l[RM], acc[RM][DN];
@@ -239,10 +297,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CN; ++j) {
         const int c = c0 + tx + 16 * j;
         // keys past SK do not exist (weight exactly 0); masked keys get
-        // the reference's finite -1e30
+        // the reference's finite -1e30, then the additive key row
         float x = s[i][j];
-        if (c >= g.SK) x = -INFINITY;
-        else if (!visible(g, r, c)) x = kNegInf;
+        if (c >= g.SK) {
+          x = -INFINITY;
+        } else {
+          if (!visible(g, r, c)) x = kNegInf;
+          if (KM) x += kmr[c];
+        }
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -251,8 +313,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
         const float p = expf(s[i][j] - m_new);
-        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-        sum += p;
+        sum += p;  // the row sum keeps the undropped p
+        float pa = p;
+        if (DROP) pa = keep(g, salt, r, c0 + tx + 16 * j) ? p * g.dscale : 0.f;
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = pa;
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = alpha * l[i] + half_warp_sum(sum);
@@ -296,12 +360,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // Scores and dO.V^T of one (query tile, key tile) pair, turned into p
 // and ds = p * (dp - delta) * scale for the thread's micro-tile (query
-// rows ty + 16 i, keys tx + 16 j).
-template <typename T, int LD, int RM, int CN>
+// rows ty + 16 i, keys tx + 16 j). With DROP, dp is masked and scaled
+// before ds, and p comes back dropped (the operand of dV).
+template <typename T, int LD, int RM, int CN, bool KM, bool DROP>
 __device__ __forceinline__ void probs_and_ds(
     const Geom& g, const T* sQ, const T* sdO, const T* sK, const T* sV,
     int r0, int c0, const float* lse_r, const float* delta_r, int tx, int ty,
-    float (&p)[RM][CN], float (&ds)[RM][CN]) {
+    const float* kmr, uint32_t salt, float (&p)[RM][CN],
+    float (&ds)[RM][CN]) {
   float s[RM][CN], dp[RM][CN];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
@@ -337,16 +403,24 @@ __device__ __forceinline__ void probs_and_ds(
       const int c = c0 + tx + 16 * j;
       // a masked score is -1e30 and exp(-1e30 - lse) is exactly 0
       const bool live = row_ok && c < g.SK && visible(g, r, c);
-      const float pv = live ? expf(g.scale * s[i][j] - lse_r[i]) : 0.f;
-      p[i][j] = pv;
-      ds[i][j] = pv * (dp[i][j] - delta_r[i]) * g.scale;
+      float x = g.scale * s[i][j];
+      if (KM && live) x += kmr[c];
+      const float pv = live ? expf(x - lse_r[i]) : 0.f;
+      float dpv = dp[i][j], pd = pv;
+      if (DROP) {
+        const float dmk = keep(g, salt, r, c) ? g.dscale : 0.f;
+        dpv *= dmk;
+        pd = pv * dmk;
+      }
+      p[i][j] = pd;
+      ds[i][j] = pv * (dpv - delta_r[i]) * g.scale;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 // dQ. grid = (ceil(SQ / BQ), B * H).
-template <typename T, int DMAX, int BQ, int BK>
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -372,6 +446,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d = g.d;
   const T* kg = k + b * sk_.b + hk * sk_.h;
   const T* vg = v + b * sv_.b + hk * sv_.h;
+  const float* kmr = KM ? km_row(g, b, h) : nullptr;
+  const uint32_t salt = DROP ? head_salt(g, bh) : 0u;
   load_tile<T, BQ, LD>(sQ, q + b * sq_.b + h * sq_.h, sq_.s, r0, g.SQ, d);
   load_tile<T, BQ, LD>(sdO, dout + b * sdo_.b + h * sdo_.h, sdo_.s, r0,
                        g.SQ, d);
@@ -393,8 +469,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, BK, LD>(sV, vg, sv_.s, c0, g.SK, d);
     __syncthreads();
     float p[RM][CN], ds[RM][CN];
-    probs_and_ds<T, LD, RM, CN>(g, sQ, sdO, sK, sV, r0, c0, lse_r, delta_r,
-                                tx, ty, p, ds);
+    probs_and_ds<T, LD, RM, CN, KM, DROP>(g, sQ, sdO, sK, sV, r0, c0, lse_r,
+                                          delta_r, tx, ty, kmr, salt, p, ds);
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -429,9 +505,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dK and dV. grid = (ceil(SK / BK), B * HKV). The block sums over the
-// h / h_kv query heads of its kv head and their live query tiles.
-template <typename T, int DMAX, int BQ, int BK>
+// dK and dV. grid = (ceil(SK / BK), B * HKV), or (ceil(SK / BK), B) with
+// g.hb, where the block also loops over the kv heads. The block sums
+// over the h / h_kv query heads of each kv head and their live query
+// tiles. With KM it sums dmask = sum_rows ds / scale for its keys too:
+// per query head (written after each head), or with g.hb over every
+// head of the batch row (written once at the end).
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -442,7 +522,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = tile_ld<T, DMAX>();
   constexpr int LDP = BK + 1;
   constexpr int RM = BQ / 16, CN = BK / 16, DN = DMAX / 16;
-  constexpr int KM = BK / 16;  // key rows per thread in the dK/dV sums
+  constexpr int KR = BK / 16;  // key rows per thread in the dK/dV sums
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);  // [BK, LD]
   T* sV = sK + BK * LD;                    // [BK, LD]
@@ -452,88 +532,108 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sDS = sP + BQ * LDP;                           // [BQ, LDP]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bhk = blockIdx.y;
-  const int b = bhk / g.HKV, hk = bhk - b * g.HKV;
+  const int b = g.hb ? blockIdx.y : blockIdx.y / g.HKV;
+  const int hk0 = g.hb ? 0 : blockIdx.y - b * g.HKV;
+  const int hk1 = g.hb ? g.HKV : hk0 + 1;
   const int group = g.H / g.HKV;
   const int c0 = blockIdx.x * BK;
   const int d = g.d;
-  load_tile<T, BK, LD>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK, d);
-  load_tile<T, BK, LD>(sV, v + b * sv_.b + hk * sv_.h, sv_.s, c0, g.SK, d);
-
-  float acc_k[KM][DN], acc_v[KM][DN];
-#pragma unroll
-  for (int i = 0; i < KM; ++i)
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  // this thread's key column of dmask (threads 0..BK-1), summed in
+  // registers in a fixed order
+  const int mc = c0 + threadIdx.x;
+  float dm_acc = 0.f;
   int qt0, qt1;
   query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const long long bh = (long long)b * g.H + h;
-    const T* qg = q + b * sq_.b + h * sq_.h;
-    const T* dog = dout + b * sdo_.b + h * sdo_.h;
-    for (int qt = qt0; qt < qt1; ++qt) {
-      const int r0 = qt * BQ;
-      __syncthreads();  // the previous tile is done with sQ, sdO, sP, sDS
-      load_tile<T, BQ, LD>(sQ, qg, sq_.s, r0, g.SQ, d);
-      load_tile<T, BQ, LD>(sdO, dog, sdo_.s, r0, g.SQ, d);
-      __syncthreads();
-      float lse_r[RM], delta_r[RM];
+  for (int hk = hk0; hk < hk1; ++hk) {
+    __syncthreads();  // the previous kv head is done with sK and sV
+    load_tile<T, BK, LD>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK, d);
+    load_tile<T, BK, LD>(sV, v + b * sv_.b + hk * sv_.h, sv_.s, c0, g.SK, d);
+    float acc_k[KR][DN], acc_v[KR][DN];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int r = r0 + ty + 16 * i;
-        lse_r[i] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
-        delta_r[i] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
-      }
-      float p[RM][CN], ds[RM][CN];
-      probs_and_ds<T, LD, RM, CN>(g, sQ, sdO, sK, sV, r0, c0, lse_r,
-                                  delta_r, tx, ty, p, ds);
+    for (int i = 0; i < KR; ++i)
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
+      for (int j = 0; j < DN; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+    for (int gi = 0; gi < group; ++gi) {
+      const int h = hk * group + gi;
+      const long long bh = (long long)b * g.H + h;
+      const T* qg = q + b * sq_.b + h * sq_.h;
+      const T* dog = dout + b * sdo_.b + h * sdo_.h;
+      const float* kmr = KM ? km_row(g, b, h) : nullptr;
+      const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
+      for (int qt = qt0; qt < qt1; ++qt) {
+        const int r0 = qt * BQ;
+        __syncthreads();  // the previous tile is done with sQ, sdO, sP, sDS
+        load_tile<T, BQ, LD>(sQ, qg, sq_.s, r0, g.SQ, d);
+        load_tile<T, BQ, LD>(sdO, dog, sdo_.s, r0, g.SQ, d);
+        __syncthreads();
+        float lse_r[RM], delta_r[RM];
 #pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          sP[(ty + 16 * i) * LDP + tx + 16 * j] = p[i][j];
-          sDS[(ty + 16 * i) * LDP + tx + 16 * j] = ds[i][j];
+        for (int i = 0; i < RM; ++i) {
+          const int r = r0 + ty + 16 * i;
+          lse_r[i] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
+          delta_r[i] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
         }
-      __syncthreads();
-      // dV += P^T dO and dK += dS^T Q over this tile's query rows
-      for (int rr = 0; rr < BQ; ++rr) {
-        float pa[KM], da[KM];
+        float p[RM][CN], ds[RM][CN];
+        probs_and_ds<T, LD, RM, CN, KM, DROP>(g, sQ, sdO, sK, sV, r0, c0,
+                                              lse_r, delta_r, tx, ty, kmr,
+                                              salt, p, ds);
 #pragma unroll
-        for (int i = 0; i < KM; ++i) {
-          pa[i] = sP[rr * LDP + ty + 16 * i];
-          da[i] = sDS[rr * LDP + ty + 16 * i];
-        }
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < DN; ++j) {
-          if (tx + 16 * j < d) {
-            const float dov = to_f32(sdO[rr * LD + tx + 16 * j]);
-            const float qv = to_f32(sQ[rr * LD + tx + 16 * j]);
+          for (int j = 0; j < CN; ++j) {
+            sP[(ty + 16 * i) * LDP + tx + 16 * j] = p[i][j];
+            sDS[(ty + 16 * i) * LDP + tx + 16 * j] = ds[i][j];
+          }
+        __syncthreads();
+        if (KM && threadIdx.x < BK)
+          for (int rr = 0; rr < BQ; ++rr)
+            dm_acc += sDS[rr * LDP + threadIdx.x];
+        // dV += P^T dO and dK += dS^T Q over this tile's query rows
+        for (int rr = 0; rr < BQ; ++rr) {
+          float pa[KR], da[KR];
 #pragma unroll
-            for (int i = 0; i < KM; ++i) {
-              acc_v[i][j] = fmaf(pa[i], dov, acc_v[i][j]);
-              acc_k[i][j] = fmaf(da[i], qv, acc_k[i][j]);
+          for (int i = 0; i < KR; ++i) {
+            pa[i] = sP[rr * LDP + ty + 16 * i];
+            da[i] = sDS[rr * LDP + ty + 16 * i];
+          }
+#pragma unroll
+          for (int j = 0; j < DN; ++j) {
+            if (tx + 16 * j < d) {
+              const float dov = to_f32(sdO[rr * LD + tx + 16 * j]);
+              const float qv = to_f32(sQ[rr * LD + tx + 16 * j]);
+#pragma unroll
+              for (int i = 0; i < KR; ++i) {
+                acc_v[i][j] = fmaf(pa[i], dov, acc_v[i][j]);
+                acc_k[i][j] = fmaf(da[i], qv, acc_k[i][j]);
+              }
             }
           }
         }
       }
+      if (KM && !g.hb) {  // this query head's dmask row
+        if (threadIdx.x < BK && mc < g.SK)
+          g.dm[b * g.km_b + h * g.km_h + mc] = dm_acc / g.scale;
+        dm_acc = 0.f;
+      }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < KM; ++i) {
-    const int c = c0 + ty + 16 * i;
-    if (c >= g.SK) continue;
-    T* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
-    T* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
+    for (int i = 0; i < KR; ++i) {
+      const int c = c0 + ty + 16 * i;
+      if (c >= g.SK) continue;
+      T* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
+      T* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
 #pragma unroll
-    for (int j = 0; j < DN; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) {
-        krow[col] = from_f32<T>(acc_k[i][j]);
-        vrow[col] = from_f32<T>(acc_v[i][j]);
+      for (int j = 0; j < DN; ++j) {
+        const int col = tx + 16 * j;
+        if (col < d) {
+          krow[col] = from_f32<T>(acc_k[i][j]);
+          vrow[col] = from_f32<T>(acc_v[i][j]);
+        }
       }
     }
   }
+  if (KM && g.hb && threadIdx.x < BK && mc < g.SK)  // the batch row's dmask
+    g.dm[b * g.km_b + mc] = dm_acc / g.scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -642,7 +742,7 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ g,
 }
 
 // Forward. grid = (ceil(SQ / 64), B * H), 4 warps of 16 query rows.
-template <int DMAX>
+template <int DMAX, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreadsTc)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -662,6 +762,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r0 = blockIdx.x * BQ;
   const bf16* kg = k + b * sk_.b + hk * sk_.h;
   const bf16* vg = v + b * sv_.b + hk * sv_.h;
+  const float* kmr = KM ? km_row(g, b, h) : nullptr;
+  const uint32_t salt = DROP ? head_salt(g, bh) : 0u;
   load_tile<BQ, LD, DMAX>(sQ, q + b * sq_.b + h * sq_.h, sq_.s, r0, g.SQ,
                           g.d);
   float acc[DT][4];
@@ -700,8 +802,12 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int r = r0 + wr + gq + (e >> 1) * 8;
         const int c = c0 + 8 * j + 2 * tq + (e & 1);
         float x = s[j][e] * g.scale;
-        if (c >= g.SK) x = -INFINITY;
-        else if (!visible(g, r, c)) x = kNegInf;
+        if (c >= g.SK) {
+          x = -INFINITY;
+        } else {
+          if (!visible(g, r, c)) x = kNegInf;
+          if (KM) x += kmr[c];
+        }
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -720,7 +826,12 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[j][e] = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
+        l[e >> 1] += s[j][e];  // the row sum keeps the undropped p
+        if (DROP)
+          s[j][e] = keep(g, salt, r0 + wr + gq + (e >> 1) * 8,
+                         c0 + 8 * j + 2 * tq + (e & 1))
+                        ? s[j][e] * g.dscale
+                        : 0.f;
       }
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
@@ -776,11 +887,14 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // is (row0 + gq + 8 * (e >> 1)), column (col0 + 8 * j + 2 * tq + (e & 1)).
 // kRowsAreQueries: rows index queries (dQ kernel); otherwise rows index
 // keys and columns queries (dK/dV kernel). lse and delta are looked up
-// per query through `stat`.
-template <int NT, bool kRowsAreQueries, typename Stat>
+// per query through `stat`. With KM the key row kmr is added to the
+// scaled scores; with DROP, dp is masked and scaled before ds and s
+// becomes the dropped p (the operand of dV).
+template <int NT, bool kRowsAreQueries, bool KM, bool DROP, typename Stat>
 __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
                                          float (&dp)[NT][4], int row0,
                                          int col0, int gq, int tq,
+                                         const float* kmr, uint32_t salt,
                                          Stat stat) {
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -795,14 +909,22 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
            &delta_q);
       const bool live = lse_q > 0.5f * kNegInf && kc < g.SK && qr < g.SQ &&
                         visible(g, qr, kc);
-      const float p = live ? expf(g.scale * s[j][e] - lse_q) : 0.f;
-      s[j][e] = p;
-      dp[j][e] = p * (dp[j][e] - delta_q) * g.scale;
+      float x = g.scale * s[j][e];
+      if (KM && live) x += kmr[kc];
+      const float p = live ? expf(x - lse_q) : 0.f;
+      float dpv = dp[j][e], pd = p;
+      if (DROP) {  // dp masked and scaled before ds; dV takes the dropped p
+        const float dmk = keep(g, salt, qr, kc) ? g.dscale : 0.f;
+        dpv *= dmk;
+        pd = p * dmk;
+      }
+      s[j][e] = pd;
+      dp[j][e] = p * (dpv - delta_q) * g.scale;
     }
 }
 
 // dQ. grid = (ceil(SQ / 64), B * H), 4 warps of 16 query rows.
-template <int DMAX>
+template <int DMAX, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreadsTc)
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -825,6 +947,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r0 = blockIdx.x * BQ;
   const bf16* kg = k + b * sk_.b + hk * sk_.h;
   const bf16* vg = v + b * sv_.b + hk * sv_.h;
+  const float* kmr = KM ? km_row(g, b, h) : nullptr;
+  const uint32_t salt = DROP ? head_salt(g, bh) : 0u;
   load_tile<BQ, LD, DMAX>(sQ, q + b * sq_.b + h * sq_.h, sq_.s, r0, g.SQ,
                           g.d);
   load_tile<BQ, LD, DMAX>(sdO, dout + b * sdo_.b + h * sdo_.h, sdo_.s, r0,
@@ -868,11 +992,11 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(dp[j], ad, b0, b1);
       }
     }
-    probs_ds<NT, true>(g, s, dp, r0 + wr, c0, gq, tq,
-                       [&](int i, float* ls, float* dl) {
-                         *ls = lse_r[i];
-                         *dl = delta_r[i];
-                       });
+    probs_ds<NT, true, KM, DROP>(g, s, dp, r0 + wr, c0, gq, tq, kmr, salt,
+                                 [&](int i, float* ls, float* dl) {
+                                   *ls = lse_r[i];
+                                   *dl = delta_r[i];
+                                 });
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
@@ -904,8 +1028,12 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // dK and dV. grid = (ceil(SK / 64), B * HKV), 4 warps of 16 keys; the
-// block sweeps its group's q heads x 32-row query tiles.
-template <int DMAX>
+// block sweeps its group's q heads x 32-row query tiles. With g.hb the
+// grid is (ceil(SK / 64), B) and the block also loops over the kv heads.
+// With KM each thread sums ds over the query columns of its two keys in
+// registers; the four lanes of a key row are reduced by shuffles when a
+// dmask row is written (per query head, or with g.hb once per batch row).
+template <int DMAX, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreadsTc)
 flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -924,104 +1052,133 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sDelta = sLse + BQ;                               // [BQ]
   const int lane = threadIdx.x & 31, wk = (threadIdx.x >> 5) * 16;
   const int gq = lane >> 2, tq = lane & 3;
-  const int bhk = blockIdx.y;
-  const int b = bhk / g.HKV, hk = bhk - b * g.HKV;
+  const int b = g.hb ? blockIdx.y : blockIdx.y / g.HKV;
+  const int hk0 = g.hb ? 0 : blockIdx.y - b * g.HKV;
+  const int hk1 = g.hb ? g.HKV : hk0 + 1;
   const int group = g.H / g.HKV;
   const int c0 = blockIdx.x * BK;
-  load_tile<BK, LD, DMAX>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK,
-                          g.d);
-  load_tile<BK, LD, DMAX>(sV, v + b * sv_.b + hk * sv_.h, sv_.s, c0, g.SK,
-                          g.d);
-  float acc_k[DT][4], acc_v[DT][4];
+  float dm[2] = {0.f, 0.f};  // keys c0 + wk + gq and + 8: this lane's share
+  // a dmask row (all lanes take part in the shuffles)
+  auto write_dm = [&](long long row) {
 #pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      float x = dm[i];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const int c = c0 + wk + gq + 8 * i;
+      if (tq == 0 && c < g.SK) g.dm[row + c] = x / g.scale;
+      dm[i] = 0.f;
+    }
+  };
   int qt0, qt1;
   query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const long long bh = (long long)b * g.H + h;
-    const bf16* qg = q + b * sq_.b + h * sq_.h;
-    const bf16* dog = dout + b * sdo_.b + h * sdo_.h;
-    for (int qt = qt0; qt < qt1; ++qt) {
-      const int r0 = qt * BQ;
-      __syncthreads();
-      load_tile<BQ, LD, DMAX>(sQ, qg, sq_.s, r0, g.SQ, g.d);
-      load_tile<BQ, LD, DMAX>(sdO, dog, sdo_.s, r0, g.SQ, g.d);
-      if (threadIdx.x < BQ) {
-        const int r = r0 + threadIdx.x;
-        sLse[threadIdx.x] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
-        sDelta[threadIdx.x] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
-      }
-      __syncthreads();
-      // S^T = K.Q^T and dP^T = V.dO^T: rows are this warp's 16 keys
-      float s[NT][4], dp[NT][4];
+  for (int hk = hk0; hk < hk1; ++hk) {
+    __syncthreads();  // the previous kv head is done with sK and sV
+    load_tile<BK, LD, DMAX>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK,
+                            g.d);
+    load_tile<BK, LD, DMAX>(sV, v + b * sv_.b + hk * sv_.h, sv_.s, c0, g.SK,
+                            g.d);
+    float acc_k[DT][4], acc_v[DT][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < DT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+    for (int gi = 0; gi < group; ++gi) {
+      const int h = hk * group + gi;
+      const long long bh = (long long)b * g.H + h;
+      const bf16* qg = q + b * sq_.b + h * sq_.h;
+      const bf16* dog = dout + b * sdo_.b + h * sdo_.h;
+      const float* kmr = KM ? km_row(g, b, h) : nullptr;
+      const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
+      for (int qt = qt0; qt < qt1; ++qt) {
+        const int r0 = qt * BQ;
+        __syncthreads();
+        load_tile<BQ, LD, DMAX>(sQ, qg, sq_.s, r0, g.SQ, g.d);
+        load_tile<BQ, LD, DMAX>(sdO, dog, sdo_.s, r0, g.SQ, g.d);
+        if (threadIdx.x < BQ) {
+          const int r = r0 + threadIdx.x;
+          sLse[threadIdx.x] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
+          sDelta[threadIdx.x] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
+        }
+        __syncthreads();
+        // S^T = K.Q^T and dP^T = V.dO^T: rows are this warp's 16 keys
+        float s[NT][4], dp[NT][4];
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t ak[4], av[4];
-        frag_a<LD>(ak, sK, wk, 16 * ks, lane);
-        frag_a<LD>(av, sV, wk, 16 * ks, lane);
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t b0, b1;
-          frag_b_rows<LD>(b0, b1, sQ, 8 * j, 16 * ks, lane);
-          mma(s[j], ak, b0, b1);
-          frag_b_rows<LD>(b0, b1, sdO, 8 * j, 16 * ks, lane);
-          mma(dp[j], av, b0, b1);
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t ak[4], av[4];
+          frag_a<LD>(ak, sK, wk, 16 * ks, lane);
+          frag_a<LD>(av, sV, wk, 16 * ks, lane);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            uint32_t b0, b1;
+            frag_b_rows<LD>(b0, b1, sQ, 8 * j, 16 * ks, lane);
+            mma(s[j], ak, b0, b1);
+            frag_b_rows<LD>(b0, b1, sdO, 8 * j, 16 * ks, lane);
+            mma(dp[j], av, b0, b1);
+          }
+        }
+        probs_ds<NT, false, KM, DROP>(g, s, dp, c0 + wk, r0, gq, tq, kmr,
+                                      salt,
+                                      [&](int i, float* ls, float* dl) {
+                                        *ls = sLse[i];
+                                        *dl = sDelta[i];
+                                      });
+        if (KM) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dm[e >> 1] += dp[j][e];
+        }
+        // dV += P^T.dO and dK += dS^T.Q over this tile's query rows
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          const uint32_t ap[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
+                                  pack(s[2 * kk][2], s[2 * kk][3]),
+                                  pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                  pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          const uint32_t ad[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
+                                  pack(dp[2 * kk][2], dp[2 * kk][3]),
+                                  pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                                  pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+          for (int j = 0; j < DT; j += 2) {
+            uint32_t bb[4];
+            frag_b_cols<LD>(bb, sdO, 16 * kk, 8 * j, lane);
+            mma(acc_v[j], ap, bb[0], bb[1]);
+            mma(acc_v[j + 1], ap, bb[2], bb[3]);
+            frag_b_cols<LD>(bb, sQ, 16 * kk, 8 * j, lane);
+            mma(acc_k[j], ad, bb[0], bb[1]);
+            mma(acc_k[j + 1], ad, bb[2], bb[3]);
+          }
         }
       }
-      probs_ds<NT, false>(g, s, dp, c0 + wk, r0, gq, tq,
-                          [&](int i, float* ls, float* dl) {
-                            *ls = sLse[i];
-                            *dl = sDelta[i];
-                          });
-      // dV += P^T.dO and dK += dS^T.Q over this tile's query rows
+      if (KM && !g.hb) write_dm(b * g.km_b + h * g.km_h);
+    }
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        const uint32_t ap[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                                pack(s[2 * kk][2], s[2 * kk][3]),
-                                pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t ad[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
-                                pack(dp[2 * kk][2], dp[2 * kk][3]),
-                                pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+    for (int i = 0; i < 2; ++i) {
+      const int c = c0 + wk + gq + 8 * i;
+      if (c >= g.SK) continue;
+      bf16* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
+      bf16* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
 #pragma unroll
-        for (int j = 0; j < DT; j += 2) {
-          uint32_t bb[4];
-          frag_b_cols<LD>(bb, sdO, 16 * kk, 8 * j, lane);
-          mma(acc_v[j], ap, bb[0], bb[1]);
-          mma(acc_v[j + 1], ap, bb[2], bb[3]);
-          frag_b_cols<LD>(bb, sQ, 16 * kk, 8 * j, lane);
-          mma(acc_k[j], ad, bb[0], bb[1]);
-          mma(acc_k[j + 1], ad, bb[2], bb[3]);
+      for (int j = 0; j < DT; ++j) {
+        const int col = 8 * j + 2 * tq;
+        if (col < g.d) {
+          *reinterpret_cast<uint32_t*>(krow + col) =
+              pack(acc_k[j][2 * i], acc_k[j][2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(vrow + col) =
+              pack(acc_v[j][2 * i], acc_v[j][2 * i + 1]);
         }
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = c0 + wk + gq + 8 * i;
-    if (c >= g.SK) continue;
-    bf16* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
-    bf16* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = 8 * j + 2 * tq;
-      if (col < g.d) {
-        *reinterpret_cast<uint32_t*>(krow + col) =
-            pack(acc_k[j][2 * i], acc_k[j][2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(vrow + col) =
-            pack(acc_v[j][2 * i], acc_v[j][2 * i + 1]);
-      }
-    }
-  }
+  if (KM && g.hb) write_dm(b * g.km_b);
 }
+
 
 // Shared-memory bytes of the tensor-core kernels.
 template <int DMAX>
@@ -1059,11 +1216,11 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <typename T, int DMAX, int BQ, int BK>
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, const Geom& g, const long long* st,
                 cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, DMAX, BQ, BK>;
+  auto kernel = flash_fwd_kernel<T, DMAX, BQ, BK, KM, DROP>;
   const size_t smem = Cfg<T, DMAX, BQ, BK>::fwd;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1074,12 +1231,12 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX, int BQ, int BK>
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, const Geom& g, const long long* st,
                    cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, DMAX, BQ, BK>;
+  auto kernel = flash_bwd_dq_kernel<T, DMAX, BQ, BK, KM, DROP>;
   const size_t smem = Cfg<T, DMAX, BQ, BK>::dq;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1091,17 +1248,22 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX, int BQ, int BK>
+// dK/dV grid: one block per (key tile, kv head), or per (key tile, batch
+// row) for the head-batched entry.
+dim3 dkv_grid(const Geom& g, int bk) {
+  return dim3((g.SK + bk - 1) / bk, g.hb ? g.B : g.B * g.HKV);
+}
+
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, const Geom& g, const long long* st,
                     cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, DMAX, BQ, BK>;
+  auto kernel = flash_bwd_dkv_kernel<T, DMAX, BQ, BK, KM, DROP>;
   const size_t smem = Cfg<T, DMAX, BQ, BK>::dkv;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((g.SK + BK - 1) / BK, g.B * g.HKV), kThreads, smem,
-           stream>>>(
+  kernel<<<dkv_grid(g, BK), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
       (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, g,
       strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
@@ -1109,11 +1271,11 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, bool KM, bool DROP>
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Geom& g, const long long* st,
                    cudaStream_t stream) {
-  auto kernel = tc::flash_fwd_tc<DMAX>;
+  auto kernel = tc::flash_fwd_tc<DMAX, KM, DROP>;
   const size_t smem = tc::Smem<DMAX>::fwd;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1125,12 +1287,12 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, bool KM, bool DROP>
 cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, const Geom& g, const long long* st,
                       cudaStream_t stream) {
-  auto kernel = tc::flash_bwd_dq_tc<DMAX>;
+  auto kernel = tc::flash_bwd_dq_tc<DMAX, KM, DROP>;
   const size_t smem = tc::Smem<DMAX>::dq;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1143,17 +1305,16 @@ cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, bool KM, bool DROP>
 cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, const Geom& g, const long long* st,
                        cudaStream_t stream) {
-  auto kernel = tc::flash_bwd_dkv_tc<DMAX>;
+  auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP>;
   const size_t smem = tc::Smem<DMAX>::dkv;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((g.SK + 63) / 64, g.B * g.HKV), tc::kThreadsTc, smem,
-           stream>>>(
+  kernel<<<dkv_grid(g, 64), tc::kThreadsTc, smem, stream>>>(
       (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
       (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
       (tc::bf16*)dk, (tc::bf16*)dv, g, strides_at(st, 0), strides_at(st, 1),
@@ -1162,9 +1323,26 @@ cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-Geom make_geom(const int* geom, float scale) {
-  return Geom{geom[0], geom[1], geom[2], geom[3], geom[4],
-              geom[5], geom[6], geom[7], scale};
+// geom = {B, H, HKV, SQ, SK, d, causal, window}; km: the additive key
+// rows (or null), one per query head (hb = 0) or per batch row (hb = 1);
+// dm: their gradient (dK/dV entries, with km); drop: {seed0, seed1,
+// threshold} (or null: no dropout), dscale = 1 / (1 - rate).
+Geom make_geom(const int* geom, float scale, const void* km, void* dm,
+               const unsigned* drop, float dscale, int hb) {
+  Geom g{geom[0], geom[1], geom[2], geom[3], geom[4],
+         geom[5], geom[6], geom[7], scale};
+  g.km = (const float*)km;
+  g.dm = (float*)dm;
+  g.km_b = hb ? g.SK : (long long)g.H * g.SK;
+  g.km_h = hb ? 0 : g.SK;
+  g.seed0 = drop ? drop[0] : 0u;
+  g.seed1 = drop ? drop[1] : 0u;
+  g.thresh = drop ? drop[2] : 0u;
+  g.dscale = dscale;
+  // without a mask there is no dmask to reduce over heads: a head-batched
+  // call keeps kernel 3's larger per-(key tile, kv head) grid
+  g.hb = hb && km;
+  return g;
 }
 
 // dtype codes shared with ops/cuda/flash_attention.py
@@ -1174,55 +1352,130 @@ enum { kFloat32 = 0, kBFloat16 = 1 };
 // bf16 with d > 128 the fp32-FMA kernels, with 64 x 64 tiles up to DMAX
 // 128 and 32 x 32 at DMAX 256 so that fp32 backward tiles fit in shared
 // memory.
-#define PT_FLASH_DISPATCH(FN, ...)                                      \
+#define PT_FLASH_FAMILY(FN, KM, DROP, ...)                              \
   do {                                                                  \
-    if (g.d % 8 || g.d > 256 || g.H % g.HKV) return cudaErrorInvalidValue; \
     if (dtype == kBFloat16) {                                           \
-      if (g.d <= 64) return FN##_tc<64>(__VA_ARGS__);                   \
-      if (g.d <= 128) return FN##_tc<128>(__VA_ARGS__);                 \
-      return FN<__nv_bfloat16, 256, 32, 32>(__VA_ARGS__);                \
+      if (g.d <= 64) return FN##_tc<64, KM, DROP>(__VA_ARGS__);         \
+      if (g.d <= 128) return FN##_tc<128, KM, DROP>(__VA_ARGS__);       \
+      return FN<__nv_bfloat16, 256, 32, 32, KM, DROP>(__VA_ARGS__);      \
     }                                                                   \
     if (dtype == kFloat32) {                                            \
-      if (g.d <= 64) return FN<float, 64, 64, 64>(__VA_ARGS__);          \
-      if (g.d <= 128) return FN<float, 128, 64, 64>(__VA_ARGS__);        \
-      return FN<float, 256, 32, 32>(__VA_ARGS__);                        \
+      if (g.d <= 64) return FN<float, 64, 64, 64, KM, DROP>(__VA_ARGS__); \
+      if (g.d <= 128)                                                   \
+        return FN<float, 128, 64, 64, KM, DROP>(__VA_ARGS__);            \
+      return FN<float, 256, 32, 32, KM, DROP>(__VA_ARGS__);              \
     }                                                                   \
     return cudaErrorInvalidValue;                                       \
   } while (0)
 
-}  // namespace
+// ... and the variant: key mask (g.km set) and dropout (drop given).
+#define PT_FLASH_DISPATCH(FN, ...)                                      \
+  do {                                                                  \
+    if (g.d % 8 || g.d > 256 || g.H % g.HKV) return cudaErrorInvalidValue; \
+    if (g.km && drop) PT_FLASH_FAMILY(FN, true, true, __VA_ARGS__);     \
+    if (g.km) PT_FLASH_FAMILY(FN, true, false, __VA_ARGS__);            \
+    if (drop) PT_FLASH_FAMILY(FN, false, true, __VA_ARGS__);            \
+    PT_FLASH_FAMILY(FN, false, false, __VA_ARGS__);                     \
+  } while (0)
 
-// geom = {B, H, HKV, SQ, SK, d, causal, window}; strides = (batch, seq,
-// head) element strides of each tensor argument in order, 3 per tensor.
-
-// q, k, v, o strides; lse [B * H, SQ] fp32.
-extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, const int* geom,
-                            float scale, const long long* strides,
-                            int dtype, void* stream) {
-  const Geom g = make_geom(geom, scale);
+int fwd_entry(const void* q, const void* k, const void* v, void* o,
+              void* lse, const void* km, const int* geom, float scale,
+              const long long* strides, const unsigned* drop, float dscale,
+              int dtype, void* stream, int hb) {
+  const Geom g = make_geom(geom, scale, km, nullptr, drop, dscale, hb);
   PT_FLASH_DISPATCH(fwd, q, k, v, o, lse, g, strides, (cudaStream_t)stream);
 }
 
-// q, k, v, dout, dq strides; lse and delta [B * H, SQ] fp32.
-extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq, const int* geom,
-                               float scale, const long long* strides,
-                               int dtype, void* stream) {
-  const Geom g = make_geom(geom, scale);
+int bwd_dq_entry(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, const void* km, const int* geom, float scale,
+                 const long long* strides, const unsigned* drop, float dscale,
+                 int dtype, void* stream, int hb) {
+  const Geom g = make_geom(geom, scale, km, nullptr, drop, dscale, hb);
   PT_FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, g, strides,
                     (cudaStream_t)stream);
 }
 
-// q, k, v, dout, dk, dv strides; lse and delta [B * H, SQ] fp32.
+int bwd_dkv_entry(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, const void* km, void* dm,
+                  const int* geom, float scale, const long long* strides,
+                  const unsigned* drop, float dscale, int dtype, void* stream,
+                  int hb) {
+  const Geom g = make_geom(geom, scale, km, dm, drop, dscale, hb);
+  PT_FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, g, strides,
+                    (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// Strides: the (batch, seq, head) element strides of each [b, s, h, d]
+// tensor argument in order, 3 per tensor. lse and delta are [B * H, SQ]
+// fp32; km and dm contiguous fp32 rows of SK.
+
+// q, k, v, o strides. km: [B * H, 1, SK] or null.
+extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
+                            void* o, void* lse, const void* km,
+                            const int* geom, float scale,
+                            const long long* strides, const unsigned* drop,
+                            float dscale, int dtype, void* stream) {
+  return fwd_entry(q, k, v, o, lse, km, geom, scale, strides, drop, dscale,
+                   dtype, stream, 0);
+}
+
+// q, k, v, dout, dq strides.
+extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, const void* km,
+                               const int* geom, float scale,
+                               const long long* strides,
+                               const unsigned* drop, float dscale, int dtype,
+                               void* stream) {
+  return bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, geom, scale,
+                      strides, drop, dscale, dtype, stream, 0);
+}
+
+// q, k, v, dout, dk, dv strides. dm: [B * H, 1, SK] (with km).
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k,
                                 const void* v, const void* dout,
                                 const void* lse, const void* delta,
-                                void* dk, void* dv, const int* geom,
-                                float scale, const long long* strides,
+                                void* dk, void* dv, const void* km, void* dm,
+                                const int* geom, float scale,
+                                const long long* strides,
+                                const unsigned* drop, float dscale,
                                 int dtype, void* stream) {
-  const Geom g = make_geom(geom, scale);
-  PT_FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, g, strides,
-                    (cudaStream_t)stream);
+  return bwd_dkv_entry(q, k, v, dout, lse, delta, dk, dv, km, dm, geom,
+                       scale, strides, drop, dscale, dtype, stream, 0);
+}
+
+// The head-batched entries (head_flash.py): as above with km [B, 1, SK]
+// one row per batch row, and dm [B, 1, SK] summed over every head.
+extern "C" int pt_hb_fwd(const void* q, const void* k, const void* v,
+                         void* o, void* lse, const void* km,
+                         const int* geom, float scale,
+                         const long long* strides, const unsigned* drop,
+                         float dscale, int dtype, void* stream) {
+  return fwd_entry(q, k, v, o, lse, km, geom, scale, strides, drop, dscale,
+                   dtype, stream, 1);
+}
+
+extern "C" int pt_hb_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, const void* km,
+                            const int* geom, float scale,
+                            const long long* strides, const unsigned* drop,
+                            float dscale, int dtype, void* stream) {
+  return bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, geom, scale,
+                      strides, drop, dscale, dtype, stream, 1);
+}
+
+extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv,
+                             const void* km, void* dm, const int* geom,
+                             float scale, const long long* strides,
+                             const unsigned* drop, float dscale, int dtype,
+                             void* stream) {
+  return bwd_dkv_entry(q, k, v, dout, lse, delta, dk, dv, km, dm, geom,
+                       scale, strides, drop, dscale, dtype, stream, 1);
 }

@@ -37,14 +37,28 @@ QKV projection go in without the three transposes JAX makes; the
 source's note lists what later work adds (wgmma, TMA, a persistent
 grid).
 
+The TPU kernels' two variants are template flags of the same kernels:
+
+- ``kmask``: an additive fp32 key row per query head, ``[b * h, 1,
+  sk]`` (``_flash_call``'s form), added to the scaled scores after the
+  causal mask; :func:`flash_bwd_dkv` then also returns its gradient
+  ``dmask = sum over query rows of ds / scale``, per query head;
+- ``dropout`` with two ``seed`` words: the reference's counter-hash mask
+  (``_keep_mask``, bit for bit; :func:`_keep_mask_ref` is its plain
+  version) over the global (query head ``b * h + i``, row, key). The
+  row sum keeps the undropped probabilities; only P.V sees ``p * keep /
+  (1 - rate)``, and the backward masks dO.V^T the same way.
+
+The encoder path reaches the per-batch-row mask through
+``ops/cuda/head_flash.py`` (kernels 4-6, which share these kernels'
+code); ring attention will call these variants with an external lse.
+
 Wrapper rules: CPU tensors go to the plain versions
 (:func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref`,
 :func:`flash_bwd_dkv_ref`); CUDA tensors launch the kernel or raise —
 there is no fallback. ``flash_fwd.launches``, ``flash_bwd_dq.launches``
 and ``flash_bwd_dkv.launches`` count kernel launches (plain ints; reset
-them by assignment). The key-padding mask and in-kernel dropout of the
-TPU kernels belong to the encoder slice (ROADMAP queue B) and raise
-``NotImplementedError``.
+them by assignment).
 """
 from __future__ import annotations
 
@@ -61,8 +75,7 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # flash_attention.cu
-_ENCODER_SLICE = ("belongs to the encoder slice of the port (ROADMAP "
-                  "queue B, with kernels 4-6 of head_flash.py)")
+_M32 = 0xFFFFFFFF
 
 
 # -- checks -------------------------------------------------------------------
@@ -133,7 +146,74 @@ def _scale(scale, d):
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
 
 
+def _check_kmask(kmask, rows, q, k):
+    """Raise ``ValueError`` unless ``kmask`` is a contiguous fp32 ``[rows,
+    1, sk]`` tensor on q's device."""
+    sk = k.shape[1]
+    if not isinstance(kmask, torch.Tensor) or kmask.dtype != torch.float32 \
+            or tuple(kmask.shape) != (rows, 1, sk) \
+            or not kmask.is_contiguous() or kmask.device != q.device:
+        raise ValueError(f"kmask must be a contiguous float32 [{rows}, 1, "
+                         f"{sk}] tensor on {q.device}")
+
+
+def _threshold(rate):
+    """The keep threshold of the counter hash, as the reference computes
+    it (float64 on the host)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def _dropout_words(dropout, seed):
+    """``(seed0, seed1, threshold)`` as uint32 and the fp32 scale ``1 /
+    (1 - dropout)`` of the counter-hash dropout, or None without it."""
+    if not isinstance(dropout, (int, float)) or not 0.0 <= dropout < 1.0:
+        raise ValueError(f"dropout must be a float in [0, 1), got "
+                         f"{dropout!r}")
+    if dropout == 0.0:
+        return None
+    if seed is None or len(seed) != 2:
+        raise ValueError("dropout > 0 needs seed: two int words (the "
+                         "reference's int32[2] seed operand)")
+    s0, s1 = (int(w) & _M32 for w in seed)
+    return (s0, s1, _threshold(dropout)), 1.0 / (1.0 - dropout)
+
+
 # -- plain versions -----------------------------------------------------------
+
+def _mul32(a, c):
+    """``a * c mod 2**32`` for int64 ``a`` in ``[0, 2**32)`` and a 32-bit
+    constant ``c``, without leaving int64's range."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _keep_mask_ref(seed, heads, sq, sk, rate):
+    """Plain version of the reference's ``_keep_mask``
+    (``paddle_tpu/ops/pallas/flash_attention.py:54``): the bool keep mask
+    ``heads.shape + (sq, sk)`` of the query heads ``heads`` (flattened
+    ``b * h + i`` indices, an int tensor) over global rows and keys. A
+    murmur3 fmix32 of ``row * 0x27D4EB2F + key * 0x165667B1 + seed0 *
+    0x9E3779B9 + (head + 1) * 0x85EBCA6B + seed1`` in uint32 arithmetic
+    (int64 here, reduced mod 2**32), kept where it is >= the threshold."""
+    return _hash(seed, heads, sq, sk) >= _threshold(rate)
+
+
+def _hash(seed, heads, sq, sk):
+    """The counter hash of :func:`_keep_mask_ref`, int64 in ``[0,
+    2**32)``."""
+    base = (int(seed[0]) * 0x9E3779B9 + int(seed[1])) & _M32
+    heads = torch.as_tensor(heads).to(torch.int64)
+    salt = (_mul32(heads + 1, 0x85EBCA6B) + base) & _M32
+    rows = _mul32(torch.arange(sq, device=heads.device), 0x27D4EB2F)
+    cols = _mul32(torch.arange(sk, device=heads.device), 0x165667B1)
+    x = (rows[:, None] + cols[None, :] + salt[..., None, None]) & _M32
+    x ^= x >> 16
+    x = _mul32(x, 0x85EBCA6B)
+    x ^= x >> 13
+    x = _mul32(x, 0xC2B2AE35)
+    x ^= x >> 16
+    return x
+
 
 def _visible(sq, sk, causal, window, device):
     """``[sq, sk]`` bool: query row r sees key c (bottom-right causal,
@@ -154,10 +234,11 @@ def _grouped(q, h_kv):
     return q.to(torch.float32).reshape(b, s, h_kv, h // h_kv, d)
 
 
-def _masked_scores(q, k, scale, causal, window, prescale):
+def _masked_scores(q, k, scale, causal, window, prescale, kmask=None):
     """fp32 scores ``[b, h_kv, g, sq, sk]`` with masked entries at
-    NEG_INF. ``prescale`` multiplies q by the scale before the product
-    (the forward), else the product is scaled (the backward)."""
+    NEG_INF, plus the additive key rows ``kmask`` (``[b * h, 1, sk]``)
+    when given. ``prescale`` multiplies q by the scale before the
+    product (the forward), else the product is scaled (the backward)."""
     qg = _grouped(q, k.shape[2])
     kf = k.to(torch.float32)
     if prescale:
@@ -167,17 +248,40 @@ def _masked_scores(q, k, scale, causal, window, prescale):
     vis = _visible(q.shape[1], k.shape[1], causal, window, q.device)
     if vis is not None:
         s = torch.where(vis, s, torch.full((), NEG_INF, device=q.device))
+    if kmask is not None:
+        s = s + kmask.to(torch.float32).reshape(*s.shape[:3], 1, -1)
     return s
 
 
-def flash_fwd_ref(q, k, v, *, causal, scale=None, window=0):
+def _drop_factor(drop, q, k):
+    """``keep / (1 - rate)`` in fp32, ``[b, h_kv, g, sq, sk]``, or None;
+    ``drop`` as :func:`_dropout_words` returns it."""
+    if drop is None:
+        return None
+    (s0, s1, threshold), dscale = drop
+    b, sq, h, _ = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    heads = torch.arange(b * h, device=q.device).reshape(b, h_kv, h // h_kv)
+    keep = _hash((s0, s1), heads, sq, sk) >= threshold
+    return torch.where(keep, torch.tensor(dscale, dtype=torch.float32,
+                                          device=q.device), 0.0)
+
+
+def flash_fwd_ref(q, k, v, *, causal, scale=None, window=0, kmask=None,
+                  seed=None, dropout=0.0):
     """Plain version of :func:`flash_fwd`: a one-pass fp32 softmax
-    attention with the kernel's masking. Returns (O ``[b, sq, h, d]`` in
-    q's dtype, lse ``[b * h, sq]`` fp32)."""
+    attention with the kernel's masking, key rows and dropout. Returns
+    (O ``[b, sq, h, d]`` in q's dtype, lse ``[b * h, sq]`` fp32)."""
     b, sq, h, d = q.shape
-    s = _masked_scores(q, k, _scale(scale, d), causal, window, True)
+    s = _masked_scores(q, k, _scale(scale, d), causal, window, True, kmask)
     lse = torch.logsumexp(s, dim=-1)  # [b, h_kv, g, sq]
-    p = torch.exp(s - lse[..., None])
+    # p by the max-subtracted softmax, as the kernels' running max and sum
+    # give it; exp(s - lse) would carry lse's rounding, up to 2**-11 of p
+    # in a row whose keys are all padded at -1e4
+    p = torch.softmax(s, dim=-1)
+    factor = _drop_factor(_dropout_words(dropout, seed), q, k)
+    if factor is not None:  # the row sum (lse) keeps the undropped p
+        p = p * factor
     out = torch.einsum("bkgqc,bckd->bqkgd", p, v.to(torch.float32))
     # rows with no visible key: lse stays ~NEG_INF and O is exactly 0
     out = torch.where((lse > 0.5 * NEG_INF).permute(0, 3, 1, 2)[..., None],
@@ -185,42 +289,55 @@ def flash_fwd_ref(q, k, v, *, causal, scale=None, window=0):
     return out.reshape(b, sq, h, d).to(q.dtype), lse.reshape(b * h, sq)
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, scale, causal, window):
-    """Recomputed p and ds ``[b, h_kv, g, sq, sk]`` fp32."""
+def _probs_and_ds(q, k, v, do, lse, delta, scale, causal, window, kmask,
+                  drop):
+    """Recomputed p (dropped, the dV operand) and ds ``[b, h_kv, g, sq,
+    sk]`` fp32; dO.V^T is masked and scaled before ds."""
     b, sq, h, d = q.shape
     h_kv = k.shape[2]
-    s = _masked_scores(q, k, scale, causal, window, False)
+    s = _masked_scores(q, k, scale, causal, window, False, kmask)
     lse = lse.reshape(b, h_kv, h // h_kv, sq, 1)
     p = torch.where(lse > 0.5 * NEG_INF, torch.exp(s - lse),
                     torch.zeros((), device=q.device))
     dp = torch.einsum("bqkgd,bckd->bkgqc", _grouped(do, h_kv),
                       v.to(torch.float32))
+    factor = _drop_factor(drop, q, k)
+    pd = p
+    if factor is not None:
+        dp = dp * factor
+        pd = p * factor
     ds = p * (dp - delta.reshape(b, h_kv, h // h_kv, sq, 1)) * scale
-    return p, ds
+    return pd, ds
 
 
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal, scale=None,
-                     window=0):
+                     window=0, kmask=None, seed=None, dropout=0.0):
     """Plain version of :func:`flash_bwd_dq`: dQ ``[b, sq, h, d]`` in q's
     dtype from the recomputed probabilities."""
     b, sq, h, d = q.shape
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, _scale(scale, d), causal,
-                          window)
+                          window, kmask, _dropout_words(dropout, seed))
     dq = torch.einsum("bkgqc,bckd->bqkgd", ds, k.to(torch.float32))
     return dq.reshape(b, sq, h, d).to(q.dtype)
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale=None,
-                      window=0):
+                      window=0, kmask=None, seed=None, dropout=0.0):
     """Plain version of :func:`flash_bwd_dkv`: (dK, dV) ``[b, sk, h_kv,
-    d]`` in k's dtype, summed over each kv head's query-head group."""
-    d = q.shape[-1]
-    p, ds = _probs_and_ds(q, k, v, do, lse, delta, _scale(scale, d), causal,
-                          window)
+    d]`` in k's dtype, summed over each kv head's query-head group, and
+    with ``kmask`` also dmask ``[b * h, 1, sk]`` fp32 (the sum of ds /
+    scale over each head's query rows)."""
+    b, sq, h, d = q.shape
+    scale = _scale(scale, d)
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal, window,
+                          kmask, _dropout_words(dropout, seed))
     h_kv = k.shape[2]
     dv = torch.einsum("bkgqc,bqkgd->bckd", p, _grouped(do, h_kv))
     dk = torch.einsum("bkgqc,bqkgd->bckd", ds, _grouped(q, h_kv))
-    return dk.to(k.dtype), dv.to(v.dtype)
+    if kmask is None:
+        return dk.to(k.dtype), dv.to(v.dtype)
+    dmask = (ds / scale).sum(3).reshape(b * h, 1, -1)
+    return dk.to(k.dtype), dv.to(v.dtype), dmask
 
 
 # -- kernels ------------------------------------------------------------------
@@ -228,53 +345,95 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale=None,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# after the data pointers: geom, scale, strides, drop, dscale, dtype, stream
+_TAIL = [_P, _F, _P, _P, _F, _I, _P]
 
 
 @functools.cache
 def _lib():
     lib = _build.library("flash_attention")
-    lib.pt_flash_fwd.argtypes = [_P] * 6 + [_F, _P, _I, _P]
-    lib.pt_flash_fwd.restype = _I
-    lib.pt_flash_bwd_dq.argtypes = [_P] * 8 + [_F, _P, _I, _P]
-    lib.pt_flash_bwd_dq.restype = _I
-    lib.pt_flash_bwd_dkv.argtypes = [_P] * 9 + [_F, _P, _I, _P]
-    lib.pt_flash_bwd_dkv.restype = _I
+    for prefix in ("pt_flash", "pt_hb"):
+        for entry, n_ptr in (("fwd", 6), ("bwd_dq", 8), ("bwd_dkv", 10)):
+            fn = getattr(lib, f"{prefix}_{entry}")
+            fn.argtypes = [_P] * n_ptr + _TAIL
+            fn.restype = _I
     return lib
 
 
-def _launch(entry, name, tensors, q, k, causal, window, scale, strided):
-    """Call one C entry: data pointers, then the geometry and the
-    (batch, seq, head) strides of the ``strided`` tensors, as host
-    arrays the entry reads before it returns."""
+def _launch(entry, name, tensors, q, k, causal, window, scale, strided,
+            drop):
+    """Call one C entry: data pointers (None for an absent key row), then
+    the geometry and the (batch, seq, head) strides of the ``strided``
+    tensors, as host arrays the entry reads before it returns, and the
+    dropout words."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     geom = (ctypes.c_int * 8)(b, h, h_kv, sq, sk, d, int(causal), window)
     strides = (ctypes.c_longlong * (3 * len(strided)))(
         *(s for t in strided for s in t.stride()[:3]))
-    err = entry(*(t.data_ptr() for t in tensors), ctypes.addressof(geom),
-                scale, ctypes.addressof(strides), _DTYPE_CODE[q.dtype],
+    words, dscale = (None, 1.0) if drop is None else drop
+    if words is not None:
+        words = (ctypes.c_uint * 3)(*words)
+    err = entry(*(None if t is None else t.data_ptr() for t in tensors),
+                ctypes.addressof(geom), scale, ctypes.addressof(strides),
+                None if words is None else ctypes.addressof(words), dscale,
+                _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
 
-def flash_fwd(q, k, v, *, causal, scale=None, window=0):
-    """Attention forward. q ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]``
-    (float32 or bfloat16, last dim contiguous, ``h % h_kv == 0``, ``d %
-    8 == 0``, ``d <= 256``). Returns (O ``[b, sq, h, d]`` in q's dtype,
-    lse ``[b * h, sq]`` fp32)."""
-    _check(q, k, v, causal, window)
-    scale = _scale(scale, q.shape[-1])
-    if not q.is_cuda:
-        return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
-                             window=window)
+def _fwd(entry, name, q, k, v, kmask, scale, causal, window, drop):
+    """Launch a forward entry; returns (O, lse ``[b * h, sq]``)."""
     b, sq, h, _ = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    _launch(_lib().pt_flash_fwd, "flash_fwd", (q, k, v, out, lse), q, k,
-            causal, window, scale, (q, k, v, out))
-    flash_fwd.launches += 1
+    _launch(entry, name, (q, k, v, out, lse, kmask), q, k, causal, window,
+            scale, (q, k, v, out), drop)
     return out, lse
+
+
+def _bwd_dq(entry, name, q, k, v, do, lse, delta, kmask, scale, causal,
+            window, drop):
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(entry, name, (q, k, v, do, lse, delta, dq, kmask), q, k, causal,
+            window, scale, (q, k, v, do, dq), drop)
+    return dq
+
+
+def _bwd_dkv(entry, name, q, k, v, do, lse, delta, kmask, dm_rows, scale,
+             causal, window, drop):
+    """Launch a dK/dV entry; returns (dK, dV) and, with ``kmask``, the
+    ``[dm_rows, 1, sk]`` fp32 dmask."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dm = None if kmask is None else torch.empty(
+        (dm_rows, 1, k.shape[1]), dtype=torch.float32, device=q.device)
+    _launch(entry, name, (q, k, v, do, lse, delta, dk, dv, kmask, dm), q, k,
+            causal, window, scale, (q, k, v, do, dk, dv), drop)
+    return (dk, dv) if dm is None else (dk, dv, dm)
+
+
+def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
+              seed=None, dropout=0.0):
+    """Attention forward. q ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]``
+    (float32 or bfloat16, last dim contiguous, ``h % h_kv == 0``, ``d %
+    8 == 0``, ``d <= 256``); optional ``kmask`` ``[b * h, 1, sk]`` fp32
+    and ``dropout`` with two ``seed`` words. Returns (O ``[b, sq, h, d]``
+    in q's dtype, lse ``[b * h, sq]`` fp32)."""
+    _check(q, k, v, causal, window)
+    drop = _dropout_words(dropout, seed)
+    if kmask is not None:
+        _check_kmask(kmask, q.shape[0] * q.shape[2], q, k)
+    scale = _scale(scale, q.shape[-1])
+    if not q.is_cuda:
+        return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
+                             window=window, kmask=kmask, seed=seed,
+                             dropout=dropout)
+    res = _fwd(_lib().pt_flash_fwd, "flash_fwd", q, k, v, kmask, scale,
+               causal, window, drop)
+    flash_fwd.launches += 1
+    return res
 
 
 def _check_stats(q, lse, delta):
@@ -288,42 +447,52 @@ def _check_stats(q, lse, delta):
                              f"{q.device}")
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0):
-    """dQ ``[b, sq, h, d]`` (q's dtype) from dO (q's shape and dtype), the
-    forward's lse and ``delta = rowsum(dO * O)``, both ``[b * h, sq]``
-    fp32."""
+def _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
+               dropout, seed):
+    """The backward entries' checks; returns the dropout words."""
     _check(q, k, v, causal, window, extra=(("do", do),))
     _check_stats(q, lse, delta)
+    if kmask is not None:
+        _check_kmask(kmask, rows, q, k)
+    return _dropout_words(dropout, seed)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
+                 kmask=None, seed=None, dropout=0.0):
+    """dQ ``[b, sq, h, d]`` (q's dtype) from dO (q's shape and dtype), the
+    forward's lse and ``delta = rowsum(dO * O)``, both ``[b * h, sq]``
+    fp32; ``kmask``, ``seed`` and ``dropout`` as the forward had them."""
+    drop = _check_bwd(q, k, v, do, lse, delta, causal, window, kmask,
+                      q.shape[0] * q.shape[2], dropout, seed)
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
-                                scale=scale, window=window)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(_lib().pt_flash_bwd_dq, "flash_bwd_dq",
-            (q, k, v, do, lse, delta, dq), q, k, causal, window, scale,
-            (q, k, v, do, dq))
+                                scale=scale, window=window, kmask=kmask,
+                                seed=seed, dropout=dropout)
+    dq = _bwd_dq(_lib().pt_flash_bwd_dq, "flash_bwd_dq", q, k, v, do, lse,
+                 delta, kmask, scale, causal, window, drop)
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale=None,
-                  window=0):
+                  window=0, kmask=None, seed=None, dropout=0.0):
     """(dK, dV) ``[b, sk, h_kv, d]`` (k's dtype), each summed over the
-    query heads that share its kv head; arguments as
+    query heads that share its kv head, and with ``kmask`` also dmask
+    ``[b * h, 1, sk]`` fp32 per query head; arguments as
     :func:`flash_bwd_dq`."""
-    _check(q, k, v, causal, window, extra=(("do", do),))
-    _check_stats(q, lse, delta)
+    rows = q.shape[0] * q.shape[2]
+    drop = _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
+                      dropout, seed)
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
-                                 scale=scale, window=window)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch(_lib().pt_flash_bwd_dkv, "flash_bwd_dkv",
-            (q, k, v, do, lse, delta, dk, dv), q, k, causal, window, scale,
-            (q, k, v, do, dk, dv))
+                                 scale=scale, window=window, kmask=kmask,
+                                 seed=seed, dropout=dropout)
+    res = _bwd_dkv(_lib().pt_flash_bwd_dkv, "flash_bwd_dkv", q, k, v, do,
+                   lse, delta, kmask, rows, scale, causal, window, drop)
     flash_bwd_dkv.launches += 1
-    return dk, dv
+    return res
 
 
 flash_fwd.launches = 0
@@ -333,44 +502,58 @@ flash_bwd_dkv.launches = 0
 
 # -- autograd -----------------------------------------------------------------
 
+def _delta(do, out):
+    """``rowsum(dO * O)`` in fp32 as ``[b * h, sq]``."""
+    b, sq, h, _ = out.shape
+    delta = (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
+    return delta.permute(0, 2, 1).reshape(b * h, sq).contiguous()
+
+
+def _upstream(do, q):
+    """The upstream gradient in q's dtype and a layout the kernels read."""
+    do = do.to(q.dtype)
+    if not _vector_aligned(do):  # an upstream gradient with odd strides
+        do = do.contiguous()
+    return do
+
+
 class _FlashFn(torch.autograd.Function):
-    """Forward kernel 1; backward: delta in fp32, then kernels 2 and 3."""
+    """Forward kernel 1; backward: delta in fp32, then kernels 2 and 3.
+    kmask's gradient is kernel 3's dmask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window):
-        out, lse = flash_fwd(q, k, v, causal=causal, scale=scale,
-                             window=window)
+    def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout):
+        args = dict(causal=causal, scale=scale, window=window, kmask=kmask,
+                    seed=seed, dropout=dropout)
+        out, lse = flash_fwd(q, k, v, **args)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = dict(causal=causal, scale=scale, window=window)
+        ctx.args = args
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        do = do.to(q.dtype)
-        if not _vector_aligned(do):  # an upstream gradient with odd strides
-            do = do.contiguous()
-        b, sq, h, _ = q.shape
-        delta = (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
-        delta = delta.permute(0, 2, 1).reshape(b * h, sq).contiguous()
+        do = _upstream(do, q)
+        delta = _delta(do, out)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
-        return dq, dk, dv, None, None, None
+        dk, dv, *dm = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
+        return (dq, dk, dv, dm[0] if dm else None, None, None, None, None,
+                None)
 
 
 def flash_attention(q, k, v, *, causal, scale=None, window=0, kmask=None,
-                    dropout=0.0):
+                    dropout=0.0, seed=None):
     """Differentiable flash attention on the JAX public layout: q
     ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]`` -> ``[b, sq, h, d]``.
     ``scale`` defaults to ``1/sqrt(d)``; ``window > 0`` (with ``causal``)
-    bounds each row's lookback to ``window`` keys. ``kmask`` and
-    ``dropout > 0`` raise ``NotImplementedError``."""
-    if kmask is not None:
-        raise NotImplementedError(f"the additive key-padding mask "
-                                  f"{_ENCODER_SLICE}")
-    if dropout > 0.0:
-        raise NotImplementedError(f"in-kernel attention dropout "
-                                  f"{_ENCODER_SLICE}")
+    bounds each row's lookback to ``window`` keys; ``kmask`` (``[b * h,
+    1, sk]``, cast to contiguous fp32) adds a key row per query head and
+    receives its gradient; ``dropout > 0`` drops attention probabilities
+    by the counter hash seeded with the two ``seed`` words."""
     _check(q, k, v, causal, window)
-    return _FlashFn.apply(q, k, v, causal, _scale(scale, q.shape[-1]),
-                          window)
+    _dropout_words(dropout, seed)
+    if kmask is not None:
+        kmask = kmask.to(torch.float32).contiguous()
+    return _FlashFn.apply(q, k, v, kmask, causal,
+                          _scale(scale, q.shape[-1]), window, seed,
+                          float(dropout))

@@ -1,0 +1,200 @@
+"""Head-batched flash attention: kernels 4-6, their plain PyTorch
+versions, and the autograd Function that joins them.
+
+Counterpart of ``paddle_tpu/ops/pallas/head_flash.py``. The three entries
+of ``csrc/flash_attention.cu`` replace its Pallas TPU kernels:
+
+- :func:`hb_fwd` (``pt_hb_fwd``: O and lse) replaces ``_hb_fwd_kernel``;
+- :func:`hb_bwd_dq` (``pt_hb_bwd_dq``) replaces ``_hb_dq_kernel``;
+- :func:`hb_bwd_dkv` (``pt_hb_bwd_dkv``: dK, dV and dmask) replaces
+  ``_hb_dkv_kernel``.
+
+On the TPU the head-batched kernels exist to read native ``[b, s, h,
+d]`` blocks without the ``[b * h, s, d]`` transposes of kernels 1-3, and
+their key mask is one row per batch row (``[b, 1, sk]``) whose gradient
+sums over heads and rows in the kernel. On Hopper kernels 1-3 already
+read ``[b, s, h, d]`` through strides, so kernels 4 and 5 are kernel 1's
+and 2's templates (tensor-core for bf16 with ``d <= 128``, fp32-FMA
+otherwise) with the mask row read at the batch row. Kernel 6 has its own
+grid: one block per (64 keys, batch row) that loops over every kv head
+and its query heads' tiles, so dmask ``[b, 1, sk]`` is summed over all
+heads and rows inside the block, in registers, in a fixed order, with no
+atomics (512 blocks at b64 s512). Without a mask (dropout only) there is
+no dmask to sum, and kernel 6 takes kernel 3's grid of one block per (64
+keys, kv head): 6144 blocks at b64 s512 h12. Dropout uses the query head
+``b * h + i``, so its mask is bit for bit kernel 1's and the TPU
+kernels'.
+
+The lse is ``[b * h, sq]`` fp32, as kernel 1's (the TPU kernel's ``[b,
+sq, h, 128]`` lane broadcast is a Mosaic tiling rule: its ``[..., 0]``
+transposed to ``[b, h, sq]`` is this).
+
+What bounds them at BERT-base's shape (b64, s512, h12, d64, bf16,
+non-causal): the forward does ~51.5 GFLOP against ~201 MB of q, k, v and
+O, about 0.06 ms either way; dQ ~77 GFLOP and dK/dV ~103 GFLOP are bound
+by operations (~0.08 and ~0.10 ms). The kernels compute with
+``mma.sync`` and do not overlap loads with compute (see the source's
+note).
+
+Wrapper rules as in ``flash_attention.py``: CPU tensors go to the plain
+versions (:func:`hb_fwd_ref`, :func:`hb_bwd_dq_ref`,
+:func:`hb_bwd_dkv_ref`); CUDA tensors launch the kernel or raise.
+``hb_fwd.launches``, ``hb_bwd_dq.launches`` and ``hb_bwd_dkv.launches``
+count launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import flash_attention as _fa
+
+__all__ = ["hb_flash", "hb_fwd", "hb_bwd_dq", "hb_bwd_dkv", "hb_fwd_ref",
+           "hb_bwd_dq_ref", "hb_bwd_dkv_ref"]
+
+
+def _per_head(kmask, h):
+    """``[b, 1, sk]`` batch rows -> kernel 1's ``[b * h, 1, sk]``."""
+    if kmask is None:
+        return None
+    b, _, sk = kmask.shape
+    return kmask[:, None].expand(b, h, 1, sk).reshape(b * h, 1, sk)
+
+
+# -- plain versions -----------------------------------------------------------
+
+def hb_fwd_ref(q, k, v, *, causal=False, scale=None, window=0, kmask=None,
+               seed=None, dropout=0.0):
+    """Plain version of :func:`hb_fwd`: kernel 1's plain version with the
+    batch rows' key mask repeated for each head."""
+    return _fa.flash_fwd_ref(q, k, v, causal=causal, scale=scale,
+                             window=window, kmask=_per_head(kmask,
+                                                            q.shape[2]),
+                             seed=seed, dropout=dropout)
+
+
+def hb_bwd_dq_ref(q, k, v, do, lse, delta, *, causal=False, scale=None,
+                  window=0, kmask=None, seed=None, dropout=0.0):
+    """Plain version of :func:`hb_bwd_dq`."""
+    return _fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
+                                scale=scale, window=window,
+                                kmask=_per_head(kmask, q.shape[2]),
+                                seed=seed, dropout=dropout)
+
+
+def hb_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal=False, scale=None,
+                   window=0, kmask=None, seed=None, dropout=0.0):
+    """Plain version of :func:`hb_bwd_dkv`: (dK, dV) and, with ``kmask``,
+    dmask ``[b, 1, sk]`` summed over heads and query rows."""
+    res = _fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
+                                scale=scale, window=window,
+                                kmask=_per_head(kmask, q.shape[2]),
+                                seed=seed, dropout=dropout)
+    if kmask is None:
+        return res
+    dk, dv, dm = res
+    b, h = q.shape[0], q.shape[2]
+    return dk, dv, dm.reshape(b, h, 1, -1).sum(1)
+
+
+# -- kernels ------------------------------------------------------------------
+
+def hb_fwd(q, k, v, *, causal=False, scale=None, window=0, kmask=None,
+           seed=None, dropout=0.0):
+    """Head-batched attention forward: q ``[b, sq, h, d]``, k/v ``[b, sk,
+    h_kv, d]`` as :func:`flash_attention.flash_fwd` takes them, ``kmask``
+    ``[b, 1, sk]`` fp32 (one additive row per batch row) and ``dropout``
+    with two ``seed`` words. Returns (O, lse ``[b * h, sq]`` fp32)."""
+    _fa._check(q, k, v, causal, window)
+    drop = _fa._dropout_words(dropout, seed)
+    if kmask is not None:
+        _fa._check_kmask(kmask, q.shape[0], q, k)
+    scale = _fa._scale(scale, q.shape[-1])
+    if not q.is_cuda:
+        return hb_fwd_ref(q, k, v, causal=causal, scale=scale, window=window,
+                          kmask=kmask, seed=seed, dropout=dropout)
+    res = _fa._fwd(_fa._lib().pt_hb_fwd, "hb_fwd", q, k, v, kmask, scale,
+                   causal, window, drop)
+    hb_fwd.launches += 1
+    return res
+
+
+def hb_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
+              window=0, kmask=None, seed=None, dropout=0.0):
+    """dQ of :func:`hb_fwd` from dO, lse and ``delta = rowsum(dO * O)``
+    (``[b * h, sq]`` fp32 each)."""
+    drop = _fa._check_bwd(q, k, v, do, lse, delta, causal, window, kmask,
+                          q.shape[0], dropout, seed)
+    scale = _fa._scale(scale, q.shape[-1])
+    if not q.is_cuda:
+        return hb_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
+                             scale=scale, window=window, kmask=kmask,
+                             seed=seed, dropout=dropout)
+    dq = _fa._bwd_dq(_fa._lib().pt_hb_bwd_dq, "hb_bwd_dq", q, k, v, do, lse,
+                     delta, kmask, scale, causal, window, drop)
+    hb_bwd_dq.launches += 1
+    return dq
+
+
+def hb_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
+               window=0, kmask=None, seed=None, dropout=0.0):
+    """(dK, dV) of :func:`hb_fwd` (GQA summed over each group) and, with
+    ``kmask``, dmask ``[b, 1, sk]`` fp32 summed over heads and rows."""
+    b = q.shape[0]
+    drop = _fa._check_bwd(q, k, v, do, lse, delta, causal, window, kmask, b,
+                          dropout, seed)
+    scale = _fa._scale(scale, q.shape[-1])
+    if not q.is_cuda:
+        return hb_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
+                              scale=scale, window=window, kmask=kmask,
+                              seed=seed, dropout=dropout)
+    res = _fa._bwd_dkv(_fa._lib().pt_hb_bwd_dkv, "hb_bwd_dkv", q, k, v, do,
+                       lse, delta, kmask, b, scale, causal, window, drop)
+    hb_bwd_dkv.launches += 1
+    return res
+
+
+hb_fwd.launches = 0
+hb_bwd_dq.launches = 0
+hb_bwd_dkv.launches = 0
+
+
+# -- autograd -----------------------------------------------------------------
+
+class _HbFlashFn(torch.autograd.Function):
+    """Forward kernel 4; backward: delta in fp32, then kernels 5 and 6.
+    kmask's gradient is kernel 6's dmask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout):
+        args = dict(causal=causal, scale=scale, window=window, kmask=kmask,
+                    seed=seed, dropout=dropout)
+        out, lse = hb_fwd(q, k, v, **args)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = args
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = _fa._upstream(do, q)
+        delta = _fa._delta(do, out)
+        dq = hb_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
+        dk, dv, *dm = hb_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
+        return (dq, dk, dv, dm[0] if dm else None, None, None, None, None,
+                None)
+
+
+def hb_flash(q, k, v, seed=None, kmask=None, causal=False, scale=None,
+             window=0, dropout=0.0):
+    """The head-batched flash entry (the reference's ``hb_flash``): q
+    ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]``, additive ``kmask`` ``[b,
+    1, sk]`` or None (cast to contiguous fp32; it receives dmask as its
+    gradient), ``seed`` two int words for ``dropout > 0``. Returns ``[b,
+    sq, h, d]``."""
+    _fa._check(q, k, v, causal, window)
+    _fa._dropout_words(dropout, seed)
+    if kmask is not None:
+        kmask = kmask.to(torch.float32).contiguous()
+    return _HbFlashFn.apply(q, k, v, kmask, causal,
+                            _fa._scale(scale, q.shape[-1]), window, seed,
+                            float(dropout))

@@ -17,6 +17,12 @@ The Pallas side runs with 16-row blocks, so its dead-tile skip and its
 partly masked tiles are exercised; the port's versions have no tiles.
 Cases: causal and not, window 0 and 24, GQA h4/h_kv2, sq 32 against
 sk 64 (bottom-right offset).
+
+The variants on the same terms (fp32, same tolerances): the additive
+key rows ``kmask`` (``[b * h, 1, sk]``, a different row per query head)
+with their gradient dmask, and dropout 0.1 with the same seed words on
+both sides (the counter hash is bit-exact, so the masks agree), against
+``_flash_fwd``/``_flash_bwd_impl`` and ``jax.grad`` of ``_flash_call``.
 """
 import math
 
@@ -217,19 +223,138 @@ def test_wrapper_rejects(fault):
 
 
 def test_mask_and_dropout_name_the_encoder_slice():
+    """The key mask and dropout came with the encoder slice and run; what
+    it left out, a row-varying mask, raises and names it."""
     q, k, v, _ = (_t(x) for x in _inputs(6, 4, 4, 16, 16))
-    with pytest.raises(NotImplementedError, match="encoder slice"):
-        tfa.flash_attention(q, k, v, causal=False,
-                            kmask=torch.zeros(B, 1, 16))
-    with pytest.raises(NotImplementedError, match="encoder slice"):
+    zero_rows = tfa.flash_attention(q, k, v, causal=False,
+                                    kmask=torch.zeros(B * 4, 1, 16))
+    torch.testing.assert_close(zero_rows, tfa.flash_attention(
+        q, k, v, causal=False), rtol=0, atol=0)
+    dropped = tfa.flash_attention(q, k, v, causal=False, dropout=0.1,
+                                  seed=(1, 2))
+    assert torch.isfinite(dropped).all()
+    with pytest.raises(ValueError, match="seed"):
         tfa.flash_attention(q, k, v, causal=False, dropout=0.1)
     with pytest.raises(NotImplementedError, match="encoder slice"):
         TF.scaled_dot_product_attention(q, k, v,
-                                        attn_mask=torch.ones(B, 1, 1, 16))
-    with pytest.raises(NotImplementedError, match="encoder slice"):
-        TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+                                        attn_mask=torch.ones(B, 1, 16, 16))
     # dropout outside training is no dropout (the reference's p = 0)
-    TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1, training=False)
+    torch.testing.assert_close(
+        TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                        training=False),
+        tfa.flash_attention(q, k, v, causal=False), rtol=0, atol=0)
+
+
+VARIANTS = [
+    # (causal, window, h, h_kv, sq, sk, kmask, dropout)
+    (False, 0, 4, 4, 64, 64, True, 0.0),
+    (False, 0, 4, 4, 64, 64, True, 0.1),
+    (True, 24, 4, 2, 64, 64, False, 0.1),
+    (True, 0, 4, 2, 32, 64, True, 0.1),
+]
+VARIANT_IDS = [f"causal{int(c)}-w{w}-h{h}kv{hk}-sq{sq}sk{sk}-km{int(m)}"
+               f"-p{p}" for c, w, h, hk, sq, sk, m, p in VARIANTS]
+SEED = (-5, 2 ** 31 - 7)
+
+
+def _kmask_rows(h, sk, use):
+    """Additive key rows ``[b * h, 1, sk]``, different per query head:
+    small random values and a padded tail of -1e4 that grows with the
+    head."""
+    if not use:
+        return None
+    rng = np.random.RandomState(9)
+    km = rng.randn(B * h, 1, sk).astype(np.float32)
+    for i in range(B * h):
+        km[i, 0, sk - 4 * (i % 4) - 4:] = -1e4
+    return km
+
+
+def _jax_variant_fwd(q, k, v, km, causal, window, p):
+    return fa._flash_fwd(_bh(q), _bh(k), _bh(v), causal, 1.0 / math.sqrt(D),
+                         True, BLOCK, BLOCK, window,
+                         seed=jnp.asarray(SEED, jnp.int32) if p else None,
+                         dropout=p,
+                         kmask=None if km is None else jnp.asarray(km))
+
+
+@pytest.mark.parametrize("case", VARIANTS, ids=VARIANT_IDS)
+def test_variant_fwd_plain_matches_pallas(case):
+    causal, window, h, h_kv, sq, sk, use_km, p = case
+    q, k, v, _ = _inputs(10, h, h_kv, sq, sk)
+    km = _kmask_rows(h, sk, use_km)
+    jout, jlse = _jax_variant_fwd(q, k, v, km, causal, window, p)
+    out, lse = tfa.flash_fwd_ref(
+        _t(q), _t(k), _t(v), causal=causal, window=window,
+        kmask=None if km is None else _t(km), seed=SEED if p else None,
+        dropout=p)
+    np.testing.assert_allclose(out.numpy(), _bshd(jout, h), atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", VARIANTS, ids=VARIANT_IDS)
+def test_variant_bwd_plain_matches_pallas(case):
+    causal, window, h, h_kv, sq, sk, use_km, p = case
+    q, k, v, do = _inputs(11, h, h_kv, sq, sk)
+    km = _kmask_rows(h, sk, use_km)
+    jout, jlse = _jax_variant_fwd(q, k, v, km, causal, window, p)
+    jdq, jdk, jdv, jdm = fa._flash_bwd_impl(
+        _bh(q), _bh(k), _bh(v), jout, jlse, _bh(do), causal,
+        1.0 / math.sqrt(D), True, BLOCK, BLOCK, window,
+        jnp.asarray(SEED, jnp.int32) if p else None, p,
+        kmask=None if km is None else jnp.asarray(km))
+    out = _t(_bshd(jout, h))
+    lse = _t(np.asarray(jlse)[..., 0])
+    tq, tk, tv, tdo = (_t(x) for x in (q, k, v, do))
+    delta = (tdo * out).sum(-1).permute(0, 2, 1).reshape(B * h, sq) \
+        .contiguous()
+    kw = dict(causal=causal, window=window,
+              kmask=None if km is None else _t(km),
+              seed=SEED if p else None, dropout=p)
+    dq = tfa.flash_bwd_dq_ref(tq, tk, tv, tdo, lse, delta, **kw)
+    dk, dv, *dm = tfa.flash_bwd_dkv_ref(tq, tk, tv, tdo, lse, delta, **kw)
+    _close_normalized(dq.numpy(), _bshd(jdq, h), name="dq")
+    _close_normalized(dk.numpy(), _bshd(jdk, h_kv), name="dk")
+    _close_normalized(dv.numpy(), _bshd(jdv, h_kv), name="dv")
+    if use_km:
+        assert dm[0].shape == (B * h, 1, sk)
+        _close_normalized(dm[0].numpy(), np.asarray(jdm), name="dmask")
+    else:
+        assert not dm and jdm is None
+    torch.testing.assert_close(
+        tfa.flash_bwd_dkv(tq, tk, tv, tdo, lse, delta, **kw)[0], dk,
+        rtol=0, atol=0)
+
+
+def test_variant_autograd_matches_jax_grad():
+    """Kernel 1-3's autograd Function with a per-head key mask and
+    dropout against ``jax.grad`` of ``_flash_call``: O and the gradients
+    of q, k, v and kmask."""
+    causal, window, h, h_kv, sq, sk, _, p = VARIANTS[3]
+    q, k, v, w = _inputs(12, h, h_kv, sq, sk)
+    km = _kmask_rows(h, sk, True)
+    scale = 1.0 / math.sqrt(D)
+    seed = jnp.asarray(SEED, jnp.int32)
+
+    def jax_attn(q_, k_, v_, km_):
+        out = fa._flash_call(_bh(q_), _bh(k_), _bh(v_), seed, km_, causal,
+                             scale, True, BLOCK, BLOCK, window, p)
+        return out.reshape(B, h, sq, D).transpose(0, 2, 1, 3)
+
+    jout = jax_attn(q, k, v, km)
+    jgrads = jax.grad(lambda *a: (jax_attn(*a) * w).sum(),
+                      argnums=(0, 1, 2, 3))(q, k, v, km)
+    tq, tk, tv, tkm = (_t(x).requires_grad_() for x in (q, k, v, km))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              kmask=tkm, dropout=p, seed=SEED)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=2e-5, rtol=0)
+    (out * _t(w)).sum().backward()
+    for name, got, want in zip(("q", "k", "v", "kmask"), (tq, tk, tv, tkm),
+                               jgrads):
+        _close_normalized(got.grad.numpy(), np.asarray(want), name=name)
 
 
 def test_functional_entries_route_through_the_function():

@@ -15,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (
-    LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
+    BertConfig, BertForMaskedLM, LlamaConfig, LlamaForCausalLM, generate,
+    load_jax_weights,
 )
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import head_flash as hf
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import quantize_kv
@@ -317,3 +320,162 @@ def test_train_identity_card_vs_cpu(cuda):
         np.testing.assert_allclose(p.detach().cpu().numpy(),
                                    q.detach().numpy(), atol=2e-3, rtol=0,
                                    err_msg=name)
+
+
+# The key-mask and dropout variants: kernels 1-3 with one key row per
+# query head, kernels 4-6 (head-batched) with one per batch row, each
+# against its plain version on the same card, inputs, mask and seed
+# words. (b, sq, sk, h, h_kv, d, causal, window, dropout): BERT-like
+# non-causal d 64, GQA with a causal band, ragged lengths with rows that
+# see no key, a window, and d 256 (the fp32-FMA kernels in bf16 too).
+_VARIANT = [
+    (2, 100, 100, 4, 4, 64, False, 0, 0.1),
+    (2, 64, 64, 4, 2, 32, True, 0, 0.1),
+    (1, 130, 70, 2, 2, 32, True, 0, 0.0),
+    (1, 200, 200, 4, 2, 40, True, 50, 0.1),
+    (2, 90, 90, 2, 2, 256, False, 0, 0.1),
+]
+_SEED = (20240607, -77)
+
+
+def _row_rel(got, want):
+    """The largest relative Frobenius error over the rows of ``[rows, 1,
+    sk]`` tensors; a row whose reference is exactly zero must be too."""
+    dn = (got.float() - want.float()).square().sum((1, 2))
+    wn = want.float().square().sum((1, 2))
+    rel = torch.where(wn > 0, dn / wn, torch.where(
+        dn > 0, torch.full((), float("inf"), device=dn.device), 0.0))
+    return rel.max().sqrt().item()
+
+
+def _variant_family(head_batched):
+    if head_batched:
+        return hf.hb_fwd, hf.hb_bwd_dq, hf.hb_bwd_dkv, hf.hb_fwd_ref, \
+            hf.hb_bwd_dq_ref, hf.hb_bwd_dkv_ref
+    return fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_fwd_ref, \
+        fa.flash_bwd_dq_ref, fa.flash_bwd_dkv_ref
+
+
+# Tolerances as test_flash_kernels_match_plain: every output per 64-row
+# tile of each (batch, head) against the plain version on fp32 copies,
+# fp32 within 1e-5 (with dropout, one flipped keep bit moves its row by
+# ~p / (1 - p) of one probability, far past that), bf16 within 1e-2; lse
+# within 1e-4 plus 4e-7 of its size (~3 fp32 ulps: a row whose visible
+# keys are all padded at -1e4 has |lse| ~ 1e4, where one ulp is ~1e-3).
+# dmask, an fp32 sum over rows of fp32 ds terms that partly cancel, by
+# the relative Frobenius error of each of its rows, within 1e-4 (fp32:
+# order of the sums) or 1e-3 (bf16). Unmasked, the cases are dropout
+# only (as an encoder without attention_mask calls kernels 4-6), and
+# kernel 6 takes kernel 3's grid.
+@pytest.mark.parametrize("masked", [True, False], ids=["kmask", "nomask"])
+@pytest.mark.parametrize("head_batched", [False, True],
+                         ids=["kernels1-3", "kernels4-6"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _VARIANT)
+def test_variant_kernels_match_plain(cuda, shape, dtype, head_batched,
+                                     masked):
+    b, sq, sk, h, h_kv, d, causal, window, p = shape
+    q, k, v, do = _flash_inputs(12, shape[:6] + (causal, window), dtype,
+                                cuda)
+    rng = np.random.RandomState(13)
+    rows = b if head_batched else b * h
+    lengths = rng.randint(sk // 3, sk + 1, rows)
+    kmask = torch.from_numpy(np.where(
+        np.arange(sk)[None] < lengths[:, None], 0.0, -1e4).astype(
+            np.float32)).reshape(rows, 1, sk).to(cuda) if masked else None
+    fwd, bdq, bdkv, fwd_ref, bdq_ref, bdkv_ref = _variant_family(
+        head_batched)
+    kw = dict(causal=causal, window=window, kmask=kmask,
+              seed=_SEED if p else None, dropout=p)
+    f32 = [t.float() for t in (q, k, v, do)]
+    n = (fwd.launches, bdq.launches, bdkv.launches)
+    out, lse = fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fwd_ref(*f32[:3], **kw)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=4e-7)
+    delta = (do.float() * want_out.to(dtype).float()).sum(-1) \
+        .permute(0, 2, 1).reshape(b * h, sq).contiguous()
+    dq = bdq(q, k, v, do, want_lse, delta, **kw)
+    dk, dv, *dm = bdkv(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bdq.launches, bdkv.launches) == tuple(
+        x + 1 for x in n)
+    want_dq = bdq_ref(*f32, want_lse, delta, **kw)
+    want_dk, want_dv, *want_dm = bdkv_ref(*f32, want_lse, delta, **kw)
+    rel_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, got, want in (("O", out, want_out), ("dq", dq, want_dq),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        err = _tile_rel_err(got, want)
+        assert err <= rel_tol, f"{name}: per-tile relative error {err}"
+    assert len(dm) == len(want_dm) == masked
+    if masked:
+        assert dm[0].shape == (rows, 1, sk)
+        err = _row_rel(dm[0], want_dm[0])
+        assert err <= (1e-4 if dtype == torch.float32 else 1e-3), \
+            f"dmask: relative error per row {err}"
+
+
+def test_hb_flash_autograd_and_dmask_is_the_head_sum(cuda):
+    """The head-batched autograd Function launches kernels 4, 5 and 6
+    once per pass; its mask gradient is kernel 3's per-head dmask summed
+    over heads, and its output and gradients equal kernels 1-3's with
+    the mask repeated per head (the same dropout bits)."""
+    b, s, h, d = 2, 96, 4, 32
+    gen = torch.Generator(cuda).manual_seed(5)
+    q, k, v = (torch.randn(b, s, h, d, device=cuda, generator=gen)
+               .requires_grad_() for _ in range(3))
+    km = torch.zeros(b, 1, s, device=cuda)
+    km[0, 0, 70:] = -1e4
+    km.requires_grad_()
+    n = (hf.hb_fwd.launches, hf.hb_bwd_dq.launches, hf.hb_bwd_dkv.launches)
+    out = hf.hb_flash(q, k, v, seed=_SEED, kmask=km, dropout=0.1)
+    out.square().sum().backward()
+    assert (hf.hb_fwd.launches, hf.hb_bwd_dq.launches,
+            hf.hb_bwd_dkv.launches) == tuple(x + 1 for x in n)
+    q1, k1, v1 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    km1 = km.detach()[:, None].expand(b, h, 1, s).reshape(b * h, 1, s) \
+        .clone().requires_grad_()
+    out1 = fa.flash_attention(q1, k1, v1, causal=False, kmask=km1,
+                              seed=_SEED, dropout=0.1)
+    out1.square().sum().backward()
+    torch.testing.assert_close(out, out1, atol=0, rtol=0)
+    for a, c in ((q, q1), (k, k1), (v, v1)):
+        torch.testing.assert_close(a.grad, c.grad, atol=0, rtol=0)
+    torch.testing.assert_close(km.grad, km1.grad.reshape(b, h, 1, s).sum(1),
+                               atol=1e-4, rtol=1e-5)
+
+
+def _train_tiny_bert(device, weights, steps=10):
+    trandom.seed(0)
+    cfg = BertConfig.tiny(hidden_dropout_prob=0.0)
+    model = BertForMaskedLM(cfg, device=device)
+    load_jax_weights(model, weights)
+    step = TrainStep(model, AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                  parameters=model.parameters()))
+    losses = []
+    for i in range(steps):
+        rng = np.random.RandomState(200 + i)
+        ids = rng.randint(0, cfg.vocab_size, (2, 32))
+        mask = (np.arange(32)[None] < np.array([[32], [21]])).astype(
+            np.int32)
+        labels = np.where((rng.rand(2, 32) < 0.3) & (mask > 0), ids, -100)
+        losses.append(float(step(
+            torch.from_numpy(ids).to(device), None,
+            torch.from_numpy(mask).to(device),
+            torch.from_numpy(labels).to(device))))
+    return losses
+
+
+def test_bert_train_identity_card_vs_cpu(cuda):
+    """10 fp32 AdamW steps of the tiny BERT with a padded batch and
+    attention dropout 0.1 (the same seed words on both sides; hidden
+    dropout 0: CPU and CUDA generators differ) on the card (kernels 4-6)
+    and on the CPU (plain versions): losses within 1e-4 at every step."""
+    seed = BertForMaskedLM(BertConfig.tiny(), device="cpu")
+    weights = {n: p.detach().numpy() for n, p in seed.named_parameters()}
+    n = hf.hb_fwd.launches, hf.hb_bwd_dq.launches, hf.hb_bwd_dkv.launches
+    got = _train_tiny_bert(cuda, weights)
+    assert (hf.hb_fwd.launches, hf.hb_bwd_dq.launches,
+            hf.hb_bwd_dkv.launches) == tuple(x + 20 for x in n)
+    want = _train_tiny_bert("cpu", weights)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python
 """Where a training step's time goes in the PyTorch/CUDA port, on the card.
 
-    python tools/torch_train_profile.py [--steps 2] [--top 20]
+    python tools/torch_train_profile.py [--model llama|bert] [--steps 2]
+        [--top 20]
 
-Runs ``chip_smoke.py``'s training configuration (the 0.44B bf16 Llama,
-b8 x s1024, plain cross-entropy, ``AdamW(1e-4, multi_precision=True)``
-through ``TrainStep``) for two warm-up steps, then ``--steps`` steps
-under ``torch.profiler``. Prints the device-busy share of the profiled
-wall time, device time by kernel family (the flash kernels, matrix
+Runs one of ``chip_smoke.py``'s training configurations through
+``TrainStep`` with ``AdamW(1e-4, multi_precision=True)``: the 0.44B bf16
+Llama at b8 x s1024 with plain cross-entropy (``llama``, phase 7), or
+BERT-base MLM in bf16 O2 with dropout 0.1 on a padded b64 x s512 batch
+(``bert``, phase 10). Two warm-up steps, then ``--steps`` steps under
+``torch.profiler``. Prints the device-busy share of the profiled wall
+time, device time by kernel family (the attention kernels, matrix
 products, everything else), and the top kernels by device time. Needs a
 CUDA device.
 """
@@ -24,14 +27,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from chip_smoke import (  # noqa: E402
-    TRAIN, TRAIN_BATCH, TRAIN_SEQ, _train_batch,
+    BERT_BATCH, BERT_SEQ, TRAIN, TRAIN_BATCH, TRAIN_SEQ, _train_batch,
+    bert_train_step,
 )
 from paddle_tpu_torch.jit import TrainStep  # noqa: E402
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa: E402
 from paddle_tpu_torch.optimizer import AdamW  # noqa: E402
 
-# kernel-name fragments of each family
-FAMILIES = (("flash kernels", ("flash_fwd", "flash_bwd")),
+# kernel-name fragments of each family (kernels 4-6 are instances of
+# the flash templates)
+FAMILIES = (("attention kernels", ("flash_fwd", "flash_bwd")),
             ("matrix products", ("gemm", "xmma", "cutlass", "nvjet")))
 
 
@@ -44,6 +49,7 @@ def _family(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("llama", "bert"), default="llama")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
@@ -51,21 +57,27 @@ def main():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
-    cfg = LlamaConfig(**TRAIN)
-    model = LlamaForCausalLM(cfg, device="cuda",
-                             generator=torch.Generator("cuda").manual_seed(0))
-    step = TrainStep(model, AdamW(learning_rate=1e-4,
-                                  parameters=model.parameters(),
-                                  multi_precision=True))
-    ids, labels = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    if args.model == "bert":
+        _, _, step, batch = bert_train_step()
+        shape = f"BERT-base b{BERT_BATCH} x s{BERT_SEQ}"
+    else:
+        cfg = LlamaConfig(**TRAIN)
+        model = LlamaForCausalLM(
+            cfg, device="cuda",
+            generator=torch.Generator("cuda").manual_seed(0))
+        step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                      parameters=model.parameters(),
+                                      multi_precision=True))
+        batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        shape = f"0.44B Llama b{TRAIN_BATCH} x s{TRAIN_SEQ}"
     for _ in range(2):
-        step(ids, labels)
+        step(*batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(ids, labels)
+            step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -73,8 +85,8 @@ def main():
     # report the same time again, so count only the former
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"card {card}; {args.steps} train steps, b{TRAIN_BATCH} x "
-          f"s{TRAIN_SEQ}: profiled wall {wall_ms:.1f} ms "
+    print(f"card {card}; {args.steps} train steps, {shape}: profiled "
+          f"wall {wall_ms:.1f} ms "
           f"({wall_ms / args.steps:.2f} ms/step); device busy "
           f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.1%} (idle "
           f"{1 - busy_ms / wall_ms:.1%}); kernel launches "
@@ -85,7 +97,7 @@ def main():
         by_family[fam] = by_family.get(fam, 0.0) \
             + e.self_device_time_total / 1e3
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:16s} {ms / args.steps:9.2f} ms/step  "
+        print(f"  {fam:18s} {ms / args.steps:9.2f} ms/step  "
               f"{ms / busy_ms:6.1%} of device time")
     print(events.table(sort_by="self_device_time_total",
                        row_limit=args.top, max_name_column_width=60))
