@@ -11,8 +11,8 @@ only a run in which every phase passed prints the final line:
    with nvcc (one process per source) and print ptxas's registers,
    shared memory and spills;
 3. kernels at full width: each paged-attention kernel against its plain
-   PyTorch version on the card (tolerance below), then timed with CUDA
-   events beside the plain version, one library call and the byte bound;
+   PyTorch version on the card (tolerance below), then timed beside the
+   plain version, one library call and the byte bound;
 4. serve: the 0.44B Llama (bf16, random weights from a seed) through
    ``ServingEngine`` with default settings on a seeded 16-request trace
    (a shared system prompt, so the prefix cache hits),
@@ -23,10 +23,9 @@ only a run in which every phase passed prints the final line:
    emit exactly the tokens of the port's own greedy ``generate()``;
 6. flash kernels at full width: the forward, dQ and dK/dV kernels each
    against its plain PyTorch version on the card, output tile by output
-   tile (causal, sliding window, GQA, sq < sk, non-causal), then timed
-   at the headline shape
-   beside the plain version, ``F.scaled_dot_product_attention`` and the
-   bound;
+   tile (causal, sliding window, GQA, sq < sk, non-causal, d 64, ragged
+   1000), then timed at the headline shape beside the plain version,
+   ``F.scaled_dot_product_attention`` and the bound;
 7. train: the 0.44B Llama (bf16, random weights from a seed) through
    ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)`` on one
    b8 x s1024 batch; the loss must start near ln(vocab), stay finite
@@ -39,9 +38,11 @@ only a run in which every phase passed prints the final line:
    version on the card, output tile by output tile and dmask row by row
    (BERT-base's b64 s512 h12 d64 bf16 with a key mask from seeded
    lengths and dropout 0.1; the same with dropout only; a window, GQA,
-   sq < sk, and an fp32 case), then timed at BERT's shape beside the
-   plain version, ``F.scaled_dot_product_attention`` with the same mask
-   and dropout, and the bound (padding keys not counted);
+   sq < sk, an fp32 case, and batch rows of 0, 64, 100 and 300 keys,
+   non-causal and causal, for the skip of wholly padded key tiles), then
+   timed at BERT's shape beside the plain version,
+   ``F.scaled_dot_product_attention`` with the same mask and dropout, and
+   the bound (padding keys not counted);
 10. BERT-base MLM train: ``BertForMaskedLM`` at full width (bf16 O2
    through ``amp.decorate``, dropout 0.1, random weights from a seed)
    through ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)`` on
@@ -52,12 +53,18 @@ only a run in which every phase passed prints the final line:
    card and on the CPU from the same weights, with attention dropout
    0.1 from the same seed words, must agree step by step.
 
+Kernels and library calls are timed with CUDA events as the median of
+5 repetitions of 20 calls, the kernels' and the library's repetitions
+interleaved (min-max printed beside it); the library call is timed on
+every SDPA backend that accepts it and the fastest is the yardstick.
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
 line with every kernel's numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Needs no network and no JAX; exits
 non-zero without a CUDA device or without the repository beside it.
 """
+import contextlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -153,20 +160,80 @@ def _pools(nkv, d, layers, gen, quant):
     return (k.to(torch.bfloat16), v.to(torch.bfloat16)), tables
 
 
-def _time(fn, layers, iters=60):
-    """ms per call, cycling through the per-layer pools as the engine's
-    decode step does, so K/V are not served from L2 by a repeat."""
-    for li in range(3):
-        fn(li % layers)
+REPS, ITERS = 5, 20
+
+
+def _time_reps(fns, contexts=None, iters=ITERS, reps=REPS):
+    """Time each of ``fns`` ({name: fn(i)}, call i gets i) as ``reps``
+    repetitions of ``iters`` calls between two CUDA events, interleaved:
+    every function's first repetition, then every function's second, and
+    so on (all warmed up first). ``contexts`` maps a name to a context
+    manager factory entered around each of its repetitions. Returns
+    {name: [ms per call in each repetition]}."""
+    contexts = contexts or {}
+    for name, fn in fns.items():
+        with contexts.get(name, contextlib.nullcontext)():
+            for i in range(3):
+                fn(i)
     torch.cuda.synchronize()
+    out = {name: [] for name in fns}
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for i in range(iters):
-        fn(i % layers)
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    for _ in range(reps):
+        for name, fn in fns.items():
+            with contexts.get(name, contextlib.nullcontext)():
+                t0.record()
+                for i in range(iters):
+                    fn(i)
+                t1.record()
+            torch.cuda.synchronize()
+            out[name].append(t0.elapsed_time(t1) / iters)
+    return out
+
+
+def _med(xs):
+    return statistics.median(xs)
+
+
+def _spread(xs):
+    """``median (min-max)`` of one function's repetitions."""
+    return f"{_med(xs):.4f} ({min(xs):.4f}-{max(xs):.4f})"
+
+
+def _time_plain(fn, iters):
+    """ms per call of a plain version (one repetition; it is the
+    arithmetic's reference, not a yardstick of speed)."""
+    return _time_reps({"plain": lambda i: fn()}, iters=iters, reps=1)[
+        "plain"][0]
+
+
+def _sdpa_backends(call):
+    """{backend name: factory of its ``sdpa_kernel`` context} for every
+    backend of ``F.scaled_dot_product_attention`` that accepts ``call()``
+    (each tried once)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ok = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]):
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        ok[be.name.lower()] = lambda be=be: sdpa_kernel([be])
+    if not ok:
+        raise RuntimeError("no SDPA backend accepts the yardstick call")
+    return ok
+
+
+def _library(times, prefix):
+    """The fastest backend's median over the ``prefix[backend]`` entries
+    of ``times``, and a printable list of every backend's reading."""
+    rows = {n[len(prefix) + 1:-1]: xs for n, xs in times.items()
+            if n.startswith(prefix + "[")}
+    best = min(_med(xs) for xs in rows.values())
+    return best, ", ".join(f"{n} {_spread(xs)}" for n, xs in rows.items())
 
 
 def _bound(nkv, g, d, pos, window, kv_dtype, quant):
@@ -214,7 +281,7 @@ def _check_case(nkv, g, window, quant, gen, layers=2):
 def _library_call(q, pools, tables, pos, quant, layers):
     """The yardstick: F.scaled_dot_product_attention over K/V already
     gathered (and dequantized) per layer, with the boolean visibility
-    mask; the gather is outside the timing."""
+    mask; the gather is outside the timing. Returns fn(layer)."""
     nh, d = q.shape[1], q.shape[2]
     idx = tables.long()
     dense = []
@@ -262,10 +329,20 @@ def phase_kernels():
         def with_layer(fn):
             return lambda li: fn(q, *(p[li] for p in pools), tables, pos)
 
-        ms = _time(with_layer(kern), layers)
-        plain_ms = _time(with_layer(ref), layers)
-        library_ms = _time(_library_call(q, pools, tables, pos, quant,
-                                         layers), layers)
+        # cycling through the per-layer pools as the engine's decode step
+        # does, so K/V are not served from L2 by a repeat
+        kern_fn, lib_fn = with_layer(kern), _library_call(
+            q, pools, tables, pos, quant, layers)
+        fns = {"kernel": lambda i: kern_fn(i % layers)}
+        backends = _sdpa_backends(lambda: lib_fn(0))
+        for be in backends:
+            fns[f"sdpa[{be}]"] = lambda i: lib_fn(i % layers)
+        times = _time_reps(fns, {f"sdpa[{be}]": ctx
+                                 for be, ctx in backends.items()})
+        ms = _med(times["kernel"])
+        library_ms, lib_txt = _library(times, "sdpa")
+        plain_ms = _time_plain(lambda: ref(q, *(p[0] for p in pools),
+                                           tables, pos), iters=20)
         bound_ms, bound_by = _bound(12, 1, 128, POS, 0,
                                     torch.int8 if quant else torch.bfloat16,
                                     quant)
@@ -273,9 +350,11 @@ def phase_kernels():
                           bound_ms=bound_ms, bound_by=bound_by,
                           max_abs_err=errs[name])
         log(f"[kernels] {name} L={LANES} M={M} B={BLOCK} nkv=12 d=128 "
-            f"pos={POS}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {library_ms:.4f} bound_ms {bound_ms:.5f} "
-            f"({bound_by}); launches per decode round = {layers} (layers)")
+            f"pos={POS}: kernel_ms {_spread(times['kernel'])} (median, "
+            f"min-max of {REPS} x {ITERS}) plain_ms {plain_ms:.4f} "
+            f"library_ms {library_ms:.4f} (fastest SDPA backend: {lib_txt}) "
+            f"bound_ms {bound_ms:.5f} ({bound_by}); launches per decode "
+            f"round = {layers} (layers)")
         del pools
     return rows
 
@@ -410,14 +489,17 @@ def phase_identity():
 
 # -- phase 6 ------------------------------------------------------------------
 
-# (name, b, sq, sk, h, h_kv, causal, window) at d 128, bf16; the first is
-# the training step's shape
+# (name, b, sq, sk, h, h_kv, causal, window, d), bf16; the first is the
+# training step's shape. d 64 runs the forward's 64-column template, and
+# 1000 rows and keys leave ragged tiles (TMA's zero fill and the masks).
 FLASH_CASES = [
-    ("headline", 8, 1024, 1024, 12, 12, True, 0),
-    ("window256", 8, 1024, 1024, 12, 12, True, 256),
-    ("gqa", 2, 1024, 1024, 12, 4, True, 0),
-    ("sq512_sk1024", 2, 512, 1024, 12, 12, True, 0),
-    ("noncausal", 2, 1024, 1024, 12, 12, False, 0),
+    ("headline", 8, 1024, 1024, 12, 12, True, 0, 128),
+    ("window256", 8, 1024, 1024, 12, 12, True, 256, 128),
+    ("gqa", 2, 1024, 1024, 12, 4, True, 0, 128),
+    ("sq512_sk1024", 2, 512, 1024, 12, 12, True, 0, 128),
+    ("noncausal", 2, 1024, 1024, 12, 12, False, 0, 128),
+    ("d64", 4, 1024, 1024, 12, 12, True, 0, 64),
+    ("ragged1000", 2, 1000, 1000, 12, 4, True, 0, 128),
 ]
 # Kernel vs plain version on the same card and bf16 inputs; the plain
 # version runs on fp32 copies of the same values and returns fp32, so
@@ -536,9 +618,9 @@ def _flash_bound(q, k, causal, window, kernel, kmask=None):
 
 
 def _flash_check(case, gen):
-    name, b, sq, sk, h, h_kv, causal, window = case
+    name, b, sq, sk, h, h_kv, causal, window, d = case
     kw = dict(causal=causal, window=window)
-    q, k, v, do = _flash_inputs(b, sq, sk, h, h_kv, gen)
+    q, k, v, do = _flash_inputs(b, sq, sk, h, h_kv, gen, d=d)
     f32 = [t.float() for t in (q, k, v, do)]
     out, lse = fa.flash_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -564,7 +646,7 @@ def _flash_check(case, gen):
              "flash_bwd_dkv": max(_normalized_err(dk, want_dk),
                                   _normalized_err(dv, want_dv))}
     lse_err = (lse - want_lse).abs().max().item()
-    log(f"[flash] {name} b={b} sq={sq} sk={sk} h={h} h_kv={h_kv} d=128 "
+    log(f"[flash] {name} b={b} sq={sq} sk={sk} h={h} h_kv={h_kv} d={d} "
         f"causal={causal} window={window}: per-tile relative error "
         + ", ".join(f"{n} {rel[n]:.3e} (bf16 floor {floor[n]:.3e})"
                     for n in rel)
@@ -581,18 +663,26 @@ def _flash_check(case, gen):
     return abs_err, (q, k, v, do, want_lse, delta)
 
 
-def _time_call(fn, iters=20):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+def _sdpa_fns(q, k, v, do, **kw):
+    """The yardstick: PyTorch's fused attention on ``[b, h, s, d]`` copies
+    of the same inputs, forward and backward (dQ, dK and dV together), on
+    each backend that accepts the call. Returns (fns, contexts) for
+    ``_time_reps``: ``sdpa_fwd[backend]`` and ``sdpa_bwd[backend]``.
+    Timed only: the port never calls it."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    plain = [t.detach() for t in (qt, kt, vt)]
+    fns, contexts = {}, {}
+    for be, ctx in _sdpa_backends(lambda: sdpa(*plain, **kw)).items():
+        with ctx():
+            out_t = sdpa(qt, kt, vt, **kw)
+        fns[f"sdpa_fwd[{be}]"] = lambda i: sdpa(*plain, **kw)
+        contexts[f"sdpa_fwd[{be}]"] = ctx
+        fns[f"sdpa_bwd[{be}]"] = lambda i, o=out_t: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True)
+    return fns, contexts
 
 
 def phase_flash(layers):
@@ -614,33 +704,30 @@ def phase_flash(layers):
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
             lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)),
     }
-    # the yardstick: PyTorch's fused attention on [b, h, s, d] copies of
-    # the same inputs (top-left causal, equal to bottom-right at sq ==
-    # sk); its backward yields dQ, dK and dV together, so kernels 2 and 3
-    # share one library time. Timed only: the port never calls it.
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.no_grad():
-        lib_fwd = _time_call(lambda: sdpa(qt, kt, vt, is_causal=True))
-    out_t = sdpa(qt, kt, vt, is_causal=True)
-    lib_bwd = _time_call(lambda: torch.autograd.grad(
-        out_t, (qt, kt, vt), dot, retain_graph=True))
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
-               "flash_bwd_dkv": lib_bwd}
+    # SDPA's causal mask is top-left aligned, equal to bottom-right at sq
+    # == sk; its backward yields dQ, dK and dV together, so kernels 2 and
+    # 3 share one library time
+    fns, contexts = _sdpa_fns(q, k, v, do, is_causal=True)
+    fns.update({name: lambda i, f=kern: f()
+                for name, (kern, _) in kernels.items()})
+    times = _time_reps(fns, contexts)
+    library = {"flash_fwd": _library(times, "sdpa_fwd"),
+               "flash_bwd_dq": _library(times, "sdpa_bwd"),
+               "flash_bwd_dkv": _library(times, "sdpa_bwd")}
     rows = {}
     for name, (kern, plain) in kernels.items():
-        ms = _time_call(kern)
-        plain_ms = _time_call(plain, iters=5)
+        ms = _med(times[name])
+        plain_ms = _time_plain(plain, iters=5)
         bound_ms, bound_by, _ = _flash_bound(q, k, True, 0, name)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms,
-                          library_ms=library[name], bound_ms=bound_ms,
-                          bound_by=bound_by, max_abs_err=errs[name])
+        lib_ms, lib_txt = library[name]
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=errs[name])
         log(f"[flash] {name} b8 s1024 h12 d128 bf16 causal: kernel_ms "
-            f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-            f"{library[name]:.4f} bound_ms {bound_ms:.5f} ({bound_by}); "
-            f"launches per train step = {layers} (layers)")
+            f"{_spread(times[name])} (median, min-max of {REPS} x {ITERS}) "
+            f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (fastest "
+            f"SDPA backend: {lib_txt}) bound_ms {bound_ms:.5f} "
+            f"({bound_by}); launches per train step = {layers} (layers)")
     return rows
 
 
@@ -793,10 +880,13 @@ def phase_train_identity():
 
 # (name, b, sq, sk, h, h_kv, causal, window, dtype, masked) at d 64,
 # each with dropout 0.1 and, where masked, a key mask from seeded lengths
-# 128-512. The first is BERT-base's attention on a padded batch (phase
-# 10's traffic); "dropout_only" is the same without a mask, as
-# benchmarks/baseline_configs.py::bench_bert_mlm calls it (no
-# attention_mask), where kernel 6 takes kernel 3's grid.
+# 128-512 (or from the lengths given). The first is BERT-base's attention
+# on a padded batch (phase 10's traffic); "dropout_only" is the same
+# without a mask, as benchmarks/baseline_configs.py::bench_bert_mlm calls
+# it (no attention_mask). The explicit lengths hold the dK/dV kernels'
+# skip of wholly padded key tiles both ways: a batch row of length 0
+# (every key padding: nothing is skipped), and 64, 100 and 300, which end
+# on and between the 64-key tiles, non-causal and causal.
 ENC_CASES = [
     ("bert", 64, 512, 512, 12, 12, False, 0, torch.bfloat16, True),
     ("dropout_only", 64, 512, 512, 12, 12, False, 0, torch.bfloat16, False),
@@ -804,6 +894,10 @@ ENC_CASES = [
     ("gqa", 4, 512, 512, 12, 4, False, 0, torch.bfloat16, True),
     ("sq256_sk512", 4, 256, 512, 12, 12, True, 0, torch.bfloat16, True),
     ("fp32", 4, 512, 512, 12, 12, False, 0, torch.float32, True),
+    ("lengths", 4, 512, 512, 12, 12, False, 0, torch.bfloat16,
+     (0, 64, 100, 300)),
+    ("lengths_causal", 4, 512, 512, 12, 12, True, 0, torch.bfloat16,
+     (300, 0, 100, 64)),
 ]
 ENC_DROPOUT = 0.1
 ENC_SEED = (20240607, -77)  # the two dropout seed words, fixed
@@ -831,12 +925,13 @@ FAMILIES = {
 }
 
 
-def _padding_mask(b, sk, seed=0):
+def _padding_mask(b, sk, seed=0, lengths=None):
     """The additive key rows ``[b, 1, sk]`` fp32 of a padded batch with
-    lengths uniform in 128..sk, as ``BertModel`` builds them under bf16
-    (``(mask - 1) * 1e4`` rounds to -9984)."""
-    rng = np.random.RandomState(seed)
-    keep = np.arange(sk)[None] < rng.randint(128, sk + 1, b)[:, None]
+    lengths uniform in 128..sk (or ``lengths``), as ``BertModel`` builds
+    them under bf16 (``(mask - 1) * 1e4`` rounds to -9984)."""
+    if lengths is None:
+        lengths = np.random.RandomState(seed).randint(128, sk + 1, b)
+    keep = np.arange(sk)[None] < np.asarray(lengths)[:, None]
     m = torch.from_numpy(keep).to("cuda", torch.bfloat16)
     return ((m - 1.0) * 1e4).float().reshape(b, 1, sk)
 
@@ -858,7 +953,8 @@ def _enc_check(case, family, gen):
     (fwd, bdq, bdkv), (fwd_ref, bdq_ref, bdkv_ref) = FAMILIES[family]
     q, k, v, do = (t.to(dtype) for t in _flash_inputs(b, sq, sk, h, h_kv,
                                                       gen, d=64))
-    km = _padding_mask(b, sk) if masked else None
+    km = _padding_mask(b, sk, lengths=masked if isinstance(
+        masked, tuple) else None) if masked else None
     if masked and family == "kernels 1-3":  # one row per query head
         km = km.repeat_interleave(h, 0)
     kw = dict(causal=causal, window=window, kmask=km, seed=ENC_SEED,
@@ -874,7 +970,7 @@ def _enc_check(case, family, gen):
     torch.cuda.synchronize()
     want_dq = bdq_ref(*f32, want_lse, delta, **kw)
     want_dk, want_dv, *want_dm = bdkv_ref(*f32, want_lse, delta, **kw)
-    if len(dm) != masked or len(want_dm) != masked:
+    if len(dm) != bool(masked) or len(want_dm) != bool(masked):
         raise AssertionError(f"{family} {name}: dmask returned "
                              f"{len(dm)} / {len(want_dm)} times, masked "
                              f"{masked}")
@@ -894,7 +990,8 @@ def _enc_check(case, family, gen):
         + f" (tol {ENC_REL_TOL[dtype]}); "
         + (f"dmask {dm_err:.3e} per row (tol {DMASK_REL_TOL[dtype]}); "
            if masked else "")
-        + f"lse {lse_err:.3e} of its size (tol {LSE_REL_TOL})")
+        + f"lse {lse_err:.3e} of its size (tol {LSE_REL_TOL})"
+        + (f"; lengths {masked}" if isinstance(masked, tuple) else ""))
     bad = [n for n in rel if not rel[n] <= ENC_REL_TOL[dtype]]
     if bad or not dm_err <= DMASK_REL_TOL[dtype] \
             or not lse_err <= LSE_REL_TOL:
@@ -904,33 +1001,16 @@ def _enc_check(case, family, gen):
     return abs_err, (q, k, v, do, want_lse, delta, kw)
 
 
-def _enc_library(q, k, v, do, km_rows):
-    """The yardstick: F.scaled_dot_product_attention on [b, h, s, d]
-    copies with the same additive mask (bf16, [b, 1, 1, s]) and dropout
-    0.1; its backward gives dQ, dK and dV together. Timed only."""
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    mask = km_rows[:, None].to(q.dtype)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.no_grad():
-        lib_fwd = _time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                          dropout_p=ENC_DROPOUT))
-    out_t = sdpa(qt, kt, vt, attn_mask=mask, dropout_p=ENC_DROPOUT)
-    lib_bwd = _time_call(lambda: torch.autograd.grad(
-        out_t, (qt, kt, vt), dot, retain_graph=True))
-    return lib_fwd, lib_bwd
-
-
-def _time_family(family, inputs):
-    """Each kernel of ``family`` timed on ``inputs``: {name: ms}."""
+def _family_fns(family, inputs, tag):
+    """Each kernel of ``family`` on ``inputs``, for ``_time_reps``:
+    {"<wrapper>/<tag>": fn}."""
     q, k, v, do, lse, delta, kw = inputs
     fwd, bdq, bdkv = FAMILIES[family][0]
-    return {fwd.__name__: _time_call(lambda: fwd(q, k, v, **kw)),
-            bdq.__name__: _time_call(lambda: bdq(q, k, v, do, lse, delta,
-                                                 **kw)),
-            bdkv.__name__: _time_call(lambda: bdkv(q, k, v, do, lse, delta,
-                                                   **kw))}
+    return {f"{fwd.__name__}/{tag}": lambda i: fwd(q, k, v, **kw),
+            f"{bdq.__name__}/{tag}": lambda i: bdq(q, k, v, do, lse, delta,
+                                                   **kw),
+            f"{bdkv.__name__}/{tag}": lambda i: bdkv(q, k, v, do, lse,
+                                                     delta, **kw)}
 
 
 def phase_encoder_kernels(layers):
@@ -941,30 +1021,36 @@ def phase_encoder_kernels(layers):
         for family in FAMILIES:
             e, inputs[case[0], family] = _enc_check(case, family, gen)
             errs = {n: max(x, e.get(n, 0.0)) for n, x in errs.items()}
-    # kernels 1-3 with the key-mask and dropout variants at BERT's shape,
-    # and both families on the dropout-only calls
-    variant = _time_family("kernels 1-3", inputs["bert", "kernels 1-3"])
-    drop_only = {**_time_family("kernels 4-6",
-                                inputs["dropout_only", "kernels 4-6"]),
-                 **_time_family("kernels 1-3",
-                                inputs["dropout_only", "kernels 1-3"])}
+    # kernels 4-6 at BERT's shape, kernels 1-3 with the key-mask and
+    # dropout variants on the same inputs, both families on the
+    # dropout-only calls, and the yardstick: SDPA on [b, h, s, d] copies
+    # with the same additive mask (bf16, [b, 1, 1, s]) and dropout 0.1,
+    # its backward giving dQ, dK and dV together (timed only)
     q, k, v, do, lse, delta, kw = inputs["bert", "kernels 4-6"]
+    fns, contexts = _sdpa_fns(q, k, v, do,
+                              attn_mask=kw["kmask"][:, None].to(q.dtype),
+                              dropout_p=ENC_DROPOUT)
+    for family, case, tag in (("kernels 4-6", "bert", "bert"),
+                              ("kernels 1-3", "bert", "variant"),
+                              ("kernels 4-6", "dropout_only", "drop"),
+                              ("kernels 1-3", "dropout_only", "drop")):
+        fns.update(_family_fns(family, inputs[case, family], tag))
+    times = _time_reps(fns, contexts)
+    med = {n: _med(xs) for n, xs in times.items()}
     kernels = {
-        "hb_fwd": (lambda: hf.hb_fwd(q, k, v, **kw),
-                   lambda: hf.hb_fwd_ref(q, k, v, **kw)),
-        "hb_bwd_dq": (
-            lambda: hf.hb_bwd_dq(q, k, v, do, lse, delta, **kw),
-            lambda: hf.hb_bwd_dq_ref(q, k, v, do, lse, delta, **kw)),
-        "hb_bwd_dkv": (
-            lambda: hf.hb_bwd_dkv(q, k, v, do, lse, delta, **kw),
-            lambda: hf.hb_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)),
+        "hb_fwd": lambda: hf.hb_fwd_ref(q, k, v, **kw),
+        "hb_bwd_dq": lambda: hf.hb_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
+        "hb_bwd_dkv": lambda: hf.hb_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                **kw),
     }
-    lib_fwd, lib_bwd = _enc_library(q, k, v, do, kw["kmask"])
-    library = {"hb_fwd": lib_fwd, "hb_bwd_dq": lib_bwd, "hb_bwd_dkv": lib_bwd}
+    library = {"hb_fwd": _library(times, "sdpa_fwd"),
+               "hb_bwd_dq": _library(times, "sdpa_bwd"),
+               "hb_bwd_dkv": _library(times, "sdpa_bwd")}
     rows = {}
-    for (name, (kern, plain)), w in zip(kernels.items(), FLASH_WRAPPERS):
-        ms = _time_call(kern)
-        plain_ms = _time_call(plain, iters=3)
+    for (name, plain), w in zip(kernels.items(), FLASH_WRAPPERS):
+        ms = med[f"{name}/bert"]
+        plain_ms = _time_plain(plain, iters=3)
+        lib_ms, lib_txt = library[name]
         bound_ms, bound_by, all_pairs_ms = _flash_bound(q, k, False, 0, name,
                                                         kmask=kw["kmask"])
         vq, vk, *_, vkw = inputs["bert", "kernels 1-3"]
@@ -972,19 +1058,22 @@ def phase_encoder_kernels(layers):
                                         kmask=vkw["kmask"])
         dq_, dk_, *_ = inputs["dropout_only", "kernels 4-6"]
         d_bound, _, _ = _flash_bound(dq_, dk_, False, 0, name)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms,
-                          library_ms=library[name], bound_ms=bound_ms,
-                          bound_by=bound_by, max_abs_err=errs[name])
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=errs[name])
+        wn = w.__name__
         log(f"[encoder] {name} b64 s512 h12 d64 bf16 non-causal kmask "
-            f"dropout 0.1: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {library[name]:.4f} bound_ms {bound_ms:.5f} "
-            f"({bound_by}; {all_pairs_ms:.5f} counting every pair and all "
-            f"of K, V); {w.__name__} with a per-head kmask and dropout "
-            f"{variant[w.__name__]:.4f} ms (bound {v_bound:.5f}, {v_by}); "
-            f"dropout only, no mask: {name} {drop_only[name]:.4f} ms, "
-            f"{w.__name__} {drop_only[w.__name__]:.4f} ms (bound "
-            f"{d_bound:.5f}); launches per train step = {layers} "
-            f"(layers)")
+            f"dropout 0.1: kernel_ms {_spread(times[name + '/bert'])} "
+            f"(median, min-max of {REPS} x {ITERS}) plain_ms "
+            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (fastest SDPA backend: "
+            f"{lib_txt}) bound_ms {bound_ms:.5f} ({bound_by}; "
+            f"{all_pairs_ms:.5f} counting every pair and all of K, V); {wn} "
+            f"with a per-head kmask and dropout "
+            f"{_spread(times[wn + '/variant'])} ms (bound {v_bound:.5f}, "
+            f"{v_by}); dropout only, no mask: {name} "
+            f"{_spread(times[name + '/drop'])} ms, {wn} "
+            f"{_spread(times[wn + '/drop'])} ms (bound {d_bound:.5f}); "
+            f"launches per train step = {layers} (layers)")
     return rows
 
 

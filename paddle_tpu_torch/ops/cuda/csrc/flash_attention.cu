@@ -1,11 +1,11 @@
-// FlashAttention-2 forward and backward kernels for Hopper (sm_90a), with
+// Flash attention forward and backward kernels for Hopper (sm_90a), with
 // a plain C interface for ctypes (built by ops/cuda/_build.py).
 //
 // Replaces the six Pallas TPU kernels of paddle_tpu/ops/pallas/
 // flash_attention.py and head_flash.py:
-//   flash_fwd_{kernel,tc}      <- _fwd_kernel     (launched by _flash_fwd)
-//   flash_bwd_dq_{kernel,tc}   <- _bwd_dq_kernel  (by _flash_bwd_impl)
-//   flash_bwd_dkv_{kernel,tc}  <- _bwd_dkv_kernel (by _flash_bwd_impl)
+//   flash_fwd_{kernel,tc,wgmma}      <- _fwd_kernel (launched by _flash_fwd)
+//   flash_bwd_dq_{kernel,tc}         <- _bwd_dq_kernel (by _flash_bwd_impl)
+//   flash_bwd_dkv_{kernel,tc,wgmma}  <- _bwd_dkv_kernel (by _flash_bwd_impl)
 // through the pt_flash_* entries, and the head-batched
 //   _hb_fwd_kernel (by _hb_fwd), _hb_dq_kernel, _hb_dkv_kernel (by
 //   _hb_bwd_impl)
@@ -24,8 +24,9 @@
 //     one row per query head for pt_flash_* ([b * h, 1, sk]), one per
 //     batch row for pt_hb_* ([b, 1, sk], km_h = 0). The dK/dV kernels
 //     also return its gradient dmask = sum over query rows of ds / scale,
-//     per query head (pt_flash_bwd_dkv) or summed over all heads too
-//     (pt_hb_bwd_dkv), in registers and without atomics.
+//     one row per query head, in registers and without atomics;
+//     pt_hb_bwd_dkv writes those rows into a [b * h, 1, sk] scratch and a
+//     second pass (dmask_head_sum) sums them over heads in head order.
 //   - DROP: the reference's counter-hash dropout (_keep_mask): a murmur3
 //     fmix32 of the global (query head b * H + h, row, col) and two seed
 //     words in uint32 arithmetic, keep iff hash >= threshold (computed
@@ -44,45 +45,64 @@
 //
 // Design. The TPU grid runs its minor dimension in order and carries the
 // softmax state (or the dQ / dK / dV sums) in VMEM scratch from one grid
-// step to the next. Here one thread block owns one output tile and loops
-// over the other dimension itself:
-//   forward, dQ: one block per (64 query rows, q head), looping over the
-//     key tiles that intersect the (causal, window) band;
-//   dK/dV: one block per (64 keys, kv head), looping over the group's q
-//     heads x the query tiles that intersect the band. No atomics: the
-//     result is deterministic. The head-batched dK/dV (pt_hb_bwd_dkv)
-//     has one block per (64 keys, batch row) that also loops over the kv
-//     heads, so its per-batch dmask sums over every query head inside
-//     the block: the TPU kernel's in-tile head reduction, on a grid of
-//     ceil(sk / 64) x b blocks (512 at b64 s512).
-// Tiles are staged in shared memory in the input's type with 16-byte
-// global loads. Ragged edges (sq or sk not a multiple of the tile) are
-// masked in the kernel, so any sequence length >= 1 works; d is any
-// multiple of 8 up to 256. Two families share that plan:
-//   - bf16 with d <= 128 (the training step's case) runs on the tensor
-//     cores: each warp owns 16 rows and computes its products with
-//     mma.sync.m16n8k16 (bf16 operands, fp32 accumulators), keeping
-//     scores and the softmax state in registers (namespace tc below);
-//   - fp32, and bf16 with d > 128, run on the fp32 CUDA cores: 256
-//     threads form a 16 x 16 grid, each owning a micro-tile of scores and
-//     of the fp32 output sums, with row maxima and sums reduced over
-//     half-warps by shuffles. fp32 keeps full fp32 products, so the
-//     card's results match the CPU's plain versions to fp32 rounding.
+// step to the next. Here one thread block owns an output tile and loops
+// over the other dimension itself: the forward and dQ over the key tiles
+// that intersect the (causal, window) band, dK/dV over its kv head's
+// group of q heads x the query tiles of the band (one block per (key
+// tile, kv head) for every call, head-batched too). No atomics anywhere:
+// every result is deterministic. Ragged edges are masked in the kernels,
+// so any sequence length >= 1 works; d is any multiple of 8 up to 256.
+// Three families:
+//   - wgmma (namespace wg; bf16, d <= 128): the forward without key row
+//     or dropout (kernel 1 on the Llama path), and dK/dV at d <= 64
+//     (kernel 6, and kernel 3 there). Warp-specialised blocks of two
+//     consumer warpgroups and one producer warp: the producer keeps TMA
+//     loads (4-D tensor maps over the strided [b, s, h, d] tensors,
+//     128-byte swizzle, zero fill past every edge) in flight through a
+//     ring of shared tiles signalled by mbarriers; the consumers multiply
+//     with wgmma.mma_async, the score-like product from two shared
+//     operands and the value-like product with the probabilities from
+//     registers (the accumulator repacked as the A operand, rounded to
+//     bf16 once) against an MN-major shared operand. The forward takes
+//     one block per 128-row query tile, the heaviest causal tiles first,
+//     128 keys a step, scores in the log2 domain (ex2), and masks with
+//     per-row key limits only on the tiles that cross the diagonal, the
+//     window or the last key. dK/dV takes 128 keys a block (64 a warpgroup)
+//     and 64-row query tiles in a 3-stage ring (Q, dO, lse and delta),
+//     and a warpgroup whose 64 keys are wholly padding for a query head
+//     skips that head (padded_tile: exact zeros, as the reference gives);
+//   - mma.sync (namespace tc; bf16, d <= 128): the forward's key-row and
+//     dropout variants (kernels 1 and 4 with them), dQ (kernels 2 and
+//     5), dK/dV at 64 < d <= 128 (kernel 3 on the Llama path). 64-row
+//     tiles, each warp owning 16 rows with mma.sync.m16n8k16, tiles
+//     staged by synchronous 16-byte loads;
+//   - fp32 FMA (fp32 any d, bf16 with d > 128): a 16 x 16 thread grid,
+//     each thread owning a micro-tile of scores and fp32 sums; fp32 keeps
+//     full fp32 products, so the card's results match the CPU's plain
+//     versions to fp32 rounding.
 //
-// What bounds it. At the headline shape (b8, s1024, h12, d128, bf16,
-// causal) the forward does about 26 GFLOP against about 100 MB moved:
-// 260 flop/byte, at the card's bf16 ridge (~295), so the bound is about
-// 0.03 ms either way, and the backward kernels (39 and 52 GFLOP) are
-// bound by operations. mma.sync reaches only part of the tensor cores'
-// rate (wgmma is the full-rate path), and these kernels do not overlap
-// loads with compute. Known gaps, left to later work: wgmma, TMA loads
-// into a ring of tiles with warp specialisation, a persistent grid, and
-// tensor-core paths for fp32 (TF32 would break the fp32 identity with the
-// CPU) and d = 256.
+// What bounds it. At the Llama shape (b8, s1024, h12, d128, bf16, causal)
+// the forward does 25.8 GFLOP of visible pairs against about 100 MB
+// moved, at the card's bf16 ridge, so its bound is about 0.03 ms either
+// way; the backward kernels are bound by operations. At BERT's shape
+// (b64, s512, h12, d64, padded, dropout) the dK/dV bound is bytes
+// (0.079 ms) once padding pairs are left out. The wgmma kernels reach the
+// tensor cores' full rate per instruction; what they still lack: the
+// overlap of the softmax with the products inside a warpgroup (two
+// score accumulators in flight, FlashAttention-3's intra-warpgroup
+// pipelining), a TMA store of O, and the skip of padded key tiles in
+// the forward and dQ. Known gaps, left to later work: the key-row and
+// dropout forwards and dQ on wgmma, dK/dV at d = 128 on wgmma, and
+// tensor-core paths for fp32 (TF32 would break the fp32 identity with
+// the CPU) and d = 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -120,14 +140,36 @@ struct Geom {
   float scale;
   // the variants (read only under the KM / DROP template flags)
   const float* km;  // additive key row of (b, h): km + b * km_b + h * km_h
-  float* dm;        // its gradient, addressed the same way
+  float* dm;        // its gradient, one row per query head at
+                    // dm + (b * H + h) * SK
   long long km_b, km_h;
   uint32_t seed0, seed1, thresh;  // dropout: seed words, keep threshold
   float dscale;                   // 1 / (1 - rate), rounded on the host
-  // dK/dV: one block per (key tile, batch row) over all kv heads, so the
-  // batch row's dmask is summed in the block; set only with such a mask
-  int hb;
 };
+
+// An additive key-row value at or below this is padding: exp(score + row
+// - lse) of such a key is exactly 0 in fp32 in any query row that also
+// sees a live key (BERT's padding is -1e4, -9984 in bf16).
+constexpr float kPadLevel = -1e3f;
+
+// Whether query head h's work on keys [c0, c0 + BK) is exactly zero, so
+// that a dK/dV block may skip it: every key of the tile is padding in
+// h's key row, and every query row that sees the tile also sees a live
+// key (there is one in the row, non-causal and without a window; causal
+// without a window, one before c0). Block-uniform; every thread calls it.
+template <int BK>
+__device__ __forceinline__ bool padded_tile(const Geom& g, const float* kmr,
+                                            int c0) {
+  if (g.window > 0) return false;
+  const int hi = g.causal ? min(c0, g.SK) : g.SK;
+  int tile_live = 0, seen_live = 0;
+  for (int c = threadIdx.x; c < g.SK; c += blockDim.x) {
+    const bool live = kmr[c] > kPadLevel;
+    if (c >= c0 && c < c0 + BK) tile_live |= live;
+    else if (c < hi) seen_live |= live;
+  }
+  return !__syncthreads_or(tile_live) && __syncthreads_or(seen_live);
+}
 
 // The dropout hash of one query head: everything but (row, col).
 __device__ __forceinline__ uint32_t head_salt(const Geom& g, int bh) {
@@ -505,12 +547,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dK and dV. grid = (ceil(SK / BK), B * HKV), or (ceil(SK / BK), B) with
-// g.hb, where the block also loops over the kv heads. The block sums
-// over the h / h_kv query heads of each kv head and their live query
-// tiles. With KM it sums dmask = sum_rows ds / scale for its keys too:
-// per query head (written after each head), or with g.hb over every
-// head of the batch row (written once at the end).
+// dK and dV. grid = (ceil(SK / BK), B * HKV). The block sums over the
+// h / h_kv query heads of its kv head and their live query tiles. With
+// KM it also writes dmask = sum_rows ds / scale for its keys, one row
+// per query head at dm + (b * H + h) * SK.
 template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -532,9 +572,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sDS = sP + BQ * LDP;                           // [BQ, LDP]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = g.hb ? blockIdx.y : blockIdx.y / g.HKV;
-  const int hk0 = g.hb ? 0 : blockIdx.y - b * g.HKV;
-  const int hk1 = g.hb ? g.HKV : hk0 + 1;
+  const int b = blockIdx.y / g.HKV;
+  const int hk = blockIdx.y - b * g.HKV;
   const int group = g.H / g.HKV;
   const int c0 = blockIdx.x * BK;
   const int d = g.d;
@@ -544,8 +583,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dm_acc = 0.f;
   int qt0, qt1;
   query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
-  for (int hk = hk0; hk < hk1; ++hk) {
-    __syncthreads();  // the previous kv head is done with sK and sV
+  {
     load_tile<T, BK, LD>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK, d);
     load_tile<T, BK, LD>(sV, v + b * sv_.b + hk * sv_.h, sv_.s, c0, g.SK, d);
     float acc_k[KR][DN], acc_v[KR][DN];
@@ -610,9 +648,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
       }
-      if (KM && !g.hb) {  // this query head's dmask row
+      if (KM) {  // this query head's dmask row
         if (threadIdx.x < BK && mc < g.SK)
-          g.dm[b * g.km_b + h * g.km_h + mc] = dm_acc / g.scale;
+          g.dm[bh * g.SK + mc] = dm_acc / g.scale;
         dm_acc = 0.f;
       }
     }
@@ -632,8 +670,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  if (KM && g.hb && threadIdx.x < BK && mc < g.SK)  // the batch row's dmask
-    g.dm[b * g.km_b + mc] = dm_acc / g.scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -1028,11 +1064,11 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // dK and dV. grid = (ceil(SK / 64), B * HKV), 4 warps of 16 keys; the
-// block sweeps its group's q heads x 32-row query tiles. With g.hb the
-// grid is (ceil(SK / 64), B) and the block also loops over the kv heads.
-// With KM each thread sums ds over the query columns of its two keys in
-// registers; the four lanes of a key row are reduced by shuffles when a
-// dmask row is written (per query head, or with g.hb once per batch row).
+// block sweeps its group's q heads x 32-row query tiles. With KM each
+// thread sums ds over the query columns of its two keys in registers;
+// the four lanes of a key row are reduced by shuffles when the query
+// head's dmask row is written, and a query head whose work on the tile
+// is exactly zero (padded_tile) is skipped.
 template <int DMAX, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreadsTc)
 flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -1052,9 +1088,8 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sDelta = sLse + BQ;                               // [BQ]
   const int lane = threadIdx.x & 31, wk = (threadIdx.x >> 5) * 16;
   const int gq = lane >> 2, tq = lane & 3;
-  const int b = g.hb ? blockIdx.y : blockIdx.y / g.HKV;
-  const int hk0 = g.hb ? 0 : blockIdx.y - b * g.HKV;
-  const int hk1 = g.hb ? g.HKV : hk0 + 1;
+  const int b = blockIdx.y / g.HKV;
+  const int hk = blockIdx.y - b * g.HKV;
   const int group = g.H / g.HKV;
   const int c0 = blockIdx.x * BK;
   float dm[2] = {0.f, 0.f};  // keys c0 + wk + gq and + 8: this lane's share
@@ -1072,8 +1107,7 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   int qt0, qt1;
   query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
-  for (int hk = hk0; hk < hk1; ++hk) {
-    __syncthreads();  // the previous kv head is done with sK and sV
+  {
     load_tile<BK, LD, DMAX>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK,
                             g.d);
     load_tile<BK, LD, DMAX>(sV, v + b * sv_.b + hk * sv_.h, sv_.s, c0, g.SK,
@@ -1090,7 +1124,8 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* dog = dout + b * sdo_.b + h * sdo_.h;
       const float* kmr = KM ? km_row(g, b, h) : nullptr;
       const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
-      for (int qt = qt0; qt < qt1; ++qt) {
+      const bool skip = KM && padded_tile<BK>(g, kmr, c0);
+      for (int qt = skip ? qt1 : qt0; qt < qt1; ++qt) {
         const int r0 = qt * BQ;
         __syncthreads();
         load_tile<BQ, LD, DMAX>(sQ, qg, sq_.s, r0, g.SQ, g.d);
@@ -1156,7 +1191,7 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         }
       }
-      if (KM && !g.hb) write_dm(b * g.km_b + h * g.km_h);
+      if (KM) write_dm(bh * g.SK);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1176,7 +1211,6 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
   }
-  if (KM && g.hb) write_dm(b * g.km_b);
 }
 
 
@@ -1190,6 +1224,505 @@ struct Smem {
 };
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// wgmma kernels: bf16, d <= 128, warp-specialised. Two consumer
+// warpgroups (threads 0-255, 64 rows each) compute with wgmma from
+// 128-byte-swizzled shared tiles; one producer warp (threads 256-287)
+// keeps TMA loads in flight through a ring of STAGES tiles, signalled by
+// mbarriers (full: the tile has landed; empty: all 256 consumer threads
+// are done with it). Layouts and descriptors: hopper.cuh.
+namespace wg {
+
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
+constexpr int kConsumers = 256;
+constexpr int kThreadsWg = kConsumers + 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 1024-byte aligned base of the dynamic shared memory (the 128-byte
+// swizzle repeats every 1024 bytes, and the descriptors assume it).
+__device__ __forceinline__ char* aligned_smem() {
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  const uintptr_t p = reinterpret_cast<uintptr_t>(smem_wg);
+  return reinterpret_cast<char*>((p + 1023) & ~uintptr_t(1023));
+}
+
+// An [R, DMAX] tile of rows [row0, row0 + R) of head `head` of batch row
+// `b`, one TMA box per 64 columns; rows past the sequence and columns
+// past d arrive as zeros.
+template <int R, int DMAX>
+__device__ __forceinline__ void load_tile(char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int head, int row0,
+                                          int b) {
+#pragma unroll
+  for (int a = 0; a < DMAX / 64; ++a)
+    tma_load_4d(dst + a * R * 128, map, bar, 64 * a, head, row0, b);
+}
+
+// Forward tiles: 128 query rows (64 per consumer warpgroup) x 128 keys.
+template <int DMAX>
+struct FwdCfg {
+  static constexpr int BQ = 128, BK = 128, STAGES = 2;
+  static constexpr int Q_BYTES = BQ * DMAX * 2;
+  static constexpr int KV_BYTES = BK * DMAX * 2;
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  // barriers: full_q, full_k[STAGES], full_v[STAGES], empty[STAGES]
+  static constexpr size_t SMEM = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// Forward (kernel 1 without key row or dropout). grid = B * H * ceil(SQ /
+// 128) blocks, one per output tile, block t taking tile t of the list
+// that puts the heaviest causal tiles (the last query rows) first. Key
+// tiles run from the last to the first, so the tiles that need the
+// causal or ragged mask come first and a block-uniform test skips the
+// mask on the rest.
+template <int DMAX>
+__global__ void __launch_bounds__(kThreadsWg, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                bf16* __restrict__ o, float* __restrict__ lse, Geom g,
+                Strides so_) {
+  using C = FwdCfg<DMAX>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
+  char* sm = aligned_smem();
+  char* sQ = sm;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = bars + 1 + ST;
+  uint64_t* empty = bars + 1 + 2 * ST;
+  const int bhs = g.B * g.H;
+  const int bh = blockIdx.x % bhs;
+  const int b = bh / g.H, h = bh - b * g.H;
+  const int hk = h / (g.H / g.HKV);
+  const int r0 = ((g.SQ + BQ - 1) / BQ - 1 - blockIdx.x / bhs) * BQ;
+  int kt0, kt1;
+  key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(full_q, C::Q_BYTES);
+      load_tile<BQ, DMAX>(sQ, &tm_q, full_q, h, r0, b);
+      for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
+        const int s = i % ST;
+        mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(full_k + s, C::KV_BYTES);
+        load_tile<BK, DMAX>(sm + C::OFF_K + s * C::KV_BYTES, &tm_k,
+                            full_k + s, hk, kt * BK, b);
+        mbar_expect_tx(full_v + s, C::KV_BYTES);
+        load_tile<BK, DMAX>(sm + C::OFF_V + s * C::KV_BYTES, &tm_v,
+                            full_v + s, hk, kt * BK, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wq owns tile rows 64 wq .. 64 wq + 63; this
+  // thread rows rw and rw + 8 of them
+  const int wq = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int rw = 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
+  const float sl2 = g.scale * kLog2e;  // scores in the log2 domain
+  const int offset = g.SK - g.SQ;
+  const int rmax = min(r0 + BQ, g.SQ) - 1;
+  // the keys row r0 + rw + 8 r sees: [lo[r], hi[r]) (bottom-right causal
+  // diagonal, window), and keys past SK do not exist
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int diag = r0 + rw + 8 * r + offset;
+    lo[r] = g.causal && g.window > 0 ? diag - g.window + 1 : INT_MIN;
+    hi[r] = g.causal ? diag + 1 : INT_MAX;
+  }
+  float acc[DMAX / 2];
+#pragma unroll
+  for (int j = 0; j < DMAX / 2; ++j) acc[j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(full_q, 0);
+  for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
+    const int s = i % ST, c0 = kt * BK;
+    const uint32_t ph = (i / ST) & 1;
+    const char* sK = sm + C::OFF_K + s * C::KV_BYTES;
+    const char* sV = sm + C::OFF_V + s * C::KV_BYTES;
+    mbar_wait(full_k + s, ph);
+    float sc[BK / 2];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DMAX / 16; ++ks)
+      wgmma_ss<BK>(sc, desc_kmajor<BQ>(sQ, 64 * wq, ks),
+                   desc_kmajor<BK>(sK, 0, ks), ks);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    // a mask is needed where the tile crosses the causal diagonal, the
+    // window's lower edge or the last key
+    const bool masked =
+        c0 + BK > g.SK ||
+        (g.causal && (c0 + BK - 1 > r0 + offset ||
+                      (g.window > 0 && c0 <= rmax + offset - g.window)));
+    float mx[2] = {kNegInf, kNegInf};
+    if (masked) {
+      // keys past SK weigh exactly 0; keys the row does not see get the
+      // reference's finite -1e30
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
+          float x = sc[4 * j + e] * sl2;
+          x = c < lo[r] || c >= hi[r] ? kNegInf : x;
+          x = c >= g.SK ? -INFINITY : x;
+          sc[4 * j + e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] *= sl2;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+        }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];  // this thread's share of the row sum
+    }
+    // P rounded to bf16 once as the A operand of P.V; the row sum keeps
+    // the fp32 p
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = ex2(sc[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += p[e];
+      }
+      pa[j >> 1][2 * (j & 1)] = pack(p[0], p[1]);
+      pa[j >> 1][2 * (j & 1) + 1] = pack(p[2], p[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    mbar_wait(full_v + s, ph);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<DMAX>(acc, pa[kk], desc_mnmajor<BK>(sV, kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    mbar_arrive(empty + s);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + rw + 8 * r;
+    if (row >= g.SQ) continue;
+    // m stays at -1e30 iff the row saw no key: it outputs exactly 0
+    const bool valid = m[r] > 0.5f * kNegInf;
+    const float l_safe = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / l_safe;
+    bf16* orow = o + b * so_.b + (long long)row * so_.s + h * so_.h;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col < g.d)
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            valid ? pack(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv)
+                  : 0u;
+    }
+    if (tq == 0)
+      lse[(long long)bh * g.SQ + row] =
+          (valid ? m[r] * kLn2 : kNegInf) + logf(l_safe);
+  }
+}
+
+// dK/dV tiles (d <= 64): 128 keys a block (64 per consumer warpgroup),
+// query tiles of 64 rows in a ring of STAGES (Q, dO, lse, delta).
+struct DkvCfg {
+  static constexpr int BK = 128, BQ = 64, STAGES = 3, MAX_GROUP = 64;
+  static constexpr int KV_BYTES = BK * 64 * 2;
+  static constexpr int Q_BYTES = BQ * 64 * 2;
+  static constexpr int OFF_V = KV_BYTES;
+  static constexpr int OFF_RING = 2 * KV_BYTES;  // Q, dO of stage s
+  static constexpr int OFF_STATS = OFF_RING + STAGES * 2 * Q_BYTES;
+  static constexpr int OFF_BAR = OFF_STATS + STAGES * 2 * BQ * 4;
+  // barriers: full_kv, full[STAGES], empty[STAGES]; then the skip bits
+  static constexpr int OFF_SKIP = OFF_BAR + 8 * (1 + 2 * STAGES);
+  static constexpr size_t SMEM = OFF_SKIP + MAX_GROUP + 1024;
+};
+
+// dK and dV (kernels 3 and 6 at d <= 64). grid = (ceil(SK / 128), B *
+// HKV): one block per (128 keys, kv head) loops over its group's query
+// heads x the query tiles of the band. Per item, each consumer
+// warpgroup computes for its 64 keys S^T = K.Q^T and dP^T = V.dO^T
+// (wgmma, both operands from shared memory), p and ds in registers with
+// the keys as rows, then dV += P^T.dO and dK += dS^T.Q (wgmma, P^T and
+// dS^T from registers, rounded to bf16 once, dO and Q MN-major). With KM,
+// dmask rows are written per query head; a warpgroup whose 64 keys are
+// wholly padding for a head (padded_tile) skips that head's work and
+// writes its exact zeros, and a head that both skip is not loaded.
+template <bool KM, bool DROP>
+__global__ void __launch_bounds__(kThreadsWg, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, Geom g, Strides sdk_,
+                    Strides sdv_) {
+  using C = DkvCfg;
+  constexpr int BK = C::BK, BQ = C::BQ, ST = C::STAGES;
+  char* sm = aligned_smem();
+  float* stats = reinterpret_cast<float*>(sm + C::OFF_STATS);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full_kv = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
+  uint8_t* skip = reinterpret_cast<uint8_t*>(sm + C::OFF_SKIP);
+  const int b = blockIdx.y / g.HKV, hk = blockIdx.y - b * g.HKV;
+  const int group = g.H / g.HKV;
+  const int c0 = blockIdx.x * BK;
+  int qt0, qt1;
+  query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  // bit w of skip[gi]: warpgroup w's keys are wholly padding for query
+  // head gi (every thread takes part in the block-wide scans)
+  for (int gi = 0; gi < group && gi < C::MAX_GROUP; ++gi) {
+    const float* kmr = KM ? km_row(g, b, hk * group + gi) : nullptr;
+    const bool s0 = KM && padded_tile<64>(g, kmr, c0);
+    const bool s1 = KM && padded_tile<64>(g, kmr, c0 + 64);
+    if (threadIdx.x == 0) skip[gi] = (uint8_t)(s0 | (s1 << 1));
+  }
+  __syncthreads();
+  auto head_skip = [&](int gi) {
+    return gi < C::MAX_GROUP ? (int)skip[gi] : 0;
+  };
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(full_kv, 2 * C::KV_BYTES);
+      load_tile<BK, 64>(sm, &tm_k, full_kv, hk, c0, b);
+      load_tile<BK, 64>(sm + C::OFF_V, &tm_v, full_kv, hk, c0, b);
+    }
+    int i = 0;
+    for (int gi = 0; gi < group; ++gi) {
+      if (head_skip(gi) == 3) continue;
+      const int h = hk * group + gi;
+      const long long bh = (long long)b * g.H + h;
+      for (int qt = qt0; qt < qt1; ++qt, ++i) {
+        const int s = i % ST, r0 = qt * BQ;
+        mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+        float* sl = stats + s * 2 * BQ;
+        for (int j = lane; j < BQ; j += 32) {
+          const int r = r0 + j;
+          sl[j] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
+          sl[BQ + j] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
+        }
+        if (lane == 0) {
+          char* ring = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
+          mbar_expect_tx(full + s, 2 * C::Q_BYTES);
+          load_tile<BQ, 64>(ring, &tm_q, full + s, h, r0, b);
+          load_tile<BQ, 64>(ring + C::Q_BYTES, &tm_do, full + s, h, r0, b);
+        } else {
+          mbar_arrive(full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wq owns keys c0 + 64 wq ..; this thread key rows
+  // kr and kr + 8 of the S^T tiles
+  const int wq = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int kr = c0 + 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
+  // the query rows that see key kr + 8 r: [qlo[r], qhi[r]) (bottom-right
+  // causal diagonal, window); rows past SQ and keys past SK take no part
+  int qlo[2], qhi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int c = kr + 8 * r, first = c - (g.SK - g.SQ);
+    qlo[r] = g.causal ? first : 0;
+    qhi[r] = c >= g.SK ? 0
+             : g.causal && g.window > 0 ? min(first + g.window, g.SQ)
+                                        : g.SQ;
+  }
+  float acc_k[32], acc_v[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) acc_k[j] = acc_v[j] = 0.f;
+  mbar_wait(full_kv, 0);
+  int i = 0;
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi;
+    const long long bh = (long long)b * g.H + h;
+    const int sk = head_skip(gi);
+    float dm[2] = {0.f, 0.f};
+    if (sk != 3) {
+      const bool mine = !((sk >> wq) & 1);
+      float kmv[2] = {0.f, 0.f};
+      if (KM) {
+        const float* kmr = km_row(g, b, h);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (kr + 8 * r < g.SK) kmv[r] = kmr[kr + 8 * r];
+      }
+      const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
+      for (int qt = qt0; qt < qt1; ++qt, ++i) {
+        const int s = i % ST, r0 = qt * BQ;
+        mbar_wait(full + s, (i / ST) & 1);
+        const char* sQ = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
+        const char* sdO = sQ + C::Q_BYTES;
+        const float* sl = stats + s * 2 * BQ;
+        if (mine) {
+          float st[32], dpt[32];
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            wgmma_ss<64>(st, desc_kmajor<BK>(sm, 64 * wq, ks),
+                         desc_kmajor<BQ>(sQ, 0, ks), ks);
+            wgmma_ss<64>(dpt, desc_kmajor<BK>(sm + C::OFF_V, 64 * wq, ks),
+                         desc_kmajor<BQ>(sdO, 0, ks), ks);
+          }
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(st);
+          fence_regs(dpt);
+          // the tile needs the causal, window or edge tests only where it
+          // crosses them
+          const int off = g.SK - g.SQ;
+          const bool masked =
+              r0 + BQ > g.SQ || c0 + BK > g.SK ||
+              (g.causal &&
+               (c0 + BK - 1 > r0 + off ||
+                (g.window > 0 && c0 <= r0 + BQ - 1 + off - g.window)));
+          uint32_t pf[4][4], df[4][4];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float pv[4], dsv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * tq + (e & 1);
+              const int qr = r0 + col, kc = kr + 8 * (e >> 1);
+              const float lse_q = sl[col], delta_q = sl[BQ + col];
+              // rows that saw no key in the forward have lse ~ -1e30
+              bool live = lse_q > 0.5f * kNegInf;
+              if (masked)
+                live = live && qr >= qlo[e >> 1] && qr < qhi[e >> 1];
+              float x = st[4 * j + e] * g.scale;
+              if (KM) x += kmv[e >> 1];
+              const float p = live ? ex2((x - lse_q) * kLog2e) : 0.f;
+              float dpv = dpt[4 * j + e], pd = p;
+              if (DROP) {  // dp masked and scaled; dV takes the dropped p
+                const float dmk = keep(g, salt, qr, kc) ? g.dscale : 0.f;
+                dpv *= dmk;
+                pd = p * dmk;
+              }
+              pv[e] = pd;
+              dsv[e] = p * (dpv - delta_q) * g.scale;
+              dm[e >> 1] += dsv[e];
+            }
+            pf[j >> 1][2 * (j & 1)] = pack(pv[0], pv[1]);
+            pf[j >> 1][2 * (j & 1) + 1] = pack(pv[2], pv[3]);
+            df[j >> 1][2 * (j & 1)] = pack(dsv[0], dsv[1]);
+            df[j >> 1][2 * (j & 1) + 1] = pack(dsv[2], dsv[3]);
+          }
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_rs<64>(acc_v, pf[kk], desc_mnmajor<BQ>(sdO, kk), 1);
+            wgmma_rs<64>(acc_k, df[kk], desc_mnmajor<BQ>(sQ, kk), 1);
+          }
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(acc_v);
+          fence_regs(acc_k);
+          fence_regs(pf);
+          fence_regs(df);
+        }
+        mbar_arrive(empty + s);
+      }
+    }
+    if (KM) {  // this query head's dmask row (zeros where skipped)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x = dm[r];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        const int c = kr + 8 * r;
+        if (tq == 0 && c < g.SK) g.dm[bh * g.SK + c] = x / g.scale;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int c = kr + 8 * r;
+    if (c >= g.SK) continue;
+    bf16* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
+    bf16* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col < g.d) {
+        *reinterpret_cast<uint32_t*>(krow + col) =
+            pack(acc_k[4 * j + 2 * r], acc_k[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(vrow + col) =
+            pack(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // Host side: shared-memory sizes, launches and the dispatch on dtype and
@@ -1248,10 +1781,22 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// dK/dV grid: one block per (key tile, kv head), or per (key tile, batch
-// row) for the head-batched entry.
+// dK/dV grid: one block per (key tile, kv head).
 dim3 dkv_grid(const Geom& g, int bk) {
-  return dim3((g.SK + bk - 1) / bk, g.hb ? g.B : g.B * g.HKV);
+  return dim3((g.SK + bk - 1) / bk, g.B * g.HKV);
+}
+
+// The head-batched dmask: out[b, c] = sum over h of per_head[b * H + h, c],
+// in head order (deterministic, no atomics). grid = (ceil(SK / 256), B).
+__global__ void __launch_bounds__(256)
+dmask_head_sum(const float* __restrict__ per_head, float* __restrict__ out,
+               int H, int SK) {
+  const int c = blockIdx.x * 256 + threadIdx.x;
+  if (c >= SK) return;
+  const float* src = per_head + (long long)blockIdx.y * H * SK + c;
+  float sum = 0.f;
+  for (int h = 0; h < H; ++h) sum += src[(long long)h * SK];
+  out[(long long)blockIdx.y * SK + c] = sum;
 }
 
 template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
@@ -1271,20 +1816,90 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, a driver-API function, taken from the driver
+// library that the process already has loaded (no link against libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? (EncodeTiledFn)dlsym(lib, "cuTensorMapEncodeTiled")
+               : (EncodeTiledFn) nullptr;
+  }();
+  return fn;
+}
+
+// Returned for a tensor map that cannot be encoded, plus its CUresult.
+constexpr int kTensorMapError = 1000;
+
+// A bf16 [B, S, heads, d] tensor read through its (batch, seq, head)
+// strides as the 4-D map (d, heads, S, B) with boxes of (64, 1, rows, 1)
+// and the 128-byte swizzle; reads past an edge return zeros.
+int bf16_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+             int d, Strides st, int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return kTensorMapError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                               (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
+}
+
+template <int DMAX>
+cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                      void* lse, const Geom& g, const long long* st,
+                      cudaStream_t stream) {
+  using C = wg::FwdCfg<DMAX>;
+  CUtensorMap tq, tk, tv;
+  int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
+  if (!err)
+    err = bf16_map(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
+  if (!err)
+    err = bf16_map(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
+  if (err) return (cudaError_t)err;
+  auto kernel = wg::flash_fwd_wgmma<DMAX>;
+  cudaError_t e = prepare(kernel, C::SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<g.B * g.H * ((g.SQ + C::BQ - 1) / C::BQ), wg::kThreadsWg, C::SMEM,
+           stream>>>(tq, tk, tv, (wg::bf16*)o, (float*)lse, g,
+                     strides_at(st, 3));
+  return cudaGetLastError();
+}
+
+// The forward without key row or dropout (kernel 1 on the Llama path)
+// runs the wgmma kernel; the variants keep the mma.sync template.
 template <int DMAX, bool KM, bool DROP>
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Geom& g, const long long* st,
                    cudaStream_t stream) {
-  auto kernel = tc::flash_fwd_tc<DMAX, KM, DROP>;
-  const size_t smem = tc::Smem<DMAX>::fwd;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((g.SQ + 63) / 64, g.B * g.H), tc::kThreadsTc, smem,
-           stream>>>(
-      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
-      (tc::bf16*)o, (float*)lse, g, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3));
-  return cudaGetLastError();
+  if constexpr (!KM && !DROP) {
+    return fwd_wgmma<DMAX>(q, k, v, o, lse, g, st, stream);
+  } else {
+    auto kernel = tc::flash_fwd_tc<DMAX, KM, DROP>;
+    const size_t smem = tc::Smem<DMAX>::fwd;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((g.SQ + 63) / 64, g.B * g.H), tc::kThreadsTc, smem,
+             stream>>>(
+        (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
+        (tc::bf16*)o, (float*)lse, g, strides_at(st, 0), strides_at(st, 1),
+        strides_at(st, 2), strides_at(st, 3));
+    return cudaGetLastError();
+  }
 }
 
 template <int DMAX, bool KM, bool DROP>
@@ -1305,22 +1920,55 @@ cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <bool KM, bool DROP>
+cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv,
+                          const Geom& g, const long long* st,
+                          cudaStream_t stream) {
+  using C = wg::DkvCfg;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
+  if (!err)
+    err = bf16_map(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
+  if (!err)
+    err = bf16_map(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
+  if (!err)
+    err = bf16_map(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
+                   C::BQ);
+  if (err) return (cudaError_t)err;
+  auto kernel = wg::flash_bwd_dkv_wgmma<KM, DROP>;
+  cudaError_t e = prepare(kernel, C::SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<dkv_grid(g, C::BK), wg::kThreadsWg, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+      (wg::bf16*)dk, (wg::bf16*)dv, g, strides_at(st, 4), strides_at(st, 5));
+  return cudaGetLastError();
+}
+
+// d <= 64 (kernel 6, and kernel 3 at d <= 64) runs the wgmma kernel;
+// d <= 128 the mma.sync template.
 template <int DMAX, bool KM, bool DROP>
 cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, const Geom& g, const long long* st,
                        cudaStream_t stream) {
-  auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP>;
-  const size_t smem = tc::Smem<DMAX>::dkv;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dkv_grid(g, 64), tc::kThreadsTc, smem, stream>>>(
-      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
-      (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
-      (tc::bf16*)dk, (tc::bf16*)dv, g, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4),
-      strides_at(st, 5));
-  return cudaGetLastError();
+  if constexpr (DMAX == 64) {
+    return bwd_dkv_wgmma<KM, DROP>(q, k, v, dout, lse, delta, dk, dv, g, st,
+                                   stream);
+  } else {
+    auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP>;
+    const size_t smem = tc::Smem<DMAX>::dkv;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dkv_grid(g, 64), tc::kThreadsTc, smem, stream>>>(
+        (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
+        (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
+        (tc::bf16*)dk, (tc::bf16*)dv, g, strides_at(st, 0),
+        strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
+        strides_at(st, 4), strides_at(st, 5));
+    return cudaGetLastError();
+  }
 }
 
 // geom = {B, H, HKV, SQ, SK, d, causal, window}; km: the additive key
@@ -1339,9 +1987,6 @@ Geom make_geom(const int* geom, float scale, const void* km, void* dm,
   g.seed1 = drop ? drop[1] : 0u;
   g.thresh = drop ? drop[2] : 0u;
   g.dscale = dscale;
-  // without a mask there is no dmask to reduce over heads: a head-batched
-  // call keeps kernel 3's larger per-(key tile, kv head) grid
-  g.hb = hb && km;
   return g;
 }
 
@@ -1469,13 +2114,22 @@ extern "C" int pt_hb_bwd_dq(const void* q, const void* k, const void* v,
                       strides, drop, dscale, dtype, stream, 1);
 }
 
+// dm_heads: [B * H, 1, SK] fp32 scratch (with km) for the per-head dmask
+// rows of the dK/dV pass, which a second pass sums over heads into dm.
 extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv,
-                             const void* km, void* dm, const int* geom,
-                             float scale, const long long* strides,
-                             const unsigned* drop, float dscale, int dtype,
-                             void* stream) {
-  return bwd_dkv_entry(q, k, v, dout, lse, delta, dk, dv, km, dm, geom,
-                       scale, strides, drop, dscale, dtype, stream, 1);
+                             const void* km, void* dm, void* dm_heads,
+                             const int* geom, float scale,
+                             const long long* strides, const unsigned* drop,
+                             float dscale, int dtype, void* stream) {
+  const int err = bwd_dkv_entry(q, k, v, dout, lse, delta, dk, dv, km,
+                                dm_heads, geom, scale, strides, drop, dscale,
+                                dtype, stream, 1);
+  if (err || !km) return err;
+  const int B = geom[0], H = geom[1], SK = geom[4];
+  dmask_head_sum<<<dim3((SK + 255) / 256, B), 256, 0,
+                   (cudaStream_t)stream>>>((const float*)dm_heads, (float*)dm,
+                                           H, SK);
+  return cudaGetLastError();
 }

@@ -28,14 +28,17 @@ attention can later call them with an external lse.
 What bounds the kernels: at the headline shape (b8, s1024, h12, d128,
 bf16, causal) about 26 GFLOP forward and 90 GFLOP backward against
 ~100 MB of operands each, so they are bound by tensor-core operations.
-For bf16 with ``d <= 128`` the kernels compute their products with
-``mma.sync`` bf16 tensor-core instructions (fp32 accumulators); fp32
-inputs and ``d > 128`` take fp32-FMA kernels, so fp32 results match the
-CPU's plain versions to fp32 rounding. All read q/k/v through their
+For bf16 with ``d <= 128`` they run on the tensor cores: the forward
+(without key row or dropout) and dK/dV at ``d <= 64`` as warp-specialised
+``wgmma`` kernels fed by TMA through a ring of shared tiles (the
+forward's heaviest query tiles first), the rest with ``mma.sync``;
+fp32 inputs and ``d > 128`` take fp32-FMA kernels, so fp32 results match
+the CPU's plain versions to fp32 rounding. All read q/k/v through their
 (batch, seq, head) strides, so the ``[b, s, h, d]`` views of the fused
-QKV projection go in without the three transposes JAX makes; the
-source's note lists what later work adds (wgmma, TMA, a persistent
-grid).
+QKV projection go in without the three transposes JAX makes (TMA needs
+16-byte aligned starts and strides, which the checks below require); a
+tensor map that cannot be encoded raises. The source's note lists what
+later work adds.
 
 The TPU kernels' two variants are template flags of the same kernels:
 
@@ -347,6 +350,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # after the data pointers: geom, scale, strides, drop, dscale, dtype, stream
 _TAIL = [_P, _F, _P, _P, _F, _I, _P]
+_TENSOR_MAP_ERROR = 1000  # flash_attention.cu's kTensorMapError
 
 
 @functools.cache
@@ -354,6 +358,8 @@ def _lib():
     lib = _build.library("flash_attention")
     for prefix in ("pt_flash", "pt_hb"):
         for entry, n_ptr in (("fwd", 6), ("bwd_dq", 8), ("bwd_dkv", 10)):
+            # pt_hb_bwd_dkv also takes the per-head dmask scratch
+            n_ptr += prefix == "pt_hb" and entry == "bwd_dkv"
             fn = getattr(lib, f"{prefix}_{entry}")
             fn.argtypes = [_P] * n_ptr + _TAIL
             fn.restype = _I
@@ -379,6 +385,9 @@ def _launch(entry, name, tensors, q, k, causal, window, scale, strided,
                 None if words is None else ctypes.addressof(words), dscale,
                 _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{name}: a TMA tensor map could not be encoded "
+                           f"(CUresult {err - _TENSOR_MAP_ERROR})")
     if err:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
@@ -402,14 +411,22 @@ def _bwd_dq(entry, name, q, k, v, do, lse, delta, kmask, scale, causal,
 
 
 def _bwd_dkv(entry, name, q, k, v, do, lse, delta, kmask, dm_rows, scale,
-             causal, window, drop):
+             causal, window, drop, head_sum=False):
     """Launch a dK/dV entry; returns (dK, dV) and, with ``kmask``, the
-    ``[dm_rows, 1, sk]`` fp32 dmask."""
+    ``[dm_rows, 1, sk]`` fp32 dmask. ``head_sum``: the head-batched entry,
+    which writes per-head dmask rows into a ``[b * h, 1, sk]`` scratch and
+    sums them over heads into dmask."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    dm = None if kmask is None else torch.empty(
-        (dm_rows, 1, k.shape[1]), dtype=torch.float32, device=q.device)
-    _launch(entry, name, (q, k, v, do, lse, delta, dk, dv, kmask, dm), q, k,
+    dm = scratch = None
+    if kmask is not None:
+        dm = torch.empty((dm_rows, 1, k.shape[1]), dtype=torch.float32,
+                         device=q.device)
+        if head_sum:
+            scratch = torch.empty((q.shape[0] * q.shape[2], 1, k.shape[1]),
+                                  dtype=torch.float32, device=q.device)
+    ptrs = (q, k, v, do, lse, delta, dk, dv, kmask, dm)
+    _launch(entry, name, ptrs + ((scratch,) if head_sum else ()), q, k,
             causal, window, scale, (q, k, v, do, dk, dv), drop)
     return (dk, dv) if dm is None else (dk, dv, dm)
 

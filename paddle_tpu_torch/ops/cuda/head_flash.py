@@ -13,16 +13,18 @@ On the TPU the head-batched kernels exist to read native ``[b, s, h,
 d]`` blocks without the ``[b * h, s, d]`` transposes of kernels 1-3, and
 their key mask is one row per batch row (``[b, 1, sk]``) whose gradient
 sums over heads and rows in the kernel. On Hopper kernels 1-3 already
-read ``[b, s, h, d]`` through strides, so kernels 4 and 5 are kernel 1's
-and 2's templates (tensor-core for bf16 with ``d <= 128``, fp32-FMA
-otherwise) with the mask row read at the batch row. Kernel 6 has its own
-grid: one block per (64 keys, batch row) that loops over every kv head
-and its query heads' tiles, so dmask ``[b, 1, sk]`` is summed over all
-heads and rows inside the block, in registers, in a fixed order, with no
-atomics (512 blocks at b64 s512). Without a mask (dropout only) there is
-no dmask to sum, and kernel 6 takes kernel 3's grid of one block per (64
-keys, kv head): 6144 blocks at b64 s512 h12. Dropout uses the query head
-``b * h + i``, so its mask is bit for bit kernel 1's and the TPU
+read ``[b, s, h, d]`` through strides, so kernels 4-6 are kernels 1-3's
+templates with the mask row read at the batch row. Kernel 6 takes kernel
+3's grid, one block per (128 keys, kv head) on the wgmma kernel at ``d
+<= 64`` (3072 blocks at b64 s512 h12), and writes one dmask row per
+query head into a ``[b * h, 1, sk]`` scratch that the wrapper allocates;
+a second pass of the same source sums the h rows of each (batch row,
+key) in head order into dmask ``[b, 1, sk]``: deterministic, no atomics.
+A warpgroup's 64 keys that are wholly padding (additive row <= -1e3) for
+a batch row that has a live key elsewhere (non-causal, or causal with a
+live key before them; no window) are skipped: their dK, dV and dmask are
+exactly 0, as the plain version computes them. Dropout uses the query
+head ``b * h + i``, so its mask is bit for bit kernel 1's and the TPU
 kernels'.
 
 The lse is ``[b * h, sq]`` fp32, as kernel 1's (the TPU kernel's ``[b,
@@ -30,11 +32,11 @@ sq, h, 128]`` lane broadcast is a Mosaic tiling rule: its ``[..., 0]``
 transposed to ``[b, h, sq]`` is this).
 
 What bounds them at BERT-base's shape (b64, s512, h12, d64, bf16,
-non-causal): the forward does ~51.5 GFLOP against ~201 MB of q, k, v and
-O, about 0.06 ms either way; dQ ~77 GFLOP and dK/dV ~103 GFLOP are bound
-by operations (~0.08 and ~0.10 ms). The kernels compute with
-``mma.sync`` and do not overlap loads with compute (see the source's
-note).
+non-causal, padded): counting only the (row, key) pairs the function
+needs, each is bound by bytes (about 0.049, 0.064 and 0.079 ms for
+kernels 4-6). Kernels 4 and 5 compute with ``mma.sync`` from tiles
+loaded synchronously; kernel 6 with ``wgmma`` from a TMA ring (see the
+source's note).
 
 Wrapper rules as in ``flash_attention.py``: CPU tensors go to the plain
 versions (:func:`hb_fwd_ref`, :func:`hb_bwd_dq_ref`,
@@ -148,7 +150,8 @@ def hb_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
                               scale=scale, window=window, kmask=kmask,
                               seed=seed, dropout=dropout)
     res = _fa._bwd_dkv(_fa._lib().pt_hb_bwd_dkv, "hb_bwd_dkv", q, k, v, do,
-                       lse, delta, kmask, b, scale, causal, window, drop)
+                       lse, delta, kmask, b, scale, causal, window, drop,
+                       head_sum=True)
     hb_bwd_dkv.launches += 1
     return res
 

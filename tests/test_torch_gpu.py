@@ -282,6 +282,94 @@ def test_flash_reads_strided_qkv_views(cuda):
         torch.testing.assert_close(a.grad, c.grad, atol=0, rtol=0)
 
 
+# The wgmma forward (bf16, d <= 128, no key row or dropout): 128-row
+# query tiles, 128-key TMA tiles zero-filled past sq, sk and d (d 96 is
+# one and a half 64-column boxes), against the plain version on fp32
+# copies of the same inputs with the tolerances above: O per 64-row tile
+# within 1e-2 and within 2e-2 abs, lse within 1e-4. Layouts: GQA causal
+# (sq == sk), a causal window with sq < sk, non-causal with sq < sk, and
+# q, k, v as [b, s, h, d] views of one fused projection output.
+@pytest.mark.parametrize("layout", ["gqa", "window_sq_lt_sk",
+                                    "noncausal_sq_lt_sk", "strided"])
+@pytest.mark.parametrize("sq", [1, 65, 1000])
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_wgmma_forward_matches_plain(cuda, d, sq, layout):
+    b, h, h_kv = 2, 4, 2
+    causal, window, sk = {"gqa": (True, 0, sq),
+                          "window_sq_lt_sk": (True, 48, sq + 30),
+                          "noncausal_sq_lt_sk": (False, 0, sq + 100),
+                          "strided": (True, 0, sq)}[layout]
+    rng = np.random.RandomState(d + sq)
+    if layout == "strided":
+        qkv = torch.from_numpy(rng.randn(b, sq, (h + 2 * h_kv) * d).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        q, k, v = (t.reshape(b, sq, -1, d) for t in torch.split(
+            qkv, [h * d, h_kv * d, h_kv * d], dim=-1))
+        assert not q.is_contiguous()
+    else:
+        q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   .to(cuda, torch.bfloat16)
+                   for shape in ((b, sq, h, d), (b, sk, h_kv, d),
+                                 (b, sk, h_kv, d)))
+    kw = dict(causal=causal, window=window)
+    n = fa.flash_fwd.launches
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == n + 1
+    want, want_lse = fa.flash_fwd_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(out.float(), want, atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    err = _tile_rel_err(out, want)
+    assert err <= 1e-2, f"O: per-tile relative error {err}"
+
+
+# Kernel 6 on a padded batch whose rows hold 0, 64, 100 and 512 live keys
+# (BERT's -1e4 padding, dropout 0.1): dK, dV per 64-row tile within 1e-2
+# and dmask per batch row within 1e-3 of the plain version on fp32
+# copies; two calls bit-identical (per-head dmask rows summed over heads
+# in a fixed order, no atomics); and the keys of the wholly padded 64-key
+# tiles of rows that have a live key, which the kernel skips, exactly 0
+# in dK, dV and dmask (as the plain version computes them: exp(-1e4 +
+# s - lse) is 0 in fp32).
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal",
+                                                       "causal"])
+def test_hb_dkv_padded_rows_skip_and_determinism(cuda, causal):
+    b, s, h, d = 4, 512, 4, 64
+    lengths = np.array([0, 64, 100, 512])
+    rng = np.random.RandomState(21)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, s, h, d).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(4))
+    kmask = torch.from_numpy(np.where(
+        np.arange(s)[None] < lengths[:, None], 0.0, -1e4).astype(
+            np.float32)).reshape(b, 1, s).to(cuda)
+    kw = dict(causal=causal, kmask=kmask, seed=_SEED, dropout=0.1)
+    f32 = [t.float() for t in (q, k, v, do)]
+    want_out, lse = hf.hb_fwd_ref(*f32[:3], **kw)
+    delta = (do.float() * want_out.to(q.dtype).float()).sum(-1) \
+        .permute(0, 2, 1).reshape(b * h, s).contiguous()
+    n = hf.hb_bwd_dkv.launches
+    dk, dv, dm = hf.hb_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dk2, dv2, dm2 = hf.hb_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert hf.hb_bwd_dkv.launches == n + 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2) \
+        and torch.equal(dm, dm2)
+    want_dk, want_dv, want_dm = hf.hb_bwd_dkv_ref(*f32, lse, delta, **kw)
+    for name, got, want in (("dk", dk, want_dk), ("dv", dv, want_dv)):
+        err = _tile_rel_err(got, want)
+        assert err <= 1e-2, f"{name}: per-tile relative error {err}"
+    assert dm.shape == (b, 1, s)
+    err = _row_rel(dm, want_dm)
+    assert err <= 1e-3, f"dmask: relative error per row {err}"
+    for row, length in enumerate(lengths):
+        if length == 0:  # no live key: every tile is computed
+            assert (dk[row] != 0).any()
+            continue
+        pad0 = -(-length // 64) * 64  # the first wholly padded tile
+        assert (dk[row, pad0:] == 0).all() and (dv[row, pad0:] == 0).all()
+        assert (dm[row, 0, pad0:] == 0).all()
+
+
 def _train_tiny(device, weights, steps=10):
     cfg = LlamaConfig.tiny(num_hidden_layers=2)
     model = LlamaForCausalLM(cfg, device=device)

@@ -196,6 +196,46 @@ def test_autograd_matches_jax_grad(case):
         _close_normalized(got.grad.numpy(), np.asarray(want), name=name)
 
 
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (False, 0.1),
+                                      (True, 0.1)],
+                         ids=["noncausal", "noncausal-p0.1", "causal-p0.1"])
+def test_wholly_padded_key_tile_gives_exact_zeros(causal, p):
+    """The premise of the CUDA dK/dV kernels' skip of wholly padded key
+    tiles: on a batch whose row 0 holds 40 live keys of 128 (keys 64-127,
+    a whole 64-key tile, are padding at -1e4), both JAX's ``_hb_bwd_impl``
+    (interpret mode) and the port's ``hb_bwd_dkv_ref`` give exactly 0 in
+    dK, dV and dmask at those keys, since exp(-1e4 + s - lse) is 0 in
+    fp32 in every row that sees a live key. The port's dmask is its
+    per-head dmask (``flash_bwd_dkv_ref`` with the mask spread per head)
+    summed over heads."""
+    h, s = 4, 128
+    q, k, v, do = _inputs(6, h, h, s, s)
+    keep = np.ones((B, s), np.float32)
+    keep[0, 40:] = 0.0
+    km = ((keep - 1.0) * 1e4)[:, None, :]
+    jout, jlse = _jax_fwd(q, k, v, km, causal, 0, p)
+    _, jdk, jdv, jdm = jhf._hb_bwd_impl(
+        q, k, v, jout, jlse, do, causal, 1.0 / math.sqrt(D), True, BLOCK,
+        BLOCK, 0, _seed(p), p, kmask=jnp.asarray(km))
+    out, tdo = _t(np.asarray(jout)), _t(do)
+    lse = _t(_lse_bh(jlse))
+    delta = (tdo * out).sum(-1).permute(0, 2, 1).reshape(B * h, s) \
+        .contiguous()
+    kw = dict(causal=causal, seed=SEED if p else None, dropout=p)
+    args = (_t(q), _t(k), _t(v), tdo, lse, delta)
+    dk, dv, dm = thf.hb_bwd_dkv_ref(*args, kmask=_t(km), **kw)
+    for name, got in (("jax dk", jdk), ("jax dv", jdv), ("port dk", dk),
+                      ("port dv", dv)):
+        assert (np.asarray(got)[0, 64:] == 0).all(), name
+        assert (np.asarray(got)[1, 64:] != 0).any(), name
+    assert (np.asarray(jdm)[0, 0, 64:] == 0).all()
+    assert (dm[0, 0, 64:] == 0).all() and (dm[0, 0, :40] != 0).all()
+    _, _, dm_heads = tfa.flash_bwd_dkv_ref(
+        *args, kmask=thf._per_head(_t(km), h), **kw)
+    torch.testing.assert_close(dm, dm_heads.reshape(B, h, 1, s).sum(1),
+                               rtol=0, atol=0)
+
+
 def test_dropout_masks_agree_across_kernel_families():
     """Kernel 4's dropout (head ``b * h + i``) is kernel 1's, bit for
     bit: with the same seed both plain versions give the same output,

@@ -35,8 +35,9 @@ from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa: E402
 from paddle_tpu_torch.optimizer import AdamW  # noqa: E402
 
 # kernel-name fragments of each family (kernels 4-6 are instances of
-# the flash templates)
-FAMILIES = (("attention kernels", ("flash_fwd", "flash_bwd")),
+# the flash templates; dmask_head_sum is kernel 6's second pass)
+FAMILIES = (("attention kernels", ("flash_fwd", "flash_bwd",
+                                   "dmask_head_sum")),
             ("matrix products", ("gemm", "xmma", "cutlass", "nvjet")))
 
 
