@@ -12,7 +12,8 @@ only a run in which every phase passed prints the final line:
    shared memory and spills;
 3. kernels at full width: each paged-attention kernel against its plain
    PyTorch version on the card (tolerance below), then timed beside the
-   plain version, one library call and the byte bound;
+   plain version, one library call and the byte bound at the served
+   decode geometry and at a long-context shape (2048 positions);
 4. serve: the 0.44B Llama (bf16, random weights from a seed) through
    ``ServingEngine`` with default settings on a seeded 16-request trace
    (a shared system prompt, so the prefix cache hits),
@@ -57,6 +58,9 @@ Kernels and library calls are timed with CUDA events as the median of
 5 repetitions of 20 calls, the kernels' and the library's repetitions
 interleaved (min-max printed beside it); the library call is timed on
 every SDPA backend that accepts it and the fastest is the yardstick.
+Phase 3's calls do less device work than the host spends launching one,
+so there the 20 calls of a repetition are one CUDA graph (device time),
+and the eager time is printed beside it.
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
 line with every kernel's numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Needs no network and no JAX; exits
@@ -104,6 +108,10 @@ MAX_SEQ_LEN = 512
 # decode geometry of ServingConfig's defaults at max_seq_len 512
 LANES, BLOCK, M = 8, 16, 32
 POS = [0, 37, 100, 200, 255, 300, 450, M * BLOCK - 1]  # lane 0 idle
+# a long-context timing shape: the same lanes at up to the 0.44B Llama's
+# max_position_embeddings (2048 slots, 8878 visible)
+M_LONG = 128
+POS_LONG = [0, 300, 700, 1023, 1300, 1600, 1900, M_LONG * BLOCK - 1]
 
 
 def log(*a):
@@ -144,15 +152,16 @@ def phase_build():
 
 # -- phase 3 ------------------------------------------------------------------
 
-def _pools(nkv, d, layers, gen, quant):
+def _pools(nkv, d, layers, gen, quant, m=M):
     """One bf16 (or int8 + scales) pool per layer, the engine's layout,
-    and a scattered block table: lane 0 idle on null block 0."""
-    nblocks = LANES * M + 1
+    and a scattered block table of ``m`` blocks a lane: lane 0 idle on
+    null block 0."""
+    nblocks = LANES * m + 1
     shape = (layers, nblocks, BLOCK, nkv, d)
     k = torch.randn(shape, device="cuda", generator=gen)
     v = torch.randn(shape, device="cuda", generator=gen)
-    tables = (torch.randperm(LANES * M, device="cuda", generator=gen)
-              .to(torch.int32).reshape(LANES, M) + 1)
+    tables = (torch.randperm(LANES * m, device="cuda", generator=gen)
+              .to(torch.int32).reshape(LANES, m) + 1)
     tables[0] = 0
     if quant:
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
@@ -189,6 +198,38 @@ def _time_reps(fns, contexts=None, iters=ITERS, reps=REPS):
             torch.cuda.synchronize()
             out[name].append(t0.elapsed_time(t1) / iters)
     return out
+
+
+def _time_graphs(fns, contexts=None):
+    """``_time_reps`` of CUDA graphs: each of ``fns`` ({name: fn(i)}) is
+    run 3 times, then captured as one graph of ``ITERS`` calls (inside
+    its context from ``contexts``, if any), and the graphs' replays are
+    timed in interleaved repetitions. A replay runs the calls' kernels
+    back to back with no host work between them, so this is the device's
+    time per call, where ``_time_reps`` of eager calls measures the host
+    instead once the device work is shorter than the host's per call.
+    Returns {name: [ms per call in each repetition]}; a function whose
+    capture fails is left out (and named)."""
+    contexts = contexts or {}
+    graphs = {}
+    for name, fn in fns.items():
+        with contexts.get(name, contextlib.nullcontext)():
+            for i in range(3):
+                fn(i)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    for i in range(ITERS):
+                        fn(i)
+            except RuntimeError as e:
+                log(f"[kernels] {name} is not capturable as a CUDA graph, "
+                    f"left out: {str(e).splitlines()[0]}")
+                continue
+        graphs[name] = graph
+    times = _time_reps({n: lambda i, g=g: g.replay()
+                        for n, g in graphs.items()}, iters=1)
+    return {n: [t / ITERS for t in ts] for n, ts in times.items()}
 
 
 def _med(xs):
@@ -237,15 +278,19 @@ def _library(times, prefix):
 
 
 def _bound(nkv, g, d, pos, window, kv_dtype, quant):
-    """Least time for the work: the larger of the bytes it must move
-    over the HBM rate and its operations over the peak rate for the
-    inputs' type. Bytes: q and out (bf16), pos, the table entries of the
-    live blocks, and each visible K/V slot once (plus its int8 scales)."""
+    """Least time for the work of one call at the lanes' ``pos`` (one
+    lane each): the larger of the bytes it must move over the HBM rate
+    and its operations over the peak rate for the inputs' type. Bytes: q
+    and out (bf16), pos, the table entries of the blocks that hold
+    visible slots, and each visible K/V slot once (plus its int8
+    scales)."""
     nh = nkv * g
+    lanes = len(pos)
     elt = 1 if quant else 2
     vis = [min(p + 1, window) if window else p + 1 for p in pos]
-    live_blocks = sum(p // BLOCK + 1 for p in pos)
-    nbytes = (2 * LANES * nh * d * 2 + 4 * LANES + 4 * live_blocks
+    live_blocks = sum(p // BLOCK - (p + 1 - v) // BLOCK + 1
+                      for p, v in zip(pos, vis))
+    nbytes = (2 * lanes * nh * d * 2 + 4 * lanes + 4 * live_blocks
               + 2 * sum(vis) * nkv * d * elt
               + (2 * sum(vis) * nkv * 4 if quant else 0))
     ops = sum(vis) * nh * (4 * d + 5)  # QK and PV dots + softmax
@@ -254,12 +299,12 @@ def _bound(nkv, g, d, pos, window, kv_dtype, quant):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _check_case(nkv, g, window, quant, gen, layers=2):
+def _check_case(nkv, g, window, quant, gen, layers=2, m=M, pos=POS):
     d = 128
-    pools, tables = _pools(nkv, d, layers, gen, quant)
+    pools, tables = _pools(nkv, d, layers, gen, quant, m=m)
     q = torch.randn(LANES, nkv * g, d, device="cuda",
                     generator=gen).to(torch.bfloat16)
-    pos = torch.tensor(POS, dtype=torch.int32, device="cuda")
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     kern = pa.paged_attend_int8 if quant else pa.paged_attend
     ref = pa.paged_attend_int8_ref if quant else pa.paged_attend_ref
 
@@ -270,7 +315,7 @@ def _check_case(nkv, g, window, quant, gen, layers=2):
     torch.cuda.synchronize()
     want = ref(*args(0), window=window)
     err = (got.float() - want.float()).abs().max().item()
-    tag = (f"{kern.__name__} nkv={nkv} g={g} window={window}")
+    tag = f"{kern.__name__} nkv={nkv} g={g} window={window} M={m}"
     log(f"[kernels] {tag}: max_abs_err {err:.3e} (tol {BF16_ATOL})")
     if not err <= BF16_ATOL:
         raise AssertionError(f"{tag}: kernel disagrees with its plain "
@@ -283,6 +328,7 @@ def _library_call(q, pools, tables, pos, quant, layers):
     gathered (and dequantized) per layer, with the boolean visibility
     mask; the gather is outside the timing. Returns fn(layer)."""
     nh, d = q.shape[1], q.shape[2]
+    slots = tables.shape[1] * BLOCK
     idx = tables.long()
     dense = []
     for li in range(layers):
@@ -293,10 +339,10 @@ def _library_call(q, pools, tables, pos, quant, layers):
         else:
             kc, vc = pools[0][li][idx], pools[1][li][idx]
         # [L, M, B, nkv, d] -> [L, nkv, M*B, d]
-        dense.append(tuple(t.reshape(LANES, M * BLOCK, -1, d)
+        dense.append(tuple(t.reshape(LANES, slots, -1, d)
                            .transpose(1, 2).contiguous() for t in (kc, vc)))
-    slots = torch.arange(M * BLOCK, device="cuda")
-    mask = (slots[None, :] <= pos[:, None])[:, None, None, :]
+    slot = torch.arange(slots, device="cuda")
+    mask = (slot[None, :] <= pos[:, None])[:, None, None, :]
     qs = q[:, :, None, :]
     nkv = dense[0][0].shape[1]
 
@@ -306,6 +352,47 @@ def _library_call(q, pools, tables, pos, quant, layers):
             qs, k, v, attn_mask=mask, enable_gqa=nkv != nh)
 
     return call
+
+
+def _time_shape(quant, gen, layers, m, pos):
+    """One kernel at one shape, cycling through the per-layer pools as
+    the engine's decode step does (so K/V are not served from L2 by a
+    repeat): checked against its plain version, then timed beside the
+    plain version, every SDPA backend and the bound. Returns the row."""
+    name = "paged_attend_int8" if quant else "paged_attend"
+    err, pools, tables, q, pos_t = _check_case(12, 1, 0, quant, gen,
+                                                layers=layers, m=m, pos=pos)
+    kern = pa.paged_attend_int8 if quant else pa.paged_attend
+    ref = pa.paged_attend_int8_ref if quant else pa.paged_attend_ref
+
+    def kern_fn(li):
+        return kern(q, *(p[li] for p in pools), tables, pos_t)
+
+    lib_fn = _library_call(q, pools, tables, pos_t, quant, layers)
+    fns = {"kernel": lambda i: kern_fn(i % layers)}
+    backends = _sdpa_backends(lambda: lib_fn(0))
+    for be in backends:
+        fns[f"sdpa[{be}]"] = lambda i: lib_fn(i % layers)
+    contexts = {f"sdpa[{be}]": ctx for be, ctx in backends.items()}
+    times = _time_graphs(fns, contexts)
+    eager = _time_reps({"kernel": fns["kernel"]})["kernel"]
+    ms = _med(times["kernel"])
+    library_ms, lib_txt = _library(times, "sdpa")
+    plain_ms = _time_plain(lambda: ref(q, *(p[0] for p in pools), tables,
+                                       pos_t), iters=20)
+    bound_ms, bound_by = _bound(12, 1, 128, pos, 0,
+                                torch.int8 if quant else torch.bfloat16,
+                                quant)
+    log(f"[kernels] {name} L={LANES} M={m} B={BLOCK} nkv=12 d=128 "
+        f"pos={pos}: kernel_ms {_spread(times['kernel'])} (CUDA graphs of "
+        f"{ITERS} calls; median, min-max of {REPS}) plain_ms "
+        f"{plain_ms:.4f} library_ms {library_ms:.4f} (fastest SDPA "
+        f"backend, graphs too: {lib_txt}) bound_ms {bound_ms:.5f} "
+        f"({bound_by}); kernel / bound {ms / bound_ms:.2f}, kernel / "
+        f"library {ms / library_ms:.2f}; eager calls (host-inclusive) "
+        f"{_spread(eager)} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
 
 
 def phase_kernels():
@@ -321,41 +408,15 @@ def phase_kernels():
     layers = FULL["num_hidden_layers"]
     for quant in (False, True):
         name = "paged_attend_int8" if quant else "paged_attend"
-        _, pools, tables, q, pos = _check_case(12, 1, 0, quant, gen,
-                                               layers=layers)
-        kern = pa.paged_attend_int8 if quant else pa.paged_attend
-        ref = pa.paged_attend_int8_ref if quant else pa.paged_attend_ref
-
-        def with_layer(fn):
-            return lambda li: fn(q, *(p[li] for p in pools), tables, pos)
-
-        # cycling through the per-layer pools as the engine's decode step
-        # does, so K/V are not served from L2 by a repeat
-        kern_fn, lib_fn = with_layer(kern), _library_call(
-            q, pools, tables, pos, quant, layers)
-        fns = {"kernel": lambda i: kern_fn(i % layers)}
-        backends = _sdpa_backends(lambda: lib_fn(0))
-        for be in backends:
-            fns[f"sdpa[{be}]"] = lambda i: lib_fn(i % layers)
-        times = _time_reps(fns, {f"sdpa[{be}]": ctx
-                                 for be, ctx in backends.items()})
-        ms = _med(times["kernel"])
-        library_ms, lib_txt = _library(times, "sdpa")
-        plain_ms = _time_plain(lambda: ref(q, *(p[0] for p in pools),
-                                           tables, pos), iters=20)
-        bound_ms, bound_by = _bound(12, 1, 128, POS, 0,
-                                    torch.int8 if quant else torch.bfloat16,
-                                    quant)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=errs[name])
-        log(f"[kernels] {name} L={LANES} M={M} B={BLOCK} nkv=12 d=128 "
-            f"pos={POS}: kernel_ms {_spread(times['kernel'])} (median, "
-            f"min-max of {REPS} x {ITERS}) plain_ms {plain_ms:.4f} "
-            f"library_ms {library_ms:.4f} (fastest SDPA backend: {lib_txt}) "
-            f"bound_ms {bound_ms:.5f} ({bound_by}); launches per decode "
-            f"round = {layers} (layers)")
-        del pools
+        # the served geometry is the table's row; the long shape is
+        # printed beside it
+        row = _time_shape(quant, gen, layers, M, POS)
+        long_row = _time_shape(quant, gen, layers, M_LONG, POS_LONG)
+        row["max_abs_err"] = max(errs[name], row["max_abs_err"],
+                                 long_row["max_abs_err"])
+        rows[name] = row
+        log(f"[kernels] {name}: launches per decode round = {layers} "
+            f"(layers), one per call (split and merge launches inside)")
     return rows
 
 

@@ -63,8 +63,14 @@ _SHAPES = [
     (4, 4, 8, 2, 2, 16, [0, 5, 11, 31]),
     (8, 32, 16, 12, 1, 128, [0, 1, 15, 16, 100, 255, 300, 511]),
     (8, 32, 16, 4, 3, 128, [0, 17, 64, 128, 200, 333, 480, 511]),
-    # 150 KB of shared memory: the launch raises the 48 KB default
+    # 8 query heads per block at d 256: the largest shared-memory carve-up
     (2, 3, 64, 2, 8, 256, [0, 191]),
+    # live ranges that end (and, with the window, start) exactly on the
+    # edges of 32-, 64- and 128-slot splits (fp32, bf16 and int8 pools at
+    # d 128 split so on the card)
+    (8, 32, 16, 12, 1, 128, [31, 63, 64, 127, 128, 255, 256, 511]),
+    # chip_smoke.py's long-context shape: 2048 slots, up to 32 splits
+    (8, 128, 16, 12, 1, 128, [0, 300, 700, 1023, 1300, 1600, 1900, 2047]),
 ]
 
 
@@ -104,6 +110,26 @@ def test_paged_attend_int8_matches_plain(cuda, shape, window, dtype):
     atol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_bit_identical(cuda, quant):
+    """The splits merge in a fixed order: two calls give the same bits."""
+    q, kp, vp, tab, ps = _inputs(9, *_SHAPES[-1][:6], _SHAPES[-1][6], cuda)
+    q = q.to(torch.bfloat16)
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        pools = (kq, vq, ks, vs)
+        fn = pa.paged_attend_int8
+    else:
+        pools = (kp.to(torch.bfloat16), vp.to(torch.bfloat16))
+        fn = pa.paged_attend
+    a = fn(q, *pools, tab, ps, window=300)
+    b = fn(q, *pools, tab, ps, window=300)
+    c = fn(q, *pools, tab, ps)
+    d = fn(q, *pools, tab, ps)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
 
 
 def test_wrapper_rejects_a_cpu_cuda_mix(cuda):

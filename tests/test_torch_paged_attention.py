@@ -7,6 +7,10 @@ the JAX package.
   ``tests/test_serving.py::test_paged_kernel_parity_vs_attend_lanes``:
   fp32, atol 2e-5 (both sides compute in fp32; the streaming and the
   one-pass softmax differ in summation order only).
+- The plain model of the CUDA kernels' split-K arithmetic
+  (``_split_partials_ref`` then ``_merge_splits_ref``) against the same
+  Pallas kernels at several split sizes, fp32, atol 2e-5, with splits
+  left empty past ``pos`` and below a sliding window; and the split rule.
 - ``quantize_kv``/``dequantize_kv`` bit-identical to the reference.
 - The wrappers' input checks, and their CPU dispatch to the plain
   version.
@@ -71,6 +75,99 @@ def test_paged_int8_ref_matches_pallas(window):
         *_t(q, np.asarray(kq), np.asarray(vq), np.asarray(ks),
             np.asarray(vs), tab, pos), window=window)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+def _empty_splits(pos, window, split, n):
+    """[L, n] bool: the splits of ``split`` slots that hold no visible
+    slot."""
+    out = np.zeros((len(pos), n), bool)
+    for lane, p in enumerate(pos):
+        lo = max(0, p - window + 1) if window else 0
+        for i in range(n):
+            out[lane, i] = i * split > p or (i + 1) * split - 1 < lo
+    return out
+
+
+def _check_split_model(m, l, acc, out, want, window, split):
+    """The merged output against the Pallas kernel's; each split empty
+    where it holds no visible slot, with (NEG_INF, 0, 0) that adds
+    nothing, and a live split holding at least its max slot's weight 1.
+    Returns the empty splits."""
+    np.testing.assert_allclose(out.numpy(), want, atol=2e-5, rtol=0)
+    empty = torch.from_numpy(_empty_splits(POS, window, split,
+                                           m.shape[-1]))[:, None]
+    empty = empty.expand(m.shape)
+    assert (m[empty] == pa.NEG_INF).all() and (l[empty] == 0).all()
+    assert (acc[empty] == 0).all()
+    assert (l[~empty] >= 1).all()
+    return empty
+
+
+# split sizes: one pool block, two, three (not dividing the table's 32
+# slots) and the whole table; windows: none, one that starts inside a
+# split, and 20, which leaves the first 8-slot split of lane 3 (pos 31)
+# empty. Lane 0 (pos 0) leaves every split after its first empty.
+@pytest.mark.parametrize("split", [B, 2 * B, 3 * B, M * B])
+@pytest.mark.parametrize("window", [0, 6, 20])
+def test_split_merge_model_matches_pallas(split, window):
+    q, kp, vp, tab, pos = _inputs(seed=8, permute=True)
+    want = np.asarray(jpa.paged_attend(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tab),
+        jnp.asarray(pos), window=window, interpret=True))
+    q, kp, vp, tab, pos_t = _t(q, kp, vp, tab, pos)
+    m, l, acc = pa._split_partials_ref(q, kp, vp, tab, pos_t, window=window,
+                                       split=split)
+    assert m.shape == l.shape == (L, NKV * G, -(-M * B // split))
+    empty = _check_split_model(m, l, acc,
+                               pa._merge_splits_ref(m, l, acc, q.dtype),
+                               want, window, split)
+    assert empty[0, 0, 1:].all() or split == M * B
+    if window == 20 and split == B:
+        assert empty[3, 0, 0]
+
+
+@pytest.mark.parametrize("split", [B, 3 * B])
+@pytest.mark.parametrize("window", [0, 20])
+def test_split_merge_model_int8_matches_pallas(split, window):
+    q, kp, vp, tab, pos = _inputs(seed=9, permute=True)
+    kq, ks = jax_quantize_kv(jnp.asarray(kp))
+    vq, vs = jax_quantize_kv(jnp.asarray(vp))
+    want = np.asarray(jpa.paged_attend_int8(
+        jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(tab), jnp.asarray(pos),
+        window=window, interpret=True))
+    q, kq, vq, ks, vs, tab, pos_t = _t(q, np.asarray(kq), np.asarray(vq),
+                                       np.asarray(ks), np.asarray(vs), tab,
+                                       pos)
+    m, l, acc = pa._split_partials_ref(q, kq, vq, tab, pos_t, window=window,
+                                       split=split, kscale=ks, vscale=vs)
+    _check_split_model(m, l, acc, pa._merge_splits_ref(m, l, acc, q.dtype),
+                       want, window, split)
+
+
+@pytest.mark.parametrize("case", [
+    # (L, nkv, M, B, row bytes, SMs, slots per split)
+    (8, 12, 32, 16, 256, 132, 64),     # served geometry, bf16 d 128
+    (8, 12, 32, 16, 128, 132, 128),    # int8 d 128
+    (8, 12, 32, 16, 512, 132, 32),     # fp32 d 128
+    (8, 12, 128, 16, 256, 132, 64),    # the long shape
+    (4, 2, 4, 8, 64, 132, 8),          # few blocks: halved to one block
+    (3, 4, 10, 2, 32, 132, 2),         # the tiny engine's geometry
+    (2, 2, 3, 64, 512, 132, 64),       # a pool block larger than 32 KB
+])
+def test_split_rule(case):
+    *args, want = case
+    split = pa._split_slots(*args)
+    L, nkv, M_, B_, row_bytes, n_sm = args
+    assert split == want and split % B_ == 0 and split <= M_ * B_
+    # fills the card, or has split down to one pool block
+    assert L * nkv * -(-M_ * B_ // split) >= 2 * n_sm or split == B_
+    # the shared memory a split block takes stays within a block's at the
+    # largest heads-per-block and head_dim the kernels take, and 32 KB of
+    # staged rows at g 1 and d 128 (six blocks fit an SM)
+    for elt in (1, 2, 4):
+        assert pa._smem_bytes(8, 256, B_, split, elt) <= pa._MAX_SMEM
+        assert pa._smem_bytes(1, 128, B_, split, elt) \
+            == 32 * 1024 + 4 * (split // B_)
 
 
 def test_quantize_kv_bit_identical():
