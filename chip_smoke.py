@@ -22,11 +22,13 @@ only a run in which every phase passed prints the final line:
    layers x decode rounds (> 0);
 5. token identity: a float32 tiny engine under preemption pressure must
    emit exactly the tokens of the port's own greedy ``generate()``;
-6. flash kernels at full width: the forward, dQ and dK/dV kernels each
-   against its plain PyTorch version on the card, output tile by output
-   tile (causal, sliding window, GQA, sq < sk, non-causal, d 64, ragged
-   1000), then timed at the headline shape beside the plain version,
-   ``F.scaled_dot_product_attention`` and the bound;
+6. flash kernels at full width: the forward, dQ (through both entries:
+   given delta, and computing delta itself, whose delta is held too) and
+   dK/dV kernels each against its plain PyTorch version on the card,
+   output tile by output tile (causal, sliding window, GQA, sq < sk,
+   non-causal, d 64, ragged 1000), then timed at the headline shape
+   beside the plain version, ``F.scaled_dot_product_attention`` and the
+   bound, dQ as the Llama step runs it (computing delta);
 7. train: the 0.44B Llama (bf16, random weights from a seed) through
    ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)`` on one
    b8 x s1024 batch; the loss must start near ln(vocab), stay finite
@@ -55,23 +57,38 @@ only a run in which every phase passed prints the final line:
    0.1 from the same seed words, must agree step by step.
 
 Kernels and library calls are timed with CUDA events as the median of
-5 repetitions of 20 calls, the kernels' and the library's repetitions
-interleaved (min-max printed beside it); the library call is timed on
-every SDPA backend that accepts it and the fastest is the yardstick.
-Phase 3's calls do less device work than the host spends launching one,
-so there the 20 calls of a repetition are one CUDA graph (device time),
-and the eager time is printed beside it.
+5 repetitions, the kernels' and the library's repetitions interleaved
+(min-max printed beside it); each repetition replays one CUDA graph of
+20 calls, so the reading is the device's time per call and not the
+host's (the eager time per call is printed beside it). A port kernel
+that cannot be captured fails its phase. The library call is timed on
+every SDPA backend that accepts it and the fastest is the yardstick;
+SDPA's backward is captured as the ``torch.autograd.grad`` call a user
+makes, or, if that capture fails, as its backward node called directly;
+with dropout it is captured together with its forward and the
+forward's time is subtracted (the line says which). Phases 6 and 9 also
+time each whole backward
+(delta and the two backward kernels, as the autograd Function runs
+them) against SDPA's whole backward.
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
 line with every kernel's numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Needs no network and no JAX; exits
 non-zero without a CUDA device or without the repository beside it.
+
+    python3 chip_smoke.py --phases 6,7
+
+runs phases 1 and 2 and the phases named (for comparing two trees in
+one call), and prints neither JSON line.
 """
+import argparse
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -200,36 +217,71 @@ def _time_reps(fns, contexts=None, iters=ITERS, reps=REPS):
     return out
 
 
-def _time_graphs(fns, contexts=None):
-    """``_time_reps`` of CUDA graphs: each of ``fns`` ({name: fn(i)}) is
-    run 3 times, then captured as one graph of ``ITERS`` calls (inside
-    its context from ``contexts``, if any), and the graphs' replays are
-    timed in interleaved repetitions. A replay runs the calls' kernels
-    back to back with no host work between them, so this is the device's
-    time per call, where ``_time_reps`` of eager calls measures the host
-    instead once the device work is shorter than the host's per call.
-    Returns {name: [ms per call in each repetition]}; a function whose
-    capture fails is left out (and named)."""
-    contexts = contexts or {}
-    graphs = {}
-    for name, fn in fns.items():
-        with contexts.get(name, contextlib.nullcontext)():
+@functools.cache
+def _capture_stream():
+    """The side stream every capture runs on. A tensor whose autograd
+    graph is replayed inside a capture is made on it too, since autograd
+    runs each backward op on its forward op's stream."""
+    return torch.cuda.Stream()
+
+
+def _capture(fn, context):
+    """One CUDA graph of ``ITERS`` calls of ``fn`` (after 3 warm-up
+    calls), captured on ``_capture_stream()`` inside ``context()``."""
+    stream = _capture_stream()
+    with context():
+        torch.cuda.synchronize()
+        with torch.cuda.stream(stream):
             for i in range(3):
                 fn(i)
-            torch.cuda.synchronize()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph):
-                    for i in range(ITERS):
-                        fn(i)
-            except RuntimeError as e:
-                log(f"[kernels] {name} is not capturable as a CUDA graph, "
-                    f"left out: {str(e).splitlines()[0]}")
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for i in range(ITERS):
+                fn(i)
+        graph.replay()  # a replay that faults names its graph here
+        torch.cuda.synchronize()
+    return graph
+
+
+def _time_graphs(fns, contexts=None, optional=(), fallbacks=None):
+    """``_time_reps`` of CUDA graphs: each of ``fns`` ({name: fn(i)}) is
+    captured as one graph of ``ITERS`` calls (inside its context from
+    ``contexts``, if any), and the graphs' replays are timed in
+    interleaved repetitions. A replay runs the calls' kernels back to
+    back with no host work between them, so this is the device's time
+    per call, where ``_time_reps`` of eager calls measures the host
+    instead once the device work is shorter than the host's per call.
+    A function whose capture fails fails the phase, unless it is a
+    library call named in ``optional``: that one is captured through its
+    ``fallbacks`` entry if it has one, else left out (and named).
+    Returns ({name: [ms per call in each repetition]}, {name: "" or
+    " (fallback)"} for each function timed)."""
+    contexts = contexts or {}
+    fallbacks = fallbacks or {}
+    graphs, how = {}, {}
+    for name, fn in fns.items():
+        context = contexts.get(name, contextlib.nullcontext)
+        for tag, f in (("", fn), (" (fallback)", fallbacks.get(name))):
+            if f is None:
                 continue
-        graphs[name] = graph
+            log(f"[graphs] capturing {name}{tag}")
+            try:
+                graphs[name] = _capture(f, context)
+            except RuntimeError as e:
+                if name not in optional:
+                    raise AssertionError(f"{name} could not be captured as "
+                                         f"a CUDA graph") from e
+                log(f"[graphs] {name}{tag} is not capturable: "
+                    f"{str(e).splitlines()[0]}")
+                continue
+            how[name] = tag
+            break
+        else:
+            log(f"[graphs] {name} left out")
     times = _time_reps({n: lambda i, g=g: g.replay()
                         for n, g in graphs.items()}, iters=1)
-    return {n: [t / ITERS for t in ts] for n, ts in times.items()}
+    return {n: [t / ITERS for t in ts] for n, ts in times.items()}, how
 
 
 def _med(xs):
@@ -268,13 +320,18 @@ def _sdpa_backends(call):
     return ok
 
 
-def _library(times, prefix):
+def _library(times, prefix, how=None):
     """The fastest backend's median over the ``prefix[backend]`` entries
-    of ``times``, and a printable list of every backend's reading."""
-    rows = {n[len(prefix) + 1:-1]: xs for n, xs in times.items()
-            if n.startswith(prefix + "[")}
-    best = min(_med(xs) for xs in rows.values())
-    return best, ", ".join(f"{n} {_spread(xs)}" for n, xs in rows.items())
+    of ``times`` (None if no backend was timed), and a printable list of
+    every backend's reading, with ``how`` each was captured."""
+    how = how or {}
+    rows = {n[len(prefix) + 1:-1]: (xs, how.get(n, ""))
+            for n, xs in times.items() if n.startswith(prefix + "[")}
+    if not rows:
+        return None, "no backend captured"
+    best = min(_med(xs) for xs, _ in rows.values())
+    return best, ", ".join(f"{n}{tag} {_spread(xs)}"
+                           for n, (xs, tag) in rows.items())
 
 
 def _bound(nkv, g, d, pos, window, kv_dtype, quant):
@@ -374,7 +431,7 @@ def _time_shape(quant, gen, layers, m, pos):
     for be in backends:
         fns[f"sdpa[{be}]"] = lambda i: lib_fn(i % layers)
     contexts = {f"sdpa[{be}]": ctx for be, ctx in backends.items()}
-    times = _time_graphs(fns, contexts)
+    times, _ = _time_graphs(fns, contexts, optional=contexts)
     eager = _time_reps({"kernel": fns["kernel"]})["kernel"]
     ms = _med(times["kernel"])
     library_ms, lib_txt = _library(times, "sdpa")
@@ -586,6 +643,11 @@ FLASH_REL_TOL = 1e-2
 # them (1e-3 on values ~10)
 FLASH_ATOL = 2e-2
 LSE_ATOL = 1e-3
+# delta = rowsum(dO * O) computed inside kernel 2 against _delta's torch
+# ops on the same bf16 dO and O: both sum fp32 products, in other
+# orders, so each (batch, head) row within 1e-5 of its relative
+# Frobenius error (~1e-7 expected)
+DELTA_REL_TOL = 1e-5
 
 
 def _flash_inputs(b, sq, sk, h, h_kv, gen, d=128):
@@ -636,10 +698,14 @@ def _flash_bound(q, k, causal, window, kernel, kmask=None):
     same row for every head), not padding; a row that sees only padding
     needs all its visible keys. 2 * d per product per pair, 2 products
     forward (QK, PV), 3 for dQ (QK, dO.V, dS.K), 4 for dK/dV (QK, dO.V,
-    P^T.dO, dS^T.Q); the softmax, mask and dropout hash are not counted
+    P^T.dO, dS^T.Q), 5 for the whole backward (``*_bwd``: QK, dO.V, dS.K,
+    P^T.dO, dS^T.Q, which is what it needs when one pass computes all
+    three gradients); the softmax, mask and dropout hash are not counted
     (other units, far below the products). K and V are read only at the
     keys some row needs; dK and dV are written in full. kmask's rows are
-    read by each kernel, and dK/dV writes as many dmask rows. Returns
+    read by each kernel, and dK/dV writes as many dmask rows. dQ that
+    computes delta (``*_bwd_dq_delta``) also reads O; the whole backward
+    reads q, O, dO and lse and writes dQ, dK and dV. Returns
     (ms, "bytes" or "operations", ms counting every visible pair and
     all of K and V)."""
     b, sq, h, d = q.shape
@@ -655,8 +721,9 @@ def _flash_bound(q, k, causal, window, kernel, kmask=None):
         need = need | (vis & ~need.any(-1, keepdim=True))
     pairs = int(need.sum())  # summed over batch rows
     live_keys = int(need.any(1).sum())
-    stage = kernel.split("_", 1)[1]  # fwd, bwd_dq, bwd_dkv
-    products = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4}
+    stage = kernel.split("_", 1)[1]  # fwd, bwd_dq(_delta), bwd_dkv, bwd
+    products = {"fwd": 2, "bwd_dq": 3, "bwd_dq_delta": 3, "bwd_dkv": 4,
+                "bwd": 5}
     q_bytes = q.numel() * q.element_size()
     kv_bytes = 2 * k.numel() * k.element_size()  # K and V in full
     row_bytes = b * h * sq * 4  # one fp32 per row: lse, delta
@@ -666,7 +733,10 @@ def _flash_bound(q, k, causal, window, kernel, kmask=None):
         ops = h * pairs * 2 * d * products[stage]
         nbytes = {"fwd": 2 * q_bytes + kv_read + row_bytes + km_bytes,
                   "bwd_dq": 3 * q_bytes + kv_read + 2 * row_bytes + km_bytes,
+                  "bwd_dq_delta": 4 * q_bytes + kv_read + 2 * row_bytes,
                   "bwd_dkv": 2 * q_bytes + kv_read + kv_bytes + 2 * row_bytes
+                  + 2 * km_bytes,
+                  "bwd": 4 * q_bytes + kv_read + kv_bytes + row_bytes
                   + 2 * km_bytes}[stage]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
@@ -687,23 +757,28 @@ def _flash_check(case, gen):
     torch.cuda.synchronize()
     want_out, want_lse = fa.flash_fwd_ref(*f32[:3], **kw)
     # the backward's inputs, shared by kernel and plain version: lse and
-    # delta = rowsum(dO * O) from O as the forward hands it on (bf16)
-    delta = (do.float() * want_out.to(q.dtype).float()).sum(-1) \
-        .permute(0, 2, 1).reshape(b * h, sq).contiguous()
+    # delta = rowsum(dO * O) from O as the forward hands it on (bf16);
+    # kernel 2 runs through both entries, delta given and delta computed
+    out_b = want_out.to(q.dtype)
+    delta = fa._delta(do, out_b)
     dq = fa.flash_bwd_dq(q, k, v, do, want_lse, delta, **kw)
+    dq_f, delta_f = fa.flash_bwd_dq_delta(q, k, v, do, out_b, want_lse, **kw)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
     torch.cuda.synchronize()
     want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, **kw)
     want_dk, want_dv = fa.flash_bwd_dkv_ref(*f32, want_lse, delta, **kw)
-    pairs = {"flash_fwd": [(out, want_out)], "flash_bwd_dq": [(dq, want_dq)],
+    pairs = {"flash_fwd": [(out, want_out)],
+             "flash_bwd_dq": [(dq, want_dq), (dq_f, want_dq)],
              "flash_bwd_dkv": [(dk, want_dk), (dv, want_dv)]}
+    delta_err = _row_rel_err(delta_f[:, None], delta[:, None])
     rel = {n: max(_tile_rel_err(g, w) for g, w in p) for n, p in pairs.items()}
     floor = {n: max(_tile_rel_err(w.to(q.dtype), w) for _, w in p)
              for n, p in pairs.items()}
     abs_err = {n: max((g.float() - w).abs().max().item() for g, w in p)
                for n, p in pairs.items()}
     loose = {"flash_fwd": abs_err["flash_fwd"],
-             "flash_bwd_dq": _normalized_err(dq, want_dq),
+             "flash_bwd_dq": max(_normalized_err(dq, want_dq),
+                                 _normalized_err(dq_f, want_dq)),
              "flash_bwd_dkv": max(_normalized_err(dk, want_dk),
                                   _normalized_err(dv, want_dv))}
     lse_err = (lse - want_lse).abs().max().item()
@@ -714,36 +789,85 @@ def _flash_check(case, gen):
         + f" (tol {FLASH_REL_TOL}); O max_abs_err {loose['flash_fwd']:.3e}, "
         f"dQ {loose['flash_bwd_dq']:.3e}, dK/dV "
         f"{loose['flash_bwd_dkv']:.3e} of their max (tol {FLASH_ATOL}); "
-        f"lse {lse_err:.3e} (tol {LSE_ATOL})")
+        f"lse {lse_err:.3e} (tol {LSE_ATOL}); kernel 2's delta "
+        f"{delta_err:.3e} per row (tol {DELTA_REL_TOL})")
     bad = [n for n in rel if not (rel[n] <= FLASH_REL_TOL
                                   and loose[n] <= FLASH_ATOL)]
-    if bad or not lse_err <= LSE_ATOL:
-        raise AssertionError(f"{name}: {bad or ['lse']} disagree with the "
-                             f"plain versions: relative {rel}, {loose}, "
-                             f"lse {lse_err}")
-    return abs_err, (q, k, v, do, want_lse, delta)
+    if bad or not lse_err <= LSE_ATOL or not delta_err <= DELTA_REL_TOL:
+        raise AssertionError(f"{name}: {bad or ['lse or delta']} disagree "
+                             f"with the plain versions: relative {rel}, "
+                             f"{loose}, lse {lse_err}, delta {delta_err}")
+    return abs_err, (q, k, v, do, out_b, want_lse, delta)
 
 
 def _sdpa_fns(q, k, v, do, **kw):
     """The yardstick: PyTorch's fused attention on ``[b, h, s, d]`` copies
     of the same inputs, forward and backward (dQ, dK and dV together), on
-    each backend that accepts the call. Returns (fns, contexts) for
-    ``_time_reps``: ``sdpa_fwd[backend]`` and ``sdpa_bwd[backend]``.
-    Timed only: the port never calls it."""
+    each backend that accepts the call. Returns (fns, contexts,
+    fallbacks, minus) for ``_timed``: ``sdpa_fwd[backend]`` and
+    ``sdpa_bwd[backend]``. Without dropout the backward is
+    ``torch.autograd.grad`` from the forward's output (made on the capture
+    stream, where autograd then runs the backward ops), and its fallback
+    calls the backend's backward node (``out.grad_fn``) directly. With
+    dropout a backward captured apart from its forward cannot run: a
+    forward outside a capture leaves its dropout seed on the host, where
+    a captured backward reads a device pointer (and the reverse faults
+    the warm-up calls). There the backward is captured together with its
+    forward, and ``minus`` names the forward whose time ``_timed``
+    subtracts. Timed only: the port never calls it."""
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     plain = [t.detach() for t in (qt, kt, vt)]
-    fns, contexts = {}, {}
+    fns, contexts, fallbacks, minus = {}, {}, {}, {}
     for be, ctx in _sdpa_backends(lambda: sdpa(*plain, **kw)).items():
-        with ctx():
+        fwd, bwd = f"sdpa_fwd[{be}]", f"sdpa_bwd[{be}]"
+        fns[fwd] = lambda i: sdpa(*plain, **kw)
+        contexts[fwd] = contexts[bwd] = ctx
+        if kw.get("dropout_p"):
+            fns[bwd] = lambda i: torch.autograd.grad(
+                sdpa(qt, kt, vt, **kw), (qt, kt, vt), dot)
+            minus[bwd] = fwd
+            continue
+        torch.cuda.synchronize()
+        with ctx(), torch.cuda.stream(_capture_stream()):
             out_t = sdpa(qt, kt, vt, **kw)
-        fns[f"sdpa_fwd[{be}]"] = lambda i: sdpa(*plain, **kw)
-        contexts[f"sdpa_fwd[{be}]"] = ctx
-        fns[f"sdpa_bwd[{be}]"] = lambda i, o=out_t: torch.autograd.grad(
+        torch.cuda.synchronize()
+        fns[bwd] = lambda i, o=out_t: torch.autograd.grad(
             o, (qt, kt, vt), dot, retain_graph=True)
-    return fns, contexts
+        fallbacks[bwd] = lambda i, o=out_t: o.grad_fn(dot)
+    return fns, contexts, fallbacks, minus
+
+
+def _whole_backward(fn_cls, q, k, v, out, lse, do, **args):
+    """``fn_cls.backward`` (the autograd Function's backward, as a
+    training step runs it) on saved tensors (q, k, v, out, lse) and the
+    forward's arguments."""
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, out, lse), args=args)
+    return lambda i: fn_cls.backward(ctx, do)
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def _timed(port, library, contexts, fallbacks, minus):
+    """Port functions and library calls ({name: fn(i)}) as CUDA-graph
+    replays (a port function that cannot be captured fails the phase; a
+    library call is left out), and the port functions as eager calls. A
+    library entry named in ``minus`` ({name: other}) reads its time less
+    the other's, repetition by repetition. Returns (graph times, how each
+    library call was captured, eager times)."""
+    times, how = _time_graphs({**library, **port}, contexts,
+                              optional=library, fallbacks=fallbacks)
+    for name, other in minus.items():
+        if name in times and other in times:
+            times[name] = [a - b for a, b in zip(times[name], times[other])]
+            how[name] = " (with its forward in one graph, less the forward)"
+        else:
+            times.pop(name, None)
+    return times, how, _time_reps(port)
 
 
 def phase_flash(layers):
@@ -752,43 +876,65 @@ def phase_flash(layers):
     for case in FLASH_CASES[1:]:
         e, _ = _flash_check(case, gen)
         errs = {k: max(errs[k], e[k]) for k in errs}
-    e, (q, k, v, do, lse, delta) = _flash_check(FLASH_CASES[0], gen)
+    e, (q, k, v, do, out, lse, delta) = _flash_check(FLASH_CASES[0], gen)
     errs = {k_: max(errs[k_], e[k_]) for k_ in errs}
     kw = dict(causal=True, window=0)
     kernels = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
                       lambda: fa.flash_fwd_ref(q, k, v, **kw)),
+        # kernel 2 as the Llama step runs it: computing delta itself
         "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-            lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)),
+            lambda: fa.flash_bwd_dq_delta(q, k, v, do, out, lse, **kw),
+            lambda: fa.flash_bwd_dq_delta_ref(q, k, v, do, out, lse, **kw)),
         "flash_bwd_dkv": (
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
             lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)),
     }
     # SDPA's causal mask is top-left aligned, equal to bottom-right at sq
     # == sk; its backward yields dQ, dK and dV together, so kernels 2 and
-    # 3 share one library time
-    fns, contexts = _sdpa_fns(q, k, v, do, is_causal=True)
-    fns.update({name: lambda i, f=kern: f()
-                for name, (kern, _) in kernels.items()})
-    times = _time_reps(fns, contexts)
-    library = {"flash_fwd": _library(times, "sdpa_fwd"),
-               "flash_bwd_dq": _library(times, "sdpa_bwd"),
-               "flash_bwd_dkv": _library(times, "sdpa_bwd")}
+    # 3 share one library time, and the whole backward (delta, 2 and 3 as
+    # _FlashFn.backward runs them) is held against it
+    library, contexts, fallbacks, minus = _sdpa_fns(q, k, v, do,
+                                                    is_causal=True)
+    port = {name: lambda i, f=kern: f() for name, (kern, _) in kernels.items()}
+    given = "flash_bwd_dq (delta given)"
+    port[given] = lambda i: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    whole = "flash_bwd (delta + 2 + 3)"
+    port[whole] = _whole_backward(
+        fa._FlashFn, q, k, v, out, lse, do, kmask=None, seed=None,
+        dropout=0.0, scale=1.0 / q.shape[-1] ** 0.5, **kw)
+    times, how, eager = _timed(port, library, contexts, fallbacks, minus)
+    lib = {"flash_fwd": _library(times, "sdpa_fwd", how),
+           "flash_bwd_dq": _library(times, "sdpa_bwd", how)}
+    lib["flash_bwd_dkv"] = lib[whole] = lib["flash_bwd_dq"]
     rows = {}
     for name, (kern, plain) in kernels.items():
         ms = _med(times[name])
         plain_ms = _time_plain(plain, iters=5)
-        bound_ms, bound_by, _ = _flash_bound(q, k, True, 0, name)
-        lib_ms, lib_txt = library[name]
+        bound_ms, bound_by, _ = _flash_bound(
+            q, k, True, 0, name + ("_delta" if name == "flash_bwd_dq" else ""))
+        lib_ms, lib_txt = lib[name]
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           max_abs_err=errs[name])
         log(f"[flash] {name} b8 s1024 h12 d128 bf16 causal: kernel_ms "
-            f"{_spread(times[name])} (median, min-max of {REPS} x {ITERS}) "
-            f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (fastest "
-            f"SDPA backend: {lib_txt}) bound_ms {bound_ms:.5f} "
-            f"({bound_by}); launches per train step = {layers} (layers)")
+            f"{_spread(times[name])} (CUDA graphs of {ITERS} calls; "
+            f"median, min-max of {REPS}) plain_ms {plain_ms:.4f} library_ms "
+            f"{_ms(lib_ms)} (fastest SDPA backend, graphs too: {lib_txt}) "
+            f"bound_ms {bound_ms:.5f} ({bound_by}); eager calls "
+            f"(host-inclusive) {_spread(eager[name])} ms; launches per "
+            f"train step = {layers} (layers)"
+            + (f"; through the entry given delta {_spread(times[given])} ms"
+               if name == "flash_bwd_dq" else ""))
+    lib_ms, lib_txt = lib[whole]
+    ms = _med(times[whole])
+    bound_ms, bound_by, _ = _flash_bound(q, k, True, 0, "flash_bwd")
+    log(f"[flash] {whole} b8 s1024 h12 d128 bf16 causal, as "
+        f"_FlashFn.backward runs it: {_spread(times[whole])} ms (CUDA "
+        f"graphs) against SDPA's whole backward {_ms(lib_ms)} ({lib_txt}): "
+        f"{ms / lib_ms if lib_ms else float('nan'):.2f}x; bound_ms "
+        f"{bound_ms:.5f} ({bound_by}); eager calls {_spread(eager[whole])} "
+        f"ms")
     return rows
 
 
@@ -1059,13 +1205,13 @@ def _enc_check(case, family, gen):
         raise AssertionError(f"{family} {name}: {bad or ['dmask or lse']} "
                              f"disagree with the plain versions: {rel}, "
                              f"dmask {dm_err}, lse {lse_err}")
-    return abs_err, (q, k, v, do, want_lse, delta, kw)
+    return abs_err, (q, k, v, do, want_out.to(dtype), want_lse, delta, kw)
 
 
 def _family_fns(family, inputs, tag):
-    """Each kernel of ``family`` on ``inputs``, for ``_time_reps``:
+    """Each kernel of ``family`` on ``inputs``, for ``_time_graphs``:
     {"<wrapper>/<tag>": fn}."""
-    q, k, v, do, lse, delta, kw = inputs
+    q, k, v, do, _, lse, delta, kw = inputs
     fwd, bdq, bdkv = FAMILIES[family][0]
     return {f"{fwd.__name__}/{tag}": lambda i: fwd(q, k, v, **kw),
             f"{bdq.__name__}/{tag}": lambda i: bdq(q, k, v, do, lse, delta,
@@ -1087,16 +1233,21 @@ def phase_encoder_kernels(layers):
     # dropout-only calls, and the yardstick: SDPA on [b, h, s, d] copies
     # with the same additive mask (bf16, [b, 1, 1, s]) and dropout 0.1,
     # its backward giving dQ, dK and dV together (timed only)
-    q, k, v, do, lse, delta, kw = inputs["bert", "kernels 4-6"]
-    fns, contexts = _sdpa_fns(q, k, v, do,
-                              attn_mask=kw["kmask"][:, None].to(q.dtype),
-                              dropout_p=ENC_DROPOUT)
+    q, k, v, do, out, lse, delta, kw = inputs["bert", "kernels 4-6"]
+    library, contexts, fallbacks, minus = _sdpa_fns(
+        q, k, v, do, attn_mask=kw["kmask"][:, None].to(q.dtype),
+        dropout_p=ENC_DROPOUT)
+    port = {}
     for family, case, tag in (("kernels 4-6", "bert", "bert"),
                               ("kernels 1-3", "bert", "variant"),
                               ("kernels 4-6", "dropout_only", "drop"),
                               ("kernels 1-3", "dropout_only", "drop")):
-        fns.update(_family_fns(family, inputs[case, family], tag))
-    times = _time_reps(fns, contexts)
+        port.update(_family_fns(family, inputs[case, family], tag))
+    # the whole backward (delta, 5 and 6) as _HbFlashFn.backward runs it
+    whole = "hb_bwd (delta + 5 + 6)"
+    port[whole] = _whole_backward(hf._HbFlashFn, q, k, v, out, lse, do,
+                                  scale=1.0 / q.shape[-1] ** 0.5, **kw)
+    times, how, eager = _timed(port, library, contexts, fallbacks, minus)
     med = {n: _med(xs) for n, xs in times.items()}
     kernels = {
         "hb_fwd": lambda: hf.hb_fwd_ref(q, k, v, **kw),
@@ -1104,9 +1255,9 @@ def phase_encoder_kernels(layers):
         "hb_bwd_dkv": lambda: hf.hb_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                 **kw),
     }
-    library = {"hb_fwd": _library(times, "sdpa_fwd"),
-               "hb_bwd_dq": _library(times, "sdpa_bwd"),
-               "hb_bwd_dkv": _library(times, "sdpa_bwd")}
+    library = {"hb_fwd": _library(times, "sdpa_fwd", how),
+               "hb_bwd_dq": _library(times, "sdpa_bwd", how),
+               "hb_bwd_dkv": _library(times, "sdpa_bwd", how)}
     rows = {}
     for (name, plain), w in zip(kernels.items(), FLASH_WRAPPERS):
         ms = med[f"{name}/bert"]
@@ -1125,9 +1276,11 @@ def phase_encoder_kernels(layers):
         wn = w.__name__
         log(f"[encoder] {name} b64 s512 h12 d64 bf16 non-causal kmask "
             f"dropout 0.1: kernel_ms {_spread(times[name + '/bert'])} "
-            f"(median, min-max of {REPS} x {ITERS}) plain_ms "
-            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (fastest SDPA backend: "
-            f"{lib_txt}) bound_ms {bound_ms:.5f} ({bound_by}; "
+            f"(CUDA graphs of {ITERS} calls; median, min-max of {REPS}; "
+            f"eager calls {_spread(eager[name + '/bert'])}) plain_ms "
+            f"{plain_ms:.4f} library_ms {_ms(lib_ms)} (fastest SDPA "
+            f"backend, graphs too: {lib_txt}) bound_ms {bound_ms:.5f} "
+            f"({bound_by}; "
             f"{all_pairs_ms:.5f} counting every pair and all of K, V); {wn} "
             f"with a per-head kmask and dropout "
             f"{_spread(times[wn + '/variant'])} ms (bound {v_bound:.5f}, "
@@ -1135,6 +1288,16 @@ def phase_encoder_kernels(layers):
             f"{_spread(times[name + '/drop'])} ms, {wn} "
             f"{_spread(times[wn + '/drop'])} ms (bound {d_bound:.5f}); "
             f"launches per train step = {layers} (layers)")
+    lib_ms, lib_txt = library["hb_bwd_dq"]
+    ms = med[whole]
+    bound_ms, bound_by, _ = _flash_bound(q, k, False, 0, "hb_bwd",
+                                         kmask=kw["kmask"])
+    log(f"[encoder] {whole} b64 s512 h12 d64 bf16 non-causal kmask dropout "
+        f"0.1, as _HbFlashFn.backward runs it: {_spread(times[whole])} ms "
+        f"(CUDA graphs) against SDPA's whole backward {_ms(lib_ms)} "
+        f"({lib_txt}): {ms / lib_ms if lib_ms else float('nan'):.2f}x; "
+        f"bound_ms {bound_ms:.5f} ({bound_by}); eager calls "
+        f"{_spread(eager[whole])} ms")
     return rows
 
 
@@ -1290,17 +1453,30 @@ def phase_bert_identity():
 
 def main():
     t0 = time.perf_counter()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11",
+                    help="phases to run after 1 and 2, comma-separated")
+    only = {int(p) for p in ap.parse_args().phases.split(",")}
     name, smi = phase_device()
     phase_build()
-    rows = phase_kernels()
-    launches = phase_serve(name)
-    phase_identity()
-    rows.update(phase_flash(TRAIN["num_hidden_layers"]))
-    launches.update(phase_train(name))
-    phase_train_identity()
-    rows.update(phase_encoder_kernels(BertConfig().num_hidden_layers))
-    launches.update(phase_bert_train(name))
-    phase_bert_identity()
+    rows, launches = {}, {}
+    for n, run in ((3, lambda: rows.update(phase_kernels())),
+                   (4, lambda: launches.update(phase_serve(name))),
+                   (5, phase_identity),
+                   (6, lambda: rows.update(
+                       phase_flash(TRAIN["num_hidden_layers"]))),
+                   (7, lambda: launches.update(phase_train(name))),
+                   (8, phase_train_identity),
+                   (9, lambda: rows.update(phase_encoder_kernels(
+                       BertConfig().num_hidden_layers))),
+                   (10, lambda: launches.update(phase_bert_train(name))),
+                   (11, phase_bert_identity)):
+        if n in only:
+            run()
+    if only != set(range(3, 12)):
+        log(f"[done] phases 1, 2 and {sorted(only)} passed in "
+            f"{time.perf_counter() - t0:.1f} s on {smi}")
+        return 0
     pallas = "paddle_tpu/ops/pallas/"
     flash_cu = "paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu"
     sources = {"paged": "paddle_tpu_torch/ops/cuda/csrc/paged_attention.cu",

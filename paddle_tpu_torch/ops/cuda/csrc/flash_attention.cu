@@ -4,9 +4,11 @@
 // Replaces the six Pallas TPU kernels of paddle_tpu/ops/pallas/
 // flash_attention.py and head_flash.py:
 //   flash_fwd_{kernel,tc,wgmma}      <- _fwd_kernel (launched by _flash_fwd)
-//   flash_bwd_dq_{kernel,tc}         <- _bwd_dq_kernel (by _flash_bwd_impl)
+//   flash_bwd_dq_{kernel,tc,wgmma}   <- _bwd_dq_kernel (by _flash_bwd_impl)
 //   flash_bwd_dkv_{kernel,tc,wgmma}  <- _bwd_dkv_kernel (by _flash_bwd_impl)
-// through the pt_flash_* entries, and the head-batched
+// through the pt_flash_* entries (pt_flash_bwd_dq_delta: dQ that also
+// computes delta = rowsum(dO * O), which _flash_bwd_impl computes
+// outside its kernels), and the head-batched
 //   _hb_fwd_kernel (by _hb_fwd), _hb_dq_kernel, _hb_dkv_kernel (by
 //   _hb_bwd_impl)
 // through the pt_hb_* entries, with the same arithmetic: fp32 scores,
@@ -54,28 +56,41 @@
 // so any sequence length >= 1 works; d is any multiple of 8 up to 256.
 // Three families:
 //   - wgmma (namespace wg; bf16, d <= 128): the forward without key row
-//     or dropout (kernel 1 on the Llama path), and dK/dV at d <= 64
-//     (kernel 6, and kernel 3 there). Warp-specialised blocks of two
-//     consumer warpgroups and one producer warp: the producer keeps TMA
-//     loads (4-D tensor maps over the strided [b, s, h, d] tensors,
-//     128-byte swizzle, zero fill past every edge) in flight through a
-//     ring of shared tiles signalled by mbarriers; the consumers multiply
-//     with wgmma.mma_async, the score-like product from two shared
-//     operands and the value-like product with the probabilities from
-//     registers (the accumulator repacked as the A operand, rounded to
-//     bf16 once) against an MN-major shared operand. The forward takes
+//     or dropout (kernel 1 on the Llama path), dQ without them (kernel 2
+//     on the Llama path, through the entry that computes delta), and
+//     dK/dV at d <= 64 (kernel 6, and kernel 3 there) and without key
+//     row or dropout at d <= 128 (kernel 3 on the Llama path). Warp-
+//     specialised blocks of two consumer warpgroups and a producer: the
+//     producer keeps TMA loads (4-D tensor maps over the strided [b, s,
+//     h, d] tensors, 128-byte swizzle, zero fill past every edge) in
+//     flight through a ring of shared tiles signalled by mbarriers; the
+//     consumers multiply with wgmma.mma_async, the score-like products
+//     from two shared operands and the value-like product with the
+//     probabilities (or dS) from registers (the accumulator repacked as
+//     the A operand, rounded to bf16 once) against an MN-major shared
+//     operand. The forward has one producer warp; the backward kernels a
+//     producer warpgroup that gives its registers to the consumers with
+//     setmaxnreg (24 / 240 a thread; 40 / 232 for dK/dV at d <= 64), so
+//     the dK and dV accumulators and the S^T and dP^T tiles (~200
+//     registers a thread at d 128) stay in registers. The forward takes
 //     one block per 128-row query tile, the heaviest causal tiles first,
 //     128 keys a step, scores in the log2 domain (ex2), and masks with
 //     per-row key limits only on the tiles that cross the diagonal, the
-//     window or the last key. dK/dV takes 128 keys a block (64 a warpgroup)
-//     and 64-row query tiles in a 3-stage ring (Q, dO, lse and delta),
-//     and a warpgroup whose 64 keys are wholly padding for a query head
-//     skips that head (padded_tile: exact zeros, as the reference gives);
-//   - mma.sync (namespace tc; bf16, d <= 128): the forward's key-row and
-//     dropout variants (kernels 1 and 4 with them), dQ (kernels 2 and
-//     5), dK/dV at 64 < d <= 128 (kernel 3 on the Llama path). 64-row
-//     tiles, each warp owning 16 rows with mma.sync.m16n8k16, tiles
-//     staged by synchronous 16-byte loads;
+//     window or the last key. dQ does the same per 128 query rows with Q
+//     and dO resident and 64-key K/V tiles in a 3-stage ring; its fused
+//     entry also sums delta for its rows from the resident dO and O, and
+//     writes it for dK/dV. Both backward kernels start their blocks in
+//     groups of 16 heads (grouped_block), the heaviest tiles first inside
+//     a group, so that a group's shared operands stay in L2. dK/dV takes
+//     128 keys a block (64 a warpgroup), the first key tiles first, and
+//     64-row query tiles in a 3-stage ring (Q, dO, lse and delta), and a
+//     warpgroup whose 64 keys are wholly padding for a query head skips
+//     that head (padded_tile: exact zeros, as the reference gives);
+//   - mma.sync (namespace tc; bf16, d <= 128): the key-row and dropout
+//     variants of the forward and dQ (kernels 1, 2, 4 and 5 with them)
+//     and of dK/dV at 64 < d <= 128. 64-row tiles, each warp owning 16
+//     rows with mma.sync.m16n8k16, tiles staged by synchronous 16-byte
+//     loads;
 //   - fp32 FMA (fp32 any d, bf16 with d > 128): a 16 x 16 thread grid,
 //     each thread owning a micro-tile of scores and fp32 sums; fp32 keeps
 //     full fp32 products, so the card's results match the CPU's plain
@@ -84,17 +99,18 @@
 // What bounds it. At the Llama shape (b8, s1024, h12, d128, bf16, causal)
 // the forward does 25.8 GFLOP of visible pairs against about 100 MB
 // moved, at the card's bf16 ridge, so its bound is about 0.03 ms either
-// way; the backward kernels are bound by operations. At BERT's shape
-// (b64, s512, h12, d64, padded, dropout) the dK/dV bound is bytes
-// (0.079 ms) once padding pairs are left out. The wgmma kernels reach the
-// tensor cores' full rate per instruction; what they still lack: the
-// overlap of the softmax with the products inside a warpgroup (two
-// score accumulators in flight, FlashAttention-3's intra-warpgroup
-// pipelining), a TMA store of O, and the skip of padded key tiles in
-// the forward and dQ. Known gaps, left to later work: the key-row and
-// dropout forwards and dQ on wgmma, dK/dV at d = 128 on wgmma, and
-// tensor-core paths for fp32 (TF32 would break the fp32 identity with
-// the CPU) and d = 256.
+// way; dK/dV is bound by operations (0.052 ms), dQ with delta by bytes
+// (it also reads O: 0.045 ms). At BERT's shape (b64, s512, h12, d64,
+// padded, dropout) the dK/dV bound is bytes (0.079 ms) once padding pairs
+// are left out. The wgmma kernels reach the tensor cores' full rate per
+// instruction; what they still lack: the overlap of the softmax with the
+// products across tiles inside a warpgroup (two score accumulators in
+// flight, FlashAttention-3's intra-warpgroup pipelining; the backward
+// overlaps only p with dP's product), a TMA store of the outputs, and
+// the skip of padded key tiles in the forward and dQ. Known gaps, left
+// to later work: the key-row and dropout forwards and dQ on wgmma, their
+// dK/dV at 64 < d <= 128 on wgmma, and tensor-core paths for fp32 (TF32
+// would break the fp32 identity with the CPU) and d = 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
@@ -1477,12 +1493,50 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// dK/dV tiles (d <= 64): 128 keys a block (64 per consumer warpgroup),
-// query tiles of 64 rows in a ring of STAGES (Q, dO, lse, delta).
+// The backward kernels' warp-specialised blocks: two consumer warpgroups
+// (threads 0-255) and a producer warpgroup (256-383) whose first warp
+// issues the TMA loads. setmaxnreg moves registers from the producer
+// (kRegsProducer a thread) to the consumers (kRegsConsumer), whose
+// accumulators and score tiles need about 200 a thread at d 128 (ptxas
+// caps a 384-thread block at 168 otherwise).
+constexpr int kThreadsWs = kConsumers + 128;
+constexpr int kRegsProducer = 24, kRegsConsumer = 240;
+
+// The backward kernels start their blocks in groups of kGroupSlices
+// slices (kv heads, or query heads, of the batch rows): block t belongs
+// to group t / (kGroupSlices x tiles), and inside the group runs slice t %
+// kGroupSlices's tile (t / kGroupSlices) % tiles. Blocks start in t's
+// order, so the groups run one after another and inside a group every
+// slice's tile 0 starts, then every slice's tile 1, and so on: the tiles
+// run in the kernel's order (heaviest first) while the slices in flight
+// stay few enough for the operands they share to stay in L2. Blocks past
+// the last slice exit at once.
+constexpr int kGroupSlices = 16;
+
+int grouped_blocks(int slices, int tiles) {
+  return (slices + kGroupSlices - 1) / kGroupSlices * kGroupSlices * tiles;
+}
+
+__device__ __forceinline__ void grouped_block(int tiles, int* slice,
+                                              int* tile) {
+  const int per_group = kGroupSlices * tiles;
+  const int grp = blockIdx.x / per_group;
+  const int w = blockIdx.x - grp * per_group;
+  *slice = grp * kGroupSlices + w % kGroupSlices;
+  *tile = w / kGroupSlices;
+}
+
+// dK/dV tiles: 128 keys a block (64 per consumer warpgroup), query tiles
+// of 64 rows in a ring of STAGES (Q, dO, lse, delta).
+template <int DMAX>
 struct DkvCfg {
   static constexpr int BK = 128, BQ = 64, STAGES = 3, MAX_GROUP = 64;
-  static constexpr int KV_BYTES = BK * 64 * 2;
-  static constexpr int Q_BYTES = BQ * 64 * 2;
+  // the d 128 consumers need 240 registers; at d 64 the producer's
+  // stats loop and skip bits need 40 (each split spills nothing)
+  static constexpr int REGS_PRODUCER = DMAX > 64 ? kRegsProducer : 40;
+  static constexpr int REGS_CONSUMER = DMAX > 64 ? kRegsConsumer : 232;
+  static constexpr int KV_BYTES = BK * DMAX * 2;
+  static constexpr int Q_BYTES = BQ * DMAX * 2;
   static constexpr int OFF_V = KV_BYTES;
   static constexpr int OFF_RING = 2 * KV_BYTES;  // Q, dO of stage s
   static constexpr int OFF_STATS = OFF_RING + STAGES * 2 * Q_BYTES;
@@ -1492,18 +1546,23 @@ struct DkvCfg {
   static constexpr size_t SMEM = OFF_SKIP + MAX_GROUP + 1024;
 };
 
-// dK and dV (kernels 3 and 6 at d <= 64). grid = (ceil(SK / 128), B *
-// HKV): one block per (128 keys, kv head) loops over its group's query
-// heads x the query tiles of the band. Per item, each consumer
-// warpgroup computes for its 64 keys S^T = K.Q^T and dP^T = V.dO^T
-// (wgmma, both operands from shared memory), p and ds in registers with
-// the keys as rows, then dV += P^T.dO and dK += dS^T.Q (wgmma, P^T and
-// dS^T from registers, rounded to bf16 once, dO and Q MN-major). With KM,
-// dmask rows are written per query head; a warpgroup whose 64 keys are
-// wholly padding for a head (padded_tile) skips that head's work and
-// writes its exact zeros, and a head that both skip is not loaded.
-template <bool KM, bool DROP>
-__global__ void __launch_bounds__(kThreadsWg, 1)
+// dK and dV (kernel 3, and kernel 6 at d <= 64). grid = grouped_blocks(B
+// * HKV, ceil(SK / 128)): one block per (kv head, 128 keys), within each
+// group of kv heads the first key tiles (under causal masking the
+// heaviest: they see the most query tiles) first, while the group's Q
+// and dO stay in L2 for its key tiles.
+// Each block loops over its group's query heads x the query tiles of the
+// band. Per item, each consumer warpgroup computes for its 64 keys S^T =
+// K.Q^T and dP^T = V.dO^T (wgmma, both operands from shared memory, two
+// commit groups so that p is computed while dP^T is still in flight), p
+// and ds in registers with the keys as rows, then dV += P^T.dO and dK +=
+// dS^T.Q (wgmma, P^T and dS^T from registers, rounded to bf16 once, dO
+// and Q MN-major). With KM, dmask rows are written per query head; a
+// warpgroup whose 64 keys are wholly padding for a head (padded_tile)
+// skips that head's work and writes its exact zeros, and a head that
+// both skip is not loaded.
+template <int DMAX, bool KM, bool DROP>
+__global__ void __launch_bounds__(kThreadsWs, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -1512,7 +1571,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ delta, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, Geom g, Strides sdk_,
                     Strides sdv_) {
-  using C = DkvCfg;
+  using C = DkvCfg<DMAX>;
   constexpr int BK = C::BK, BQ = C::BQ, ST = C::STAGES;
   char* sm = aligned_smem();
   float* stats = reinterpret_cast<float*>(sm + C::OFF_STATS);
@@ -1521,9 +1580,12 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + ST;
   uint8_t* skip = reinterpret_cast<uint8_t*>(sm + C::OFF_SKIP);
-  const int b = blockIdx.y / g.HKV, hk = blockIdx.y - b * g.HKV;
+  int bhk, kt;
+  grouped_block((g.SK + BK - 1) / BK, &bhk, &kt);
+  if (bhk >= g.B * g.HKV) return;
+  const int b = bhk / g.HKV, hk = bhk - b * g.HKV;
   const int group = g.H / g.HKV;
-  const int c0 = blockIdx.x * BK;
+  const int c0 = kt * BK;
   int qt0, qt1;
   query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
   if (threadIdx.x == 0) {
@@ -1547,176 +1609,430 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     return gi < C::MAX_GROUP ? (int)skip[gi] : 0;
   };
 
-  if (threadIdx.x >= kConsumers) {  // the producer warp
-    const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      mbar_expect_tx(full_kv, 2 * C::KV_BYTES);
-      load_tile<BK, 64>(sm, &tm_k, full_kv, hk, c0, b);
-      load_tile<BK, 64>(sm + C::OFF_V, &tm_v, full_kv, hk, c0, b);
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    regs_dec<C::REGS_PRODUCER>();
+    if (threadIdx.x < kConsumers + 32) {  // its first warp loads
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_expect_tx(full_kv, 2 * C::KV_BYTES);
+        load_tile<BK, DMAX>(sm, &tm_k, full_kv, hk, c0, b);
+        load_tile<BK, DMAX>(sm + C::OFF_V, &tm_v, full_kv, hk, c0, b);
+      }
+      int i = 0;
+      for (int gi = 0; gi < group; ++gi) {
+        if (head_skip(gi) == 3) continue;
+        const int h = hk * group + gi;
+        const long long bh = (long long)b * g.H + h;
+        for (int qt = qt0; qt < qt1; ++qt, ++i) {
+          const int s = i % ST, r0 = qt * BQ;
+          mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+          float* sl = stats + s * 2 * BQ;
+          for (int j = lane; j < BQ; j += 32) {
+            const int r = r0 + j;
+            sl[j] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
+            sl[BQ + j] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
+          }
+          if (lane == 0) {
+            char* ring = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
+            mbar_expect_tx(full + s, 2 * C::Q_BYTES);
+            load_tile<BQ, DMAX>(ring, &tm_q, full + s, h, r0, b);
+            load_tile<BQ, DMAX>(ring + C::Q_BYTES, &tm_do, full + s, h, r0,
+                                b);
+          } else {
+            mbar_arrive(full + s);
+          }
+        }
+      }
     }
+  } else {  // the consumer warpgroups
+    regs_inc<C::REGS_CONSUMER>();
+    // warpgroup wq owns keys c0 + 64 wq ..; this thread key rows kr and
+    // kr + 8 of the S^T tiles
+    const int wq = threadIdx.x >> 7;
+    const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+    const int kr = c0 + 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
+    // the query rows that see key kr + 8 r: [qlo[r], qhi[r])
+    // (bottom-right causal diagonal, window); rows past SQ and keys past
+    // SK take no part
+    int qlo[2], qhi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int c = kr + 8 * r, first = c - (g.SK - g.SQ);
+      qlo[r] = g.causal ? first : 0;
+      qhi[r] = c >= g.SK ? 0
+               : g.causal && g.window > 0 ? min(first + g.window, g.SQ)
+                                          : g.SQ;
+    }
+    float acc_k[DMAX / 2], acc_v[DMAX / 2];
+#pragma unroll
+    for (int j = 0; j < DMAX / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
+    mbar_wait(full_kv, 0);
     int i = 0;
     for (int gi = 0; gi < group; ++gi) {
-      if (head_skip(gi) == 3) continue;
       const int h = hk * group + gi;
       const long long bh = (long long)b * g.H + h;
-      for (int qt = qt0; qt < qt1; ++qt, ++i) {
-        const int s = i % ST, r0 = qt * BQ;
-        mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
-        float* sl = stats + s * 2 * BQ;
-        for (int j = lane; j < BQ; j += 32) {
-          const int r = r0 + j;
-          sl[j] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
-          sl[BQ + j] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
+      const int sk = head_skip(gi);
+      float dm[2] = {0.f, 0.f};
+      if (sk != 3) {
+        const bool mine = !((sk >> wq) & 1);
+        float kmv[2] = {0.f, 0.f};
+        if (KM) {
+          const float* kmr = km_row(g, b, h);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (kr + 8 * r < g.SK) kmv[r] = kmr[kr + 8 * r];
         }
-        if (lane == 0) {
-          char* ring = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
-          mbar_expect_tx(full + s, 2 * C::Q_BYTES);
-          load_tile<BQ, 64>(ring, &tm_q, full + s, h, r0, b);
-          load_tile<BQ, 64>(ring + C::Q_BYTES, &tm_do, full + s, h, r0, b);
-        } else {
-          mbar_arrive(full + s);
-        }
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wq owns keys c0 + 64 wq ..; this thread key rows
-  // kr and kr + 8 of the S^T tiles
-  const int wq = threadIdx.x >> 7;
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  const int kr = c0 + 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
-  // the query rows that see key kr + 8 r: [qlo[r], qhi[r]) (bottom-right
-  // causal diagonal, window); rows past SQ and keys past SK take no part
-  int qlo[2], qhi[2];
+        const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
+        for (int qt = qt0; qt < qt1; ++qt, ++i) {
+          const int s = i % ST, r0 = qt * BQ;
+          mbar_wait(full + s, (i / ST) & 1);
+          const char* sQ = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
+          const char* sdO = sQ + C::Q_BYTES;
+          const float* sl = stats + s * 2 * BQ;
+          if (mine) {
+            float st[32], dpt[32];
+            wg_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int c = kr + 8 * r, first = c - (g.SK - g.SQ);
-    qlo[r] = g.causal ? first : 0;
-    qhi[r] = c >= g.SK ? 0
-             : g.causal && g.window > 0 ? min(first + g.window, g.SQ)
-                                        : g.SQ;
-  }
-  float acc_k[32], acc_v[32];
+            for (int ks = 0; ks < DMAX / 16; ++ks)
+              wgmma_ss<64>(st, desc_kmajor<BK>(sm, 64 * wq, ks),
+                           desc_kmajor<BQ>(sQ, 0, ks), ks);
+            wg_commit();
 #pragma unroll
-  for (int j = 0; j < 32; ++j) acc_k[j] = acc_v[j] = 0.f;
-  mbar_wait(full_kv, 0);
-  int i = 0;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const long long bh = (long long)b * g.H + h;
-    const int sk = head_skip(gi);
-    float dm[2] = {0.f, 0.f};
-    if (sk != 3) {
-      const bool mine = !((sk >> wq) & 1);
-      float kmv[2] = {0.f, 0.f};
-      if (KM) {
-        const float* kmr = km_row(g, b, h);
+            for (int ks = 0; ks < DMAX / 16; ++ks)
+              wgmma_ss<64>(dpt, desc_kmajor<BK>(sm + C::OFF_V, 64 * wq, ks),
+                           desc_kmajor<BQ>(sdO, 0, ks), ks);
+            wg_commit();
+            // the tile needs the causal, window or edge tests only where
+            // it crosses them
+            const int off = g.SK - g.SQ;
+            const bool masked =
+                r0 + BQ > g.SQ || c0 + BK > g.SK ||
+                (g.causal &&
+                 (c0 + BK - 1 > r0 + off ||
+                  (g.window > 0 && c0 <= r0 + BQ - 1 + off - g.window)));
+            // p (undropped) into st while dP^T is in flight
+            wg_wait<1>();
+            fence_regs(st);
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          if (kr + 8 * r < g.SK) kmv[r] = kmr[kr + 8 * r];
-      }
-      const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
-      for (int qt = qt0; qt < qt1; ++qt, ++i) {
-        const int s = i % ST, r0 = qt * BQ;
-        mbar_wait(full + s, (i / ST) & 1);
-        const char* sQ = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
-        const char* sdO = sQ + C::Q_BYTES;
-        const float* sl = stats + s * 2 * BQ;
-        if (mine) {
-          float st[32], dpt[32];
-          wg_fence();
+            for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks) {
-            wgmma_ss<64>(st, desc_kmajor<BK>(sm, 64 * wq, ks),
-                         desc_kmajor<BQ>(sQ, 0, ks), ks);
-            wgmma_ss<64>(dpt, desc_kmajor<BK>(sm + C::OFF_V, 64 * wq, ks),
-                         desc_kmajor<BQ>(sdO, 0, ks), ks);
-          }
-          wg_commit();
-          wg_wait<0>();
-          fence_regs(st);
-          fence_regs(dpt);
-          // the tile needs the causal, window or edge tests only where it
-          // crosses them
-          const int off = g.SK - g.SQ;
-          const bool masked =
-              r0 + BQ > g.SQ || c0 + BK > g.SK ||
-              (g.causal &&
-               (c0 + BK - 1 > r0 + off ||
-                (g.window > 0 && c0 <= r0 + BQ - 1 + off - g.window)));
-          uint32_t pf[4][4], df[4][4];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float pv[4], dsv[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int col = 8 * j + 2 * tq + (e & 1);
-              const int qr = r0 + col, kc = kr + 8 * (e >> 1);
-              const float lse_q = sl[col], delta_q = sl[BQ + col];
-              // rows that saw no key in the forward have lse ~ -1e30
-              bool live = lse_q > 0.5f * kNegInf;
-              if (masked)
-                live = live && qr >= qlo[e >> 1] && qr < qhi[e >> 1];
-              float x = st[4 * j + e] * g.scale;
-              if (KM) x += kmv[e >> 1];
-              const float p = live ? ex2((x - lse_q) * kLog2e) : 0.f;
-              float dpv = dpt[4 * j + e], pd = p;
-              if (DROP) {  // dp masked and scaled; dV takes the dropped p
-                const float dmk = keep(g, salt, qr, kc) ? g.dscale : 0.f;
-                dpv *= dmk;
-                pd = p * dmk;
+              for (int e = 0; e < 4; ++e) {
+                const int col = 8 * j + 2 * tq + (e & 1), qr = r0 + col;
+                const float lse_q = sl[col];
+                // rows that saw no key in the forward have lse ~ -1e30
+                bool live = lse_q > 0.5f * kNegInf;
+                if (masked)
+                  live = live && qr >= qlo[e >> 1] && qr < qhi[e >> 1];
+                float x = st[4 * j + e] * g.scale;
+                if (KM) x += kmv[e >> 1];
+                st[4 * j + e] = live ? ex2((x - lse_q) * kLog2e) : 0.f;
               }
-              pv[e] = pd;
-              dsv[e] = p * (dpv - delta_q) * g.scale;
-              dm[e >> 1] += dsv[e];
-            }
-            pf[j >> 1][2 * (j & 1)] = pack(pv[0], pv[1]);
-            pf[j >> 1][2 * (j & 1) + 1] = pack(pv[2], pv[3]);
-            df[j >> 1][2 * (j & 1)] = pack(dsv[0], dsv[1]);
-            df[j >> 1][2 * (j & 1) + 1] = pack(dsv[2], dsv[3]);
-          }
-          wg_fence();
+            wg_wait<0>();
+            fence_regs(dpt);
+            uint32_t pf[4][4], df[4][4];
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            wgmma_rs<64>(acc_v, pf[kk], desc_mnmajor<BQ>(sdO, kk), 1);
-            wgmma_rs<64>(acc_k, df[kk], desc_mnmajor<BQ>(sQ, kk), 1);
+            for (int j = 0; j < 8; ++j) {
+              float pv[4], dsv[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = 8 * j + 2 * tq + (e & 1);
+                const float p = st[4 * j + e];
+                float dpv = dpt[4 * j + e], pd = p;
+                if (DROP) {  // dp masked and scaled; dV takes the dropped p
+                  const float dmk =
+                      keep(g, salt, r0 + col, kr + 8 * (e >> 1)) ? g.dscale
+                                                                 : 0.f;
+                  dpv *= dmk;
+                  pd = p * dmk;
+                }
+                pv[e] = pd;
+                dsv[e] = p * (dpv - sl[BQ + col]) * g.scale;
+                dm[e >> 1] += dsv[e];
+              }
+              pf[j >> 1][2 * (j & 1)] = pack(pv[0], pv[1]);
+              pf[j >> 1][2 * (j & 1) + 1] = pack(pv[2], pv[3]);
+              df[j >> 1][2 * (j & 1)] = pack(dsv[0], dsv[1]);
+              df[j >> 1][2 * (j & 1) + 1] = pack(dsv[2], dsv[3]);
+            }
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              wgmma_rs<DMAX>(acc_v, pf[kk], desc_mnmajor<BQ>(sdO, kk), 1);
+              wgmma_rs<DMAX>(acc_k, df[kk], desc_mnmajor<BQ>(sQ, kk), 1);
+            }
+            wg_commit();
+            wg_wait<0>();
+            fence_regs(acc_v);
+            fence_regs(acc_k);
+            fence_regs(pf);
+            fence_regs(df);
           }
-          wg_commit();
-          wg_wait<0>();
-          fence_regs(acc_v);
-          fence_regs(acc_k);
-          fence_regs(pf);
-          fence_regs(df);
+          mbar_arrive(empty + s);
         }
-        mbar_arrive(empty + s);
+      }
+      if (KM) {  // this query head's dmask row (zeros where skipped)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = dm[r];
+          x += __shfl_xor_sync(0xffffffffu, x, 1);
+          x += __shfl_xor_sync(0xffffffffu, x, 2);
+          const int c = kr + 8 * r;
+          if (tq == 0 && c < g.SK) g.dm[bh * g.SK + c] = x / g.scale;
+        }
       }
     }
-    if (KM) {  // this query head's dmask row (zeros where skipped)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float x = dm[r];
-        x += __shfl_xor_sync(0xffffffffu, x, 1);
-        x += __shfl_xor_sync(0xffffffffu, x, 2);
-        const int c = kr + 8 * r;
-        if (tq == 0 && c < g.SK) g.dm[bh * g.SK + c] = x / g.scale;
+    for (int r = 0; r < 2; ++r) {
+      const int c = kr + 8 * r;
+      if (c >= g.SK) continue;
+      bf16* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
+      bf16* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j) {
+        const int col = 8 * j + 2 * tq;
+        if (col < g.d) {
+          *reinterpret_cast<uint32_t*>(krow + col) =
+              pack(acc_k[4 * j + 2 * r], acc_k[4 * j + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(vrow + col) =
+              pack(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+        }
       }
     }
   }
+}
+
+// dQ tiles: 128 query rows a block (64 per consumer warpgroup), Q and dO
+// resident, key tiles of 64 rows in a ring of STAGES (K and V).
+template <int DMAX>
+struct DqCfg {
+  static constexpr int BQ = 128, BK = 64, STAGES = 3;
+  static constexpr int Q_BYTES = BQ * DMAX * 2;   // Q, then dO
+  static constexpr int KV_BYTES = BK * DMAX * 2;  // K or V of one stage
+  static constexpr int OFF_DO = Q_BYTES;
+  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_DELTA = OFF_V + STAGES * KV_BYTES;  // [BQ] fp32
+  static constexpr int OFF_BAR = OFF_DELTA + BQ * 4;
+  // barriers: full_q, full_k[STAGES], full_v[STAGES], empty[STAGES]
+  static constexpr size_t SMEM = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// dQ (kernel 2 without key row or dropout; kernel 5 without them too). grid =
+// grouped_blocks(B * H, ceil(SQ / 128)): one block per (query head, 128 query
+// rows), within each group of query heads the heaviest causal tiles (the last
+// rows) first, while the group's K and V stay in L2 for its query tiles; key
+// tiles run from the last to the first, so the tiles that need the causal,
+// window or ragged mask come first and a block-uniform test skips the mask on
+// the rest. Per key tile each consumer warpgroup computes S = Q.K^T and dP =
+// dO.V^T for its 64 rows (wgmma from shared memory, two commit groups: p is
+// computed while dP is in flight), ds = p (dp - delta) scale in registers, and
+// dQ += dS.K (wgmma, dS from registers, rounded to bf16 once, K MN-major).
+// FUSED: the block also computes delta = rowsum(dO * O) in fp32 for its rows,
+// from the resident dO and O read once (loaded while Q and dO land, summed
+// under the first key tile's products), and writes it to `delta` ([B * H,
+// SQ]) for the dK/dV kernel that runs after it; otherwise it reads `delta`.
+template <int DMAX, bool FUSED>
+__global__ void __launch_bounds__(kThreadsWs, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const bf16* __restrict__ out,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   bf16* __restrict__ dq, Geom g, Strides so_,
+                   Strides sdq_) {
+  using C = DqCfg<DMAX>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
+  char* sm = aligned_smem();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = bars + 1 + ST;
+  uint64_t* empty = bars + 1 + 2 * ST;
+  const int nqt = (g.SQ + BQ - 1) / BQ;
+  int bh, qi;
+  grouped_block(nqt, &bh, &qi);
+  if (bh >= g.B * g.H) return;
+  const int b = bh / g.H, h = bh - b * g.H;
+  const int hk = h / (g.H / g.HKV);
+  const int r0 = (nqt - 1 - qi) * BQ;
+  int kt0, kt1;
+  key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    regs_dec<kRegsProducer>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(full_q, 2 * C::Q_BYTES);
+      load_tile<BQ, DMAX>(sm, &tm_q, full_q, h, r0, b);
+      load_tile<BQ, DMAX>(sm + C::OFF_DO, &tm_do, full_q, h, r0, b);
+      for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
+        const int s = i % ST;
+        mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(full_k + s, C::KV_BYTES);
+        load_tile<BK, DMAX>(sm + C::OFF_K + s * C::KV_BYTES, &tm_k,
+                            full_k + s, hk, kt * BK, b);
+        mbar_expect_tx(full_v + s, C::KV_BYTES);
+        load_tile<BK, DMAX>(sm + C::OFF_V + s * C::KV_BYTES, &tm_v,
+                            full_v + s, hk, kt * BK, b);
+      }
+    }
+  } else {  // the consumer warpgroups
+    regs_inc<kRegsConsumer>();
+    // warpgroup wq owns tile rows 64 wq .. 64 wq + 63; this thread rows
+    // rw and rw + 8 of them
+    const int wq = threadIdx.x >> 7;
+    const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+    const int rw = 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
+    const float sl2 = g.scale * kLog2e;  // scores in the log2 domain
+    const int offset = g.SK - g.SQ;
+    const int rmax = min(r0 + BQ, g.SQ) - 1;
+    const long long rows = (long long)bh * g.SQ;
+    // the keys row r0 + rw + 8 r sees: [lo[r], hi[r]) (bottom-right
+    // causal diagonal, window); its lse in the log2 domain, +inf for rows
+    // that saw no key in the forward (lse ~ -1e30) and rows past SQ, so
+    // that their p = ex2(-inf) is exactly 0
+    int lo[2], hi[2];
+    float lse2[2], dl[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int c = kr + 8 * r;
-    if (c >= g.SK) continue;
-    bf16* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
-    bf16* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + rw + 8 * r, diag = row + offset;
+      lo[r] = g.causal && g.window > 0 ? diag - g.window + 1 : INT_MIN;
+      hi[r] = g.causal ? diag + 1 : INT_MAX;
+      const float l = row < g.SQ ? lse[rows + row] : kNegInf;
+      lse2[r] = l > 0.5f * kNegInf ? l * kLog2e : INFINITY;
+      dl[r] = !FUSED && row < g.SQ ? delta[rows + row] : 0.f;
+    }
+    // FUSED: delta of this warpgroup's 64 rows. Thread t sums half of
+    // row 64 wq + t / 2: its O from device memory, loaded here while Q
+    // and dO land, and its dO from the resident tile (16-byte chunk c of
+    // a 128-byte line of box col / 64 lies at chunk c ^ (line % 8), the
+    // 128-byte swizzle). The sum runs once the first key tile's products
+    // are issued, under them (after the loop if the rows see no key).
+    const int t = threadIdx.x & 127, rr = 64 * wq + (t >> 1);
+    uint4 ov[DMAX / 16];
+    if (FUSED) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 8 * j + 2 * tq;
-      if (col < g.d) {
-        *reinterpret_cast<uint32_t*>(krow + col) =
-            pack(acc_k[4 * j + 2 * r], acc_k[4 * j + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(vrow + col) =
-            pack(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+      for (int c = 0; c < DMAX / 16; ++c) {
+        const int col = (t & 1) * (DMAX / 2) + 8 * c;
+        ov[c] = r0 + rr < g.SQ && col < g.d
+                    ? *reinterpret_cast<const uint4*>(
+                          out + b * so_.b + (long long)(r0 + rr) * so_.s +
+                          h * so_.h + col)
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    auto sum_delta = [&]() {
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < DMAX / 16; ++c) {
+        const int col = (t & 1) * (DMAX / 2) + 8 * c;
+        const uint4 dv = *reinterpret_cast<const uint4*>(
+            sm + C::OFF_DO + (col >> 6) * BQ * 128 + rr * 128 +
+            ((((col & 63) >> 3) ^ (rr & 7)) << 4));
+        const bf16* de = reinterpret_cast<const bf16*>(&dv);
+        const bf16* oe = reinterpret_cast<const bf16*>(&ov[c]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          sum = fmaf(__bfloat162float(de[e]), __bfloat162float(oe[e]), sum);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      float* sdelta = reinterpret_cast<float*>(sm + C::OFF_DELTA);
+      if (!(t & 1)) {
+        sdelta[rr] = sum;
+        if (r0 + rr < g.SQ) delta[rows + r0 + rr] = sum;
+      }
+      bar_sync(1 + wq, 128);
+      dl[0] = sdelta[rw];
+      dl[1] = sdelta[rw + 8];
+    };
+    mbar_wait(full_q, 0);
+    float acc[DMAX / 2];
+#pragma unroll
+    for (int j = 0; j < DMAX / 2; ++j) acc[j] = 0.f;
+    for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
+      const int s = i % ST, c0 = kt * BK;
+      const uint32_t ph = (i / ST) & 1;
+      const char* sK = sm + C::OFF_K + s * C::KV_BYTES;
+      const char* sV = sm + C::OFF_V + s * C::KV_BYTES;
+      float sc[BK / 2], dp[BK / 2];
+      mbar_wait(full_k + s, ph);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < DMAX / 16; ++ks)
+        wgmma_ss<BK>(sc, desc_kmajor<BQ>(sm, 64 * wq, ks),
+                     desc_kmajor<BK>(sK, 0, ks), ks);
+      wg_commit();
+      mbar_wait(full_v + s, ph);
+#pragma unroll
+      for (int ks = 0; ks < DMAX / 16; ++ks)
+        wgmma_ss<BK>(dp, desc_kmajor<BQ>(sm + C::OFF_DO, 64 * wq, ks),
+                     desc_kmajor<BK>(sV, 0, ks), ks);
+      wg_commit();
+      if (FUSED && i == 0) sum_delta();
+      // a mask is needed where the tile crosses the causal diagonal, the
+      // window's lower edge or the last key
+      const bool masked =
+          c0 + BK > g.SK ||
+          (g.causal && (c0 + BK - 1 > r0 + offset ||
+                        (g.window > 0 && c0 <= rmax + offset - g.window)));
+      // p into sc while dP is in flight; masked keys and keys past SK
+      // weigh exactly 0
+      wg_wait<1>();
+      fence_regs(sc);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
+          float p = ex2(fmaf(sc[4 * j + e], sl2, -lse2[r]));
+          if (masked && (c < lo[r] || c >= hi[r] || c >= g.SK)) p = 0.f;
+          sc[4 * j + e] = p;
+        }
+      wg_wait<0>();
+      fence_regs(dp);
+      // dS rounded to bf16 once as the A operand of dS.K
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = sc[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]) * g.scale;
+        da[j >> 1][2 * (j & 1)] = pack(ds[0], ds[1]);
+        da[j >> 1][2 * (j & 1) + 1] = pack(ds[2], ds[3]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DMAX>(acc, da[kk], desc_mnmajor<BK>(sK, kk), 1);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(da);
+      mbar_arrive(empty + s);
+    }
+    if (FUSED && kt1 <= kt0) sum_delta();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + rw + 8 * r;
+      if (row >= g.SQ) continue;
+      bf16* qrow = dq + b * sdq_.b + (long long)row * sdq_.s + h * sdq_.h;
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j) {
+        const int col = 8 * j + 2 * tq;
+        if (col < g.d)
+          *reinterpret_cast<uint32_t*>(qrow + col) =
+              pack(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -1902,31 +2218,15 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-template <int DMAX, bool KM, bool DROP>
-cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, const Geom& g, const long long* st,
-                      cudaStream_t stream) {
-  auto kernel = tc::flash_bwd_dq_tc<DMAX, KM, DROP>;
-  const size_t smem = tc::Smem<DMAX>::dq;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((g.SQ + 63) / 64, g.B * g.H), tc::kThreadsTc, smem,
-           stream>>>(
-      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
-      (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
-      (tc::bf16*)dq, g, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4));
-  return cudaGetLastError();
-}
-
-template <bool KM, bool DROP>
-cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
-                          const void* dout, const void* lse,
-                          const void* delta, void* dk, void* dv,
-                          const Geom& g, const long long* st,
-                          cudaStream_t stream) {
-  using C = wg::DkvCfg;
+// dQ on wgmma: FUSED computes delta from O (strides so_) and writes it;
+// otherwise delta is read. st: the strides of q, k, v, dout.
+template <int DMAX, bool FUSED>
+cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const void* out, const void* lse,
+                         void* delta, void* dq, const Geom& g,
+                         const long long* st, Strides so_, Strides sdq_,
+                         cudaStream_t stream) {
+  using C = wg::DqCfg<DMAX>;
   CUtensorMap tq, tk, tv, tdo;
   int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
@@ -1937,25 +2237,83 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
     err = bf16_map(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
                    C::BQ);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_bwd_dkv_wgmma<KM, DROP>;
+  auto kernel = wg::flash_bwd_dq_wgmma<DMAX, FUSED>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
-  kernel<<<dkv_grid(g, C::BK), wg::kThreadsWg, C::SMEM, stream>>>(
+  const int grid =
+      wg::grouped_blocks(g.B * g.H, (g.SQ + C::BQ - 1) / C::BQ);
+  kernel<<<grid, wg::kThreadsWs, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, (const wg::bf16*)out, (const float*)lse,
+      (float*)delta, (wg::bf16*)dq, g, so_, sdq_);
+  return cudaGetLastError();
+}
+
+// dQ without key row or dropout (kernel 2 on the Llama path when the
+// caller gives delta) runs the wgmma kernel; the variants keep the
+// mma.sync template.
+template <int DMAX, bool KM, bool DROP>
+cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, const Geom& g, const long long* st,
+                      cudaStream_t stream) {
+  if constexpr (!KM && !DROP) {
+    return bwd_dq_wgmma<DMAX, false>(q, k, v, dout, nullptr, lse,
+                                     const_cast<void*>(delta), dq, g, st,
+                                     Strides{}, strides_at(st, 4), stream);
+  } else {
+    auto kernel = tc::flash_bwd_dq_tc<DMAX, KM, DROP>;
+    const size_t smem = tc::Smem<DMAX>::dq;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((g.SQ + 63) / 64, g.B * g.H), tc::kThreadsTc, smem,
+             stream>>>(
+        (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
+        (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
+        (tc::bf16*)dq, g, strides_at(st, 0), strides_at(st, 1),
+        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4));
+    return cudaGetLastError();
+  }
+}
+
+template <int DMAX, bool KM, bool DROP>
+cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv,
+                          const Geom& g, const long long* st,
+                          cudaStream_t stream) {
+  using C = wg::DkvCfg<DMAX>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
+  if (!err)
+    err = bf16_map(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
+  if (!err)
+    err = bf16_map(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
+  if (!err)
+    err = bf16_map(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
+                   C::BQ);
+  if (err) return (cudaError_t)err;
+  auto kernel = wg::flash_bwd_dkv_wgmma<DMAX, KM, DROP>;
+  cudaError_t e = prepare(kernel, C::SMEM);
+  if (e != cudaSuccess) return e;
+  const int grid =
+      wg::grouped_blocks(g.B * g.HKV, (g.SK + C::BK - 1) / C::BK);
+  kernel<<<grid, wg::kThreadsWs, C::SMEM, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
       (wg::bf16*)dk, (wg::bf16*)dv, g, strides_at(st, 4), strides_at(st, 5));
   return cudaGetLastError();
 }
 
-// d <= 64 (kernel 6, and kernel 3 at d <= 64) runs the wgmma kernel;
-// d <= 128 the mma.sync template.
+// d <= 64 (kernel 6, and kernel 3 at d <= 64) and d <= 128 without key
+// row or dropout (kernel 3 on the Llama path) run the wgmma kernel; the
+// key-row and dropout variants at 64 < d <= 128 the mma.sync template.
 template <int DMAX, bool KM, bool DROP>
 cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, const Geom& g, const long long* st,
                        cudaStream_t stream) {
-  if constexpr (DMAX == 64) {
-    return bwd_dkv_wgmma<KM, DROP>(q, k, v, dout, lse, delta, dk, dv, g, st,
-                                   stream);
+  if constexpr (DMAX == 64 || (!KM && !DROP)) {
+    return bwd_dkv_wgmma<DMAX, KM, DROP>(q, k, v, dout, lse, delta, dk, dv,
+                                         g, st, stream);
   } else {
     auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP>;
     const size_t smem = tc::Smem<DMAX>::dkv;
@@ -2078,6 +2436,27 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                void* stream) {
   return bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, geom, scale,
                       strides, drop, dscale, dtype, stream, 0);
+}
+
+// dQ and delta = rowsum(dO * O) in one launch (bf16, d <= 128, no key
+// row or dropout: drop must be null and dtype bf16): delta [B * H, SQ]
+// fp32 is written, not read. q, k, v, dout, out, dq strides.
+extern "C" int pt_flash_bwd_dq_delta(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* out, const void* lse,
+                                     void* delta, void* dq, const int* geom,
+                                     float scale, const long long* strides,
+                                     const unsigned* drop, float dscale,
+                                     int dtype, void* stream) {
+  const Geom g = make_geom(geom, scale, nullptr, nullptr, drop, dscale, 0);
+  if (dtype != kBFloat16 || drop || g.d % 8 || g.d > 128 || g.H % g.HKV)
+    return cudaErrorInvalidValue;
+  const Strides so_ = strides_at(strides, 4), sdq_ = strides_at(strides, 5);
+  if (g.d <= 64)
+    return bwd_dq_wgmma<64, true>(q, k, v, dout, out, lse, delta, dq, g,
+                                  strides, so_, sdq_, (cudaStream_t)stream);
+  return bwd_dq_wgmma<128, true>(q, k, v, dout, out, lse, delta, dq, g,
+                                 strides, so_, sdq_, (cudaStream_t)stream);
 }
 
 // q, k, v, dout, dk, dv strides. dm: [B * H, 1, SK] (with km).

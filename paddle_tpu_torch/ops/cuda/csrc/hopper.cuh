@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash kernels, in raw PTX:
-// mbarriers, TMA tensor loads, wgmma shared-memory descriptors and the
-// warpgroup products wgmma.mma_async (bf16 operands, fp32 accumulators).
+// mbarriers and named barriers, register reallocation between
+// warpgroups (setmaxnreg), TMA tensor loads, wgmma shared-memory
+// descriptors and the warpgroup products wgmma.mma_async (bf16
+// operands, fp32 accumulators).
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte
 // swizzle: an [R, 64] bf16 box (one "atom" column block of 128 bytes a
@@ -75,6 +77,28 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// A barrier among the `count` threads (whole warps) that name barrier
+// `id` (1-15; 0 is __syncthreads's).
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// -- register reallocation ----------------------------------------------------
+
+// setmaxnreg: every warp of a warpgroup sets its threads' register count
+// to R together, giving registers back to the block's pool (dec) or
+// taking them from it (inc, which waits until the pool has them). R is a
+// multiple of 8 in [24, 256]. ptxas honours it only where each path of
+// the kernel runs one of them and the paths never rejoin.
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // -- TMA ---------------------------------------------------------------------

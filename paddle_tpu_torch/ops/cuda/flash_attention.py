@@ -11,9 +11,11 @@ kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
 Every layer of the Llama training step runs each once: the forward in
 ``scaled_dot_product_attention(is_causal=True)`` (or
 ``sliding_window_attention``), the two backward kernels from
-:class:`_FlashFn`'s backward, which first computes ``delta =
-rowsum(dO * O)`` in fp32 as a torch expression (JAX computes it outside
-Pallas too).
+:class:`_FlashFn`'s backward. That backward needs ``delta = rowsum(dO *
+O)`` in fp32 (JAX computes it outside Pallas): on CUDA in bfloat16
+without key row or dropout kernel 2 computes it itself
+(:func:`flash_bwd_dq_delta`, which hands it on to kernel 3); otherwise
+it is a torch expression (:func:`_delta`) given to :func:`flash_bwd_dq`.
 
 The arithmetic is the reference's: fp32 scores (the forward scales q
 before the product, the backward scales the product), bottom-right
@@ -29,9 +31,10 @@ What bounds the kernels: at the headline shape (b8, s1024, h12, d128,
 bf16, causal) about 26 GFLOP forward and 90 GFLOP backward against
 ~100 MB of operands each, so they are bound by tensor-core operations.
 For bf16 with ``d <= 128`` they run on the tensor cores: the forward
-(without key row or dropout) and dK/dV at ``d <= 64`` as warp-specialised
-``wgmma`` kernels fed by TMA through a ring of shared tiles (the
-forward's heaviest query tiles first), the rest with ``mma.sync``;
+and dQ without key row or dropout, dK/dV without them and at ``d <= 64``
+with them, as warp-specialised ``wgmma`` kernels fed by TMA through a
+ring of shared tiles (the heaviest tiles first), the key-row and dropout
+variants of the rest with ``mma.sync``;
 fp32 inputs and ``d > 128`` take fp32-FMA kernels, so fp32 results match
 the CPU's plain versions to fp32 rounding. All read q/k/v through their
 (batch, seq, head) strides, so the ``[b, s, h, d]`` views of the fused
@@ -58,10 +61,11 @@ code); ring attention will call these variants with an external lse.
 
 Wrapper rules: CPU tensors go to the plain versions
 (:func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref`,
-:func:`flash_bwd_dkv_ref`); CUDA tensors launch the kernel or raise —
-there is no fallback. ``flash_fwd.launches``, ``flash_bwd_dq.launches``
-and ``flash_bwd_dkv.launches`` count kernel launches (plain ints; reset
-them by assignment).
+:func:`flash_bwd_dkv_ref`, :func:`flash_bwd_dq_delta_ref`); CUDA tensors
+launch the kernel or raise — there is no fallback. ``flash_fwd.launches``,
+``flash_bwd_dq.launches`` (kernel 2 through either entry) and
+``flash_bwd_dkv.launches`` count kernel launches (plain ints; reset them
+by assignment).
 """
 from __future__ import annotations
 
@@ -74,7 +78,8 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_fwd_ref", "flash_bwd_dq_ref", "flash_bwd_dkv_ref"]
+           "flash_bwd_dq_delta", "flash_fwd_ref", "flash_bwd_dq_ref",
+           "flash_bwd_dkv_ref", "flash_bwd_dq_delta_ref"]
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # flash_attention.cu
@@ -363,6 +368,8 @@ def _lib():
             fn = getattr(lib, f"{prefix}_{entry}")
             fn.argtypes = [_P] * n_ptr + _TAIL
             fn.restype = _I
+    lib.pt_flash_bwd_dq_delta.argtypes = [_P] * 8 + _TAIL
+    lib.pt_flash_bwd_dq_delta.restype = _I
     return lib
 
 
@@ -453,9 +460,9 @@ def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
     return res
 
 
-def _check_stats(q, lse, delta):
+def _check_stats(q, **stats):
     b, sq, h, _ = q.shape
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in stats.items():
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
                 or tuple(t.shape) != (b * h, sq) or not t.is_contiguous() \
                 or t.device != q.device:
@@ -468,7 +475,7 @@ def _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
                dropout, seed):
     """The backward entries' checks; returns the dropout words."""
     _check(q, k, v, causal, window, extra=(("do", do),))
-    _check_stats(q, lse, delta)
+    _check_stats(q, lse=lse, delta=delta)
     if kmask is not None:
         _check_kmask(kmask, rows, q, k)
     return _dropout_words(dropout, seed)
@@ -512,18 +519,55 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale=None,
     return res
 
 
+def _delta(do, out):
+    """``rowsum(dO * O)`` in fp32 as ``[b * h, sq]``."""
+    b, sq, h, _ = out.shape
+    delta = (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
+    return delta.permute(0, 2, 1).reshape(b * h, sq).contiguous()
+
+
+def flash_bwd_dq_delta_ref(q, k, v, do, out, lse, *, causal, scale=None,
+                           window=0):
+    """Plain version of :func:`flash_bwd_dq_delta`: (dQ, delta)."""
+    delta = _delta(do, out)
+    return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
+                            scale=scale, window=window), delta
+
+
+def flash_bwd_dq_delta(q, k, v, do, out, lse, *, causal, scale=None,
+                       window=0):
+    """Kernel 2 computing delta itself: (dQ ``[b, sq, h, d]``, delta ``=
+    rowsum(dO * O)`` ``[b * h, sq]`` fp32) from dO and the forward's O
+    (both q's shape and dtype) and lse. One launch: each block sums delta
+    for its query rows from the dO tile it holds, writes it out for
+    :func:`flash_bwd_dkv`, and goes on to dQ. Takes bfloat16 with ``d <=
+    128`` and no key row or dropout (on CUDA; anything else raises). Its
+    launches count on ``flash_bwd_dq.launches``: it is kernel 2."""
+    _check(q, k, v, causal, window, extra=(("do", do), ("out", out)))
+    _check_stats(q, lse=lse)
+    b, sq, h, d = q.shape
+    scale = _scale(scale, d)
+    if not q.is_cuda:
+        return flash_bwd_dq_delta_ref(q, k, v, do, out, lse, causal=causal,
+                                      scale=scale, window=window)
+    if q.dtype != torch.bfloat16 or d > 128:
+        raise ValueError(f"flash_bwd_dq_delta takes bfloat16 with head_dim "
+                         f"<= 128, got {q.dtype} and {d}")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    _launch(_lib().pt_flash_bwd_dq_delta, "flash_bwd_dq_delta",
+            (q, k, v, do, out, lse, delta, dq), q, k, causal, window, scale,
+            (q, k, v, do, out, dq), None)
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
 # -- autograd -----------------------------------------------------------------
-
-def _delta(do, out):
-    """``rowsum(dO * O)`` in fp32 as ``[b * h, sq]``."""
-    b, sq, h, _ = out.shape
-    delta = (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
-    return delta.permute(0, 2, 1).reshape(b * h, sq).contiguous()
 
 
 def _upstream(do, q):
@@ -534,9 +578,18 @@ def _upstream(do, q):
     return do
 
 
+def _fused_delta(q, args):
+    """Whether the backward takes :func:`flash_bwd_dq_delta` (CUDA,
+    bfloat16, ``d <= 128``, no key row or dropout)."""
+    return q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] <= 128 \
+        and args["kmask"] is None and not args["dropout"]
+
+
 class _FlashFn(torch.autograd.Function):
-    """Forward kernel 1; backward: delta in fp32, then kernels 2 and 3.
-    kmask's gradient is kernel 3's dmask."""
+    """Forward kernel 1; backward: kernel 2 computing delta itself, then
+    kernel 3 (bfloat16 on CUDA without key row or dropout), else delta as
+    torch ops, then kernels 2 and 3. kmask's gradient is kernel 3's
+    dmask."""
 
     @staticmethod
     def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout):
@@ -551,9 +604,15 @@ class _FlashFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = _upstream(do, q)
-        delta = _delta(do, out)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
-        dk, dv, *dm = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
+        args = ctx.args
+        if _fused_delta(q, args):
+            dq, delta = flash_bwd_dq_delta(
+                q, k, v, do, out, lse, causal=args["causal"],
+                scale=args["scale"], window=args["window"])
+        else:
+            delta = _delta(do, out)
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, **args)
+        dk, dv, *dm = flash_bwd_dkv(q, k, v, do, lse, delta, **args)
         return (dq, dk, dv, dm[0] if dm else None, None, None, None, None,
                 None)
 

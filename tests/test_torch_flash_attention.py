@@ -25,6 +25,7 @@ both sides (the counter hash is bit-exact, so the masks agree), against
 ``_flash_fwd``/``_flash_bwd_impl`` and ``jax.grad`` of ``_flash_call``.
 """
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -372,3 +373,229 @@ def test_functional_entries_route_through_the_function():
     assert tfa.flash_fwd.launches == n
     with pytest.raises(ValueError):
         TF.sliding_window_attention(q, k, v, 0)
+
+
+# kernel 2 computing delta itself (the Llama path's backward on the card):
+# its plain version (dQ, delta) against _flash_bwd_impl's dQ and the
+# reference's delta (flash_attention.py:484-486, the same expression on
+# the same O and dO), on CASES plus ragged lengths that no 16-row block
+# divides (Pallas at 8-row blocks): dQ as test_bwd_plain_matches_pallas
+# holds it, delta within 1e-5 (fp32 sums of 16 fp32 products, summed in
+# another order)
+FUSED_CASES = [c + (BLOCK,) for c in CASES] + [
+    # (causal, window, h, h_kv, sq, sk, block)
+    (True, 0, 4, 2, 40, 40, 8),
+    (True, 12, 4, 4, 24, 56, 8),
+]
+FUSED_IDS = [f"causal{int(c)}-w{w}-h{h}kv{hk}-sq{sq}sk{sk}"
+             for c, w, h, hk, sq, sk, _ in FUSED_CASES]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES, ids=FUSED_IDS)
+def test_fused_dq_delta_plain_matches_pallas(case):
+    causal, window, h, h_kv, sq, sk, block = case
+    q, k, v, do = _inputs(13, h, h_kv, sq, sk)
+    scale = 1.0 / math.sqrt(D)
+    jout, jlse = fa._flash_fwd(_bh(q), _bh(k), _bh(v), causal, scale, True,
+                               block, block, window)
+    jdq, _, _, _ = fa._flash_bwd_impl(
+        _bh(q), _bh(k), _bh(v), jout, jlse, _bh(do), causal, scale, True,
+        block, block, window, None, 0.0)
+    jdelta = jnp.sum(_bh(do).astype(jout.dtype).astype(jnp.float32)
+                     * jout.astype(jnp.float32), axis=-1)
+    tq, tk, tv, tdo = (_t(x) for x in (q, k, v, do))
+    out = _t(_bshd(jout, h))
+    lse = _t(np.asarray(jlse)[..., 0])
+    dq, delta = tfa.flash_bwd_dq_delta(tq, tk, tv, tdo, out, lse,
+                                       causal=causal, window=window)
+    assert dq.shape == q.shape and delta.shape == (B * h, sq)
+    _close_normalized(dq.numpy(), _bshd(jdq, h), name="dq")
+    np.testing.assert_allclose(delta.numpy(), np.asarray(jdelta), atol=1e-5,
+                               rtol=0)
+    # the plain form is kernel 2's plain version beside _delta
+    want = tfa.flash_bwd_dq_delta_ref(tq, tk, tv, tdo, out, lse,
+                                      causal=causal, window=window)
+    torch.testing.assert_close(dq, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(delta, tfa._delta(tdo, out), rtol=0, atol=0)
+
+
+def test_backward_routes_delta_by_device_and_variant():
+    """On the CPU the Function's backward keeps delta as torch ops and
+    kernel 2 as given (its results equal the fused entry's plain form);
+    on CUDA it fuses delta into kernel 2 for bfloat16 with d <= 128 and
+    no key row or dropout."""
+    args = dict(kmask=None, dropout=0.0)
+    assert not tfa._fused_delta(torch.zeros(1, 8, 2, 128,
+                                            dtype=torch.bfloat16), args)
+
+    def on_card(dtype, d):  # what the routing reads of a CUDA tensor
+        return types.SimpleNamespace(is_cuda=True, dtype=dtype,
+                                     shape=(1, 8, 2, d))
+
+    assert tfa._fused_delta(on_card(torch.bfloat16, 128), args)
+    assert tfa._fused_delta(on_card(torch.bfloat16, 72), args)
+    assert not tfa._fused_delta(on_card(torch.bfloat16, 128),
+                                dict(args, dropout=0.1))
+    assert not tfa._fused_delta(on_card(torch.bfloat16, 128),
+                                dict(args, kmask=torch.zeros(2, 1, 8)))
+    assert not tfa._fused_delta(on_card(torch.float32, 128), args)
+    assert not tfa._fused_delta(on_card(torch.bfloat16, 256), args)
+
+
+# -- the wgmma backward kernels' tilings --------------------------------------
+# A plain model of csrc/flash_attention.cu's schedules for kernels 2 and 3
+# (bf16, d <= 128): key_tiles / query_tiles (the tiles of the band one
+# block visits), grouped_block (block t: group t / (16 x tiles), inside it
+# head t % 16's tile (t / 16) % tiles, so groups of 16 heads run one after
+# another and inside a group every head's first tile starts, then every
+# head's second, ...; blocks past the last head exit) and the block orders
+# of flash_bwd_dq_wgmma (a block per 128 query rows of a query head, the
+# last rows first, 64-key tiles from the last to the first) and
+# flash_bwd_dkv_wgmma (a block per 128 keys of a kv head, the first keys
+# first, 64-row query tiles of each query head of its group). Every
+# visible (row, key) pair of every query head must be visited exactly
+# once, and inside each group the blocks must run heaviest first.
+
+GROUP_SLICES = 16  # csrc/flash_attention.cu's kGroupSlices
+
+
+def _grouped_blocks(slices, tiles):
+    """(slice, tile, group) of grouped_block's live blocks in start
+    order."""
+    for z in range(-(-slices // GROUP_SLICES)):
+        for y in range(tiles):
+            for x in range(GROUP_SLICES):
+                if z * GROUP_SLICES + x < slices:
+                    yield z * GROUP_SLICES + x, y, z
+
+
+def _key_tiles(sq, sk, causal, window, r0, bq, bk):
+    kt0, kt1 = 0, -(-sk // bk)
+    if not causal:
+        return kt0, kt1
+    offset = sk - sq
+    cmax = min(sk - 1, min(r0 + bq, sq) - 1 + offset)
+    kt1 = 0 if cmax < 0 else cmax // bk + 1
+    if window > 0:
+        cmin = r0 + offset - window + 1
+        if cmin > 0:
+            kt0 = cmin // bk
+    return kt0, kt1
+
+
+def _query_tiles(sq, sk, causal, window, c0, bq, bk):
+    qt0, qt1 = 0, -(-sq // bq)
+    if not causal:
+        return qt0, qt1
+    offset = sk - sq
+    qt0 = max(0, c0 - offset) // bq
+    if window > 0:
+        rmax = min(sq - 1, min(c0 + bk, sk) - 1 - offset + window - 1)
+        qt1 = 0 if rmax < 0 else rmax // bq + 1
+    return qt0, qt1
+
+
+def _dq_schedule(b, h, sq, sk, causal, window, bq=128, bk=64):
+    """[(query head, r0, key tiles in visiting order, head group)] in
+    launch order."""
+    nqt = -(-sq // bq)
+    out = []
+    for bh, qi, grp in _grouped_blocks(b * h, nqt):
+        r0 = (nqt - 1 - qi) * bq
+        kt0, kt1 = _key_tiles(sq, sk, causal, window, r0, bq, bk)
+        out.append((bh, r0, list(range(kt1 - 1, kt0 - 1, -1)), grp))
+    return out
+
+
+def _dkv_schedule(b, h, h_kv, sq, sk, causal, window, bk=128, bq=64):
+    """[(kv head, c0, [(query head, query tile)...], head group)] in
+    launch order."""
+    group = h // h_kv
+    out = []
+    for bhk, kt, grp in _grouped_blocks(b * h_kv, -(-sk // bk)):
+        c0 = kt * bk
+        qt0, qt1 = _query_tiles(sq, sk, causal, window, c0, bq, bk)
+        bi, hk = divmod(bhk, h_kv)
+        items = [(bi * h + hk * group + gi, qt) for gi in range(group)
+                 for qt in range(qt0, qt1)]
+        out.append((bhk, c0, items, grp))
+    return out
+
+
+def _heaviest_first(work):
+    """Whether the work of the blocks ([(head group, work)] in launch
+    order) never increases inside a head group."""
+    return all(w0 >= w1 for (g0, w0), (g1, w1) in zip(work, work[1:])
+               if g0 == g1)
+
+
+def _visible_np(sq, sk, causal, window):
+    rows = np.arange(sq)[:, None] + (sk - sq)
+    cols = np.arange(sk)[None, :]
+    if not causal:
+        return np.ones((sq, sk), bool)
+    vis = cols <= rows
+    if window > 0:
+        vis &= cols > rows - window
+    return vis
+
+
+TILING_CASES = [c[:6] for c in FUSED_CASES] + [
+    # (causal, window, h, h_kv, sq, sk) at the kernels' own tile sizes:
+    # the Llama shape's band, a window, GQA, sq < sk, ragged 1000, rows
+    # that see no key (sq > sk), a window wider than a tile and one row
+    (True, 0, 2, 2, 1024, 1024),
+    (False, 0, 2, 2, 1024, 1024),
+    (True, 256, 2, 2, 1024, 1024),
+    (True, 0, 12, 4, 1024, 1024),
+    (True, 0, 2, 2, 512, 1024),
+    (True, 0, 4, 2, 1000, 1000),
+    (True, 100, 4, 2, 1000, 1000),
+    (True, 0, 2, 2, 300, 100),
+    (True, 200, 2, 1, 130, 700),
+    (True, 0, 2, 1, 1, 5),
+]
+TILING_IDS = [f"causal{int(c)}-w{w}-h{h}kv{hk}-sq{sq}sk{sk}"
+              for c, w, h, hk, sq, sk in TILING_CASES]
+
+
+@pytest.mark.parametrize("case", TILING_CASES, ids=TILING_IDS)
+def test_wgmma_backward_tilings_cover_the_band_once(case):
+    causal, window, h, h_kv, sq, sk = case
+    b = 3  # with h 12, 36 heads: three groups, the last of 4
+    vis = _visible_np(sq, sk, causal, window)
+    # kernel 2: every (query head, 128-row tile) once; its key tiles cover
+    # each visible pair of its rows exactly once
+    dq = _dq_schedule(b, h, sq, sk, causal, window)
+    assert sorted((bh, r0) for bh, r0, _, _ in dq) == sorted(
+        (bh, r0) for bh in range(b * h) for r0 in range(0, sq, 128))
+    seen = np.zeros((b * h, sq, sk), np.int8)
+    for bh, r0, tiles, _ in dq:
+        assert len(set(tiles)) == len(tiles)
+        for kt in tiles:
+            seen[bh, r0:r0 + 128, kt * 64:kt * 64 + 64] += 1
+    assert (seen[:, vis] == 1).all()
+    # heaviest first: the key tiles a block visits never increase along
+    # the launch order inside a head group (a ragged last tile of a few
+    # rows may see fewer)
+    assert _heaviest_first([(grp, len(tiles)) for _, r0, tiles, grp in dq
+                            if r0 + 128 <= sq])
+    # kernel 3: every (kv head, 128-key tile) once; its items cover each
+    # visible pair of its keys, for every query head of the group, once
+    dkv = _dkv_schedule(b, h, h_kv, sq, sk, causal, window)
+    assert sorted((bhk, c0) for bhk, c0, _, _ in dkv) == sorted(
+        (bhk, c0) for bhk in range(b * h_kv) for c0 in range(0, sk, 128))
+    seen[:] = 0
+    for bhk, c0, items, _ in dkv:
+        bi, hk = divmod(bhk, h_kv)
+        group = h // h_kv
+        assert {bh for bh, _ in items} <= set(
+            range(bi * h + hk * group, bi * h + (hk + 1) * group))
+        for bh, qt in items:
+            seen[bh, qt * 64:qt * 64 + 64, c0:c0 + 128] += 1
+    assert (seen[:, vis] == 1).all()
+    # with a window the band's key tiles carry about equal work, and
+    # those no row sees (sq < sk) exit at once: the order matters without
+    assert window or _heaviest_first([(grp, len(items))
+                                      for _, c0, items, grp in dkv
+                                      if c0 + 128 <= sk])

@@ -349,6 +349,103 @@ def test_wgmma_forward_matches_plain(cuda, d, sq, layout):
     assert err <= 1e-2, f"O: per-tile relative error {err}"
 
 
+# The wgmma backward (bf16, d <= 128, no key row or dropout): kernel 2
+# through both entries (delta given, and computing delta itself) and
+# kernel 3, against the plain versions on fp32 copies of the same inputs:
+# dQ, dK, dV per 64-row tile within 1e-2 (as above), the fused delta per
+# (batch, head) row within 1e-5 of the relative Frobenius error (fp32
+# sums in another order); each entry launched once a call, and two calls
+# bit-identical (no atomics). d 72 and 96 leave the second 64-column TMA
+# box partly or wholly past d (zero fill). Layouts: GQA groups of 1, 2
+# and 12, a window with sq < sk, ragged 1000 rows and keys, and q, k, v
+# as [b, s, h, d] views of one fused projection output.
+_WG_BWD = {
+    # layout: (b, sq, sk, h, h_kv, causal, window)
+    "group1": (2, 300, 300, 4, 4, True, 0),
+    "group2": (2, 300, 300, 4, 2, True, 0),
+    "group12": (1, 260, 260, 12, 1, True, 0),
+    "window_sq_lt_sk": (2, 200, 330, 4, 2, True, 70),
+    "ragged1000": (1, 1000, 1000, 4, 2, True, 0),
+    "noncausal": (1, 130, 257, 2, 1, False, 0),
+    "strided": (2, 300, 300, 4, 2, True, 0),
+}
+
+
+@pytest.mark.parametrize("layout", list(_WG_BWD))
+@pytest.mark.parametrize("d", [72, 96, 128])
+def test_wgmma_backward_matches_plain(cuda, d, layout):
+    b, sq, sk, h, h_kv, causal, window = _WG_BWD[layout]
+    rng = np.random.RandomState(d + sq + h)
+    if layout == "strided":
+        qkv = torch.from_numpy(rng.randn(b, sq, (h + 2 * h_kv) * d).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        q, k, v = (t.reshape(b, sq, -1, d) for t in torch.split(
+            qkv, [h * d, h_kv * d, h_kv * d], dim=-1))
+        assert not q.is_contiguous()
+        do = torch.from_numpy(rng.randn(b, sq, h, d).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+    else:
+        q, k, v, do = _flash_inputs(d, (b, sq, sk, h, h_kv, d, causal, window),
+                                    torch.bfloat16, cuda)
+    kw = dict(causal=causal, window=window)
+    f32 = [t.float() for t in (q, k, v, do)]
+    want_out, lse = fa.flash_fwd_ref(*f32[:3], **kw)
+    out = want_out.to(torch.bfloat16)
+    delta = fa._delta(do, out)
+    n = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq_f, delta_f = fa.flash_bwd_dq_delta(q, k, v, do, out, lse, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *fa.flash_bwd_dq_delta(q, k, v, do, out, lse, **kw),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (
+        n[0] + 4, n[1] + 2)
+    for first, second in zip((dq, dq_f, delta_f, dk, dv), again):
+        assert torch.equal(first, second)
+    want_dq = fa.flash_bwd_dq_ref(*f32, lse, delta, **kw)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(*f32, lse, delta, **kw)
+    for name, got, want in (("dq", dq, want_dq), ("dq fused", dq_f, want_dq),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        err = _tile_rel_err(got, want)
+        assert err <= 1e-2, f"{name}: per-tile relative error {err}"
+    err = _row_rel(delta_f[:, None], delta[:, None])
+    assert err <= 1e-5, f"delta: relative error per row {err}"
+
+
+def test_wgmma_backward_refused_launch_raises(cuda):
+    """A launch the C entry refuses raises, and no launch is counted:
+    the fused entry at d 136 (it takes d <= 128), and a tensor map that
+    cannot be encoded (a head stride of 264 bytes, not a multiple of 16),
+    both called past the wrappers' own checks."""
+    gen = torch.Generator(cuda).manual_seed(5)
+
+    def launch(q, k, v):
+        b, sq, h, d = q.shape
+        out, do = torch.zeros_like(q), torch.zeros_like(q)
+        lse = torch.zeros(b * h, sq, device=cuda)
+        delta = torch.empty_like(lse)
+        dq = torch.empty_like(out)
+        fa._launch(fa._lib().pt_flash_bwd_dq_delta, "flash_bwd_dq_delta",
+                   (q, k, v, do, out, lse, delta, dq), q, k, True, 0, 0.1,
+                   (q, k, v, do, out, dq), None)
+
+    n = fa.flash_bwd_dq.launches
+    big = torch.randn(1, 64, 2, 136, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch(big, big, big)
+    odd = torch.randn(1, 64, 2, 132, device=cuda, generator=gen).to(
+        torch.bfloat16)[..., :128]
+    with pytest.raises(RuntimeError, match="tensor map"):
+        launch(odd, odd, odd)
+    with pytest.raises(ValueError):  # the wrapper's own check
+        fa.flash_bwd_dq_delta(big, big, big, big, big,
+                              torch.zeros(2, 64, device=cuda), causal=True)
+    assert fa.flash_bwd_dq.launches == n
+
+
 # Kernel 6 on a padded batch whose rows hold 0, 64, 100 and 512 live keys
 # (BERT's -1e4 padding, dropout 0.1): dK, dV per 64-row tile within 1e-2
 # and dmask per batch row within 1e-3 of the plain version on fp32
