@@ -36,16 +36,19 @@ only a run in which every phase passed prints the final line:
 8. train identity: a float32 tiny model trained 10 AdamW steps with
    global-norm clipping on the card (kernels) and on the CPU (plain
    versions) from the same weights must agree step by step;
-9. encoder kernels at full width: the head-batched kernels (4-6) and the
-   key-mask and dropout variants of kernels 1-3, each against its plain
-   version on the card, output tile by output tile and dmask row by row
-   (BERT-base's b64 s512 h12 d64 bf16 with a key mask from seeded
-   lengths and dropout 0.1; the same with dropout only; a window, GQA,
-   sq < sk, an fp32 case, and batch rows of 0, 64, 100 and 300 keys,
-   non-causal and causal, for the skip of wholly padded key tiles), then
-   timed at BERT's shape beside the plain version,
+9. encoder kernels at full width: the head-batched kernels (4-6; dQ
+   through both entries, given delta and computing it, whose delta is
+   held too) and the key-mask and dropout variants of kernels 1-3, each
+   against its plain version on the card, output tile by output tile and
+   dmask row by row (BERT-base's b64 s512 h12 d64 bf16 with a key mask
+   from seeded lengths and dropout 0.1; the same with dropout only; a
+   window, GQA, sq < sk, an fp32 case, and batch rows of 0, 64, 100 and
+   300 keys, non-causal and causal, for the skip of wholly padded key
+   tiles), then timed at BERT's shape beside the plain version,
    ``F.scaled_dot_product_attention`` with the same mask and dropout, and
-   the bound (padding keys not counted);
+   the bound (padding keys not counted), dQ as the BERT step runs it
+   (computing delta), with the same kernels on the dropout-only call
+   beside (the skip shows as the difference);
 10. BERT-base MLM train: ``BertForMaskedLM`` at full width (bf16 O2
    through ``amp.decorate``, dropout 0.1, random weights from a seed)
    through ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)`` on
@@ -733,7 +736,8 @@ def _flash_bound(q, k, causal, window, kernel, kmask=None):
         ops = h * pairs * 2 * d * products[stage]
         nbytes = {"fwd": 2 * q_bytes + kv_read + row_bytes + km_bytes,
                   "bwd_dq": 3 * q_bytes + kv_read + 2 * row_bytes + km_bytes,
-                  "bwd_dq_delta": 4 * q_bytes + kv_read + 2 * row_bytes,
+                  "bwd_dq_delta": 4 * q_bytes + kv_read + 2 * row_bytes
+                  + km_bytes,
                   "bwd_dkv": 2 * q_bytes + kv_read + kv_bytes + 2 * row_bytes
                   + 2 * km_bytes,
                   "bwd": 4 * q_bytes + kv_read + kv_bytes + row_bytes
@@ -1173,6 +1177,12 @@ def _enc_check(case, family, gen):
     delta = (do.float() * want_out.to(dtype).float()).sum(-1) \
         .permute(0, 2, 1).reshape(b * h, sq).contiguous()
     dq = bdq(q, k, v, do, want_lse, delta, **kw)
+    # kernel 5 as _HbFlashFn.backward runs it in bf16: computing delta
+    # from the same O (bf16), held like kernel 2's fused entry in phase 6
+    fused = family == "kernels 4-6" and dtype == torch.bfloat16
+    if fused:
+        dq_f, delta_f = hf.hb_bwd_dq_delta(q, k, v, do, want_out.to(dtype),
+                                           want_lse, **kw)
     dk, dv, *dm = bdkv(q, k, v, do, want_lse, delta, **kw)
     torch.cuda.synchronize()
     want_dq = bdq_ref(*f32, want_lse, delta, **kw)
@@ -1183,6 +1193,10 @@ def _enc_check(case, family, gen):
                              f"{masked}")
     pairs = {fwd.__name__: [(out, want_out)], bdq.__name__: [(dq, want_dq)],
              bdkv.__name__: [(dk, want_dk), (dv, want_dv)]}
+    delta_err = 0.0
+    if fused:
+        pairs[bdq.__name__].append((dq_f, want_dq))
+        delta_err = _row_rel_err(delta_f[:, None], delta[:, None])
     rel = {n: max(_tile_rel_err(g, w) for g, w in p) for n, p in pairs.items()}
     abs_err = {n: max((g.float() - w).abs().max().item() for g, w in p)
                for n, p in pairs.items()}
@@ -1198,24 +1212,32 @@ def _enc_check(case, family, gen):
         + (f"dmask {dm_err:.3e} per row (tol {DMASK_REL_TOL[dtype]}); "
            if masked else "")
         + f"lse {lse_err:.3e} of its size (tol {LSE_REL_TOL})"
+        + (f"; kernel 5's delta {delta_err:.3e} per row (tol "
+           f"{DELTA_REL_TOL})" if fused else "")
         + (f"; lengths {masked}" if isinstance(masked, tuple) else ""))
     bad = [n for n in rel if not rel[n] <= ENC_REL_TOL[dtype]]
     if bad or not dm_err <= DMASK_REL_TOL[dtype] \
-            or not lse_err <= LSE_REL_TOL:
-        raise AssertionError(f"{family} {name}: {bad or ['dmask or lse']} "
-                             f"disagree with the plain versions: {rel}, "
-                             f"dmask {dm_err}, lse {lse_err}")
+            or not lse_err <= LSE_REL_TOL or not delta_err <= DELTA_REL_TOL:
+        raise AssertionError(f"{family} {name}: "
+                             f"{bad or ['dmask, lse or delta']} disagree "
+                             f"with the plain versions: {rel}, dmask "
+                             f"{dm_err}, lse {lse_err}, delta {delta_err}")
     return abs_err, (q, k, v, do, want_out.to(dtype), want_lse, delta, kw)
 
 
 def _family_fns(family, inputs, tag):
     """Each kernel of ``family`` on ``inputs``, for ``_time_graphs``:
-    {"<wrapper>/<tag>": fn}."""
-    q, k, v, do, _, lse, delta, kw = inputs
+    {"<wrapper>/<tag>": fn}. Kernel 5 runs as ``_HbFlashFn.backward``
+    runs it, computing delta (``hb_bwd_dq_delta``); kernel 2's variants
+    take delta given, as ``_FlashFn.backward`` runs them."""
+    q, k, v, do, out, lse, delta, kw = inputs
     fwd, bdq, bdkv = FAMILIES[family][0]
+    if bdq is hf.hb_bwd_dq:
+        dq_fn = lambda i: hf.hb_bwd_dq_delta(q, k, v, do, out, lse, **kw)
+    else:
+        dq_fn = lambda i: bdq(q, k, v, do, lse, delta, **kw)
     return {f"{fwd.__name__}/{tag}": lambda i: fwd(q, k, v, **kw),
-            f"{bdq.__name__}/{tag}": lambda i: bdq(q, k, v, do, lse, delta,
-                                                   **kw),
+            f"{bdq.__name__}/{tag}": dq_fn,
             f"{bdkv.__name__}/{tag}": lambda i: bdkv(q, k, v, do, lse,
                                                      delta, **kw)}
 
@@ -1243,40 +1265,49 @@ def phase_encoder_kernels(layers):
                               ("kernels 4-6", "dropout_only", "drop"),
                               ("kernels 1-3", "dropout_only", "drop")):
         port.update(_family_fns(family, inputs[case, family], tag))
-    # the whole backward (delta, 5 and 6) as _HbFlashFn.backward runs it
-    whole = "hb_bwd (delta + 5 + 6)"
+    given = "hb_bwd_dq (delta given)/bert"
+    port[given] = lambda i: hf.hb_bwd_dq(q, k, v, do, lse, delta, **kw)
+    # the whole backward (5 computing delta, then 6) as _HbFlashFn.backward
+    # runs it
+    whole = "hb_bwd (5 with delta + 6)"
     port[whole] = _whole_backward(hf._HbFlashFn, q, k, v, out, lse, do,
                                   scale=1.0 / q.shape[-1] ** 0.5, **kw)
     times, how, eager = _timed(port, library, contexts, fallbacks, minus)
     med = {n: _med(xs) for n, xs in times.items()}
     kernels = {
         "hb_fwd": lambda: hf.hb_fwd_ref(q, k, v, **kw),
-        "hb_bwd_dq": lambda: hf.hb_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
+        "hb_bwd_dq": lambda: hf.hb_bwd_dq_delta_ref(q, k, v, do, out, lse,
+                                                    **kw),
         "hb_bwd_dkv": lambda: hf.hb_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                 **kw),
     }
     library = {"hb_fwd": _library(times, "sdpa_fwd", how),
                "hb_bwd_dq": _library(times, "sdpa_bwd", how),
                "hb_bwd_dkv": _library(times, "sdpa_bwd", how)}
+    # kernel 5 is bound as the entry that also computes delta (reads O)
+    stage = {"hb_fwd": "hb_fwd", "hb_bwd_dq": "hb_bwd_dq_delta",
+             "hb_bwd_dkv": "hb_bwd_dkv"}
     rows = {}
     for (name, plain), w in zip(kernels.items(), FLASH_WRAPPERS):
         ms = med[f"{name}/bert"]
         plain_ms = _time_plain(plain, iters=3)
         lib_ms, lib_txt = library[name]
-        bound_ms, bound_by, all_pairs_ms = _flash_bound(q, k, False, 0, name,
-                                                        kmask=kw["kmask"])
+        bound_ms, bound_by, all_pairs_ms = _flash_bound(
+            q, k, False, 0, stage[name], kmask=kw["kmask"])
         vq, vk, *_, vkw = inputs["bert", "kernels 1-3"]
         v_bound, v_by, _ = _flash_bound(vq, vk, False, 0, w.__name__,
                                         kmask=vkw["kmask"])
         dq_, dk_, *_ = inputs["dropout_only", "kernels 4-6"]
-        d_bound, _, _ = _flash_bound(dq_, dk_, False, 0, name)
+        d_bound, _, _ = _flash_bound(dq_, dk_, False, 0, stage[name])
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           max_abs_err=errs[name])
         wn = w.__name__
         log(f"[encoder] {name} b64 s512 h12 d64 bf16 non-causal kmask "
             f"dropout 0.1: kernel_ms {_spread(times[name + '/bert'])} "
-            f"(CUDA graphs of {ITERS} calls; median, min-max of {REPS}; "
+            + (f"(computing delta, as the backward runs it; given delta "
+               f"{_spread(times[given])}) " if name == "hb_bwd_dq" else "")
+            + f"(CUDA graphs of {ITERS} calls; median, min-max of {REPS}; "
             f"eager calls {_spread(eager[name + '/bert'])}) plain_ms "
             f"{plain_ms:.4f} library_ms {_ms(lib_ms)} (fastest SDPA "
             f"backend, graphs too: {lib_txt}) bound_ms {bound_ms:.5f} "

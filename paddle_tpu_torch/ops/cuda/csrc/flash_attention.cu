@@ -3,15 +3,16 @@
 //
 // Replaces the six Pallas TPU kernels of paddle_tpu/ops/pallas/
 // flash_attention.py and head_flash.py:
-//   flash_fwd_{kernel,tc,wgmma}      <- _fwd_kernel (launched by _flash_fwd)
-//   flash_bwd_dq_{kernel,tc,wgmma}   <- _bwd_dq_kernel (by _flash_bwd_impl)
+//   flash_fwd_{kernel,wgmma}         <- _fwd_kernel (launched by _flash_fwd)
+//   flash_bwd_dq_{kernel,wgmma}      <- _bwd_dq_kernel (by _flash_bwd_impl)
 //   flash_bwd_dkv_{kernel,tc,wgmma}  <- _bwd_dkv_kernel (by _flash_bwd_impl)
 // through the pt_flash_* entries (pt_flash_bwd_dq_delta: dQ that also
 // computes delta = rowsum(dO * O), which _flash_bwd_impl computes
 // outside its kernels), and the head-batched
 //   _hb_fwd_kernel (by _hb_fwd), _hb_dq_kernel, _hb_dkv_kernel (by
 //   _hb_bwd_impl)
-// through the pt_hb_* entries, with the same arithmetic: fp32 scores,
+// through the pt_hb_* entries (pt_hb_bwd_dq_delta: dQ that also computes
+// delta, the sum _hb_bwd_impl makes), with the same arithmetic: fp32 scores,
 // bottom-right causal masking (query row r sees key c iff c <= r + sk -
 // sq, and c > r + sk - sq - window when a sliding window is set), masked
 // scores set to the finite -1e30 of the reference, an fp32 streaming
@@ -55,11 +56,13 @@
 // every result is deterministic. Ragged edges are masked in the kernels,
 // so any sequence length >= 1 works; d is any multiple of 8 up to 256.
 // Three families:
-//   - wgmma (namespace wg; bf16, d <= 128): the forward without key row
-//     or dropout (kernel 1 on the Llama path), dQ without them (kernel 2
-//     on the Llama path, through the entry that computes delta), and
-//     dK/dV at d <= 64 (kernel 6, and kernel 3 there) and without key
-//     row or dropout at d <= 128 (kernel 3 on the Llama path). Warp-
+//   - wgmma (namespace wg; bf16, d <= 128): the forward in every variant
+//     (kernel 1; kernel 4 is flash_fwd_wgmma<64, true, true> on the BERT
+//     path), dQ in every variant (kernel 2 through the entry that computes
+//     delta on the Llama path; kernel 5 is flash_bwd_dq_wgmma<64, true,
+//     true, true> through pt_hb_bwd_dq_delta on the BERT path), and dK/dV
+//     at d <= 64 (kernel 6, and kernel 3 there) and without key row or
+//     dropout at d <= 128 (kernel 3 on the Llama path). Warp-
 //     specialised blocks of two consumer warpgroups and a producer: the
 //     producer keeps TMA loads (4-D tensor maps over the strided [b, s,
 //     h, d] tensors, 128-byte swizzle, zero fill past every edge) in
@@ -68,29 +71,35 @@
 //     from two shared operands and the value-like product with the
 //     probabilities (or dS) from registers (the accumulator repacked as
 //     the A operand, rounded to bf16 once) against an MN-major shared
-//     operand. The forward has one producer warp; the backward kernels a
-//     producer warpgroup that gives its registers to the consumers with
-//     setmaxnreg (24 / 240 a thread; 40 / 232 for dK/dV at d <= 64), so
-//     the dK and dV accumulators and the S^T and dP^T tiles (~200
-//     registers a thread at d 128) stay in registers. The forward takes
+//     operand. The plain forward has one producer warp; its key-row and
+//     dropout variants and the backward kernels a producer warpgroup
+//     that gives its registers to the consumers with setmaxnreg (24 / 240
+//     a thread; 40 / 232 for dK/dV at d <= 64), so the dK and dV
+//     accumulators and the S^T and dP^T tiles (~200 registers a thread at
+//     d 128), or the score tile beside the key row and the dropout hash's
+//     terms, stay in registers. The forward takes
 //     one block per 128-row query tile, the heaviest causal tiles first,
 //     128 keys a step, scores in the log2 domain (ex2), and masks with
 //     per-row key limits only on the tiles that cross the diagonal, the
 //     window or the last key. dQ does the same per 128 query rows with Q
 //     and dO resident and 64-key K/V tiles in a 3-stage ring; its fused
 //     entry also sums delta for its rows from the resident dO and O, and
-//     writes it for dK/dV. Both backward kernels start their blocks in
+//     writes it for dK/dV. With a key row the forward and dQ skip key
+//     tiles (128 and 64 keys) that are wholly padding: the producer warp
+//     copies each tile's key row beside K by cp.async, scans the row once
+//     (padded_tiles) under the first tile's load and announces the tiles
+//     it loads to the consumers through the ring (key_tile_producer).
+//     Both backward kernels start their blocks in
 //     groups of 16 heads (grouped_block), the heaviest tiles first inside
 //     a group, so that a group's shared operands stay in L2. dK/dV takes
 //     128 keys a block (64 a warpgroup), the first key tiles first, and
 //     64-row query tiles in a 3-stage ring (Q, dO, lse and delta), and a
 //     warpgroup whose 64 keys are wholly padding for a query head skips
 //     that head (padded_tile: exact zeros, as the reference gives);
-//   - mma.sync (namespace tc; bf16, d <= 128): the key-row and dropout
-//     variants of the forward and dQ (kernels 1, 2, 4 and 5 with them)
-//     and of dK/dV at 64 < d <= 128. 64-row tiles, each warp owning 16
-//     rows with mma.sync.m16n8k16, tiles staged by synchronous 16-byte
-//     loads;
+//   - mma.sync (namespace tc; bf16): the key-row and dropout variants
+//     of dK/dV at 64 < d <= 128 (no path runs them). 64-key tiles, each
+//     warp owning 16 keys with mma.sync.m16n8k16, tiles staged by
+//     synchronous 16-byte loads;
 //   - fp32 FMA (fp32 any d, bf16 with d > 128): a 16 x 16 thread grid,
 //     each thread owning a micro-tile of scores and fp32 sums; fp32 keeps
 //     full fp32 products, so the card's results match the CPU's plain
@@ -101,16 +110,20 @@
 // moved, at the card's bf16 ridge, so its bound is about 0.03 ms either
 // way; dK/dV is bound by operations (0.052 ms), dQ with delta by bytes
 // (it also reads O: 0.045 ms). At BERT's shape (b64, s512, h12, d64,
-// padded, dropout) the dK/dV bound is bytes (0.079 ms) once padding pairs
-// are left out. The wgmma kernels reach the tensor cores' full rate per
-// instruction; what they still lack: the overlap of the softmax with the
-// products across tiles inside a warpgroup (two score accumulators in
-// flight, FlashAttention-3's intra-warpgroup pipelining; the backward
-// overlaps only p with dP's product), a TMA store of the outputs, and
-// the skip of padded key tiles in the forward and dQ. Known gaps, left
-// to later work: the key-row and dropout forwards and dQ on wgmma, their
-// dK/dV at 64 < d <= 128 on wgmma, and tensor-core paths for fp32 (TF32
-// would break the fp32 identity with the CPU) and d = 256.
+// padded, dropout) all three are bound by bytes once padding pairs are
+// left out (0.049, 0.064 with delta, 0.079 ms); there the kernels spend
+// their time on the per-element softmax and dropout hash (d 64 halves the
+// products per element) and on each block's own Q, dO and O traffic,
+// which one block per SM cannot overlap with another block's tiles. The
+// wgmma kernels reach the tensor cores' full rate per instruction; what
+// they still lack: the overlap of the softmax with the products across
+// tiles inside a warpgroup (two score accumulators in flight,
+// FlashAttention-3's intra-warpgroup pipelining; the backward overlaps
+// only p with dP's product), a TMA store of the outputs, and a
+// persistent grid that would overlap one tile's epilogue and prologue
+// with the next tile's work. Known gaps, left to later work: the key-row
+// and dropout dK/dV at 64 < d <= 128 on wgmma, and tensor-core paths for
+// fp32 (TF32 would break the fp32 identity with the CPU) and d = 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
@@ -187,22 +200,60 @@ __device__ __forceinline__ bool padded_tile(const Geom& g, const float* kmr,
   return !__syncthreads_or(tile_live) && __syncthreads_or(seen_live);
 }
 
+// padded_tile's rule for every key tile [t BK, t BK + BK) of the key row
+// kmr with t < 64 at once, by one warp: bit t set means tile t may be
+// skipped. Each lane ORs the live bits of its keys' tiles (independent
+// loads, so they overlap) and the warp ORs the lanes'; then non-causal
+// skips every dead tile if the row has a live key, and causal every dead
+// tile above the first live one. Past tile 63 nothing is skipped.
+template <int BK>
+__device__ __forceinline__ uint64_t padded_tiles(const Geom& g,
+                                                 const float* kmr) {
+  if (g.window > 0) return 0;
+  uint64_t mine = 0;
+  bool any = false;
+#pragma unroll 4
+  for (int c = threadIdx.x & 31; c < g.SK; c += 32)
+    if (kmr[c] > kPadLevel) {
+      any = true;
+      if (c / BK < 64) mine |= 1ull << (c / BK);
+    }
+  const uint64_t live =
+      __reduce_or_sync(0xffffffffu, (uint32_t)mine) |
+      (uint64_t)__reduce_or_sync(0xffffffffu, (uint32_t)(mine >> 32)) << 32;
+  if (!__any_sync(0xffffffffu, any)) return 0;
+  const int nt = (g.SK + BK - 1) / BK;
+  uint64_t skip = ~live & (nt >= 64 ? ~0ull : (1ull << nt) - 1);
+  if (g.causal) skip &= ~(((live & (0ull - live)) << 1) - 1);
+  return skip;
+}
+
 // The dropout hash of one query head: everything but (row, col).
 __device__ __forceinline__ uint32_t head_salt(const Geom& g, int bh) {
   return g.seed0 * 0x9E3779B9u + (uint32_t)(bh + 1) * 0x85EBCA6Bu + g.seed1;
+}
+
+// The hash's row and column multipliers: the sum it mixes is r * kRowMul
+// + c * kColMul + salt (uint32), so a tile's loop adds a row term and a
+// column term it computed once.
+constexpr uint32_t kRowMul = 0x27D4EB2Fu, kColMul = 0x165667B1u;
+
+// Whether the element whose hash sum is x is kept (murmur3's fmix32).
+__device__ __forceinline__ bool keep_sum(uint32_t x, uint32_t thresh) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= thresh;
 }
 
 // Whether element (r, c) of the head with salt `salt` is kept: the
 // reference's _keep_mask (global row r, global key c).
 __device__ __forceinline__ bool keep(const Geom& g, uint32_t salt, int r,
                                      int c) {
-  uint32_t x = (uint32_t)r * 0x27D4EB2Fu + (uint32_t)c * 0x165667B1u + salt;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x >= g.thresh;
+  return keep_sum((uint32_t)r * kRowMul + (uint32_t)c * kColMul + salt,
+                  g.thresh);
 }
 
 __device__ __forceinline__ const float* km_row(const Geom& g, int b, int h) {
@@ -689,17 +740,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernels: bf16 with d <= 128. The same grids, masks and
-// arithmetic as above, but each warp owns 16 rows of the output tile and
-// computes its products with mma.sync.m16n8k16 (bf16 operands, fp32
-// accumulators). Scores, probabilities and the softmax state stay in
-// registers. The forward's P enters P.V as two bf16 terms (hi + lo), so
-// O is as exact as fp32 P would make it; in the backward P and dS are
+// mma.sync kernel: dK/dV with a key row or dropout at 64 < d <= 128
+// (bf16). The same grid, masks and arithmetic as above, but each warp
+// owns 16 keys of the output tile and computes its products with
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators); P and dS are
 // rounded to bf16 once as operands of the next product, as
-// FlashAttention-2 does. Tiles are padded by 8 elements per
-// row (16 bytes) so ldmatrix and the 32-bit fragment loads hit distinct
-// banks; columns d..DMAX are zero-filled so the contraction over the
-// head dimension runs in whole k16 steps.
+// FlashAttention-2 does. Tiles are padded by 8 elements per row (16
+// bytes) so ldmatrix and the 32-bit fragment loads hit distinct banks;
+// columns d..DMAX are zero-filled so the contraction over the head
+// dimension runs in whole k16 steps.
 namespace tc {
 
 typedef __nv_bfloat16 bf16;
@@ -717,16 +766,6 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as a bf16 pair hi plus the bf16 pair lo of what hi rounded
-// away: hi + lo carries ~16 bits of each value.
-__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack(x0 - hf.x, x1 - hf.y);
 }
 
 // c += a * b for one 16 x 8 fp32 tile.
@@ -793,156 +832,14 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ g,
   }
 }
 
-// Forward. grid = (ceil(SQ / 64), B * H), 4 warps of 16 query rows.
-template <int DMAX, bool KM, bool DROP>
-__global__ void __launch_bounds__(kThreadsTc)
-flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ lse, Geom g, Strides sq_, Strides sk_,
-             Strides sv_, Strides so_) {
-  constexpr int BQ = 64, BK = 64, LD = DMAX + 8;
-  constexpr int KS = DMAX / 16, NT = BK / 8, DT = DMAX / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ, LD]
-  bf16* sK = sQ + BQ * LD;                       // [BK, LD]
-  bf16* sV = sK + BK * LD;                       // [BK, LD]
-  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / g.H, h = bh - b * g.H;
-  const int hk = h / (g.H / g.HKV);
-  const int r0 = blockIdx.x * BQ;
-  const bf16* kg = k + b * sk_.b + hk * sk_.h;
-  const bf16* vg = v + b * sv_.b + hk * sv_.h;
-  const float* kmr = KM ? km_row(g, b, h) : nullptr;
-  const uint32_t salt = DROP ? head_salt(g, bh) : 0u;
-  load_tile<BQ, LD, DMAX>(sQ, q + b * sq_.b + h * sq_.h, sq_.s, r0, g.SQ,
-                          g.d);
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows gq, gq + 8
-  int kt0, kt1;
-  key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int c0 = kt * BK;
-    __syncthreads();
-    load_tile<BK, LD, DMAX>(sK, kg, sk_.s, c0, g.SK, g.d);
-    load_tile<BK, LD, DMAX>(sV, vg, sv_.s, c0, g.SK, g.d);
-    __syncthreads();
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4];
-      frag_a<LD>(a, sQ, wr, 16 * ks, lane);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t b0, b1;
-        frag_b_rows<LD>(b0, b1, sK, 8 * j, 16 * ks, lane);
-        mma(s[j], a, b0, b1);
-      }
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + wr + gq + (e >> 1) * 8;
-        const int c = c0 + 8 * j + 2 * tq + (e & 1);
-        float x = s[j][e] * g.scale;
-        if (c >= g.SK) {
-          x = -INFINITY;
-        } else {
-          if (!visible(g, r, c)) x = kNegInf;
-          if (KM) x += kmr[c];
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];  // this thread's share of the row sum
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];  // the row sum keeps the undropped p
-        if (DROP)
-          s[j][e] = keep(g, salt, r0 + wr + gq + (e >> 1) * 8,
-                         c0 + 8 * j + 2 * tq + (e & 1))
-                        ? s[j][e] * g.dscale
-                        : 0.f;
-      }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-    // O += P.V with P as hi + lo bf16 terms, so O keeps ~16 bits of P
-    // (the reference multiplies in fp32; one bf16 rounding of P would
-    // cost O up to 2^-9 of its size)
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t bb[4];
-        frag_b_cols<LD>(bb, sV, 16 * kk, 8 * j, lane);
-        mma(acc[j], hi, bb[0], bb[1]);
-        mma(acc[j], lo, bb[0], bb[1]);
-        mma(acc[j + 1], hi, bb[2], bb[3]);
-        mma(acc[j + 1], lo, bb[2], bb[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int r = r0 + wr + gq + 8 * i;
-    if (r >= g.SQ) continue;
-    const bool valid = m[i] > 0.5f * kNegInf;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-    bf16* orow = o + b * so_.b + (long long)r * so_.s + h * so_.h;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = 8 * j + 2 * tq;
-      if (col < g.d)
-        *reinterpret_cast<uint32_t*>(orow + col) =
-            valid ? pack(acc[j][2 * i] / l_safe, acc[j][2 * i + 1] / l_safe)
-                  : 0u;
-    }
-    if (tq == 0) lse[(long long)bh * g.SQ + r] = m[i] + logf(l_safe);
-  }
-}
-
-// p and ds of a warp's 16 x (8 * NT) tile from raw scores s and dO.V^T
-// products dp, in place: s becomes p, dp becomes ds. Row i of the tile
-// is (row0 + gq + 8 * (e >> 1)), column (col0 + 8 * j + 2 * tq + (e & 1)).
-// kRowsAreQueries: rows index queries (dQ kernel); otherwise rows index
-// keys and columns queries (dK/dV kernel). lse and delta are looked up
-// per query through `stat`. With KM the key row kmr is added to the
-// scaled scores; with DROP, dp is masked and scaled before ds and s
-// becomes the dropped p (the operand of dV).
-template <int NT, bool kRowsAreQueries, bool KM, bool DROP, typename Stat>
+// p and ds of a warp's 16 x (8 * NT) tile from raw scores s^T and dO.V^T
+// products dp^T, in place: s becomes p, dp becomes ds. Row i of the tile
+// is key (row0 + gq + 8 * (e >> 1)), column query (col0 + 8 * j + 2 * tq +
+// (e & 1)); lse and delta are looked up per query through `stat`. With
+// KM the key row kmr is added to the scaled scores; with DROP, dp is
+// masked and scaled before ds and s becomes the dropped p (the operand of
+// dV).
+template <int NT, bool KM, bool DROP, typename Stat>
 __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
                                          float (&dp)[NT][4], int row0,
                                          int col0, int gq, int tq,
@@ -952,13 +849,10 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int rr = row0 + gq + (e >> 1) * 8;
-      const int cc = col0 + 8 * j + 2 * tq + (e & 1);
-      const int qr = kRowsAreQueries ? rr : cc;
-      const int kc = kRowsAreQueries ? cc : rr;
+      const int kc = row0 + gq + (e >> 1) * 8;
+      const int qr = col0 + 8 * j + 2 * tq + (e & 1);
       float lse_q, delta_q;
-      stat(kRowsAreQueries ? (e >> 1) : 8 * j + 2 * tq + (e & 1), &lse_q,
-           &delta_q);
+      stat(8 * j + 2 * tq + (e & 1), &lse_q, &delta_q);
       const bool live = lse_q > 0.5f * kNegInf && kc < g.SK && qr < g.SQ &&
                         visible(g, qr, kc);
       float x = g.scale * s[j][e];
@@ -973,110 +867,6 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
       s[j][e] = pd;
       dp[j][e] = p * (dpv - delta_q) * g.scale;
     }
-}
-
-// dQ. grid = (ceil(SQ / 64), B * H), 4 warps of 16 query rows.
-template <int DMAX, bool KM, bool DROP>
-__global__ void __launch_bounds__(kThreadsTc)
-flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq,
-                Geom g, Strides sq_, Strides sk_, Strides sv_, Strides sdo_,
-                Strides sdq_) {
-  constexpr int BQ = 64, BK = 64, LD = DMAX + 8;
-  constexpr int KS = DMAX / 16, NT = BK / 8, DT = DMAX / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ, LD]
-  bf16* sdO = sQ + BQ * LD;                      // [BQ, LD]
-  bf16* sK = sdO + BQ * LD;                      // [BK, LD]
-  bf16* sV = sK + BK * LD;                       // [BK, LD]
-  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / g.H, h = bh - b * g.H;
-  const int hk = h / (g.H / g.HKV);
-  const int r0 = blockIdx.x * BQ;
-  const bf16* kg = k + b * sk_.b + hk * sk_.h;
-  const bf16* vg = v + b * sv_.b + hk * sv_.h;
-  const float* kmr = KM ? km_row(g, b, h) : nullptr;
-  const uint32_t salt = DROP ? head_salt(g, bh) : 0u;
-  load_tile<BQ, LD, DMAX>(sQ, q + b * sq_.b + h * sq_.h, sq_.s, r0, g.SQ,
-                          g.d);
-  load_tile<BQ, LD, DMAX>(sdO, dout + b * sdo_.b + h * sdo_.h, sdo_.s, r0,
-                          g.SQ, g.d);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + wr + gq + 8 * i;
-    lse_r[i] = r < g.SQ ? lse[(long long)bh * g.SQ + r] : kNegInf;
-    delta_r[i] = r < g.SQ ? delta[(long long)bh * g.SQ + r] : 0.f;
-  }
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  int kt0, kt1;
-  key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int c0 = kt * BK;
-    __syncthreads();
-    load_tile<BK, LD, DMAX>(sK, kg, sk_.s, c0, g.SK, g.d);
-    load_tile<BK, LD, DMAX>(sV, vg, sv_.s, c0, g.SK, g.d);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t aq[4], ad[4];
-      frag_a<LD>(aq, sQ, wr, 16 * ks, lane);
-      frag_a<LD>(ad, sdO, wr, 16 * ks, lane);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t b0, b1;
-        frag_b_rows<LD>(b0, b1, sK, 8 * j, 16 * ks, lane);
-        mma(s[j], aq, b0, b1);
-        frag_b_rows<LD>(b0, b1, sV, 8 * j, 16 * ks, lane);
-        mma(dp[j], ad, b0, b1);
-      }
-    }
-    probs_ds<NT, true, KM, DROP>(g, s, dp, r0 + wr, c0, gq, tq, kmr, salt,
-                                 [&](int i, float* ls, float* dl) {
-                                   *ls = lse_r[i];
-                                   *dl = delta_r[i];
-                                 });
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
-                             pack(dp[2 * kk][2], dp[2 * kk][3]),
-                             pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                             pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t bb[4];
-        frag_b_cols<LD>(bb, sK, 16 * kk, 8 * j, lane);
-        mma(acc[j], a, bb[0], bb[1]);
-        mma(acc[j + 1], a, bb[2], bb[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + wr + gq + 8 * i;
-    if (r >= g.SQ) continue;
-    bf16* row = dq + b * sdq_.b + (long long)r * sdq_.s + h * sdq_.h;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = 8 * j + 2 * tq;
-      if (col < g.d)
-        *reinterpret_cast<uint32_t*>(row + col) =
-            pack(acc[j][2 * i], acc[j][2 * i + 1]);
-    }
-  }
 }
 
 // dK and dV. grid = (ceil(SK / 64), B * HKV), 4 warps of 16 keys; the
@@ -1172,12 +962,11 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             mma(dp[j], av, b0, b1);
           }
         }
-        probs_ds<NT, false, KM, DROP>(g, s, dp, c0 + wk, r0, gq, tq, kmr,
-                                      salt,
-                                      [&](int i, float* ls, float* dl) {
-                                        *ls = sLse[i];
-                                        *dl = sDelta[i];
-                                      });
+        probs_ds<NT, KM, DROP>(g, s, dp, c0 + wk, r0, gq, tq, kmr, salt,
+                               [&](int i, float* ls, float* dl) {
+                                 *ls = sLse[i];
+                                 *dl = sDelta[i];
+                               });
         if (KM) {
 #pragma unroll
           for (int j = 0; j < NT; ++j)
@@ -1230,12 +1019,10 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 
-// Shared-memory bytes of the tensor-core kernels.
+// Shared-memory bytes of the mma.sync kernel.
 template <int DMAX>
 struct Smem {
   static constexpr size_t row = (DMAX + 8) * sizeof(bf16);
-  static constexpr size_t fwd = 3 * 64 * row;
-  static constexpr size_t dq = 4 * 64 * row;
   static constexpr size_t dkv = 2 * 64 * row + 2 * 32 * row + 2 * 32 * 4;
 };
 
@@ -1244,7 +1031,8 @@ struct Smem {
 // ---------------------------------------------------------------------------
 // wgmma kernels: bf16, d <= 128, warp-specialised. Two consumer
 // warpgroups (threads 0-255, 64 rows each) compute with wgmma from
-// 128-byte-swizzled shared tiles; one producer warp (threads 256-287)
+// 128-byte-swizzled shared tiles; one producer warp (threads 256-287, the
+// first of a producer warpgroup where the consumers take its registers)
 // keeps TMA loads in flight through a ring of STAGES tiles, signalled by
 // mbarriers (full: the tile has landed; empty: all 256 consumer threads
 // are done with it). Layouts and descriptors: hopper.cuh.
@@ -1254,6 +1042,15 @@ using namespace hopper;
 typedef __nv_bfloat16 bf16;
 constexpr int kConsumers = 256;
 constexpr int kThreadsWg = kConsumers + 32;
+// The backward kernels' and the variant forwards' warp-specialised
+// blocks: two consumer warpgroups (threads 0-255) and a producer
+// warpgroup (256-383) whose first warp issues the TMA loads. setmaxnreg
+// moves registers from the producer (kRegsProducer a thread) to the
+// consumers (kRegsConsumer), whose accumulators and score tiles need
+// about 200 a thread at d 128 (ptxas caps a 384-thread block at 168
+// otherwise, and a 288-thread one too).
+constexpr int kThreadsWs = kConsumers + 128;
+constexpr int kRegsProducer = 24, kRegsConsumer = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -1288,8 +1085,63 @@ __device__ __forceinline__ void load_tile(char* dst, const CUtensorMap* map,
     tma_load_4d(dst + a * R * 128, map, bar, 64 * a, head, row0, b);
 }
 
+// The producer warp's copy of key tile [c0, c0 + BK) of the key row kmr
+// into the stage's shared row (zeros past SK), by cp.async, 4 bytes a
+// key: a row may start at any float. Each lane then arrives on the
+// stage's full barrier once its copies land, so the producer moves on
+// without waiting for them.
+template <int BK>
+__device__ __forceinline__ void copy_key_row(float* skm, const float* kmr,
+                                             int c0, int SK, uint64_t* bar) {
+  for (int c = threadIdx.x & 31; c < BK; c += 32)
+    cp_async4(skm + c, kmr + min(c0 + c, SK - 1), c0 + c < SK);
+  cp_async_arrive(bar);
+}
+
+// The producer warp of a kernel with a key row (KM): it visits the
+// block's key tiles [kt0, kt1), first to last without causal masking
+// (right padding leaves the live tiles first), else last to first, and
+// for each tile waits for a free stage s, copies the tile's key row into
+// the stage's row (copy_key_row), writes the tile's index to the stage's
+// slot skt[s] and (lane 0) loads K and V (load_kv(s, kt), which arrives on
+// full[s]). The first tile is loaded before the key row is scanned
+// (padded_tiles), so that the scan runs under its load; a later tile the
+// scan finds wholly padding is neither loaded nor announced. A stage
+// whose slot holds -1 ends the tiles. full[s] counts 33 arrivals: the
+// lanes' copies, and lane 0's load.
+template <int BK, int ST, typename LoadKV>
+__device__ __forceinline__ void key_tile_producer(
+    const Geom& g, const float* kmr, int kt0, int kt1, float* skm, int* skt,
+    uint64_t* full, uint64_t* empty, LoadKV load_kv) {
+  const int lane = threadIdx.x & 31;
+  uint64_t skip = 0;
+  int i = 0;
+  for (int n = 0; n < kt1 - kt0; ++n) {
+    const int kt = g.causal ? kt1 - 1 - n : kt0 + n;
+    if (n > 0 && kt < 64 && ((skip >> kt) & 1)) continue;
+    const int s = i % ST;
+    mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+    copy_key_row<BK>(skm + s * BK, kmr, kt * BK, g.SK, full + s);
+    if (lane == 0) {
+      skt[s] = kt;
+      load_kv(s, kt);
+    }
+    if (n == 0) skip = padded_tiles<BK>(g, kmr);
+    ++i;
+  }
+  const int s = i % ST;
+  mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+  if (lane == 0) {
+    skt[s] = -1;
+    mbar_arrive(full + s);
+  }
+  mbar_arrive(full + s);
+}
+
 // Forward tiles: 128 query rows (64 per consumer warpgroup) x 128 keys.
-template <int DMAX>
+// With a key row (KM) each stage also holds its key tile's row (fp32)
+// and the tile's index (the plain layout is unchanged).
+template <int DMAX, bool KM = false>
 struct FwdCfg {
   static constexpr int BQ = 128, BK = 128, STAGES = 2;
   static constexpr int Q_BYTES = BQ * DMAX * 2;
@@ -1298,23 +1150,38 @@ struct FwdCfg {
   static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
   static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
   // barriers: full_q, full_k[STAGES], full_v[STAGES], empty[STAGES]
-  static constexpr size_t SMEM = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
+  static constexpr int BAR_BYTES = 8 * (1 + 3 * STAGES);
+  static constexpr int OFF_KM = (OFF_BAR + BAR_BYTES + 15) / 16 * 16;
+  static constexpr int OFF_KT = OFF_KM + STAGES * BK * 4;
+  static constexpr size_t SMEM =
+      KM ? OFF_KT + STAGES * 4 + 1024 : OFF_BAR + BAR_BYTES + 1024;
 };
 
-// Forward (kernel 1 without key row or dropout). grid = B * H * ceil(SQ /
-// 128) blocks, one per output tile, block t taking tile t of the list
-// that puts the heaviest causal tiles (the last query rows) first. Key
-// tiles run from the last to the first, so the tiles that need the
-// causal or ragged mask come first and a block-uniform test skips the
-// mask on the rest.
-template <int DMAX>
-__global__ void __launch_bounds__(kThreadsWg, 1)
+// Forward (kernel 1, and kernel 4: with KM and DROP). grid = B * H *
+// ceil(SQ / 128) blocks, one per output tile, block t taking tile t of
+// the list that puts the heaviest causal tiles (the last query rows)
+// first. Key tiles run from the last to the first, so the tiles that need
+// the causal or ragged mask come first and a block-uniform test skips the
+// mask on the rest. KM: the key row's value (copied beside K, scaled to
+// log2 units as it is read) is added to the scaled scores, and the
+// 128-key tiles that are wholly padding are neither loaded nor visited
+// (key_tile_producer, which also announces the tiles, first to last
+// without causal masking): their p is exactly 0 and m starts at -1e30,
+// so O and lse keep the bits that visiting them gives. DROP: the row sum
+// l keeps the undropped fp32 p; only the A operand of P.V takes p * keep
+// * dscale, rounded to bf16 once, with the hash's row terms computed once
+// per row and its column terms once per tile. The variants run a producer
+// warpgroup that gives its registers to the consumers (kThreadsWs
+// threads: the key-row values and the hash terms beside the score tile
+// spill at 168 a thread).
+template <int DMAX, bool KM, bool DROP>
+__global__ void __launch_bounds__(KM || DROP ? kThreadsWs : kThreadsWg, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 bf16* __restrict__ o, float* __restrict__ lse, Geom g,
                 Strides so_) {
-  using C = FwdCfg<DMAX>;
+  using C = FwdCfg<DMAX, KM>;
   constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
   char* sm = aligned_smem();
   char* sQ = sm;
@@ -1333,27 +1200,42 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(full_k + s, 1);
+      // KM: and the producer warp's 32 lanes, once their copies of the
+      // tile's key row land
+      mbar_init(full_k + s, KM ? 33 : 1);
       mbar_init(full_v + s, 1);
       mbar_init(empty + s, kConsumers);
     }
     mbar_fence_init();
   }
   __syncthreads();
+  int* skt = reinterpret_cast<int*>(sm + C::OFF_KT);  // KM: tile indices
+  auto load_kv = [&](int s, int kt) {
+    mbar_expect_tx(full_k + s, C::KV_BYTES);
+    load_tile<BK, DMAX>(sm + C::OFF_K + s * C::KV_BYTES, &tm_k, full_k + s,
+                        hk, kt * BK, b);
+    mbar_expect_tx(full_v + s, C::KV_BYTES);
+    load_tile<BK, DMAX>(sm + C::OFF_V + s * C::KV_BYTES, &tm_v, full_v + s,
+                        hk, kt * BK, b);
+  };
 
-  if (threadIdx.x >= kConsumers) {  // the producer warp
+  if (threadIdx.x >= kConsumers) {  // the producer warp(group)
+    if constexpr (KM || DROP) regs_dec<kRegsProducer>();
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(full_q, C::Q_BYTES);
       load_tile<BQ, DMAX>(sQ, &tm_q, full_q, h, r0, b);
+    }
+    if constexpr (KM) {  // its first warp
+      if (threadIdx.x < kConsumers + 32)
+        key_tile_producer<BK, ST>(
+            g, km_row(g, b, h), kt0, kt1,
+            reinterpret_cast<float*>(sm + C::OFF_KM), skt, full_k, empty,
+            load_kv);
+    } else if (threadIdx.x == kConsumers) {
       for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
         const int s = i % ST;
         mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
-        mbar_expect_tx(full_k + s, C::KV_BYTES);
-        load_tile<BK, DMAX>(sm + C::OFF_K + s * C::KV_BYTES, &tm_k,
-                            full_k + s, hk, kt * BK, b);
-        mbar_expect_tx(full_v + s, C::KV_BYTES);
-        load_tile<BK, DMAX>(sm + C::OFF_V + s * C::KV_BYTES, &tm_v,
-                            full_v + s, hk, kt * BK, b);
+        load_kv(s, kt);
       }
     }
     return;
@@ -1361,6 +1243,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   // consumers: warpgroup wq owns tile rows 64 wq .. 64 wq + 63; this
   // thread rows rw and rw + 8 of them
+  if constexpr (KM || DROP) regs_inc<kRegsConsumer>();
   const int wq = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const int rw = 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
@@ -1370,22 +1253,35 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // the keys row r0 + rw + 8 r sees: [lo[r], hi[r]) (bottom-right causal
   // diagonal, window), and keys past SK do not exist
   int lo[2], hi[2];
+  uint32_t hrow[2];  // DROP: the hash's row terms, salt included
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int diag = r0 + rw + 8 * r + offset;
     lo[r] = g.causal && g.window > 0 ? diag - g.window + 1 : INT_MIN;
     hi[r] = g.causal ? diag + 1 : INT_MAX;
+    if constexpr (DROP)
+      hrow[r] = (uint32_t)(r0 + rw + 8 * r) * kRowMul + head_salt(g, bh);
   }
   float acc[DMAX / 2];
 #pragma unroll
   for (int j = 0; j < DMAX / 2; ++j) acc[j] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   mbar_wait(full_q, 0);
-  for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
-    const int s = i % ST, c0 = kt * BK;
+  // the key tiles from the last to the first; KM: as the producer announces
+  for (int i = 0, kt = kt1 - 1; KM || kt >= kt0; --kt, ++i) {
+    const int s = i % ST;
     const uint32_t ph = (i / ST) & 1;
+    if constexpr (KM) {
+      mbar_wait(full_k + s, ph);
+      kt = skt[s];
+      if (kt < 0) break;
+    }
+    const int c0 = kt * BK;
     const char* sK = sm + C::OFF_K + s * C::KV_BYTES;
     const char* sV = sm + C::OFF_V + s * C::KV_BYTES;
+    // KM: the tile's key row from this thread's first column, 2 tq
+    const float* skm =
+        reinterpret_cast<const float*>(sm + C::OFF_KM) + s * BK + 2 * tq;
     mbar_wait(full_k + s, ph);
     float sc[BK / 2];
     wg_fence();
@@ -1411,7 +1307,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
-          float x = sc[4 * j + e] * sl2;
+          float x = KM ? fmaf(sc[4 * j + e], sl2,
+                              skm[8 * j + (e & 1)] * kLog2e)
+                       : sc[4 * j + e] * sl2;
           x = c < lo[r] || c >= hi[r] ? kNegInf : x;
           x = c >= g.SK ? -INFINITY : x;
           sc[4 * j + e] = x;
@@ -1419,12 +1317,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         }
     } else {
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
+      for (int j = 0; j < BK / 8; ++j) {
+        float2 kv = make_float2(0.f, 0.f);
+        if constexpr (KM) kv = *reinterpret_cast<const float2*>(skm + 8 * j);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          sc[4 * j + e] *= sl2;
+          if constexpr (KM)
+            sc[4 * j + e] = fmaf(sc[4 * j + e], sl2,
+                                 (e & 1 ? kv.y : kv.x) * kLog2e);
+          else
+            sc[4 * j + e] *= sl2;
           mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
         }
+      }
     }
     float alpha[2];
 #pragma unroll
@@ -1437,7 +1342,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       l[r] *= alpha[r];  // this thread's share of the row sum
     }
     // P rounded to bf16 once as the A operand of P.V; the row sum keeps
-    // the fp32 p
+    // the fp32 p (undropped)
+    const uint32_t hcol = DROP ? (uint32_t)(c0 + 2 * tq) * kColMul : 0u;
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -1446,6 +1352,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int e = 0; e < 4; ++e) {
         p[e] = ex2(sc[4 * j + e] - m[e >> 1]);
         l[e >> 1] += p[e];
+        if constexpr (DROP)
+          p[e] = keep_sum(hrow[e >> 1] + hcol +
+                              (uint32_t)(8 * j + (e & 1)) * kColMul,
+                          g.thresh)
+                     ? p[e] * g.dscale
+                     : 0.f;
       }
       pa[j >> 1][2 * (j & 1)] = pack(p[0], p[1]);
       pa[j >> 1][2 * (j & 1) + 1] = pack(p[2], p[3]);
@@ -1493,14 +1405,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// The backward kernels' warp-specialised blocks: two consumer warpgroups
-// (threads 0-255) and a producer warpgroup (256-383) whose first warp
-// issues the TMA loads. setmaxnreg moves registers from the producer
-// (kRegsProducer a thread) to the consumers (kRegsConsumer), whose
-// accumulators and score tiles need about 200 a thread at d 128 (ptxas
-// caps a 384-thread block at 168 otherwise).
-constexpr int kThreadsWs = kConsumers + 128;
-constexpr int kRegsProducer = 24, kRegsConsumer = 240;
 
 // The backward kernels start their blocks in groups of kGroupSlices
 // slices (kv heads, or query heads, of the batch rows): block t belongs
@@ -1802,8 +1706,10 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // dQ tiles: 128 query rows a block (64 per consumer warpgroup), Q and dO
-// resident, key tiles of 64 rows in a ring of STAGES (K and V).
-template <int DMAX>
+// resident, key tiles of 64 rows in a ring of STAGES (K and V). With a
+// key row (KM) each stage also holds its key tile's row (fp32) and the
+// tile's index (the plain layout is unchanged).
+template <int DMAX, bool KM = false>
 struct DqCfg {
   static constexpr int BQ = 128, BK = 64, STAGES = 3;
   static constexpr int Q_BYTES = BQ * DMAX * 2;   // Q, then dO
@@ -1814,24 +1720,37 @@ struct DqCfg {
   static constexpr int OFF_DELTA = OFF_V + STAGES * KV_BYTES;  // [BQ] fp32
   static constexpr int OFF_BAR = OFF_DELTA + BQ * 4;
   // barriers: full_q, full_k[STAGES], full_v[STAGES], empty[STAGES]
-  static constexpr size_t SMEM = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
+  static constexpr int BAR_BYTES = 8 * (1 + 3 * STAGES);
+  static constexpr int OFF_KM = (OFF_BAR + BAR_BYTES + 15) / 16 * 16;
+  static constexpr int OFF_KT = OFF_KM + STAGES * BK * 4;
+  static constexpr size_t SMEM =
+      KM ? OFF_KT + STAGES * 4 + 1024 : OFF_BAR + BAR_BYTES + 1024;
 };
 
-// dQ (kernel 2 without key row or dropout; kernel 5 without them too). grid =
-// grouped_blocks(B * H, ceil(SQ / 128)): one block per (query head, 128 query
-// rows), within each group of query heads the heaviest causal tiles (the last
-// rows) first, while the group's K and V stay in L2 for its query tiles; key
-// tiles run from the last to the first, so the tiles that need the causal,
-// window or ragged mask come first and a block-uniform test skips the mask on
-// the rest. Per key tile each consumer warpgroup computes S = Q.K^T and dP =
-// dO.V^T for its 64 rows (wgmma from shared memory, two commit groups: p is
-// computed while dP is in flight), ds = p (dp - delta) scale in registers, and
-// dQ += dS.K (wgmma, dS from registers, rounded to bf16 once, K MN-major).
-// FUSED: the block also computes delta = rowsum(dO * O) in fp32 for its rows,
-// from the resident dO and O read once (loaded while Q and dO land, summed
-// under the first key tile's products), and writes it to `delta` ([B * H,
-// SQ]) for the dK/dV kernel that runs after it; otherwise it reads `delta`.
-template <int DMAX, bool FUSED>
+// dQ (kernel 2, and kernel 5: with KM and DROP). grid =
+// grouped_blocks(B * H, ceil(SQ / 128)): one block per (query head, 128
+// query rows), within each group of query heads the heaviest causal tiles
+// (the last rows) first, while the group's K and V stay in L2 for its
+// query tiles; key tiles run from the last to the first, so the tiles
+// that need the causal, window or ragged mask come first and a
+// block-uniform test skips the mask on the rest. Per key tile each
+// consumer warpgroup computes S = Q.K^T and dP = dO.V^T for its 64 rows
+// (wgmma from shared memory, two commit groups: p is computed while dP is
+// in flight), ds = p (dp - delta) scale in registers, and dQ += dS.K
+// (wgmma, dS from registers, rounded to bf16 once, K MN-major).
+// FUSED: the block also computes delta = rowsum(dO * O) in fp32 for its
+// rows, from the resident dO and O read once (loaded while Q and dO land,
+// summed under the first key tile's products), and writes it to `delta`
+// ([B * H, SQ]) for the dK/dV kernel that runs after it; otherwise it
+// reads `delta`. KM: the key row (copied beside K, scaled to log2 units
+// as it is read) is added to the scaled scores, and the 64-key tiles that
+// are wholly padding are neither loaded nor visited (key_tile_producer,
+// which also announces the tiles, first to last without causal masking):
+// their p, and so their ds, is exactly 0. DROP: dp is masked by the
+// counter hash and scaled by dscale before ds (p itself is not dropped in
+// dQ). At d 128 with a key row and FUSED, delta is summed before the key
+// loop (see kEarly).
+template <int DMAX, bool FUSED, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreadsWs, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -1841,7 +1760,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const float* __restrict__ lse, float* __restrict__ delta,
                    bf16* __restrict__ dq, Geom g, Strides so_,
                    Strides sdq_) {
-  using C = DqCfg<DMAX>;
+  using C = DqCfg<DMAX, KM>;
   constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
   char* sm = aligned_smem();
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
@@ -1861,13 +1780,24 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(full_k + s, 1);
+      // KM: and the producer warp's 32 lanes, once their copies of the
+      // tile's key row land
+      mbar_init(full_k + s, KM ? 33 : 1);
       mbar_init(full_v + s, 1);
       mbar_init(empty + s, kConsumers);
     }
     mbar_fence_init();
   }
   __syncthreads();
+  int* skt = reinterpret_cast<int*>(sm + C::OFF_KT);  // KM: tile indices
+  auto load_kv = [&](int s, int kt) {
+    mbar_expect_tx(full_k + s, C::KV_BYTES);
+    load_tile<BK, DMAX>(sm + C::OFF_K + s * C::KV_BYTES, &tm_k, full_k + s,
+                        hk, kt * BK, b);
+    mbar_expect_tx(full_v + s, C::KV_BYTES);
+    load_tile<BK, DMAX>(sm + C::OFF_V + s * C::KV_BYTES, &tm_v, full_v + s,
+                        hk, kt * BK, b);
+  };
 
   if (threadIdx.x >= kConsumers) {  // the producer warpgroup
     regs_dec<kRegsProducer>();
@@ -1875,15 +1805,18 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(full_q, 2 * C::Q_BYTES);
       load_tile<BQ, DMAX>(sm, &tm_q, full_q, h, r0, b);
       load_tile<BQ, DMAX>(sm + C::OFF_DO, &tm_do, full_q, h, r0, b);
+    }
+    if constexpr (KM) {  // its first warp
+      if (threadIdx.x < kConsumers + 32)
+        key_tile_producer<BK, ST>(
+            g, km_row(g, b, h), kt0, kt1,
+            reinterpret_cast<float*>(sm + C::OFF_KM), skt, full_k, empty,
+            load_kv);
+    } else if (threadIdx.x == kConsumers) {
       for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
         const int s = i % ST;
         mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
-        mbar_expect_tx(full_k + s, C::KV_BYTES);
-        load_tile<BK, DMAX>(sm + C::OFF_K + s * C::KV_BYTES, &tm_k,
-                            full_k + s, hk, kt * BK, b);
-        mbar_expect_tx(full_v + s, C::KV_BYTES);
-        load_tile<BK, DMAX>(sm + C::OFF_V + s * C::KV_BYTES, &tm_v,
-                            full_v + s, hk, kt * BK, b);
+        load_kv(s, kt);
       }
     }
   } else {  // the consumer warpgroups
@@ -1903,6 +1836,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // that their p = ex2(-inf) is exactly 0
     int lo[2], hi[2];
     float lse2[2], dl[2];
+    uint32_t hrow[2];  // DROP: the hash's row terms, salt included
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + rw + 8 * r, diag = row + offset;
@@ -1911,13 +1845,18 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const float l = row < g.SQ ? lse[rows + row] : kNegInf;
       lse2[r] = l > 0.5f * kNegInf ? l * kLog2e : INFINITY;
       dl[r] = !FUSED && row < g.SQ ? delta[rows + row] : 0.f;
+      if constexpr (DROP)
+        hrow[r] = (uint32_t)row * kRowMul + head_salt(g, bh);
     }
     // FUSED: delta of this warpgroup's 64 rows. Thread t sums half of
     // row 64 wq + t / 2: its O from device memory, loaded here while Q
     // and dO land, and its dO from the resident tile (16-byte chunk c of
     // a 128-byte line of box col / 64 lies at chunk c ^ (line % 8), the
     // 128-byte swizzle). The sum runs once the first key tile's products
-    // are issued, under them (after the loop if the rows see no key).
+    // are issued, under them (after the loop if the rows see no key); at
+    // d 128 with a key row before the loop, since O's registers beside the
+    // first tile's spill there.
+    constexpr bool kEarly = FUSED && KM && DMAX > 64;
     const int t = threadIdx.x & 127, rr = 64 * wq + (t >> 1);
     uint4 ov[DMAX / 16];
     if (FUSED) {
@@ -1956,14 +1895,28 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       dl[1] = sdelta[rw + 8];
     };
     mbar_wait(full_q, 0);
+    if (kEarly) sum_delta();
     float acc[DMAX / 2];
 #pragma unroll
     for (int j = 0; j < DMAX / 2; ++j) acc[j] = 0.f;
-    for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
-      const int s = i % ST, c0 = kt * BK;
+    int visited = 0;  // KM: the tiles visited
+    // the key tiles from the last to the first; KM: as the producer
+    // announces them
+    for (int i = 0, kt = kt1 - 1; KM || kt >= kt0; --kt, ++i) {
+      const int s = i % ST;
       const uint32_t ph = (i / ST) & 1;
+      if constexpr (KM) {
+        mbar_wait(full_k + s, ph);
+        kt = skt[s];
+        if (kt < 0) break;
+        visited = i + 1;
+      }
+      const int c0 = kt * BK;
       const char* sK = sm + C::OFF_K + s * C::KV_BYTES;
       const char* sV = sm + C::OFF_V + s * C::KV_BYTES;
+      // KM: the tile's key row from this thread's first column, 2 tq
+      const float* skm =
+          reinterpret_cast<const float*>(sm + C::OFF_KM) + s * BK + 2 * tq;
       float sc[BK / 2], dp[BK / 2];
       mbar_wait(full_k + s, ph);
       wg_fence();
@@ -1978,7 +1931,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         wgmma_ss<BK>(dp, desc_kmajor<BQ>(sm + C::OFF_DO, 64 * wq, ks),
                      desc_kmajor<BK>(sV, 0, ks), ks);
       wg_commit();
-      if (FUSED && i == 0) sum_delta();
+      if (FUSED && !kEarly && i == 0) sum_delta();
       // a mask is needed where the tile crosses the causal diagonal, the
       // window's lower edge or the last key
       const bool masked =
@@ -1990,24 +1943,38 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       wg_wait<1>();
       fence_regs(sc);
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
+      for (int j = 0; j < BK / 8; ++j) {
+        float2 kv = make_float2(0.f, 0.f);
+        if constexpr (KM) kv = *reinterpret_cast<const float2*>(skm + 8 * j);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
-          float p = ex2(fmaf(sc[4 * j + e], sl2, -lse2[r]));
+          float p = KM ? ex2(fmaf(sc[4 * j + e], sl2,
+                                  (e & 1 ? kv.y : kv.x) * kLog2e - lse2[r]))
+                       : ex2(fmaf(sc[4 * j + e], sl2, -lse2[r]));
           if (masked && (c < lo[r] || c >= hi[r] || c >= g.SK)) p = 0.f;
           sc[4 * j + e] = p;
         }
+      }
       wg_wait<0>();
       fence_regs(dp);
       // dS rounded to bf16 once as the A operand of dS.K
+      const uint32_t hcol = DROP ? (uint32_t)(c0 + 2 * tq) * kColMul : 0u;
       uint32_t da[BK / 16][4];
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         float ds[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[e] = sc[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]) * g.scale;
+        for (int e = 0; e < 4; ++e) {
+          float dpv = dp[4 * j + e];
+          if constexpr (DROP)  // dp masked and scaled before ds
+            dpv = keep_sum(hrow[e >> 1] + hcol +
+                               (uint32_t)(8 * j + (e & 1)) * kColMul,
+                           g.thresh)
+                      ? dpv * g.dscale
+                      : 0.f;
+          ds[e] = sc[4 * j + e] * (dpv - dl[e >> 1]) * g.scale;
+        }
         da[j >> 1][2 * (j & 1)] = pack(ds[0], ds[1]);
         da[j >> 1][2 * (j & 1) + 1] = pack(ds[2], ds[3]);
       }
@@ -2021,7 +1988,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(da);
       mbar_arrive(empty + s);
     }
-    if (FUSED && kt1 <= kt0) sum_delta();
+    if (FUSED && !kEarly && (KM ? visited == 0 : kt1 <= kt0)) sum_delta();
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + rw + 8 * r;
@@ -2175,11 +2142,11 @@ int bf16_map(CUtensorMap* map, const void* base, int B, int S, int heads,
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
-template <int DMAX>
+template <int DMAX, bool KM, bool DROP>
 cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                       void* lse, const Geom& g, const long long* st,
                       cudaStream_t stream) {
-  using C = wg::FwdCfg<DMAX>;
+  using C = wg::FwdCfg<DMAX, KM>;
   CUtensorMap tq, tk, tv;
   int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
@@ -2187,46 +2154,32 @@ cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
   if (!err)
     err = bf16_map(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_fwd_wgmma<DMAX>;
+  auto kernel = wg::flash_fwd_wgmma<DMAX, KM, DROP>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
-  kernel<<<g.B * g.H * ((g.SQ + C::BQ - 1) / C::BQ), wg::kThreadsWg, C::SMEM,
-           stream>>>(tq, tk, tv, (wg::bf16*)o, (float*)lse, g,
-                     strides_at(st, 3));
+  kernel<<<g.B * g.H * ((g.SQ + C::BQ - 1) / C::BQ),
+           KM || DROP ? wg::kThreadsWs : wg::kThreadsWg, C::SMEM, stream>>>(
+      tq, tk, tv, (wg::bf16*)o, (float*)lse, g, strides_at(st, 3));
   return cudaGetLastError();
 }
 
-// The forward without key row or dropout (kernel 1 on the Llama path)
-// runs the wgmma kernel; the variants keep the mma.sync template.
+// The forward (kernels 1 and 4, every variant) runs the wgmma kernel.
 template <int DMAX, bool KM, bool DROP>
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Geom& g, const long long* st,
                    cudaStream_t stream) {
-  if constexpr (!KM && !DROP) {
-    return fwd_wgmma<DMAX>(q, k, v, o, lse, g, st, stream);
-  } else {
-    auto kernel = tc::flash_fwd_tc<DMAX, KM, DROP>;
-    const size_t smem = tc::Smem<DMAX>::fwd;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((g.SQ + 63) / 64, g.B * g.H), tc::kThreadsTc, smem,
-             stream>>>(
-        (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
-        (tc::bf16*)o, (float*)lse, g, strides_at(st, 0), strides_at(st, 1),
-        strides_at(st, 2), strides_at(st, 3));
-    return cudaGetLastError();
-  }
+  return fwd_wgmma<DMAX, KM, DROP>(q, k, v, o, lse, g, st, stream);
 }
 
 // dQ on wgmma: FUSED computes delta from O (strides so_) and writes it;
 // otherwise delta is read. st: the strides of q, k, v, dout.
-template <int DMAX, bool FUSED>
+template <int DMAX, bool FUSED, bool KM, bool DROP>
 cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
                          const void* dout, const void* out, const void* lse,
                          void* delta, void* dq, const Geom& g,
                          const long long* st, Strides so_, Strides sdq_,
                          cudaStream_t stream) {
-  using C = wg::DqCfg<DMAX>;
+  using C = wg::DqCfg<DMAX, KM>;
   CUtensorMap tq, tk, tv, tdo;
   int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
@@ -2237,7 +2190,7 @@ cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
     err = bf16_map(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
                    C::BQ);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_bwd_dq_wgmma<DMAX, FUSED>;
+  auto kernel = wg::flash_bwd_dq_wgmma<DMAX, FUSED, KM, DROP>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   const int grid =
@@ -2248,31 +2201,15 @@ cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// dQ without key row or dropout (kernel 2 on the Llama path when the
-// caller gives delta) runs the wgmma kernel; the variants keep the
-// mma.sync template.
+// dQ given delta (kernels 2 and 5, every variant) runs the wgmma kernel.
 template <int DMAX, bool KM, bool DROP>
 cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, const Geom& g, const long long* st,
                       cudaStream_t stream) {
-  if constexpr (!KM && !DROP) {
-    return bwd_dq_wgmma<DMAX, false>(q, k, v, dout, nullptr, lse,
-                                     const_cast<void*>(delta), dq, g, st,
-                                     Strides{}, strides_at(st, 4), stream);
-  } else {
-    auto kernel = tc::flash_bwd_dq_tc<DMAX, KM, DROP>;
-    const size_t smem = tc::Smem<DMAX>::dq;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((g.SQ + 63) / 64, g.B * g.H), tc::kThreadsTc, smem,
-             stream>>>(
-        (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
-        (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
-        (tc::bf16*)dq, g, strides_at(st, 0), strides_at(st, 1),
-        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4));
-    return cudaGetLastError();
-  }
+  return bwd_dq_wgmma<DMAX, false, KM, DROP>(
+      q, k, v, dout, nullptr, lse, const_cast<void*>(delta), dq, g, st,
+      Strides{}, strides_at(st, 4), stream);
 }
 
 template <int DMAX, bool KM, bool DROP>
@@ -2410,6 +2347,32 @@ int bwd_dkv_entry(const void* q, const void* k, const void* v,
                     (cudaStream_t)stream);
 }
 
+// dQ that also computes delta (bf16, d <= 128, every variant): strides
+// of q, k, v, dout, out, dq.
+int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
+                       const void* dout, const void* out, const void* lse,
+                       void* delta, void* dq, const void* km,
+                       const int* geom, float scale, const long long* strides,
+                       const unsigned* drop, float dscale, int dtype,
+                       void* stream, int hb) {
+  const Geom g = make_geom(geom, scale, km, nullptr, drop, dscale, hb);
+  if (dtype != kBFloat16 || g.d % 8 || g.d > 128 || g.H % g.HKV)
+    return cudaErrorInvalidValue;
+  const Strides so_ = strides_at(strides, 4), sdq_ = strides_at(strides, 5);
+#define PT_DQ_DELTA(KM, DROP)                                              \
+  return g.d <= 64 ? bwd_dq_wgmma<64, true, KM, DROP>(                     \
+                         q, k, v, dout, out, lse, delta, dq, g, strides,   \
+                         so_, sdq_, (cudaStream_t)stream)                  \
+                   : bwd_dq_wgmma<128, true, KM, DROP>(                    \
+                         q, k, v, dout, out, lse, delta, dq, g, strides,   \
+                         so_, sdq_, (cudaStream_t)stream)
+  if (km && drop) PT_DQ_DELTA(true, true);
+  if (km) PT_DQ_DELTA(true, false);
+  if (drop) PT_DQ_DELTA(false, true);
+  PT_DQ_DELTA(false, false);
+#undef PT_DQ_DELTA
+}
+
 }  // namespace
 
 // Strides: the (batch, seq, head) element strides of each [b, s, h, d]
@@ -2448,15 +2411,10 @@ extern "C" int pt_flash_bwd_dq_delta(const void* q, const void* k,
                                      float scale, const long long* strides,
                                      const unsigned* drop, float dscale,
                                      int dtype, void* stream) {
-  const Geom g = make_geom(geom, scale, nullptr, nullptr, drop, dscale, 0);
-  if (dtype != kBFloat16 || drop || g.d % 8 || g.d > 128 || g.H % g.HKV)
-    return cudaErrorInvalidValue;
-  const Strides so_ = strides_at(strides, 4), sdq_ = strides_at(strides, 5);
-  if (g.d <= 64)
-    return bwd_dq_wgmma<64, true>(q, k, v, dout, out, lse, delta, dq, g,
-                                  strides, so_, sdq_, (cudaStream_t)stream);
-  return bwd_dq_wgmma<128, true>(q, k, v, dout, out, lse, delta, dq, g,
-                                 strides, so_, sdq_, (cudaStream_t)stream);
+  if (drop) return cudaErrorInvalidValue;
+  return bwd_dq_delta_entry(q, k, v, dout, out, lse, delta, dq, nullptr,
+                            geom, scale, strides, nullptr, dscale, dtype,
+                            stream, 0);
 }
 
 // q, k, v, dout, dk, dv strides. dm: [B * H, 1, SK] (with km).
@@ -2491,6 +2449,20 @@ extern "C" int pt_hb_bwd_dq(const void* q, const void* k, const void* v,
                             float dscale, int dtype, void* stream) {
   return bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, geom, scale,
                       strides, drop, dscale, dtype, stream, 1);
+}
+
+// Kernel 5 computing delta itself, as pt_flash_bwd_dq_delta with the key
+// row km [B, 1, SK] (or null) and dropout (drop or null).
+extern "C" int pt_hb_bwd_dq_delta(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* out, const void* lse,
+                                  void* delta, void* dq, const void* km,
+                                  const int* geom, float scale,
+                                  const long long* strides,
+                                  const unsigned* drop, float dscale,
+                                  int dtype, void* stream) {
+  return bwd_dq_delta_entry(q, k, v, dout, out, lse, delta, dq, km, geom,
+                            scale, strides, drop, dscale, dtype, stream, 1);
 }
 
 // dm_heads: [B * H, 1, SK] fp32 scratch (with km) for the per-head dmask

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash kernels, in raw PTX:
-// mbarriers and named barriers, register reallocation between
-// warpgroups (setmaxnreg), TMA tensor loads, wgmma shared-memory
-// descriptors and the warpgroup products wgmma.mma_async (bf16
-// operands, fp32 accumulators).
+// mbarriers and named barriers, cp.async copies that arrive on an
+// mbarrier, register reallocation between warpgroups (setmaxnreg), TMA
+// tensor loads, wgmma shared-memory descriptors and the warpgroup
+// products wgmma.mma_async (bf16 operands, fp32 accumulators).
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte
 // swizzle: an [R, 64] bf16 box (one "atom" column block of 128 bytes a
@@ -83,6 +83,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // `id` (1-15; 0 is __syncthreads's).
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// -- cp.async ----------------------------------------------------------------
+
+// Copy 4 bytes from device to shared memory asynchronously, or write 4
+// zero bytes when !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed (.noinc: the barrier's count includes it).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // -- register reallocation ----------------------------------------------------

@@ -31,10 +31,10 @@ What bounds the kernels: at the headline shape (b8, s1024, h12, d128,
 bf16, causal) about 26 GFLOP forward and 90 GFLOP backward against
 ~100 MB of operands each, so they are bound by tensor-core operations.
 For bf16 with ``d <= 128`` they run on the tensor cores: the forward
-and dQ without key row or dropout, dK/dV without them and at ``d <= 64``
-with them, as warp-specialised ``wgmma`` kernels fed by TMA through a
-ring of shared tiles (the heaviest tiles first), the key-row and dropout
-variants of the rest with ``mma.sync``;
+and dQ in every variant, dK/dV without key row or dropout and at ``d <=
+64`` with them, as warp-specialised ``wgmma`` kernels fed by TMA through
+a ring of shared tiles (the heaviest tiles first), the key-row and
+dropout variants of dK/dV at ``64 < d <= 128`` with ``mma.sync``;
 fp32 inputs and ``d > 128`` take fp32-FMA kernels, so fp32 results match
 the CPU's plain versions to fp32 rounding. All read q/k/v through their
 (batch, seq, head) strides, so the ``[b, s, h, d]`` views of the fused
@@ -370,6 +370,9 @@ def _lib():
             fn.restype = _I
     lib.pt_flash_bwd_dq_delta.argtypes = [_P] * 8 + _TAIL
     lib.pt_flash_bwd_dq_delta.restype = _I
+    # the head-batched fused dQ also takes the key row
+    lib.pt_hb_bwd_dq_delta.argtypes = [_P] * 9 + _TAIL
+    lib.pt_hb_bwd_dq_delta.restype = _I
     return lib
 
 
@@ -415,6 +418,22 @@ def _bwd_dq(entry, name, q, k, v, do, lse, delta, kmask, scale, causal,
     _launch(entry, name, (q, k, v, do, lse, delta, dq, kmask), q, k, causal,
             window, scale, (q, k, v, do, dq), drop)
     return dq
+
+
+def _bwd_dq_delta(entry, name, q, k, v, do, out, lse, scale, causal, window,
+                  drop, kmask=()):
+    """Launch a dQ entry that also computes delta (bfloat16, ``d <= 128``;
+    anything else raises); returns (dQ, delta ``[b * h, sq]``). ``kmask``:
+    ``(key rows or None,)`` for an entry that takes them."""
+    b, sq, h, d = q.shape
+    if not _fusable(q):
+        raise ValueError(f"{name} takes bfloat16 with head_dim <= 128, got "
+                         f"{q.dtype} and {d}")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    _launch(entry, name, (q, k, v, do, out, lse, delta, dq, *kmask), q, k,
+            causal, window, scale, (q, k, v, do, out, dq), drop)
+    return dq, delta
 
 
 def _bwd_dkv(entry, name, q, k, v, do, lse, delta, kmask, dm_rows, scale,
@@ -545,21 +564,14 @@ def flash_bwd_dq_delta(q, k, v, do, out, lse, *, causal, scale=None,
     launches count on ``flash_bwd_dq.launches``: it is kernel 2."""
     _check(q, k, v, causal, window, extra=(("do", do), ("out", out)))
     _check_stats(q, lse=lse)
-    b, sq, h, d = q.shape
-    scale = _scale(scale, d)
+    scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_bwd_dq_delta_ref(q, k, v, do, out, lse, causal=causal,
                                       scale=scale, window=window)
-    if q.dtype != torch.bfloat16 or d > 128:
-        raise ValueError(f"flash_bwd_dq_delta takes bfloat16 with head_dim "
-                         f"<= 128, got {q.dtype} and {d}")
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    _launch(_lib().pt_flash_bwd_dq_delta, "flash_bwd_dq_delta",
-            (q, k, v, do, out, lse, delta, dq), q, k, causal, window, scale,
-            (q, k, v, do, out, dq), None)
+    res = _bwd_dq_delta(_lib().pt_flash_bwd_dq_delta, "flash_bwd_dq_delta",
+                        q, k, v, do, out, lse, scale, causal, window, None)
     flash_bwd_dq.launches += 1
-    return dq, delta
+    return res
 
 
 flash_fwd.launches = 0
@@ -578,11 +590,16 @@ def _upstream(do, q):
     return do
 
 
+def _fusable(q):
+    """Whether a dQ kernel can compute delta itself for q: CUDA, bfloat16,
+    ``d <= 128`` (the wgmma kernels)."""
+    return q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] <= 128
+
+
 def _fused_delta(q, args):
     """Whether the backward takes :func:`flash_bwd_dq_delta` (CUDA,
     bfloat16, ``d <= 128``, no key row or dropout)."""
-    return q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] <= 128 \
-        and args["kmask"] is None and not args["dropout"]
+    return _fusable(q) and args["kmask"] is None and not args["dropout"]
 
 
 class _FlashFn(torch.autograd.Function):

@@ -1,11 +1,13 @@
 """Head-batched flash attention: kernels 4-6, their plain PyTorch
 versions, and the autograd Function that joins them.
 
-Counterpart of ``paddle_tpu/ops/pallas/head_flash.py``. The three entries
+Counterpart of ``paddle_tpu/ops/pallas/head_flash.py``. The entries
 of ``csrc/flash_attention.cu`` replace its Pallas TPU kernels:
 
 - :func:`hb_fwd` (``pt_hb_fwd``: O and lse) replaces ``_hb_fwd_kernel``;
-- :func:`hb_bwd_dq` (``pt_hb_bwd_dq``) replaces ``_hb_dq_kernel``;
+- :func:`hb_bwd_dq` (``pt_hb_bwd_dq``) and :func:`hb_bwd_dq_delta`
+  (``pt_hb_bwd_dq_delta``: dQ and delta in one launch, what the CUDA
+  backward runs in bfloat16) replace ``_hb_dq_kernel``;
 - :func:`hb_bwd_dkv` (``pt_hb_bwd_dkv``: dK, dV and dmask) replaces
   ``_hb_dkv_kernel``.
 
@@ -14,7 +16,13 @@ d]`` blocks without the ``[b * h, s, d]`` transposes of kernels 1-3, and
 their key mask is one row per batch row (``[b, 1, sk]``) whose gradient
 sums over heads and rows in the kernel. On Hopper kernels 1-3 already
 read ``[b, s, h, d]`` through strides, so kernels 4-6 are kernels 1-3's
-templates with the mask row read at the batch row. Kernel 6 takes kernel
+templates with the mask row read at the batch row, all three on the
+``wgmma`` family in bfloat16 at BERT's ``d`` 64: kernel 4 is
+``flash_fwd_wgmma<64, true, true>`` and kernel 5
+``flash_bwd_dq_wgmma<64, true, true, true>`` (delta summed inside it).
+Kernels 4 and 5 skip key tiles (128 and 64 keys) that are wholly padding
+for the batch row, with the rule kernel 6 uses: their results are
+bit-identical to visiting them. Kernel 6 takes kernel
 3's grid, one block per (128 keys, kv head) on the wgmma kernel at ``d
 <= 64`` (3072 blocks at b64 s512 h12), and writes one dmask row per
 query head into a ``[b * h, 1, sk]`` scratch that the wrapper allocates;
@@ -33,16 +41,15 @@ transposed to ``[b, h, sq]`` is this).
 
 What bounds them at BERT-base's shape (b64, s512, h12, d64, bf16,
 non-causal, padded): counting only the (row, key) pairs the function
-needs, each is bound by bytes (about 0.049, 0.064 and 0.079 ms for
-kernels 4-6). Kernels 4 and 5 compute with ``mma.sync`` from tiles
-loaded synchronously; kernel 6 with ``wgmma`` from a TMA ring (see the
-source's note).
+needs, each is bound by bytes (about 0.049, 0.064 with delta and 0.079
+ms for kernels 4-6). All three compute with ``wgmma`` from a TMA ring
+(see the source's note).
 
 Wrapper rules as in ``flash_attention.py``: CPU tensors go to the plain
 versions (:func:`hb_fwd_ref`, :func:`hb_bwd_dq_ref`,
-:func:`hb_bwd_dkv_ref`); CUDA tensors launch the kernel or raise.
-``hb_fwd.launches``, ``hb_bwd_dq.launches`` and ``hb_bwd_dkv.launches``
-count launches.
+:func:`hb_bwd_dq_delta_ref`, :func:`hb_bwd_dkv_ref`); CUDA tensors launch
+the kernel or raise. ``hb_fwd.launches``, ``hb_bwd_dq.launches`` (kernel
+5 through either entry) and ``hb_bwd_dkv.launches`` count launches.
 """
 from __future__ import annotations
 
@@ -50,8 +57,9 @@ import torch
 
 from . import flash_attention as _fa
 
-__all__ = ["hb_flash", "hb_fwd", "hb_bwd_dq", "hb_bwd_dkv", "hb_fwd_ref",
-           "hb_bwd_dq_ref", "hb_bwd_dkv_ref"]
+__all__ = ["hb_flash", "hb_fwd", "hb_bwd_dq", "hb_bwd_dkv",
+           "hb_bwd_dq_delta", "hb_fwd_ref", "hb_bwd_dq_ref",
+           "hb_bwd_dkv_ref", "hb_bwd_dq_delta_ref"]
 
 
 def _per_head(kmask, h):
@@ -81,6 +89,15 @@ def hb_bwd_dq_ref(q, k, v, do, lse, delta, *, causal=False, scale=None,
                                 scale=scale, window=window,
                                 kmask=_per_head(kmask, q.shape[2]),
                                 seed=seed, dropout=dropout)
+
+
+def hb_bwd_dq_delta_ref(q, k, v, do, out, lse, *, causal=False, scale=None,
+                        window=0, kmask=None, seed=None, dropout=0.0):
+    """Plain version of :func:`hb_bwd_dq_delta`: (dQ, delta)."""
+    delta = _fa._delta(do, out)
+    return hb_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
+                         scale=scale, window=window, kmask=kmask, seed=seed,
+                         dropout=dropout), delta
 
 
 def hb_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal=False, scale=None,
@@ -137,6 +154,33 @@ def hb_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
     return dq
 
 
+def hb_bwd_dq_delta(q, k, v, do, out, lse, *, causal=False, scale=None,
+                    window=0, kmask=None, seed=None, dropout=0.0):
+    """Kernel 5 computing delta itself: (dQ ``[b, sq, h, d]``, delta ``=
+    rowsum(dO * O)`` ``[b * h, sq]`` fp32) from dO and the forward's O
+    (both q's shape and dtype) and lse, with the key row and dropout as
+    :func:`hb_bwd_dq` takes them. One launch: each block sums delta for
+    its query rows from the dO tile it holds, writes it out for
+    :func:`hb_bwd_dkv`, and goes on to dQ. Takes bfloat16 with ``d <=
+    128`` (on CUDA; anything else raises). Its launches count on
+    ``hb_bwd_dq.launches``: it is kernel 5."""
+    _fa._check(q, k, v, causal, window, extra=(("do", do), ("out", out)))
+    _fa._check_stats(q, lse=lse)
+    drop = _fa._dropout_words(dropout, seed)
+    if kmask is not None:
+        _fa._check_kmask(kmask, q.shape[0], q, k)
+    scale = _fa._scale(scale, q.shape[-1])
+    if not q.is_cuda:
+        return hb_bwd_dq_delta_ref(q, k, v, do, out, lse, causal=causal,
+                                   scale=scale, window=window, kmask=kmask,
+                                   seed=seed, dropout=dropout)
+    res = _fa._bwd_dq_delta(_fa._lib().pt_hb_bwd_dq_delta, "hb_bwd_dq_delta",
+                            q, k, v, do, out, lse, scale, causal, window,
+                            drop, kmask=(kmask,))
+    hb_bwd_dq.launches += 1
+    return res
+
+
 def hb_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
                window=0, kmask=None, seed=None, dropout=0.0):
     """(dK, dV) of :func:`hb_fwd` (GQA summed over each group) and, with
@@ -164,8 +208,9 @@ hb_bwd_dkv.launches = 0
 # -- autograd -----------------------------------------------------------------
 
 class _HbFlashFn(torch.autograd.Function):
-    """Forward kernel 4; backward: delta in fp32, then kernels 5 and 6.
-    kmask's gradient is kernel 6's dmask."""
+    """Forward kernel 4; backward: kernel 5 computing delta itself, then
+    kernel 6 (bfloat16 on CUDA with ``d <= 128``), else delta as torch
+    ops, then kernels 5 and 6. kmask's gradient is kernel 6's dmask."""
 
     @staticmethod
     def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout):
@@ -180,8 +225,11 @@ class _HbFlashFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = _fa._upstream(do, q)
-        delta = _fa._delta(do, out)
-        dq = hb_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
+        if _fa._fusable(q):
+            dq, delta = hb_bwd_dq_delta(q, k, v, do, out, lse, **ctx.args)
+        else:
+            delta = _fa._delta(do, out)
+            dq = hb_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
         dk, dv, *dm = hb_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
         return (dq, dk, dv, dm[0] if dm else None, None, None, None, None,
                 None)

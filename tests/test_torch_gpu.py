@@ -656,6 +656,114 @@ def test_hb_flash_autograd_and_dmask_is_the_head_sum(cuda):
                                atol=1e-4, rtol=1e-5)
 
 
+# Kernels 4 and 5 on the wgmma kernels (bf16, d 64 and 128) with the key
+# row, dropout and both, causal (sq 200 against sk 331) and not (sq 300,
+# sk 331: key rows that start at odd floats), on a padded batch whose rows
+# hold 0 live keys (every key padding: no tile is skipped), 1, 100 and all
+# 331 (so the 128-key forward tiles and 64-key dQ tiles past a row's live
+# keys are skipped): O and dQ (given delta, and computing delta itself) per 64-row tile
+# within 1e-2 of the plain version on fp32 copies, lse within 1e-4 plus
+# 4e-7 of its size (rows whose keys are all padding have |lse| ~ 1e4),
+# the fused delta per (batch, head) row within 1e-5; each entry launched
+# once a call, and two calls bit-identical. Without dropout the row with
+# one live key attends to that key alone, so its dQ is exactly 0 in exact
+# arithmetic (dp - delta cancels) and only rounding is left: that row's
+# dQ is held by its size (within 1e-3 of the batch's largest), not per
+# tile.
+@pytest.mark.parametrize("variant", ["kmask", "dropout", "both"])
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal",
+                                                       "causal"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_hb_wgmma_fwd_and_dq_match_plain(cuda, d, causal, variant):
+    b, sq, sk, h = 4, 200 if causal else 300, 331, 4
+    rng = np.random.RandomState(d + sq)
+    q, do = (torch.from_numpy(rng.randn(b, sq, h, d).astype(np.float32))
+             .to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, sk, h, d).astype(np.float32))
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    lengths = np.array([0, 1, 100, sk])
+    kmask = torch.from_numpy(np.where(
+        np.arange(sk)[None] < lengths[:, None], 0.0, -1e4).astype(
+            np.float32)).reshape(b, 1, sk).to(cuda)
+    kw = dict(causal=causal, kmask=None if variant == "dropout" else kmask,
+              seed=None if variant == "kmask" else _SEED,
+              dropout=0.0 if variant == "kmask" else 0.1)
+    f32 = [t.float() for t in (q, k, v, do)]
+    n = (hf.hb_fwd.launches, hf.hb_bwd_dq.launches)
+    out, lse = hf.hb_fwd(q, k, v, **kw)
+    want_out, want_lse = hf.hb_fwd_ref(*f32[:3], **kw)
+    out_b = want_out.to(torch.bfloat16)
+    delta = fa._delta(do, out_b)
+    dq = hf.hb_bwd_dq(q, k, v, do, want_lse, delta, **kw)
+    dq_f, delta_f = hf.hb_bwd_dq_delta(q, k, v, do, out_b, want_lse, **kw)
+    again = (*hf.hb_fwd(q, k, v, **kw),
+             hf.hb_bwd_dq(q, k, v, do, want_lse, delta, **kw),
+             *hf.hb_bwd_dq_delta(q, k, v, do, out_b, want_lse, **kw))
+    torch.cuda.synchronize()
+    assert (hf.hb_fwd.launches, hf.hb_bwd_dq.launches) == (n[0] + 2,
+                                                           n[1] + 4)
+    for first, second in zip((out, lse, dq, dq_f, delta_f), again):
+        assert torch.equal(first, second)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=4e-7)
+    want_dq = hf.hb_bwd_dq_ref(*f32, want_lse, delta, **kw)
+    rows = [0, 2, 3] if variant == "kmask" else [0, 1, 2, 3]
+    for name, got, want in (("O", out, want_out), ("dq", dq, want_dq),
+                            ("dq fused", dq_f, want_dq)):
+        err = _tile_rel_err(got[rows], want[rows])
+        assert err <= 1e-2, f"{name}: per-tile relative error {err}"
+    if variant == "kmask":
+        assert _tile_rel_err(out[1:2], want_out[1:2]) <= 1e-2
+        for got in (dq, dq_f, want_dq):
+            assert got[1].float().abs().max() <= 1e-3 * want_dq.abs().max()
+    err = _row_rel(delta_f[:, None], delta[:, None])
+    assert err <= 1e-5, f"delta: relative error per row {err}"
+
+
+def test_hb_backward_computes_delta_in_kernel_5(cuda, monkeypatch):
+    """On CUDA in bf16 ``_HbFlashFn.backward`` takes delta from kernel 5:
+    the torch ops of ``_delta`` are never called (they raise here), the
+    backward is one launch each of kernels 5 and 6, and dQ is the fused
+    entry's on the saved O and lse, bit for bit."""
+    b, s, h, d = 2, 160, 4, 64
+    gen = torch.Generator(cuda).manual_seed(7)
+    q, k, v = (torch.randn(b, s, h, d, device=cuda, generator=gen).to(
+        torch.bfloat16).requires_grad_() for _ in range(3))
+    km = torch.zeros(b, 1, s, device=cuda)
+    km[0, 0, 70:] = -1e4
+    kw = dict(seed=_SEED, kmask=km, dropout=0.1)
+
+    def no_torch_delta(*a, **k_):
+        raise AssertionError("delta computed by torch ops on CUDA")
+
+    monkeypatch.setattr(fa, "_delta", no_torch_delta)
+    n = (hf.hb_fwd.launches, hf.hb_bwd_dq.launches, hf.hb_bwd_dkv.launches)
+    out = hf.hb_flash(q, k, v, **kw)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (hf.hb_fwd.launches, hf.hb_bwd_dq.launches,
+            hf.hb_bwd_dkv.launches) == tuple(x + 1 for x in n)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o2, lse = hf.hb_fwd(qd, kd, vd, **kw)
+    assert torch.equal(o2, out.detach())
+    dq, _ = hf.hb_bwd_dq_delta(qd, kd, vd, (2 * out.detach().float()).to(
+        torch.bfloat16), o2, lse, **kw)
+    assert torch.equal(q.grad, dq)
+    assert all(t.grad.isfinite().all() for t in (q, k, v))
+
+
+def test_hb_fused_dq_refuses_what_it_does_not_take(cuda):
+    """``hb_bwd_dq_delta`` on CUDA takes bfloat16 with d <= 128 only:
+    fp32 and d 136 raise before any launch (no fallback)."""
+    gen = torch.Generator(cuda).manual_seed(9)
+    n = hf.hb_bwd_dq.launches
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 136)):
+        x = torch.randn(1, 64, 2, d, device=cuda, generator=gen).to(dtype)
+        lse = torch.zeros(2, 64, device=cuda)
+        with pytest.raises(ValueError, match="bfloat16 with head_dim"):
+            hf.hb_bwd_dq_delta(x, x, x, x, x, lse)
+    assert hf.hb_bwd_dq.launches == n
+
+
 def _train_tiny_bert(device, weights, steps=10):
     trandom.seed(0)
     cfg = BertConfig.tiny(hidden_dropout_prob=0.0)

@@ -16,7 +16,14 @@ side with 16-row blocks, so several tiles per row and key):
   the same O, lse and dO: dQ, dK, dV and dmask each divided by its max
   abs within 1e-4;
 - the autograd ``hb_flash`` against ``jax.grad`` of the reference's
-  ``hb_flash``, the key mask's gradient included.
+  ``hb_flash``, the key mask's gradient included;
+- kernel 5's entry that computes delta itself (``hb_bwd_dq_delta``, its
+  plain form on the CPU) against ``_hb_bwd_impl``'s dQ and the
+  reference's delta;
+- a plain model of the CUDA forward's and dQ's skip of wholly padded key
+  tiles (128 and 64 keys), held against the rule it implements by brute
+  force, and the skip's premise: the skipped tiles' keys set to -inf
+  leave the plain outputs bit-identical.
 
 Cases: non-causal with a BERT-style additive key mask, with and without
 dropout 0.1; causal with a window and dropout; GQA h4/h_kv2 with mask
@@ -24,6 +31,7 @@ and dropout; sq 32 against sk 64; no variant. The routing of
 ``F.scaled_dot_product_attention`` is checked here too.
 """
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -312,3 +320,191 @@ def test_wrapper_rejects(fault):
         kw = dict(dropout=1.0, seed=SEED)
     with pytest.raises(ValueError):
         thf.hb_fwd(q, k, v, **kw)
+
+
+# -- kernel 5 computing delta itself ------------------------------------------
+# hb_bwd_dq_delta's plain form (the CPU route of the entry that the CUDA
+# backward takes in bf16) against _hb_bwd_impl's dQ (Pallas, interpret
+# mode) and the reference's delta (head_flash.py:352, the same expression
+# on the same O and dO), with and without the key row and dropout: dQ as
+# test_bwd_plain_matches_pallas holds it (1e-4 of its max abs), delta
+# within 1e-5 (fp32 sums of 32 fp32 products, summed in another order).
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_fused_dq_delta_plain_matches_pallas(case):
+    causal, window, h, h_kv, sq, sk, use_km, p = case
+    q, k, v, do = _inputs(7, h, h_kv, sq, sk)
+    km = _kmask(sk, use_km)
+    jout, jlse = _jax_fwd(q, k, v, km, causal, window, p)
+    jdq, _, _, _ = jhf._hb_bwd_impl(
+        q, k, v, jout, jlse, do, causal, 1.0 / math.sqrt(D), True, BLOCK,
+        BLOCK, window, _seed(p), p,
+        kmask=None if km is None else jnp.asarray(km))
+    jdelta = jnp.sum(jnp.asarray(do, jout.dtype).astype(jnp.float32)
+                     * jout.astype(jnp.float32), axis=-1)  # [b, sq, h]
+    out, tdo, lse = _t(np.asarray(jout)), _t(do), _t(_lse_bh(jlse))
+    kw = dict(causal=causal, window=window, kmask=_t(km),
+              seed=SEED if p else None, dropout=p)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    dq, delta = thf.hb_bwd_dq_delta(tq, tk, tv, tdo, out, lse, **kw)
+    assert dq.shape == q.shape and delta.shape == (B * h, sq)
+    _close_normalized(dq.numpy(), np.asarray(jdq), name="dq")
+    np.testing.assert_allclose(
+        delta.numpy(), np.asarray(jdelta).transpose(0, 2, 1).reshape(-1, sq),
+        atol=1e-5, rtol=0)
+    # the plain form is kernel 5's plain version beside _delta
+    want = thf.hb_bwd_dq_ref(tq, tk, tv, tdo, lse, tfa._delta(tdo, out),
+                             **kw)
+    torch.testing.assert_close(dq, want, rtol=0, atol=0)
+    torch.testing.assert_close(delta, tfa._delta(tdo, out), rtol=0, atol=0)
+
+
+def test_backward_fuses_delta_by_device_and_dtype(monkeypatch):
+    """``_HbFlashFn.backward`` takes kernel 5's fused entry on CUDA in
+    bfloat16 with ``d <= 128`` (key row and dropout included); on the CPU
+    it computes delta as torch ops, once per backward."""
+    def on_card(dtype, d):  # what the routing reads of a CUDA tensor
+        return types.SimpleNamespace(is_cuda=True, dtype=dtype,
+                                     shape=(1, 8, 2, d))
+
+    assert tfa._fusable(on_card(torch.bfloat16, 64))
+    assert tfa._fusable(on_card(torch.bfloat16, 128))
+    assert not tfa._fusable(on_card(torch.bfloat16, 136))
+    assert not tfa._fusable(on_card(torch.float32, 64))
+    assert not tfa._fusable(torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16))
+    calls = []
+    real = tfa._delta
+    monkeypatch.setattr(tfa, "_delta",
+                        lambda *a: calls.append(1) or real(*a))
+    q, k, v = (_t(x).requires_grad_() for x in _inputs(8, 4, 4, 32, 32)[:3])
+    km = _t(_kmask(32, True))
+    thf.hb_flash(q, k, v, seed=SEED, kmask=km, dropout=0.1).sum().backward()
+    assert len(calls) == 1 and q.grad is not None
+
+
+# -- the wgmma forward's and dQ's skip of wholly padded key tiles -------------
+# A plain model of csrc/flash_attention.cu's key_tile_producer and
+# padded_tiles: the key tiles a block of the forward (128 keys a tile) or
+# of dQ (64) visits, in order (first to last without causal masking, else
+# last to first), given one key row. The first tile of the band is always
+# visited (its load is issued before the scan); a later one is skipped
+# when it is wholly padding (<= -1e3) and either the row has a live key
+# (non-causal) or a tile before it does (causal); never with a window;
+# tiles past 63 never. Its bits are held against the rule they implement
+# (every row that sees a skipped tile also sees a live key) by brute force.
+
+PAD_LEVEL = -1e3  # csrc/flash_attention.cu's kPadLevel
+
+
+def _skip_bits(km_row, bk, causal, window):
+    """padded_tiles: {tile index} that may be skipped."""
+    if window > 0:
+        return set()
+    live = km_row > PAD_LEVEL
+    nt = -(-len(km_row) // bk)
+    tile_live = [bool(live[t * bk:(t + 1) * bk].any()) for t in range(nt)]
+    if not any(live):
+        return set()
+    first = next((t for t in range(min(nt, 64)) if tile_live[t]), None)
+    return {t for t in range(min(nt, 64)) if not tile_live[t]
+            and (not causal or (first is not None and t > first))}
+
+
+def _visited_tiles(km_row, sq, r0, bq, bk, causal, window):
+    """key_tile_producer's announced tiles for the block at query row r0."""
+    sk = len(km_row)
+    kt0, kt1 = 0, -(-sk // bk)
+    if causal:
+        cmax = min(sk - 1, min(r0 + bq, sq) - 1 + sk - sq)
+        kt1 = 0 if cmax < 0 else cmax // bk + 1
+        if window > 0 and r0 + sk - sq - window + 1 > 0:
+            kt0 = (r0 + sk - sq - window + 1) // bk
+    order = list(range(kt1 - 1, kt0 - 1, -1)) if causal \
+        else list(range(kt0, kt1))
+    skip = _skip_bits(km_row, bk, causal, window)
+    return [kt for n, kt in enumerate(order) if n == 0 or kt not in skip]
+
+
+def _row(sk, live):
+    row = np.full(sk, -9984.0, np.float32)  # BERT's -1e4 padding in bf16
+    row[list(live)] = 0.0
+    return row
+
+
+SKIP_ROWS = {
+    # name: (sk, live keys)
+    "right_pad_300": (512, range(300)),
+    "right_pad_128": (512, range(128)),
+    "one_live_key": (512, [0]),
+    "one_live_key_late": (512, [400]),
+    "all_padding": (512, []),
+    "no_padding": (512, range(512)),
+    "ragged_331": (331, range(100)),
+}
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 64)],
+                         ids=["noncausal", "causal", "window64"])
+@pytest.mark.parametrize("bk", [128, 64], ids=["fwd128", "dq64"])
+@pytest.mark.parametrize("name", list(SKIP_ROWS))
+def test_skip_bits_model(name, bk, causal, window):
+    sk, live_keys = SKIP_ROWS[name]
+    row = _row(sk, live_keys)
+    live = row > PAD_LEVEL
+    skip = _skip_bits(row, bk, causal, window)
+    vis = (np.arange(sk)[None] <= np.arange(sk)[:, None]) if causal \
+        else np.ones((sk, sk), bool)
+    if window:
+        vis &= np.arange(sk)[None] > np.arange(sk)[:, None] - window
+    for t in range(-(-sk // bk)):
+        tile = slice(t * bk, (t + 1) * bk)
+        sees = vis[:, tile].any(1)  # the rows that see tile t
+        safe = not live[tile].any() and (vis[sees] & live).any(1).all()
+        assert t not in skip or safe, f"tile {t} skipped but needed"
+        if not causal and not window and safe and sees.any():
+            assert t in skip, f"tile {t} could be skipped"
+    if window:
+        assert not skip
+    if name == "all_padding":  # rows see no live key: nothing is skipped
+        assert not skip
+    if name == "right_pad_300" and not causal and not window:
+        assert skip == ({3} if bk == 128 else {5, 6, 7})
+    # every block visits each live tile of its band, and the first tile of
+    # its band even when it is padding
+    for r0 in range(0, sk, 128):
+        tiles = _visited_tiles(row, sk, r0, 128, bk, causal, window)
+        assert len(set(tiles)) == len(tiles)
+        band = set(_visited_tiles(np.zeros(sk, np.float32), sk, r0, 128, bk,
+                                  causal, window))
+        assert set(tiles) <= band
+        assert {t for t in band if live[t * bk:(t + 1) * bk].any()} \
+            <= set(tiles)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal",
+                                                       "causal"])
+@pytest.mark.parametrize("bk", [128, 64], ids=["fwd128", "dq64"])
+def test_skipped_tiles_contribute_nothing(bk, causal, p):
+    """The skip's premise: setting every key of the tiles the model skips
+    to -inf (so they contribute exactly nothing) leaves O, lse and dQ of
+    the plain versions bit-identical, on batch rows of 0, 1, 100 and all
+    320 live keys (BERT's -9984 padding)."""
+    lengths, h, s = [0, 1, 100, 320], 2, 320
+    rng = np.random.RandomState(9)
+    q, k, v, do = (torch.from_numpy(rng.randn(len(lengths), s, h, D).astype(
+        np.float32)) for _ in range(4))
+    km = np.stack([_row(s, range(n)) for n in lengths])[:, None, :]
+    cut = km.copy()
+    for bi in range(len(lengths)):
+        for t in _skip_bits(km[bi, 0], bk, causal, 0):
+            cut[bi, 0, t * bk:(t + 1) * bk] = -np.inf
+    assert (cut != km).any()
+    kw = dict(causal=causal, seed=SEED if p else None, dropout=p)
+    out, lse = thf.hb_fwd_ref(q, k, v, kmask=_t(km), **kw)
+    out_c, lse_c = thf.hb_fwd_ref(q, k, v, kmask=_t(cut), **kw)
+    assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+    dq, delta = thf.hb_bwd_dq_delta(q, k, v, do, out, lse, kmask=_t(km),
+                                    **kw)
+    dq_c, delta_c = thf.hb_bwd_dq_delta(q, k, v, do, out, lse,
+                                        kmask=_t(cut), **kw)
+    assert torch.equal(dq, dq_c) and torch.equal(delta, delta_c)
