@@ -16,12 +16,23 @@ only a run in which every phase passed prints the final line:
    decode geometry and at a long-context shape (2048 positions);
 4. serve: the 0.44B Llama (bf16, random weights from a seed) through
    ``ServingEngine`` with default settings on a seeded 16-request trace
-   (a shared system prompt, so the prefix cache hits),
-   once with bf16 KV pools and once with int8 pools; every request must
-   finish, and each kernel's launch count over its run must equal
-   layers x decode rounds (> 0);
-5. token identity: a float32 tiny engine under preemption pressure must
-   emit exactly the tokens of the port's own greedy ``generate()``;
+   (a shared system prompt, so the prefix cache hits), once with bf16
+   KV pools, once with int8 pools and once with int8 weights over bf16
+   pools. Each engine captures its three phase programs as CUDA graphs
+   in ``warmup()`` (exactly 3 captures), then serves with one replay
+   per prefill chunk and per round; every request must finish, and each
+   kernel's launch count over its run must equal layers x decode rounds
+   (> 0). Prints tokens/s, ms per decode and per verify round, prefill
+   ms per request, the replays and the capture time; then reads one
+   decode replay under ``torch.profiler``, where each paged kernel's
+   split and merge launches must appear once per layer;
+5. token identity: a float32 tiny engine (on graphs) under preemption
+   pressure must emit exactly the tokens of the port's own greedy
+   ``generate()``, with bf16-width pools and with int8 pools; on a tiny
+   fp32 model copied from the CPU, left-padded and int8-weight
+   ``generate()`` must give the CPU's tokens; sampling with one seed
+   twice must repeat itself, and ``top_k=1`` must give the greedy
+   tokens;
 6. flash kernels at full width: the forward, dQ (through both entries:
    given delta, and computing delta itself, whose delta is held too) and
    dK/dV kernels each against its plain PyTorch version on the card,
@@ -86,6 +97,7 @@ one call), and prints neither JSON line.
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -95,6 +107,8 @@ import types
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.framework import random as trandom
@@ -494,20 +508,48 @@ def _trace(seed=0, n=16, system=32):
         int(rng.randint(32, 65))) for _ in range(n)]
 
 
-def _serve_once(model, kv_int8, trace, card):
-    """One measured run of the main path: counts zeroed just before,
-    read just after. Returns the kernel's launch count over the run."""
+def phase_clocks(eng):
+    """Wrap the engine's prefill, plain decode round and verify round
+    with host clocks (each ends in the engine's own host sync). Returns
+    {phase: [seconds, calls]}, filled as the engine runs."""
+    spent = {"prefill": [0.0, 0], "decode": [0.0, 0], "verify": [0.0, 0]}
+    for phase, attr in (("prefill", "_prefill"),
+                        ("decode", "_plain_decode_round"),
+                        ("verify", "_verify_round")):
+        inner = getattr(eng, attr)
+
+        def wrapped(*a, _inner=inner, _acc=spent[phase]):
+            t0 = time.perf_counter()
+            _inner(*a)
+            _acc[0] += time.perf_counter() - t0
+            _acc[1] += 1
+
+        setattr(eng, attr, wrapped)
+    return spent
+
+
+def _ms_per(spent, phase):
+    sec, calls = spent[phase]
+    return sec / max(calls, 1) * 1e3
+
+
+def _serve_once(model, trace, card, kv_int8=False, int8_weights=False):
+    """One measured run of the main path on CUDA graphs: the engine
+    captures its phases in ``warmup()``, then counts are zeroed just
+    before the trace and read just after. Returns (the paged kernel's
+    launch count over the run, tokens/s, the engine)."""
     wrapper = pa.paged_attend_int8 if kv_int8 else pa.paged_attend
-    warm = ServingEngine(model, ServingConfig(max_seq_len=MAX_SEQ_LEN,
-                                              kv_int8=kv_int8))
-    warm.warmup()
-    warm.submit(trace[0][0][:40], max_new_tokens=8)
-    warm.run()
-    del warm
-    eng = ServingEngine(model, ServingConfig(max_seq_len=MAX_SEQ_LEN,
-                                             kv_int8=kv_int8))
+    eng = ServingEngine(model, ServingConfig(
+        max_seq_len=MAX_SEQ_LEN, kv_int8=kv_int8, int8_weights=int8_weights))
     assert eng.paged_active and eng.spec_active \
         and eng.config.prefix_cache
+    eng.warmup()
+    if eng.counters["graph_captures"] != 3:
+        raise AssertionError(f"warmup() captured "
+                             f"{eng.counters['graph_captures']} graphs, "
+                             f"expected 3 (decode, prefill, verify)")
+    capture_ms = sum(e.capture_ms for e in eng._graphs.values())
+    spent = phase_clocks(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pa.paged_attend.launches = 0
@@ -541,18 +583,57 @@ def _serve_once(model, kv_int8, trace, card):
         raise AssertionError("the shared system prompt never hit the "
                              "prefix cache")
     rounds = c["decode_steps"] + c["verify_steps"]
+    if c["graph_replays"] != rounds + c["prefill_chunks"] \
+            or c["graph_captures"] != 3:
+        raise AssertionError(
+            f"{c['graph_replays']} replays and {c['graph_captures']} "
+            f"captures, expected rounds + prefill chunks = {rounds} + "
+            f"{c['prefill_chunks']} and 3")
     tokens = sum(n for _, n in trace)
-    log(f"[serve] kv_int8={kv_int8} on {card}: {len(trace)} requests, "
-        f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
-        f"{c['decode_steps']} decode + {c['verify_steps']} verify rounds, "
-        f"{c['decode_wall_s'] / rounds * 1e3:.3f} ms per round; "
-        f"{c['prefill_chunks']} prefill chunks, "
+    log(f"[serve] kv_int8={kv_int8} int8_weights={int8_weights} on {card}: "
+        f"{len(trace)} requests, {tokens} tokens in {wall:.3f} s = "
+        f"{tokens / wall:.1f} tokens/s; {c['decode_steps']} decode rounds "
+        f"{_ms_per(spent, 'decode'):.3f} ms each, {c['verify_steps']} "
+        f"verify rounds {_ms_per(spent, 'verify'):.3f} ms each, prefill "
+        f"{_ms_per(spent, 'prefill'):.3f} ms per request "
+        f"({c['prefill_chunks']} chunks); {c['graph_captures']} graphs "
+        f"captured in {capture_ms:.1f} ms, {c['graph_replays']} replays; "
         f"{c['prefix_hit_tokens']} prefix-hit tokens, "
         f"{c['spec_accepted_tokens']}/{c['spec_proposed_tokens']} drafts "
         f"accepted; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
         f"{wrapper.__name__} launches {launches}")
-    return launches
+    return launches, tokens / wall, eng
+
+
+def _profile_decode_replay(eng, kv_int8):
+    """One decode replay under ``torch.profiler``: the paged kernel's
+    split and merge launches must each appear once per layer (the graph
+    holds them; the wrapper's counter is only Python)."""
+    L, M = eng.config.max_lanes, eng.blocks_per_lane
+    inputs = dict(tables=np.zeros((L, M), np.int32),
+                  cur_len=np.zeros(L, np.int32),
+                  last_tok=np.zeros(L, np.int32))  # idle lanes: block 0
+    eng._run("decode", **inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng._run("decode", **inputs)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    count = {part: sum(e.count for e in kernels
+                       if f"paged_{part}_kernel" in e.key)
+             for part in ("split", "merge")}
+    layers = FULL["num_hidden_layers"]
+    log(f"[serve] kv_int8={kv_int8}: one decode replay under the profiler: "
+        f"{sum(e.count for e in kernels)} kernels, "
+        f"{sum(e.self_device_time_total for e in kernels) / 1e3:.3f} ms of "
+        f"device time; paged split {count['split']}, merge "
+        f"{count['merge']} (layers {layers})")
+    if count != {"split": layers, "merge": layers}:
+        raise AssertionError(f"the decode replay launched the paged "
+                             f"kernels {count} times, expected {layers} "
+                             f"each")
 
 
 def phase_serve(card):
@@ -563,17 +644,44 @@ def phase_serve(card):
     log(f"[serve] 0.44B Llama: {n_params / 1e9:.3f} B parameters, bf16, "
         f"built in {time.perf_counter() - t0:.1f} s")
     trace = _trace()
-    return {"paged_attend": _serve_once(model, False, trace, card),
-            "paged_attend_int8": _serve_once(model, True, trace, card)}
+    launches, rates = {}, {}
+    for name, kv_int8, int8_weights in (
+            ("paged_attend", False, False),
+            ("paged_attend_int8", True, False),
+            ("int8_weights", False, True)):
+        n, rates[name], eng = _serve_once(model, trace, card, kv_int8,
+                                          int8_weights)
+        if name in pa.__all__:
+            launches[name] = n
+            _profile_decode_replay(eng, kv_int8)
+        del eng
+        gc.collect()  # its pools go to the next engine of their geometry
+    log(f"[serve] tokens/s on {card}: bf16 pools {rates['paged_attend']:.1f},"
+        f" int8 pools {rates['paged_attend_int8']:.1f}, int8 weights "
+        f"{rates['int8_weights']:.1f}")
+    return launches
 
 
 # -- phase 5 ------------------------------------------------------------------
 
+def _tiny_pair():
+    """A tiny fp32 Llama on the CPU from a seed and its copy on the
+    card."""
+    cpu = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
+                           device="cpu",
+                           generator=torch.Generator("cpu").manual_seed(1))
+    card = LlamaForCausalLM(cpu.config, device="cuda")
+    load_jax_weights(card, {n: p.detach().numpy()
+                            for n, p in cpu.named_parameters()})
+    return cpu, card
+
+
 def phase_identity():
     """tests/test_serving.py::test_engine_paged_token_identical's
-    geometry on the card: the engine's tokens (decode through the CUDA
-    kernels) equal the port's own greedy generate(), request by
-    request."""
+    geometry on the card: the engine's tokens (phases on CUDA graphs,
+    decode through the CUDA kernels) equal the port's own greedy
+    generate(), request by request; then generate()'s left padding,
+    int8 weights and sampling on the card."""
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
                              device="cuda",
                              generator=torch.Generator("cuda").manual_seed(0))
@@ -590,10 +698,10 @@ def phase_identity():
             reqs.append((eng.submit(prompt, max_new_tokens=new), prompt,
                          new))
         outs = eng.run()
-        if eng.counters["preemptions"] <= 0 \
-                or eng.counters["decode_steps"] <= 0:
-            raise AssertionError(f"identity run is vacuous: "
-                                 f"{eng.counters}")
+        c = eng.counters
+        if c["preemptions"] <= 0 or c["decode_steps"] <= 0 \
+                or c["graph_replays"] <= 0:
+            raise AssertionError(f"identity run is vacuous: {c}")
         for r, prompt, new in reqs:
             want = generate(model, prompt[None], max_new_tokens=new,
                             kv_int8=kv_int8).cpu().numpy()[0]
@@ -602,10 +710,36 @@ def phase_identity():
                     f"kv_int8={kv_int8} request {r.request_id}: engine "
                     f"{outs[r.request_id].tolist()} != generate "
                     f"{want.tolist()}")
-        log(f"[identity] kv_int8={kv_int8}: {len(reqs)} requests "
-            f"token-identical to generate() through "
-            f"{eng.counters['preemptions']} preemptions, "
-            f"{eng.counters['decode_steps']} paged decode rounds")
+        log(f"[identity] kv_int8={kv_int8}: {len(reqs)} requests on graphs "
+            f"({c['graph_replays']} replays) token-identical to generate() "
+            f"through {c['preemptions']} preemptions, {c['decode_steps']} "
+            f"paged decode rounds")
+    cpu, card = _tiny_pair()
+    rng = np.random.RandomState(6)
+    mask = np.array([[0, 0, 1, 1, 1, 1, 1], [1, 1, 1, 1, 1, 1, 1],
+                     [0, 0, 0, 0, 0, 1, 1]], np.int32)
+    ids = np.where(mask == 1, rng.randint(0, cpu.config.vocab_size,
+                                          mask.shape), 0).astype(np.int32)
+    for kw in (dict(attention_mask=mask), dict(int8_weights=True),
+               dict(attention_mask=mask, int8_weights=True)):
+        want = generate(cpu, ids, max_new_tokens=10, device="cpu",
+                        **kw).numpy()
+        got = generate(card, ids, max_new_tokens=10, **kw).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"generate({sorted(kw)}) on the card "
+                                 f"{got.tolist()} != CPU {want.tolist()}")
+    sample = dict(do_sample=True, temperature=0.8, top_p=0.9, seed=7)
+    a = generate(card, ids[1:], max_new_tokens=16, **sample)
+    b = generate(card, ids[1:], max_new_tokens=16, **sample)
+    greedy = generate(card, ids[1:], max_new_tokens=16)
+    top1 = generate(card, ids[1:], max_new_tokens=16, do_sample=True,
+                    top_k=1, seed=8)
+    if not (torch.equal(a, b) and torch.equal(top1, greedy)):
+        raise AssertionError("sampling on the card: a seed did not repeat "
+                             "itself, or top_k=1 left the greedy tokens")
+    log(f"[identity] fp32 tiny Llama: left-padded, int8-weight and both "
+        f"generate() token-identical to the CPU; sampling repeats with its "
+        f"seed and top_k=1 gives the greedy tokens")
 
 
 # -- phase 6 ------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Greedy autoregressive generation for the Llama family.
+"""Autoregressive generation for the Llama family.
 
 Counterpart of ``paddle_tpu/models/generation.py``. The reference
 compiles prefill plus a ``lax.scan`` of decode steps into one program;
@@ -8,6 +8,12 @@ a Python loop feeds one token at a time against it with a length mask.
 The helpers (``_mm``, ``rms_norm``, ``_rope_at``, ``_attend``) keep the
 reference's dtype casts line for line: the serving engine reuses them,
 and greedy ``generate()`` is the engine's token-identity oracle.
+
+Beside greedy decode: sampling (temperature, top-k, top-p) by the Gumbel
+argmax that ``jax.random.categorical`` uses, with the noise drawn from a
+``torch.Generator``; weight-only int8 matmuls (``int8_weights``); and
+left-padded batches (``attention_mask``), whose pad keys are hidden and
+whose RoPE positions start at each row's first real token.
 """
 from __future__ import annotations
 
@@ -20,28 +26,44 @@ import torch
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn.functional.norm import rms_norm
-from ..quantization import dequantize_kv, quantize_kv
+from ..quantization import dequantize_kv, quantize_kv, quantize_weight_int8
 from .llama import _rope
 
 __all__ = ["generate"]
 
 _LAYER_KEYS = ("ln1", "qkv", "o", "ln2", "gate_up", "down")
+# the matmul weights an int8 pack replaces (embeddings and norms stay)
+_INT8_KEYS = ("qkv", "o", "gate_up", "down", "lm_head")
 
 
 def _mm(x, w):
+    """``x @ w``, where ``w`` is a plain weight or an int8 pack
+    ``{"q", "s"}``: the product with the int8 weight cast to x's dtype,
+    then the per-channel scale, in the reference's order."""
+    if isinstance(w, dict):
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
 
 
-def _collect_params(model) -> dict:
+def _layer(params, li) -> dict:
+    """Layer ``li``'s weights (an int8 pack sliced on both tensors)."""
+    return {k: ({n: t[li] for n, t in params[k].items()}
+                if isinstance(params[k], dict) else params[k][li])
+            for k in _LAYER_KEYS}
+
+
+def _collect_params(model, int8_weights=False) -> dict:
     """The decode weights as one dict, per-layer weights stacked on a
     leading layer axis: ``ln1 qkv o ln2 gate_up down`` ``[layers, ...]``
-    plus ``embed``, ``norm`` and ``lm_head``. Cached on the model and
-    rebuilt when any parameter is replaced or written in place (the
-    key holds each parameter's storage address and version counter)."""
+    plus ``embed``, ``norm`` and ``lm_head``. ``int8_weights`` packs
+    ``qkv o gate_up down lm_head`` with :func:`quantize_weight_int8`.
+    Cached on the model and rebuilt when the flag changes or any
+    parameter is replaced or written in place (the key holds each
+    parameter's storage address and version counter)."""
     sources = tuple((p.data_ptr(), p._version)
                     for _, p in model.named_parameters())
     cached = getattr(model, "_generation_params_cache", None)
-    if cached is not None and cached[0] == sources:
+    if cached is not None and cached[0] == (sources, bool(int8_weights)):
         return cached[1]
     core = model.model
     per_layer = {k: [] for k in _LAYER_KEYS}
@@ -57,7 +79,10 @@ def _collect_params(model) -> dict:
         params["embed"] = core.embed_tokens.weight.detach()
         params["norm"] = core.norm.weight.detach()
         params["lm_head"] = model.lm_head.weight.detach()
-    model._generation_params_cache = (sources, params)
+        if int8_weights:
+            for k in _INT8_KEYS:
+                params[k] = quantize_weight_int8(params[k])
+    model._generation_params_cache = ((sources, bool(int8_weights)), params)
     return params
 
 
@@ -68,11 +93,12 @@ def _rope_at(q, k, pos, theta):
     return _rope(q, k, theta, q.dtype, pos=pos)
 
 
-def _attend(q, kc, vc, valid_len, nh, nkv, sliding_window=0):
+def _attend(q, kc, vc, valid_len, nh, nkv, key_pad=None, sliding_window=0):
     """q ``[b, sq, nh, d]`` against cached kc/vc ``[b, L, nkv, d]``,
     masked to positions ``< valid_len`` (+ causal within the query
-    block, + the sliding-window band). fp32 logits, 1/sqrt(d), -1e30
-    mask, fp32 softmax and AV, one cast back."""
+    block, + the sliding-window band). ``key_pad`` ``[b]`` hides each
+    row's leading left-pad slots. fp32 logits, 1/sqrt(d), -1e30 mask,
+    fp32 softmax and AV, one cast back."""
     b, sq, _, d = q.shape
     L = kc.shape[1]
     g = nh // nkv
@@ -85,7 +111,10 @@ def _attend(q, kc, vc, valid_len, nh, nkv, sliding_window=0):
     vis = slots[None, :] <= q_pos[:, None]  # [sq, L]
     if sliding_window > 0:
         vis &= slots[None, :] > q_pos[:, None] - sliding_window
-    logits = torch.where(vis[None, :, None, None, :], logits,
+    vis = vis[None].expand(b, sq, L)
+    if key_pad is not None:
+        vis = vis & (slots[None, None, :] >= key_pad[:, None, None])
+    logits = torch.where(vis[:, :, None, None, :], logits,
                          torch.full((), -1e30, device=dev))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bskgl,blkd->bskgd", p, vc.to(torch.float32))
@@ -115,7 +144,7 @@ def _qkv(x, layer_p, pos, cfg):
 
 
 def _block(x, layer_p, cache_k, cache_v, li, pos, valid_len, cfg,
-           kv_int8=False):
+           key_pad=None, kv_int8=False):
     """One decoder layer over a ``[b, s]`` slice, writing its K/V into
     the cache at ``[valid_len - s, valid_len)`` in place and attending
     over the cache. ``kv_int8`` round-trips the fresh K/V through the
@@ -131,25 +160,90 @@ def _block(x, layer_p, cache_k, cache_v, li, pos, valid_len, cfg,
     cache_k[li, :, valid_len - s:valid_len] = k
     cache_v[li, :, valid_len - s:valid_len] = v
     out = _attend(q, cache_k[li], cache_v[li], valid_len, nh, nkv,
-                  sliding_window=cfg.sliding_window)
+                  key_pad=key_pad, sliding_window=cfg.sliding_window)
     x = x + _mm(out.reshape(b, s, -1), layer_p["o"])
     return _mlp(x, layer_p, cfg)
 
 
-def _forward(params, ids, cache_k, cache_v, valid_len, cfg, kv_int8=False):
+def _forward(params, ids, cache_k, cache_v, valid_len, cfg, key_pad=None,
+             kv_int8=False):
     """Forward ``ids`` ``[b, s]`` at absolute positions
     ``[valid_len - s, valid_len)``; returns the last position's fp32
-    logits ``[b, vocab]`` (the caches are updated in place)."""
+    logits ``[b, vocab]`` (the caches are updated in place). With left
+    padding (``key_pad`` ``[b]``) RoPE positions shift so that each
+    row's first real token sits at position 0."""
     b, s = ids.shape
     x = params["embed"][ids.long()].to(to_torch_dtype(cfg.dtype))
     pos = (valid_len - s + torch.arange(s, device=ids.device))[None, :] \
         .expand(b, s)
+    if key_pad is not None:
+        pos = torch.clamp_min(pos - key_pad[:, None], 0)
     for li in range(params["ln1"].shape[0]):
-        layer_p = {k: params[k][li] for k in _LAYER_KEYS}
-        x = _block(x, layer_p, cache_k, cache_v, li, pos, valid_len, cfg,
-                   kv_int8=kv_int8)
+        x = _block(x, _layer(params, li), cache_k, cache_v, li, pos,
+                   valid_len, cfg, key_pad=key_pad, kv_int8=kv_int8)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return _mm(x[:, -1], params["lm_head"]).to(torch.float32)
+
+
+def _gumbel(shape, generator, device):
+    """Standard Gumbel noise ``-log(-log(u))``, u uniform in [tiny, 1)
+    from ``generator`` — ``jax.random.gumbel``'s construction."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _sample(logits, generator, do_sample, temperature, top_k, top_p,
+            use_top_p, noise=None):
+    """The next token ``[b]`` from fp32 logits ``[b, vocab]``, step for
+    step the reference's ``_sample``: greedy argmax, or logits over
+    ``max(temperature, 1e-6)``, everything below the k-th largest set to
+    -1e30 (``top_k > 0``), everything below the top-p cutoff (the first
+    sorted logit whose cumulative probability reaches ``top_p``) set to
+    -1e30 (``use_top_p``), then ``argmax(logits + g)`` with Gumbel noise
+    ``g`` — ``jax.random.categorical`` with ``replace=True``. ``noise``
+    overrides the draw from ``generator`` (the tests pass JAX's)."""
+    if not do_sample:
+        return torch.argmax(logits, dim=-1)
+    t = np.maximum(np.float32(temperature), np.float32(1e-6))
+    logits = logits / logits.new_full((), float(t))
+    neg = logits.new_full((), -1e30)
+    if top_k and top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, neg, logits)
+    if use_top_p:
+        sorted_l = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_l, dim=-1), dim=-1)
+        idx = torch.sum(cum < logits.new_full((), float(np.float32(top_p))),
+                        dim=-1, keepdim=True)
+        # every cumulative sum short of top_p (rounding): keep them all
+        cutoff = torch.gather(sorted_l, -1,
+                              torch.clamp_max(idx, logits.shape[-1] - 1))
+        logits = torch.where(logits < cutoff, neg, logits)
+    if noise is None:
+        noise = _gumbel(logits.shape, generator, logits.device)
+    return torch.argmax(logits + noise, dim=-1)
+
+
+def _left_pad(attention_mask, shape):
+    """Validate a left-padded ``attention_mask`` host-side (each row
+    ``0^k 1^(n-k)``) and return each row's pad count ``k`` as numpy."""
+    if isinstance(attention_mask, torch.Tensor):
+        attention_mask = attention_mask.detach().cpu().numpy()
+    m = np.asarray(attention_mask)
+    if tuple(m.shape) != tuple(shape):
+        raise ValueError(
+            f"attention_mask shape {tuple(m.shape)} must equal "
+            f"input_ids shape {tuple(shape)}")
+    mh = m.astype(bool)
+    npad = (~mh).sum(axis=1)
+    if not np.array_equal(mh, np.arange(mh.shape[1])[None, :]
+                          >= npad[:, None]):
+        raise ValueError(
+            "attention_mask must be LEFT-padded (each row all zeros "
+            "then all ones); interior zeros / right padding are not "
+            "expressible in the cache layout")
+    return npad
 
 
 class _GenCfg:
@@ -169,6 +263,10 @@ class _GenCfg:
         self.dtype = str(cfg.dtype)
         self.sliding_window = int(getattr(cfg, "sliding_window", 0) or 0)
 
+    def _key(self):
+        """The fields as a tuple (part of the engine's graph keys)."""
+        return tuple(getattr(self, f) for f in self.__slots__)
+
 
 def _check_model_device(model, dev):
     if model.device != dev:
@@ -178,47 +276,50 @@ def _check_model_device(model, dev):
 
 @torch.no_grad()
 def generate(model, input_ids, max_new_tokens=32, do_sample=False,
-             eos_token_id=None, attention_mask=None, int8_weights=None,
-             kv_int8=None, device="cuda"):
-    """Greedy continuation of ``input_ids`` (``[b, prompt_len]`` ints: a
-    tensor, a numpy array or a list). Returns the generated tokens
+             temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+             seed=0, attention_mask=None, int8_weights=None, kv_int8=None,
+             generator=None, device="cuda"):
+    """Continue ``input_ids`` (``[b, prompt_len]`` ints: a tensor, a
+    numpy array or a list). Returns the generated tokens
     ``[b, max_new_tokens]`` int32 on ``device`` (prompt excluded). After
     ``eos_token_id`` a row keeps emitting it.
 
-    ``kv_int8`` (default: ``PT_SERVE_KV_INT8``) round-trips cached K/V
-    through the int8 quantizer (see ``_block``). Sampling,
-    ``int8_weights`` (``PT_DECODE_INT8``) and left-padded
-    ``attention_mask`` batches are not ported yet and raise
-    ``NotImplementedError``."""
+    ``do_sample`` samples with ``temperature``, ``top_k`` (clamped to
+    the vocabulary) and ``top_p`` (see ``_sample``), drawing one noise
+    row per step from ``generator``, by default a ``torch.Generator`` on
+    ``device`` seeded with ``seed``; greedy otherwise. Unequal-length
+    prompts batch by LEFT padding with ``attention_mask`` (``[b,
+    prompt_len]``, zeros on the left): pad slots are hidden from
+    attention and RoPE positions start at each row's first real token;
+    an all-ones mask is no mask. ``int8_weights`` (default:
+    ``PT_DECODE_INT8``) runs the matmuls on per-channel int8 weight
+    packs. ``kv_int8`` (default: ``PT_SERVE_KV_INT8``) round-trips cached
+    K/V through the int8 quantizer (see ``_block``)."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
     dev = resolve_device(device)
     _check_model_device(model, dev)
-    if do_sample:
-        raise NotImplementedError(
-            "generate(do_sample=True) is not ported yet (ROADMAP queue A)")
     if int8_weights is None:
         int8_weights = os.environ.get("PT_DECODE_INT8") == "1"
-    if int8_weights:
-        raise NotImplementedError(
-            "weight-only int8 decode is not ported yet (ROADMAP queue A)")
     if kv_int8 is None:
         kv_int8 = os.environ.get("PT_SERVE_KV_INT8") == "1"
     if not isinstance(input_ids, torch.Tensor):
         input_ids = torch.from_numpy(np.asarray(input_ids))
     ids = input_ids.to(dev, torch.int32)
+    key_pad = None
     if attention_mask is not None:
-        mask = torch.as_tensor(np.asarray(attention_mask))
-        if tuple(mask.shape) != tuple(ids.shape):
-            raise ValueError(
-                f"attention_mask shape {tuple(mask.shape)} must equal "
-                f"input_ids shape {tuple(ids.shape)}")
-        if not bool(mask.bool().all()):
-            raise NotImplementedError(
-                "left-padded attention_mask batches are not ported yet "
-                "(ROADMAP queue A); an all-ones mask is accepted")
+        npad = _left_pad(attention_mask, ids.shape)
+        if npad.any():  # an all-ones mask runs the maskless path
+            key_pad = torch.from_numpy(npad.astype(np.int32)).to(dev)
+    if top_k:
+        top_k = min(int(top_k), model.config.vocab_size)
+    if do_sample and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+    sample = dict(generator=generator, do_sample=bool(do_sample),
+                  temperature=temperature, top_k=int(top_k), top_p=top_p,
+                  use_top_p=float(top_p) < 1.0)
     cfg = _GenCfg(model.config)
-    params = _collect_params(model)
+    params = _collect_params(model, int8_weights=bool(int8_weights))
     b, prompt_len = ids.shape
     nh = cfg.num_attention_heads
     nkv = cfg.num_key_value_heads
@@ -229,14 +330,15 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     cache_v = torch.zeros_like(cache_k)
     eos = -1 if eos_token_id is None else int(eos_token_id)
     logits = _forward(params, ids, cache_k, cache_v, prompt_len, cfg,
-                      kv_int8=kv_int8)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                      key_pad=key_pad, kv_int8=kv_int8)
+    tok = _sample(logits, **sample).to(torch.int32)
     fin = tok == eos
     out = [tok]
     for i in range(max_new_tokens - 1):
         logits = _forward(params, tok[:, None], cache_k, cache_v,
-                          prompt_len + 1 + i, cfg, kv_int8=kv_int8)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                          prompt_len + 1 + i, cfg, key_pad=key_pad,
+                          kv_int8=kv_int8)
+        nxt = _sample(logits, **sample).to(torch.int32)
         tok = torch.where(fin, torch.full_like(nxt, eos), nxt)
         fin = fin | (tok == eos)
         out.append(tok)

@@ -1,7 +1,8 @@
-"""Per-position symmetric int8 KV quantization.
+"""Symmetric int8 quantization: per-position KV, per-channel weights.
 
-Counterpart of ``quantize_kv``/``dequantize_kv`` in
-``paddle_tpu/quantization/__init__.py``: the one helper pair the int8
+Counterpart of ``quantize_kv``/``dequantize_kv`` and
+``quantize_weight_int8`` in ``paddle_tpu/quantization/__init__.py``.
+``quantize_kv``/``dequantize_kv`` are the one helper pair the int8
 KV path uses everywhere — the engine's quantize-on-write
 (``serving/engine.py``), the reference round-trip of
 ``generate(kv_int8=True)``, and the inputs of the int8 paged kernel —
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["quantize_kv", "dequantize_kv"]
+__all__ = ["quantize_kv", "dequantize_kv", "quantize_weight_int8"]
 
 
 def quantize_kv(x: torch.Tensor):
@@ -32,3 +33,17 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
     """Inverse of :func:`quantize_kv`: fp32 multiply, then one cast to
     ``dtype``."""
     return (q.to(torch.float32) * s[..., None]).to(dtype)
+
+
+def quantize_weight_int8(w: torch.Tensor) -> dict:
+    """Per-output-channel symmetric int8 weight-only quantization, the
+    weight pack of ``generate(int8_weights=True)`` and the engine's
+    ``int8_weights``: w ``[..., in, out]`` -> ``{"q": int8 [..., in,
+    out], "s": fp32 [..., 1, out]}`` with ``s = max(max|w| / 127,
+    1e-12)`` over the input axis and ``q = clip(round(w / s), -127,
+    127)``, half to even like ``jnp.round``."""
+    w32 = w.to(torch.float32)
+    amax = w32.abs().amax(dim=-2, keepdim=True)
+    s = torch.clamp_min(amax / amax.new_full((), 127.0), 1e-12)
+    q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}

@@ -28,7 +28,26 @@ change a shape. Three phase programs serve the engine's lifetime:
 Prefill and verify attend with the dense gathered read
 (:func:`_attend_lanes`), as in the reference. The layer math reuses
 ``models/generation.py``'s helpers, so engine outputs are
-token-identical to per-request greedy ``generate()`` calls.
+token-identical to per-request greedy ``generate()`` calls, with
+``int8_weights`` to ``generate(int8_weights=True)``'s.
+
+**Each phase program is built once.** The reference compiles the three
+programs in ``warmup()``/``_ensure_compiled`` through
+``jit/exec_cache.get_or_compile``; on a CUDA device the port captures
+each as a CUDA graph through ``jit/exec_cache.get_or_capture`` (in
+:meth:`ServingEngine.warmup`, or lazily in the first :meth:`step`), and
+a round copies its host-built inputs (block tables, lengths, tokens —
+every per-round value, packed into one int32 buffer per phase) into the
+graph's static buffer and replays it. No phase function runs eagerly
+on CUDA, apart from the one warm-up call of each capture, and a capture
+that fails raises with the phase's name. The graph key holds what the
+reference's key holds (pool shape and dtype, ``kv_int8``,
+``int8_weights``, the model config, lanes, M, C, k) plus the addresses
+of the weights and pools the graph binds; the pools of a collected
+engine go to the next engine of the same geometry, so its keys hit.
+What stays eager: the host side of a round (scheduler, drafter,
+packing the inputs, emitting tokens) and, on the CPU, the phase
+functions themselves.
 
 Unlike the reference, whose programs return new pools (donated on the
 TPU), the port updates its pools **in place**: ``kpool[li, blk, off] =
@@ -40,22 +59,25 @@ their outputs are dropped).
 Host syncs: one per admission (the first token) and one per decode or
 verify round (the sampled tokens), as in the reference. The reference's
 monitor, blackbox, live-telemetry and span hooks are not ported yet;
-the always-on plain-int ``counters`` are.
+the always-on plain-int ``counters`` are, with ``graph_captures`` and
+``graph_replays`` beside them.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
+from ..jit import exec_cache
 from ..models.generation import (
-    _LAYER_KEYS, _GenCfg, _check_model_device, _collect_params, _mlp, _mm,
-    _qkv,
+    _GenCfg, _check_model_device, _collect_params, _layer, _mlp, _mm, _qkv,
 )
 from ..nn.functional.norm import rms_norm
 from ..ops.cuda import paged_attention as pa
@@ -85,8 +107,8 @@ class ServingConfig:
     - ``prefill_chunk`` (``PT_SERVE_PREFILL_CHUNK``, 32): prefill width.
     - ``max_seq_len`` (``PT_SERVE_MAX_LEN``): per-request prompt+output
       ceiling; defaults to the model's max_position_embeddings.
-    - ``int8_weights`` (``PT_DECODE_INT8``): weight-only int8 matmuls —
-      not ported yet; the engine raises when it is set.
+    - ``int8_weights`` (``PT_DECODE_INT8``): weight-only int8 matmuls,
+      the same packs as ``generate(int8_weights=True)``.
     - ``kv_int8`` (``PT_SERVE_KV_INT8``, off): int8 block pool with
       paired fp32 per-position scales, quantized on write
       (``quantization.quantize_kv``) and dequantized on read.
@@ -209,7 +231,7 @@ def _pool_forward(params, kpool, vpool, kscale, vscale, tables, ids, pos,
     paged = paged and s == 1
     cur = pos[:, 0].contiguous() if paged else None
     for li in range(params["ln1"].shape[0]):
-        layer_p = {k: params[k][li] for k in _LAYER_KEYS}
+        layer_p = _layer(params, li)
         q, k, v = _qkv(x, layer_p, pos, cfg)
         if quant:
             k, k_s = quantize_kv(k)
@@ -244,23 +266,25 @@ def _pool_forward(params, kpool, vpool, kscale, vscale, tables, ids, pos,
 
 
 def _greedy(x, params, cfg):
+    """(greedy tokens, fp32 logits) of the final hidden states ``x``."""
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     logits = _mm(x, params["lm_head"]).to(torch.float32)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
 
 def _prefill_chunk(params, kpool, vpool, kscale, vscale, table, ids, start,
                    ctx_len, last_idx, *, cfg):
     """One lane's prefill chunk: ``ids`` ``[1, C]`` at positions
-    ``[start, start+C)``; greedy-samples from position ``last_idx``
-    within the chunk. Returns tok ``[1]``."""
+    ``[start, start+C)``, writes below ``ctx_len``; greedy-samples from
+    position ``last_idx`` within the chunk (``start``, ``ctx_len`` and
+    ``last_idx`` are int32 ``[1]`` tensors). Returns tok ``[1]`` and its
+    logits."""
     C = ids.shape[1]
-    dev = ids.device
-    pos = (start + torch.arange(C, dtype=torch.int32, device=dev))[None, :]
-    wlimit = torch.full((1,), ctx_len, dtype=torch.int32, device=dev)
+    pos = (start + torch.arange(C, dtype=torch.int32,
+                                device=ids.device))[None, :]
     x = _pool_forward(params, kpool, vpool, kscale, vscale, table, ids, pos,
-                      wlimit, cfg)
-    return _greedy(x[:, last_idx], params, cfg)
+                      ctx_len, cfg)
+    return _greedy(x[0, last_idx.long()], params, cfg)
 
 
 def _decode_step(params, kpool, vpool, kscale, vscale, tables, cur_len,
@@ -268,7 +292,8 @@ def _decode_step(params, kpool, vpool, kscale, vscale, tables, cur_len,
     """Every lane feeds its pending token at position ``cur_len``
     (write-then-attend, so the token sees itself) and greedy-samples the
     next. Idle lanes (cur_len 0, table row 0) write to the null block;
-    their outputs are ignored host-side. Returns tok ``[L]``."""
+    their outputs are ignored host-side. Returns tok ``[L]`` and its
+    logits."""
     x = _pool_forward(params, kpool, vpool, kscale, vscale, tables,
                       last_tok[:, None], cur_len[:, None], cur_len + 1, cfg,
                       paged=paged)
@@ -281,13 +306,43 @@ def _verify_step(params, kpool, vpool, kscale, vscale, tables, cur_len, toks,
     lane's pending token then its draft, at positions ``cur_len + j``;
     writes at ``>= wlimit[b]`` go to the null block. Returns the greedy
     argmaxes ``[L, k+1]`` — the tokens plain decode WOULD emit after
-    each draft prefix."""
+    each draft prefix — and their logits."""
     S = toks.shape[1]
     pos = cur_len[:, None] + torch.arange(S, dtype=torch.int32,
                                           device=toks.device)[None, :]
     x = _pool_forward(params, kpool, vpool, kscale, vscale, tables, toks,
                       pos, wlimit, cfg)
     return _greedy(x, params, cfg)
+
+
+def _layouts(L, M, C, k):
+    """Each phase's per-round inputs, int32, in the order they lie in the
+    phase's one input buffer (``k == 0``: no verify phase)."""
+    out = {"decode": (("tables", (L, M)), ("cur_len", (L,)),
+                      ("last_tok", (L,))),
+           "prefill": (("table", (1, M)), ("ids", (1, C)), ("start", (1,)),
+                       ("ctx_len", (1,)), ("last_idx", (1,)))}
+    if k:
+        out["verify"] = (("tables", (L, M)), ("cur_len", (L,)),
+                         ("toks", (L, k + 1)), ("wlimit", (L,)))
+    return out
+
+
+def _packed(fn, layout, *, flat, **state):
+    """``fn`` (a phase function) on the engine's ``state`` (weights,
+    pools) and the round's inputs, unpacked as views of ``flat``."""
+    views, i = {}, 0
+    for name, shape in layout:
+        n = math.prod(shape)
+        views[name] = flat[i:i + n].view(shape)
+        i += n
+    return fn(**state, **views)
+
+
+# pools of collected engines, one spare set per geometry: the next engine
+# of that geometry takes it (zeroed), so its graph keys, which name the
+# pools' addresses, hit the exec cache
+_SPARE_POOLS: dict = {}
 
 
 # -- the engine ---------------------------------------------------------------
@@ -305,12 +360,9 @@ class ServingEngine:
         self.model = model
         self.config = config or ServingConfig()
         cfg = self.config
-        if cfg.int8_weights:
-            raise NotImplementedError(
-                "weight-only int8 serving (PT_DECODE_INT8) is not ported "
-                "yet (ROADMAP queue A)")
         self._gcfg = _GenCfg(model.config)
-        self._params = _collect_params(model)
+        self._params = _collect_params(model,
+                                       int8_weights=cfg.int8_weights)
         self.max_seq_len = int(cfg.max_seq_len
                                or model.config.max_position_embeddings)
         self.blocks_per_lane = blocks_needed(self.max_seq_len,
@@ -322,19 +374,25 @@ class ServingEngine:
         d = self._gcfg.hidden_size // nh
         layers = self._params["ln1"].shape[0]
         dt = torch.int8 if cfg.kv_int8 else to_torch_dtype(self._gcfg.dtype)
-        self._kpool = torch.zeros(
-            (layers, num_blocks, cfg.block_size, nkv, d), dtype=dt,
-            device=self.device)
-        self._vpool = torch.zeros_like(self._kpool)
-        # int8 mode: paired per-position fp32 amax scales (null block
-        # included — masked writes land there like K/V pad writes do)
-        if cfg.kv_int8:
-            self._kscale = torch.zeros(
-                (layers, num_blocks, cfg.block_size, nkv),
-                dtype=torch.float32, device=self.device)
-            self._vscale = torch.zeros_like(self._kscale)
+        shape = (layers, num_blocks, cfg.block_size, nkv, d)
+        pool_key = (shape, dt, cfg.kv_int8, self.device)
+        pools = _SPARE_POOLS.pop(pool_key, None)
+        if pools is None:
+            # int8 mode: paired per-position fp32 amax scales (null block
+            # included — masked writes land there like K/V pad writes do)
+            scales = (torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=self.device)
+                      for _ in range(2 if cfg.kv_int8 else 0))
+            pools = (torch.zeros(shape, dtype=dt, device=self.device),
+                     torch.zeros(shape, dtype=dt, device=self.device),
+                     *scales)
         else:
-            self._kscale = self._vscale = None
+            for t in pools:
+                t.zero_()
+        weakref.finalize(self, _SPARE_POOLS.setdefault, pool_key, pools)
+        self._kpool, self._vpool = pools[:2]
+        self._kscale, self._vscale = pools[2:] if cfg.kv_int8 \
+            else (None, None)
         self.kv_pool_bytes = sum(
             t.numel() * t.element_size() for t in
             (self._kpool, self._vpool, self._kscale, self._vscale)
@@ -368,7 +426,24 @@ class ServingEngine:
             "kv_read_tokens": 0, "kv_dense_read_tokens": 0,
             "kv_quant_writes": 0, "kv_quant_tokens": 0,
             "decode_wall_s": 0.0,
+            "graph_captures": 0, "graph_replays": 0,
         }
+        # the phase programs: each phase function on the engine's state
+        # and one packed int32 input buffer; on CUDA captured as graphs
+        # (_ensure_graphs), on the CPU called eagerly
+        self._state = dict(params=self._params, kpool=self._kpool,
+                           vpool=self._vpool, kscale=self._kscale,
+                           vscale=self._vscale)
+        self._layouts = _layouts(cfg.max_lanes, self.blocks_per_lane,
+                                 cfg.prefill_chunk,
+                                 cfg.spec_k if self.spec_active else 0)
+        fns = {"decode": functools.partial(_decode_step, cfg=self._gcfg,
+                                           paged=self.paged_active),
+               "prefill": functools.partial(_prefill_chunk, cfg=self._gcfg),
+               "verify": functools.partial(_verify_step, cfg=self._gcfg)}
+        self._programs = {ph: functools.partial(_packed, fns[ph], layout)
+                          for ph, layout in self._layouts.items()}
+        self._graphs = None
 
     # -- intake --------------------------------------------------------------
 
@@ -392,11 +467,72 @@ class ServingEngine:
         self._requests[req.request_id] = req
         return req
 
+    @torch.no_grad()
     def warmup(self) -> None:
-        """Build (or load) the CUDA kernel library the decode rounds
-        launch, so the first request pays no build."""
-        if self.paged_active and self.device.type == "cuda":
-            pa._lib()
+        """Capture (or take from the exec cache) the phase programs now,
+        so the first request pays no capture and no kernel build. A no-op
+        on the CPU, where the phases run eagerly."""
+        self._ensure_graphs()
+
+    def _graph_key(self, phase) -> dict:
+        """The reference's ``_ensure_compiled`` key fields, plus the
+        addresses of every buffer the graph binds."""
+        cfg = self.config
+        params = [t for k in sorted(self._params) for t in
+                  (self._params[k].values()
+                   if isinstance(self._params[k], dict)
+                   else (self._params[k],))]
+        extra = {"decode": {"paged": self.paged_active},
+                 "prefill": {"chunk": cfg.prefill_chunk},
+                 "verify": {"k": cfg.spec_k}}[phase]
+        return {"kind": f"serving_{phase}", "gen_cfg": self._gcfg._key(),
+                "params": [(exec_cache.array_spec(t), t.data_ptr())
+                           for t in params],
+                "pool": (tuple(self._kpool.shape), str(self._kpool.dtype)),
+                "pool_ptrs": [t.data_ptr() for t in
+                              (self._kpool, self._vpool, self._kscale,
+                               self._vscale) if t is not None],
+                "kv_int8": cfg.kv_int8, "int8_weights": cfg.int8_weights,
+                "lanes": cfg.max_lanes, "m": self.blocks_per_lane, **extra}
+
+    def _ensure_graphs(self) -> None:
+        """On CUDA: every phase program as a graph from
+        ``exec_cache.get_or_capture``, once per engine."""
+        if self._graphs is not None or self.device.type != "cuda":
+            return
+        graphs = {}
+        for phase, program in self._programs.items():
+            n = sum(math.prod(shape) for _, shape in self._layouts[phase])
+            before = exec_cache.stats()["captures"]
+            graphs[phase] = exec_cache.get_or_capture(
+                self._graph_key(phase), program,
+                dict(self._state, flat=torch.zeros(
+                    n, dtype=torch.int32, device=self.device)),
+                label=f"serving_{phase}",
+                counters=(pa.paged_attend, pa.paged_attend_int8))
+            self.counters["graph_captures"] += \
+                exec_cache.stats()["captures"] - before
+        self._graphs = graphs
+
+    def _pack(self, phase, **inputs) -> np.ndarray:
+        """A phase's host-built inputs as its one int32 buffer."""
+        return np.concatenate([np.asarray(inputs[name], np.int32).ravel()
+                               for name, _ in self._layouts[phase]])
+
+    def _run(self, phase, **inputs) -> torch.Tensor:
+        """One call of a phase program on host-built int32 ``inputs``:
+        a graph replay on CUDA, an eager call on the CPU. Returns the
+        sampled tokens (on CUDA the graph's output, overwritten by its
+        next replay)."""
+        flat = self._pack(phase, **inputs)
+        if self.device.type != "cuda":
+            return self._programs[phase](flat=torch.from_numpy(flat),
+                                         **self._state)[0]
+        entry = self._graphs[phase]
+        entry.inputs["flat"].copy_(torch.from_numpy(flat).pin_memory(),
+                                   non_blocking=True)
+        self.counters["graph_replays"] += 1
+        return entry.replay()[0]
 
     # -- the step loop -------------------------------------------------------
 
@@ -408,6 +544,7 @@ class ServingEngine:
         any work was done. Admission is one lane at a time with the
         prefill (and its prefix publish) in between, so burst arrivals
         sharing a prompt hit the cache from the second lane on."""
+        self._ensure_graphs()
         worked = False
         while True:
             admitted = self.scheduler.admit(limit=1)
@@ -442,9 +579,6 @@ class ServingEngine:
 
     # -- phases --------------------------------------------------------------
 
-    def _to_dev(self, a) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
     def _prefill(self, req) -> None:
         """Fill the lane's blocks chunk by chunk — starting at
         ``cached_len``, the span already covered by acquired prefix-cache
@@ -460,7 +594,6 @@ class ServingEngine:
         C = self.config.prefill_chunk
         row = np.zeros((1, self.blocks_per_lane), np.int32)
         row[0, :len(req.blocks)] = req.blocks
-        table = self._to_dev(row)
         p_t0 = req._t_mark  # admission stamped it just before this call
         nchunks = 0
         tok = None
@@ -469,10 +602,8 @@ class ServingEngine:
             chunk = np.zeros((1, C), np.int32)
             chunk[0, :piece.size] = piece
             last_idx = ctx - 1 - start if start + C >= ctx else 0
-            tok = _prefill_chunk(
-                self._params, self._kpool, self._vpool, self._kscale,
-                self._vscale, table, self._to_dev(chunk), start, ctx,
-                last_idx, cfg=self._gcfg)
+            tok = self._run("prefill", table=row, ids=chunk, start=start,
+                            ctx_len=ctx, last_idx=last_idx)
             nchunks += 1
         req.pool_len = ctx
         self.scheduler.publish_prefix(req)
@@ -555,10 +686,8 @@ class ServingEngine:
                 toks[req.lane, 1:1 + d.size] = d
             wlim[req.lane] = req.pool_len + 1 + d.size
         t0 = time.perf_counter()
-        pred = _verify_step(
-            self._params, self._kpool, self._vpool, self._kscale,
-            self._vscale, self._to_dev(tables), self._to_dev(cur),
-            self._to_dev(toks), self._to_dev(wlim), cfg=self._gcfg)
+        pred = self._run("verify", tables=tables, cur_len=cur, toks=toks,
+                         wlimit=wlim)
         preds = pred.cpu().numpy()  # the round's ONE host sync
         now = time.perf_counter()
         c = self.counters
@@ -620,10 +749,7 @@ class ServingEngine:
             cur[req.lane] = req.pool_len
             last[req.lane] = req.output[-1]
         t0 = time.perf_counter()
-        tok = _decode_step(
-            self._params, self._kpool, self._vpool, self._kscale,
-            self._vscale, self._to_dev(tables), self._to_dev(cur),
-            self._to_dev(last), cfg=self._gcfg, paged=self.paged_active)
+        tok = self._run("decode", tables=tables, cur_len=cur, last_tok=last)
         toks = tok.cpu().numpy()  # the round's ONE host sync
         now = time.perf_counter()
         c = self.counters
@@ -681,6 +807,7 @@ class ServingEngine:
             kv_int8=self.config.kv_int8,
             kv_pool_bytes=self.kv_pool_bytes,
             paged_attention=self.paged_active,
+            graphs=self._graphs is not None,
             paged_family=self._paged_family,
             prefix_cache=self.config.prefix_cache,
             shared_blocks=pool.shared_count,

@@ -8,9 +8,19 @@ variant with a sliding window):
 - RoPE within 1e-6 and decode logits within 1e-4 (fp32; the two
   frameworks sum in different orders);
 - greedy ``generate()`` tokens identical, with and without ``kv_int8``;
-- the weights loader's name/shape checks, the entry points' device
-  default, and the options this slice does not port.
+- ``quantize_weight_int8`` bit for bit, and ``generate(int8_weights=
+  True)`` tokens identical;
+- left-padded batches: tokens identical to the reference's, and each
+  row identical to its own unpadded call; the mask checks raise the
+  reference's errors;
+- sampling: handed the Gumbel noise JAX draws for the same keys, the
+  port's ``_sample`` and ``generate(do_sample=True)`` give the
+  reference's tokens (identical on these seeds: the logits agree within
+  1e-4, far from the gaps that decide a draw here);
+- the weights loader's name/shape checks and the entry points' device
+  default.
 """
+import functools
 import os
 import subprocess
 import sys
@@ -19,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu as pt
@@ -27,12 +38,14 @@ from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import generate as jax_generate
 from paddle_tpu.models import generation as jgen
 from paddle_tpu.models import llama as jllama
+from paddle_tpu.quantization import quantize_weight_int8 as jax_quantize_w8
 from paddle_tpu_torch import resolve_device, to_torch_dtype
 from paddle_tpu_torch.models import (
     LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
 )
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.quantization import quantize_weight_int8
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -222,17 +235,198 @@ def test_moe_config_raises():
 @pytest.mark.parametrize("option", ["do_sample", "int8_weights",
                                     "left_pad_mask"])
 def test_unported_generate_options_raise(pair, option):
+    """The three options that raised before they were ported now run
+    (their outputs are held against the reference below); what still
+    raises is what the reference refuses too: a mask that is not left
+    padding."""
     _, tm = pair
     ids = np.ones((2, 4), np.int32)
-    kw = {"do_sample": dict(do_sample=True),
+    kw = {"do_sample": dict(do_sample=True, top_k=3),
           "int8_weights": dict(int8_weights=True),
           "left_pad_mask": dict(attention_mask=np.array(
               [[0, 1, 1, 1], [1, 1, 1, 1]]))}[option]
-    with pytest.raises(NotImplementedError):
-        generate(tm, ids, max_new_tokens=2, device="cpu", **kw)
-    if option == "left_pad_mask":  # an all-ones mask is no mask
-        generate(tm, ids, max_new_tokens=2, device="cpu",
-                 attention_mask=np.ones((2, 4), np.int32))
+    out = generate(tm, ids, max_new_tokens=2, device="cpu", **kw)
+    assert out.dtype == torch.int32 and out.shape == (2, 2)
+    assert ((out >= 0) & (out < tm.config.vocab_size)).all()
+    if option == "left_pad_mask":
+        with pytest.raises(ValueError, match="LEFT-padded"):
+            generate(tm, ids, max_new_tokens=2, device="cpu",
+                     attention_mask=np.array([[1, 0, 1, 1], [1, 1, 1, 1]]))
+        # an all-ones mask is no mask
+        np.testing.assert_array_equal(
+            generate(tm, ids, max_new_tokens=2, device="cpu",
+                     attention_mask=np.ones((2, 4), np.int32)).numpy(),
+            generate(tm, ids, max_new_tokens=2, device="cpu").numpy())
+
+
+# -- weight-only int8 ---------------------------------------------------------
+
+
+def _tie_rich_weights(rng):
+    """[2, 16, 8] weights whose scaled values sit exactly on .5: each
+    column's max is 127 * 2^-3, so s = 2^-3 and w / s = n + 0.5 exactly
+    (round half to even decides); one column all zero (the 1e-12
+    clamp)."""
+    n = rng.randint(-127, 127, (2, 16, 8)).astype(np.float32) + 0.5
+    n[:, 0, :] = 127.0
+    n[:, 1, :] = -127.0
+    w = n / 8.0
+    w[:, :, 3] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_quantize_weight_int8_bit_identical(kind):
+    rng = np.random.RandomState(11)
+    w = rng.randn(3, 24, 10).astype(np.float32) * 0.02 if kind == "random" \
+        else _tie_rich_weights(rng)
+    want = jax_quantize_w8(jnp.asarray(w))
+    got = quantize_weight_int8(torch.from_numpy(w))
+    assert got["q"].dtype == torch.int8 and got["s"].dtype == torch.float32
+    assert got["s"].shape == w.shape[:-2] + (1, w.shape[-1])
+    np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
+    np.testing.assert_array_equal(got["s"].numpy(), np.asarray(want["s"]))
+
+
+def test_int8_weight_generate_identical_to_reference(pair):
+    jm, tm = pair
+    ids = _prompts(jm.config.vocab_size, seed=4, b=3, plen=6)
+    want = jax_generate(jm, pt.to_tensor(ids), max_new_tokens=10,
+                        int8_weights=True).numpy()
+    got = generate(tm, ids, max_new_tokens=10, int8_weights=True,
+                   device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    packs = tgen._collect_params(tm, int8_weights=True)
+    assert set(k for k, v in packs.items() if isinstance(v, dict)) \
+        == {"qkv", "o", "gate_up", "down", "lm_head"}
+    # the flag is part of the cache key
+    assert tgen._collect_params(tm) is not packs
+    assert tgen._collect_params(tm)["qkv"].dtype == torch.float32
+
+
+# -- left padding -------------------------------------------------------------
+
+_MASK = np.array([[0, 0, 1, 1, 1, 1, 1],
+                  [1, 1, 1, 1, 1, 1, 1],
+                  [0, 0, 0, 0, 0, 1, 1]], np.int32)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_left_padded_generate_identical_to_reference(pair, kv_int8):
+    jm, tm = pair
+    ids = _prompts(jm.config.vocab_size, seed=5, b=3, plen=7)
+    ids = np.where(_MASK == 1, ids, 0).astype(np.int32)
+    want = jax_generate(jm, pt.to_tensor(ids), max_new_tokens=8,
+                        attention_mask=_MASK, kv_int8=kv_int8).numpy()
+    got = generate(tm, ids, max_new_tokens=8, attention_mask=_MASK,
+                   kv_int8=kv_int8, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    for row, npad in enumerate((~_MASK.astype(bool)).sum(axis=1)):
+        alone = generate(tm, ids[row:row + 1, npad:], max_new_tokens=8,
+                         kv_int8=kv_int8, device="cpu").numpy()[0]
+        np.testing.assert_array_equal(got[row], alone, err_msg=f"row {row}")
+
+
+@pytest.mark.parametrize("mask", [
+    np.ones((2, 5), np.int32),                  # wrong shape
+    np.array([[1, 1, 1, 0], [1, 1, 1, 1]]),     # right padding
+    np.array([[0, 1, 0, 1], [1, 1, 1, 1]]),     # interior zero
+], ids=["shape", "right_pad", "interior"])
+def test_mask_validation_raises_reference_errors(pair, mask):
+    jm, tm = pair
+    ids = np.ones((2, 4), np.int32)
+    with pytest.raises(ValueError) as want:
+        jax_generate(jm, pt.to_tensor(ids), max_new_tokens=2,
+                     attention_mask=mask)
+    with pytest.raises(ValueError) as got:
+        generate(tm, ids, max_new_tokens=2, attention_mask=mask,
+                 device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+# -- sampling -----------------------------------------------------------------
+
+_SAMPLING = {
+    "temperature": dict(temperature=1.0),
+    "cold_top_k": dict(temperature=0.7, top_k=5),
+    "hot_top_p": dict(temperature=1.3, top_p=0.8),
+    "top_k_top_p": dict(temperature=0.5, top_k=20, top_p=0.5),
+    "top_k_past_vocab": dict(top_k=10_000),
+}
+
+
+def _jax_noise(seed):
+    """A stand-in for the port's ``_gumbel`` that returns the noise
+    ``_generate_jit`` draws: the key split once per sampled token, the
+    Gumbel draw ``jax.random.categorical`` makes from each subkey."""
+    state = [jax.random.key(seed)]
+
+    def draw(shape, generator, device):
+        state[0], sub = jax.random.split(state[0])
+        return torch.from_numpy(np.asarray(
+            jax.random.gumbel(sub, tuple(shape), jnp.float32)))
+
+    return draw
+
+
+@pytest.mark.parametrize("setting", sorted(_SAMPLING))
+def test_sampled_generate_identical_to_reference(pair, setting,
+                                                 monkeypatch):
+    jm, tm = pair
+    kw = _SAMPLING[setting]
+    ids = _prompts(jm.config.vocab_size, seed=6, b=3, plen=6)
+    want = jax_generate(jm, pt.to_tensor(ids), max_new_tokens=10,
+                        do_sample=True, seed=3, **kw).numpy()
+    monkeypatch.setattr(tgen, "_gumbel", _jax_noise(3))
+    got = generate(tm, ids, max_new_tokens=10, do_sample=True, seed=3,
+                   device="cpu", **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("setting", sorted(_SAMPLING) + ["tiny_top_p",
+                                                         "top_k_1"])
+def test_sample_matches_reference_sample(setting):
+    """``_sample`` on the same fp32 logits and JAX's noise for the same
+    key: the reference's token, row by row."""
+    kw = dict(_SAMPLING.get(setting, {}))
+    kw.update({"tiny_top_p": dict(top_p=1e-6), "top_k_1": dict(top_k=1)}
+              .get(setting, {}))
+    rng = np.random.RandomState(7)
+    logits = (rng.randn(16, 64) * 3).astype(np.float32)
+    key = jax.random.key(9)
+    args = dict(do_sample=True, temperature=kw.get("temperature", 1.0),
+                top_k=min(kw.get("top_k", 0), 64), top_p=kw.get("top_p", 1.0),
+                use_top_p=kw.get("top_p", 1.0) < 1.0)
+    want = np.asarray(jgen._sample(
+        jnp.asarray(logits), key, args["do_sample"],
+        jnp.float32(args["temperature"]), args["top_k"],
+        jnp.float32(args["top_p"]), args["use_top_p"]))
+    noise = torch.from_numpy(np.asarray(
+        jax.random.gumbel(key, logits.shape, jnp.float32)))
+    got = tgen._sample(torch.from_numpy(logits), None, noise=noise, **args)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if setting in ("tiny_top_p", "top_k_1"):  # one survivor: greedy
+        np.testing.assert_array_equal(got.numpy(), logits.argmax(-1))
+
+
+def test_sampling_seed_and_generator(pair):
+    """The port's own draws: the same seed twice gives the same tokens,
+    an explicit generator seeded alike gives them too, and the filters
+    that leave one token give the greedy tokens."""
+    _, tm = pair
+    ids = _prompts(tm.config.vocab_size, seed=8, b=2, plen=5)
+    run = functools.partial(generate, tm, ids, max_new_tokens=12,
+                            device="cpu")
+    a = run(do_sample=True, seed=4).numpy()
+    np.testing.assert_array_equal(run(do_sample=True, seed=4).numpy(), a)
+    np.testing.assert_array_equal(
+        run(do_sample=True, seed=99,
+            generator=torch.Generator().manual_seed(4)).numpy(), a)
+    greedy = run().numpy()
+    np.testing.assert_array_equal(run(do_sample=True, top_k=1).numpy(),
+                                  greedy)
+    np.testing.assert_array_equal(run(do_sample=True, top_p=1e-6).numpy(),
+                                  greedy)
 
 
 def test_default_device_raises_without_gpu(pair, monkeypatch):

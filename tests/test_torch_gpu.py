@@ -11,16 +11,20 @@ machine that has only PyTorch for CUDA::
 ``tests/test_torch_*.py`` hold the plain versions used here against the
 JAX package.
 """
+import gc
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.framework import random as trandom
-from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.jit import TrainStep, exec_cache
 from paddle_tpu_torch.models import (
     BertConfig, BertForMaskedLM, LlamaConfig, LlamaForCausalLM, generate,
     load_jax_weights,
 )
+from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import head_flash as hf
@@ -173,6 +177,289 @@ def test_engine_launches_kernels_and_matches_generate(cuda, kv_int8):
         want = generate(tm, prompt[None], max_new_tokens=n,
                         kv_int8=kv_int8, device=cuda).cpu().numpy()[0]
         np.testing.assert_array_equal(outs[r.request_id], want)
+
+
+# -- the engine on CUDA graphs ------------------------------------------------
+
+# 3 lanes of 8 blocks of 4 slots, prefill chunk 8, speculation k 4
+_GRAPH_GEOM = dict(max_lanes=3, block_size=4, max_seq_len=32,
+                   prefill_chunk=8)
+
+
+def _tiny_llama(device, dtype="float32", seed=0):
+    return LlamaForCausalLM(
+        LlamaConfig.tiny(num_hidden_layers=2, dtype=dtype), device=device,
+        generator=torch.Generator(device).manual_seed(seed))
+
+
+def _phase_inputs(eng, phase, rng):
+    """Round inputs that exercise every write rule: lanes 0 and 1 live on
+    private blocks, lane 2 idle on null block 0; the prefill chunk has a
+    padded tail; the verify drafts stop short of k (wlimit)."""
+    L, M = eng.config.max_lanes, eng.blocks_per_lane
+    C, V = eng.config.prefill_chunk, eng.model.config.vocab_size
+    tables = np.zeros((L, M), np.int32)
+    tables[:2] = 1 + np.arange(2 * M).reshape(2, M)
+    if phase == "decode":
+        return dict(tables=tables, cur_len=[13, 30, 0],
+                    last_tok=rng.randint(0, V, (L,)))
+    if phase == "prefill":
+        return dict(table=tables[:1], ids=rng.randint(0, V, (1, C)),
+                    start=8, ctx_len=13, last_idx=4)
+    K = eng.config.spec_k
+    return dict(tables=tables, cur_len=[10, 20, 0],
+                toks=rng.randint(0, V, (L, K + 1)), wlimit=[13, 25, 0])
+
+
+def _fill_pools(eng, gen):
+    """Random pool contents (null block included), as written K/V."""
+    for t in (eng._kpool, eng._vpool):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, device=t.device,
+                                  generator=gen, dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, device=t.device, generator=gen))
+    for t in (eng._kscale, eng._vscale):
+        if t is not None:
+            t.copy_(torch.rand(t.shape, device=t.device, generator=gen)
+                    * 0.05)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["pool", "int8pool"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("phase", ["decode", "prefill", "verify"])
+def test_graph_phase_matches_eager(cuda, phase, dtype, kv_int8):
+    """Each captured phase replayed against an eager call of the same
+    phase program on the same inputs and pools, on the live lanes (0 and
+    1; the idle lane reads null block 0, where idle lanes' and pads'
+    writes race by design, and the engine drops its output). fp32:
+    tokens, logits and every pool slot outside block 0 (the live slots)
+    bit-identical. bf16: logits within 1e-2 of their largest magnitude
+    (one bf16 rounding is 2^-8 ~ 4e-3; the same kernels run, so only a
+    matmul algorithm picked otherwise under capture could move them),
+    and tokens equal where the eager logits' top two differ by more
+    than that limit."""
+    eng = ServingEngine(_tiny_llama(cuda, dtype), ServingConfig(
+        kv_int8=kv_int8, **_GRAPH_GEOM), device=cuda)
+    eng.warmup()
+    assert eng.stats()["graphs"] and sorted(eng._graphs) == [
+        "decode", "prefill", "verify"]
+    gen = torch.Generator(cuda).manual_seed(3)
+    _fill_pools(eng, gen)
+    pools = [t for t in (eng._kpool, eng._vpool, eng._kscale, eng._vscale)
+             if t is not None]
+    before = [t.clone() for t in pools]
+    flat = eng._pack(phase, **_phase_inputs(eng, phase,
+                                            np.random.RandomState(4)))
+    entry = eng._graphs[phase]
+    entry.inputs["flat"].copy_(torch.from_numpy(flat))
+    tok_g, logits_g = (t.clone() for t in entry.replay())
+    after_g = [t.clone() for t in pools]
+    for t, b in zip(pools, before):
+        t.copy_(b)
+    tok_e, logits_e = eng._programs[phase](
+        flat=torch.from_numpy(flat).to(cuda), **eng._state)
+    torch.cuda.synchronize()
+    if phase != "prefill":  # the live lanes
+        tok_g, logits_g, tok_e, logits_e = (
+            t[:2] for t in (tok_g, logits_g, tok_e, logits_e))
+    for got, want, old in zip(after_g, pools, before):
+        assert not torch.equal(got[:, 1:], old[:, 1:])  # live writes
+        if dtype == "float32":
+            assert torch.equal(got[:, 1:], want[:, 1:])
+    if dtype == "float32":
+        assert torch.equal(tok_g, tok_e)
+        assert torch.equal(logits_g, logits_e)
+        return
+    scale = logits_e.abs().max()
+    assert (logits_g - logits_e).abs().max() <= 1e-2 * scale
+    top2 = logits_e.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-2 * scale
+    assert torch.equal(tok_g[clear], tok_e[clear])
+
+
+def test_phase_writes_reach_the_live_slots(cuda):
+    """The decode replay writes each live lane's K/V at its position and
+    nothing else outside null block 0."""
+    eng = ServingEngine(_tiny_llama(cuda), ServingConfig(**_GRAPH_GEOM),
+                        device=cuda)
+    eng.warmup()
+    _fill_pools(eng, torch.Generator(cuda).manual_seed(5))
+    before = eng._kpool.clone()
+    eng._run("decode", **_phase_inputs(eng, "decode",
+                                       np.random.RandomState(6)))
+    torch.cuda.synchronize()
+    changed = (eng._kpool != before).flatten(3).any(-1)  # [layers, blk, off]
+    B, M = eng.config.block_size, eng.blocks_per_lane
+    want = torch.zeros_like(changed)
+    for lane, cur in ((0, 13), (1, 30)):
+        want[:, 1 + lane * M + cur // B, cur % B] = True
+    assert torch.equal(changed[:, 1:], want[:, 1:])
+
+
+def test_second_engine_hits_the_cache(cuda):
+    """A second engine of the same geometry on the same model takes the
+    first one's pools once it is collected, so its graph keys equal the
+    first one's: it captures nothing and serves the same tokens."""
+    tm = _tiny_llama(cuda)
+    work = _workload(tm.config.vocab_size, seed=9)
+    first = ServingEngine(tm, ServingConfig(**_GRAPH_GEOM), device=cuda)
+    hits = exec_cache.stats()["hits"]
+    first.warmup()
+    assert first.counters["graph_captures"] + \
+        exec_cache.stats()["hits"] - hits == 3
+    reqs = [first.submit(p, max_new_tokens=n) for p, n in work]
+    outs = first.run()
+    want = [outs[r.request_id] for r in reqs]
+    del first, reqs, outs
+    gc.collect()
+    captures, hits = exec_cache.stats()["captures"], \
+        exec_cache.stats()["hits"]
+    second = ServingEngine(tm, ServingConfig(**_GRAPH_GEOM), device=cuda)
+    second.warmup()
+    assert second.counters["graph_captures"] == 0
+    assert exec_cache.stats()["captures"] == captures
+    assert exec_cache.stats()["hits"] == hits + 3
+    reqs = [second.submit(p, max_new_tokens=n) for p, n in work]
+    outs = second.run()
+    for r, w in zip(reqs, want):
+        np.testing.assert_array_equal(outs[r.request_id], w)
+
+
+def test_uncapturable_phase_raises(cuda):
+    """A phase that syncs with the host (``.item()``) cannot be captured:
+    get_or_capture raises naming it, the caller's stream is current
+    again, and later captures and eager work go on."""
+    def phase(x):
+        return x * float((x + 1).sum().item())
+
+    x = torch.ones(4, device=cuda)
+    stream = torch.cuda.current_stream(cuda)
+    with pytest.raises(RuntimeError, match="bad_phase"):
+        exec_cache.get_or_capture({"kind": "bad_phase"}, phase, {"x": x},
+                                  label="bad_phase")
+    assert torch.cuda.current_stream(cuda) == stream
+    torch.testing.assert_close((x * 2).sum().item(), 8.0)
+    entry = exec_cache.get_or_capture({"kind": "good_phase"},
+                                      lambda x: x * 3, {"x": x},
+                                      label="good_phase")
+    x.fill_(2.0)
+    torch.testing.assert_close(entry.replay().sum().item(), 24.0)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_graph_replays_and_paged_launches(cuda, kv_int8):
+    """On graphs: one replay per prefill chunk and per round, and the
+    paged kernel counted once per layer per decode replay."""
+    tm = _tiny_llama(cuda)
+    eng = ServingEngine(tm, ServingConfig(
+        max_lanes=3, block_size=2, num_blocks=12, prefill_chunk=4,
+        max_seq_len=20, kv_int8=kv_int8), device=cuda)
+    eng.warmup()
+    wrapper = pa.paged_attend_int8 if kv_int8 else pa.paged_attend
+    wrapper.launches = 0
+    for p, n in _workload(tm.config.vocab_size, seed=10):
+        eng.submit(p, max_new_tokens=n)
+    eng.run()
+    c = eng.counters
+    assert c["decode_steps"] > 0 and c["verify_steps"] > 0
+    assert c["graph_replays"] == c["decode_steps"] + c["verify_steps"] \
+        + c["prefill_chunks"]
+    assert wrapper.launches == tm.config.num_hidden_layers \
+        * c["decode_steps"]
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_int8_weight_engine_matches_generate(cuda, kv_int8):
+    tm = _tiny_llama(cuda)
+    work = _workload(tm.config.vocab_size, seed=11)
+    eng = ServingEngine(tm, ServingConfig(
+        max_lanes=3, block_size=2, num_blocks=12, prefill_chunk=4,
+        max_seq_len=20, kv_int8=kv_int8, int8_weights=True), device=cuda)
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in work]
+    outs = eng.run()
+    assert eng.counters["graph_captures"] + eng.counters["graph_replays"] \
+        > 0 and eng.counters["preemptions"] > 0
+    for r, (prompt, n) in zip(reqs, work):
+        want = generate(tm, prompt[None], max_new_tokens=n, kv_int8=kv_int8,
+                        int8_weights=True, device=cuda).cpu().numpy()[0]
+        np.testing.assert_array_equal(outs[r.request_id], want)
+
+
+def test_left_padded_generate_card_equals_cpu(cuda):
+    cpu = _tiny_llama("cpu")
+    card = LlamaForCausalLM(cpu.config, device=cuda)
+    load_jax_weights(card, {n: p.detach().numpy()
+                            for n, p in cpu.named_parameters()})
+    rng = np.random.RandomState(12)
+    mask = np.array([[0, 0, 1, 1, 1, 1, 1], [1, 1, 1, 1, 1, 1, 1],
+                     [0, 0, 0, 0, 0, 1, 1]], np.int32)
+    ids = np.where(mask == 1, rng.randint(0, 128, mask.shape), 0)
+    for kw in ({}, {"int8_weights": True}, {"kv_int8": True}):
+        want = generate(cpu, ids, max_new_tokens=10, attention_mask=mask,
+                        device="cpu", **kw).numpy()
+        got = generate(card, ids, max_new_tokens=10, attention_mask=mask,
+                       device=cuda, **kw).cpu().numpy()
+        np.testing.assert_array_equal(got, want, err_msg=str(kw))
+
+
+def _chi2_critical(df, z=3.0902):
+    """The chi-square quantile at 1 - 1e-3 (z of the normal), by
+    Wilson and Hilferty's approximation."""
+    return df * (1 - 2 / (9 * df) + z * math.sqrt(2 / (9 * df))) ** 3
+
+
+@pytest.mark.parametrize("kw", [dict(temperature=0.8, top_k=20),
+                                dict(temperature=1.2, top_p=0.9),
+                                dict(temperature=1.0, top_k=30, top_p=0.95)],
+                         ids=["top_k", "top_p", "both"])
+def test_sampling_statistics(cuda, kw):
+    """10^4 draws of ``_sample`` on the card from one row of logits: the
+    support equals the filtered set (every kept token drawn, no other),
+    and the counts pass a chi-square test against the filtered softmax
+    over the tokens of p > 1e-3 at significance 1e-3."""
+    n, vocab = 10_000, 64
+    rng = np.random.RandomState(13)
+    row = torch.from_numpy((rng.randn(vocab) * 2).astype(np.float32))
+    logits = row.to(cuda)[None].expand(n, vocab).contiguous()
+    gen = torch.Generator(cuda).manual_seed(14)
+    args = dict(do_sample=True, temperature=kw["temperature"],
+                top_k=kw.get("top_k", 0), top_p=kw.get("top_p", 1.0),
+                use_top_p=kw.get("top_p", 1.0) < 1.0)
+    draws = tgen._sample(logits, gen, **args).cpu().numpy()
+    # the filtered distribution, from the plain rule on the CPU
+    filt = tgen._sample(row[None], None, noise=torch.zeros(1, vocab),
+                        **{**args, "do_sample": True})
+    scaled = row / kw["temperature"]
+    keep = torch.ones(vocab, dtype=torch.bool)
+    if args["top_k"]:
+        keep &= scaled >= scaled.topk(args["top_k"]).values[-1]
+    if args["use_top_p"]:
+        srt = scaled[keep].sort(descending=True).values
+        cum = torch.cumsum(torch.softmax(srt, 0), 0)
+        cut = srt[min(int((cum < args["top_p"]).sum()), srt.numel() - 1)]
+        keep &= scaled >= cut
+    assert keep[int(filt)]
+    p = torch.softmax(torch.where(keep, scaled, torch.tensor(-1e30)), 0)
+    p = p.double().numpy()
+    counts = np.bincount(draws, minlength=vocab)
+    assert set(np.flatnonzero(counts)) == set(np.flatnonzero(keep.numpy()))
+    big = p > 1e-3
+    expect = p[big] * n
+    stat = float(((counts[big] - expect) ** 2 / expect).sum())
+    assert stat < _chi2_critical(int(big.sum()) - 1), stat
+
+
+def test_sampling_seed_and_greedy_limits_on_the_card(cuda):
+    tm = _tiny_llama(cuda)
+    ids = np.random.RandomState(15).randint(0, 128, (2, 5))
+    run = lambda **kw: generate(tm, ids, max_new_tokens=12, device=cuda,
+                                **kw).cpu().numpy()  # noqa: E731
+    a = run(do_sample=True, seed=4)
+    np.testing.assert_array_equal(run(do_sample=True, seed=4), a)
+    greedy = run()
+    np.testing.assert_array_equal(run(do_sample=True, top_k=1), greedy)
+    np.testing.assert_array_equal(run(do_sample=True, top_p=1e-6), greedy)
 
 
 # -- flash attention ----------------------------------------------------------

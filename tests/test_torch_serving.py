@@ -7,9 +7,11 @@
   ``ServingEngine(paged=True)`` and to the port's own ``generate()``:
   fp32 ``LlamaConfig.tiny(num_hidden_layers=2)``, a pool small enough to
   force preemption, a shared prompt prefix, speculation on, with fp32
-  pools and with ``kv_int8``. On the CPU the paged read goes
-  through the kernel wrapper's plain version; ``tests/test_torch_gpu.py``
-  runs the engine through the CUDA kernels on the card.
+  pools and with ``kv_int8``; with ``int8_weights`` identical to the
+  reference engine's and to ``generate(int8_weights=True)``. On the CPU
+  the phases run eagerly and the paged read goes through the kernel
+  wrapper's plain version; ``tests/test_torch_gpu.py`` runs the engine
+  on CUDA graphs through the CUDA kernels on the card.
 """
 import numpy as np
 import pytest
@@ -206,6 +208,27 @@ def test_engine_tokens_identical_to_generate(models, kv_int8):
     assert pa.paged_attend_int8.launches == 0
 
 
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_int8_weight_engine_identical_to_reference_and_generate(models,
+                                                                kv_int8):
+    jm, tm = models
+    work = _workload(tm.config.vocab_size, seed=8)
+    jeng = JaxServingEngine(jm, JaxServingConfig(
+        paged=True, kv_int8=kv_int8, int8_weights=True, **_GEOM))
+    want = _serve(jeng, work)
+    eng = ServingEngine(tm, ServingConfig(kv_int8=kv_int8, int8_weights=True,
+                                          **_GEOM), device="cpu")
+    assert eng.stats()["int8_weights"] is True
+    got = _serve(eng, work)
+    for i, ((prompt, n), g, w) in enumerate(zip(work, got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"request {i}")
+        np.testing.assert_array_equal(
+            g, generate(tm, prompt[None], max_new_tokens=n, kv_int8=kv_int8,
+                        int8_weights=True, device="cpu").numpy()[0])
+    assert eng.counters["preemptions"] > 0
+    assert eng.counters["verify_steps"] > 0
+
+
 def test_submit_takes_lists_arrays_and_tensors(models):
     _, tm = models
     eng = ServingEngine(tm, ServingConfig(max_lanes=2, block_size=4,
@@ -241,5 +264,8 @@ def test_engine_default_device_raises_without_gpu(models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(tm)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tm, ServingConfig(int8_weights=True), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(tm, ServingConfig(int8_weights=True))
+    # int8 weights are ported: on the CPU the engine builds (its tokens
+    # are held against the reference above)
+    ServingEngine(tm, ServingConfig(int8_weights=True), device="cpu")
