@@ -3,7 +3,7 @@ paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Eleven phases in one process; any failure raises and exits non-zero, and
+Thirteen phases in one process; any failure raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
 1. device: name, capability (must be 9.0), versions, power limit;
@@ -59,7 +59,12 @@ only a run in which every phase passed prints the final line:
    ``F.scaled_dot_product_attention`` with the same mask and dropout, and
    the bound (padding keys not counted), dQ as the BERT step runs it
    (computing delta), with the same kernels on the dropout-only call
-   beside (the skip shows as the difference);
+   beside (the skip shows as the difference); and, with dropout 0.1 and
+   no mask, the ERNIE-proxy attention (b4 s1024 h12 d128 bf16,
+   bidirectional and causal: kernel 6 on its mma.sync dK/dV) and phase
+   12's own calls (the 10B trunk's b4 s1024 h64 d64 in both passes, the
+   NLG branch's h12 causal), held the same way, the proxy's and the
+   trunk's timed beside SDPA and the bound;
 10. BERT-base MLM train: ``BertForMaskedLM`` at full width (bf16 O2
    through ``amp.decorate``, dropout 0.1, random weights from a seed)
    through ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)`` on
@@ -68,7 +73,26 @@ only a run in which every phase passed prints the final line:
    times and kernels 1-3 not at all;
 11. encoder identity: a float32 tiny BERT trained 10 AdamW steps on the
    card and on the CPU from the same weights, with attention dropout
-   0.1 from the same seed words, must agree step by step.
+   0.1 from the same seed words, must agree step by step;
+12. ERNIE pretraining: ``ErnieForPretraining`` at the ERNIE-3.0 10B
+   widths with the trunk cut from 48 to 8 layers (2.02 B parameters,
+   every one bf16, dropout 0.1, random weights from a seed) through
+   ``TrainStep`` with ``AdamW(multi_precision=True)`` under
+   ``LinearWarmup(PolynomialDecay)`` on ernie_bench.py's b4 x s1024
+   batch; the loss must start near 2 ln(vocab), stay finite and fall,
+   each head-batched kernel must launch (2 x trunk + 2 x task layers) x
+   steps times (the trunk runs twice, NLU bidirectional and NLG causal)
+   and kernels 1-3 not at all. Prints ms a step, tokens/s, MFU, the
+   forward/backward/optimizer split and peak memory, then two steps of
+   ``Lamb(multi_precision=True)`` over the same parameters with its
+   optimizer ms beside AdamW's;
+13. ERNIE identity: a float32 tiny ERNIE trained 10 ``Lamb`` steps under
+   ``LinearWarmup(CosineAnnealingDecay)`` on the card and on the CPU
+   (padded batches, attention dropout 0.1 from the same seed words) must
+   agree step by step; 5 steps, ``state_dict`` into a fresh model,
+   optimizer and scheduler, then 5 more must equal the 10 uninterrupted
+   steps bit for bit on the card; ``ErnieForSequenceClassification`` in
+   eval (kernels 1-3) must give the CPU's logits.
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -114,7 +138,8 @@ from paddle_tpu_torch import amp
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (
-    BertConfig, BertForMaskedLM, LlamaConfig, LlamaForCausalLM, generate,
+    BertConfig, BertForMaskedLM, ErnieConfig, ErnieForPretraining,
+    ErnieForSequenceClassification, LlamaConfig, LlamaForCausalLM, generate,
     load_jax_weights,
 )
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
@@ -122,7 +147,7 @@ from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import head_flash as hf
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import AdamW, Lamb, lr
 from paddle_tpu_torch.quantization import quantize_kv
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -1223,8 +1248,8 @@ def phase_train_identity():
 
 # -- phase 9 ------------------------------------------------------------------
 
-# (name, b, sq, sk, h, h_kv, causal, window, dtype, masked) at d 64,
-# each with dropout 0.1 and, where masked, a key mask from seeded lengths
+# (name, b, sq, sk, h, h_kv, causal, window, dtype, masked[, d]) at d 64
+# unless given, each with dropout 0.1 and, where masked, a key mask from seeded lengths
 # 128-512 (or from the lengths given). The first is BERT-base's attention
 # on a padded batch (phase 10's traffic); "dropout_only" is the same
 # without a mask, as benchmarks/baseline_configs.py::bench_bert_mlm calls
@@ -1243,7 +1268,24 @@ ENC_CASES = [
      (0, 64, 100, 300)),
     ("lengths_causal", 4, 512, 512, 12, 12, True, 0, torch.bfloat16,
      (300, 0, 100, 64)),
+    # the repo's single-chip ERNIE attention shape (benchmarks/
+    # ernie_bench.py:48-56: b4 s1024, 12 heads of d 128), dropout 0.1, no
+    # mask, bidirectional (NLU) and causal (NLG); at d 128 with dropout
+    # kernel 6 runs the mma.sync dK/dV
+    ("ernie_proxy", 4, 1024, 1024, 12, 12, False, 0, torch.bfloat16, False,
+     128),
+    ("ernie_proxy_causal", 4, 1024, 1024, 12, 12, True, 0, torch.bfloat16,
+     False, 128),
+    # phase 12's own calls: the 10B trunk (64 heads of d 64) in both
+    # passes and the NLG branch (12 heads of d 64), b4 s1024, no mask
+    ("ernie_trunk", 4, 1024, 1024, 64, 64, False, 0, torch.bfloat16, False),
+    ("ernie_trunk_causal", 4, 1024, 1024, 64, 64, True, 0, torch.bfloat16,
+     False),
+    ("ernie_branch_causal", 4, 1024, 1024, 12, 12, True, 0, torch.bfloat16,
+     False),
 ]
+ERNIE_TIMED = ("ernie_proxy", "ernie_proxy_causal", "ernie_trunk",
+               "ernie_trunk_causal")
 ENC_DROPOUT = 0.1
 ENC_SEED = (20240607, -77)  # the two dropout seed words, fixed
 # Tolerances as phase 6: every output per 64-row tile of each (batch,
@@ -1294,10 +1336,11 @@ def _row_rel_err(got, want):
 def _enc_check(case, family, gen):
     """One case of one kernel family against its plain versions; returns
     the max abs errors by wrapper and the inputs for timing."""
-    name, b, sq, sk, h, h_kv, causal, window, dtype, masked = case
+    name, b, sq, sk, h, h_kv, causal, window, dtype, masked, *d = case
+    d = d[0] if d else 64
     (fwd, bdq, bdkv), (fwd_ref, bdq_ref, bdkv_ref) = FAMILIES[family]
     q, k, v, do = (t.to(dtype) for t in _flash_inputs(b, sq, sk, h, h_kv,
-                                                      gen, d=64))
+                                                      gen, d=d))
     km = _padding_mask(b, sk, lengths=masked if isinstance(
         masked, tuple) else None) if masked else None
     if masked and family == "kernels 1-3":  # one row per query head
@@ -1338,7 +1381,7 @@ def _enc_check(case, family, gen):
     lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)) \
         .max().item()
     log(f"[encoder] {family} {name} b={b} sq={sq} sk={sk} h={h} h_kv={h_kv} "
-        f"d=64 {str(dtype)[6:]} causal={causal} window={window} "
+        f"d={d} {str(dtype)[6:]} causal={causal} window={window} "
         f"{'kmask' if masked else 'no mask'} dropout={ENC_DROPOUT}: "
         f"per-tile relative error "
         + ", ".join(f"{n} {rel[n]:.3e}" for n in rel)
@@ -1463,7 +1506,55 @@ def phase_encoder_kernels(layers):
         f"({lib_txt}): {ms / lib_ms if lib_ms else float('nan'):.2f}x; "
         f"bound_ms {bound_ms:.5f} ({bound_by}); eager calls "
         f"{_spread(eager[whole])} ms")
+    for case in ERNIE_TIMED:
+        _time_ernie_case(case, inputs[case, "kernels 4-6"])
     return rows
+
+
+def _time_ernie_case(tag, inputs):
+    """Kernels 4-6 at an ERNIE shape (the d-128 proxy, or phase 12's
+    trunk; bf16, dropout 0.1, no mask), and their whole backward as
+    ``_HbFlashFn.backward`` runs it, beside SDPA with the same dropout and
+    causality and the bound; timed only (the JSON rows are BERT's)."""
+    q, k, v, do, out, lse, delta, kw = inputs
+    causal = kw["causal"]
+    library, contexts, fallbacks, minus = _sdpa_fns(
+        q, k, v, do, is_causal=causal, dropout_p=ENC_DROPOUT)
+    port = _family_fns("kernels 4-6", inputs, tag)
+    whole = f"hb_bwd/{tag}"
+    port[whole] = _whole_backward(hf._HbFlashFn, q, k, v, out, lse, do,
+                                  scale=1.0 / q.shape[-1] ** 0.5, **kw)
+    times, how, eager = _timed(port, library, contexts, fallbacks, minus)
+    lib = {"fwd": _library(times, "sdpa_fwd", how),
+           "bwd": _library(times, "sdpa_bwd", how)}
+    plain = {"hb_fwd": lambda: hf.hb_fwd_ref(q, k, v, **kw),
+             "hb_bwd_dq": lambda: hf.hb_bwd_dq_delta_ref(q, k, v, do, out,
+                                                         lse, **kw),
+             "hb_bwd_dkv": lambda: hf.hb_bwd_dkv_ref(q, k, v, do, lse,
+                                                     delta, **kw)}
+    b, s, h, d = q.shape
+    for kern, stage in (("hb_fwd", "hb_fwd"), ("hb_bwd_dq", "hb_bwd_dq_delta"),
+                        ("hb_bwd_dkv", "hb_bwd_dkv"), ("hb_bwd", "hb_bwd")):
+        name = whole if kern == "hb_bwd" else f"{kern}/{tag}"
+        lib_ms, lib_txt = lib["fwd" if kern == "hb_fwd" else "bwd"]
+        bound_ms, bound_by, _ = _flash_bound(q, k, causal, 0, stage)
+        ms = _med(times[name])
+        plain_ms = (f"{_time_plain(plain[kern], iters=3):.4f}"
+                    if kern in plain else "not measured")
+        log(f"[encoder] {tag} {kern} b{b} s{s} h{h} d{d} bf16 "
+            f"{'causal' if causal else 'non-causal'} dropout {ENC_DROPOUT} "
+            f"no mask: kernel_ms {_spread(times[name])} (CUDA graphs of "
+            f"{ITERS} calls"
+            + ("; computing delta, as the backward runs it" if kern ==
+               "hb_bwd_dq" else "")
+            + ("; 5 with delta + 6" if kern == "hb_bwd" else "")
+            + f") plain_ms {plain_ms} library_ms {_ms(lib_ms)} ("
+            + ("SDPA's forward" if kern == "hb_fwd" else
+               "SDPA's whole backward")
+            + f", fastest backend: {lib_txt}) "
+            f"{ms / lib_ms if lib_ms else float('nan'):.2f}x; bound_ms "
+            f"{bound_ms:.5f} ({bound_by}); eager calls "
+            f"{_spread(eager[name])} ms")
 
 
 # -- phase 10 -----------------------------------------------------------------
@@ -1616,15 +1707,313 @@ def phase_bert_identity():
         raise AssertionError("the card's encoder run left the CPU's")
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+# ERNIE-3.0 10B's widths (ErnieConfig() defaults: vocab 40000, trunk 4096
+# with 64 heads of d 64 and ffn 16384, task branches 12 x 768 with 12
+# heads and ffn 3072, max_pos 2048, type_vocab 4, gelu, dropout 0.1);
+# the one reduction: the trunk's depth, 48 -> 8 layers
+ERNIE = dict(num_hidden_layers=8, dtype="bfloat16")
+ERNIE_BATCH, ERNIE_SEQ = 4, 1024
+LAMB_STEPS = 2
+
+
+def _ernie_batch(cfg, b, s, seed=0):
+    """ernie_bench.py's batch: ids, MLM labels on 15 % of the tokens
+    (-100 elsewhere) and the ids as LM labels, from numpy seed 0."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (b, s))
+    mlm = np.where(rng.rand(b, s) < 0.15, ids, -100)
+    return [torch.from_numpy(a.astype(np.int32)).to("cuda")
+            for a in (ids, mlm, ids)]
+
+
+def _ernie_schedule():
+    return lr.LinearWarmup(lr.PolynomialDecay(1e-4, decay_steps=100),
+                           warmup_steps=2, start_lr=1e-5, end_lr=1e-4)
+
+
+def ernie_train_step():
+    """ernie_bench.py's step on the card at the 10B widths (trunk 8 of
+    48): ``ErnieForPretraining`` (random weights from a seed), every
+    parameter bf16 (``amp.decorate`` O2), dropout 0.1, ``AdamW`` with fp32
+    masters under ``LinearWarmup(PolynomialDecay)``, ``TrainStep``.
+    Returns (model, optimizer, scheduler, step, batch ``(ids, mlm_labels,
+    lm_labels)``)."""
+    trandom.seed(0)
+    cfg = ErnieConfig(**ERNIE)
+    model = ErnieForPretraining(
+        cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    sched = _ernie_schedule()
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                multi_precision=True)
+    step = TrainStep(model, opt, lambda m, ids, mlm, lm: m(
+        ids, mlm_labels=mlm, lm_labels=lm))
+    return model, opt, sched, step, _ernie_batch(cfg, ERNIE_BATCH,
+                                                 ERNIE_SEQ)
+
+
+def _split_step(model, opt, batch):
+    """One train step split into forward, backward and optimizer by CUDA
+    events, as ``TrainStep`` runs it; returns (loss, [ms of each])."""
+    ids, mlm, lm = batch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.clear_grad()
+    ev[0].record()
+    loss = model(ids, mlm_labels=mlm, lm_labels=lm)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    return float(loss.detach()), [ev[i].elapsed_time(ev[i + 1])
+                                  for i in range(3)]
+
+
+def phase_ernie_train(card):
+    t_phase = time.perf_counter()
+    model, opt, sched, step, batch = ernie_train_step()
+    cfg = model.config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        losses.append(float(step(*batch)))
+        sched.step()
+    torch.cuda.synchronize()
+    for w in HB_WRAPPERS + FLASH_WRAPPERS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    timed = []
+    for _ in range(TIMED_STEPS):
+        timed.append(step(*batch))
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in HB_WRAPPERS}
+    flash_launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    losses += [float(x) for x in timed]
+    steps = TIMED_STEPS
+    # each step: the trunk twice (NLU bidirectional, NLG causal) and the
+    # two branches, one attention call a layer each
+    per_step = 2 * cfg.num_hidden_layers + 2 * cfg.num_task_layers
+    want_loss = 2 * np.log(cfg.vocab_size)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not abs(losses[0] - want_loss) < 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"2 ln(vocab) = {want_loss:.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    for n, p in model.named_parameters():
+        # the token-type table (no token types given) has no gradient
+        master = opt._master_weights.get(id(p))
+        if p.dtype != torch.bfloat16 or p.grad is not None \
+                and (master is None or master.dtype != torch.float32):
+            raise AssertionError(f"{n}: {p.dtype} without an fp32 master")
+    for name, n in launches.items():
+        if n != per_step * steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"steps, expected (2 x {cfg.num_hidden_layers}"
+                                 f" + 2 x {cfg.num_task_layers}) x {steps}")
+    if any(flash_launches.values()):
+        raise AssertionError(f"the dropped encoder reached kernels 1-3: "
+                             f"{flash_launches}")
+    loss, split = _split_step(model, opt, batch)
+    sched.step()
+    peak = torch.cuda.max_memory_allocated()
+    ms = wall / steps * 1e3
+    tokens = ERNIE_BATCH * ERNIE_SEQ
+    fpt = model.flops_per_token(ERNIE_SEQ)
+    mfu = fpt * tokens / (ms / 1e3) / PEAK_OPS_PER_S[torch.bfloat16]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_trunk = sum(p.numel() for n, p in model.named_parameters()
+                  if n.startswith("ernie.encoder."))
+    # the same parameters under Lamb: AdamW's masters and moments go
+    # first, so the two optimizers' states are never held together
+    adamw_ms = split[2]
+    del opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    lamb = Lamb(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    lamb_split = [_split_step(model, lamb, batch) for _ in range(LAMB_STEPS)]
+    lamb_losses = [x for x, _ in lamb_split]
+    if not all(np.isfinite(lamb_losses)):
+        raise AssertionError(f"non-finite Lamb loss: {lamb_losses}")
+    log(f"[ernie] on {card}: ERNIE-3.0 10B widths, trunk "
+        f"{cfg.num_hidden_layers} of 48 layers, {n_params / 1e9:.3f} B "
+        f"parameters ({n_trunk / 1e9:.3f} B trunk), bf16 O2, dropout 0.1, "
+        f"b{ERNIE_BATCH} x s{ERNIE_SEQ}; losses "
+        f"{[round(x, 4) for x in losses + [loss]]} (2 ln(vocab) = "
+        f"{want_loss:.3f}); {ms:.2f} ms per step over {steps} steps = "
+        f"{tokens / ms * 1e3:.0f} tokens/s, MFU {mfu:.4f} "
+        f"(flops_per_token({ERNIE_SEQ}) = {fpt / 1e9:.3f} G x tokens / time "
+        f"/ 989e12); one step split: forward {split[0]:.2f} ms, backward "
+        f"{split[1]:.2f} ms, optimizer (AdamW) {adamw_ms:.2f} ms; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB; launches {launches} "
+        f"(= {per_step} a step), kernels 1-3 {flash_launches}; Lamb "
+        f"(multi_precision) over the same parameters, {LAMB_STEPS} steps: "
+        f"losses {[round(x, 4) for x in lamb_losses]}, optimizer "
+        f"{[round(sp[2], 2) for _, sp in lamb_split]} ms (the first "
+        f"allocates its states) against AdamW's {adamw_ms:.2f} ms; "
+        f"max_memory_allocated then {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB; phase {time.perf_counter() - t_phase:.1f} s")
+    del model, lamb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 13 -----------------------------------------------------------------
+
+ERNIE_RESUME_AT = 5
+
+
+def _tiny_ernie_schedule():
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=10),
+                           warmup_steps=3, start_lr=1e-4, end_lr=1e-3)
+
+
+def _tiny_ernie_batch(cfg, i, device):
+    """Step ``i``'s padded batch: batch row 1 keeps 21 of 32 tokens, MLM
+    labels on 30 % of the real tokens, LM labels on all of them."""
+    rng = np.random.RandomState(300 + i)
+    ids = rng.randint(0, cfg.vocab_size, (2, 32))
+    mask = np.arange(32)[None] < np.array([[32], [21]])
+    mlm = np.where((rng.rand(2, 32) < 0.3) & mask, ids, -100)
+    lm = np.where(mask, ids, -100)
+    return [torch.from_numpy(a.astype(np.int32)).to(device)
+            for a in (ids, mask, mlm, lm)]
+
+
+def _tiny_ernie(device, weights):
+    """The tiny fp32 ERNIE from ``weights`` (hidden dropout 0: CPU and
+    CUDA generators differ; attention dropout 0.1 from seed words drawn
+    alike on both sides), ``Lamb(lamb_weight_decay=0.01)`` under
+    ``LinearWarmup(CosineAnnealingDecay)``, and its ``TrainStep``."""
+    cfg = ErnieConfig.tiny(hidden_dropout_prob=0.0)
+    model = ErnieForPretraining(cfg, device=device)
+    load_jax_weights(model, weights)
+    sched = _tiny_ernie_schedule()
+    opt = Lamb(learning_rate=sched, lamb_weight_decay=0.01,
+               parameters=model.named_parameters())
+    step = TrainStep(model, opt, lambda m, ids, mask, mlm, lm: m(
+        ids, None, mask, mlm, lm))
+    return model, opt, sched, step
+
+
+def train_tiny_ernie(device, weights, steps=IDENTITY_STEPS, start=0,
+                     state=None):
+    """``steps`` steps of the tiny ERNIE from step ``start``, after
+    loading ``state`` (model, optimizer) if given; returns (losses,
+    model, optimizer). The seed words follow :func:`trandom.seed` (the
+    caller's)."""
+    model, opt, sched, step = _tiny_ernie(device, weights)
+    if state is not None:
+        model.load_state_dict(state[0])
+        opt.set_state_dict(state[1])
+    losses = []
+    for i in range(start, start + steps):
+        losses.append(float(step(*_tiny_ernie_batch(model.config, i,
+                                                    device))))
+        sched.step()
+    return losses, model, opt
+
+
+def phase_ernie_identity():
+    t_phase = time.perf_counter()
+    seed_model = ErnieForPretraining(
+        ErnieConfig.tiny(), device="cpu",
+        generator=torch.Generator("cpu").manual_seed(0))
+    weights = {n: p.detach().numpy() for n, p in seed_model.named_parameters()}
+    for w in HB_WRAPPERS:
+        w.launches = 0
+    trandom.seed(0)
+    got, gm, gopt = train_tiny_ernie("cuda", weights)
+    if min(w.launches for w in HB_WRAPPERS) <= 0:
+        raise AssertionError("the card's tiny ERNIE never launched the "
+                             "head-batched kernels")
+    trandom.seed(0)
+    want, _, _ = train_tiny_ernie("cpu", weights)
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    log(f"[ernie-identity] {IDENTITY_STEPS} Lamb steps under LinearWarmup("
+        f"CosineAnnealingDecay), fp32 tiny ERNIE, padded, attention "
+        f"dropout 0.1: losses card {[round(x, 6) for x in got]} vs CPU "
+        f"{[round(x, 6) for x in want]}: max diff {diff:.3e} (tol "
+        f"{IDENTITY_LOSS_ATOL})")
+    if not diff <= IDENTITY_LOSS_ATOL:
+        raise AssertionError("the card's ERNIE run left the CPU's")
+    # resume: 5 steps, state_dict into a fresh model, optimizer and
+    # scheduler, 5 more; the seed words run on from the first half
+    trandom.seed(0)
+    first, qm, qopt = train_tiny_ernie("cuda", weights, ERNIE_RESUME_AT)
+    state = ({n: t.clone() for n, t in qm.state_dict().items()},
+             qopt.state_dict())
+    del qm, qopt
+    second, rm, ropt = train_tiny_ernie(
+        "cuda", weights, IDENTITY_STEPS - ERNIE_RESUME_AT,
+        start=ERNIE_RESUME_AT, state=state)
+    same_params = all(torch.equal(p, q) for p, q in
+                      zip(gm.parameters(), rm.parameters()))
+    same_states = True  # (the token-type table has no gradient: no states)
+    for p, q in zip(gm.parameters(), rm.parameters()):
+        sp = gopt._accumulators.get(id(p), {})
+        sq = ropt._accumulators.get(id(q), {})
+        same_states &= sp.keys() == sq.keys() and all(
+            torch.equal(v, sq[k]) for k, v in sp.items())
+    log(f"[ernie-identity] resumed from state_dict after "
+        f"{ERNIE_RESUME_AT} steps: losses {[round(x, 6) for x in first + second]};"
+        f" bit-identical to the uninterrupted run: losses "
+        f"{first + second == got}, parameters {same_params}, Lamb states "
+        f"{same_states}, rate {ropt.get_lr() == gopt.get_lr()}")
+    if first + second != got or not same_params or not same_states \
+            or ropt.get_lr() != gopt.get_lr():
+        raise AssertionError("the resumed run left the uninterrupted one")
+    # fine-tuning head in eval: no mask, no dropout -> kernels 1-3
+    cls_cpu = ErnieForSequenceClassification(
+        ErnieConfig.tiny(), num_classes=3, device="cpu",
+        generator=torch.Generator("cpu").manual_seed(1))
+    cls_weights = {n: p.detach().numpy()
+                   for n, p in cls_cpu.named_parameters()}
+    cls_card = ErnieForSequenceClassification(ErnieConfig.tiny(),
+                                              num_classes=3, device="cuda")
+    load_jax_weights(cls_card, cls_weights)
+    cls_cpu.eval()
+    cls_card.eval()
+    ids = _tiny_ernie_batch(cls_cpu.config, 99, "cpu")[0]
+    for w in FLASH_WRAPPERS + HB_WRAPPERS:
+        w.launches = 0
+    with torch.no_grad():
+        logits = cls_card(ids.to("cuda")).cpu()
+        want_logits = cls_cpu(ids)
+    ldiff = (logits - want_logits).abs().max().item()
+    flash_n = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    hb_n = sum(w.launches for w in HB_WRAPPERS)
+    log(f"[ernie-identity] ErnieForSequenceClassification eval, fp32 tiny, "
+        f"no mask: logits max diff card vs CPU {ldiff:.3e} (tol "
+        f"{IDENTITY_LOSS_ATOL}); kernels 1-3 {flash_n}, kernels 4-6 {hb_n}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    if not ldiff <= IDENTITY_LOSS_ATOL or flash_n["flash_fwd"] \
+            != cls_card.config.num_hidden_layers \
+            + cls_card.config.num_task_layers or hb_n:
+        raise AssertionError("the card's classification logits or routing "
+                             "left the CPU's")
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13",
                     help="phases to run after 1 and 2, comma-separated")
     only = {int(p) for p in ap.parse_args().phases.split(",")}
     name, smi = phase_device()
     phase_build()
-    rows, launches = {}, {}
+    # the JSON line's launches are each kernel's main path's (kernels 4-6:
+    # BERT's, phase 10); ERNIE's (phase 12) are printed beside them
+    rows, launches, ernie_launches = {}, {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -1635,10 +2024,15 @@ def main():
                    (9, lambda: rows.update(phase_encoder_kernels(
                        BertConfig().num_hidden_layers))),
                    (10, lambda: launches.update(phase_bert_train(name))),
-                   (11, phase_bert_identity)):
+                   (11, phase_bert_identity),
+                   (12, lambda: ernie_launches.update(
+                       phase_ernie_train(name))),
+                   (13, phase_ernie_identity)):
         if n in only:
+            t_run = time.perf_counter()
             run()
-    if only != set(range(3, 12)):
+            log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
+    if only != set(range(3, 14)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -1657,6 +2051,8 @@ def main():
     kernels = [dict(name=k, route="cuda", source=sources[k.split("_")[0]],
                     replaces=replaces[k], launches=launches[k], **rows[k])
                for k in replaces]
+    log(f"[done] launches on the ERNIE path (phase 12, "
+        f"{TIMED_STEPS} steps): {ernie_launches}")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,9 @@
 
 The port trains the Llama causal LM (``jit.TrainStep`` with
 ``optimizer.AdamW``) and serves it through the continuous-batching
-engine on one NVIDIA Hopper card. Module names follow the JAX package
+engine on one NVIDIA Hopper card; it trains the BERT and ERNIE 3.0
+encoders, with the reference's LR schedulers and update rules
+(``optimizer.lr``, ``optimizer.Lamb``, ...). Module names follow the JAX package
 (``models/llama.py``, ``jit/train_step.py``, ``serving/engine.py``, ...)
 so every module has an obvious counterpart; the Pallas kernels on those
 paths become hand-written CUDA C++ under ``ops/cuda/``.

@@ -17,17 +17,22 @@ class TrainStep:
     ``loss = step(x, y)``.
 
     ``loss_fn(model, *batch)`` returns the scalar loss (default:
-    ``model(*batch)`` is the loss). Each call clears the gradients,
-    computes the loss, runs ``backward()``, then ``optimizer.step()``,
-    which applies the optimizer's ``grad_clip`` before the update, and
-    returns the loss detached."""
+    ``model(*batch)`` is the loss). Each call reads the optimizer's rate
+    (``optimizer.get_lr()``: a scheduler's current value, kept as
+    ``last_lr``; stepping the scheduler stays the caller's job, as in the
+    reference), clears the gradients, computes the loss, runs
+    ``backward()``, then ``optimizer.step()``, which applies the
+    optimizer's ``grad_clip`` before updating at that rate, and returns
+    the loss detached."""
 
     def __init__(self, model, optimizer, loss_fn=None):
         self._model = model
         self._opt = optimizer
         self._loss_fn = loss_fn or (lambda m, *batch: m(*batch))
+        self.last_lr = None
 
     def __call__(self, *batch):
+        self.last_lr = self._opt.get_lr()
         self._opt.clear_grad()
         loss = self._loss_fn(self._model, *batch)
         loss.backward()

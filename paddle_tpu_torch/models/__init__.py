@@ -1,8 +1,13 @@
-"""The model families: the Llama causal LM with its greedy decode, and
-BERT; ``load_jax_weights`` fills either from the reference's arrays."""
+"""The model families: the Llama causal LM with its greedy decode, BERT
+and ERNIE 3.0; ``load_jax_weights`` fills any of them from the
+reference's arrays."""
 from ._weights import load_jax_weights  # noqa: F401
 from .bert import (  # noqa: F401
     BertConfig, BertForMaskedLM, BertForSequenceClassification, BertModel,
+)
+from .ernie import (  # noqa: F401
+    ErnieConfig, ErnieForPretraining, ErnieForSequenceClassification,
+    ErnieModel,
 )
 from .generation import generate  # noqa: F401
 from .llama import (  # noqa: F401
@@ -11,4 +16,5 @@ from .llama import (  # noqa: F401
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "BertConfig",
            "BertModel", "BertForMaskedLM", "BertForSequenceClassification",
-           "load_jax_weights", "generate"]
+           "ErnieConfig", "ErnieModel", "ErnieForPretraining",
+           "ErnieForSequenceClassification", "load_jax_weights", "generate"]

@@ -81,15 +81,17 @@ def _param(shape, device):
 
 class _Linear(nn.Module):
     """``x @ weight + bias`` with ``weight`` ``[in, out]`` (the
-    reference's ``Linear`` and its meta-parallel linears at degree 1)."""
+    reference's ``Linear`` and its meta-parallel linears at degree 1);
+    ``has_bias=False`` leaves the bias out."""
 
-    def __init__(self, n_in, n_out, device):
+    def __init__(self, n_in, n_out, device, has_bias=True):
         super().__init__()
         self.weight = _param((n_in, n_out), device)
-        self.bias = _param((n_out,), device)
+        self.bias = _param((n_out,), device) if has_bias else None
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        y = x @ self.weight
+        return y if self.bias is None else y + self.bias
 
 
 class _LayerNorm(nn.Module):

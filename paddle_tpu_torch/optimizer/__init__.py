@@ -1,4 +1,9 @@
-"""Optimizers (``paddle_tpu/optimizer``)."""
-from .optimizer import SGD, Adam, AdamW, Optimizer  # noqa: F401
+"""Optimizers and learning-rate schedulers (``paddle_tpu/optimizer``)."""
+from . import lr  # noqa: F401
+from .optimizer import (  # noqa: F401
+    SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, L1Decay, L2Decay, Lamb,
+    Momentum, Optimizer, RMSProp,
+)
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
+           "Adamax", "RMSProp", "Lamb", "Adadelta", "L2Decay", "L1Decay"]

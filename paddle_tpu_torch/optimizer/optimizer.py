@@ -1,36 +1,89 @@
 """Optimizers with the Paddle constructor names.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py`` (``Optimizer``,
-``SGD``, ``Adam``, ``AdamW``). The reference writes each rule as a pure
-function and jits it into the train step with the parameter and state
-buffers donated; here the same rule runs eagerly under ``no_grad`` and
-updates parameters, masters and moments in place, which is what the
-donation achieves there. The arithmetic follows the reference step for
-step:
+``SGD``, ``Momentum``, ``Adagrad``, ``Adam``, ``AdamW``, ``Adamax``,
+``RMSProp``, ``Lamb``, ``Adadelta``, ``L2Decay``, ``L1Decay``). The
+reference writes each rule as a pure function and jits it into the train
+step with the parameter and state buffers donated; here the same rule
+runs eagerly under ``no_grad`` and updates parameters, masters and
+states in place, which is what the donation achieves there. The
+arithmetic follows the reference step for step:
 
+- ``learning_rate`` is a float or an ``lr.LRScheduler``, read once per
+  ``step()`` through :meth:`Optimizer.get_lr`;
 - the step count is kept per parameter (``_step_counts``) and drives the
-  bias correction;
-- AdamW's decoupled decay ``work * (1 - lr * wd)`` is applied before the
-  Adam update, and ``epsilon`` is added to ``sqrt(v_hat)``;
-- ``multi_precision`` keeps an fp32 master (and fp32 moments) for every
+  bias corrections; ``_global_step`` counts ``step()`` calls;
+- a parameter's ``optimize_attr["learning_rate"]`` scales the rate for
+  it, and its ``regularizer`` (``L1Decay``: ``coeff * sign(param)``,
+  ``L2Decay``: ``coeff * param``, added to the gradient) replaces the
+  optimizer-level ``weight_decay``, which adds ``coeff * param`` whatever
+  its type, as the reference reads only its coefficient. Lamb takes
+  neither; AdamW's decoupled decay ``work * (1 - lr * wd)`` comes before
+  the Adam update;
+- ``multi_precision`` keeps an fp32 master (and fp32 states) for every
   bf16/fp16 parameter, casts the gradient to fp32, and writes
   ``master.to(param dtype)`` back into the parameter; without it the
   gradient is cast to the parameter's dtype;
-- ``grad_clip`` (``nn.ClipGradBy*``) runs on all gradients first.
+- ``grad_clip`` (``nn.ClipGradBy*``) runs on all gradients first;
+- a parameter's name (AdamW's ``apply_decay_param_fun`` and Lamb's
+  ``exclude_from_weight_decay_fn`` receive it; ``state_dict`` keys
+  start with it) comes from ``parameters`` given as ``(name, param)``
+  pairs, as ``model.named_parameters()`` yields them: a torch
+  ``Parameter`` has no settable ``name``, where the reference reads
+  ``ParamAttr(name=...)``. Without one the name is ``""`` for the
+  functions and ``param_{i}`` in ``state_dict``, as there.
 
 No Pallas kernel stands behind these updates in the reference, so none
 is written here: each step runs a handful of ``torch._foreach_*`` ops
-over all parameters at one step count, which fuse the reference's
+over all parameters that share a step count, a rate, a regularizer and
+the rule's own per-parameter setting, which fuse the reference's
 expressions (``addcmul``, ``addcdiv``) and so round at slightly other
-places.
+places. Lamb's trust ratio is a norm per parameter
+(``torch._foreach_norm``), never one over the group.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+from .lr import LRScheduler
+
+__all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
+           "Adamax", "RMSProp", "Lamb", "Adadelta", "L2Decay", "L1Decay"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+class L2Decay:
+    """``coeff * param`` added to the gradient."""
+
+    def __init__(self, coeff=0.0):
+        self._coeff = coeff
+
+
+class L1Decay:
+    """``coeff * sign(param)`` added to the gradient (as a parameter's
+    ``regularizer``; at the optimizer level only ``coeff`` is read)."""
+
+    def __init__(self, coeff=0.0):
+        self._coeff = coeff
+
+
+class _Group(NamedTuple):
+    """What the parameters updated by one ``_update`` call share."""
+    step: int      # the 1-based update count
+    lr: float      # the rate times the parameter's optimize_attr factor
+    reg: tuple     # ("l1" | "l2", coeff), or () for the optimizer's decay
+    key: object    # the rule's own per-parameter setting (_rule_key)
+
+
+def _regularizer(p):
+    reg = getattr(p, "regularizer", None)
+    if reg is None:
+        return ()
+    coeff = float(getattr(reg, "_coeff", 0.0))
+    return ("l1" if isinstance(reg, L1Decay) else "l2", coeff)
 
 
 class Optimizer:
@@ -43,8 +96,16 @@ class Optimizer:
         if parameters is None:
             raise ValueError("parameters is required: the port's "
                              "optimizers have no global program to search")
-        self._learning_rate = float(learning_rate)
-        self._parameter_list = list(parameters)
+        self._learning_rate = learning_rate \
+            if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
+        self._names: dict = {}  # id(param) -> name, when given
+        self._parameter_list = []
+        for p in parameters:
+            if isinstance(p, tuple):
+                name, p = p
+                self._names[id(p)] = name
+            self._parameter_list.append(p)
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         if weight_decay is None:
@@ -56,29 +117,52 @@ class Optimizer:
         self._accumulators: dict = {}
         self._master_weights: dict = {}
         self._step_counts: dict = {}
+        self._global_step = 0
+
+    def _name(self, p):
+        """The parameter's name, or ``""`` (the reference's ``p.name or
+        ""``)."""
+        return self._names.get(id(p), "")
+
+    # -- lr -------------------------------------------------------------------
 
     def get_lr(self):
+        """The current rate: the scheduler's value, or the float."""
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
         return self._learning_rate
+
+    def set_lr(self, value):
+        """Set a float rate; raises when the rate is a scheduler."""
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError(
+                "optimizer's learning rate is an LRScheduler; call "
+                "scheduler.step()/set state instead")
+        self._learning_rate = float(value)
 
     # -- the rule (subclasses) ------------------------------------------------
 
     def _init_state(self, work) -> dict:
         return {}
 
-    def _update(self, works, grads, states, lr, step):
+    def _rule_key(self, param):
+        """The rule's own per-parameter setting, hashable (AdamW: whether
+        the decoupled decay applies; Lamb: its weight decay)."""
+        return None
+
+    def _update(self, works, grads, states, group: _Group):
         """Update ``works`` (parameters or their fp32 masters) and their
-        ``states`` in place, all at the 1-based count ``step``; one call
-        covers every parameter at that count, with ``torch._foreach_*``
-        ops."""
+        ``states`` in place; one call covers every parameter of
+        ``group``, with ``torch._foreach_*`` ops."""
         raise NotImplementedError
 
-    def _decays(self, param) -> bool:
-        """Whether AdamW's decoupled decay applies to ``param``."""
-        return False
-
-    def _coupled_decay(self, grads, works):
-        """L2 decay folded into the gradients (``weight_decay`` of SGD and
-        Adam)."""
+    def _coupled_decay(self, grads, works, group: _Group):
+        """Regularization folded into the gradients: the parameter's
+        regularizer, else the optimizer's L2 ``weight_decay``."""
+        if group.reg:
+            kind, coeff = group.reg
+            decay = torch._foreach_sign(works) if kind == "l1" else works
+            return torch._foreach_add(grads, decay, alpha=coeff)
         if self._weight_decay:
             return torch._foreach_add(grads, works, alpha=self._weight_decay)
         return grads
@@ -93,15 +177,19 @@ class Optimizer:
                         if p.requires_grad and p.grad is not None]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
+        self._global_step += 1
         lr = self.get_lr()
-        by_step: dict = {}  # step count -> (works, grads, states)
-        decayed, masters = [], []
+        groups: dict = {}  # _Group -> (works, grads, states)
+        masters = []
         for p, g in params_grads:
             if g is None:
                 continue
             key = id(p)
             step = self._step_counts.get(key, 0) + 1
             self._step_counts[key] = step
+            attrs = getattr(p, "optimize_attr", None)
+            lr_p = lr * float(attrs.get("learning_rate", 1.0)) \
+                if attrs else lr
             if p.dtype in _LOW_PRECISION and self._multi_precision:
                 work = self._master_weights.get(key)
                 if work is None:
@@ -115,16 +203,13 @@ class Optimizer:
             state = self._accumulators.get(key)
             if state is None:
                 state = self._accumulators[key] = self._init_state(work)
-            if self._decays(p):
-                decayed.append(work)
-            works, grads, states = by_step.setdefault(step, ([], [], []))
+            group = _Group(step, lr_p, _regularizer(p), self._rule_key(p))
+            works, grads, states = groups.setdefault(group, ([], [], []))
             works.append(work)
             grads.append(g)
             states.append(state)
-        if decayed:  # AdamW: before the Adam update
-            torch._foreach_mul_(decayed, 1.0 - lr * self._decoupled_wd)
-        for step, (works, grads, states) in by_step.items():
-            self._update(works, grads, states, lr, step)
+        for group, (works, grads, states) in groups.items():
+            self._update(works, grads, states, group)
         for p, work in masters:
             p.copy_(work)  # rounds the fp32 master to p's dtype
 
@@ -138,66 +223,365 @@ class Optimizer:
             else:
                 p.grad = None
 
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()``, then :meth:`step`."""
+        loss.backward()
+        self.step()
+        return None, None
+
+    # -- checkpoint -----------------------------------------------------------
+
+    def state_dict(self):
+        """A snapshot of the optimizer, keyed as the reference keys it:
+        ``{name}.{state}`` (each state tensor, copied),
+        ``{name}.master_weight``, ``{name}.step_count``, ``global_step``,
+        and ``LR_Scheduler`` (the scheduler's ``state_dict``) when the
+        rate is a scheduler. ``name`` is the name the parameter was
+        given with (``(name, param)`` pairs), else ``param_{i}`` by its
+        place in ``parameters``."""
+        sd = {}
+        for i, p in enumerate(self._parameter_list):
+            name = self._name(p) or f"param_{i}"
+            for k, v in self._accumulators.get(id(p), {}).items():
+                sd[f"{name}.{k}"] = v.detach().clone()
+            mw = self._master_weights.get(id(p))
+            if mw is not None:
+                sd[f"{name}.master_weight"] = mw.detach().clone()
+            sc = self._step_counts.get(id(p))
+            if sc is not None:
+                sd[f"{name}.step_count"] = sc
+        sd["global_step"] = self._global_step
+        if isinstance(self._learning_rate, LRScheduler):
+            sd["LR_Scheduler"] = self._learning_rate.state_dict()
+        return sd
+
+    def set_state_dict(self, state_dict):
+        """Load :meth:`state_dict`'s keys (copies, on each parameter's
+        device); a state the dict lacks starts as ``_init_state`` makes
+        it, and a parameter with states but no step count takes the
+        global step."""
+        self._global_step = int(state_dict.get("global_step", 0))
+        if "LR_Scheduler" in state_dict \
+                and isinstance(self._learning_rate, LRScheduler):
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+
+        def load(v, p):
+            return torch.as_tensor(v).detach().to(p.device, copy=True)
+
+        for i, p in enumerate(self._parameter_list):
+            name = self._name(p) or f"param_{i}"
+            mk = f"{name}.master_weight"
+            if mk in state_dict:
+                self._master_weights[id(p)] = load(state_dict[mk], p)
+            work = self._master_weights.get(id(p), p.detach())
+            st = self._init_state(work)
+            found = False
+            for k in st:
+                if f"{name}.{k}" in state_dict:
+                    st[k] = load(state_dict[f"{name}.{k}"], p)
+                    found = True
+            if found:
+                self._accumulators[id(p)] = st
+            sk = f"{name}.step_count"
+            if sk in state_dict:
+                self._step_counts[id(p)] = int(state_dict[sk])
+            elif found:
+                self._step_counts[id(p)] = self._global_step
+
+
+def _states(states, key):
+    return [s[key] for s in states]
+
 
 class SGD(Optimizer):
-    """``param - lr * (grad + weight_decay * param)``."""
+    """``param - lr * (grad + decay)``."""
 
-    def _update(self, works, grads, states, lr, step):
-        torch._foreach_add_(works, self._coupled_decay(grads, works),
-                            alpha=-lr)
+    def _update(self, works, grads, states, group):
+        torch._foreach_add_(works, self._coupled_decay(grads, works, group),
+                            alpha=-group.lr)
+
+
+class Momentum(Optimizer):
+    """``v = momentum * v + grad``; ``param - lr * v``, or with
+    ``use_nesterov`` ``param - lr * (grad + momentum * v)``."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state(self, work):
+        return {"velocity": torch.zeros_like(work)}
+
+    def _update(self, works, grads, states, group):
+        grads = self._coupled_decay(grads, works, group)
+        v = _states(states, "velocity")
+        torch._foreach_mul_(v, self._momentum)
+        torch._foreach_add_(v, grads)
+        if self._nesterov:
+            torch._foreach_add_(works, torch._foreach_add(
+                grads, v, alpha=self._momentum), alpha=-group.lr)
+        else:
+            torch._foreach_add_(works, v, alpha=-group.lr)
+
+
+class Adagrad(Optimizer):
+    """``moment += grad^2``; ``param - lr * grad / (sqrt(moment) +
+    epsilon)``; the moment starts at ``initial_accumulator_value``."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_state(self, work):
+        return {"moment": torch.full_like(work, self._init_acc)}
+
+    def _update(self, works, grads, states, group):
+        grads = self._coupled_decay(grads, works, group)
+        m = _states(states, "moment")
+        torch._foreach_addcmul_(m, grads, grads)
+        denom = torch._foreach_sqrt(m)
+        torch._foreach_add_(denom, self._epsilon)
+        torch._foreach_addcdiv_(works, grads, denom, value=-group.lr)
 
 
 class Adam(Optimizer):
-    """Adam with bias correction by the parameter's own step count."""
+    """Adam with bias correction by the parameter's own step count;
+    ``amsgrad`` divides by the running maximum of the second moment
+    (kept as ``moment2_max``)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
-                 name=None):
+                 name=None, amsgrad=False):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._amsgrad = amsgrad
 
     def _init_state(self, work):
-        return {"moment1": torch.zeros_like(work),
-                "moment2": torch.zeros_like(work)}
+        s = {"moment1": torch.zeros_like(work),
+             "moment2": torch.zeros_like(work)}
+        if self._amsgrad:
+            s["moment2_max"] = torch.zeros_like(work)
+        return s
 
-    def _update(self, works, grads, states, lr, step):
-        grads = self._coupled_decay(grads, works)
-        b1, b2 = self._beta1, self._beta2
-        m = [s["moment1"] for s in states]
-        v = [s["moment2"] for s in states]
+    def _update(self, works, grads, states, group):
+        grads = self._coupled_decay(grads, works, group)
+        b1, b2, step = self._beta1, self._beta2, group.step
+        m = _states(states, "moment1")
+        v = _states(states, "moment2")
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, grads, alpha=1 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
+        if self._amsgrad:
+            v = _states(states, "moment2_max")
+            torch._foreach_maximum_(v, _states(states, "moment2"))
         # work -= lr * m_hat / (sqrt(v_hat) + eps), the hats by 1 - beta**step
         denom = torch._foreach_div(v, 1 - b2 ** step)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self._epsilon)
-        torch._foreach_addcdiv_(works, m, denom, value=-lr / (1 - b1 ** step))
+        torch._foreach_addcdiv_(works, m, denom,
+                                value=-group.lr / (1 - b1 ** step))
 
 
 class AdamW(Adam):
     """Adam with decoupled weight decay: ``work *= 1 - lr * weight_decay``
     before the Adam update, skipped for a parameter when
-    ``apply_decay_param_fun(name)`` is false (``name``: the parameter's
-    ``name`` attribute, or ``""`` without one, as in the reference)."""
+    ``apply_decay_param_fun(name)`` is false (``name``: see the module
+    note; ``""`` without one, as in the reference)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 lazy_mode=False, multi_precision=False, name=None):
+                 lazy_mode=False, multi_precision=False, name=None,
+                 amsgrad=False):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, lazy_mode, multi_precision, name)
+                         None, grad_clip, lazy_mode, multi_precision, name,
+                         amsgrad)
         self._decoupled_wd = float(getattr(weight_decay, "_coeff",
                                            weight_decay))
         self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _decays(self, param):
+    def _rule_key(self, param):
         if not self._decoupled_wd:
             return False
         fn = self._apply_decay_param_fun
-        return fn is None or bool(fn(getattr(param, "name", None) or ""))
+        return fn is None or bool(fn(self._name(param)))
+
+    def _update(self, works, grads, states, group):
+        if group.key:
+            torch._foreach_mul_(works, 1.0 - group.lr * self._decoupled_wd)
+        super()._update(works, grads, states, group)
+
+
+class Adamax(Optimizer):
+    """``m = b1 m + (1 - b1) g``, ``u = max(b2 u, |g|)``; ``param - lr /
+    (1 - b1^step) * m / (u + epsilon)``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_state(self, work):
+        return {"moment": torch.zeros_like(work),
+                "inf_norm": torch.zeros_like(work)}
+
+    def _update(self, works, grads, states, group):
+        grads = self._coupled_decay(grads, works, group)
+        b1 = self._beta1
+        m = _states(states, "moment")
+        u = _states(states, "inf_norm")
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1 - b1)
+        torch._foreach_mul_(u, self._beta2)
+        torch._foreach_maximum_(u, torch._foreach_abs(grads))
+        denom = torch._foreach_add(u, self._epsilon)
+        torch._foreach_addcdiv_(works, m, denom,
+                                value=-group.lr / (1 - b1 ** group.step))
+
+
+class RMSProp(Optimizer):
+    """``ms = rho ms + (1 - rho) g^2``; ``mom = momentum * mom + lr * g /
+    sqrt(ms + epsilon)``; ``param - mom``. ``centered`` also keeps
+    ``mean_grad`` and divides by ``sqrt(ms - mean_grad^2 + epsilon)``."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _init_state(self, work):
+        s = {"mean_square": torch.zeros_like(work),
+             "momentum": torch.zeros_like(work)}
+        if self._centered:
+            s["mean_grad"] = torch.zeros_like(work)
+        return s
+
+    def _update(self, works, grads, states, group):
+        grads = self._coupled_decay(grads, works, group)
+        rho = self._rho
+        ms = _states(states, "mean_square")
+        torch._foreach_mul_(ms, rho)
+        torch._foreach_addcmul_(ms, grads, grads, value=1 - rho)
+        if self._centered:
+            mg = _states(states, "mean_grad")
+            torch._foreach_mul_(mg, rho)
+            torch._foreach_add_(mg, grads, alpha=1 - rho)
+            denom = torch._foreach_addcmul(ms, mg, mg, value=-1.0)
+            torch._foreach_add_(denom, self._epsilon)
+        else:
+            denom = torch._foreach_add(ms, self._epsilon)
+        torch._foreach_sqrt_(denom)
+        mom = _states(states, "momentum")
+        torch._foreach_mul_(mom, self._momentum)
+        torch._foreach_addcdiv_(mom, grads, denom, value=group.lr)
+        torch._foreach_sub_(works, mom)
+
+
+class Lamb(Optimizer):
+    """Layerwise adaptive large-batch steps: Adam's ``r = m_hat /
+    (sqrt(v_hat) + epsilon)``, ``update = r + wd * param`` (``wd`` 0 for
+    a parameter whose name ``exclude_from_weight_decay_fn`` accepts),
+    then ``param - lr * trust * update`` with ``trust = ||param|| /
+    ||update||`` of this parameter alone (1 where either norm is 0), in
+    fp32 and cast to the parameter's (or master's) dtype. Under
+    ``multi_precision`` ``param`` is the fp32 master throughout."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         multi_precision)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _init_state(self, work):
+        return {"moment1": torch.zeros_like(work),
+                "moment2": torch.zeros_like(work)}
+
+    def _rule_key(self, param):
+        fn = self._exclude_fn
+        if fn is not None and fn(self._name(param)):
+            return 0.0
+        return self._lamb_wd
+
+    def _update(self, works, grads, states, group):
+        b1, b2, step = self._beta1, self._beta2, group.step
+        m = _states(states, "moment1")
+        v = _states(states, "moment2")
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
+        denom = torch._foreach_div(v, 1 - b2 ** step)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self._epsilon)
+        update = torch._foreach_div(m, 1 - b1 ** step)
+        torch._foreach_div_(update, denom)
+        if group.key:
+            torch._foreach_add_(update, works, alpha=group.key)
+        w_norm = torch.stack(torch._foreach_norm(works, 2,
+                                                 dtype=torch.float32))
+        u_norm = torch.stack(torch._foreach_norm(update, 2,
+                                                 dtype=torch.float32))
+        trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
+                            1.0)
+        torch._foreach_mul_(update, [t.to(w.dtype) for t, w in
+                                     zip(trust.unbind(), works)])
+        torch._foreach_add_(works, update, alpha=-group.lr)
+
+
+class Adadelta(Optimizer):
+    """``asg = rho asg + (1 - rho) g^2``; ``upd = sqrt(asu + epsilon) /
+    sqrt(asg + epsilon) * g``; ``asu = rho asu + (1 - rho) upd^2``;
+    ``param - lr * upd``."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho, self._epsilon = rho, epsilon
+
+    def _init_state(self, work):
+        return {"avg_squared_grad": torch.zeros_like(work),
+                "avg_squared_update": torch.zeros_like(work)}
+
+    def _update(self, works, grads, states, group):
+        grads = self._coupled_decay(grads, works, group)
+        rho, eps = self._rho, self._epsilon
+        asg = _states(states, "avg_squared_grad")
+        asu = _states(states, "avg_squared_update")
+        torch._foreach_mul_(asg, rho)
+        torch._foreach_addcmul_(asg, grads, grads, value=1 - rho)
+        upd = torch._foreach_add(asu, eps)
+        torch._foreach_sqrt_(upd)
+        den = torch._foreach_add(asg, eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, grads)
+        torch._foreach_mul_(asu, rho)
+        torch._foreach_addcmul_(asu, upd, upd, value=1 - rho)
+        torch._foreach_add_(works, upd, alpha=-group.lr)

@@ -21,15 +21,16 @@ import torch
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.jit import TrainStep, exec_cache
 from paddle_tpu_torch.models import (
-    BertConfig, BertForMaskedLM, LlamaConfig, LlamaForCausalLM, generate,
-    load_jax_weights,
+    BertConfig, BertForMaskedLM, ErnieConfig, ErnieForPretraining,
+    LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
 )
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import head_flash as hf
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.nn.functional import attention as tattn
+from paddle_tpu_torch.optimizer import AdamW, Lamb
 from paddle_tpu_torch.quantization import quantize_kv
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -1085,3 +1086,83 @@ def test_bert_train_identity_card_vs_cpu(cuda):
             hf.hb_bwd_dkv.launches) == tuple(x + 20 for x in n)
     want = _train_tiny_bert("cpu", weights)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "kmask"])
+def test_tiny_ernie_trains_through_kernels_4_to_6(cuda, monkeypatch,
+                                                   masked):
+    """A tiny ERNIE with dropout 0.1 trains 3 AdamW steps on the card:
+    every attention call (2 x trunk + 2 x task layers a step, half of
+    them causal) goes to kernels 4-6, each launching once a call, and
+    none to kernels 1-3."""
+    trandom.seed(0)
+    cfg = ErnieConfig.tiny()
+    model = ErnieForPretraining(cfg, device=cuda)
+    step = TrainStep(model, AdamW(learning_rate=1e-3,
+                                  parameters=model.parameters()))
+    causal = []
+    hb = tattn.hb_flash
+
+    def spy(*args, **kw):
+        causal.append(kw["causal"])
+        return hb(*args, **kw)
+
+    monkeypatch.setattr(tattn, "hb_flash", spy)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (2, 64))
+    mask = np.arange(64)[None] < np.array([[64], [40]])
+    mlm = np.where((rng.rand(2, 64) < 0.3) & mask, ids, -100)
+    lm = np.where(mask, ids, -100)
+    ids, mask, mlm, lm = (torch.from_numpy(a.astype(np.int32)).to(cuda)
+                          for a in (ids, mask, mlm, lm))
+    before = [w.launches for w in (hf.hb_fwd, hf.hb_bwd_dq, hf.hb_bwd_dkv,
+                                   fa.flash_fwd)]
+    losses = [float(step(ids, None, mask if masked else None, mlm, lm))
+              for _ in range(3)]
+    per_step = 2 * cfg.num_hidden_layers + 2 * cfg.num_task_layers
+    after = [w.launches for w in (hf.hb_fwd, hf.hb_bwd_dq, hf.hb_bwd_dkv,
+                                  fa.flash_fwd)]
+    assert [a - b for a, b in zip(after, before)] == [3 * per_step] * 3 \
+        + [0]
+    assert causal.count(True) == causal.count(False) == 3 * per_step // 2
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lamb_on_the_card_matches_the_cpu(cuda, dtype):
+    """Lamb's per-parameter trust ratios (``torch._foreach_norm`` on CUDA)
+    over parameters of several shapes, 5 steps from the same weights and
+    gradients (bf16 with fp32 masters): every parameter, master and
+    moment within 1e-6 of its max abs of the CPU's; bf16 parameters
+    exactly their masters' rounding."""
+    rng = np.random.RandomState(0)
+    shapes = [(64, 48), (48,), (3, 5, 7), (1,)]
+    ws = [rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[rng.randn(*s).astype(np.float32) for s in shapes]
+             for _ in range(5)]
+
+    def run(device):
+        ps = [torch.nn.Parameter(torch.from_numpy(w).to(device, dtype))
+              for w in ws]
+        opt = Lamb(learning_rate=0.01, lamb_weight_decay=0.01, parameters=ps,
+                   multi_precision=dtype == torch.bfloat16)
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = torch.from_numpy(g).to(device, dtype)
+            opt.step()
+        return ps, opt
+
+    got, gopt = run(cuda)
+    want, wopt = run("cpu")
+    for p, q in zip(got, want):
+        pairs = [(p.detach(), q.detach())]
+        pairs += [(v, wopt._accumulators[id(q)][k])
+                  for k, v in gopt._accumulators[id(p)].items()]
+        if dtype == torch.bfloat16:
+            master = gopt._master_weights[id(p)]
+            assert torch.equal(p.detach(), master.to(dtype))
+            pairs.append((master, wopt._master_weights[id(q)]))
+        for a, b in pairs[1:] if dtype == torch.bfloat16 else pairs:
+            b = b.float()
+            tol = 1e-6 * b.abs().max().item()
+            assert (a.cpu().float() - b).abs().max().item() <= tol

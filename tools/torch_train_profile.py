@@ -1,14 +1,17 @@
 #!/usr/bin/env python
 """Where a training step's time goes in the PyTorch/CUDA port, on the card.
 
-    python tools/torch_train_profile.py [--model llama|bert] [--steps 2]
-        [--top 20]
+    python tools/torch_train_profile.py [--model llama|bert|ernie]
+        [--steps 2] [--top 20]
 
 Runs one of ``chip_smoke.py``'s training configurations through
-``TrainStep`` with ``AdamW(1e-4, multi_precision=True)``: the 0.44B bf16
-Llama at b8 x s1024 with plain cross-entropy (``llama``, phase 7), or
+``TrainStep`` with ``AdamW(multi_precision=True)``: the 0.44B bf16
+Llama at b8 x s1024 with plain cross-entropy (``llama``, phase 7),
 BERT-base MLM in bf16 O2 with dropout 0.1 on a padded b64 x s512 batch
-(``bert``, phase 10). Two warm-up steps, then ``--steps`` steps under
+(``bert``, phase 10), or ERNIE 3.0 joint pretraining at the 10B widths
+with the trunk cut to 8 layers, bf16, dropout 0.1, b4 x s1024, the rate
+from ``LinearWarmup(PolynomialDecay)`` stepped after each step
+(``ernie``, phase 12). Two warm-up steps, then ``--steps`` steps under
 ``torch.profiler``. Prints the device-busy share of the profiled wall
 time, device time by kernel family (the attention kernels, matrix
 products, everything else), and the top kernels by device time. Needs a
@@ -27,8 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from chip_smoke import (  # noqa: E402
-    BERT_BATCH, BERT_SEQ, TRAIN, TRAIN_BATCH, TRAIN_SEQ, _train_batch,
-    bert_train_step,
+    BERT_BATCH, BERT_SEQ, ERNIE, ERNIE_BATCH, ERNIE_SEQ, TRAIN, TRAIN_BATCH,
+    TRAIN_SEQ, _train_batch, bert_train_step, ernie_train_step,
 )
 from paddle_tpu_torch.jit import TrainStep  # noqa: E402
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa: E402
@@ -50,7 +53,8 @@ def _family(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("llama", "bert"), default="llama")
+    ap.add_argument("--model", choices=("llama", "bert", "ernie"),
+                    default="llama")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
@@ -61,6 +65,14 @@ def main():
     if args.model == "bert":
         _, _, step, batch = bert_train_step()
         shape = f"BERT-base b{BERT_BATCH} x s{BERT_SEQ}"
+    elif args.model == "ernie":
+        _, _, sched, train, batch = ernie_train_step()
+
+        def step(*b):
+            train(*b)
+            sched.step()
+        shape = (f"ERNIE-3.0 10B widths, trunk {ERNIE['num_hidden_layers']} "
+                 f"of 48, b{ERNIE_BATCH} x s{ERNIE_SEQ}")
     else:
         cfg = LlamaConfig(**TRAIN)
         model = LlamaForCausalLM(
