@@ -3,7 +3,7 @@ paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Thirteen phases in one process; any failure raises and exits non-zero, and
+Sixteen phases in one process; any failure raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
 1. device: name, capability (must be 9.0), versions, power limit;
@@ -41,9 +41,11 @@ only a run in which every phase passed prints the final line:
    beside the plain version, ``F.scaled_dot_product_attention`` and the
    bound, dQ as the Llama step runs it (computing delta);
 7. train: the 0.44B Llama (bf16, random weights from a seed) through
-   ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)`` on one
-   b8 x s1024 batch; the loss must start near ln(vocab), stay finite
-   and fall, and each flash kernel must launch layers x steps times;
+   ``TrainStep`` (one CUDA graph a step) with ``AdamW(1e-4,
+   multi_precision=True)`` on one b8 x s1024 batch; the loss must start
+   near ln(vocab), stay finite and fall, and each flash kernel must
+   launch layers x steps times; one eager step is split into forward,
+   backward and optimizer by CUDA events;
 8. train identity: a float32 tiny model trained 10 AdamW steps with
    global-norm clipping on the card (kernels) and on the CPU (plain
    versions) from the same weights must agree step by step;
@@ -92,7 +94,37 @@ only a run in which every phase passed prints the final line:
    agree step by step; 5 steps, ``state_dict`` into a fresh model,
    optimizer and scheduler, then 5 more must equal the 10 uninterrupted
    steps bit for bit on the card; ``ErnieForSequenceClassification`` in
-   eval (kernels 1-3) must give the CPU's logits.
+   eval (kernels 1-3) must give the CPU's logits;
+14. train on graphs: bench.py's headline step built as it builds it
+   (``TrainStep(..., donate=True)``, bf16 parameters, AdamW with fp32
+   masters), 2 warm-up and 5 timed steps eagerly, then the same on CUDA
+   graphs from the same weights: ms a step, peak memory,
+   ``memory_analysis()``, ``exec_cache.stats()`` (one capture) and 12
+   launches of each of kernels 1-3 a replay; the losses must agree
+   within 1e-3 relative. A tiny fp32 Llama, 10 steps on graphs against
+   10 eager steps (losses 1e-6 relative, parameters 1e-5 of their max;
+   the reason is printed). ``ce_chunk_size=4096`` (a ragged tail at
+   32000) against plain CE: ms, peak memory, the first loss within
+   1e-3. ``AsyncStepper(max_in_flight=2)``: the same losses as
+   ``TrainStep``. ``nan_check`` with a weight set to inf: the card names
+   the leaf the CPU names, and leaves parameters, states and the step
+   count as they were;
+15. O1 float16: kernels 1-3 in float16 at phase 6's shape against their
+   plain versions (1e-2 per 64-row tile, two calls bit-identical), timed
+   as CUDA-graph replays beside SDPA in float16; then the headline model
+   with fp32 parameters, 5 steps under ``auto_cast(level="O1",
+   dtype="float16")`` through ``GradScaler(init_loss_scaling=2**15)
+   .minimize`` (the scale after each step printed) and 5 under O1
+   bfloat16 without a scaler: finite losses, ms a step, and kernels 1-3
+   launching 12 times a step;
+16. fit and LBFGS: ``hapi.Model(LlamaForCausalLM(headline)).prepare(
+   AdamW).fit`` over a seeded ``TensorDataset`` of 40 sequences (batch
+   8, ``num_iters=5``, ``log_freq=1``, ``EarlyStopping`` and
+   ``ModelCheckpoint`` in a temporary directory): ms between batch ends
+   against phase 14's graph step, ``evaluate``, and the checkpoint
+   loaded into a fresh model and optimizer equal to the live ones; then
+   5 ``LBFGS(line_search_fn="strong_wolfe")`` steps of a tiny fp32
+   network on the card against the CPU, within 1e-6.
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -123,6 +155,7 @@ import contextlib
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -134,20 +167,20 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from paddle_tpu_torch import amp
+from paddle_tpu_torch import amp, hapi, io
 from paddle_tpu_torch.framework import random as trandom
-from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.jit import AsyncStepper, TrainStep, exec_cache
 from paddle_tpu_torch.models import (
     BertConfig, BertForMaskedLM, ErnieConfig, ErnieForPretraining,
     ErnieForSequenceClassification, LlamaConfig, LlamaForCausalLM, generate,
     load_jax_weights,
 )
-from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm, Linear
 from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import head_flash as hf
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
-from paddle_tpu_torch.optimizer import AdamW, Lamb, lr
+from paddle_tpu_torch.optimizer import LBFGS, AdamW, Lamb, lr
 from paddle_tpu_torch.quantization import quantize_kv
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -1170,17 +1203,20 @@ def phase_train(card):
             raise AssertionError(f"{name} launched {n} times in {steps} "
                                  f"steps, expected layers x steps = "
                                  f"{layers} x {steps}")
-    # one more step, split by CUDA events as TrainStep runs it
+    # two more steps run eagerly (TrainStep replays the same work as one
+    # graph), the second split by CUDA events: the first eager step after
+    # the graph's capture pays the allocator's warm-up
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    opt.clear_grad()
-    ev[0].record()
-    loss = model(ids, labels)
-    ev[1].record()
-    loss.backward()
-    ev[2].record()
-    opt.step()
-    ev[3].record()
-    torch.cuda.synchronize()
+    for _ in range(2):
+        opt.clear_grad()
+        ev[0].record()
+        loss = model(ids, labels)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
     split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
     ms = wall / steps * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -2016,17 +2052,471 @@ def phase_ernie_identity():
                              "left the CPU's")
 
 
+# -- phase 14 -----------------------------------------------------------------
+
+# bench.py's headline step (build_headline_trainstep) on the port: the
+# 0.44B Llama in bf16 with fp32 masters, AdamW(1e-4), donate=True
+GRAPH_LOSS_RTOL = 1e-3   # bf16: eager and graphs round alike, summed alike
+# the tiny fp32 run on graphs against eager: the captured AdamW reads its
+# rate and bias corrections from device scalars and multiplies by them
+# as separate ops (a tensor scalar has no fused alpha= form), one
+# rounding more than the eager kernels' FMA; losses held to 1e-6
+# relative, parameters to 1e-5 of each tensor's largest value
+TINY_GRAPH_LOSS_RTOL, TINY_GRAPH_PARAM_TOL = 1e-6, 1e-5
+CE_CHUNK = 4096  # 32000 = 7 x 4096 + 3328: a ragged last chunk
+
+
+def _headline(chunk=0, **kw):
+    """bench.py's build_headline_trainstep on the port (``ce_chunk_size``
+    ``chunk``); the weights from one seed, so every call builds the same
+    model. Returns (model, opt, step)."""
+    cfg = LlamaConfig(**dict(TRAIN, ce_chunk_size=chunk))
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    step = TrainStep(model, opt, lambda m, i, l: m(i, l), donate=True, **kw)
+    return model, opt, step
+
+
+def _release():
+    """Free the graphs and cached memory of a finished run (after the
+    caller has dropped its models and steps)."""
+    exec_cache.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _run_steps(call, batch, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+    """``warmup`` then ``timed`` calls of ``call(*batch)``; returns (the
+    losses, ms a timed step by the host clock around them, peak memory
+    in GiB, the kernel launches of the timed steps)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(call(*batch)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    for w in FLASH_WRAPPERS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = [call(*batch) for _ in range(timed)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    losses += [float(x) for x in out]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    return losses, ms, torch.cuda.max_memory_allocated() / 2**30, launches
+
+
+def _eager_call(model, opt):
+    def call(ids, labels):
+        opt.clear_grad()
+        loss = model(ids, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return call
+
+
+def _tiny_graph_identity(weights):
+    """10 steps of the tiny fp32 Llama on graphs and eagerly, from the
+    same weights; returns (graph losses, eager losses, the largest
+    parameter difference over each tensor's max)."""
+    runs = []
+    for graphs in (True, False):
+        cfg = LlamaConfig.tiny(num_hidden_layers=2)
+        model = LlamaForCausalLM(cfg, device="cuda")
+        load_jax_weights(model, weights)
+        opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                    parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        call = TrainStep(model, opt) if graphs else _eager_call(model, opt)
+        losses = []
+        for i in range(IDENTITY_STEPS):
+            rng = np.random.RandomState(100 + i)
+            ids, labels = (torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, (2, 16)).astype(np.int32)).cuda()
+                for _ in range(2))
+            losses.append(float(call(ids, labels)))
+        runs.append((losses, model))
+    (gl, gm), (el, em) = runs
+    pdiff = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(gm.parameters(), em.parameters()))
+    return gl, el, pdiff
+
+
+def _nan_check_pair(weights):
+    """The tiny fp32 Llama with nan_check on the card and on the CPU: two
+    good steps, then a weight set to inf; returns the two errors' (step,
+    leaf, kind) and whether the card's parameters were left as they
+    were."""
+    from paddle_tpu_torch.monitor.numerics import NonFiniteError
+
+    found, intact = [], None
+    for device in ("cuda", "cpu"):
+        cfg = LlamaConfig.tiny(num_hidden_layers=2)
+        model = LlamaForCausalLM(cfg, device=device)
+        load_jax_weights(model, weights)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        step = TrainStep(model, opt, nan_check=True)
+        for i in range(3):
+            rng = np.random.RandomState(200 + i)
+            ids, labels = (torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(device)
+                for _ in range(2))
+            if i == 2:
+                with torch.no_grad():
+                    model.llama.layers[1].mlp.down_proj.weight[3, 5] = \
+                        float("inf")
+                before = [p.detach().clone() for p in model.parameters()]
+                states = [v.clone() for st in opt._accumulators.values()
+                          for v in st.values()]
+            try:
+                step(ids, labels)
+            except NonFiniteError as e:
+                found.append((e.step, e.leaf, e.kind))
+                if device == "cuda":
+                    after = [v for st in opt._accumulators.values()
+                             for v in st.values()]
+                    intact = all(torch.equal(a, b) for a, b in zip(
+                        before, model.parameters())) and all(
+                        torch.equal(a, b) for a, b in zip(states, after)) \
+                        and opt._global_step == 2
+    return found, intact
+
+
+def phase_train_graphs(card):
+    """The headline step eagerly and on CUDA graphs, chunked CE, the
+    AsyncStepper and nan_check."""
+    t_phase = time.perf_counter()
+    ids, labels = _train_batch(TRAIN["vocab_size"], TRAIN_BATCH, TRAIN_SEQ)
+    layers = TRAIN["num_hidden_layers"]
+    model, opt, _ = _headline()
+    e_loss, e_ms, e_peak, _ = _run_steps(_eager_call(model, opt),
+                                         (ids, labels))
+    del model, opt
+    _release()
+    model, opt, step = _headline()
+    exec_cache.clear()
+    g_loss, g_ms, g_peak, g_launch = _run_steps(step, (ids, labels))
+    ma = step.memory_analysis(ids, labels)
+    stats = exec_cache.stats()
+    log(f"[graphs] headline step on {card}: eager {e_ms:.2f} ms a step "
+        f"(peak {e_peak:.3f} GiB), CUDA graphs {g_ms:.2f} ms a step (peak "
+        f"{g_peak:.3f} GiB), {TIMED_STEPS} timed steps after "
+        f"{WARMUP_STEPS}; losses eager {[round(x, 5) for x in e_loss]} "
+        f"graphs {[round(x, 5) for x in g_loss]}; kernels 1-3 a replay "
+        f"{ {k: v / TIMED_STEPS for k, v in g_launch.items()} }; "
+        f"memory_analysis {ma._asdict()}; exec_cache.stats() {stats}; "
+        f"compiled_count {step.compiled_count}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g_loss, e_loss))
+    if not rel <= GRAPH_LOSS_RTOL:
+        raise AssertionError(f"graph losses left the eager ones: {rel}")
+    if any(n != layers * TIMED_STEPS for n in g_launch.values()) \
+            or stats["captures"] != 1 or step.compiled_count != 1:
+        raise AssertionError(f"not one capture and {layers} launches of "
+                             f"each kernel a replay: {g_launch}, {stats}")
+    del model, opt, step
+    _release()
+    seed_model = LlamaForCausalLM(
+        LlamaConfig.tiny(num_hidden_layers=2), device="cpu",
+        generator=torch.Generator("cpu").manual_seed(5))
+    weights = {n: p.detach().numpy() for n, p in seed_model.named_parameters()}
+    gl, el, pdiff = _tiny_graph_identity(weights)
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(gl, el))
+    log(f"[graphs] tiny fp32 Llama, {IDENTITY_STEPS} AdamW steps with "
+        f"clipping: graphs {gl} vs eager {el}: bit for bit {gl == el}, "
+        f"losses within {lrel:.3e} relative (tol {TINY_GRAPH_LOSS_RTOL}), "
+        f"parameters within {pdiff:.3e} of their max (tol "
+        f"{TINY_GRAPH_PARAM_TOL}; the captured AdamW multiplies by its "
+        f"device-side rate as a separate op, one rounding more than the "
+        f"eager FMA)")
+    if not (lrel <= TINY_GRAPH_LOSS_RTOL and pdiff <= TINY_GRAPH_PARAM_TOL):
+        raise AssertionError("the tiny model on graphs left the eager run")
+    model, opt, step = _headline(chunk=CE_CHUNK)
+    c_loss, c_ms, c_peak, _ = _run_steps(step, (ids, labels))
+    crel = abs(c_loss[0] - g_loss[0]) / abs(g_loss[0])
+    log(f"[graphs] chunked CE (ce_chunk_size {CE_CHUNK}, ragged tail "
+        f"{TRAIN['vocab_size'] % CE_CHUNK}) on graphs: {c_ms:.2f} ms a step, "
+        f"peak {c_peak:.3f} GiB, against plain CE {g_ms:.2f} ms and "
+        f"{g_peak:.3f} GiB; step-1 loss {c_loss[0]:.6f} vs {g_loss[0]:.6f} "
+        f"({crel:.3e} relative, tol {GRAPH_LOSS_RTOL}); losses "
+        f"{[round(x, 5) for x in c_loss]}")
+    if not crel <= GRAPH_LOSS_RTOL:
+        raise AssertionError("chunked CE's first loss left the plain one")
+    del model, opt, step
+    _release()
+    model, opt, step = _headline()
+    stepper = AsyncStepper(step, max_in_flight=2)
+    a_loss, a_ms, _, _ = _run_steps(stepper, (ids, labels))
+    stepper.drain()
+    arel = max(abs(a - b) / abs(b) for a, b in zip(a_loss, g_loss))
+    log(f"[graphs] AsyncStepper(max_in_flight=2): {a_ms:.2f} ms a step, "
+        f"host blocked {stepper.host_blocked_s * 1e3:.2f} ms in all; losses "
+        f"equal to TrainStep's: {a_loss == g_loss} (max relative diff "
+        f"{arel:.3e}, tol {TINY_GRAPH_LOSS_RTOL})")
+    if not arel <= TINY_GRAPH_LOSS_RTOL:
+        raise AssertionError("AsyncStepper's losses left TrainStep's")
+    del model, opt, step, stepper
+    _release()
+    found, intact = _nan_check_pair(weights)
+    log(f"[graphs] nan_check, a weight set to inf at step 3: card "
+        f"{found[0] if found else None}, CPU "
+        f"{found[1] if len(found) > 1 else None}; the card's parameters, "
+        f"states and step count intact: {intact}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if len(found) != 2 or found[0] != found[1] or not intact:
+        raise AssertionError("nan_check did not name the CPU's leaf or did "
+                             "not leave the parameters intact")
+    _release()
+    return {"eager_ms": e_ms, "graph_ms": g_ms}
+
+
+# -- phase 15 -----------------------------------------------------------------
+
+O1_STEPS = 5
+
+
+def _fp16_flash_check(gen):
+    """Kernels 1-3 in float16 at the headline shape against their plain
+    versions (1e-2 per 64-row tile, as bf16), each called twice
+    (bit-identical). Returns (errors, inputs)."""
+    b, s, h, d = 8, 1024, 12, 128
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .to(torch.float16) for _ in range(4))
+    kw = dict(causal=True, window=0)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    out2, lse2 = fa.flash_fwd(q, k, v, **kw)
+    f32 = [t.float() for t in (q, k, v, do)]
+    want_out, want_lse = fa.flash_fwd_ref(*f32[:3], **kw)
+    out_h = want_out.to(q.dtype)
+    dq, delta = fa.flash_bwd_dq_delta(q, k, v, do, out_h, want_lse, **kw)
+    dq2, delta2 = fa.flash_bwd_dq_delta(q, k, v, do, out_h, want_lse, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    want_delta = fa._delta(do, out_h)
+    want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, want_delta, **kw)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(*f32, want_lse, want_delta, **kw)
+    pairs = {"flash_fwd": [(out, want_out)], "flash_bwd_dq": [(dq, want_dq)],
+             "flash_bwd_dkv": [(dk, want_dk), (dv, want_dv)]}
+    rel = {n: max(_tile_rel_err(g, w) for g, w in p) for n, p in pairs.items()}
+    errs = {n: max((g.float() - w).abs().max().item() for g, w in p)
+            for n, p in pairs.items()}
+    same = all(torch.equal(a, b) for a, b in (
+        (out, out2), (lse, lse2), (dq, dq2), (delta, delta2), (dk, dk2),
+        (dv, dv2)))
+    lse_err = (lse - want_lse).abs().max().item()
+    log(f"[fp16] kernels 1-3, float16 b8 s1024 h12 d128 causal: per-tile "
+        f"relative error {rel} (tol {FLASH_REL_TOL}); max_abs_err {errs}; "
+        f"lse {lse_err:.3e} (tol {LSE_ATOL}); two calls bit-identical "
+        f"{same}")
+    if any(r > FLASH_REL_TOL for r in rel.values()) or not same \
+            or not lse_err <= LSE_ATOL:
+        raise AssertionError("a float16 kernel disagrees with its plain "
+                             "version or with itself")
+    return errs, (q, k, v, do, out_h, want_lse, delta)
+
+
+def phase_o1_fp16(card):
+    t_phase = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(7)
+    errs, (q, k, v, do, out, lse, delta) = _fp16_flash_check(gen)
+    kw = dict(causal=True, window=0)
+    kernels = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_fwd_ref(q, k, v, **kw)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq_delta(q, k, v, do, out, lse, **kw),
+            lambda: fa.flash_bwd_dq_delta_ref(q, k, v, do, out, lse, **kw)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)),
+    }
+    library, contexts, fallbacks, minus = _sdpa_fns(q, k, v, do,
+                                                    is_causal=True)
+    port = {n: lambda i, f=kern: f() for n, (kern, _) in kernels.items()}
+    times, how, _ = _timed(port, library, contexts, fallbacks, minus)
+    lib = {"flash_fwd": _library(times, "sdpa_fwd", how),
+           "flash_bwd_dq": _library(times, "sdpa_bwd", how)}
+    lib["flash_bwd_dkv"] = lib["flash_bwd_dq"]
+    for name, (_, plain) in kernels.items():
+        bound_ms, bound_by, _ = _flash_bound(
+            q, k, True, 0, name + ("_delta" if name == "flash_bwd_dq" else ""))
+        lib_ms, lib_txt = lib[name]
+        log(f"[fp16] {name} float16 b8 s1024 h12 d128 causal: kernel_ms "
+            f"{_spread(times[name])} (CUDA graphs of {ITERS} calls) plain_ms "
+            f"{_time_plain(plain, iters=5):.4f} library_ms {_ms(lib_ms)} "
+            f"(SDPA in float16, fastest backend: {lib_txt}) bound_ms "
+            f"{bound_ms:.5f} ({bound_by}) max_abs_err {errs[name]:.3e}")
+    del q, k, v, do, out, lse, delta, library
+    _release()
+    cfg = LlamaConfig(**dict(TRAIN, dtype="float32"))
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    ids, labels = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    runs = {}
+    for dtype, use_scaler in (("float16", True), ("bfloat16", False)):
+        losses, scales, times_ = [], [], []
+        for w in FLASH_WRAPPERS:
+            w.launches = 0
+        for _ in range(O1_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with amp.auto_cast(level="O1", dtype=dtype):
+                loss = model(ids, labels)
+            if use_scaler:
+                scaler.minimize(opt, scaler.scale(loss))
+                scales.append(scaler.get_loss_scaling())
+            else:
+                loss.backward()
+                opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            times_.append((time.perf_counter() - t0) * 1e3)
+        launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+        runs[dtype] = (losses, scales, times_, launches)
+        log(f"[o1] {dtype} O1 on {card}, fp32 parameters"
+            + (", GradScaler(init_loss_scaling=2**15).minimize"
+               if use_scaler else ", no scaler")
+            + f": losses {[round(x, 5) for x in losses]}; scale after each "
+            f"step {scales or 'n/a'}; ms a step {[round(t, 2) for t in times_]}"
+            f" (median {_med(times_[1:]):.2f}); kernels 1-3 a step "
+            f"{ {k_: v_ / O1_STEPS for k_, v_ in launches.items()} }")
+        if not all(np.isfinite(losses)) or any(
+                n != cfg.num_hidden_layers * O1_STEPS
+                for n in launches.values()):
+            raise AssertionError(f"O1 {dtype}: non-finite losses or not "
+                                 f"{cfg.num_hidden_layers} launches a step")
+    if not abs(runs["float16"][0][0] - np.log(cfg.vocab_size)) < 0.7:
+        raise AssertionError("the O1 float16 loss does not start near "
+                             "ln(vocab)")
+    log(f"[o1] phase {time.perf_counter() - t_phase:.1f} s")
+    del model, opt
+    _release()
+
+
+# -- phase 16 -----------------------------------------------------------------
+
+FIT_SEQS, FIT_ITERS = 40, 5
+
+
+def _lbfgs_tiny(device):
+    """5 LBFGS(strong_wolfe) steps of a tiny fp32 regression network
+    (fp32 matmuls: cuBLAS's default precision, no TF32) on ``device``;
+    returns the losses and parameters."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(16, 4).astype(np.float32)).to(device)
+    y = torch.sin(x.sum(1, keepdim=True))
+    gen = torch.Generator("cpu").manual_seed(0)
+    l1 = Linear(4, 8, device="cpu", generator=gen).to(device)
+    l2 = Linear(8, 1, device="cpu", generator=gen).to(device)
+    params = list(l1.parameters()) + list(l2.parameters())
+    opt = LBFGS(learning_rate=0.5, max_iter=3,
+                line_search_fn="strong_wolfe", parameters=params)
+
+    def closure():
+        loss = ((l2(torch.tanh(l1(x))) - y) ** 2).mean()
+        loss.backward()
+        return loss
+
+    losses = [float(opt.step(closure)) for _ in range(5)]
+    return losses, [p.detach().cpu() for p in params]
+
+
+def phase_fit(card, graph_ms):
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, TRAIN["vocab_size"],
+                      (FIT_SEQS, TRAIN_SEQ)).astype(np.int32)
+    labels = rng.randint(0, TRAIN["vocab_size"],
+                         (FIT_SEQS, TRAIN_SEQ)).astype(np.int32)
+    model, opt, _ = _headline()
+    net = hapi.Model(model).prepare(opt)
+    stamps = []
+
+    class Clock(hapi.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            stamps.append((time.perf_counter(), float(logs["loss"])))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        stop = hapi.EarlyStopping(monitor="loss", patience=0)
+        ckpt = hapi.ModelCheckpoint(save_freq=1, save_dir=tmp)
+        for w in FLASH_WRAPPERS:
+            w.launches = 0
+        t0 = time.perf_counter()
+        net.fit(io.TensorDataset([ids, labels]), batch_size=TRAIN_BATCH,
+                epochs=1, num_iters=FIT_ITERS, log_freq=1, shuffle=False,
+                verbose=0, callbacks=[stop, ckpt, Clock()])
+        fit_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+        losses = [v for _, v in stamps]
+        step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        logs = net.evaluate(io.TensorDataset([ids[:16], labels[:16]]),
+                            batch_size=TRAIN_BATCH, verbose=0)
+        saved = sorted(os.listdir(tmp))
+        m2, o2, _ = _headline()
+        net2 = hapi.Model(m2).prepare(o2)
+        net2.load(os.path.join(tmp, "final"))
+        same_params = all(torch.equal(a, b) for a, b in
+                          zip(model.parameters(), m2.parameters()))
+        sd1, sd2 = opt.state_dict(), o2.state_dict()
+        same_opt = sd1.keys() == sd2.keys() and all(
+            torch.equal(v, sd2[k]) if isinstance(v, torch.Tensor)
+            else v == sd2[k] for k, v in sd1.items())
+    log(f"[fit] hapi.Model(LlamaForCausalLM 0.44B bf16).prepare(AdamW).fit"
+        f" on {card}: {FIT_SEQS} sequences, batch {TRAIN_BATCH}, num_iters "
+        f"{FIT_ITERS}, log_freq 1, EarlyStopping and ModelCheckpoint; "
+        f"losses {[round(x, 5) for x in losses]}; ms between batch ends "
+        f"{[round(x, 2) for x in step_ms]} (median {_med(step_ms):.2f}) "
+        f"against phase 14's graph step {graph_ms:.2f} ms; fit {fit_s:.1f} s "
+        f"in all (2 checkpoints: {saved}); kernels 1-3 over the fit "
+        f"{launches}; evaluate {logs}; save/load round trip: parameters "
+        f"{same_params}, optimizer state {same_opt}")
+    want = TRAIN["num_hidden_layers"] * FIT_ITERS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"fit's steps launched kernels 1-3 {launches} "
+                             f"times, expected layers x steps = {want}")
+    if len(losses) != FIT_ITERS or not all(np.isfinite(losses)) \
+            or not np.isfinite(logs["loss"]) or not same_params \
+            or not same_opt or "final.pdparams" not in saved:
+        raise AssertionError("fit, evaluate or the save/load round trip "
+                             "failed")
+    del model, opt, net, m2, o2, net2
+    _release()
+    got, gp = _lbfgs_tiny("cuda")
+    want, wp = _lbfgs_tiny("cpu")
+    ldiff = max(abs(a - b) for a, b in zip(got, want))
+    pdiff = max((a - b).abs().max().item() for a, b in zip(gp, wp))
+    log(f"[fit] LBFGS(strong_wolfe), tiny fp32 network, 5 steps: losses "
+        f"card {got} vs CPU {want}: max diff {ldiff:.3e}, parameters "
+        f"{pdiff:.3e} (tol {LBFGS_TOL}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not (ldiff <= LBFGS_TOL and pdiff <= LBFGS_TOL):
+        raise AssertionError("LBFGS on the card left the CPU's")
+
+
+LBFGS_TOL = 1e-6
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="phases to run after 1 and 2, comma-separated")
     only = {int(p) for p in ap.parse_args().phases.split(",")}
     name, smi = phase_device()
     phase_build()
     # the JSON line's launches are each kernel's main path's (kernels 4-6:
     # BERT's, phase 10); ERNIE's (phase 12) are printed beside them
-    rows, launches, ernie_launches = {}, {}, {}
+    rows, launches, ernie_launches, graph = {}, {}, {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -2040,12 +2530,16 @@ def main():
                    (11, phase_bert_identity),
                    (12, lambda: ernie_launches.update(
                        phase_ernie_train(name))),
-                   (13, phase_ernie_identity)):
+                   (13, phase_ernie_identity),
+                   (14, lambda: graph.update(phase_train_graphs(name))),
+                   (15, lambda: phase_o1_fp16(name)),
+                   (16, lambda: phase_fit(name, graph.get("graph_ms",
+                                                          float("nan"))))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
-    if only != set(range(3, 14)):
+    if only != set(range(3, 17)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0

@@ -1,10 +1,12 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of ``paddle_tpu``.
 
-The port trains the Llama causal LM (``jit.TrainStep`` with
-``optimizer.AdamW``) and serves it through the continuous-batching
-engine on one NVIDIA Hopper card; it trains the BERT and ERNIE 3.0
-encoders, with the reference's LR schedulers and update rules
-(``optimizer.lr``, ``optimizer.Lamb``, ...). Module names follow the JAX package
+The port trains the Llama causal LM (``jit.TrainStep`` on CUDA graphs
+with ``optimizer.AdamW``, or ``hapi.Model.fit`` over ``io.DataLoader``;
+``amp.auto_cast`` in bfloat16 or float16 with ``amp.GradScaler``) and
+serves it through the continuous-batching engine on one NVIDIA Hopper
+card; it trains the BERT and ERNIE 3.0 encoders, with the reference's LR
+schedulers and update rules (``optimizer.lr``, ``optimizer.Lamb``,
+``optimizer.LBFGS``, ...). Module names follow the JAX package
 (``models/llama.py``, ``jit/train_step.py``, ``serving/engine.py``, ...)
 so every module has an obvious counterpart; the Pallas kernels on those
 paths become hand-written CUDA C++ under ``ops/cuda/``.

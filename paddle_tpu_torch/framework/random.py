@@ -15,14 +15,23 @@ CPU ``torch.Generator`` plays the key source:
   CUDA generators give different streams from one seed.
 
 :func:`seed` resets all of them, as ``paddle.seed`` does.
+
+:func:`draws` counts the draws of both kinds, so a caller can tell
+whether a function drew random numbers (``jit.TrainStep`` runs a step
+that does eagerly: a CUDA graph would freeze its seed words);
+:func:`get_state` and :func:`set_state` save and restore every
+generator, so a step can be replayed with its own random numbers (the
+nan_check replay).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["seed", "next_seed_words", "generator"]
+__all__ = ["seed", "next_seed_words", "generator", "draws", "note_draw",
+           "get_state", "set_state"]
 
 _state: dict = {}
+_draws = [0]
 
 
 def seed(value: int) -> None:
@@ -41,6 +50,7 @@ def _words() -> torch.Generator:
 def next_seed_words() -> tuple:
     """Two int32 words for one call's in-kernel dropout (the reference's
     ``int32[2]`` seed operand), from the host generator."""
+    note_draw()
     w = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int64,
                       generator=_words())
     return int(w[0]), int(w[1])
@@ -58,3 +68,32 @@ def generator(device) -> torch.Generator:
     if key not in _state:
         _state[key] = torch.Generator(dev).manual_seed(_state["seed"] + 1)
     return _state[key]
+
+
+def note_draw() -> None:
+    """Count one draw (the dropout ops call it)."""
+    _draws[0] += 1
+
+
+def draws() -> int:
+    """How many draws were made so far in this process."""
+    return _draws[0]
+
+
+def get_state() -> dict:
+    """Every generator's state (the seed words' and each device's)."""
+    _words()
+    return {k: (v.get_state() if isinstance(v, torch.Generator) else v)
+            for k, v in _state.items()}
+
+
+def set_state(state: dict) -> None:
+    """Restore :func:`get_state`'s snapshot."""
+    for k, v in state.items():
+        if k == "seed":
+            _state[k] = v
+        else:
+            if k not in _state:
+                _state[k] = (torch.Generator("cpu") if k == "words"
+                             else torch.Generator(torch.device(k)))
+            _state[k].set_state(v)

@@ -48,7 +48,7 @@ import time
 import torch
 
 __all__ = ["GraphEntry", "get_or_capture", "array_spec", "key_hash",
-           "clear", "stats"]
+           "clear", "stats", "drop", "side_stream"]
 
 # least recently used out past this many entries
 _MAX_MEM_ENTRIES = int(os.environ.get("PT_EXEC_CACHE_MEM_LIMIT", "64")
@@ -65,6 +65,15 @@ def clear() -> None:
     _mem.clear()
     for k in _stats:
         _stats[k] = 0.0 if k == "capture_ms" else 0
+
+
+def drop(key) -> None:
+    """Forget ``key``'s entry, if the cache holds it (an owner that dies
+    releases its graphs)."""
+    rep, sha = key_hash(key)
+    entry = _mem.get(sha)
+    if entry is not None and entry.key_repr == rep:
+        del _mem[sha]
 
 
 def stats() -> dict:
@@ -124,7 +133,9 @@ class GraphEntry:
         return self.output
 
 
-def _side_stream(device) -> torch.cuda.Stream:
+def side_stream(device) -> torch.cuda.Stream:
+    """The side stream every capture on ``device`` runs on (a caller that
+    makes its own warm-up call runs it there)."""
     if device not in _streams:
         _streams[device] = torch.cuda.Stream(device)
     return _streams[device]
@@ -153,15 +164,16 @@ def _abandon_capture(device, stream):
     _pool = None
 
 
-def _capture(fn, inputs, label, counters):
+def _capture(fn, inputs, label, counters, warmup=True):
     device = next(t.device for t in inputs.values()
                   if isinstance(t, torch.Tensor))
-    stream = _side_stream(device)
+    stream = side_stream(device)
     start = {w: w.launches for w in counters}
-    stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(stream):
-        fn(**inputs)
-    torch.cuda.current_stream(device).wait_stream(stream)
+    if warmup:
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            fn(**inputs)
+        torch.cuda.current_stream(device).wait_stream(stream)
     before = {w: w.launches for w in counters}
     graph = torch.cuda.CUDAGraph()
     caller = torch.cuda.current_stream(device)
@@ -182,14 +194,16 @@ def _capture(fn, inputs, label, counters):
 
 
 def get_or_capture(key, fn, static_inputs: dict, label: str,
-                   counters=()) -> GraphEntry:
+                   counters=(), warmup=True) -> GraphEntry:
     """The entry for ``key``: from the cache, or captured now as
     ``fn(**static_inputs)`` (CUDA tensors; ``fn`` returns its outputs).
     On a hit ``static_inputs`` is ignored: the entry's own ``inputs`` are
     the tensors its graph reads. ``counters`` are the kernel wrappers
     whose ``launches`` the replays must keep right. A capture that fails
     raises ``RuntimeError`` naming ``label``; there is no eager
-    fallback."""
+    fallback. ``warmup=False`` skips the eager warm-up call, for a caller
+    that has just made one itself on :func:`side_stream` (a train step,
+    whose warm-up is its first real step)."""
     rep, sha = key_hash(key)
     entry = _mem.get(sha)
     if entry is not None and entry.key_repr == rep:
@@ -197,7 +211,9 @@ def get_or_capture(key, fn, static_inputs: dict, label: str,
         _stats["hits"] += 1
         return entry
     t0 = time.perf_counter()
-    graph, output, calls = _capture(fn, static_inputs, label, counters)
+    args = (fn, static_inputs, label, counters)
+    graph, output, calls = (_capture(*args) if warmup
+                            else _capture(*args, warmup=False))
     ms = (time.perf_counter() - t0) * 1e3
     entry = GraphEntry(graph, static_inputs, output, calls, rep, ms)
     _stats["captures"] += 1

@@ -178,12 +178,14 @@ class LlamaAttention(nn.Module):
         b, s = x.shape[0], x.shape[1]
         d = self.head_dim
         q, k, v = torch.split(
-            x @ self.qkv_proj.weight,
+            F.linear(x, self.qkv_proj.weight),
             [self.num_heads * d, self.num_kv_heads * d,
              self.num_kv_heads * d], dim=-1)
+        # RoPE returns the projection's dtype (low under auto_cast O1,
+        # where x, the fp32 RMSNorm output, is not)
         q, k = _rope(q.reshape(b, s, self.num_heads, d),
                      k.reshape(b, s, self.num_kv_heads, d), cfg.rope_theta,
-                     x.dtype)
+                     q.dtype)
         # v stays a strided view of the projection: the kernels read
         # [b, s, h, d] through strides. GQA runs in the kernels, which
         # map each q head to its kv head without repeating K/V.
@@ -192,7 +194,8 @@ class LlamaAttention(nn.Module):
             out = F.sliding_window_attention(q, k, v, cfg.sliding_window)
         else:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return out.reshape(b, s, self.num_heads * d) @ self.o_proj.weight
+        return F.linear(out.reshape(b, s, self.num_heads * d),
+                        self.o_proj.weight)
 
 
 class LlamaMLP(nn.Module):
@@ -203,8 +206,9 @@ class LlamaMLP(nn.Module):
         self.down_proj = _Weight((ffn, h), dtype, device)
 
     def forward(self, x):
-        gate, up = torch.chunk(x @ self.gate_up_proj.weight, 2, dim=-1)
-        return (F.silu(gate) * up) @ self.down_proj.weight
+        gate, up = torch.chunk(F.linear(x, self.gate_up_proj.weight), 2,
+                               dim=-1)
+        return F.linear(F.silu(gate) * up, self.down_proj.weight)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -300,18 +304,25 @@ class LlamaForCausalLM(nn.Module):
         model's dtype, or, given ``labels`` ``[b, s]`` (``-100`` =
         ignored), the fp32 mean loss over the non-ignored tokens: fp32
         logits into ``ParallelCrossEntropy`` (degree 1) or
-        ``F.cross_entropy``, then ``masked_token_mean``."""
+        ``F.cross_entropy``, then ``masked_token_mean``. With
+        ``ce_chunk_size > 0`` (and ``use_parallel_cross_entropy=False``)
+        the LM head and the loss run together over vocab chunks
+        (``F.chunked_softmax_cross_entropy``): the full logits never
+        exist. The products go through ``F.linear`` (white under
+        ``amp.auto_cast``)."""
         cfg = self.config
         if cfg.context_parallel:
             raise NotImplementedError(
                 "context_parallel (ring / Ulysses attention over a "
                 "sequence-sharded mesh) belongs to the distributed slice "
                 "of the port (ROADMAP queue A)")
-        if labels is not None and cfg.ce_chunk_size > 0:
-            raise NotImplementedError(
-                "ce_chunk_size > 0 needs F.chunked_softmax_cross_entropy, "
-                "not ported yet (ROADMAP queue A)")
-        logits = self.model(input_ids) @ self.lm_head.weight
+        hidden = self.model(input_ids)
+        if labels is not None and self.loss_fn is None \
+                and cfg.ce_chunk_size > 0:
+            per_tok = F.chunked_softmax_cross_entropy(
+                hidden, self.lm_head.weight, labels, cfg.ce_chunk_size)
+            return masked_token_mean(per_tok, labels, -100)
+        logits = F.linear(hidden, self.lm_head.weight)
         if labels is None:
             return logits
         labels = labels.long()

@@ -1,8 +1,10 @@
-"""Layers' functional ops and gradient clipping (``paddle_tpu/nn``)."""
+"""Layers' functional ops, ``Linear`` and gradient clipping
+(``paddle_tpu/nn``)."""
 from . import functional  # noqa: F401
 from .clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
 )
+from .layer import Linear  # noqa: F401
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue"]
+__all__ = ["functional", "Linear", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue"]

@@ -17,7 +17,12 @@ def _skip(p, g):
     return g is None or not getattr(p, "need_clip", True)
 
 
-class ClipGradByValue:
+class _Clip:
+    def __repr__(self):  # by settings (a train step's graph key reads it)
+        return f"{type(self).__name__}({vars(self)})"
+
+
+class ClipGradByValue(_Clip):
     """Clamp every gradient element to ``[min, max]`` (``min`` defaults
     to ``-max``)."""
 
@@ -31,7 +36,7 @@ class ClipGradByValue:
                 for p, g in params_grads]
 
 
-class ClipGradByNorm:
+class ClipGradByNorm(_Clip):
     """Scale each gradient to an L2 norm of at most ``clip_norm``."""
 
     def __init__(self, clip_norm):
@@ -51,7 +56,7 @@ class ClipGradByNorm:
         return out
 
 
-class ClipGradByGlobalNorm:
+class ClipGradByGlobalNorm(_Clip):
     """Scale all gradients by ``min(clip_norm / global_norm, 1)``, the
     global norm over every clipped gradient in fp32."""
 

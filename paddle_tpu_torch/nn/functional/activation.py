@@ -3,7 +3,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["silu", "gelu", "tanh"]
+from ...amp.auto_cast import cast_inputs
+
+__all__ = ["silu", "gelu", "tanh", "softmax"]
 
 
 def silu(x):
@@ -21,3 +23,14 @@ def gelu(x, approximate=False):
 def tanh(x):
     """``tanh`` in x's dtype."""
     return torch.tanh(x)
+
+
+def softmax(x, axis=-1, dtype=None):
+    """Softmax over ``axis`` (a black op under ``auto_cast``: fp32);
+    ``dtype`` casts x first, as the reference does."""
+    (x,) = cast_inputs("softmax", x)
+    if dtype is not None:
+        from ...framework.dtype import to_torch_dtype
+
+        x = x.to(to_torch_dtype(dtype))
+    return torch.softmax(x, dim=axis)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp.auto_cast import cast_inputs
 from ...framework import random
 from ...ops.cuda.flash_attention import NEG_INF, flash_attention
 from ...ops.cuda.head_flash import hb_flash
@@ -67,7 +68,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     masks bottom-right aligned; ``attn_mask`` is a ``[b, 1, 1, sk]``
     key-padding mask (bool keep, or additive float); ``dropout_p`` drops
     attention probabilities while ``training`` (outside training it is
-    0, as in the reference)."""
+    0, as in the reference). A white op under ``auto_cast``."""
+    query, key, value = cast_inputs("scaled_dot_product_attention", query,
+                                    key, value)
     p = float(dropout_p) if training else 0.0
     kadd = None
     if attn_mask is not None:
@@ -85,5 +88,7 @@ def sliding_window_attention(query, key, value, window_size):
     if not isinstance(window_size, int) or window_size <= 0:
         raise ValueError(
             f"window_size must be a positive int, got {window_size!r}")
+    query, key, value = cast_inputs("sliding_window_attention", query, key,
+                                    value)
     return flash_attention(query, key, value, causal=True,
                            window=window_size)

@@ -1,11 +1,22 @@
-"""Dropout (counterpart of ``paddle_tpu/nn/functional/common.py``)."""
+"""Linear and dropout (counterpart of
+``paddle_tpu/nn/functional/common.py``)."""
 from __future__ import annotations
 
 import torch
 
+from ...amp.auto_cast import cast_inputs
 from ...framework import random
 
-__all__ = ["dropout"]
+__all__ = ["linear", "dropout"]
+
+
+def linear(x, weight, bias=None):
+    """``x @ weight (+ bias)`` with ``weight`` in Paddle's ``[in, out]``
+    layout (the reference's op ``linear``: white under ``auto_cast``, so
+    x, weight and bias are cast to the low dtype there)."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
 
 
 def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
@@ -25,6 +36,7 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
         return x
     if p == 1.0:
         return torch.zeros_like(x)
+    random.note_draw()
     keep = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     keep.bernoulli_(1.0 - p, generator=random.generator(x.device))
     return torch.where(keep.bool(), x / (1.0 - p),

@@ -56,7 +56,9 @@
 // every result is deterministic. Ragged edges are masked in the kernels,
 // so any sequence length >= 1 works; d is any multiple of 8 up to 256.
 // Three families:
-//   - wgmma (namespace wg; bf16, d <= 128): the forward in every variant
+//   - wgmma (namespace wg; bf16, d <= 128; their element type T is a
+//     template parameter, and float16 instantiates the three Llama-path
+//     kernels at d 128 without key row or dropout): the forward in every variant
 //     (kernel 1; kernel 4 is flash_fwd_wgmma<64, true, true> on the BERT
 //     path), dQ in every variant (kernel 2 through the entry that computes
 //     delta on the Llama path; kernel 5 is flash_bwd_dq_wgmma<64, true,
@@ -125,6 +127,7 @@
 // and dropout dK/dV at 64 < d <= 128 on wgmma, and tensor-core paths for
 // fp32 (TF32 would break the fp32 identity with the CPU) and d = 256.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <limits.h>
@@ -142,6 +145,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -1029,7 +1033,7 @@ struct Smem {
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// wgmma kernels: bf16, d <= 128, warp-specialised. Two consumer
+// wgmma kernels: bf16 (or fp16: T), d <= 128, warp-specialised. Two consumer
 // warpgroups (threads 0-255, 64 rows each) compute with wgmma from
 // 128-byte-swizzled shared tiles; one producer warp (threads 256-287, the
 // first of a producer warpgroup where the consumers take its registers)
@@ -1060,8 +1064,18 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+// Two fp32 values rounded to T (bf16 or fp16) and packed in one word, lo
+// in the low half: an A operand pair of wgmma, or two outputs.
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -1174,12 +1188,12 @@ struct FwdCfg {
 // warpgroup that gives its registers to the consumers (kThreadsWs
 // threads: the key-row values and the hash terms beside the score tile
 // spill at 168 a thread).
-template <int DMAX, bool KM, bool DROP>
+template <int DMAX, bool KM, bool DROP, typename T = bf16>
 __global__ void __launch_bounds__(KM || DROP ? kThreadsWs : kThreadsWg, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                bf16* __restrict__ o, float* __restrict__ lse, Geom g,
+                T* __restrict__ o, float* __restrict__ lse, Geom g,
                 Strides so_) {
   using C = FwdCfg<DMAX, KM>;
   constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
@@ -1287,7 +1301,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < DMAX / 16; ++ks)
-      wgmma_ss<BK>(sc, desc_kmajor<BQ>(sQ, 64 * wq, ks),
+      wgmma_ss<BK, T>(sc, desc_kmajor<BQ>(sQ, 64 * wq, ks),
                    desc_kmajor<BK>(sK, 0, ks), ks);
     wg_commit();
     wg_wait<0>();
@@ -1359,8 +1373,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      ? p[e] * g.dscale
                      : 0.f;
       }
-      pa[j >> 1][2 * (j & 1)] = pack(p[0], p[1]);
-      pa[j >> 1][2 * (j & 1) + 1] = pack(p[2], p[3]);
+      pa[j >> 1][2 * (j & 1)] = pack<T>(p[0], p[1]);
+      pa[j >> 1][2 * (j & 1) + 1] = pack<T>(p[2], p[3]);
     }
 #pragma unroll
     for (int j = 0; j < DMAX / 8; ++j) {
@@ -1373,7 +1387,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<DMAX>(acc, pa[kk], desc_mnmajor<BK>(sV, kk), 1);
+      wgmma_rs<DMAX, T>(acc, pa[kk], desc_mnmajor<BK>(sV, kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(acc);
@@ -1390,13 +1404,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const bool valid = m[r] > 0.5f * kNegInf;
     const float l_safe = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / l_safe;
-    bf16* orow = o + b * so_.b + (long long)row * so_.s + h * so_.h;
+    T* orow = o + b * so_.b + (long long)row * so_.s + h * so_.h;
 #pragma unroll
     for (int j = 0; j < DMAX / 8; ++j) {
       const int col = 8 * j + 2 * tq;
       if (col < g.d)
         *reinterpret_cast<uint32_t*>(orow + col) =
-            valid ? pack(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv)
+            valid ? pack<T>(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv)
                   : 0u;
     }
     if (tq == 0)
@@ -1465,15 +1479,15 @@ struct DkvCfg {
 // warpgroup whose 64 keys are wholly padding for a head (padded_tile)
 // skips that head's work and writes its exact zeros, and a head that
 // both skip is not loaded.
-template <int DMAX, bool KM, bool DROP>
+template <int DMAX, bool KM, bool DROP, typename T = bf16>
 __global__ void __launch_bounds__(kThreadsWs, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, Geom g, Strides sdk_,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, Geom g, Strides sdk_,
                     Strides sdv_) {
   using C = DkvCfg<DMAX>;
   constexpr int BK = C::BK, BQ = C::BQ, ST = C::STAGES;
@@ -1598,12 +1612,12 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
             wg_fence();
 #pragma unroll
             for (int ks = 0; ks < DMAX / 16; ++ks)
-              wgmma_ss<64>(st, desc_kmajor<BK>(sm, 64 * wq, ks),
+              wgmma_ss<64, T>(st, desc_kmajor<BK>(sm, 64 * wq, ks),
                            desc_kmajor<BQ>(sQ, 0, ks), ks);
             wg_commit();
 #pragma unroll
             for (int ks = 0; ks < DMAX / 16; ++ks)
-              wgmma_ss<64>(dpt, desc_kmajor<BK>(sm + C::OFF_V, 64 * wq, ks),
+              wgmma_ss<64, T>(dpt, desc_kmajor<BK>(sm + C::OFF_V, 64 * wq, ks),
                            desc_kmajor<BQ>(sdO, 0, ks), ks);
             wg_commit();
             // the tile needs the causal, window or edge tests only where
@@ -1653,16 +1667,16 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 dsv[e] = p * (dpv - sl[BQ + col]) * g.scale;
                 dm[e >> 1] += dsv[e];
               }
-              pf[j >> 1][2 * (j & 1)] = pack(pv[0], pv[1]);
-              pf[j >> 1][2 * (j & 1) + 1] = pack(pv[2], pv[3]);
-              df[j >> 1][2 * (j & 1)] = pack(dsv[0], dsv[1]);
-              df[j >> 1][2 * (j & 1) + 1] = pack(dsv[2], dsv[3]);
+              pf[j >> 1][2 * (j & 1)] = pack<T>(pv[0], pv[1]);
+              pf[j >> 1][2 * (j & 1) + 1] = pack<T>(pv[2], pv[3]);
+              df[j >> 1][2 * (j & 1)] = pack<T>(dsv[0], dsv[1]);
+              df[j >> 1][2 * (j & 1) + 1] = pack<T>(dsv[2], dsv[3]);
             }
             wg_fence();
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
-              wgmma_rs<DMAX>(acc_v, pf[kk], desc_mnmajor<BQ>(sdO, kk), 1);
-              wgmma_rs<DMAX>(acc_k, df[kk], desc_mnmajor<BQ>(sQ, kk), 1);
+              wgmma_rs<DMAX, T>(acc_v, pf[kk], desc_mnmajor<BQ>(sdO, kk), 1);
+              wgmma_rs<DMAX, T>(acc_k, df[kk], desc_mnmajor<BQ>(sQ, kk), 1);
             }
             wg_commit();
             wg_wait<0>();
@@ -1689,16 +1703,16 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     for (int r = 0; r < 2; ++r) {
       const int c = kr + 8 * r;
       if (c >= g.SK) continue;
-      bf16* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
-      bf16* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
+      T* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
+      T* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
 #pragma unroll
       for (int j = 0; j < DMAX / 8; ++j) {
         const int col = 8 * j + 2 * tq;
         if (col < g.d) {
           *reinterpret_cast<uint32_t*>(krow + col) =
-              pack(acc_k[4 * j + 2 * r], acc_k[4 * j + 2 * r + 1]);
+              pack<T>(acc_k[4 * j + 2 * r], acc_k[4 * j + 2 * r + 1]);
           *reinterpret_cast<uint32_t*>(vrow + col) =
-              pack(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+              pack<T>(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
         }
       }
     }
@@ -1750,15 +1764,15 @@ struct DqCfg {
 // counter hash and scaled by dscale before ds (p itself is not dropped in
 // dQ). At d 128 with a key row and FUSED, delta is summed before the key
 // loop (see kEarly).
-template <int DMAX, bool FUSED, bool KM, bool DROP>
+template <int DMAX, bool FUSED, bool KM, bool DROP, typename T = bf16>
 __global__ void __launch_bounds__(kThreadsWs, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_do,
-                   const bf16* __restrict__ out,
+                   const T* __restrict__ out,
                    const float* __restrict__ lse, float* __restrict__ delta,
-                   bf16* __restrict__ dq, Geom g, Strides so_,
+                   T* __restrict__ dq, Geom g, Strides so_,
                    Strides sdq_) {
   using C = DqCfg<DMAX, KM>;
   constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
@@ -1878,11 +1892,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const uint4 dv = *reinterpret_cast<const uint4*>(
             sm + C::OFF_DO + (col >> 6) * BQ * 128 + rr * 128 +
             ((((col & 63) >> 3) ^ (rr & 7)) << 4));
-        const bf16* de = reinterpret_cast<const bf16*>(&dv);
-        const bf16* oe = reinterpret_cast<const bf16*>(&ov[c]);
+        const T* de = reinterpret_cast<const T*>(&dv);
+        const T* oe = reinterpret_cast<const T*>(&ov[c]);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          sum = fmaf(__bfloat162float(de[e]), __bfloat162float(oe[e]), sum);
+          sum = fmaf(to_f32(de[e]), to_f32(oe[e]), sum);
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       float* sdelta = reinterpret_cast<float*>(sm + C::OFF_DELTA);
@@ -1922,13 +1936,13 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < DMAX / 16; ++ks)
-        wgmma_ss<BK>(sc, desc_kmajor<BQ>(sm, 64 * wq, ks),
+        wgmma_ss<BK, T>(sc, desc_kmajor<BQ>(sm, 64 * wq, ks),
                      desc_kmajor<BK>(sK, 0, ks), ks);
       wg_commit();
       mbar_wait(full_v + s, ph);
 #pragma unroll
       for (int ks = 0; ks < DMAX / 16; ++ks)
-        wgmma_ss<BK>(dp, desc_kmajor<BQ>(sm + C::OFF_DO, 64 * wq, ks),
+        wgmma_ss<BK, T>(dp, desc_kmajor<BQ>(sm + C::OFF_DO, 64 * wq, ks),
                      desc_kmajor<BK>(sV, 0, ks), ks);
       wg_commit();
       if (FUSED && !kEarly && i == 0) sum_delta();
@@ -1975,13 +1989,13 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       : 0.f;
           ds[e] = sc[4 * j + e] * (dpv - dl[e >> 1]) * g.scale;
         }
-        da[j >> 1][2 * (j & 1)] = pack(ds[0], ds[1]);
-        da[j >> 1][2 * (j & 1) + 1] = pack(ds[2], ds[3]);
+        da[j >> 1][2 * (j & 1)] = pack<T>(ds[0], ds[1]);
+        da[j >> 1][2 * (j & 1) + 1] = pack<T>(ds[2], ds[3]);
       }
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<DMAX>(acc, da[kk], desc_mnmajor<BK>(sK, kk), 1);
+        wgmma_rs<DMAX, T>(acc, da[kk], desc_mnmajor<BK>(sK, kk), 1);
       wg_commit();
       wg_wait<0>();
       fence_regs(acc);
@@ -1993,13 +2007,13 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + rw + 8 * r;
       if (row >= g.SQ) continue;
-      bf16* qrow = dq + b * sdq_.b + (long long)row * sdq_.s + h * sdq_.h;
+      T* qrow = dq + b * sdq_.b + (long long)row * sdq_.s + h * sdq_.h;
 #pragma unroll
       for (int j = 0; j < DMAX / 8; ++j) {
         const int col = 8 * j + 2 * tq;
         if (col < g.d)
           *reinterpret_cast<uint32_t*>(qrow + col) =
-              pack(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+              pack<T>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -2121,10 +2135,17 @@ EncodeTiledFn encode_tiled() {
 // Returned for a tensor map that cannot be encoded, plus its CUresult.
 constexpr int kTensorMapError = 1000;
 
-// A bf16 [B, S, heads, d] tensor read through its (batch, seq, head)
-// strides as the 4-D map (d, heads, S, B) with boxes of (64, 1, rows, 1)
-// and the 128-byte swizzle; reads past an edge return zeros.
-int bf16_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+// A bf16 or fp16 (T) [B, S, heads, d] tensor read through its (batch,
+// seq, head) strides as the 4-D map (d, heads, S, B) with boxes of (64,
+// 1, rows, 1) and the 128-byte swizzle; reads past an edge return zeros.
+template <typename T>
+constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+template <>
+constexpr CUtensorMapDataType kMapType<__half> =
+    CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+
+template <typename T>
+int tile_map(CUtensorMap* map, const void* base, int B, int S, int heads,
              int d, Strides st, int rows) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return kTensorMapError + CUDA_ERROR_NOT_FOUND;
@@ -2134,32 +2155,45 @@ int bf16_map(CUtensorMap* map, const void* base, int B, int S, int heads,
                                (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto encode = [&] {
+    return enc(map, kMapType<T>, 4, const_cast<void*>(base), dims, bytes,
+               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    // a thread with no current context (PyTorch's autograd device thread,
+    // when a flash backward is its first CUDA work) cannot use the
+    // driver's encoder: cudaSetDevice makes the tensor's device's primary
+    // context current on this thread (CUDA 12), then encode again
+    cudaPointerAttributes a;
+    int dev = -1;
+    if (cudaPointerGetAttributes(&a, base) == cudaSuccess) dev = a.device;
+    if (dev < 0) cudaGetDevice(&dev);
+    if (dev >= 0 && cudaSetDevice(dev) == cudaSuccess) r = encode();
+  }
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
-template <int DMAX, bool KM, bool DROP>
+template <int DMAX, bool KM, bool DROP, typename T = wg::bf16>
 cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                       void* lse, const Geom& g, const long long* st,
                       cudaStream_t stream) {
   using C = wg::FwdCfg<DMAX, KM>;
   CUtensorMap tq, tk, tv;
-  int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
+  int err = tile_map<T>(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
-    err = bf16_map(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
+    err = tile_map<T>(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
   if (!err)
-    err = bf16_map(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
+    err = tile_map<T>(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_fwd_wgmma<DMAX, KM, DROP>;
+  auto kernel = wg::flash_fwd_wgmma<DMAX, KM, DROP, T>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   kernel<<<g.B * g.H * ((g.SQ + C::BQ - 1) / C::BQ),
            KM || DROP ? wg::kThreadsWs : wg::kThreadsWg, C::SMEM, stream>>>(
-      tq, tk, tv, (wg::bf16*)o, (float*)lse, g, strides_at(st, 3));
+      tq, tk, tv, (T*)o, (float*)lse, g, strides_at(st, 3));
   return cudaGetLastError();
 }
 
@@ -2173,7 +2207,7 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
 
 // dQ on wgmma: FUSED computes delta from O (strides so_) and writes it;
 // otherwise delta is read. st: the strides of q, k, v, dout.
-template <int DMAX, bool FUSED, bool KM, bool DROP>
+template <int DMAX, bool FUSED, bool KM, bool DROP, typename T = wg::bf16>
 cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
                          const void* dout, const void* out, const void* lse,
                          void* delta, void* dq, const Geom& g,
@@ -2181,23 +2215,23 @@ cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
                          cudaStream_t stream) {
   using C = wg::DqCfg<DMAX, KM>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
+  int err = tile_map<T>(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
-    err = bf16_map(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
+    err = tile_map<T>(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
   if (!err)
-    err = bf16_map(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
+    err = tile_map<T>(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
   if (!err)
-    err = bf16_map(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
+    err = tile_map<T>(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
                    C::BQ);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_bwd_dq_wgmma<DMAX, FUSED, KM, DROP>;
+  auto kernel = wg::flash_bwd_dq_wgmma<DMAX, FUSED, KM, DROP, T>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   const int grid =
       wg::grouped_blocks(g.B * g.H, (g.SQ + C::BQ - 1) / C::BQ);
   kernel<<<grid, wg::kThreadsWs, C::SMEM, stream>>>(
-      tq, tk, tv, tdo, (const wg::bf16*)out, (const float*)lse,
-      (float*)delta, (wg::bf16*)dq, g, so_, sdq_);
+      tq, tk, tv, tdo, (const T*)out, (const float*)lse,
+      (float*)delta, (T*)dq, g, so_, sdq_);
   return cudaGetLastError();
 }
 
@@ -2212,7 +2246,7 @@ cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
       Strides{}, strides_at(st, 4), stream);
 }
 
-template <int DMAX, bool KM, bool DROP>
+template <int DMAX, bool KM, bool DROP, typename T = wg::bf16>
 cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv,
@@ -2220,23 +2254,23 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                           cudaStream_t stream) {
   using C = wg::DkvCfg<DMAX>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = bf16_map(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
+  int err = tile_map<T>(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
-    err = bf16_map(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
+    err = tile_map<T>(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
   if (!err)
-    err = bf16_map(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
+    err = tile_map<T>(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
   if (!err)
-    err = bf16_map(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
+    err = tile_map<T>(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
                    C::BQ);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_bwd_dkv_wgmma<DMAX, KM, DROP>;
+  auto kernel = wg::flash_bwd_dkv_wgmma<DMAX, KM, DROP, T>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   const int grid =
       wg::grouped_blocks(g.B * g.HKV, (g.SK + C::BK - 1) / C::BK);
   kernel<<<grid, wg::kThreadsWs, C::SMEM, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-      (wg::bf16*)dk, (wg::bf16*)dv, g, strides_at(st, 4), strides_at(st, 5));
+      (T*)dk, (T*)dv, g, strides_at(st, 4), strides_at(st, 5));
   return cudaGetLastError();
 }
 
@@ -2286,7 +2320,37 @@ Geom make_geom(const int* geom, float scale, const void* km, void* dm,
 }
 
 // dtype codes shared with ops/cuda/flash_attention.py
-enum { kFloat32 = 0, kBFloat16 = 1 };
+enum { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
+
+// float16 runs the Llama path only: d 128, no key row, no dropout, the
+// flash entries (hb = 0), on the wgmma kernels instantiated at __half
+// (the forward, dK/dV and the dQ that computes delta). Anything else is
+// refused (the wrapper raises first).
+template <bool KM, bool DROP>
+cudaError_t fwd_fp16(const void* q, const void* k, const void* v, void* o,
+                     void* lse, const Geom& g, const long long* st,
+                     cudaStream_t stream) {
+  if (KM || DROP || g.d != 128) return cudaErrorInvalidValue;
+  return fwd_wgmma<128, false, false, __half>(q, k, v, o, lse, g, st,
+                                              stream);
+}
+
+template <bool KM, bool DROP>
+cudaError_t bwd_dq_fp16(const void*, const void*, const void*, const void*,
+                        const void*, const void*, void*, const Geom&,
+                        const long long*, cudaStream_t) {
+  return cudaErrorInvalidValue;  // dQ given delta: no fp16 kernel
+}
+
+template <bool KM, bool DROP>
+cudaError_t bwd_dkv_fp16(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dk, void* dv, const Geom& g,
+                         const long long* st, cudaStream_t stream) {
+  if (KM || DROP || g.d != 128) return cudaErrorInvalidValue;
+  return bwd_dkv_wgmma<128, false, false, __half>(q, k, v, dout, lse, delta,
+                                                  dk, dv, g, st, stream);
+}
 
 // bf16 with d <= 128 takes the tensor-core kernels; fp32 (any d) and
 // bf16 with d > 128 the fp32-FMA kernels, with 64 x 64 tiles up to DMAX
@@ -2294,6 +2358,7 @@ enum { kFloat32 = 0, kBFloat16 = 1 };
 // memory.
 #define PT_FLASH_FAMILY(FN, KM, DROP, ...)                              \
   do {                                                                  \
+    if (dtype == kFloat16) return FN##_fp16<KM, DROP>(__VA_ARGS__);     \
     if (dtype == kBFloat16) {                                           \
       if (g.d <= 64) return FN##_tc<64, KM, DROP>(__VA_ARGS__);         \
       if (g.d <= 128) return FN##_tc<128, KM, DROP>(__VA_ARGS__);       \
@@ -2312,6 +2377,7 @@ enum { kFloat32 = 0, kBFloat16 = 1 };
 #define PT_FLASH_DISPATCH(FN, ...)                                      \
   do {                                                                  \
     if (g.d % 8 || g.d > 256 || g.H % g.HKV) return cudaErrorInvalidValue; \
+    if (dtype == kFloat16 && hb) return cudaErrorInvalidValue;          \
     if (g.km && drop) PT_FLASH_FAMILY(FN, true, true, __VA_ARGS__);     \
     if (g.km) PT_FLASH_FAMILY(FN, true, false, __VA_ARGS__);            \
     if (drop) PT_FLASH_FAMILY(FN, false, true, __VA_ARGS__);            \
@@ -2347,8 +2413,8 @@ int bwd_dkv_entry(const void* q, const void* k, const void* v,
                     (cudaStream_t)stream);
 }
 
-// dQ that also computes delta (bf16, d <= 128, every variant): strides
-// of q, k, v, dout, out, dq.
+// dQ that also computes delta (bf16, d <= 128, every variant; fp16 at d
+// 128 without key row or dropout): strides of q, k, v, dout, out, dq.
 int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                        const void* dout, const void* out, const void* lse,
                        void* delta, void* dq, const void* km,
@@ -2356,9 +2422,16 @@ int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                        const unsigned* drop, float dscale, int dtype,
                        void* stream, int hb) {
   const Geom g = make_geom(geom, scale, km, nullptr, drop, dscale, hb);
+  const Strides so_ = strides_at(strides, 4), sdq_ = strides_at(strides, 5);
+  if (dtype == kFloat16) {
+    if (hb || km || drop || g.d != 128 || g.H % g.HKV)
+      return cudaErrorInvalidValue;
+    return bwd_dq_wgmma<128, true, false, false, __half>(
+        q, k, v, dout, out, lse, delta, dq, g, strides, so_, sdq_,
+        (cudaStream_t)stream);
+  }
   if (dtype != kBFloat16 || g.d % 8 || g.d > 128 || g.H % g.HKV)
     return cudaErrorInvalidValue;
-  const Strides so_ = strides_at(strides, 4), sdq_ = strides_at(strides, 5);
 #define PT_DQ_DELTA(KM, DROP)                                              \
   return g.d <= 64 ? bwd_dq_wgmma<64, true, KM, DROP>(                     \
                          q, k, v, dout, out, lse, delta, dq, g, strides,   \

@@ -25,6 +25,8 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -199,80 +201,84 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][C]) {
 #define PT_ACC64 PT_ACC32, PT_ACC16(32), PT_ACC16(48)
 
 // d (+)= A.B for a 64 x N tile, k16: A and B from shared memory, both
-// K-major; scale_d = 0 overwrites d.
-template <int N>
+// K-major; scale_d = 0 overwrites d. T: the operands' element type
+// (__nv_bfloat16 or __half).
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d);
-// d (+)= A.B, A from registers (4 bf16 pairs a thread), B from shared
+// d (+)= A.B, A from registers (4 pairs of T a thread), B from shared
 // memory MN-major.
-template <int N>
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d);
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : PT_ACC32
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// The four products for one element type T, whose PTX name is TY.
+#define PT_WGMMA_DEFS(T, TY)                                                 \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_ss<64, T>(                           \
+      float(&d)[32], uint64_t da, uint64_t db, int scale_d) {                \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "       \
+        "%26, %27, %28, %29, %30, %31"                                       \
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                    \
+        : PT_ACC32                                                           \
+        : "l"(da), "l"(db), "r"(scale_d));                                   \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_rs<64, T>(                           \
+      float(&d)[32], const uint32_t(&a)[4], uint64_t db, int scale_d) {      \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "       \
+        "%26, %27, %28, %29, %30, %31"                                       \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+        : PT_ACC32                                                           \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),               \
+          "r"(scale_d));                                                     \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_ss<128, T>(                          \
+      float(&d)[64], uint64_t da, uint64_t db, int scale_d) {                \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"        \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "       \
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "       \
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "       \
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "       \
+        "%62, %63"                                                           \
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                    \
+        : PT_ACC64                                                           \
+        : "l"(da), "l"(db), "r"(scale_d));                                   \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_rs<128, T>(                          \
+      float(&d)[64], const uint32_t(&a)[4], uint64_t db, int scale_d) {      \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"        \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "       \
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "       \
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "       \
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "       \
+        "%62, %63"                                                           \
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                      \
+        : PT_ACC64                                                           \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),               \
+          "r"(scale_d));                                                     \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : PT_ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : PT_ACC64
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : PT_ACC64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
+PT_WGMMA_DEFS(__nv_bfloat16, "bf16")
+PT_WGMMA_DEFS(__half, "f16")
+#undef PT_WGMMA_DEFS
 #undef PT_ACC4
 #undef PT_ACC16
 #undef PT_ACC32

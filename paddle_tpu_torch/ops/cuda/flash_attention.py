@@ -36,7 +36,10 @@ and dQ in every variant, dK/dV without key row or dropout and at ``d <=
 a ring of shared tiles (the heaviest tiles first), the key-row and
 dropout variants of dK/dV at ``64 < d <= 128`` with ``mma.sync``;
 fp32 inputs and ``d > 128`` take fp32-FMA kernels, so fp32 results match
-the CPU's plain versions to fp32 rounding. All read q/k/v through their
+the CPU's plain versions to fp32 rounding. float16 runs the same wgmma
+kernels instantiated at ``__half`` for the Llama path only (``d ==
+128``, no key row or dropout; dQ through the entry computing delta);
+every other float16 call on CUDA raises (:func:`_fp16_kernel`). All read q/k/v through their
 (batch, seq, head) strides, so the ``[b, s, h, d]`` views of the fused
 QKV projection go in without the three transposes JAX makes (TMA needs
 16-byte aligned starts and strides, which the checks below require); a
@@ -82,7 +85,8 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dkv_ref", "flash_bwd_dq_delta_ref"]
 
 NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # flash_attention.cu
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1,  # flash_attention.cu
+               torch.float16: 2}
 _M32 = 0xFFFFFFFF
 
 
@@ -106,8 +110,8 @@ def _check(q, k, v, causal, window, extra=()):
             raise ValueError(f"{name}'s last dim must be contiguous "
                              f"(stride 1), got strides {t.stride()}")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"q, k and v must be float32 or bfloat16, got "
-                         f"{q.dtype}")
+        raise ValueError(f"q, k and v must be float32, bfloat16 or float16, "
+                         f"got {q.dtype}")
     b, sq, h, d = q.shape
     bk, sk, h_kv, dk = k.shape
     if tuple(v.shape) != tuple(k.shape):
@@ -141,6 +145,21 @@ def _check(q, k, v, causal, window, extra=()):
                     f"{name} must start 16-byte aligned with batch, seq "
                     f"and head strides that are multiples of 16 bytes; got "
                     f"strides {t.stride()}")
+
+
+def _fp16_kernel(q, what, variant=False):
+    """Raise ``NotImplementedError`` for a float16 CUDA call that has no
+    kernel: float16 runs kernels 1-3 on the Llama path only (head_dim
+    128, no key row, no dropout; dQ through the entry that computes
+    delta). ``variant``: the call has a key row or dropout, or is a
+    head-batched (4-6) or given-delta dQ call."""
+    if q.is_cuda and q.dtype == torch.float16 \
+            and (variant or q.shape[-1] != 128):
+        raise NotImplementedError(
+            f"{what}: float16 runs only flash kernels 1-3 at head_dim 128 "
+            f"without key row or dropout (the Llama path; dQ computing "
+            f"delta itself); float16 for this call (head_dim "
+            f"{q.shape[-1]}) is ROADMAP queue A.9")
 
 
 def _vector_aligned(t):
@@ -422,13 +441,15 @@ def _bwd_dq(entry, name, q, k, v, do, lse, delta, kmask, scale, causal,
 
 def _bwd_dq_delta(entry, name, q, k, v, do, out, lse, scale, causal, window,
                   drop, kmask=()):
-    """Launch a dQ entry that also computes delta (bfloat16, ``d <= 128``;
-    anything else raises); returns (dQ, delta ``[b * h, sq]``). ``kmask``:
-    ``(key rows or None,)`` for an entry that takes them."""
+    """Launch a dQ entry that also computes delta (bfloat16 with ``d <=
+    128``, or float16 at 128; anything else raises); returns (dQ, delta
+    ``[b * h, sq]``). ``kmask``: ``(key rows or None,)`` for an entry
+    that takes them."""
     b, sq, h, d = q.shape
+    _fp16_kernel(q, name, name != "flash_bwd_dq_delta" or drop is not None)
     if not _fusable(q):
-        raise ValueError(f"{name} takes bfloat16 with head_dim <= 128, got "
-                         f"{q.dtype} and {d}")
+        raise ValueError(f"{name} takes bfloat16 with head_dim <= 128 or "
+                         f"float16 at 128, got {q.dtype} and {d}")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     _launch(entry, name, (q, k, v, do, out, lse, delta, dq, *kmask), q, k,
@@ -460,10 +481,11 @@ def _bwd_dkv(entry, name, q, k, v, do, lse, delta, kmask, dm_rows, scale,
 def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
               seed=None, dropout=0.0):
     """Attention forward. q ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]``
-    (float32 or bfloat16, last dim contiguous, ``h % h_kv == 0``, ``d %
-    8 == 0``, ``d <= 256``); optional ``kmask`` ``[b * h, 1, sk]`` fp32
-    and ``dropout`` with two ``seed`` words. Returns (O ``[b, sq, h, d]``
-    in q's dtype, lse ``[b * h, sq]`` fp32)."""
+    (float32 or bfloat16; float16 on CUDA at ``d == 128`` without key
+    row or dropout; last dim contiguous, ``h % h_kv == 0``, ``d % 8 ==
+    0``, ``d <= 256``); optional ``kmask`` ``[b * h, 1, sk]`` fp32 and
+    ``dropout`` with two ``seed`` words. Returns (O ``[b, sq, h, d]`` in
+    q's dtype, lse ``[b * h, sq]`` fp32)."""
     _check(q, k, v, causal, window)
     drop = _dropout_words(dropout, seed)
     if kmask is not None:
@@ -473,6 +495,7 @@ def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
         return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
                              window=window, kmask=kmask, seed=seed,
                              dropout=dropout)
+    _fp16_kernel(q, "flash_fwd", kmask is not None or drop is not None)
     res = _fwd(_lib().pt_flash_fwd, "flash_fwd", q, k, v, kmask, scale,
                causal, window, drop)
     flash_fwd.launches += 1
@@ -512,6 +535,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                                 scale=scale, window=window, kmask=kmask,
                                 seed=seed, dropout=dropout)
+    _fp16_kernel(q, "flash_bwd_dq (given delta)", True)
     dq = _bwd_dq(_lib().pt_flash_bwd_dq, "flash_bwd_dq", q, k, v, do, lse,
                  delta, kmask, scale, causal, window, drop)
     flash_bwd_dq.launches += 1
@@ -532,6 +556,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale=None,
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                                  scale=scale, window=window, kmask=kmask,
                                  seed=seed, dropout=dropout)
+    _fp16_kernel(q, "flash_bwd_dkv", kmask is not None or drop is not None)
     res = _bwd_dkv(_lib().pt_flash_bwd_dkv, "flash_bwd_dkv", q, k, v, do,
                    lse, delta, kmask, rows, scale, causal, window, drop)
     flash_bwd_dkv.launches += 1
@@ -560,7 +585,8 @@ def flash_bwd_dq_delta(q, k, v, do, out, lse, *, causal, scale=None,
     (both q's shape and dtype) and lse. One launch: each block sums delta
     for its query rows from the dO tile it holds, writes it out for
     :func:`flash_bwd_dkv`, and goes on to dQ. Takes bfloat16 with ``d <=
-    128`` and no key row or dropout (on CUDA; anything else raises). Its
+    128``, or float16 at 128, and no key row or dropout (on CUDA;
+    anything else raises). Its
     launches count on ``flash_bwd_dq.launches``: it is kernel 2."""
     _check(q, k, v, causal, window, extra=(("do", do), ("out", out)))
     _check_stats(q, lse=lse)
@@ -591,14 +617,17 @@ def _upstream(do, q):
 
 
 def _fusable(q):
-    """Whether a dQ kernel can compute delta itself for q: CUDA, bfloat16,
-    ``d <= 128`` (the wgmma kernels)."""
-    return q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] <= 128
+    """Whether a dQ kernel can compute delta itself for q: CUDA, bfloat16
+    with ``d <= 128`` or float16 at 128 (the wgmma kernels)."""
+    d = q.shape[-1]
+    return q.is_cuda and (q.dtype == torch.bfloat16 and d <= 128
+                          or q.dtype == torch.float16 and d == 128)
 
 
 def _fused_delta(q, args):
     """Whether the backward takes :func:`flash_bwd_dq_delta` (CUDA,
-    bfloat16, ``d <= 128``, no key row or dropout)."""
+    bfloat16 with ``d <= 128`` or float16 at 128, no key row or
+    dropout)."""
     return _fusable(q) and args["kmask"] is None and not args["dropout"]
 
 

@@ -131,6 +131,7 @@ def hb_fwd(q, k, v, *, causal=False, scale=None, window=0, kmask=None,
     if not q.is_cuda:
         return hb_fwd_ref(q, k, v, causal=causal, scale=scale, window=window,
                           kmask=kmask, seed=seed, dropout=dropout)
+    _fa._fp16_kernel(q, "hb_fwd", True)
     res = _fa._fwd(_fa._lib().pt_hb_fwd, "hb_fwd", q, k, v, kmask, scale,
                    causal, window, drop)
     hb_fwd.launches += 1
@@ -148,6 +149,7 @@ def hb_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
         return hb_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                              scale=scale, window=window, kmask=kmask,
                              seed=seed, dropout=dropout)
+    _fa._fp16_kernel(q, "hb_bwd_dq", True)
     dq = _fa._bwd_dq(_fa._lib().pt_hb_bwd_dq, "hb_bwd_dq", q, k, v, do, lse,
                      delta, kmask, scale, causal, window, drop)
     hb_bwd_dq.launches += 1
@@ -193,6 +195,7 @@ def hb_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
         return hb_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                               scale=scale, window=window, kmask=kmask,
                               seed=seed, dropout=dropout)
+    _fa._fp16_kernel(q, "hb_bwd_dkv", True)
     res = _fa._bwd_dkv(_fa._lib().pt_hb_bwd_dkv, "hb_bwd_dkv", q, k, v, do,
                        lse, delta, kmask, b, scale, causal, window, drop,
                        head_sum=True)

@@ -40,6 +40,17 @@ the rule's own per-parameter setting, which fuse the reference's
 expressions (``addcmul``, ``addcdiv``) and so round at slightly other
 places. Lamb's trust ratio is a norm per parameter
 (``torch._foreach_norm``), never one over the group.
+
+Capturable: ``jit.TrainStep`` captures the step as a CUDA graph, which
+would freeze any Python number in it. While ``_dev_scalars`` holds a
+float64 ``[lr, step]`` buffer on the device, ``step()`` reads the rate
+and the step count from it (``_Group.lr`` and ``_Group.step`` are then
+0-dim tensors, and the rules' rate and bias-correction factors are
+device arithmetic: ``_add_scaled_`` and ``_addcdiv_scaled_`` take a
+tensor factor), and the caller writes the buffer before each replay.
+Eagerly (``_dev_scalars`` None) the factors stay Python floats and the
+results are what they were. The captured step's factors are float64 on
+the device instead of the host, then fp32 as in the eager kernels.
 """
 from __future__ import annotations
 
@@ -72,10 +83,35 @@ class L1Decay:
 
 class _Group(NamedTuple):
     """What the parameters updated by one ``_update`` call share."""
-    step: int      # the 1-based update count
-    lr: float      # the rate times the parameter's optimize_attr factor
+    step: object   # the 1-based update count (an int, or a 0-dim tensor)
+    lr: object     # the rate times the parameter's optimize_attr factor
     reg: tuple     # ("l1" | "l2", coeff), or () for the optimizer's decay
     key: object    # the rule's own per-parameter setting (_rule_key)
+
+
+def _factor(c):
+    """A rule's scalar factor as a ``_foreach`` op takes it: a Python
+    float, or a 0-dim fp32 tensor when it was computed on the device."""
+    return c.to(torch.float32) if isinstance(c, torch.Tensor) else c
+
+
+def _add_scaled_(xs, ys, c):
+    """``xs += c * ys`` for a float or a 0-dim tensor ``c``."""
+    if isinstance(c, torch.Tensor):
+        torch._foreach_add_(xs, torch._foreach_mul(ys, _factor(c)))
+    else:
+        torch._foreach_add_(xs, ys, alpha=c)
+
+
+def _addcdiv_scaled_(xs, a, b, c):
+    """``xs += c * a / b`` for a float or a 0-dim tensor ``c``. ``b`` is
+    the caller's scratch: a tensor ``c`` is folded into it (``b / c``),
+    so the update stays one fused ``addcdiv`` pass."""
+    if isinstance(c, torch.Tensor):
+        torch._foreach_div_(b, _factor(c))
+        torch._foreach_addcdiv_(xs, a, b)
+    else:
+        torch._foreach_addcdiv_(xs, a, b, value=c)
 
 
 def _regularizer(p):
@@ -118,6 +154,7 @@ class Optimizer:
         self._master_weights: dict = {}
         self._step_counts: dict = {}
         self._global_step = 0
+        self._dev_scalars = None  # [lr, step] on the device while captured
 
     def _name(self, p):
         """The parameter's name, or ``""`` (the reference's ``p.name or
@@ -169,6 +206,40 @@ class Optimizer:
 
     # -- eager step -----------------------------------------------------------
 
+    def _work(self, p, g, create=True):
+        """(the tensor the rule updates, the gradient as the rule takes
+        it, the state): the fp32 master and an fp32 gradient for a
+        bf16/fp16 parameter under ``multi_precision``, else the parameter
+        and the gradient in its dtype. States and masters are made at
+        first use (``create``; a captured step finds them made)."""
+        key = id(p)
+        if p.dtype in _LOW_PRECISION and self._multi_precision:
+            work = self._master_weights.get(key)
+            if work is None:
+                work = p.detach().to(torch.float32)
+                if create:
+                    self._master_weights[key] = work
+            g = g.to(torch.float32)
+        else:
+            work, g = p, g.to(p.dtype)
+        state = self._accumulators.get(key)
+        if state is None:
+            state = self._init_state(work)
+            if create:
+                self._accumulators[key] = state
+        return work, g, state
+
+    def _lr_of(self, p, lr, rates):
+        """The rate for ``p``: ``lr`` times its optimize_attr factor (one
+        device tensor per factor, kept in ``rates``, while captured)."""
+        attrs = getattr(p, "optimize_attr", None)
+        f = float(attrs.get("learning_rate", 1.0)) if attrs else 1.0
+        if not isinstance(lr, torch.Tensor):
+            return lr * f if attrs else lr
+        if f not in rates:
+            rates[f] = lr * f if f != 1.0 else lr
+        return rates[f]
+
     @torch.no_grad()
     def step(self):
         """Clip the gradients (``grad_clip``), then update every
@@ -178,7 +249,9 @@ class Optimizer:
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._global_step += 1
-        lr = self.get_lr()
+        dev = self._dev_scalars
+        lr = self.get_lr() if dev is None else dev[0]
+        rates: dict = {}
         groups: dict = {}  # _Group -> (works, grads, states)
         masters = []
         for p, g in params_grads:
@@ -187,23 +260,12 @@ class Optimizer:
             key = id(p)
             step = self._step_counts.get(key, 0) + 1
             self._step_counts[key] = step
-            attrs = getattr(p, "optimize_attr", None)
-            lr_p = lr * float(attrs.get("learning_rate", 1.0)) \
-                if attrs else lr
-            if p.dtype in _LOW_PRECISION and self._multi_precision:
-                work = self._master_weights.get(key)
-                if work is None:
-                    work = p.detach().to(torch.float32)
-                    self._master_weights[key] = work
-                g = g.to(torch.float32)
+            work, g, state = self._work(p, g)
+            if work is not p:
                 masters.append((p, work))
-            else:
-                work = p
-                g = g.to(p.dtype)
-            state = self._accumulators.get(key)
-            if state is None:
-                state = self._accumulators[key] = self._init_state(work)
-            group = _Group(step, lr_p, _regularizer(p), self._rule_key(p))
+            group = _Group(step if dev is None else dev[1],
+                           self._lr_of(p, lr, rates), _regularizer(p),
+                           self._rule_key(p))
             works, grads, states = groups.setdefault(group, ([], [], []))
             works.append(work)
             grads.append(g)
@@ -212,6 +274,30 @@ class Optimizer:
             self._update(works, grads, states, group)
         for p, work in masters:
             p.copy_(work)  # rounds the fp32 master to p's dtype
+
+    @torch.no_grad()
+    def _trial_updates(self, params_grads, lr):
+        """What :meth:`step` would make of ``params_grads`` at rate
+        ``lr``, computed on copies: a ``(work, state)`` pair for each
+        parameter, ``(None, None)`` where its gradient is None. The
+        optimizer is left as it was (the nan_check replay's last
+        phase)."""
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        out = []
+        for p, g in params_grads:
+            if g is None:
+                out.append((None, None))
+                continue
+            work, g, state = self._work(p, g, create=False)
+            work = work.detach().clone()
+            state = {k: v.clone() for k, v in state.items()}
+            group = _Group(self._step_counts.get(id(p), 0) + 1,
+                           self._lr_of(p, lr, {}), _regularizer(p),
+                           self._rule_key(p))
+            self._update([work], [g], [state], group)
+            out.append((work, state))
+        return out
 
     def clear_grad(self, set_to_zero=False):
         """Drop every gradient (or zero it in place)."""
@@ -300,8 +386,8 @@ class SGD(Optimizer):
     """``param - lr * (grad + decay)``."""
 
     def _update(self, works, grads, states, group):
-        torch._foreach_add_(works, self._coupled_decay(grads, works, group),
-                            alpha=-group.lr)
+        _add_scaled_(works, self._coupled_decay(grads, works, group),
+                     -group.lr)
 
 
 class Momentum(Optimizer):
@@ -325,10 +411,10 @@ class Momentum(Optimizer):
         torch._foreach_mul_(v, self._momentum)
         torch._foreach_add_(v, grads)
         if self._nesterov:
-            torch._foreach_add_(works, torch._foreach_add(
-                grads, v, alpha=self._momentum), alpha=-group.lr)
+            _add_scaled_(works, torch._foreach_add(
+                grads, v, alpha=self._momentum), -group.lr)
         else:
-            torch._foreach_add_(works, v, alpha=-group.lr)
+            _add_scaled_(works, v, -group.lr)
 
 
 class Adagrad(Optimizer):
@@ -352,7 +438,7 @@ class Adagrad(Optimizer):
         torch._foreach_addcmul_(m, grads, grads)
         denom = torch._foreach_sqrt(m)
         torch._foreach_add_(denom, self._epsilon)
-        torch._foreach_addcdiv_(works, grads, denom, value=-group.lr)
+        _addcdiv_scaled_(works, grads, denom, -group.lr)
 
 
 class Adam(Optimizer):
@@ -391,11 +477,10 @@ class Adam(Optimizer):
             v = _states(states, "moment2_max")
             torch._foreach_maximum_(v, _states(states, "moment2"))
         # work -= lr * m_hat / (sqrt(v_hat) + eps), the hats by 1 - beta**step
-        denom = torch._foreach_div(v, 1 - b2 ** step)
+        denom = torch._foreach_div(v, _factor(1 - b2 ** step))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self._epsilon)
-        torch._foreach_addcdiv_(works, m, denom,
-                                value=-group.lr / (1 - b1 ** step))
+        _addcdiv_scaled_(works, m, denom, -group.lr / (1 - b1 ** step))
 
 
 class AdamW(Adam):
@@ -424,7 +509,8 @@ class AdamW(Adam):
 
     def _update(self, works, grads, states, group):
         if group.key:
-            torch._foreach_mul_(works, 1.0 - group.lr * self._decoupled_wd)
+            torch._foreach_mul_(works,
+                                _factor(1.0 - group.lr * self._decoupled_wd))
         super()._update(works, grads, states, group)
 
 
@@ -453,8 +539,7 @@ class Adamax(Optimizer):
         torch._foreach_mul_(u, self._beta2)
         torch._foreach_maximum_(u, torch._foreach_abs(grads))
         denom = torch._foreach_add(u, self._epsilon)
-        torch._foreach_addcdiv_(works, m, denom,
-                                value=-group.lr / (1 - b1 ** group.step))
+        _addcdiv_scaled_(works, m, denom, -group.lr / (1 - b1 ** group.step))
 
 
 class RMSProp(Optimizer):
@@ -494,7 +579,7 @@ class RMSProp(Optimizer):
         torch._foreach_sqrt_(denom)
         mom = _states(states, "momentum")
         torch._foreach_mul_(mom, self._momentum)
-        torch._foreach_addcdiv_(mom, grads, denom, value=group.lr)
+        _addcdiv_scaled_(mom, grads, denom, group.lr)
         torch._foreach_sub_(works, mom)
 
 
@@ -535,10 +620,10 @@ class Lamb(Optimizer):
         torch._foreach_add_(m, grads, alpha=1 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
-        denom = torch._foreach_div(v, 1 - b2 ** step)
+        denom = torch._foreach_div(v, _factor(1 - b2 ** step))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self._epsilon)
-        update = torch._foreach_div(m, 1 - b1 ** step)
+        update = torch._foreach_div(m, _factor(1 - b1 ** step))
         torch._foreach_div_(update, denom)
         if group.key:
             torch._foreach_add_(update, works, alpha=group.key)
@@ -550,7 +635,7 @@ class Lamb(Optimizer):
                             1.0)
         torch._foreach_mul_(update, [t.to(w.dtype) for t, w in
                                      zip(trust.unbind(), works)])
-        torch._foreach_add_(works, update, alpha=-group.lr)
+        _add_scaled_(works, update, -group.lr)
 
 
 class Adadelta(Optimizer):
@@ -584,4 +669,4 @@ class Adadelta(Optimizer):
         torch._foreach_mul_(upd, grads)
         torch._foreach_mul_(asu, rho)
         torch._foreach_addcmul_(asu, upd, upd, value=1 - rho)
-        torch._foreach_add_(works, upd, alpha=-group.lr)
+        _add_scaled_(works, upd, -group.lr)

@@ -197,13 +197,22 @@ def test_amp_o2_bf16_matches_reference(monkeypatch):
 @pytest.mark.parametrize("level, dtype", [("O1", "bfloat16"),
                                           ("O2", "float16")])
 def test_amp_decorate_raises_on_what_is_not_ported(level, dtype):
-    """O1 (auto_cast) and float16 are not ported: decorate raises and
-    leaves the parameters as they were, instead of a silent no-op or a
-    model whose attention raises later."""
+    """O1 and float16 are ported now: decorate keeps O1's parameters
+    fp32 (``auto_cast`` casts per op) and casts O2's to float16, forcing
+    the optimizer's fp32 masters either way; what it still refuses (an
+    unknown level or dtype) raises and leaves the parameters as they
+    were."""
     tm = BertForMaskedLM(BertConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        amp.decorate(tm, level=level, dtype=dtype)
-    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    for bad in (dict(level="O3", dtype=dtype), dict(level=level,
+                                                    dtype="float8")):
+        with pytest.raises(ValueError):
+            amp.decorate(tm, **bad)
+        assert all(p.dtype == torch.float32 for p in tm.parameters())
+    opt = AdamW(1e-3, parameters=tm.parameters())
+    tm, opt = amp.decorate(tm, opt, level=level, dtype=dtype)
+    want = torch.float32 if level == "O1" else torch.float16
+    assert all(p.dtype == want for p in tm.parameters())
+    assert opt._multi_precision
 
 
 def test_sequence_classification_eval_matches_reference():

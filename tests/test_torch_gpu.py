@@ -1166,3 +1166,247 @@ def test_lamb_on_the_card_matches_the_cpu(cuda, dtype):
             b = b.float()
             tol = 1e-6 * b.abs().max().item()
             assert (a.cpu().float() - b).abs().max().item() <= tol
+
+
+# -- the rest of the train path: float16 kernels 1-3, graphs, optimizer ----
+
+# float16 runs kernels 1-3 at head_dim 128 without key row or dropout
+# (the Llama path): (b, sq, sk, h, h_kv, d, causal, window) with causal,
+# a window, GQA, sq < sk, ragged, non-causal. Held per 64-row tile
+# within 1e-2 of the plain version on fp32 copies, as bf16 (one fp16
+# rounding of the output and of P and dS as operands).
+_FP16 = [
+    (2, 256, 256, 4, 4, 128, True, 0),
+    (1, 300, 300, 4, 4, 128, True, 64),
+    (2, 128, 128, 8, 2, 128, True, 0),
+    (1, 100, 250, 2, 2, 128, True, 0),
+    (2, 200, 200, 4, 4, 128, False, 0),
+]
+
+
+@pytest.mark.parametrize("shape", _FP16)
+def test_fp16_flash_kernels_match_plain(cuda, shape):
+    q, k, v, do = _flash_inputs(11, shape, torch.float16, cuda)
+    kw = dict(causal=shape[6], window=shape[7])
+    f32 = [t.float() for t in (q, k, v, do)]
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    want_out, want_lse = fa.flash_fwd_ref(*f32[:3], **kw)
+    out_h = want_out.to(torch.float16)
+    dq, delta = fa.flash_bwd_dq_delta(q, k, v, do, out_h, want_lse, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
+    want_delta = fa._delta(do, out_h)
+    want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, want_delta, **kw)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(*f32, want_lse, want_delta, **kw)
+    for name, got, want in (("O", out, want_out), ("dQ", dq, want_dq),
+                            ("dK", dk, want_dk), ("dV", dv, want_dv)):
+        assert got.dtype == torch.float16
+        assert _tile_rel_err(got, want) <= 1e-2, name
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-5)
+    # autograd through _FlashFn takes the same kernels
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    n = fa.flash_bwd_dq.launches
+    fa.flash_attention(qa, ka, va, **kw).backward(do)
+    assert fa.flash_bwd_dq.launches == n + 1
+    assert _tile_rel_err(qa.grad, want_dq) <= 1e-2
+
+
+def test_fp16_raises_where_no_kernel_exists(cuda):
+    q, k, v, do = _flash_inputs(3, (1, 64, 64, 2, 2, 128, True, 0),
+                                torch.float16, cuda)
+    q64, k64, v64 = (t[..., :64].contiguous() for t in (q, k, v))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa._delta(do, out)
+    km = torch.zeros(2, 1, 64, device=cuda)
+    calls = [
+        lambda: fa.flash_fwd(q64, k64, v64, causal=True),     # d != 128
+        lambda: fa.flash_fwd(q, k, v, causal=True, kmask=km),  # key row
+        lambda: fa.flash_fwd(q, k, v, causal=True, seed=(1, 2),
+                             dropout=0.1),                     # dropout
+        lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+        lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True,
+                                 kmask=km),
+        lambda: hf.hb_fwd(q, k, v),                            # kernel 4
+        lambda: hf.hb_bwd_dq(q, k, v, do, lse, delta),         # kernel 5
+        lambda: hf.hb_bwd_dkv(q, k, v, do, lse, delta),        # kernel 6
+        lambda: hf.hb_bwd_dq_delta(q, k, v, do, out, lse),
+    ]
+    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches, hf.hb_fwd.launches)
+    for i, call in enumerate(calls):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches, hf.hb_fwd.launches) == n
+    # kernels 7 and 8 take float32 or bfloat16 pools only
+    pool = torch.zeros(4, 16, 1, 128, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pa.paged_attend(torch.zeros(1, 1, 128, dtype=torch.float16,
+                                    device=cuda), pool, pool,
+                        torch.zeros(1, 4, dtype=torch.int32, device=cuda),
+                        torch.zeros(1, dtype=torch.int32, device=cuda))
+
+
+def test_backward_first_in_autograd_thread(cuda):
+    """A flash backward that is the first CUDA work of PyTorch's autograd
+    device thread (no context current there yet) still encodes its TMA
+    maps: a fresh process, bf16 and float16."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from paddle_tpu_torch.ops.cuda import flash_attention as fa\n"
+        "for dt in (torch.bfloat16, torch.float16):\n"
+        "    g = torch.Generator('cuda').manual_seed(0)\n"
+        "    q, k, v, do = (torch.randn(2, 128, 2, 128, device='cuda',\n"
+        "                   generator=g).to(dt) for _ in range(4))\n"
+        "    qa = q.clone().requires_grad_()\n"
+        "    fa.flash_attention(qa, k, v, causal=True).backward(do)\n"
+        "    torch.cuda.synchronize()\n"
+        "    assert torch.isfinite(qa.grad).all()\n"
+        "print('ok')\n")
+    root = __file__.rsplit("/tests/", 1)[0]
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _tiny_pair(seed=5):
+    seed_model = LlamaForCausalLM(
+        LlamaConfig.tiny(num_hidden_layers=2), device="cpu",
+        generator=torch.Generator("cpu").manual_seed(seed))
+    return {n: p.detach().numpy() for n, p in seed_model.named_parameters()}
+
+
+def _eager_step(model, opt):
+    def call(*batch):
+        opt.clear_grad()
+        loss = model(*batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return call
+
+
+def test_captured_train_step_equals_eager(cuda):
+    """5 AdamW steps of the tiny fp32 Llama as one CUDA graph a step
+    against eager steps: losses within 1e-6 relative, parameters within
+    1e-5 of their max (the captured AdamW multiplies by its device-side
+    rate as a separate op: one rounding more than the eager FMA); one
+    capture, and one more after ``clear_grad()`` freed the gradients
+    the first graph bound; kernels 1-3 counted once a layer a step."""
+    weights = _tiny_pair()
+    exec_cache.clear()
+    runs = []
+    for graphs in (True, False):
+        model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
+                                 device=cuda)
+        load_jax_weights(model, weights)
+        opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                    parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = TrainStep(model, opt, donate=True) if graphs \
+            else _eager_step(model, opt)
+        n = fa.flash_fwd.launches
+        losses = []
+        for i in range(5):
+            rng = np.random.RandomState(100 + i)
+            ids, labels = (torch.from_numpy(rng.randint(
+                0, 128, (2, 16)).astype(np.int32)).to(cuda)
+                for _ in range(2))
+            if i == 3:
+                opt.clear_grad()  # the graph's gradients are freed
+            losses.append(float(step(ids, labels)))
+        assert fa.flash_fwd.launches == n + 10
+        runs.append((losses, model, step))
+    (gl, gm, gstep), (el, em, _) = runs
+    np.testing.assert_allclose(gl, el, rtol=1e-6, atol=0)
+    for p, q in zip(gm.parameters(), em.parameters()):
+        assert ((p - q).abs().max() / q.abs().max()).item() <= 1e-5
+    assert gstep.compiled_count == 1
+    assert exec_cache.stats()["captures"] == 2
+    assert gstep.memory_analysis(ids, labels).temp_size_in_bytes > 0
+    exec_cache.clear()
+
+
+_CAPTURE_RULES = ["SGD", "Momentum", "Adagrad", "Adam", "AdamW", "Adamax",
+                  "RMSProp", "Lamb", "Adadelta"]
+
+
+@pytest.mark.parametrize("rule", _CAPTURE_RULES)
+def test_capturable_optimizer_equals_eager_on_card(cuda, rule):
+    """Each rule inside a captured TrainStep against the same rule run
+    eagerly, 4 steps of a small regression network: parameters within
+    1e-5 of their max."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.nn import Linear
+
+    kw = {"Adagrad": dict(learning_rate=0.05), "RMSProp":
+          dict(learning_rate=1e-2, momentum=0.9, centered=True),
+          "Adadelta": dict(learning_rate=1.0),
+          "Momentum": dict(learning_rate=0.05, use_nesterov=True)}.get(
+              rule, dict(learning_rate=1e-2))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(32, 8).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.randn(32, 1).astype(np.float32)).to(cuda)
+    exec_cache.clear()
+    runs = []
+    for graphs in (True, False):
+        gen = torch.Generator("cpu").manual_seed(0)
+        net = torch.nn.Sequential(Linear(8, 16, device="cpu", generator=gen),
+                                  torch.nn.Tanh(),
+                                  Linear(16, 1, device="cpu", generator=gen))
+        net = net.to(cuda)
+        opt = getattr(topt, rule)(parameters=net.parameters(), **kw)
+
+        def loss_fn(m, xb, yb):
+            return ((m(xb) - yb) ** 2).mean()
+
+        step = TrainStep(net, opt, loss_fn) if graphs else (
+            lambda xb, yb, net=net, opt=opt: _eager_step(
+                lambda *b: loss_fn(net, *b), opt)(xb, yb))
+        for _ in range(4):
+            step(x, y)
+        runs.append(list(net.parameters()))
+    for p, q in zip(*runs):
+        assert ((p - q).abs().max() / q.abs().max()).item() <= 1e-5, rule
+    assert exec_cache.stats()["captures"] == 1
+    exec_cache.clear()
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_o1_llama_card_vs_cpu(cuda, dtype):
+    """The tiny Llama under auto_cast O1 on the card (float16: kernels
+    1-3 at __half) and on the CPU (plain versions) from the same fp32
+    weights: the loss within 5e-3, every gradient within 5e-2 of its
+    max (low-precision matmul outputs, rounded after sums taken in other
+    orders)."""
+    from paddle_tpu_torch import amp
+
+    cfg = LlamaConfig.tiny(num_hidden_layers=2, hidden_size=256,
+                           num_attention_heads=2)
+    seed_model = LlamaForCausalLM(cfg, device="cpu",
+                                  generator=torch.Generator("cpu")
+                                  .manual_seed(2))
+    weights = {n: p.detach().numpy() for n, p in seed_model.named_parameters()}
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, 128, (2, 64)).astype(np.int32))
+    labels = torch.from_numpy(rng.randint(0, 128, (2, 64)).astype(np.int32))
+    out = []
+    for device in (cuda, "cpu"):
+        model = LlamaForCausalLM(cfg, device=device)
+        load_jax_weights(model, weights)
+        n = fa.flash_fwd.launches
+        with amp.auto_cast(level="O1", dtype=dtype):
+            loss = model(ids.to(device), labels.to(device))
+        loss.backward()
+        if device != "cpu":
+            assert fa.flash_fwd.launches == n + 2
+        out.append((float(loss), {k: p.grad.cpu() for k, p in
+                                  model.named_parameters()}))
+    (cl, cg), (hl, hg) = out
+    assert np.isfinite(cl) and abs(cl - hl) < 5e-3
+    for k in cg:
+        scale = hg[k].abs().max().clamp(min=1e-12)
+        assert ((cg[k] - hg[k]).abs().max() / scale).item() <= 5e-2, k

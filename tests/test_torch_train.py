@@ -284,8 +284,10 @@ def test_llama_options_not_ported_raise():
                                            ce_chunk_size=32), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.int32)
     assert tm(ids).shape == (1, 4, 128)  # logits need no chunked CE
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tm(ids, ids)
+    # chunked CE is ported now: the chunked loss is the plain one
+    plain = TF.cross_entropy(tm(ids).to(torch.float32), ids.long()[..., None],
+                             reduction="none").mean()
+    torch.testing.assert_close(tm(ids, ids), plain, rtol=1e-6, atol=1e-6)
     tm = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
                                            context_parallel=True),
                           device="cpu")
