@@ -1,9 +1,10 @@
-"""Drive the PyTorch/CUDA port's serving, training and encoder-training
-paths on one NVIDIA Hopper card.
+"""Drive the PyTorch/CUDA port's serving, training, encoder-training and
+distributed paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Sixteen phases in one process; any failure raises and exits non-zero, and
+Seventeen phases in one process (phase 17 also spawns two); any failure
+raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
 1. device: name, capability (must be 9.0), versions, power limit;
@@ -106,9 +107,11 @@ only a run in which every phase passed prints the final line:
    the reason is printed). ``ce_chunk_size=4096`` (a ragged tail at
    32000) against plain CE: ms, peak memory, the first loss within
    1e-3. ``AsyncStepper(max_in_flight=2)``: the same losses as
-   ``TrainStep``. ``nan_check`` with a weight set to inf: the card names
-   the leaf the CPU names, and leaves parameters, states and the step
-   count as they were;
+   ``TrainStep``. The headline step on graphs with ``nan_check=True``:
+   ms a step and peak against the plain graph's (the cost of checking
+   the update's outputs). ``nan_check`` with a weight set to inf: the
+   card names the leaf the CPU names, and leaves parameters, states and
+   the step count as they were;
 15. O1 float16: kernels 1-3 in float16 at phase 6's shape against their
    plain versions (1e-2 per 64-row tile, two calls bit-identical), timed
    as CUDA-graph replays beside SDPA in float16; then the headline model
@@ -124,7 +127,26 @@ only a run in which every phase passed prints the final line:
    against phase 14's graph step, ``evaluate``, and the checkpoint
    loaded into a fresh model and optimizer equal to the live ones; then
    5 ``LBFGS(line_search_fn="strong_wolfe")`` steps of a tiny fp32
-   network on the card against the CPU, within 1e-6.
+   network on the card against the CPU, within 1e-6;
+17. distributed: (a) ``init_parallel_env()`` brings up NCCL at world
+   size 1 through a store on a free local port and ``fleet.init`` makes
+   every axis group; every collective of ``distributed/collective.py``
+   runs on CUDA fp32 and bf16 tensors, over the world and each axis,
+   each result checked (``ppermute`` as the identity permutation);
+   (b) the headline model through ``fleet.distributed_model`` and
+   ``fleet.distributed_optimizer(AdamW(1e-4, multi_precision=True,
+   weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0)))`` in
+   ``TrainStep`` on CUDA graphs, 2 warm-up and 5 timed steps, whose
+   losses must equal the plain model's with the same weights, optimizer
+   and clip bit for bit (run first in the phase, before the process
+   group), with 12 launches of each of kernels 1-3 a replay; ms a step
+   and peak beside phase 7's; (c) two spawned processes sharing the card
+   over gloo, each building its mp 2 shards of the same model from the
+   global weights through ``load_jax_weights`` and taking 3 eager AdamW
+   steps on the same batch: each step's loss within 2e-2 of (b)'s, the
+   same on both ranks, 6 heads a rank and 36 launches of each of
+   kernels 1-3 a rank (gloo stages CUDA tensors through the host, so
+   the times it prints are no tensor-parallel speed).
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -172,8 +194,8 @@ from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.jit import AsyncStepper, TrainStep, exec_cache
 from paddle_tpu_torch.models import (
     BertConfig, BertForMaskedLM, ErnieConfig, ErnieForPretraining,
-    ErnieForSequenceClassification, LlamaConfig, LlamaForCausalLM, generate,
-    load_jax_weights,
+    ErnieForSequenceClassification, LlamaConfig, LlamaForCausalLM,
+    gather_jax_layout, generate, load_jax_weights,
 )
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm, Linear
 from paddle_tpu_torch.ops.cuda import _build
@@ -957,10 +979,17 @@ def _flash_bound(q, k, causal, window, kernel, kmask=None):
     return ms, by, all_pairs_ms
 
 
-def _flash_check(case, gen):
+def _flash_check(case, gen, fused=False):
+    """Kernels 1-3 against their plain versions at ``case``; ``fused``:
+    v is a strided view of a ``[b, s, (h + 2 h_kv) d]`` projection row,
+    as the Llama attention hands it on (q and k come out of RoPE
+    contiguous)."""
     name, b, sq, sk, h, h_kv, causal, window, d = case
     kw = dict(causal=causal, window=window)
     q, k, v, do = _flash_inputs(b, sq, sk, h, h_kv, gen, d=d)
+    if fused:
+        row = torch.cat([t.reshape(b, sk, -1) for t in (q, k, v)], -1)
+        v = row[..., (h + h_kv) * d:].view(b, sk, h_kv, d)
     f32 = [t.float() for t in (q, k, v, do)]
     out, lse = fa.flash_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -1154,6 +1183,7 @@ TRAIN = dict(FULL, max_position_embeddings=1024,
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 FLASH_WRAPPERS = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+READINGS = {}  # one phase's numbers another prints beside its own
 
 
 def _train_batch(vocab, b, s, seed=0):
@@ -1232,6 +1262,7 @@ def phase_train(card):
         f"optimizer {split[2]:.2f} ms; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; flash "
         f"launches {launches}")
+    READINGS["phase7"] = (ms, torch.cuda.max_memory_allocated() / 2**30)
     del model, opt, step
     torch.cuda.empty_cache()
     return launches
@@ -2219,6 +2250,20 @@ def phase_train_graphs(card):
                              f"each kernel a replay: {g_launch}, {stats}")
     del model, opt, step
     _release()
+    model, opt, step = _headline(nan_check=True)
+    n_loss, n_ms, n_peak, _ = _run_steps(step, (ids, labels))
+    nrel = max(abs(a - b) / abs(b) for a, b in zip(n_loss, g_loss))
+    log(f"[graphs] nan_check=True on graphs (the update's copies, the "
+        f"flag over loss, gradients, parameters, masters and states, one "
+        f"host read a step): {n_ms:.2f} ms a step against {g_ms:.2f} "
+        f"without ({n_ms - g_ms:+.2f} ms), peak {n_peak:.3f} GiB against "
+        f"{g_peak:.3f}; losses within {nrel:.3e} relative of the plain "
+        f"graph's")
+    if not nrel <= GRAPH_LOSS_RTOL:
+        raise AssertionError("the nan_check step's losses left the plain "
+                             "graph's")
+    del model, opt, step
+    _release()
     seed_model = LlamaForCausalLM(
         LlamaConfig.tiny(num_hidden_layers=2), device="cpu",
         generator=torch.Generator("cpu").manual_seed(5))
@@ -2505,11 +2550,287 @@ def phase_fit(card, graph_ms):
 LBFGS_TOL = 1e-6
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+# 17c against one card on the same weights and batch. The losses: mp
+# 2's bf16 partial sums moved them 1.3e-4 (NVIDIA H100 80GB HBM3, 700 W);
+# at step 1 the loss barely reads the trunk (random weights and labels,
+# the final RMSNorm fixing the logits' scale), so the step-1 gradients of
+# the leaves below, all-gathered into the reference's layout
+# (gather_jax_layout), are held too, each by its relative Frobenius
+# error: measured 8.4e-3 (the last layers) to 2.44e-2 (layer 0: the bf16
+# differences grow down the backward) on the same card; a wrong q/k/v or
+# gate/up piece, a missing reduce or a vocab shard off by one is wrong
+# by O(1) there
+FLEET_CHECK_TOL = 1e-3
+FLEET_GRAD_REL_TOL = 5e-2
+FLEET_STEPS = 3
+FLEET_GRAD_LEAVES = tuple(
+    f"llama.layers.{i}.{leaf}.weight"
+    for i in (0, FULL["num_hidden_layers"] - 1)
+    for leaf in ("input_layernorm", "self_attn.qkv_proj", "self_attn.o_proj",
+                 "post_attention_layernorm", "mlp.gate_up_proj",
+                 "mlp.down_proj")) + (
+    "llama.norm.weight", "llama.embed_tokens.weight", "lm_head.weight")
+# kernels 1-3 at a rank's shape: 6 heads, q, k and v as the attention
+# hands them on (v a strided view of the local qkv row, 2304 wide)
+FLEET_FLASH_CASE = ("mp 2 rank", 8, 1024, 1024, 6, 6, True, 0, 128)
+
+
+def _grad_leaves(model):
+    """FLEET_GRAD_LEAVES of the model's gradients as global fp32 arrays
+    (collective under mp > 1); the vocab-sized ones every 8th vocab row,
+    which spans both mp shards."""
+    got = gather_jax_layout(model, grads=True)
+    out = {n: got[n] for n in FLEET_GRAD_LEAVES}
+    out["llama.embed_tokens.weight"] = out["llama.embed_tokens.weight"][::8]
+    out["lm_head.weight"] = out["lm_head.weight"][:, ::8]
+    return out
+
+
+def _fleet_optimizer(model):
+    return AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                 multi_precision=True, weight_decay=0.01,
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _collectives_nccl():
+    """17a: every collective of ``distributed/collective.py`` on NCCL at
+    world size 1 (the world group and each axis's group), on CUDA fp32
+    and bf16 tensors, each result checked. Returns what ran."""
+    from paddle_tpu_torch import distributed as dist
+
+    ran = []
+
+    def check(name, got, want):
+        got = got if isinstance(got, list) else [got]
+        want = want if isinstance(want, list) else [want]
+        if len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"17a: {name} gave {got}, expected {want}")
+        ran.append(name)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.arange(8, device="cuda") + 1).to(dtype).reshape(2, 4)
+        tag = str(dtype).split(".")[1]
+        for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+            check(f"all_reduce {op} {tag}", dist.all_reduce(
+                x.clone(), op=getattr(dist.ReduceOp, op)), x)
+        for axis in ("dp", "pp", "sharding", "sep", "mp"):
+            check(f"all_reduce over {axis} {tag}",
+                  dist.all_reduce(x.clone(), group=axis), x)
+        check(f"all_gather {tag}", dist.all_gather([], x), [x])
+        check(f"all_gather axis 1 {tag}", dist.all_gather(x, axis=1), x)
+        check(f"broadcast {tag}", dist.broadcast(x.clone(), src=0), x)
+        check(f"reduce {tag}", dist.reduce(x.clone(), dst=0), x)
+        check(f"scatter {tag}", dist.scatter(torch.empty_like(x), [x]), x)
+        check(f"scatter, no list {tag}", dist.scatter(x), x)
+        check(f"gather {tag}", dist.gather(x), [x])
+        check(f"reduce_scatter {tag}", dist.reduce_scatter(x, axis=1), x)
+        check(f"all_to_all {tag}", dist.all_to_all([], [x]), [x])
+        check(f"all_to_all split 1 concat 0 {tag}", dist.all_to_all(
+            x, split_axis=1, concat_axis=0), x)
+        check(f"alltoall_single {tag}", dist.alltoall_single(None, x), x)
+        check(f"ppermute identity {tag}", dist.ppermute(x, [(0, 0)]), x)
+        dist.wait(x)
+    dist.barrier()
+    ran.append("barrier")
+    if dist.all_gather_object([], {"a": 1}) != [{"a": 1}] \
+            or dist.broadcast_object_list(["b"]) != ["b"] \
+            or dist.scatter_object_list([], ["c"]) != ["c"]:
+        raise AssertionError("17a: the object collectives")
+    ran.append("object collectives")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"17a: backend {dist.get_backend()}")
+    return ran
+
+
+def _rank_17c(root, ids, labels):
+    """One of 17c's two ranks sharing the card: its mp 2 shards of the
+    full-width model, from the global weights through
+    ``load_jax_weights``'s shard path, then 3 eager AdamW steps."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", init_method=f"file://{root}/store")
+    cfg = LlamaConfig(**TRAIN)
+    # no hybrid group yet: the one-card model, phase 7's weights
+    full = LlamaForCausalLM(cfg, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+    weights = {n: p.detach() for n, p in full.named_parameters()}
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(1))
+    load_jax_weights(model, weights)
+    del full, weights
+    heads = model.llama.layers[0].self_attn._nh
+    opt = fleet.distributed_optimizer(_fleet_optimizer(model))
+    net = fleet.distributed_model(model)
+    ids, labels = (torch.from_numpy(a).cuda() for a in (ids, labels))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in FLASH_WRAPPERS:
+        w.launches = 0
+    losses, ms = [], []
+    for i in range(FLEET_STEPS):
+        t0 = time.perf_counter()
+        opt.clear_grad()
+        loss = net(ids, labels)
+        loss.backward()
+        if i == 0:  # step 1's gradients, outside the step's time
+            torch.cuda.synchronize()
+            t0 -= time.perf_counter()
+            grads = _grad_leaves(model)
+            t0 += time.perf_counter()
+        opt.step()
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rank = dist.get_rank()
+    out = {"rank": rank, "losses": losses, "heads": heads,
+           "launches": {w.__name__: w.launches for w in FLASH_WRAPPERS},
+           "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "params": sum(p.numel() for p in model.parameters())}
+    del net, model, opt
+    # launches read: this check's calls are not counted
+    _flash_check(FLEET_FLASH_CASE, torch.Generator("cuda").manual_seed(
+        2 + rank), fused=True)
+    np.savez(os.path.join(root, f"rank{rank}_grads.npz"), **grads)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_distributed(card):
+    """17a collectives on NCCL at world size 1; 17b the full-width step
+    through fleet at world size 1 against the plain one; 17c two ranks
+    sharing the card at mp 2 over gloo."""
+    import socket
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    t_phase = time.perf_counter()
+    _release()  # an earlier phase's garbage would count in the peaks
+    ids, labels = _train_batch(TRAIN["vocab_size"], TRAIN_BATCH, TRAIN_SEQ)
+    cfg = LlamaConfig(**TRAIN)
+    runs = {}
+    for path in ("plain", "fleet"):
+        if path == "fleet":
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            os.environ["PADDLE_MASTER"] = f"127.0.0.1:{port}"
+            dist.init_parallel_env()
+            fleet.init(is_collective=True,
+                       strategy=fleet.DistributedStrategy())
+            ran = _collectives_nccl()
+            log(f"[distributed] 17a: NCCL {torch.cuda.nccl.version()} at world "
+                f"size 1 on {card}, backend {dist.get_backend()}, every "
+                f"axis group made by fleet.init; {len(ran)} checks passed: "
+                f"{ran}")
+        model = LlamaForCausalLM(cfg, device="cuda",
+                                 generator=torch.Generator("cuda")
+                                 .manual_seed(0))
+        opt = _fleet_optimizer(model)
+        if path == "fleet":
+            model = fleet.distributed_model(model)
+            opt = fleet.distributed_optimizer(opt)
+        step = TrainStep(model, opt, lambda m, i, l: m(i, l))
+        exec_cache.clear()
+        runs[path] = _run_steps(step, (ids, labels))
+        runs[path] += (exec_cache.stats()["captures"],)
+        del model, opt, step
+        _release()
+    (p_loss, p_ms, p_peak, p_launch, p_cap), \
+        (f_loss, f_ms, f_peak, f_launch, f_cap) = runs["plain"], runs["fleet"]
+    ph7 = READINGS.get("phase7")
+    log(f"[distributed] 17b: the 0.44B Llama at b{TRAIN_BATCH} x "
+        f"s{TRAIN_SEQ} through fleet.distributed_model and "
+        f"distributed_optimizer(AdamW(1e-4, multi_precision, weight decay "
+        f"0.01, ClipGradByGlobalNorm(1.0))), TrainStep on CUDA graphs, "
+        f"{WARMUP_STEPS} warm-up and {TIMED_STEPS} timed steps: "
+        f"{f_ms:.2f} ms a step, peak {f_peak:.3f} GiB, {f_cap} capture; "
+        f"the plain model with the same weights, optimizer and clip "
+        f"{p_ms:.2f} ms, peak {p_peak:.3f} GiB; phase 7 (no clip) "
+        + (f"{ph7[0]:.2f} ms, peak {ph7[1]:.3f} GiB" if ph7 else "not run")
+        + f"; losses {[round(x, 5) for x in f_loss]}, bit-identical to the "
+        f"plain model's: {f_loss == p_loss}; kernels 1-3 a replay "
+        f"{ {k: v / TIMED_STEPS for k, v in f_launch.items()} }")
+    layers = cfg.num_hidden_layers
+    if f_loss != p_loss:
+        raise AssertionError(f"17b: the fleet step's losses {f_loss} are "
+                             f"not the plain step's {p_loss}")
+    if any(n != layers * TIMED_STEPS for n in f_launch.values()) \
+            or f_cap != 1:
+        raise AssertionError(f"17b: not one capture and {layers} launches "
+                             f"of each kernel a replay: {f_launch}, {f_cap}")
+    dist.destroy_process_group()
+    # 17c's yardstick: step 1's gradients on one card, same weights
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    model(ids, labels).backward()
+    ref_grads = _grad_leaves(model)
+    del model
+    _release()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dist.spawn(_rank_17c, args=(root, ids.cpu().numpy(),
+                                    labels.cpu().numpy()), nprocs=2)
+        wall = time.perf_counter() - t0
+        ranks, grad_err = [], {}
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            with np.load(os.path.join(root, f"rank{r}_grads.npz")) as got:
+                for n, want_g in ref_grads.items():
+                    err = float(np.linalg.norm(got[n] - want_g)
+                                / max(np.linalg.norm(want_g), 1e-30))
+                    grad_err[n] = max(grad_err.get(n, 0.0), err)
+    want = f_loss[:FLEET_STEPS]
+    diff = max(abs(a - b) for o in ranks for a, b in zip(o["losses"], want))
+    for o in ranks:
+        log(f"[distributed] 17c: rank {o['rank']} of 2 sharing {card}, mp "
+            f"2 over gloo: {o['params'] / 1e6:.2f} M parameters held, "
+            f"{o['heads']} heads a layer, losses {o['losses']}, kernels "
+            f"1-3 over {FLEET_STEPS} steps {o['launches']}, peak "
+            f"{o['peak_gib']:.3f} GiB, ms a step "
+            f"{[round(x, 1) for x in o['ms']]} (gloo, host-staged, not a "
+            f"TP speed)")
+    log(f"[distributed] 17c: both ranks' losses within {diff:.3e} of 17b's "
+        f"first {FLEET_STEPS} {[round(x, 5) for x in want]} (tol "
+        f"{FLEET_CHECK_TOL}; the partial sums of the row-parallel products "
+        f"are reduced in bf16); equal on both ranks: "
+        f"{ranks[0]['losses'] == ranks[1]['losses']}; spawn to join "
+        f"{wall:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    log(f"[distributed] 17c: step 1's gradients all-gathered into the "
+        f"reference's layout against one card's, relative Frobenius error "
+        f"(worse rank; tol {FLEET_GRAD_REL_TOL}): "
+        + ", ".join(f"{n} {e:.3e}" for n, e in grad_err.items()))
+    if not diff <= FLEET_CHECK_TOL \
+            or ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("17c: the two ranks' losses left 17b's or "
+                             "each other's")
+    bad = {n: e for n, e in grad_err.items() if not e <= FLEET_GRAD_REL_TOL}
+    if bad:
+        raise AssertionError(f"17c: gradients left one card's: {bad}")
+    for o in ranks:
+        if o["heads"] != TRAIN["num_attention_heads"] // 2 or any(
+                n != layers * FLEET_STEPS for n in o["launches"].values()):
+            raise AssertionError(f"17c: rank {o['rank']} ran {o['heads']} "
+                                 f"heads, launches {o['launches']}")
+    return {w: ranks[0]["launches"][w] for w in ranks[0]["launches"]}
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="phases to run after 1 and 2, comma-separated")
     only = {int(p) for p in ap.parse_args().phases.split(",")}
     name, smi = phase_device()
@@ -2517,6 +2838,7 @@ def main():
     # the JSON line's launches are each kernel's main path's (kernels 4-6:
     # BERT's, phase 10); ERNIE's (phase 12) are printed beside them
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
+    fleet_launches = {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -2534,12 +2856,14 @@ def main():
                    (14, lambda: graph.update(phase_train_graphs(name))),
                    (15, lambda: phase_o1_fp16(name)),
                    (16, lambda: phase_fit(name, graph.get("graph_ms",
-                                                          float("nan"))))):
+                                                          float("nan")))),
+                   (17, lambda: fleet_launches.update(
+                       phase_distributed(name)))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
-    if only != set(range(3, 17)):
+    if only != set(range(3, 18)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -2560,6 +2884,8 @@ def main():
                for k in replaces]
     log(f"[done] launches on the ERNIE path (phase 12, "
         f"{TIMED_STEPS} steps): {ernie_launches}")
+    log(f"[done] launches of kernels 1-3 at 6 heads a rank (phase 17c, "
+        f"mp 2, {FLEET_STEPS} steps, each rank): {fleet_launches}")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,180 @@
+"""fleet: the distributed-training facade.
+
+Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``:
+
+- :func:`init` lays the ranks out as the mesh of the strategy's
+  ``hybrid_configs`` (starting the process group from the launcher's
+  environment if it is not up) and installs the
+  ``HybridCommunicateGroup``;
+- :func:`distributed_model` wraps a model in ``DataParallel`` only when
+  dp > 1, mp = 1 and pp = 1, as the reference does, and otherwise
+  returns the model itself. Under dp > 1 with mp or pp > 1 the model's
+  gradients are still summed over ``dp`` after each backward (the
+  reference gets that from GSPMD; Paddle's ``HybridParallelOptimizer``
+  does it in ``step``), by the same hooks ``DataParallel`` uses;
+- :func:`distributed_optimizer` returns the optimizer, as the
+  reference does: each tensor-parallel parameter records its layout
+  (``shard.Layout``), from which the clips and Lamb take the group
+  their norms are summed over. ``LBFGS`` raises at world size > 1.
+"""
+from __future__ import annotations
+
+from .. import env as env_mod
+from .base.distributed_strategy import DistributedStrategy
+from .base.role_maker import (  # noqa: F401
+    PaddleCloudRoleMaker, Role, UserDefinedRoleMaker,
+)
+from .base.topology import (
+    CommunicateTopology, HybridCommunicateGroup, ensure_hcg, get_hcg, set_hcg,
+)
+from . import utils  # noqa: F401
+
+__all__ = [
+    "init", "DistributedStrategy", "HybridCommunicateGroup",
+    "CommunicateTopology", "distributed_model", "distributed_optimizer",
+    "get_hybrid_communicate_group", "worker_index", "worker_num",
+    "is_first_worker", "barrier_worker", "utils", "Fleet", "Role",
+    "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "UtilBase",
+    "get_hcg", "set_hcg", "ensure_hcg",
+]
+
+_fleet_strategy: DistributedStrategy | None = None
+
+
+def init(role_maker=None, is_collective=False, strategy=None,
+         log_level="INFO"):
+    """Lay out the mesh from ``strategy.hybrid_configs`` (every degree 1
+    by default) and install the hybrid group."""
+    global _fleet_strategy
+    strategy = strategy or DistributedStrategy()
+    _fleet_strategy = strategy
+    hc = strategy.hybrid_configs
+    env_mod.init_mesh(
+        dp=hc.get("dp_degree", 1) or 1,
+        mp=hc.get("mp_degree", 1) or 1,
+        pp=hc.get("pp_degree", 1) or 1,
+        sharding=hc.get("sharding_degree", 1) or 1,
+        sep=hc.get("sep_degree", 1) or 1,
+    )
+    set_hcg(HybridCommunicateGroup())
+    return None
+
+
+def get_strategy() -> DistributedStrategy | None:
+    return _fleet_strategy
+
+
+def get_hybrid_communicate_group() -> HybridCommunicateGroup:
+    return ensure_hcg()
+
+
+def distributed_model(model):
+    """``DataParallel(model)`` for pure data parallelism, else the model
+    (see the module note)."""
+    from ..parallel import DataParallel, _sync_gradients
+
+    hcg = ensure_hcg()
+    dp = hcg.get_data_parallel_world_size()
+    if dp > 1 and hcg.get_model_parallel_world_size() == 1 \
+            and hcg.get_pipe_parallel_world_size() == 1:
+        return DataParallel(model)
+    if dp > 1:
+        model._dp_sync_handles = _sync_gradients(
+            model.parameters(), hcg.get_data_parallel_group()._pair())
+    return model
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    """The optimizer itself (see the module note)."""
+    from ...optimizer.lbfgs import LBFGS
+
+    if isinstance(optimizer, LBFGS) and worker_num() > 1:
+        raise NotImplementedError(
+            "LBFGS over more than one rank is not ported (ROADMAP A.6): "
+            "its line search reads whole-model dot products")
+    return optimizer
+
+
+def worker_index():
+    e = env_mod.get_env()
+    return e.rank if e else 0
+
+
+def worker_num():
+    e = env_mod.get_env()
+    return e.world_size if e else 1
+
+
+def is_first_worker():
+    return worker_index() == 0
+
+
+def barrier_worker():
+    from ..collective import barrier
+
+    barrier()
+
+
+class UtilBase:
+    """``fleet.UtilBase``: host-side helpers over the collectives."""
+
+    def all_reduce(self, input, mode="sum", comm_world="worker"):  # noqa: A002
+        import numpy as np
+        import torch
+
+        from ..collective import ReduceOp, all_reduce
+
+        op = {"sum": ReduceOp.SUM, "max": ReduceOp.MAX,
+              "min": ReduceOp.MIN}[mode]
+        out = all_reduce(torch.as_tensor(np.array(input)), op=op)
+        return out.numpy()
+
+    def barrier(self, comm_world="worker"):
+        barrier_worker()
+
+    def all_gather(self, input, comm_world="worker"):  # noqa: A002
+        import numpy as np
+        import torch
+
+        from ..collective import all_gather
+
+        outs: list = []
+        all_gather(outs, torch.as_tensor(np.array(input)))
+        return [o.numpy() for o in outs]
+
+    def get_file_shard(self, files):
+        """Split a file list over the workers (earlier workers take the
+        remainder)."""
+        n = worker_num()
+        i = worker_index()
+        base, rem = divmod(len(files), n)
+        start = i * base + min(i, rem)
+        return files[start:start + base + (1 if i < rem else 0)]
+
+    def print_on_rank(self, message, rank_id=0):
+        if worker_index() == rank_id:
+            print(message)
+
+
+class Fleet:
+    """The ``fleet.Fleet`` facade: the module's functions as methods."""
+
+    init = staticmethod(init)
+    distributed_model = staticmethod(distributed_model)
+    distributed_optimizer = staticmethod(distributed_optimizer)
+    worker_index = staticmethod(worker_index)
+    worker_num = staticmethod(worker_num)
+    is_first_worker = staticmethod(is_first_worker)
+    barrier_worker = staticmethod(barrier_worker)
+    get_hybrid_communicate_group = staticmethod(
+        get_hybrid_communicate_group)
+
+    @property
+    def util(self):
+        return UtilBase()
+
+    def is_worker(self):
+        return True
+
+    def is_server(self):
+        return False

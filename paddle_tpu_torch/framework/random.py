@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["seed", "next_seed_words", "generator", "draws", "note_draw",
-           "get_state", "set_state"]
+           "get_state", "set_state", "replace_state"]
 
 _state: dict = {}
 _draws = [0]
@@ -97,3 +97,12 @@ def set_state(state: dict) -> None:
                 _state[k] = (torch.Generator("cpu") if k == "words"
                              else torch.Generator(torch.device(k)))
             _state[k].set_state(v)
+
+
+def replace_state(state: dict) -> None:
+    """Make :func:`get_state`'s snapshot the whole random state: a
+    generator made after the snapshot is dropped, so its next use starts
+    it from the seed again, as it started then (a replay of a block that
+    made it)."""
+    _state.clear()
+    set_state(state)

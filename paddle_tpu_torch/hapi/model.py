@@ -13,15 +13,12 @@ Differences from the reference, by design:
 - ``prepare(optimizer)`` without a ``loss`` builds the train step too:
   the network then receives the whole batch and returns its own loss
   (a causal LM given ids and labels). The reference builds no step
-  without a loss, and its ``fit`` stops at its ``prepare`` assertion;
-- ``amp_configs`` (``"O1"``, ``"O2"`` or a dict with ``level``,
-  ``dtype``, ``custom_white_list``, ``custom_black_list``) runs the
-  network under ``amp.auto_cast``, and O2 ``decorate``\\ s the network
-  and optimizer first; the reference accepts the argument and ignores
-  it;
-- ``accumulate_grad_batches > 1`` sums the gradients of that many
-  batches before one update (eagerly: a ``TrainStep`` is a whole
-  update); the reference accepts the argument and ignores it.
+  without a loss, and its ``fit`` stops at its ``prepare`` assertion.
+
+As in the reference, ``prepare(amp_configs=...)`` and
+``fit(accumulate_grad_batches=...)`` are accepted and have no effect:
+mixed precision is the caller's ``amp.auto_cast`` around the calls, and
+every batch is one update.
 
 Not ported: ``checkpoint_dir``, ``resume_from`` and ``nan_policy``
 (resilience, ROADMAP queue A.6), ``shard_plan`` (A.6) and
@@ -34,8 +31,6 @@ import os
 import numpy as np
 import torch
 
-from ..amp import auto_cast as _auto_cast
-from ..amp import decorate as _decorate
 from ..io.reader import DataLoader
 from ..jit.train_step import AsyncStepper, TrainStep
 from .callbacks import config_callbacks
@@ -121,22 +116,6 @@ def _materialize_logs(logs):
     return out
 
 
-def _amp_config(amp_configs):
-    """``amp_configs`` as ``auto_cast`` keyword arguments, or None."""
-    if amp_configs is None:
-        return None
-    if isinstance(amp_configs, str):
-        amp_configs = {"level": amp_configs}
-    cfg = {"level": amp_configs.get("level", "O1"),
-           "dtype": amp_configs.get("dtype", "bfloat16"),
-           "custom_white_list": amp_configs.get("custom_white_list"),
-           "custom_black_list": amp_configs.get("custom_black_list")}
-    if cfg["level"].upper() not in ("O0", "O1", "O2"):
-        raise ValueError(f"amp_configs level must be O0|O1|O2, got "
-                         f"{cfg['level']!r}")
-    return cfg
-
-
 _NOT_PORTED = {"checkpoint_dir": "A.6 (resilience)",
                "resume_from": "A.6 (resilience)",
                "nan_policy": "A.6 (resilience)",
@@ -154,7 +133,6 @@ class Model:
         self._optimizer = None
         self._loss = None
         self._metrics = []
-        self._amp = None
         self._train_step = None
         self.stop_training = False
 
@@ -169,21 +147,10 @@ class Model:
             self._metrics = list(metrics)
         else:
             self._metrics = [metrics]
-        self._amp = _amp_config(amp_configs)
-        if self._amp is not None and self._amp["level"].upper() == "O2":
-            out = _decorate(self.network, optimizer, level="O2",
-                            dtype=self._amp["dtype"])
-            self.network = out[0] if optimizer is not None else out
         if optimizer is not None:
             self._train_step = TrainStep(self.network, optimizer,
                                          self._loss_fn)
         return self
-
-    def _forward(self, net, *inputs):
-        if self._amp is None:
-            return net(*inputs)
-        with _auto_cast(**self._amp):
-            return net(*inputs)
 
     def _split(self, batch):
         n_in = len(batch) - 1 if len(batch) > 1 else 1
@@ -191,9 +158,9 @@ class Model:
 
     def _loss_fn(self, net, *batch):
         if self._loss is None:  # the network computes its own loss
-            return self._forward(net, *batch)
+            return net(*batch)
         inputs, labels = self._split(batch)
-        outs = self._forward(net, *inputs)
+        outs = net(*inputs)
         loss = self._loss(outs, *labels)
         return loss.mean() if loss.dim() else loss
 
@@ -215,9 +182,9 @@ class Model:
         batch = [t.to(dev) for t in batch]
         labels = [t.to(dev) for t in labels]
         if self._loss is None and labels:
-            outs = loss = self._forward(self.network, *batch, *labels)
+            outs = loss = self.network(*batch, *labels)
         else:
-            outs = self._forward(self.network, *batch)
+            outs = self.network(*batch)
             loss = None
             if self._loss is not None and labels:
                 loss = self._loss(outs, *labels)
@@ -233,22 +200,10 @@ class Model:
     @torch.no_grad()
     def predict_batch(self, inputs):
         dev = next(iter(self.network.parameters())).device
-        outs = self._forward(self.network,
-                             *[t.to(dev) for t in _to_tensor_list(inputs)])
+        outs = self.network(*[t.to(dev) for t in _to_tensor_list(inputs)])
         if isinstance(outs, (list, tuple)):
             return [o.detach().cpu().numpy() for o in outs]
         return [outs.detach().cpu().numpy()]
-
-    def _accumulate_batch(self, tensors, update):
-        """One batch of ``accumulate_grad_batches > 1``: forward and
-        backward (gradients add up), and the update with ``update``."""
-        dev = next(iter(self.network.parameters())).device
-        loss = self._loss_fn(self.network, *[t.to(dev) for t in tensors])
-        loss.backward()
-        if update:
-            self._optimizer.step()
-            self._optimizer.clear_grad()
-        return loss.detach()
 
     # -- loops --
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
@@ -292,7 +247,6 @@ class Model:
         cbks.on_train_begin()
         self.network.train()
         stepper = AsyncStepper(self._train_step, max_in_flight=max_in_flight)
-        accumulate = max(int(accumulate_grad_batches), 1)
         prev_nan_check = self._train_step._nan_check
         if nan_check is not None:
             self._train_step._nan_check = bool(nan_check)
@@ -304,11 +258,7 @@ class Model:
                 for step, batch in enumerate(loader):
                     cbks.on_train_batch_begin(step)
                     tensors = _to_tensor_list(batch)
-                    if accumulate > 1:
-                        loss = self._accumulate_batch(
-                            tensors, (step + 1) % accumulate == 0)
-                    else:
-                        loss = stepper(*tensors)
+                    loss = stepper(*tensors)
                     logs = {"loss": _LazyLoss(loss)}
                     if step % log_freq == 0:
                         logs = _materialize_logs(logs)

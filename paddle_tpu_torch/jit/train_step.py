@@ -23,7 +23,10 @@ port captures it as one CUDA graph per signature through
 - a step that draws random numbers (in-kernel attention dropout, whose
   seed words are launch arguments a graph would freeze, or
   ``F.dropout``) runs eagerly on CUDA at every call: BERT and ERNIE
-  train eagerly, the Llama on graphs;
+  train eagerly, the Llama on graphs. So does a step that runs a
+  collective over gloo on CUDA tensors (gloo carries them through the
+  host; ``distributed._comm.host_staged``); NCCL collectives are
+  captured with the step;
 - on the CPU every call is eager.
 
 The ``auto_cast`` state is not part of the signature, as in the
@@ -38,17 +41,21 @@ achieves; ``optimizer.state_dict()`` returns copies, so a held
 ``state_dict`` stays valid (the reference's donation invalidates it).
 The flag is kept and keyed.
 
-``nan_check`` (``monitor/numerics.py``): the step is split in two. The
-gradient part (forward, backward and one fused finite flag over the loss
-and every gradient) runs first, as its own graph on CUDA; the host reads
-the flag (the one host read a step), and only if it holds does the
-update run (its own graph). So a failing step leaves the parameters,
-masters and optimizer states as they were, the step counter does not
-advance, and :func:`numerics.isolate` replays the batch on them with the
-step's own random state to name the first bad leaf. The reference's flag
-also covers the updated parameters and states; here those are checked
-only in the replay, so a non-finite value born in the update itself from
-finite gradients shows at the next step, as a non-finite loss.
+``nan_check`` (``monitor/numerics.py``): the step keeps a copy of
+everything its update writes in place (parameters, masters, optimizer
+states), runs the update, and reduces one finite flag over the loss,
+the gradients and every tensor the update wrote, as the reference's
+flag covers the loss, the gradients, the new parameters and the new
+states. The host reads that flag (the one host read a step); when it
+fails, the copies are written back, states the step made are dropped
+and the step counter is put back, so the parameters, masters and
+states are bit-identical to before the call, and
+:func:`numerics.isolate` replays the batch on them with the step's own
+random state to name the first bad leaf (``param/...`` or
+``opt_state/...`` for a value born in the update). On CUDA the copy,
+the update and the flag are in the step's one graph; the copies live
+in its pool. The price is one read and one write of the parameters,
+masters and states a step, and their size in memory.
 """
 from __future__ import annotations
 
@@ -62,6 +69,7 @@ import numpy as np
 import torch
 
 from ..amp.auto_cast import _pushed, amp_state
+from ..distributed import _comm
 from ..framework import random
 from ..monitor import numerics
 from . import exec_cache
@@ -179,25 +187,68 @@ class TrainStep:
         loss.backward()
         return loss.detach()
 
-    def _flag(self, loss):
-        return numerics.finite_all(
-            [loss] + [p.grad for p in self._params() if p.grad is not None])
-
     def _params(self):
         return [p for p in self._opt._parameter_list if p.requires_grad]
 
+    def _live(self):
+        """Every tensor the update writes in place: each parameter, its
+        master and its states."""
+        opt = self._opt
+        out = []
+        for p in self._params():
+            out.append(p)
+            if id(p) in opt._master_weights:
+                out.append(opt._master_weights[id(p)])
+            out.extend(v for _, v in sorted(
+                opt._accumulators.get(id(p), {}).items()))
+        return out
+
+    def _checked_update(self, loss):
+        """The update under nan_check: copies of what it will overwrite,
+        the update, and one finite flag over the loss, the gradients and
+        everything the update wrote. Returns (flag, live, copies)."""
+        grads = [p.grad for p in self._params() if p.grad is not None]
+        live = self._live()
+        copies = [t.detach().clone() for t in live]
+        self._opt.step()
+        flag = numerics.finite_all([loss] + grads + self._live())
+        return flag, live, copies
+
+    def _undo(self, live, copies, counters, made):
+        """Put the optimizer back as it was before a failed update: the
+        copies written back, the states and masters it made dropped, the
+        step counts restored."""
+        opt = self._opt
+        with torch.no_grad():
+            torch._foreach_copy_(live, copies)
+        opt._global_step, opt._step_counts = counters[0], dict(counters[1])
+        for store, had in zip((opt._accumulators, opt._master_weights),
+                              made):
+            for k in set(store) - had:
+                del store[k]
+
+    def _counters(self):
+        opt = self._opt
+        return ((opt._global_step, dict(opt._step_counts)),
+                (set(opt._accumulators), set(opt._master_weights)))
+
     def _fail(self, batch, rng, lr):
-        """The flag failed: name the leaf and raise; the update has not
-        run, so the step counter stays where it was."""
+        """The flag failed and the update is undone: name the leaf and
+        raise; the step counter stays where it was."""
         leaf, kind = numerics.isolate(self, batch, rng, lr)
         raise numerics.NonFiniteError(self._opt._global_step + 1, leaf, kind)
 
     def _eager(self, batch, nan, lr):
         rng = random.get_state() if nan else None
         loss = self._grads(batch)
-        if nan and not bool(self._flag(loss)):
+        if not nan:
+            self._opt.step()
+            return loss
+        counters, made = self._counters()
+        flag, live, copies = self._checked_update(loss)
+        if not bool(flag):
+            self._undo(live, copies, counters, made)
             self._fail(batch, rng, lr)
-        self._opt.step()
         return loss
 
     # -- CUDA graphs ----------------------------------------------------------
@@ -276,16 +327,12 @@ class TrainStep:
         n = len(batch)
         snap = (opt._global_step, dict(opt._step_counts))
 
-        def grads(**st):
-            loss = self._grads([st.get(f"b{i}") for i in range(n)])
-            return (loss, self._flag(loss)) if nan else loss
-
-        def update(**_):
-            opt.step()
-
         def whole(**st):
-            loss = grads(**st)
-            update()
+            loss = self._grads([st.get(f"b{i}") for i in range(n)])
+            if nan:
+                flag, _, copies = self._checked_update(loss)
+                return loss, flag, copies
+            opt.step()
             return loss
 
         label = f"train_step/{type(self._model).__name__}"
@@ -296,16 +343,11 @@ class TrainStep:
         reserved = torch.cuda.memory_reserved(self._device)
         opt._dev_scalars = buf
         try:
-            parts = (("grads", grads, inputs), ("update", update,
-                                                {"scalars": buf})) \
-                if nan else (("step", whole, inputs),)
-            graphs = {}
-            for name, fn, st in parts:
-                key = self._key(sig, name)
-                self._keys.append(key)
-                rec.keys.append(key)
-                graphs[name] = exec_cache.get_or_capture(
-                    key, fn, st, label, counters, warmup=False)
+            key = self._key(sig, "step")
+            self._keys.append(key)
+            rec.keys.append(key)
+            graphs = {"step": exec_cache.get_or_capture(
+                key, whole, inputs, label, counters, warmup=False)}
         finally:
             opt._dev_scalars = None
             opt._global_step, opt._step_counts = snap[0], snap[1]
@@ -317,11 +359,11 @@ class TrainStep:
         dev = self._device
         side = exec_cache.side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        draws = random.draws()
+        marks = (random.draws(), _comm.host_staged())
         with torch.cuda.stream(side):
             loss = self._eager(batch, nan, lr)
         torch.cuda.current_stream(dev).wait_stream(side)
-        if random.draws() == draws:
+        if (random.draws(), _comm.host_staged()) == marks:
             self._counted()
             self._capture(rec, sig, batch, nan)
         return loss
@@ -340,20 +382,21 @@ class TrainStep:
         self._scalars().copy_(host, non_blocking=True)
 
     def _replay(self, rec, batch, nan, lr):
-        g = rec.graphs
-        first = g["grads" if nan else "step"]
+        entry = rec.graphs["step"]
         for i, t in enumerate(batch):
             if t is not None:
-                first.inputs[f"b{i}"].copy_(t, non_blocking=True)
+                entry.inputs[f"b{i}"].copy_(t, non_blocking=True)
         if not nan:
             self._advance()
-            return first.replay().clone()
-        loss, flag = first.replay()
+            return entry.replay().clone()
+        counters, made = self._counters()
+        live = self._live()
+        self._advance()
+        loss, flag, copies = entry.replay()
         loss = loss.clone()
         if not bool(flag):
+            self._undo(live, copies, counters, made)
             self._fail(batch, random.get_state(), lr)
-        self._advance()
-        g["update"].replay()
         return loss
 
     # -- the call ---------------------------------------------------------------
@@ -392,10 +435,9 @@ class TrainStep:
         return len(self._cache)
 
     def exec_cache_key(self, *batch):
-        """The exec-cache key this batch's signature captures under (its
-        whole-step part; ``"grads"`` and ``"update"`` under nan_check)."""
-        sig, nan = self._signature(self._batch(batch))
-        return self._key(sig, "grads" if nan else "step")
+        """The exec-cache key this batch's signature captures under."""
+        sig, _ = self._signature(self._batch(batch))
+        return self._key(sig, "step")
 
     def memory_analysis(self, *batch):
         """Byte accounting of the step for this batch signature

@@ -1,7 +1,7 @@
 """The model families: the Llama causal LM with its greedy decode, BERT
 and ERNIE 3.0; ``load_jax_weights`` fills any of them from the
 reference's arrays."""
-from ._weights import load_jax_weights  # noqa: F401
+from ._weights import gather_jax_layout, load_jax_weights  # noqa: F401
 from .bert import (  # noqa: F401
     BertConfig, BertForMaskedLM, BertForSequenceClassification, BertModel,
 )
@@ -17,4 +17,5 @@ from .llama import (  # noqa: F401
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "BertConfig",
            "BertModel", "BertForMaskedLM", "BertForSequenceClassification",
            "ErnieConfig", "ErnieModel", "ErnieForPretraining",
-           "ErnieForSequenceClassification", "load_jax_weights", "generate"]
+           "ErnieForSequenceClassification", "load_jax_weights",
+           "gather_jax_layout", "generate"]

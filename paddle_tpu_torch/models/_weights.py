@@ -1,15 +1,20 @@
-"""Loading the reference model's weights into a port model by name."""
+"""Moving weights between the reference's global arrays and a port
+model, by name."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["load_jax_weights"]
+from ..distributed.shard import gather_global, local_piece
+
+__all__ = ["load_jax_weights", "gather_jax_layout"]
 
 
 def _to_tensor(arr) -> torch.Tensor:
     """A numpy array (bfloat16 from ``ml_dtypes`` included) as a CPU
-    tensor with the same bits."""
+    tensor with the same bits; a tensor as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach()
     arr = np.array(arr)  # a writable copy: from_numpy shares memory
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -21,7 +26,7 @@ def load_jax_weights(model, arrays) -> None:
     with the reference model's weights, so the two packages compute the
     same function.
 
-    ``arrays`` maps parameter names to numpy arrays, as
+    ``arrays`` maps parameter names to numpy arrays (or tensors), as
     ``{n: np.asarray(p._data) for n, p in jax_model.named_parameters()}``
     gives them; the port's parameters carry the same names and Paddle's
     ``[in, out]`` linear layout. A model may accept alias prefixes of its
@@ -29,7 +34,16 @@ def load_jax_weights(model, arrays) -> None:
     ``model.*`` is ``llama.*``). Each array is converted to its
     parameter's dtype and device. Raises ``KeyError`` on a missing or
     unexpected name and ``ValueError`` on a shape mismatch, before any
-    parameter is written."""
+    parameter is written.
+
+    A tensor-parallel parameter (one that records a ``_dist_layout``,
+    under mp > 1) takes this rank's piece of the global array: every
+    rank passes the same global arrays. The fused ``qkv_proj`` and
+    ``gate_up_proj`` weights are cut segment by segment, so a rank holds
+    its own q, k and v heads (or its gate and up columns) side by side:
+    its piece is *not* the contiguous chunk of the fused dim that GSPMD
+    gives a device in the reference (``distributed.shard``).
+    :func:`gather_jax_layout` is the inverse."""
     params = dict(model.named_parameters())
     given = {}
     for name, arr in arrays.items():
@@ -46,11 +60,42 @@ def load_jax_weights(model, arrays) -> None:
         raise KeyError(f"load_jax_weights: missing {missing}, "
                        f"unexpected {unexpected}")
     for name, p in params.items():
-        if tuple(np.shape(given[name])) != tuple(p.shape):
+        want = _global_shape(p)
+        if tuple(np.shape(given[name])) != want:
             raise ValueError(
                 f"load_jax_weights: {name} has shape "
                 f"{tuple(np.shape(given[name]))}, the model expects "
-                f"{tuple(p.shape)}")
+                f"{want}")
     with torch.no_grad():
         for name, p in params.items():
-            p.copy_(_to_tensor(given[name]).to(p.dtype))
+            full = _to_tensor(given[name])
+            layout = getattr(p, "_dist_layout", None)
+            if layout is not None:
+                full = local_piece(full, layout)
+            p.copy_(full.to(p.dtype))
+
+
+def _global_shape(p):
+    layout = getattr(p, "_dist_layout", None)
+    return tuple(p.shape) if layout is None else tuple(layout.shape)
+
+
+def gather_jax_layout(model, grads=False) -> dict:
+    """The model's parameters (or, with ``grads``, their gradients; a
+    parameter without one is left out) as the reference's global numpy
+    arrays by name, on every rank: a tensor-parallel parameter's pieces
+    are all-gathered over its axis and laid out as
+    :func:`load_jax_weights` cut them. Collective under mp > 1: every
+    rank must call it."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            continue
+        layout = getattr(p, "_dist_layout", None)
+        if layout is not None:
+            t = gather_global(t.detach(), layout)
+        t = t.detach().to("cpu", copy=True)  # not a view of the model
+        out[name] = (t.to(torch.float32) if t.dtype == torch.bfloat16
+                     else t).numpy()
+    return out

@@ -34,7 +34,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..distributed.mp_layers import masked_token_mean
+from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    masked_token_mean,
+)
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn import functional as F

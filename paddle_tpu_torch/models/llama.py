@@ -18,7 +18,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..distributed.mp_layers import ParallelCrossEntropy, masked_token_mean
+from ..distributed import _comm
+from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding, _axis_group, masked_token_mean,
+)
+from ..distributed.fleet.utils.sequence_parallel_utils import (
+    ColumnSequenceParallelLinear, GatherOp, RowSequenceParallelLinear,
+    ScatterOp, mark_as_sequence_parallel_parameter,
+)
+from ..distributed.shard import local_piece
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn import functional as F
@@ -148,10 +157,8 @@ def _rope(q, k, theta, dtype, pos=None):
 
 
 class _Weight(nn.Module):
-    """One named trainable ``weight`` — the leaf modules of the reference
-    (``ColumnParallelLinear``/``RowParallelLinear`` in ``[in, out]``
-    layout, ``RMSNorm``, ``VocabParallelEmbedding``) at degree 1, where
-    their sharding hints are no-ops."""
+    """One named trainable ``weight``: the reference's ``RMSNorm``
+    leaves, replicated over every axis."""
 
     def __init__(self, shape, dtype, device):
         super().__init__()
@@ -159,96 +166,164 @@ class _Weight(nn.Module):
             torch.empty(shape, dtype=dtype, device=device))
 
 
+class _Parallel:
+    """What the layers need of the hybrid topology: the ``mp`` degree,
+    this rank's place on it and its group (1, 0, None without a hybrid
+    group), and whether the sequence is sharded (SP)."""
+
+    def __init__(self, config):
+        self.n, self.rank, self.group = _axis_group("mp")
+        self.sp = bool(config.sequence_parallel) and self.n > 1
+
+    def leaf(self, kind, *args, **kw):
+        """A column (``"col"``) or row (``"row"``) parallel linear, the
+        sequence-parallel one under SP, bias-free and unset."""
+        cls = {("col", False): ColumnParallelLinear,
+               ("col", True): ColumnSequenceParallelLinear,
+               ("row", False): RowParallelLinear,
+               ("row", True): RowSequenceParallelLinear}[(kind, self.sp)]
+        extra = {"gather_output": False} if kind == "col" \
+            else {"input_is_parallel": True}
+        return cls(*args, has_bias=False, generator=False, **extra, **kw)
+
+    def norm_weight(self, norm):
+        """An RMSNorm's weight as the forward reads it: under SP it meets
+        sequence shards, so its gradient is summed over ``mp``."""
+        return _comm.copy_to(norm.weight, self.group) if self.sp \
+            else norm.weight
+
+
+def _check_even(config, n):
+    for what, size in (("vocab_size", config.vocab_size),
+                       ("num_attention_heads", config.num_attention_heads),
+                       ("intermediate_size", config.intermediate_size)):
+        if size % n:
+            raise ValueError(
+                f"{what} = {size} does not split evenly over mp = {n} "
+                f"(the reference pads such a dim; uneven splits are not "
+                f"ported, ROADMAP A.6)")
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, par):
         super().__init__()
         self.config = config
         h = config.hidden_size
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = h // self.num_heads
-        self.qkv_proj = _Weight(
-            (h, (self.num_heads + 2 * self.num_kv_heads) * self.head_dim),
-            dtype, device)
-        self.o_proj = _Weight((self.num_heads * self.head_dim, h), dtype,
-                              device)
+        d, nh, nkv, n = (self.head_dim, self.num_heads, self.num_kv_heads,
+                         par.n)
+        # this rank's heads; K and V are replicated (and repeated per q
+        # head, as in the reference) when mp does not divide their heads
+        self._nh = nh // n
+        kv_sharded = nkv % n == 0
+        self._nkv = nkv // n if kv_sharded else nkv
+        rep = nh // nkv
+        self.register_buffer("_kv_index", None if kv_sharded else torch.tensor(
+            [(par.rank * self._nh + i) // rep for i in range(self._nh)],
+            device=device), persistent=False)  # each local q head's kv head
+        self.qkv_proj = par.leaf(
+            "col", h, (nh + 2 * nkv) * d, dtype=dtype, device=device,
+            out_segments=((nh * d, True), (nkv * d, kv_sharded),
+                          (nkv * d, kv_sharded)))
+        self.o_proj = par.leaf("row", nh * d, h, dtype=dtype, device=device)
 
     def forward(self, x):
         cfg = self.config
-        b, s = x.shape[0], x.shape[1]
         d = self.head_dim
+        qkv = self.qkv_proj(x)
+        b, s = qkv.shape[0], qkv.shape[1]  # the whole sequence under SP
         q, k, v = torch.split(
-            F.linear(x, self.qkv_proj.weight),
-            [self.num_heads * d, self.num_kv_heads * d,
-             self.num_kv_heads * d], dim=-1)
+            qkv, [self._nh * d, self._nkv * d, self._nkv * d], dim=-1)
         # RoPE returns the projection's dtype (low under auto_cast O1,
         # where x, the fp32 RMSNorm output, is not)
-        q, k = _rope(q.reshape(b, s, self.num_heads, d),
-                     k.reshape(b, s, self.num_kv_heads, d), cfg.rope_theta,
+        q, k = _rope(q.reshape(b, s, self._nh, d),
+                     k.reshape(b, s, self._nkv, d), cfg.rope_theta,
                      q.dtype)
         # v stays a strided view of the projection: the kernels read
         # [b, s, h, d] through strides. GQA runs in the kernels, which
         # map each q head to its kv head without repeating K/V.
-        v = v.reshape(b, s, self.num_kv_heads, d)
+        v = v.reshape(b, s, self._nkv, d)
+        if self._kv_index is not None:
+            k = k.index_select(2, self._kv_index)
+            v = v.index_select(2, self._kv_index)
         if cfg.sliding_window > 0:
             out = F.sliding_window_attention(q, k, v, cfg.sliding_window)
         else:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return F.linear(out.reshape(b, s, self.num_heads * d),
-                        self.o_proj.weight)
+        return self.o_proj(out.reshape(b, s, self._nh * d))
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, par):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
-        self.gate_up_proj = _Weight((h, 2 * ffn), dtype, device)
-        self.down_proj = _Weight((ffn, h), dtype, device)
+        self.gate_up_proj = par.leaf(
+            "col", h, 2 * ffn, dtype=dtype, device=device,
+            out_segments=((ffn, True), (ffn, True)))
+        self.down_proj = par.leaf("row", ffn, h, dtype=dtype, device=device)
 
     def forward(self, x):
-        gate, up = torch.chunk(F.linear(x, self.gate_up_proj.weight), 2,
-                               dim=-1)
-        return F.linear(F.silu(gate) * up, self.down_proj.weight)
+        gate, up = torch.chunk(self.gate_up_proj(x), 2, dim=-1)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, par):
         super().__init__()
         self.config = config
         h = config.hidden_size
+        self._par = par
         self.input_layernorm = _Weight((h,), dtype, device)
-        self.self_attn = LlamaAttention(config, dtype, device)
+        self.self_attn = LlamaAttention(config, dtype, device, par)
         self.post_attention_layernorm = _Weight((h,), dtype, device)
-        self.mlp = LlamaMLP(config, dtype, device)
+        self.mlp = LlamaMLP(config, dtype, device, par)
+        if par.sp:
+            for norm in (self.input_layernorm,
+                         self.post_attention_layernorm):
+                mark_as_sequence_parallel_parameter(norm.weight)
 
     def forward(self, x):
-        # sequence_parallel only shards the residual stream over 'mp' in
-        # the reference: at degree 1 it is a no-op
-        eps = self.config.rms_norm_eps
+        # under SP x is this rank's sequence chunk: the projections
+        # gather it and scatter their output back
+        eps, par = self.config.rms_norm_eps, self._par
         h = x + self.self_attn(
-            F.rms_norm(x, self.input_layernorm.weight, eps))
+            F.rms_norm(x, par.norm_weight(self.input_layernorm), eps))
         return h + self.mlp(
-            F.rms_norm(h, self.post_attention_layernorm.weight, eps))
+            F.rms_norm(h, par.norm_weight(self.post_attention_layernorm),
+                       eps))
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, par):
         super().__init__()
         self.config = config
-        self.embed_tokens = _Weight((config.vocab_size, config.hidden_size),
-                                    dtype, device)
+        self._par = par
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, dtype=dtype,
+            device=device, generator=False)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(config, dtype, device)
+            LlamaDecoderLayer(config, dtype, device, par)
             for _ in range(config.num_hidden_layers))
         self.norm = _Weight((config.hidden_size,), dtype, device)
+        if par.sp:
+            mark_as_sequence_parallel_parameter(self.norm.weight)
 
     def forward(self, input_ids):
-        x = torch.nn.functional.embedding(input_ids.long(),
-                                          self.embed_tokens.weight)
+        par = self._par
+        x = self.embed_tokens(input_ids)
         x = x.to(to_torch_dtype(self.config.dtype))
+        if par.sp:
+            if x.shape[1] % par.n:
+                raise ValueError(
+                    f"sequence length {x.shape[1]} does not split evenly "
+                    f"over mp = {par.n} under sequence_parallel")
+            x = ScatterOp.apply(x, par.group)
         for blk in self.layers:
             x = blk(x)
-        return F.rms_norm(x, self.norm.weight, self.config.rms_norm_eps)
+        x = F.rms_norm(x, par.norm_weight(self.norm), self.config.rms_norm_eps)
+        return GatherOp.apply(x, par.group) if par.sp else x
 
 
 class LlamaForCausalLM(nn.Module):
@@ -256,7 +331,23 @@ class LlamaForCausalLM(nn.Module):
     ``torch.Generator`` on ``device``; a fresh one seeded with 0 when
     None): normal(0, 0.02) for the embedding and projections, ones for
     the RMSNorm scales. :func:`load_jax_weights` replaces them with a
-    reference model's (the ``model.*`` alias of ``llama.*`` included)."""
+    reference model's (the ``model.*`` alias of ``llama.*`` included).
+
+    Under a hybrid group with mp > 1 (``fleet.init``) each rank holds
+    its shards (``fleet``'s tensor-parallel layers): the vocab rows of
+    the embedding, the heads of ``qkv_proj`` and ``o_proj`` (K and V
+    replicated, each q head reading its kv head, where mp does not divide
+    ``num_key_value_heads``, as the reference repeats them), the columns
+    of ``gate_up_proj`` and the rows of ``down_proj``, and the LM head's
+    vocab columns; random weights are drawn on the global shapes and
+    cut, so every degree builds the same model from one generator. With
+    ``sequence_parallel`` the residual stream between the projections
+    holds this rank's sequence chunk (Megatron SP: scattered after the
+    embedding, all-gathered into ``qkv_proj`` and ``gate_up_proj``,
+    reduce-scattered out of ``o_proj`` and ``down_proj``, gathered
+    before the LM head), and the norms' gradients are summed over
+    ``mp`` in the backward. At mp 1 the model runs the single-card ops
+    and no collective."""
 
     _jax_aliases = (("model.", "llama."),)
 
@@ -271,9 +362,18 @@ class LlamaForCausalLM(nn.Module):
         dev = resolve_device(device)
         dtype = to_torch_dtype(config.dtype)
         self.config = config
-        self.llama = LlamaModel(config, dtype, dev)
-        self.lm_head = _Weight((config.hidden_size, config.vocab_size),
-                               dtype, dev)
+        par = _Parallel(config)
+        if par.n > 1:
+            _check_even(config, par.n)
+            if config.ce_chunk_size > 0:
+                raise NotImplementedError(
+                    "ce_chunk_size under mp > 1 is not ported: the chunked "
+                    "loss reads the whole LM head (ROADMAP A.6)")
+        self.llama = LlamaModel(config, dtype, dev, par)
+        self.lm_head = ColumnParallelLinear(
+            config.hidden_size, config.vocab_size, has_bias=False,
+            gather_output=not config.use_parallel_cross_entropy,
+            dtype=dtype, device=dev, generator=False)
         self.loss_fn = (ParallelCrossEntropy()
                         if config.use_parallel_cross_entropy else None)
         if generator is None:
@@ -283,11 +383,12 @@ class LlamaForCausalLM(nn.Module):
                 if name.endswith("layernorm.weight") \
                         or name == "llama.norm.weight":
                     p.fill_(1.0)
-                else:
-                    w = torch.empty(p.shape, dtype=torch.float32,
-                                    device=dev)
-                    w.normal_(0.0, 0.02, generator=generator)
-                    p.copy_(w)
+                    continue
+                layout = getattr(p, "_dist_layout", None)
+                w = torch.empty(p.shape if layout is None else layout.shape,
+                                dtype=torch.float32, device=dev)
+                w.normal_(0.0, 0.02, generator=generator)
+                p.copy_(w if layout is None else local_piece(w, layout))
 
     @property
     def model(self) -> LlamaModel:
@@ -303,7 +404,7 @@ class LlamaForCausalLM(nn.Module):
         """``input_ids`` ``[b, s]`` -> logits ``[b, s, vocab]`` in the
         model's dtype, or, given ``labels`` ``[b, s]`` (``-100`` =
         ignored), the fp32 mean loss over the non-ignored tokens: fp32
-        logits into ``ParallelCrossEntropy`` (degree 1) or
+        logits into ``ParallelCrossEntropy`` or
         ``F.cross_entropy``, then ``masked_token_mean``. With
         ``ce_chunk_size > 0`` (and ``use_parallel_cross_entropy=False``)
         the LM head and the loss run together over vocab chunks
@@ -322,7 +423,7 @@ class LlamaForCausalLM(nn.Module):
             per_tok = F.chunked_softmax_cross_entropy(
                 hidden, self.lm_head.weight, labels, cfg.ce_chunk_size)
             return masked_token_mean(per_tok, labels, -100)
-        logits = F.linear(hidden, self.lm_head.weight)
+        logits = self.lm_head(hidden)
         if labels is None:
             return logits
         labels = labels.long()

@@ -61,12 +61,16 @@ def disable() -> None:
 
 def finite_all(tensors):
     """One boolean tensor on the tensors' device: every floating tensor
-    in ``tensors`` is finite (integer tensors are skipped)."""
-    flags = [torch.isfinite(t).all() for t in tensors
-             if isinstance(t, torch.Tensor) and t.is_floating_point()]
-    if not flags:
+    in ``tensors`` is finite (integer tensors are skipped). Each tensor's
+    largest magnitude (``torch._foreach_norm`` at order inf, which NaN
+    and inf carry through and no finite value overflows) is read in one
+    pass, without a boolean copy of the tensor."""
+    floats = [t for t in tensors
+              if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    if not floats:
         return torch.ones((), dtype=torch.bool)
-    return torch.stack(flags).all()
+    peaks = torch._foreach_norm(floats, float("inf"), dtype=torch.float32)
+    return torch.isfinite(torch.stack(peaks)).all()
 
 
 def _finite(t) -> bool:

@@ -5,6 +5,12 @@ is applied by ``Optimizer.step`` before the update. Norms are taken in
 fp32; a clipped gradient keeps its dtype. A parameter with
 ``need_clip = False`` passes through unclipped (and, for the global
 norm, uncounted).
+
+A tensor-parallel parameter (one that records a ``_dist_layout``, under
+mp > 1) holds a piece of the global gradient: its norm is the global
+tensor's, its sharded parts' squares summed over its axis and its
+replicated parts counted once (``distributed.shard.global_sq_norms``),
+as the reference's norms over global arrays are.
 """
 from __future__ import annotations
 
@@ -15,6 +21,15 @@ __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
 def _skip(p, g):
     return g is None or not getattr(p, "need_clip", True)
+
+
+def _sq_norms(pairs):
+    """Each gradient's squared fp32 norm, of the global tensor for a
+    tensor-parallel parameter."""
+    from ..distributed.shard import global_sq_norms
+
+    return global_sq_norms([getattr(p, "_dist_layout", None)
+                            for p, _ in pairs], [g for _, g in pairs])
 
 
 class _Clip:
@@ -44,12 +59,19 @@ class ClipGradByNorm(_Clip):
 
     @torch.no_grad()
     def __call__(self, params_grads):
+        kept = [(p, g) for p, g in params_grads if not _skip(p, g)]
+        dist_norms = {}
+        if any(hasattr(p, "_dist_layout") for p, _ in kept):
+            dist_norms = {id(p): torch.sqrt(s) for (p, _), s in
+                          zip(kept, _sq_norms(kept))}
         out = []
         for p, g in params_grads:
             if _skip(p, g):
                 out.append((p, g))
                 continue
-            norm = torch.linalg.vector_norm(g.to(torch.float32))
+            norm = dist_norms.get(id(p))
+            if norm is None:
+                norm = torch.linalg.vector_norm(g.to(torch.float32))
             scale = torch.clamp(self.clip_norm / norm.clamp(min=1e-12),
                                 max=1.0)
             out.append((p, (g * scale).to(g.dtype)))
@@ -66,8 +88,7 @@ class ClipGradByGlobalNorm(_Clip):
 
     @torch.no_grad()
     def __call__(self, params_grads):
-        sq = [torch.sum(torch.square(g.to(torch.float32)))
-              for p, g in params_grads if not _skip(p, g)]
+        sq = _sq_norms([(p, g) for p, g in params_grads if not _skip(p, g)])
         if not sq:
             return params_grads
         global_norm = torch.sqrt(torch.stack(sq).sum())

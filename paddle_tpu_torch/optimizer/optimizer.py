@@ -589,7 +589,8 @@ class Lamb(Optimizer):
     a parameter whose name ``exclude_from_weight_decay_fn`` accepts),
     then ``param - lr * trust * update`` with ``trust = ||param|| /
     ||update||`` of this parameter alone (1 where either norm is 0), in
-    fp32 and cast to the parameter's (or master's) dtype. Under
+    fp32 and cast to the parameter's (or master's) dtype; for a
+    tensor-parallel parameter both norms are the global tensor's. Under
     ``multi_precision`` ``param`` is the fp32 master throughout."""
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
@@ -612,6 +613,19 @@ class Lamb(Optimizer):
             return 0.0
         return self._lamb_wd
 
+    def _layouts(self, works):
+        """The tensor-parallel layout (``_dist_layout``) of each work's
+        parameter, None for a whole one: the trust ratio's norms are the
+        global tensors'."""
+        by_work = {}
+        for p in self._parameter_list:
+            layout = getattr(p, "_dist_layout", None)
+            if layout is not None:
+                by_work[id(p)] = layout
+                if id(p) in self._master_weights:
+                    by_work[id(self._master_weights[id(p)])] = layout
+        return [by_work.get(id(w)) for w in works]
+
     def _update(self, works, grads, states, group):
         b1, b2, step = self._beta1, self._beta2, group.step
         m = _states(states, "moment1")
@@ -627,10 +641,18 @@ class Lamb(Optimizer):
         torch._foreach_div_(update, denom)
         if group.key:
             torch._foreach_add_(update, works, alpha=group.key)
-        w_norm = torch.stack(torch._foreach_norm(works, 2,
-                                                 dtype=torch.float32))
-        u_norm = torch.stack(torch._foreach_norm(update, 2,
-                                                 dtype=torch.float32))
+        layouts = self._layouts(works)
+        if any(lay is not None for lay in layouts):
+            from ..distributed.shard import global_sq_norms
+
+            w_norm = torch.sqrt(torch.stack(global_sq_norms(layouts, works)))
+            u_norm = torch.sqrt(torch.stack(global_sq_norms(layouts,
+                                                            update)))
+        else:
+            w_norm = torch.stack(torch._foreach_norm(works, 2,
+                                                     dtype=torch.float32))
+            u_norm = torch.stack(torch._foreach_norm(update, 2,
+                                                     dtype=torch.float32))
         trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
                             1.0)
         torch._foreach_mul_(update, [t.to(w.dtype) for t, w in

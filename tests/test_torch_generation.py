@@ -463,3 +463,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.monitor.numerics",
             "paddle_tpu_torch.optimizer.lbfgs",
             "paddle_tpu_torch.tensor"} <= names
+    # and the distributed slice's
+    assert {"paddle_tpu_torch.distributed.env",
+            "paddle_tpu_torch.distributed.store",
+            "paddle_tpu_torch.distributed.collective",
+            "paddle_tpu_torch.distributed.parallel",
+            "paddle_tpu_torch.distributed.shard",
+            "paddle_tpu_torch.distributed.fleet",
+            "paddle_tpu_torch.distributed.fleet.base.topology",
+            "paddle_tpu_torch.distributed.fleet.base.distributed_strategy",
+            "paddle_tpu_torch.distributed.fleet.base.role_maker",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "parallel_layers.mp_layers",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "parallel_layers.random",
+            "paddle_tpu_torch.distributed.fleet.utils."
+            "sequence_parallel_utils",
+            "paddle_tpu_torch.distributed.fleet.utils.recompute"} <= names

@@ -1410,3 +1410,125 @@ def test_o1_llama_card_vs_cpu(cuda, dtype):
     for k in cg:
         scale = hg[k].abs().max().clamp(min=1e-12)
         assert ((cg[k] - hg[k]).abs().max() / scale).item() <= 5e-2, k
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """The process group at world size 1 on NCCL and every axis group
+    (fleet.init at degree 1); torn down after."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    dist.init_parallel_env()
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+    yield dist
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_collectives_on_nccl_at_world_size_one(nccl_world, dtype):
+    """Every collective on CUDA tensors through NCCL at world size 1 (the
+    card's machine has one card): each gives its input back, over the
+    world and over each axis's group."""
+    dist = nccl_world
+    x = (torch.arange(8, device="cuda") + 1).to(dtype).reshape(2, 4)
+    for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        assert torch.equal(dist.all_reduce(
+            x.clone(), op=getattr(dist.ReduceOp, op)), x), op
+    for axis in ("dp", "pp", "sharding", "sep", "mp"):
+        assert torch.equal(dist.all_reduce(x.clone(), group=axis), x)
+    same = [dist.all_gather(x, axis=1), dist.broadcast(x.clone()),
+            dist.reduce(x.clone()), dist.scatter(x),
+            dist.scatter(torch.empty_like(x), [x]),
+            dist.reduce_scatter(x, axis=1),
+            dist.all_to_all(x, split_axis=1, concat_axis=0),
+            dist.alltoall_single(None, x), dist.ppermute(x, [(0, 0)])]
+    assert all(torch.equal(t, x) for t in same)
+    assert [torch.equal(t, x) for t in dist.all_gather([], x)
+            + dist.gather(x) + dist.all_to_all([], [x])] == [True] * 3
+    dist.barrier()
+    assert dist.all_gather_object([], 5) == [5]
+    assert dist.get_backend() == "nccl"
+
+
+def test_degree_one_fleet_step_equals_plain(cuda):
+    """The tiny bf16 Llama through fleet.distributed_model and
+    distributed_optimizer at world size 1 (NCCL) on CUDA graphs takes
+    the plain model's steps bit for bit: at degree 1 no collective runs
+    and the layers run the single-card ops."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    weights = _tiny_pair()
+    cfg = LlamaConfig.tiny(num_hidden_layers=2, dtype="bfloat16")
+    runs = []
+    for path in ("plain", "fleet"):
+        if path == "fleet":
+            dist.init_parallel_env()
+            fleet.init(is_collective=True,
+                       strategy=fleet.DistributedStrategy())
+        model = LlamaForCausalLM(cfg, device=cuda)
+        load_jax_weights(model, weights)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        if path == "fleet":
+            model = fleet.distributed_model(model)
+            opt = fleet.distributed_optimizer(opt)
+        exec_cache.clear()
+        step = TrainStep(model, opt)
+        losses = []
+        for i in range(4):
+            rng = np.random.RandomState(100 + i)
+            ids, labels = (torch.from_numpy(rng.randint(
+                0, 128, (2, 16)).astype(np.int32)).to(cuda)
+                for _ in range(2))
+            losses.append(float(step(ids, labels)))
+        assert exec_cache.stats()["captures"] == 1
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+        if path == "fleet":
+            dist.destroy_process_group()
+    exec_cache.clear()
+    (pl, pp), (fl, fp) = runs
+    assert pl == fl
+    assert all(torch.equal(a, b) for a, b in zip(pp, fp))
+
+
+def test_nan_check_update_born_nan_on_graphs(cuda):
+    """A non-finite value born in the update of a captured step (the rate
+    set to inf after two good steps, read by the graph from its device
+    scalar): the card raises the CPU's (step, leaf, kind), a ``param``
+    leaf, and leaves parameters, masters and states bit-identical and
+    the step count at 2."""
+    from paddle_tpu_torch.monitor.numerics import NonFiniteError
+
+    weights = _tiny_pair()
+    exec_cache.clear()
+    found = []
+    for device in (cuda, "cpu"):
+        model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
+                                 device=device)
+        load_jax_weights(model, weights)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        step = TrainStep(model, opt, nan_check=True)
+        for i in range(3):
+            rng = np.random.RandomState(300 + i)
+            ids, labels = (torch.from_numpy(rng.randint(
+                0, 128, (2, 16)).astype(np.int32)).to(device)
+                for _ in range(2))
+            if i < 2:
+                step(ids, labels)
+                continue
+            opt.set_lr(float("inf"))
+            before = [t.clone() for t in step._live()]
+            with pytest.raises(NonFiniteError) as err:
+                step(ids, labels)
+            found.append((err.value.step, err.value.leaf, err.value.kind))
+            assert all(torch.equal(a, b)
+                       for a, b in zip(before, step._live()))
+            assert opt._global_step == 2
+        if device != "cpu":
+            assert exec_cache.stats()["captures"] == 1
+    exec_cache.clear()
+    assert found[0] == found[1] and found[0][2] == "param"

@@ -19,7 +19,10 @@ data from numpy seeds):
   indexing;
 - ``Accuracy`` (top-1 and top-2), ``Precision``, ``Recall``, ``Auc`` and
   ``accuracy`` equal to the reference's on the same inputs;
-- what ``fit`` does not port raises, naming its ROADMAP item.
+- what ``fit`` does not port raises, naming its ROADMAP item;
+- ``fit(accumulate_grad_batches=2)`` and ``prepare(amp_configs="O1")``
+  give the loss history of neither, in both packages (the reference
+  accepts both and ignores them).
 """
 import numpy as np
 import pytest
@@ -293,6 +296,39 @@ def test_fit_without_loss_takes_the_network_loss():
     assert len(losses) == 10 and losses[-1] < losses[0]
     assert tm.evaluate(io.TensorDataset([x, y]), batch_size=8,
                        verbose=0)["loss"] < losses[0]
-    # accumulated gradients: two batches a step
-    tm.fit(io.TensorDataset([x, y]), batch_size=8, epochs=1, verbose=0,
-           accumulate_grad_batches=2, num_iters=4)
+    # accumulate_grad_batches is accepted and ignored, as in the
+    # reference: every batch is one update, in both packages
+    _hold_ignored_knob(fit_kw={"accumulate_grad_batches": 2})
+
+
+def _history(jax_side, prepare_kw=None, fit_kw=None):
+    """The per-batch loss history of a 2-epoch fit of a fresh model pair
+    (the reference's or the port's side)."""
+    x, y = _data()
+    jm, tm = _models()
+    m, ds, base = (jm, jio.TensorDataset([x, y]), jhapi.Callback) \
+        if jax_side else (tm, io.TensorDataset([x, y]), hapi.Callback)
+    if prepare_kw:
+        m.prepare(m._optimizer, loss=m._loss, **prepare_kw)
+    rec = _Recorder._make(base)
+    m.fit(ds, batch_size=8, epochs=2, shuffle=False, verbose=0,
+          callbacks=[rec], **(fit_kw or {}))
+    return rec.losses
+
+
+def _hold_ignored_knob(prepare_kw=None, fit_kw=None):
+    """With the knob, each package's history equals its own history
+    without it (bit for bit) and the port's equals the reference's."""
+    for jax_side in (True, False):
+        plain = _history(jax_side)
+        assert len(plain) == 10
+        assert _history(jax_side, prepare_kw, fit_kw) == plain, jax_side
+    np.testing.assert_allclose(_history(False, prepare_kw, fit_kw),
+                               _history(True, prepare_kw, fit_kw),
+                               rtol=0, atol=TOL)
+
+
+def test_amp_configs_is_accepted_and_ignored():
+    """``prepare(amp_configs="O1")`` gives the history of no amp_configs,
+    in both packages, as the reference ignores the argument."""
+    _hold_ignored_knob(prepare_kw={"amp_configs": "O1"})

@@ -26,7 +26,7 @@ import paddle_tpu as pt
 from paddle_tpu.jit.train_step import TrainStep as JaxTrainStep
 from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
-from paddle_tpu_torch.distributed.mp_layers import (
+from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     ParallelCrossEntropy, masked_token_mean,
 )
 from paddle_tpu_torch.jit import TrainStep

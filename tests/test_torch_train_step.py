@@ -9,6 +9,9 @@ package's on the CPU (fp32 tiny Llama, weights through
   step, leaf and kind as the reference's ``NonFiniteError``; the step
   counter does not advance and parameters, masters and states are
   bit-identical to before the failed call; the next good batch steps;
+  and a NaN born in the update itself (``AdamW(epsilon=0)``'s 0/0 on
+  embedding rows absent from the batch) named as the reference's
+  ``param`` leaf, with the state left as it was;
 - ``AsyncStepper``: the same losses as the bare ``TrainStep``, at most
   ``max_in_flight`` in flight, ``drain`` returns the last loss, a bound
   below 1 raises, as in the reference;
@@ -142,6 +145,39 @@ def test_nan_check_names_the_reference_leaf(case):
     _same(before[0], after[0])
     _same(before[1], after[1])
     assert opt._global_step == 2
+
+
+def test_nan_check_catches_a_nan_born_in_the_update():
+    """A non-finite value made by the update from finite gradients:
+    ``AdamW(epsilon=0.0)`` divides 0 by 0 on the embedding rows of tokens
+    absent from the batch. Both packages raise at step 1 naming the
+    embedding as a ``param`` leaf, and the port leaves parameters, states
+    and the step count as they were (none of them existed yet)."""
+    jm, tm = _pair()
+    jstep = JaxTrainStep(jm, pt.optimizer.AdamW(
+        learning_rate=1e-3, epsilon=0.0, parameters=jm.parameters()),
+        lambda m, i, l: m(i, l), nan_check=True)
+    opt = topt.AdamW(learning_rate=1e-3, epsilon=0.0,
+                     parameters=tm.parameters())
+    step = TrainStep(tm, opt, nan_check=True)
+    before = _snapshot(tm, opt)
+    ids, labels = _batch(0)
+    with pytest.raises(JaxNonFinite) as jerr:
+        jstep(pt.to_tensor(ids), pt.to_tensor(labels))
+    with pytest.raises(NonFiniteError) as terr:
+        step(torch.from_numpy(ids), torch.from_numpy(labels))
+    got = (terr.value.step, terr.value.leaf, terr.value.kind)
+    assert got == (jerr.value.step, jerr.value.leaf, jerr.value.kind)
+    assert got == (1, "param/llama.embed_tokens.weight", "param")
+    after = _snapshot(tm, opt)
+    _same(before[0], after[0])
+    _same(before[1], after[1])
+    assert opt._global_step == 0 and not opt._accumulators
+    # a finite rule from the same state steps through
+    opt._epsilon = 1e-8
+    assert np.isfinite(float(step(torch.from_numpy(ids),
+                                  torch.from_numpy(labels))))
+    assert opt._global_step == 1
 
 
 def test_nan_check_off_steps_through():
