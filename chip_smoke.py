@@ -3,7 +3,8 @@ distributed paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Seventeen phases in one process (phase 17 also spawns two); any failure
+Nineteen phases in one process (phases 17, 18 and 19 also spawn two
+processes each); any failure
 raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
@@ -146,7 +147,37 @@ only a run in which every phase passed prints the final line:
    steps on the same batch: each step's loss within 2e-2 of (b)'s, the
    same on both ranks, 6 heads a rank and 36 launches of each of
    kernels 1-3 a rank (gloo stages CUDA tensors through the host, so
-   the times it prints are no tensor-parallel speed).
+   the times it prints are no tensor-parallel speed);
+18. pipeline: (a) ``LlamaForCausalLMPipe`` at pp 1 (``fleet.init`` on
+   NCCL at world size 1), loaded with the plain model's weights through
+   the canonical state (``to_pipe_layout``), in ``TrainStep`` on CUDA
+   graphs with 17b's optimizer and clip: its losses equal the plain
+   step's bit for bit, 12 launches of each of kernels 1-3 a replay;
+   (b) pp 2 at full width and depth, two spawned ranks sharing the card
+   over gloo (embedding and layers 0-5; layers 6-11, norm, head and
+   loss), 4 microbatches of 2 rows, 3 ``train_batch`` steps under GPipe
+   and again under 1F1B: losses within 1e-3 of one card's, the two
+   schedules bit-identical, step 1's gradients of 17c's leaves (through
+   ``gather_jax_layout`` and ``from_pipe_layout``) within 5e-2 of one
+   card's, 6 x 4 x 3 = 72 launches of each of kernels 1-3 a rank; peak
+   memory and (host-staged) ms a step a rank and schedule;
+   (c) ``ErnieForPretrainingPipe("nlg")`` at the 10B widths, trunk 4 of
+   48, dropout 0, bf16, b4 x s1024: pp 2 (two ranks, 2 microbatches, 2
+   steps) within 1e-3 of pp 1 on one card, each rank's launches held to
+   their formula;
+19. context parallelism: (a) the headline model with
+   ``context_parallel=True``, ring and then Ulysses, at sep 1 (NCCL,
+   world size 1) on CUDA graphs: losses bit-identical to the plain
+   step's; (b) sep 2 over gloo, two ranks sharing the card, each with
+   512 of the 1024 tokens of all 8 rows, ring then Ulysses, 3 eager
+   steps each: losses within 1e-3 of one card's, step 1's gradients
+   within 5e-2, kernels 1-3 launched 12 x 3 a rank under Ulysses and
+   under the causal ring 12 x 3 on rank 0 (the later block skipped) and
+   twice that on rank 1; then the ring's block calls at a rank's shape
+   (kernel 1 with and without the causal mask, keeping lse; kernels 2
+   and 3 given the global lse and delta) against their plain versions
+   (FLASH_REL_TOL per tile) and timed beside them, their bounds and
+   SDPA's non-causal calls.
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -2826,11 +2857,649 @@ def phase_distributed(card):
     return {w: ranks[0]["launches"][w] for w in ranks[0]["launches"]}
 
 
+# -- phases 18 and 19: shared ----------------------------------------------------
+
+def _nccl_world_one():
+    """The process group at world size 1 on NCCL, through a store on a
+    free local port."""
+    import socket
+
+    from paddle_tpu_torch import distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ["PADDLE_MASTER"] = f"127.0.0.1:{port}"
+    dist.init_parallel_env()
+    return dist
+
+
+def _strategy(**kw):
+    """A fleet strategy: ``pipeline`` gives ``pipeline_configs``, the rest
+    are ``<axis>_degree``s."""
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    pipeline = kw.pop("pipeline", None)
+    s.hybrid_configs = {f"{k}_degree": v for k, v in kw.items()}
+    if pipeline is not None:
+        s.pipeline_configs = pipeline
+    return s
+
+
+def _pick_leaves(got):
+    """FLEET_GRAD_LEAVES of a gradient dict in the causal LM's names (as
+    ``_grad_leaves`` cuts them)."""
+    out = {n: got[n] for n in FLEET_GRAD_LEAVES}
+    out["llama.embed_tokens.weight"] = out["llama.embed_tokens.weight"][::8]
+    out["lm_head.weight"] = out["lm_head.weight"][:, ::8]
+    return out
+
+
+def _one_card():
+    """The yardstick of phases 18 and 19, made once: the 0.44B Llama's
+    plain step (AdamW(1e-4, multi_precision, weight decay 0.01,
+    ClipGradByGlobalNorm(1.0)), TrainStep on graphs, 2 warm-up and 5
+    timed steps) as ``_run_steps`` returns it, and step 1's gradients of
+    FLEET_GRAD_LEAVES."""
+    if "one_card" not in READINGS:
+        ids, labels = _train_batch(TRAIN["vocab_size"], TRAIN_BATCH,
+                                   TRAIN_SEQ)
+        cfg = LlamaConfig(**TRAIN)
+        model = LlamaForCausalLM(cfg, device="cuda",
+                                 generator=torch.Generator("cuda")
+                                 .manual_seed(0))
+        model(ids, labels).backward()
+        grads = _grad_leaves(model)
+        model.zero_grad(set_to_none=True)
+        step = TrainStep(model, _fleet_optimizer(model),
+                         lambda m, i, l: m(i, l))
+        exec_cache.clear()
+        run = _run_steps(step, (ids, labels))
+        READINGS["one_card"] = (run + (exec_cache.stats()["captures"],),
+                                grads)
+        del model, step
+        _release()
+    return READINGS["one_card"]
+
+
+def _spawn_ranks(fn, args, n=2):
+    """``fn(root, *args)`` in ``n`` spawned ranks sharing the card; returns
+    (each rank's JSON result, its npz arrays or None, seconds from spawn
+    to join)."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dist.spawn(fn, args=(root,) + tuple(args), nprocs=n)
+        wall = time.perf_counter() - t0
+        ranks, arrays = [], []
+        for r in range(n):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            path = os.path.join(root, f"rank{r}.npz")
+            if os.path.exists(path):
+                with np.load(path) as got:
+                    arrays.append({k: got[k] for k in got.files})
+            else:
+                arrays.append(None)
+    return ranks, arrays, wall
+
+
+def _save_rank(root, out, arrays=None):
+    from paddle_tpu_torch import distributed as dist
+
+    rank = dist.get_rank()
+    out["rank"] = rank
+    if arrays is not None:
+        np.savez(os.path.join(root, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _rank_setup(root):
+    from paddle_tpu_torch import distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", init_method=f"file://{root}/store")
+    return dist
+
+
+def _grad_errors(arrays, want):
+    """The worst rank's relative Frobenius error of each leaf."""
+    err = {}
+    for got in arrays:
+        for n, w in want.items():
+            e = float(np.linalg.norm(got[n] - w)
+                      / max(np.linalg.norm(w), 1e-30))
+            err[n] = max(err.get(n, 0.0), e)
+    return err
+
+
+def _hold(prefix, tag, ranks, arrays, want_losses, want_grads, launches):
+    """18b's and 19b's checks: losses within FLEET_CHECK_TOL of one
+    card's, equal on the ranks, step 1's gradients within
+    FLEET_GRAD_REL_TOL, each rank's kernels 1-3 launched as ``launches``
+    ({rank: n}) says."""
+    diff = max(abs(a - b) for o in ranks for a, b in zip(o["losses"],
+                                                         want_losses))
+    err = _grad_errors(arrays, want_grads)
+    log(f"[{prefix}] {tag}: both ranks' losses within {diff:.3e} of one card's first "
+        f"{FLEET_STEPS} {[round(x, 5) for x in want_losses]} (tol "
+        f"{FLEET_CHECK_TOL}); step 1's gradients against one card's, "
+        f"relative Frobenius error (worse rank; tol {FLEET_GRAD_REL_TOL}): "
+        + ", ".join(f"{n} {e:.3e}" for n, e in err.items()))
+    if not diff <= FLEET_CHECK_TOL \
+            or any(o["losses"] != ranks[0]["losses"] for o in ranks):
+        raise AssertionError(f"{tag}: the ranks' losses left one card's or "
+                             f"each other's")
+    bad = {n: e for n, e in err.items() if not e <= FLEET_GRAD_REL_TOL}
+    if bad:
+        raise AssertionError(f"{tag}: gradients left one card's: {bad}")
+    for o in ranks:
+        want = launches[o["rank"]]
+        if any(n != want for n in o["launches"].values()):
+            raise AssertionError(f"{tag}: rank {o['rank']} launched kernels "
+                                 f"1-3 {o['launches']} times, expected "
+                                 f"{want} each")
+
+
+# -- phase 18 -----------------------------------------------------------------
+
+PIPE_MICRO = 4            # 18b: n_micro = max(accumulate_steps, pp) = 4
+ERNIE_PIPE = dict(num_hidden_layers=4, dtype="bfloat16",
+                  hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+ERNIE_PIPE_MICRO = 2      # 18c: microbatches of 2 rows
+ERNIE_PIPE_STEPS = 2
+ERNIE_PIPE_TOL = 1e-3
+
+
+def _llama_pipe(cfg, weights):
+    """The 0.44B Llama pipe on this rank's stage, from the causal LM's
+    weights (names), through the canonical state."""
+    from paddle_tpu_torch.models import LlamaForCausalLMPipe, to_pipe_layout
+
+    pipe = LlamaForCausalLMPipe(cfg, device="cuda")
+    missing, unexpected = pipe.set_state_dict(
+        to_pipe_layout(weights, cfg.num_hidden_layers))
+    if missing or unexpected:
+        raise AssertionError(f"pipe state: missing {missing}, unexpected "
+                             f"{unexpected}")
+    return pipe
+
+
+def _rank_18b(root, ids, labels):
+    """One of 18b's two stages sharing the card: pp 2, 4 microbatches of
+    2 rows, 3 steps with GPipe and then with 1F1B from the same
+    weights."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import from_pipe_layout, gather_jax_layout
+
+    dist = _rank_setup(root)
+    cfg = LlamaConfig(**TRAIN)
+    full = LlamaForCausalLM(cfg, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+    weights = {n: p.detach() for n, p in full.named_parameters()}
+    ids, labels = (torch.from_numpy(a).cuda() for a in (ids, labels))
+    out, grads = {}, {}
+    for sched in ("GPipe", "1F1B"):
+        fleet.init(is_collective=True, strategy=_strategy(
+            pp=2, pipeline={"accumulate_steps": PIPE_MICRO,
+                            "schedule": "1F1B" if sched == "1F1B" else ""}))
+        pipe = _llama_pipe(cfg, weights)
+        net = fleet.distributed_model(pipe)
+        opt = fleet.distributed_optimizer(_fleet_optimizer(pipe))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in FLASH_WRAPPERS:
+            w.launches = 0
+        losses, ms = [], []
+        for i in range(FLEET_STEPS):
+            t0 = time.perf_counter()
+            if i == 0:  # train_batch's work, the gradients read between
+                loss = net.forward_backward_pipeline((ids, labels))
+                net._reduce_gradients()
+                torch.cuda.synchronize()
+                t0 -= time.perf_counter()
+                got = from_pipe_layout(gather_jax_layout(pipe, grads=True),
+                                       cfg.num_hidden_layers)
+                t0 += time.perf_counter()
+                opt.step()
+                opt.clear_grad()
+            else:
+                loss = net.train_batch((ids, labels), opt)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        grads[sched] = _pick_leaves(got)
+        out[sched] = {
+            "losses": losses, "ms": ms,
+            "launches": {w.__name__: w.launches for w in FLASH_WRAPPERS},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "params": sum(p.numel() for p in pipe.parameters()),
+            "layers": sorted(int(k) for k in pipe._modules),
+            "counters": dict(pipe.counters)}
+        del net, opt, pipe
+        torch.cuda.empty_cache()
+    out["same_bits"] = out["GPipe"]["losses"] == out["1F1B"]["losses"] \
+        and all(np.array_equal(grads["GPipe"][n], grads["1F1B"][n])
+                for n in grads["GPipe"])
+    _save_rank(root, out, grads["GPipe"])
+    dist.destroy_process_group()
+
+
+def _ernie_pipe(task="nlg"):
+    """The ERNIE pipe at the 10B widths (trunk 4 of 48, dropout 0) on
+    this rank's stage, every parameter bf16, and its optimizer."""
+    from paddle_tpu_torch.models import ErnieForPretrainingPipe
+
+    cfg = ErnieConfig(**ERNIE_PIPE)
+    pipe = ErnieForPretrainingPipe(cfg, task, device="cuda")
+    pipe = amp.decorate(pipe, level="O2", dtype="bfloat16")
+    return pipe, _fleet_optimizer(pipe)
+
+
+def _ernie_pipe_batch():
+    ids, _, lm = _ernie_batch(ErnieConfig(**ERNIE_PIPE), ERNIE_BATCH,
+                              ERNIE_SEQ)
+    return ids, lm
+
+
+def _rank_18c(root):
+    """One of 18c's two ERNIE stages sharing the card: 2 steps."""
+    from paddle_tpu_torch.distributed import fleet
+
+    dist = _rank_setup(root)
+    fleet.init(is_collective=True, strategy=_strategy(
+        pp=2, pipeline={"accumulate_steps": ERNIE_PIPE_MICRO}))
+    pipe, opt = _ernie_pipe()
+    net = fleet.distributed_model(pipe)
+    batch = _ernie_pipe_batch()
+    for w in FLASH_WRAPPERS + HB_WRAPPERS:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(ERNIE_PIPE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(net.train_batch(batch, opt)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _save_rank(root, {
+        "losses": losses, "ms": ms,
+        "launches": {w.__name__: w.launches
+                     for w in FLASH_WRAPPERS + HB_WRAPPERS},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "params": sum(p.numel() for p in pipe.parameters()),
+        "layers": sorted(int(k) for k in pipe._modules)})
+    dist.destroy_process_group()
+
+
+def phase_pipeline(card):
+    """18a the Llama pipe at pp 1 on NCCL against the plain step; 18b pp
+    2 over gloo, two ranks sharing the card, GPipe and 1F1B; 18c the
+    ERNIE pipe at the 10B widths, pp 2 against pp 1."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed import fleet
+
+    t_phase = time.perf_counter()
+    _release()
+    ids, labels = _train_batch(TRAIN["vocab_size"], TRAIN_BATCH, TRAIN_SEQ)
+    cfg = LlamaConfig(**TRAIN)
+    layers = cfg.num_hidden_layers
+    (p_loss, p_ms, p_peak, _, p_cap), ref_grads = _one_card()
+    # 18a: pp 1 on NCCL at world size 1
+    _nccl_world_one()
+    fleet.init(is_collective=True, strategy=_strategy(pp=1))
+    plain = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    weights = {n: p.detach() for n, p in plain.named_parameters()}
+    pipe = fleet.distributed_model(_llama_pipe(cfg, weights))
+    del plain, weights
+    step = TrainStep(pipe, _fleet_optimizer(pipe),
+                     lambda m, i, l: m.loss_fn(m(i), l))
+    exec_cache.clear()
+    a_loss, a_ms, a_peak, a_launch = _run_steps(step, (ids, labels))
+    a_cap = exec_cache.stats()["captures"]
+    log(f"[pipeline] 18a: LlamaForCausalLMPipe at pp 1 (fleet.init on NCCL "
+        f"{torch.cuda.nccl.version()}, world size 1; {type(pipe).__name__} "
+        f"from fleet.distributed_model), loaded with the plain model's "
+        f"weights through the canonical state, TrainStep on CUDA graphs: "
+        f"{a_ms:.2f} ms a step, peak {a_peak:.3f} GiB, {a_cap} capture; "
+        f"the plain step {p_ms:.2f} ms, peak {p_peak:.3f} GiB; losses "
+        f"{[round(x, 5) for x in a_loss]}, bit-identical to the plain "
+        f"step's: {a_loss == p_loss}; kernels 1-3 a replay "
+        f"{ {k: v / TIMED_STEPS for k, v in a_launch.items()} }")
+    if a_loss != p_loss:
+        raise AssertionError(f"18a: the pipe's losses {a_loss} are not the "
+                             f"plain step's {p_loss}")
+    if any(n != layers * TIMED_STEPS for n in a_launch.values()) \
+            or a_cap != 1:
+        raise AssertionError(f"18a: launches {a_launch}, captures {a_cap}")
+    del pipe, step
+    _release()
+    pdist.destroy_process_group()
+    # 18b: pp 2, two ranks on the card
+    ranks, arrays, wall = _spawn_ranks(
+        _rank_18b, (ids.cpu().numpy(), labels.cpu().numpy()))
+    per = layers // 2 * PIPE_MICRO * FLEET_STEPS
+    for o in ranks:
+        for sched in ("GPipe", "1F1B"):
+            r = o[sched]
+            log(f"[pipeline] 18b: rank {o['rank']} of 2 sharing {card}, pp 2 "
+                f"{sched} over gloo, {PIPE_MICRO} microbatches of "
+                f"{TRAIN_BATCH // PIPE_MICRO} rows: layers {r['layers']} "
+                f"({r['params'] / 1e6:.2f} M parameters), losses "
+                f"{r['losses']}, kernels 1-3 over {FLEET_STEPS} steps "
+                f"{r['launches']} (predicted {layers // 2} layers x "
+                f"{PIPE_MICRO} microbatches x {FLEET_STEPS} steps = {per}), "
+                f"peak {r['peak_gib']:.3f} GiB, ms a step "
+                f"{[round(x, 1) for x in r['ms']]} (gloo, host-staged, not "
+                f"a pipeline speed), counters {r['counters']}")
+        log(f"[pipeline] 18b: rank {o['rank']}: GPipe and 1F1B losses and "
+            f"step 1's gradients bit-identical: {o['same_bits']}")
+    for sched in ("GPipe", "1F1B"):
+        _hold("pipeline", f"18b {sched}",
+              [dict(o[sched], rank=o["rank"]) for o in ranks], arrays,
+              p_loss[:FLEET_STEPS], ref_grads, {0: per, 1: per})
+    if not all(o["same_bits"] for o in ranks):
+        raise AssertionError("18b: GPipe and 1F1B differ")
+    log(f"[pipeline] 18b: spawn to join {wall:.1f} s")
+    # 18c: the ERNIE pipe, pp 1 on one card, then pp 2
+    pipe, opt = _ernie_pipe()
+    batch = _ernie_pipe_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one = []
+    for _ in range(ERNIE_PIPE_STEPS):
+        opt.clear_grad()
+        loss = pipe.loss_fn(pipe(batch[0]), batch[1])
+        loss.backward()
+        opt.step()
+        one.append(float(loss))
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in pipe.parameters())
+    del pipe, opt, loss
+    _release()
+    ranks, _, wall = _spawn_ranks(_rank_18c, ())
+    ec = ErnieConfig(**ERNIE_PIPE)
+    trunk = ec.num_hidden_layers // 2
+    want = {0: trunk * ERNIE_PIPE_MICRO * ERNIE_PIPE_STEPS,
+            1: (trunk + ec.num_task_layers) * ERNIE_PIPE_MICRO
+            * ERNIE_PIPE_STEPS}
+    diff = max(abs(a - b) for o in ranks for a, b in zip(o["losses"], one))
+    log(f"[pipeline] 18c: ErnieForPretrainingPipe('nlg') at the 10B widths, "
+        f"trunk {ec.num_hidden_layers} of 48, dropout 0, bf16 (amp.decorate "
+        f"O2), b{ERNIE_BATCH} x s{ERNIE_SEQ}, AdamW with "
+        f"ClipGradByGlobalNorm(1.0): pp 1 on one card {n_params / 1e9:.3f} B "
+        f"parameters, peak {one_peak:.3f} GiB, losses {one}")
+    for o in ranks:
+        log(f"[pipeline] 18c: rank {o['rank']} of 2, pp 2 over gloo, "
+            f"{ERNIE_PIPE_MICRO} microbatches: layers {o['layers']} "
+            f"({o['params'] / 1e9:.3f} B parameters), losses {o['losses']}, "
+            f"peak {o['peak_gib']:.3f} GiB, ms a step "
+            f"{[round(x, 1) for x in o['ms']]} (host-staged); launches "
+            f"{o['launches']}: kernels 1-3 predicted {want[o['rank']]} = "
+            f"(trunk layers here + branch layers here) x microbatches x "
+            f"steps (no mask and no dropout: the attention takes the flash "
+            f"entry at d 64), kernels 4-6 predicted 0")
+    log(f"[pipeline] 18c: pp 2 within {diff:.3e} of pp 1 (tol "
+        f"{ERNIE_PIPE_TOL}); spawn to join {wall:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not diff <= ERNIE_PIPE_TOL:
+        raise AssertionError(f"18c: pp 2's losses left pp 1's by {diff}")
+    for o in ranks:
+        got = o["launches"]
+        if any(got[w.__name__] != want[o["rank"]] for w in FLASH_WRAPPERS) \
+                or any(got[w.__name__] for w in HB_WRAPPERS):
+            raise AssertionError(f"18c: rank {o['rank']} launches {got}, "
+                                 f"expected {want[o['rank']]} of kernels "
+                                 f"1-3 and none of 4-6")
+    return {w: ranks[0]["launches"][w] for w in ranks[0]["launches"]}
+
+
+# -- phase 19 -----------------------------------------------------------------
+
+# the ring's block calls at a rank's shape at sep 2: 512 of the 1024
+# tokens of all 8 rows, 12 heads of d 128, bf16
+RING_BLOCK = (8, 512, 12, 128)
+
+
+def _ring_block_check(gen):
+    """Kernel 1 on the diagonal block (causal) and on an earlier key block
+    (no mask), each returning lse, then kernels 2 and 3 on each block
+    given the *global* lse and delta of the two combined, each against
+    its plain version on fp32 copies (FLASH_REL_TOL per tile); then
+    timed as CUDA-graph replays beside their plain versions, their
+    bounds and SDPA's non-causal calls. Returns {kernel: row}."""
+    b, s, h, d = RING_BLOCK
+    q, k0, v0, do = _flash_inputs(b, s, s, h, h, gen, d=d)
+    _, k1, v1, _ = _flash_inputs(b, s, s, h, h, gen, d=d)
+    f32 = {n: t.float() for n, t in (("q", q), ("k0", k0), ("v0", v0),
+                                     ("k1", k1), ("v1", v1), ("do", do))}
+    blocks = (("diagonal", k0, v0, True), ("earlier", k1, v1, False))
+    errs, parts = {}, []
+    for name, k, v, causal in blocks:
+        out, lse = fa.flash_fwd(q, k, v, causal=causal)
+        want, want_lse = fa.flash_fwd_ref(f32["q"], k.float(), v.float(),
+                                          causal=causal)
+        errs[f"flash_fwd {name}"] = (_tile_rel_err(out, want),
+                                     (lse - want_lse).abs().max().item())
+        parts.append((want, want_lse))
+    (o0, l0), (o1, l1) = parts
+    lse = torch.logaddexp(l0, l1)
+
+    def rows(x):
+        return x.reshape(b, h, s).permute(0, 2, 1)[..., None]
+
+    out = (o0 * torch.exp(rows(l0 - lse))
+           + o1 * torch.exp(rows(l1 - lse))).to(q.dtype)
+    delta = fa._delta(do, out)
+    for name, k, v, causal in blocks:
+        kw = dict(causal=causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        ref = [t.float() for t in (q, k, v, do)]
+        w_dq = fa.flash_bwd_dq_ref(*ref, lse, delta, **kw)
+        w_dk, w_dv = fa.flash_bwd_dkv_ref(*ref, lse, delta, **kw)
+        errs[f"flash_bwd_dq {name}"] = (_tile_rel_err(dq, w_dq), 0.0)
+        errs[f"flash_bwd_dkv {name}"] = (max(_tile_rel_err(dk, w_dk),
+                                             _tile_rel_err(dv, w_dv)), 0.0)
+    torch.cuda.synchronize()
+    log(f"[context] ring block calls at a rank's shape b{b} s{s} h{h} d{d} "
+        f"bf16 (global lse and delta of the two blocks into kernels 2 and "
+        f"3): per-tile relative error (tol {FLASH_REL_TOL}) "
+        + ", ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
+        + "; lse " + ", ".join(f"{n} {l:.3e}" for n, (_, l) in errs.items()
+                               if n.startswith("flash_fwd"))
+        + f" (tol {LSE_ATOL})")
+    bad = {n: e for n, e in errs.items()
+           if not (e[0] <= FLASH_REL_TOL and e[1] <= LSE_ATOL)}
+    if bad:
+        raise AssertionError(f"ring block calls disagree with the plain "
+                             f"versions: {bad}")
+    # timed: the earlier (full) block, the ring's new pattern
+    kernels = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k1, v1, causal=False),
+                      lambda: fa.flash_fwd_ref(q, k1, v1, causal=False)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k1, v1, do, lse, delta, causal=False),
+            lambda: fa.flash_bwd_dq_ref(q, k1, v1, do, lse, delta,
+                                        causal=False)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k1, v1, do, lse, delta, causal=False),
+            lambda: fa.flash_bwd_dkv_ref(q, k1, v1, do, lse, delta,
+                                         causal=False)),
+    }
+    library, contexts, fallbacks, minus = _sdpa_fns(q, k1, v1, do,
+                                                    is_causal=False)
+    port = {n: lambda i, f=kern: f() for n, (kern, _) in kernels.items()}
+    times, how, _ = _timed(port, library, contexts, fallbacks, minus)
+    lib = {"flash_fwd": _library(times, "sdpa_fwd", how)}
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = _library(times, "sdpa_bwd",
+                                                          how)
+    rows_out = {}
+    for name, (_, plain) in kernels.items():
+        bound_ms, bound_by, _ = _flash_bound(q, k1, False, 0, name)
+        plain_ms = _time_plain(plain, iters=3)
+        lib_ms, lib_txt = lib[name]
+        rows_out[name] = dict(ms=_med(times[name]), plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=lib_ms)
+        log(f"[context] ring block {name} b{b} s{s} h{h} d{d} bf16, no mask"
+            f"{', given the global lse and delta' if name != 'flash_fwd' else ', lse kept'}"
+            f": kernel_ms {_spread(times[name])} (CUDA graphs) plain_ms "
+            f"{plain_ms:.4f} library_ms {_ms(lib_ms)} (SDPA non-causal: "
+            f"{lib_txt}) bound_ms {bound_ms:.5f} ({bound_by})")
+    return rows_out
+
+
+def _cp_model(cfg, mode, weights):
+    model = LlamaForCausalLM(
+        LlamaConfig(**dict(TRAIN, context_parallel=True,
+                           context_parallel_mode=mode)),
+        device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    load_jax_weights(model, weights)
+    return model
+
+
+def _rank_19b(root, ids, labels):
+    """One of 19b's two sep ranks sharing the card: its 512 of the 1024
+    tokens of all 8 rows, ring then Ulysses, 3 eager AdamW steps each."""
+    from paddle_tpu_torch.distributed import fleet
+
+    dist = _rank_setup(root)
+    cfg = LlamaConfig(**TRAIN)
+    full = LlamaForCausalLM(cfg, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+    weights = {n: p.detach() for n, p in full.named_parameters()}
+    del full
+    fleet.init(is_collective=True, strategy=_strategy(sep=2))
+    hcg = fleet.get_hybrid_communicate_group()
+    c = hcg.get_sep_parallel_rank()
+    s = TRAIN_SEQ // 2
+    ids, labels = (torch.from_numpy(a[:, c * s:(c + 1) * s]).cuda()
+                   for a in (ids, labels))
+    out, arrays = {"chunk": c}, {}
+    for mode in ("ring", "ulysses"):
+        model = _cp_model(cfg, mode, weights)
+        net = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(_fleet_optimizer(model))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in FLASH_WRAPPERS:
+            w.launches = 0
+        losses, ms = [], []
+        for i in range(FLEET_STEPS):
+            t0 = time.perf_counter()
+            opt.clear_grad()
+            loss = net(ids, labels)
+            loss.backward()
+            if i == 0:
+                torch.cuda.synchronize()
+                t0 -= time.perf_counter()
+                got = _grad_leaves(model)
+                t0 += time.perf_counter()
+            opt.step()
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[mode] = {
+            "losses": losses, "ms": ms,
+            "launches": {w.__name__: w.launches for w in FLASH_WRAPPERS},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        arrays.update({f"{mode}/{n}": a for n, a in got.items()})
+        del net, opt, model
+        torch.cuda.empty_cache()
+    _save_rank(root, out, arrays)
+    dist.destroy_process_group()
+
+
+def phase_context(card):
+    """19a ring and Ulysses at sep 1 on NCCL against the plain step; 19b
+    sep 2 over gloo, two ranks sharing the card; the ring's block calls
+    at a rank's shape."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed import fleet
+
+    t_phase = time.perf_counter()
+    _release()
+    ids, labels = _train_batch(TRAIN["vocab_size"], TRAIN_BATCH, TRAIN_SEQ)
+    cfg = LlamaConfig(**TRAIN)
+    layers = cfg.num_hidden_layers
+    (p_loss, p_ms, _, _, _), ref_grads = _one_card()
+    # 19a: sep 1 on NCCL at world size 1
+    _nccl_world_one()
+    fleet.init(is_collective=True, strategy=_strategy(sep=1))
+    plain = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    weights = {n: p.detach() for n, p in plain.named_parameters()}
+    del plain
+    for mode in ("ring", "ulysses"):
+        model = fleet.distributed_model(_cp_model(cfg, mode, weights))
+        step = TrainStep(model, _fleet_optimizer(model),
+                         lambda m, i, l: m(i, l))
+        exec_cache.clear()
+        losses, ms, peak, launch = _run_steps(step, (ids, labels))
+        cap = exec_cache.stats()["captures"]
+        log(f"[context] 19a: context_parallel {mode} at sep 1 (fleet.init "
+            f"on NCCL, world size 1), TrainStep on CUDA graphs: {ms:.2f} ms "
+            f"a step (the plain step {p_ms:.2f}), peak {peak:.3f} GiB, {cap} "
+            f"capture; losses bit-identical to the plain step's: "
+            f"{losses == p_loss}; kernels 1-3 a replay "
+            f"{ {k: v / TIMED_STEPS for k, v in launch.items()} }")
+        if losses != p_loss:
+            raise AssertionError(f"19a: {mode}'s losses {losses} are not the "
+                                 f"plain step's {p_loss}")
+        if any(n != layers * TIMED_STEPS for n in launch.values()) \
+                or cap != 1:
+            raise AssertionError(f"19a: launches {launch}, captures {cap}")
+        del model, step
+        _release()
+    del weights
+    pdist.destroy_process_group()
+    # 19b: sep 2, two ranks on the card
+    ranks, arrays, wall = _spawn_ranks(
+        _rank_19b, (ids.cpu().numpy(), labels.cpu().numpy()))
+    steps = FLEET_STEPS
+    want = {"ring": {0: layers * steps, 1: 2 * layers * steps},
+            "ulysses": {0: layers * steps, 1: layers * steps}}
+    launches = {}
+    for mode in ("ring", "ulysses"):
+        for o in ranks:
+            r = o[mode]
+            log(f"[context] 19b: rank {o['rank']} of 2 sharing {card}, "
+                f"{mode} over sep 2 on gloo, tokens "
+                f"[{o['chunk'] * TRAIN_SEQ // 2}, "
+                f"{(o['chunk'] + 1) * TRAIN_SEQ // 2}) of all "
+                f"{TRAIN_BATCH} rows: losses {r['losses']}, kernels 1-3 "
+                f"over {steps} steps {r['launches']} (predicted "
+                f"{want[mode][o['rank']]}: "
+                + ("causal ring, rank 0 skips the later block, rank 1 runs "
+                   "the diagonal and the earlier one" if mode == "ring"
+                   else "one local attention a layer")
+                + f"), peak {r['peak_gib']:.3f} GiB, ms a step "
+                f"{[round(x, 1) for x in r['ms']]} (host-staged)")
+            launches[(mode, o["rank"])] = r["launches"]["flash_fwd"]
+        _hold("context", f"19b {mode}",
+              [dict(o[mode], rank=o["rank"]) for o in ranks],
+              [{n[len(mode) + 1:]: a for n, a in got.items()
+                if n.startswith(mode + "/")} for got in arrays],
+              p_loss[:steps], ref_grads, want[mode])
+    rows = _ring_block_check(torch.Generator("cuda").manual_seed(19))
+    log(f"[context] 19b: spawn to join {wall:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, rows
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
+                    "19",
                     help="phases to run after 1 and 2, comma-separated")
     only = {int(p) for p in ap.parse_args().phases.split(",")}
     name, smi = phase_device()
@@ -2838,7 +3507,7 @@ def main():
     # the JSON line's launches are each kernel's main path's (kernels 4-6:
     # BERT's, phase 10); ERNIE's (phase 12) are printed beside them
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
-    fleet_launches = {}
+    fleet_launches, pipe_launches, context = {}, {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -2858,12 +3527,15 @@ def main():
                    (16, lambda: phase_fit(name, graph.get("graph_ms",
                                                           float("nan")))),
                    (17, lambda: fleet_launches.update(
-                       phase_distributed(name)))):
+                       phase_distributed(name))),
+                   (18, lambda: pipe_launches.update(phase_pipeline(name))),
+                   (19, lambda: context.update(zip(
+                       ("launches", "rows"), phase_context(name))))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
-    if only != set(range(3, 18)):
+    if only != set(range(3, 20)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -2886,6 +3558,14 @@ def main():
         f"{TIMED_STEPS} steps): {ernie_launches}")
     log(f"[done] launches of kernels 1-3 at 6 heads a rank (phase 17c, "
         f"mp 2, {FLEET_STEPS} steps, each rank): {fleet_launches}")
+    log(f"[done] launches on ERNIE's pipe at pp 2 (phase 18c, rank 0, "
+        f"{ERNIE_PIPE_STEPS} steps): {pipe_launches}")
+    log(f"[done] kernel 1's launches a rank over {FLEET_STEPS} steps at sep "
+        f"2 (phase 19b; kernels 2 and 3 alike): "
+        + ", ".join(f"{m} rank {r} {n}" for (m, r), n
+                    in context["launches"].items()))
+    log(f"[done] the ring's block calls at b8 s512 h12 d128 (phase 19b): "
+        + json.dumps(context["rows"]))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -17,7 +17,8 @@ which is what the reference's docstring says its collectives give.
   shard in, this rank's shard out;
 - ``sync_op`` is accepted; every call completes before it returns;
 - ``send``, ``recv``, ``isend`` and ``irecv`` raise, as the reference's
-  do; ``ppermute`` is the point-to-point form, one batch of ``P2POp``\\ s.
+  do; ``ppermute`` is the point-to-point form, one batch of ``P2POp``\\ s,
+  over :func:`p2p` (any batch of sends and receives, the pipeline's).
 
 NCCL runs the CUDA tensors (it refuses two ranks on one card), gloo the
 CPU ones, and CUDA tensors by way of the host. Every call goes through
@@ -34,7 +35,8 @@ from . import env as env_mod
 __all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
            "all_gather", "broadcast", "reduce", "scatter", "gather",
            "reduce_scatter", "all_to_all", "alltoall", "alltoall_single",
-           "barrier", "wait", "ppermute", "send", "recv", "isend", "irecv",
+           "barrier", "wait", "ppermute", "p2p", "send", "recv", "isend",
+           "irecv",
            "all_gather_object", "broadcast_object_list",
            "scatter_object_list", "destroy_process_group", "get_backend",
            "is_available"]
@@ -201,6 +203,34 @@ def reduce_scatter(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
     return _comm.chunk_of(red, axis, pair).contiguous()
 
 
+def _staged(t, pair):
+    """Whether ``t`` crosses the group through the host: a CUDA tensor
+    on a gloo group, which gloo's point-to-point and all-to-all read as
+    host memory."""
+    return t.is_cuda and dist.get_backend(pair[1]) == "gloo"
+
+
+def _all_to_all_list(ins, pair):
+    """Member ``j`` receives every member's ``ins[j]``, in member order
+    (CUDA tensors staged through the host on gloo). Gloo has no list
+    all-to-all on every torch version, so there chunks of one shape go
+    as one ``all_to_all_single`` over their stack."""
+    ins = [t.contiguous() for t in ins]
+    staged = _staged(ins[0], pair)
+    if dist.get_backend(pair[1]) == "gloo" and all(
+            t.shape == ins[0].shape and t.dtype == ins[0].dtype
+            for t in ins):
+        x = torch.stack(ins)
+        sent = x.cpu() if staged else x
+        out = torch.empty_like(sent)
+        _comm.run(dist.all_to_all_single, x, pair, out, sent)
+        return list((out.to(x.device) if staged else out).unbind(0))
+    sent = [t.cpu() for t in ins] if staged else ins
+    outs = [torch.empty_like(t) for t in sent]
+    _comm.run(dist.all_to_all, ins[0], pair, outs, sent)
+    return [o.to(ins[0].device) for o in outs] if staged else outs
+
+
 def all_to_all(out_tensor_list, in_tensor_list=None, group=None,
                sync_op=True, split_axis=0, concat_axis=0):
     """``all_to_all(out_list, in_list)``: member ``j`` receives every
@@ -211,15 +241,10 @@ def all_to_all(out_tensor_list, in_tensor_list=None, group=None,
     reference's tiled ``jax.lax.all_to_all`` on this rank's shard)."""
     pair = _pair(group)
     if isinstance(out_tensor_list, list) and in_tensor_list is not None:
-        ins = [t.contiguous() for t in in_tensor_list]
-        outs = [torch.empty_like(t) for t in ins]
-        _comm.run(dist.all_to_all, ins[0], pair, outs, ins)
-        out_tensor_list.extend(outs)
+        out_tensor_list.extend(_all_to_all_list(in_tensor_list, pair))
         return out_tensor_list
     x = out_tensor_list
-    ins = [c.contiguous() for c in x.chunk(len(pair[0]), split_axis)]
-    outs = [torch.empty_like(c) for c in ins]
-    _comm.run(dist.all_to_all, x, pair, outs, ins)
+    outs = _all_to_all_list(x.chunk(len(pair[0]), split_axis), pair)
     return torch.cat(outs, dim=concat_axis)
 
 
@@ -245,26 +270,49 @@ def ppermute(tensor, perm, group=None):
     """``jax.lax.ppermute`` on ranks: ``perm`` holds ``(source, dest)``
     pairs of group ranks; this member's tensor goes to its dest and what
     its source sends comes back (zeros when none does). One batch of
-    ``P2POp``\\ s; a pair onto itself is a copy."""
+    ``P2POp``\\ s (:func:`p2p`); a pair onto itself is a copy."""
     pair = _pair(group)
-    ranks, pg = pair
-    me = ranks.index(dist.get_rank())
+    me = pair[0].index(dist.get_rank())
     dests = [d for s, d in perm if s == me]
     srcs = [s for s, d in perm if d == me]
     if len(dests) > 1 or len(srcs) > 1:
         raise ValueError(f"perm {perm} is not a permutation")
     out = torch.zeros_like(tensor)
-    ops = []
-    if dests and dests[0] != me:
-        ops.append(dist.P2POp(dist.isend, tensor.contiguous(),
-                              ranks[dests[0]], pg))
-    if srcs and srcs[0] != me:
-        ops.append(dist.P2POp(dist.irecv, out, ranks[srcs[0]], pg))
     if srcs and srcs[0] == me:
         out.copy_(tensor)
-    if ops:
-        _comm.run(_exchange, tensor, pair, ops)
+    p2p([(tensor, dests[0])] if dests and dests[0] != me else [],
+        [(out, srcs[0])] if srcs and srcs[0] != me else [], pair)
     return out
+
+
+def p2p(sends, recvs, group=None):
+    """One batch of point-to-point transfers: each ``(tensor, dest)`` of
+    ``sends`` goes to group rank ``dest``, each ``(buffer, src)`` of
+    ``recvs`` is filled in place from group rank ``src``; returns when
+    all are done. The peers must post the matching transfers in the
+    same order. ``group`` as the collectives take it, or a ``(ranks,
+    process group)`` pair. On gloo, CUDA tensors go through the host."""
+    pair = group if isinstance(group, tuple) and group \
+        and isinstance(group[0], list) else _pair(group)
+    ranks, pg = pair
+    if not sends and not recvs:
+        return
+    first = (sends or recvs)[0][0]
+    staged = _staged(first, pair)
+    ops, back = [], []
+    for t, dest in sends:
+        t = t.contiguous()
+        ops.append(dist.P2POp(dist.isend, t.cpu() if staged else t,
+                              ranks[dest], pg))
+    for buf, src in recvs:
+        got = torch.empty(buf.shape, dtype=buf.dtype) if staged \
+            or not buf.is_contiguous() else buf
+        ops.append(dist.P2POp(dist.irecv, got, ranks[src], pg))
+        if got is not buf:
+            back.append((buf, got))
+    _comm.run(_exchange, first, pair, ops)
+    for buf, got in back:
+        buf.copy_(got)
 
 
 def _exchange(ops, group):

@@ -6,12 +6,16 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``:
   ``hybrid_configs`` (starting the process group from the launcher's
   environment if it is not up) and installs the
   ``HybridCommunicateGroup``;
-- :func:`distributed_model` wraps a model in ``DataParallel`` only when
-  dp > 1, mp = 1 and pp = 1, as the reference does, and otherwise
-  returns the model itself. Under dp > 1 with mp or pp > 1 the model's
-  gradients are still summed over ``dp`` after each backward (the
-  reference gets that from GSPMD; Paddle's ``HybridParallelOptimizer``
-  does it in ``step``), by the same hooks ``DataParallel`` uses;
+- :func:`distributed_model` returns ``PipelineParallel`` for a
+  ``PipelineLayer`` under pp > 1 (which sums the gradients over dp once
+  a ``train_batch``), wraps a model in ``DataParallel`` when dp > 1,
+  mp = 1 and pp = 1, as the reference does, and otherwise returns the
+  model itself. Under dp > 1 with mp > 1 the model's gradients are
+  still summed over ``dp`` after each backward (the reference gets that
+  from GSPMD; Paddle's ``HybridParallelOptimizer`` does it in
+  ``step``), by the same hooks ``DataParallel`` uses. A model with
+  ``config.context_parallel`` holds a sequence chunk on each ``sep``
+  rank, so its gradients are summed over dp and sep together;
 - :func:`distributed_optimizer` returns the optimizer, as the
   reference does: each tensor-parallel parameter records its layout
   (``shard.Layout``), from which the clips and Lamb take the group
@@ -68,19 +72,35 @@ def get_hybrid_communicate_group() -> HybridCommunicateGroup:
     return ensure_hcg()
 
 
+def _batch_axes(model):
+    """The axes a model's batch is split over: dp, and sep for a model
+    run with ``context_parallel`` (each rank holds a sequence chunk)."""
+    cfg = getattr(model, "config", None)
+    return ("dp", "sep") if getattr(cfg, "context_parallel", False) \
+        else ("dp",)
+
+
 def distributed_model(model):
-    """``DataParallel(model)`` for pure data parallelism, else the model
-    (see the module note)."""
+    """``PipelineParallel`` for a ``PipelineLayer`` under pp > 1;
+    ``DataParallel(model)`` for pure data parallelism (over dp and, for
+    a context-parallel model, sep); else the model (see the module
+    note)."""
+    from ..collective import Group
     from ..parallel import DataParallel, _sync_gradients
+    from .meta_parallel.parallel_layers.pp_layers import PipelineLayer
+    from .meta_parallel.pipeline_parallel import PipelineParallel
 
     hcg = ensure_hcg()
-    dp = hcg.get_data_parallel_world_size()
-    if dp > 1 and hcg.get_model_parallel_world_size() == 1 \
+    if hcg.get_pipe_parallel_world_size() > 1 \
+            and isinstance(model, PipelineLayer):
+        return PipelineParallel(model, hcg, _fleet_strategy)
+    group = Group(_batch_axes(model))
+    if group.nranks > 1 and hcg.get_model_parallel_world_size() == 1 \
             and hcg.get_pipe_parallel_world_size() == 1:
-        return DataParallel(model)
-    if dp > 1:
-        model._dp_sync_handles = _sync_gradients(
-            model.parameters(), hcg.get_data_parallel_group()._pair())
+        return DataParallel(model, group=group)
+    if group.nranks > 1:
+        model._dp_sync_handles = _sync_gradients(model.parameters(),
+                                                 group._pair())
     return model
 
 

@@ -128,6 +128,23 @@ class HybridCommunicateGroup:
     def is_last_stage(self):
         return self.get_stage_id() == self.get_pipe_parallel_world_size() - 1
 
+    def get_rank_from_stage(self, stage_id):
+        """The global rank of stage ``stage_id`` in this rank's pp group
+        (the same coordinates on every other axis)."""
+        return self._pp_group.ranks[stage_id]
+
+    def _get_p2p_next_rank(self):
+        """The global rank of the next stage (the first after the last:
+        the pp group is a ring, as in Paddle)."""
+        n = self.get_pipe_parallel_world_size()
+        return self.get_rank_from_stage((self.get_stage_id() + 1) % n)
+
+    def _get_p2p_prev_rank(self):
+        """The global rank of the previous stage (the last before the
+        first)."""
+        n = self.get_pipe_parallel_world_size()
+        return self.get_rank_from_stage((self.get_stage_id() - 1) % n)
+
     # -- sharding --
     def get_sharding_parallel_world_size(self):
         return self._env.degree("sharding")

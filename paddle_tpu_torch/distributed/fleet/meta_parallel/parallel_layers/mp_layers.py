@@ -55,7 +55,8 @@ def _axis_group(axis, group=None):
         if hcg is None:
             return 1, 0, None
         group = {"mp": hcg.get_model_parallel_group,
-                 "dp": hcg.get_data_parallel_group}[axis]()
+                 "dp": hcg.get_data_parallel_group,
+                 "sep": hcg.get_sep_parallel_group}[axis]()
     pair = group._pair()
     if len(pair[0]) == 1:
         return 1, 0, None
@@ -300,16 +301,25 @@ class ParallelCrossEntropy(nn.Module):
         return loss[..., None]
 
 
-def masked_token_mean(loss, labels, ignore_index=-100):
+def masked_token_mean(loss, labels, ignore_index=-100, count=None,
+                      group=None):
     """Mean of a per-token loss over the tokens whose label is not
     ``ignore_index``: the sum in fp32 over the count of valid labels of
     the global batch (at least 1), never over the total token count.
     Under ``dp`` (see the module note) the count is all-reduced and the
-    returned value is the global mean on every rank."""
-    cnt = (labels != ignore_index).sum()
-    n, _, group = _axis_group("dp")
-    if n > 1:
-        cnt = _comm.all_reduce(cnt.clone(), group)
+    returned value is the global mean on every rank. ``group``: the
+    ``(ranks, process group)`` the batch is split over instead of dp's
+    (dp and sep for a context-parallel model); ``count``: the global
+    count itself, when the caller has it (a pipeline's microbatches
+    share their whole batch's)."""
+    if group is None:
+        _, _, group = _axis_group("dp")
+    if count is None:
+        cnt = (labels != ignore_index).sum()
+        if group is not None and len(group[0]) > 1:
+            cnt = _comm.all_reduce(cnt.clone(), group)
+    else:
+        cnt = torch.as_tensor(count, device=loss.device)
     cnt = torch.clamp(cnt, min=1).to(torch.float32)
     mean = torch.sum(loss.to(torch.float32)) / cnt
     return _comm.reduce_from(mean, group).to(loss.dtype)

@@ -4,7 +4,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..distributed import _comm
+from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
+    PipelineLayer,
+)
 from ..distributed.shard import gather_global, local_piece
 
 __all__ = ["load_jax_weights", "gather_jax_layout"]
@@ -36,6 +41,11 @@ def load_jax_weights(model, arrays) -> None:
     unexpected name and ``ValueError`` on a shape mismatch, before any
     parameter is written.
 
+    A pipeline model (``LlamaForCausalLMPipe``,
+    ``ErnieForPretrainingPipe``) takes the reference ``PipelineLayer``'s
+    canonical ``state_dict`` (``"<index>.<param>"``): every rank passes
+    the whole of it and keeps its own stage's layers.
+
     A tensor-parallel parameter (one that records a ``_dist_layout``,
     under mp > 1) takes this rank's piece of the global array: every
     rank passes the same global arrays. The fused ``qkv_proj`` and
@@ -44,7 +54,8 @@ def load_jax_weights(model, arrays) -> None:
     its piece is *not* the contiguous chunk of the fused dim that GSPMD
     gives a device in the reference (``distributed.shard``).
     :func:`gather_jax_layout` is the inverse."""
-    params = dict(model.named_parameters())
+    pipe = isinstance(model, PipelineLayer)
+    params = dict(model.named_parameters(remove_duplicate=not pipe))
     given = {}
     for name, arr in arrays.items():
         key = name
@@ -53,7 +64,15 @@ def load_jax_weights(model, arrays) -> None:
                 key = real + name[len(alias):]
         if key in given and not np.array_equal(given[key], arr):
             raise ValueError(f"{name!r} and its alias disagree")
+        if pipe and model.held_elsewhere(key):
+            continue  # another stage's layer
         given[key] = arr
+    if pipe:  # a shared layer's copy may come under another occurrence
+        for name in set(params) - set(given):
+            for alt in model.tied_keys(name):
+                if alt in arrays:
+                    given[name] = arrays[alt]
+                    break
     missing = sorted(set(params) - set(given))
     unexpected = sorted(set(given) - set(params))
     if missing or unexpected:
@@ -85,10 +104,12 @@ def gather_jax_layout(model, grads=False) -> dict:
     parameter without one is left out) as the reference's global numpy
     arrays by name, on every rank: a tensor-parallel parameter's pieces
     are all-gathered over its axis and laid out as
-    :func:`load_jax_weights` cut them. Collective under mp > 1: every
-    rank must call it."""
+    :func:`load_jax_weights` cut them, and a pipeline model's stages put
+    together under their canonical keys. Collective under mp > 1 or
+    pp > 1: every rank must call it."""
     out = {}
-    for name, p in model.named_parameters():
+    pipe = isinstance(model, PipelineLayer)
+    for name, p in model.named_parameters(remove_duplicate=not pipe):
         t = p.grad if grads else p
         if t is None:
             continue
@@ -98,4 +119,9 @@ def gather_jax_layout(model, grads=False) -> dict:
         t = t.detach().to("cpu", copy=True)  # not a view of the model
         out[name] = (t.to(torch.float32) if t.dtype == torch.bfloat16
                      else t).numpy()
+    group = model.pp_group() if pipe else None
+    if group is not None:
+        stages = [None] * len(group[0])
+        _comm.run(dist.all_gather_object, None, group, stages, out)
+        out = {k: v for stage in stages for k, v in stage.items()}
     return out

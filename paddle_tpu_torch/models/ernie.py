@@ -27,7 +27,9 @@ training, or with an ``attention_mask``, the head-batched kernels 4-6
 (causal for NLG, bidirectional for NLU); with neither (eval without a
 mask) the flash kernels 1-3. The mask becomes the additive ``(mask - 1)
 * 1e4`` ``[b, 1, 1, s]`` in ``config.dtype``, as in BERT. The pipeline
-form (``ErnieForPretrainingPipe``) waits for the distributed slice.
+form, ``ErnieForPretrainingPipe``, runs one task's trunk and branch
+over ``PipelineLayer``'s stages; it takes no mask, so without dropout
+its attention runs on kernels 1-3.
 """
 from __future__ import annotations
 
@@ -36,6 +38,9 @@ from torch import nn
 
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     masked_token_mean,
+)
+from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
+    LayerDesc, PipelineLayer,
 )
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
@@ -46,7 +51,7 @@ from .bert import _Embedding, _init_weights, _LayerNorm, _Linear
 __all__ = ["ErnieConfig", "ErnieEmbeddings", "ErnieSelfAttention",
            "ErnieBlock", "ErnieTrunkBlock", "ErnieTaskBranch", "ErnieModel",
            "ErnieForPretraining", "ErnieForSequenceClassification",
-           "load_jax_weights"]
+           "ErnieForPretrainingPipe", "load_jax_weights"]
 
 
 class ErnieConfig:
@@ -381,3 +386,102 @@ class ErnieForSequenceClassification(_ErnieHead):
         nlu, _, _ = self.ernie(input_ids, token_type_ids, attention_mask)
         return self.classifier(F.dropout(
             nlu[:, 0], self.config.hidden_dropout_prob, self.training))
+
+
+# -- the pipeline form ----------------------------------------------------------
+
+class _ErnieEmbeddingStage(nn.Module):
+    """The pipe's first layer: the embeddings, cast to the config's
+    dtype."""
+
+    def __init__(self, config, device):
+        super().__init__()
+        self.config = config
+        self.embeddings = ErnieEmbeddings(config, device)
+
+    def forward(self, input_ids):
+        return self.embeddings(input_ids).to(to_torch_dtype(
+            self.config.dtype))
+
+
+class _ErnieHeadStage(nn.Module):
+    """The pipe's last layer: the task's branch and its pretraining head
+    (``_MLMHead`` for NLU, a bias-free ``[task_hidden, vocab]`` ``head``
+    for NLG)."""
+
+    def __init__(self, config, task, device):
+        super().__init__()
+        self.task = task
+        c = config
+        self.branch = ErnieTaskBranch(config, task == "nlg", device)
+        self.head = (_MLMHead(c.task_hidden_size, c.vocab_size,
+                              c.layer_norm_eps, c.hidden_act, device)
+                     if task == "nlu" else
+                     _Linear(c.task_hidden_size, c.vocab_size, device,
+                             has_bias=False))
+
+    def forward(self, x):
+        return self.head(self.branch(x))
+
+
+class _ErniePipeLoss:
+    """The pipe's ``loss_fn(logits, labels, count=None)``: fp32
+    cross-entropy averaged over the predicted tokens (``count``, the
+    whole batch's, when the pipeline gives it); NLG predicts the next
+    token (logits ``:-1`` against labels ``1:``)."""
+
+    def __init__(self, task):
+        self.shift = task == "nlg"
+
+    def _labels(self, labels):
+        return labels[:, 1:] if self.shift else labels
+
+    def token_count(self, labels):
+        return (self._labels(labels) != -100).sum()
+
+    def __call__(self, logits, labels, count=None):
+        if self.shift:
+            logits = logits[:, :-1]
+        labels = self._labels(labels)
+        per = F.cross_entropy(logits.to(torch.float32),
+                              labels.unsqueeze(-1), reduction="none")
+        return masked_token_mean(per, labels, -100, count=count)
+
+
+class ErnieForPretrainingPipe(PipelineLayer):
+    """The pipeline-parallel ERNIE (the reference's
+    ``ErnieForPretrainingPipe``): the trunk blocks are the repeated run,
+    split over the stages; ``_ErnieEmbeddingStage`` and
+    ``_ErnieHeadStage`` are the head and the tail. ``task`` fixes the
+    trunk's mask and the objective: ``"nlg"`` (causal, next-token LM)
+    or ``"nlu"`` (bidirectional, masked LM); labels ``[b, s]``. Each
+    layer's weights are drawn as ``ErnieForPretraining``'s are, from a
+    generator seeded ``seed + <index>``, so every stage layout builds
+    the same model. ERNIE has no tensor-parallel layers in the port, so
+    the pipe raises under mp > 1 (ROADMAP A.6)."""
+
+    def __init__(self, config: ErnieConfig, task="nlg", *, device="cuda",
+                 seed=0, **kwargs):
+        from ..distributed.fleet.base.topology import get_hcg
+
+        if task not in ("nlu", "nlg"):
+            raise ValueError(f"task must be 'nlu' or 'nlg', got {task!r}")
+        hcg = get_hcg()
+        if hcg is not None and hcg.get_model_parallel_world_size() > 1:
+            raise NotImplementedError(
+                "ErnieForPretrainingPipe under mp > 1: ERNIE's "
+                "tensor-parallel layers are not ported (ROADMAP A.6)")
+        dev = resolve_device(device)
+        descs = ([LayerDesc(_ErnieEmbeddingStage, config, dev)]
+                 + [LayerDesc(ErnieTrunkBlock, config, dev,
+                              causal=task == "nlg")
+                    for _ in range(config.num_hidden_layers)]
+                 + [LayerDesc(_ErnieHeadStage, config, task, dev)])
+        super().__init__(layers=descs, loss_fn=_ErniePipeLoss(task),
+                         recompute_interval=1 if config.recompute else 0,
+                         **kwargs)
+        self.config = config
+        self.task = task
+        for idx, module in self.named_children():
+            _init_weights(module, torch.Generator(device=dev).manual_seed(
+                seed + int(idx)), dev)

@@ -8,10 +8,12 @@ can fill the port from the reference model's arrays one name at a time.
 
 Two paths read the same trainable parameters: the full-sequence
 ``forward`` (training: logits, or the loss given labels), whose
-attention runs through the flash-attention kernels, and the decode path
+attention runs through the flash-attention kernels (or ring or Ulysses
+attention over ``sep`` with ``context_parallel``), and the decode path
 (``models/generation.py``, ``serving/engine.py``), which reads the
 stacked weights through ``generation._collect_params`` under
-``no_grad``.
+``no_grad``. ``LlamaForCausalLMPipe`` is the same model as a
+``PipelineLayer``, its layers split over pipeline stages.
 """
 from __future__ import annotations
 
@@ -19,6 +21,9 @@ import torch
 from torch import nn
 
 from ..distributed import _comm
+from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
+    LayerDesc, PipelineLayer,
+)
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding, _axis_group, masked_token_mean,
@@ -34,6 +39,7 @@ from ..nn import functional as F
 from ._weights import load_jax_weights
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
+           "LlamaForCausalLMPipe", "to_pipe_layout", "from_pipe_layout",
            "load_jax_weights"]
 
 
@@ -169,11 +175,21 @@ class _Weight(nn.Module):
 class _Parallel:
     """What the layers need of the hybrid topology: the ``mp`` degree,
     this rank's place on it and its group (1, 0, None without a hybrid
-    group), and whether the sequence is sharded (SP)."""
+    group), whether the sequence is sharded over mp (SP), and under
+    ``context_parallel`` the ``sep`` degree and this rank's place on it
+    (``cp_n``, ``cp_rank``) and the group the batch is split over, dp
+    and sep (``batch_group``; None: dp's)."""
 
     def __init__(self, config):
         self.n, self.rank, self.group = _axis_group("mp")
         self.sp = bool(config.sequence_parallel) and self.n > 1
+        self.cp_n, self.cp_rank, _ = _axis_group("sep") \
+            if config.context_parallel else (1, 0, None)
+        self.batch_group = None
+        if self.cp_n > 1:
+            from ..distributed import env as env_mod
+
+            self.batch_group = env_mod.ensure_env().group(("dp", "sep"))
 
     def leaf(self, kind, *args, **kw):
         """A column (``"col"``) or row (``"row"``) parallel linear, the
@@ -208,6 +224,7 @@ class LlamaAttention(nn.Module):
     def __init__(self, config, dtype, device, par):
         super().__init__()
         self.config = config
+        self._par = par
         h = config.hidden_size
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
@@ -237,10 +254,16 @@ class LlamaAttention(nn.Module):
         q, k, v = torch.split(
             qkv, [self._nh * d, self._nkv * d, self._nkv * d], dim=-1)
         # RoPE returns the projection's dtype (low under auto_cast O1,
-        # where x, the fp32 RMSNorm output, is not)
+        # where x, the fp32 RMSNorm output, is not). Under context
+        # parallelism this rank holds chunk cp_rank of the sequence: its
+        # tokens sit at global positions cp_rank * s + arange(s)
+        par = self._par
+        pos = None
+        if par.cp_n > 1:
+            pos = torch.arange(s, device=q.device) + par.cp_rank * s
         q, k = _rope(q.reshape(b, s, self._nh, d),
                      k.reshape(b, s, self._nkv, d), cfg.rope_theta,
-                     q.dtype)
+                     q.dtype, pos=pos)
         # v stays a strided view of the projection: the kernels read
         # [b, s, h, d] through strides. GQA runs in the kernels, which
         # map each q head to its kv head without repeating K/V.
@@ -248,7 +271,18 @@ class LlamaAttention(nn.Module):
         if self._kv_index is not None:
             k = k.index_select(2, self._kv_index)
             v = v.index_select(2, self._kv_index)
-        if cfg.sliding_window > 0:
+        if cfg.context_parallel:
+            # the reference repeats KV under context parallelism (Ulysses
+            # needs equal head counts), then runs ring or Ulysses over sep
+            if k.shape[2] != self._nh:
+                rep = self._nh // k.shape[2]
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            attend = F.ulysses_attention \
+                if cfg.context_parallel_mode == "ulysses" \
+                else F.ring_flash_attention
+            out = attend(q, k, v, axis="sep", causal=True)
+        elif cfg.sliding_window > 0:
             out = F.sliding_window_attention(q, k, v, cfg.sliding_window)
         else:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
@@ -326,6 +360,37 @@ class LlamaModel(nn.Module):
         return GatherOp.apply(x, par.group) if par.sp else x
 
 
+def _init_weights(module, generator, dev):
+    """normal(0, 0.02) for the embedding and projections, drawn in fp32
+    on each parameter's global shape and cut to this rank's piece, and
+    ones for the RMSNorm scales, in ``named_parameters`` order."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+                continue
+            layout = getattr(p, "_dist_layout", None)
+            w = torch.empty(p.shape if layout is None else layout.shape,
+                            dtype=torch.float32, device=dev)
+            w.normal_(0.0, 0.02, generator=generator)
+            p.copy_(w if layout is None else local_piece(w, layout))
+
+
+def _token_loss(ce, logits, labels, count=None, group=None):
+    """The causal LM's loss: fp32 logits into ``ce`` (a
+    ``ParallelCrossEntropy``) or, when None, ``F.cross_entropy``, then
+    ``masked_token_mean`` (its ``count`` and ``group``)."""
+    labels = labels.long()
+    if ce is not None:
+        loss = ce(logits.to(torch.float32), labels)
+        ignore = ce.ignore_index
+    else:
+        loss = F.cross_entropy(logits.to(torch.float32),
+                               labels.unsqueeze(-1), reduction="none")
+        ignore = -100
+    return masked_token_mean(loss, labels, ignore, count=count, group=group)
+
+
 class LlamaForCausalLM(nn.Module):
     """The causal LM. Weights are drawn from ``generator`` (a
     ``torch.Generator`` on ``device``; a fresh one seeded with 0 when
@@ -347,7 +412,15 @@ class LlamaForCausalLM(nn.Module):
     reduce-scattered out of ``o_proj`` and ``down_proj``, gathered
     before the LM head), and the norms' gradients are summed over
     ``mp`` in the backward. At mp 1 the model runs the single-card ops
-    and no collective."""
+    and no collective.
+
+    With ``context_parallel`` under sep > 1 each rank takes its chunk
+    of the sequence (``[b, s/n]`` ids and labels, chunks in sep order):
+    RoPE rotates by the chunk's global positions, K and V are repeated
+    to the query heads, attention is ring or Ulysses over ``sep``
+    (``context_parallel_mode``), and the loss divides by the count over
+    dp and sep (``fleet.distributed_model`` then sums the gradients over
+    both). At sep 1 it is the plain model, op for op."""
 
     _jax_aliases = (("model.", "llama."),)
 
@@ -369,6 +442,11 @@ class LlamaForCausalLM(nn.Module):
                 raise NotImplementedError(
                     "ce_chunk_size under mp > 1 is not ported: the chunked "
                     "loss reads the whole LM head (ROADMAP A.6)")
+        if par.sp and par.cp_n > 1:
+            raise NotImplementedError(
+                "sequence_parallel together with context_parallel over "
+                "sep > 1 is not ported (ROADMAP A.6)")
+        self._par = par
         self.llama = LlamaModel(config, dtype, dev, par)
         self.lm_head = ColumnParallelLinear(
             config.hidden_size, config.vocab_size, has_bias=False,
@@ -378,17 +456,7 @@ class LlamaForCausalLM(nn.Module):
                         if config.use_parallel_cross_entropy else None)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("layernorm.weight") \
-                        or name == "llama.norm.weight":
-                    p.fill_(1.0)
-                    continue
-                layout = getattr(p, "_dist_layout", None)
-                w = torch.empty(p.shape if layout is None else layout.shape,
-                                dtype=torch.float32, device=dev)
-                w.normal_(0.0, 0.02, generator=generator)
-                p.copy_(w if layout is None else local_piece(w, layout))
+        _init_weights(self, generator, dev)
 
     @property
     def model(self) -> LlamaModel:
@@ -412,29 +480,17 @@ class LlamaForCausalLM(nn.Module):
         exist. The products go through ``F.linear`` (white under
         ``amp.auto_cast``)."""
         cfg = self.config
-        if cfg.context_parallel:
-            raise NotImplementedError(
-                "context_parallel (ring / Ulysses attention over a "
-                "sequence-sharded mesh) belongs to the distributed slice "
-                "of the port (ROADMAP queue A)")
+        group = self._par.batch_group
         hidden = self.model(input_ids)
         if labels is not None and self.loss_fn is None \
                 and cfg.ce_chunk_size > 0:
             per_tok = F.chunked_softmax_cross_entropy(
                 hidden, self.lm_head.weight, labels, cfg.ce_chunk_size)
-            return masked_token_mean(per_tok, labels, -100)
+            return masked_token_mean(per_tok, labels, -100, group=group)
         logits = self.lm_head(hidden)
         if labels is None:
             return logits
-        labels = labels.long()
-        if self.loss_fn is not None:
-            loss = self.loss_fn(logits.to(torch.float32), labels)
-            ignore = self.loss_fn.ignore_index
-        else:
-            loss = F.cross_entropy(logits.to(torch.float32),
-                                   labels.unsqueeze(-1), reduction="none")
-            ignore = -100
-        return masked_token_mean(loss, labels, ignore)
+        return _token_loss(self.loss_fn, logits, labels, group=group)
 
     def flops_per_token(self, seq_len):
         """Approximate training FLOPs per token (forward and backward,
@@ -459,3 +515,140 @@ class LlamaForCausalLM(nn.Module):
 
         return _generate(self, input_ids, max_new_tokens=max_new_tokens,
                          **kw)
+
+
+# -- the pipeline form ----------------------------------------------------------
+
+class _EmbeddingStage(nn.Module):
+    """The pipe's first layer: the (vocab-parallel) embedding, cast to
+    the config's dtype."""
+
+    def __init__(self, config, dtype, device, par):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, dtype=dtype,
+            device=device, generator=False)
+
+    def forward(self, input_ids):
+        return self.embed_tokens(input_ids).to(
+            to_torch_dtype(self.config.dtype))
+
+
+class _HeadStage(nn.Module):
+    """The pipe's last layer: the final RMSNorm and the (column-parallel)
+    LM head."""
+
+    def __init__(self, config, dtype, device, par):
+        super().__init__()
+        self.config = config
+        self.norm = _Weight((config.hidden_size,), dtype, device)
+        self.lm_head = ColumnParallelLinear(
+            config.hidden_size, config.vocab_size, has_bias=False,
+            gather_output=not config.use_parallel_cross_entropy,
+            dtype=dtype, device=device, generator=False)
+
+    def forward(self, x):
+        return self.lm_head(F.rms_norm(x, self.norm.weight,
+                                       self.config.rms_norm_eps))
+
+
+class _PipeLoss:
+    """The pipe's ``loss_fn(logits, labels, count=None)``: the causal
+    LM's loss (``LlamaForCausalLM``'s ops), divided by ``count`` when the
+    pipeline gives the whole batch's; ``token_count(labels)`` counts a
+    microbatch's labels."""
+
+    def __init__(self, config):
+        self.ce = ParallelCrossEntropy() \
+            if config.use_parallel_cross_entropy else None
+        self.ignore_index = -100 if self.ce is None \
+            else self.ce.ignore_index
+
+    def token_count(self, labels):
+        return (labels != self.ignore_index).sum()
+
+    def __call__(self, logits, labels, count=None):
+        return _token_loss(self.ce, logits, labels, count=count)
+
+
+class LlamaForCausalLMPipe(PipelineLayer):
+    """The pipeline-parallel Llama (the reference's
+    ``LlamaForCausalLMPipe``): ``_EmbeddingStage``, the decoder layers
+    (the repeated blocks, split over the stages) and ``_HeadStage`` as
+    :class:`~..distributed.fleet.meta_parallel.LayerDesc`\\ s, with the
+    causal LM's loss as ``loss_fn``; under mp > 1 each layer holds its
+    tensor-parallel pieces, as in ``LlamaForCausalLM``. Canonical keys
+    (``state_dict``): ``0.embed_tokens.weight``, ``{i + 1}.<decoder
+    layer i's names>``, ``{L + 1}.norm.weight`` and ``{L +
+    1}.lm_head.weight``; :func:`to_pipe_layout` maps the causal LM's
+    names to them. Each layer's weights are drawn as
+    ``LlamaForCausalLM``'s are, from a generator seeded ``seed +
+    <index>``, so every stage layout builds the same model. Sequence
+    and context parallelism are not ported for the pipe (ROADMAP
+    A.6)."""
+
+    def __init__(self, config: LlamaConfig, *, device="cuda", seed=0,
+                 **kwargs):
+        if config.moe_num_experts > 1:
+            raise NotImplementedError(
+                "the port does not build MoE Llama configs yet (ROADMAP "
+                "queue A lists the MoE layer)")
+        dev = resolve_device(device)
+        dtype = to_torch_dtype(config.dtype)
+        par = _Parallel(config)
+        if par.n > 1:
+            _check_even(config, par.n)
+        if par.sp or config.context_parallel:
+            raise NotImplementedError(
+                "LlamaForCausalLMPipe with sequence_parallel or "
+                "context_parallel is not ported (ROADMAP A.6)")
+        layer = (config, dtype, dev, par)
+        descs = ([LayerDesc(_EmbeddingStage, *layer)]
+                 + [LayerDesc(LlamaDecoderLayer, *layer)
+                    for _ in range(config.num_hidden_layers)]
+                 + [LayerDesc(_HeadStage, *layer)])
+        super().__init__(layers=descs, loss_fn=_PipeLoss(config),
+                         recompute_interval=1 if config.recompute else 0,
+                         **kwargs)
+        self.config = config
+        for idx, module in self.named_children():
+            _init_weights(module, torch.Generator(device=dev).manual_seed(
+                seed + int(idx)), dev)
+
+
+def to_pipe_layout(arrays, num_hidden_layers):
+    """``LlamaForCausalLM``'s parameters by name (``llama.*`` or
+    ``model.*``, ``lm_head.weight``) under ``LlamaForCausalLMPipe``'s
+    canonical keys."""
+    last = num_hidden_layers + 1
+    out = {}
+    for name, a in arrays.items():
+        rest = name.split(".", 1)[1] if name.startswith(("llama.", "model.")) \
+            else name
+        if rest.startswith("layers."):
+            i, leaf = rest[len("layers."):].split(".", 1)
+            out[f"{int(i) + 1}.{leaf}"] = a
+        elif rest == "embed_tokens.weight":
+            out["0." + rest] = a
+        elif rest in ("norm.weight", "lm_head.weight"):
+            out[f"{last}.{rest}"] = a
+        else:
+            raise KeyError(f"{name} is no parameter of the Llama")
+    return out
+
+
+def from_pipe_layout(arrays, num_hidden_layers):
+    """The inverse of :func:`to_pipe_layout` (``llama.*`` names)."""
+    last = num_hidden_layers + 1
+    out = {}
+    for key, a in arrays.items():
+        idx, leaf = key.split(".", 1)
+        idx = int(idx)
+        if idx == 0:
+            out["llama." + leaf] = a
+        elif idx == last:
+            out[leaf if leaf == "lm_head.weight" else "llama." + leaf] = a
+        else:
+            out[f"llama.layers.{idx - 1}.{leaf}"] = a
+    return out

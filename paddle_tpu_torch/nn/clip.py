@@ -10,17 +10,33 @@ A tensor-parallel parameter (one that records a ``_dist_layout``, under
 mp > 1) holds a piece of the global gradient: its norm is the global
 tensor's, its sharded parts' squares summed over its axis and its
 replicated parts counted once (``distributed.shard.global_sq_norms``),
-as the reference's norms over global arrays are.
+as the reference's norms over global arrays are. Under pp > 1 each
+stage holds its own parameters, so :class:`ClipGradByGlobalNorm` sums
+the squared norm over the pp group too, counting a weight shared by two
+stages once (its later copies are marked ``_pp_shared_dup``).
 """
 from __future__ import annotations
 
 import torch
+
+from ..distributed import _comm
 
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
 
 def _skip(p, g):
     return g is None or not getattr(p, "need_clip", True)
+
+
+def _pp_group():
+    """The pp group's ``(ranks, process group)`` under pp > 1, else
+    None: each stage holds its own parameters."""
+    from ..distributed.fleet.base.topology import get_hcg
+
+    hcg = get_hcg()
+    if hcg is None or hcg.get_pipe_parallel_world_size() == 1:
+        return None
+    return hcg.get_pipe_parallel_group()._pair()
 
 
 def _sq_norms(pairs):
@@ -88,10 +104,16 @@ class ClipGradByGlobalNorm(_Clip):
 
     @torch.no_grad()
     def __call__(self, params_grads):
-        sq = _sq_norms([(p, g) for p, g in params_grads if not _skip(p, g)])
-        if not sq:
+        pp = _pp_group()
+        sq = _sq_norms([(p, g) for p, g in params_grads if not _skip(p, g)
+                        and not getattr(p, "_pp_shared_dup", False)])
+        if not sq and pp is None:
             return params_grads
-        global_norm = torch.sqrt(torch.stack(sq).sum())
+        total = torch.stack(sq).sum() if sq else torch.zeros(
+            (), device=params_grads[0][0].device)
+        if pp is not None:
+            total = _comm.all_reduce(total, pp)
+        global_norm = torch.sqrt(total)
         scale = torch.clamp(self.clip_norm / global_norm.clamp(min=1e-12),
                             max=1.0)
         return [(p, g if _skip(p, g) else (g * scale).to(g.dtype))

@@ -18,6 +18,11 @@ on a CUDA tensor, their plain versions on a CPU tensor. Routing:
 - every other call (no mask, no dropout: the Llama path) goes to the
   flash entry (``ops/cuda/flash_attention.py``, kernels 1-3).
 
+``ring_flash_attention`` and ``ulysses_attention`` take each rank's
+chunk of the sequence over the ``sep`` group (``ops/ring_attention.py``,
+``ops/ulysses_attention.py``, both on kernels 1-3) and are
+:func:`scaled_dot_product_attention` at degree 1.
+
 A row-varying mask (``[.., sq, sk]``) has no TPU kernel; JAX sends it to
 its composite (``flash_attention.py:633-641``). The port has no
 composite: it raises ``NotImplementedError`` (ROADMAP queue A). There is
@@ -34,7 +39,8 @@ from ...framework import random
 from ...ops.cuda.flash_attention import NEG_INF, flash_attention
 from ...ops.cuda.head_flash import hb_flash
 
-__all__ = ["scaled_dot_product_attention", "sliding_window_attention"]
+__all__ = ["scaled_dot_product_attention", "sliding_window_attention",
+           "ring_flash_attention", "ulysses_attention"]
 
 
 def _key_padding_additive(mask, q_shape, k_shape):
@@ -92,3 +98,51 @@ def sliding_window_attention(query, key, value, window_size):
                                     value)
     return flash_attention(query, key, value, causal=True,
                            window=window_size)
+
+
+def _seq_group(axis):
+    """The group of ``axis`` (a ``collective.Group``), or None at degree
+    1 or without a parallel environment."""
+    from ...distributed import env as env_mod
+    from ...distributed.collective import Group
+
+    env = env_mod.get_env()
+    if env is None or env.degree(axis) <= 1:
+        return None
+    return Group((axis,))
+
+
+def ring_flash_attention(query, key, value, axis="sep", causal=True,
+                         name=None):
+    """Context-parallel exact attention: each rank of mesh ``axis`` holds
+    its chunk of the sequence (``[b, s/n, h, d]``, chunks in rank order)
+    and K/V rotate around the ring (``ops/ring_attention.py``, kernels
+    1-3 on each block). At degree 1 it is
+    :func:`scaled_dot_product_attention`."""
+    group = _seq_group(axis)
+    if group is None:
+        return scaled_dot_product_attention(query, key, value,
+                                            is_causal=causal)
+    from ...ops.ring_attention import ring_attention
+
+    query, key, value = cast_inputs("scaled_dot_product_attention", query,
+                                    key, value)
+    return ring_attention(query, key, value, group, causal=causal)
+
+
+def ulysses_attention(query, key, value, axis="sep", causal=True,
+                      name=None):
+    """DeepSpeed-Ulysses sequence parallelism: two all-to-alls over mesh
+    ``axis`` trade the sequence chunk for a head chunk, so each rank
+    attends over the whole sequence with ``h/n`` heads
+    (``ops/ulysses_attention.py``, kernels 1-3). At degree 1 it is
+    :func:`scaled_dot_product_attention`."""
+    group = _seq_group(axis)
+    if group is None:
+        return scaled_dot_product_attention(query, key, value,
+                                            is_causal=causal)
+    from ...ops.ulysses_attention import ulysses_attention as _ulysses
+
+    query, key, value = cast_inputs("scaled_dot_product_attention", query,
+                                    key, value)
+    return _ulysses(query, key, value, group, causal=causal)

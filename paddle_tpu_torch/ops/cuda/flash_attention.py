@@ -24,8 +24,10 @@ finite ``NEG_INF = -1e30``, lse ``= m + log(max(l, 1e-30))``, exact
 zeros for rows that see no key, and ``p = exp(s - lse)`` (0 where lse
 ``<= -0.5e30``) in the backward. lse and delta are plain ``[b * h, sq]``
 fp32 tensors (the TPU's ``[bh, sq, 128]`` lane broadcast is a Mosaic
-tiling rule), and the backward entries take them as arguments, so ring
-attention can later call them with an external lse.
+tiling rule), and the backward entries take them as arguments: ring
+attention (``ops/ring_attention.py``) calls kernels 2 and 3 on each key
+block with the global lse and delta of the combined output, and kernel
+1 without a mask on the blocks before the diagonal.
 
 What bounds the kernels: at the headline shape (b8, s1024, h12, d128,
 bf16, causal) about 26 GFLOP forward and 90 GFLOP backward against
@@ -60,7 +62,7 @@ The TPU kernels' two variants are template flags of the same kernels:
 
 The encoder path reaches the per-batch-row mask through
 ``ops/cuda/head_flash.py`` (kernels 4-6, which share these kernels'
-code); ring attention will call these variants with an external lse.
+code).
 
 Wrapper rules: CPU tensors go to the plain versions
 (:func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref`,

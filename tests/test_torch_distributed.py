@@ -531,10 +531,12 @@ def test_sharded_collective_matches_reference_in_mesh_order(worlds, world,
 def test_every_collective_goes_through_one_entry(worlds, world):
     """``_comm.run`` counts the collectives that stage CUDA tensors
     through the host (``jit.TrainStep`` reads the count), so every
-    public collective reaches ``torch.distributed`` through it."""
+    public collective reaches ``torch.distributed`` through it. (On gloo
+    ``all_to_all`` reaches it as ``all_to_all_single``: gloo has no list
+    all-to-all on every torch version.)"""
     _, ranks = worlds[world]
     want = {"all_reduce", "all_gather", "broadcast", "scatter",
-            "all_to_all", "all_to_all_single", "_exchange", "barrier",
+            "all_to_all_single", "_exchange", "barrier",
             "all_gather_object", "broadcast_object_list",
             "scatter_object_list"}
     for o in ranks:

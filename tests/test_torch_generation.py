@@ -480,3 +480,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.distributed.fleet.utils."
             "sequence_parallel_utils",
             "paddle_tpu_torch.distributed.fleet.utils.recompute"} <= names
+    # and the pipeline's and context parallelism's
+    assert {"paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "parallel_layers.pp_layers",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "pipeline_parallel",
+            "paddle_tpu_torch.ops.ring_attention",
+            "paddle_tpu_torch.ops.ulysses_attention",
+            "paddle_tpu_torch.models.llama",
+            "paddle_tpu_torch.models.ernie"} <= names
+    # chip_smoke.py (run where there is no jax) imports neither either
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names}
+    imported |= {n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module}
+    assert not {m for m in imported
+                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")}

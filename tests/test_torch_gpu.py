@@ -570,6 +570,65 @@ def test_flash_kernels_match_plain(cuda, shape, dtype):
         assert err <= rel_tol, f"{name}: per-tile relative error {err}"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_block_calls_match_plain(cuda, dtype):
+    """Ring attention's block calls (``ops/ring_attention.py``) at a small
+    shape, each against its plain version on the same inputs and, tile
+    by tile, on fp32 copies (the limits of
+    ``test_flash_kernels_match_plain``): kernel 1 on the diagonal block
+    (causal) and on an earlier key block (no mask), each returning lse;
+    then kernels 2 and 3 on each block given the *global* lse and delta
+    of the two blocks combined, as the ring's backward calls them."""
+    b, s, h, d = 2, 128, 4, 128
+    rng = np.random.RandomState(21)
+    q, k0, v0, k1, v1, do = (
+        torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+        .to(cuda, dtype) for _ in range(6))
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    rel_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    blocks = ((k0, v0, True), (k1, v1, False))
+    outs = []
+    for k, v, causal in blocks:
+        out, lse = fa.flash_fwd(q, k, v, causal=causal)
+        want_out, want_lse = fa.flash_fwd_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                                   rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+        f32, _ = fa.flash_fwd_ref(q.float(), k.float(), v.float(),
+                                  causal=causal)
+        assert _tile_rel_err(out, f32) <= rel_tol
+        outs.append((want_out.float(), want_lse))
+    # the global lse and output of the two blocks (the ring's combine)
+    (o0, l0), (o1, l1) = outs
+    lse = torch.logaddexp(l0, l1)
+
+    def rows(x):
+        return x.reshape(b, h, s).permute(0, 2, 1)[..., None]
+
+    out = (o0 * torch.exp(rows(l0 - lse))
+           + o1 * torch.exp(rows(l1 - lse))).to(dtype)
+    delta = fa._delta(do, out)
+    n = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    for k, v, causal in blocks:
+        kw = dict(causal=causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        want_dq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+        want_dk, want_dv = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                **kw)
+        f32 = [t.float() for t in (q, k, v, do)]
+        w32_dq = fa.flash_bwd_dq_ref(*f32, lse, delta, **kw)
+        w32_dk, w32_dv = fa.flash_bwd_dkv_ref(*f32, lse, delta, **kw)
+        for name, got, want, want32 in (("dq", dq, want_dq, w32_dq),
+                                        ("dk", dk, want_dk, w32_dk),
+                                        ("dv", dv, want_dv, w32_dv)):
+            _normalized_close(got, want, atol, name)
+            err = _tile_rel_err(got, want32)
+            assert err <= rel_tol, f"{name}: per-tile relative error {err}"
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == \
+        (n[0] + 2, n[1] + 2)
+
+
 def test_flash_reads_strided_qkv_views(cuda):
     """q/k/v as [b, s, h, d] views of one fused projection output (the
     Llama layout) give the results of contiguous copies, and the

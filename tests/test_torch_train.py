@@ -288,11 +288,18 @@ def test_llama_options_not_ported_raise():
     plain = TF.cross_entropy(tm(ids).to(torch.float32), ids.long()[..., None],
                              reduction="none").mean()
     torch.testing.assert_close(tm(ids, ids), plain, rtol=1e-6, atol=1e-6)
-    tm = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
+    # context parallelism is ported now: without a sep group the
+    # context-parallel model is the plain one, bit for bit
+    cp = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
                                            context_parallel=True),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tm(ids)
+    plain = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    assert torch.equal(cp(ids), plain(ids))
+    # MoE is not ported
+    with pytest.raises(NotImplementedError, match="MoE"):
+        LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
+                                          moe_num_experts=2), device="cpu")
 
 
 def test_flops_per_token_is_the_reference_count():
