@@ -3,8 +3,8 @@ distributed paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Nineteen phases in one process (phases 17, 18 and 19 also spawn two
-processes each); any failure
+Twenty phases in one process (phases 17 to 20 also spawn two processes
+each); any failure
 raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
@@ -177,7 +177,39 @@ only a run in which every phase passed prints the final line:
    (kernel 1 with and without the causal mask, keeping lse; kernels 2
    and 3 given the global lse and delta) against their plain versions
    (FLASH_REL_TOL per tile) and timed beside them, their bounds and
-   SDPA's non-causal calls.
+   SDPA's non-causal calls;
+20. experts, ZeRO and the sharded checkpoint: (a) the MoE Llama (the
+   headline widths with 8 experts a layer, top-2, capacity factor 1.25,
+   aux coefficient 0.01: 1.42 B parameters) on one card with 17b's
+   optimizer and clip at b8 x s1024 (T 8192, C 2560), 5 eager steps
+   whose updates read device scalars as a captured step's do, then
+   TrainStep on CUDA graphs (2 warm-up, 5 timed): the graph's losses
+   equal the eager ones bit for bit, one capture, 60 launches of each
+   of kernels 1-3; ms a step, peak, the tokens each layer dispatches
+   and drops, the aux losses; (b) its experts over dp 2, two ranks
+   sharing the card over gloo (4 experts and 4 rows a rank), 3 eager
+   steps: step 1's loss within 1e-3 of (a)'s and its gradients within
+   5e-2, the later losses within 1e-2 (see MOE_DRIFT_TOL),
+   36 launches of each of kernels 1-3 a rank, the bytes the dispatch
+   and combine moved, and how many of step 1's tokens the ranks sent to
+   another buffer row than one card; kernels 1-3 at a rank's shape (b4)
+   against their plain versions (FLASH_REL_TOL per tile). Two witnesses
+   of MOE_DRIFT_TOL: ``--fp32-witness`` runs 20b again in fp32, one card
+   against the two ranks, and prints the same readings; ``--fault
+   experts`` holds rank 1's experts at their first values (a planted
+   fault), and the phase must then fail; (c) ZeRO at sharding 2 on
+   the dense headline step, two ranks over gloo (4 rows a rank), os_g, p_g_os and os_g
+   with offload, 3 eager steps each: losses within 1e-3 of one card's,
+   step 1's gradients within 5e-2, each rank's peak and the bytes of
+   masters and moments on the card and on the host; offload's peak
+   below os_g's by at least 0.9 of the masters' and moments' bytes
+   (each parameter's are on the card during its own update only);
+   (d) the p_g_os
+   ranks save parameters, masters and moments with
+   ``save_state_dict(async_save=True)`` and one rank loads them into the
+   plain model and optimizer: every tensor's sha1 equals the ranks'
+   gathered state's, the next loss within 1e-3 of the ranks'; save and
+   load GB/s (parameters only, said so, where the disk has no room).
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -3494,20 +3526,628 @@ def phase_context(card):
     return launches, rows
 
 
+# -- phase 20 -----------------------------------------------------------------
+
+# the train cell's 0.44B widths with 8 experts a layer (top-2, capacity
+# factor 1.25, aux coefficient 0.01): 1.42 B parameters; at b8 x s1024
+# T = 8192 tokens and C = ceil(2 * 8192 / 8 * 1.25) = 2560 slots
+MOE = dict(TRAIN, moe_num_experts=8, moe_top_k=2, moe_aux_loss_coeff=0.01)
+MOE_STEPS = 5
+# the MoE Llama's step-1 gradient leaves, held as 17c's are (relative
+# Frobenius error, FLEET_GRAD_REL_TOL); the experts' every 16th hidden
+# unit (4 of their 12.6 M a leaf would be 200 MB in fp32)
+MOE_GRAD_LEAVES = tuple(
+    f"llama.layers.{i}.{leaf}"
+    for i in (0, FULL["num_hidden_layers"] - 1)
+    for leaf in ("input_layernorm.weight", "self_attn.qkv_proj.weight",
+                 "self_attn.o_proj.weight", "post_attention_layernorm.weight",
+                 "mlp.gate_weight", "mlp.w_in", "mlp.w_out")) + (
+    "llama.norm.weight", "llama.embed_tokens.weight", "lm_head.weight")
+# 20b's later steps: at step 1 the ranks' loss equals one card's (the
+# global gate routes every token alike) and the gradients differ by the
+# bf16 roundings of the dp sum (each rank's partial gradient, then the
+# sum: ~2.9e-3 relative on every replicated leaf, 0 on the experts);
+# AdamW's first steps move each weight by about lr whatever its
+# gradient's size, and a moved weight flips tokens between experts and
+# across the capacity, so the losses then part: 1.2e-3 and 3.1e-3 at
+# steps 2 and 3 (NVIDIA H100 80GB HBM3, 700 W). ``--fp32-witness``
+# reads the same run in fp32, ``--fault experts`` what this tolerance
+# still catches (rank 1's experts never updated); PERF.md has both
+MOE_DRIFT_TOL = 1e-2
+# --fp32-witness: the model, one card and two ranks, in fp32
+MOE_FP32 = dict(MOE, dtype="float32")
+# kernels 1-3 at the shape a 20b or 20c rank hands them (4 rows)
+RANK_FLASH_CASE = ("dp 2 rank", TRAIN_BATCH // 2, TRAIN_SEQ, TRAIN_SEQ,
+                   12, 12, True, 0, 128)
+# 20c: offload's peak below os_g's by at least this share of the
+# masters' and moments' bytes
+OFFLOAD_SAVING = 0.9
+ZERO_LEVELS = (("os_g", False), ("p_g_os", False), ("os_g", True))
+CKPT_TOL = 1e-3
+
+
+def _moe_grad_leaves(model):
+    """MOE_GRAD_LEAVES of the model's gradients as global fp32 arrays (an
+    expert leaf gathered over dp: collective under dp > 1); the
+    vocab-sized ones every 8th vocab row, the experts every 16th hidden
+    unit."""
+    from paddle_tpu_torch.distributed.shard import gather_global
+
+    params = dict(model.named_parameters())
+    out = {}
+    for n in MOE_GRAD_LEAVES:
+        p = params[n]
+        g = p.grad.detach()
+        lay = getattr(p, "_dist_layout", None)
+        if lay is not None:
+            g = gather_global(g.contiguous(), lay)
+        if n == "llama.embed_tokens.weight":
+            g = g[::8]
+        elif n == "lm_head.weight":
+            g = g[:, ::8]
+        elif n.endswith("mlp.w_in"):
+            g = g[:, :, ::16]
+        elif n.endswith("mlp.w_out"):
+            g = g[:, ::16]
+        out[n] = g.float().cpu().numpy()
+    return out
+
+
+def _n_params(cfg):
+    """The dense Llama's parameter count from its config."""
+    h, f, v, L = (cfg["hidden_size"], cfg["intermediate_size"],
+                  cfg["vocab_size"], cfg["num_hidden_layers"])
+    return 2 * v * h + L * (4 * h * h + 3 * h * f + 2 * h) + h
+
+
+def _moe_capacity(T):
+    from paddle_tpu_torch.incubate.distributed.models.moe.moe_layer import (
+        capacity,
+    )
+
+    return capacity(MOE["moe_top_k"], T, MOE["moe_num_experts"], 1.25)
+
+
+def _moe_model(seed=0, cfg=MOE):
+    return LlamaForCausalLM(LlamaConfig(**cfg), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                seed))
+
+
+def _graph_like_steps(model, opt, batch, steps):
+    """``steps`` eager steps whose updates round as a captured TrainStep's
+    do: the first with Python scalars (TrainStep's eager first call),
+    the later ones reading the rate and step count from device scalars
+    (``optimizer._dev_scalars``, as TrainStep._advance writes them for a
+    replay). Returns (losses, ms a step after the first)."""
+    buf = torch.zeros(2, dtype=torch.float64,
+                      device=next(model.parameters()).device)
+    losses = []
+    for i in range(steps):
+        if i == 1:  # the first step warms the allocator and the libraries
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        opt.clear_grad()
+        loss = model(*batch)
+        loss.backward()
+        if i:
+            buf.copy_(torch.tensor([float(opt.get_lr()),
+                                    float(opt._global_step + 1)],
+                                   dtype=torch.float64))
+            opt._dev_scalars = buf
+        try:
+            opt.step()
+        finally:
+            opt._dev_scalars = None
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    return [float(x) for x in losses], ms
+
+
+def _moe_one_card(card, ids, labels):
+    """20a: the MoE Llama on one card, eager and on graphs. Returns the
+    one-card losses, step 1's gradient leaves and the launches."""
+    layers = MOE["num_hidden_layers"]
+    model = _moe_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    experts = model.llama.layers[0].mlp
+    routes = _next_routes(model)
+    with torch.no_grad():  # the routing and aux losses at step 0
+        model(ids)
+    aux = [float(blk.mlp.aux_loss) for blk in model.llama.layers]
+    model(ids, labels).backward()
+    grads = _moe_grad_leaves(model)
+    model.zero_grad(set_to_none=True)
+    opt = _fleet_optimizer(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e_loss, e_ms = _graph_like_steps(model, opt, (ids, labels), MOE_STEPS)
+    e_peak = torch.cuda.max_memory_allocated() / 2**30
+    T = ids.numel()
+    kept = [[int(x) for x in blk.mlp.dispatched] for blk in
+            model.llama.layers]
+    del model, opt
+    _release()
+    model = _moe_model()
+    step = TrainStep(model, _fleet_optimizer(model), lambda m, i, l: m(i, l))
+    exec_cache.clear()
+    g_loss, g_ms, g_peak, launch = _run_steps(step, (ids, labels),
+                                              warmup=2, timed=MOE_STEPS)
+    cap = exec_cache.stats()["captures"]
+    same = g_loss[:MOE_STEPS] == e_loss
+    log(f"[experts] 20a: MoE Llama ({n_params / 1e9:.3f} B parameters: "
+        f"{MOE['moe_num_experts']} experts a layer of "
+        f"{(experts.w_in.numel() + experts.w_out.numel()) // 8 / 1e6:.1f} M, "
+        f"top-{MOE['moe_top_k']}, capacity factor "
+        f"{experts.capacity_factor}, {layers} layers, bf16) on {card}, "
+        f"b{TRAIN_BATCH} x s{TRAIN_SEQ} (T = {T}, C = "
+        f"{_moe_capacity(T)}), AdamW(1e-4, multi_precision) with "
+        f"ClipGradByGlobalNorm(1.0): eager {e_ms:.2f} ms a step (steps 2-"
+        f"{MOE_STEPS}), peak "
+        f"{e_peak:.3f} GiB; TrainStep on CUDA graphs {g_ms:.2f} ms a step, "
+        f"peak {g_peak:.3f} GiB, {cap} capture; losses {e_loss}; graph "
+        f"steps bit-identical to eager over {MOE_STEPS} steps (the eager "
+        f"updates read the captured step's device scalars): {same}; "
+        f"kernels 1-3 over the {MOE_STEPS} timed replays {launch}")
+    log(f"[experts] 20a: tokens dispatched a layer (first choice, second "
+        f"choice; of {T} each; the rest dropped to the residual) at step "
+        f"{MOE_STEPS}: {kept}; aux loss a layer at step 0 "
+        f"{[round(a, 5) for a in aux]} (1.0 is a balanced gate)")
+    if not same:
+        raise AssertionError(f"20a: graph losses {g_loss} are not the eager "
+                             f"ones {e_loss}")
+    if any(n != layers * MOE_STEPS for n in launch.values()) or cap != 1:
+        raise AssertionError(f"20a: launches {launch}, captures {cap}")
+    if not all(np.isfinite(aux)):
+        raise AssertionError(f"20a: aux losses {aux}")
+    del model, step
+    _release()
+    return e_loss, grads, np.stack(routes), {
+        "eager_ms": e_ms, "graph_ms": g_ms,
+                           "peak_gib": g_peak, "launches": launch}
+
+
+def _next_routes(model):
+    """A list that each MoE layer's next forward appends its buffer rows
+    to (``route``'s ``rows``: both choices, ``[2, tokens]``, the global
+    ``expert * C + slot``, ``E * C`` where dropped); then the layer
+    routes as before."""
+    got = []
+    for blk in model.llama.layers:
+        def once(tokens, cap, mlp=blk.mlp, route=blk.mlp.route):
+            out = route(tokens, cap)
+            got.append(torch.stack(out[2]).cpu().numpy())
+            del mlp.route  # the class's own again
+            return out
+        blk.mlp.route = once
+    return got
+
+
+def _moe_fp32_one_card(ids, labels):
+    """The fp32 witness's yardstick: the MoE Llama in fp32 on one card,
+    3 eager steps. Returns (losses, step 1's gradient leaves, step 1's
+    buffer rows)."""
+    model = _moe_model(cfg=MOE_FP32)
+    opt = _fleet_optimizer(model)
+    routes = _next_routes(model)
+    losses = []
+    for i in range(FLEET_STEPS):
+        opt.clear_grad()
+        loss = model(ids, labels)
+        loss.backward()
+        if i == 0:
+            grads = _moe_grad_leaves(model)
+        opt.step()
+        losses.append(float(loss.detach()))
+    del model, opt
+    _release()
+    return losses, grads, np.stack(routes)
+
+
+def _moe_drift(tag, ranks, arrays, one, one_routes):
+    """Log how far 20b's ranks went from one card: every step's loss,
+    and at step 1 the token choices (either choice, any layer) that went
+    to another expert, or to another buffer row (a slot shifts when an
+    earlier token of its expert moved). Returns the largest loss
+    difference."""
+    drift = max(abs(a - b) for o in ranks
+                for a, b in zip(o["losses"], one))
+    got = np.concatenate([a["routes"] for a in arrays], axis=-1)
+    cap = _moe_capacity(got.shape[-1])  # a row // cap: expert, E dropped
+    moved = int((got // cap != one_routes // cap).sum())
+    shifted = int((got != one_routes).sum())
+    log(f"[experts] {tag}: the ranks' losses {ranks[0]['losses']} against "
+        f"one card's {one[:FLEET_STEPS]}: within {drift:.3e} (steps 2-"
+        f"{FLEET_STEPS} tol {MOE_DRIFT_TOL}, see MOE_DRIFT_TOL); at step "
+        f"1, of {got.size} token choices (layers x 2 x tokens), {moved} "
+        f"to another expert or dropped otherwise than on one card, "
+        f"{shifted} in another buffer row")
+    return drift
+
+
+def _freeze(opt, saved):
+    """``--fault experts``: put the experts' weights (and their masters)
+    back to ``saved``, as if the optimizer had skipped them."""
+    with torch.no_grad():
+        for p, w in saved:
+            p.copy_(w)
+            m = opt._master_weights.get(id(p))
+            if m is not None:
+                m.copy_(w)
+
+
+def _rank_20b(root, ids, labels, cfg, fault):
+    """One of 20b's two ranks sharing the card: the MoE Llama (``cfg``)
+    at dp 2, 4 experts here, 4 rows of the batch, 3 eager steps; with
+    ``fault`` rank 1's experts are never updated."""
+    from paddle_tpu_torch.distributed import fleet
+
+    dist = _rank_setup(root)
+    full = _moe_model(cfg=cfg)  # no hybrid group yet: every expert
+    weights = {n: p.detach() for n, p in full.named_parameters()}
+    fleet.init(is_collective=True, strategy=_strategy(dp=2))
+    model = _moe_model(1, cfg)
+    load_jax_weights(model, weights)
+    del full, weights
+    rank = dist.get_rank()
+    rows = slice(rank * TRAIN_BATCH // 2, (rank + 1) * TRAIN_BATCH // 2)
+    ids, labels = (torch.from_numpy(a[rows]).cuda() for a in (ids, labels))
+    net = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(_fleet_optimizer(model))
+    moe = [blk.mlp for blk in model.llama.layers]
+    saved = [(w, w.detach().clone()) for m in moe for w in (m.w_in, m.w_out)
+             ] if fault and rank == 1 else []
+    routes = _next_routes(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in FLASH_WRAPPERS:
+        w.launches = 0
+    losses, ms = [], []
+    for i in range(FLEET_STEPS):
+        t0 = time.perf_counter()
+        opt.clear_grad()
+        loss = net(ids, labels)
+        loss.backward()
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 -= time.perf_counter()
+            grads = _moe_grad_leaves(model)
+            t0 += time.perf_counter()
+        opt.step()
+        if saved:
+            _freeze(opt, saved)
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _save_rank(root, {
+        "losses": losses, "ms": ms,
+        "launches": {w.__name__: w.launches for w in FLASH_WRAPPERS},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "experts": moe[0].w_in.shape[0],
+        "params": sum(p.numel() for p in model.parameters()),
+        "comm_bytes": sum(m.comm_bytes for m in moe) // FLEET_STEPS,
+        "dispatched": [[int(x) for x in m.dispatched] for m in moe]},
+        dict(grads, routes=np.stack(routes)))
+    dist.destroy_process_group()
+
+
+def _state_bytes(opt, device):
+    """Bytes of the optimizer's masters and moments on ``device``'s
+    type."""
+    ts = list(opt._master_weights.values()) + [
+        v for st in opt._accumulators.values() for v in st.values()]
+    return sum(t.numel() * t.element_size() for t in ts
+               if t.device.type == device)
+
+
+def _zero_grad_leaves(model, opt):
+    """FLEET_GRAD_LEAVES of a ZeRO optimizer's gradient slices, gathered
+    whole (collective)."""
+    from paddle_tpu_torch.distributed.shard import gather_global
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    got = {}
+    for p, g in opt._params_grads():
+        n = names[id(p)]
+        if n in FLEET_GRAD_LEAVES:
+            lay = getattr(p, "_zero_layout", None)
+            if lay is not None:
+                g = gather_global(g.contiguous(), lay)
+            got[n] = g.detach().float().cpu().numpy()
+    return _pick_leaves(got)
+
+
+def _digests(model, opt):
+    """sha1 of every parameter (gathered whole, fp32) and of every tensor
+    of the optimizer's (whole) ``state_dict``, by name; collective under
+    ZeRO."""
+    import hashlib
+
+    out = {n: hashlib.sha1(a.tobytes()).hexdigest()
+           for n, a in gather_jax_layout(model).items()}
+    for k, v in opt.state_dict().items():
+        if isinstance(v, torch.Tensor):
+            t = v.detach().cpu().contiguous()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            out["opt/" + k] = hashlib.sha1(t.numpy().tobytes()).hexdigest()
+    return out
+
+
+def _rank_20c(root, ids, labels, ckpt, with_states):
+    """One of 20c's two ranks sharing the card: the dense 0.44B step at
+    sharding 2 under each ZeRO level, 3 eager steps; after ``p_g_os`` the
+    20d save (parameters and, with ``with_states``, the AdamW states)."""
+    from paddle_tpu_torch.distributed import checkpoint as ckp
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    dist = _rank_setup(root)
+    rank = dist.get_rank()
+    rows = slice(rank * TRAIN_BATCH // 2, (rank + 1) * TRAIN_BATCH // 2)
+    ids, labels = (torch.from_numpy(a[rows]).cuda() for a in (ids, labels))
+    out, arrays = {}, {}
+    for level, offload in ZERO_LEVELS:
+        tag = level + ("+offload" if offload else "")
+        fleet.init(is_collective=True, strategy=_strategy(sharding=2))
+        model = LlamaForCausalLM(LlamaConfig(**TRAIN), device="cuda",
+                                 generator=torch.Generator("cuda")
+                                 .manual_seed(0))
+        model, opt, _ = group_sharded_parallel(
+            model, _fleet_optimizer(model), level=level, offload=offload)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in FLASH_WRAPPERS:
+            w.launches = 0
+        losses, ms = [], []
+        for i in range(FLEET_STEPS):
+            t0 = time.perf_counter()
+            opt.clear_grad()
+            loss = model(ids, labels)
+            loss.backward()
+            if i == 0:
+                torch.cuda.synchronize()
+                t0 -= time.perf_counter()
+                got = _zero_grad_leaves(model, opt)
+                t0 += time.perf_counter()
+            opt.step()
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = {
+            "losses": losses, "ms": ms,
+            "launches": {w.__name__: w.launches for w in FLASH_WRAPPERS},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "states_device": _state_bytes(opt, "cuda"),
+            "states_host": _state_bytes(opt, "cpu"),
+            "pinned": all(t.is_pinned() for t in
+                          opt._master_weights.values()) if offload
+            else None,
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+        arrays.update({f"{tag}/{n}": a for n, a in got.items()})
+        if level == "p_g_os":  # 20d: the save
+            state = dict(model.state_dict(keep_vars=True))
+            if with_states:
+                state.update(ckp.optimizer_state(opt))
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            writer = ckp.save_state_dict(state, ckpt, async_save=True)
+            t_call = time.perf_counter() - t0
+            writer.join()
+            t_save = time.perf_counter() - t0
+            digests = _digests(model, opt)
+            opt.clear_grad()
+            with torch.no_grad():
+                nxt = float(model(ids, labels))
+            out["save"] = {"call_s": t_call, "join_s": t_save,
+                           "next": nxt,
+                           "digests": digests if rank == 0 else None}
+            del state, writer  # they hold the parameters and states
+        del model, opt
+        _release()  # ZeRO's hooks tie the model and plan in a cycle
+    _save_rank(root, out, arrays)
+    dist.destroy_process_group()
+
+
+def _load_20d(ckpt, with_states, want, ids, labels):
+    """20d at one rank: the checkpoint into the plain model (and AdamW);
+    every tensor's digest against the ZeRO ranks', the next loss against
+    theirs. Returns (seconds, bytes, loss)."""
+    from paddle_tpu_torch.distributed import checkpoint as ckp
+
+    model = LlamaForCausalLM(LlamaConfig(**TRAIN), device="cuda",
+                             generator=torch.Generator("cuda")
+                             .manual_seed(99))
+    opt = _fleet_optimizer(model)
+    state = dict(model.state_dict(keep_vars=True))
+    if with_states:
+        state.update(ckp.optimizer_state(opt))
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                 for f in os.listdir(ckpt))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckp.load_state_dict(state, ckpt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if with_states:
+        opt.set_state_dict(state)
+    got = _digests(model, opt)
+    if not with_states:
+        got = {k: v for k, v in got.items() if not k.startswith("opt/")}
+        want = {k: v for k, v in want.items() if not k.startswith("opt/")}
+    bad = sorted(k for k in want if got.get(k) != want[k])
+    if bad or got.keys() != want.keys():
+        raise AssertionError(f"20d: tensors not bit for bit: {bad[:5]} "
+                             f"(of {len(bad)}), keys "
+                             f"{sorted(set(got) ^ set(want))[:5]}")
+    with torch.no_grad():
+        loss = float(model(ids, labels))
+    del model, opt, state
+    _release()
+    return secs, nbytes, loss, len(want)
+
+
+def phase_experts(card, fault=False, fp32_witness=False):
+    """20a the MoE Llama on one card, eager and on graphs; 20b its
+    experts over dp 2 (two ranks on gloo), in bf16 and in fp32; 20c ZeRO
+    at sharding 2 (two ranks, os_g, p_g_os, os_g with offload) on the
+    dense cell; 20d the p_g_os ranks' sharded checkpoint loaded at one
+    rank. ``fault``: rank 1's experts are never updated in 20b;
+    ``fp32_witness``: 20b again in fp32, read and not held."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    _release()
+    ids, labels = _train_batch(TRAIN["vocab_size"], TRAIN_BATCH, TRAIN_SEQ)
+    layers = TRAIN["num_hidden_layers"]
+    # 20a
+    one, one_grads, one_routes, a = _moe_one_card(card, ids, labels)
+    # 20b
+    batch = (ids.cpu().numpy(), labels.cpu().numpy())
+    ranks, arrays, wall = _spawn_ranks(_rank_20b, batch + (MOE, fault))
+    for o in ranks:
+        log(f"[experts] 20b: rank {o['rank']} of 2 sharing {card}, experts "
+            f"over dp 2 on gloo: {o['experts']} experts a layer here "
+            f"({o['params'] / 1e9:.3f} B parameters), {TRAIN_BATCH // 2} "
+            f"rows, losses {o['losses']}, kernels 1-3 over {FLEET_STEPS} "
+            f"steps {o['launches']} (predicted {layers * FLEET_STEPS}), peak "
+            f"{o['peak_gib']:.3f} GiB, ms a step "
+            f"{[round(x, 1) for x in o['ms']]} (host-staged), dispatch and "
+            f"combine moved {o['comm_bytes'] / 2**20:.1f} MiB a forward "
+            f"(the backward the same), tokens dispatched a layer at step "
+            f"{FLEET_STEPS} {o['dispatched']}")
+    # step 1 at FLEET_CHECK_TOL, the later steps at MOE_DRIFT_TOL
+    witness = " with rank 1's experts never updated (--fault experts)" \
+        if fault else ""
+    drift = _moe_drift("20b" + witness, ranks, arrays, one, one_routes)
+    _hold("experts", "20b step 1", ranks, arrays, one[:1], one_grads,
+          {0: layers * FLEET_STEPS, 1: layers * FLEET_STEPS})
+    b_launches = ranks[0]["launches"]
+    if any(o["experts"] != MOE["moe_num_experts"] // 2 for o in ranks):
+        raise AssertionError("20b: a rank does not hold half the experts")
+    log(f"[experts] 20b: spawn to join {wall:.1f} s")
+    if fp32_witness:
+        t_fp32 = time.perf_counter()
+        one32, grads32, routes32 = _moe_fp32_one_card(ids, labels)
+        ranks32, arrays32, _ = _spawn_ranks(_rank_20b,
+                                            batch + (MOE_FP32, fault))
+        err = _grad_errors(arrays32, grads32)
+        log(f"[experts] 20b fp32 (--fp32-witness): step 1's gradients "
+            f"against one card's, relative Frobenius error "
+            f"{min(err.values()):.3e} to {max(err.values()):.3e} (bf16: "
+            f"see 20b step 1); peak a rank "
+            f"{max(o['peak_gib'] for o in ranks32):.3f} GiB; "
+            f"{time.perf_counter() - t_fp32:.1f} s")
+        _moe_drift("20b fp32" + witness, ranks32, arrays32, one32, routes32)
+    if not drift <= MOE_DRIFT_TOL:
+        raise AssertionError(f"20b: the losses left one card's by {drift}")
+    _flash_check(RANK_FLASH_CASE, torch.Generator("cuda").manual_seed(20),
+                 fused=True)
+    # 20c and 20d
+    (p_loss, _, p_peak, _, _), ref_grads = _one_card()
+    root = tempfile.mkdtemp(prefix="ckpt20d_")
+    ckpt = os.path.join(root, "ckpt")
+    free = shutil.disk_usage(root).free
+    # bf16 parameters 2 bytes, the fp32 master and two moments 12 bytes
+    need = 14 * _n_params(TRAIN)
+    with_states = free > 2 * need
+    log(f"[experts] 20d: {free / 2**30:.1f} GiB free where the checkpoint "
+        f"goes; saving parameters"
+        + (" and AdamW states" if with_states else " only (no room for "
+                                                    "the states)"))
+    try:
+        ranks, arrays, wall = _spawn_ranks(
+            _rank_20c, (ids.cpu().numpy(), labels.cpu().numpy(), ckpt,
+                        with_states))
+        for level, offload in ZERO_LEVELS:
+            tag = level + ("+offload" if offload else "")
+            for o in ranks:
+                r = o[tag]
+                log(f"[experts] 20c: rank {o['rank']} of 2 sharing {card}, "
+                    f"ZeRO {tag} at sharding 2 on gloo, {TRAIN_BATCH // 2} "
+                    f"rows: losses {r['losses']}, peak {r['peak_gib']:.3f} "
+                    f"GiB (one card {p_peak:.3f}), masters and moments "
+                    f"{r['states_device'] / 2**30:.3f} GiB on the card and "
+                    f"{r['states_host'] / 2**30:.3f} GiB on the host"
+                    + (f" (pinned: {r['pinned']})" if offload else "")
+                    + f", parameters {r['param_bytes'] / 2**30:.3f} GiB, "
+                    f"kernels 1-3 {r['launches']}, ms a step "
+                    f"{[round(x, 1) for x in r['ms']]} (host-staged)")
+            _hold("experts", f"20c {tag}",
+                  [dict(o[tag], rank=o["rank"]) for o in ranks],
+                  [{n[len(tag) + 1:]: a for n, a in got.items()
+                    if n.startswith(tag + "/")} for got in arrays],
+                  p_loss[:FLEET_STEPS], ref_grads,
+                  {0: layers * FLEET_STEPS, 1: layers * FLEET_STEPS})
+            if offload and not (all(o[tag]["pinned"] for o in ranks)
+                                and not any(o[tag]["states_device"]
+                                            for o in ranks)):
+                raise AssertionError("20c: offload left states on the card")
+            if offload:
+                saved = [o[level]["peak_gib"] - o[tag]["peak_gib"]
+                         for o in ranks]
+                want = OFFLOAD_SAVING * min(
+                    o[tag]["states_host"] for o in ranks) / 2**30
+                log(f"[experts] 20c {tag}: peak below {level}'s by "
+                    f"{[round(x, 3) for x in saved]} GiB a rank (at least "
+                    f"{want:.3f}: {OFFLOAD_SAVING} of the masters' and "
+                    f"moments' bytes)")
+                if not min(saved) >= want:
+                    raise AssertionError(
+                        f"20c: offload's peak is not below {level}'s by "
+                        f"the states: {saved} GiB, want {want:.3f}")
+        c_launches = ranks[0]["p_g_os"]["launches"]
+        log(f"[experts] 20c: spawn to join {wall:.1f} s")
+        save = [o["save"] for o in ranks]
+        secs, nbytes, loss, n = _load_20d(ckpt, with_states,
+                                          save[0]["digests"], ids, labels)
+        diff = max(abs(loss - s["next"]) for s in save)
+        log(f"[experts] 20d: p_g_os ranks' save_state_dict (async) of "
+            f"{nbytes / 1e9:.3f} GB: the call returned in "
+            f"{max(s['call_s'] for s in save):.2f} s, joined in "
+            f"{max(s['join_s'] for s in save):.2f} s "
+            f"({nbytes / 1e9 / max(s['join_s'] for s in save):.3f} GB/s); "
+            f"load_state_dict at one rank {secs:.2f} s "
+            f"({nbytes / 1e9 / secs:.3f} GB/s); {n} tensors bit for bit "
+            f"against the ranks' gathered state; next loss {loss:.6f} "
+            f"against the ranks' {[s['next'] for s in save]} (diff "
+            f"{diff:.3e}, tol {CKPT_TOL})")
+        if not diff <= CKPT_TOL:
+            raise AssertionError(f"20d: the loaded model's loss {loss} left "
+                                 f"the ranks' by {diff}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[experts] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"20a": a["launches"], "20b": b_launches,
+            "20c": c_launches}
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19",
+                    "19,20",
                     help="phases to run after 1 and 2, comma-separated")
-    only = {int(p) for p in ap.parse_args().phases.split(",")}
+    ap.add_argument("--fault", choices=("experts",),
+                    help="plant a fault to show that a check catches it: "
+                    "'experts' holds rank 1's experts at their first "
+                    "values in phase 20b, which must then fail")
+    ap.add_argument("--fp32-witness", action="store_true",
+                    help="run phase 20b again in fp32 and print how far "
+                    "the two ranks go from one card (a reading, not held)")
+    args = ap.parse_args()
+    only = {int(p) for p in args.phases.split(",")}
     name, smi = phase_device()
     phase_build()
     # the JSON line's launches are each kernel's main path's (kernels 4-6:
     # BERT's, phase 10); ERNIE's (phase 12) are printed beside them
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
-    fleet_launches, pipe_launches, context = {}, {}, {}
+    fleet_launches, pipe_launches, context, experts = {}, {}, {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -3530,12 +4170,15 @@ def main():
                        phase_distributed(name))),
                    (18, lambda: pipe_launches.update(phase_pipeline(name))),
                    (19, lambda: context.update(zip(
-                       ("launches", "rows"), phase_context(name))))):
+                       ("launches", "rows"), phase_context(name)))),
+                   (20, lambda: experts.update(phase_experts(
+                       name, args.fault == "experts",
+                       args.fp32_witness)))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
-    if only != set(range(3, 20)):
+    if only != set(range(3, 21)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -3566,6 +4209,10 @@ def main():
                     in context["launches"].items()))
     log(f"[done] the ring's block calls at b8 s512 h12 d128 (phase 19b): "
         + json.dumps(context["rows"]))
+    log(f"[done] launches of kernels 1-3 on the MoE Llama (phase 20a, "
+        f"{MOE_STEPS} replays): {experts['20a']}; a rank at dp 2 (20b, "
+        f"{FLEET_STEPS} steps): {experts['20b']}; a ZeRO p_g_os rank (20c, "
+        f"{FLEET_STEPS} steps): {experts['20c']}")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

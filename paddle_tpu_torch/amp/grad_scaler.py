@@ -55,8 +55,7 @@ class GradScaler:
         whether any is not finite."""
         if not self._enable or self._unscaled:
             return
-        grads = [p.grad for p in optimizer._parameter_list
-                 if p.grad is not None]
+        grads = [g for _, g in optimizer._params_grads()]
         found = False
         if grads:
             torch._foreach_div_(grads, self._scale)

@@ -1,6 +1,7 @@
 """paddle_tpu_torch.distributed: the collectives, the hybrid topology and
-fleet's tensor- and sequence-parallel layers on ``torch.distributed``,
-one process per rank (counterpart of ``paddle_tpu/distributed``; see
+fleet's tensor- and sequence-parallel layers, ZeRO (``sharding``) and
+the sharded checkpoint (``checkpoint``) on ``torch.distributed``, one
+process per rank (counterpart of ``paddle_tpu/distributed``; see
 ``env.py`` for how ranks map onto the reference's mesh)."""
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ from .shard import (  # noqa: F401
     sharding_constraint,
 )
 from .store import TCPStore  # noqa: F401
+from . import checkpoint  # noqa: F401
 from . import fleet  # noqa: F401
+from . import sharding  # noqa: F401
 
 __all__ = [
     "init_parallel_env", "get_rank", "get_world_size", "is_initialized",
@@ -37,4 +40,5 @@ __all__ = [
     "shard_tensor", "sharding_constraint", "shard_parameter", "replicate",
     "get_sharding", "PartitionSpec", "TCPStore",
     "init_mesh", "get_mesh", "get_env", "AXIS_ORDER", "fleet",
+    "checkpoint", "sharding",
 ]

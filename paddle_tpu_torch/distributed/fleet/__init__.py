@@ -72,12 +72,20 @@ def get_hybrid_communicate_group() -> HybridCommunicateGroup:
     return ensure_hcg()
 
 
-def _batch_axes(model):
-    """The axes a model's batch is split over: dp, and sep for a model
-    run with ``context_parallel`` (each rank holds a sequence chunk)."""
-    cfg = getattr(model, "config", None)
-    return ("dp", "sep") if getattr(cfg, "context_parallel", False) \
-        else ("dp",)
+def batch_axes(config=None):
+    """The mesh axes a model's batch is split over: dp; sharding when
+    its degree is > 1 (its ranks hold batch shards too, as Paddle's
+    sharding group does, whether or not ZeRO shards the states); and
+    sep for a model run with ``config.context_parallel`` (each rank
+    holds a sequence chunk)."""
+    hcg = get_hcg()
+    axes = ["dp"]
+    if hcg is not None and hcg.get_sharding_parallel_world_size() > 1:
+        axes.append("sharding")
+    if getattr(config, "context_parallel", False) and hcg is not None \
+            and hcg.get_sep_parallel_world_size() > 1:
+        axes.append("sep")
+    return tuple(axes)
 
 
 def distributed_model(model):
@@ -86,7 +94,7 @@ def distributed_model(model):
     a context-parallel model, sep); else the model (see the module
     note)."""
     from ..collective import Group
-    from ..parallel import DataParallel, _sync_gradients
+    from ..parallel import DataParallel, _batch_params, _sync_gradients
     from .meta_parallel.parallel_layers.pp_layers import PipelineLayer
     from .meta_parallel.pipeline_parallel import PipelineParallel
 
@@ -94,13 +102,13 @@ def distributed_model(model):
     if hcg.get_pipe_parallel_world_size() > 1 \
             and isinstance(model, PipelineLayer):
         return PipelineParallel(model, hcg, _fleet_strategy)
-    group = Group(_batch_axes(model))
+    group = Group(batch_axes(getattr(model, "config", None)))
     if group.nranks > 1 and hcg.get_model_parallel_world_size() == 1 \
             and hcg.get_pipe_parallel_world_size() == 1:
         return DataParallel(model, group=group)
     if group.nranks > 1:
-        model._dp_sync_handles = _sync_gradients(model.parameters(),
-                                                 group._pair())
+        model._dp_sync_handles = _sync_gradients(
+            _batch_params(model.parameters(), group.axes), group._pair())
     return model
 
 

@@ -37,9 +37,18 @@ well) and sums the microbatches; any other ``loss_fn`` is averaged over
 the microbatches, as Paddle does. The loss is then broadcast over the
 pp group, so every rank's ``train_batch`` returns it. ``train_batch``
 then sums the shared weights' gradients over their stages, sums every
-gradient over dp once (after the last microbatch's backward), and steps
-the optimizer; with a ``GradScaler`` the stages agree on whether any
-gradient was not finite.
+gradient over dp once (after the last microbatch's backward; an expert
+laid out over dp is left as it is), and steps the optimizer; with a
+``GradScaler`` the stages agree on whether any gradient was not finite.
+
+Under dp > 1 a rank's batch holds, for each microbatch in turn, its dp
+chunk of that microbatch: rank ``r`` of ``dp`` takes rows
+``global.reshape(n_micro, dp, -1, ...)[:, r]`` of the global batch, so
+the dp ranks' microbatch ``m`` together is the reference's microbatch
+``m`` (its rows ``m * B / n_micro`` onwards) in the reference's order.
+A dense model's loss does not depend on that order; an MoE layer's gate
+does, as it fills each expert's slots in token order over the whole
+microbatch.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ import torch.distributed as dist
 from ... import _comm
 from ... import env as env_mod
 from ...collective import p2p
+from ...parallel import _batch_params
 from .parallel_layers.pp_layers import PipelineLayer
 
 __all__ = ["PipelineParallel"]
@@ -340,7 +350,7 @@ class PipelineParallel:
         if len(self._dp_pair[0]) == 1:
             return
         by_dtype = {}
-        for p in self._layers.parameters():
+        for p in _batch_params(self._layers.parameters(), ("dp",)):
             if p.grad is not None:
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():

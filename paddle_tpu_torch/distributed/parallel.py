@@ -17,7 +17,9 @@ The port runs one process per rank:
   adds to every gradient. It sums, not averages: the port's losses
   divide by the global batch's count (``masked_token_mean``), so the sum
   is the gradient of the global mean, as in the reference; so gradients
-  accumulated over several backwards sum each backward's part once.
+  accumulated over several backwards sum each backward's part once. A
+  parameter laid out over the group's axes (an expert over dp) is not
+  summed: its gradient is whole on its rank.
 """
 from __future__ import annotations
 
@@ -124,6 +126,18 @@ class ParallelEnv:
     dev_id = device_id
 
 
+def _batch_params(params, axes):
+    """The parameters whose gradients a batch group over ``axes`` sums:
+    all but those laid out over one of ``axes`` (``shard.Layout``). Such
+    a parameter is not replicated there: each rank holds other experts
+    (``MoELayer`` over dp), and its backward already sums every rank's
+    tokens into its gradient through the layer's collectives."""
+    axes = set(axes or ())
+    return [p for p in params
+            if getattr(getattr(p, "_dist_layout", None), "axis", None)
+            not in axes]
+
+
 def _sync_gradients(params, group, enabled=lambda: True):
     """Sum over ``group`` what each backward adds to a parameter's
     gradient while ``enabled()``; returns the hook handles.
@@ -191,11 +205,13 @@ class DataParallel:
 
         object.__setattr__(self, "_layers", layers)
         object.__setattr__(self, "_sync", [True])
-        pair = get_group(group if group is not None else "dp")._pair()
+        group = get_group(group if group is not None else "dp")
+        pair = group._pair()
         handles = []
         if len(pair[0]) > 1:
-            handles = _sync_gradients(layers.parameters(), pair,
-                                      lambda: self._sync[0])
+            handles = _sync_gradients(
+                _batch_params(layers.parameters(), group.axes), pair,
+                lambda: self._sync[0])
         object.__setattr__(self, "_handles", handles)
 
     def __getattr__(self, name):

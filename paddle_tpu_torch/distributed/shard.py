@@ -29,7 +29,8 @@ from . import env as env_mod
 
 __all__ = ["PartitionSpec", "shard_tensor", "sharding_constraint",
            "replicate", "get_sharding", "shard_parameter", "local_piece",
-           "gather_global", "global_sq_norms", "set_layout"]
+           "gather_global", "global_sq_norms", "set_layout",
+           "grad_layout"]
 
 
 class PartitionSpec(tuple):
@@ -197,6 +198,14 @@ def shard_parameter(param, *spec):
         param.data = local_piece(param.data, param._dist_layout) \
             .contiguous()
     return param
+
+
+def grad_layout(param):
+    """The layout of ``param``'s gradient, states and master as the
+    optimizer holds them: ZeRO's slice (``_zero_layout``), else the
+    parameter's own (``_dist_layout``), else None (whole)."""
+    lay = getattr(param, "_zero_layout", None)
+    return lay if lay is not None else getattr(param, "_dist_layout", None)
 
 
 def global_sq_norms(layouts, tensors):

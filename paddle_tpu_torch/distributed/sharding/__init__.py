@@ -1,0 +1,7 @@
+"""ZeRO: ``group_sharded_parallel`` and ``save_group_sharded_model``
+(counterpart of ``paddle_tpu/distributed/sharding``)."""
+from .group_sharded import (  # noqa: F401
+    group_sharded_parallel, save_group_sharded_model,
+)
+
+__all__ = ["group_sharded_parallel", "save_group_sharded_model"]

@@ -1,0 +1,6 @@
+"""paddle_tpu_torch.incubate: the incubating APIs the port runs
+(counterpart of ``paddle_tpu/incubate``): the expert-parallel
+``MoELayer`` under ``distributed.models.moe``."""
+from . import distributed  # noqa: F401
+
+__all__ = ["distributed"]

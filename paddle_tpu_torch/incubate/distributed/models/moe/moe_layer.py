@@ -1,0 +1,279 @@
+"""Mixture-of-experts with the experts over the data-parallel ranks.
+
+Counterpart of ``paddle_tpu/incubate/distributed/models/moe/
+moe_layer.py``. The reference routes with GShard's dense one-hot
+tensors: ``combine`` and ``dispatch`` ``[T, E, C]`` (tokens, experts,
+capacity slots), the expert buffers and the combine as einsums over
+them, and GSPMD derives the token all-to-all from the experts' sharding
+over ``dp``. At T = 8192, E = 8 and C = 2560 one such tensor is 671 MB
+in fp32, and autograd would keep several per layer. The port computes
+the same routing by index:
+
+- each token's expert (``argmax`` of the fp32 softmax; ties to the
+  lowest index, as in JAX) and its slot in that expert's buffer, from
+  the same running counts (``cumsum``) as the reference's positions;
+  a second choice's slot comes after every first choice of its expert;
+- the kept tokens are copied into an ``[E * C + 1, H]`` buffer whose
+  last row takes every dropped token, so no shape depends on the data
+  and the forward never reads the host (a CUDA graph captures it);
+- the experts run as two batched products (``torch.bmm``), and each
+  token gathers its one or two outputs, weighted by its gates (cast to
+  ``x.dtype`` first, as the reference casts ``combine``). A dropped
+  token's row is 0: the residual carries it.
+
+Expert parallelism (``expert_axis="dp"``): under dp > 1 each rank holds
+``E / dp`` experts (``w_in`` and ``w_out`` laid out with
+``set_layout(w, "dp", 0)``) and routes its own tokens, but the gate is
+the reference's, global over the dp-split batch: the capacity counts
+every rank's tokens, a rank's slots start after the earlier ranks'
+tokens of the same expert (one all-gather of the per-expert counts),
+and the aux loss's means are over every token (the sum of the
+probabilities through ``_comm.reduce_from``). Each rank fills the slots
+of all E experts that its tokens take; a reduce-scatter over dp along
+the experts gives each rank its experts' buffers (the slots of two
+ranks never meet, so the sum is exact), and after the experts an
+all-gather returns every expert's outputs (its backward a
+reduce-scatter, as each rank's tokens read them). Those moves carry the
+bytes the reference's token all-to-all carries; ``comm_bytes`` counts
+them.
+
+:func:`moe_dense` is the plain version: the reference's one-hot
+tensors and einsums in PyTorch, on one rank.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .....distributed import _comm
+from .....distributed import shard
+from .....distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    _axis_group,
+)
+from .....framework.device import resolve_device
+
+__all__ = ["MoELayer", "moe_dense", "capacity"]
+
+_ACT = {"gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+        "relu": torch.relu,
+        "silu": torch.nn.functional.silu}
+
+
+def capacity(top_k, tokens, experts, capacity_factor):
+    """Slots per expert: ``ceil(top_k * T / E * capacity_factor)``, T the
+    global token count (the reference's expression)."""
+    return int(math.ceil(top_k * tokens / experts * capacity_factor))
+
+
+def _check_top_k(top_k):
+    if top_k not in (1, 2):
+        raise NotImplementedError(
+            f"top_k={top_k}: only top-1 (switch) and top-2 (gshard) "
+            "gates are implemented")
+
+
+class MoELayer(nn.Module):
+    """The expert-parallel FFN block: ``gate_weight [H, E]``, ``w_in [E,
+    H, F]``, ``w_out [E, F, H]`` (each rank's ``E / dp`` experts under
+    dp > 1), the activation ``gelu`` (tanh form, JAX's default),
+    ``relu`` or ``silu``, and the top-2 (GShard) or top-1 (Switch)
+    gate. ``forward([B, S, H])`` keeps the load-balancing aux loss on
+    ``self.aux_loss`` (fp32, global) for the caller to add, and the
+    count of this rank's tokens dispatched by each choice on
+    ``self.dispatched`` (``[top_k]``). Weights are drawn (Xavier normal
+    on each expert's matrix) from ``generator`` on their global shapes
+    and cut; ``generator=False`` leaves them unset."""
+
+    def __init__(self, d_model, d_hidden, num_experts, top_k=2,
+                 capacity_factor=1.25, activation="gelu", expert_axis="dp",
+                 gate="gshard", name=None, *, dtype=torch.float32,
+                 device="cuda", generator=None):
+        super().__init__()
+        _check_top_k(top_k)
+        if expert_axis != "dp":
+            raise NotImplementedError(
+                f"MoELayer with expert_axis={expert_axis!r} is not ported: "
+                "the experts lie over dp only (ROADMAP A.6)")
+        if activation not in _ACT:
+            raise ValueError(f"activation must be one of {sorted(_ACT)}, "
+                             f"got {activation!r}")
+        dev = resolve_device(device)
+        self.d_model, self.d_hidden = d_model, d_hidden
+        self.num_experts, self.top_k = num_experts, top_k
+        self.capacity_factor = capacity_factor
+        self.gate_type, self.act = gate, activation
+        self.expert_axis = expert_axis
+        self._n, self._rank, self._group = _axis_group("dp")
+        if num_experts % self._n:
+            raise ValueError(f"num_experts = {num_experts} does not split "
+                             f"evenly over dp = {self._n}")
+        self.gate_weight = nn.Parameter(torch.empty(
+            (d_model, num_experts), dtype=dtype, device=dev))
+        self.w_in = nn.Parameter(torch.empty(
+            (num_experts // self._n, d_model, d_hidden), dtype=dtype,
+            device=dev))
+        self.w_out = nn.Parameter(torch.empty(
+            (num_experts // self._n, d_hidden, d_model), dtype=dtype,
+            device=dev))
+        if self._n > 1:
+            for w, shape in ((self.w_in, (num_experts, d_model, d_hidden)),
+                             (self.w_out, (num_experts, d_hidden, d_model))):
+                shard.set_layout(w, expert_axis, 0, shape=shape)
+        if generator is not False:
+            self._draw(generator)
+        self.aux_loss = None
+        self.dispatched = None
+        self.comm_bytes = 0
+
+    @torch.no_grad()
+    def _draw(self, generator):
+        for p in (self.gate_weight, self.w_in, self.w_out):
+            layout = getattr(p, "_dist_layout", None)
+            shape = p.shape if layout is None else layout.shape
+            w = torch.empty(shape, dtype=torch.float32, device=p.device)
+            fan_in, fan_out = shape[-2], shape[-1]
+            w.normal_(0.0, (2.0 / (fan_in + fan_out)) ** 0.5,
+                      generator=generator)
+            p.copy_(w if layout is None else shard.local_piece(w, layout))
+
+    def _global_counts(self, counts):
+        """(the earlier dp ranks' per-expert counts, every rank's), each
+        ``[top_k, E]``, from this rank's ``counts``."""
+        if self._n == 1:
+            return torch.zeros_like(counts), counts
+        every = _comm.all_gather_list(counts, self._group)
+        before = sum(every[:self._rank], torch.zeros_like(counts))
+        return before, sum(every[1:], every[0])
+
+    def route(self, tokens, cap):
+        """The gate on this rank's ``tokens`` ``[T, H]`` at ``cap`` slots
+        an expert: ``(probs, gates, rows, first)``: the fp32 softmax
+        ``[T, E]``; for each choice the gate weights ``[T]`` (normalized
+        over the two under top-2, 0 where dropped) and the buffer rows
+        ``[T]`` (``expert * cap + slot``, ``E * cap`` where the token is
+        not dispatched); and every rank's count of first choices by
+        expert ``[E]``."""
+        E, k = self.num_experts, self.top_k
+        logits = torch.matmul(tokens, self.gate_weight.to(tokens.dtype))
+        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        experts = torch.arange(E, device=tokens.device)
+        idx = [torch.argmax(probs, dim=-1)]
+        masks = [idx[0][:, None] == experts]
+        if k == 2:
+            rest = probs * (1.0 - masks[0].to(probs.dtype))
+            idx.append(torch.argmax(rest, dim=-1))
+            masks.append(idx[1][:, None] == experts)
+        counts = torch.stack([m.sum(0) for m in masks])  # [k, E]
+        before, total = self._global_counts(counts)
+        gates, slots = [], []
+        for j, (i, m) in enumerate(zip(idx, masks)):
+            # the token's place among its expert's tokens in global order;
+            # the running count runs along the last dim of the [E, T]
+            # transpose (a scan down [T, E]'s 8 columns is ~100x slower)
+            run = torch.cumsum(m.t().to(torch.int32).contiguous(), 1)
+            pos = (run.gather(0, i[None, :])[0] - 1).to(torch.int64) \
+                + before[j][i]
+            if j == 1:  # after every first choice of the expert
+                pos = pos + total[0][i]
+            keep = pos < cap
+            gates.append(probs.gather(1, i[:, None])[:, 0] * keep)
+            slots.append((i * cap + pos, keep))
+        if k == 2:
+            denom = torch.clamp(gates[0] + gates[1], min=1e-9)
+            gates = [g / denom for g in gates]
+        # dispatched as the reference's dispatch = combine > 0
+        rows = [torch.where(keep & (g > 0), row,
+                            torch.full_like(row, E * cap))
+                for g, (row, keep) in zip(gates, slots)]
+        return probs, gates, rows, total[0]
+
+    def forward(self, x):
+        B, S, H = x.shape
+        E, k, n = self.num_experts, self.top_k, self._n
+        dt = x.dtype
+        T = B * S * n  # the global tokens: the batch is split evenly
+        C = capacity(k, T, E, self.capacity_factor)
+        tokens = x.reshape(B * S, H)
+        probs, gates, rows, first = self.route(tokens, C)
+        buf = tokens.new_zeros((E * C + 1, H)).index_copy(
+            0, torch.cat(rows), tokens.repeat(k, 1))
+        buf = buf[:E * C].view(E, C, H)
+        if n > 1:
+            self.comm_bytes += buf.numel() * buf.element_size()
+            buf = _comm.reduce_scatter(buf, 0, self._group)
+        h = _ACT[self.act](torch.bmm(buf, self.w_in.to(dt)))
+        out = torch.bmm(h, self.w_out.to(dt))
+        if n > 1:
+            out = _comm.gather_reduce(out, 0, self._group)
+            self.comm_bytes += out.numel() * out.element_size()
+        flat = torch.cat([out.reshape(E * C, H), out.new_zeros((1, H))])
+        y = None
+        for g, r in zip(gates, rows):
+            # index_select's backward is an index_add: each slot row has
+            # one token, so it adds exactly, unlike indexing's sort
+            part = g.to(dt)[:, None] * flat.index_select(0, r)
+            y = part if y is None else y + part
+        # the aux loss: E * sum(mean probability x share of first
+        # choices), both over the global tokens
+        me = _comm.reduce_from(probs.sum(0), self._group) / T
+        self.aux_loss = torch.sum(me * (first.to(torch.float32) / T)) * E
+        self.dispatched = torch.stack([(r < E * C).sum() for r in rows])
+        return y.reshape(B, S, H)
+
+
+def _gating_dense(logits, cap, top_k):
+    """The reference's gates (``_top2_gating``, ``_top1_gating``) on one
+    rank: ``(combine, dispatch, aux)``, combine and dispatch ``[T, E,
+    C]`` in fp32."""
+    T, E = logits.shape
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+
+    def one_hot(i, n):
+        return (i[:, None] == torch.arange(n, device=i.device)).to(
+            probs.dtype)
+
+    mask1 = one_hot(torch.argmax(probs, -1), E)
+    pos1 = torch.cumsum(mask1, 0) * mask1 - mask1
+    keep1 = mask1 * (pos1 < cap)
+    g1 = torch.sum(probs * keep1, -1)
+    loc1 = torch.sum(pos1 * keep1, -1).to(torch.int64)
+    combine = g1[:, None, None] * keep1[:, :, None] \
+        * one_hot(loc1, cap)[:, None, :]
+    if top_k == 2:
+        mask2 = one_hot(torch.argmax(probs * (1.0 - mask1), -1), E)
+        pos2 = (torch.cumsum(mask2, 0) - mask2
+                + torch.sum(mask1, 0, keepdim=True)) * mask2
+        keep2 = mask2 * (pos2 < cap)
+        g2 = torch.sum(probs * keep2, -1)
+        denom = torch.clamp(g1 + g2, min=1e-9)
+        g1, g2 = g1 / denom, g2 / denom
+        loc2 = torch.sum(pos2 * keep2, -1).to(torch.int64)
+        combine = (g1[:, None, None] * keep1[:, :, None]
+                   * one_hot(loc1, cap)[:, None, :]
+                   + g2[:, None, None] * keep2[:, :, None]
+                   * one_hot(loc2, cap)[:, None, :])
+    dispatch = (combine > 0).to(probs.dtype)
+    aux = torch.sum(torch.mean(probs, 0) * torch.mean(mask1, 0)) * E
+    return combine, dispatch, aux
+
+
+def moe_dense(x, gate_weight, w_in, w_out, top_k=2, capacity_factor=1.25,
+              activation="gelu"):
+    """The plain version of :class:`MoELayer` on one rank: the
+    reference's dense one-hot routing and einsums. Returns ``(y,
+    aux_loss, dispatch)``."""
+    _check_top_k(top_k)
+    B, S, H = x.shape
+    E = gate_weight.shape[1]
+    dt = x.dtype
+    cap = capacity(top_k, B * S, E, capacity_factor)
+    tokens = x.reshape(B * S, H)
+    combine, dispatch, aux = _gating_dense(
+        tokens @ gate_weight.to(dt), cap, top_k)
+    buf = torch.einsum("tec,th->ech", dispatch.to(dt), tokens)
+    h = _ACT[activation](torch.einsum("ech,ehf->ecf", buf, w_in.to(dt)))
+    out = torch.einsum("ecf,efh->ech", h, w_out.to(dt))
+    y = torch.einsum("tec,ech->th", combine.to(dt), out)
+    return y.reshape(B, S, H), aux, dispatch

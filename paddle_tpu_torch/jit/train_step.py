@@ -26,7 +26,10 @@ port captures it as one CUDA graph per signature through
   train eagerly, the Llama on graphs. So does a step that runs a
   collective over gloo on CUDA tensors (gloo carries them through the
   host; ``distributed._comm.host_staged``); NCCL collectives are
-  captured with the step;
+  captured with the step. A step whose optimizer ZeRO shards
+  (``group_sharded_parallel`` at world size > 1: its hooks drop and
+  stash gradients, and offload copies through the host) is eager too;
+  at world size 1 ZeRO is the identity and the step is captured;
 - on the CPU every call is eager.
 
 The ``auto_cast`` state is not part of the signature, as in the
@@ -207,7 +210,7 @@ class TrainStep:
         """The update under nan_check: copies of what it will overwrite,
         the update, and one finite flag over the loss, the gradients and
         everything the update wrote. Returns (flag, live, copies)."""
-        grads = [p.grad for p in self._params() if p.grad is not None]
+        grads = [g for _, g in self._opt._params_grads()]
         live = self._live()
         copies = [t.detach().clone() for t in live]
         self._opt.step()
@@ -411,7 +414,7 @@ class TrainStep:
         if first:
             rec = _Sig(amp_state())
         self._active = rec
-        if self._device.type != "cuda":
+        if self._device.type != "cuda" or self._opt._zero is not None:
             self._cache[sig] = rec
             return self._eager(batch, nan, lr)
         if not first and rec.graphs is not None \

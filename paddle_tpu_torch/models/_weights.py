@@ -11,6 +11,7 @@ from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
     PipelineLayer,
 )
 from ..distributed.shard import gather_global, local_piece
+from ..framework.io import to_tensor
 
 __all__ = ["load_jax_weights", "gather_jax_layout"]
 
@@ -20,10 +21,7 @@ def _to_tensor(arr) -> torch.Tensor:
     tensor with the same bits; a tensor as it is."""
     if isinstance(arr, torch.Tensor):
         return arr.detach()
-    arr = np.array(arr)  # a writable copy: from_numpy shares memory
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
+    return to_tensor(arr)
 
 
 def load_jax_weights(model, arrays) -> None:

@@ -297,6 +297,11 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     K/V through the int8 quantizer (see ``_block``)."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
+    if getattr(model.config, "moe_num_experts", 0) > 1:
+        raise NotImplementedError(
+            "generate() does not decode MoE Llama configs (the reference "
+            "refuses them too: the expert dispatch has no cached "
+            "single-token path); dense configs are supported")
     dev = resolve_device(device)
     _check_model_device(model, dev)
     if int8_weights is None:

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..distributed import _comm
+from ..distributed.fleet import batch_axes
 from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
     LayerDesc, PipelineLayer,
 )
@@ -35,6 +36,7 @@ from ..distributed.fleet.utils.sequence_parallel_utils import (
 from ..distributed.shard import local_piece
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
+from ..incubate.distributed.models.moe import MoELayer
 from ..nn import functional as F
 from ._weights import load_jax_weights
 
@@ -178,7 +180,8 @@ class _Parallel:
     group), whether the sequence is sharded over mp (SP), and under
     ``context_parallel`` the ``sep`` degree and this rank's place on it
     (``cp_n``, ``cp_rank``) and the group the batch is split over, dp
-    and sep (``batch_group``; None: dp's)."""
+    and sep, and over sharding as well under sharding > 1
+    (``batch_group``; None: dp's)."""
 
     def __init__(self, config):
         self.n, self.rank, self.group = _axis_group("mp")
@@ -186,10 +189,22 @@ class _Parallel:
         self.cp_n, self.cp_rank, _ = _axis_group("sep") \
             if config.context_parallel else (1, 0, None)
         self.batch_group = None
-        if self.cp_n > 1:
+        axes = batch_axes(config)
+        if axes != ("dp",):
             from ..distributed import env as env_mod
 
-            self.batch_group = env_mod.ensure_env().group(("dp", "sep"))
+            self.batch_group = env_mod.ensure_env().group(axes)
+        moe = config.moe_num_experts > 1
+        if moe and (self.sp or self.cp_n > 1):
+            raise NotImplementedError(
+                "MoE under sequence_parallel or context_parallel is not "
+                "ported (ROADMAP A.6): a rank's sequence chunk is not a "
+                "contiguous run of the global token order the gate counts "
+                "in")
+        if moe and "sharding" in axes:
+            raise NotImplementedError(
+                "MoE with sharding_degree > 1 is not ported (ROADMAP A.6): "
+                "the experts and their gate lie over dp alone")
 
     def leaf(self, kind, *args, **kw):
         """A column (``"col"``) or row (``"row"``) parallel linear, the
@@ -312,7 +327,14 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = _Weight((h,), dtype, device)
         self.self_attn = LlamaAttention(config, dtype, device, par)
         self.post_attention_layernorm = _Weight((h,), dtype, device)
-        self.mlp = LlamaMLP(config, dtype, device, par)
+        if config.moe_num_experts > 1:
+            self.mlp = MoELayer(
+                h, config.intermediate_size, config.moe_num_experts,
+                top_k=config.moe_top_k, activation="silu",
+                expert_axis=config.moe_expert_axis, dtype=dtype,
+                device=device, generator=False)
+        else:
+            self.mlp = LlamaMLP(config, dtype, device, par)
         if par.sp:
             for norm in (self.input_layernorm,
                          self.post_attention_layernorm):
@@ -420,18 +442,20 @@ class LlamaForCausalLM(nn.Module):
     to the query heads, attention is ring or Ulysses over ``sep``
     (``context_parallel_mode``), and the loss divides by the count over
     dp and sep (``fleet.distributed_model`` then sums the gradients over
-    both). At sep 1 it is the plain model, op for op."""
+    both). At sep 1 it is the plain model, op for op.
+
+    With ``moe_num_experts > 1`` each layer's MLP is a ``MoELayer``
+    (SiLU experts, the config's ``moe_top_k``; under dp > 1 each rank
+    holds its share of the experts) and the loss adds
+    ``moe_aux_loss_coeff`` times the layers' aux losses, as the
+    reference's ``_add_moe_aux`` does; ``generate()`` and the serving
+    engine refuse such a model, as the reference's do."""
 
     _jax_aliases = (("model.", "llama."),)
 
     def __init__(self, config: LlamaConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if config.moe_num_experts > 1:
-            raise NotImplementedError(
-                "the port does not build MoE Llama configs yet (the "
-                "reference's generate() and ServingEngine do not decode "
-                "them either); ROADMAP queue A lists the MoE layer")
         dev = resolve_device(device)
         dtype = to_torch_dtype(config.dtype)
         self.config = config
@@ -486,11 +510,28 @@ class LlamaForCausalLM(nn.Module):
                 and cfg.ce_chunk_size > 0:
             per_tok = F.chunked_softmax_cross_entropy(
                 hidden, self.lm_head.weight, labels, cfg.ce_chunk_size)
-            return masked_token_mean(per_tok, labels, -100, group=group)
+            return self._add_moe_aux(
+                masked_token_mean(per_tok, labels, -100, group=group))
         logits = self.lm_head(hidden)
         if labels is None:
             return logits
-        return _token_loss(self.loss_fn, logits, labels, group=group)
+        return self._add_moe_aux(
+            _token_loss(self.loss_fn, logits, labels, group=group))
+
+    def _add_moe_aux(self, loss):
+        """The loss plus ``moe_aux_loss_coeff`` times the sum of the MoE
+        layers' aux losses (each taken off its layer), under MoE."""
+        if self.config.moe_num_experts <= 1:
+            return loss
+        aux = None
+        for blk in self.model.layers:
+            a = blk.mlp.aux_loss
+            if a is not None:
+                aux = a if aux is None else aux + a
+                blk.mlp.aux_loss = None
+        if aux is not None:
+            loss = loss + self.config.moe_aux_loss_coeff * aux
+        return loss
 
     def flops_per_token(self, seq_len):
         """Approximate training FLOPs per token (forward and backward,
@@ -586,14 +627,11 @@ class LlamaForCausalLMPipe(PipelineLayer):
     ``LlamaForCausalLM``'s are, from a generator seeded ``seed +
     <index>``, so every stage layout builds the same model. Sequence
     and context parallelism are not ported for the pipe (ROADMAP
-    A.6)."""
+    A.6). Under MoE the pipe adds no aux loss: the reference's pipe
+    does not surface it either (its "Known limitation")."""
 
     def __init__(self, config: LlamaConfig, *, device="cuda", seed=0,
                  **kwargs):
-        if config.moe_num_experts > 1:
-            raise NotImplementedError(
-                "the port does not build MoE Llama configs yet (ROADMAP "
-                "queue A lists the MoE layer)")
         dev = resolve_device(device)
         dtype = to_torch_dtype(config.dtype)
         par = _Parallel(config)

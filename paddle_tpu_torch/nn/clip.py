@@ -10,7 +10,9 @@ A tensor-parallel parameter (one that records a ``_dist_layout``, under
 mp > 1) holds a piece of the global gradient: its norm is the global
 tensor's, its sharded parts' squares summed over its axis and its
 replicated parts counted once (``distributed.shard.global_sq_norms``),
-as the reference's norms over global arrays are. Under pp > 1 each
+as the reference's norms over global arrays are; so is a gradient
+that ZeRO cut to this rank's slice (``shard.grad_layout``) and an
+expert's over dp. Under pp > 1 each
 stage holds its own parameters, so :class:`ClipGradByGlobalNorm` sums
 the squared norm over the pp group too, counting a weight shared by two
 stages once (its later copies are marked ``_pp_shared_dup``).
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..distributed import _comm
+from ..distributed.shard import grad_layout
 
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
@@ -44,8 +47,8 @@ def _sq_norms(pairs):
     tensor-parallel parameter."""
     from ..distributed.shard import global_sq_norms
 
-    return global_sq_norms([getattr(p, "_dist_layout", None)
-                            for p, _ in pairs], [g for _, g in pairs])
+    return global_sq_norms([grad_layout(p) for p, _ in pairs],
+                           [g for _, g in pairs])
 
 
 class _Clip:
@@ -77,7 +80,7 @@ class ClipGradByNorm(_Clip):
     def __call__(self, params_grads):
         kept = [(p, g) for p, g in params_grads if not _skip(p, g)]
         dist_norms = {}
-        if any(hasattr(p, "_dist_layout") for p, _ in kept):
+        if any(grad_layout(p) is not None for p, _ in kept):
             dist_norms = {id(p): torch.sqrt(s) for (p, _), s in
                           zip(kept, _sq_norms(kept))}
         out = []

@@ -41,6 +41,19 @@ expressions (``addcmul``, ``addcdiv``) and so round at slightly other
 places. Lamb's trust ratio is a norm per parameter
 (``torch._foreach_norm``), never one over the group.
 
+ZeRO (``distributed.sharding.group_sharded_parallel``) sets
+``_zero``, the plan that gives each parameter's gradient slice
+(``_params_grads``), maps a parameter-shaped tensor to the part this
+rank updates (``_zero.part``: a view of its slice under ``os`` and
+``os_g``; under ``p_g_os`` the parameter is its slice already) and puts
+the parameters back together after the update. Masters and states are
+then made on slices, so the ``_foreach`` groups run over slices;
+``state_dict`` gathers them whole. With ``_initial_state_placement``
+set (offload, ``_offload_state``) the masters and states are kept where
+it puts them (pinned host memory on CUDA); each parameter's are copied
+to the device just before its own update and written back and dropped
+just after it, so the device holds one parameter's at a time.
+
 Capturable: ``jit.TrainStep`` captures the step as a CUDA graph, which
 would freeze any Python number in it. While ``_dev_scalars`` holds a
 float64 ``[lr, step]`` buffer on the device, ``step()`` reads the rate
@@ -58,6 +71,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..distributed.shard import grad_layout
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
@@ -155,6 +169,17 @@ class Optimizer:
         self._step_counts: dict = {}
         self._global_step = 0
         self._dev_scalars = None  # [lr, step] on the device while captured
+        # ZeRO's hooks (distributed.sharding.group_sharded_parallel; see
+        # the module note): the plan, and where new state is kept
+        self._zero = None
+        self._initial_state_placement = None
+        self._work_layout: dict = {}  # id(work) -> its layout, in a step
+
+    @property
+    def _offload_state(self):
+        """Whether masters and states are kept off the device and staged
+        to it one parameter at a time."""
+        return self._initial_state_placement is not None
 
     def _name(self, p):
         """The parameter's name, or ``""`` (the reference's ``p.name or
@@ -206,28 +231,70 @@ class Optimizer:
 
     # -- eager step -----------------------------------------------------------
 
+    def _part(self, t):
+        """The part of a parameter-shaped tensor ``t`` this rank updates:
+        ``t`` itself, or under ZeRO's ``os``/``os_g`` a view of its
+        slice (``_zero.part``)."""
+        return t if self._zero is None else self._zero.part(t)
+
+    def _keep(self, t):
+        """A new state or master as it is kept between steps
+        (``_initial_state_placement``: offload's host copy)."""
+        place = self._initial_state_placement
+        return t if place is None else place(t)
+
+    def _params_grads(self):
+        """``(param, gradient)`` for every trainable parameter that has
+        one; under ZeRO each gradient is this rank's slice."""
+        if self._zero is not None:
+            return self._zero.params_grads(self._parameter_list)
+        return [(p, p.grad) for p in self._parameter_list
+                if p.requires_grad and p.grad is not None]
+
     def _work(self, p, g, create=True):
         """(the tensor the rule updates, the gradient as the rule takes
-        it, the state): the fp32 master and an fp32 gradient for a
-        bf16/fp16 parameter under ``multi_precision``, else the parameter
-        and the gradient in its dtype. States and masters are made at
-        first use (``create``; a captured step finds them made)."""
+        it, the state, whether the first is a master): the fp32 master
+        and an fp32 gradient for a bf16/fp16 parameter under
+        ``multi_precision``, else the parameter (its slice's view under
+        ZeRO) and the gradient in its dtype. States and masters are made
+        at first use (``create``; a captured step finds them made) and
+        kept by ``_keep``; under offload the ones returned are their
+        device copies, which :meth:`_park` writes back: the caller holds
+        them for one parameter's update only."""
         key = id(p)
-        if p.dtype in _LOW_PRECISION and self._multi_precision:
+        master = p.dtype in _LOW_PRECISION and self._multi_precision
+        if master:
             work = self._master_weights.get(key)
             if work is None:
-                work = p.detach().to(torch.float32)
+                work = self._part(p.detach()).to(torch.float32)
                 if create:
-                    self._master_weights[key] = work
+                    self._master_weights[key] = self._keep(work)
             g = g.to(torch.float32)
         else:
-            work, g = p, g.to(p.dtype)
+            work, g = self._part(p.detach()), g.to(p.dtype)
         state = self._accumulators.get(key)
         if state is None:
             state = self._init_state(work)
             if create:
-                self._accumulators[key] = state
-        return work, g, state
+                self._accumulators[key] = {k: self._keep(v)
+                                           for k, v in state.items()}
+        if self._offload_state:
+            dev = p.device
+            work = work.to(dev, non_blocking=True)
+            state = {k: v.to(dev, non_blocking=True)
+                     for k, v in state.items()}
+        return work, g, state, master
+
+    def _park(self, p, work, state):
+        """Offload: write a parameter's updated master and states back to
+        where they are kept."""
+        kept = self._accumulators[id(p)]
+        for k, v in state.items():
+            if kept[k] is not v:
+                kept[k].copy_(v)
+        m = self._master_weights.get(id(p))
+        if m is not None and m is not work:
+            m.copy_(work)
 
     def _lr_of(self, p, lr, rates):
         """The rate for ``p``: ``lr`` times its optimize_attr factor (one
@@ -243,37 +310,53 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """Clip the gradients (``grad_clip``), then update every
-        parameter that has one."""
-        params_grads = [(p, p.grad) for p in self._parameter_list
-                        if p.requires_grad and p.grad is not None]
+        parameter that has one (under ZeRO: this rank's slices, then the
+        parameters put back together; under offload one parameter at a
+        time, its state staged to the device and back)."""
+        params_grads = self._params_grads()
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._global_step += 1
         dev = self._dev_scalars
         lr = self.get_lr() if dev is None else dev[0]
         rates: dict = {}
-        groups: dict = {}  # _Group -> (works, grads, states)
-        masters = []
+        groups: dict = {}  # _Group -> [(param, grad)]
+        self._work_layout = {}
         for p, g in params_grads:
             if g is None:
                 continue
             key = id(p)
             step = self._step_counts.get(key, 0) + 1
             self._step_counts[key] = step
-            work, g, state = self._work(p, g)
-            if work is not p:
-                masters.append((p, work))
             group = _Group(step if dev is None else dev[1],
                            self._lr_of(p, lr, rates), _regularizer(p),
                            self._rule_key(p))
-            works, grads, states = groups.setdefault(group, ([], [], []))
-            works.append(work)
-            grads.append(g)
-            states.append(state)
-        for group, (works, grads, states) in groups.items():
-            self._update(works, grads, states, group)
-        for p, work in masters:
-            p.copy_(work)  # rounds the fp32 master to p's dtype
+            groups.setdefault(group, []).append((p, g))
+        batches = [(group, [pg]) for group, pgs in groups.items()
+                   for pg in pgs] if self._offload_state \
+            else list(groups.items())
+        for group, pgs in batches:
+            self._apply(group, pgs)
+        if self._zero is not None:
+            self._zero.publish([p for p, g in params_grads if g is not None])
+
+    def _apply(self, group, pgs):
+        """One ``_update`` of ``group``'s ``(param, grad)`` pairs: their
+        work tensors and states made (under offload staged to the
+        device), updated, each master rounded into its parameter, and
+        under offload written back. The staged copies die on return."""
+        items = []
+        for p, g in pgs:
+            work, g, state, master = self._work(p, g)
+            self._work_layout[id(work)] = grad_layout(p)
+            items.append((p, work, g, state, master))
+        _, works, grads, states, _ = zip(*items)
+        self._update(list(works), list(grads), list(states), group)
+        for p, work, _, state, master in items:
+            if master:  # rounds the fp32 master to p's dtype
+                self._part(p.detach()).copy_(work)
+            if self._offload_state:
+                self._park(p, work, state)
 
     @torch.no_grad()
     def _trial_updates(self, params_grads, lr):
@@ -289,8 +372,9 @@ class Optimizer:
             if g is None:
                 out.append((None, None))
                 continue
-            work, g, state = self._work(p, g, create=False)
+            work, g, state, _ = self._work(p, g, create=False)
             work = work.detach().clone()
+            self._work_layout[id(work)] = grad_layout(p)
             state = {k: v.clone() for k, v in state.items()}
             group = _Group(self._step_counts.get(id(p), 0) + 1,
                            self._lr_of(p, lr, {}), _regularizer(p),
@@ -300,7 +384,10 @@ class Optimizer:
         return out
 
     def clear_grad(self, set_to_zero=False):
-        """Drop every gradient (or zero it in place)."""
+        """Drop every gradient (or zero it in place), ZeRO's slices
+        too."""
+        if self._zero is not None:
+            self._zero.clear_grads(set_to_zero)
         for p in self._parameter_list:
             if p.grad is None:
                 continue
@@ -327,15 +414,19 @@ class Optimizer:
         and ``LR_Scheduler`` (the scheduler's ``state_dict``) when the
         rate is a scheduler. ``name`` is the name the parameter was
         given with (``(name, param)`` pairs), else ``param_{i}`` by its
-        place in ``parameters``."""
+        place in ``parameters``. Under ZeRO every tensor is the whole
+        one, its slices all-gathered (collective: every rank calls it),
+        as the reference's global arrays are."""
         sd = {}
+        full = (lambda p, v: v.detach().clone()) if self._zero is None \
+            else self._zero.full
         for i, p in enumerate(self._parameter_list):
             name = self._name(p) or f"param_{i}"
             for k, v in self._accumulators.get(id(p), {}).items():
-                sd[f"{name}.{k}"] = v.detach().clone()
+                sd[f"{name}.{k}"] = full(p, v)
             mw = self._master_weights.get(id(p))
             if mw is not None:
-                sd[f"{name}.master_weight"] = mw.detach().clone()
+                sd[f"{name}.master_weight"] = full(p, mw)
             sc = self._step_counts.get(id(p))
             if sc is not None:
                 sd[f"{name}.step_count"] = sc
@@ -346,23 +437,26 @@ class Optimizer:
 
     def set_state_dict(self, state_dict):
         """Load :meth:`state_dict`'s keys (copies, on each parameter's
-        device); a state the dict lacks starts as ``_init_state`` makes
-        it, and a parameter with states but no step count takes the
-        global step."""
+        device, cut to this rank's slice under ZeRO and kept where
+        ``_keep`` keeps them); a state the dict lacks starts as
+        ``_init_state`` makes it, and a parameter with states but no step
+        count takes the global step."""
         self._global_step = int(state_dict.get("global_step", 0))
         if "LR_Scheduler" in state_dict \
                 and isinstance(self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
 
         def load(v, p):
-            return torch.as_tensor(v).detach().to(p.device, copy=True)
+            t = torch.as_tensor(v).detach().to(p.device, copy=True)
+            return t if self._zero is None else self._zero.cut(p, t)
 
         for i, p in enumerate(self._parameter_list):
             name = self._name(p) or f"param_{i}"
             mk = f"{name}.master_weight"
             if mk in state_dict:
-                self._master_weights[id(p)] = load(state_dict[mk], p)
-            work = self._master_weights.get(id(p), p.detach())
+                self._master_weights[id(p)] = self._keep(
+                    load(state_dict[mk], p))
+            work = self._master_weights.get(id(p), self._part(p.detach()))
             st = self._init_state(work)
             found = False
             for k in st:
@@ -370,7 +464,8 @@ class Optimizer:
                     st[k] = load(state_dict[f"{name}.{k}"], p)
                     found = True
             if found:
-                self._accumulators[id(p)] = st
+                self._accumulators[id(p)] = {k: self._keep(v)
+                                             for k, v in st.items()}
             sk = f"{name}.step_count"
             if sk in state_dict:
                 self._step_counts[id(p)] = int(state_dict[sk])
@@ -614,17 +709,10 @@ class Lamb(Optimizer):
         return self._lamb_wd
 
     def _layouts(self, works):
-        """The tensor-parallel layout (``_dist_layout``) of each work's
-        parameter, None for a whole one: the trust ratio's norms are the
-        global tensors'."""
-        by_work = {}
-        for p in self._parameter_list:
-            layout = getattr(p, "_dist_layout", None)
-            if layout is not None:
-                by_work[id(p)] = layout
-                if id(p) in self._master_weights:
-                    by_work[id(self._master_weights[id(p)])] = layout
-        return [by_work.get(id(w)) for w in works]
+        """The layout of each work's parameter (its tensor-parallel or
+        ZeRO slice, ``shard.grad_layout``), None for a whole one: the
+        trust ratio's norms are the global tensors'."""
+        return [self._work_layout.get(id(w)) for w in works]
 
     def _update(self, works, grads, states, group):
         b1, b2, step = self._beta1, self._beta2, group.step

@@ -355,6 +355,10 @@ class ServingEngine:
 
     def __init__(self, model, config: ServingConfig | None = None,
                  drafter=None, *, device="cuda"):
+        if getattr(model.config, "moe_num_experts", 0) > 1:
+            raise NotImplementedError(
+                "ServingEngine does not decode MoE Llama configs (the "
+                "reference refuses them too, as generate() does)")
         self.device = resolve_device(device)
         _check_model_device(model, self.device)
         self.model = model

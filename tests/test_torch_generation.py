@@ -228,8 +228,16 @@ def test_unknown_dtype_and_device_raise():
 
 
 def test_moe_config_raises():
+    """An MoE Llama trains, but neither package decodes it: generate()
+    raises in both (the port's engine as well, tests/test_torch_train.py)."""
+    cfg = dict(moe_num_experts=8, num_hidden_layers=1)
+    ids = np.ones((1, 3), np.int32)
+    tm = LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
-        LlamaForCausalLM(LlamaConfig.tiny(moe_num_experts=4), device="cpu")
+        generate(tm, ids, max_new_tokens=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        jax_generate(JaxLlama(JaxLlamaConfig.tiny(**cfg)), pt.to_tensor(ids),
+                     max_new_tokens=2)
 
 
 @pytest.mark.parametrize("option", ["do_sample", "int8_weights",
@@ -489,6 +497,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.ops.ulysses_attention",
             "paddle_tpu_torch.models.llama",
             "paddle_tpu_torch.models.ernie"} <= names
+    # and the experts', ZeRO's and the checkpoints'
+    assert {"paddle_tpu_torch.incubate",
+            "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer",
+            "paddle_tpu_torch.distributed.sharding",
+            "paddle_tpu_torch.distributed.sharding.group_sharded",
+            "paddle_tpu_torch.distributed.checkpoint",
+            "paddle_tpu_torch.framework.io"} <= names
     # chip_smoke.py (run where there is no jax) imports neither either
     import ast
 

@@ -1591,3 +1591,233 @@ def test_nan_check_update_born_nan_on_graphs(cuda):
             assert exec_cache.stats()["captures"] == 1
     exec_cache.clear()
     assert found[0] == found[1] and found[0][2] == "param"
+
+
+# -- experts, ZeRO and the sharded checkpoint (chip_smoke.py phase 20) -------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, dtype, top_k):
+    """The index-form MoE (a capacity that drops) on CUDA against the
+    same layer on the CPU: the output and every gradient (fp32 within
+    1e-5 of each tensor's largest value; bf16 within 2e-2), the same
+    tokens dispatched."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 32, 64)
+                         .astype(np.float32))
+    got = []
+    for dev in ("cpu", cuda):
+        m = MoELayer(64, 128, 8, top_k=top_k, capacity_factor=0.75,
+                     activation="silu", device=dev, dtype=dtype,
+                     generator=torch.Generator(dev).manual_seed(0)
+                     if dev == "cpu" else False)
+        if dev != "cpu":
+            with torch.no_grad():
+                for p, q in zip(m.parameters(), got[0][0].parameters()):
+                    p.copy_(q)
+        xx = x.to(dev, dtype).clone().requires_grad_()
+        y = m(xx)
+        ((y.float() ** 2).sum() + 0.5 * m.aux_loss).backward()
+        got.append((m, y.detach().float().cpu(), xx.grad.float().cpu(),
+                    m.dispatched.cpu()))
+    (cm, cy, cg, cd), (gm, gy, gg, gd) = got
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+
+    def close(a, b):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= tol
+
+    close(gy, cy)
+    close(gg, cg)
+    for p, q in zip(gm.parameters(), cm.parameters()):
+        close(p.grad.float().cpu(), q.grad.float())
+    if dtype == torch.float32:
+        assert torch.equal(gd, cd)
+    assert gd.sum() < top_k * x.shape[0] * x.shape[1]  # some dropped
+
+
+def _graph_like_step(model, opt):
+    """An eager step whose updates round as a captured TrainStep's: the
+    first with Python scalars, the later ones reading the rate and step
+    count from device scalars."""
+    buf = torch.zeros(2, dtype=torch.float64,
+                      device=next(model.parameters()).device)
+
+    def call(*batch):
+        opt.clear_grad()
+        loss = model(*batch)
+        loss.backward()
+        if opt._global_step:
+            buf.copy_(torch.tensor([float(opt.get_lr()),
+                                    float(opt._global_step + 1)],
+                                   dtype=torch.float64))
+            opt._dev_scalars = buf
+        try:
+            opt.step()
+        finally:
+            opt._dev_scalars = None
+        return loss.detach()
+    return call
+
+
+def test_moe_llama_captured_step_equals_eager(cuda):
+    """The tiny bf16 MoE Llama (4 experts, a capacity that drops) in a
+    TrainStep on CUDA graphs against eager steps that read the same
+    device scalars: 5 steps bit for bit (losses and parameters), one
+    capture: the routing reads nothing from the host."""
+    cfg = LlamaConfig.tiny(num_hidden_layers=2, moe_num_experts=4,
+                           dtype="bfloat16")
+    exec_cache.clear()
+    runs = []
+    for graphs in (True, False):
+        model = LlamaForCausalLM(cfg, device=cuda,
+                                 generator=torch.Generator(cuda)
+                                 .manual_seed(3))
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = TrainStep(model, opt) if graphs \
+            else _graph_like_step(model, opt)
+        rng = np.random.RandomState(7)
+        ids, labels = (torch.from_numpy(rng.randint(
+            0, 128, (4, 32)).astype(np.int32)).to(cuda) for _ in range(2))
+        n = fa.flash_fwd.launches
+        losses = [float(step(ids, labels)) for _ in range(5)]
+        assert fa.flash_fwd.launches == n + 10
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+    (gl, gp), (el, ep) = runs
+    assert gl == el
+    assert all(torch.equal(a, b) for a, b in zip(gp, ep))
+    assert exec_cache.stats()["captures"] == 1
+    exec_cache.clear()
+
+
+def test_zero_at_world_size_one_is_the_identity_and_captures(nccl_world):
+    """group_sharded_parallel with no axis of degree > 1 returns the model
+    and optimizer as they are; the step is one CUDA graph."""
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cuda")
+    opt = AdamW(parameters=model.parameters())
+    got = group_sharded_parallel(model, opt, level="p_g_os", offload=True)
+    assert got[0] is model and got[1] is opt and opt._zero is None
+    exec_cache.clear()
+    step = TrainStep(model, opt)
+    ids = torch.zeros((2, 16), dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        step(ids, ids)
+    assert exec_cache.stats()["captures"] == 1
+    exec_cache.clear()
+
+
+def test_offloaded_states_are_pinned_and_step_as_on_the_card(cuda):
+    """ZeRO's offload placement on one card: masters and moments kept in
+    pinned host memory and staged one parameter at a time give the bits
+    of the states kept on the card, over 3 steps."""
+    from paddle_tpu_torch.distributed.sharding.group_sharded import (
+        _host_put,
+    )
+
+    weights = _tiny_pair()
+    runs = []
+    for offload in (False, True):
+        model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2,
+                                                  dtype="bfloat16"),
+                                 device=cuda)
+        load_jax_weights(model, weights)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    multi_precision=True)
+        if offload:
+            opt._initial_state_placement = _host_put
+        step = _eager_step(model, opt)
+        rng = np.random.RandomState(7)
+        ids, labels = (torch.from_numpy(rng.randint(
+            0, 128, (2, 16)).astype(np.int32)).to(cuda) for _ in range(2))
+        losses = [float(step(ids, labels)) for _ in range(3)]
+        states = [v for st in opt._accumulators.values() for v in st.values()]
+        states += list(opt._master_weights.values())
+        if offload:
+            assert all(not t.is_cuda and t.is_pinned() for t in states)
+        runs.append((losses, [p.detach().clone() for p in model.parameters()],
+                     [t.cpu() for t in states]))
+    (pl, pp, ps), (ol, op, os_) = runs
+    assert pl == ol
+    assert all(torch.equal(a, b) for a, b in zip(pp, op))
+    assert all(torch.equal(a, b) for a, b in zip(ps, os_))
+
+
+def test_offload_holds_one_parameters_state_on_the_card(cuda):
+    """Under offload the card holds one parameter's master and moments at
+    a time: as each update starts, ``torch.cuda.memory_allocated`` is at
+    most that parameter's staged master, moments and fp32 gradient (16
+    bytes an element, each tensor rounded to the allocator's 512-byte
+    blocks) over what the step started with, and at least its master
+    and moments (they are on the card). The first step makes the states,
+    the second finds them kept on the host."""
+    from paddle_tpu_torch.distributed.sharding.group_sharded import (
+        _host_put,
+    )
+
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2,
+                                              dtype="bfloat16"),
+                             device=cuda)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                multi_precision=True)
+    opt._initial_state_placement = _host_put
+    base, seen = [0], []
+    update = opt._update
+
+    def watched(works, grads, states, group):
+        seen.append((torch.cuda.memory_allocated() - base[0],
+                     sum(w.numel() for w in works)))
+        return update(works, grads, states, group)
+
+    opt._update = watched
+    ids = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
+    whole = 16 * sum(p.numel() for p in model.parameters())
+    for _ in range(2):
+        opt.clear_grad()
+        model(ids, ids).backward()
+        torch.cuda.synchronize()
+        base[0] = torch.cuda.memory_allocated()
+        seen.clear()
+        opt.step()
+        assert len(seen) == len(list(model.parameters()))
+        for extra, n in seen:
+            assert 12 * n <= extra <= 16 * n + 4 * 512, (extra, n, whole)
+
+
+def test_checkpoint_of_card_tensors_round_trips(cuda, tmp_path):
+    """save_state_dict (async) of a bf16 model on the card and its AdamW
+    masters and moments; load_state_dict into a fresh model and
+    optimizer on the card: every tensor bit for bit."""
+    from paddle_tpu_torch.distributed import checkpoint as ckp
+
+    cfg = LlamaConfig.tiny(num_hidden_layers=2, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=cuda)
+    opt = AdamW(parameters=list(model.named_parameters()),
+                multi_precision=True)
+    ids = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
+    _eager_step(model, opt)(ids, ids)
+    state = {**model.state_dict(keep_vars=True), **ckp.optimizer_state(opt)}
+    ckp.save_state_dict(state, str(tmp_path), async_save=True).join()
+    assert ckp.is_complete(str(tmp_path))
+    fresh = LlamaForCausalLM(cfg, device=cuda,
+                             generator=torch.Generator(cuda).manual_seed(9))
+    fopt = AdamW(parameters=list(fresh.named_parameters()),
+                 multi_precision=True)
+    dest = {**fresh.state_dict(keep_vars=True), **ckp.optimizer_state(fopt)}
+    ckp.load_state_dict(dest, str(tmp_path))
+    fopt.set_state_dict(dest)
+    for p, q in zip(model.parameters(), fresh.parameters()):
+        assert q.is_cuda and torch.equal(p, q)
+    want, got = opt.state_dict(), fopt.state_dict()
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, got[k]), k
+        else:
+            assert v == got[k], k

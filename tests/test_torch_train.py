@@ -296,10 +296,15 @@ def test_llama_options_not_ported_raise():
     plain = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                              device="cpu")
     assert torch.equal(cp(ids), plain(ids))
-    # MoE is not ported
+    # MoE trains now; what still raises is the reference's refusal to
+    # decode it, in generate() and in the serving engine
+    moe = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
+                                            moe_num_experts=2), device="cpu")
+    assert torch.isfinite(moe(ids, ids))
     with pytest.raises(NotImplementedError, match="MoE"):
-        LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
-                                          moe_num_experts=2), device="cpu")
+        tgen.generate(moe, ids, max_new_tokens=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        ServingEngine(moe, ServingConfig(max_seq_len=32), device="cpu")
 
 
 def test_flops_per_token_is_the_reference_count():

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Where a training step's time goes in the PyTorch/CUDA port, on the card.
 
-    python tools/torch_train_profile.py [--model llama|bert|ernie]
+    python tools/torch_train_profile.py [--model llama|llama_moe|bert|ernie]
         [--steps 2] [--top 20]
 
 Runs one of ``chip_smoke.py``'s training configurations through
 ``TrainStep`` with ``AdamW(multi_precision=True)``: the 0.44B bf16
-Llama at b8 x s1024 with plain cross-entropy (``llama``, phase 7),
-BERT-base MLM in bf16 O2 with dropout 0.1 on a padded b64 x s512 batch
+Llama at b8 x s1024 with plain cross-entropy (``llama``, phase 7), the
+same with 8 experts a layer, top-2 (``llama_moe``, phase 20a), BERT-base MLM in bf16 O2 with dropout 0.1 on a padded b64 x s512 batch
 (``bert``, phase 10), or ERNIE 3.0 joint pretraining at the 10B widths
 with the trunk cut to 8 layers, bf16, dropout 0.1, b4 x s1024, the rate
 from ``LinearWarmup(PolynomialDecay)`` stepped after each step
@@ -30,8 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from chip_smoke import (  # noqa: E402
-    BERT_BATCH, BERT_SEQ, ERNIE, ERNIE_BATCH, ERNIE_SEQ, TRAIN, TRAIN_BATCH,
-    TRAIN_SEQ, _train_batch, bert_train_step, ernie_train_step,
+    BERT_BATCH, BERT_SEQ, ERNIE, ERNIE_BATCH, ERNIE_SEQ, MOE, TRAIN,
+    TRAIN_BATCH, TRAIN_SEQ, _train_batch, bert_train_step, ernie_train_step,
 )
 from paddle_tpu_torch.jit import TrainStep  # noqa: E402
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa: E402
@@ -53,8 +53,8 @@ def _family(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("llama", "bert", "ernie"),
-                    default="llama")
+    ap.add_argument("--model", choices=("llama", "llama_moe", "bert",
+                                        "ernie"), default="llama")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
@@ -74,7 +74,7 @@ def main():
         shape = (f"ERNIE-3.0 10B widths, trunk {ERNIE['num_hidden_layers']} "
                  f"of 48, b{ERNIE_BATCH} x s{ERNIE_SEQ}")
     else:
-        cfg = LlamaConfig(**TRAIN)
+        cfg = LlamaConfig(**(MOE if args.model == "llama_moe" else TRAIN))
         model = LlamaForCausalLM(
             cfg, device="cuda",
             generator=torch.Generator("cuda").manual_seed(0))
@@ -82,7 +82,8 @@ def main():
                                       parameters=model.parameters(),
                                       multi_precision=True))
         batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
-        shape = f"0.44B Llama b{TRAIN_BATCH} x s{TRAIN_SEQ}"
+        shape = (f"{'1.42B MoE' if cfg.moe_num_experts > 1 else '0.44B'} "
+                 f"Llama b{TRAIN_BATCH} x s{TRAIN_SEQ}")
     for _ in range(2):
         step(*batch)
     torch.cuda.synchronize()
