@@ -7,8 +7,11 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``:
   environment if it is not up) and installs the
   ``HybridCommunicateGroup``;
 - :func:`distributed_model` returns ``PipelineParallel`` for a
-  ``PipelineLayer`` under pp > 1 (which sums the gradients over dp once
-  a ``train_batch``), wraps a model in ``DataParallel`` when dp > 1,
+  ``PipelineLayer`` under pp > 1 (which sums the gradients over the
+  batch axes once a ``train_batch``: the reference's dp x mp x pp
+  layout with SP and experts over dp included, each rank's mp shards
+  and SP norms summed by their layers), wraps a model in
+  ``DataParallel`` when dp > 1,
   mp = 1 and pp = 1, as the reference does, and otherwise returns the
   model itself. Under dp > 1 with mp > 1 the model's gradients are
   still summed over ``dp`` after each backward (the reference gets that

@@ -63,6 +63,18 @@ def _axis_group(axis, group=None):
     return len(pair[0]), pair[0].index(dist.get_rank()), pair
 
 
+def check_even(n, dims):
+    """Raise ``ValueError`` naming the first of ``dims`` (``(name,
+    size)`` pairs: a model's vocab, heads, FFN widths) that mp = ``n``
+    does not split evenly; the reference pads such a dim."""
+    for what, size in dims:
+        if size % n:
+            raise ValueError(
+                f"{what} = {size} does not split evenly over mp = {n} "
+                f"(the reference pads such a dim; uneven splits are not "
+                f"ported, ROADMAP A.6)")
+
+
 def _even(size, n, what):
     if size % n:
         raise ValueError(f"{what} = {size} does not split evenly over "

@@ -32,14 +32,26 @@ same bits.
 
 The loss is the reference's whole-batch loss. With a ``loss_fn`` that
 has ``token_count`` (the pipe models') the last stage divides each
-microbatch's summed token loss by the whole batch's count (over dp as
-well) and sums the microbatches; any other ``loss_fn`` is averaged over
-the microbatches, as Paddle does. The loss is then broadcast over the
-pp group, so every rank's ``train_batch`` returns it. ``train_batch``
-then sums the shared weights' gradients over their stages, sums every
-gradient over dp once (after the last microbatch's backward; an expert
-laid out over dp is left as it is), and steps the optimizer; with a
-``GradScaler`` the stages agree on whether any gradient was not finite.
+microbatch's summed token loss by the whole batch's count (over the
+batch group as well) and sums the microbatches; any other ``loss_fn``
+is averaged over the microbatches, as Paddle does. The loss is then
+broadcast over the pp group, so every rank's ``train_batch`` returns
+it. ``train_batch`` then sums the shared weights' gradients over their
+stages, sums every gradient over the batch group once (after the last
+microbatch's backward; an expert laid out over dp is left as it is),
+and steps the optimizer; with a ``GradScaler`` the stages agree on
+whether any gradient was not finite. The batch group is
+``fleet.batch_axes`` of the layer's ``config``: dp, and sep for a
+context-parallel model, whose ranks hold sequence chunks.
+
+What crosses a stage boundary is whatever the stage's layers give: under
+sequence parallelism ``[mb, s / mp, h]``, under context parallelism
+``[mb, s / sep, h]``. A boundary's first activation is preceded by its
+shape and dtype, sent by the rank that made it to the one that takes
+it (the two share their dp, mp and sep coordinates), so each receive
+buffer is allocated by its own peer's layout; a gradient's buffer is
+the receiving stage's own output's shape. ``PipelineLayer.counters``
+count the bytes of the tensors actually sent.
 
 Under dp > 1 a rank's batch holds, for each microbatch in turn, its dp
 chunk of that microbatch: rank ``r`` of ``dp`` takes rows
@@ -169,8 +181,11 @@ class PipelineParallel:
         self.one_f_one_b = bool(remat)
         self._pp = hcg.get_pipe_parallel_world_size()
         self._stage = hcg.get_stage_id()
+        from .. import batch_axes
+
         self._pp_pair = hcg.get_pipe_parallel_group()._pair()
-        self._dp_pair = hcg.get_data_parallel_group()._pair()
+        self._batch_axes = batch_axes(getattr(layers, "config", None))
+        self._batch_pair = env_mod.ensure_env().group(self._batch_axes)
 
     def __getattr__(self, name):
         return getattr(self.__dict__["_layers"], name)
@@ -207,8 +222,8 @@ class PipelineParallel:
         count = None
         if ys is not None and hasattr(loss_fn, "token_count"):
             count = sum(loss_fn.token_count(y) for y in ys)
-            if len(self._dp_pair[0]) > 1:
-                count = _comm.all_reduce(count.clone(), self._dp_pair)
+            if len(self._batch_pair[0]) > 1:
+                count = _comm.all_reduce(count.clone(), self._batch_pair)
         ticks = make_schedule(n, pp, v, train and self.one_f_one_b,
                               forward_only=not train)
         held = {}      # (mb, chunk) -> (input, output)
@@ -344,18 +359,18 @@ class PipelineParallel:
 
     def _reduce_gradients(self):
         """After the microbatches' backwards: each shared weight's
-        gradient summed over its stages, then every gradient over dp,
-        once, in one all-reduce per dtype."""
+        gradient summed over its stages, then every gradient over the
+        batch group, once, in one all-reduce per dtype."""
         self._layers.allreduce_shared_weight_gradients()
-        if len(self._dp_pair[0]) == 1:
+        if len(self._batch_pair[0]) == 1:
             return
         by_dtype = {}
-        for p in _batch_params(self._layers.parameters(), ("dp",)):
+        for p in _batch_params(self._layers.parameters(), self._batch_axes):
             if p.grad is not None:
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for g in grads])
-            _comm.all_reduce(flat, self._dp_pair)
+            _comm.all_reduce(flat, self._batch_pair)
             off = 0
             for g in grads:
                 g.copy_(flat[off:off + g.numel()].view_as(g))

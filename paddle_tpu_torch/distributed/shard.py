@@ -30,7 +30,7 @@ from . import env as env_mod
 __all__ = ["PartitionSpec", "shard_tensor", "sharding_constraint",
            "replicate", "get_sharding", "shard_parameter", "local_piece",
            "gather_global", "global_sq_norms", "set_layout",
-           "grad_layout"]
+           "grad_layout", "mark_local", "place"]
 
 
 class PartitionSpec(tuple):
@@ -118,6 +118,34 @@ def sharding_constraint(x, *spec):
         out = x.view_as(x)
     out._sharding_spec = PartitionSpec(*spec)
     return out
+
+
+def mark_local(x, *spec):
+    """Record that ``x`` already is this rank's shard by ``spec`` (a
+    model's activations: each rank computes its own part), moving no
+    data; returns a view that carries the spec. The reference marks the
+    same tensors with ``sharding_constraint`` (its arrays are global);
+    here a consumer that must know where this rank's part lies in the
+    global tensor reads it (:func:`place`)."""
+    out = x.view_as(x)
+    out._sharding_spec = PartitionSpec(*spec)
+    return out
+
+
+def place(part):
+    """``(count, index)`` of this rank among the chunks that the axis (or
+    tuple of axes) ``part`` cuts a dim into: ``(1, 0)`` for None, at
+    degree 1 or without a parallel environment."""
+    names = _names(part)
+    env = env_mod.get_env()
+    if env is None or not names:
+        return 1, 0
+    n = 1
+    for nm in names:
+        n *= env.degree(nm)
+    if n == 1:
+        return 1, 0
+    return n, env.members(names).index(env.rank)
 
 
 def replicate(x):

@@ -37,6 +37,25 @@ reduce-scatter, as each rank's tokens read them). Those moves carry the
 bytes the reference's token all-to-all carries; ``comm_bytes`` counts
 them.
 
+Under sequence or context parallelism (``sequence_axis`` ``"mp"`` or
+``"sep"``) a rank's input is its column chunk ``[r * S / n, (r + 1) * S /
+n)`` of every row of its rows, not a contiguous run of the global token
+order (row by row) that the gate counts in. A token's slot then counts
+the tokens of its expert in every rank's earlier rows, in the earlier
+sequence ranks' chunks of its own row, and before it in its chunk: each
+rank's per-row counts ``[k, rows, E]`` (a few KB) are all-gathered over
+the sequence group, then the per-rank totals over dp as before. The
+capacity and the aux loss's means count the global tokens (the
+probabilities summed over dp and the sequence axis together). Each
+sequence rank runs its experts on its own tokens' slots, so their
+gradients, and the gate's, are partial over the sequence axis. Under SP
+(``"mp"``) the layer sums all three over mp in the backward. Under
+context parallelism ``"sep"`` is one of the model's batch axes, over
+which ``fleet.distributed_model`` (and ``PipelineParallel``) sums every
+gradient but those of parameters laid out over a batch axis: the layer
+sums only the experts' over sep, and only when they are laid out over
+dp (dp > 1).
+
 :func:`moe_dense` is the plain version: the reference's one-hot
 tensors and einsums in PyTorch, on one rank.
 """
@@ -88,8 +107,8 @@ class MoELayer(nn.Module):
 
     def __init__(self, d_model, d_hidden, num_experts, top_k=2,
                  capacity_factor=1.25, activation="gelu", expert_axis="dp",
-                 gate="gshard", name=None, *, dtype=torch.float32,
-                 device="cuda", generator=None):
+                 gate="gshard", name=None, *, sequence_axis=None,
+                 dtype=torch.float32, device="cuda", generator=None):
         super().__init__()
         _check_top_k(top_k)
         if expert_axis != "dp":
@@ -106,6 +125,21 @@ class MoELayer(nn.Module):
         self.gate_type, self.act = gate, activation
         self.expert_axis = expert_axis
         self._n, self._rank, self._group = _axis_group("dp")
+        if sequence_axis not in (None, "mp", "sep"):
+            raise ValueError(f"sequence_axis must be None, 'mp' or 'sep', "
+                             f"got {sequence_axis!r}")
+        self._seq_n, self._seq_rank, self._seq_group = \
+            _axis_group(sequence_axis) if sequence_axis else (1, 0, None)
+        self._sum_gate = sequence_axis == "mp"
+        self._sum_experts = self._seq_n > 1 and (
+            sequence_axis == "mp" or self._n > 1)
+        # the group the tokens are split over: dp and the sequence axis
+        self._token_group = self._group
+        if self._seq_n > 1:
+            from .....distributed import env as env_mod
+
+            self._token_group = env_mod.ensure_env().group(
+                ("dp", sequence_axis))
         if num_experts % self._n:
             raise ValueError(f"num_experts = {num_experts} does not split "
                              f"evenly over dp = {self._n}")
@@ -139,24 +173,41 @@ class MoELayer(nn.Module):
             p.copy_(w if layout is None else shard.local_piece(w, layout))
 
     def _global_counts(self, counts):
-        """(the earlier dp ranks' per-expert counts, every rank's), each
-        ``[top_k, E]``, from this rank's ``counts``."""
+        """From this rank's per-row counts ``[top_k, rows, E]``: for each
+        of its rows, the tokens of each choice and expert that come
+        before the row's first token here in the global order, less this
+        rank's own in its earlier rows (the running count adds those),
+        ``[top_k, rows, E]``; and every rank's totals ``[top_k, E]``."""
+        own_before = torch.cumsum(counts, 1) - counts
+        if self._seq_n > 1:
+            every = _comm.all_gather_list(counts, self._seq_group)
+            rows = sum(every[1:], every[0])
+            in_row = sum(every[:self._seq_rank], torch.zeros_like(counts))
+        else:
+            rows, in_row = counts, torch.zeros_like(counts)
+        before = torch.cumsum(rows, 1) - rows + in_row - own_before
+        mine = rows.sum(1)
         if self._n == 1:
-            return torch.zeros_like(counts), counts
-        every = _comm.all_gather_list(counts, self._group)
-        before = sum(every[:self._rank], torch.zeros_like(counts))
+            return before, mine
+        every = _comm.all_gather_list(mine, self._group)
+        before = before + sum(every[:self._rank],
+                              torch.zeros_like(mine))[:, None, :]
         return before, sum(every[1:], every[0])
 
-    def route(self, tokens, cap):
-        """The gate on this rank's ``tokens`` ``[T, H]`` at ``cap`` slots
-        an expert: ``(probs, gates, rows, first)``: the fp32 softmax
-        ``[T, E]``; for each choice the gate weights ``[T]`` (normalized
-        over the two under top-2, 0 where dropped) and the buffer rows
-        ``[T]`` (``expert * cap + slot``, ``E * cap`` where the token is
-        not dispatched); and every rank's count of first choices by
-        expert ``[E]``."""
+    def route(self, tokens, cap, n_rows=1):
+        """The gate on this rank's ``tokens`` ``[T, H]`` (``n_rows`` rows
+        of ``T / n_rows`` tokens: the rank's chunk of each under sequence
+        parallelism) at ``cap`` slots an expert: ``(probs, gates, rows,
+        first)``: the fp32 softmax ``[T, E]``; for each choice the gate
+        weights ``[T]`` (normalized over the two under top-2, 0 where
+        dropped) and the buffer rows ``[T]`` (``expert * cap + slot``,
+        ``E * cap`` where the token is not dispatched); and every rank's
+        count of first choices by expert ``[E]``."""
         E, k = self.num_experts, self.top_k
-        logits = torch.matmul(tokens, self.gate_weight.to(tokens.dtype))
+        gate_weight = self.gate_weight
+        if self._sum_gate:
+            gate_weight = _comm.copy_to(gate_weight, self._seq_group)
+        logits = torch.matmul(tokens, gate_weight.to(tokens.dtype))
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         experts = torch.arange(E, device=tokens.device)
         idx = [torch.argmax(probs, dim=-1)]
@@ -165,7 +216,10 @@ class MoELayer(nn.Module):
             rest = probs * (1.0 - masks[0].to(probs.dtype))
             idx.append(torch.argmax(rest, dim=-1))
             masks.append(idx[1][:, None] == experts)
-        counts = torch.stack([m.sum(0) for m in masks])  # [k, E]
+        row_of = torch.arange(tokens.shape[0], device=tokens.device) \
+            // (tokens.shape[0] // n_rows)
+        counts = torch.stack([m.reshape(n_rows, -1, E).sum(1)
+                              for m in masks])  # [k, n_rows, E]
         before, total = self._global_counts(counts)
         gates, slots = [], []
         for j, (i, m) in enumerate(zip(idx, masks)):
@@ -174,7 +228,7 @@ class MoELayer(nn.Module):
             # transpose (a scan down [T, E]'s 8 columns is ~100x slower)
             run = torch.cumsum(m.t().to(torch.int32).contiguous(), 1)
             pos = (run.gather(0, i[None, :])[0] - 1).to(torch.int64) \
-                + before[j][i]
+                + before[j][row_of, i]
             if j == 1:  # after every first choice of the expert
                 pos = pos + total[0][i]
             keep = pos < cap
@@ -193,18 +247,23 @@ class MoELayer(nn.Module):
         B, S, H = x.shape
         E, k, n = self.num_experts, self.top_k, self._n
         dt = x.dtype
-        T = B * S * n  # the global tokens: the batch is split evenly
+        # the global tokens: the batch and the sequence are split evenly
+        T = B * S * n * self._seq_n
         C = capacity(k, T, E, self.capacity_factor)
         tokens = x.reshape(B * S, H)
-        probs, gates, rows, first = self.route(tokens, C)
+        probs, gates, rows, first = self.route(tokens, C, B)
         buf = tokens.new_zeros((E * C + 1, H)).index_copy(
             0, torch.cat(rows), tokens.repeat(k, 1))
         buf = buf[:E * C].view(E, C, H)
         if n > 1:
             self.comm_bytes += buf.numel() * buf.element_size()
             buf = _comm.reduce_scatter(buf, 0, self._group)
-        h = _ACT[self.act](torch.bmm(buf, self.w_in.to(dt)))
-        out = torch.bmm(h, self.w_out.to(dt))
+        w_in, w_out = self.w_in, self.w_out
+        if self._sum_experts:  # each sequence rank ran its own tokens' slots
+            w_in = _comm.copy_to(w_in, self._seq_group)
+            w_out = _comm.copy_to(w_out, self._seq_group)
+        h = _ACT[self.act](torch.bmm(buf, w_in.to(dt)))
+        out = torch.bmm(h, w_out.to(dt))
         if n > 1:
             out = _comm.gather_reduce(out, 0, self._group)
             self.comm_bytes += out.numel() * out.element_size()
@@ -217,7 +276,7 @@ class MoELayer(nn.Module):
             y = part if y is None else y + part
         # the aux loss: E * sum(mean probability x share of first
         # choices), both over the global tokens
-        me = _comm.reduce_from(probs.sum(0), self._group) / T
+        me = _comm.reduce_from(probs.sum(0), self._token_group) / T
         self.aux_loss = torch.sum(me * (first.to(torch.float32) / T)) * E
         self.dispatched = torch.stack([(r < E * C).sum() for r in rows])
         return y.reshape(B, S, H)

@@ -47,8 +47,9 @@ def load_jax_weights(model, arrays) -> None:
     A tensor-parallel parameter (one that records a ``_dist_layout``,
     under mp > 1) takes this rank's piece of the global array: every
     rank passes the same global arrays. The fused ``qkv_proj`` and
-    ``gate_up_proj`` weights are cut segment by segment, so a rank holds
-    its own q, k and v heads (or its gate and up columns) side by side:
+    ``gate_up_proj`` weights (and ERNIE's fused ``qkv`` weight and its
+    1-D bias) are cut segment by segment, so a rank holds its own q, k
+    and v heads (or its gate and up columns) side by side:
     its piece is *not* the contiguous chunk of the fused dim that GSPMD
     gives a device in the reference (``distributed.shard``).
     :func:`gather_jax_layout` is the inverse."""

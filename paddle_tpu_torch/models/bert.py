@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..distributed.fleet import batch_axes
+from ..distributed.shard import local_piece, mark_local
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn import functional as F
@@ -153,6 +155,9 @@ class BertSelfAttention(nn.Module):
         # read [b, s, h, d] through strides
         q, k, v = (t.reshape(b, s, self.num_heads, self.head_dim)
                    for t in torch.chunk(self.qkv(x), 3, dim=-1))
+        # each dp rank holds its rows of the batch: attention dropout
+        # hashes them at their global rows
+        q = mark_local(q, batch_axes(), None, None, None)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask, self.dropout_p, is_causal=False,
             training=self.training)
@@ -208,7 +213,9 @@ class BertModel(nn.Module):
 
 def _init_weights(module, generator, device):
     """normal(0, 0.02) for matrices and embeddings, zeros for biases,
-    ones for the LayerNorm scales, drawn in fp32 from ``generator``."""
+    ones for the LayerNorm scales, drawn in fp32 from ``generator``; a
+    tensor-parallel parameter is drawn on its global shape and cut to
+    this rank's piece, so every mp degree builds the same model."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("bias"):
@@ -216,9 +223,11 @@ def _init_weights(module, generator, device):
             elif "norm." in name:
                 p.fill_(1.0)
             else:
-                w = torch.empty(p.shape, dtype=torch.float32, device=device)
+                layout = getattr(p, "_dist_layout", None)
+                w = torch.empty(p.shape if layout is None else layout.shape,
+                                dtype=torch.float32, device=device)
                 w.normal_(0.0, 0.02, generator=generator)
-                p.copy_(w)
+                p.copy_(w if layout is None else local_piece(w, layout))
 
 
 class _BertHead(nn.Module):

@@ -20,6 +20,15 @@ the reference's arrays name by name. The reference registers
 ``nn.ModuleList`` s named ``encoder`` and ``layer``, which give the same
 names.
 
+Under ``fleet.init`` with mp > 1 the layers are tensor-parallel where
+the reference's are (``fleet``'s mp layers): the word embedding's vocab
+rows, each block's fused ``qkv`` (q, k and v heads cut one by one) and
+``inter`` column-parallel with ``out`` and ``output`` row-parallel, and
+the vocab projections (``mlm_head.decoder``, ``lm_head``, the pipe's
+NLG head) column-parallel with their logits gathered. Weights are drawn
+on their global shapes and cut, so every mp and pp layout builds the
+same model; a dim that mp does not divide raises ``ValueError``.
+
 Every attention call goes through ``F.scaled_dot_product_attention``
 with ``is_causal`` set by the pass (NLG) or the branch (NLG branch), so
 the port's routing decides the kernels: with attention dropout while
@@ -36,12 +45,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..distributed.fleet import batch_axes
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
-    masked_token_mean,
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    _axis_group, check_even, masked_token_mean,
 )
 from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
     LayerDesc, PipelineLayer,
 )
+from ..distributed.shard import mark_local
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn import functional as F
@@ -111,23 +123,63 @@ class ErnieConfig:
         return cls(**kw)
 
 
+def _col(n_in, n_out, device, has_bias=True, segments=1):
+    """A column-parallel linear whose output stays sharded (its
+    ``segments`` equal parts, a fused projection, cut one by one)."""
+    return ColumnParallelLinear(
+        n_in, n_out, has_bias=has_bias, gather_output=False,
+        out_segments=((n_out // segments, True),) * segments,
+        device=device, generator=False)
+
+
+def _row(n_in, n_out, device):
+    return RowParallelLinear(n_in, n_out, input_is_parallel=True,
+                             device=device, generator=False)
+
+
+def _head(n_in, vocab, device, has_bias):
+    """A vocab projection, column-parallel, its logits gathered over mp
+    (the reference's ``ColumnParallelLinear`` default)."""
+    return ColumnParallelLinear(n_in, vocab, has_bias=has_bias,
+                                device=device, generator=False)
+
+
+def _check_even(config):
+    """Raise ``ValueError`` naming the first dim that mp does not split
+    evenly (the vocab, the trunk's and the branches' heads and FFN)."""
+    n, _, _ = _axis_group("mp")
+    if n > 1:
+        check_even(n, (
+            ("vocab_size", config.vocab_size),
+            ("num_attention_heads", config.num_attention_heads),
+            ("intermediate_size", config.intermediate_size),
+            ("num_task_attention_heads", config.num_task_attention_heads),
+            ("task_intermediate_size", config.task_intermediate_size)))
+
+
 class ErnieSelfAttention(nn.Module):
     """Fused ``qkv`` projection split into q, k and v ``[b, s, h, d]``
     (strided views: the kernels read them through strides), attention
-    with the pass's ``causal``, then the ``out`` projection."""
+    with the pass's ``causal``, then the ``out`` projection. Under mp
+    ``qkv`` is column-parallel (each rank its q, k and v heads side by
+    side) and ``out`` row-parallel, so a rank attends with its ``heads /
+    mp`` heads."""
 
     def __init__(self, hidden, heads, dropout, device):
         super().__init__()
-        self.num_heads = heads
         self.head_dim = hidden // heads
-        self.qkv = _Linear(hidden, 3 * hidden, device)
-        self.out = _Linear(hidden, hidden, device)
+        self.qkv = _col(hidden, 3 * hidden, device, segments=3)
+        self.out = _row(hidden, hidden, device)
+        self.num_heads = heads // self.qkv._n  # this rank's
         self.dropout_p = dropout
 
     def forward(self, x, attn_bias=None, causal=False):
         b, s = x.shape[0], x.shape[1]
         q, k, v = (t.reshape(b, s, self.num_heads, self.head_dim)
                    for t in torch.chunk(self.qkv(x), 3, dim=-1))
+        # this rank's rows (dp) and heads (mp), as the reference marks
+        # them: attention dropout hashes them at their global places
+        q = mark_local(q, batch_axes(), None, "mp", None)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_bias, self.dropout_p, is_causal=causal,
             training=self.training)
@@ -144,8 +196,8 @@ class ErnieBlock(nn.Module):
         self.attention = ErnieSelfAttention(hidden, heads, attn_dropout,
                                             device)
         self.attn_norm = _LayerNorm(hidden, eps, device)
-        self.inter = _Linear(hidden, inter, device)
-        self.output = _Linear(inter, hidden, device)
+        self.inter = _col(hidden, inter, device)
+        self.output = _row(inter, hidden, device)
         self.out_norm = _LayerNorm(hidden, eps, device)
         self.dropout_p = dropout
         self.act = getattr(F, act)
@@ -194,7 +246,8 @@ class ErnieEmbeddings(nn.Module):
         super().__init__()
         h = config.hidden_size
         self.config = config
-        self.word_embeddings = _Embedding(config.vocab_size, h, device)
+        self.word_embeddings = VocabParallelEmbedding(
+            config.vocab_size, h, device=device, generator=False)
         self.position_embeddings = _Embedding(
             config.max_position_embeddings, h, device)
         self.token_type_embeddings = _Embedding(config.type_vocab_size, h,
@@ -241,6 +294,7 @@ class ErnieModel(nn.Module):
 
     def __init__(self, config, device, tasks=("nlu", "nlg")):
         super().__init__()
+        _check_even(config)
         self.config = config
         self.tasks = tuple(tasks)
         self.embeddings = ErnieEmbeddings(config, device)
@@ -283,7 +337,7 @@ class _MLMHead(nn.Module):
         super().__init__()
         self.transform = _Linear(hidden, hidden, device)
         self.norm = _LayerNorm(hidden, eps, device)
-        self.decoder = _Linear(hidden, vocab, device)
+        self.decoder = _head(hidden, vocab, device, True)
         self.act = getattr(F, act)
 
     def forward(self, h):
@@ -318,8 +372,7 @@ class ErnieForPretraining(_ErnieHead):
         self.ernie = ErnieModel(config, dev)
         self.mlm_head = _MLMHead(c.task_hidden_size, c.vocab_size,
                                  c.layer_norm_eps, c.hidden_act, dev)
-        self.lm_head = _Linear(c.task_hidden_size, c.vocab_size, dev,
-                               has_bias=False)
+        self.lm_head = _head(c.task_hidden_size, c.vocab_size, dev, False)
         self._init(dev, generator)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
@@ -417,8 +470,7 @@ class _ErnieHeadStage(nn.Module):
         self.head = (_MLMHead(c.task_hidden_size, c.vocab_size,
                               c.layer_norm_eps, c.hidden_act, device)
                      if task == "nlu" else
-                     _Linear(c.task_hidden_size, c.vocab_size, device,
-                             has_bias=False))
+                     _head(c.task_hidden_size, c.vocab_size, device, False))
 
     def forward(self, x):
         return self.head(self.branch(x))
@@ -456,21 +508,17 @@ class ErnieForPretrainingPipe(PipelineLayer):
     trunk's mask and the objective: ``"nlg"`` (causal, next-token LM)
     or ``"nlu"`` (bidirectional, masked LM); labels ``[b, s]``. Each
     layer's weights are drawn as ``ErnieForPretraining``'s are, from a
-    generator seeded ``seed + <index>``, so every stage layout builds
-    the same model. ERNIE has no tensor-parallel layers in the port, so
-    the pipe raises under mp > 1 (ROADMAP A.6)."""
+    generator seeded ``seed + <index>`` on their global shapes and cut,
+    so every stage and mp layout builds the same model. Under mp each
+    stage holds its tensor-parallel pieces: the embedding stage's vocab
+    rows, the blocks' heads and FFN columns, the head's vocab columns
+    (its logits gathered for the loss, as in the reference)."""
 
     def __init__(self, config: ErnieConfig, task="nlg", *, device="cuda",
                  seed=0, **kwargs):
-        from ..distributed.fleet.base.topology import get_hcg
-
         if task not in ("nlu", "nlg"):
             raise ValueError(f"task must be 'nlu' or 'nlg', got {task!r}")
-        hcg = get_hcg()
-        if hcg is not None and hcg.get_model_parallel_world_size() > 1:
-            raise NotImplementedError(
-                "ErnieForPretrainingPipe under mp > 1: ERNIE's "
-                "tensor-parallel layers are not ported (ROADMAP A.6)")
+        _check_even(config)
         dev = resolve_device(device)
         descs = ([LayerDesc(_ErnieEmbeddingStage, config, dev)]
                  + [LayerDesc(ErnieTrunkBlock, config, dev,

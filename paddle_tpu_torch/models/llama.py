@@ -27,7 +27,7 @@ from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
 )
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
-    VocabParallelEmbedding, _axis_group, masked_token_mean,
+    VocabParallelEmbedding, _axis_group, check_even, masked_token_mean,
 )
 from ..distributed.fleet.utils.sequence_parallel_utils import (
     ColumnSequenceParallelLinear, GatherOp, RowSequenceParallelLinear,
@@ -181,7 +181,11 @@ class _Parallel:
     ``context_parallel`` the ``sep`` degree and this rank's place on it
     (``cp_n``, ``cp_rank``) and the group the batch is split over, dp
     and sep, and over sharding as well under sharding > 1
-    (``batch_group``; None: dp's)."""
+    (``batch_group``; None: dp's). Under MoE, ``seq_axis`` names the
+    axis the MoE layers' input sequence is split over (mp under SP, sep
+    under context parallelism; None); the groups the layers need are
+    made here, where every rank runs in one order (a pipeline stage
+    builds only its own layers)."""
 
     def __init__(self, config):
         self.n, self.rank, self.group = _axis_group("mp")
@@ -195,16 +199,20 @@ class _Parallel:
 
             self.batch_group = env_mod.ensure_env().group(axes)
         moe = config.moe_num_experts > 1
-        if moe and (self.sp or self.cp_n > 1):
-            raise NotImplementedError(
-                "MoE under sequence_parallel or context_parallel is not "
-                "ported (ROADMAP A.6): a rank's sequence chunk is not a "
-                "contiguous run of the global token order the gate counts "
-                "in")
         if moe and "sharding" in axes:
             raise NotImplementedError(
                 "MoE with sharding_degree > 1 is not ported (ROADMAP A.6): "
                 "the experts and their gate lie over dp alone")
+        if self.sp and self.cp_n > 1:
+            raise NotImplementedError(
+                "sequence_parallel together with context_parallel over "
+                "sep > 1 is not ported (ROADMAP A.6)")
+        self.seq_axis = None
+        if moe and (self.sp or self.cp_n > 1):
+            from ..distributed import env as env_mod
+
+            self.seq_axis = "mp" if self.sp else "sep"
+            env_mod.ensure_env().group(("dp", self.seq_axis))
 
     def leaf(self, kind, *args, **kw):
         """A column (``"col"``) or row (``"row"``) parallel linear, the
@@ -225,14 +233,9 @@ class _Parallel:
 
 
 def _check_even(config, n):
-    for what, size in (("vocab_size", config.vocab_size),
-                       ("num_attention_heads", config.num_attention_heads),
-                       ("intermediate_size", config.intermediate_size)):
-        if size % n:
-            raise ValueError(
-                f"{what} = {size} does not split evenly over mp = {n} "
-                f"(the reference pads such a dim; uneven splits are not "
-                f"ported, ROADMAP A.6)")
+    check_even(n, (("vocab_size", config.vocab_size),
+                   ("num_attention_heads", config.num_attention_heads),
+                   ("intermediate_size", config.intermediate_size)))
 
 
 class LlamaAttention(nn.Module):
@@ -331,8 +334,9 @@ class LlamaDecoderLayer(nn.Module):
             self.mlp = MoELayer(
                 h, config.intermediate_size, config.moe_num_experts,
                 top_k=config.moe_top_k, activation="silu",
-                expert_axis=config.moe_expert_axis, dtype=dtype,
-                device=device, generator=False)
+                expert_axis=config.moe_expert_axis,
+                sequence_axis=par.seq_axis, dtype=dtype, device=device,
+                generator=False)
         else:
             self.mlp = LlamaMLP(config, dtype, device, par)
         if par.sp:
@@ -368,18 +372,24 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids):
         par = self._par
-        x = self.embed_tokens(input_ids)
-        x = x.to(to_torch_dtype(self.config.dtype))
-        if par.sp:
-            if x.shape[1] % par.n:
-                raise ValueError(
-                    f"sequence length {x.shape[1]} does not split evenly "
-                    f"over mp = {par.n} under sequence_parallel")
-            x = ScatterOp.apply(x, par.group)
+        x = _scatter_sequence(self.embed_tokens(input_ids).to(
+            to_torch_dtype(self.config.dtype)), par)
         for blk in self.layers:
             x = blk(x)
         x = F.rms_norm(x, par.norm_weight(self.norm), self.config.rms_norm_eps)
         return GatherOp.apply(x, par.group) if par.sp else x
+
+
+def _scatter_sequence(x, par):
+    """Under SP, this rank's chunk of the sequence of ``x`` ``[b, s, h]``
+    (raises ``ValueError`` when mp does not divide it); else ``x``."""
+    if not par.sp:
+        return x
+    if x.shape[1] % par.n:
+        raise ValueError(f"sequence length {x.shape[1]} does not split "
+                         f"evenly over mp = {par.n} under "
+                         f"sequence_parallel")
+    return ScatterOp.apply(x, par.group)
 
 
 def _init_weights(module, generator, dev):
@@ -466,10 +476,6 @@ class LlamaForCausalLM(nn.Module):
                 raise NotImplementedError(
                     "ce_chunk_size under mp > 1 is not ported: the chunked "
                     "loss reads the whole LM head (ROADMAP A.6)")
-        if par.sp and par.cp_n > 1:
-            raise NotImplementedError(
-                "sequence_parallel together with context_parallel over "
-                "sep > 1 is not ported (ROADMAP A.6)")
         self._par = par
         self.llama = LlamaModel(config, dtype, dev, par)
         self.lm_head = ColumnParallelLinear(
@@ -562,55 +568,65 @@ class LlamaForCausalLM(nn.Module):
 
 class _EmbeddingStage(nn.Module):
     """The pipe's first layer: the (vocab-parallel) embedding, cast to
-    the config's dtype."""
+    the config's dtype; under SP this rank's chunk of the sequence, as
+    ``LlamaModel`` scatters it."""
 
     def __init__(self, config, dtype, device, par):
         super().__init__()
         self.config = config
+        self._par = par
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, dtype=dtype,
             device=device, generator=False)
 
     def forward(self, input_ids):
-        return self.embed_tokens(input_ids).to(
-            to_torch_dtype(self.config.dtype))
+        return _scatter_sequence(self.embed_tokens(input_ids).to(
+            to_torch_dtype(self.config.dtype)), self._par)
 
 
 class _HeadStage(nn.Module):
-    """The pipe's last layer: the final RMSNorm and the (column-parallel)
-    LM head."""
+    """The pipe's last layer: the final RMSNorm (under SP on this rank's
+    sequence chunk, its weight's gradient summed over mp) and the
+    (column-parallel) LM head on the whole sequence."""
 
     def __init__(self, config, dtype, device, par):
         super().__init__()
         self.config = config
+        self._par = par
         self.norm = _Weight((config.hidden_size,), dtype, device)
+        if par.sp:
+            mark_as_sequence_parallel_parameter(self.norm.weight)
         self.lm_head = ColumnParallelLinear(
             config.hidden_size, config.vocab_size, has_bias=False,
             gather_output=not config.use_parallel_cross_entropy,
             dtype=dtype, device=device, generator=False)
 
     def forward(self, x):
-        return self.lm_head(F.rms_norm(x, self.norm.weight,
-                                       self.config.rms_norm_eps))
+        par = self._par
+        x = F.rms_norm(x, par.norm_weight(self.norm), self.config.rms_norm_eps)
+        return self.lm_head(GatherOp.apply(x, par.group) if par.sp else x)
 
 
 class _PipeLoss:
     """The pipe's ``loss_fn(logits, labels, count=None)``: the causal
     LM's loss (``LlamaForCausalLM``'s ops), divided by ``count`` when the
-    pipeline gives the whole batch's; ``token_count(labels)`` counts a
-    microbatch's labels."""
+    pipeline gives the whole batch's, its value summed over the batch
+    group (dp, and sep under context parallelism); ``token_count(labels)``
+    counts a microbatch's labels."""
 
-    def __init__(self, config):
+    def __init__(self, config, par):
         self.ce = ParallelCrossEntropy() \
             if config.use_parallel_cross_entropy else None
         self.ignore_index = -100 if self.ce is None \
             else self.ce.ignore_index
+        self.group = par.batch_group
 
     def token_count(self, labels):
         return (labels != self.ignore_index).sum()
 
     def __call__(self, logits, labels, count=None):
-        return _token_loss(self.ce, logits, labels, count=count)
+        return _token_loss(self.ce, logits, labels, count=count,
+                           group=self.group)
 
 
 class LlamaForCausalLMPipe(PipelineLayer):
@@ -625,10 +641,21 @@ class LlamaForCausalLMPipe(PipelineLayer):
     1}.lm_head.weight``; :func:`to_pipe_layout` maps the causal LM's
     names to them. Each layer's weights are drawn as
     ``LlamaForCausalLM``'s are, from a generator seeded ``seed +
-    <index>``, so every stage layout builds the same model. Sequence
-    and context parallelism are not ported for the pipe (ROADMAP
-    A.6). Under MoE the pipe adds no aux loss: the reference's pipe
-    does not surface it either (its "Known limitation")."""
+    <index>``, so every stage layout builds the same model.
+
+    With ``sequence_parallel`` under mp > 1 the embedding stage scatters
+    the sequence over mp, the decoder layers run on its chunks (what
+    crosses between stages is ``[mb, s / mp, h]``) and the head stage
+    gathers it after the final norm, as ``LlamaForCausalLM`` does. With
+    ``context_parallel`` under sep > 1 each rank is fed its sequence
+    chunk of every microbatch's ids and labels (``[b, s / sep]``, chunks
+    in sep order), attention is ring or Ulysses over sep, and the loss
+    divides by the count over dp and sep, whose ranks' gradients
+    ``PipelineParallel`` sums. Under MoE the experts lie over dp and the
+    gate is global over the microbatch, under SP and context parallelism
+    too (``MoELayer``'s ``sequence_axis``); the pipe adds no aux loss:
+    the reference's pipe does not surface it either (its "Known
+    limitation")."""
 
     def __init__(self, config: LlamaConfig, *, device="cuda", seed=0,
                  **kwargs):
@@ -637,16 +664,12 @@ class LlamaForCausalLMPipe(PipelineLayer):
         par = _Parallel(config)
         if par.n > 1:
             _check_even(config, par.n)
-        if par.sp or config.context_parallel:
-            raise NotImplementedError(
-                "LlamaForCausalLMPipe with sequence_parallel or "
-                "context_parallel is not ported (ROADMAP A.6)")
         layer = (config, dtype, dev, par)
         descs = ([LayerDesc(_EmbeddingStage, *layer)]
                  + [LayerDesc(LlamaDecoderLayer, *layer)
                     for _ in range(config.num_hidden_layers)]
                  + [LayerDesc(_HeadStage, *layer)])
-        super().__init__(layers=descs, loss_fn=_PipeLoss(config),
+        super().__init__(layers=descs, loss_fn=_PipeLoss(config, par),
                          recompute_interval=1 if config.recompute else 0,
                          **kwargs)
         self.config = config

@@ -8,7 +8,9 @@ on a CUDA tensor, their plain versions on a CPU tensor. Routing:
   dropout while training, goes to the head-batched entry
   (``ops/cuda/head_flash.py``, kernels 4-6), which takes the mask as one
   additive row per batch row and draws the dropout mask in the kernel
-  from two seed words per call (``framework/random.py``). This mirrors
+  from two seed words per call (``framework/random.py``), hashed at the
+  query's global coordinates when a model marked it as a rank's part of
+  the batch or heads (``_dropout_coords``). This mirrors
   ``flash_attention_kernel`` (``flash_attention.py:667-684``), which
   takes ``hb_flash`` wherever the ``flash_headbatch`` tune row engages
   it; the port has no tune table, and on the card both kernel families
@@ -67,6 +69,28 @@ def _key_padding_additive(mask, q_shape, k_shape):
     return torch.clamp(m.to(torch.float32), min=NEG_INF)
 
 
+def _dropout_coords(query):
+    """Where ``query`` (``[b, s, h, d]``) lies in the global batch and
+    heads, as the kernels' ``coords`` (first batch row, first head,
+    global heads), from the spec a model recorded on it
+    (``shard.mark_local``: dim 0 over the batch axes, dim 2 over mp), or
+    None when it is the whole tensor. The reference's dropout hashes the
+    global query head (its arrays are global under GSPMD); so does a
+    rank here, and every layout drops what one card drops."""
+    from ...distributed import shard
+
+    spec = shard.get_sharding(query)
+    if spec is None:
+        return None
+    spec = tuple(spec) + (None,) * (4 - len(spec))
+    b, _, h, _ = query.shape
+    _, rb = shard.place(spec[0])
+    nh, rh = shard.place(spec[2])
+    if rb == 0 and nh == 1:
+        return None
+    return rb * b, rh * h, nh * h
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
@@ -83,9 +107,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         kadd = _key_padding_additive(attn_mask, query.shape, key.shape)
     if kadd is None and p == 0.0:
         return flash_attention(query, key, value, causal=is_causal)
-    seed = random.next_seed_words() if p > 0.0 else None
+    seed = coords = None
+    if p > 0.0:
+        seed, coords = random.next_seed_words(), _dropout_coords(query)
     return hb_flash(query, key, value, seed=seed, kmask=kadd,
-                    causal=is_causal, dropout=p)
+                    causal=is_causal, dropout=p, coords=coords)
 
 
 def sliding_window_attention(query, key, value, window_size):

@@ -177,6 +177,9 @@ struct Geom {
                     // dm + (b * H + h) * SK
   long long km_b, km_h;
   uint32_t seed0, seed1, thresh;  // dropout: seed words, keep threshold
+  // the hash's global coordinates: the global query-head count and this
+  // launch's first batch row and first head in the global batch and heads
+  uint32_t hg, b0, h0;
   float dscale;                   // 1 / (1 - rate), rounded on the host
 };
 
@@ -232,9 +235,16 @@ __device__ __forceinline__ uint64_t padded_tiles(const Geom& g,
   return skip;
 }
 
-// The dropout hash of one query head: everything but (row, col).
+// The dropout hash of one query head: everything but (row, col). The
+// launch's head bh = b * H + h is hashed at its global place (b0 + b) * hg
+// + h0 + h, so a rank holding a dp chunk of the batch or an mp chunk of
+// the heads draws the elements one launch over the whole tensor draws
+// (at b0 = h0 = 0 and hg = H it is bh).
 __device__ __forceinline__ uint32_t head_salt(const Geom& g, int bh) {
-  return g.seed0 * 0x9E3779B9u + (uint32_t)(bh + 1) * 0x85EBCA6Bu + g.seed1;
+  const int b = bh / g.H;
+  const uint32_t head =
+      (g.b0 + (uint32_t)b) * g.hg + g.h0 + (uint32_t)(bh - b * g.H);
+  return g.seed0 * 0x9E3779B9u + (head + 1u) * 0x85EBCA6Bu + g.seed1;
 }
 
 // The hash's row and column multipliers: the sum it mixes is r * kRowMul
@@ -2303,7 +2313,8 @@ cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
 // geom = {B, H, HKV, SQ, SK, d, causal, window}; km: the additive key
 // rows (or null), one per query head (hb = 0) or per batch row (hb = 1);
 // dm: their gradient (dK/dV entries, with km); drop: {seed0, seed1,
-// threshold} (or null: no dropout), dscale = 1 / (1 - rate).
+// threshold, global heads, first batch row, first head} (or null: no
+// dropout), dscale = 1 / (1 - rate).
 Geom make_geom(const int* geom, float scale, const void* km, void* dm,
                const unsigned* drop, float dscale, int hb) {
   Geom g{geom[0], geom[1], geom[2], geom[3], geom[4],
@@ -2315,6 +2326,9 @@ Geom make_geom(const int* geom, float scale, const void* km, void* dm,
   g.seed0 = drop ? drop[0] : 0u;
   g.seed1 = drop ? drop[1] : 0u;
   g.thresh = drop ? drop[2] : 0u;
+  g.hg = drop ? drop[3] : (uint32_t)g.H;
+  g.b0 = drop ? drop[4] : 0u;
+  g.h0 = drop ? drop[5] : 0u;
   g.dscale = dscale;
   return g;
 }

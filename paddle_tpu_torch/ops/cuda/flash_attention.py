@@ -58,7 +58,11 @@ The TPU kernels' two variants are template flags of the same kernels:
   (``_keep_mask``, bit for bit; :func:`_keep_mask_ref` is its plain
   version) over the global (query head ``b * h + i``, row, key). The
   row sum keeps the undropped probabilities; only P.V sees ``p * keep /
-  (1 - rate)``, and the backward masks dO.V^T the same way.
+  (1 - rate)``, and the backward masks dO.V^T the same way. A launch
+  over a rank's part of the batch or the heads (dp, mp) takes ``coords
+  = (first batch row, first head, global heads)`` and hashes head ``(b0
+  + b) * hg + h0 + i``: the global coordinates the reference's kernel
+  sees under GSPMD, so every layout drops the elements one card drops.
 
 The encoder path reaches the per-batch-row mask through
 ``ops/cuda/head_flash.py`` (kernels 4-6, which share these kernels'
@@ -192,9 +196,30 @@ def _threshold(rate):
     return min(int(rate * 4294967296.0), 4294967295)
 
 
-def _dropout_words(dropout, seed):
-    """``(seed0, seed1, threshold)`` as uint32 and the fp32 scale ``1 /
-    (1 - dropout)`` of the counter-hash dropout, or None without it."""
+def _coords(coords, heads):
+    """``(global heads, first batch row, first head)`` of the dropout
+    hash from ``coords = (first batch row, first head, global heads)``
+    (None: the launch is the whole tensor, ``(heads, 0, 0)``); raises
+    ``ValueError`` unless the launch's ``heads`` fit in the global
+    ones."""
+    if coords is None:
+        return heads, 0, 0
+    if len(coords) != 3 or not all(isinstance(c, int) for c in coords):
+        raise ValueError(f"coords must be three ints (first batch row, "
+                         f"first head, global heads), got {coords!r}")
+    b0, h0, hg = coords
+    if b0 < 0 or h0 < 0 or h0 + heads > hg:
+        raise ValueError(f"coords {coords!r}: heads [{h0}, {h0 + heads}) "
+                         f"do not lie in the {hg} global heads")
+    return hg, b0, h0
+
+
+def _dropout_words(dropout, seed, coords=None, heads=0):
+    """``(seed0, seed1, threshold, global heads, first batch row, first
+    head)`` as uint32 and the fp32 scale ``1 / (1 - dropout)`` of the
+    counter-hash dropout, or None without it. The hash takes the query
+    head ``(b0 + b) * hg + h0 + i`` of the launch's batch row ``b`` and
+    head ``i`` (:func:`_coords`; ``heads`` is the launch's count)."""
     if not isinstance(dropout, (int, float)) or not 0.0 <= dropout < 1.0:
         raise ValueError(f"dropout must be a float in [0, 1), got "
                          f"{dropout!r}")
@@ -204,7 +229,8 @@ def _dropout_words(dropout, seed):
         raise ValueError("dropout > 0 needs seed: two int words (the "
                          "reference's int32[2] seed operand)")
     s0, s1 = (int(w) & _M32 for w in seed)
-    return (s0, s1, _threshold(dropout)), 1.0 / (1.0 - dropout)
+    return ((s0, s1, _threshold(dropout), *_coords(coords, heads)),
+            1.0 / (1.0 - dropout))
 
 
 # -- plain versions -----------------------------------------------------------
@@ -287,19 +313,22 @@ def _drop_factor(drop, q, k):
     ``drop`` as :func:`_dropout_words` returns it."""
     if drop is None:
         return None
-    (s0, s1, threshold), dscale = drop
+    (s0, s1, threshold, hg, b0, h0), dscale = drop
     b, sq, h, _ = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
-    heads = torch.arange(b * h, device=q.device).reshape(b, h_kv, h // h_kv)
+    heads = ((torch.arange(b, device=q.device)[:, None] + b0) * hg + h0
+             + torch.arange(h, device=q.device)[None, :])
+    heads = heads.reshape(b, h_kv, h // h_kv)
     keep = _hash((s0, s1), heads, sq, sk) >= threshold
     return torch.where(keep, torch.tensor(dscale, dtype=torch.float32,
                                           device=q.device), 0.0)
 
 
 def flash_fwd_ref(q, k, v, *, causal, scale=None, window=0, kmask=None,
-                  seed=None, dropout=0.0):
+                  seed=None, dropout=0.0, coords=None):
     """Plain version of :func:`flash_fwd`: a one-pass fp32 softmax
-    attention with the kernel's masking, key rows and dropout. Returns
+    attention with the kernel's masking, key rows and dropout (at the
+    global ``coords``). Returns
     (O ``[b, sq, h, d]`` in q's dtype, lse ``[b * h, sq]`` fp32)."""
     b, sq, h, d = q.shape
     s = _masked_scores(q, k, _scale(scale, d), causal, window, True, kmask)
@@ -308,7 +337,7 @@ def flash_fwd_ref(q, k, v, *, causal, scale=None, window=0, kmask=None,
     # give it; exp(s - lse) would carry lse's rounding, up to 2**-11 of p
     # in a row whose keys are all padded at -1e4
     p = torch.softmax(s, dim=-1)
-    factor = _drop_factor(_dropout_words(dropout, seed), q, k)
+    factor = _drop_factor(_dropout_words(dropout, seed, coords, h), q, k)
     if factor is not None:  # the row sum (lse) keeps the undropped p
         p = p * factor
     out = torch.einsum("bkgqc,bckd->bqkgd", p, v.to(torch.float32))
@@ -340,18 +369,21 @@ def _probs_and_ds(q, k, v, do, lse, delta, scale, causal, window, kmask,
 
 
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal, scale=None,
-                     window=0, kmask=None, seed=None, dropout=0.0):
+                     window=0, kmask=None, seed=None, dropout=0.0,
+                     coords=None):
     """Plain version of :func:`flash_bwd_dq`: dQ ``[b, sq, h, d]`` in q's
     dtype from the recomputed probabilities."""
     b, sq, h, d = q.shape
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, _scale(scale, d), causal,
-                          window, kmask, _dropout_words(dropout, seed))
+                          window, kmask,
+                          _dropout_words(dropout, seed, coords, h))
     dq = torch.einsum("bkgqc,bckd->bqkgd", ds, k.to(torch.float32))
     return dq.reshape(b, sq, h, d).to(q.dtype)
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale=None,
-                      window=0, kmask=None, seed=None, dropout=0.0):
+                      window=0, kmask=None, seed=None, dropout=0.0,
+                      coords=None):
     """Plain version of :func:`flash_bwd_dkv`: (dK, dV) ``[b, sk, h_kv,
     d]`` in k's dtype, summed over each kv head's query-head group, and
     with ``kmask`` also dmask ``[b * h, 1, sk]`` fp32 (the sum of ds /
@@ -359,7 +391,7 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale=None,
     b, sq, h, d = q.shape
     scale = _scale(scale, d)
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal, window,
-                          kmask, _dropout_words(dropout, seed))
+                          kmask, _dropout_words(dropout, seed, coords, h))
     h_kv = k.shape[2]
     dv = torch.einsum("bkgqc,bqkgd->bckd", p, _grouped(do, h_kv))
     dk = torch.einsum("bkgqc,bqkgd->bckd", ds, _grouped(q, h_kv))
@@ -410,7 +442,7 @@ def _launch(entry, name, tensors, q, k, causal, window, scale, strided,
         *(s for t in strided for s in t.stride()[:3]))
     words, dscale = (None, 1.0) if drop is None else drop
     if words is not None:
-        words = (ctypes.c_uint * 3)(*words)
+        words = (ctypes.c_uint * 6)(*words)
     err = entry(*(None if t is None else t.data_ptr() for t in tensors),
                 ctypes.addressof(geom), scale, ctypes.addressof(strides),
                 None if words is None else ctypes.addressof(words), dscale,
@@ -481,22 +513,24 @@ def _bwd_dkv(entry, name, q, k, v, do, lse, delta, kmask, dm_rows, scale,
 
 
 def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
-              seed=None, dropout=0.0):
+              seed=None, dropout=0.0, coords=None):
     """Attention forward. q ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]``
     (float32 or bfloat16; float16 on CUDA at ``d == 128`` without key
     row or dropout; last dim contiguous, ``h % h_kv == 0``, ``d % 8 ==
     0``, ``d <= 256``); optional ``kmask`` ``[b * h, 1, sk]`` fp32 and
-    ``dropout`` with two ``seed`` words. Returns (O ``[b, sq, h, d]`` in
-    q's dtype, lse ``[b * h, sq]`` fp32)."""
+    ``dropout`` with two ``seed`` words, hashed at ``coords`` (first
+    batch row, first head, global heads; None: this tensor is the whole
+    batch and all heads). Returns (O ``[b, sq, h, d]`` in q's dtype, lse
+    ``[b * h, sq]`` fp32)."""
     _check(q, k, v, causal, window)
-    drop = _dropout_words(dropout, seed)
+    drop = _dropout_words(dropout, seed, coords, q.shape[2])
     if kmask is not None:
         _check_kmask(kmask, q.shape[0] * q.shape[2], q, k)
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
                              window=window, kmask=kmask, seed=seed,
-                             dropout=dropout)
+                             dropout=dropout, coords=coords)
     _fp16_kernel(q, "flash_fwd", kmask is not None or drop is not None)
     res = _fwd(_lib().pt_flash_fwd, "flash_fwd", q, k, v, kmask, scale,
                causal, window, drop)
@@ -516,27 +550,28 @@ def _check_stats(q, **stats):
 
 
 def _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
-               dropout, seed):
+               dropout, seed, coords):
     """The backward entries' checks; returns the dropout words."""
     _check(q, k, v, causal, window, extra=(("do", do),))
     _check_stats(q, lse=lse, delta=delta)
     if kmask is not None:
         _check_kmask(kmask, rows, q, k)
-    return _dropout_words(dropout, seed)
+    return _dropout_words(dropout, seed, coords, q.shape[2])
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
-                 kmask=None, seed=None, dropout=0.0):
+                 kmask=None, seed=None, dropout=0.0, coords=None):
     """dQ ``[b, sq, h, d]`` (q's dtype) from dO (q's shape and dtype), the
     forward's lse and ``delta = rowsum(dO * O)``, both ``[b * h, sq]``
-    fp32; ``kmask``, ``seed`` and ``dropout`` as the forward had them."""
+    fp32; ``kmask``, ``seed``, ``dropout`` and ``coords`` as the forward
+    had them."""
     drop = _check_bwd(q, k, v, do, lse, delta, causal, window, kmask,
-                      q.shape[0] * q.shape[2], dropout, seed)
+                      q.shape[0] * q.shape[2], dropout, seed, coords)
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                                 scale=scale, window=window, kmask=kmask,
-                                seed=seed, dropout=dropout)
+                                seed=seed, dropout=dropout, coords=coords)
     _fp16_kernel(q, "flash_bwd_dq (given delta)", True)
     dq = _bwd_dq(_lib().pt_flash_bwd_dq, "flash_bwd_dq", q, k, v, do, lse,
                  delta, kmask, scale, causal, window, drop)
@@ -545,19 +580,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale=None,
-                  window=0, kmask=None, seed=None, dropout=0.0):
+                  window=0, kmask=None, seed=None, dropout=0.0, coords=None):
     """(dK, dV) ``[b, sk, h_kv, d]`` (k's dtype), each summed over the
     query heads that share its kv head, and with ``kmask`` also dmask
     ``[b * h, 1, sk]`` fp32 per query head; arguments as
     :func:`flash_bwd_dq`."""
     rows = q.shape[0] * q.shape[2]
     drop = _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
-                      dropout, seed)
+                      dropout, seed, coords)
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                                  scale=scale, window=window, kmask=kmask,
-                                 seed=seed, dropout=dropout)
+                                 seed=seed, dropout=dropout, coords=coords)
     _fp16_kernel(q, "flash_bwd_dkv", kmask is not None or drop is not None)
     res = _bwd_dkv(_lib().pt_flash_bwd_dkv, "flash_bwd_dkv", q, k, v, do,
                    lse, delta, kmask, rows, scale, causal, window, drop)
@@ -640,9 +675,10 @@ class _FlashFn(torch.autograd.Function):
     dmask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout):
+    def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout,
+                coords):
         args = dict(causal=causal, scale=scale, window=window, kmask=kmask,
-                    seed=seed, dropout=dropout)
+                    seed=seed, dropout=dropout, coords=coords)
         out, lse = flash_fwd(q, k, v, **args)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = args
@@ -662,22 +698,24 @@ class _FlashFn(torch.autograd.Function):
             dq = flash_bwd_dq(q, k, v, do, lse, delta, **args)
         dk, dv, *dm = flash_bwd_dkv(q, k, v, do, lse, delta, **args)
         return (dq, dk, dv, dm[0] if dm else None, None, None, None, None,
-                None)
+                None, None)
 
 
 def flash_attention(q, k, v, *, causal, scale=None, window=0, kmask=None,
-                    dropout=0.0, seed=None):
+                    dropout=0.0, seed=None, coords=None):
     """Differentiable flash attention on the JAX public layout: q
     ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]`` -> ``[b, sq, h, d]``.
     ``scale`` defaults to ``1/sqrt(d)``; ``window > 0`` (with ``causal``)
     bounds each row's lookback to ``window`` keys; ``kmask`` (``[b * h,
     1, sk]``, cast to contiguous fp32) adds a key row per query head and
     receives its gradient; ``dropout > 0`` drops attention probabilities
-    by the counter hash seeded with the two ``seed`` words."""
+    by the counter hash seeded with the two ``seed`` words, at the global
+    ``coords`` (first batch row, first head, global heads) when this
+    tensor is a rank's part of the batch or heads."""
     _check(q, k, v, causal, window)
-    _dropout_words(dropout, seed)
+    _dropout_words(dropout, seed, coords, q.shape[2])
     if kmask is not None:
         kmask = kmask.to(torch.float32).contiguous()
     return _FlashFn.apply(q, k, v, kmask, causal,
                           _scale(scale, q.shape[-1]), window, seed,
-                          float(dropout))
+                          float(dropout), coords)

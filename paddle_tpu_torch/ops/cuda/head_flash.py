@@ -33,7 +33,9 @@ a batch row that has a live key elsewhere (non-causal, or causal with a
 live key before them; no window) are skipped: their dK, dV and dmask are
 exactly 0, as the plain version computes them. Dropout uses the query
 head ``b * h + i``, so its mask is bit for bit kernel 1's and the TPU
-kernels'.
+kernels'; a rank that holds part of the batch or of the heads passes
+``coords`` (first batch row, first head, global heads) and hashes the
+head ``(b0 + b) * hg + h0 + i``, the one the whole tensor's launch hashes.
 
 The lse is ``[b * h, sq]`` fp32, as kernel 1's (the TPU kernel's ``[b,
 sq, h, 128]`` lane broadcast is a Mosaic tiling rule: its ``[..., 0]``
@@ -73,41 +75,42 @@ def _per_head(kmask, h):
 # -- plain versions -----------------------------------------------------------
 
 def hb_fwd_ref(q, k, v, *, causal=False, scale=None, window=0, kmask=None,
-               seed=None, dropout=0.0):
+               seed=None, dropout=0.0, coords=None):
     """Plain version of :func:`hb_fwd`: kernel 1's plain version with the
     batch rows' key mask repeated for each head."""
     return _fa.flash_fwd_ref(q, k, v, causal=causal, scale=scale,
                              window=window, kmask=_per_head(kmask,
                                                             q.shape[2]),
-                             seed=seed, dropout=dropout)
+                             seed=seed, dropout=dropout, coords=coords)
 
 
 def hb_bwd_dq_ref(q, k, v, do, lse, delta, *, causal=False, scale=None,
-                  window=0, kmask=None, seed=None, dropout=0.0):
+                  window=0, kmask=None, seed=None, dropout=0.0, coords=None):
     """Plain version of :func:`hb_bwd_dq`."""
     return _fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                                 scale=scale, window=window,
                                 kmask=_per_head(kmask, q.shape[2]),
-                                seed=seed, dropout=dropout)
+                                seed=seed, dropout=dropout, coords=coords)
 
 
 def hb_bwd_dq_delta_ref(q, k, v, do, out, lse, *, causal=False, scale=None,
-                        window=0, kmask=None, seed=None, dropout=0.0):
+                        window=0, kmask=None, seed=None, dropout=0.0,
+                        coords=None):
     """Plain version of :func:`hb_bwd_dq_delta`: (dQ, delta)."""
     delta = _fa._delta(do, out)
     return hb_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                          scale=scale, window=window, kmask=kmask, seed=seed,
-                         dropout=dropout), delta
+                         dropout=dropout, coords=coords), delta
 
 
 def hb_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal=False, scale=None,
-                   window=0, kmask=None, seed=None, dropout=0.0):
+                   window=0, kmask=None, seed=None, dropout=0.0, coords=None):
     """Plain version of :func:`hb_bwd_dkv`: (dK, dV) and, with ``kmask``,
     dmask ``[b, 1, sk]`` summed over heads and query rows."""
     res = _fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                                 scale=scale, window=window,
                                 kmask=_per_head(kmask, q.shape[2]),
-                                seed=seed, dropout=dropout)
+                                seed=seed, dropout=dropout, coords=coords)
     if kmask is None:
         return res
     dk, dv, dm = res
@@ -118,19 +121,22 @@ def hb_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal=False, scale=None,
 # -- kernels ------------------------------------------------------------------
 
 def hb_fwd(q, k, v, *, causal=False, scale=None, window=0, kmask=None,
-           seed=None, dropout=0.0):
+           seed=None, dropout=0.0, coords=None):
     """Head-batched attention forward: q ``[b, sq, h, d]``, k/v ``[b, sk,
     h_kv, d]`` as :func:`flash_attention.flash_fwd` takes them, ``kmask``
     ``[b, 1, sk]`` fp32 (one additive row per batch row) and ``dropout``
-    with two ``seed`` words. Returns (O, lse ``[b * h, sq]`` fp32)."""
+    with two ``seed`` words at the global ``coords`` (first batch row,
+    first head, global heads; None: the whole batch and all heads).
+    Returns (O, lse ``[b * h, sq]`` fp32)."""
     _fa._check(q, k, v, causal, window)
-    drop = _fa._dropout_words(dropout, seed)
+    drop = _fa._dropout_words(dropout, seed, coords, q.shape[2])
     if kmask is not None:
         _fa._check_kmask(kmask, q.shape[0], q, k)
     scale = _fa._scale(scale, q.shape[-1])
     if not q.is_cuda:
         return hb_fwd_ref(q, k, v, causal=causal, scale=scale, window=window,
-                          kmask=kmask, seed=seed, dropout=dropout)
+                          kmask=kmask, seed=seed, dropout=dropout,
+                          coords=coords)
     _fa._fp16_kernel(q, "hb_fwd", True)
     res = _fa._fwd(_fa._lib().pt_hb_fwd, "hb_fwd", q, k, v, kmask, scale,
                    causal, window, drop)
@@ -139,16 +145,16 @@ def hb_fwd(q, k, v, *, causal=False, scale=None, window=0, kmask=None,
 
 
 def hb_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
-              window=0, kmask=None, seed=None, dropout=0.0):
+              window=0, kmask=None, seed=None, dropout=0.0, coords=None):
     """dQ of :func:`hb_fwd` from dO, lse and ``delta = rowsum(dO * O)``
     (``[b * h, sq]`` fp32 each)."""
     drop = _fa._check_bwd(q, k, v, do, lse, delta, causal, window, kmask,
-                          q.shape[0], dropout, seed)
+                          q.shape[0], dropout, seed, coords)
     scale = _fa._scale(scale, q.shape[-1])
     if not q.is_cuda:
         return hb_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                              scale=scale, window=window, kmask=kmask,
-                             seed=seed, dropout=dropout)
+                             seed=seed, dropout=dropout, coords=coords)
     _fa._fp16_kernel(q, "hb_bwd_dq", True)
     dq = _fa._bwd_dq(_fa._lib().pt_hb_bwd_dq, "hb_bwd_dq", q, k, v, do, lse,
                      delta, kmask, scale, causal, window, drop)
@@ -157,7 +163,8 @@ def hb_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
 
 
 def hb_bwd_dq_delta(q, k, v, do, out, lse, *, causal=False, scale=None,
-                    window=0, kmask=None, seed=None, dropout=0.0):
+                    window=0, kmask=None, seed=None, dropout=0.0,
+                    coords=None):
     """Kernel 5 computing delta itself: (dQ ``[b, sq, h, d]``, delta ``=
     rowsum(dO * O)`` ``[b * h, sq]`` fp32) from dO and the forward's O
     (both q's shape and dtype) and lse, with the key row and dropout as
@@ -168,14 +175,14 @@ def hb_bwd_dq_delta(q, k, v, do, out, lse, *, causal=False, scale=None,
     ``hb_bwd_dq.launches``: it is kernel 5."""
     _fa._check(q, k, v, causal, window, extra=(("do", do), ("out", out)))
     _fa._check_stats(q, lse=lse)
-    drop = _fa._dropout_words(dropout, seed)
+    drop = _fa._dropout_words(dropout, seed, coords, q.shape[2])
     if kmask is not None:
         _fa._check_kmask(kmask, q.shape[0], q, k)
     scale = _fa._scale(scale, q.shape[-1])
     if not q.is_cuda:
         return hb_bwd_dq_delta_ref(q, k, v, do, out, lse, causal=causal,
                                    scale=scale, window=window, kmask=kmask,
-                                   seed=seed, dropout=dropout)
+                                   seed=seed, dropout=dropout, coords=coords)
     res = _fa._bwd_dq_delta(_fa._lib().pt_hb_bwd_dq_delta, "hb_bwd_dq_delta",
                             q, k, v, do, out, lse, scale, causal, window,
                             drop, kmask=(kmask,))
@@ -184,17 +191,17 @@ def hb_bwd_dq_delta(q, k, v, do, out, lse, *, causal=False, scale=None,
 
 
 def hb_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
-               window=0, kmask=None, seed=None, dropout=0.0):
+               window=0, kmask=None, seed=None, dropout=0.0, coords=None):
     """(dK, dV) of :func:`hb_fwd` (GQA summed over each group) and, with
     ``kmask``, dmask ``[b, 1, sk]`` fp32 summed over heads and rows."""
     b = q.shape[0]
     drop = _fa._check_bwd(q, k, v, do, lse, delta, causal, window, kmask, b,
-                          dropout, seed)
+                          dropout, seed, coords)
     scale = _fa._scale(scale, q.shape[-1])
     if not q.is_cuda:
         return hb_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                               scale=scale, window=window, kmask=kmask,
-                              seed=seed, dropout=dropout)
+                              seed=seed, dropout=dropout, coords=coords)
     _fa._fp16_kernel(q, "hb_bwd_dkv", True)
     res = _fa._bwd_dkv(_fa._lib().pt_hb_bwd_dkv, "hb_bwd_dkv", q, k, v, do,
                        lse, delta, kmask, b, scale, causal, window, drop,
@@ -216,9 +223,10 @@ class _HbFlashFn(torch.autograd.Function):
     ops, then kernels 5 and 6. kmask's gradient is kernel 6's dmask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout):
+    def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout,
+                coords):
         args = dict(causal=causal, scale=scale, window=window, kmask=kmask,
-                    seed=seed, dropout=dropout)
+                    seed=seed, dropout=dropout, coords=coords)
         out, lse = hb_fwd(q, k, v, **args)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = args
@@ -235,20 +243,21 @@ class _HbFlashFn(torch.autograd.Function):
             dq = hb_bwd_dq(q, k, v, do, lse, delta, **ctx.args)
         dk, dv, *dm = hb_bwd_dkv(q, k, v, do, lse, delta, **ctx.args)
         return (dq, dk, dv, dm[0] if dm else None, None, None, None, None,
-                None)
+                None, None)
 
 
 def hb_flash(q, k, v, seed=None, kmask=None, causal=False, scale=None,
-             window=0, dropout=0.0):
+             window=0, dropout=0.0, coords=None):
     """The head-batched flash entry (the reference's ``hb_flash``): q
     ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]``, additive ``kmask`` ``[b,
     1, sk]`` or None (cast to contiguous fp32; it receives dmask as its
-    gradient), ``seed`` two int words for ``dropout > 0``. Returns ``[b,
-    sq, h, d]``."""
+    gradient), ``seed`` two int words for ``dropout > 0``, hashed at the
+    global ``coords`` (first batch row, first head, global heads) when q
+    is a rank's part of the batch or heads. Returns ``[b, sq, h, d]``."""
     _fa._check(q, k, v, causal, window)
-    _fa._dropout_words(dropout, seed)
+    _fa._dropout_words(dropout, seed, coords, q.shape[2])
     if kmask is not None:
         kmask = kmask.to(torch.float32).contiguous()
     return _HbFlashFn.apply(q, k, v, kmask, causal,
                             _fa._scale(scale, q.shape[-1]), window, seed,
-                            float(dropout))
+                            float(dropout), coords)

@@ -1821,3 +1821,106 @@ def test_checkpoint_of_card_tensors_round_trips(cuda, tmp_path):
             assert torch.equal(v, got[k]), k
         else:
             assert v == got[k], k
+
+
+# -- attention dropout at global coordinates, the pipe under SP --------------
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+@pytest.mark.parametrize("head_batched", [False, True],
+                         ids=["kernels1-3", "kernels4-6"])
+def test_dropout_at_global_coordinates(cuda, head_batched, causal):
+    """A launch over batch rows 2-3 and heads 4-7 of a b4 x h8 tensor
+    (a dp and mp rank's part), given ``coords`` (2, 4, 8), drops what the
+    whole tensor's launch drops there: its O, lse, dQ, dK and dV are that
+    launch's slice bit for bit, and each is within 1e-2 per tile of its
+    plain version at the same coordinates. Without them the part hashes
+    its own heads 0-7 and drops other elements."""
+    b, s, h, d = 4, 256, 8, 64
+    gen = torch.Generator(cuda).manual_seed(31)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    fwd, bdq, bdkv, fwd_ref, bdq_ref, bdkv_ref = _variant_family(
+        head_batched)
+    kw = dict(causal=causal, seed=_SEED, dropout=0.25)
+    out, lse = fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, s).contiguous()
+    dq = bdq(q, k, v, do, lse, delta, **kw)
+    dk, dv = bdkv(q, k, v, do, lse, delta, **kw)
+    rows, heads = slice(2, 4), slice(4, 8)
+
+    def stat(t):  # [b * h, s] -> the part's rows and heads
+        return t.reshape(b, h, s)[rows, heads].reshape(-1, s).contiguous()
+
+    part = [t[rows, :, heads].contiguous() for t in (q, k, v, do)]
+    pkw = dict(kw, coords=(2, 4, 8))
+    out_p, lse_p = fwd(*part[:3], **pkw)
+    dq_p = bdq(*part, stat(lse), stat(delta), **pkw)
+    dk_p, dv_p = bdkv(*part, stat(lse), stat(delta), **pkw)
+    torch.cuda.synchronize()
+    assert torch.equal(lse_p, stat(lse))
+    for name, got, whole in (("O", out_p, out), ("dq", dq_p, dq),
+                             ("dk", dk_p, dk), ("dv", dv_p, dv)):
+        assert torch.equal(got, whole[rows, :, heads]), name
+    f32 = [t.float() for t in part]
+    want_out, _ = fwd_ref(*f32[:3], **pkw)
+    want_dq = bdq_ref(*f32, stat(lse), stat(delta), **pkw)
+    want_dk, want_dv = bdkv_ref(*f32, stat(lse), stat(delta), **pkw)
+    for name, got, want in (("O", out_p, want_out), ("dq", dq_p, want_dq),
+                            ("dk", dk_p, want_dk), ("dv", dv_p, want_dv)):
+        err = _tile_rel_err(got, want)
+        assert err <= 1e-2, f"{name}: per-tile relative error {err}"
+    local, _ = fwd(*part[:3], **kw)
+    assert not torch.equal(local, out_p)
+
+
+def test_pipe_with_sp_at_world_size_one_equals_plain(cuda):
+    """``LlamaForCausalLMPipe`` with ``sequence_parallel=True`` at world
+    size 1 (NCCL, mp 1: SP is off at degree 1) on CUDA graphs, loaded
+    through the canonical state, takes the plain model's steps bit for
+    bit."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import LlamaForCausalLMPipe, to_pipe_layout
+
+    weights = _tiny_pair()
+    runs = []
+    for path in ("plain", "pipe"):
+        cfg = LlamaConfig.tiny(num_hidden_layers=2, dtype="bfloat16",
+                               sequence_parallel=path == "pipe")
+        if path == "pipe":
+            dist.init_parallel_env()
+            fleet.init(is_collective=True,
+                       strategy=fleet.DistributedStrategy())
+            model = LlamaForCausalLMPipe(cfg, device=cuda)
+            missing, unexpected = model.set_state_dict(
+                to_pipe_layout(weights, cfg.num_hidden_layers))
+            assert not missing and not unexpected
+            model = fleet.distributed_model(model)
+            loss_of = lambda m, i, l: m.loss_fn(m(i), l)  # noqa: E731
+        else:
+            model = LlamaForCausalLM(cfg, device=cuda)
+            load_jax_weights(model, weights)
+            loss_of = lambda m, i, l: m(i, l)  # noqa: E731
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        exec_cache.clear()
+        step = TrainStep(model, opt, loss_of)
+        losses = []
+        for i in range(4):
+            rng = np.random.RandomState(100 + i)
+            ids, labels = (torch.from_numpy(rng.randint(
+                0, 128, (2, 16)).astype(np.int32)).to(cuda)
+                for _ in range(2))
+            losses.append(float(step(ids, labels)))
+        assert exec_cache.stats()["captures"] == 1
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+        if path == "pipe":
+            dist.destroy_process_group()
+    exec_cache.clear()
+    (pl, pp), (fl, fp) = runs
+    assert pl == fl
+    assert all(torch.equal(a, b) for a, b in zip(pp, fp))

@@ -26,8 +26,8 @@ losses of 3 ``train_batch`` steps of ``AdamW`` with
 the same microbatch count give the same bits; the reference's pp-1
 canonical ``state_dict`` loads at pp 1, 2 and 4 and gives the
 reference's loss, and the pp-4 ranks' gathered state loads back into the
-reference; the blocks-per-stage and ERNIE-under-mp errors; the
-counters against their formula.
+reference; the blocks-per-stage errors and ERNIE's pipe under mp 2 with
+a vocab mp does not divide; the counters against their formula.
 """
 import os
 import pickle
@@ -209,7 +209,8 @@ def _checkpoint_move(root, pp):
 
 
 def _errors():
-    """The errors a pipe raises at pp 2 (and ERNIE's under mp 2)."""
+    """The errors a pipe raises at pp 2 (and ERNIE's under mp 2, where
+    mp does not divide its vocab)."""
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.models import (
         ErnieConfig, ErnieForPretrainingPipe, LlamaConfig,
@@ -226,8 +227,9 @@ def _errors():
             errors.append(str(e))
     fleet.init(strategy=_strategy(("llama", 1, 2, 1, 1, 1, "")))
     try:
-        ErnieForPretrainingPipe(ErnieConfig.tiny(), "nlg", device="cpu")
-    except NotImplementedError as e:
+        ErnieForPretrainingPipe(ErnieConfig.tiny(vocab_size=127), "nlg",
+                                device="cpu")
+    except ValueError as e:
         errors.append(str(e))
     return errors
 
@@ -558,7 +560,7 @@ def test_errors(runs):
         assert "pipeline blocks (3) must divide evenly over pp stages (2) " \
             "x virtual stages (1)" in errors[0]
         assert "pipeline blocks (2)" in errors[1] and "(2)" in errors[1]
-        assert "ErnieForPretrainingPipe under mp > 1" in errors[2] \
+        assert "vocab_size = 127" in errors[2] and "mp = 2" in errors[2] \
             and "A.6" in errors[2]
 
 
