@@ -217,19 +217,23 @@ only a run in which every phase passed prints the final line:
    CE, at dp 2 x mp 2 x pp 2: eight ranks sharing the card over gloo,
    1F1B over 2 microbatches, 3 AdamW steps on b8 x s1024, against the
    same pipe on one card (its microbatches in turn), in bf16 (the main
-   path) and again in fp32: in fp32 step 1's loss within 1e-3 and its
-   gradients (eight leaves, gathered over mp and dp) within 5e-2, steps
-   2-3 within MOE_DRIFT_TOL; in bf16 at HYBRID_BF16_TOL and
-   HYBRID_BF16_GRAD_TOL (see there: mp's bf16 sums move gate choices);
-   how many of step 1's token choices in layer 1 took another expert or
-   slot than on one card; each rank's launches of kernels 1-3 (2 layers
-   x 2 microbatches x 3 steps), peak, bytes sent (``[2, 512, 1536]`` a
-   microbatch) and tokens dispatched a layer; kernels 1-3 at a rank's
-   shape against their plain versions; (b)
+   path; every gate call handed one card's expert choices, see
+   ``_steer_choices``) and again in fp32 (the gates free): step 1's
+   loss within 1e-3 and its gradients (eight leaves, gathered over mp
+   and dp) within 5e-2, steps 2-3 within MOE_DRIFT_TOL; how many of the
+   ranks' own bf16 choices differ from one card's; how many of step 1's
+   token choices in layer 1 took another expert or slot than on one
+   card (none, in bf16); each rank's launches of kernels 1-3 (2 layers
+   x 2 microbatches x 3 steps, none of kernels 4-8), peak, bytes sent
+   (``[2, 512, 1536]`` a microbatch) and tokens dispatched a layer;
+   kernels 1-3 at a rank's shape against their plain versions; (b)
    ``ErnieForPretraining`` at the 10B widths, trunk 4, bf16, attention
    dropout 0.1 at mp 2 (two ranks, 32 trunk heads each, hashing their
    heads' global coordinates) against one card with the same seed
-   words, 2 steps within 1e-3; kernels 4-6 at a rank's 32 heads with
+   words, 2 steps within 1e-3 and step 1's gradients (two attention
+   weights, gathered over mp) within 5e-2; with ``--fault dropout`` the
+   ranks hash their launches' own heads, and the phase must then fail;
+   kernels 4-6 at a rank's 32 heads with
    those coordinates against their plain versions; the ERNIE pipe
    (``nlg``, dropout 0) at pp 2 x mp 2 against pp 1 within 1e-3; (c)
    the pipe with ring attention at pp 2 x sep 2 with the 8 experts
@@ -3686,7 +3690,7 @@ def _moe_one_card(card, ids, labels):
     model = _moe_model()
     n_params = sum(p.numel() for p in model.parameters())
     experts = model.llama.layers[0].mlp
-    routes = _next_routes(model)
+    routes = _next_routes([blk.mlp for blk in model.llama.layers])
     with torch.no_grad():  # the routing and aux losses at step 0
         model(ids)
     aux = [float(blk.mlp.aux_loss) for blk in model.llama.layers]
@@ -3742,20 +3746,42 @@ def _moe_one_card(card, ids, labels):
                            "peak_gib": g_peak, "launches": launch}
 
 
-def _next_routes(model):
-    """A list that each MoE layer's next forward appends its buffer rows
-    to (``route``'s ``rows``: both choices, ``[2, tokens]``, the global
-    ``expert * C + slot``, ``E * C`` where dropped); then the layer
-    routes as before."""
+def _next_routes(moe):
+    """A list that the next forward of each MoE layer in ``moe`` appends
+    its buffer rows to (``route``'s ``rows``: both choices, ``[2,
+    tokens]``, the global ``expert * C + slot``, ``E * C`` where
+    dropped); then the layer routes as before."""
     got = []
-    for blk in model.llama.layers:
-        def once(tokens, cap, n_rows=1, mlp=blk.mlp,
-                 route=blk.mlp.route):
+    for mlp in moe:
+        def once(tokens, cap, n_rows=1, mlp=mlp, route=mlp.route):
             out = route(tokens, cap, n_rows)
             got.append(torch.stack(out[2]).cpu().numpy())
             del mlp.route  # the class's own again
             return out
-        blk.mlp.route = once
+        mlp.route = once
+    return got
+
+
+def _steer_choices(moe, forced=None):
+    """Hook the gate of each MoE layer in ``moe`` ({canonical index:
+    layer}) for the module's life. Without ``forced`` each call's own
+    expert choices (``[top_k, tokens]``) are appended to the returned
+    {index: [...]}; with ``forced`` ({index: [choices, ...]} in call
+    order) each call routes by the next given choices instead of its
+    own, and the returned lists get how many of its own differed."""
+    got = {k: [] for k in moe}
+    for k, mlp in moe.items():
+        queue = None if forced is None else iter(forced[k])
+
+        def choose(probs, k=k, own=mlp._choose, queue=queue):
+            mine = torch.stack(own(probs))
+            if queue is None:
+                got[k].append(mine)
+                return list(mine)
+            want = torch.as_tensor(next(queue), device=mine.device)
+            got[k].append((mine != want).sum())
+            return list(want)
+        mlp._choose = choose
     return got
 
 
@@ -3765,7 +3791,7 @@ def _moe_fp32_one_card(ids, labels):
     buffer rows)."""
     model = _moe_model(cfg=MOE_FP32)
     opt = _fleet_optimizer(model)
-    routes = _next_routes(model)
+    routes = _next_routes([blk.mlp for blk in model.llama.layers])
     losses = []
     for i in range(FLEET_STEPS):
         opt.clear_grad()
@@ -3833,7 +3859,7 @@ def _rank_20b(root, ids, labels, cfg, fault):
     moe = [blk.mlp for blk in model.llama.layers]
     saved = [(w, w.detach().clone()) for m in moe for w in (m.w_in, m.w_out)
              ] if fault and rank == 1 else []
-    routes = _next_routes(model)
+    routes = _next_routes(moe)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in FLASH_WRAPPERS:
@@ -4172,19 +4198,15 @@ def phase_experts(card, fault=False, fp32_witness=False):
 HYBRID = dict(TRAIN, num_hidden_layers=4, moe_num_experts=8, moe_top_k=2,
               use_parallel_cross_entropy=True)
 HYBRID_MICRO = 2
-# 21a's limits. The fp32 leg is held where the issue put them: step 1's
-# loss within FLEET_CHECK_TOL, its gradients within FLEET_GRAD_REL_TOL,
-# steps 2-3 within MOE_DRIFT_TOL. The bf16 leg (the main path) cannot be:
-# mp 2's bf16 partial sums move a few gate choices (35 of 8192 in layer
-# 1 at step 1), the capacity then drops other tokens, and the loss parted
-# by 2.460e-3 at step 1 and 2.678e-2 by step 3, the gradients by
-# 6.1e-2-2.36e-1 (NVIDIA H100 80GB HBM3, 700 W); the same layout on the
-# CPU parts from one rank by 5e-7 in fp32 and 8e-2-1.9e-1 in bf16, where
-# without experts bf16 parts it by 8e-3. So the bf16 leg is held at
-# these, which a gradient summed twice (an error of 1.0) or over half
-# the ranks (0.5) still fails
-HYBRID_BF16_TOL = (1e-2, 5e-2)  # step 1's loss, steps 2-3
-HYBRID_BF16_GRAD_TOL = 0.4
+# 21a holds both dtypes at the same limits: step 1's loss within
+# FLEET_CHECK_TOL, its gradients within FLEET_GRAD_REL_TOL, steps 2-3
+# within MOE_DRIFT_TOL. In bf16, mp 2's partial sums round otherwise
+# than one card's products and flip near-tied gate choices; the capacity
+# then drops other tokens, and a few flips part the whole step from one
+# card by more than those limits. So the bf16 ranks route by one card's
+# expert choices (``_steer_choices``: their own softmax, gates, counts,
+# slots and capacity, only the argmax handed over) and print how many
+# of their own differ; in fp32 the ranks' gates choose for themselves.
 HYBRID_LEAVES = ("0.embed_tokens.weight", "1.self_attn.qkv_proj.weight",
                  "1.mlp.gate_weight", "1.mlp.w_in",
                  "4.post_attention_layernorm.weight",
@@ -4196,6 +4218,9 @@ ERNIE_MP = dict(num_hidden_layers=4, dtype="bfloat16",
                 hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.1)
 ERNIE_MP_STEPS = 2
 ERNIE_MP_SEED = 21
+# 21b's step-1 gradients: attention weights before and after the dropout
+ERNIE_MP_LEAVES = ("ernie.encoder.0.attention.qkv.weight",
+                   "ernie.encoder.3.attention.out.weight")
 # kernels 4-6 as an mp-2 rank of 21b calls them: the trunk's b4 s1024,
 # 32 of the 64 heads of d 64 (this rank's the second half), dropout 0.1
 HYBRID_HB_CASE = ("21b mp 2 rank 1 trunk", ERNIE_BATCH, ERNIE_SEQ,
@@ -4219,16 +4244,18 @@ def _thin(key, g):
         return g[:, :, ::16]
     if key.endswith("proj.weight"):
         return g[::4]
+    if key.startswith("ernie."):  # 21b's [4096, 12288] and [4096, 4096]
+        return g[::16]
     return g
 
 
-def _pipe_leaves(pipe, keys=HYBRID_LEAVES):
-    """The gradients of this stage's ``keys`` as global fp32 arrays
-    (gathered over their layout's axis: collective over mp or dp),
-    thinned by ``_thin``."""
+def _global_leaves(module, keys):
+    """The gradients of ``module``'s ``keys`` that it holds, as global
+    fp32 arrays (gathered over their layout's axis: collective over mp
+    or dp), thinned by ``_thin``."""
     from paddle_tpu_torch.distributed.shard import gather_global
 
-    params = dict(pipe.named_parameters())
+    params = dict(module.named_parameters())
     out = {}
     for k in keys:
         if k not in params:
@@ -4258,22 +4285,10 @@ def _hybrid_pipe(extra=None, seed=0):
     return pipe, _fleet_optimizer(pipe)
 
 
-def _first_routes(pipe, got):
-    """Append to ``got`` the buffer rows (``[top_k, tokens]``, expert x C
-    + slot, E x C where dropped) of the next call of the MoE layer at
-    canonical index 1, if this stage holds it; then it routes as
-    before."""
-    layer = pipe._modules.get("1")
-    if layer is None or not hasattr(layer.mlp, "route"):  # no experts
-        return
-    mlp = layer.mlp
-
-    def once(tokens, cap, n_rows=1, route=mlp.route):
-        out = route(tokens, cap, n_rows)
-        got.append(torch.stack(out[2]).cpu().numpy())
-        del mlp.route  # the class's own again
-        return out
-    mlp.route = once
+def _stage_moe(pipe):
+    """This stage's MoE layers by canonical index."""
+    return {k: m.mlp for k, m in pipe._modules.items()
+            if hasattr(getattr(m, "mlp", None), "route")}
 
 
 def _pipe_one_card(extra, ids, labels, steps):
@@ -4281,13 +4296,15 @@ def _pipe_one_card(extra, ids, labels, steps):
     microbatches run in turn as the pipeline runs them (the loss of
     each divided by the whole batch's count, the gate per microbatch),
     ``steps`` steps. Returns (losses, step 1's leaves, step 1's routing
-    of layer 1 in microbatch 0 or None)."""
+    of layer 1 in microbatch 0 or None, every gate call's expert choices
+    ``[calls, top_k, tokens]`` by layer in call order)."""
     pipe, opt = _hybrid_pipe(extra)
     xs, ys = ids.chunk(HYBRID_MICRO), labels.chunk(HYBRID_MICRO)
     count = sum(pipe.loss_fn.token_count(y) for y in ys)
     losses, leaves = [], None
-    routes = []
-    _first_routes(pipe, routes)
+    moe = _stage_moe(pipe)
+    routes = _next_routes([moe[k] for k in moe if k == "1"])
+    choices = _steer_choices(moe)
     for i in range(steps):
         opt.clear_grad()
         total = torch.zeros((), device="cuda")
@@ -4296,12 +4313,13 @@ def _pipe_one_card(extra, ids, labels, steps):
             loss.backward()
             total += loss.detach()
         if i == 0:
-            leaves = _pipe_leaves(pipe)
+            leaves = _global_leaves(pipe, HYBRID_LEAVES)
         opt.step()
         losses.append(float(total))
+    choices = {k: torch.stack(c).cpu().numpy() for k, c in choices.items()}
     del pipe, opt
     _release()
-    return losses, leaves, routes[0] if routes else None
+    return losses, leaves, routes[0] if routes else None, choices
 
 
 def _pipe_rank_run(net, pipe, opt, batch, steps, leaves=False):
@@ -4315,7 +4333,7 @@ def _pipe_rank_run(net, pipe, opt, batch, steps, leaves=False):
             net._reduce_gradients()
             torch.cuda.synchronize()
             t0 -= time.perf_counter()
-            got = _pipe_leaves(pipe)
+            got = _global_leaves(pipe, HYBRID_LEAVES)
             t0 += time.perf_counter()
             opt.step()
             opt.clear_grad()
@@ -4327,21 +4345,36 @@ def _pipe_rank_run(net, pipe, opt, batch, steps, leaves=False):
     return losses, ms, got
 
 
+ALL_WRAPPERS = FLASH_WRAPPERS + HB_WRAPPERS + (pa.paged_attend,
+                                               pa.paged_attend_int8)
+
+
 def _reset_launches():
-    for w in FLASH_WRAPPERS + HB_WRAPPERS:
+    for w in ALL_WRAPPERS:
         w.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
 
 def _launch_counts():
-    return {w.__name__: w.launches for w in FLASH_WRAPPERS + HB_WRAPPERS}
+    return {w.__name__: w.launches for w in ALL_WRAPPERS}
 
 
-def _rank_21a(root, ids, labels, dtype):
+def _my_choices(choices, dp, mp):
+    """A 21a rank's part of one card's gate choices ({layer: ``[calls,
+    top_k, tokens]``}): its 2 rows of each microbatch and its sequence
+    half of each row, in its own token order."""
+    half = TRAIN_SEQ // 2
+    return {k: c.reshape(c.shape[:2] + (-1, TRAIN_SEQ))[
+        :, :, 2 * dp:2 * dp + 2, mp * half:(mp + 1) * half].reshape(
+            c.shape[:2] + (-1,)) for k, c in choices.items()}
+
+
+def _rank_21a(root, ids, labels, dtype, choices):
     """One of 21a's eight ranks sharing the card: the hybrid pipe in
     ``dtype`` at dp 2 x mp 2 x pp 2 with SP and the experts over dp,
-    1F1B, 3 steps."""
+    1F1B, 3 steps; each gate call routed by its part of one card's
+    ``choices`` unless they are None."""
     from paddle_tpu_torch.distributed import fleet
 
     dist = _rank_setup(root)
@@ -4349,14 +4382,17 @@ def _rank_21a(root, ids, labels, dtype):
         dp=2, mp=2, pp=2, pipeline={"accumulate_steps": HYBRID_MICRO,
                                     "schedule": "1F1B"}))
     hcg = fleet.get_hybrid_communicate_group()
+    dp, mp = hcg.get_data_parallel_rank(), hcg.get_model_parallel_rank()
     pipe, opt = _hybrid_pipe({"sequence_parallel": True, "dtype": dtype})
     net = fleet.distributed_model(pipe)
     opt = fleet.distributed_optimizer(opt)
-    rows = _micro_rows(2, hcg.get_data_parallel_rank())
+    rows = _micro_rows(2, dp)
     batch = tuple(torch.from_numpy(a[rows]).cuda() for a in (ids, labels))
-    moe = [m.mlp for m in pipe.children() if hasattr(m, "mlp")]
-    routes = []
-    _first_routes(pipe, routes)
+    stage = _stage_moe(pipe)
+    moe = list(stage.values())
+    routes = _next_routes([stage[k] for k in stage if k == "1"])
+    differ = _steer_choices(stage, None if choices is None
+                            else _my_choices(choices, dp, mp))
     _reset_launches()
     losses, ms, leaves = _pipe_rank_run(net, pipe, opt, batch, FLEET_STEPS,
                                         leaves=True)
@@ -4364,15 +4400,19 @@ def _rank_21a(root, ids, labels, dtype):
         leaves = dict(leaves, routes=routes[0])
     out = {"losses": losses, "ms": ms, "launches": _launch_counts(),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "coords": [hcg.get_data_parallel_rank(),
-                      hcg.get_model_parallel_rank(), hcg.get_stage_id()],
+           "coords": [dp, mp, hcg.get_stage_id()],
            "layers": sorted(int(k) for k in pipe._modules),
            "experts": moe[0].w_in.shape[0],
            "heads": next(m for m in pipe.children()
                          if hasattr(m, "self_attn")).self_attn._nh,
            "counters": dict(pipe.counters),
            "dispatched": [[int(x) for x in m.dispatched] for m in moe],
-           "comm_bytes": sum(m.comm_bytes for m in moe) // FLEET_STEPS}
+           "comm_bytes": sum(m.comm_bytes for m in moe) // FLEET_STEPS,
+           # how many of its own choices differ from one card's, a step
+           "differ": None if choices is None else [
+               sum(int(n) for c in differ.values()
+                   for n in c[i * HYBRID_MICRO:(i + 1) * HYBRID_MICRO])
+               for i in range(FLEET_STEPS)]}
     del net, pipe, opt
     _release()
     if dist.get_rank() == 0 and dtype == "bfloat16":  # launches read
@@ -4395,33 +4435,46 @@ def _ernie_mp_model():
                                                         ERNIE_SEQ)
 
 
-def _ernie_mp_steps(net, opt, batch):
+def _ernie_mp_steps(net, opt, batch, model):
+    """21b's steps; returns (losses, ms a step, step 1's ERNIE_MP_LEAVES
+    of ``model``)."""
     ids, mlm, lm = batch
-    losses, ms = [], []
-    for _ in range(ERNIE_MP_STEPS):
+    losses, ms, leaves = [], [], None
+    for i in range(ERNIE_MP_STEPS):
         t0 = time.perf_counter()
         opt.clear_grad()
         loss = net(ids, mlm_labels=mlm, lm_labels=lm)
         loss.backward()
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 -= time.perf_counter()
+            leaves = _global_leaves(model, ERNIE_MP_LEAVES)
+            t0 += time.perf_counter()
         opt.step()
         losses.append(float(loss.detach()))
         ms.append((time.perf_counter() - t0) * 1e3)
-    return losses, ms
+    return losses, ms, leaves
 
 
-def _rank_21_two(root, ids, labels):
+def _rank_21_two(root, ids, labels, fault):
     """One of two ranks sharing the card: 21b ERNIE at mp 2 (2 steps,
-    dropout 0.1), then 21c the MoE Llama with SP at mp 2 (1 step)."""
+    dropout 0.1; with ``fault`` each rank hashes its launches' own
+    heads), then 21c the MoE Llama with SP at mp 2 (1 step)."""
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn.functional import attention as tattn
 
     dist = _rank_setup(root)
-    out, arrays = {}, {}
+    out = {}
     fleet.init(is_collective=True, strategy=_strategy(mp=2))
     model, opt, batch = _ernie_mp_model()
     net = fleet.distributed_model(model)
     opt = fleet.distributed_optimizer(opt)
+    coords = tattn._dropout_coords
+    if fault:
+        tattn._dropout_coords = lambda q: None
     _reset_launches()
-    losses, ms = _ernie_mp_steps(net, opt, batch)
+    losses, ms, leaves = _ernie_mp_steps(net, opt, batch, model)
+    tattn._dropout_coords = coords
     attn = model.ernie.encoder[0].attention
     out["ernie_mp2"] = {
         "losses": losses, "ms": ms, "launches": _launch_counts(),
@@ -4452,7 +4505,7 @@ def _rank_21_two(root, ids, labels):
                        for blk in model.llama.layers]}
     del net, model, opt, loss
     _release()
-    _save_rank(root, out, arrays or None)
+    _save_rank(root, out, leaves)
     dist.destroy_process_group()
 
 
@@ -4509,19 +4562,9 @@ def _rank_21_four(root, ids, labels):
     dist.destroy_process_group()
 
 
-HYBRID_FAILURES = []  # phase 21's failed checks, raised at its end
-
-
-def _fail(msg):
-    """Record a failed check of phase 21 (the phase raises them all at
-    its end, after every leg has printed its readings)."""
-    log(f"[hybrid] FAILED: {msg}")
-    HYBRID_FAILURES.append(msg)
-
-
 def _hold_losses(tag, ranks, want, tol_first, tol_later=None):
     """Every rank's losses against ``want``: step 1 within ``tol_first``,
-    the later ones within ``tol_later``; logs, and records a failure."""
+    the later ones within ``tol_later``; logs, and raises on a miss."""
     first = max(abs(o["losses"][0] - want[0]) for o in ranks)
     later = max([abs(a - b) for o in ranks
                  for a, b in zip(o["losses"][1:], want[1:])] or [0.0])
@@ -4530,8 +4573,30 @@ def _hold_losses(tag, ranks, want, tol_first, tol_later=None):
         + (f", steps 2-{len(want)} within {later:.3e} (tol {tol_later})"
            if len(want) > 1 else ""))
     if not first <= tol_first or (len(want) > 1 and not later <= tol_later):
-        _fail(f"{tag}: the ranks' losses {[o['losses'] for o in ranks]} "
-              f"left one card's {want}")
+        raise AssertionError(f"{tag}: the ranks' losses "
+                             f"{[o['losses'] for o in ranks]} left one "
+                             f"card's {want}")
+
+
+def _log_leaves(tag, arrays, want):
+    """Step 1's gradients (every rank's leaves against one card's
+    ``want``): logs the worst rank's relative Frobenius errors and
+    returns them."""
+    err = {}
+    for got in arrays:  # a pipe rank holds its stage's leaves only
+        for key, a in got.items():
+            e = float(np.linalg.norm(a - want[key])
+                      / max(np.linalg.norm(want[key]), 1e-30))
+            err[key] = max(err.get(key, 0.0), e)
+    log(f"[hybrid] {tag}: step 1's gradients against one card's, relative "
+        f"Frobenius error (worst rank; tol {FLEET_GRAD_REL_TOL}): "
+        + ", ".join(f"{key} {e:.3e}" for key, e in err.items()))
+    return err
+
+
+def _hold_leaves(tag, err):
+    if not max(err.values()) <= FLEET_GRAD_REL_TOL:
+        raise AssertionError(f"{tag}: gradients left one card's: {err}")
 
 
 def _hold_launches(tag, ranks, want):
@@ -4541,19 +4606,23 @@ def _hold_launches(tag, ranks, want):
         exp = want(o)
         got = o["launches"]
         if any(got[n] != exp.get(n, 0) for n in got):
-            _fail(f"{tag}: rank {o['rank']} launched {got}, expected {exp}")
+            raise AssertionError(f"{tag}: rank {o['rank']} launched {got}, "
+                                 f"expected {exp}")
 
 
 def _each(wrappers, n):
     return {w.__name__: n for w in wrappers}
 
 
-def _hybrid_21a(card, dtype, batch, one, one_leaves, one_routes, per):
-    """21a in ``dtype``: eight ranks against one card's ``one`` losses,
-    step 1's ``one_leaves`` and routing; bf16 held at HYBRID_BF16_TOL
-    and HYBRID_BF16_GRAD_TOL, fp32 where the issue put it. Returns rank
-    0's launches."""
-    ranks, arrays, wall = _spawn_ranks(_rank_21a, batch + (dtype,), n=8)
+def _hybrid_21a(card, dtype, batch, one, per):
+    """21a in ``dtype``: eight ranks against one card's ``one`` (losses,
+    step 1's leaves and routing of layer 1, every gate call's choices);
+    the bf16 ranks are handed those choices. Returns rank 0's
+    launches."""
+    one_losses, one_leaves, one_routes, one_choices = one
+    steer = dtype == "bfloat16"
+    ranks, arrays, wall = _spawn_ranks(
+        _rank_21a, batch + (dtype, one_choices if steer else None), n=8)
     tag = f"21a {dtype}"
     for o in ranks:
         dp, mp, stage = o["coords"]
@@ -4571,10 +4640,10 @@ def _hybrid_21a(card, dtype, batch, one, one_leaves, one_routes, per):
             f"dispatched a layer at step {FLEET_STEPS} (first, second "
             f"choice; this rank's {2 * TRAIN_SEQ // 2} of a microbatch) "
             f"{o['dispatched']}, dispatch and combine "
-            f"{o['comm_bytes'] / 2**20:.1f} MiB a step")
-    bf16 = dtype == "bfloat16"
-    _hold_losses(tag, ranks, one, *(HYBRID_BF16_TOL if bf16 else
-                                    (FLEET_CHECK_TOL, MOE_DRIFT_TOL)))
+            f"{o['comm_bytes'] / 2**20:.1f} MiB a step"
+            + (f"; own gate choices unlike one card's (handed over "
+               f"instead), a step over its layers and microbatches "
+               f"{o['differ']}" if steer else ""))
     # step 1's routing of layer 1 in microbatch 0 against one card's: a
     # rank holds rows 2 dp .. 2 dp + 1 of the microbatch, columns 512 mp
     # onwards; a row is expert x C + slot
@@ -4596,51 +4665,47 @@ def _hybrid_21a(card, dtype, batch, one, one_leaves, one_routes, per):
         f"choices (2 x {seen // 2} tokens, C = {cap}), {moved} to another "
         f"expert or dropped otherwise than on one card, {shifted} in "
         f"another buffer row")
-    err = {}
-    for got in arrays:
-        for key, a in got.items():
-            e = float(np.linalg.norm(a - one_leaves[key])
-                      / max(np.linalg.norm(one_leaves[key]), 1e-30))
-            err[key] = max(err.get(key, 0.0), e)
-    tol = HYBRID_BF16_GRAD_TOL if bf16 else FLEET_GRAD_REL_TOL
-    log(f"[hybrid] {tag}: step 1's gradients against one card's, relative "
-        f"Frobenius error (worst rank; tol {tol}): "
-        + ", ".join(f"{key} {e:.3e}" for key, e in err.items()))
-    if set(err) != set(HYBRID_LEAVES) or not max(err.values()) <= tol:
-        _fail(f"{tag}: gradients left one card's: {err}")
+    err = _log_leaves(tag, arrays, one_leaves)
+    _hold_losses(tag, ranks, one_losses, FLEET_CHECK_TOL, MOE_DRIFT_TOL)
+    if set(err) != set(HYBRID_LEAVES):
+        raise AssertionError(f"{tag}: leaves {sorted(err)} read")
+    _hold_leaves(tag, err)
+    if steer and shifted:  # the same choices take the same slots
+        raise AssertionError(f"{tag}: {shifted} buffer rows unlike one "
+                             f"card's under its own choices")
     _hold_launches(tag, ranks,
                    lambda o: _each(FLASH_WRAPPERS, per * FLEET_STEPS))
     if any(o["experts"] != HYBRID["moe_num_experts"] // 2
            or o["heads"] != 6 for o in ranks):
-        _fail(f"{tag}: a rank's experts or heads are not half")
+        raise AssertionError(f"{tag}: a rank's experts or heads are not "
+                             f"half")
     want_bytes = HYBRID_MICRO * FLEET_STEPS * 2 * TRAIN_SEQ // 2 \
-        * TRAIN["hidden_size"] * (2 if bf16 else 4)
+        * TRAIN["hidden_size"] * (2 if steer else 4)
     if any(o["counters"]["bytes_sent"] != want_bytes for o in ranks):
-        _fail(f"{tag}: bytes sent {[o['counters'] for o in ranks]}, "
-              f"expected {want_bytes} a rank")
+        raise AssertionError(f"{tag}: bytes sent "
+                             f"{[o['counters'] for o in ranks]}, expected "
+                             f"{want_bytes} a rank")
     log(f"[hybrid] {tag}: spawn to join {wall:.1f} s")
     return ranks[0]["launches"]
 
 
-def phase_hybrid(card):
+def phase_hybrid(card, fault=False):
     """21a the reference's hybrid step at dp 2 x mp 2 x pp 2 (eight ranks
     on gloo) against one card; 21b ERNIE at mp 2 with attention dropout
-    against one card, and its pipe at pp 2 x mp 2 against pp 1, kernels
-    4-6 at a rank's global coordinates; 21c the pipe under context
+    against one card (with ``fault`` at the ranks' own heads, which
+    must fail), and its pipe at pp 2 x mp 2 against pp 1, kernels 4-6
+    at a rank's global coordinates; 21c the pipe under context
     parallelism with the experts, Ulysses, the pipe with SP and the
     experts under SP."""
     t_phase = time.perf_counter()
     _release()
-    HYBRID_FAILURES.clear()
     ids, labels = _train_batch(TRAIN["vocab_size"], TRAIN_BATCH, TRAIN_SEQ)
     batch = (ids.cpu().numpy(), labels.cpu().numpy())
     layers = HYBRID["num_hidden_layers"]
     per = layers // 2 * HYBRID_MICRO  # a stage's attention calls a step
     # the yardsticks on one card
-    one_moe, one_leaves, one_routes = _pipe_one_card(None, ids, labels,
-                                                     FLEET_STEPS)
-    one_dense, _, _ = _pipe_one_card({"moe_num_experts": 0}, ids, labels,
-                                     1)
+    one_moe = _pipe_one_card(None, ids, labels, FLEET_STEPS)
+    one_dense = _pipe_one_card({"moe_num_experts": 0}, ids, labels, 1)[0]
     model = LlamaForCausalLM(LlamaConfig(**HYBRID), device="cuda",
                              generator=torch.Generator("cuda").manual_seed(0))
     with torch.no_grad():
@@ -4648,7 +4713,8 @@ def phase_hybrid(card):
     del model
     model, opt, ebatch = _ernie_mp_model()
     _reset_launches()
-    one_ernie, one_ernie_ms = _ernie_mp_steps(model, opt, ebatch)
+    one_ernie, one_ernie_ms, one_ernie_leaves = _ernie_mp_steps(
+        model, opt, ebatch, model)
     one_ernie_launches = _launch_counts()
     one_ernie_peak = torch.cuda.max_memory_allocated() / 2**30
     del model, opt
@@ -4669,42 +4735,40 @@ def phase_hybrid(card):
     log(f"[hybrid] one card: the hybrid pipe (the 0.44B widths, "
         f"{layers} layers, {HYBRID['moe_num_experts']} experts, top-2, "
         f"b{TRAIN_BATCH} x s{TRAIN_SEQ} in {HYBRID_MICRO} microbatches) "
-        f"losses {one_moe}; without experts step 1 {one_dense[0]:.6f}; the "
-        f"MoE LlamaForCausalLM (aux loss included) step 1 "
+        f"losses {one_moe[0]}; without experts step 1 {one_dense[0]:.6f}; "
+        f"the MoE LlamaForCausalLM (aux loss included) step 1 "
         f"{one_moe_llama:.6f}; ERNIE at the 10B widths (trunk "
         f"{ERNIE_MP['num_hidden_layers']}, attention dropout 0.1) losses "
         f"{one_ernie}, ms {[round(x, 1) for x in one_ernie_ms]}, peak "
         f"{one_ernie_peak:.3f} GiB, launches {one_ernie_launches}; its pipe "
         f"(dropout 0) at pp 1 {READINGS['ernie_pipe_one']}")
-    # 21a: eight ranks, bf16 (the main path), then fp32
-    launches = {"21a": _hybrid_21a(card, "bfloat16", batch, one_moe,
-                                   one_leaves, one_routes, per)}
-    one32, leaves32, routes32 = _pipe_one_card({"dtype": "float32"}, ids,
-                                               labels, FLEET_STEPS)
-    _hybrid_21a(card, "float32", batch, one32, leaves32, routes32, per)
     # 21b (mp 2) and 21c (the experts under SP without the pipe)
-    ranks, _, wall = _spawn_ranks(_rank_21_two, batch)
+    ranks, arrays, wall = _spawn_ranks(_rank_21_two, batch + (fault,))
     ernie_layers = 2 * (ERNIE_MP["num_hidden_layers"]
                         + ErnieConfig().num_task_layers)
+    tag = "21b ERNIE mp 2" + (" (--fault dropout: each rank hashes its "
+                              "launches' own heads)" if fault else "")
     for o in ranks:
         r = o["ernie_mp2"]
-        log(f"[hybrid] 21b: rank {o['rank']} of 2, ERNIE at mp 2 "
-            f"({r['params'] / 1e9:.3f} B parameters here, {r['heads']} "
-            f"trunk heads), attention dropout 0.1 at its heads' global "
-            f"coordinates: losses {r['losses']}, launches {r['launches']} "
+        log(f"[hybrid] {tag}: rank {o['rank']} of 2 ({r['params'] / 1e9:.3f} "
+            f"B parameters here, {r['heads']} trunk heads), attention "
+            f"dropout 0.1: losses {r['losses']}, launches {r['launches']} "
             f"(kernels 4-6 predicted {ernie_layers} a step), peak "
             f"{r['peak_gib']:.3f} GiB, ms a step "
             f"{[round(x, 1) for x in r['ms']]} (host-staged)")
-    _hold_losses("21b ERNIE mp 2", [dict(o["ernie_mp2"], rank=o["rank"])
-                                    for o in ranks], one_ernie,
-                 FLEET_CHECK_TOL, FLEET_CHECK_TOL)
-    _hold_launches("21b ERNIE mp 2", [dict(o["ernie_mp2"], rank=o["rank"])
-                                      for o in ranks],
+    err = _log_leaves(tag, arrays, one_ernie_leaves)
+    _hold_losses(tag, [dict(o["ernie_mp2"], rank=o["rank"]) for o in ranks],
+                 one_ernie, FLEET_CHECK_TOL, FLEET_CHECK_TOL)
+    if set(err) != set(ERNIE_MP_LEAVES):
+        raise AssertionError(f"{tag}: leaves {sorted(err)} read")
+    _hold_leaves(tag, err)
+    _hold_launches(tag, [dict(o["ernie_mp2"], rank=o["rank"])
+                         for o in ranks],
                    lambda o: _each(HB_WRAPPERS,
                                    ernie_layers * ERNIE_MP_STEPS))
     if any(o["ernie_mp2"]["heads"] != 32 for o in ranks):
-        _fail("21b: a rank does not hold 32 trunk heads")
-    launches["21b"] = ranks[0]["ernie_mp2"]["launches"]
+        raise AssertionError("21b: a rank does not hold 32 trunk heads")
+    launches = {"21b": ranks[0]["ernie_mp2"]["launches"]}
     for o in ranks:
         r = o["moe_mp2_sp"]
         log(f"[hybrid] 21c: rank {o['rank']} of 2, the MoE LlamaForCausalLM "
@@ -4723,12 +4787,17 @@ def phase_hybrid(card):
     _enc_check(HYBRID_HB_CASE, "kernels 4-6",
                torch.Generator("cuda").manual_seed(21),
                coords=HYBRID_HB_COORDS)
+    # 21a: eight ranks, bf16 (the main path), then fp32
+    launches["21a"] = _hybrid_21a(card, "bfloat16", batch, one_moe, per)
+    _hybrid_21a(card, "float32", batch,
+                _pipe_one_card({"dtype": "float32"}, ids, labels,
+                               FLEET_STEPS), per)
     # 21b's pipe and 21c's pipes on four ranks
     ranks, _, wall = _spawn_ranks(_rank_21_four, batch, n=4)
     ec = ErnieConfig(**ERNIE_PIPE)
     trunk = ec.num_hidden_layers // 2
     yard = {"ernie_pp2_mp2": READINGS["ernie_pipe_one"],
-            "ring_pp2_sep2_moe": one_moe[:1],
+            "ring_pp2_sep2_moe": one_moe[0][:1],
             "ulysses_pp2_sep2": one_dense, "sp_pp2_mp2": one_dense}
     for tag, _, _, steps in HYBRID_FOUR:
         rs = [dict(o[tag], rank=o["rank"]) for o in ranks]
@@ -4755,9 +4824,6 @@ def phase_hybrid(card):
         launches[tag] = rs[0]["launches"]
     log(f"[hybrid] 21b/21c four ranks: spawn to join {wall:.1f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    if HYBRID_FAILURES:
-        raise AssertionError(f"phase 21: {len(HYBRID_FAILURES)} checks "
-                             f"failed: {HYBRID_FAILURES}")
     return launches
 
 
@@ -4768,10 +4834,11 @@ def main():
                     default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
                     "19,20,21",
                     help="phases to run after 1 and 2, comma-separated")
-    ap.add_argument("--fault", choices=("experts",),
+    ap.add_argument("--fault", choices=("experts", "dropout"),
                     help="plant a fault to show that a check catches it: "
                     "'experts' holds rank 1's experts at their first "
-                    "values in phase 20b, which must then fail")
+                    "values in phase 20b, 'dropout' hashes each rank's "
+                    "own heads in phase 21b; the phase must then fail")
     ap.add_argument("--fp32-witness", action="store_true",
                     help="run phase 20b again in fp32 and print how far "
                     "the two ranks go from one card (a reading, not held)")
@@ -4810,7 +4877,8 @@ def main():
                    (20, lambda: experts.update(phase_experts(
                        name, args.fault == "experts",
                        args.fp32_witness))),
-                   (21, lambda: hybrid.update(phase_hybrid(name)))):
+                   (21, lambda: hybrid.update(phase_hybrid(
+                       name, args.fault == "dropout")))):
         if n in only:
             t_run = time.perf_counter()
             run()
@@ -4832,13 +4900,13 @@ def main():
                 "hb_bwd_dq": pallas + "head_flash.py:134",
                 "hb_bwd_dkv": pallas + "head_flash.py:190"}
     # beside the main path's: each kernel's launches on one rank of the
-    # hybrid phase (kernels 1-3 on 21a's rank 0, 4-6 on 21b's)
+    # hybrid phase (kernels 1-3 and 7-8 on 21a's rank 0, 4-6 on 21b's)
     on_hybrid = dict(hybrid["21a"], **{k: hybrid["21b"][k]
                                        for k in ("hb_fwd", "hb_bwd_dq",
                                                  "hb_bwd_dkv")})
     kernels = [dict(name=k, route="cuda", source=sources[k.split("_")[0]],
                     replaces=replaces[k], launches=launches[k], **rows[k],
-                    launches_phase21=on_hybrid.get(k, 0))
+                    launches_phase21=on_hybrid[k])
                for k in replaces]
     log(f"[done] launches on the ERNIE path (phase 12, "
         f"{TIMED_STEPS} steps): {ernie_launches}")

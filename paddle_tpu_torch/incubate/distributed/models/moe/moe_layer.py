@@ -194,6 +194,18 @@ class MoELayer(nn.Module):
                               torch.zeros_like(mine))[:, None, :]
         return before, sum(every[1:], every[0])
 
+    def _choose(self, probs):
+        """Each token's expert by choice, ``[T]`` each: the argmax of the
+        softmax ``probs`` (ties to the lowest index, as in JAX), and under
+        top-2 the argmax of the rest."""
+        first = torch.argmax(probs, dim=-1)
+        if self.top_k == 1:
+            return [first]
+        mask = first[:, None] == torch.arange(self.num_experts,
+                                              device=probs.device)
+        return [first, torch.argmax(probs * (1.0 - mask.to(probs.dtype)),
+                                    dim=-1)]
+
     def route(self, tokens, cap, n_rows=1):
         """The gate on this rank's ``tokens`` ``[T, H]`` (``n_rows`` rows
         of ``T / n_rows`` tokens: the rank's chunk of each under sequence
@@ -210,12 +222,8 @@ class MoELayer(nn.Module):
         logits = torch.matmul(tokens, gate_weight.to(tokens.dtype))
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         experts = torch.arange(E, device=tokens.device)
-        idx = [torch.argmax(probs, dim=-1)]
-        masks = [idx[0][:, None] == experts]
-        if k == 2:
-            rest = probs * (1.0 - masks[0].to(probs.dtype))
-            idx.append(torch.argmax(rest, dim=-1))
-            masks.append(idx[1][:, None] == experts)
+        idx = self._choose(probs)
+        masks = [i[:, None] == experts for i in idx]
         row_of = torch.arange(tokens.shape[0], device=tokens.device) \
             // (tokens.shape[0] // n_rows)
         counts = torch.stack([m.reshape(n_rows, -1, E).sum(1)

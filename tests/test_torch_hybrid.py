@@ -513,3 +513,37 @@ def test_remaining_combinations_raise_naming_their_item(runs):
         for e in (sp_cp, moe_sharding, expert_axis, zero_mp, lbfgs, uneven,
                   zero_pp):
             assert "A.6" in e, e
+
+
+def test_gate_routes_by_the_choices_it_is_handed():
+    """``MoELayer._choose`` is the gate's one discrete step, the seam
+    through which ``chip_smoke.py``'s bf16 hybrid leg hands its ranks one
+    card's choices: handed its own the layer computes the same bits;
+    handed others, every kept token lands in a slot of the expert it was
+    handed, the slots numbered in token order."""
+    from paddle_tpu_torch.incubate.distributed.models.moe.moe_layer import (
+        MoELayer, capacity)
+
+    E = 4
+    layer = MoELayer(H, 2 * H, E, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(
+        np.random.RandomState(0).randn(B, S, H).astype(np.float32))
+    want = layer(x)
+    own, seen = layer._choose, []
+    layer._choose = lambda p: seen.append(own(p)) or seen[-1]
+    assert torch.equal(layer(x), want)
+    first = (seen[0][0] + 1) % E
+    second = seen[0][1]
+    second = torch.where(second == first, (first + 1) % E, second)
+    layer._choose = lambda p: [first, second]
+    cap = capacity(2, B * S, E, layer.capacity_factor)
+    rows = layer.route(x.reshape(B * S, H), cap, B)[2]
+    for j, (chosen, r) in enumerate(zip((first, second), rows)):
+        kept = r < E * cap
+        assert kept.any(), j
+        assert torch.equal(r[kept] // cap, chosen[kept]), j
+        if j == 0:  # first choices fill their expert's slots in order
+            for e in range(E):
+                slots = r[kept & (chosen == e)] % cap
+                assert torch.equal(slots, torch.arange(len(slots))), e
