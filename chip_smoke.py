@@ -3,7 +3,7 @@ distributed paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Twenty-one phases in one process (phases 17 to 20 also spawn two
+Twenty-two phases in one process (phases 17 to 20 also spawn two
 processes each, phase 21 eight, two and four); any failure
 raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
@@ -240,7 +240,31 @@ only a run in which every phase passed prints the final line:
    (all on every rank, the gate global over sep), with Ulysses and with
    SP at pp 2 x mp 2 (no experts), and the MoE ``LlamaForCausalLM`` with
    SP at mp 2, one step each, step 1 within 1e-3 of one card, each
-   rank's launches held to their formula.
+   rank's launches held to their formula;
+22. the vision path (BASELINE configs 1 and 2): (a) ResNet-50 as
+   ``benchmarks/baseline_configs.py`` builds it (1000 classes,
+   ``amp.decorate`` O2 bf16, ``Momentum(0.1, 0.9, multi_precision=
+   True)``, ``CrossEntropyLoss``, ``TrainStep(donate=True)`` on CUDA
+   graphs with ``cudnn.benchmark``) on one seeded b256 x 224 bf16 batch,
+   NCHW and then NHWC, 2 warm-up and 10 timed steps each: ms a step,
+   imgs/s, MFU by the reference's formula (imgs/s x 3 x 4.1e9 /
+   989e12), peak memory, and one replay under the profiler (kernels,
+   device ms by kind); the loss must start within 1.0 of ln(1000), stay
+   finite and fall (the last five steps' mean below the first),
+   ``bn1._mean`` must move at every step and no buffer
+   in an eval-mode step; (b) a tiny fp32 ResNet-18 (b4 x 64, 10
+   classes), 5 Momentum steps on graphs on the card against the CPU
+   from the same weights (losses and the parameters' relative norm
+   distance within 1e-4 at every step, the running statistics after
+   them: means over their channels' std, variances over their max) and
+   against eager on the card (rounding as a replay does, cuDNN
+   deterministic: bit for bit); a weight set to inf under ``nan_check`` must leave
+   parameters, velocities and running statistics bit-identical; (c)
+   config 1's MLP (``tests/test_mnist_e2e.py``) trained eagerly with
+   Adam for 3 epochs (loss from above 1.5 to below 0.2, accuracy above
+   0.95), and ``LeNet`` through ``hapi.Model.fit`` on graphs with
+   ``metric.Accuracy`` (one capture; loss and accuracy better after).
+   None of the eight kernels lies on this path: none may launch.
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -4827,12 +4851,418 @@ def phase_hybrid(card, fault=False):
     return launches
 
 
+# -- phase 22 -----------------------------------------------------------------
+
+# BASELINE config 2 (benchmarks/baseline_configs.py:28-66): ResNet-50 at
+# ImageNet shapes, AMP O2 bf16, Momentum(0.1, 0.9, multi_precision),
+# TrainStep(donate=True), one seeded batch stepped on
+RESNET_BATCH, RESNET_HW = 256, 224
+RESNET_WARMUP, RESNET_TIMED = 2, 10
+RESNET_FLOPS_PER_IMG = 3 * 4.1e9  # training ~ 3 x 4.1 GFLOP forward
+RESNET_LOSS0_TOL = 1.0            # the first loss within this of ln(1000)
+# 22b: the tiny fp32 ResNet-18, card against CPU
+VISION_TINY = dict(batch=4, hw=64, classes=10, steps=5, lr=1e-3)
+VISION_REL_TOL = 1e-4
+# 22c: config 1 (tests/test_mnist_e2e.py) and LeNet through fit
+MNIST_N, MNIST_BATCH, MNIST_EPOCHS = 512, 64, 3
+
+
+def _resnet50_step(fmt):
+    """``build_resnet_trainstep`` of ``benchmarks/baseline_configs.py`` on
+    the port, at full width. Returns (model, step, x, y)."""
+    from paddle_tpu_torch import nn, vision
+    from paddle_tpu_torch.optimizer import Momentum
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = vision.resnet50(data_format=fmt, device="cuda", generator=gen)
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.parameters(), multi_precision=True)
+    loss_fn = nn.CrossEntropyLoss()
+    step = TrainStep(model, opt, lambda m, x, y: loss_fn(m(x), y),
+                     donate=True)
+    shape = ((RESNET_BATCH, 3, RESNET_HW, RESNET_HW) if fmt == "NCHW"
+             else (RESNET_BATCH, RESNET_HW, RESNET_HW, 3))
+    x = (torch.randn(shape, device="cuda", generator=gen) * 0.1).to(
+        torch.bfloat16)
+    y = torch.randint(0, 1000, (RESNET_BATCH, 1), device="cuda",
+                      generator=gen)
+    return model, step, x, y
+
+
+# a kernel's kind by its name, the first match wins (cuDNN's batch-norm
+# kernels are cudnn::bn_*: batch norm before conv)
+_KINDS = (("batch norm", ("batch_norm", "bn_", "batchnorm")),
+          ("conv", ("conv", "xmma", "gemm", "cudnn", "implicit", "sm90",
+                    "dgrad", "wgrad")),
+          ("pool", ("pool",)),
+          ("optimizer", ("foreach", "multi_tensor")))
+
+
+def _replay_profile(step):
+    """One replay of the step's graph under ``torch.profiler``: kernels,
+    device ms, and the device ms by kind (by kernel name)."""
+    entry = next(iter(step._cache.values())).graphs["step"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        entry.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    split = {}
+    for e in kernels:
+        key = e.key.lower()
+        kind = next((k for k, marks in _KINDS
+                     if any(m in key for m in marks)), "elementwise/other")
+        split[kind] = split.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return (sum(e.count for e in kernels),
+            sum(e.self_device_time_total for e in kernels) / 1e3, split)
+
+
+def _resnet50_run(card, fmt):
+    """22a in one layout: 2 warm-up and 10 timed graph replays; returns
+    the readings."""
+    model, step, x, y = _resnet50_step(fmt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    means, losses = [model.bn1._mean.clone()], []
+    t_first = time.perf_counter()
+    for i in range(RESNET_WARMUP + RESNET_TIMED):
+        if i == RESNET_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(x, y))
+        means.append(model.bn1._mean.clone())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / RESNET_TIMED * 1e3
+    first_s = t0 - t_first
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    moved = [not torch.equal(a, b) for a, b in zip(means, means[1:])]
+    kernels, dev_ms, split = _replay_profile(step)
+    mem = step.memory_analysis(x, y)
+    ips = RESNET_BATCH / (ms / 1e3)
+    mfu = ips * RESNET_FLOPS_PER_IMG / PEAK_OPS_PER_S[torch.bfloat16]
+    # an eval-mode step (its own signature) moves no running statistic
+    before = [b.clone() for b in model.buffers()]
+    model.eval()
+    step(x[:32], y[:32])
+    torch.cuda.synchronize()
+    still = all(torch.equal(a, b) for a, b in zip(before, model.buffers()))
+    model.train()
+    out = dict(fmt=fmt, ms=ms, ips=ips, mfu=mfu, peak=peak, losses=losses,
+               moved=moved, kernels=kernels, dev_ms=dev_ms, split=split,
+               first_s=first_s, pool_gib=mem.temp_size_in_bytes / 2**30,
+               eval_still=still)
+    log(f"[vision] 22a ResNet-50 {fmt} b{RESNET_BATCH} x {RESNET_HW} bf16 O2 "
+        f"on {card}, cudnn.benchmark on, TrainStep(donate=True) on CUDA "
+        f"graphs: {ms:.2f} ms a step ({RESNET_TIMED} timed after "
+        f"{RESNET_WARMUP}; the eager first step, its algorithm search and "
+        f"the capture took {first_s:.1f} s), {ips:.1f} imgs/s, MFU "
+        f"{mfu:.4f} (imgs/s x 3 x 4.1e9 / 989e12), peak {peak:.2f} GiB, "
+        f"the capture's pool {out['pool_gib']:.2f} GiB; losses "
+        f"{[round(v, 4) for v in losses]}; bn1._mean moved at every step: "
+        f"{all(moved)}; an eval-mode step left every buffer as it was: "
+        f"{still}; one replay: {kernels} kernels, {dev_ms:.2f} ms of device "
+        f"time, by kind "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(
+            split.items(), key=lambda kv: -kv[1])))
+    del model, step, x, y
+    _release()
+    return out
+
+
+def _tiny_resnet(device, weights=None):
+    from paddle_tpu_torch import vision
+
+    model = vision.resnet18(num_classes=VISION_TINY["classes"],
+                            device=device)
+    if weights is not None:
+        vision.load_jax_weights(model, weights)
+    return model
+
+
+def _tiny_vision_batch(i, device):
+    rng = np.random.RandomState(300 + i)
+    t = VISION_TINY
+    x = rng.randn(t["batch"], 3, t["hw"], t["hw"]).astype(np.float32)
+    y = rng.randint(0, t["classes"], (t["batch"], 1)).astype(np.int64)
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+def _tiny_vision_run(device, weights, graphs, nan_check=None):
+    """The tiny fp32 ResNet-18's Momentum steps; returns (losses, the
+    parameters as one fp64 CPU vector after each step, model, optimizer,
+    call). On the card the eager steps round as a captured
+    step's do (``_graph_like_steps``): the first with Python scalars,
+    the later ones reading the rate from device scalars (a separate
+    multiply, one rounding more than the eager FMA)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import Momentum
+
+    model = _tiny_resnet(device, weights)
+    opt = Momentum(learning_rate=VISION_TINY["lr"], momentum=0.9,
+                   parameters=model.parameters())
+    loss_fn = nn.CrossEntropyLoss()
+
+    def loss_of(m, x, y):
+        return loss_fn(m(x), y)
+
+    if graphs:
+        call = TrainStep(model, opt, loss_of, nan_check=nan_check)
+    else:
+        buf = torch.zeros(2, dtype=torch.float64, device=device)
+
+        def call(x, y):
+            opt.clear_grad()
+            loss = loss_of(model, x, y)
+            loss.backward()
+            if device == "cuda" and opt._global_step:
+                buf.copy_(torch.tensor([float(opt.get_lr()),
+                                        float(opt._global_step + 1)],
+                                       dtype=torch.float64))
+                opt._dev_scalars = buf
+            try:
+                opt.step()
+            finally:
+                opt._dev_scalars = None
+            return loss.detach()
+    losses, params = [], []
+    for i in range(VISION_TINY["steps"]):
+        losses.append(float(call(*_tiny_vision_batch(i, device))))
+        params.append(torch.cat([p.detach().double().cpu().flatten()
+                                 for p in model.parameters()]))
+    return losses, params, model, opt, call
+
+
+def _max_rel(a_model, b_model):
+    """For each kind of tensor, (the largest difference over its scale,
+    the tensor's name): running means over their channels' running
+    standard deviation (a batch mean of zero-centred activations
+    cancels, so its own magnitude is no scale), running variances and
+    parameters over their own largest magnitude."""
+    want = {n: t.detach().cpu().double()
+            for n, t in b_model.state_dict().items()}
+    worst = {}
+    for n, a in a_model.state_dict().items():
+        a, b = a.detach().cpu().double(), want[n]
+        if n.endswith("._mean"):
+            scale = want[n[:-len("_mean")] + "_variance"].sqrt().max()
+            kind = "means"
+        else:
+            scale = b.abs().max()
+            kind = "variances" if n.endswith("._variance") else "params"
+        err = ((a - b).abs().max() / scale.clamp(min=1e-30)).item()
+        worst[kind] = max(worst.get(kind, (0.0, None)), (err, n),
+                          key=lambda e: e[0])
+    return worst
+
+
+def _vision_identity(card):
+    """22b: card against the CPU, graphs against eager, and nan_check."""
+    from paddle_tpu_torch.monitor.numerics import NonFiniteError
+
+    weights = {k: v.numpy() for k, v in _tiny_resnet("cpu").state_dict()
+               .items()}
+    cpu_l, cpu_p, cpu_m, _, _ = _tiny_vision_run("cpu", weights,
+                                                 graphs=False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        g_l, g_p, g_m, _, _ = _tiny_vision_run("cuda", weights, graphs=True)
+        e_l, _, e_m, _, _ = _tiny_vision_run("cuda", weights, graphs=False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ldiff = max(abs(a - b) / abs(b) for a, b in zip(g_l, cpu_l))
+    pdiff = [((a - b).norm() / b.norm()).item() for a, b in zip(g_p, cpu_p)]
+    diff = _max_rel(g_m, cpu_m)
+    same = g_l == e_l and all(torch.equal(a, b) for a, b in zip(
+        g_m.state_dict().values(), e_m.state_dict().values()))
+    log(f"[vision] 22b tiny fp32 ResNet-18 (b{VISION_TINY['batch']} x "
+        f"{VISION_TINY['hw']}, {VISION_TINY['classes']} classes, TF32 off), "
+        f"{VISION_TINY['steps']} Momentum steps on {card} (graphs) vs CPU: "
+        f"losses {[round(v, 6) for v in g_l]} vs "
+        f"{[round(v, 6) for v in cpu_l]}: max relative {ldiff:.2e}; the "
+        f"parameters' relative norm distance step by step "
+        f"{[f'{e:.2e}' for e in pdiff]}; after the steps running means "
+        f"{diff['means'][0]:.2e} of their channels' running std (worst "
+        f"{diff['means'][1]}), running variances {diff['variances'][0]:.2e} "
+        f"of each one's max (worst {diff['variances'][1]}) (tol "
+        f"{VISION_REL_TOL}); read, not held: a parameter tensor's largest "
+        f"difference over its own max {diff['params'][0]:.2e} (worst "
+        f"{diff['params'][1]}); graphs vs eager rounding as graphs do, "
+        f"cuDNN deterministic: bit-identical {same}")
+    if not (ldiff <= VISION_REL_TOL and same and max(pdiff) <= VISION_REL_TOL
+            and diff["means"][0] <= VISION_REL_TOL
+            and diff["variances"][0] <= VISION_REL_TOL):
+        raise AssertionError("the tiny ResNet-18 on the card left the CPU's "
+                             "or its eager run")
+    _, _, model, opt, step = _tiny_vision_run("cuda", weights, graphs=True,
+                                              nan_check=True)
+    with torch.no_grad():
+        model.layer3[0].conv1.weight[0, 0, 0, 0] = float("inf")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    states = [v.clone() for st in opt._accumulators.values()
+              for v in st.values()]
+    try:
+        step(*_tiny_vision_batch(VISION_TINY["steps"], "cuda"))
+        raised = None
+    except NonFiniteError as e:
+        raised = (e.step, e.leaf, e.kind)
+    intact = all(torch.equal(v, before[k])
+                 for k, v in model.state_dict().items()) and all(
+        torch.equal(a, b) for a, b in zip(states, [
+            v for st in opt._accumulators.values() for v in st.values()]))
+    log(f"[vision] 22b nan_check on the captured step with a weight at inf: "
+        f"raised {raised}; parameters, velocities and running statistics "
+        f"bit-identical to before the step: {intact}")
+    if raised is None or not intact:
+        raise AssertionError("nan_check did not restore the vision step")
+    del model, opt, step, g_m, e_m
+    _release()
+
+
+def _mnist(n, image=False, seed=0):
+    """``tests/test_mnist_e2e.py``'s synthetic data: 10 prototypes plus
+    noise."""
+    rng = np.random.RandomState(seed)
+    protos = rng.rand(10, 784).astype(np.float32)
+    labels = rng.randint(0, 10, n)
+    imgs = (protos[labels] + 0.1 * rng.randn(n, 784)).astype(np.float32)
+    if image:
+        imgs = imgs.reshape(n, 1, 28, 28)
+    return imgs, labels.astype(np.int64)
+
+
+def _config1_mlp(card):
+    """22c, config 1: the MLP of ``tests/test_mnist_e2e.py:27-60`` trained
+    eagerly with Adam on the card."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Adam
+
+    class MLP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Linear(784, 128, device="cuda")
+            self.fc2 = nn.Linear(128, 64, device="cuda")
+            self.fc3 = nn.Linear(64, 10, device="cuda")
+
+        def forward(self, x):
+            x = F.relu(self.fc1(x))
+            x = F.relu(self.fc2(x))
+            return self.fc3(x)
+
+    trandom.seed(0)
+    xs, ys = _mnist(MNIST_N)
+    model = MLP()
+    opt = Adam(learning_rate=1e-3, parameters=model.parameters())
+    loss_fn = nn.CrossEntropyLoss()
+    xs_d, ys_d = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    order = np.random.RandomState(0)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(MNIST_EPOCHS):
+        perm = torch.from_numpy(order.permutation(MNIST_N)).cuda()
+        for i in range(0, MNIST_N, MNIST_BATCH):
+            idx = perm[i:i + MNIST_BATCH]
+            loss = loss_fn(model(xs_d[idx]), ys_d[idx])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.detach())
+    losses = [float(v) for v in losses]
+    secs = time.perf_counter() - t0
+    model.eval()
+    with torch.no_grad():
+        acc = (model(xs_d).argmax(1) == ys_d).float().mean().item()
+    log(f"[vision] 22c config 1 MLP (784-128-64-10) on {card}, eager "
+        f"Adam(1e-3), {MNIST_EPOCHS} epochs of {MNIST_N // MNIST_BATCH} "
+        f"batches of {MNIST_BATCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"accuracy {acc:.4f}, {secs:.2f} s")
+    if not (losses[0] > 1.5 and losses[-1] < 0.2 and acc > 0.95):
+        raise AssertionError("config 1's MLP did not learn as "
+                             "tests/test_mnist_e2e.py asks")
+
+
+def _lenet_fit(card):
+    """22c: LeNet through ``hapi.Model.fit`` (TrainStep on CUDA graphs)
+    with ``metric.Accuracy``."""
+    from paddle_tpu_torch import metric, nn, vision
+    from paddle_tpu_torch.optimizer import Adam
+
+    xs, ys = _mnist(MNIST_N, image=True, seed=1)
+    data = io.TensorDataset([xs, ys[:, None]])
+    model = vision.LeNet(device="cuda")
+    net = hapi.Model(model).prepare(
+        Adam(learning_rate=1e-3, parameters=model.parameters()),
+        loss=nn.CrossEntropyLoss(), metrics=metric.Accuracy())
+    before = net.evaluate(data, batch_size=MNIST_BATCH, verbose=0)
+    seen = []
+
+    class Losses(hapi.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            seen.append(float(logs["loss"]))
+
+    captures = exec_cache.stats()["captures"]
+    t0 = time.perf_counter()
+    net.fit(data, batch_size=MNIST_BATCH, epochs=MNIST_EPOCHS, log_freq=1,
+            verbose=0, callbacks=[Losses()])
+    secs = time.perf_counter() - t0
+    captured = exec_cache.stats()["captures"] - captures
+    after = net.evaluate(data, batch_size=MNIST_BATCH, verbose=0)
+    log(f"[vision] 22c LeNet through hapi.Model.fit on {card} (TrainStep on "
+        f"CUDA graphs, {captured} capture), Adam(1e-3), {MNIST_EPOCHS} "
+        f"epochs of {MNIST_N // MNIST_BATCH} batches: loss {seen[0]:.4f} -> "
+        f"{seen[-1]:.4f}; evaluate before {before}, after {after}; "
+        f"{secs:.2f} s")
+    if not (captured == 1 and seen[-1] < seen[0]
+            and after["acc"] > before["acc"] and after["loss"] < before[
+                "loss"]):
+        raise AssertionError("LeNet did not learn through fit on graphs")
+    del model, net
+    _release()
+
+
+def phase_vision(card):
+    """Phase 22: BASELINE config 2 at full width in both layouts, the tiny
+    ResNet-18's identity and nan_check, config 1 and LeNet."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    torch.backends.cudnn.benchmark = True
+    try:
+        runs = [_resnet50_run(card, fmt) for fmt in ("NCHW", "NHWC")]
+    finally:
+        torch.backends.cudnn.benchmark = False
+    for r in runs:
+        first = r["losses"][0]
+        if not (abs(first - np.log(1000)) <= RESNET_LOSS0_TOL
+                and all(np.isfinite(r["losses"]))
+                and np.mean(r["losses"][-5:]) < first and all(r["moved"])
+                and r["eval_still"]):
+            raise AssertionError(
+                f"ResNet-50 {r['fmt']}: the loss must start within "
+                f"{RESNET_LOSS0_TOL} of ln(1000), stay finite and fall (the "
+                f"last five steps' mean below the first), bn1._mean must "
+                f"move at every step and not in eval mode")
+    _vision_identity(card)
+    _config1_mlp(card)
+    _lenet_fit(card)
+    launched = _launch_counts()
+    log(f"[vision] launches of the eight kernels over phase 22 (none lies on "
+        f"the vision path): {launched}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if any(launched.values()):
+        raise AssertionError("the vision path launched an attention kernel")
+    return {r["fmt"]: {k: r[k] for k in ("ms", "ips", "mfu", "peak")}
+            for r in runs}
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19,20,21",
+                    "19,20,21,22",
                     help="phases to run after 1 and 2, comma-separated")
     ap.add_argument("--fault", choices=("experts", "dropout"),
                     help="plant a fault to show that a check catches it: "
@@ -4850,7 +5280,7 @@ def main():
     # BERT's, phase 10); ERNIE's (phase 12) are printed beside them
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
     fleet_launches, pipe_launches, context, experts = {}, {}, {}, {}
-    hybrid = {}
+    hybrid, vision = {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -4878,12 +5308,13 @@ def main():
                        name, args.fault == "experts",
                        args.fp32_witness))),
                    (21, lambda: hybrid.update(phase_hybrid(
-                       name, args.fault == "dropout")))):
+                       name, args.fault == "dropout"))),
+                   (22, lambda: vision.update(phase_vision(name)))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
-    if only != set(range(3, 22)):
+    if only != set(range(3, 23)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -4927,6 +5358,10 @@ def main():
     log(f"[done] launches a rank on the hybrid phase (21, each kernel's "
         f"per rank over its run): "
         + "; ".join(f"{k} {v}" for k, v in hybrid.items()))
+    log(f"[done] ResNet-50 b{RESNET_BATCH} bf16 O2 on graphs (phase 22a): "
+        + "; ".join(f"{fmt} {r['ms']:.2f} ms a step, {r['ips']:.1f} imgs/s, "
+                    f"MFU {r['mfu']:.4f}, peak {r['peak']:.2f} GiB"
+                    for fmt, r in vision.items()))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,11 @@ with ``optimizer.AdamW``, or ``hapi.Model.fit`` over ``io.DataLoader``;
 serves it through the continuous-batching engine on one NVIDIA Hopper
 card; it trains the BERT and ERNIE 3.0 encoders, with the reference's LR
 schedulers and update rules (``optimizer.lr``, ``optimizer.Lamb``,
-``optimizer.LBFGS``, ...). Module names follow the JAX package
-(``models/llama.py``, ``jit/train_step.py``, ``serving/engine.py``, ...)
-so every module has an obvious counterpart; the Pallas kernels on those
+``optimizer.LBFGS``, ...), and the vision models (``vision.resnet50``
+over ``nn.Conv2D``, ``nn.BatchNorm2D`` and the pools; ``vision.LeNet``).
+Module names follow the JAX package (``models/llama.py``,
+``jit/train_step.py``, ``serving/engine.py``, ...) so every module has
+an obvious counterpart; the Pallas kernels on those
 paths become hand-written CUDA C++ under ``ops/cuda/``.
 
     from paddle_tpu_torch.jit import TrainStep

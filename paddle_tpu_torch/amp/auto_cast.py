@@ -141,8 +141,9 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     reference ``auto_cast.py:136-166``).
 
     ``level="O2"`` casts every fp32 parameter to ``dtype`` in place
-    (norm scales and biases included; the port's models have no buffers
-    to spare); ``level="O1"`` leaves the parameters fp32, since
+    (norm scales and biases included) and leaves the buffers fp32, as
+    the reference does (``auto_cast.py:150-156``): BatchNorm's running
+    statistics stay fp32; ``level="O1"`` leaves the parameters fp32, since
     ``auto_cast`` casts them per op. Either way each optimizer is forced
     to ``multi_precision`` (fp32 masters for low-precision parameters).
     Returns the model (or list) and, when given, the optimizer (or

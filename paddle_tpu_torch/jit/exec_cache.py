@@ -22,9 +22,12 @@ tier (``PT_EXEC_CACHE_MEM_LIMIT``, 64 entries, least recently used out
 first); eviction drops the cache's reference, never a caller's.
 
 All graphs share one graph memory pool (a fresh one after a capture
-that failed). A graph's intermediates may then lie where another
-graph's outputs lie, so a caller reads (or copies) a graph's outputs
-before it replays another graph.
+that failed, and once every graph captured into it has been freed: the
+allocator refuses to begin a capture into a pool none of whose graphs
+lives while tensors allocated in it do, as a model's gradients outlive
+a collected ``TrainStep``). A graph's intermediates may then lie where
+another graph's outputs lie, so a caller reads (or copies) a graph's
+outputs before it replays another graph.
 
 Kernel-wrapper counters (``paged_attend.launches`` and the like) count
 in Python, so a capture would count calls that launched nothing and a
@@ -44,6 +47,7 @@ import hashlib
 import os
 import re
 import time
+import weakref
 
 import torch
 
@@ -58,6 +62,7 @@ _mem: "collections.OrderedDict[str, GraphEntry]" = collections.OrderedDict()
 _stats = {"captures": 0, "hits": 0, "capture_ms": 0.0}
 _streams: dict = {}  # device -> the side stream every capture runs on
 _pool = None  # the graph memory pool every capture shares
+_pool_graphs: dict = {}  # pool -> how many graphs captured into it live
 
 
 def clear() -> None:
@@ -148,6 +153,23 @@ def _graph_pool():
     return _pool
 
 
+def _track(graph, pool) -> None:
+    """Count ``graph`` among ``pool``'s live graphs until it is freed;
+    when the last of the shared pool's graphs goes, the next capture
+    takes a fresh pool."""
+    _pool_graphs[pool] = _pool_graphs.get(pool, 0) + 1
+    weakref.finalize(graph, _untrack, pool)
+
+
+def _untrack(pool) -> None:
+    global _pool
+    _pool_graphs[pool] -= 1
+    if not _pool_graphs[pool]:
+        del _pool_graphs[pool]
+        if pool == _pool:
+            _pool = None
+
+
 def _abandon_capture(device, stream):
     """Clean up after a capture that failed inside ``torch.cuda.graph``:
     its ``capture_end`` raised before the caching allocator stopped
@@ -177,10 +199,12 @@ def _capture(fn, inputs, label, counters, warmup=True):
     before = {w: w.launches for w in counters}
     graph = torch.cuda.CUDAGraph()
     caller = torch.cuda.current_stream(device)
+    pool = _graph_pool()
     try:
         # the context synchronizes the device before the capture begins
-        with torch.cuda.graph(graph, pool=_graph_pool(), stream=stream):
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
             output = fn(**inputs)
+        _track(graph, pool)
     except RuntimeError as e:
         _abandon_capture(device, caller)
         raise RuntimeError(f"{label}: the phase could not be captured as "

@@ -19,7 +19,9 @@ port captures it as one CUDA graph per signature through
   longer the tensors the graph binds (after ``clear_grad()`` or
   ``set_state_dict``) captures the signature again. Watched kernel
   wrappers' launch counts are added back per replay (``exec_cache``'s
-  protocol); the eager first step counts its own launches;
+  protocol); the eager first step counts its own launches. The model's
+  buffers (BatchNorm's running statistics) are updated in place by the
+  forward, inside the graph, and are among the addresses checked;
 - a step that draws random numbers (in-kernel attention dropout, whose
   seed words are launch arguments a graph would freeze, or
   ``F.dropout``) runs eagerly on CUDA at every call: BERT and ERNIE
@@ -45,14 +47,16 @@ achieves; ``optimizer.state_dict()`` returns copies, so a held
 The flag is kept and keyed.
 
 ``nan_check`` (``monitor/numerics.py``): the step keeps a copy of
-everything its update writes in place (parameters, masters, optimizer
-states), runs the update, and reduces one finite flag over the loss,
-the gradients and every tensor the update wrote, as the reference's
-flag covers the loss, the gradients, the new parameters and the new
-states. The host reads that flag (the one host read a step); when it
-fails, the copies are written back, states the step made are dropped
-and the step counter is put back, so the parameters, masters and
-states are bit-identical to before the call, and
+everything it writes in place (the model's buffers before the forward;
+parameters, masters, optimizer states before the update), runs the
+update, and reduces one finite flag over the loss, the gradients and
+every tensor the step wrote, as the reference's flag covers the loss,
+the gradients, the new parameters and the new states. The host reads
+that flag (the one host read a step); when it fails, the copies are
+written back, states the step made are dropped and the step counter is
+put back, so the buffers, parameters, masters and states are
+bit-identical to before the call (the reference rebinds none of them,
+``train_step.py:494-512``), and
 :func:`numerics.isolate` replays the batch on them with the step's own
 random state to name the first bad leaf (``param/...`` or
 ``opt_state/...`` for a value born in the update). On CUDA the copy,
@@ -89,7 +93,7 @@ class MemoryAnalysis(NamedTuple):
     captured: on the CPU, or for an eager signature); arguments:
     parameters, gradients, masters, optimizer states and the batch;
     outputs: the loss and flag; alias: what is updated in place
-    (parameters, masters and states)."""
+    (parameters, masters, states and the model's buffers)."""
     argument_size_in_bytes: int
     output_size_in_bytes: int
     alias_size_in_bytes: int
@@ -193,11 +197,16 @@ class TrainStep:
     def _params(self):
         return [p for p in self._opt._parameter_list if p.requires_grad]
 
+    def _buffers(self):
+        """The model's buffers, which its forward may update in place
+        (BatchNorm's running statistics)."""
+        return list(self._model.buffers())
+
     def _live(self):
-        """Every tensor the update writes in place: each parameter, its
-        master and its states."""
+        """Every tensor the step writes in place: the model's buffers
+        first, then each parameter, its master and its states."""
         opt = self._opt
-        out = []
+        out = self._buffers()
         for p in self._params():
             out.append(p)
             if id(p) in opt._master_weights:
@@ -206,21 +215,29 @@ class TrainStep:
                 opt._accumulators.get(id(p), {}).items()))
         return out
 
-    def _checked_update(self, loss):
-        """The update under nan_check: copies of what it will overwrite,
+    def _held_grads(self, batch):
+        """Forward and backward under nan_check: copies of the buffers
+        the forward will update, then :meth:`_grads`. Returns (loss,
+        the buffers' copies)."""
+        held = [b.detach().clone() for b in self._buffers()]
+        return self._grads(batch), held
+
+    def _checked_update(self, loss, held):
+        """The update under nan_check: copies of what it will overwrite
+        (after ``held``, the buffers' copies from before the forward),
         the update, and one finite flag over the loss, the gradients and
-        everything the update wrote. Returns (flag, live, copies)."""
+        everything the step wrote. Returns (flag, live, copies)."""
         grads = [g for _, g in self._opt._params_grads()]
         live = self._live()
-        copies = [t.detach().clone() for t in live]
+        copies = held + [t.detach().clone() for t in live[len(held):]]
         self._opt.step()
-        flag = numerics.finite_all([loss] + grads + self._live())
+        flag = numerics.finite_all([loss] + grads + live)
         return flag, live, copies
 
     def _undo(self, live, copies, counters, made):
-        """Put the optimizer back as it was before a failed update: the
-        copies written back, the states and masters it made dropped, the
-        step counts restored."""
+        """Put the model and the optimizer back as they were before a
+        failed step: the copies written back, the states and masters it
+        made dropped, the step counts restored."""
         opt = self._opt
         with torch.no_grad():
             torch._foreach_copy_(live, copies)
@@ -242,13 +259,14 @@ class TrainStep:
         raise numerics.NonFiniteError(self._opt._global_step + 1, leaf, kind)
 
     def _eager(self, batch, nan, lr):
-        rng = random.get_state() if nan else None
-        loss = self._grads(batch)
         if not nan:
+            loss = self._grads(batch)
             self._opt.step()
             return loss
+        rng = random.get_state()
+        loss, held = self._held_grads(batch)
         counters, made = self._counters()
-        flag, live, copies = self._checked_update(loss)
+        flag, live, copies = self._checked_update(loss, held)
         if not bool(flag):
             self._undo(live, copies, counters, made)
             self._fail(batch, rng, lr)
@@ -287,10 +305,11 @@ class TrainStep:
 
     def _bindings(self):
         """The addresses a captured step binds: each parameter's, its
-        gradient's, master's and states'. A replay checks them: after
-        ``clear_grad()``, ``set_state_dict`` or a reassigned parameter
-        the signature is captured again instead of replaying into
-        memory its tensors no longer own."""
+        gradient's, master's and states', and the model's buffers'. A
+        replay checks them: after ``clear_grad()``, ``set_state_dict``
+        or a reassigned parameter or buffer the signature is captured
+        again instead of replaying into memory its tensors no longer
+        own."""
         opt = self._opt
 
         def ptr(t):
@@ -300,7 +319,8 @@ class TrainStep:
             (ptr(p), ptr(p.grad), ptr(opt._master_weights.get(id(p))),
              tuple(ptr(v) for _, v in sorted(
                  opt._accumulators.get(id(p), {}).items())))
-            for p in self._params())
+            for p in self._params()) + tuple(
+                ptr(b) for b in self._buffers())
 
     def _counted(self):
         """The ids of the parameters a captured update steps; raises when
@@ -331,10 +351,12 @@ class TrainStep:
         snap = (opt._global_step, dict(opt._step_counts))
 
         def whole(**st):
-            loss = self._grads([st.get(f"b{i}") for i in range(n)])
+            batch = [st.get(f"b{i}") for i in range(n)]
             if nan:
-                flag, _, copies = self._checked_update(loss)
+                loss, held = self._held_grads(batch)
+                flag, _, copies = self._checked_update(loss, held)
                 return loss, flag, copies
+            loss = self._grads(batch)
             opt.step()
             return loss
 
@@ -456,7 +478,8 @@ class TrainStep:
         masters = [opt._master_weights[id(p)] for p in params
                    if id(p) in opt._master_weights]
         grads = [p.grad for p in params if p.grad is not None]
-        alias = _nbytes(params) + _nbytes(states) + _nbytes(masters)
+        alias = (_nbytes(params) + _nbytes(states) + _nbytes(masters)
+                 + _nbytes(self._buffers()))
         tensors = [t for t in tensors if t is not None]
         return MemoryAnalysis(
             argument_size_in_bytes=alias + _nbytes(grads) + _nbytes(tensors),

@@ -83,7 +83,9 @@ def isolate(train_step, batch, rng_state, lr) -> tuple:
     not updated them) with the random state ``rng_state`` the step
     started from, and return ``(leaf_name, kind)`` of the first
     non-finite leaf in causal order. The optimizer's parameters, states
-    and masters are left as they were: updates are computed on copies."""
+    and masters are left as they were: updates are computed on copies;
+    the model's buffers, which the replayed forward updates (BatchNorm's
+    running statistics), are put back."""
     from ..framework import random
 
     model, opt = train_step._model, train_step._opt
@@ -94,6 +96,8 @@ def isolate(train_step, batch, rng_state, lr) -> tuple:
         return names.get(id(p), f"param[{i}]")
 
     saved = [p.grad for p in params]
+    buffers = list(model.buffers())
+    held = [b.detach().clone() for b in buffers]
     try:
         random.set_state(rng_state)
         for p in params:
@@ -110,6 +114,9 @@ def isolate(train_step, batch, rng_state, lr) -> tuple:
         replay = [p.grad for p in params]
         for p, g in zip(params, saved):
             p.grad = g
+        with torch.no_grad():
+            for b, h in zip(buffers, held):
+                b.copy_(h)
     for i, (p, g) in enumerate(zip(params, grads)):
         if not _finite(g):
             return (f"grad/{name_of(p, i)}", "grad")

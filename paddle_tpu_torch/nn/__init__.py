@@ -1,10 +1,11 @@
-"""Layers' functional ops, ``Linear`` and gradient clipping
+"""Layers, their functional ops, initializers and gradient clipping
 (``paddle_tpu/nn``)."""
-from . import functional  # noqa: F401
+from . import functional, initializer  # noqa: F401
 from .clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
 )
-from .layer import Linear  # noqa: F401
+from .layer import *  # noqa: F401,F403
+from .layer import __all__ as _layers
 
-__all__ = ["functional", "Linear", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue"]
+__all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", *_layers]

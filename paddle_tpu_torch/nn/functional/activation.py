@@ -5,7 +5,8 @@ import torch
 
 from ...amp.auto_cast import cast_inputs
 
-__all__ = ["silu", "gelu", "tanh", "softmax"]
+__all__ = ["silu", "gelu", "tanh", "softmax", "relu", "relu6", "sigmoid",
+           "leaky_relu"]
 
 
 def silu(x):
@@ -34,3 +35,28 @@ def softmax(x, axis=-1, dtype=None):
 
         x = x.to(to_torch_dtype(dtype))
     return torch.softmax(x, dim=axis)
+
+
+def relu(x, name=None):
+    """``max(x, 0)`` (the op ``relu``; gray under ``auto_cast``)."""
+    (x,) = cast_inputs("relu", x)
+    return torch.relu(x)
+
+
+def relu6(x, name=None):
+    """``min(max(x, 0), 6)`` (the op ``relu6``)."""
+    (x,) = cast_inputs("relu6", x)
+    return torch.nn.functional.relu6(x)
+
+
+def sigmoid(x, name=None):
+    """``1 / (1 + exp(-x))`` (the op ``sigmoid``)."""
+    (x,) = cast_inputs("sigmoid", x)
+    return torch.sigmoid(x)
+
+
+def leaky_relu(x, negative_slope=0.01, name=None):
+    """``x`` where positive, ``negative_slope * x`` elsewhere (the op
+    ``leaky_relu``)."""
+    (x,) = cast_inputs("leaky_relu", x)
+    return torch.nn.functional.leaky_relu(x, negative_slope)

@@ -5,7 +5,7 @@ import torch
 
 from ...amp.auto_cast import cast_inputs
 
-__all__ = ["rms_norm", "layer_norm"]
+__all__ = ["rms_norm", "layer_norm", "batch_norm"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -42,3 +42,44 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if bias is not None:
         out = out + bias
     return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """Batch normalization over every dim but the channel dim (dim 1, or
+    the last for ``NLC``/``NHWC``/``NDHWC``), returned in x's dtype.
+
+    While ``training`` (and not ``use_global_stats``) the batch's
+    statistics normalize and the running buffers are updated in place
+    by Paddle's rule (``norm.py:43-58``): ``running = momentum * running
+    + (1 - momentum) * batch``, the variance unbiased (``n / (n - 1)``,
+    ``n = numel / C``). Torch's ``momentum`` weights the new value, so
+    ``1 - momentum`` is passed; its running variance is the unbiased one
+    too. Otherwise the running statistics normalize.
+
+    It computes through ``torch.nn.functional.batch_norm`` (cuDNN's or
+    torch's own kernels on the card, the update inside the op, so a CUDA
+    graph replays it) with the scale and shift cast to fp32 for bf16 or
+    fp16 input: torch refuses a bf16 weight beside fp32 running buffers,
+    and takes bf16 or fp16 input with fp32 parameters, whose statistics
+    and normalization it computes in fp32. The reference computes in x's
+    dtype (under O2: bf16 batch statistics and bf16 arithmetic), so the
+    two agree to bf16's rounding there and to fp32's in fp32. A black op
+    under ``auto_cast``: x in fp32 and the output cast back to the
+    caller's dtype, as the reference casts it."""
+    orig = x.dtype
+    x, weight, bias = cast_inputs("batch_norm", x, weight, bias)
+    channel_last = data_format in ("NLC", "NHWC", "NDHWC")
+    if channel_last:
+        x = x.movedim(-1, 1)
+    pdt = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
+        else x.dtype
+    weight, bias = (None if t is None else t.to(pdt) for t in (weight, bias))
+    out = torch.nn.functional.batch_norm(
+        x, running_mean, running_var, weight, bias,
+        training=bool(training and not use_global_stats),
+        momentum=1.0 - momentum, eps=epsilon)
+    if channel_last:
+        out = out.movedim(1, -1)
+    return out.to(orig)

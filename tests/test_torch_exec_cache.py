@@ -210,3 +210,20 @@ def test_engine_keys_change_with_each_field(model, field, value):
             assert key == keys[phase]
         else:
             assert key != keys[phase], (phase, field)
+
+
+def test_pool_is_renewed_when_its_last_graph_is_freed(monkeypatch):
+    """The shared pool's handle is dropped once every graph captured into
+    it is freed: the allocator refuses to begin a capture into a pool
+    none of whose graphs lives while its tensors do (a collected
+    ``TrainStep`` whose model keeps the gradients its graph made)."""
+    monkeypatch.setattr(exec_cache, "_pool", (0, 7))
+    first, second = _Graph(), _Graph()
+    exec_cache._track(first, (0, 7))
+    exec_cache._track(second, (0, 7))
+    del first
+    gc.collect()
+    assert exec_cache._pool == (0, 7)  # one graph of it still lives
+    del second
+    gc.collect()
+    assert exec_cache._pool is None and (0, 7) not in exec_cache._pool_graphs

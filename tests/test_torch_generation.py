@@ -504,6 +504,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.distributed.sharding.group_sharded",
             "paddle_tpu_torch.distributed.checkpoint",
             "paddle_tpu_torch.framework.io"} <= names
+    # and the vision path's
+    assert {"paddle_tpu_torch.nn.initializer",
+            "paddle_tpu_torch.nn.layer.layers",
+            "paddle_tpu_torch.nn.layer.common",
+            "paddle_tpu_torch.nn.layer.activation",
+            "paddle_tpu_torch.nn.layer.conv",
+            "paddle_tpu_torch.nn.layer.norm",
+            "paddle_tpu_torch.nn.layer.pooling",
+            "paddle_tpu_torch.nn.layer.loss",
+            "paddle_tpu_torch.nn.functional.conv",
+            "paddle_tpu_torch.nn.functional.pooling",
+            "paddle_tpu_torch.vision",
+            "paddle_tpu_torch.vision.models.resnet",
+            "paddle_tpu_torch.vision.models.lenet",
+            "paddle_tpu_torch.vision.models._weights"} <= names
     # chip_smoke.py (run where there is no jax) imports neither either
     import ast
 

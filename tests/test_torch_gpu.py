@@ -1924,3 +1924,198 @@ def test_pipe_with_sp_at_world_size_one_equals_plain(cuda):
     (pl, pp), (fl, fp) = runs
     assert pl == fl
     assert all(torch.equal(a, b) for a, b in zip(pp, fp))
+
+
+# -- the vision path ----------------------------------------------------------
+
+
+@pytest.fixture
+def exact_cudnn(cuda, monkeypatch):
+    """fp32 convolutions without TF32, and deterministic algorithms (the
+    weight-gradient algorithms may otherwise add in any order)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    return cuda
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_last_layers_equal_nchw(exact_cudnn, dtype):
+    """Conv (strided, asymmetric and SAME padding, groups), batch norm in
+    train mode, the pools and the adaptive pool on NHWC input equal the
+    same ops on NCHW input on the card; the NHWC tensors stay contiguous
+    (a channels_last view in and out, no layout copy)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    dev = exact_cudnn
+    g = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(4, 16, 28, 30, device=dev, generator=g).to(dtype)
+    w = torch.randn(32, 8, 3, 3, device=dev, generator=g).to(dtype) * 0.2
+    b = torch.randn(32, device=dev, generator=g).to(dtype)
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+    assert nhwc.movedim(-1, 1).is_contiguous(
+        memory_format=torch.channels_last)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for pad in (1, [1, 0, 2, 1], "SAME"):
+        first = F.conv2d(x, w, b, stride=2, padding=pad, groups=2)
+        last = F.conv2d(nhwc, w, b, stride=2, padding=pad, groups=2,
+                        data_format="NHWC")
+        assert last.is_contiguous()
+        _normalized_close(last.permute(0, 3, 1, 2).float(), first.float(),
+                          tol, f"conv {pad}")
+    stats = [torch.zeros(16, device=dev), torch.ones(16, device=dev)]
+    stats_l = [t.clone() for t in stats]
+    scale = torch.ones(16, device=dev, dtype=dtype)
+    first = F.batch_norm(x, *stats, scale, None, training=True)
+    last = F.batch_norm(nhwc, *stats_l, scale, None, training=True,
+                        data_format="NHWC")
+    _normalized_close(last.permute(0, 3, 1, 2).float(), first.float(), tol,
+                      "batch_norm")
+    for a, c in zip(stats_l, stats):
+        _normalized_close(a, c, 1e-5, "running statistics")
+    for name, kw in (("max_pool2d", dict(kernel_size=3, stride=2,
+                                         padding=1)),
+                     ("avg_pool2d", dict(kernel_size=2, stride=2, padding=1,
+                                         ceil_mode=True)),
+                     ("adaptive_avg_pool2d", dict(output_size=(1, 1)))):
+        first = getattr(F, name)(x, **kw)
+        last = getattr(F, name)(nhwc, data_format="NHWC", **kw)
+        assert last.is_contiguous()
+        _normalized_close(last.permute(0, 3, 1, 2).float(), first.float(),
+                          tol, name)
+
+
+def _vision_step(dev, graphs=True, **kw):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import resnet18
+
+    model = resnet18(num_classes=10, device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+    opt = Momentum(learning_rate=0.01, momentum=0.9,
+                   parameters=model.parameters())
+    loss_fn = nn.CrossEntropyLoss()
+
+    def loss_of(m, x, y):
+        return loss_fn(m(x), y)
+
+    if graphs:
+        return model, opt, TrainStep(model, opt, loss_of, **kw)
+    buf = torch.zeros(2, dtype=torch.float64, device=dev)
+
+    def eager(x, y, as_replay=False):
+        """One eager step; ``as_replay``: its update reads the rate from
+        device scalars, as a replayed step's does (a separate multiply,
+        one rounding more than the eager FMA)."""
+        opt.clear_grad()
+        loss = loss_of(model, x, y)
+        loss.backward()
+        if as_replay:
+            buf.copy_(torch.tensor([float(opt.get_lr()),
+                                    float(opt._global_step + 1)],
+                                   dtype=torch.float64))
+            opt._dev_scalars = buf
+        try:
+            opt.step()
+        finally:
+            opt._dev_scalars = None
+        return loss.detach()
+    return model, opt, eager
+
+
+def _vision_batch(dev, i):
+    g = torch.Generator(dev).manual_seed(100 + i)
+    return (torch.randn(4, 3, 64, 64, device=dev, generator=g),
+            torch.randint(0, 10, (4, 1), device=dev, generator=g))
+
+
+def test_bn_running_stats_update_in_place_under_replay(exact_cudnn):
+    """A captured resnet18 step updates BatchNorm's running statistics
+    in place at every replay (the same addresses, new values), and they
+    equal an eager run's bit for bit, as do the losses (the eager steps
+    after the first round as replays do)."""
+    dev = exact_cudnn
+    exec_cache.clear()
+    model, _, step = _vision_step(dev)
+    ptr = model.bn1._mean.data_ptr()
+    seen, losses = [], []
+    for i in range(4):
+        losses.append(float(step(*_vision_batch(dev, i))))
+        seen.append(model.bn1._mean.clone())
+    assert exec_cache.stats()["captures"] == 1
+    assert model.bn1._mean.data_ptr() == ptr
+    assert all(not torch.equal(a, b) for a, b in zip(seen, seen[1:]))
+    ref, _, eager = _vision_step(dev, graphs=False)
+    want = [float(eager(*_vision_batch(dev, i), as_replay=i > 0))
+            for i in range(4)]
+    assert losses == want
+    for (n, a), b in zip(model.named_buffers(), ref.buffers()):
+        assert torch.equal(a, b), n
+    exec_cache.clear()
+
+
+def test_bindings_recapture_after_set_state_dict(exact_cudnn):
+    """``set_state_dict`` gives parameters and buffers new storage; the
+    step's bindings see it and capture again, and the next step equals
+    an eager step from the same state."""
+    dev = exact_cudnn
+    exec_cache.clear()
+    model, _, step = _vision_step(dev)
+    for i in range(2):
+        step(*_vision_batch(dev, i))
+    state = {k: v.detach().cpu().numpy() + 0.01
+             for k, v in model.state_dict().items()}
+    before = step._bindings()
+    model.set_state_dict(state)
+    assert step._bindings() != before
+    got = float(step(*_vision_batch(dev, 2)))
+    assert exec_cache.stats()["captures"] == 2
+    ref, ropt, eager = _vision_step(dev, graphs=False)
+    for i in range(2):  # the same state: an eager step, then a replay
+        eager(*_vision_batch(dev, i), as_replay=i > 0)
+    ref.set_state_dict(state)
+    assert got == float(eager(*_vision_batch(dev, 2)))
+    exec_cache.clear()
+
+
+def test_vision_nan_check_restores_buffers_on_the_card(exact_cudnn):
+    """A weight set to inf under ``nan_check`` on a captured step: the
+    step raises, and parameters, velocities and running statistics are
+    bit-identical to before it."""
+    from paddle_tpu_torch.monitor.numerics import NonFiniteError
+
+    dev = exact_cudnn
+    exec_cache.clear()
+    model, opt, step = _vision_step(dev, nan_check=True)
+    for i in range(2):
+        step(*_vision_batch(dev, i))
+    with torch.no_grad():
+        model.layer2[0].conv1.weight[0, 0, 0, 0] = float("inf")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    states = [v.clone() for st in opt._accumulators.values()
+              for v in st.values()]
+    with pytest.raises(NonFiniteError):
+        step(*_vision_batch(dev, 2))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    after = [v for st in opt._accumulators.values() for v in st.values()]
+    assert all(torch.equal(a, b) for a, b in zip(states, after))
+    exec_cache.clear()
+
+
+def test_capture_after_a_collected_step(exact_cudnn):
+    """A captured step is collected while its model keeps the gradients
+    its graph made: the next step captures into a fresh pool (the
+    allocator refuses to begin a capture into the old one)."""
+    dev = exact_cudnn
+    exec_cache.clear()
+    model, _, step = _vision_step(dev)
+    for i in range(2):
+        step(*_vision_batch(dev, i))
+    assert model.conv1.weight.grad is not None
+    del step
+    gc.collect()
+    _, _, other = _vision_step(dev)
+    for i in range(2):
+        other(*_vision_batch(dev, i))
+    assert exec_cache.stats()["captures"] == 2
+    exec_cache.clear()
