@@ -3,8 +3,8 @@ distributed paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Twenty-two phases in one process (phases 17 to 20 also spawn two
-processes each, phase 21 eight, two and four); any failure
+Twenty-three phases in one process (phases 17 to 20 and 23 also spawn
+two processes each, phase 21 eight, two and four); any failure
 raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
@@ -265,6 +265,27 @@ only a run in which every phase passed prints the final line:
    0.95), and ``LeNet`` through ``hapi.Model.fit`` on graphs with
    ``metric.Accuracy`` (one capture; loss and accuracy better after).
    None of the eight kernels lies on this path: none may launch.
+23. the tensor op surface (``paddle_tpu_torch.tensor``): (a) every row
+   of the two CPU test tables (the op specs of ``tests/op_specs.py`` in
+   the tensor namespace, ``tests/torch_tensor_cases.py``'s ``CASES``
+   and the 42 in-place variants) on the card against the port's own CPU
+   result from the same numpy inputs, with equal dtypes: integer and
+   bool outputs exactly, and float outputs whose values all come from
+   the row's inputs (moved or selected: reshape, gather, sort, max,
+   ...), fp32 arithmetic within ``TENSOR_REL_TOL`` of each output's
+   largest magnitude, linalg through the specs' invariants
+   (reconstructions, sorted eigenvalues); ``matmul`` (white) and
+   ``exp`` (black) under ``auto_cast`` bf16; no module of JAX or of the
+   reference package may have been imported (checked again at the end
+   of the run);
+   (b) the random ops on the card: one seed gives one draw, moments
+   within 6 standard errors, ``draws()`` counts each call; (c) two ranks
+   sharing the card over gloo at mp 2 decode the 0.44B Llama (phase 4's
+   widths) through ``generate()`` (16 greedy tokens) and
+   ``ServingEngine`` (two requests): their tokens must be one card's;
+   (d) ``BatchNorm1D`` at batch 1 in train mode inside a ``TrainStep``
+   graph against the CPU: losses, parameters and running statistics.
+   None of the eight kernels may launch in 23a, 23b or 23d.
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -5257,12 +5278,364 @@ def phase_vision(card):
             for r in runs}
 
 
+# -- phase 23: the tensor op surface ---------------------------------------------
+
+# fp32 on the card against the CPU, relative to an output's largest
+# magnitude: the summation order of reductions and products (TF32 off)
+TENSOR_REL_TOL = 1e-4
+# modules that must stay out of this process
+REFERENCE_MODULES = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _tensor_tables():
+    """``tests/op_specs.py``'s specs and ``tests/torch_tensor_cases.py``
+    (free of JAX: the reference's adapters import it only when called;
+    ``port_adapted`` gives their twins for the port and refuses one that
+    has none)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    sys.path.insert(0, tests)
+    try:
+        import op_specs
+        import torch_tensor_cases as cases
+    finally:
+        sys.path.remove(tests)
+    return op_specs.SPECS, cases
+
+
+def _no_reference(where):
+    """Raises if JAX or the reference package was imported here."""
+    bad = sorted(n for n in sys.modules
+                 if n.split(".")[0] in REFERENCE_MODULES)
+    if bad:
+        raise AssertionError(f"{where}: the reference's modules were "
+                             f"imported: {bad[:8]}")
+
+
+def _flat_out(out):
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in _flat_out(x)]
+    return [out]
+
+
+def _float_values(arrays):
+    """The finite real components of the float and complex arrays."""
+    vals = [np.asarray(a, np.complex128 if np.iscomplexobj(a)
+                       else np.float64).ravel() for a in arrays
+            if np.asarray(a).dtype.kind in "fc"]
+    if not vals:
+        return np.zeros(0)
+    v = np.concatenate(vals)
+    v = np.concatenate([v.real, v.imag]) if np.iscomplexobj(v) else v
+    return v[np.isfinite(v)]
+
+
+def _hold_on_card(row, got, want, inputs, sort_complex=False):
+    """The card's outputs ``got`` against the CPU's ``want``: the same
+    dtypes and shapes, on the card; ints and bools equal, and floats
+    equal where the CPU's finite values are all drawn from the row's
+    numpy ``inputs`` (or are 0 or 1: the op only moved or selected
+    them); other floats within ``TENSOR_REL_TOL``; eigenvalues
+    (``sort_complex``) sorted first. Returns the worst relative error."""
+    got, want = _flat_out(got), _flat_out(want)
+    if len(got) != len(want):
+        raise AssertionError(f"23a {row}: {len(got)} outputs on the card, "
+                             f"{len(want)} on the CPU")
+    moved = np.concatenate([_float_values(inputs), [0.0, 1.0]])
+    worst = 0.0
+    for g, w in zip(got, want):
+        if not isinstance(w, torch.Tensor):
+            if g != w:
+                raise AssertionError(f"23a {row}: {g!r} on the card, {w!r} "
+                                     f"on the CPU")
+            continue
+        if g.device.type != "cuda" or g.dtype != w.dtype \
+                or g.shape != w.shape:
+            raise AssertionError(
+                f"23a {row}: {g.dtype} {tuple(g.shape)} on {g.device}, the "
+                f"CPU's {w.dtype} {tuple(w.shape)}")
+        gn, wn = g.detach().cpu().numpy(), w.detach().numpy()
+        if sort_complex:
+            gn, wn = np.sort_complex(gn), np.sort_complex(wn)
+        exact = wn.dtype.kind in "biu" or np.isin(
+            _float_values([wn]), moved).all()
+        if exact:
+            if not np.array_equal(gn, wn, equal_nan=True):
+                raise AssertionError(f"23a {row}: not equal on the card "
+                                     f"and the CPU")
+            continue
+        fin = np.isfinite(wn)
+        if not np.array_equal(np.isfinite(gn), fin):
+            raise AssertionError(f"23a {row}: non-finite entries differ")
+        if fin.any():
+            scale = float(np.abs(wn[fin]).max()) or 1.0
+            err = float(np.abs(gn[fin] - wn[fin]).max()) / scale
+            worst = max(worst, err)
+            if err > TENSOR_REL_TOL:
+                raise AssertionError(f"23a {row}: relative error {err:.2e} "
+                                     f"above {TENSOR_REL_TOL}")
+    return worst
+
+
+def _tensor_rows(specs, cases):
+    """(row id, numpy inputs, sort_complex, run(m, device)) for every row
+    of the two tables and the in-place variants; ``m`` is the port or a
+    recorder of it."""
+    import importlib
+
+    import paddle_tpu_torch as ptt
+
+    names = {n for m in cases.TENSOR_MODULES for n in dir(
+        importlib.import_module(f"paddle_tpu_torch.tensor.{m}"))
+        if not n.startswith("_")}
+    rows = []
+    for sname in cases.tensor_specs(specs, names):
+        spec = specs[sname]
+        cases.port_adapted(spec)  # refuses an adapter with no twin
+        kwargs = dict(spec["kwargs"])
+        sort_complex = kwargs.pop("_sort_complex", False)
+
+        def run(m, dev, spec=spec, kwargs=kwargs):
+            return cases.port_adapted(spec, m)(*cases.spec_inputs(
+                lambda a: ptt.to_tensor(a, place=dev), spec["inputs"]),
+                **kwargs)
+        rows.append((f"spec {sname}", _flat_out(list(spec["inputs"])),
+                     sort_complex, run))
+    for rid, call, inputs in cases.CASES:
+        def run(m, dev, call=call, inputs=inputs):
+            return call(m, *[ptt.to_tensor(np.array(a), place=dev)
+                             for a in inputs])
+        rows.append((rid, list(inputs), False, run))
+    for name in ptt.INPLACE:
+        def run(m, dev, name=name):
+            x, out = cases.call_inplace(
+                m, name, lambda a: ptt.to_tensor(np.array(a), place=dev))
+            if out is not x:
+                raise AssertionError(f"23a {name}_ did not return its input")
+            return x
+        rows.append((f"{name}_", [cases.P], False, run))
+    return rows
+
+
+def _tensor_ops_on_card():
+    """23a: every table row on the card against the CPU; the worst error
+    by the module of the first tensor function each row calls."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.device import using_device
+
+    specs, cases = _tensor_tables()
+    worst, held = {}, 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for rid, inputs, sort_complex, run in _tensor_rows(specs, cases):
+        rec = cases.Recorder(ptt)
+        with using_device("cpu"):
+            want = run(rec, "cpu")
+        with using_device("gpu"):
+            got = run(ptt, "cuda")
+        err = _hold_on_card(rid, got, want, inputs, sort_complex)
+        held += 1
+        mod = cases.module_of(rec.seen)
+        if err >= worst.get(mod, (-1.0, ""))[0]:
+            worst[mod] = (err, rid)
+    _no_reference("23a")
+    x = torch.ones(4, 4, device="cuda")
+    with amp.auto_cast(dtype="bfloat16"):
+        white = ptt.matmul(x, x)
+        black = ptt.exp(x.to(torch.bfloat16))
+    if white.dtype != torch.bfloat16 or black.dtype != torch.float32:
+        raise AssertionError(f"23a auto_cast bf16: matmul gave {white.dtype} "
+                             f"(white: bfloat16), exp {black.dtype} (black: "
+                             f"float32)")
+    return held, {m: (float(f"{e:.3g}"), r) for m, (e, r) in worst.items()}
+
+
+def _tensor_random_on_card():
+    """23b: each random op on the card: seed, moments, draw count."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.device import using_device
+
+    _, cases = _tensor_tables()
+    with using_device("gpu"):
+        return {name: _random_on_card(ptt, cases, name)
+                for name in cases.RANDOM}
+
+
+def _random_on_card(ptt, cases, name):
+    """One random op of 23b; its mean's distance in standard errors."""
+    fn, mean, var = cases.draw(ptt, name, "cuda")
+    ptt.seed(5)
+    before = trandom.draws()
+    a = fn()
+    counted = trandom.draws() - before
+    ptt.seed(5)
+    b = fn()
+    x = a.double()
+    se_mean = (var / x.numel()) ** 0.5
+    se_var = (3 * var * var / x.numel()) ** 0.5
+    dm, dv = abs(float(x.mean()) - mean), abs(float(x.var()) - var)
+    if not (a.is_cuda and counted == 1 and torch.equal(a, b)
+            and dm < cases.SIGMAS * se_mean
+            and dv < cases.SIGMAS * se_var + 1e-9):
+        raise AssertionError(
+            f"23b {name}: on {a.device}, {counted} draws counted, "
+            f"repeatable {torch.equal(a, b)}, mean off by {dm:.3g} "
+            f"({dm / se_mean:.2f} se), variance by {dv:.3g}")
+    return round(dm / se_mean, 2)
+
+
+def _rank_23c(root, ids):
+    """One of 23c's two ranks sharing the card: the 0.44B Llama at mp 2
+    from one card's weights, ``generate()`` and ``ServingEngine``."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.cuda.set_device(0)
+    dist.init_parallel_env(backend="gloo", init_method=f"file://{root}/store")
+    cfg = LlamaConfig(**FULL)
+    full = LlamaForCausalLM(cfg, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+    weights = {n: p.detach() for n, p in full.named_parameters()}
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(1))
+    load_jax_weights(model, weights)
+    del full, weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens = generate(model, ids, max_new_tokens=TENSOR_NEW, device="cuda")
+    eng = ServingEngine(model, ServingConfig(max_seq_len=MAX_SEQ_LEN),
+                        device="cuda")
+    reqs = [eng.submit(row, max_new_tokens=TENSOR_NEW) for row in ids]
+    done = eng.run()
+    torch.cuda.synchronize()
+    out = {"rank": dist.get_rank(), "generate": tokens.cpu().tolist(),
+           "engine": [np.asarray(done[r.request_id]).tolist() for r in reqs],
+           "seconds": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "shard": tuple(model.lm_head.weight.shape)}
+    with open(os.path.join(root, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+TENSOR_NEW = 16
+
+
+def _decode_at_mp2(card):
+    """23c (C.7): two ranks at mp 2 decode one card's tokens."""
+    ids = np.random.RandomState(3).randint(
+        0, FULL["vocab_size"], (2, 8)).astype(np.int32)
+    model = LlamaForCausalLM(LlamaConfig(**FULL), device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    want = generate(model, ids, max_new_tokens=TENSOR_NEW,
+                    device="cuda").cpu().tolist()
+    del model
+    _release()
+    ranks, _, wall = _spawn_ranks(_rank_23c, (ids,))
+    log(f"[tensor] 23c the 0.44B Llama at mp 2, two ranks sharing {card} "
+        f"over gloo (lm_head shard {ranks[0]['shard']}), 16 greedy tokens "
+        f"for 2 prompts of 8: one card {want}; "
+        + "; ".join(f"rank {r['rank']} generate equal "
+                    f"{r['generate'] == want}, engine equal "
+                    f"{r['engine'] == want}, peak {r['peak_gib']:.2f} GiB, "
+                    f"{r['seconds']:.1f} s" for r in ranks)
+        + f"; spawn to join {wall:.1f} s")
+    if any(r["generate"] != want or r["engine"] != want for r in ranks):
+        raise AssertionError("23c: a rank at mp 2 decoded other tokens "
+                             "than one card")
+
+
+class _BnNet(torch.nn.Module):
+    """23d's net: a linear layer into ``BatchNorm1D``."""
+
+    def __init__(self, dev):
+        super().__init__()
+        from paddle_tpu_torch import nn
+
+        self.fc = Linear(8, 4, device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+        self.bn = nn.BatchNorm1D(4, device=dev)
+
+    def forward(self, x):
+        return self.bn(self.fc(x))
+
+
+def _bn_batch1_steps(dev, state):
+    from paddle_tpu_torch.optimizer import SGD
+
+    net = _BnNet(dev)
+    net.load_state_dict({k: v.to(dev) for k, v in state.items()})
+    net.train()
+    step = TrainStep(net, SGD(learning_rate=0.1,
+                              parameters=net.parameters()),
+                     lambda m, x, y: ((m(x) - y) ** 2).mean())
+    rng = np.random.RandomState(4)
+    losses = []
+    for _ in range(4):
+        x, y = (torch.from_numpy(rng.randn(1, n).astype(np.float32)).to(dev)
+                for n in (8, 4))
+        losses.append(float(step(x, y)))
+    return losses, {k: v.detach().cpu() for k, v in net.state_dict().items()}
+
+
+def _bn_batch1_graph(card):
+    """23d (C.8): batch 1 in train mode inside a captured step."""
+    state = _BnNet("cpu").state_dict()
+    exec_cache.clear()
+    got, got_state = _bn_batch1_steps("cuda", state)
+    captures = exec_cache.stats()["captures"]
+    want, want_state = _bn_batch1_steps("cpu", state)
+    err = max(float((got_state[k] - want_state[k]).abs().max())
+              for k in want_state)
+    lerr = max(abs(a - b) for a, b in zip(got, want))
+    log(f"[tensor] 23d BatchNorm1D at batch 1 in train mode, 4 SGD "
+        f"TrainSteps on {card} ({captures} capture) vs the CPU: losses "
+        f"{[round(v, 6) for v in got]}, max difference {lerr:.2e}; "
+        f"parameters and running statistics max difference {err:.2e}; "
+        f"running mean {got_state['bn._mean'].tolist()}, variance "
+        f"{got_state['bn._variance'].tolist()}")
+    if captures != 1 or lerr > 1e-6 or err > 1e-6:
+        raise AssertionError("23d: the captured batch-1 step left the CPU's "
+                             "(or was not captured)")
+
+
+def phase_tensor_ops(card):
+    """Phase 23: the tensor op surface on the card, decode at mp 2 and
+    batch norm at one value per channel."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    held, worst = _tensor_ops_on_card()
+    log(f"[tensor] 23a {held} rows of the op tables on {card} against "
+        f"the CPU (tol {TENSOR_REL_TOL} relative in fp32; ints, bools "
+        f"and outputs drawn from the inputs exact; matmul bf16 and exp "
+        f"fp32 under auto_cast bf16; no module of "
+        f"{'/'.join(REFERENCE_MODULES)} imported): worst relative error "
+        f"by module {worst}")
+    t_a = time.perf_counter()
+    sigmas = _tensor_random_on_card()
+    log(f"[tensor] 23b {len(sigmas)} random ops on {card}: one seed one "
+        f"draw, one count a call; mean off by (standard errors) "
+        f"{sigmas}; {time.perf_counter() - t_a:.1f} s")
+    _bn_batch1_graph(card)
+    launched = _launch_counts()
+    log(f"[tensor] launches of the eight kernels over 23a, 23b and 23d "
+        f"(none lies on these paths): {launched}")
+    if any(launched.values()):
+        raise AssertionError("the tensor ops launched an attention kernel")
+    _decode_at_mp2(card)
+    log(f"[tensor] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"held": held, "worst": worst}
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19,20,21,22",
+                    "19,20,21,22,23",
                     help="phases to run after 1 and 2, comma-separated")
     ap.add_argument("--fault", choices=("experts", "dropout"),
                     help="plant a fault to show that a check catches it: "
@@ -5280,7 +5653,7 @@ def main():
     # BERT's, phase 10); ERNIE's (phase 12) are printed beside them
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
     fleet_launches, pipe_launches, context, experts = {}, {}, {}, {}
-    hybrid, vision = {}, {}
+    hybrid, vision, ops = {}, {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -5309,12 +5682,14 @@ def main():
                        args.fp32_witness))),
                    (21, lambda: hybrid.update(phase_hybrid(
                        name, args.fault == "dropout"))),
-                   (22, lambda: vision.update(phase_vision(name)))):
+                   (22, lambda: vision.update(phase_vision(name))),
+                   (23, lambda: ops.update(phase_tensor_ops(name)))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
-    if only != set(range(3, 23)):
+    _no_reference("the run")
+    if only != set(range(3, 24)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -5362,6 +5737,9 @@ def main():
         + "; ".join(f"{fmt} {r['ms']:.2f} ms a step, {r['ips']:.1f} imgs/s, "
                     f"MFU {r['mfu']:.4f}, peak {r['peak']:.2f} GiB"
                     for fmt, r in vision.items()))
+    log(f"[done] the tensor op surface (phase 23a): {ops['held']} rows held "
+        f"on the card against the CPU, worst error by module "
+        f"{ops['worst']}")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

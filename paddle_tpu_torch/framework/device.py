@@ -5,12 +5,25 @@ JAX device chosen by platform name; here it is a ``torch.device``. The
 port runs on the card: an entry point given the default ``"cuda"`` on a
 host without a GPU raises instead of quietly running on the CPU. Tests
 pass ``device="cpu"`` explicitly.
+
+The ops of ``paddle_tpu_torch.tensor`` that take no tensor (creation,
+random draws, ``*_indices``) place their output on the current device:
+:func:`set_device` chooses it (``"gpu"``, ``"gpu:1"``, ``"cuda:0"`` or
+``"cpu"``), :func:`get_device` names it and :func:`current_device`
+resolves it. It starts as the card, so such an op raises on a host
+without a GPU until ``set_device("cpu")`` is called. :func:`using_device`
+chooses it for a block and restores the one before.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "set_device", "get_device", "current_device",
+           "using_device"]
+
+_current = ["gpu:0"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -29,3 +42,50 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(
             f"unsupported device {str(device)!r}: use 'cuda[:i]' or 'cpu'")
     return dev
+
+
+def _as_torch_name(device) -> str:
+    """A Paddle device string (``gpu``/``gpu:i``) as torch's
+    (``cuda``/``cuda:i``)."""
+    name = str(device).lower()
+    return "cuda" + name[3:] if name.startswith("gpu") else name
+
+
+def set_device(device):
+    """Make ``device`` the one that ops without a tensor input place
+    their output on (``paddle.set_device``, reference ``device.py:47``).
+    Raises as :func:`resolve_device` does; returns the ``torch.device``."""
+    dev = resolve_device(_as_torch_name(device))
+    _current[0] = "cpu" if dev.type == "cpu" else f"gpu:{dev.index}"
+    return dev
+
+
+def get_device() -> str:
+    """The current device as a Paddle string, ``"gpu:0"`` or ``"cpu"``
+    (reference ``device.py:79``)."""
+    return _current[0]
+
+
+def current_device() -> torch.device:
+    """The current device as a ``torch.device`` (raises without a GPU
+    unless ``set_device("cpu")`` was called)."""
+    return resolve_device(_as_torch_name(_current[0]))
+
+
+@contextlib.contextmanager
+def using_device(device):
+    """Within the block, ops without a tensor input place their output on
+    ``device``; on exit the device before is current again. The name is
+    checked but not resolved, so ``using_device("gpu")`` on a host
+    without a GPU makes those ops raise, and the card (the starting
+    device) comes back on such a host."""
+    dev = torch.device(_as_torch_name(device))
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(
+            f"unsupported device {str(device)!r}: use 'gpu[:i]' or 'cpu'")
+    before = _current[0]
+    _current[0] = "cpu" if dev.type == "cpu" else f"gpu:{dev.index or 0}"
+    try:
+        yield
+    finally:
+        _current[0] = before

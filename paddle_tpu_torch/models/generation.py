@@ -23,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from ..distributed.shard import gather_global
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn.functional.norm import rms_norm
@@ -59,7 +60,13 @@ def _collect_params(model, int8_weights=False) -> dict:
     ``qkv o gate_up down lm_head`` with :func:`quantize_weight_int8`.
     Cached on the model and rebuilt when the flag changes or any
     parameter is replaced or written in place (the key holds each
-    parameter's storage address and version counter)."""
+    parameter's storage address and version counter).
+
+    Under tensor parallelism (a parameter with a ``_dist_layout``) each
+    weight is first all-gathered over its axis into the whole weight, as
+    ``gather_jax_layout`` does, so every rank decodes the whole model:
+    collective, every rank of the group must call it. The key holds the
+    local shards, so an in-place write to a shard rebuilds it."""
     sources = tuple((p.data_ptr(), p._version)
                     for _, p in model.named_parameters())
     cached = getattr(model, "_generation_params_cache", None)
@@ -67,23 +74,32 @@ def _collect_params(model, int8_weights=False) -> dict:
         return cached[1]
     core = model.model
     per_layer = {k: [] for k in _LAYER_KEYS}
-    for blk in core.layers:
-        per_layer["ln1"].append(blk.input_layernorm.weight)
-        per_layer["qkv"].append(blk.self_attn.qkv_proj.weight)
-        per_layer["o"].append(blk.self_attn.o_proj.weight)
-        per_layer["ln2"].append(blk.post_attention_layernorm.weight)
-        per_layer["gate_up"].append(blk.mlp.gate_up_proj.weight)
-        per_layer["down"].append(blk.mlp.down_proj.weight)
     with torch.no_grad():
+        for blk in core.layers:
+            per_layer["ln1"].append(_whole(blk.input_layernorm.weight))
+            per_layer["qkv"].append(_whole(blk.self_attn.qkv_proj.weight))
+            per_layer["o"].append(_whole(blk.self_attn.o_proj.weight))
+            per_layer["ln2"].append(
+                _whole(blk.post_attention_layernorm.weight))
+            per_layer["gate_up"].append(_whole(blk.mlp.gate_up_proj.weight))
+            per_layer["down"].append(_whole(blk.mlp.down_proj.weight))
         params = {k: torch.stack(v) for k, v in per_layer.items()}
-        params["embed"] = core.embed_tokens.weight.detach()
-        params["norm"] = core.norm.weight.detach()
-        params["lm_head"] = model.lm_head.weight.detach()
+        params["embed"] = _whole(core.embed_tokens.weight)
+        params["norm"] = _whole(core.norm.weight)
+        params["lm_head"] = _whole(model.lm_head.weight)
         if int8_weights:
             for k in _INT8_KEYS:
                 params[k] = quantize_weight_int8(params[k])
     model._generation_params_cache = ((sources, bool(int8_weights)), params)
     return params
+
+
+def _whole(p):
+    """Parameter ``p`` as the whole weight, detached: its shards
+    all-gathered over its axis when it is tensor-parallel."""
+    layout = getattr(p, "_dist_layout", None)
+    p = p.detach()
+    return p if layout is None else gather_global(p, layout)
 
 
 def _rope_at(q, k, pos, theta):

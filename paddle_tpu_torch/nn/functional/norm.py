@@ -67,12 +67,22 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     dtype (under O2: bf16 batch statistics and bf16 arithmetic), so the
     two agree to bf16's rounding there and to fp32's in fp32. A black op
     under ``auto_cast``: x in fp32 and the output cast back to the
-    caller's dtype, as the reference casts it."""
+    caller's dtype, as the reference casts it.
+
+    With one value per channel (``n == 1``, decided from the shape) in
+    training, torch's op refuses; the reference's rule runs instead, in
+    plain torch ops that a CUDA graph captures: the output is the shift,
+    the running mean moves toward the batch's, and the running variance
+    toward 0 (``n / max(n - 1, 1)`` of a zero variance)."""
     orig = x.dtype
     x, weight, bias = cast_inputs("batch_norm", x, weight, bias)
     channel_last = data_format in ("NLC", "NHWC", "NDHWC")
     if channel_last:
         x = x.movedim(-1, 1)
+    if training and not use_global_stats and x.numel() == x.shape[1]:
+        out = _batch_norm_single(x, running_mean, running_var, weight, bias,
+                                 momentum, epsilon)
+        return (out.movedim(1, -1) if channel_last else out).to(orig)
     pdt = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
         else x.dtype
     weight, bias = (None if t is None else t.to(pdt) for t in (weight, bias))
@@ -83,3 +93,27 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if channel_last:
         out = out.movedim(1, -1)
     return out.to(orig)
+
+
+def _batch_norm_single(x, running_mean, running_var, weight, bias, momentum,
+                       epsilon):
+    """Train-mode batch norm of channel-first ``x`` with one value per
+    channel, by the reference's formula (``norm.py:43-58, 80-90``): the
+    batch variance is 0, so the output is ``bias`` (0 without one) and
+    the gradient reaches only the shift."""
+    shape = [1] * x.dim()
+    shape[1] = -1
+    mean = x.mean(dim=[d for d in range(x.dim()) if d != 1])
+    out = (x - mean.reshape(shape)) / torch.sqrt(
+        torch.zeros_like(mean).reshape(shape) + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    with torch.no_grad():
+        if running_mean is not None:
+            running_mean.mul_(momentum).add_(
+                (1 - momentum) * mean.detach().to(running_mean.dtype))
+        if running_var is not None:
+            running_var.mul_(momentum)
+    return out

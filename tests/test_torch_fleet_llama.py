@@ -349,3 +349,87 @@ def test_uneven_splits_and_lbfgs_over_ranks_raise(tmp_path):
         assert "intermediate_size = 129" in errors[1]
         assert "sequence length 15" in errors[2] and "mp = 2" in errors[2]
         assert "LBFGS over more than one rank" in errors[3]
+
+
+# -- decode at mp 2 -------------------------------------------------------------
+
+GEN_NEW = 4
+
+
+def _gen_ids():
+    return np.random.RandomState(17).randint(0, V, (2, 8)).astype(np.int32)
+
+
+def _generate_worker(root):
+    """One rank at mp 2: greedy ``generate()`` and the serving engine on
+    the two rows as two requests, tokens pickled."""
+    _child_setup()
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (
+        LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
+    )
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    dist.init_parallel_env(backend="gloo",
+                           init_method=f"file://{root}/store")
+    fleet.init(is_collective=True, strategy=_strategy(mp=2))
+    with open(f"{root}/weights.pkl", "rb") as f:
+        weights = pickle.load(f)
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
+                             device="cpu")
+    load_jax_weights(model, weights)
+    ids = _gen_ids()
+    out = {"generate": generate(model, ids, max_new_tokens=GEN_NEW,
+                                device="cpu").numpy()}
+    eng = ServingEngine(model, ServingConfig(max_seq_len=32), device="cpu")
+    reqs = [eng.submit(row, max_new_tokens=GEN_NEW) for row in ids]
+    done = eng.run()
+    out["engine"] = np.stack([np.asarray(done[r.request_id]) for r in reqs])
+    with torch.no_grad():  # a shard written in place rebuilds the weights
+        model.lm_head.weight.mul_(-1)
+    out["flipped"] = generate(model, ids, max_new_tokens=GEN_NEW,
+                              device="cpu").numpy()
+    with open(f"{root}/gen.{dist.get_rank()}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def test_generate_and_engine_at_mp2_match_reference(tmp_path):
+    """The reference decodes the tiny Llama at mp 2 on its mesh; the
+    port's two ranks decode the same weights through ``generate()`` and
+    ``ServingEngine`` (each rank the whole model, its weights gathered)
+    and give the reference's tokens, and again after ``lm_head``'s
+    shards are written in place."""
+    import paddle_tpu as pt
+    from paddle_tpu.distributed import env as jenv
+    from paddle_tpu.distributed import fleet as jfleet
+    from paddle_tpu.models import LlamaConfig as JaxConfig
+    from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+    from paddle_tpu.models import generate as jax_generate
+
+    strategy = jfleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2}
+    jfleet.init(is_collective=True, strategy=strategy)
+    try:
+        pt.seed(11)
+        jm = JaxLlama(JaxConfig.tiny(num_hidden_layers=2))
+        weights = {n: np.asarray(p._data) for n, p in jm.named_parameters()}
+        ids = pt.to_tensor(_gen_ids())
+        want = jax_generate(jm, ids, max_new_tokens=GEN_NEW).numpy()
+        jm.lm_head.weight.set_value(-jm.lm_head.weight)
+        flipped = jax_generate(jm, ids, max_new_tokens=GEN_NEW).numpy()
+    finally:
+        jenv.reset_env()
+    with open(tmp_path / "weights.pkl", "wb") as f:
+        pickle.dump(weights, f)
+    spawn(_generate_worker, args=(str(tmp_path),), nprocs=2)
+    assert not np.array_equal(want, flipped)
+    for r in range(2):
+        with open(tmp_path / f"gen.{r}.pkl", "rb") as f:
+            got = pickle.load(f)
+        assert got["generate"].shape == (2, GEN_NEW)
+        np.testing.assert_array_equal(got["generate"], want, err_msg=f"{r}")
+        np.testing.assert_array_equal(got["engine"], want, err_msg=f"{r}")
+        np.testing.assert_array_equal(got["flipped"], flipped,
+                                      err_msg=f"{r}")

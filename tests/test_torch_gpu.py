@@ -2119,3 +2119,102 @@ def test_capture_after_a_collected_step(exact_cudnn):
         other(*_vision_batch(dev, i))
     assert exec_cache.stats()["captures"] == 2
     exec_cache.clear()
+
+
+# -- the tensor op surface ------------------------------------------------------
+
+_OPS_RNG = np.random.RandomState(31)
+_OX = _OPS_RNG.uniform(-1, 1, (5, 6)).astype(np.float32)
+_OI = _OPS_RNG.randint(0, 9, (5, 6)).astype(np.int64)
+_OSQ = _OPS_RNG.uniform(-1, 1, (5, 5)).astype(np.float32)
+_OSPD = (_OSQ @ _OSQ.T + 5 * np.eye(5)).astype(np.float32)
+
+OPS_ON_CARD = [  # (id, call(m, *tensors), inputs, exact)
+    ("creation.arange", lambda m: m.arange(7), (), True),
+    ("creation.full", lambda m: m.full([2, 3], 1.5), (), True),
+    ("creation.tril_indices", lambda m: m.tril_indices(4, 3, 1), (), True),
+    ("creation.diag", lambda m, a: m.diag(a[0], padding_value=-1.0),
+     (_OX,), True),
+    ("manipulation.gather", lambda m, a, i: m.gather(a, i[0, :3] % 6, axis=1),
+     (_OX, _OI), True),
+    ("manipulation.scatter_nd_add", lambda m, a, i: m.scatter_nd_add(
+        a, i[:2, :2], a[0, :2]), (_OX, _OI % 5), False),
+    ("manipulation.unique", lambda m, i: m.unique(
+        i, return_index=True, return_inverse=True, return_counts=True),
+     (_OI,), True),
+    ("manipulation.put_along_axis", lambda m, a, i: m.put_along_axis(
+        a, i[:, :2] % 6, 0.5, 1), (_OX, _OI), True),
+    ("math.sum_int", lambda m, i: m.sum(i, axis=1), (_OI,), True),
+    ("math.cummax", lambda m, a: m.cummax(a, axis=1), (_OX,), True),
+    ("math.logsumexp", lambda m, a: m.logsumexp(a, axis=0), (_OX,), False),
+    ("math.matmul", lambda m, a: m.matmul(a, a, transpose_y=True), (_OX,),
+     False),
+    ("logic.isclose", lambda m, a: m.isclose(a, a + 1e-6), (_OX,), True),
+    ("logic.any", lambda m, a: m.any(a > 0.9, axis=1), (_OX,), True),
+    ("search.topk", lambda m, a: m.topk(a, 3, axis=0), (_OX,), True),
+    ("search.argsort", lambda m, i: m.argsort(i, descending=True), (_OI,),
+     True),
+    ("search.mode", lambda m, i: m.mode(i), (_OI,), True),
+    ("search.nonzero", lambda m, i: m.nonzero(i > 6), (_OI,), True),
+    ("stat.median", lambda m, a: m.median(a, axis=1), (_OX,), True),
+    ("stat.quantile", lambda m, a: m.quantile(a, [0.1, 0.9], axis=0),
+     (_OX,), False),
+    ("stat.histogram", lambda m, a: m.histogram(a, bins=7), (_OX,), True),
+    ("linalg.solve", lambda m, s, a: m.linalg.solve(s, a[:, :2]),
+     (_OSPD, _OX), False),
+    ("linalg.eigvalsh", lambda m, s: m.linalg.eigvalsh(s), (_OSPD,), False),
+    ("linalg.svd_recon", lambda m, a: (lambda u, s, vh: (u * s[None]) @ vh)(
+        *m.linalg.svd(a)), (_OX,), False),
+    ("linalg.qr_recon", lambda m, a: (lambda q, r: q @ r)(*m.linalg.qr(a)),
+     (_OX,), False),
+    ("einsum.einsum", lambda m, a: m.einsum("ij,kj->ik", a, a), (_OX,),
+     False),
+]
+
+
+@pytest.mark.parametrize("rid,call,inputs,exact", OPS_ON_CARD,
+                         ids=[r[0] for r in OPS_ON_CARD])
+def test_tensor_ops_on_the_card_equal_the_cpu(cuda, rid, call, inputs,
+                                              exact):
+    """A few ops of each tensor module on CUDA against the port's CPU
+    result from the same numpy inputs: equal dtypes, ints, bools and
+    exact ops equal, fp32 within 1e-4 of the largest magnitude (linalg
+    through reconstructions)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.device import using_device
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        with using_device(dev):
+            outs[dev] = call(ptt, *[ptt.to_tensor(a, place=dev)
+                                    for a in inputs])
+    got = outs["cuda"] if isinstance(outs["cuda"], (list, tuple)) \
+        else [outs["cuda"]]
+    want = outs["cpu"] if isinstance(outs["cpu"], (list, tuple)) \
+        else [outs["cpu"]]
+    assert len(got) == len(want), (rid, len(got), len(want))
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape, rid
+        g = g.cpu()
+        if exact or not w.is_floating_point():
+            assert torch.equal(g, w), rid
+        else:
+            scale = w.abs().max().clamp_min(1e-30)
+            assert float((g - w).abs().max() / scale) < 1e-4, rid
+
+
+def test_random_ops_on_the_card_seed_and_count(cuda):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.device import using_device
+
+    with using_device("gpu"):
+        for make in (lambda: ptt.rand([1000]), lambda: ptt.randn([1000]),
+                     lambda: ptt.randint(0, 5, [1000]),
+                     lambda: ptt.tensor.poisson(
+                         torch.full((1000,), 2.0, device="cuda"))):
+            ptt.seed(7)
+            n = trandom.draws()
+            a = make()
+            assert trandom.draws() == n + 1 and a.is_cuda
+            ptt.seed(7)
+            assert torch.equal(a, make())

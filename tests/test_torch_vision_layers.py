@@ -274,6 +274,34 @@ def test_batch_norm_train_and_running_stats(shape, layout):
                                         data_format=layout), [x, w, b])
 
 
+@pytest.mark.parametrize("shape,layout", [
+    ((1, 3), "NCHW"), ((1, 3, 1, 1), "NCHW"), ((1, 3), "NHWC"),
+    ((1, 1, 1, 3), "NHWC")])
+def test_batch_norm_one_value_per_channel(shape, layout):
+    """Train mode with one value per channel, where torch's op refuses:
+    the output is the shift, every gradient the reference's, and after 3
+    calls the running mean and variance are the reference's (the
+    variance shrinks by ``momentum`` a call)."""
+    c = shape[-1] if layout == "NHWC" else shape[1]
+    r = _rng(12)
+    w = (1 + 0.1 * r.randn(c)).astype(np.float32)
+    b = (0.1 * r.randn(c)).astype(np.float32)
+    jm = pt.to_tensor(np.full(c, 0.5, np.float32))
+    jv = pt.to_tensor(np.full(c, 2.0, np.float32))
+    tm, tv = torch.full((c,), 0.5), torch.full((c,), 2.0)
+    for i in range(3):
+        x = (r.randn(*shape) + i).astype(np.float32)
+        out = _both(lambda x, w, b: JF.batch_norm(
+                        x, jm, jv, w, b, training=True, data_format=layout),
+                    lambda x, w, b: TF.batch_norm(
+                        x, tm, tv, w, b, training=True, data_format=layout),
+                    [x, w, b], seed=i)
+        np.testing.assert_allclose(out.detach().numpy().reshape(c), b,
+                                   rtol=0, atol=1e-6)
+    _close(tm.numpy(), jm.numpy(), TOL, "running mean")
+    _close(tv.numpy(), jv.numpy(), TOL, "running variance")
+
+
 def test_batch_norm_global_stats_in_training():
     """``use_global_stats=True`` normalizes by the running statistics and
     leaves them as they were, in train mode too."""
