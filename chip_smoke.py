@@ -3,7 +3,7 @@ distributed paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Twenty-three phases in one process (phases 17 to 20 and 23 also spawn
+Twenty-four phases in one process (phases 17 to 20 and 23 also spawn
 two processes each, phase 21 eight, two and four); any failure
 raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
@@ -286,6 +286,23 @@ only a run in which every phase passed prints the final line:
    (d) ``BatchNorm1D`` at batch 1 in train mode inside a ``TrainStep``
    graph against the CPU: losses, parameters and running statistics.
    None of the eight kernels may launch in 23a, 23b or 23d.
+24. the ``nn.functional`` surface: (a) every spec of ``tests/op_specs.py``
+   under ``paddle_tpu.nn.functional`` and every row of
+   ``tests/torch_functional_cases.py`` on the card against the port's
+   own CPU result, forward and gradient (of ``sum(out * cotangent)``),
+   with equal dtypes: ints, bools and moved values exactly, fp32 within
+   ``CARD_TOL`` (1e-5) of each output's largest magnitude or a row's
+   wider limit (cuDNN's convolutions, the CTC and RNN-T recurrences);
+   TF32 off; no module of JAX or of the reference package imported;
+   (b) the random functions on the card: one seed one draw, one count a
+   call, means within 6 standard errors; (c) ``F.flash_attention`` at
+   the Llama training shape (b8 s1024 h12 d128 bf16, causal, no
+   dropout: kernels 1-3 once each) and at BERT-base's (b64 s512 h12 d64
+   bf16, dropout 0.1: kernels 4-6 once each), its output and gradients
+   per 64-row tile against the plain versions at phases 6 and 9's
+   tolerances; (d) readings, not held: ms of ``conv2d_transpose``,
+   bilinear ``interpolate``, ``grid_sample`` and ``ctc_loss`` at sizes
+   users run them.
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -5330,29 +5347,30 @@ def _float_values(arrays):
     return v[np.isfinite(v)]
 
 
-def _hold_on_card(row, got, want, inputs, sort_complex=False):
+def _hold_on_card(row, got, want, inputs, sort_complex=False,
+                  tol=TENSOR_REL_TOL, tag="23a"):
     """The card's outputs ``got`` against the CPU's ``want``: the same
     dtypes and shapes, on the card; ints and bools equal, and floats
     equal where the CPU's finite values are all drawn from the row's
     numpy ``inputs`` (or are 0 or 1: the op only moved or selected
-    them); other floats within ``TENSOR_REL_TOL``; eigenvalues
-    (``sort_complex``) sorted first. Returns the worst relative error."""
+    them); other floats within ``tol``; eigenvalues (``sort_complex``)
+    sorted first. Returns the worst relative error."""
     got, want = _flat_out(got), _flat_out(want)
     if len(got) != len(want):
-        raise AssertionError(f"23a {row}: {len(got)} outputs on the card, "
+        raise AssertionError(f"{tag} {row}: {len(got)} outputs on the card, "
                              f"{len(want)} on the CPU")
     moved = np.concatenate([_float_values(inputs), [0.0, 1.0]])
     worst = 0.0
     for g, w in zip(got, want):
         if not isinstance(w, torch.Tensor):
             if g != w:
-                raise AssertionError(f"23a {row}: {g!r} on the card, {w!r} "
+                raise AssertionError(f"{tag} {row}: {g!r} on the card, {w!r} "
                                      f"on the CPU")
             continue
         if g.device.type != "cuda" or g.dtype != w.dtype \
                 or g.shape != w.shape:
             raise AssertionError(
-                f"23a {row}: {g.dtype} {tuple(g.shape)} on {g.device}, the "
+                f"{tag} {row}: {g.dtype} {tuple(g.shape)} on {g.device}, the "
                 f"CPU's {w.dtype} {tuple(w.shape)}")
         gn, wn = g.detach().cpu().numpy(), w.detach().numpy()
         if sort_complex:
@@ -5361,19 +5379,19 @@ def _hold_on_card(row, got, want, inputs, sort_complex=False):
             _float_values([wn]), moved).all()
         if exact:
             if not np.array_equal(gn, wn, equal_nan=True):
-                raise AssertionError(f"23a {row}: not equal on the card "
+                raise AssertionError(f"{tag} {row}: not equal on the card "
                                      f"and the CPU")
             continue
         fin = np.isfinite(wn)
         if not np.array_equal(np.isfinite(gn), fin):
-            raise AssertionError(f"23a {row}: non-finite entries differ")
+            raise AssertionError(f"{tag} {row}: non-finite entries differ")
         if fin.any():
             scale = float(np.abs(wn[fin]).max()) or 1.0
             err = float(np.abs(gn[fin] - wn[fin]).max()) / scale
             worst = max(worst, err)
-            if err > TENSOR_REL_TOL:
-                raise AssertionError(f"23a {row}: relative error {err:.2e} "
-                                     f"above {TENSOR_REL_TOL}")
+            if err > tol:
+                raise AssertionError(f"{tag} {row}: relative error {err:.2e} "
+                                     f"above {tol}")
     return worst
 
 
@@ -5630,12 +5648,260 @@ def phase_tensor_ops(card):
     return {"held": held, "worst": worst}
 
 
+# -- phase 24: the nn.functional surface --------------------------------------
+
+
+def _functional_tables():
+    """``tests/op_specs.py``'s specs and ``tests/torch_functional_cases.py``
+    (free of JAX, as ``_tensor_tables`` says)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    sys.path.insert(0, tests)
+    try:
+        import op_specs
+        import torch_functional_cases as cases
+        import torch_tensor_cases as tcases
+    finally:
+        sys.path.remove(tests)
+    return op_specs.SPECS, cases, tcases
+
+
+# the op specs whose path runs cuDNN's convolutions: their sums in
+# another order than the CPU's
+CUDNN_SPECS = ("conv2d", "conv3d", "conv2d_transpose", "conv3d_transpose",
+               "depthwise_conv2d", "depthwise_conv2d_transpose")
+
+
+def _functional_rows(specs, cases, tcases):
+    """(row id, numpy inputs, grad indices, card tol, call(F, *xs)) for
+    every functional spec and every table row."""
+    rows = []
+    for sname in cases.functional_specs(specs):
+        spec = specs[sname]
+        tcases.port_adapted(spec)  # refuses an adapter that has no twin
+
+        def call(F, *xs, spec=spec):
+            fn = getattr(F, spec["path"].rsplit(".", 1)[1])
+            if spec["adapter"] is not None:
+                fn = spec["adapter"](fn)
+            return fn(*xs, **spec["kwargs"])
+        tol = 1e-4 if sname in CUDNN_SPECS else cases.CARD_TOL
+        rows.append((f"spec {sname}", list(spec["inputs"]), spec["grad"],
+                     tol, call))
+    for row in cases.ROWS:
+        rows.append((row.id, list(row.inputs), row.grad, row.card_tol,
+                     row.call))
+    return rows
+
+
+def _functional_on_card():
+    """24a: every functional row on the card against the CPU, forward and
+    gradient; the worst error by the port module of the first function
+    each row calls."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.framework.device import using_device
+
+    specs, cases, tcases = _functional_tables()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst, held = {}, 0
+    for rid, inputs, grad, tol, call in _functional_rows(specs, cases,
+                                                         tcases):
+        rec = tcases.Recorder(F)
+        with using_device("cpu"):
+            want = call(rec, *[_on(a, "cpu") for a in inputs])
+            want_g = cases.port_grads(lambda *xs: call(F, *xs), inputs,
+                                      grad) if grad else []
+        with using_device("gpu"):
+            got = call(F, *[_on(a, "cuda") for a in inputs])
+            got_g = cases.port_grads(lambda *xs: call(F, *xs), inputs, grad,
+                                     "cuda") if grad else []
+        err = _hold_on_card(rid, got, want, inputs, tol=tol, tag="24a")
+        for g, w in zip(got_g, want_g):
+            err = max(err, _grad_on_card(rid, g, w, tol))
+        held += 1
+        mod = next(getattr(f, "__module__", "").rsplit(".", 1)[-1]
+                   for _, f in rec.seen)
+        if err >= worst.get(mod, (-1.0, ""))[0]:
+            worst[mod] = (err, rid)
+    _no_reference("24a")
+    return held, {m: (float(f"{e:.3g}"), r) for m, (e, r) in worst.items()}
+
+
+def _on(a, dev):
+    """A numpy input as the port's tensor on ``dev``."""
+    import paddle_tpu_torch as ptt
+
+    return ptt.to_tensor(np.array(a), place=dev)
+
+
+def _grad_on_card(rid, got, want, tol):
+    """A gradient from the card (numpy) against the CPU's: the same shape,
+    within ``tol`` of the CPU's largest magnitude."""
+    if got.shape != want.shape:
+        raise AssertionError(f"24a {rid}: gradient {got.shape} on the card, "
+                             f"{want.shape} on the CPU")
+    scale = float(np.abs(want).max()) or 1.0
+    err = float(np.abs(got - want).max()) / scale
+    if not err <= tol:
+        raise AssertionError(f"24a {rid}: gradient relative error "
+                             f"{err:.2e} above {tol}")
+    return err
+
+
+def _functional_random_on_card():
+    """24b: each random function on the card: seed, draw count, mean."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.framework.device import using_device
+
+    _, cases, _ = _functional_tables()
+    out = {}
+    with using_device("gpu"):
+        for name in cases.RANDOM:
+            fn, samples, mean, se = cases.draw(F, name, "cuda")
+            ptt.seed(5)
+            before = trandom.draws()
+            a = fn()
+            counted = trandom.draws() - before
+            ptt.seed(5)
+            b = fn()
+            same = all(torch.equal(x, y) for x, y in zip(
+                cases.flat(a), cases.flat(b)))
+            on_card = all(x.is_cuda for x in cases.flat(a))
+            dm = abs(float(samples(a).double().mean()) - mean)
+            if not (on_card and counted == 1 and same
+                    and dm < cases.SIGMAS * se):
+                raise AssertionError(
+                    f"24b {name}: on the card {on_card}, {counted} draws "
+                    f"counted, repeatable {same}, mean off by {dm:.3g} "
+                    f"({dm / se:.2f} se)")
+            out[name] = round(dm / se, 2)
+    return out
+
+
+# (tag, b, s, h, d, causal, dropout, the wrappers that must launch once)
+FLASH_ATTENTION_CASES = [
+    ("llama", 8, 1024, 12, 128, True, 0.0, FLASH_WRAPPERS),
+    ("bert", 64, 512, 12, 64, False, 0.1, HB_WRAPPERS),
+]
+
+
+def _flash_attention_call(case, gen):
+    """24c: one ``F.flash_attention`` forward and backward at ``case``,
+    held per 64-row tile against the plain versions on fp32 copies (the
+    seed words the call drew replayed for them); the launches of the
+    eight kernels over the call."""
+    import paddle_tpu_torch.nn.functional as F
+
+    tag, b, s, h, d, causal, dropout, wrappers = case
+    q, k, v, do = _flash_inputs(b, s, s, h, h, gen, d=d)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    state = trandom.get_state()
+    _reset_launches()
+    out, soft = F.flash_attention(*leaves, dropout=dropout, causal=causal)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launched = _launch_counts()
+    want = {w.__name__: 1 if w in wrappers else 0 for w in ALL_WRAPPERS}
+    if launched != want or soft is not None:
+        raise AssertionError(f"24c {tag}: launches {launched}, want {want}; "
+                             f"softmax {soft!r}")
+    kw = dict(causal=causal)
+    refs = (fa.flash_fwd_ref, fa.flash_bwd_dq_ref, fa.flash_bwd_dkv_ref)
+    if dropout:
+        trandom.set_state(state)
+        kw.update(seed=trandom.next_seed_words(), dropout=dropout)
+        refs = (hf.hb_fwd_ref, hf.hb_bwd_dq_ref, hf.hb_bwd_dkv_ref)
+    f32 = [t.float() for t in (q, k, v, do)]
+    want_out, want_lse = refs[0](*f32[:3], **kw)
+    delta = (do.float() * want_out.to(q.dtype).float()).sum(-1) \
+        .permute(0, 2, 1).reshape(b * h, s).contiguous()
+    want_dq = refs[1](*f32, want_lse, delta, **kw)
+    want_dk, want_dv = refs[2](*f32, want_lse, delta, **kw)[:2]
+    rel = {"out": _tile_rel_err(out.detach(), want_out),
+           "dq": _tile_rel_err(leaves[0].grad, want_dq),
+           "dk": _tile_rel_err(leaves[1].grad, want_dk),
+           "dv": _tile_rel_err(leaves[2].grad, want_dv)}
+    tol = FLASH_REL_TOL if not dropout else ENC_REL_TOL[torch.bfloat16]
+    log(f"[functional] 24c F.flash_attention {tag} b={b} s={s} h={h} d={d} "
+        f"bf16 causal={causal} dropout={dropout}: per-tile relative error "
+        + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+        + f" (tol {tol}); launches {launched}")
+    if not all(e <= tol for e in rel.values()):
+        raise AssertionError(f"24c {tag}: {rel} above {tol}")
+    return {k: v for k, v in launched.items() if v}
+
+
+def _functional_readings():
+    """24d: the card's ms for four functions at sizes users run them,
+    fp32 (TF32 off), forward only: {name: [ms of each repetition]}."""
+    import paddle_tpu_torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(24)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+    x = rnd(64, 256, 28, 28)
+    w = rnd(256, 128, 2, 2, scale=0.05)
+    img = rnd(256, 64, 56, 56)
+    grid = torch.rand(256, 112, 112, 2, device="cuda", generator=gen) * 2 - 1
+    lp = torch.log_softmax(rnd(400, 32, 5000), -1)
+    labels = torch.randint(1, 5000, (32, 100), device="cuda", generator=gen)
+    in_len = torch.full((32,), 400, device="cuda")
+    lab_len = torch.full((32,), 100, device="cuda")
+    calls = {
+        "conv2d_transpose [64, 256, 28, 28] -> [64, 128, 56, 56] (k 2, "
+        "stride 2)": lambda: F.conv2d_transpose(x, w, stride=2),
+        "interpolate bilinear [256, 64, 56, 56] -> 112 x 112":
+            lambda: F.interpolate(img, size=[112, 112], mode="bilinear"),
+        "grid_sample [256, 64, 56, 56] at a [256, 112, 112, 2] grid":
+            lambda: F.grid_sample(img, grid),
+        "ctc_loss T 400, B 32, C 5000, L 100":
+            lambda: F.ctc_loss(lp, labels, in_len, lab_len),
+    }
+    return _time_reps({n: lambda i, fn=fn: fn() for n, fn in calls.items()},
+                      iters=1)
+
+
+def phase_functional(card, smi):
+    """Phase 24: the nn.functional surface on the card."""
+    t_phase = time.perf_counter()
+    held, worst = _functional_on_card()
+    log(f"[functional] 24a {held} rows (specs and table rows) on {card} "
+        f"against the CPU, forward and gradient (tol "
+        f"{_functional_tables()[1].CARD_TOL} relative in fp32, 1e-4 for "
+        f"cuDNN's convolutions and the CTC and RNN-T recurrences; ints, "
+        f"bools and moved values exact; TF32 off; no module of "
+        f"{'/'.join(REFERENCE_MODULES)} imported): worst relative error "
+        f"by module {worst}; {time.perf_counter() - t_phase:.1f} s")
+    t_b = time.perf_counter()
+    sigmas = _functional_random_on_card()
+    log(f"[functional] 24b {len(sigmas)} random functions on {card}: one "
+        f"seed one draw, one count a call; mean off by (standard errors) "
+        f"{sigmas}; {time.perf_counter() - t_b:.1f} s")
+    gen = torch.Generator("cuda").manual_seed(7)
+    launches = {}
+    for case in FLASH_ATTENTION_CASES:
+        launches[case[0]] = _flash_attention_call(case, gen)
+    _release()
+    readings = _functional_readings()
+    log(f"[functional] 24d readings on {smi} (fp32, TF32 off, forward, "
+        f"ms of one call, median (min-max) of {REPS} interleaved "
+        f"repetitions): "
+        + "; ".join(f"{n} {_spread(ts)}" for n, ts in readings.items()))
+    _no_reference("24")
+    log(f"[functional] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"held": held, "worst": worst, "launches": launches,
+            "readings": readings}
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19,20,21,22,23",
+                    "19,20,21,22,23,24",
                     help="phases to run after 1 and 2, comma-separated")
     ap.add_argument("--fault", choices=("experts", "dropout"),
                     help="plant a fault to show that a check catches it: "
@@ -5653,7 +5919,7 @@ def main():
     # BERT's, phase 10); ERNIE's (phase 12) are printed beside them
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
     fleet_launches, pipe_launches, context, experts = {}, {}, {}, {}
-    hybrid, vision, ops = {}, {}, {}
+    hybrid, vision, ops, functional = {}, {}, {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -5683,13 +5949,15 @@ def main():
                    (21, lambda: hybrid.update(phase_hybrid(
                        name, args.fault == "dropout"))),
                    (22, lambda: vision.update(phase_vision(name))),
-                   (23, lambda: ops.update(phase_tensor_ops(name)))):
+                   (23, lambda: ops.update(phase_tensor_ops(name))),
+                   (24, lambda: functional.update(
+                       phase_functional(name, smi)))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
     _no_reference("the run")
-    if only != set(range(3, 24)):
+    if only != set(range(3, 25)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -5710,9 +5978,15 @@ def main():
     on_hybrid = dict(hybrid["21a"], **{k: hybrid["21b"][k]
                                        for k in ("hb_fwd", "hb_bwd_dq",
                                                  "hb_bwd_dkv")})
+    # and each kernel's launches over phase 24c's two F.flash_attention
+    # calls (kernels 1-3 at the Llama's shape, 4-6 at BERT's)
+    on_functional = {k: sum(c.get(k, 0) for c in
+                            functional["launches"].values())
+                     for k in replaces}
     kernels = [dict(name=k, route="cuda", source=sources[k.split("_")[0]],
                     replaces=replaces[k], launches=launches[k], **rows[k],
-                    launches_phase21=on_hybrid[k])
+                    launches_phase21=on_hybrid[k],
+                    launches_phase24=on_functional[k])
                for k in replaces]
     log(f"[done] launches on the ERNIE path (phase 12, "
         f"{TIMED_STEPS} steps): {ernie_launches}")
@@ -5740,6 +6014,10 @@ def main():
     log(f"[done] the tensor op surface (phase 23a): {ops['held']} rows held "
         f"on the card against the CPU, worst error by module "
         f"{ops['worst']}")
+    log(f"[done] the nn.functional surface (phase 24a): "
+        f"{functional['held']} rows held on the card against the CPU, "
+        f"worst error by module {functional['worst']}; 24c launches "
+        f"{functional['launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

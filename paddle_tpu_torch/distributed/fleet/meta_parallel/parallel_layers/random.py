@@ -101,10 +101,7 @@ def dropout(x, p=0.5, axis=None, rng_name=MODEL_PARALLEL_RNG, training=True,
     """``F.dropout`` drawing its mask from the tracker's named state."""
     from .....nn import functional as F
 
-    if axis is not None:
-        raise NotImplementedError("dropout's axis is not ported "
-                                  "(ROADMAP A.5)")
     if not training or p == 0.0:
         return x
     with _TRACKER.rng_state(rng_name):
-        return F.dropout(x, p, training=training, mode=mode)
+        return F.dropout(x, p, axis=axis, training=training, mode=mode)

@@ -136,7 +136,8 @@ class BertEmbeddings(nn.Module):
         if token_type_ids is not None:
             emb = emb + self.token_type_embeddings(token_type_ids)
         return F.dropout(self.layer_norm(emb),
-                         self.config.hidden_dropout_prob, self.training)
+                         self.config.hidden_dropout_prob,
+                         training=self.training)
 
 
 class BertSelfAttention(nn.Module):
@@ -177,7 +178,8 @@ class BertLayer(nn.Module):
         self.act = getattr(F, config.hidden_act)
 
     def _dropout(self, x):
-        return F.dropout(x, self.config.hidden_dropout_prob, self.training)
+        return F.dropout(x, self.config.hidden_dropout_prob,
+                         training=self.training)
 
     def forward(self, x, attn_mask=None):
         a = self.attn_norm(x + self._dropout(self.attention(x, attn_mask)))
@@ -307,4 +309,4 @@ class BertForSequenceClassification(_BertHead):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         _, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         return self.classifier(F.dropout(
-            pooled, self.config.hidden_dropout_prob, self.training))
+            pooled, self.config.hidden_dropout_prob, training=self.training))

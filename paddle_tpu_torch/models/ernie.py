@@ -203,7 +203,7 @@ class ErnieBlock(nn.Module):
         self.act = getattr(F, act)
 
     def _dropout(self, x):
-        return F.dropout(x, self.dropout_p, self.training)
+        return F.dropout(x, self.dropout_p, training=self.training)
 
     def forward(self, x, attn_bias=None, causal=False):
         a = self.attn_norm(
@@ -261,7 +261,8 @@ class ErnieEmbeddings(nn.Module):
         if token_type_ids is not None:
             emb = emb + self.token_type_embeddings(token_type_ids)
         return F.dropout(self.layer_norm(emb),
-                         self.config.hidden_dropout_prob, self.training)
+                         self.config.hidden_dropout_prob,
+                         training=self.training)
 
 
 class ErnieTaskBranch(nn.Module):
@@ -438,7 +439,8 @@ class ErnieForSequenceClassification(_ErnieHead):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         nlu, _, _ = self.ernie(input_ids, token_type_ids, attention_mask)
         return self.classifier(F.dropout(
-            nlu[:, 0], self.config.hidden_dropout_prob, self.training))
+            nlu[:, 0], self.config.hidden_dropout_prob,
+            training=self.training))
 
 
 # -- the pipeline form ----------------------------------------------------------

@@ -38,11 +38,15 @@ import torch
 
 from ...amp.auto_cast import cast_inputs
 from ...framework import random
-from ...ops.cuda.flash_attention import NEG_INF, flash_attention
+from ...ops.cuda.flash_attention import NEG_INF
+# the kernel entry under another name: ``flash_attention`` here is the
+# reference's functional of that name, which returns a tuple
+from ...ops.cuda.flash_attention import flash_attention as flash_kernel
 from ...ops.cuda.head_flash import hb_flash
 
-__all__ = ["scaled_dot_product_attention", "sliding_window_attention",
-           "ring_flash_attention", "ulysses_attention"]
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "sliding_window_attention", "ring_flash_attention",
+           "ulysses_attention"]
 
 
 def _key_padding_additive(mask, q_shape, k_shape):
@@ -93,7 +97,7 @@ def _dropout_coords(query):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, name=None):
     """Softmax attention with scale ``1/sqrt(head_dim)``; ``is_causal``
     masks bottom-right aligned; ``attn_mask`` is a ``[b, 1, 1, sk]``
     key-padding mask (bool keep, or additive float); ``dropout_p`` drops
@@ -106,7 +110,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if attn_mask is not None:
         kadd = _key_padding_additive(attn_mask, query.shape, key.shape)
     if kadd is None and p == 0.0:
-        return flash_attention(query, key, value, causal=is_causal)
+        return flash_kernel(query, key, value, causal=is_causal)
     seed = coords = None
     if p > 0.0:
         seed, coords = random.next_seed_words(), _dropout_coords(query)
@@ -114,7 +118,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                     causal=is_causal, dropout=p, coords=coords)
 
 
-def sliding_window_attention(query, key, value, window_size):
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, name=None):
+    """``(scaled_dot_product_attention(query, key, value, None, dropout,
+    causal), None)``, as the reference returns it
+    (``attention.py:103-111``): always in training, so ``dropout > 0``
+    drops (kernels 4-6) and ``dropout == 0`` runs kernels 1-3. No
+    softmax is returned, with or without ``return_softmax``."""
+    return scaled_dot_product_attention(query, key, value, None, dropout,
+                                        causal), None
+
+
+def sliding_window_attention(query, key, value, window_size, name=None):
     """Causal local attention: query row r sees keys in ``(r -
     window_size, r]`` (bottom-right aligned)."""
     if not isinstance(window_size, int) or window_size <= 0:
@@ -122,8 +137,8 @@ def sliding_window_attention(query, key, value, window_size):
             f"window_size must be a positive int, got {window_size!r}")
     query, key, value = cast_inputs("sliding_window_attention", query, key,
                                     value)
-    return flash_attention(query, key, value, causal=True,
-                           window=window_size)
+    return flash_kernel(query, key, value, causal=True,
+                        window=window_size)
 
 
 def _seq_group(axis):

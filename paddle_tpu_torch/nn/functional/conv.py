@@ -17,17 +17,32 @@ refuses a call, the error is raised; nothing tries another route.
   half on the high side, any stride) and ``'VALID'``. Torch's own
   padding takes only the symmetric forms; an asymmetric one is applied
   with ``F.pad`` first.
+
+The transposed convolutions (``conv1d/2d/3d_transpose``) are
+``torch.nn.functional.conv_transpose{1,2,3}d``, the weight in Paddle's
+``[in, out / groups, *k]``, which is torch's too. The reference computes
+them as the gradient of the forward convolution (``conv.py:105-180``):
+the output size is ``(in - 1) * stride - 2 * padding + dilation * (k -
+1) + 1 + output_padding``, or ``output_size`` when given (passed to
+torch as the output padding it implies). Padding is an int or ``nd``
+ints; the reference refuses ``'SAME'`` and ``'VALID'`` there, and so
+does the port.
 """
 from __future__ import annotations
 
 import torch
 
 from ...amp.auto_cast import cast_inputs
+from ...tensor._common import shape_list
 
-__all__ = ["conv1d", "conv2d", "conv3d"]
+__all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
+           "conv2d_transpose", "conv3d_transpose"]
 
 _CONV = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
          3: torch.nn.functional.conv3d}
+_CONV_T = {1: torch.nn.functional.conv_transpose1d,
+           2: torch.nn.functional.conv_transpose2d,
+           3: torch.nn.functional.conv_transpose3d}
 
 
 def _ntuple(v, n):
@@ -118,3 +133,54 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     ``[N, D, H, W, C]``)."""
     return _conv(x, weight, bias, stride, padding, dilation, groups,
                  not data_format.startswith("NC"), 3, "conv3d")
+
+
+def _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                    dilation, groups, channel_last, nd, op_name,
+                    output_size):
+    if isinstance(padding, str):
+        raise NotImplementedError(
+            f"{op_name}(padding={padding!r}): 'SAME' and 'VALID' are not "
+            f"taken for transposed convolutions (the reference refuses "
+            f"them too); pass ints")
+    x, weight, bias = cast_inputs(op_name, x, weight, bias)
+    strides = _ntuple(stride, nd)
+    dilations = _ntuple(dilation, nd)
+    pads = _ntuple(padding, nd)
+    out_pad = _ntuple(output_padding, nd)
+    if channel_last:
+        x = x.movedim(-1, 1)
+    if output_size is not None:
+        ksz = weight.shape[2:]
+        base = [(x.shape[2 + i] - 1) * strides[i] - 2 * pads[i]
+                + dilations[i] * (ksz[i] - 1) + 1 for i in range(nd)]
+        out_pad = tuple(int(o) - b for o, b in zip(
+            _ntuple(shape_list(output_size), nd), base))
+    out = _CONV_T[nd](x, weight, bias, strides, pads, out_pad, groups,
+                      dilations)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups,
+                           data_format not in ("NCL", "NCW"), 1,
+                           "conv1d_transpose", output_size)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, not data_format.startswith("NC"),
+                           2, "conv2d_transpose", output_size)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, not data_format.startswith("NC"),
+                           3, "conv3d_transpose", output_size)

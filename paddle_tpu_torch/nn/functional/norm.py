@@ -1,14 +1,21 @@
-"""Normalization (counterpart of ``paddle_tpu/nn/functional/norm.py``)."""
+"""Normalization (counterpart of ``paddle_tpu/nn/functional/norm.py``).
+
+The reference computes each as ``jnp`` expressions under ``apply``, which
+XLA fuses: no Pallas kernel. ``batch_norm`` is torch's op (cuDNN on the
+card); ``group_norm``, ``instance_norm`` and ``local_response_norm`` are
+the reference's formulas in torch ops, in the input's dtype after
+``amp.auto_cast``'s cast by their op names."""
 from __future__ import annotations
 
 import torch
 
 from ...amp.auto_cast import cast_inputs
 
-__all__ = ["rms_norm", "layer_norm", "batch_norm"]
+__all__ = ["rms_norm", "layer_norm", "batch_norm", "group_norm",
+           "instance_norm", "local_response_norm"]
 
 
-def rms_norm(x, weight=None, epsilon=1e-6):
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """RMSNorm over the last dim: the mean square in fp32, ``rsqrt``, a
     cast back to x's dtype, then ``* weight``. The training forward and
     the decode path (``models/generation.py``, ``serving/engine.py``)
@@ -21,7 +28,8 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out if weight is None else out * weight
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     """LayerNorm over the trailing ``normalized_shape`` dims, computed in
     x's dtype as the reference computes it (``norm.py:112-121``): the
     mean and the (biased) variance are reduced in fp32 and rounded to x's
@@ -117,3 +125,67 @@ def _batch_norm_single(x, running_mean, running_var, weight, bias, momentum,
         if running_var is not None:
             running_var.mul_(momentum)
     return out
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW", name=None):
+    """Normalizes each of ``num_groups`` runs of channels over the run
+    and the spatial dims (biased variance), then the per-channel scale
+    and shift."""
+    x, weight, bias = cast_inputs("group_norm", x, weight, bias)
+    channel_last = not data_format.startswith("NC")
+    a = x.movedim(-1, 1) if channel_last else x
+    n, c = a.shape[:2]
+    g = a.reshape(n, num_groups, c // num_groups, *a.shape[2:])
+    dims = tuple(range(2, g.dim()))
+    mean = g.mean(dims, keepdim=True)
+    var = g.var(dims, unbiased=False, keepdim=True)
+    out = ((g - mean) / torch.sqrt(var + epsilon)).reshape(a.shape)
+    out = _affine(out, weight, bias, (1, c) + (1,) * (a.dim() - 2))
+    return out.movedim(1, -1) if channel_last else out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Normalizes each (sample, channel) over its spatial dims; with
+    ``use_input_stats=False`` and running statistics given, by those
+    instead (``norm.py:183``). As in the reference the running
+    statistics are read, never updated (``momentum`` is accepted)."""
+    x, running_mean, running_var, weight, bias = cast_inputs(
+        "instance_norm", x, running_mean, running_var, weight, bias)
+    channel_last = not data_format.startswith("NC")
+    a = x.movedim(-1, 1) if channel_last else x
+    shape = (1, a.shape[1]) + (1,) * (a.dim() - 2)
+    if not use_input_stats and running_mean is not None:
+        mean, var = running_mean.reshape(shape), running_var.reshape(shape)
+    else:
+        dims = tuple(range(2, a.dim()))
+        mean = a.mean(dims, keepdim=True)
+        var = a.var(dims, unbiased=False, keepdim=True)
+    out = _affine((a - mean) / torch.sqrt(var + eps), weight, bias, shape)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha * s)^beta``, ``s`` the sum of squares over
+    ``size`` channels centred at each (the reference's form: ``alpha``
+    not divided by ``size``, as torch's op divides it), zeros past the
+    edges."""
+    (x,) = cast_inputs("local_response_norm", x)
+    ax = x.dim() - 1 if not data_format.startswith("NC") else 1
+    lo = (size - 1) // 2
+    pads = [0, 0] * (x.dim() - 1 - ax) + [lo, size - 1 - lo]
+    sq = torch.nn.functional.pad(x * x, pads)
+    c = x.shape[ax]
+    window = sum(sq.narrow(ax, i, c) for i in range(size))
+    return x / (k + alpha * window) ** beta

@@ -45,22 +45,19 @@ class Flatten(Layer):
 
 
 class Dropout(Layer):
-    """``F.dropout`` while training, the identity in eval mode. ``axis``
-    and modes other than ``upscale_in_train`` are not ported (ROADMAP
-    A.5): ``F.dropout`` raises for another mode, and this layer for an
-    ``axis``."""
+    """``F.dropout`` with the layer's ``p``, ``axis`` and ``mode``, in
+    training or eval by the layer's mode."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
                  name=None):
         super().__init__()
-        if axis is not None:
-            raise NotImplementedError(
-                "Dropout(axis=...) is not ported (ROADMAP queue A.5)")
         self.p = p
+        self.axis = axis
         self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training, mode=self.mode)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
 
     def extra_repr(self):
         return f"p={self.p}"

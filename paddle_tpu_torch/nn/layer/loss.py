@@ -8,27 +8,26 @@ __all__ = ["CrossEntropyLoss"]
 
 
 class CrossEntropyLoss(Layer):
-    """``F.cross_entropy(input, label)`` with ``ignore_index`` and
-    ``reduction``. The port's ``F.cross_entropy`` takes no class
-    ``weight``, ``soft_label``, ``label_smoothing``, ``axis`` other than
-    -1 or ``use_softmax=False``; given one, this layer raises
-    ``NotImplementedError`` naming it."""
+    """``F.cross_entropy`` with the layer's ``weight``, ``ignore_index``,
+    ``reduction``, ``soft_label``, ``axis``, ``use_softmax`` and
+    ``label_smoothing``."""
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
         super().__init__()
-        given = {"weight": weight is not None, "soft_label": soft_label,
-                 "axis": axis != -1, "use_softmax": not use_softmax,
-                 "label_smoothing": label_smoothing != 0.0}
-        for arg, on in given.items():
-            if on:
-                raise NotImplementedError(
-                    f"CrossEntropyLoss({arg}=...) is not ported: "
-                    f"F.cross_entropy takes only ignore_index and reduction")
+        self._weight = weight
         self._ignore_index = ignore_index
         self._reduction = reduction
+        self._soft_label = soft_label
+        self._axis = axis
+        self._use_softmax = use_softmax
+        self._label_smoothing = label_smoothing
 
     def forward(self, input, label):  # noqa: A002
-        return F.cross_entropy(input, label, ignore_index=self._ignore_index,
-                               reduction=self._reduction)
+        return F.cross_entropy(
+            input, label, weight=self._weight,
+            ignore_index=self._ignore_index, reduction=self._reduction,
+            soft_label=self._soft_label, axis=self._axis,
+            use_softmax=self._use_softmax,
+            label_smoothing=self._label_smoothing)

@@ -234,9 +234,10 @@ def test_sequence_classification_eval_matches_reference():
 
 def test_dropout_statistics_and_seeding():
     """``F.dropout`` keeps ~1 - p and scales kept values by exactly
-    1/(1 - p); eval and p = 0 are identities; ``framework.random.seed``
-    makes a training forward (hidden and attention dropout) repeatable,
-    and two draws differ."""
+    1/(1 - p); eval and p = 0 are identities (``downscale_in_infer``
+    keeps values unscaled in training); ``framework.random.seed`` makes
+    a training forward (hidden and attention dropout) repeatable, and
+    two draws differ."""
     trandom.seed(0)
     x = torch.ones(200_000)
     y = TF.dropout(x, 0.1)
@@ -245,8 +246,8 @@ def test_dropout_statistics_and_seeding():
     assert (y[kept] == torch.tensor(1.0) / 0.9).all()
     assert TF.dropout(x, 0.1, training=False) is x
     assert TF.dropout(x, 0.0) is x
-    with pytest.raises(NotImplementedError):
-        TF.dropout(x, 0.1, mode="downscale_in_infer")
+    down = TF.dropout(x, 0.1, mode="downscale_in_infer")
+    assert set(down.unique().tolist()) == {0.0, 1.0}
     tm = BertForMaskedLM(BertConfig.tiny(), device="cpu")
     ids, types, mask, _ = _batch(7)
     trandom.seed(5)

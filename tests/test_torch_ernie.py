@@ -143,7 +143,7 @@ def test_forward_and_grads_match_reference(masked, task_hidden):
 def _spy(monkeypatch):
     """Record each attention call's kernel family and causality."""
     calls = []
-    flash, hb = tattn.flash_attention, tattn.hb_flash
+    flash, hb = tattn.flash_kernel, tattn.hb_flash
 
     def spy_flash(q, k, v, causal=False, **kw):
         calls.append(("1-3", causal))
@@ -153,7 +153,7 @@ def _spy(monkeypatch):
         calls.append(("4-6", causal))
         return hb(q, k, v, seed=seed, kmask=kmask, causal=causal, **kw)
 
-    monkeypatch.setattr(tattn, "flash_attention", spy_flash)
+    monkeypatch.setattr(tattn, "flash_kernel", spy_flash)
     monkeypatch.setattr(tattn, "hb_flash", spy_hb)
     return calls
 

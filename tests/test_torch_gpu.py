@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_functional_cases as fcases  # the JAX-free tables
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.jit import TrainStep, exec_cache
 from paddle_tpu_torch.models import (
@@ -2218,3 +2219,87 @@ def test_random_ops_on_the_card_seed_and_count(cuda):
             assert trandom.draws() == n + 1 and a.is_cuda
             ptt.seed(7)
             assert torch.equal(a, make())
+
+
+# -- the nn.functional surface --------------------------------------------------
+
+
+@pytest.mark.parametrize("row", fcases.ROWS, ids=[r.id for r in fcases.ROWS])
+def test_functional_rows_on_the_card_equal_the_cpu(cuda, row):
+    """Every row of ``tests/torch_functional_cases.py`` on CUDA against the
+    port's CPU result from the same numpy inputs, forward and gradient:
+    equal dtypes and shapes, ints and bools equal, floats within the
+    row's ``card_tol`` of the largest magnitude (cuDNN's convolutions
+    and the TF32 switch off)."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.framework.device import using_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    outs, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        with using_device(dev):
+            outs[dev] = fcases.flat(row.call(F, *[
+                ptt.to_tensor(np.array(a), place=dev) for a in row.inputs]))
+            grads[dev] = fcases.port_grads(
+                lambda *xs: row.call(F, *xs), row.inputs, row.grad,
+                dev) if row.grad else []
+    assert len(outs["cuda"]) == len(outs["cpu"]), row.id
+    for g, w in zip(outs["cuda"], outs["cpu"]):
+        if not isinstance(w, torch.Tensor):
+            assert g == w, row.id
+            continue
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape, \
+            row.id
+        g = g.detach().cpu()
+        w = w.detach()
+        if not w.is_floating_point():
+            assert torch.equal(g, w), row.id
+            continue
+        scale = w.abs().max().clamp_min(1e-30)
+        assert float((g - w).abs().max() / scale) <= row.card_tol, row.id
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(g - w).max()) / scale <= row.card_tol, row.id
+
+
+@pytest.mark.parametrize("name", fcases.RANDOM)
+def test_functional_random_on_the_card(cuda, name):
+    """The random functions on CUDA: one seed one draw, one count a call,
+    the mean within 6 standard errors."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.framework.device import using_device
+
+    with using_device("gpu"):
+        fn, samples, mean, se = fcases.draw(F, name, "cuda")
+        ptt.seed(6)
+        n = trandom.draws()
+        a = fn()
+        assert trandom.draws() == n + 1
+        ptt.seed(6)
+        b = fn()
+    for x, y in zip(fcases.flat(a), fcases.flat(b)):
+        assert x.is_cuda and torch.equal(x, y)
+    assert abs(float(samples(a).double().mean()) - mean) < fcases.SIGMAS * se
+
+
+@pytest.mark.parametrize("fn,size,src", [
+    ("adaptive_max_pool1d", 4, fcases.TIES1),
+    ("adaptive_max_pool2d", [4, 3], fcases.TIES),
+    ("adaptive_max_pool3d", [2, 3, 4], fcases.TIES3),
+    ("max_pool2d", 3, fcases.TIES)], ids=["1d", "2d", "3d", "max_pool2d"])
+def test_functional_pool_masks_on_the_card_equal_the_cpu(cuda, fn, size,
+                                                         src):
+    """``return_mask`` on CUDA: the pooled values and the first maximum's
+    int32 indices equal the CPU's on inputs full of ties (the adaptive
+    pools' masks are the port's own; no row holds them against the
+    reference)."""
+    import paddle_tpu_torch.nn.functional as F
+
+    x = torch.from_numpy(src)
+    want = getattr(F, fn)(x, size, return_mask=True)
+    got = getattr(F, fn)(x.cuda(), size, return_mask=True)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)

@@ -7,7 +7,10 @@ nine ``paddle_tpu/tensor/`` modules, ``paddle_tpu.linalg.*`` and
 reference (its adapter and kwargs), the port on the CPU and the spec's
 numpy function. The port's outputs must equal numpy's and the
 reference's within the spec's ``rtol``/``atol`` and carry the
-reference's dtype names. A second test computes every function that the
+reference's dtype names. Each (spec, input) pair with a ``grad`` index
+holds the port's ``torch.autograd`` gradient of ``sum(out *
+cotangent)`` against the reference's ``backward()`` (1e-3 relative,
+1e-4 absolute). A further test computes every function that the
 reference's nine modules export and asserts that the port has it, under
 the same parameter names, in its module and at the top level, and that
 this file or ``test_torch_tensor_ops.py`` holds it.
@@ -25,6 +28,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from op_specs import SPECS
 from paddle_tpu_torch.framework.device import using_device
+from torch_functional_cases import port_grads, reference_grads
 from torch_tensor_cases import (
     PORT_ADAPTERS, TENSOR_MODULES as MODULES, _reaches_reference, covered,
     port_adapted, resolve, spec_inputs, tensor_specs,
@@ -46,6 +50,7 @@ TENSOR_NAMES = set().union(*REF_EXPORTS.values())
 
 SWEEP = tensor_specs(SPECS, TENSOR_NAMES)
 SWEPT = {SPECS[n]["path"].split(".")[-1] for n in SWEEP}
+GRAD_PAIRS = [(n, i) for n in SWEEP for i in SPECS[n]["grad"]]
 
 
 @pytest.fixture(autouse=True)
@@ -105,6 +110,24 @@ def test_op_matches_reference_and_numpy(name):
                                    atol=spec["atol"], err_msg=name)
         np.testing.assert_allclose(o, r, rtol=spec["rtol"],
                                    atol=spec["atol"], err_msg=name)
+
+
+@pytest.mark.parametrize("name,gi", GRAD_PAIRS,
+                         ids=[f"{n}-{i}" for n, i in GRAD_PAIRS])
+def test_op_gradient_matches_reference(name, gi):
+    spec = SPECS[name]
+    ref_fn = resolve(pt, spec["path"])
+    if spec["adapter"] is not None:
+        ref_fn = spec["adapter"](ref_fn)
+    port_fn = port_adapted(spec)
+    kwargs = dict(spec["kwargs"])
+    kwargs.pop("_sort_complex", None)
+    inputs = list(spec["inputs"])
+    (want,) = reference_grads(pt, lambda *xs: ref_fn(*xs, **kwargs), inputs,
+                              (gi,))
+    (got,) = port_grads(lambda *xs: port_fn(*xs, **kwargs), inputs, (gi,))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4,
+                               err_msg=f"{name} d/d input[{gi}]")
 
 
 def test_port_adapters_stay_clear_of_the_reference():

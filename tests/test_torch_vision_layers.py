@@ -236,10 +236,19 @@ def test_adaptive_pools(name, shape, out, layout):
 
 
 def test_return_mask_raises():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        TF.max_pool2d(torch.randn(1, 1, 4, 4), 2, return_mask=True)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tnn.MaxPool2D(2, return_mask=True)(torch.randn(1, 1, 4, 4))
+    """``return_mask`` is ported: the function and the layer give the
+    reference's pooled values and int32 indices; a channel-last layout
+    raises, as in the reference."""
+    x = _rng(9).randn(1, 2, 4, 6).astype(np.float32)
+    want = JF.max_pool2d(pt.to_tensor(x), 2, return_mask=True)
+    for got in (TF.max_pool2d(torch.from_numpy(x), 2, return_mask=True),
+                tnn.MaxPool2D(2, return_mask=True)(torch.from_numpy(x))):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w.numpy()))
+        assert got[1].dtype == torch.int32
+    with pytest.raises(ValueError, match="channel-first"):
+        TF.max_pool2d(torch.zeros(1, 4, 4, 1), 2, return_mask=True,
+                      data_format="NHWC")
 
 
 # -- batch norm ---------------------------------------------------------------
@@ -482,10 +491,22 @@ def test_cross_entropy_loss_layer():
     got = tnn.CrossEntropyLoss()(torch.from_numpy(logits),
                                  torch.from_numpy(labels)).numpy()
     _close(got, want, TOL, "loss")
-    for kw in (dict(soft_label=True), dict(label_smoothing=0.1),
-               dict(axis=1), dict(weight=torch.ones(10))):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tnn.CrossEntropyLoss(**kw)
+    soft = r.dirichlet(np.ones(10), 6).astype(np.float32)
+    w = r.uniform(0.5, 2, 10).astype(np.float32)
+    for kw, lab in ((dict(soft_label=True), soft),
+                    (dict(label_smoothing=0.1), labels),
+                    (dict(axis=0), labels.T.copy()),
+                    (dict(weight=w), labels)):
+        x = logits.T.copy() if kw.get("axis") == 0 else logits
+        jkw = {k: pt.to_tensor(v) if k == "weight" else v
+               for k, v in kw.items()}
+        tkw = {k: torch.from_numpy(v) if k == "weight" else v
+               for k, v in kw.items()}
+        want = jnn.CrossEntropyLoss(**jkw)(pt.to_tensor(x),
+                                           pt.to_tensor(lab)).numpy()
+        got = tnn.CrossEntropyLoss(**tkw)(torch.from_numpy(x),
+                                          torch.from_numpy(lab)).numpy()
+        _close(got, want, TOL, str(kw))
 
 
 def test_dropout_layer():
@@ -495,5 +516,5 @@ def test_dropout_layer():
     assert set(y.unique().tolist()) <= {0.0, 2.0}
     d.eval()
     assert torch.equal(d(x), x)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tnn.Dropout(0.5, axis=1)
+    rows = tnn.Dropout(0.5, axis=1)(torch.ones(8, 1000))
+    assert (rows == rows[:1]).all()
