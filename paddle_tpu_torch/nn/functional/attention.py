@@ -17,6 +17,14 @@ on a CUDA tensor, their plain versions on a CPU tensor. Routing:
   read ``[b, s, h, d]`` through strides, so the choice between them is
   the mask's layout alone, and the per-batch-row layout is what
   ``BertModel`` builds;
+- any other ``attn_mask`` that broadcasts to ``[b, h, sq, sk]`` by
+  numpy's right-aligned rule (``[sq, sk]``, ``[b, 1, sq, sk]``, ``[b, h,
+  sq, sk]``, ...; the Transformer decoder's causal ``[L, L]`` mask) goes
+  to the tile mode of the flash entry (kernels 1-3 reading the mask
+  through its strides, with dropout drawn by the same hash at the same
+  coordinates), as the reference's composite adds it
+  (``_sdpa_reference``, ``attention.py:37-45``); a mask that does not
+  broadcast raises ``ValueError``;
 - every other call (no mask, no dropout: the Llama path) goes to the
   flash entry (``ops/cuda/flash_attention.py``, kernels 1-3).
 
@@ -25,14 +33,17 @@ chunk of the sequence over the ``sep`` group (``ops/ring_attention.py``,
 ``ops/ulysses_attention.py``, both on kernels 1-3) and are
 :func:`scaled_dot_product_attention` at degree 1.
 
-A row-varying mask (``[.., sq, sk]``) has no TPU kernel; JAX sends it to
-its composite (``flash_attention.py:633-641``). The port has no
-composite: it raises ``NotImplementedError`` (ROADMAP queue A). There is
-no crossover to a composite on the card either: the TPU path's autotune
-table (``flash_attention.py:657-709``) measured the TPU, and on the card
-the kernel always runs.
+A mask is bool (keep: 0, else NEG_INF) or additive float, cast to fp32
+and clamped at NEG_INF so that a fully masked row cannot give inf - inf.
+A row-varying mask has no TPU kernel (JAX sends it to its composite,
+``flash_attention.py:633-641``); the port has no composite and runs the
+tile mode. There is no crossover to a composite on the card: the TPU
+path's autotune table (``flash_attention.py:657-709``) measured the TPU,
+and on the card the kernel always runs.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -49,28 +60,41 @@ __all__ = ["scaled_dot_product_attention", "flash_attention",
            "ulysses_attention"]
 
 
-def _key_padding_additive(mask, q_shape, k_shape):
-    """A ``[b, 1, 1, sk]`` key-padding mask as the additive fp32 ``[b, 1,
-    sk]`` rows the kernels take (the reference's ``_key_padding_additive``,
-    ``flash_attention.py:728``): bool means keep (0, else NEG_INF), a
-    float mask is cast to fp32 and clamped at NEG_INF, so a fully masked
-    row cannot give inf - inf. Any other shape or dtype raises
-    ``NotImplementedError``."""
-    b, sk = q_shape[0], k_shape[1]
-    if tuple(mask.shape) != (b, 1, 1, sk):
+def _additive(mask):
+    """A bool (keep) or float mask as additive fp32 clamped at NEG_INF;
+    any other dtype raises ``NotImplementedError``."""
+    if mask.dtype == torch.bool:
+        return torch.where(mask, 0.0, NEG_INF).to(torch.float32)
+    if not mask.is_floating_point():
         raise NotImplementedError(
-            f"attn_mask of shape {tuple(mask.shape)}: the port runs only "
-            f"[b, 1, 1, sk] = [{b}, 1, 1, {sk}] key-padding masks (the "
-            f"encoder slice's kernels); row-varying masks are not ported "
-            f"(ROADMAP queue A)")
-    m = mask.reshape(b, 1, sk)
-    if m.dtype == torch.bool:
-        return torch.where(m, 0.0, NEG_INF).to(torch.float32)
-    if not m.is_floating_point():
-        raise NotImplementedError(
-            f"attn_mask of dtype {m.dtype}: pass a bool (keep) or an "
+            f"attn_mask of dtype {mask.dtype}: pass a bool (keep) or an "
             f"additive float mask")
-    return torch.clamp(m.to(torch.float32), min=NEG_INF)
+    return torch.clamp(mask.to(torch.float32), min=NEG_INF)
+
+
+def _mask_operand(mask, q_shape, k_shape):
+    """``(key rows, tile mask)``, one of them None: a ``[b, 1, 1, sk]``
+    key-padding mask as the additive fp32 ``[b, 1, sk]`` rows that kernels
+    4-6 take (the reference's ``_key_padding_additive``,
+    ``flash_attention.py:728``); any other mask that broadcasts to ``[b, h,
+    sq, sk]`` as the tile mode's 4-D fp32 operand, its broadcast dims kept
+    at size 1 and its key dim full and contiguous. A mask that does not
+    broadcast raises ``ValueError``."""
+    b, sq, h, _ = q_shape
+    sk = k_shape[1]
+    target = (b, h, sq, sk)
+    shape = tuple(mask.shape)
+    if len(shape) > 4 or any(
+            n not in (1, t) for n, t in zip(shape[::-1], target[::-1])):
+        raise ValueError(
+            f"attn_mask of shape {list(shape)} does not broadcast to [b, "
+            f"num_heads, sq, sk] = {list(target)}")
+    if shape == (b, 1, 1, sk):
+        return _additive(mask.reshape(b, 1, sk)), None
+    m = _additive(mask.reshape((1,) * (4 - len(shape)) + shape))
+    if m.shape[3] != sk or m.stride(3) != 1:
+        m = m.expand(*m.shape[:3], sk).contiguous()
+    return None, m
 
 
 def _dropout_coords(query):
@@ -99,23 +123,39 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
     """Softmax attention with scale ``1/sqrt(head_dim)``; ``is_causal``
-    masks bottom-right aligned; ``attn_mask`` is a ``[b, 1, 1, sk]``
-    key-padding mask (bool keep, or additive float); ``dropout_p`` drops
-    attention probabilities while ``training`` (outside training it is
-    0, as in the reference). A white op under ``auto_cast``."""
+    masks bottom-right aligned; ``attn_mask`` (bool keep, or additive
+    float) broadcasts to ``[b, num_heads, sq, sk]``: a ``[b, 1, 1, sk]``
+    key-padding mask runs kernels 4-6, any other the tile mode of kernels
+    1-3; ``dropout_p`` drops attention probabilities while ``training``
+    (outside training it is 0, as in the reference). A white op under
+    ``auto_cast``."""
     query, key, value = cast_inputs("scaled_dot_product_attention", query,
                                     key, value)
     p = float(dropout_p) if training else 0.0
-    kadd = None
+    kadd = tile = None
     if attn_mask is not None:
-        kadd = _key_padding_additive(attn_mask, query.shape, key.shape)
-    if kadd is None and p == 0.0:
-        return flash_kernel(query, key, value, causal=is_causal)
+        kadd, tile = _mask_operand(attn_mask, query.shape, key.shape)
     seed = coords = None
     if p > 0.0:
         seed, coords = random.next_seed_words(), _dropout_coords(query)
-    return hb_flash(query, key, value, seed=seed, kmask=kadd,
-                    causal=is_causal, dropout=p, coords=coords)
+    # the kernels read head_dim in 16-byte vectors: a head_dim that is not
+    # a multiple of 8 is padded with zeros (the products are unchanged)
+    # and the output cut back, at the original scale
+    d = query.shape[-1]
+    scale, pad = 1.0 / math.sqrt(d), -d % 8
+    if pad:
+        query, key, value = (torch.nn.functional.pad(t, (0, pad))
+                             for t in (query, key, value))
+    if tile is not None:
+        out = flash_kernel(query, key, value, causal=is_causal, scale=scale,
+                           tmask=tile, seed=seed, dropout=p, coords=coords)
+    elif kadd is None and p == 0.0:
+        out = flash_kernel(query, key, value, causal=is_causal, scale=scale)
+    else:
+        out = hb_flash(query, key, value, seed=seed, kmask=kadd,
+                       causal=is_causal, scale=scale, dropout=p,
+                       coords=coords)
+    return out[..., :d] if pad else out
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

@@ -14,9 +14,11 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Initializer", "Constant", "Normal", "Uniform", "XavierUniform",
-           "XavierNormal", "KaimingUniform", "KaimingNormal", "Assign",
-           "calculate_gain"]
+__all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
+           "XavierUniform", "XavierNormal", "KaimingUniform",
+           "KaimingNormal", "Assign", "Orthogonal", "Dirac", "Bilinear",
+           "calculate_gain", "set_global_initializer", "constant", "normal",
+           "uniform"]
 
 
 def calculate_gain(nonlinearity, param=None):
@@ -84,6 +86,19 @@ class Normal(Initializer):
     def _values(self, tensor, generator):
         return self._draw(tensor).normal_(self.mean, self.std,
                                           generator=generator)
+
+
+class TruncatedNormal(Initializer):
+    """A normal draw truncated to ``[a, b]`` standard deviations, then
+    scaled by ``std`` and shifted by ``mean`` (``initializer.py:79``)."""
+
+    def __init__(self, mean=0.0, std=1.0, a=-2.0, b=2.0):
+        self.mean, self.std, self.a, self.b = mean, std, a, b
+
+    def _values(self, tensor, generator):
+        t = torch.nn.init.trunc_normal_(self._draw(tensor), 0.0, 1.0,
+                                        self.a, self.b, generator=generator)
+        return t * self.std + self.mean
 
 
 class Uniform(Initializer):
@@ -158,3 +173,86 @@ class Assign(Initializer):
         if not isinstance(v, torch.Tensor):
             v = torch.from_numpy(np.array(v))
         return v.reshape(tensor.shape)
+
+
+class Orthogonal(Initializer):
+    """A (semi-)orthogonal matrix over the first dim and the rest,
+    times ``gain``: the Q of a normal draw's QR, its columns' signs made
+    those of R's diagonal (``initializer.py:170``)."""
+
+    def __init__(self, gain=1.0):
+        self.gain = gain
+
+    def _values(self, tensor, generator):
+        rows = tensor.shape[0]
+        cols = math.prod(tensor.shape[1:])
+        flat = torch.empty((max(rows, cols), min(rows, cols)),
+                           dtype=torch.float32, device=tensor.device)
+        flat.normal_(generator=generator)
+        q, r = torch.linalg.qr(flat)
+        q = q * torch.sign(torch.diagonal(r))
+        if rows < cols:
+            q = q.T
+        return (self.gain * q[:rows, :cols]).reshape(tensor.shape)
+
+
+class Dirac(Initializer):
+    """The identity of a convolution ``[out, in, *k]``: 1 at the kernel's
+    centre for channel pair (``g * out / groups + i``, ``i``)
+    (``initializer.py:187``)."""
+
+    def __init__(self, groups=1):
+        self.groups = groups
+
+    def _values(self, tensor, generator):
+        out_c, in_c = tensor.shape[0], tensor.shape[1]
+        w = np.zeros(tuple(tensor.shape), np.float32)
+        center = tuple(k // 2 for k in tensor.shape[2:])
+        per_group = out_c // self.groups
+        for g in range(self.groups):
+            for i in range(min(per_group, in_c)):
+                w[(g * per_group + i, i) + center] = 1.0
+        return torch.from_numpy(w)
+
+
+class Bilinear(Initializer):
+    """The bilinear upsampling stencil of a square ``[out, in, K, K]``
+    transposed-convolution weight, on every channel pair
+    (``initializer.py:220``)."""
+
+    def _values(self, tensor, generator):
+        shape = tuple(tensor.shape)
+        if len(shape) != 4:
+            raise ValueError(
+                f"Bilinear initializer expects a 4-D conv weight, got "
+                f"shape {list(shape)}")
+        if shape[2] != shape[3]:
+            raise ValueError(
+                "Bilinear initializer requires a square kernel "
+                f"(got {shape[2]}x{shape[3]})")
+        k = shape[2]
+        f = (k + 1) // 2
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        og = np.ogrid[:k, :k]
+        filt = (1 - abs(og[0] / f - c)) * (1 - abs(og[1] / f - c))
+        return torch.from_numpy(
+            np.broadcast_to(filt, shape).astype(np.float32))
+
+
+# the reference's lower-case aliases
+constant = Constant
+normal = Normal
+uniform = Uniform
+
+# the global weight and bias initializers (set_global_initializer)
+_GLOBAL = [None, None]
+
+
+def set_global_initializer(weight_init, bias_init=None):
+    """Initializers for the parameters that ``create_parameter`` makes
+    without an explicit or default initializer: ``weight_init`` for
+    weights, ``bias_init`` for biases (None: each keeps its own);
+    ``set_global_initializer(None)`` clears both (``initializer.py:210``,
+    read at ``layers.py:93-94``)."""
+    _GLOBAL[0] = weight_init
+    _GLOBAL[1] = bias_init

@@ -1,24 +1,20 @@
 """Layers (counterpart of ``paddle_tpu/nn/layer``)."""
-from .activation import LeakyReLU, ReLU, ReLU6, Sigmoid  # noqa: F401
-from .common import Dropout, Flatten, Linear  # noqa: F401
-from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
+from . import (activation, common, conv, layers, loss, norm, pooling, rnn,
+               transformer)
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
 from .layers import (  # noqa: F401
-    Identity, Layer, LayerList, ParamAttr, Sequential,
+    HookRemoveHelper, Identity, Layer, LayerDict, LayerList, ParameterList,
+    ParamAttr, Sequential,
 )
-from .loss import CrossEntropyLoss  # noqa: F401
-from .norm import (  # noqa: F401
-    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-)
-from .pooling import (  # noqa: F401
-    AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
-    AdaptiveMaxPool2D, AvgPool1D, AvgPool2D, AvgPool3D, MaxPool1D,
-    MaxPool2D, MaxPool3D,
-)
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403
 
-__all__ = ["Layer", "Sequential", "LayerList", "Identity", "ParamAttr",
-           "Linear", "Flatten", "Dropout", "ReLU", "ReLU6", "Sigmoid",
-           "LeakyReLU", "Conv1D", "Conv2D", "Conv3D", "BatchNorm",
-           "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "MaxPool1D",
-           "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
-           "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
-           "AdaptiveMaxPool2D", "CrossEntropyLoss"]
+__all__ = ["Layer", "Sequential", "LayerList", "ParameterList", "LayerDict",
+           "Identity", "ParamAttr", *activation.__all__, *common.__all__,
+           *conv.__all__, *loss.__all__, *norm.__all__, *pooling.__all__,
+           *rnn.__all__, *transformer.__all__]

@@ -1,10 +1,17 @@
-"""``CrossEntropyLoss`` (counterpart of ``paddle_tpu/nn/layer/loss.py``)."""
+"""Loss layers (counterpart of ``paddle_tpu/nn/layer/loss.py``): each
+holds its settings and passes every one of them to its ``nn.functional``
+form."""
 from __future__ import annotations
 
 from .. import functional as F
 from .layers import Layer
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss",
+           "MarginRankingLoss", "HingeEmbeddingLoss", "CosineEmbeddingLoss",
+           "TripletMarginLoss", "MultiLabelSoftMarginLoss", "SoftMarginLoss",
+           "CTCLoss", "PoissonNLLLoss", "GaussianNLLLoss", "MultiMarginLoss",
+           "TripletMarginWithDistanceLoss", "RNNTLoss", "HSigmoidLoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -31,3 +38,246 @@ class CrossEntropyLoss(Layer):
             soft_label=self._soft_label, axis=self._axis,
             use_softmax=self._use_softmax,
             label_smoothing=self._label_smoothing)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.l1_loss(input, label, self.reduction)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self._weight = weight
+        self._ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.nll_loss(input, label, self._weight, self._ignore_index,
+                          self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self._weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.binary_cross_entropy(input, label, self._weight,
+                                      self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self._weight = weight
+        self._pos_weight = pos_weight
+        self.reduction = reduction
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self._weight, self.reduction, self._pos_weight)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):  # noqa: A002
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction = reduction
+        self.log_target = log_target
+
+    def forward(self, input, label):  # noqa: A002
+        return F.kl_div(input, label, self.reduction, self.log_target)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):  # noqa: A002
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.args = (margin, p, epsilon, swap, reduction)
+
+    def forward(self, input, positive, negative):  # noqa: A002
+        return F.triplet_margin_loss(input, positive, negative, *self.args)
+
+
+class MultiLabelSoftMarginLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self._weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.multi_label_soft_margin_loss(input, label, self._weight,
+                                              self.reduction)
+
+
+class SoftMarginLoss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.soft_margin_loss(input, label, self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)
+
+
+class PoissonNLLLoss(Layer):
+    def __init__(self, log_input=True, full=False, epsilon=1e-8,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.log_input = log_input
+        self.full = full
+        self.epsilon = epsilon
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.poisson_nll_loss(input, label, self.log_input, self.full,
+                                  self.epsilon, self.reduction)
+
+
+class GaussianNLLLoss(Layer):
+    def __init__(self, full=False, epsilon=1e-6, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.full = full
+        self.epsilon = epsilon
+        self.reduction = reduction
+
+    def forward(self, input, label, variance):  # noqa: A002
+        return F.gaussian_nll_loss(input, label, variance, self.full,
+                                   self.epsilon, self.reduction)
+
+
+class MultiMarginLoss(Layer):
+    def __init__(self, p=1, margin=1.0, weight=None, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.p = p
+        self.margin = margin
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.multi_margin_loss(input, label, self.p, self.margin,
+                                   self.weight, self.reduction)
+
+
+class TripletMarginWithDistanceLoss(Layer):
+    def __init__(self, distance_function=None, margin=1.0, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.distance_function = distance_function
+        self.margin = margin
+        self.swap = swap
+        self.reduction = reduction
+
+    def forward(self, input, positive, negative):  # noqa: A002
+        return F.triplet_margin_with_distance_loss(
+            input, positive, negative, self.distance_function, self.margin,
+            self.swap, self.reduction)
+
+
+class RNNTLoss(Layer):
+    def __init__(self, blank=0, fastemit_lambda=0.001, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.blank = blank
+        self.fastemit_lambda = fastemit_lambda
+        self.reduction = reduction
+
+    def forward(self, input, label, input_lengths,  # noqa: A002
+                label_lengths):
+        return F.rnnt_loss(input, label, input_lengths, label_lengths,
+                           self.blank, self.fastemit_lambda, self.reduction)
+
+
+class HSigmoidLoss(Layer):
+    """``F.hsigmoid_loss`` with a ``[num_classes - 1, feature_size]``
+    weight (``XavierNormal``) and a zero bias."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None, *, device=None, generator=None):
+        super().__init__()
+        self.num_classes = num_classes
+        n_nodes = num_classes - 1
+        self.weight = self.create_parameter([n_nodes, feature_size],
+                                            attr=weight_attr, device=device,
+                                            generator=generator)
+        self.bias = self.create_parameter([n_nodes], attr=bias_attr,
+                                          is_bias=True, device=device,
+                                          generator=generator)
+
+    def forward(self, input, label, path_table=None,  # noqa: A002
+                path_code=None):
+        return F.hsigmoid_loss(input, label, self.num_classes, self.weight,
+                               self.bias, path_table, path_code)

@@ -39,6 +39,20 @@
 //     The bits are a pure function of those coordinates, so every kernel
 //     and every tile shape regenerates the same mask, bit for bit with
 //     the TPU kernels and the plain versions.
+//   - TM, the tile mode (pt_flash_tile_* entries): an fp32 mask that
+//     broadcasts to [b, h, sq, sk], read through its batch, head and
+//     query-row strides (0 over a broadcast dim; Geom::km_q), is added to
+//     each score before the causal mask, as the reference's composite
+//     adds it (no TPU kernel takes such a mask). Each thread reads its
+//     scores' values from device memory; every key (query) tile is
+//     visited, none skipped. A row whose lse is at or below -0.5e30 is
+//     fully masked: its scores are all the reference's -1e30, whose
+//     softmax is uniform, so the backward takes p = 1 / SK on every key
+//     (lse cannot carry log(SK) at -1e30) and ds = 0 where the causal
+//     mask hides the key. dK/dV writes ds / scale per element into dm
+//     ([B * H, SQ, SK]) when dm is given. bf16 at d <= 128 runs the
+//     wgmma forward and dQ and the mma.sync dK/dV (at d 64 too); fp32
+//     and d > 128 the FMA kernels; no float16, no window.
 //
 // Layout. q is read as [b, sq, h, d] and k/v as [b, sk, h_kv, d] through
 // their (batch, seq, head) strides with a unit last stride, so the
@@ -176,6 +190,11 @@ struct Geom {
   float* dm;        // its gradient, one row per query head at
                     // dm + (b * H + h) * SK
   long long km_b, km_h;
+  // the tile mode (TM): the mask's query-row stride, so that score (r, c)
+  // of (b, h) adds km[b * km_b + h * km_h + r * km_q + c] (a stride is 0
+  // over a broadcast dim); dm (or null) then takes ds / scale per
+  // element, [B * H, SQ, SK]
+  long long km_q;
   uint32_t seed0, seed1, thresh;  // dropout: seed words, keep threshold
   // the hash's global coordinates: the global query-head count and this
   // launch's first batch row and first head in the global batch and heads
@@ -274,6 +293,26 @@ __device__ __forceinline__ const float* km_row(const Geom& g, int b, int h) {
   return g.km + b * g.km_b + h * g.km_h;
 }
 
+// The tile mode's mask value of query row r (0 past SQ) and key c < SK
+// in the (b, h) slice kmt = km_row(g, b, h).
+__device__ __forceinline__ float tile_mask(const Geom& g, const float* kmt,
+                                           int r, int c) {
+  return r < g.SQ ? kmt[(long long)r * g.km_q + c] : 0.f;
+}
+
+// Whether query row r sees any key (bottom-right causal; the tile mode
+// takes no window).
+__device__ __forceinline__ bool row_sees(const Geom& g, int r) {
+  return !g.causal || r + g.SK - g.SQ >= 0;
+}
+
+// The tile mode's p of every key of a fully masked row (lse <= -0.5e30:
+// each score is the reference's -1e30, so its softmax is uniform over the
+// SK keys), and 0 for a row that sees no key or lies past SQ.
+__device__ __forceinline__ float full_row_p(const Geom& g, int r) {
+  return r < g.SQ && row_sees(g, r) ? 1.f / g.SK : 0.f;
+}
+
 // Copy rows [row0, row0 + R) of one (batch, head) slice into a shared
 // [R, LD] tile in 16-byte vectors; rows at or past `rows` become zeros.
 template <typename T, int R, int LD>
@@ -353,8 +392,13 @@ __device__ __forceinline__ void query_tiles(const Geom& g, int c0, int* qt0,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: O and lse. grid = (ceil(SQ / BQ), B * H).
-template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
+// Forward: O and lse. grid = (ceil(SQ / BQ), B * H). TM: the tile
+// mode's mask is added to each visible score, every key tile is visited
+// (a fully masked row averages V over all SK keys, as the reference's
+// softmax of equal -1e30 scores does) and a row outputs 0 only when it
+// sees no key.
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP,
+          bool TM = false>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -376,7 +420,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d = g.d;
   const T* kg = k + b * sk_.b + hk * sk_.h;
   const T* vg = v + b * sv_.b + hk * sv_.h;
-  const float* kmr = KM ? km_row(g, b, h) : nullptr;
+  const float* kmr = KM || TM ? km_row(g, b, h) : nullptr;
   const uint32_t salt = DROP ? head_salt(g, bh) : 0u;
   load_tile<T, BQ, LD>(sQ, q + b * sq_.b + h * sq_.h, sq_.s, r0, g.SQ, d);
 
@@ -390,6 +434,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   int kt0, kt1;
   key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
+  if (TM) kt0 = 0, kt1 = (g.SK + BK - 1) / BK;
   for (int kt = kt0; kt < kt1; ++kt) {
     const int c0 = kt * BK;
     __syncthreads();  // the previous tile is done with sKV and sP
@@ -424,6 +469,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float x = s[i][j];
         if (c >= g.SK) {
           x = -INFINITY;
+        } else if (TM) {
+          x = visible(g, r, c) ? x + tile_mask(g, kmr, r, c) : kNegInf;
         } else {
           if (!visible(g, r, c)) x = kNegInf;
           if (KM) x += kmr[c];
@@ -469,7 +516,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = r0 + ty + 16 * i;
     if (r >= g.SQ) continue;
     // m stays at -1e30 iff the row saw no key: it outputs exactly 0
-    const bool valid = m[i] > 0.5f * kNegInf;
+    const bool valid = TM ? row_sees(g, r) : m[i] > 0.5f * kNegInf;
     const float l_safe = fmaxf(l[i], 1e-30f);
     T* orow = o + b * so_.b + (long long)r * so_.s + h * so_.h;
 #pragma unroll
@@ -484,8 +531,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Scores and dO.V^T of one (query tile, key tile) pair, turned into p
 // and ds = p * (dp - delta) * scale for the thread's micro-tile (query
 // rows ty + 16 i, keys tx + 16 j). With DROP, dp is masked and scaled
-// before ds, and p comes back dropped (the operand of dV).
-template <typename T, int LD, int RM, int CN, bool KM, bool DROP>
+// before ds, and p comes back dropped (the operand of dV). TM: kmr is the
+// (b, h) slice of the tile mode's mask; a fully masked row takes
+// full_row_p, and ds is 0 where the row does not see the key.
+template <typename T, int LD, int RM, int CN, bool KM, bool DROP,
+          bool TM = false>
 __device__ __forceinline__ void probs_and_ds(
     const Geom& g, const T* sQ, const T* sdO, const T* sK, const T* sV,
     int r0, int c0, const float* lse_r, const float* delta_r, int tx, int ty,
@@ -528,7 +578,14 @@ __device__ __forceinline__ void probs_and_ds(
       const bool live = row_ok && c < g.SK && visible(g, r, c);
       float x = g.scale * s[i][j];
       if (KM && live) x += kmr[c];
-      const float pv = live ? expf(x - lse_r[i]) : 0.f;
+      float pv = live ? expf(x - lse_r[i]) : 0.f;
+      bool seen = true;  // TM: whether the row sees the key
+      if (TM) {
+        seen = r < g.SQ && c < g.SK && visible(g, r, c);
+        pv = !row_ok ? (c < g.SK ? full_row_p(g, r) : 0.f)
+             : seen  ? expf(x + tile_mask(g, kmr, r, c) - lse_r[i])
+                     : 0.f;
+      }
       float dpv = dp[i][j], pd = pv;
       if (DROP) {
         const float dmk = keep(g, salt, r, c) ? g.dscale : 0.f;
@@ -536,14 +593,15 @@ __device__ __forceinline__ void probs_and_ds(
         pd = pv * dmk;
       }
       p[i][j] = pd;
-      ds[i][j] = pv * (dpv - delta_r[i]) * g.scale;
+      ds[i][j] = seen ? pv * (dpv - delta_r[i]) * g.scale : 0.f;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dQ. grid = (ceil(SQ / BQ), B * H).
-template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
+// dQ. grid = (ceil(SQ / BQ), B * H). TM: every key tile.
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP,
+          bool TM = false>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -569,7 +627,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d = g.d;
   const T* kg = k + b * sk_.b + hk * sk_.h;
   const T* vg = v + b * sv_.b + hk * sv_.h;
-  const float* kmr = KM ? km_row(g, b, h) : nullptr;
+  const float* kmr = KM || TM ? km_row(g, b, h) : nullptr;
   const uint32_t salt = DROP ? head_salt(g, bh) : 0u;
   load_tile<T, BQ, LD>(sQ, q + b * sq_.b + h * sq_.h, sq_.s, r0, g.SQ, d);
   load_tile<T, BQ, LD>(sdO, dout + b * sdo_.b + h * sdo_.h, sdo_.s, r0,
@@ -585,6 +643,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   int kt0, kt1;
   key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
+  if (TM) kt0 = 0, kt1 = (g.SK + BK - 1) / BK;
   for (int kt = kt0; kt < kt1; ++kt) {
     const int c0 = kt * BK;
     __syncthreads();  // the previous tile is done with sK, sV and sDS
@@ -592,8 +651,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, BK, LD>(sV, vg, sv_.s, c0, g.SK, d);
     __syncthreads();
     float p[RM][CN], ds[RM][CN];
-    probs_and_ds<T, LD, RM, CN, KM, DROP>(g, sQ, sdO, sK, sV, r0, c0, lse_r,
-                                          delta_r, tx, ty, kmr, salt, p, ds);
+    probs_and_ds<T, LD, RM, CN, KM, DROP, TM>(g, sQ, sdO, sK, sV, r0, c0,
+                                              lse_r, delta_r, tx, ty, kmr,
+                                              salt, p, ds);
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -631,8 +691,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dK and dV. grid = (ceil(SK / BK), B * HKV). The block sums over the
 // h / h_kv query heads of its kv head and their live query tiles. With
 // KM it also writes dmask = sum_rows ds / scale for its keys, one row
-// per query head at dm + (b * H + h) * SK.
-template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
+// per query head at dm + (b * H + h) * SK. TM: every query tile, and
+// ds / scale per element into dm when it is given.
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP,
+          bool TM = false>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -664,6 +726,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dm_acc = 0.f;
   int qt0, qt1;
   query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
+  if (TM) qt0 = 0, qt1 = (g.SQ + BQ - 1) / BQ;
   {
     load_tile<T, BK, LD>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK, d);
     load_tile<T, BK, LD>(sV, v + b * sv_.b + hk * sv_.h, sv_.s, c0, g.SK, d);
@@ -677,7 +740,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const long long bh = (long long)b * g.H + h;
       const T* qg = q + b * sq_.b + h * sq_.h;
       const T* dog = dout + b * sdo_.b + h * sdo_.h;
-      const float* kmr = KM ? km_row(g, b, h) : nullptr;
+      const float* kmr = KM || TM ? km_row(g, b, h) : nullptr;
       const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
       for (int qt = qt0; qt < qt1; ++qt) {
         const int r0 = qt * BQ;
@@ -693,15 +756,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           delta_r[i] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
         }
         float p[RM][CN], ds[RM][CN];
-        probs_and_ds<T, LD, RM, CN, KM, DROP>(g, sQ, sdO, sK, sV, r0, c0,
-                                              lse_r, delta_r, tx, ty, kmr,
-                                              salt, p, ds);
+        probs_and_ds<T, LD, RM, CN, KM, DROP, TM>(g, sQ, sdO, sK, sV, r0,
+                                                  c0, lse_r, delta_r, tx, ty,
+                                                  kmr, salt, p, ds);
 #pragma unroll
         for (int i = 0; i < RM; ++i)
 #pragma unroll
           for (int j = 0; j < CN; ++j) {
             sP[(ty + 16 * i) * LDP + tx + 16 * j] = p[i][j];
             sDS[(ty + 16 * i) * LDP + tx + 16 * j] = ds[i][j];
+            const int r = r0 + ty + 16 * i, c = c0 + tx + 16 * j;
+            if (TM && g.dm && r < g.SQ && c < g.SK)
+              g.dm[(bh * g.SQ + r) * g.SK + c] = ds[i][j] / g.scale;
           }
         __syncthreads();
         if (KM && threadIdx.x < BK)
@@ -852,8 +918,10 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ g,
 // (e & 1)); lse and delta are looked up per query through `stat`. With
 // KM the key row kmr is added to the scaled scores; with DROP, dp is
 // masked and scaled before ds and s becomes the dropped p (the operand of
-// dV).
-template <int NT, bool KM, bool DROP, typename Stat>
+// dV). TM: kmr is the (b, h) slice of the tile mode's mask; a fully
+// masked query row takes full_row_p, and ds is 0 where the query row does
+// not see the key.
+template <int NT, bool KM, bool DROP, bool TM, typename Stat>
 __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
                                          float (&dp)[NT][4], int row0,
                                          int col0, int gq, int tq,
@@ -867,11 +935,14 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
       const int qr = col0 + 8 * j + 2 * tq + (e & 1);
       float lse_q, delta_q;
       stat(8 * j + 2 * tq + (e & 1), &lse_q, &delta_q);
-      const bool live = lse_q > 0.5f * kNegInf && kc < g.SK && qr < g.SQ &&
-                        visible(g, qr, kc);
+      const bool row_ok = lse_q > 0.5f * kNegInf;
+      const bool seen = kc < g.SK && qr < g.SQ && visible(g, qr, kc);
+      const bool live = row_ok && seen;
       float x = g.scale * s[j][e];
       if (KM && live) x += kmr[kc];
-      const float p = live ? expf(x - lse_q) : 0.f;
+      if (TM && live) x += tile_mask(g, kmr, qr, kc);
+      float p = live ? expf(x - lse_q) : 0.f;
+      if (TM && !row_ok) p = kc < g.SK ? full_row_p(g, qr) : 0.f;
       float dpv = dp[j][e], pd = p;
       if (DROP) {  // dp masked and scaled before ds; dV takes the dropped p
         const float dmk = keep(g, salt, qr, kc) ? g.dscale : 0.f;
@@ -879,7 +950,7 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
         pd = p * dmk;
       }
       s[j][e] = pd;
-      dp[j][e] = p * (dpv - delta_q) * g.scale;
+      dp[j][e] = !TM || seen ? p * (dpv - delta_q) * g.scale : 0.f;
     }
 }
 
@@ -888,8 +959,10 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
 // thread sums ds over the query columns of its two keys in registers;
 // the four lanes of a key row are reduced by shuffles when the query
 // head's dmask row is written, and a query head whose work on the tile
-// is exactly zero (padded_tile) is skipped.
-template <int DMAX, bool KM, bool DROP>
+// is exactly zero (padded_tile) is skipped. TM (the tile mode, at d <= 64
+// too): every query tile, and ds / scale per element into dm when it is
+// given.
+template <int DMAX, bool KM, bool DROP, bool TM = false>
 __global__ void __launch_bounds__(kThreadsTc)
 flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -927,6 +1000,7 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   int qt0, qt1;
   query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
+  if (TM) qt0 = 0, qt1 = (g.SQ + BQ - 1) / BQ;
   {
     load_tile<BK, LD, DMAX>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK,
                             g.d);
@@ -942,7 +1016,7 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const long long bh = (long long)b * g.H + h;
       const bf16* qg = q + b * sq_.b + h * sq_.h;
       const bf16* dog = dout + b * sdo_.b + h * sdo_.h;
-      const float* kmr = KM ? km_row(g, b, h) : nullptr;
+      const float* kmr = KM || TM ? km_row(g, b, h) : nullptr;
       const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
       const bool skip = KM && padded_tile<BK>(g, kmr, c0);
       for (int qt = skip ? qt1 : qt0; qt < qt1; ++qt) {
@@ -976,11 +1050,22 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             mma(dp[j], av, b0, b1);
           }
         }
-        probs_ds<NT, KM, DROP>(g, s, dp, c0 + wk, r0, gq, tq, kmr, salt,
-                               [&](int i, float* ls, float* dl) {
-                                 *ls = sLse[i];
-                                 *dl = sDelta[i];
-                               });
+        probs_ds<NT, KM, DROP, TM>(g, s, dp, c0 + wk, r0, gq, tq, kmr, salt,
+                                   [&](int i, float* ls, float* dl) {
+                                     *ls = sLse[i];
+                                     *dl = sDelta[i];
+                                   });
+        if (TM && g.dm) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kc = c0 + wk + gq + (e >> 1) * 8;
+              const int qr = r0 + 8 * j + 2 * tq + (e & 1);
+              if (kc < g.SK && qr < g.SQ)
+                g.dm[(bh * g.SQ + qr) * g.SK + kc] = dp[j][e] / g.scale;
+            }
+        }
         if (KM) {
 #pragma unroll
           for (int j = 0; j < NT; ++j)
@@ -1197,9 +1282,15 @@ struct FwdCfg {
 // per row and its column terms once per tile. The variants run a producer
 // warpgroup that gives its registers to the consumers (kThreadsWs
 // threads: the key-row values and the hash terms beside the score tile
-// spill at 168 a thread).
-template <int DMAX, bool KM, bool DROP, typename T = bf16>
-__global__ void __launch_bounds__(KM || DROP ? kThreadsWs : kThreadsWg, 1)
+// spill at 168 a thread). TM (the tile mode): every key tile is loaded
+// and each score of the tile adds the mask's value at (row, key), read
+// from device memory by the thread that holds it; a key the row does not
+// see scores -1e30 in the same log2 units as a masked one, so that a
+// fully masked row averages V over all SK keys as the reference does, and
+// a row outputs 0 only when it sees no key.
+template <int DMAX, bool KM, bool DROP, typename T = bf16, bool TM = false>
+__global__ void __launch_bounds__(KM || DROP || TM ? kThreadsWs : kThreadsWg,
+                                  1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
@@ -1221,6 +1312,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = ((g.SQ + BQ - 1) / BQ - 1 - blockIdx.x / bhs) * BQ;
   int kt0, kt1;
   key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
+  if (TM) kt0 = 0, kt1 = (g.SK + BK - 1) / BK;
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < ST; ++s) {
@@ -1244,7 +1336,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   };
 
   if (threadIdx.x >= kConsumers) {  // the producer warp(group)
-    if constexpr (KM || DROP) regs_dec<kRegsProducer>();
+    if constexpr (KM || DROP || TM) regs_dec<kRegsProducer>();
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(full_q, C::Q_BYTES);
       load_tile<BQ, DMAX>(sQ, &tm_q, full_q, h, r0, b);
@@ -1267,7 +1359,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   // consumers: warpgroup wq owns tile rows 64 wq .. 64 wq + 63; this
   // thread rows rw and rw + 8 of them
-  if constexpr (KM || DROP) regs_inc<kRegsConsumer>();
+  if constexpr (KM || DROP || TM) regs_inc<kRegsConsumer>();
+  const float* kmt = TM ? km_row(g, b, h) : nullptr;  // TM: (b, h)'s mask
+  const float neg2 = kNegInf * kLog2e;  // TM: -1e30 in log2 units
   const int wq = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const int rw = 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
@@ -1289,7 +1383,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   float acc[DMAX / 2];
 #pragma unroll
   for (int j = 0; j < DMAX / 2; ++j) acc[j] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // TM: from -inf, since a masked score (-1e30 in log2 units) lies below
+  // -1e30
+  const float m0 = TM ? -INFINITY : kNegInf;
+  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   mbar_wait(full_q, 0);
   // the key tiles from the last to the first; KM: as the producer announces
   for (int i = 0, kt = kt1 - 1; KM || kt >= kt0; --kt, ++i) {
@@ -1319,10 +1416,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // a mask is needed where the tile crosses the causal diagonal, the
     // window's lower edge or the last key
     const bool masked =
-        c0 + BK > g.SK ||
+        TM || c0 + BK > g.SK ||
         (g.causal && (c0 + BK - 1 > r0 + offset ||
                       (g.window > 0 && c0 <= rmax + offset - g.window)));
-    float mx[2] = {kNegInf, kNegInf};
+    float mx[2] = {m0, m0};
     if (masked) {
       // keys past SK weigh exactly 0; keys the row does not see get the
       // reference's finite -1e30
@@ -1331,10 +1428,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
-          float x = KM ? fmaf(sc[4 * j + e], sl2,
-                              skm[8 * j + (e & 1)] * kLog2e)
-                       : sc[4 * j + e] * sl2;
-          x = c < lo[r] || c >= hi[r] ? kNegInf : x;
+          float x;
+          if constexpr (TM) {
+            x = c < lo[r] || c >= hi[r] || c >= g.SK
+                    ? neg2
+                    : fmaf(sc[4 * j + e], sl2,
+                           tile_mask(g, kmt, r0 + rw + 8 * r, c) * kLog2e);
+          } else {
+            x = KM ? fmaf(sc[4 * j + e], sl2, skm[8 * j + (e & 1)] * kLog2e)
+                   : sc[4 * j + e] * sl2;
+            x = c < lo[r] || c >= hi[r] ? kNegInf : x;
+          }
           x = c >= g.SK ? -INFINITY : x;
           sc[4 * j + e] = x;
           mx[r] = fmaxf(mx[r], x);
@@ -1411,7 +1515,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int row = r0 + rw + 8 * r;
     if (row >= g.SQ) continue;
     // m stays at -1e30 iff the row saw no key: it outputs exactly 0
-    const bool valid = m[r] > 0.5f * kNegInf;
+    const bool valid = TM ? row_sees(g, row) : m[r] > 0.5f * kNegInf;
     const float l_safe = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / l_safe;
     T* orow = o + b * so_.b + (long long)row * so_.s + h * so_.h;
@@ -1773,8 +1877,12 @@ struct DqCfg {
 // their p, and so their ds, is exactly 0. DROP: dp is masked by the
 // counter hash and scaled by dscale before ds (p itself is not dropped in
 // dQ). At d 128 with a key row and FUSED, delta is summed before the key
-// loop (see kEarly).
-template <int DMAX, bool FUSED, bool KM, bool DROP, typename T = bf16>
+// loop (see kEarly). TM (the tile mode, not FUSED): every key tile, each
+// score adds the mask's value at (row, key) read from device memory, a
+// fully masked row (lse <= -0.5e30) takes full_row_p, and ds is 0 where
+// the row does not see the key.
+template <int DMAX, bool FUSED, bool KM, bool DROP, typename T = bf16,
+          bool TM = false>
 __global__ void __launch_bounds__(kThreadsWs, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -1801,6 +1909,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = (nqt - 1 - qi) * BQ;
   int kt0, kt1;
   key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
+  if (TM) kt0 = 0, kt1 = (g.SK + BK - 1) / BK;
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < ST; ++s) {
@@ -1861,6 +1970,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     int lo[2], hi[2];
     float lse2[2], dl[2];
     uint32_t hrow[2];  // DROP: the hash's row terms, salt included
+    bool full[2];      // TM: the row is fully masked (or past SQ)
+    const float* kmt = TM ? km_row(g, b, h) : nullptr;  // TM: (b, h)'s mask
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + rw + 8 * r, diag = row + offset;
@@ -1868,6 +1979,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       hi[r] = g.causal ? diag + 1 : INT_MAX;
       const float l = row < g.SQ ? lse[rows + row] : kNegInf;
       lse2[r] = l > 0.5f * kNegInf ? l * kLog2e : INFINITY;
+      full[r] = !(l > 0.5f * kNegInf);
       dl[r] = !FUSED && row < g.SQ ? delta[rows + row] : 0.f;
       if constexpr (DROP)
         hrow[r] = (uint32_t)row * kRowMul + head_salt(g, bh);
@@ -1973,10 +2085,22 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
-          float p = KM ? ex2(fmaf(sc[4 * j + e], sl2,
-                                  (e & 1 ? kv.y : kv.x) * kLog2e - lse2[r]))
-                       : ex2(fmaf(sc[4 * j + e], sl2, -lse2[r]));
-          if (masked && (c < lo[r] || c >= hi[r] || c >= g.SK)) p = 0.f;
+          float p;
+          if constexpr (TM) {
+            const int row = r0 + rw + 8 * r;
+            p = c >= g.SK                 ? 0.f
+                : full[r]                 ? full_row_p(g, row)
+                : c < lo[r] || c >= hi[r] ? 0.f
+                                          : ex2(fmaf(sc[4 * j + e], sl2,
+                                                     tile_mask(g, kmt, row, c) *
+                                                             kLog2e -
+                                                         lse2[r]));
+          } else {
+            p = KM ? ex2(fmaf(sc[4 * j + e], sl2,
+                              (e & 1 ? kv.y : kv.x) * kLog2e - lse2[r]))
+                   : ex2(fmaf(sc[4 * j + e], sl2, -lse2[r]));
+            if (masked && (c < lo[r] || c >= hi[r] || c >= g.SK)) p = 0.f;
+          }
           sc[4 * j + e] = p;
         }
       }
@@ -1998,6 +2122,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       ? dpv * g.dscale
                       : 0.f;
           ds[e] = sc[4 * j + e] * (dpv - dl[e >> 1]) * g.scale;
+          if constexpr (TM) {  // 0 where the row does not see the key
+            const int c = c0 + 8 * j + 2 * tq + (e & 1);
+            if (c < lo[e >> 1] || c >= hi[e >> 1]) ds[e] = 0.f;
+          }
         }
         da[j >> 1][2 * (j & 1)] = pack<T>(ds[0], ds[1]);
         da[j >> 1][2 * (j & 1) + 1] = pack<T>(ds[2], ds[3]);
@@ -2056,11 +2184,12 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP,
+          bool TM = false>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, const Geom& g, const long long* st,
                 cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, DMAX, BQ, BK, KM, DROP>;
+  auto kernel = flash_fwd_kernel<T, DMAX, BQ, BK, KM, DROP, TM>;
   const size_t smem = Cfg<T, DMAX, BQ, BK>::fwd;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -2071,12 +2200,13 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP,
+          bool TM = false>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, const Geom& g, const long long* st,
                    cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, DMAX, BQ, BK, KM, DROP>;
+  auto kernel = flash_bwd_dq_kernel<T, DMAX, BQ, BK, KM, DROP, TM>;
   const size_t smem = Cfg<T, DMAX, BQ, BK>::dq;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -2106,12 +2236,13 @@ dmask_head_sum(const float* __restrict__ per_head, float* __restrict__ out,
   out[(long long)blockIdx.y * SK + c] = sum;
 }
 
-template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP>
+template <typename T, int DMAX, int BQ, int BK, bool KM, bool DROP,
+          bool TM = false>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, const Geom& g, const long long* st,
                     cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, DMAX, BQ, BK, KM, DROP>;
+  auto kernel = flash_bwd_dkv_kernel<T, DMAX, BQ, BK, KM, DROP, TM>;
   const size_t smem = Cfg<T, DMAX, BQ, BK>::dkv;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -2186,7 +2317,8 @@ int tile_map(CUtensorMap* map, const void* base, int B, int S, int heads,
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
-template <int DMAX, bool KM, bool DROP, typename T = wg::bf16>
+template <int DMAX, bool KM, bool DROP, typename T = wg::bf16,
+          bool TM = false>
 cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                       void* lse, const Geom& g, const long long* st,
                       cudaStream_t stream) {
@@ -2198,26 +2330,30 @@ cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
   if (!err)
     err = tile_map<T>(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_fwd_wgmma<DMAX, KM, DROP, T>;
+  auto kernel = wg::flash_fwd_wgmma<DMAX, KM, DROP, T, TM>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   kernel<<<g.B * g.H * ((g.SQ + C::BQ - 1) / C::BQ),
-           KM || DROP ? wg::kThreadsWs : wg::kThreadsWg, C::SMEM, stream>>>(
+           KM || DROP || TM ? wg::kThreadsWs : wg::kThreadsWg, C::SMEM,
+           stream>>>(
       tq, tk, tv, (T*)o, (float*)lse, g, strides_at(st, 3));
   return cudaGetLastError();
 }
 
-// The forward (kernels 1 and 4, every variant) runs the wgmma kernel.
-template <int DMAX, bool KM, bool DROP>
+// The forward (kernels 1 and 4, every variant and the tile mode) runs
+// the wgmma kernel.
+template <int DMAX, bool KM, bool DROP, bool TM = false>
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Geom& g, const long long* st,
                    cudaStream_t stream) {
-  return fwd_wgmma<DMAX, KM, DROP>(q, k, v, o, lse, g, st, stream);
+  return fwd_wgmma<DMAX, KM, DROP, wg::bf16, TM>(q, k, v, o, lse, g, st,
+                                                 stream);
 }
 
 // dQ on wgmma: FUSED computes delta from O (strides so_) and writes it;
 // otherwise delta is read. st: the strides of q, k, v, dout.
-template <int DMAX, bool FUSED, bool KM, bool DROP, typename T = wg::bf16>
+template <int DMAX, bool FUSED, bool KM, bool DROP, typename T = wg::bf16,
+          bool TM = false>
 cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
                          const void* dout, const void* out, const void* lse,
                          void* delta, void* dq, const Geom& g,
@@ -2234,7 +2370,7 @@ cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
     err = tile_map<T>(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
                    C::BQ);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_bwd_dq_wgmma<DMAX, FUSED, KM, DROP, T>;
+  auto kernel = wg::flash_bwd_dq_wgmma<DMAX, FUSED, KM, DROP, T, TM>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   const int grid =
@@ -2245,13 +2381,14 @@ cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// dQ given delta (kernels 2 and 5, every variant) runs the wgmma kernel.
-template <int DMAX, bool KM, bool DROP>
+// dQ given delta (kernels 2 and 5, every variant and the tile mode) runs
+// the wgmma kernel.
+template <int DMAX, bool KM, bool DROP, bool TM = false>
 cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, const Geom& g, const long long* st,
                       cudaStream_t stream) {
-  return bwd_dq_wgmma<DMAX, false, KM, DROP>(
+  return bwd_dq_wgmma<DMAX, false, KM, DROP, wg::bf16, TM>(
       q, k, v, dout, nullptr, lse, const_cast<void*>(delta), dq, g, st,
       Strides{}, strides_at(st, 4), stream);
 }
@@ -2286,17 +2423,18 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
 
 // d <= 64 (kernel 6, and kernel 3 at d <= 64) and d <= 128 without key
 // row or dropout (kernel 3 on the Llama path) run the wgmma kernel; the
-// key-row and dropout variants at 64 < d <= 128 the mma.sync template.
-template <int DMAX, bool KM, bool DROP>
+// key-row and dropout variants at 64 < d <= 128 and the tile mode at
+// every d <= 128 the mma.sync template.
+template <int DMAX, bool KM, bool DROP, bool TM = false>
 cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, const Geom& g, const long long* st,
                        cudaStream_t stream) {
-  if constexpr (DMAX == 64 || (!KM && !DROP)) {
+  if constexpr (!TM && (DMAX == 64 || (!KM && !DROP))) {
     return bwd_dkv_wgmma<DMAX, KM, DROP>(q, k, v, dout, lse, delta, dk, dv,
                                          g, st, stream);
   } else {
-    auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP>;
+    auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP, TM>;
     const size_t smem = tc::Smem<DMAX>::dkv;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
@@ -2323,6 +2461,7 @@ Geom make_geom(const int* geom, float scale, const void* km, void* dm,
   g.dm = (float*)dm;
   g.km_b = hb ? g.SK : (long long)g.H * g.SK;
   g.km_h = hb ? 0 : g.SK;
+  g.km_q = 0;
   g.seed0 = drop ? drop[0] : 0u;
   g.seed1 = drop ? drop[1] : 0u;
   g.thresh = drop ? drop[2] : 0u;
@@ -2427,6 +2566,46 @@ int bwd_dkv_entry(const void* q, const void* k, const void* v,
                     (cudaStream_t)stream);
 }
 
+// The tile mode (TM): bf16 with d <= 128 on the wgmma forward and dQ and
+// the mma.sync dK/dV, fp32 (any d) and bf16 with d > 128 on the fp32-FMA
+// kernels; no float16 and no window.
+#define PT_TILE_FAMILY(FN, DROP, ...)                                        \
+  do {                                                                     \
+    if (dtype == kBFloat16) {                                              \
+      if (g.d <= 64) return FN##_tc<64, false, DROP, true>(__VA_ARGS__);    \
+      if (g.d <= 128) return FN##_tc<128, false, DROP, true>(__VA_ARGS__);  \
+      return FN<__nv_bfloat16, 256, 32, 32, false, DROP, true>(__VA_ARGS__); \
+    }                                                                      \
+    if (dtype == kFloat32) {                                               \
+      if (g.d <= 64)                                                       \
+        return FN<float, 64, 64, 64, false, DROP, true>(__VA_ARGS__);       \
+      if (g.d <= 128)                                                      \
+        return FN<float, 128, 64, 64, false, DROP, true>(__VA_ARGS__);      \
+      return FN<float, 256, 32, 32, false, DROP, true>(__VA_ARGS__);        \
+    }                                                                      \
+    return cudaErrorInvalidValue;                                          \
+  } while (0)
+
+#define PT_TILE_DISPATCH(FN, ...)                                         \
+  do {                                                                    \
+    if (g.d % 8 || g.d > 256 || g.H % g.HKV || g.window || !g.km)         \
+      return cudaErrorInvalidValue;                                       \
+    if (drop) PT_TILE_FAMILY(FN, true, __VA_ARGS__);                      \
+    PT_TILE_FAMILY(FN, false, __VA_ARGS__);                               \
+  } while (0)
+
+// kms: the tile mode mask's batch, head and query-row strides (elements,
+// 0 over a broadcast dim); its key stride is 1.
+Geom tile_geom(const int* geom, float scale, const void* km,
+               const long long* kms, void* dm, const unsigned* drop,
+               float dscale) {
+  Geom g = make_geom(geom, scale, km, dm, drop, dscale, 0);
+  g.km_b = kms[0];
+  g.km_h = kms[1];
+  g.km_q = kms[2];
+  return g;
+}
+
 // dQ that also computes delta (bf16, d <= 128, every variant; fp16 at d
 // 128 without key row or dropout): strides of q, k, v, dout, out, dq.
 int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
@@ -2458,6 +2637,37 @@ int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
   if (drop) PT_DQ_DELTA(false, true);
   PT_DQ_DELTA(false, false);
 #undef PT_DQ_DELTA
+}
+
+int tile_fwd_entry(const void* q, const void* k, const void* v, void* o,
+                   void* lse, const void* km, const long long* kms,
+                   const int* geom, float scale, const long long* strides,
+                   const unsigned* drop, float dscale, int dtype,
+                   void* stream) {
+  const Geom g = tile_geom(geom, scale, km, kms, nullptr, drop, dscale);
+  PT_TILE_DISPATCH(fwd, q, k, v, o, lse, g, strides, (cudaStream_t)stream);
+}
+
+int tile_bwd_dq_entry(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, const void* km, const long long* kms,
+                      const int* geom, float scale, const long long* strides,
+                      const unsigned* drop, float dscale, int dtype,
+                      void* stream) {
+  const Geom g = tile_geom(geom, scale, km, kms, nullptr, drop, dscale);
+  PT_TILE_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, g, strides,
+                   (cudaStream_t)stream);
+}
+
+int tile_bwd_dkv_entry(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, const void* km, void* dm,
+                       const long long* kms, const int* geom, float scale,
+                       const long long* strides, const unsigned* drop,
+                       float dscale, int dtype, void* stream) {
+  const Geom g = tile_geom(geom, scale, km, kms, dm, drop, dscale);
+  PT_TILE_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, g, strides,
+                   (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -2570,4 +2780,44 @@ extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
                    (cudaStream_t)stream>>>((const float*)dm_heads, (float*)dm,
                                            H, SK);
   return cudaGetLastError();
+}
+
+// The tile mode of the flash entries: km is an fp32 mask that broadcasts
+// to [B, H, SQ, SK] with the strides kms = {batch, head, query row} (0
+// over a broadcast dim) and a unit key stride, added to every score; dm
+// (or null) receives ds / scale per element as [B * H, SQ, SK] fp32.
+// Other arguments as the pt_flash_* entries.
+extern "C" int pt_flash_tile_fwd(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, const void* km,
+                                 const long long* kms, const int* geom,
+                                 float scale, const long long* strides,
+                                 const unsigned* drop, float dscale,
+                                 int dtype, void* stream) {
+  return tile_fwd_entry(q, k, v, o, lse, km, kms, geom, scale, strides, drop,
+                        dscale, dtype, stream);
+}
+
+extern "C" int pt_flash_tile_bwd_dq(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dq, const void* km,
+                                    const long long* kms, const int* geom,
+                                    float scale, const long long* strides,
+                                    const unsigned* drop, float dscale,
+                                    int dtype, void* stream) {
+  return tile_bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, kms, geom,
+                           scale, strides, drop, dscale, dtype, stream);
+}
+
+extern "C" int pt_flash_tile_bwd_dkv(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dk, void* dv, const void* km,
+                                     void* dm, const long long* kms,
+                                     const int* geom, float scale,
+                                     const long long* strides,
+                                     const unsigned* drop, float dscale,
+                                     int dtype, void* stream) {
+  return tile_bwd_dkv_entry(q, k, v, dout, lse, delta, dk, dv, km, dm, kms,
+                            geom, scale, strides, drop, dscale, dtype, stream);
 }

@@ -68,6 +68,26 @@ The encoder path reaches the per-batch-row mask through
 ``ops/cuda/head_flash.py`` (kernels 4-6, which share these kernels'
 code).
 
+The tile mode (``tmask``) takes any additive fp32 mask that broadcasts to
+``[b, h, sq, sk]``: a 4-D tensor whose batch, head and query dims are
+either full or 1 and whose key dim is full and contiguous. The kernels
+read it through its strides (0 over a broadcast dim) and add
+``mask[b, h, r, c]`` to score ``(r, c)`` before the causal mask, as the
+reference's composite adds ``logits + mask`` (``nn/functional/
+attention.py:37-45``); no TPU kernel takes such a mask. It runs every
+key and query tile (no tile is skipped), and it has no window. A row
+whose every score is the reference's ``-1e30`` (lse ``<= -0.5e30``) is
+fully masked: its softmax is uniform over the ``sk`` keys, as the
+reference's softmax of equal scores is, and its dS is 0 where the row
+does not see the key (the causal mask). :func:`flash_bwd_dkv` returns
+the mask's gradient ``ds / scale`` per element as ``[b * h, sq, sk]``
+fp32 when ``tmask_grad`` is set; the caller sums it over the broadcast
+dims. Its launches count on ``flash_fwd.tile_launches``,
+``flash_bwd_dq.tile_launches`` and ``flash_bwd_dkv.tile_launches``, not
+on ``.launches``. bfloat16 at ``d <= 128`` runs the wgmma forward and
+dQ and the mma.sync dK/dV; fp32 and ``d > 128`` the fp32-FMA kernels;
+float16 raises.
+
 Wrapper rules: CPU tensors go to the plain versions
 (:func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref`,
 :func:`flash_bwd_dkv_ref`, :func:`flash_bwd_dq_delta_ref`); CUDA tensors
@@ -190,6 +210,27 @@ def _check_kmask(kmask, rows, q, k):
                          f"{sk}] tensor on {q.device}")
 
 
+def _check_tmask(tmask, q, k):
+    """Raise ``ValueError`` unless ``tmask`` is a float32 4-D tensor on
+    q's device that broadcasts to ``[b, h, sq, sk]`` with a full,
+    contiguous key dim; returns its (batch, head, query-row) strides in
+    elements, 0 over a broadcast dim."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    want = (b, h, sq, sk)
+    if not isinstance(tmask, torch.Tensor) or tmask.dtype != torch.float32 \
+            or tmask.dim() != 4 or tmask.device != q.device \
+            or tmask.shape[3] != sk or tmask.stride(3) != 1 \
+            or any(n not in (1, w) for n, w in zip(tmask.shape[:3], want)):
+        raise ValueError(f"tmask must be a float32 tensor on {q.device} that "
+                         f"broadcasts to [b, h, sq, sk] = {list(want)} with a "
+                         f"full, contiguous key dim; got "
+                         f"{getattr(tmask, 'dtype', type(tmask))} "
+                         f"{tuple(getattr(tmask, 'shape', ()))}")
+    return tuple(0 if n == 1 else st
+                 for n, st in zip(tmask.shape[:3], tmask.stride()[:3]))
+
+
 def _threshold(rate):
     """The keep threshold of the counter hash, as the reference computes
     it (float64 on the host)."""
@@ -289,17 +330,22 @@ def _grouped(q, h_kv):
     return q.to(torch.float32).reshape(b, s, h_kv, h // h_kv, d)
 
 
-def _masked_scores(q, k, scale, causal, window, prescale, kmask=None):
+def _masked_scores(q, k, scale, causal, window, prescale, kmask=None,
+                   tmask=None):
     """fp32 scores ``[b, h_kv, g, sq, sk]`` with masked entries at
     NEG_INF, plus the additive key rows ``kmask`` (``[b * h, 1, sk]``)
-    when given. ``prescale`` multiplies q by the scale before the
-    product (the forward), else the product is scaled (the backward)."""
+    when given, or the tile mode's ``tmask`` added before the causal mask.
+    ``prescale`` multiplies q by the scale before the product (the
+    forward), else the product is scaled (the backward)."""
     qg = _grouped(q, k.shape[2])
     kf = k.to(torch.float32)
     if prescale:
         s = torch.einsum("bqkgd,bckd->bkgqc", qg * scale, kf)
     else:
         s = scale * torch.einsum("bqkgd,bckd->bkgqc", qg, kf)
+    if tmask is not None:
+        b, sq, h, _ = q.shape
+        s = s + tmask.to(torch.float32).expand(b, h, sq, -1).reshape(s.shape)
     vis = _visible(q.shape[1], k.shape[1], causal, window, q.device)
     if vis is not None:
         s = torch.where(vis, s, torch.full((), NEG_INF, device=q.device))
@@ -324,14 +370,24 @@ def _drop_factor(drop, q, k):
                                           device=q.device), 0.0)
 
 
+def _sees(q, k, causal):
+    """``[sq]`` bool: whether each query row sees a key (the tile mode,
+    which has no window)."""
+    vis = _visible(q.shape[1], k.shape[1], causal, 0, q.device)
+    if vis is None:
+        return torch.ones(q.shape[1], dtype=torch.bool, device=q.device)
+    return vis.any(-1)
+
+
 def flash_fwd_ref(q, k, v, *, causal, scale=None, window=0, kmask=None,
-                  seed=None, dropout=0.0, coords=None):
+                  seed=None, dropout=0.0, coords=None, tmask=None):
     """Plain version of :func:`flash_fwd`: a one-pass fp32 softmax
-    attention with the kernel's masking, key rows and dropout (at the
-    global ``coords``). Returns
+    attention with the kernel's masking, key rows or tile mask, and
+    dropout (at the global ``coords``). Returns
     (O ``[b, sq, h, d]`` in q's dtype, lse ``[b * h, sq]`` fp32)."""
     b, sq, h, d = q.shape
-    s = _masked_scores(q, k, _scale(scale, d), causal, window, True, kmask)
+    s = _masked_scores(q, k, _scale(scale, d), causal, window, True, kmask,
+                       tmask)
     lse = torch.logsumexp(s, dim=-1)  # [b, h_kv, g, sq]
     # p by the max-subtracted softmax, as the kernels' running max and sum
     # give it; exp(s - lse) would carry lse's rounding, up to 2**-11 of p
@@ -341,22 +397,32 @@ def flash_fwd_ref(q, k, v, *, causal, scale=None, window=0, kmask=None,
     if factor is not None:  # the row sum (lse) keeps the undropped p
         p = p * factor
     out = torch.einsum("bkgqc,bckd->bqkgd", p, v.to(torch.float32))
-    # rows with no visible key: lse stays ~NEG_INF and O is exactly 0
-    out = torch.where((lse > 0.5 * NEG_INF).permute(0, 3, 1, 2)[..., None],
-                      out, torch.zeros((), device=q.device))
+    # rows with no visible key: lse stays ~NEG_INF and O is exactly 0; in
+    # the tile mode a fully masked row (its scores all -1e30) keeps the
+    # uniform average that softmax gives it
+    valid = (lse > 0.5 * NEG_INF).permute(0, 3, 1, 2)[..., None]
+    if tmask is not None:
+        valid = _sees(q, k, causal)[None, :, None, None, None]
+    out = torch.where(valid, out, torch.zeros((), device=q.device))
     return out.reshape(b, sq, h, d).to(q.dtype), lse.reshape(b * h, sq)
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, scale, causal, window, kmask,
-                  drop):
+                  drop, tmask=None):
     """Recomputed p (dropped, the dV operand) and ds ``[b, h_kv, g, sq,
-    sk]`` fp32; dO.V^T is masked and scaled before ds."""
+    sk]`` fp32; dO.V^T is masked and scaled before ds. In the tile mode a
+    fully masked row (lse ``<= -0.5e30``) takes ``1 / sk`` on every key
+    when it sees one, and ds is 0 where the row does not see the key."""
     b, sq, h, d = q.shape
     h_kv = k.shape[2]
-    s = _masked_scores(q, k, scale, causal, window, False, kmask)
+    sk = k.shape[1]
+    s = _masked_scores(q, k, scale, causal, window, False, kmask, tmask)
     lse = lse.reshape(b, h_kv, h // h_kv, sq, 1)
-    p = torch.where(lse > 0.5 * NEG_INF, torch.exp(s - lse),
-                    torch.zeros((), device=q.device))
+    zero = torch.zeros((), device=q.device)
+    p = torch.where(lse > 0.5 * NEG_INF, torch.exp(s - lse), zero)
+    if tmask is not None:
+        full = torch.where(_sees(q, k, causal)[:, None], 1.0 / sk, zero)
+        p = torch.where(lse > 0.5 * NEG_INF, p, full)
     dp = torch.einsum("bqkgd,bckd->bkgqc", _grouped(do, h_kv),
                       v.to(torch.float32))
     factor = _drop_factor(drop, q, k)
@@ -365,36 +431,45 @@ def _probs_and_ds(q, k, v, do, lse, delta, scale, causal, window, kmask,
         dp = dp * factor
         pd = p * factor
     ds = p * (dp - delta.reshape(b, h_kv, h // h_kv, sq, 1)) * scale
+    if tmask is not None:
+        vis = _visible(sq, sk, causal, 0, q.device)
+        if vis is not None:
+            ds = torch.where(vis, ds, zero)
     return pd, ds
 
 
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal, scale=None,
                      window=0, kmask=None, seed=None, dropout=0.0,
-                     coords=None):
+                     coords=None, tmask=None):
     """Plain version of :func:`flash_bwd_dq`: dQ ``[b, sq, h, d]`` in q's
     dtype from the recomputed probabilities."""
     b, sq, h, d = q.shape
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, _scale(scale, d), causal,
                           window, kmask,
-                          _dropout_words(dropout, seed, coords, h))
+                          _dropout_words(dropout, seed, coords, h), tmask)
     dq = torch.einsum("bkgqc,bckd->bqkgd", ds, k.to(torch.float32))
     return dq.reshape(b, sq, h, d).to(q.dtype)
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale=None,
                       window=0, kmask=None, seed=None, dropout=0.0,
-                      coords=None):
+                      coords=None, tmask=None, tmask_grad=False):
     """Plain version of :func:`flash_bwd_dkv`: (dK, dV) ``[b, sk, h_kv,
     d]`` in k's dtype, summed over each kv head's query-head group, and
     with ``kmask`` also dmask ``[b * h, 1, sk]`` fp32 (the sum of ds /
-    scale over each head's query rows)."""
+    scale over each head's query rows), with ``tmask_grad`` dmask ``[b *
+    h, sq, sk]`` fp32 (ds / scale)."""
     b, sq, h, d = q.shape
     scale = _scale(scale, d)
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal, window,
-                          kmask, _dropout_words(dropout, seed, coords, h))
+                          kmask, _dropout_words(dropout, seed, coords, h),
+                          tmask)
     h_kv = k.shape[2]
     dv = torch.einsum("bkgqc,bqkgd->bckd", p, _grouped(do, h_kv))
     dk = torch.einsum("bkgqc,bqkgd->bckd", ds, _grouped(q, h_kv))
+    if tmask is not None and tmask_grad:
+        return dk.to(k.dtype), dv.to(v.dtype), \
+            (ds / scale).reshape(b * h, sq, -1)
     if kmask is None:
         return dk.to(k.dtype), dv.to(v.dtype)
     dmask = (ds / scale).sum(3).reshape(b * h, 1, -1)
@@ -426,15 +501,21 @@ def _lib():
     # the head-batched fused dQ also takes the key row
     lib.pt_hb_bwd_dq_delta.argtypes = [_P] * 9 + _TAIL
     lib.pt_hb_bwd_dq_delta.restype = _I
+    # the tile mode: the mask and its strides, and dK/dV's dmask
+    for entry, n_ptr in (("fwd", 7), ("bwd_dq", 9), ("bwd_dkv", 11)):
+        fn = getattr(lib, f"pt_flash_tile_{entry}")
+        fn.argtypes = [_P] * n_ptr + _TAIL
+        fn.restype = _I
     return lib
 
 
 def _launch(entry, name, tensors, q, k, causal, window, scale, strided,
             drop):
-    """Call one C entry: data pointers (None for an absent key row), then
-    the geometry and the (batch, seq, head) strides of the ``strided``
-    tensors, as host arrays the entry reads before it returns, and the
-    dropout words."""
+    """Call one C entry: data pointers (None for an absent key row; an
+    int is a host address, the tile mask's strides), then the geometry
+    and the (batch, seq, head) strides of the ``strided`` tensors, as
+    host arrays the entry reads before it returns, and the dropout
+    words."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     geom = (ctypes.c_int * 8)(b, h, h_kv, sq, sk, d, int(causal), window)
@@ -443,7 +524,8 @@ def _launch(entry, name, tensors, q, k, causal, window, scale, strided,
     words, dscale = (None, 1.0) if drop is None else drop
     if words is not None:
         words = (ctypes.c_uint * 6)(*words)
-    err = entry(*(None if t is None else t.data_ptr() for t in tensors),
+    err = entry(*(t if t is None or isinstance(t, int) else t.data_ptr()
+                  for t in tensors),
                 ctypes.addressof(geom), scale, ctypes.addressof(strides),
                 None if words is None else ctypes.addressof(words), dscale,
                 _DTYPE_CODE[q.dtype],
@@ -456,11 +538,14 @@ def _launch(entry, name, tensors, q, k, causal, window, scale, strided,
 
 
 def _fwd(entry, name, q, k, v, kmask, scale, causal, window, drop):
-    """Launch a forward entry; returns (O, lse ``[b * h, sq]``)."""
+    """Launch a forward entry; returns (O, lse ``[b * h, sq]``).
+    ``kmask``: the key rows (or None), or the tile entries' ``(mask,
+    strides address)``."""
     b, sq, h, _ = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    _launch(entry, name, (q, k, v, out, lse, kmask), q, k, causal, window,
+    mask = kmask if isinstance(kmask, tuple) else (kmask,)
+    _launch(entry, name, (q, k, v, out, lse, *mask), q, k, causal, window,
             scale, (q, k, v, out), drop)
     return out, lse
 
@@ -468,7 +553,8 @@ def _fwd(entry, name, q, k, v, kmask, scale, causal, window, drop):
 def _bwd_dq(entry, name, q, k, v, do, lse, delta, kmask, scale, causal,
             window, drop):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(entry, name, (q, k, v, do, lse, delta, dq, kmask), q, k, causal,
+    mask = kmask if isinstance(kmask, tuple) else (kmask,)
+    _launch(entry, name, (q, k, v, do, lse, delta, dq, *mask), q, k, causal,
             window, scale, (q, k, v, do, dq), drop)
     return dq
 
@@ -512,17 +598,31 @@ def _bwd_dkv(entry, name, q, k, v, do, lse, delta, kmask, dm_rows, scale,
     return (dk, dv) if dm is None else (dk, dv, dm)
 
 
+def _tile_args(q, k, kmask, tmask, window):
+    """The tile mode's checks (a call takes a key row or a tile mask, not
+    both, and the tile mode no window): the tile mask's (batch, head,
+    query-row) strides as the host array the tile entries read, or None
+    without one."""
+    if tmask is None:
+        return None
+    if kmask is not None or window:
+        raise ValueError("tmask takes neither kmask nor a window")
+    return (ctypes.c_longlong * 3)(*_check_tmask(tmask, q, k))
+
+
 def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
-              seed=None, dropout=0.0, coords=None):
+              seed=None, dropout=0.0, coords=None, tmask=None):
     """Attention forward. q ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]``
     (float32 or bfloat16; float16 on CUDA at ``d == 128`` without key
-    row or dropout; last dim contiguous, ``h % h_kv == 0``, ``d % 8 ==
-    0``, ``d <= 256``); optional ``kmask`` ``[b * h, 1, sk]`` fp32 and
-    ``dropout`` with two ``seed`` words, hashed at ``coords`` (first
-    batch row, first head, global heads; None: this tensor is the whole
-    batch and all heads). Returns (O ``[b, sq, h, d]`` in q's dtype, lse
-    ``[b * h, sq]`` fp32)."""
+    row, tile mask or dropout; last dim contiguous, ``h % h_kv == 0``,
+    ``d % 8 == 0``, ``d <= 256``); optional ``kmask`` ``[b * h, 1, sk]``
+    fp32, or ``tmask`` (the tile mode: fp32, broadcasting to ``[b, h, sq,
+    sk]``), and ``dropout`` with two ``seed`` words, hashed at ``coords``
+    (first batch row, first head, global heads; None: this tensor is the
+    whole batch and all heads). Returns (O ``[b, sq, h, d]`` in q's
+    dtype, lse ``[b * h, sq]`` fp32)."""
     _check(q, k, v, causal, window)
+    kms = _tile_args(q, k, kmask, tmask, window)
     drop = _dropout_words(dropout, seed, coords, q.shape[2])
     if kmask is not None:
         _check_kmask(kmask, q.shape[0] * q.shape[2], q, k)
@@ -530,8 +630,15 @@ def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
     if not q.is_cuda:
         return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
                              window=window, kmask=kmask, seed=seed,
-                             dropout=dropout, coords=coords)
-    _fp16_kernel(q, "flash_fwd", kmask is not None or drop is not None)
+                             dropout=dropout, coords=coords, tmask=tmask)
+    _fp16_kernel(q, "flash_fwd", kmask is not None or drop is not None
+                 or tmask is not None)
+    if tmask is not None:
+        res = _fwd(_lib().pt_flash_tile_fwd, "flash_fwd (tile mode)", q, k,
+                   v, (tmask, ctypes.addressof(kms)), scale, causal, window,
+                   drop)
+        flash_fwd.tile_launches += 1
+        return res
     res = _fwd(_lib().pt_flash_fwd, "flash_fwd", q, k, v, kmask, scale,
                causal, window, drop)
     flash_fwd.launches += 1
@@ -560,19 +667,28 @@ def _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
-                 kmask=None, seed=None, dropout=0.0, coords=None):
+                 kmask=None, seed=None, dropout=0.0, coords=None, tmask=None):
     """dQ ``[b, sq, h, d]`` (q's dtype) from dO (q's shape and dtype), the
     forward's lse and ``delta = rowsum(dO * O)``, both ``[b * h, sq]``
-    fp32; ``kmask``, ``seed``, ``dropout`` and ``coords`` as the forward
-    had them."""
+    fp32; ``kmask`` or ``tmask``, ``seed``, ``dropout`` and ``coords`` as
+    the forward had them."""
     drop = _check_bwd(q, k, v, do, lse, delta, causal, window, kmask,
                       q.shape[0] * q.shape[2], dropout, seed, coords)
+    kms = _tile_args(q, k, kmask, tmask, window)
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                                 scale=scale, window=window, kmask=kmask,
-                                seed=seed, dropout=dropout, coords=coords)
+                                seed=seed, dropout=dropout, coords=coords,
+                                tmask=tmask)
     _fp16_kernel(q, "flash_bwd_dq (given delta)", True)
+    if tmask is not None:
+        dq = _bwd_dq(_lib().pt_flash_tile_bwd_dq, "flash_bwd_dq (tile mode)",
+                     q, k, v, do, lse, delta,
+                     (tmask, ctypes.addressof(kms)), scale, causal, window,
+                     drop)
+        flash_bwd_dq.tile_launches += 1
+        return dq
     dq = _bwd_dq(_lib().pt_flash_bwd_dq, "flash_bwd_dq", q, k, v, do, lse,
                  delta, kmask, scale, causal, window, drop)
     flash_bwd_dq.launches += 1
@@ -580,20 +696,37 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale=None,
-                  window=0, kmask=None, seed=None, dropout=0.0, coords=None):
+                  window=0, kmask=None, seed=None, dropout=0.0, coords=None,
+                  tmask=None, tmask_grad=False):
     """(dK, dV) ``[b, sk, h_kv, d]`` (k's dtype), each summed over the
     query heads that share its kv head, and with ``kmask`` also dmask
-    ``[b * h, 1, sk]`` fp32 per query head; arguments as
-    :func:`flash_bwd_dq`."""
+    ``[b * h, 1, sk]`` fp32 per query head, with ``tmask`` and
+    ``tmask_grad`` dmask ``[b * h, sq, sk]`` fp32 per element; arguments
+    as :func:`flash_bwd_dq`."""
     rows = q.shape[0] * q.shape[2]
     drop = _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
                       dropout, seed, coords)
+    kms = _tile_args(q, k, kmask, tmask, window)
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                                  scale=scale, window=window, kmask=kmask,
-                                 seed=seed, dropout=dropout, coords=coords)
-    _fp16_kernel(q, "flash_bwd_dkv", kmask is not None or drop is not None)
+                                 seed=seed, dropout=dropout, coords=coords,
+                                 tmask=tmask, tmask_grad=tmask_grad)
+    _fp16_kernel(q, "flash_bwd_dkv", kmask is not None or drop is not None
+                 or tmask is not None)
+    if tmask is not None:
+        b, sq, h, _ = q.shape
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        dm = (torch.zeros((b * h, sq, k.shape[1]), dtype=torch.float32,
+                          device=q.device) if tmask_grad else None)
+        _launch(_lib().pt_flash_tile_bwd_dkv, "flash_bwd_dkv (tile mode)",
+                (q, k, v, do, lse, delta, dk, dv, tmask, dm,
+                 ctypes.addressof(kms)), q, k, causal, window, scale,
+                (q, k, v, do, dk, dv), drop)
+        flash_bwd_dkv.tile_launches += 1
+        return (dk, dv) if dm is None else (dk, dv, dm)
     res = _bwd_dkv(_lib().pt_flash_bwd_dkv, "flash_bwd_dkv", q, k, v, do,
                    lse, delta, kmask, rows, scale, causal, window, drop)
     flash_bwd_dkv.launches += 1
@@ -640,6 +773,9 @@ def flash_bwd_dq_delta(q, k, v, do, out, lse, *, causal, scale=None,
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_fwd.tile_launches = 0
+flash_bwd_dq.tile_launches = 0
+flash_bwd_dkv.tile_launches = 0
 
 
 # -- autograd -----------------------------------------------------------------
@@ -663,22 +799,31 @@ def _fusable(q):
 
 def _fused_delta(q, args):
     """Whether the backward takes :func:`flash_bwd_dq_delta` (CUDA,
-    bfloat16 with ``d <= 128`` or float16 at 128, no key row or
-    dropout)."""
-    return _fusable(q) and args["kmask"] is None and not args["dropout"]
+    bfloat16 with ``d <= 128`` or float16 at 128, no key row, tile mask
+    or dropout)."""
+    return _fusable(q) and args["kmask"] is None \
+        and args.get("tmask") is None and not args["dropout"]
+
+
+def _sum_to(grad, shape):
+    """``grad`` summed over the dims that ``shape`` broadcasts."""
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and grad.shape[i]
+                 != 1)
+    return grad.sum(dims, keepdim=True) if dims else grad
 
 
 class _FlashFn(torch.autograd.Function):
     """Forward kernel 1; backward: kernel 2 computing delta itself, then
-    kernel 3 (bfloat16 on CUDA without key row or dropout), else delta as
-    torch ops, then kernels 2 and 3. kmask's gradient is kernel 3's
-    dmask."""
+    kernel 3 (bfloat16 on CUDA without key row, tile mask or dropout),
+    else delta as torch ops, then kernels 2 and 3. kmask's gradient is
+    kernel 3's dmask; tmask's is its per-element dmask summed over the
+    mask's broadcast dims."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout,
-                coords):
+    def forward(ctx, q, k, v, kmask, tmask, causal, scale, window, seed,
+                dropout, coords):
         args = dict(causal=causal, scale=scale, window=window, kmask=kmask,
-                    seed=seed, dropout=dropout, coords=coords)
+                    seed=seed, dropout=dropout, coords=coords, tmask=tmask)
         out, lse = flash_fwd(q, k, v, **args)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = args
@@ -696,13 +841,20 @@ class _FlashFn(torch.autograd.Function):
         else:
             delta = _delta(do, out)
             dq = flash_bwd_dq(q, k, v, do, lse, delta, **args)
-        dk, dv, *dm = flash_bwd_dkv(q, k, v, do, lse, delta, **args)
-        return (dq, dk, dv, dm[0] if dm else None, None, None, None, None,
-                None, None)
+        tmask = args.get("tmask")
+        tgrad = tmask is not None and ctx.needs_input_grad[4]
+        dk, dv, *dm = flash_bwd_dkv(q, k, v, do, lse, delta, **args,
+                                    tmask_grad=tgrad)
+        dkm = dm[0] if dm and tmask is None else None
+        dtm = None
+        if tgrad:
+            b, sq, h, _ = q.shape
+            dtm = _sum_to(dm[0].reshape(b, h, sq, -1), tmask.shape)
+        return (dq, dk, dv, dkm, dtm, None, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal, scale=None, window=0, kmask=None,
-                    dropout=0.0, seed=None, coords=None):
+                    dropout=0.0, seed=None, coords=None, tmask=None):
     """Differentiable flash attention on the JAX public layout: q
     ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]`` -> ``[b, sq, h, d]``.
     ``scale`` defaults to ``1/sqrt(d)``; ``window > 0`` (with ``causal``)
@@ -711,11 +863,14 @@ def flash_attention(q, k, v, *, causal, scale=None, window=0, kmask=None,
     receives its gradient; ``dropout > 0`` drops attention probabilities
     by the counter hash seeded with the two ``seed`` words, at the global
     ``coords`` (first batch row, first head, global heads) when this
-    tensor is a rank's part of the batch or heads."""
+    tensor is a rank's part of the batch or heads; ``tmask`` (the tile
+    mode: fp32, broadcasting to ``[b, h, sq, sk]`` with a full contiguous
+    key dim) adds a mask to every score and receives its gradient."""
     _check(q, k, v, causal, window)
+    _tile_args(q, k, kmask, tmask, window)
     _dropout_words(dropout, seed, coords, q.shape[2])
     if kmask is not None:
         kmask = kmask.to(torch.float32).contiguous()
-    return _FlashFn.apply(q, k, v, kmask, causal,
+    return _FlashFn.apply(q, k, v, kmask, tmask, causal,
                           _scale(scale, q.shape[-1]), window, seed,
                           float(dropout), coords)

@@ -1,6 +1,6 @@
 """The vision model zoo's ported part: LeNet and the ResNet family
 (``paddle_tpu/vision/models``), with ``load_jax_weights``."""
-from ._weights import load_jax_weights  # noqa: F401
+from ...nn.layer.layers import load_jax_weights  # noqa: F401
 from .lenet import LeNet  # noqa: F401
 from .resnet import (  # noqa: F401
     BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34, resnet50,

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ...framework.device import resolve_device
+from ...framework.device import current_device, resolve_device
 from ...nn import functional as F
 from ...nn.layer.common import Linear
 from ...nn.layer.conv import Conv2D
@@ -16,9 +16,10 @@ __all__ = ["LeNet"]
 
 
 class LeNet(Layer):
-    def __init__(self, num_classes=10, *, device="cuda", generator=None):
+    def __init__(self, num_classes=10, *, device=None, generator=None):
         super().__init__()
-        dev = resolve_device(device)
+        dev = current_device() if device is None \
+            else resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         at = dict(device=dev, generator=generator)

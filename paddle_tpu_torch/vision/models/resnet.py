@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ...framework.device import resolve_device
+from ...framework.device import current_device, resolve_device
 from ...nn import functional as F
 from ...nn.layer.common import Linear
 from ...nn.layer.conv import Conv2D
@@ -34,7 +34,7 @@ class BasicBlock(Layer):
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
                  groups=1, base_width=64, dilation=1, norm_layer=None,
-                 data_format="NCHW", *, device="cuda", generator=None):
+                 data_format="NCHW", *, device=None, generator=None):
         super().__init__()
         norm_layer = norm_layer or BatchNorm2D
         at = dict(data_format=data_format, device=device,
@@ -62,7 +62,7 @@ class BottleneckBlock(Layer):
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
                  groups=1, base_width=64, dilation=1, norm_layer=None,
-                 data_format="NCHW", *, device="cuda", generator=None):
+                 data_format="NCHW", *, device=None, generator=None):
         super().__init__()
         norm_layer = norm_layer or BatchNorm2D
         at = dict(data_format=data_format, device=device,
@@ -98,12 +98,13 @@ class ResNet(Layer):
 
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW", *,
-                 device="cuda", generator=None):
+                 device=None, generator=None):
         super().__init__()
         if data_format not in ("NCHW", "NHWC"):
             raise ValueError(f"data_format must be NCHW or NHWC, got "
                              f"{data_format!r}")
-        dev = resolve_device(device)
+        dev = current_device() if device is None \
+            else resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         layers = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],

@@ -802,3 +802,76 @@ def test_recompute_replays_the_forwards_dropout(port_rng):
     x = torch.zeros(16, 16, requires_grad=True)
     recompute(block, x).sum().backward()
     assert rng.next_seed_words() == plain_next
+
+
+# -- SyncBatchNorm over dp ------------------------------------------------------
+
+SBN_X = _f32(8, 4, 3, 3, seed=31)  # the global batch, NCHW
+SBN_COT = _f32(8, 4, 3, 3, seed=32)
+
+
+def _sync_bn_worker(root):
+    """One dp rank: SyncBatchNorm (the reference's weights) in training
+    mode on its half of the global batch, ``sum(out * cotangent)``
+    backward."""
+    _child_setup()
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.nn.layer.layers import load_jax_weights
+
+    with open(f"{root}/weights.pkl", "rb") as f:
+        weights = pickle.load(f)
+    dist.init_parallel_env(backend="gloo",
+                           init_method=f"file://{root}/store")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    bn = tnn.SyncBatchNorm(4, device="cpu")
+    load_jax_weights(bn, weights)
+    rows = slice(rank * 8 // n, (rank + 1) * 8 // n)
+    x = torch.from_numpy(SBN_X[rows]).requires_grad_()
+    out = bn(x)
+    (out * torch.from_numpy(SBN_COT[rows])).sum().backward()
+    res = {"out": out.detach().numpy(), "dx": x.grad.numpy(),
+           "dw": bn.weight.grad.numpy(), "db": bn.bias.grad.numpy(),
+           "mean": bn._mean.numpy(), "var": bn._variance.numpy()}
+    with open(f"{root}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def test_sync_batch_norm_at_dp2_is_the_global_batch(tmp_path):
+    """Two dp ranks over gloo, each with half of the batch: the outputs
+    and input gradients put together, the parameter gradients summed over
+    the ranks and each rank's running statistics equal the reference's
+    batch norm over the whole batch (the statistics GSPMD computes for
+    its sharded batch) within 1e-5."""
+    import paddle_tpu as pt
+    import paddle_tpu.nn as pnn
+
+    ref = pnn.SyncBatchNorm(4)
+    weights = {n: np.asarray(t.numpy()) for n, t in ref.state_dict().items()}
+    x = pt.to_tensor(SBN_X, stop_gradient=False)
+    out = ref(x)
+    (out * pt.to_tensor(SBN_COT)).sum().backward()
+    with open(tmp_path / "weights.pkl", "wb") as f:
+        pickle.dump(weights, f)
+    spawn(_sync_bn_worker, args=(str(tmp_path),), nprocs=2)
+    ranks = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    want = {"out": out.numpy(), "dx": x.grad.numpy(),
+            "dw": ref.weight.grad.numpy(), "db": ref.bias.grad.numpy(),
+            "mean": ref._mean.numpy(), "var": ref._variance.numpy()}
+    got = {"out": np.concatenate([r["out"] for r in ranks]),
+           "dx": np.concatenate([r["dx"] for r in ranks]),
+           "dw": ranks[0]["dw"] + ranks[1]["dw"],
+           "db": ranks[0]["db"] + ranks[1]["db"]}
+    for r in ranks:
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(r[k], np.asarray(want[k]), rtol=0,
+                                       atol=TOL, err_msg=k)
+    for k, g in got.items():
+        w = np.asarray(want[k])
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=TOL * max(np.abs(w).max(), 1.0),
+                                   err_msg=k)

@@ -225,7 +225,9 @@ def test_wrapper_rejects(fault):
 
 def test_mask_and_dropout_name_the_encoder_slice():
     """The key mask and dropout came with the encoder slice and run; what
-    it left out, a row-varying mask, raises and names it."""
+    it left out, a row-varying mask, now runs the tile mode (the same
+    function as ``flash_attention(tmask=...)``), and a mask that does not
+    broadcast to ``[b, h, sq, sk]`` raises."""
     q, k, v, _ = (_t(x) for x in _inputs(6, 4, 4, 16, 16))
     zero_rows = tfa.flash_attention(q, k, v, causal=False,
                                     kmask=torch.zeros(B * 4, 1, 16))
@@ -236,9 +238,14 @@ def test_mask_and_dropout_name_the_encoder_slice():
     assert torch.isfinite(dropped).all()
     with pytest.raises(ValueError, match="seed"):
         tfa.flash_attention(q, k, v, causal=False, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="encoder slice"):
+    rows = torch.ones(B, 1, 16, 16)
+    torch.testing.assert_close(
+        TF.scaled_dot_product_attention(q, k, v, attn_mask=rows),
+        tfa.flash_attention(q, k, v, causal=False, tmask=rows), rtol=0,
+        atol=0)
+    with pytest.raises(ValueError, match="broadcast"):
         TF.scaled_dot_product_attention(q, k, v,
-                                        attn_mask=torch.ones(B, 1, 16, 16))
+                                        attn_mask=torch.ones(B, 2, 16, 16))
     # dropout outside training is no dropout (the reference's p = 0)
     torch.testing.assert_close(
         TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
@@ -599,3 +606,90 @@ def test_wgmma_backward_tilings_cover_the_band_once(case):
     assert window or _heaviest_first([(grp, len(items))
                                       for _, c0, items, grp in dkv
                                       if c0 + 128 <= sk])
+
+
+# -- the tile mode --------------------------------------------------------------
+
+TILE_CASES = [
+    # (mask shape over [b, h, sq, sk] by numpy's rule, causal, h, h_kv,
+    #  sq, sk)
+    ((32, 32), False, 4, 4, 32, 32),
+    ((B, 1, 32, 32), False, 4, 2, 32, 32),
+    ((B, 4, 32, 64), False, 4, 4, 32, 64),
+    ((B, 4, 32, 64), True, 4, 2, 32, 64),
+    ((1, 32, 1), False, 4, 4, 32, 48),
+    ((B, 1, 1, 48), True, 4, 4, 48, 48),
+    ((48,), False, 4, 1, 16, 48),
+]
+TILE_IDS = [f"{'x'.join(map(str, m))}-causal{int(c)}-h{h}kv{hk}-sq{sq}sk{sk}"
+            for m, c, h, hk, sq, sk in TILE_CASES]
+
+
+def _tile_mask_np(seed, shape):
+    """N(0, 1) with ~30 % at the reference's -1e30 and, where the mask
+    has query rows, every key of row 3 too: a fully masked row."""
+    rng = np.random.RandomState(seed)
+    m = rng.randn(*shape).astype(np.float32)
+    m = np.where(rng.rand(*shape) < 0.3, -1e30, m).astype(np.float32)
+    if len(shape) >= 2 and shape[-2] > 3:
+        m[..., 3, :] = -1e30
+    return m
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=TILE_IDS)
+def test_tile_mode_plain_matches_the_reference_composite(case):
+    """The tile mode's plain versions (through ``flash_attention(tmask=)``
+    and ``F.scaled_dot_product_attention``) against the reference's
+    composite ``_sdpa_reference`` under ``jax.vjp``: O, dQ, dK, dV and the
+    mask's gradient within 1e-5 of each's largest magnitude, a fully
+    masked row included (uniform over the keys, as the reference's
+    softmax of equal -1e30 scores)."""
+    from paddle_tpu.nn.functional.attention import _sdpa_reference
+
+    shape, causal, h, h_kv, sq, sk = case
+    q, k, v, do = _inputs(41, h, h_kv, sq, sk)
+    mask = _tile_mask_np(42, shape)
+    out, vjp = jax.vjp(lambda q, k, v, m: _sdpa_reference(
+        q, k, v, m, causal=causal), q, k, v, mask)
+    grads = vjp(do)
+    ts = [_t(a).requires_grad_() for a in (q, k, v, mask)]
+    got = TF.scaled_dot_product_attention(*ts[:3], attn_mask=ts[3],
+                                          is_causal=causal)
+    got.backward(_t(do))
+    for name, g, w in (("O", got, out), *zip(("dq", "dk", "dv", "dmask"),
+                                             (t.grad for t in ts), grads)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=0,
+                                   atol=1e-5 * max(np.abs(w).max(), 1.0),
+                                   err_msg=name)
+
+
+def test_tile_mode_kernel_entries_take_the_mask_through_strides():
+    """The kernel entries' plain versions on a broadcast ``[1, 1, sq,
+    sk]`` tile equal those on its materialised ``[b, h, sq, sk]`` copy,
+    and dK/dV's per-element dmask summed over batch and heads is the
+    autograd gradient of the broadcast mask; a mask that does not
+    broadcast, a window or a key row beside it raise."""
+    h = h_kv = 4
+    q, k, v, do = (_t(a) for a in _inputs(43, h, h_kv, 32, 32))
+    small = _t(_tile_mask_np(44, (1, 1, 32, 32)))
+    big = small.expand(B, h, 32, 32).contiguous()
+    o1, lse1 = tfa.flash_fwd(q, k, v, causal=False, tmask=small)
+    o2, lse2 = tfa.flash_fwd(q, k, v, causal=False, tmask=big)
+    torch.testing.assert_close(o1, o2, rtol=0, atol=0)
+    delta = tfa._delta(do, o1)
+    dk, dv, dm = tfa.flash_bwd_dkv(q, k, v, do, lse1, delta, causal=False,
+                                   tmask=small, tmask_grad=True)
+    assert dm.shape == (B * h, 32, 32)
+    leaf = small.clone().requires_grad_()
+    tfa.flash_attention(q, k, v, causal=False, tmask=leaf).backward(do)
+    torch.testing.assert_close(dm.reshape(B, h, 32, 32).sum((0, 1),
+                                                            keepdim=True),
+                               leaf.grad, rtol=1e-5, atol=1e-6)
+    for bad in (dict(tmask=small[..., :16]),
+                dict(tmask=torch.zeros(B, 3, 32, 32)),
+                dict(tmask=small, window=4, causal=True),
+                dict(tmask=small, kmask=torch.zeros(B * h, 1, 32))):
+        kw = {"causal": False, **bad}
+        with pytest.raises(ValueError):
+            tfa.flash_fwd(q, k, v, **kw)

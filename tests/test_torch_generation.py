@@ -517,8 +517,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.nn.functional.pooling",
             "paddle_tpu_torch.vision",
             "paddle_tpu_torch.vision.models.resnet",
-            "paddle_tpu_torch.vision.models.lenet",
-            "paddle_tpu_torch.vision.models._weights"} <= names
+            "paddle_tpu_torch.vision.models.lenet"} <= names
+    # and the nn layer surface's
+    assert {"paddle_tpu_torch.nn.layer.transformer",
+            "paddle_tpu_torch.nn.layer.rnn"} <= names
     # chip_smoke.py (run where there is no jax) imports neither either
     import ast
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import torch_functional_cases as fcases  # the JAX-free tables
+import torch_layer_cases as lcases
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.jit import TrainStep, exec_cache
 from paddle_tpu_torch.models import (
@@ -972,6 +973,102 @@ def test_variant_kernels_match_plain(cuda, shape, dtype, head_batched,
         err = _row_rel(dm[0], want_dm[0])
         assert err <= (1e-4 if dtype == torch.float32 else 1e-3), \
             f"dmask: relative error per row {err}"
+
+
+# The tile mode of kernels 1-3: (b, sq, sk, h, h_kv, d, causal, mask
+# dims kept full (b, h, sq), dropout). The mask is -1e30 on ~30 % of its
+# elements and on every element of query row 5 (a fully masked row),
+# else N(0, 1).
+_TILE = [
+    (2, 100, 100, 4, 4, 64, False, (0, 0, 1), 0.0),
+    (2, 100, 100, 4, 4, 64, False, (1, 0, 1), 0.1),
+    (2, 64, 96, 4, 2, 32, True, (1, 1, 1), 0.0),
+    (1, 130, 70, 2, 2, 128, False, (0, 1, 1), 0.1),
+    (2, 90, 90, 2, 2, 256, True, (1, 0, 1), 0.1),
+    (2, 72, 72, 2, 1, 128, False, (0, 0, 0), 0.0),
+]
+
+
+def _tile_mask(seed, b, h, sq, sk, full, device):
+    rng = np.random.RandomState(seed)
+    shape = tuple(n if f else 1 for n, f in zip((b, h, sq), full)) + (sk,)
+    m = rng.randn(*shape).astype(np.float32)
+    m = np.where(rng.rand(*shape) < 0.3, -1e30, m).astype(np.float32)
+    if full[2]:
+        m[:, :, 5] = -1e30
+    return torch.from_numpy(m).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _TILE)
+def test_tile_mode_kernels_match_plain(cuda, shape, dtype):
+    """Kernels 1-3 in the tile mode against their plain versions (fp32
+    copies of the inputs): O, dQ, dK and dV per 64-row tile within 1e-5
+    (fp32) or 1e-2 (bf16), lse as test_variant_kernels_match_plain, and
+    the per-element dmask of each (batch, head) within 1e-4 or 1e-3
+    relative; the launches count on ``tile_launches`` only."""
+    b, sq, sk, h, h_kv, d, causal, full, p = shape
+    q, k, v, do = _flash_inputs(21, (b, sq, sk, h, h_kv, d, causal, 0),
+                                dtype, cuda)
+    tmask = _tile_mask(22, b, h, sq, sk, full, cuda)
+    kw = dict(causal=causal, tmask=tmask, seed=_SEED if p else None,
+              dropout=p)
+    f32 = [t.float() for t in (q, k, v, do)]
+    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches)
+    t = (fa.flash_fwd.tile_launches, fa.flash_bwd_dq.tile_launches,
+         fa.flash_bwd_dkv.tile_launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_fwd_ref(*f32[:3], **kw)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=4e-7)
+    delta = (do.float() * want_out.to(dtype).float()).sum(-1) \
+        .permute(0, 2, 1).reshape(b * h, sq).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, want_lse, delta, **kw)
+    dk, dv, dm = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta,
+                                  tmask_grad=True, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == n
+    assert (fa.flash_fwd.tile_launches, fa.flash_bwd_dq.tile_launches,
+            fa.flash_bwd_dkv.tile_launches) == tuple(x + 1 for x in t)
+    want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, **kw)
+    want_dk, want_dv, want_dm = fa.flash_bwd_dkv_ref(
+        *f32, want_lse, delta, tmask_grad=True, **kw)
+    rel_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, got, want in (("O", out, want_out), ("dq", dq, want_dq),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        err = _tile_rel_err(got, want)
+        assert err <= rel_tol, f"{name}: per-tile relative error {err}"
+    # dmask by (batch, head) slice: a query row that sees one key has ds
+    # = dp - delta = 0 up to rounding, so its own relative error is noise
+    assert dm.shape == (b * h, sq, sk)
+    err = _row_rel(dm.reshape(b * h, 1, sq * sk),
+                   want_dm.reshape(b * h, 1, sq * sk))
+    assert err <= (1e-4 if dtype == torch.float32 else 1e-3), \
+        f"dmask: relative error per (batch, head) {err}"
+
+
+def test_sdpa_row_varying_mask_runs_the_tile_mode(cuda):
+    """``F.scaled_dot_product_attention`` with a ``[sq, sk]`` float mask
+    that requires grad: forward and every gradient (the mask's summed
+    over batch and heads) on the card against the CPU's plain versions,
+    through the tile mode's three kernels."""
+    b, s, h, d = 2, 80, 4, 64
+    q, k, v, do = _flash_inputs(31, (b, s, s, h, h, d, False, 0),
+                                torch.float32, cuda)
+    m = _tile_mask(32, 1, 1, s, s, (0, 0, 1), cuda)[0, 0]
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v, m)]
+        out = tattn.scaled_dot_product_attention(*leaves[:3],
+                                                 attn_mask=leaves[3])
+        out.backward(do.to(dev))
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    t = fa.flash_fwd.tile_launches
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    assert t > 0 and fa.flash_bwd_dkv.tile_launches > 0
 
 
 def test_hb_flash_autograd_and_dmask_is_the_head_sum(cuda):
@@ -2303,3 +2400,13 @@ def test_functional_pool_masks_on_the_card_equal_the_cpu(cuda, fn, size,
     for g, w in zip(got, want):
         assert g.is_cuda and g.dtype == w.dtype
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", lcases.CASES, ids=[c.id for c in lcases.CASES])
+def test_layer_sweep_on_the_card_equals_the_cpu(cuda, case):
+    """Each case of ``tests/torch_layer_cases.py`` on the card against the
+    port's CPU result from the same weights: outputs, input and parameter
+    gradients and the state after the call within the case's
+    ``card_tol`` of its largest magnitude (or of 1), TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    assert lcases.card_error(case) <= case.card_tol

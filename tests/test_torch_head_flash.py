@@ -269,7 +269,8 @@ def test_sdpa_routes_masks_and_dropout_to_the_head_batched_entry():
     """A ``[b, 1, 1, sk]`` mask (bool keep or additive float) or dropout
     while training goes to ``hb_flash`` (kernels 4-6); a bool mask's
     fully padded batch row outputs exactly 0, an additive one the
-    unmasked attention; a row-varying mask raises."""
+    unmasked attention; a row-varying mask goes to the tile mode of
+    kernels 1-3 instead."""
     q, k, v, _ = (_t(x) for x in _inputs(4, 4, 4, 32, 32))
     keep = torch.ones(B, 1, 1, 32, dtype=torch.bool)
     keep[0, ..., 20:] = False
@@ -294,9 +295,13 @@ def test_sdpa_routes_masks_and_dropout_to_the_head_batched_entry():
         TF.scaled_dot_product_attention(q, k, v, attn_mask=huge),
         thf.hb_flash(q, k, v, kmask=torch.full((B, 1, 32), tfa.NEG_INF)),
         rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="row-varying"):
-        TF.scaled_dot_product_attention(q, k, v,
-                                        attn_mask=torch.ones(B, 1, 32, 32))
+    rows = torch.ones(B, 1, 32, 32)
+    n = (thf.hb_fwd.launches, tfa.flash_fwd.tile_launches)
+    torch.testing.assert_close(
+        TF.scaled_dot_product_attention(q, k, v, attn_mask=rows),
+        tfa.flash_attention(q, k, v, causal=False, tmask=rows), rtol=0,
+        atol=0)
+    assert (thf.hb_fwd.launches, tfa.flash_fwd.tile_launches) == n  # CPU
     with pytest.raises(NotImplementedError, match="dtype"):
         TF.scaled_dot_product_attention(
             q, k, v, attn_mask=torch.ones(B, 1, 1, 32, dtype=torch.int32))
