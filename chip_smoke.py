@@ -318,10 +318,17 @@ only a run in which every phase passed prints the final line:
    ``gen_cache`` (kernel 1 and kernel 4 once a layer a step), its logits
    within ``DECODE_REL_TOL`` of the full causal forward over the decoded
    prefix; (b) the tile mode at the decoder's shape (b64 s256 h8 d64
-   bf16, dropout 0.1, the causal [s, s] mask) against its plain version
-   (per 64-row tile within ``FLASH_REL_TOL``, dmask per (batch, head)
-   within 1e-3), timed beside it, SDPA given the same additive mask and
-   dropout, and the bound (the mask's bytes once, only live pairs); (c)
+   bf16, dropout 0.1) on the causal [s, s] mask and on the causal mask
+   with a key padding per batch row ([b, 1, s, s]) against its plain
+   version (per 64-row tile within ``FLASH_REL_TOL``, dQ given delta
+   and computing it, the fused delta per row within 1e-5, dmask per
+   (batch, head) within 1e-3, the class table byte for byte), the class
+   counts and the share of pairs the backward visits; timed on the
+   causal mask as the main path runs it (dQ computing delta and dK/dV,
+   each with its class pass, the class pass alone, and the whole
+   backward of the autograd Function) beside its plain version, SDPA
+   given the same additive mask and dropout, and the bound (the mask's
+   bytes once, only live pairs); (c)
    ``nn.LSTM(512, 1024, 2 layers, bidirect)`` forward and backward on
    [64, 256, 512] fp32, timed, and a small one on the card against the
    CPU (1e-4); (d) every case of ``tests/torch_layer_cases.py`` on the
@@ -5958,17 +5965,22 @@ T_DECODE_STEPS = 32
 # cached decode against the full causal forward on the decoded prefix, in
 # bf16: each logit within this share of the largest
 DECODE_REL_TOL = 5e-2
-TILE_NAMES = ("flash_fwd_tile", "flash_bwd_dq_tile", "flash_bwd_dkv_tile")
-TILE_WRAPPERS = dict(zip(TILE_NAMES, FLASH_WRAPPERS))
+# the tile mode's kernels: kernels 1-3 in the tile mode, and the class
+# pass that the backward on wgmma runs once for dQ and dK/dV
+TILE_NAMES = ("flash_fwd_tile", "flash_bwd_dq_tile", "flash_bwd_dkv_tile",
+              "flash_tile_classes")
 
 
 def _tile_launches():
-    return {n: w.tile_launches for n, w in TILE_WRAPPERS.items()}
+    counts = {n: w.tile_launches for n, w in zip(TILE_NAMES, FLASH_WRAPPERS)}
+    counts["flash_tile_classes"] = fa.tile_classes.launches
+    return counts
 
 
 def _reset_tile_launches():
     for w in FLASH_WRAPPERS:
         w.tile_launches = 0
+    fa.tile_classes.launches = 0
 
 
 def _seq2seq(vocab, device, generator=None, **kw):
@@ -6112,7 +6124,9 @@ def _transformer_25a(card):
         f"{[round(x, 6) for x in got]} vs CPU {[round(x, 6) for x in want]}"
         f": max diff {diff:.3e} (tol {IDENTITY_LOSS_ATOL}); tile launches "
         f"on the card {tiny_tile}")
-    if not diff <= IDENTITY_LOSS_ATOL or min(tiny_tile.values()) <= 0:
+    # fp32 runs the FMA kernels, which read no class table
+    if not diff <= IDENTITY_LOSS_ATOL or min(
+            v for n, v in tiny_tile.items() if n != "flash_tile_classes") <= 0:
         raise AssertionError("25a: the tiny copy's card run left the CPU's")
     return ms, tok_s, peak, tile, model, batch
 
@@ -6175,98 +6189,172 @@ def _tile_bound(q, k, tile, stage):
     broadcasts) and its operations over the bf16 peak, counting only the
     (row, key) pairs whose mask value is live (above PAD_LEVEL; a row with
     none needs all its keys): 2 * d per product per pair, 2 products
-    forward, 3 for dQ, 4 for dK/dV."""
+    forward, 3 for dQ, 4 for dK/dV. dQ computing delta also reads O;
+    the class pass reads the mask and writes a byte a cell."""
     b, sq, h, d = q.shape
     live = tile.expand(b, h, sq, -1) > PAD_LEVEL
     need = live | ~live.any(-1, keepdim=True)
     pairs = int(need.sum())
-    products = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4}[stage]
+    products = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4, "classes": 0}[stage]
     q_bytes = q.numel() * q.element_size()
     kv_bytes = 2 * k.numel() * k.element_size()
     rows = b * h * sq * 4
     mask_bytes = tile.numel() * 4
+    cells = -(-sq // fa.CELL) * -(-k.shape[1] // fa.CELL)
     nbytes = {"fwd": 2 * q_bytes + kv_bytes + rows,
-              "bwd_dq": 3 * q_bytes + kv_bytes + 2 * rows,
-              "bwd_dkv": 2 * q_bytes + 2 * kv_bytes + 2 * rows}[stage] \
+              "bwd_dq": 4 * q_bytes + kv_bytes + 2 * rows,
+              "bwd_dkv": 2 * q_bytes + 2 * kv_bytes + 2 * rows,
+              "classes": cells * tile.shape[0] * tile.shape[1]}[stage] \
         + mask_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = pairs * 2 * d * products / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _causal_padded(b, s, gen):
+    """The second mask of 25b: the causal triangle with a key padding per
+    batch row (lengths s / 4 to s, seeded), ``[b, 1, s, s]``."""
+    lens = torch.randint(s // 4, s + 1, (b,), device="cuda", generator=gen)
+    keys = torch.arange(s, device="cuda")
+    hide = (keys[None, None, :] > keys[None, :, None]) \
+        | (keys[None, None, :] >= lens[:, None, None])
+    return torch.where(hide, fa.NEG_INF, 0.0)[:, None].float()
+
+
+def _tile_check(q, k, v, do, tile, kw):
+    """The tile mode's kernels on ``tile`` against their plain versions
+    (fp32 copies): the forward, dQ given delta and computing it itself,
+    dK/dV with the per-element dmask, the class table; returns (per-tile
+    relative errors, max_abs_err by row, dmask error per (batch, head),
+    lse error, the class table, whether a row is fully masked)."""
+    b, s, h, _ = q.shape
+    f32 = [t.float() for t in (q, k, v, do)]
+    out, lse = fa.flash_fwd(q, k, v, tmask=tile, **kw)
+    want_out, want_lse = fa.flash_fwd_ref(*f32[:3], tmask=tile, **kw)
+    out_b = want_out.to(q.dtype)
+    delta = fa._delta(do, out_b)
+    dq = fa.flash_bwd_dq(q, k, v, do, want_lse, delta, tmask=tile, **kw)
+    dq_f, delta_f = fa.flash_bwd_dq_delta(q, k, v, do, out_b, want_lse,
+                                          tmask=tile, **kw)
+    dk, dv, dm = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, tmask=tile,
+                                  tmask_grad=True, **kw)
+    classes = fa.tile_classes(tile, s, s)
+    torch.cuda.synchronize()
+    want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, tmask=tile, **kw)
+    want_dk, want_dv, want_dm = fa.flash_bwd_dkv_ref(
+        *f32, want_lse, delta, tmask=tile, tmask_grad=True, **kw)
+    want_classes = fa.tile_classes_ref(tile.cpu(), s, s)
+    pairs = {"flash_fwd_tile": [(out, want_out)],
+             "flash_bwd_dq_tile": [(dq_f, want_dq), (dq, want_dq)],
+             "flash_bwd_dkv_tile": [(dk, want_dk), (dv, want_dv)]}
+    rel = {n: max(_tile_rel_err(g, w) for g, w in p)
+           for n, p in pairs.items()}
+    abs_err = {n: max((g.float() - w).abs().max().item() for g, w in p)
+               for n, p in pairs.items()}
+    abs_err["flash_tile_classes"] = (
+        classes.cpu().int() - want_classes.int()).abs().max().item()
+    rel["delta"] = _row_rel_err(delta_f[:, None], delta[:, None])
+    # dmask by (batch, head) slice: a query row that sees one key (row 0
+    # of the causal mask) has ds = dp - delta = 0 up to rounding
+    dm_err = _row_rel_err(dm.reshape(b * h, 1, -1),
+                          want_dm.reshape(b * h, 1, -1))
+    lse_err = (lse - want_lse).abs().max().item()
+    full = bool((want_lse <= 0.5 * fa.NEG_INF).any())
+    return rel, abs_err, dm_err, lse_err, classes, full
+
+
+def _cell_counts(classes, b, h):
+    """(DEAD, ZERO, MIXED) cells over every (batch, head), and the share
+    of (row, key) pairs in the cells the backward visits (every cell but
+    the DEAD ones when no row is fully masked and no causal flag is
+    set: 25b's masks)."""
+    c = classes.expand(b, h, -1, -1)
+    n = [int((c == k).sum()) for k in (fa.TILE_DEAD, fa.TILE_ZERO,
+                                       fa.TILE_MIXED)]
+    return n, 1.0 - n[0] / c.numel()
+
+
 def _tile_kernels_25b(smi):
     """25b: the tile mode at the decoder's shape (b 64, s 256, h 8, d 64,
     bf16, dropout 0.1, the causal mask of
-    ``generate_square_subsequent_mask``) against its plain version, then
-    timed beside it, SDPA given the same additive mask, and the bound."""
+    ``generate_square_subsequent_mask``, and the causal mask with a key
+    padding per batch row) against its plain version, the class counts
+    and the share of pairs visited; then timed on the causal mask as the
+    main path runs it (dQ computing delta, each backward call with its
+    class pass), beside its plain version, SDPA given the same additive
+    mask and the bound."""
     gen = torch.Generator("cuda").manual_seed(26)
     b, s, h, d, rate = T_BATCH, T_TGT, T_BASE["nhead"], 64, 0.1
     q, k, v, do = _flash_inputs(b, s, s, h, h, gen, d=d)
     tile = torch.triu(torch.full((s, s), fa.NEG_INF, device="cuda"),
                       1)[None, None]
     seed = (2025, -18)
-    kw = dict(causal=False, tmask=tile, seed=seed, dropout=rate)
-    f32 = [t.float() for t in (q, k, v, do)]
-    out, lse = fa.flash_fwd(q, k, v, **kw)
-    want_out, want_lse = fa.flash_fwd_ref(*f32[:3], **kw)
-    out_b = want_out.to(q.dtype)
-    delta = fa._delta(do, out_b)
-    dq = fa.flash_bwd_dq(q, k, v, do, want_lse, delta, **kw)
-    dk, dv, dm = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta,
-                                  tmask_grad=True, **kw)
-    torch.cuda.synchronize()
-    want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, **kw)
-    want_dk, want_dv, want_dm = fa.flash_bwd_dkv_ref(
-        *f32, want_lse, delta, tmask_grad=True, **kw)
-    pairs = {"flash_fwd_tile": [(out, want_out)],
-             "flash_bwd_dq_tile": [(dq, want_dq)],
-             "flash_bwd_dkv_tile": [(dk, want_dk), (dv, want_dv)]}
-    rel = {n: max(_tile_rel_err(g, w) for g, w in p)
-           for n, p in pairs.items()}
-    abs_err = {n: max((g.float() - w).abs().max().item() for g, w in p)
-               for n, p in pairs.items()}
-    # dmask by (batch, head) slice: a query row that sees one key (row 0
-    # of the causal mask) has ds = dp - delta = 0 up to rounding
-    dm_err = _row_rel_err(dm.reshape(b * h, 1, -1),
-                          want_dm.reshape(b * h, 1, -1))
-    lse_err = (lse - want_lse).abs().max().item()
-    log(f"[nn] 25b tile mode b={b} s={s} h={h} d={d} bf16 dropout {rate}, "
-        f"the causal [s, s] mask: per-tile relative error "
-        + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
-        + f" (tol {FLASH_REL_TOL}); dmask per (batch, head) {dm_err:.3e} "
-        f"(tol 1e-3); "
-        f"lse {lse_err:.3e} (tol {LSE_ATOL})")
-    if not (all(e <= FLASH_REL_TOL for e in rel.values()) and dm_err <= 1e-3
-            and lse_err <= LSE_ATOL):
-        raise AssertionError(f"25b: the tile mode disagrees with its plain "
-                             f"version: {rel}, dmask {dm_err}, lse {lse_err}")
-    del dm, want_dm, want_dq, want_dk, want_dv, want_out
+    kw = dict(causal=False, seed=seed, dropout=rate)
+    abs_err = {}
+    for name, mask in (("causal", tile),
+                       ("causal + key padding", _causal_padded(b, s, gen))):
+        rel, errs, dm_err, lse_err, classes, full = _tile_check(
+            q, k, v, do, mask, kw)
+        counts, share = _cell_counts(classes, b, h)
+        log(f"[nn] 25b tile mode b={b} s={s} h={h} d={d} bf16 dropout "
+            f"{rate}, the {name} mask {list(mask.shape)}: per-tile "
+            f"relative error "
+            + ", ".join(f"{n} {e:.3e}" for n, e in rel.items()
+                        if n != "delta")
+            + f" (tol {FLASH_REL_TOL}; dQ given delta and computing it); "
+            f"fused delta {rel['delta']:.3e} per row (tol 1e-5); dmask per "
+            f"(batch, head) {dm_err:.3e} (tol 1e-3); lse {lse_err:.3e} (tol "
+            f"{LSE_ATOL}); class table {'equal' if errs['flash_tile_classes'] == 0 else 'DIFFERS'}: "
+            f"cells DEAD {counts[0]}, ZERO {counts[1]}, MIXED {counts[2]}; "
+            f"pairs visited by dQ and dK/dV {share:.4f}"
+            f"{' (a row is fully masked: more are visited)' if full else ''}")
+        if not (all(e <= FLASH_REL_TOL for n, e in rel.items()
+                    if n != "delta") and rel["delta"] <= 1e-5
+                and dm_err <= 1e-3 and lse_err <= LSE_ATOL
+                and errs["flash_tile_classes"] == 0):
+            raise AssertionError(f"25b: the tile mode disagrees with its "
+                                 f"plain version on the {name} mask: {rel},"
+                                 f" dmask {dm_err}, lse {lse_err}, classes "
+                                 f"{errs['flash_tile_classes']}")
+        abs_err = {n: max(e, abs_err.get(n, 0.0)) for n, e in errs.items()}
     _release()
     # timed as the main path runs them: no mask gradient
-    lse = want_lse
+    kw = dict(kw, tmask=tile)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa._delta(do, out)
     kernels = {
         "flash_fwd_tile": (lambda: fa.flash_fwd(q, k, v, **kw),
                            lambda: fa.flash_fwd_ref(q, k, v, **kw)),
         "flash_bwd_dq_tile": (
-            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-            lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)),
+            lambda: fa.flash_bwd_dq_delta(q, k, v, do, out, lse, **kw),
+            lambda: fa.flash_bwd_dq_delta_ref(q, k, v, do, out, lse, **kw)),
         "flash_bwd_dkv_tile": (
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
             lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)),
+        "flash_tile_classes": (lambda: fa.tile_classes(tile, s, s),
+                               lambda: fa.tile_classes_ref(tile, s, s)),
     }
+    # the whole backward as _FlashFn runs it: one class pass, the fused
+    # dQ, dK/dV
+    args = dict(kw, kmask=None, coords=None, scale=None, window=0)
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, out, lse), args=args,
+                                needs_input_grad=(True,) * 3 + (False,) * 8)
     library, contexts, fallbacks, minus = _sdpa_fns(
         q, k, v, do, attn_mask=tile[0, 0].to(q.dtype), dropout_p=rate)
     port = {n: lambda i, f=kern: f() for n, (kern, _) in kernels.items()}
+    port["flash_bwd_tile"] = lambda i: fa._FlashFn.backward(ctx, do)
     times, how, eager = _timed(port, library, contexts, fallbacks, minus)
     lib = {"flash_fwd_tile": _library(times, "sdpa_fwd", how)}
     lib["flash_bwd_dq_tile"] = lib["flash_bwd_dkv_tile"] = _library(
         times, "sdpa_bwd", how)
+    lib["flash_tile_classes"] = (None, "no PyTorch call computes it")
     rows = {}
     for name, (_, plain) in kernels.items():
         ms = _med(times[name])
         plain_ms = _time_plain(plain, iters=2)
-        bound_ms, bound_by = _tile_bound(q, k, tile,
-                                         name[len("flash_"):-len("_tile")])
+        bound_ms, bound_by = _tile_bound(
+            q, k, tile, "classes" if name == "flash_tile_classes"
+            else name[len("flash_"):-len("_tile")])
         lib_ms, lib_txt = lib[name]
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
@@ -6274,10 +6362,16 @@ def _tile_kernels_25b(smi):
         log(f"[nn] 25b {name} b{b} s{s} h{h} d{d} bf16 dropout {rate} on "
             f"{smi}: kernel_ms {_spread(times[name])} (CUDA graphs of "
             f"{ITERS} calls; median, min-max of {REPS}) plain_ms "
-            f"{plain_ms:.4f} library_ms {_ms(lib_ms)} (SDPA with the same "
-            f"additive mask and dropout: {lib_txt}) bound_ms "
+            f"{plain_ms:.4f} library_ms {_ms(lib_ms)} ({lib_txt}) bound_ms "
             f"{bound_ms:.5f} ({bound_by}); eager calls "
             f"{_spread(eager[name])} ms")
+    lib_bwd = lib["flash_bwd_dq_tile"][0]
+    whole = _med(times["flash_bwd_tile"])
+    log(f"[nn] 25b the whole tile backward (class pass, dQ computing delta, "
+        f"dK/dV; _FlashFn.backward) on {smi}: {_spread(times['flash_bwd_tile'])}"
+        f" ms, {whole / lib_bwd if lib_bwd else float('nan'):.2f}x SDPA's "
+        f"whole backward ({_ms(lib_bwd)} ms); eager "
+        f"{_spread(eager['flash_bwd_tile'])} ms")
     return rows
 
 
@@ -6472,9 +6566,12 @@ def main():
     # the tile mode of kernels 1-3 (a mode of the TPU's kernels 1-3 for
     # the masks the reference sends to its composite,
     # flash_attention.py:633-641), its launches on phase 25a's
-    # Transformer-base steps
+    # Transformer-base steps; the class pass serves kernels 2 and 3 (their
+    # dead-tile skip)
     kernels += [dict(name=k, route="cuda", source=flash_cu,
-                     replaces=replaces[k[:-len("_tile")]],
+                     replaces=replaces[k[:-len("_tile")]
+                                       if k.endswith("_tile")
+                                       else "flash_bwd_dq"],
                      launches=layers_nn["launches"][k],
                      **layers_nn["rows"][k])
                 for k in TILE_NAMES]

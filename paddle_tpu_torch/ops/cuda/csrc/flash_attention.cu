@@ -43,16 +43,37 @@
 //     broadcasts to [b, h, sq, sk], read through its batch, head and
 //     query-row strides (0 over a broadcast dim; Geom::km_q), is added to
 //     each score before the causal mask, as the reference's composite
-//     adds it (no TPU kernel takes such a mask). Each thread reads its
-//     scores' values from device memory; every key (query) tile is
-//     visited, none skipped. A row whose lse is at or below -0.5e30 is
-//     fully masked: its scores are all the reference's -1e30, whose
-//     softmax is uniform, so the backward takes p = 1 / SK on every key
-//     (lse cannot carry log(SK) at -1e30) and ds = 0 where the causal
-//     mask hides the key. dK/dV writes ds / scale per element into dm
-//     ([B * H, SQ, SK]) when dm is given. bf16 at d <= 128 runs the
-//     wgmma forward and dQ and the mma.sync dK/dV (at d 64 too); fp32
-//     and d > 128 the FMA kernels; no float16, no window.
+//     adds it (no TPU kernel takes such a mask). A row whose lse is at or
+//     below -0.5e30 is fully masked: its scores are all the reference's
+//     -1e30, whose softmax is uniform, so the backward takes p = 1 / SK
+//     on every key (lse cannot carry log(SK) at -1e30) and ds = 0 where
+//     the causal mask hides the key. dK/dV writes ds / scale per element
+//     into dm ([B * H, SQ, SK]) when dm is given. bf16 at d <= 128 runs
+//     the wgmma kernels; fp32 and d > 128 the FMA kernels, which visit
+//     every tile; no float16, no window. The wgmma forward visits every
+//     key tile, each thread reading its scores' mask values from device
+//     memory. The backward skips what is exactly zero: a class pass
+//     (tile_classes_kernel, pt_flash_tile_classes) reads the mask once
+//     and writes one byte per 64 x 64 cell of each (mask batch, mask
+//     head) slice, DEAD (every value at or below -0.5e30), ZERO (every
+//     value 0) or MIXED; dQ and dK/dV read the table. A warpgroup skips a
+//     DEAD cell, where p and ds are exactly 0, unless its rows hold a
+//     fully masked row (then a DEAD cell is visited and only that row's
+//     p is not 0); dK/dV skips the query tiles before the causal band of
+//     its keys under the same exception (a fully masked row's p reaches
+//     hidden keys), dQ always the key tiles past the band (ds is 0
+//     there). The producer warp decides from the table and the rows' lse
+//     (block-uniform: producer and consumers read one decision, the
+//     mode it writes beside each stage), loads only the tiles some
+//     warpgroup visits, and stages each MIXED cell's fp32 mask in shared
+//     memory by cp.async (16-byte copies where the slice and its row
+//     stride allow, else 4-byte ones), padded so that the consumers'
+//     reads in the accumulator's layout are free of bank conflicts; a
+//     ZERO cell adds nothing. The full-row rule runs in a pass of its
+//     own, only for a tile that holds such a row. dQ computes delta
+//     itself (pt_flash_tile_bwd_dq_delta), as kernel 2 does; dK/dV runs
+//     kernel 6's wgmma kernel. At d 128 the backward's rings hold 2
+//     stages (3 at d 64), so that the mask tiles fit in shared memory.
 //
 // Layout. q is read as [b, sq, h, d] and k/v as [b, sk, h_kv, d] through
 // their (batch, seq, head) strides with a unit last stride, so the
@@ -77,8 +98,9 @@
 //     path), dQ in every variant (kernel 2 through the entry that computes
 //     delta on the Llama path; kernel 5 is flash_bwd_dq_wgmma<64, true,
 //     true, true> through pt_hb_bwd_dq_delta on the BERT path), and dK/dV
-//     at d <= 64 (kernel 6, and kernel 3 there) and without key row or
-//     dropout at d <= 128 (kernel 3 on the Llama path). Warp-
+//     at d <= 64 (kernel 6, and kernel 3 there), without key row or
+//     dropout at d <= 128 (kernel 3 on the Llama path) and in the tile
+//     mode at d <= 128. Warp-
 //     specialised blocks of two consumer warpgroups and a producer: the
 //     producer keeps TMA loads (4-D tensor maps over the strided [b, s,
 //     h, d] tensors, 128-byte swizzle, zero fill past every edge) in
@@ -90,8 +112,8 @@
 //     operand. The plain forward has one producer warp; its key-row and
 //     dropout variants and the backward kernels a producer warpgroup
 //     that gives its registers to the consumers with setmaxnreg (24 / 240
-//     a thread; 40 / 232 for dK/dV at d <= 64), so the dK and dV
-//     accumulators and the S^T and dP^T tiles (~200 registers a thread at
+//     a thread; 40 / 232 for dK/dV at d <= 64 and the tile mode's dQ), so
+//     the dK and dV accumulators and the S^T and dP^T tiles (~200 registers a thread at
 //     d 128), or the score tile beside the key row and the dropout hash's
 //     terms, stay in registers. The forward takes
 //     one block per 128-row query tile, the heaviest causal tiles first,
@@ -113,7 +135,7 @@
 //     warpgroup whose 64 keys are wholly padding for a query head skips
 //     that head (padded_tile: exact zeros, as the reference gives);
 //   - mma.sync (namespace tc; bf16): the key-row and dropout variants
-//     of dK/dV at 64 < d <= 128 (no path runs them). 64-key tiles, each
+//     of dK/dV at 64 < d <= 128 (no model path runs them). 64-key tiles, each
 //     warp owning 16 keys with mma.sync.m16n8k16, tiles staged by
 //     synchronous 16-byte loads;
 //   - fp32 FMA (fp32 any d, bf16 with d > 128): a 16 x 16 thread grid,
@@ -130,7 +152,12 @@
 // left out (0.049, 0.064 with delta, 0.079 ms); there the kernels spend
 // their time on the per-element softmax and dropout hash (d 64 halves the
 // products per element) and on each block's own Q, dO and O traffic,
-// which one block per SM cannot overlap with another block's tiles. The
+// which one block per SM cannot overlap with another block's tiles. In
+// the tile mode at the Transformer decoder's shape (b64, s256, h8, d64,
+// dropout, the causal mask) the backward is bound by bytes (0.03 ms
+// each), but a block holds only 2-4 tiles, so its fixed cost (the K/V or
+// Q/dO loads before its first tile, the producer's reads of the table and
+// the lse, the stores after its last) weighs as much as its tiles. The
 // wgmma kernels reach the tensor cores' full rate per instruction; what
 // they still lack: the overlap of the softmax with the products across
 // tiles inside a warpgroup (two score accumulators in flight,
@@ -195,6 +222,11 @@ struct Geom {
   // over a broadcast dim); dm (or null) then takes ds / scale per
   // element, [B * H, SQ, SK]
   long long km_q;
+  // the tile mode's class table (tile_classes; read by the wgmma backward
+  // kernels): the class of cell (rt, ct) of (b, h) at tcls + b * tc_b + h
+  // * tc_h + rt * ceil(SK / 64) + ct (a stride is 0 over a broadcast dim)
+  const uint8_t* tcls;
+  long long tc_b, tc_h;
   uint32_t seed0, seed1, thresh;  // dropout: seed words, keep threshold
   // the hash's global coordinates: the global query-head count and this
   // launch's first batch row and first head in the global batch and heads
@@ -311,6 +343,62 @@ __device__ __forceinline__ bool row_sees(const Geom& g, int r) {
 // SK keys), and 0 for a row that sees no key or lies past SQ.
 __device__ __forceinline__ float full_row_p(const Geom& g, int r) {
   return r < g.SQ && row_sees(g, r) ? 1.f / g.SK : 0.f;
+}
+
+// Whether query row r, whose lse is l, is fully masked in the tile mode:
+// it lies before SQ, sees a key and its lse is at or below -0.5e30 (its p
+// is 1 / SK on every key, full_row_p).
+__device__ __forceinline__ bool full_row(const Geom& g, float l, int r) {
+  return r < g.SQ && row_sees(g, r) && !(l > 0.5f * kNegInf);
+}
+
+// The tile mode's cells: 64 x 64 (query rows x keys) of a (mask batch,
+// mask head) slice, classed by tile_classes as kTileMixed, kTileZero
+// (every value exactly 0) or kTileDead (every value at or below -0.5e30);
+// cells past SQ or SK count by their in-range part. The backward kernels
+// give each consumer warpgroup one of these modes per stage, or
+// kTileSkip, with the flag kTileFull where its rows hold a fully masked
+// row (the only case in which a DEAD cell is visited). The classes are
+// shared with ops/cuda/flash_attention.py.
+constexpr int kCell = 64;
+constexpr int kTileMixed = 0, kTileZero = 1, kTileDead = 2, kTileSkip = 3;
+constexpr int kTileFull = 4;
+
+__device__ __forceinline__ const uint8_t* cell_row(const Geom& g, int b,
+                                                   int h) {
+  return g.tcls + b * g.tc_b + h * g.tc_h;
+}
+
+// The class pass (pt_flash_tile_classes). It replaces no TPU kernel: the
+// Pallas kernels skip dead tiles by their causal block index, and this
+// table lets the tile mode's backward kernels skip the cells an arbitrary
+// mask leaves dead. grid = (ceil(SK / 64), ceil(SQ / 64), mb * mh): one
+// block per cell reads its in-range values once, through the mask's
+// strides (kb, kh 0 over a broadcast dim: one slice), and writes its class
+// to out[mb, mh, ceil(SQ / 64), ceil(SK / 64)]. Bound by bytes.
+__global__ void __launch_bounds__(256)
+tile_classes_kernel(const float* __restrict__ km, long long kb, long long kh,
+                    long long kq, int mh, int SQ, int SK,
+                    uint8_t* __restrict__ out) {
+  const int ct = blockIdx.x, rt = blockIdx.y, z = blockIdx.z;
+  const int bm = z / mh, hm = z - bm * mh;
+  const float* base =
+      km + bm * kb + hm * kh + (long long)rt * kCell * kq + ct * kCell;
+  const int nr = min(kCell, SQ - rt * kCell), nc = min(kCell, SK - ct * kCell);
+  int dead = 1, zero = 1;
+  for (int i = threadIdx.x; i < nr * kCell; i += 256) {
+    const int r = i / kCell, c = i - r * kCell;
+    if (c < nc) {
+      const float x = base[r * kq + c];
+      dead &= x <= 0.5f * kNegInf;
+      zero &= x == 0.f;
+    }
+  }
+  dead = __syncthreads_and(dead);
+  zero = __syncthreads_and(zero);
+  if (threadIdx.x == 0)
+    out[((long long)z * gridDim.y + rt) * gridDim.x + ct] =
+        dead ? kTileDead : zero ? kTileZero : kTileMixed;
 }
 
 // Copy rows [row0, row0 + R) of one (batch, head) slice into a shared
@@ -918,10 +1006,8 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ g,
 // (e & 1)); lse and delta are looked up per query through `stat`. With
 // KM the key row kmr is added to the scaled scores; with DROP, dp is
 // masked and scaled before ds and s becomes the dropped p (the operand of
-// dV). TM: kmr is the (b, h) slice of the tile mode's mask; a fully
-// masked query row takes full_row_p, and ds is 0 where the query row does
-// not see the key.
-template <int NT, bool KM, bool DROP, bool TM, typename Stat>
+// dV).
+template <int NT, bool KM, bool DROP, typename Stat>
 __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
                                          float (&dp)[NT][4], int row0,
                                          int col0, int gq, int tq,
@@ -935,14 +1021,11 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
       const int qr = col0 + 8 * j + 2 * tq + (e & 1);
       float lse_q, delta_q;
       stat(8 * j + 2 * tq + (e & 1), &lse_q, &delta_q);
-      const bool row_ok = lse_q > 0.5f * kNegInf;
-      const bool seen = kc < g.SK && qr < g.SQ && visible(g, qr, kc);
-      const bool live = row_ok && seen;
+      const bool live = lse_q > 0.5f * kNegInf && kc < g.SK && qr < g.SQ &&
+                        visible(g, qr, kc);
       float x = g.scale * s[j][e];
       if (KM && live) x += kmr[kc];
-      if (TM && live) x += tile_mask(g, kmr, qr, kc);
-      float p = live ? expf(x - lse_q) : 0.f;
-      if (TM && !row_ok) p = kc < g.SK ? full_row_p(g, qr) : 0.f;
+      const float p = live ? expf(x - lse_q) : 0.f;
       float dpv = dp[j][e], pd = p;
       if (DROP) {  // dp masked and scaled before ds; dV takes the dropped p
         const float dmk = keep(g, salt, qr, kc) ? g.dscale : 0.f;
@@ -950,7 +1033,7 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
         pd = p * dmk;
       }
       s[j][e] = pd;
-      dp[j][e] = !TM || seen ? p * (dpv - delta_q) * g.scale : 0.f;
+      dp[j][e] = p * (dpv - delta_q) * g.scale;
     }
 }
 
@@ -959,10 +1042,8 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
 // thread sums ds over the query columns of its two keys in registers;
 // the four lanes of a key row are reduced by shuffles when the query
 // head's dmask row is written, and a query head whose work on the tile
-// is exactly zero (padded_tile) is skipped. TM (the tile mode, at d <= 64
-// too): every query tile, and ds / scale per element into dm when it is
-// given.
-template <int DMAX, bool KM, bool DROP, bool TM = false>
+// is exactly zero (padded_tile) is skipped.
+template <int DMAX, bool KM, bool DROP>
 __global__ void __launch_bounds__(kThreadsTc)
 flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -1000,7 +1081,6 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   int qt0, qt1;
   query_tiles<BQ, BK>(g, c0, &qt0, &qt1);
-  if (TM) qt0 = 0, qt1 = (g.SQ + BQ - 1) / BQ;
   {
     load_tile<BK, LD, DMAX>(sK, k + b * sk_.b + hk * sk_.h, sk_.s, c0, g.SK,
                             g.d);
@@ -1016,7 +1096,7 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const long long bh = (long long)b * g.H + h;
       const bf16* qg = q + b * sq_.b + h * sq_.h;
       const bf16* dog = dout + b * sdo_.b + h * sdo_.h;
-      const float* kmr = KM || TM ? km_row(g, b, h) : nullptr;
+      const float* kmr = KM ? km_row(g, b, h) : nullptr;
       const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
       const bool skip = KM && padded_tile<BK>(g, kmr, c0);
       for (int qt = skip ? qt1 : qt0; qt < qt1; ++qt) {
@@ -1050,22 +1130,11 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             mma(dp[j], av, b0, b1);
           }
         }
-        probs_ds<NT, KM, DROP, TM>(g, s, dp, c0 + wk, r0, gq, tq, kmr, salt,
-                                   [&](int i, float* ls, float* dl) {
-                                     *ls = sLse[i];
-                                     *dl = sDelta[i];
-                                   });
-        if (TM && g.dm) {
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int kc = c0 + wk + gq + (e >> 1) * 8;
-              const int qr = r0 + 8 * j + 2 * tq + (e & 1);
-              if (kc < g.SK && qr < g.SQ)
-                g.dm[(bh * g.SQ + qr) * g.SK + kc] = dp[j][e] / g.scale;
-            }
-        }
+        probs_ds<NT, KM, DROP>(g, s, dp, c0 + wk, r0, gq, tq, kmr, salt,
+                               [&](int i, float* ls, float* dl) {
+                                 *ls = sLse[i];
+                                 *dl = sDelta[i];
+                               });
         if (KM) {
 #pragma unroll
           for (int j = 0; j < NT; ++j)
@@ -1152,6 +1221,12 @@ constexpr int kThreadsWs = kConsumers + 128;
 constexpr int kRegsProducer = 24, kRegsConsumer = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// A compile-time flag passed to a generic lambda (its ::value).
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -1244,6 +1319,233 @@ __device__ __forceinline__ void key_tile_producer(
     skt[s] = -1;
     mbar_arrive(full + s);
   }
+  mbar_arrive(full + s);
+}
+
+// The tile mode: one warp's copy of the mask cell rows [row0, row0 + 64) x
+// keys [c0, c0 + 64) of the (b, h) slice kmt (query-row stride kq, unit
+// key stride) into a shared [64, LDM] fp32 tile by cp.async, 16 bytes a
+// copy where the slice starts 16-byte aligned and kq is a multiple of 4
+// (vec), else 4 (a row may then start at any float); values past SQ or SK
+// arrive as zeros. A lane keeps its columns and steps its row, so that a
+// copy costs the producer few instructions beside the consumers' on its
+// scheduler.
+template <int LDM>
+__device__ __forceinline__ void copy_mask(float* dst, const float* kmt,
+                                          long long kq, int row0, int c0,
+                                          int SQ, int SK, bool vec) {
+  const int lane = threadIdx.x & 31;
+  if (vec) {  // lane: 4 columns, rows lane / 16, + 2, ...
+    const int c = (lane & 15) * 4, r = lane >> 4, col = c0 + c;
+    const int n = 4 * min(4, max(0, SK - col));
+    const float* src = kmt + (long long)(row0 + r) * kq + (n ? col : 0);
+    dst += r * LDM + c;
+#pragma unroll 8
+    for (int row = row0 + r; row < row0 + kCell; row += 2) {
+      cp_async16(dst, row < SQ && n ? src : kmt, row < SQ ? n : 0);
+      dst += 2 * LDM;
+      src += 2 * kq;
+    }
+  } else {  // lane: columns lane and lane + 32, every row
+    for (int r = 0; r < kCell; ++r) {
+      const int row = row0 + r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = c0 + lane + 32 * h;
+        const bool ok = row < SQ && col < SK;
+        cp_async4(dst + r * LDM + lane + 32 * h,
+                  ok ? kmt + row * kq + col : kmt, ok);
+      }
+    }
+  }
+}
+
+// Whether the mask slice kmt takes copy_mask's 16-byte copies.
+__device__ __forceinline__ bool mask_vec(const Geom& g, const float* kmt) {
+  return !(reinterpret_cast<uintptr_t>(kmt) & 15) && !(g.km_q & 3);
+}
+
+// The tile mode's producer warp of dQ. The block's 128 rows are two cells
+// of the class table, one per consumer warpgroup. A warpgroup's mode for
+// key tile kt is its cell's class, but a DEAD cell is skipped (kTileSkip)
+// unless the warpgroup's 64 rows hold a fully masked row (full_row: its p
+// is 1 / SK on every key, and so its ds on a dead cell is not 0); a tile
+// both skip is neither loaded nor announced. The tiles are [kt0, kt1),
+// the causal band (past it every ds is 0, a fully masked row's too), from
+// the last to the first. For each tile it loads, it waits for a free
+// stage s, copies each MIXED cell's mask into the stage's [128, LDM] tile
+// (rows of warpgroup w from row 64 w), writes kt to skt[s] and the modes
+// to smode[2 s + w], and (lane 0) loads K and V (load_kv). A stage whose
+// slot holds -1 ends the tiles. full[s] counts 33 arrivals: the lanes'
+// copies, and lane 0's load. The classes of 32 tiles at a time are read
+// one a lane and passed round by shuffles; the rows' lse and the first
+// classes are read together, before any is used, so that the block waits
+// for one read before its first load.
+template <int ST, int LDM, typename LoadKV>
+__device__ __forceinline__ void tile_dq_producer(
+    const Geom& g, int b, int h, int r0, const float* lse_bh, int kt0,
+    int kt1, float* smask, int* skt, uint8_t* smode, uint64_t* full,
+    uint64_t* empty, LoadKV load_kv) {
+  const int lane = threadIdx.x & 31;
+  float l[4];  // rows r0 + 32 j + lane
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int row = r0 + 32 * j + lane;
+    l[j] = row < g.SQ ? lse_bh[row] : 0.f;
+  }
+  const int nct = (g.SK + kCell - 1) / kCell;
+  const uint8_t* cls = cell_row(g, b, h) + (long long)(r0 / kCell) * nct;
+  // warpgroup 1's rows start before SQ
+  const bool second = r0 + kCell < g.SQ;
+  int cl0, cl1;  // the classes of tile kt1 - 1 - n0 - lane
+  auto classes = [&](int n0) {
+    const int ktl = kt1 - 1 - n0 - lane;
+    cl0 = ktl >= kt0 ? cls[ktl] : kTileDead;
+    cl1 = ktl >= kt0 && second ? cls[nct + ktl] : kTileDead;
+  };
+  classes(0);
+  bool fw[2];  // warpgroup w's rows hold a fully masked row
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+    fw[w] = __any_sync(0xffffffffu,
+                       full_row(g, l[2 * w], r0 + 64 * w + lane) |
+                           full_row(g, l[2 * w + 1], r0 + 64 * w + 32 + lane));
+  const float* kmt = km_row(g, b, h);
+  const bool vec = mask_vec(g, kmt);
+  int i = 0;
+  for (int n0 = 0; n0 < kt1 - kt0; n0 += 32) {
+    if (n0 > 0) classes(n0);
+    for (int n = n0; n < kt1 - kt0 && n < n0 + 32; ++n) {
+      const int kt = kt1 - 1 - n;
+      int m[2] = {__shfl_sync(0xffffffffu, cl0, n - n0),
+                  __shfl_sync(0xffffffffu, cl1, n - n0)};
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        m[w] = m[w] == kTileDead && !fw[w] ? kTileSkip
+               : fw[w]                     ? m[w] | kTileFull
+                                           : m[w];
+      if (m[0] == kTileSkip && m[1] == kTileSkip) continue;
+      const int s = i % ST;
+      mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        if ((m[w] & 3) == kTileMixed)
+          copy_mask<LDM>(smask + (s * 2 + w) * kCell * LDM, kmt, g.km_q,
+                         r0 + kCell * w, kt * kCell, g.SQ, g.SK, vec);
+      cp_async_arrive(full + s);
+      if (lane == 0) {
+        skt[s] = kt;
+        smode[2 * s] = (uint8_t)m[0];
+        smode[2 * s + 1] = (uint8_t)m[1];
+        load_kv(s, kt);
+      }
+      ++i;
+    }
+  }
+  const int s = i % ST;
+  mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+  if (lane == 0) {
+    skt[s] = -1;
+    mbar_arrive(full + s);
+  }
+  mbar_arrive(full + s);
+}
+
+// The tile mode's producer warp of dK/dV. Its items are (query head gi of
+// the block's group, 64-row query tile qt), gi major; the block's 128 keys
+// are two cells of the class table, one per consumer warpgroup. A
+// warpgroup's mode for an item is its cell's class, but it skips
+// (kTileSkip) a cell that is DEAD or lies before the causal band of its
+// keys (no row of the tile sees one), unless the tile holds a fully masked
+// row (full_row: its p is 1 / SK on every key, hidden keys included, so
+// its dV there is not 0), and keys wholly past SK; an item both skip is
+// neither loaded nor announced. Per item it reads the tile's lse and
+// delta first (so that the reads overlap the wait for a stage), then
+// waits for a free stage s, writes them to the stage's stats, copies each
+// MIXED cell's mask into the stage's [64, LDM] tile (warpgroup w's keys
+// from column 64 w), writes gi * ceil(SQ / 64) + qt to sitem[s] and the
+// modes to smode[2 s + w], and (lane 0) loads Q and dO (load_q). A stage
+// whose slot holds -1 ends the items. full[s] counts 64 arrivals: each
+// lane's copies (cp.async) and stats writes (an arrive; lane 0's load
+// stands for its one).
+template <int BQ, int ST, int LDM, typename LoadQ>
+__device__ __forceinline__ void tile_dkv_producer(
+    const Geom& g, int b, int hk, int c0, const float* lse,
+    const float* delta, float* stats, float* smask, int* sitem,
+    uint8_t* smode, uint64_t* full, uint64_t* empty, LoadQ load_q) {
+  static_assert(BQ == 64, "a query tile is one cell's rows");
+  const int lane = threadIdx.x & 31;
+  const int group = g.H / g.HKV, nqt = (g.SQ + BQ - 1) / BQ;
+  const int items = group * nqt;
+  const int nct = (g.SK + kCell - 1) / kCell, ct0 = c0 / kCell;
+  int band[2];  // the first query tile that sees warpgroup w's keys
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+    band[w] = g.causal ? max(0, c0 + kCell * w - (g.SK - g.SQ)) / BQ : 0;
+  // an item's reads: its rows' lse and delta (rows r0 + lane and + 32)
+  // and its two cells' classes, made one item ahead of their use
+  struct Reads {
+    float la, lb, da, db;
+    int m0, m1;
+  };
+  auto read = [&](int it) {
+    const int gi = it / nqt, qt = it - gi * nqt, h = hk * group + gi;
+    const long long bh = (long long)b * g.H + h;
+    const int ra = qt * BQ + lane, rb = ra + 32;
+    const uint8_t* cls = cell_row(g, b, h) + (long long)qt * nct + ct0;
+    Reads x;
+    x.la = ra < g.SQ ? lse[bh * g.SQ + ra] : kNegInf;
+    x.lb = rb < g.SQ ? lse[bh * g.SQ + rb] : kNegInf;
+    x.da = ra < g.SQ ? delta[bh * g.SQ + ra] : 0.f;
+    x.db = rb < g.SQ ? delta[bh * g.SQ + rb] : 0.f;
+    x.m0 = cls[0];
+    x.m1 = ct0 + 1 < nct ? cls[1] : kTileSkip;
+    return x;
+  };
+  Reads next = read(0);
+  int i = 0;
+  for (int it = 0; it < items; ++it) {
+    const Reads x = next;
+    if (it + 1 < items) next = read(it + 1);
+    const int gi = it / nqt, qt = it - gi * nqt, h = hk * group + gi;
+    const int r0 = qt * BQ;
+    const bool fr = __any_sync(0xffffffffu, full_row(g, x.la, r0 + lane) |
+                                                full_row(g, x.lb, r0 + lane + 32));
+    int m[2] = {x.m0, x.m1};
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      if (!fr && (m[w] == kTileDead || qt < band[w])) m[w] = kTileSkip;
+      else if (fr && m[w] != kTileSkip) m[w] |= kTileFull;
+    if (m[0] == kTileSkip && m[1] == kTileSkip) continue;
+    const int s = i % ST;
+    mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+    float* sl = stats + s * 2 * BQ;
+    sl[lane] = x.la;
+    sl[lane + 32] = x.lb;
+    sl[BQ + lane] = x.da;
+    sl[BQ + lane + 32] = x.db;
+    const float* kmt = km_row(g, b, h);
+    const bool vec = mask_vec(g, kmt);
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      if ((m[w] & 3) == kTileMixed)
+        copy_mask<LDM>(smask + s * BQ * LDM + kCell * w, kmt, g.km_q, r0,
+                       c0 + kCell * w, g.SQ, g.SK, vec);
+    cp_async_arrive(full + s);
+    if (lane == 0) {
+      sitem[s] = it;
+      smode[2 * s] = (uint8_t)m[0];
+      smode[2 * s + 1] = (uint8_t)m[1];
+      load_q(s, h, r0);
+    } else {
+      mbar_arrive(full + s);
+    }
+    ++i;
+  }
+  const int s = i % ST;
+  mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+  if (lane == 0) sitem[s] = -1;
+  mbar_arrive(full + s);
   mbar_arrive(full + s);
 }
 
@@ -1559,14 +1861,23 @@ __device__ __forceinline__ void grouped_block(int tiles, int* slice,
 }
 
 // dK/dV tiles: 128 keys a block (64 per consumer warpgroup), query tiles
-// of 64 rows in a ring of STAGES (Q, dO, lse, delta).
-template <int DMAX>
+// of 64 rows in a ring of STAGES (Q, dO, lse, delta). In the tile mode
+// (TM) each stage also holds its [64, LDM] fp32 mask tile (query rows
+// down, the block's 128 keys across), the item and the two warpgroups'
+// modes, in a ring of 2 at d 128 so that the mask tiles fit.
+template <int DMAX, bool TM = false>
 struct DkvCfg {
-  static constexpr int BK = 128, BQ = 64, STAGES = 3, MAX_GROUP = 64;
+  static constexpr int BK = 128, BQ = 64, STAGES = TM && DMAX > 64 ? 2 : 3,
+                       MAX_GROUP = 64;
   // the d 128 consumers need 240 registers; at d 64 the producer's
-  // stats loop and skip bits need 40 (each split spills nothing)
+  // stats loop and skip bits (the tile mode's item loop) need 40 (each
+  // split spills nothing)
   static constexpr int REGS_PRODUCER = DMAX > 64 ? kRegsProducer : 40;
   static constexpr int REGS_CONSUMER = DMAX > 64 ? kRegsConsumer : 232;
+  // the mask tile's row: 128 keys and 4 floats of padding, so that the
+  // consumers' reads down a key column in the S^T layout (a warp: 8 keys
+  // x 4 row pairs) fall in distinct banks
+  static constexpr int LDM = BK + 4;
   static constexpr int KV_BYTES = BK * DMAX * 2;
   static constexpr int Q_BYTES = BQ * DMAX * 2;
   static constexpr int OFF_V = KV_BYTES;
@@ -1575,7 +1886,12 @@ struct DkvCfg {
   static constexpr int OFF_BAR = OFF_STATS + STAGES * 2 * BQ * 4;
   // barriers: full_kv, full[STAGES], empty[STAGES]; then the skip bits
   static constexpr int OFF_SKIP = OFF_BAR + 8 * (1 + 2 * STAGES);
-  static constexpr size_t SMEM = OFF_SKIP + MAX_GROUP + 1024;
+  // TM: the mask tiles, then the items and the modes
+  static constexpr int OFF_MASK = (OFF_SKIP + MAX_GROUP + 15) / 16 * 16;
+  static constexpr int OFF_ITEM = OFF_MASK + (TM ? STAGES * BQ * LDM * 4 : 0);
+  static constexpr int OFF_MODE = OFF_ITEM + STAGES * 4;
+  static constexpr size_t SMEM =
+      TM ? OFF_MODE + 2 * STAGES + 1024 : OFF_SKIP + MAX_GROUP + 1024;
 };
 
 // dK and dV (kernel 3, and kernel 6 at d <= 64). grid = grouped_blocks(B
@@ -1592,8 +1908,16 @@ struct DkvCfg {
 // and Q MN-major). With KM, dmask rows are written per query head; a
 // warpgroup whose 64 keys are wholly padding for a head (padded_tile)
 // skips that head's work and writes its exact zeros, and a head that
-// both skip is not loaded.
-template <int DMAX, bool KM, bool DROP, typename T = bf16>
+// both skip is not loaded. TM (the tile mode): the producer announces the
+// items and each warpgroup's mode for them (tile_dkv_producer), every
+// query tile of each head considered; a skipped cell's p and ds are
+// exactly 0, a ZERO cell's scores add nothing, a MIXED cell's add the
+// mask values that the producer staged in shared memory, read down this
+// thread's key column, and a DEAD cell is visited only for a fully masked
+// row, whose p is full_row_p on every key (0 for the other rows); ds is 0
+// where the row does not see the key, and written / scale per element
+// into dm when it is given ([B * H, SQ, SK], zeros where skipped).
+template <int DMAX, bool KM, bool DROP, typename T = bf16, bool TM = false>
 __global__ void __launch_bounds__(kThreadsWs, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -1603,8 +1927,9 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ delta, T* __restrict__ dk,
                     T* __restrict__ dv, Geom g, Strides sdk_,
                     Strides sdv_) {
-  using C = DkvCfg<DMAX>;
+  using C = DkvCfg<DMAX, TM>;
   constexpr int BK = C::BK, BQ = C::BQ, ST = C::STAGES;
+  static_assert(!(KM && TM), "a key row or a tile mask, not both");
   char* sm = aligned_smem();
   float* stats = reinterpret_cast<float*>(sm + C::OFF_STATS);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
@@ -1612,6 +1937,9 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + ST;
   uint8_t* skip = reinterpret_cast<uint8_t*>(sm + C::OFF_SKIP);
+  float* smask = reinterpret_cast<float*>(sm + C::OFF_MASK);  // TM
+  int* sitem = reinterpret_cast<int*>(sm + C::OFF_ITEM);        // TM
+  uint8_t* smode = reinterpret_cast<uint8_t*>(sm + C::OFF_MODE);  // TM
   int bhk, kt;
   grouped_block((g.SK + BK - 1) / BK, &bhk, &kt);
   if (bhk >= g.B * g.HKV) return;
@@ -1623,7 +1951,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(full + s, 32);
+      // TM: each lane's copies and its stats writes
+      mbar_init(full + s, TM ? 64 : 32);
       mbar_init(empty + s, kConsumers);
     }
     mbar_fence_init();
@@ -1640,6 +1969,13 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   auto head_skip = [&](int gi) {
     return gi < C::MAX_GROUP ? (int)skip[gi] : 0;
   };
+  // Q and dO of query head h's rows [r0, r0 + 64) into stage s
+  auto load_q = [&](int s, int h, int r0) {
+    char* ring = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
+    mbar_expect_tx(full + s, 2 * C::Q_BYTES);
+    load_tile<BQ, DMAX>(ring, &tm_q, full + s, h, r0, b);
+    load_tile<BQ, DMAX>(ring + C::Q_BYTES, &tm_do, full + s, h, r0, b);
+  };
 
   if (threadIdx.x >= kConsumers) {  // the producer warpgroup
     regs_dec<C::REGS_PRODUCER>();
@@ -1650,28 +1986,30 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
         load_tile<BK, DMAX>(sm, &tm_k, full_kv, hk, c0, b);
         load_tile<BK, DMAX>(sm + C::OFF_V, &tm_v, full_kv, hk, c0, b);
       }
-      int i = 0;
-      for (int gi = 0; gi < group; ++gi) {
-        if (head_skip(gi) == 3) continue;
-        const int h = hk * group + gi;
-        const long long bh = (long long)b * g.H + h;
-        for (int qt = qt0; qt < qt1; ++qt, ++i) {
-          const int s = i % ST, r0 = qt * BQ;
-          mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
-          float* sl = stats + s * 2 * BQ;
-          for (int j = lane; j < BQ; j += 32) {
-            const int r = r0 + j;
-            sl[j] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
-            sl[BQ + j] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
-          }
-          if (lane == 0) {
-            char* ring = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
-            mbar_expect_tx(full + s, 2 * C::Q_BYTES);
-            load_tile<BQ, DMAX>(ring, &tm_q, full + s, h, r0, b);
-            load_tile<BQ, DMAX>(ring + C::Q_BYTES, &tm_do, full + s, h, r0,
-                                b);
-          } else {
-            mbar_arrive(full + s);
+      if constexpr (TM) {
+        tile_dkv_producer<BQ, ST, C::LDM>(g, b, hk, c0, lse, delta, stats,
+                                          smask, sitem, smode, full, empty,
+                                          load_q);
+      } else {
+        int i = 0;
+        for (int gi = 0; gi < group; ++gi) {
+          if (head_skip(gi) == 3) continue;
+          const int h = hk * group + gi;
+          const long long bh = (long long)b * g.H + h;
+          for (int qt = qt0; qt < qt1; ++qt, ++i) {
+            const int s = i % ST, r0 = qt * BQ;
+            mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+            float* sl = stats + s * 2 * BQ;
+            for (int j = lane; j < BQ; j += 32) {
+              const int r = r0 + j;
+              sl[j] = r < g.SQ ? lse[bh * g.SQ + r] : kNegInf;
+              sl[BQ + j] = r < g.SQ ? delta[bh * g.SQ + r] : 0.f;
+            }
+            if (lane == 0) {
+              load_q(s, h, r0);
+            } else {
+              mbar_arrive(full + s);
+            }
           }
         }
       }
@@ -1698,118 +2036,185 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     float acc_k[DMAX / 2], acc_v[DMAX / 2];
 #pragma unroll
     for (int j = 0; j < DMAX / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
-    mbar_wait(full_kv, 0);
-    int i = 0;
-    for (int gi = 0; gi < group; ++gi) {
-      const int h = hk * group + gi;
-      const long long bh = (long long)b * g.H + h;
-      const int sk = head_skip(gi);
-      float dm[2] = {0.f, 0.f};
-      if (sk != 3) {
-        const bool mine = !((sk >> wq) & 1);
-        float kmv[2] = {0.f, 0.f};
-        if (KM) {
-          const float* kmr = km_row(g, b, h);
+    // one item: query head bh's rows [r0, r0 + 64) from stage s, with the
+    // key row's values kmv (KM), the dropout salt (DROP) and the mode
+    // (TM); KM sums ds into dm. TM: the compile-time flags full_rows (the
+    // tile holds a fully masked row; the other tiles keep the plain
+    // arithmetic) and write_dm (ds / scale per element into g.dm).
+    auto item = [&](auto full_rows, auto write_dm, int s, int r0,
+                    long long bh, uint32_t salt, const float (&kmv)[2],
+                    int mode, float (&dm)[2]) {
+      constexpr bool FULL = decltype(full_rows)::value;
+      constexpr bool DMW = decltype(write_dm)::value;
+      const char* sQ = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
+      const char* sdO = sQ + C::Q_BYTES;
+      const float* sl = stats + s * 2 * BQ;
+      // TM: the stage's mask tile, from this thread's key column
+      const float* smk = smask + s * BQ * C::LDM + (kr - c0);
+      float st[32], dpt[32];
+      wg_fence();
 #pragma unroll
-          for (int r = 0; r < 2; ++r)
-            if (kr + 8 * r < g.SK) kmv[r] = kmr[kr + 8 * r];
-        }
-        const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
-        for (int qt = qt0; qt < qt1; ++qt, ++i) {
-          const int s = i % ST, r0 = qt * BQ;
-          mbar_wait(full + s, (i / ST) & 1);
-          const char* sQ = sm + C::OFF_RING + s * 2 * C::Q_BYTES;
-          const char* sdO = sQ + C::Q_BYTES;
-          const float* sl = stats + s * 2 * BQ;
-          if (mine) {
-            float st[32], dpt[32];
-            wg_fence();
+      for (int ks = 0; ks < DMAX / 16; ++ks)
+        wgmma_ss<64, T>(st, desc_kmajor<BK>(sm, 64 * wq, ks),
+                        desc_kmajor<BQ>(sQ, 0, ks), ks);
+      wg_commit();
 #pragma unroll
-            for (int ks = 0; ks < DMAX / 16; ++ks)
-              wgmma_ss<64, T>(st, desc_kmajor<BK>(sm, 64 * wq, ks),
-                           desc_kmajor<BQ>(sQ, 0, ks), ks);
-            wg_commit();
+      for (int ks = 0; ks < DMAX / 16; ++ks)
+        wgmma_ss<64, T>(dpt, desc_kmajor<BK>(sm + C::OFF_V, 64 * wq, ks),
+                        desc_kmajor<BQ>(sdO, 0, ks), ks);
+      wg_commit();
+      // the tile needs the causal, window or edge tests only where it
+      // crosses them
+      const int off = g.SK - g.SQ;
+      const bool masked =
+          r0 + BQ > g.SQ || c0 + BK > g.SK ||
+          (g.causal &&
+           (c0 + BK - 1 > r0 + off ||
+            (g.window > 0 && c0 <= r0 + BQ - 1 + off - g.window)));
+      // p (undropped) into st while dP^T is in flight
+      wg_wait<1>();
+      fence_regs(st);
 #pragma unroll
-            for (int ks = 0; ks < DMAX / 16; ++ks)
-              wgmma_ss<64, T>(dpt, desc_kmajor<BK>(sm + C::OFF_V, 64 * wq, ks),
-                           desc_kmajor<BQ>(sdO, 0, ks), ks);
-            wg_commit();
-            // the tile needs the causal, window or edge tests only where
-            // it crosses them
-            const int off = g.SK - g.SQ;
-            const bool masked =
-                r0 + BQ > g.SQ || c0 + BK > g.SK ||
-                (g.causal &&
-                 (c0 + BK - 1 > r0 + off ||
-                  (g.window > 0 && c0 <= r0 + BQ - 1 + off - g.window)));
-            // p (undropped) into st while dP^T is in flight
-            wg_wait<1>();
-            fence_regs(st);
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int col = 8 * j + 2 * tq + (e & 1), qr = r0 + col;
-                const float lse_q = sl[col];
-                // rows that saw no key in the forward have lse ~ -1e30
-                bool live = lse_q > 0.5f * kNegInf;
-                if (masked)
-                  live = live && qr >= qlo[e >> 1] && qr < qhi[e >> 1];
-                float x = st[4 * j + e] * g.scale;
-                if (KM) x += kmv[e >> 1];
-                st[4 * j + e] = live ? ex2((x - lse_q) * kLog2e) : 0.f;
-              }
-            wg_wait<0>();
-            fence_regs(dpt);
-            uint32_t pf[4][4], df[4][4];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              float pv[4], dsv[4];
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int col = 8 * j + 2 * tq + (e & 1);
-                const float p = st[4 * j + e];
-                float dpv = dpt[4 * j + e], pd = p;
-                if (DROP) {  // dp masked and scaled; dV takes the dropped p
-                  const float dmk =
-                      keep(g, salt, r0 + col, kr + 8 * (e >> 1)) ? g.dscale
-                                                                 : 0.f;
-                  dpv *= dmk;
-                  pd = p * dmk;
-                }
-                pv[e] = pd;
-                dsv[e] = p * (dpv - sl[BQ + col]) * g.scale;
-                dm[e >> 1] += dsv[e];
-              }
-              pf[j >> 1][2 * (j & 1)] = pack<T>(pv[0], pv[1]);
-              pf[j >> 1][2 * (j & 1) + 1] = pack<T>(pv[2], pv[3]);
-              df[j >> 1][2 * (j & 1)] = pack<T>(dsv[0], dsv[1]);
-              df[j >> 1][2 * (j & 1) + 1] = pack<T>(dsv[2], dsv[3]);
-            }
-            wg_fence();
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              wgmma_rs<DMAX, T>(acc_v, pf[kk], desc_mnmajor<BQ>(sdO, kk), 1);
-              wgmma_rs<DMAX, T>(acc_k, df[kk], desc_mnmajor<BQ>(sQ, kk), 1);
-            }
-            wg_commit();
-            wg_wait<0>();
-            fence_regs(acc_v);
-            fence_regs(acc_k);
-            fence_regs(pf);
-            fence_regs(df);
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * tq + (e & 1), qr = r0 + col;
+          const float lse_q = sl[col];
+          // rows that saw no key in the forward have lse ~ -1e30
+          const bool row_ok = lse_q > 0.5f * kNegInf;
+          bool live = row_ok;
+          if (masked)
+            live = live && qr >= qlo[e >> 1] && qr < qhi[e >> 1];
+          float x = st[4 * j + e] * g.scale;
+          if (KM) x += kmv[e >> 1];
+          if (TM && mode == kTileMixed) x += smk[col * C::LDM + 8 * (e >> 1)];
+          float p = live ? ex2((x - lse_q) * kLog2e) : 0.f;
+          if constexpr (FULL) {
+            // a DEAD cell is visited only beside a fully masked row, whose
+            // p is 1 / SK on every key
+            if (mode == kTileDead) p = 0.f;
+            if (!row_ok) p = kr + 8 * (e >> 1) < g.SK ? full_row_p(g, qr) : 0.f;
           }
-          mbar_arrive(empty + s);
+          st[4 * j + e] = p;
         }
-      }
-      if (KM) {  // this query head's dmask row (zeros where skipped)
+      wg_wait<0>();
+      fence_regs(dpt);
+      uint32_t pf[4][4], df[4][4];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float x = dm[r];
-          x += __shfl_xor_sync(0xffffffffu, x, 1);
-          x += __shfl_xor_sync(0xffffffffu, x, 2);
-          const int c = kr + 8 * r;
-          if (tq == 0 && c < g.SK) g.dm[bh * g.SK + c] = x / g.scale;
+      for (int j = 0; j < 8; ++j) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * tq + (e & 1), qr = r0 + col;
+          const float p = st[4 * j + e];
+          float dpv = dpt[4 * j + e], pd = p;
+          if (DROP) {  // dp masked and scaled; dV takes the dropped p
+            const float dmk =
+                keep(g, salt, qr, kr + 8 * (e >> 1)) ? g.dscale : 0.f;
+            dpv *= dmk;
+            pd = p * dmk;
+          }
+          pv[e] = pd;
+          dsv[e] = p * (dpv - sl[BQ + col]) * g.scale;
+          if constexpr (FULL) {
+            // 0 where the row does not see the key (a fully masked row's p
+            // is not)
+            if (masked && !(qr >= qlo[e >> 1] && qr < qhi[e >> 1]))
+              dsv[e] = 0.f;
+          }
+          if constexpr (DMW) {
+            const int kc = kr + 8 * (e >> 1);
+            if (qr < g.SQ && kc < g.SK)
+              g.dm[(bh * g.SQ + qr) * g.SK + kc] = dsv[e] / g.scale;
+          }
+          if (KM) dm[e >> 1] += dsv[e];
+        }
+        pf[j >> 1][2 * (j & 1)] = pack<T>(pv[0], pv[1]);
+        pf[j >> 1][2 * (j & 1) + 1] = pack<T>(pv[2], pv[3]);
+        df[j >> 1][2 * (j & 1)] = pack<T>(dsv[0], dsv[1]);
+        df[j >> 1][2 * (j & 1) + 1] = pack<T>(dsv[2], dsv[3]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<DMAX, T>(acc_v, pf[kk], desc_mnmajor<BQ>(sdO, kk), 1);
+        wgmma_rs<DMAX, T>(acc_k, df[kk], desc_mnmajor<BQ>(sQ, kk), 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      fence_regs(pf);
+      fence_regs(df);
+    };
+    mbar_wait(full_kv, 0);
+    if constexpr (TM) {  // the items as the producer announces them
+      const int nqt = (g.SQ + BQ - 1) / BQ;
+      const float kmv[2] = {0.f, 0.f};
+      float dm[2];
+      for (int i = 0;; ++i) {
+        const int s = i % ST;
+        mbar_wait(full + s, (i / ST) & 1);
+        const int it = sitem[s];
+        if (it < 0) break;
+        const int flags = smode[2 * s + wq], mode = flags & 3;
+        if (mode != kTileSkip) {
+          const int gi = it / nqt, r0 = (it - gi * nqt) * BQ;
+          const long long bh = (long long)b * g.H + hk * group + gi;
+          const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
+          const bool full_rows = flags & kTileFull;
+          if (g.dm) {
+            if (full_rows)
+              item(Flag<true>(), Flag<true>(), s, r0, bh, salt, kmv, mode,
+                   dm);
+            else
+              item(Flag<false>(), Flag<true>(), s, r0, bh, salt, kmv, mode,
+                   dm);
+          } else if (full_rows) {
+            item(Flag<true>(), Flag<false>(), s, r0, bh, salt, kmv, mode,
+                 dm);
+          } else {
+            item(Flag<false>(), Flag<false>(), s, r0, bh, salt, kmv, mode,
+                 dm);
+          }
+        }
+        mbar_arrive(empty + s);
+      }
+    } else {
+      int i = 0;
+      for (int gi = 0; gi < group; ++gi) {
+        const int h = hk * group + gi;
+        const long long bh = (long long)b * g.H + h;
+        const int sk = head_skip(gi);
+        float dm[2] = {0.f, 0.f};
+        if (sk != 3) {
+          const bool mine = !((sk >> wq) & 1);
+          float kmv[2] = {0.f, 0.f};
+          if (KM) {
+            const float* kmr = km_row(g, b, h);
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              if (kr + 8 * r < g.SK) kmv[r] = kmr[kr + 8 * r];
+          }
+          const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
+          for (int qt = qt0; qt < qt1; ++qt, ++i) {
+            const int s = i % ST;
+            mbar_wait(full + s, (i / ST) & 1);
+            if (mine)
+              item(Flag<false>(), Flag<false>(), s, qt * BQ, bh, salt, kmv,
+                   kTileMixed, dm);
+            mbar_arrive(empty + s);
+          }
+        }
+        if (KM) {  // this query head's dmask row (zeros where skipped)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float x = dm[r];
+            x += __shfl_xor_sync(0xffffffffu, x, 1);
+            x += __shfl_xor_sync(0xffffffffu, x, 2);
+            const int c = kr + 8 * r;
+            if (tq == 0 && c < g.SK) g.dm[bh * g.SK + c] = x / g.scale;
+          }
         }
       }
     }
@@ -1836,10 +2241,19 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
 // dQ tiles: 128 query rows a block (64 per consumer warpgroup), Q and dO
 // resident, key tiles of 64 rows in a ring of STAGES (K and V). With a
 // key row (KM) each stage also holds its key tile's row (fp32) and the
-// tile's index (the plain layout is unchanged).
-template <int DMAX, bool KM = false>
+// tile's index; in the tile mode (TM) its [128, LDM] fp32 mask tile, the
+// tile's index and the two warpgroups' modes, in a ring of 2 at d 128 so
+// that the mask tiles fit (the plain layout is unchanged).
+template <int DMAX, bool KM = false, bool TM = false>
 struct DqCfg {
-  static constexpr int BQ = 128, BK = 64, STAGES = 3;
+  static constexpr int BQ = 128, BK = 64, STAGES = TM && DMAX > 64 ? 2 : 3;
+  // TM: the producer's class and copy loops need 40 registers
+  static constexpr int REGS_PRODUCER = TM ? 40 : kRegsProducer;
+  static constexpr int REGS_CONSUMER = TM ? 232 : kRegsConsumer;
+  // the mask tile's row: 64 keys and 8 floats of padding, so that the
+  // consumers' float2 reads in the accumulator's layout (a half-warp: 4
+  // rows x 4 column pairs) fall in distinct banks
+  static constexpr int LDM = BK + 8;
   static constexpr int Q_BYTES = BQ * DMAX * 2;   // Q, then dO
   static constexpr int KV_BYTES = BK * DMAX * 2;  // K or V of one stage
   static constexpr int OFF_DO = Q_BYTES;
@@ -1850,9 +2264,11 @@ struct DqCfg {
   // barriers: full_q, full_k[STAGES], full_v[STAGES], empty[STAGES]
   static constexpr int BAR_BYTES = 8 * (1 + 3 * STAGES);
   static constexpr int OFF_KM = (OFF_BAR + BAR_BYTES + 15) / 16 * 16;
-  static constexpr int OFF_KT = OFF_KM + STAGES * BK * 4;
-  static constexpr size_t SMEM =
-      KM ? OFF_KT + STAGES * 4 + 1024 : OFF_BAR + BAR_BYTES + 1024;
+  static constexpr int OFF_KT =
+      OFF_KM + STAGES * (TM ? BQ * LDM : KM ? BK : 0) * 4;
+  static constexpr int OFF_MODE = OFF_KT + STAGES * 4;
+  static constexpr size_t SMEM = KM || TM ? OFF_MODE + 2 * STAGES + 1024
+                                          : OFF_BAR + BAR_BYTES + 1024;
 };
 
 // dQ (kernel 2, and kernel 5: with KM and DROP). grid =
@@ -1876,11 +2292,15 @@ struct DqCfg {
 // which also announces the tiles, first to last without causal masking):
 // their p, and so their ds, is exactly 0. DROP: dp is masked by the
 // counter hash and scaled by dscale before ds (p itself is not dropped in
-// dQ). At d 128 with a key row and FUSED, delta is summed before the key
-// loop (see kEarly). TM (the tile mode, not FUSED): every key tile, each
-// score adds the mask's value at (row, key) read from device memory, a
-// fully masked row (lse <= -0.5e30) takes full_row_p, and ds is 0 where
-// the row does not see the key.
+// dQ). At d 128 with a key row, and in the tile mode, FUSED sums delta
+// before the key loop (see kEarly). TM (the tile mode): the
+// producer announces the key tiles of the causal band and each warpgroup's
+// mode for them (tile_dq_producer): a skipped cell's ds is exactly 0, a
+// ZERO cell's scores add nothing, a MIXED cell's add the mask values that
+// the producer staged in shared memory, read here in the accumulator's
+// layout, and a DEAD cell is visited only for a fully masked row (lse <=
+// -0.5e30), whose p is full_row_p on every key (0 for the other rows);
+// ds is 0 where the row does not see the key.
 template <int DMAX, bool FUSED, bool KM, bool DROP, typename T = bf16,
           bool TM = false>
 __global__ void __launch_bounds__(kThreadsWs, 1)
@@ -1892,8 +2312,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const float* __restrict__ lse, float* __restrict__ delta,
                    T* __restrict__ dq, Geom g, Strides so_,
                    Strides sdq_) {
-  using C = DqCfg<DMAX, KM>;
+  using C = DqCfg<DMAX, KM, TM>;
   constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
+  static_assert(!(KM && TM), "a key row or a tile mask, not both");
+  static_assert(BK == kCell, "a key tile is one cell's keys");
   char* sm = aligned_smem();
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
   uint64_t* full_q = bars;
@@ -1909,20 +2331,20 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = (nqt - 1 - qi) * BQ;
   int kt0, kt1;
   key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
-  if (TM) kt0 = 0, kt1 = (g.SK + BK - 1) / BK;
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < ST; ++s) {
-      // KM: and the producer warp's 32 lanes, once their copies of the
-      // tile's key row land
-      mbar_init(full_k + s, KM ? 33 : 1);
+      // KM, TM: and the producer warp's 32 lanes, once their copies of the
+      // tile's key row or mask land
+      mbar_init(full_k + s, KM || TM ? 33 : 1);
       mbar_init(full_v + s, 1);
       mbar_init(empty + s, kConsumers);
     }
     mbar_fence_init();
   }
   __syncthreads();
-  int* skt = reinterpret_cast<int*>(sm + C::OFF_KT);  // KM: tile indices
+  int* skt = reinterpret_cast<int*>(sm + C::OFF_KT);  // KM, TM: tile indices
+  uint8_t* smode = reinterpret_cast<uint8_t*>(sm + C::OFF_MODE);  // TM
   auto load_kv = [&](int s, int kt) {
     mbar_expect_tx(full_k + s, C::KV_BYTES);
     load_tile<BK, DMAX>(sm + C::OFF_K + s * C::KV_BYTES, &tm_k, full_k + s,
@@ -1933,7 +2355,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   };
 
   if (threadIdx.x >= kConsumers) {  // the producer warpgroup
-    regs_dec<kRegsProducer>();
+    regs_dec<C::REGS_PRODUCER>();
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(full_q, 2 * C::Q_BYTES);
       load_tile<BQ, DMAX>(sm, &tm_q, full_q, h, r0, b);
@@ -1945,6 +2367,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
             g, km_row(g, b, h), kt0, kt1,
             reinterpret_cast<float*>(sm + C::OFF_KM), skt, full_k, empty,
             load_kv);
+    } else if constexpr (TM) {  // its first warp
+      if (threadIdx.x < kConsumers + 32)
+        tile_dq_producer<ST, C::LDM>(
+            g, b, h, r0, lse + (long long)bh * g.SQ, kt0, kt1,
+            reinterpret_cast<float*>(sm + C::OFF_KM), skt, smode, full_k,
+            empty, load_kv);
     } else if (threadIdx.x == kConsumers) {
       for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
         const int s = i % ST;
@@ -1953,7 +2381,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {  // the consumer warpgroups
-    regs_inc<kRegsConsumer>();
+    regs_inc<C::REGS_CONSUMER>();
     // warpgroup wq owns tile rows 64 wq .. 64 wq + 63; this thread rows
     // rw and rw + 8 of them
     const int wq = threadIdx.x >> 7;
@@ -1971,7 +2399,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     float lse2[2], dl[2];
     uint32_t hrow[2];  // DROP: the hash's row terms, salt included
     bool full[2];      // TM: the row is fully masked (or past SQ)
-    const float* kmt = TM ? km_row(g, b, h) : nullptr;  // TM: (b, h)'s mask
+    float fp[2];       // TM: its p (full_row_p)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + rw + 8 * r, diag = row + offset;
@@ -1980,6 +2408,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const float l = row < g.SQ ? lse[rows + row] : kNegInf;
       lse2[r] = l > 0.5f * kNegInf ? l * kLog2e : INFINITY;
       full[r] = !(l > 0.5f * kNegInf);
+      fp[r] = full_row_p(g, row);
       dl[r] = !FUSED && row < g.SQ ? delta[rows + row] : 0.f;
       if constexpr (DROP)
         hrow[r] = (uint32_t)row * kRowMul + head_salt(g, bh);
@@ -1991,8 +2420,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // 128-byte swizzle). The sum runs once the first key tile's products
     // are issued, under them (after the loop if the rows see no key); at
     // d 128 with a key row before the loop, since O's registers beside the
-    // first tile's spill there.
-    constexpr bool kEarly = FUSED && KM && DMAX > 64;
+    // first tile's spill there, and in the tile mode before the loop too:
+    // a sum inside the branch on the stage's mode (a skipped first tile)
+    // makes ptxas serialize the wgmma instructions after it.
+    constexpr bool kEarly = FUSED && ((KM && DMAX > 64) || TM);
     const int t = threadIdx.x & 127, rr = 64 * wq + (t >> 1);
     uint4 ov[DMAX / 16];
     if (FUSED) {
@@ -2035,24 +2466,33 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     float acc[DMAX / 2];
 #pragma unroll
     for (int j = 0; j < DMAX / 2; ++j) acc[j] = 0.f;
-    int visited = 0;  // KM: the tiles visited
-    // the key tiles from the last to the first; KM: as the producer
+    constexpr bool kAnnounced = KM || TM;  // the producer names the tiles
+    int visited = 0;  // KM, TM: the tiles announced
+    // the key tiles from the last to the first; KM, TM: as the producer
     // announces them
-    for (int i = 0, kt = kt1 - 1; KM || kt >= kt0; --kt, ++i) {
+    for (int i = 0, kt = kt1 - 1; kAnnounced || kt >= kt0; --kt, ++i) {
       const int s = i % ST;
       const uint32_t ph = (i / ST) & 1;
-      if constexpr (KM) {
+      if constexpr (kAnnounced) {
         mbar_wait(full_k + s, ph);
         kt = skt[s];
         if (kt < 0) break;
         visited = i + 1;
       }
+      const int flags = TM ? smode[2 * s + wq] : kTileMixed;
+      const int mode = flags & 3;
+      if (TM && mode == kTileSkip) {  // this warpgroup's ds is 0 here
+        mbar_arrive(empty + s);
+        continue;
+      }
       const int c0 = kt * BK;
       const char* sK = sm + C::OFF_K + s * C::KV_BYTES;
       const char* sV = sm + C::OFF_V + s * C::KV_BYTES;
-      // KM: the tile's key row from this thread's first column, 2 tq
+      // KM: the tile's key row from this thread's first column, 2 tq; TM:
+      // the stage's mask tile from this thread's row rw and column 2 tq
       const float* skm =
-          reinterpret_cast<const float*>(sm + C::OFF_KM) + s * BK + 2 * tq;
+          reinterpret_cast<const float*>(sm + C::OFF_KM) +
+          (TM ? s * BQ * C::LDM + rw * C::LDM : s * BK) + 2 * tq;
       float sc[BK / 2], dp[BK / 2];
       mbar_wait(full_k + s, ph);
       wg_fence();
@@ -2080,29 +2520,43 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sc);
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        float2 kv = make_float2(0.f, 0.f);
+        float2 kv = make_float2(0.f, 0.f), mv[2] = {kv, kv};
         if constexpr (KM) kv = *reinterpret_cast<const float2*>(skm + 8 * j);
+        if (TM && mode == kTileMixed) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            mv[r] = *reinterpret_cast<const float2*>(skm + 8 * r * C::LDM +
+                                                     8 * j);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
           float p;
-          if constexpr (TM) {
-            const int row = r0 + rw + 8 * r;
-            p = c >= g.SK                 ? 0.f
-                : full[r]                 ? full_row_p(g, row)
-                : c < lo[r] || c >= hi[r] ? 0.f
-                                          : ex2(fmaf(sc[4 * j + e], sl2,
-                                                     tile_mask(g, kmt, row, c) *
-                                                             kLog2e -
-                                                         lse2[r]));
+          if constexpr (TM) {  // a fully masked row's p: below
+            p = ex2(fmaf(sc[4 * j + e], sl2,
+                         (e & 1 ? mv[r].y : mv[r].x) * kLog2e - lse2[r]));
           } else {
             p = KM ? ex2(fmaf(sc[4 * j + e], sl2,
                               (e & 1 ? kv.y : kv.x) * kLog2e - lse2[r]))
                    : ex2(fmaf(sc[4 * j + e], sl2, -lse2[r]));
-            if (masked && (c < lo[r] || c >= hi[r] || c >= g.SK)) p = 0.f;
           }
+          if (masked && (c < lo[r] || c >= hi[r] || c >= g.SK)) p = 0.f;
           sc[4 * j + e] = p;
         }
+      }
+      // TM, only where the warpgroup's rows hold a fully masked row (so
+      // the other tiles keep the plain arithmetic): such a row's p is
+      // full_row_p on every key, and the other rows' is 0 on a DEAD cell
+      const bool has_full = TM && (flags & kTileFull);
+      if (has_full) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
+            if (mode == kTileDead) sc[4 * j + e] = 0.f;
+            if (full[r]) sc[4 * j + e] = c < g.SK ? fp[r] : 0.f;
+          }
       }
       wg_wait<0>();
       fence_regs(dp);
@@ -2122,7 +2576,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       ? dpv * g.dscale
                       : 0.f;
           ds[e] = sc[4 * j + e] * (dpv - dl[e >> 1]) * g.scale;
-          if constexpr (TM) {  // 0 where the row does not see the key
+          if (has_full && masked) {  // 0 where the row does not see the key
             const int c = c0 + 8 * j + 2 * tq + (e & 1);
             if (c < lo[e >> 1] || c >= hi[e >> 1]) ds[e] = 0.f;
           }
@@ -2140,7 +2594,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(da);
       mbar_arrive(empty + s);
     }
-    if (FUSED && !kEarly && (KM ? visited == 0 : kt1 <= kt0)) sum_delta();
+    if (FUSED && !kEarly && (kAnnounced ? visited == 0 : kt1 <= kt0))
+      sum_delta();
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + rw + 8 * r;
@@ -2359,7 +2814,7 @@ cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
                          void* delta, void* dq, const Geom& g,
                          const long long* st, Strides so_, Strides sdq_,
                          cudaStream_t stream) {
-  using C = wg::DqCfg<DMAX, KM>;
+  using C = wg::DqCfg<DMAX, KM, TM>;
   CUtensorMap tq, tk, tv, tdo;
   int err = tile_map<T>(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
@@ -2393,13 +2848,14 @@ cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
       Strides{}, strides_at(st, 4), stream);
 }
 
-template <int DMAX, bool KM, bool DROP, typename T = wg::bf16>
+template <int DMAX, bool KM, bool DROP, typename T = wg::bf16,
+          bool TM = false>
 cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv,
                           const Geom& g, const long long* st,
                           cudaStream_t stream) {
-  using C = wg::DkvCfg<DMAX>;
+  using C = wg::DkvCfg<DMAX, TM>;
   CUtensorMap tq, tk, tv, tdo;
   int err = tile_map<T>(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
@@ -2410,7 +2866,7 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
     err = tile_map<T>(&tdo, dout, g.B, g.SQ, g.H, g.d, strides_at(st, 3),
                    C::BQ);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_bwd_dkv_wgmma<DMAX, KM, DROP, T>;
+  auto kernel = wg::flash_bwd_dkv_wgmma<DMAX, KM, DROP, T, TM>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   const int grid =
@@ -2421,20 +2877,20 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// d <= 64 (kernel 6, and kernel 3 at d <= 64) and d <= 128 without key
-// row or dropout (kernel 3 on the Llama path) run the wgmma kernel; the
-// key-row and dropout variants at 64 < d <= 128 and the tile mode at
-// every d <= 128 the mma.sync template.
+// d <= 64 (kernel 6, and kernel 3 at d <= 64), d <= 128 without key row
+// or dropout (kernel 3 on the Llama path) and the tile mode at every d <=
+// 128 run the wgmma kernel; the key-row and dropout variants at 64 < d <=
+// 128 the mma.sync template.
 template <int DMAX, bool KM, bool DROP, bool TM = false>
 cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, const Geom& g, const long long* st,
                        cudaStream_t stream) {
-  if constexpr (!TM && (DMAX == 64 || (!KM && !DROP))) {
-    return bwd_dkv_wgmma<DMAX, KM, DROP>(q, k, v, dout, lse, delta, dk, dv,
-                                         g, st, stream);
+  if constexpr (TM || DMAX == 64 || (!KM && !DROP)) {
+    return bwd_dkv_wgmma<DMAX, KM, DROP, wg::bf16, TM>(
+        q, k, v, dout, lse, delta, dk, dv, g, st, stream);
   } else {
-    auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP, TM>;
+    auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP>;
     const size_t smem = tc::Smem<DMAX>::dkv;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
@@ -2462,6 +2918,8 @@ Geom make_geom(const int* geom, float scale, const void* km, void* dm,
   g.km_b = hb ? g.SK : (long long)g.H * g.SK;
   g.km_h = hb ? 0 : g.SK;
   g.km_q = 0;
+  g.tcls = nullptr;
+  g.tc_b = g.tc_h = 0;
   g.seed0 = drop ? drop[0] : 0u;
   g.seed1 = drop ? drop[1] : 0u;
   g.thresh = drop ? drop[2] : 0u;
@@ -2566,9 +3024,10 @@ int bwd_dkv_entry(const void* q, const void* k, const void* v,
                     (cudaStream_t)stream);
 }
 
-// The tile mode (TM): bf16 with d <= 128 on the wgmma forward and dQ and
-// the mma.sync dK/dV, fp32 (any d) and bf16 with d > 128 on the fp32-FMA
-// kernels; no float16 and no window.
+// The tile mode (TM): bf16 with d <= 128 on the wgmma kernels (the
+// backward ones reading the class table), fp32 (any d) and bf16 with d >
+// 128 on the fp32-FMA kernels, which visit every tile; no float16 and no
+// window.
 #define PT_TILE_FAMILY(FN, DROP, ...)                                        \
   do {                                                                     \
     if (dtype == kBFloat16) {                                              \
@@ -2595,14 +3054,19 @@ int bwd_dkv_entry(const void* q, const void* k, const void* v,
   } while (0)
 
 // kms: the tile mode mask's batch, head and query-row strides (elements,
-// 0 over a broadcast dim); its key stride is 1.
+// 0 over a broadcast dim; its key stride is 1), then the class table's
+// batch and head strides (0 over a broadcast dim); tcls: the class table
+// (the backward kernels on wgmma).
 Geom tile_geom(const int* geom, float scale, const void* km,
-               const long long* kms, void* dm, const unsigned* drop,
-               float dscale) {
+               const long long* kms, const void* tcls, void* dm,
+               const unsigned* drop, float dscale) {
   Geom g = make_geom(geom, scale, km, dm, drop, dscale, 0);
   g.km_b = kms[0];
   g.km_h = kms[1];
   g.km_q = kms[2];
+  g.tcls = (const uint8_t*)tcls;
+  g.tc_b = kms[3];
+  g.tc_h = kms[4];
   return g;
 }
 
@@ -2639,33 +3103,69 @@ int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
 #undef PT_DQ_DELTA
 }
 
+// The backward's wgmma kernels (bf16, d <= 128) read the class table.
+bool wgmma_classes_given(const Geom& g, int dtype) {
+  return dtype != kBFloat16 || g.d > 128 || g.tcls;
+}
+
 int tile_fwd_entry(const void* q, const void* k, const void* v, void* o,
                    void* lse, const void* km, const long long* kms,
                    const int* geom, float scale, const long long* strides,
                    const unsigned* drop, float dscale, int dtype,
                    void* stream) {
-  const Geom g = tile_geom(geom, scale, km, kms, nullptr, drop, dscale);
+  const Geom g =
+      tile_geom(geom, scale, km, kms, nullptr, nullptr, drop, dscale);
   PT_TILE_DISPATCH(fwd, q, k, v, o, lse, g, strides, (cudaStream_t)stream);
 }
 
 int tile_bwd_dq_entry(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, const void* km, const long long* kms,
-                      const int* geom, float scale, const long long* strides,
-                      const unsigned* drop, float dscale, int dtype,
-                      void* stream) {
-  const Geom g = tile_geom(geom, scale, km, kms, nullptr, drop, dscale);
+                      void* dq, const void* km, const void* tcls,
+                      const long long* kms, const int* geom, float scale,
+                      const long long* strides, const unsigned* drop,
+                      float dscale, int dtype, void* stream) {
+  const Geom g = tile_geom(geom, scale, km, kms, tcls, nullptr, drop, dscale);
+  if (!wgmma_classes_given(g, dtype)) return cudaErrorInvalidValue;
   PT_TILE_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, g, strides,
                    (cudaStream_t)stream);
+}
+
+// The tile mode's dQ that also computes delta (bf16, d <= 128): strides
+// of q, k, v, dout, out, dq.
+int tile_bwd_dq_delta_entry(const void* q, const void* k, const void* v,
+                            const void* dout, const void* out,
+                            const void* lse, void* delta, void* dq,
+                            const void* km, const void* tcls,
+                            const long long* kms, const int* geom,
+                            float scale, const long long* strides,
+                            const unsigned* drop, float dscale, int dtype,
+                            void* stream) {
+  const Geom g = tile_geom(geom, scale, km, kms, tcls, nullptr, drop, dscale);
+  if (dtype != kBFloat16 || g.d % 8 || g.d > 128 || g.H % g.HKV ||
+      g.window || !g.km || !g.tcls)
+    return cudaErrorInvalidValue;
+  const Strides so_ = strides_at(strides, 4), sdq_ = strides_at(strides, 5);
+#define PT_TILE_DQ_DELTA(DROP)                                              \
+  return g.d <= 64 ? bwd_dq_wgmma<64, true, false, DROP, wg::bf16, true>(   \
+                         q, k, v, dout, out, lse, delta, dq, g, strides,    \
+                         so_, sdq_, (cudaStream_t)stream)                   \
+                   : bwd_dq_wgmma<128, true, false, DROP, wg::bf16, true>(  \
+                         q, k, v, dout, out, lse, delta, dq, g, strides,    \
+                         so_, sdq_, (cudaStream_t)stream)
+  if (drop) PT_TILE_DQ_DELTA(true);
+  PT_TILE_DQ_DELTA(false);
+#undef PT_TILE_DQ_DELTA
 }
 
 int tile_bwd_dkv_entry(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, const void* km, void* dm,
-                       const long long* kms, const int* geom, float scale,
+                       const void* tcls, const long long* kms,
+                       const int* geom, float scale,
                        const long long* strides, const unsigned* drop,
                        float dscale, int dtype, void* stream) {
-  const Geom g = tile_geom(geom, scale, km, kms, dm, drop, dscale);
+  const Geom g = tile_geom(geom, scale, km, kms, tcls, dm, drop, dscale);
+  if (!wgmma_classes_given(g, dtype)) return cudaErrorInvalidValue;
   PT_TILE_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, g, strides,
                    (cudaStream_t)stream);
 }
@@ -2784,9 +3284,12 @@ extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
 
 // The tile mode of the flash entries: km is an fp32 mask that broadcasts
 // to [B, H, SQ, SK] with the strides kms = {batch, head, query row} (0
-// over a broadcast dim) and a unit key stride, added to every score; dm
-// (or null) receives ds / scale per element as [B * H, SQ, SK] fp32.
-// Other arguments as the pt_flash_* entries.
+// over a broadcast dim) and a unit key stride, added to every score, then
+// the class table's {batch, head} strides (tile_geom); tcls (the backward
+// entries): the class table of pt_flash_tile_classes, required for bf16
+// at d <= 128 (null otherwise); dm (or null) receives ds / scale per
+// element as [B * H, SQ, SK] fp32 (zeroed by the caller). Other arguments
+// as the pt_flash_* entries.
 extern "C" int pt_flash_tile_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, const void* km,
                                  const long long* kms, const int* geom,
@@ -2801,23 +3304,54 @@ extern "C" int pt_flash_tile_bwd_dq(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
                                     void* dq, const void* km,
-                                    const long long* kms, const int* geom,
-                                    float scale, const long long* strides,
+                                    const void* tcls, const long long* kms,
+                                    const int* geom, float scale,
+                                    const long long* strides,
                                     const unsigned* drop, float dscale,
                                     int dtype, void* stream) {
-  return tile_bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, kms, geom,
-                           scale, strides, drop, dscale, dtype, stream);
+  return tile_bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, tcls, kms,
+                           geom, scale, strides, drop, dscale, dtype, stream);
+}
+
+// dQ and delta = rowsum(dO * O) in one launch (bf16, d <= 128; dropout
+// allowed): delta [B * H, SQ] fp32 is written, not read. q, k, v, dout,
+// out, dq strides.
+extern "C" int pt_flash_tile_bwd_dq_delta(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* out, const void* lse, void* delta, void* dq, const void* km,
+    const void* tcls, const long long* kms, const int* geom, float scale,
+    const long long* strides, const unsigned* drop, float dscale, int dtype,
+    void* stream) {
+  return tile_bwd_dq_delta_entry(q, k, v, dout, out, lse, delta, dq, km,
+                                 tcls, kms, geom, scale, strides, drop,
+                                 dscale, dtype, stream);
 }
 
 extern "C" int pt_flash_tile_bwd_dkv(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
                                      void* dk, void* dv, const void* km,
-                                     void* dm, const long long* kms,
-                                     const int* geom, float scale,
-                                     const long long* strides,
+                                     void* dm, const void* tcls,
+                                     const long long* kms, const int* geom,
+                                     float scale, const long long* strides,
                                      const unsigned* drop, float dscale,
                                      int dtype, void* stream) {
-  return tile_bwd_dkv_entry(q, k, v, dout, lse, delta, dk, dv, km, dm, kms,
-                            geom, scale, strides, drop, dscale, dtype, stream);
+  return tile_bwd_dkv_entry(q, k, v, dout, lse, delta, dk, dv, km, dm, tcls,
+                            kms, geom, scale, strides, drop, dscale, dtype,
+                            stream);
+}
+
+// The tile mode's class table: km and kms[0..2] as above, mb and mh the
+// table's batch and head counts (1 over a broadcast dim); out: uint8 [mb,
+// mh, ceil(SQ / 64), ceil(SK / 64)] (tile_classes_kernel).
+extern "C" int pt_flash_tile_classes(const void* km, const long long* kms,
+                                     int mb, int mh, int SQ, int SK,
+                                     void* out, void* stream) {
+  if (mb < 1 || mh < 1 || SQ < 1 || SK < 1 || mb * mh > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((SK + kCell - 1) / kCell, (SQ + kCell - 1) / kCell,
+                  mb * mh);
+  tile_classes_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)km, kms[0], kms[1], kms[2], mh, SQ, SK, (uint8_t*)out);
+  return cudaGetLastError();
 }

@@ -99,6 +99,17 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
+// Copy `bytes` (0 to 16) from device to shared memory asynchronously and
+// zero the rest of the 16 (src, 16-byte aligned, is read only where bytes
+// > 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 // One arrival on `bar` once this thread's earlier cp.async copies have
 // landed (.noinc: the barrier's count includes it).
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {

@@ -74,19 +74,29 @@ either full or 1 and whose key dim is full and contiguous. The kernels
 read it through its strides (0 over a broadcast dim) and add
 ``mask[b, h, r, c]`` to score ``(r, c)`` before the causal mask, as the
 reference's composite adds ``logits + mask`` (``nn/functional/
-attention.py:37-45``); no TPU kernel takes such a mask. It runs every
-key and query tile (no tile is skipped), and it has no window. A row
-whose every score is the reference's ``-1e30`` (lse ``<= -0.5e30``) is
-fully masked: its softmax is uniform over the ``sk`` keys, as the
-reference's softmax of equal scores is, and its dS is 0 where the row
-does not see the key (the causal mask). :func:`flash_bwd_dkv` returns
-the mask's gradient ``ds / scale`` per element as ``[b * h, sq, sk]``
-fp32 when ``tmask_grad`` is set; the caller sums it over the broadcast
-dims. Its launches count on ``flash_fwd.tile_launches``,
-``flash_bwd_dq.tile_launches`` and ``flash_bwd_dkv.tile_launches``, not
-on ``.launches``. bfloat16 at ``d <= 128`` runs the wgmma forward and
-dQ and the mma.sync dK/dV; fp32 and ``d > 128`` the fp32-FMA kernels;
-float16 raises.
+attention.py:37-45``); no TPU kernel takes such a mask. It has no
+window. A row whose every score is the reference's ``-1e30`` (lse ``<=
+-0.5e30``) is fully masked: its softmax is uniform over the ``sk``
+keys, as the reference's softmax of equal scores is, and its dS is 0
+where the row does not see the key (the causal mask).
+:func:`flash_bwd_dkv` returns the mask's gradient ``ds / scale`` per
+element as ``[b * h, sq, sk]`` fp32 when ``tmask_grad`` is set; the
+caller sums it over the broadcast dims. bfloat16 at ``d <= 128`` runs
+the wgmma kernels; fp32 and ``d > 128`` the fp32-FMA kernels, which
+visit every tile; float16 raises. On wgmma the backward skips what is
+exactly zero: :func:`tile_classes` (a kernel of its own) classes each
+64 x 64 cell of the mask as DEAD (every value at or below ``-0.5e30``),
+ZERO (every value 0) or MIXED, once per backward; dQ and dK/dV skip a
+DEAD cell (its p is 0) unless its rows hold a fully masked row, dK/dV
+the query tiles before the causal band likewise, dQ every tile past it;
+a ZERO cell adds nothing, and a MIXED cell's mask is staged in shared
+memory by the producer warp. dQ computes delta itself
+(:func:`flash_bwd_dq_delta` with ``tmask``), dK/dV runs the wgmma kernel
+(a ring of 2 stages at ``d > 64``, where the mask tiles fill shared
+memory). Its launches count on ``flash_fwd.tile_launches``,
+``flash_bwd_dq.tile_launches`` (either dQ entry) and
+``flash_bwd_dkv.tile_launches``, not on ``.launches``, and the class
+pass on ``tile_classes.launches``.
 
 Wrapper rules: CPU tensors go to the plain versions
 (:func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref`,
@@ -107,10 +117,15 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_dq_delta", "flash_fwd_ref", "flash_bwd_dq_ref",
-           "flash_bwd_dkv_ref", "flash_bwd_dq_delta_ref"]
+           "flash_bwd_dq_delta", "tile_classes", "flash_fwd_ref",
+           "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "flash_bwd_dq_delta_ref",
+           "tile_classes_ref"]
 
 NEG_INF = -1e30
+# the tile mode's cells and their classes (csrc's kCell, kTileMixed,
+# kTileZero, kTileDead)
+CELL = 64
+TILE_MIXED, TILE_ZERO, TILE_DEAD = 0, 1, 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1,  # flash_attention.cu
                torch.float16: 2}
 _M32 = 0xFFFFFFFF
@@ -210,6 +225,13 @@ def _check_kmask(kmask, rows, q, k):
                          f"{sk}] tensor on {q.device}")
 
 
+def _mask_strides(tmask):
+    """A 4-D mask's (batch, head, query-row) strides in elements, 0 over a
+    broadcast dim (size 1)."""
+    return tuple(0 if n == 1 else st
+                 for n, st in zip(tmask.shape[:3], tmask.stride()[:3]))
+
+
 def _check_tmask(tmask, q, k):
     """Raise ``ValueError`` unless ``tmask`` is a float32 4-D tensor on
     q's device that broadcasts to ``[b, h, sq, sk]`` with a full,
@@ -227,8 +249,7 @@ def _check_tmask(tmask, q, k):
                          f"full, contiguous key dim; got "
                          f"{getattr(tmask, 'dtype', type(tmask))} "
                          f"{tuple(getattr(tmask, 'shape', ()))}")
-    return tuple(0 if n == 1 else st
-                 for n, st in zip(tmask.shape[:3], tmask.stride()[:3]))
+    return _mask_strides(tmask)
 
 
 def _threshold(rate):
@@ -476,6 +497,29 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale=None,
     return dk.to(k.dtype), dv.to(v.dtype), dmask
 
 
+def tile_classes_ref(tmask, sq, sk):
+    """Plain version of :func:`tile_classes`: uint8 ``[mb, mh, ceil(sq /
+    64), ceil(sk / 64)]``, the class of each 64 x 64 cell of the mask
+    (``mb``, ``mh``: 1 over a broadcast batch or head dim, whose one
+    slice is classed): TILE_DEAD where every value is at or below
+    ``-0.5e30``, TILE_ZERO where every value is 0, else TILE_MIXED; a
+    cell past ``sq`` or ``sk`` counts by its in-range part."""
+    kb, kh, _ = _mask_strides(tmask)
+    m = tmask[:None if kb else 1, :None if kh else 1].to(torch.float32)
+    m = m.expand(-1, -1, sq, sk)
+    pad = (0, -sk % CELL, 0, -sq % CELL)
+
+    def every(x):  # per cell; padding counts as true
+        x = torch.nn.functional.pad(x.to(torch.uint8), pad, value=1)
+        mb, mh, rows, cols = x.shape
+        return x.reshape(mb, mh, rows // CELL, CELL, cols // CELL,
+                         CELL).amin((3, 5)).bool()
+
+    dead, zero = every(m <= 0.5 * NEG_INF), every(m == 0)
+    return torch.where(dead, TILE_DEAD, torch.where(
+        zero, TILE_ZERO, TILE_MIXED)).to(torch.uint8)
+
+
 # -- kernels ------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -501,11 +545,15 @@ def _lib():
     # the head-batched fused dQ also takes the key row
     lib.pt_hb_bwd_dq_delta.argtypes = [_P] * 9 + _TAIL
     lib.pt_hb_bwd_dq_delta.restype = _I
-    # the tile mode: the mask and its strides, and dK/dV's dmask
-    for entry, n_ptr in (("fwd", 7), ("bwd_dq", 9), ("bwd_dkv", 11)):
+    # the tile mode: the mask, the class table (backward) and the strides,
+    # and dK/dV's dmask
+    for entry, n_ptr in (("fwd", 7), ("bwd_dq", 10), ("bwd_dq_delta", 11),
+                         ("bwd_dkv", 12)):
         fn = getattr(lib, f"pt_flash_tile_{entry}")
         fn.argtypes = [_P] * n_ptr + _TAIL
         fn.restype = _I
+    lib.pt_flash_tile_classes.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P]
+    lib.pt_flash_tile_classes.restype = _I
     return lib
 
 
@@ -563,8 +611,9 @@ def _bwd_dq_delta(entry, name, q, k, v, do, out, lse, scale, causal, window,
                   drop, kmask=()):
     """Launch a dQ entry that also computes delta (bfloat16 with ``d <=
     128``, or float16 at 128; anything else raises); returns (dQ, delta
-    ``[b * h, sq]``). ``kmask``: ``(key rows or None,)`` for an entry
-    that takes them."""
+    ``[b * h, sq]``). ``kmask``: the mask operands of an entry that takes
+    them (``(key rows or None,)``; the tile mode's mask, class table and
+    strides address)."""
     b, sq, h, d = q.shape
     _fp16_kernel(q, name, name != "flash_bwd_dq_delta" or drop is not None)
     if not _fusable(q):
@@ -601,13 +650,60 @@ def _bwd_dkv(entry, name, q, k, v, do, lse, delta, kmask, dm_rows, scale,
 def _tile_args(q, k, kmask, tmask, window):
     """The tile mode's checks (a call takes a key row or a tile mask, not
     both, and the tile mode no window): the tile mask's (batch, head,
-    query-row) strides as the host array the tile entries read, or None
-    without one."""
+    query-row) strides and the class table's (batch, head) strides (0
+    over a broadcast dim) as the host array the tile entries read, or
+    None without one."""
     if tmask is None:
         return None
     if kmask is not None or window:
         raise ValueError("tmask takes neither kmask nor a window")
-    return (ctypes.c_longlong * 3)(*_check_tmask(tmask, q, k))
+    kb, kh, kq = _check_tmask(tmask, q, k)
+    cells = -(-q.shape[1] // CELL) * -(-k.shape[1] // CELL)
+    heads = q.shape[2] if kh else 1
+    return (ctypes.c_longlong * 5)(kb, kh, kq, kb and heads * cells,
+                                   kh and cells)
+
+
+def tile_classes(tmask, sq, sk):
+    """The tile mode's class table: uint8 ``[mb, mh, ceil(sq / 64),
+    ceil(sk / 64)]``, the class of each 64 x 64 cell of the fp32 mask
+    ``tmask`` (4-D, broadcasting to ``[b, h, sq, sk]`` with a full,
+    contiguous key dim; ``mb``, ``mh`` 1 over a broadcast dim), as
+    :func:`tile_classes_ref` gives it. One launch reads the mask once
+    (``pt_flash_tile_classes``); the tile mode's backward on the wgmma
+    kernels reads the table to skip dead cells. Counts on
+    ``tile_classes.launches``."""
+    if not isinstance(tmask, torch.Tensor) or tmask.dtype != torch.float32 \
+            or tmask.dim() != 4 or tmask.shape[3] != sk \
+            or tmask.stride(3) != 1 or tmask.shape[2] not in (1, sq):
+        raise ValueError(f"tmask must be a float32 [mb, mh, 1 or {sq}, "
+                         f"{sk}] tensor with a contiguous key dim")
+    if not tmask.is_cuda:
+        return tile_classes_ref(tmask, sq, sk)
+    kb, kh, kq = _mask_strides(tmask)
+    mb, mh = (tmask.shape[0] if kb else 1), (tmask.shape[1] if kh else 1)
+    out = torch.empty((mb, mh, -(-sq // CELL), -(-sk // CELL)),
+                      dtype=torch.uint8, device=tmask.device)
+    strides = (ctypes.c_longlong * 3)(kb, kh, kq)
+    err = _lib().pt_flash_tile_classes(
+        tmask.data_ptr(), ctypes.addressof(strides), mb, mh, sq, sk,
+        out.data_ptr(), torch.cuda.current_stream(tmask.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"tile_classes kernel launch failed (cudaError "
+                           f"{err})")
+    tile_classes.launches += 1
+    return out
+
+
+def _tile_table(q, tmask, classes):
+    """The class table that the tile mode's kernels read on wgmma
+    (bfloat16 at ``d <= 128``): ``classes`` if the caller computed it,
+    else a new one; None for the fp32-FMA kernels, which visit every
+    tile."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] > 128:
+        return None
+    return tile_classes(tmask, q.shape[1], tmask.shape[3]) \
+        if classes is None else classes
 
 
 def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
@@ -685,8 +781,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
     if tmask is not None:
         dq = _bwd_dq(_lib().pt_flash_tile_bwd_dq, "flash_bwd_dq (tile mode)",
                      q, k, v, do, lse, delta,
-                     (tmask, ctypes.addressof(kms)), scale, causal, window,
-                     drop)
+                     (tmask, _tile_table(q, tmask, None),
+                      ctypes.addressof(kms)), scale, causal, window, drop)
         flash_bwd_dq.tile_launches += 1
         return dq
     dq = _bwd_dq(_lib().pt_flash_bwd_dq, "flash_bwd_dq", q, k, v, do, lse,
@@ -702,7 +798,18 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale=None,
     query heads that share its kv head, and with ``kmask`` also dmask
     ``[b * h, 1, sk]`` fp32 per query head, with ``tmask`` and
     ``tmask_grad`` dmask ``[b * h, sq, sk]`` fp32 per element; arguments
-    as :func:`flash_bwd_dq`."""
+    as :func:`flash_bwd_dq`. In the tile mode on wgmma the call runs the
+    class pass too."""
+    return _dkv(q, k, v, do, lse, delta, None, causal=causal, scale=scale,
+                window=window, kmask=kmask, seed=seed, dropout=dropout,
+                coords=coords, tmask=tmask, tmask_grad=tmask_grad)
+
+
+def _dkv(q, k, v, do, lse, delta, classes, *, causal, scale=None, window=0,
+         kmask=None, seed=None, dropout=0.0, coords=None, tmask=None,
+         tmask_grad=False):
+    """:func:`flash_bwd_dkv` given the tile mode's class table
+    (``classes``, or None: computed here when the kernel reads one)."""
     rows = q.shape[0] * q.shape[2]
     drop = _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
                       dropout, seed, coords)
@@ -723,8 +830,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale=None,
                           device=q.device) if tmask_grad else None)
         _launch(_lib().pt_flash_tile_bwd_dkv, "flash_bwd_dkv (tile mode)",
                 (q, k, v, do, lse, delta, dk, dv, tmask, dm,
-                 ctypes.addressof(kms)), q, k, causal, window, scale,
-                (q, k, v, do, dk, dv), drop)
+                 _tile_table(q, tmask, classes), ctypes.addressof(kms)), q,
+                k, causal, window, scale, (q, k, v, do, dk, dv), drop)
         flash_bwd_dkv.tile_launches += 1
         return (dk, dv) if dm is None else (dk, dv, dm)
     res = _bwd_dkv(_lib().pt_flash_bwd_dkv, "flash_bwd_dkv", q, k, v, do,
@@ -741,32 +848,66 @@ def _delta(do, out):
 
 
 def flash_bwd_dq_delta_ref(q, k, v, do, out, lse, *, causal, scale=None,
-                           window=0):
+                           window=0, seed=None, dropout=0.0, coords=None,
+                           tmask=None):
     """Plain version of :func:`flash_bwd_dq_delta`: (dQ, delta)."""
     delta = _delta(do, out)
     return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
-                            scale=scale, window=window), delta
+                            scale=scale, window=window, seed=seed,
+                            dropout=dropout, coords=coords,
+                            tmask=tmask), delta
 
 
 def flash_bwd_dq_delta(q, k, v, do, out, lse, *, causal, scale=None,
-                       window=0):
+                       window=0, seed=None, dropout=0.0, coords=None,
+                       tmask=None):
     """Kernel 2 computing delta itself: (dQ ``[b, sq, h, d]``, delta ``=
     rowsum(dO * O)`` ``[b * h, sq]`` fp32) from dO and the forward's O
     (both q's shape and dtype) and lse. One launch: each block sums delta
     for its query rows from the dO tile it holds, writes it out for
     :func:`flash_bwd_dkv`, and goes on to dQ. Takes bfloat16 with ``d <=
-    128``, or float16 at 128, and no key row or dropout (on CUDA;
-    anything else raises). Its
-    launches count on ``flash_bwd_dq.launches``: it is kernel 2."""
+    128``, or float16 at 128, and no key row (on CUDA; anything else
+    raises); dropout (``seed``, ``dropout``, ``coords`` as the forward
+    had them) only with the tile mode's ``tmask``, whose call runs the
+    class pass too. Its launches count on ``flash_bwd_dq.launches``
+    (``.tile_launches`` with ``tmask``): it is kernel 2."""
+    return _dq_delta(q, k, v, do, out, lse, None, causal=causal, scale=scale,
+                     window=window, seed=seed, dropout=dropout,
+                     coords=coords, tmask=tmask)
+
+
+def _dq_delta(q, k, v, do, out, lse, classes, *, causal, scale=None,
+              window=0, seed=None, dropout=0.0, coords=None, tmask=None,
+              kmask=None):
+    """:func:`flash_bwd_dq_delta` given the tile mode's class table
+    (``classes``, or None: computed here); ``kmask`` must be None."""
+    if kmask is not None:
+        raise ValueError("flash_bwd_dq_delta takes no kmask")
     _check(q, k, v, causal, window, extra=(("do", do), ("out", out)))
     _check_stats(q, lse=lse)
+    kms = _tile_args(q, k, None, tmask, window)
+    drop = _dropout_words(dropout, seed, coords, q.shape[2])
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_bwd_dq_delta_ref(q, k, v, do, out, lse, causal=causal,
-                                      scale=scale, window=window)
-    res = _bwd_dq_delta(_lib().pt_flash_bwd_dq_delta, "flash_bwd_dq_delta",
-                        q, k, v, do, out, lse, scale, causal, window, None)
-    flash_bwd_dq.launches += 1
+                                      scale=scale, window=window, seed=seed,
+                                      dropout=dropout, coords=coords,
+                                      tmask=tmask)
+    if tmask is None:
+        if drop is not None:
+            raise ValueError("flash_bwd_dq_delta takes dropout only in the "
+                             "tile mode (tmask)")
+        res = _bwd_dq_delta(_lib().pt_flash_bwd_dq_delta,
+                            "flash_bwd_dq_delta", q, k, v, do, out, lse,
+                            scale, causal, window, None)
+        flash_bwd_dq.launches += 1
+        return res
+    res = _bwd_dq_delta(_lib().pt_flash_tile_bwd_dq_delta,
+                        "flash_bwd_dq_delta (tile mode)", q, k, v, do, out,
+                        lse, scale, causal, window, drop,
+                        (tmask, _tile_table(q, tmask, classes),
+                         ctypes.addressof(kms)))
+    flash_bwd_dq.tile_launches += 1
     return res
 
 
@@ -776,6 +917,7 @@ flash_bwd_dkv.launches = 0
 flash_fwd.tile_launches = 0
 flash_bwd_dq.tile_launches = 0
 flash_bwd_dkv.tile_launches = 0
+tile_classes.launches = 0
 
 
 # -- autograd -----------------------------------------------------------------
@@ -799,10 +941,13 @@ def _fusable(q):
 
 def _fused_delta(q, args):
     """Whether the backward takes :func:`flash_bwd_dq_delta` (CUDA,
-    bfloat16 with ``d <= 128`` or float16 at 128, no key row, tile mask
-    or dropout)."""
-    return _fusable(q) and args["kmask"] is None \
-        and args.get("tmask") is None and not args["dropout"]
+    bfloat16 with ``d <= 128`` or float16 at 128, no key row; no dropout
+    outside the tile mode; the tile mode in bfloat16)."""
+    if not _fusable(q) or args["kmask"] is not None:
+        return False
+    if args.get("tmask") is None:
+        return not args["dropout"]
+    return q.dtype == torch.bfloat16
 
 
 def _sum_to(grad, shape):
@@ -814,10 +959,11 @@ def _sum_to(grad, shape):
 
 class _FlashFn(torch.autograd.Function):
     """Forward kernel 1; backward: kernel 2 computing delta itself, then
-    kernel 3 (bfloat16 on CUDA without key row, tile mask or dropout),
-    else delta as torch ops, then kernels 2 and 3. kmask's gradient is
-    kernel 3's dmask; tmask's is its per-element dmask summed over the
-    mask's broadcast dims."""
+    kernel 3 (bfloat16 on CUDA without key row, and without dropout
+    outside the tile mode; the tile mode's class pass first, its table
+    read by both), else delta as torch ops, then kernels 2 and 3.
+    kmask's gradient is kernel 3's dmask; tmask's is its per-element
+    dmask summed over the mask's broadcast dims."""
 
     @staticmethod
     def forward(ctx, q, k, v, kmask, tmask, causal, scale, window, seed,
@@ -834,17 +980,18 @@ class _FlashFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         do = _upstream(do, q)
         args = ctx.args
+        tmask = args.get("tmask")
+        classes = None
         if _fused_delta(q, args):
-            dq, delta = flash_bwd_dq_delta(
-                q, k, v, do, out, lse, causal=args["causal"],
-                scale=args["scale"], window=args["window"])
+            if tmask is not None:  # once for both kernels
+                classes = tile_classes(tmask, q.shape[1], k.shape[1])
+            dq, delta = _dq_delta(q, k, v, do, out, lse, classes, **args)
         else:
             delta = _delta(do, out)
             dq = flash_bwd_dq(q, k, v, do, lse, delta, **args)
-        tmask = args.get("tmask")
         tgrad = tmask is not None and ctx.needs_input_grad[4]
-        dk, dv, *dm = flash_bwd_dkv(q, k, v, do, lse, delta, **args,
-                                    tmask_grad=tgrad)
+        dk, dv, *dm = _dkv(q, k, v, do, lse, delta, classes, **args,
+                           tmask_grad=tgrad)
         dkm = dm[0] if dm and tmask is None else None
         dtm = None
         if tgrad:

@@ -612,7 +612,8 @@ def test_wgmma_backward_tilings_cover_the_band_once(case):
 
 TILE_CASES = [
     # (mask shape over [b, h, sq, sk] by numpy's rule, causal, h, h_kv,
-    #  sq, sk)
+    #  sq, sk[, structured mask]); the structured masks span whole 64 x 64
+    #  cells, which the wgmma backward skips (DEAD) or stages (MIXED)
     ((32, 32), False, 4, 4, 32, 32),
     ((B, 1, 32, 32), False, 4, 2, 32, 32),
     ((B, 4, 32, 64), False, 4, 4, 32, 64),
@@ -620,9 +621,14 @@ TILE_CASES = [
     ((1, 32, 1), False, 4, 4, 32, 48),
     ((B, 1, 1, 48), True, 4, 4, 48, 48),
     ((48,), False, 4, 1, 16, 48),
+    ((128, 128), False, 4, 4, 128, 128, "causal"),
+    ((1, 4, 128, 192), False, 4, 2, 128, 192, "blocks"),
+    ((1, 4, 130, 200), True, 4, 4, 130, 200, "blocks"),
+    ((B, 1, 128, 160), False, 4, 2, 128, 160, "causal_pad"),
 ]
 TILE_IDS = [f"{'x'.join(map(str, m))}-causal{int(c)}-h{h}kv{hk}-sq{sq}sk{sk}"
-            for m, c, h, hk, sq, sk in TILE_CASES]
+            + "".join(f"-{k}" for k in kind)
+            for m, c, h, hk, sq, sk, *kind in TILE_CASES]
 
 
 def _tile_mask_np(seed, shape):
@@ -636,6 +642,34 @@ def _tile_mask_np(seed, shape):
     return m
 
 
+def _structured_np(kind, shape, seed=45):
+    """Masks made of whole 64 x 64 cells, ``shape`` ending in (sq, sk):
+    "causal" the decoder's causal triangle (-1e30 above the diagonal, 0
+    elsewhere); "causal_pad" that triangle with a seeded key padding per
+    batch row (each row keeps key 0); "blocks" N(0, 1) with whole dead
+    cells (every third by cell index), a -1e4 cell (MIXED: never dead), a
+    zero cell, and query row 70 fully masked inside otherwise live
+    cells."""
+    rng = np.random.RandomState(seed)
+    sq, sk = shape[-2:]
+    tri = np.triu(np.full((sq, sk), -1e30, np.float32), 1)
+    if kind == "causal":
+        return np.broadcast_to(tri, shape).copy()
+    if kind == "causal_pad":
+        lens = rng.randint(1, sk + 1, shape[0])
+        pad = (np.arange(sk)[None] >= lens[:, None])[:, None, None]
+        return np.where(pad, np.float32(-1e30), tri).astype(np.float32)
+    m = rng.randn(*shape).astype(np.float32)
+    for rt in range(-(-sq // 64)):
+        for ct in range(-(-sk // 64)):
+            if (rt + ct) % 3 == 0:
+                m[..., 64 * rt:64 * rt + 64, 64 * ct:64 * ct + 64] = -1e30
+    m[..., 64:128, 64:128] = -1e4
+    m[..., :64, 128:192] = 0.0
+    m[..., 70, :] = -1e30
+    return m
+
+
 @pytest.mark.parametrize("case", TILE_CASES, ids=TILE_IDS)
 def test_tile_mode_plain_matches_the_reference_composite(case):
     """The tile mode's plain versions (through ``flash_attention(tmask=)``
@@ -646,9 +680,10 @@ def test_tile_mode_plain_matches_the_reference_composite(case):
     softmax of equal -1e30 scores)."""
     from paddle_tpu.nn.functional.attention import _sdpa_reference
 
-    shape, causal, h, h_kv, sq, sk = case
+    shape, causal, h, h_kv, sq, sk, *kind = case
     q, k, v, do = _inputs(41, h, h_kv, sq, sk)
-    mask = _tile_mask_np(42, shape)
+    mask = _structured_np(kind[0], shape) if kind \
+        else _tile_mask_np(42, shape)
     out, vjp = jax.vjp(lambda q, k, v, m: _sdpa_reference(
         q, k, v, m, causal=causal), q, k, v, mask)
     grads = vjp(do)
@@ -693,3 +728,250 @@ def test_tile_mode_kernel_entries_take_the_mask_through_strides():
         kw = {"causal": False, **bad}
         with pytest.raises(ValueError):
             tfa.flash_fwd(q, k, v, **kw)
+
+
+# -- the tile mode's class table and the wgmma backward's skip rule -----------
+
+def _classes_np(mask, sq, sk):
+    """The class of each 64 x 64 cell of ``mask`` (4-D, broadcasting to
+    ``[mb, mh, sq, sk]``) by a direct loop: DEAD where every in-range
+    value is at or below -0.5e30, ZERO where every one is 0, else MIXED."""
+    m = np.broadcast_to(mask, mask.shape[:2] + (sq, sk))
+    out = np.zeros(mask.shape[:2] + (-(-sq // 64), -(-sk // 64)), np.uint8)
+    for rt in range(out.shape[2]):
+        for ct in range(out.shape[3]):
+            cell = m[:, :, 64 * rt:64 * rt + 64, 64 * ct:64 * ct + 64]
+            dead = (cell <= -0.5e30).all((2, 3))
+            zero = (cell == 0).all((2, 3))
+            out[:, :, rt, ct] = np.where(dead, tfa.TILE_DEAD, np.where(
+                zero, tfa.TILE_ZERO, tfa.TILE_MIXED))
+    return out
+
+
+CLASS_CASES = [
+    # (mask shape, sq, sk, kind)
+    ((1, 1, 256, 256), 256, 256, "causal"),
+    ((1, 1, 130, 70), 130, 70, "causal"),
+    ((B, 1, 200, 130), 200, 130, "causal_pad"),
+    ((1, 4, 130, 200), 130, 200, "blocks"),
+    ((B, 4, 1, 100), 70, 100, "random"),
+    ((1, 1, 100, 70), 100, 70, "random"),
+    ((B, 1, 64, 128), 64, 128, "zeros"),
+    ((1, 2, 128, 128), 128, 128, "minus1e4"),
+]
+
+
+def _class_mask(kind, shape):
+    if kind in ("causal", "causal_pad", "blocks"):
+        return _structured_np(kind, shape)
+    if kind == "random":
+        return _tile_mask_np(46, shape)
+    m = np.zeros(shape, np.float32)
+    if kind == "minus1e4":
+        m[..., :64, 64:] = -1e4
+        m[..., 64:, :64] = -1e30
+    return m
+
+
+@pytest.mark.parametrize("case", CLASS_CASES,
+                         ids=[f"{c[3]}-{'x'.join(map(str, c[0]))}"
+                              for c in CLASS_CASES])
+def test_tile_classes_plain_matches_numpy(case):
+    """``tile_classes_ref`` (and the wrapper on the CPU) against a direct
+    numpy classification: broadcast batch, head and query dims, ragged
+    sq and sk (a cell past them counts by its in-range part), -1e4 cells
+    MIXED and never DEAD, an all-zero mask ZERO; an expanded view of a
+    broadcast dim classes its one slice."""
+    shape, sq, sk, kind = case
+    m = _class_mask(kind, shape)
+    want = _classes_np(m, sq, sk)
+    got = tfa.tile_classes(_t(m), sq, sk)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    if shape[0] == 1:
+        wide = _t(m).expand(B, *shape[1:])
+        np.testing.assert_array_equal(
+            tfa.tile_classes_ref(wide, sq, sk).numpy(), want)
+    if kind == "zeros":
+        assert (want == tfa.TILE_ZERO).all()
+    if kind == "minus1e4":
+        assert (want[..., 0, 1] == tfa.TILE_MIXED).all()
+        assert (want[..., 1, 0] == tfa.TILE_DEAD).all()
+
+
+def test_tile_classes_of_a_bool_mask_through_sdpa():
+    """A bool (keep) mask reaches the tile mode as the reference's clamp
+    (0 kept, -1e30 dropped): its hidden cells are DEAD, its kept ones
+    ZERO, and the diagonal's MIXED."""
+    from paddle_tpu_torch.nn.functional import attention as tattn
+
+    keep = torch.from_numpy(np.tril(np.ones((130, 130), bool)))
+    q = torch.zeros(1, 130, 2, D)
+    _, tile = tattn._mask_operand(keep, q.shape, q.shape)
+    got = tfa.tile_classes(tile, 130, 130)[0, 0]
+    want = np.full((3, 3), tfa.TILE_MIXED, np.uint8)
+    want[np.triu_indices(3, 1)] = tfa.TILE_DEAD
+    want[np.tril_indices(3, -1)] = tfa.TILE_ZERO
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _full_rows(lse, b, h, sq, sk, causal):
+    """[b, h, sq]: the rows the kernels treat as fully masked (lse at or
+    below -0.5e30 and the row sees a key)."""
+    sees = tfa._sees(torch.zeros(1, sq, 1, 1), torch.zeros(1, sk, 1, 1),
+                     causal)
+    return (lse.reshape(b, h, sq) <= 0.5 * tfa.NEG_INF) & sees
+
+
+def _dq_visits(cls, full, sq, sk, causal):
+    """[b, h, sq, sk]: the pairs flash_bwd_dq_wgmma visits in the tile
+    mode. A block of 128 rows takes the key tiles of its causal band
+    (_key_tiles); each 64-row half (a warpgroup, one cell row) visits a
+    tile whose cell is not DEAD, or every tile if it holds a fully masked
+    row."""
+    b, h = full.shape[:2]
+    vis = torch.zeros(b, h, sq, sk, dtype=torch.bool)
+    for r0 in range(0, sq, 128):
+        kt0, kt1 = _key_tiles(sq, sk, causal, 0, r0, 128, 64)
+        for rs in range(r0, min(r0 + 128, sq), 64):
+            fw = full[:, :, rs:rs + 64].any(-1)
+            for kt in range(kt0, kt1):
+                go = (cls[:, :, rs // 64, kt] != tfa.TILE_DEAD) | fw
+                vis[:, :, rs:rs + 64, 64 * kt:64 * kt + 64] |= \
+                    go[..., None, None]
+    return vis
+
+
+def _dkv_visits(cls, full, sq, sk, causal):
+    """[b, h, sq, sk]: the pairs flash_bwd_dkv_wgmma visits in the tile
+    mode. A block of 128 keys takes every 64-row query tile of each head;
+    each 64-key half (a warpgroup, one cell column) visits a tile that
+    holds a fully masked row, else one whose cell is not DEAD and that
+    lies in the causal band of its keys (a row of it sees one)."""
+    b, h = full.shape[:2]
+    vis = torch.zeros(b, h, sq, sk, dtype=torch.bool)
+    for cs in range(0, sk, 64):
+        band = max(0, cs - (sk - sq)) // 64 if causal else 0
+        for qt in range(-(-sq // 64)):
+            ft = full[:, :, 64 * qt:64 * qt + 64].any(-1)
+            go = ft | ((cls[:, :, qt, cs // 64] != tfa.TILE_DEAD)
+                       & (qt >= band))
+            vis[:, :, 64 * qt:64 * qt + 64, cs:cs + 64] |= go[..., None, None]
+    return vis
+
+
+SKIP_CASES = [
+    # (mask shape, kind, causal, h, h_kv, sq, sk, dropout)
+    ((1, 1, 192, 192), "causal", False, 4, 2, 192, 192, 0.1),
+    ((1, 4, 200, 260), "blocks", True, 4, 4, 200, 260, 0.0),
+    ((1, 4, 260, 200), "blocks", True, 4, 2, 260, 200, 0.1),
+    ((B, 1, 130, 190), "causal_pad", False, 4, 4, 130, 190, 0.0),
+    ((B, 4, 130, 130), "random", True, 4, 4, 130, 130, 0.1),
+]
+
+
+@pytest.mark.parametrize("case", SKIP_CASES,
+                         ids=[f"{c[1]}-causal{int(c[2])}-sq{c[5]}sk{c[6]}"
+                              f"-p{c[7]}" for c in SKIP_CASES])
+def test_tile_skip_rule_is_exact(case):
+    """A plain model of the wgmma backward's skip rule in the tile mode:
+    dQ, dK, dV and the per-element dmask summed only over the 64 x 64
+    cells the kernels visit (_dq_visits, _dkv_visits, from the class
+    table and the rows' lse) equal the plain versions, which visit every
+    pair, within 1e-6 of each's largest magnitude: a skipped cell's
+    contribution is exactly 0, also with fully masked rows (the "blocks"
+    masks' row 70, "random"'s row 3) and with the causal flag beside the
+    mask, and the rule does skip."""
+    shape, kind, causal, h, h_kv, sq, sk, p = case
+    q, k, v, do = (_t(a) for a in _inputs(47, h, h_kv, sq, sk))
+    mask = _t(_class_mask(kind, shape))
+    kw = dict(causal=causal, tmask=mask, seed=SEED if p else None,
+              dropout=p)
+    out, lse = tfa.flash_fwd_ref(q, k, v, **kw)
+    delta = tfa._delta(do, out)
+    scale = 1.0 / math.sqrt(D)
+    pd, ds = tfa._probs_and_ds(q, k, v, do, lse, delta, scale, causal, 0,
+                               None, tfa._dropout_words(p, kw["seed"],
+                                                        None, h), mask)
+    cls = tfa.tile_classes_ref(mask, sq, sk).expand(B, h, -1, -1)
+    full = _full_rows(lse, B, h, sq, sk, causal)
+    assert full.any() == (kind in ("blocks", "random"))
+    grouped = (B, h_kv, h // h_kv, sq, sk)
+    vq = _dq_visits(cls, full, sq, sk, causal).reshape(grouped)
+    vkv = _dkv_visits(cls, full, sq, sk, causal).reshape(grouped)
+    assert not vq.all() and not vkv.all()
+    zero = torch.zeros(())
+    dq = torch.einsum("bkgqc,bckd->bqkgd", torch.where(vq, ds, zero),
+                      k).reshape(B, sq, h, D)
+    dk = torch.einsum("bkgqc,bqkgd->bckd", torch.where(vkv, ds, zero),
+                      tfa._grouped(q, h_kv))
+    dv = torch.einsum("bkgqc,bqkgd->bckd", torch.where(vkv, pd, zero),
+                      tfa._grouped(do, h_kv))
+    dm = torch.where(vkv, ds, zero).reshape(B * h, sq, sk) / scale
+    want_dq = tfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv, want_dm = tfa.flash_bwd_dkv_ref(
+        q, k, v, do, lse, delta, tmask_grad=True, **kw)
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv), ("dmask", dm, want_dm)):
+        _close_normalized(got.numpy(), want.numpy(), atol=1e-6, name=name)
+
+
+def test_fused_tile_dq_plain_is_delta_then_dq():
+    """The plain counterpart of the tile mode's fused dQ entry
+    (``flash_bwd_dq_delta_ref`` given ``tmask``, dropout and ``coords``)
+    is ``_delta`` followed by ``flash_bwd_dq_ref``, bit for bit, and the
+    wrapper takes it on the CPU."""
+    h, h_kv, sq, sk = 4, 2, 130, 150
+    q, k, v, do = (_t(a) for a in _inputs(48, h, h_kv, sq, sk))
+    mask = _t(_structured_np("blocks", (1, h, sq, sk)))
+    kw = dict(causal=True, tmask=mask, seed=SEED, dropout=0.1,
+              coords=(2, 4, 12))
+    out, lse = tfa.flash_fwd_ref(q, k, v, **kw)
+    dq, delta = tfa.flash_bwd_dq_delta_ref(q, k, v, do, out, lse, **kw)
+    want_delta = tfa._delta(do, out)
+    torch.testing.assert_close(delta, want_delta, rtol=0, atol=0)
+    torch.testing.assert_close(
+        dq, tfa.flash_bwd_dq_ref(q, k, v, do, lse, want_delta, **kw),
+        rtol=0, atol=0)
+    got = tfa.flash_bwd_dq_delta(q, k, v, do, out, lse, **kw)
+    for a, b_ in zip(got, (dq, delta)):
+        torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+def test_tile_backward_routes_to_the_fused_dq():
+    """On CUDA the Function's tile backward fuses delta into dQ for
+    bfloat16 with d <= 128, dropout or not (one class pass for both
+    kernels); fp32, float16 and d > 128 keep delta as torch ops, and so
+    does the CPU."""
+    mask = torch.zeros(1, 1, 8, 8)
+    args = dict(kmask=None, dropout=0.1, tmask=mask)
+
+    def on_card(dtype, d):
+        return types.SimpleNamespace(is_cuda=True, dtype=dtype,
+                                     shape=(1, 8, 2, d))
+
+    assert tfa._fused_delta(on_card(torch.bfloat16, 64), args)
+    assert tfa._fused_delta(on_card(torch.bfloat16, 128),
+                            dict(args, dropout=0.0))
+    assert not tfa._fused_delta(on_card(torch.float32, 64), args)
+    assert not tfa._fused_delta(on_card(torch.float16, 128), args)
+    assert not tfa._fused_delta(on_card(torch.bfloat16, 256), args)
+    assert not tfa._fused_delta(torch.zeros(1, 8, 2, 64,
+                                            dtype=torch.bfloat16), args)
+
+
+def test_function_backward_takes_a_plain_calls_args():
+    """The Function's backward run on saved tensors with the arguments of
+    a call without a tile mask or coordinates (as a caller that times the
+    backward alone builds them) gives the autograd gradients."""
+    q, k, v, do = (_t(a) for a in _inputs(49, 4, 2, 32, 64))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tfa.flash_attention(*leaves, causal=True).backward(do)
+    out, lse = tfa.flash_fwd_ref(q, k, v, causal=True)
+    ctx = types.SimpleNamespace(
+        saved_tensors=(q, k, v, out, lse),
+        args=dict(causal=True, scale=1.0 / math.sqrt(D), window=0,
+                  kmask=None, seed=None, dropout=0.0))
+    grads = tfa._FlashFn.backward(ctx, do)
+    for got, leaf in zip(grads, leaves):
+        torch.testing.assert_close(got, leaf.grad, rtol=0, atol=0)

@@ -976,9 +976,12 @@ def test_variant_kernels_match_plain(cuda, shape, dtype, head_batched,
 
 
 # The tile mode of kernels 1-3: (b, sq, sk, h, h_kv, d, causal, mask
-# dims kept full (b, h, sq), dropout). The mask is -1e30 on ~30 % of its
-# elements and on every element of query row 5 (a fully masked row),
-# else N(0, 1).
+# dims kept full (b, h, sq) or a structured mask's name, dropout). The
+# random mask is -1e30 on ~30 % of its elements and on every element of
+# query row 5 (a fully masked row), else N(0, 1); the structured ones are
+# _structured_mask's, at the Transformer decoder's shape (b 64, s 256, h
+# 8, d 64, dropout 0.1) and at d 128 (the wgmma kernels' 2-stage rings)
+# with sq != sk.
 _TILE = [
     (2, 100, 100, 4, 4, 64, False, (0, 0, 1), 0.0),
     (2, 100, 100, 4, 4, 64, False, (1, 0, 1), 0.1),
@@ -986,10 +989,46 @@ _TILE = [
     (1, 130, 70, 2, 2, 128, False, (0, 1, 1), 0.1),
     (2, 90, 90, 2, 2, 256, True, (1, 0, 1), 0.1),
     (2, 72, 72, 2, 1, 128, False, (0, 0, 0), 0.0),
+    (64, 256, 256, 8, 8, 64, False, "causal", 0.1),
+    (64, 256, 256, 8, 8, 64, False, "causal_pad", 0.1),
+    (64, 256, 256, 8, 8, 64, True, "blocks", 0.1),
+    (2, 200, 300, 4, 2, 128, False, "causal_pad", 0.1),
+    (2, 300, 200, 4, 4, 128, True, "blocks", 0.0),
 ]
 
 
+def _structured_mask(kind, b, h, sq, sk, seed=23):
+    """numpy fp32 masks whose 64 x 64 cells the backward skips or stages:
+    "causal" the decoder's causal triangle ``[1, 1, sq, sk]`` (-1e30
+    above the diagonal, 0 elsewhere); "causal_pad" that triangle with a
+    seeded key padding per batch row, ``[b, 1, sq, sk]`` (each row keeps
+    key 0); "blocks" ``[1, h, sq, sk]`` N(0, 1) with whole dead cells
+    (every third by cell index), a -1e4 cell (MIXED, never dead), a zero
+    cell, and query row 70 fully masked inside otherwise live cells."""
+    rng = np.random.RandomState(seed)
+    tri = np.triu(np.full((sq, sk), -1e30, np.float32), 1)
+    if kind == "causal":
+        return tri[None, None]
+    if kind == "causal_pad":
+        lens = rng.randint(1, sk + 1, b)
+        pad = np.arange(sk)[None] >= lens[:, None]
+        return np.where(pad[:, None, None], np.float32(-1e30),
+                        tri[None, None]).astype(np.float32)
+    m = rng.randn(1, h, sq, sk).astype(np.float32)
+    for rt in range(-(-sq // 64)):
+        for ct in range(-(-sk // 64)):
+            if (rt + ct) % 3 == 0:
+                m[..., 64 * rt:64 * rt + 64, 64 * ct:64 * ct + 64] = -1e30
+    m[..., 64:128, 64:128] = -1e4
+    m[..., :64, 128:192] = 0.0
+    m[..., 70, :] = -1e30
+    return m
+
+
 def _tile_mask(seed, b, h, sq, sk, full, device):
+    if isinstance(full, str):
+        return torch.from_numpy(_structured_mask(full, b, h, sq, sk)).to(
+            device)
     rng = np.random.RandomState(seed)
     shape = tuple(n if f else 1 for n, f in zip((b, h, sq), full)) + (sk,)
     m = rng.randn(*shape).astype(np.float32)
@@ -1006,7 +1045,10 @@ def test_tile_mode_kernels_match_plain(cuda, shape, dtype):
     copies of the inputs): O, dQ, dK and dV per 64-row tile within 1e-5
     (fp32) or 1e-2 (bf16), lse as test_variant_kernels_match_plain, and
     the per-element dmask of each (batch, head) within 1e-4 or 1e-3
-    relative; the launches count on ``tile_launches`` only."""
+    relative; the launches count on ``tile_launches`` only. On the wgmma
+    kernels (bfloat16, d <= 128) each backward call also runs the class
+    pass (``tile_classes.launches``), and the fused dQ entry's dQ and
+    delta are held alike (delta within 1e-5 per row)."""
     b, sq, sk, h, h_kv, d, causal, full, p = shape
     q, k, v, do = _flash_inputs(21, (b, sq, sk, h, h_kv, d, causal, 0),
                                 dtype, cuda)
@@ -1018,6 +1060,8 @@ def test_tile_mode_kernels_match_plain(cuda, shape, dtype):
          fa.flash_bwd_dkv.launches)
     t = (fa.flash_fwd.tile_launches, fa.flash_bwd_dq.tile_launches,
          fa.flash_bwd_dkv.tile_launches)
+    classes = fa.tile_classes.launches
+    wgmma = dtype == torch.bfloat16 and d <= 128
     out, lse = fa.flash_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     want_out, want_lse = fa.flash_fwd_ref(*f32[:3], **kw)
@@ -1032,12 +1076,22 @@ def test_tile_mode_kernels_match_plain(cuda, shape, dtype):
             fa.flash_bwd_dkv.launches) == n
     assert (fa.flash_fwd.tile_launches, fa.flash_bwd_dq.tile_launches,
             fa.flash_bwd_dkv.tile_launches) == tuple(x + 1 for x in t)
+    assert fa.tile_classes.launches == classes + 2 * wgmma
     want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, **kw)
     want_dk, want_dv, want_dm = fa.flash_bwd_dkv_ref(
         *f32, want_lse, delta, tmask_grad=True, **kw)
     rel_tol = 1e-5 if dtype == torch.float32 else 1e-2
-    for name, got, want in (("O", out, want_out), ("dq", dq, want_dq),
-                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+    checked = [("O", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk),
+               ("dv", dv, want_dv)]
+    if wgmma:
+        dq_f, delta_f = fa.flash_bwd_dq_delta(q, k, v, do, want_out.to(dtype),
+                                              want_lse, **kw)
+        torch.cuda.synchronize()
+        assert fa.flash_bwd_dq.tile_launches == t[1] + 2
+        checked.append(("dq fused", dq_f, want_dq))
+        err = _row_rel(delta_f[:, None], delta[:, None])
+        assert err <= 1e-5, f"delta: relative error per row {err}"
+    for name, got, want in checked:
         err = _tile_rel_err(got, want)
         assert err <= rel_tol, f"{name}: per-tile relative error {err}"
     # dmask by (batch, head) slice: a query row that sees one key has ds
@@ -1047,6 +1101,93 @@ def test_tile_mode_kernels_match_plain(cuda, shape, dtype):
                    want_dm.reshape(b * h, 1, sq * sk))
     assert err <= (1e-4 if dtype == torch.float32 else 1e-3), \
         f"dmask: relative error per (batch, head) {err}"
+
+
+# masks for the class pass: (shape over [b, h, sq, sk], kind) at ragged
+# sq and sk; "random" is _tile_mask's (a stride of 70 or 100 floats per
+# row: the kernels' 4-byte copies), "zeros", "minus1e4" (-1e4 cells:
+# MIXED, never DEAD), and the structured masks
+_CLASS_MASKS = [
+    ((2, 4, 100, 70), "random"),
+    ((1, 1, 300, 200), "random"),
+    ((2, 1, 1, 130), "random"),
+    ((1, 1, 256, 256), "causal"),
+    ((3, 1, 200, 300), "causal_pad"),
+    ((1, 4, 300, 200), "blocks"),
+    ((1, 1, 130, 130), "zeros"),
+    ((2, 2, 128, 192), "minus1e4"),
+]
+
+
+@pytest.mark.parametrize("case", _CLASS_MASKS,
+                         ids=[k for _, k in _CLASS_MASKS])
+def test_tile_classes_match_plain(cuda, case):
+    """The class pass against ``tile_classes_ref`` byte for byte, on the
+    mask as given and on an expanded view of its broadcast dims (stride
+    0: one slice is read)."""
+    (b, h, sq, sk), kind = case
+    if kind == "random":
+        m = _tile_mask(24, b, h, sq, sk, (b > 1, h > 1, sq > 1), cuda)
+        sq = 256 if sq == 1 else sq
+    elif kind == "zeros":
+        m = torch.zeros(b, h, sq, sk, device=cuda)
+    elif kind == "minus1e4":
+        m = torch.zeros(b, h, sq, sk, device=cuda)
+        m[..., :64, 64:128] = -1e4
+        m[..., 64:, :64] = -1e30
+    else:
+        m = _tile_mask(24, b, h, sq, sk, kind, cuda)
+    n = fa.tile_classes.launches
+    for mask in (m, m.expand(2, 4, sq, sk) if m.shape[0] == m.shape[1] == 1
+                 else m):
+        got = fa.tile_classes(mask, sq, sk)
+        want = fa.tile_classes_ref(mask, sq, sk)  # on the view's strides
+        assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert fa.tile_classes.launches == n + 2
+    if kind == "minus1e4":
+        assert (want[..., 0, 1] == fa.TILE_MIXED).all()
+        assert (want[..., 1, 0] == fa.TILE_DEAD).all()
+
+
+def test_tile_backward_runs_the_fused_dq_and_wgmma_dkv(cuda, monkeypatch):
+    """``flash_attention(tmask=...)``'s backward in bfloat16 at the
+    decoder's shape: one class pass, the fused dQ entry and dK/dV once
+    each, and no delta computed by torch ops; dQ, dK, dV within 1e-2 per
+    tile of the plain versions given the forward's O and lse, and the
+    mask's gradient within 1e-3 per (batch, head) slice."""
+    b, s, h, d, rate = 8, 256, 8, 64, 0.1
+    q, k, v, do = _flash_inputs(25, (b, s, s, h, h, d, False, 0),
+                                torch.bfloat16, cuda)
+    mask = torch.from_numpy(_structured_mask("causal_pad", b, h, s, s)).to(
+        cuda)
+    kw = dict(causal=False, seed=_SEED, dropout=rate)
+    out, lse = fa.flash_fwd(q, k, v, tmask=mask, **kw)
+    calls = []
+    monkeypatch.setattr(fa, "_delta", lambda *a: calls.append(a))
+    n = (fa.tile_classes.launches, fa.flash_bwd_dq.tile_launches,
+         fa.flash_bwd_dkv.tile_launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, mask)]
+    fa.flash_attention(*leaves[:3], tmask=leaves[3], **kw).backward(do)
+    torch.cuda.synchronize()
+    assert not calls
+    assert (fa.tile_classes.launches, fa.flash_bwd_dq.tile_launches,
+            fa.flash_bwd_dkv.tile_launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1, n[2] + 1,
+                                           n[3], n[4])
+    monkeypatch.undo()
+    f32 = [t.float() for t in (q, k, v, do)]
+    delta = fa._delta(do, out)
+    want = (fa.flash_bwd_dq_ref(*f32, lse, delta, tmask=mask, **kw),
+            *fa.flash_bwd_dkv_ref(*f32, lse, delta, tmask=mask,
+                                  tmask_grad=True, **kw))
+    for name, got, w in zip(("dq", "dk", "dv"), leaves[:3], want[:3]):
+        err = _tile_rel_err(got.grad, w)
+        assert err <= 1e-2, f"{name}: per-tile relative error {err}"
+    want_dm = want[3].reshape(b, h, s, s).sum(1, keepdim=True)
+    err = _row_rel(leaves[3].grad.reshape(b, 1, s * s),
+                   want_dm.reshape(b, 1, s * s))
+    assert err <= 1e-3, f"dmask: relative error per batch row {err}"
 
 
 def test_sdpa_row_varying_mask_runs_the_tile_mode(cuda):
