@@ -5966,7 +5966,7 @@ T_DECODE_STEPS = 32
 # bf16: each logit within this share of the largest
 DECODE_REL_TOL = 5e-2
 # the tile mode's kernels: kernels 1-3 in the tile mode, and the class
-# pass that the backward on wgmma runs once for dQ and dK/dV
+# pass that the forward on wgmma runs once for itself, dQ and dK/dV
 TILE_NAMES = ("flash_fwd_tile", "flash_bwd_dq_tile", "flash_bwd_dkv_tile",
               "flash_tile_classes")
 
@@ -6224,9 +6224,10 @@ def _causal_padded(b, s, gen):
 def _tile_check(q, k, v, do, tile, kw):
     """The tile mode's kernels on ``tile`` against their plain versions
     (fp32 copies): the forward, dQ given delta and computing it itself,
-    dK/dV with the per-element dmask, the class table; returns (per-tile
-    relative errors, max_abs_err by row, dmask error per (batch, head),
-    lse error, the class table, whether a row is fully masked)."""
+    dK/dV with the per-element dmask, the class table and its full-row
+    flags; returns (per-tile relative errors, max_abs_err by row, dmask
+    error per (batch, head), lse error, the class table and flags,
+    whether a row is fully masked)."""
     b, s, h, _ = q.shape
     f32 = [t.float() for t in (q, k, v, do)]
     out, lse = fa.flash_fwd(q, k, v, tmask=tile, **kw)
@@ -6238,12 +6239,13 @@ def _tile_check(q, k, v, do, tile, kw):
                                           tmask=tile, **kw)
     dk, dv, dm = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, tmask=tile,
                                   tmask_grad=True, **kw)
-    classes = fa.tile_classes(tile, s, s)
+    table = fa.tile_classes(tile, s, s, kw["causal"], full_rows=True)
     torch.cuda.synchronize()
     want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, tmask=tile, **kw)
     want_dk, want_dv, want_dm = fa.flash_bwd_dkv_ref(
         *f32, want_lse, delta, tmask=tile, tmask_grad=True, **kw)
-    want_classes = fa.tile_classes_ref(tile.cpu(), s, s)
+    want_table = fa.tile_classes_ref(tile, s, s, kw["causal"],
+                                     full_rows=True)
     pairs = {"flash_fwd_tile": [(out, want_out)],
              "flash_bwd_dq_tile": [(dq_f, want_dq), (dq, want_dq)],
              "flash_bwd_dkv_tile": [(dk, want_dk), (dv, want_dv)]}
@@ -6251,16 +6253,30 @@ def _tile_check(q, k, v, do, tile, kw):
            for n, p in pairs.items()}
     abs_err = {n: max((g.float() - w).abs().max().item() for g, w in p)
                for n, p in pairs.items()}
-    abs_err["flash_tile_classes"] = (
-        classes.cpu().int() - want_classes.int()).abs().max().item()
+    abs_err["flash_tile_classes"] = max(
+        (got.int() - want.int()).abs().max().item()
+        for got, want in zip(table, want_table))
     rel["delta"] = _row_rel_err(delta_f[:, None], delta[:, None])
     # dmask by (batch, head) slice: a query row that sees one key (row 0
     # of the causal mask) has ds = dp - delta = 0 up to rounding
     dm_err = _row_rel_err(dm.reshape(b * h, 1, -1),
                           want_dm.reshape(b * h, 1, -1))
-    lse_err = (lse - want_lse).abs().max().item()
+    lse_err = _lse_err(lse, want_lse)
     full = bool((want_lse <= 0.5 * fa.NEG_INF).any())
-    return rel, abs_err, dm_err, lse_err, classes, full
+    return rel, abs_err, dm_err, lse_err, table, full
+
+
+def _lse_err(got, want):
+    """The largest lse error: absolute over the rows that see a live key,
+    relative (to 1e30) over the others, whose lse is -1e30 plus at most
+    log(sk) (rows that see no key, fully masked rows), and inf if the two
+    disagree on which rows those are."""
+    live = want > 0.5 * fa.NEG_INF
+    if not torch.equal(live, got > 0.5 * fa.NEG_INF):
+        return float("inf")
+    err = (got - want).abs()
+    return max(err[live].max().item() if live.any() else 0.0,
+               (err[~live] / 1e30).max().item() if (~live).any() else 0.0)
 
 
 def _cell_counts(classes, b, h):
@@ -6274,15 +6290,73 @@ def _cell_counts(classes, b, h):
     return n, 1.0 - n[0] / c.numel()
 
 
+def _fwd_shares(table, b, h, sq, sk, causal):
+    """The tile forward's skip rule on the class table and its full-row
+    flags (``flash_fwd_tile_wgmma``: a 64-row cell row visits every key
+    tile when flagged, else its cells that are not DEAD up to its causal
+    band): the share of (row, key) pairs it visits, of key tiles it loads
+    (a 128-row item loads a tile either cell row visits), and of visited
+    cells whose mask it stages (MIXED, or DEAD beside a flag)."""
+    c = table[0].expand(b, h, -1, -1).cpu()
+    f = table[1].expand(b, h, -1).cpu().bool()[..., None]
+    nrt, nct = c.shape[2:]
+    rt, kt = torch.arange(nrt), torch.arange(nct)
+    last = torch.clamp(64 * rt + 63, max=sq - 1) + sk - sq if causal \
+        else torch.full((nrt,), sk - 1)
+    visit = f | ((c != fa.TILE_DEAD) & (64 * kt[None] <= last[:, None]))
+    rows = torch.clamp(sq - 64 * rt, max=64)
+    cols = torch.clamp(sk - 64 * kt, max=64)
+    pairs = (visit * rows[:, None] * cols[None]).sum().item() / (
+        b * h * sq * sk)
+    items = torch.nn.functional.pad(visit, (0, 0, 0, nrt % 2))
+    loaded = items.reshape(b, h, -1, 2, nct).any(3)
+    staged = visit & ((c == fa.TILE_MIXED) | ((c == fa.TILE_DEAD) & f))
+    return (pairs, loaded.float().mean().item(),
+            staged.sum().item() / max(visit.sum().item(), 1))
+
+
+def _fully_masked_25b(q, k, v, tile, kw):
+    """25b's rows that the forward visits whole or outputs 0 for: the
+    causal mask with query rows 5 and 200 set to -1e30 (fully masked:
+    their cell rows are flagged and averaged over every key), and the
+    causal flag over the first 192 keys (rows 0-63 see no key: 0, lse
+    -1e30); O per tile within FLASH_REL_TOL of the plain version's and
+    lse (_lse_err) within LSE_ATOL. Returns the largest errors."""
+    full = tile.clone()
+    full[..., 5, :] = fa.NEG_INF
+    full[..., 200, :] = fa.NEG_INF
+    f32 = [t.float() for t in (q, k, v)]
+    rel, lse_err = 0.0, 0.0
+    for mask, sk, causal in ((full, k.shape[1], False),
+                             (tile[..., :192], 192, True)):
+        args = dict(kw, causal=causal, tmask=mask)
+        out, lse = fa.flash_fwd(q, k[:, :sk], v[:, :sk], **args)
+        want_out, want_lse = fa.flash_fwd_ref(f32[0], f32[1][:, :sk],
+                                              f32[2][:, :sk], **args)
+        flags = fa.tile_classes(mask, q.shape[1], sk, causal,
+                                full_rows=True)[1][0, 0].tolist()
+        if flags != ([0] * 4 if causal else [1, 0, 0, 1]):
+            raise AssertionError(f"25b: full-row flags {flags}")
+        rel = max(rel, _tile_rel_err(out, want_out))
+        lse_err = max(lse_err, _lse_err(lse, want_lse))
+    if not (rel <= FLASH_REL_TOL and lse_err <= LSE_ATOL):
+        raise AssertionError(f"25b: fully masked rows or rows that see no "
+                             f"key disagree: O {rel}, lse {lse_err}")
+    return rel, lse_err
+
+
 def _tile_kernels_25b(smi):
     """25b: the tile mode at the decoder's shape (b 64, s 256, h 8, d 64,
     bf16, dropout 0.1, the causal mask of
     ``generate_square_subsequent_mask``, and the causal mask with a key
-    padding per batch row) against its plain version, the class counts
-    and the share of pairs visited; then timed on the causal mask as the
-    main path runs it (dQ computing delta, each backward call with its
-    class pass), beside its plain version, SDPA given the same additive
-    mask and the bound."""
+    padding per batch row) against its plain version, the class counts,
+    the shares the forward and the backward visit, fully masked rows and
+    rows that see no key; then timed on the causal mask as the main path
+    runs it (the forward's class pass once, its table handed to the
+    forward, dQ computing delta and dK/dV), beside its plain version,
+    SDPA given the same additive mask and the bound, and the whole
+    attention (forward with its class pass, then the backward) beside
+    SDPA's forward and backward."""
     gen = torch.Generator("cuda").manual_seed(26)
     b, s, h, d, rate = T_BATCH, T_TGT, T_BASE["nhead"], 64, 0.1
     q, k, v, do = _flash_inputs(b, s, s, h, h, gen, d=d)
@@ -6293,9 +6367,10 @@ def _tile_kernels_25b(smi):
     abs_err = {}
     for name, mask in (("causal", tile),
                        ("causal + key padding", _causal_padded(b, s, gen))):
-        rel, errs, dm_err, lse_err, classes, full = _tile_check(
+        rel, errs, dm_err, lse_err, table, full = _tile_check(
             q, k, v, do, mask, kw)
-        counts, share = _cell_counts(classes, b, h)
+        counts, share = _cell_counts(table[0], b, h)
+        pairs, tiles, staged = _fwd_shares(table, b, h, s, s, False)
         log(f"[nn] 25b tile mode b={b} s={s} h={h} d={d} bf16 dropout "
             f"{rate}, the {name} mask {list(mask.shape)}: per-tile "
             f"relative error "
@@ -6304,10 +6379,14 @@ def _tile_kernels_25b(smi):
             + f" (tol {FLASH_REL_TOL}; dQ given delta and computing it); "
             f"fused delta {rel['delta']:.3e} per row (tol 1e-5); dmask per "
             f"(batch, head) {dm_err:.3e} (tol 1e-3); lse {lse_err:.3e} (tol "
-            f"{LSE_ATOL}); class table {'equal' if errs['flash_tile_classes'] == 0 else 'DIFFERS'}: "
-            f"cells DEAD {counts[0]}, ZERO {counts[1]}, MIXED {counts[2]}; "
-            f"pairs visited by dQ and dK/dV {share:.4f}"
-            f"{' (a row is fully masked: more are visited)' if full else ''}")
+            f"{LSE_ATOL}); class table and flags {'equal' if errs['flash_tile_classes'] == 0 else 'DIFFER'}: "
+            f"cells DEAD {counts[0]}, ZERO {counts[1]}, MIXED {counts[2]}, "
+            f"cell rows flagged {int(table[1].sum())}; pairs visited by dQ "
+            f"and dK/dV {share:.4f}"
+            f"{' (a row is fully masked: more are visited)' if full else ''}"
+            f"; the forward visits {pairs:.4f} of the pairs, loads "
+            f"{tiles:.4f} of the key tiles and stages the mask of "
+            f"{staged:.4f} of the cells it visits")
         if not (all(e <= FLASH_REL_TOL for n, e in rel.items()
                     if n != "delta") and rel["delta"] <= 1e-5
                 and dm_err <= 1e-3 and lse_err <= LSE_ATOL
@@ -6317,32 +6396,47 @@ def _tile_kernels_25b(smi):
                                  f" dmask {dm_err}, lse {lse_err}, classes "
                                  f"{errs['flash_tile_classes']}")
         abs_err = {n: max(e, abs_err.get(n, 0.0)) for n, e in errs.items()}
+    rel, lse_err = _fully_masked_25b(q, k, v, tile, kw)
+    log(f"[nn] 25b the tile forward on rows it visits whole or outputs 0 "
+        f"for (the causal mask with rows 5 and 200 at -1e30, their cell "
+        f"rows flagged; the causal flag over 192 keys, rows 0-63 seeing "
+        f"none): per-tile relative error {rel:.3e} (tol {FLASH_REL_TOL}), "
+        f"lse {lse_err:.3e} (tol {LSE_ATOL}; relative to 1e30 on those "
+        f"rows)")
     _release()
-    # timed as the main path runs them: no mask gradient
+    # timed as the main path runs them: the forward's class pass once, its
+    # table read by the forward, dQ and dK/dV; no mask gradient
     kw = dict(kw, tmask=tile)
+    table = fa.tile_classes(tile, s, s, False, full_rows=True)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa._delta(do, out)
     kernels = {
-        "flash_fwd_tile": (lambda: fa.flash_fwd(q, k, v, **kw),
+        "flash_fwd_tile": (lambda: fa._flash_fwd(q, k, v, table, **kw),
                            lambda: fa.flash_fwd_ref(q, k, v, **kw)),
         "flash_bwd_dq_tile": (
-            lambda: fa.flash_bwd_dq_delta(q, k, v, do, out, lse, **kw),
+            lambda: fa._dq_delta(q, k, v, do, out, lse, table, **kw),
             lambda: fa.flash_bwd_dq_delta_ref(q, k, v, do, out, lse, **kw)),
         "flash_bwd_dkv_tile": (
-            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: fa._dkv(q, k, v, do, lse, delta, table, **kw),
             lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)),
-        "flash_tile_classes": (lambda: fa.tile_classes(tile, s, s),
-                               lambda: fa.tile_classes_ref(tile, s, s)),
+        "flash_tile_classes": (
+            lambda: fa.tile_classes(tile, s, s, False, full_rows=True),
+            lambda: fa.tile_classes_ref(tile, s, s, False, full_rows=True)),
     }
-    # the whole backward as _FlashFn runs it: one class pass, the fused
-    # dQ, dK/dV
+    # the whole backward as _FlashFn runs it given the forward's table
+    # (the fused dQ, dK/dV), and the whole attention as a training step
+    # runs it: the forward with its class pass, then the backward
     args = dict(kw, kmask=None, coords=None, scale=None, window=0)
     ctx = types.SimpleNamespace(saved_tensors=(q, k, v, out, lse), args=args,
-                                needs_input_grad=(True,) * 3 + (False,) * 8)
+                                needs_input_grad=(True,) * 3 + (False,) * 8,
+                                table=table)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     library, contexts, fallbacks, minus = _sdpa_fns(
         q, k, v, do, attn_mask=tile[0, 0].to(q.dtype), dropout_p=rate)
     port = {n: lambda i, f=kern: f() for n, (kern, _) in kernels.items()}
     port["flash_bwd_tile"] = lambda i: fa._FlashFn.backward(ctx, do)
+    port["flash_attention_tile"] = lambda i: torch.autograd.grad(
+        fa.flash_attention(*leaves, **kw), leaves, do)
     times, how, eager = _timed(port, library, contexts, fallbacks, minus)
     lib = {"flash_fwd_tile": _library(times, "sdpa_fwd", how)}
     lib["flash_bwd_dq_tile"] = lib["flash_bwd_dkv_tile"] = _library(
@@ -6361,17 +6455,27 @@ def _tile_kernels_25b(smi):
                           max_abs_err=abs_err[name])
         log(f"[nn] 25b {name} b{b} s{s} h{h} d{d} bf16 dropout {rate} on "
             f"{smi}: kernel_ms {_spread(times[name])} (CUDA graphs of "
-            f"{ITERS} calls; median, min-max of {REPS}) plain_ms "
-            f"{plain_ms:.4f} library_ms {_ms(lib_ms)} ({lib_txt}) bound_ms "
-            f"{bound_ms:.5f} ({bound_by}); eager calls "
-            f"{_spread(eager[name])} ms")
+            f"{ITERS} calls; median, min-max of {REPS}; given the class "
+            f"table) plain_ms {plain_ms:.4f} library_ms {_ms(lib_ms)} "
+            f"({lib_txt}) bound_ms {bound_ms:.5f} ({bound_by}); eager "
+            f"calls {_spread(eager[name])} ms")
+    lib_fwd = lib["flash_fwd_tile"][0]
     lib_bwd = lib["flash_bwd_dq_tile"][0]
     whole = _med(times["flash_bwd_tile"])
-    log(f"[nn] 25b the whole tile backward (class pass, dQ computing delta, "
-        f"dK/dV; _FlashFn.backward) on {smi}: {_spread(times['flash_bwd_tile'])}"
-        f" ms, {whole / lib_bwd if lib_bwd else float('nan'):.2f}x SDPA's "
-        f"whole backward ({_ms(lib_bwd)} ms); eager "
+    log(f"[nn] 25b the whole tile backward given the forward's table (dQ "
+        f"computing delta, dK/dV; _FlashFn.backward) on {smi}: "
+        f"{_spread(times['flash_bwd_tile'])} ms, "
+        f"{whole / lib_bwd if lib_bwd else float('nan'):.2f}x SDPA's whole "
+        f"backward ({_ms(lib_bwd)} ms); eager "
         f"{_spread(eager['flash_bwd_tile'])} ms")
+    both = _med(times["flash_attention_tile"])
+    lib_both = lib_fwd + lib_bwd if lib_fwd and lib_bwd else None
+    log(f"[nn] 25b the whole tile attention (flash_attention(tmask=): the "
+        f"class pass, the forward, dQ computing delta, dK/dV; autograd) on "
+        f"{smi}: {_spread(times['flash_attention_tile'])} ms, "
+        f"{both / lib_both if lib_both else float('nan'):.2f}x SDPA's "
+        f"forward + backward ({_ms(lib_both)} ms); eager "
+        f"{_spread(eager['flash_attention_tile'])} ms")
     return rows
 
 
@@ -6566,12 +6670,12 @@ def main():
     # the tile mode of kernels 1-3 (a mode of the TPU's kernels 1-3 for
     # the masks the reference sends to its composite,
     # flash_attention.py:633-641), its launches on phase 25a's
-    # Transformer-base steps; the class pass serves kernels 2 and 3 (their
-    # dead-tile skip)
+    # Transformer-base steps; the class pass, run with the forward, serves
+    # kernels 1-3 (their dead-cell skip)
     kernels += [dict(name=k, route="cuda", source=flash_cu,
                      replaces=replaces[k[:-len("_tile")]
                                        if k.endswith("_tile")
-                                       else "flash_bwd_dq"],
+                                       else "flash_fwd"],
                      launches=layers_nn["launches"][k],
                      **layers_nn["rows"][k])
                 for k in TILE_NAMES]

@@ -50,29 +50,37 @@
 //     the causal mask hides the key. dK/dV writes ds / scale per element
 //     into dm ([B * H, SQ, SK]) when dm is given. bf16 at d <= 128 runs
 //     the wgmma kernels; fp32 and d > 128 the FMA kernels, which visit
-//     every tile; no float16, no window. The wgmma forward visits every
-//     key tile, each thread reading its scores' mask values from device
-//     memory. The backward skips what is exactly zero: a class pass
-//     (tile_classes_kernel, pt_flash_tile_classes) reads the mask once
-//     and writes one byte per 64 x 64 cell of each (mask batch, mask
-//     head) slice, DEAD (every value at or below -0.5e30), ZERO (every
-//     value 0) or MIXED; dQ and dK/dV read the table. A warpgroup skips a
-//     DEAD cell, where p and ds are exactly 0, unless its rows hold a
-//     fully masked row (then a DEAD cell is visited and only that row's
-//     p is not 0); dK/dV skips the query tiles before the causal band of
-//     its keys under the same exception (a fully masked row's p reaches
-//     hidden keys), dQ always the key tiles past the band (ds is 0
-//     there). The producer warp decides from the table and the rows' lse
-//     (block-uniform: producer and consumers read one decision, the
-//     mode it writes beside each stage), loads only the tiles some
-//     warpgroup visits, and stages each MIXED cell's fp32 mask in shared
-//     memory by cp.async (16-byte copies where the slice and its row
-//     stride allow, else 4-byte ones), padded so that the consumers'
-//     reads in the accumulator's layout are free of bank conflicts; a
-//     ZERO cell adds nothing. The full-row rule runs in a pass of its
-//     own, only for a tile that holds such a row. dQ computes delta
-//     itself (pt_flash_tile_bwd_dq_delta), as kernel 2 does; dK/dV runs
-//     kernel 6's wgmma kernel. At d 128 the backward's rings hold 2
+//     every tile; no float16, no window. The wgmma kernels skip what is
+//     exactly zero: a class pass (tile_classes_kernel,
+//     pt_flash_tile_classes) reads the mask once and writes one byte per
+//     64 x 64 cell of each (mask batch, mask head) slice, DEAD (every
+//     value at or below -0.5e30), ZERO (every value 0) or MIXED, and one
+//     flag per 64-row cell row: set where a row that sees a key has no
+//     value above -0.5e30 among the keys it sees (a fully masked row).
+//     The autograd Function runs it once, with the forward, and hands the
+//     table to dQ and dK/dV. The forward (flash_fwd_tile_wgmma) and dQ
+//     take 128 query rows (a cell row a consumer warpgroup) and 64-key
+//     tiles (a cell); their producer warp (tile_row_producer) decides
+//     each warpgroup's mode per tile from the table: it skips a DEAD
+//     cell, and the forward a tile past its rows' causal band, unless its
+//     rows hold a fully masked row (the forward: the flag; dQ: the rows'
+//     lse, whose DEAD cells then have a ds that is not 0); dK/dV's
+//     producer (tile_dkv_producer) skips DEAD cells and the query tiles
+//     before the causal band of its keys under the same exception (a
+//     fully masked row's p reaches hidden keys). Producer and consumers
+//     read one decision (block-uniform: the mode written beside each
+//     stage); the producer loads only the tiles some warpgroup visits,
+//     and stages each MIXED cell's fp32 mask (the forward also a DEAD one
+//     a fully masked row visits) in shared memory by cp.async (16-byte
+//     copies where the slice and its row stride allow, else 4-byte ones),
+//     padded so that the consumers' reads in the accumulator's layout are
+//     free of bank conflicts; a ZERO cell adds nothing. The forward's
+//     grid is persistent (one block an SM, each walking its share of the
+//     128-row items, the next item's Q and tiles loaded under the current
+//     one's), since an item holds 2-4 tiles. The backward's full-row rule
+//     runs in a pass of its own, only for a tile that holds such a row.
+//     dQ computes delta itself (pt_flash_tile_bwd_dq_delta), as kernel 2
+//     does; dK/dV runs kernel 6's wgmma kernel. At d 128 the rings hold 2
 //     stages (3 at d 64), so that the mask tiles fit in shared memory.
 //
 // Layout. q is read as [b, sq, h, d] and k/v as [b, sk, h_kv, d] through
@@ -171,6 +179,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
+#include <float.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -222,16 +231,20 @@ struct Geom {
   // over a broadcast dim); dm (or null) then takes ds / scale per
   // element, [B * H, SQ, SK]
   long long km_q;
-  // the tile mode's class table (tile_classes; read by the wgmma backward
+  // the tile mode's class table (tile_classes; read by the wgmma
   // kernels): the class of cell (rt, ct) of (b, h) at tcls + b * tc_b + h
-  // * tc_h + rt * ceil(SK / 64) + ct (a stride is 0 over a broadcast dim)
+  // * tc_h + rt * ceil(SK / 64) + ct (a stride is 0 over a broadcast dim),
+  // and (the forward) cell row rt's full-row flag at tfull + b * tf_b + h
+  // * tf_h + rt
   const uint8_t* tcls;
-  long long tc_b, tc_h;
+  const uint8_t* tfull;
+  long long tc_b, tc_h, tf_b, tf_h;
   uint32_t seed0, seed1, thresh;  // dropout: seed words, keep threshold
   // the hash's global coordinates: the global query-head count and this
   // launch's first batch row and first head in the global batch and heads
   uint32_t hg, b0, h0;
   float dscale;                   // 1 / (1 - rate), rounded on the host
+  int blocks;  // the tile forward's grid (read on the host; 0: one an SM)
 };
 
 // An additive key-row value at or below this is padding: exp(score + row
@@ -371,34 +384,98 @@ __device__ __forceinline__ const uint8_t* cell_row(const Geom& g, int b,
 
 // The class pass (pt_flash_tile_classes). It replaces no TPU kernel: the
 // Pallas kernels skip dead tiles by their causal block index, and this
-// table lets the tile mode's backward kernels skip the cells an arbitrary
-// mask leaves dead. grid = (ceil(SK / 64), ceil(SQ / 64), mb * mh): one
-// block per cell reads its in-range values once, through the mask's
-// strides (kb, kh 0 over a broadcast dim: one slice), and writes its class
-// to out[mb, mh, ceil(SQ / 64), ceil(SK / 64)]. Bound by bytes.
+// table lets the tile mode's wgmma kernels skip the cells an arbitrary
+// mask leaves dead. grid = (ceil(SQ / 64), mb * mh): one block per cell
+// row of a (mask batch, mask head) slice (kb, kh 0 over a broadcast dim:
+// one slice) reads the row's in-range values once through the mask's
+// strides (thread t: column t % 64 of rows t / 64 + 4 i of every cell)
+// and writes each cell's class to out[mb, mh, ceil(SQ / 64), ceil(SK /
+// 64)] and the row's full-row flag to full[mb, mh, ceil(SQ / 64)]: 1
+// where some row of the 64 that sees a key (bottom-right causal when
+// causal is set) has no value above -0.5e30 among the keys it sees (a
+// fully masked row: the forward visits every key tile for it). A thread
+// loads a cell's 16 values before it tests any (so that the loads
+// overlap, where a load behind each test waited for the one before) and
+// keeps a DEAD and a ZERO bit per cell for 32 cells at a time, and the
+// block ANDs the bits once per 32 cells; each row's live bit is a plain
+// store of 1 into shared memory. So the table is deterministic without atomics or a
+// zeroed output, and one launch writes both. Bound by bytes (and, with
+// few slices, by the latency of its loads).
 __global__ void __launch_bounds__(256)
 tile_classes_kernel(const float* __restrict__ km, long long kb, long long kh,
-                    long long kq, int mh, int SQ, int SK,
-                    uint8_t* __restrict__ out) {
-  const int ct = blockIdx.x, rt = blockIdx.y, z = blockIdx.z;
-  const int bm = z / mh, hm = z - bm * mh;
-  const float* base =
-      km + bm * kb + hm * kh + (long long)rt * kCell * kq + ct * kCell;
-  const int nr = min(kCell, SQ - rt * kCell), nc = min(kCell, SK - ct * kCell);
-  int dead = 1, zero = 1;
-  for (int i = threadIdx.x; i < nr * kCell; i += 256) {
-    const int r = i / kCell, c = i - r * kCell;
-    if (c < nc) {
-      const float x = base[r * kq + c];
-      dead &= x <= 0.5f * kNegInf;
-      zero &= x == 0.f;
+                    long long kq, int mh, int SQ, int SK, int causal,
+                    uint8_t* __restrict__ out, uint8_t* __restrict__ full) {
+  __shared__ int live[kCell];            // row r sees a value above -0.5e30
+  __shared__ uint32_t sdead[8], szero[8];  // each warp's cell bits
+  const int rt = blockIdx.x, z = blockIdx.y, nct = (SK + kCell - 1) / kCell;
+  const int bm = z / mh, hm = z - bm * mh, r0 = rt * kCell;
+  const float* base = km + bm * kb + hm * kh + (long long)r0 * kq;
+  const int nr = min(kCell, SQ - r0), c = threadIdx.x & (kCell - 1);
+  const int rq = threadIdx.x / kCell, off = SK - SQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x < kCell) live[threadIdx.x] = 0;
+  int mine = 0;  // bit i: row rq + 4 i sees a live value in this column
+  for (int ct0 = 0; ct0 < nct; ct0 += 32) {
+    const int n = min(32, nct - ct0);
+    uint32_t dead = 0, zero = 0;  // bit j: cell ct0 + j
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      // the cell's 16 values of this thread, loaded before any is used
+      // (clamped into range, so that no load waits on a branch)
+      const int col = (ct0 + j) * kCell + c, cc = min(col, SK - 1);
+      float x[kCell / 4];
+#pragma unroll
+      for (int i = 0; i < kCell / 4; ++i)
+        x[i] = base[min(rq + 4 * i, nr - 1) * kq + cc];
+      int d = 1, zr = 1;
+#pragma unroll
+      for (int i = 0; i < kCell / 4; ++i) {
+        const int r = rq + 4 * i;
+        if (r < nr && col < SK) {
+          d &= x[i] <= 0.5f * kNegInf;
+          zr &= x[i] == 0.f;
+          if (x[i] > 0.5f * kNegInf && (!causal || col <= r0 + r + off))
+            mine |= 1 << i;
+        }
+      }
+      dead |= (uint32_t)d << j;
+      zero |= (uint32_t)zr << j;
     }
+    dead = __reduce_and_sync(0xffffffffu, dead);
+    zero = __reduce_and_sync(0xffffffffu, zero);
+    if (lane == 0) {
+      sdead[warp] = dead;
+      szero[warp] = zero;
+    }
+    __syncthreads();
+    if (threadIdx.x < n) {
+      dead = zero = ~0u;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        dead &= sdead[w];
+        zero &= szero[w];
+      }
+      const int j = threadIdx.x;
+      out[((long long)z * gridDim.x + rt) * nct + ct0 + j] =
+          (dead >> j) & 1 ? kTileDead : (zero >> j) & 1 ? kTileZero
+                                                        : kTileMixed;
+    }
+    __syncthreads();  // sdead, szero free for the next 32 cells
   }
-  dead = __syncthreads_and(dead);
-  zero = __syncthreads_and(zero);
-  if (threadIdx.x == 0)
-    out[((long long)z * gridDim.y + rt) * gridDim.x + ct] =
-        dead ? kTileDead : zero ? kTileZero : kTileMixed;
+#pragma unroll
+  for (int i = 0; i < kCell / 4; ++i)
+    if ((mine >> i) & 1) live[rq + 4 * i] = 1;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    bool f = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = threadIdx.x + 32 * h;
+      f |= r < nr && (!causal || r0 + r + off >= 0) && !live[r];
+    }
+    f = __any_sync(0xffffffffu, f);
+    if (threadIdx.x == 0) full[(long long)z * gridDim.x + rt] = f;
+  }
 }
 
 // Copy rows [row0, row0 + R) of one (batch, head) slice into a shared
@@ -1365,34 +1442,35 @@ __device__ __forceinline__ bool mask_vec(const Geom& g, const float* kmt) {
   return !(reinterpret_cast<uintptr_t>(kmt) & 15) && !(g.km_q & 3);
 }
 
-// The tile mode's producer warp of dQ. The block's 128 rows are two cells
-// of the class table, one per consumer warpgroup. A warpgroup's mode for
-// key tile kt is its cell's class, but a DEAD cell is skipped (kTileSkip)
-// unless the warpgroup's 64 rows hold a fully masked row (full_row: its p
-// is 1 / SK on every key, and so its ds on a dead cell is not 0); a tile
-// both skip is neither loaded nor announced. The tiles are [kt0, kt1),
-// the causal band (past it every ds is 0, a fully masked row's too), from
-// the last to the first. For each tile it loads, it waits for a free
-// stage s, copies each MIXED cell's mask into the stage's [128, LDM] tile
-// (rows of warpgroup w from row 64 w), writes kt to skt[s] and the modes
-// to smode[2 s + w], and (lane 0) loads K and V (load_kv). A stage whose
+// The tile mode's producer warp of a block of 128 query rows: dQ's, and
+// the forward's (FWD). The rows are two cells of the class table, one
+// per consumer warpgroup. A warpgroup's mode for key tile kt is its
+// cell's class, but it skips (kTileSkip) a DEAD cell, and in the forward
+// a tile past the causal band of its rows, unless its 64 rows hold a
+// fully masked row (bit w of full_rows(): in dQ from the rows' lse, whose
+// p is 1 / SK on every key, so its ds on a dead cell is not 0; in the
+// forward from the class pass's flag, since such a row averages V over
+// every key, hidden ones included). dQ's tiles [kt0, kt1) are the
+// block's causal band (past it every ds is 0, a fully masked row's too);
+// the forward's are all. A tile both warpgroups skip is neither loaded
+// nor announced. The tiles run from kt1 - 1 down to kt0. For each tile it
+// loads, it waits for a free stage s, copies the mask of each cell whose
+// values the warpgroup adds (MIXED, and in the forward a DEAD cell that a
+// fully masked row visits) into the stage's [128, LDM] tile (rows of
+// warpgroup w from row 64 w), writes kt to skt[s] and the modes to
+// smode[2 s + w], and (lane 0) loads K and V (load_kv). A stage whose
 // slot holds -1 ends the tiles. full[s] counts 33 arrivals: the lanes'
 // copies, and lane 0's load. The classes of 32 tiles at a time are read
-// one a lane and passed round by shuffles; the rows' lse and the first
-// classes are read together, before any is used, so that the block waits
-// for one read before its first load.
-template <int ST, int LDM, typename LoadKV>
-__device__ __forceinline__ void tile_dq_producer(
-    const Geom& g, int b, int h, int r0, const float* lse_bh, int kt0,
-    int kt1, float* smask, int* skt, uint8_t* smode, uint64_t* full,
-    uint64_t* empty, LoadKV load_kv) {
+// one a lane and passed round by shuffles; the first classes are read
+// before full_rows() reads its own, so that the block waits for one read
+// before its first load. i counts the ring's stages used before this
+// call; the count after the end stage is returned.
+template <int ST, int LDM, bool FWD, typename FullRows, typename LoadKV>
+__device__ __forceinline__ int tile_row_producer(
+    const Geom& g, int b, int h, int r0, int kt0, int kt1,
+    FullRows full_rows, float* smask, int* skt, uint8_t* smode,
+    uint64_t* full, uint64_t* empty, LoadKV load_kv, int i) {
   const int lane = threadIdx.x & 31;
-  float l[4];  // rows r0 + 32 j + lane
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int row = r0 + 32 * j + lane;
-    l[j] = row < g.SQ ? lse_bh[row] : 0.f;
-  }
   const int nct = (g.SK + kCell - 1) / kCell;
   const uint8_t* cls = cell_row(g, b, h) + (long long)(r0 / kCell) * nct;
   // warpgroup 1's rows start before SQ
@@ -1404,15 +1482,15 @@ __device__ __forceinline__ void tile_dq_producer(
     cl1 = ktl >= kt0 && second ? cls[nct + ktl] : kTileDead;
   };
   classes(0);
-  bool fw[2];  // warpgroup w's rows hold a fully masked row
+  const int fr = full_rows();
+  int band[2];  // FWD: the last key tile warpgroup w's rows see
 #pragma unroll
-  for (int w = 0; w < 2; ++w)
-    fw[w] = __any_sync(0xffffffffu,
-                       full_row(g, l[2 * w], r0 + 64 * w + lane) |
-                           full_row(g, l[2 * w + 1], r0 + 64 * w + 32 + lane));
+  for (int w = 0; w < 2; ++w) {
+    const int last = min(r0 + kCell * w + kCell, g.SQ) - 1 + g.SK - g.SQ;
+    band[w] = !FWD || !g.causal ? INT_MAX : last < 0 ? -1 : last / kCell;
+  }
   const float* kmt = km_row(g, b, h);
   const bool vec = mask_vec(g, kmt);
-  int i = 0;
   for (int n0 = 0; n0 < kt1 - kt0; n0 += 32) {
     if (n0 > 0) classes(n0);
     for (int n = n0; n < kt1 - kt0 && n < n0 + 32; ++n) {
@@ -1421,15 +1499,16 @@ __device__ __forceinline__ void tile_dq_producer(
                   __shfl_sync(0xffffffffu, cl1, n - n0)};
 #pragma unroll
       for (int w = 0; w < 2; ++w)
-        m[w] = m[w] == kTileDead && !fw[w] ? kTileSkip
-               : fw[w]                     ? m[w] | kTileFull
-                                           : m[w];
+        m[w] = (fr >> w) & 1                        ? m[w] | kTileFull
+               : m[w] == kTileDead || kt > band[w] ? kTileSkip
+                                                   : m[w];
       if (m[0] == kTileSkip && m[1] == kTileSkip) continue;
       const int s = i % ST;
       mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
 #pragma unroll
       for (int w = 0; w < 2; ++w)
-        if ((m[w] & 3) == kTileMixed)
+        if ((m[w] & 3) == kTileMixed ||
+            (FWD && m[w] == (kTileDead | kTileFull)))
           copy_mask<LDM>(smask + (s * 2 + w) * kCell * LDM, kmt, g.km_q,
                          r0 + kCell * w, kt * kCell, g.SQ, g.SK, vec);
       cp_async_arrive(full + s);
@@ -1449,6 +1528,7 @@ __device__ __forceinline__ void tile_dq_producer(
     mbar_arrive(full + s);
   }
   mbar_arrive(full + s);
+  return i + 1;
 }
 
 // The tile mode's producer warp of dK/dV. Its items are (query head gi of
@@ -1584,15 +1664,9 @@ struct FwdCfg {
 // per row and its column terms once per tile. The variants run a producer
 // warpgroup that gives its registers to the consumers (kThreadsWs
 // threads: the key-row values and the hash terms beside the score tile
-// spill at 168 a thread). TM (the tile mode): every key tile is loaded
-// and each score of the tile adds the mask's value at (row, key), read
-// from device memory by the thread that holds it; a key the row does not
-// see scores -1e30 in the same log2 units as a masked one, so that a
-// fully masked row averages V over all SK keys as the reference does, and
-// a row outputs 0 only when it sees no key.
-template <int DMAX, bool KM, bool DROP, typename T = bf16, bool TM = false>
-__global__ void __launch_bounds__(KM || DROP || TM ? kThreadsWs : kThreadsWg,
-                                  1)
+// spill at 168 a thread). The tile mode runs flash_fwd_tile_wgmma.
+template <int DMAX, bool KM, bool DROP, typename T = bf16>
+__global__ void __launch_bounds__(KM || DROP ? kThreadsWs : kThreadsWg, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
@@ -1614,7 +1688,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = ((g.SQ + BQ - 1) / BQ - 1 - blockIdx.x / bhs) * BQ;
   int kt0, kt1;
   key_tiles<BQ, BK>(g, r0, &kt0, &kt1);
-  if (TM) kt0 = 0, kt1 = (g.SK + BK - 1) / BK;
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < ST; ++s) {
@@ -1638,7 +1711,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   };
 
   if (threadIdx.x >= kConsumers) {  // the producer warp(group)
-    if constexpr (KM || DROP || TM) regs_dec<kRegsProducer>();
+    if constexpr (KM || DROP) regs_dec<kRegsProducer>();
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(full_q, C::Q_BYTES);
       load_tile<BQ, DMAX>(sQ, &tm_q, full_q, h, r0, b);
@@ -1661,9 +1734,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   // consumers: warpgroup wq owns tile rows 64 wq .. 64 wq + 63; this
   // thread rows rw and rw + 8 of them
-  if constexpr (KM || DROP || TM) regs_inc<kRegsConsumer>();
-  const float* kmt = TM ? km_row(g, b, h) : nullptr;  // TM: (b, h)'s mask
-  const float neg2 = kNegInf * kLog2e;  // TM: -1e30 in log2 units
+  if constexpr (KM || DROP) regs_inc<kRegsConsumer>();
   const int wq = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const int rw = 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
@@ -1685,9 +1756,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   float acc[DMAX / 2];
 #pragma unroll
   for (int j = 0; j < DMAX / 2; ++j) acc[j] = 0.f;
-  // TM: from -inf, since a masked score (-1e30 in log2 units) lies below
-  // -1e30
-  const float m0 = TM ? -INFINITY : kNegInf;
+  const float m0 = kNegInf;
   float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   mbar_wait(full_q, 0);
   // the key tiles from the last to the first; KM: as the producer announces
@@ -1718,7 +1787,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // a mask is needed where the tile crosses the causal diagonal, the
     // window's lower edge or the last key
     const bool masked =
-        TM || c0 + BK > g.SK ||
+        c0 + BK > g.SK ||
         (g.causal && (c0 + BK - 1 > r0 + offset ||
                       (g.window > 0 && c0 <= rmax + offset - g.window)));
     float mx[2] = {m0, m0};
@@ -1730,17 +1799,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
-          float x;
-          if constexpr (TM) {
-            x = c < lo[r] || c >= hi[r] || c >= g.SK
-                    ? neg2
-                    : fmaf(sc[4 * j + e], sl2,
-                           tile_mask(g, kmt, r0 + rw + 8 * r, c) * kLog2e);
-          } else {
-            x = KM ? fmaf(sc[4 * j + e], sl2, skm[8 * j + (e & 1)] * kLog2e)
-                   : sc[4 * j + e] * sl2;
-            x = c < lo[r] || c >= hi[r] ? kNegInf : x;
-          }
+          float x = KM ? fmaf(sc[4 * j + e], sl2,
+                              skm[8 * j + (e & 1)] * kLog2e)
+                       : sc[4 * j + e] * sl2;
+          x = c < lo[r] || c >= hi[r] ? kNegInf : x;
           x = c >= g.SK ? -INFINITY : x;
           sc[4 * j + e] = x;
           mx[r] = fmaxf(mx[r], x);
@@ -1817,7 +1879,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int row = r0 + rw + 8 * r;
     if (row >= g.SQ) continue;
     // m stays at -1e30 iff the row saw no key: it outputs exactly 0
-    const bool valid = TM ? row_sees(g, row) : m[r] > 0.5f * kNegInf;
+    const bool valid = m[r] > 0.5f * kNegInf;
     const float l_safe = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / l_safe;
     T* orow = o + b * so_.b + (long long)row * so_.s + h * so_.h;
@@ -1835,6 +1897,289 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+
+// The tile mode's forward tiles: 128 query rows (64 per consumer
+// warpgroup: one cell row each) x 64 keys (one cell) in a ring of 3
+// stages at d 64 and 2 at d 128, each holding K, V, the [128, LDM] fp32
+// mask tile (LDM as DqCfg's: the consumers' float2 reads in the
+// accumulator's layout fall in distinct banks), the tile's index and the
+// two warpgroups' modes; Q in two slots, so that the producer loads the
+// next item's Q while the consumers finish the current one.
+template <int DMAX>
+struct FwdTileCfg {
+  static constexpr int BQ = 128, BK = 64, STAGES = DMAX > 64 ? 2 : 3;
+  // the producer's class and copy loops need 40 registers
+  static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
+  static constexpr int LDM = BK + 8;
+  static constexpr int Q_BYTES = BQ * DMAX * 2;
+  static constexpr int KV_BYTES = BK * DMAX * 2;
+  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_MASK = OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_MASK + STAGES * BQ * LDM * 4;
+  // barriers: full_q[2], empty_q[2], full[STAGES] (K, V and the mask
+  // tile: an end stage completes its phase too, so K's and V's phases
+  // stay in step across items), empty[STAGES]
+  static constexpr int OFF_KT = OFF_BAR + 8 * (4 + 2 * STAGES);
+  static constexpr int OFF_MODE = OFF_KT + STAGES * 4;
+  static constexpr size_t SMEM = OFF_MODE + 2 * STAGES + 1024;
+};
+
+// The tile mode's forward (kernel 1 with a tile mask). Its items are the
+// (query head, 128-row query tile) pairs, the heaviest (the last rows)
+// first; block t takes items t, t + gridDim.x, ... (grid: one block an
+// SM, so that one item's first loads and the class reads run under the
+// previous item's tiles and its O and lse stores under the next one's).
+// The producer warp loads each item's Q into the free one of two slots,
+// then announces its key tiles from the last to the first with each
+// warpgroup's mode (tile_row_producer<FWD>: a warpgroup skips a DEAD cell
+// and a tile past its rows' causal band unless the class pass flags its
+// cell row as holding a fully masked row), loading K and V only for the
+// tiles some warpgroup visits and staging the mask of the cells whose
+// values it adds. Per tile, each consumer warpgroup that visits it
+// computes S = Q.K^T for its 64 rows (wgmma), adds the staged mask values
+// in log2 units (a ZERO cell adds nothing: fmaf(s, sl2, 0) rounds as s *
+// sl2 does), gives a key the row does not see the reference's -1e30 in
+// the same units (so a fully masked row averages V over all SK keys) and
+// a key past SK -inf, and runs kernel 1's streaming softmax and P.V
+// (wgmma, P from registers, rounded to bf16 once; DROP as kernel 1's).
+// Skipping is exact: a row with a live key has a finite m, and a skipped
+// DEAD or hidden key's ex2(-1e30 log2e - m) is exactly 0, so O and lse
+// keep the bits that visiting every tile in the same order gives. A row
+// that sees no key outputs exactly 0 with lse -1e30. m starts at
+// -FLT_MAX, so that a first tile whose values are all -inf gives no NaN.
+template <int DMAX, bool DROP>
+__global__ void __launch_bounds__(kThreadsWs, 1)
+flash_fwd_tile_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     bf16* __restrict__ o, float* __restrict__ lse, Geom g,
+                     Strides so_) {
+  using C = FwdTileCfg<DMAX>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
+  static_assert(BK == kCell && BQ == 2 * kCell, "a warpgroup's tile is a cell");
+  char* sm = aligned_smem();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full_q = bars;
+  uint64_t* empty_q = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = bars + 4 + ST;
+  float* smask = reinterpret_cast<float*>(sm + C::OFF_MASK);
+  int* skt = reinterpret_cast<int*>(sm + C::OFF_KT);
+  uint8_t* smode = reinterpret_cast<uint8_t*>(sm + C::OFF_MODE);
+  const int bhs = g.B * g.H, nqt = (g.SQ + BQ - 1) / BQ;
+  const int items = bhs * nqt;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(full_q + q, 1);
+      mbar_init(empty_q + q, kConsumers);
+    }
+    for (int s = 0; s < ST; ++s) {
+      // the K and V load, and the producer warp's 32 lanes once their
+      // mask copies land
+      mbar_init(full + s, 33);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    regs_dec<C::REGS_PRODUCER>();
+    if (threadIdx.x < kConsumers + 32) {  // its first warp
+      const int lane = threadIdx.x & 31;
+      const int nkt = (g.SK + BK - 1) / BK;
+      int i = 0, n = 0;
+      for (int t = blockIdx.x; t < items; t += gridDim.x, ++n) {
+        const int bh = t % bhs, b = bh / g.H, h = bh - b * g.H;
+        const int hk = h / (g.H / g.HKV), r0 = (nqt - 1 - t / bhs) * BQ;
+        const int slot = n & 1;
+        mbar_wait(empty_q + slot, ((n >> 1) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full_q + slot, C::Q_BYTES);
+          load_tile<BQ, DMAX>(sm + slot * C::Q_BYTES, &tm_q, full_q + slot,
+                              h, r0, b);
+        }
+        auto load_kv = [&](int s, int kt) {
+          mbar_expect_tx(full + s, 2 * C::KV_BYTES);
+          load_tile<BK, DMAX>(sm + C::OFF_K + s * C::KV_BYTES, &tm_k,
+                              full + s, hk, kt * BK, b);
+          load_tile<BK, DMAX>(sm + C::OFF_V + s * C::KV_BYTES, &tm_v,
+                              full + s, hk, kt * BK, b);
+        };
+        // bit w: cell row r0 / 64 + w holds a fully masked row
+        const uint8_t* fl = g.tfull + b * g.tf_b + h * g.tf_h + r0 / kCell;
+        auto full_rows = [&]() {
+          return (int)fl[0] | (r0 + kCell < g.SQ ? (int)fl[1] << 1 : 0);
+        };
+        i = tile_row_producer<ST, C::LDM, true>(g, b, h, r0, 0, nkt,
+                                                full_rows, smask, skt, smode,
+                                                full, empty, load_kv, i);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wq owns tile rows 64 wq .. 64 wq + 63; this
+  // thread rows rw and rw + 8 of them
+  regs_inc<C::REGS_CONSUMER>();
+  const int wq = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int rw = 64 * wq + 16 * ((threadIdx.x >> 5) & 3) + gq;
+  const float sl2 = g.scale * kLog2e;   // scores in the log2 domain
+  const float neg2 = kNegInf * kLog2e;  // -1e30 in log2 units
+  const int offset = g.SK - g.SQ;
+  int i = 0, n = 0;
+  for (int t = blockIdx.x; t < items; t += gridDim.x, ++n) {
+    const int bh = t % bhs, b = bh / g.H, h = bh - b * g.H;
+    const int r0 = (nqt - 1 - t / bhs) * BQ;
+    const int slot = n & 1;
+    const char* sQ = sm + slot * C::Q_BYTES;
+    // the keys row r0 + rw + 8 r sees end at hi[r] (bottom-right causal
+    // diagonal; the tile mode has no window), and keys past SK do not
+    // exist
+    int hi[2];
+    uint32_t hrow[2];  // DROP: the hash's row terms, salt included
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      hi[r] = g.causal ? r0 + rw + 8 * r + offset + 1 : INT_MAX;
+      if constexpr (DROP)
+        hrow[r] = (uint32_t)(r0 + rw + 8 * r) * kRowMul + head_salt(g, bh);
+    }
+    float acc[DMAX / 2];
+#pragma unroll
+    for (int j = 0; j < DMAX / 2; ++j) acc[j] = 0.f;
+    float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
+    mbar_wait(full_q + slot, (n >> 1) & 1);
+    // the key tiles as the producer announces them
+    for (;; ++i) {
+      const int s = i % ST;
+      mbar_wait(full + s, (i / ST) & 1);
+      const int kt = skt[s];
+      const int mode = smode[2 * s + wq] & 3;
+      if (kt < 0 || mode == kTileSkip) {
+        mbar_arrive(empty + s);
+        if (kt < 0) {
+          ++i;
+          break;
+        }
+        continue;
+      }
+      const int c0 = kt * BK;
+      const char* sK = sm + C::OFF_K + s * C::KV_BYTES;
+      const char* sV = sm + C::OFF_V + s * C::KV_BYTES;
+      // the stage's mask tile from this thread's row rw and column 2 tq
+      const float* skm = smask + s * BQ * C::LDM + rw * C::LDM + 2 * tq;
+      float sc[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < DMAX / 16; ++ks)
+        wgmma_ss<BK, bf16>(sc, desc_kmajor<BQ>(sQ, 64 * wq, ks),
+                           desc_kmajor<BK>(sK, 0, ks), ks);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      // the causal and ragged tests only where the warpgroup's rows cross
+      // the diagonal or the tile the last key
+      const bool edge =
+          c0 + BK > g.SK || (g.causal && c0 + BK - 1 > r0 + 64 * wq + offset);
+      float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float2 mv[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+        if (mode != kTileZero) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            mv[r] = *reinterpret_cast<const float2*>(skm + 8 * r * C::LDM +
+                                                     8 * j);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 8 * j + 2 * tq + (e & 1), r = e >> 1;
+          float x = fmaf(sc[4 * j + e], sl2,
+                         (e & 1 ? mv[r].y : mv[r].x) * kLog2e);
+          if (edge) {
+            x = c >= hi[r] ? neg2 : x;
+            x = c >= g.SK ? -INFINITY : x;
+          }
+          sc[4 * j + e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];  // this thread's share of the row sum
+      }
+      // P rounded to bf16 once as the A operand of P.V; the row sum keeps
+      // the fp32 p (undropped)
+      const uint32_t hcol = DROP ? (uint32_t)(c0 + 2 * tq) * kColMul : 0u;
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = ex2(sc[4 * j + e] - m[e >> 1]);
+          l[e >> 1] += p[e];
+          if constexpr (DROP)
+            p[e] = keep_sum(hrow[e >> 1] + hcol +
+                                (uint32_t)(8 * j + (e & 1)) * kColMul,
+                            g.thresh)
+                       ? p[e] * g.dscale
+                       : 0.f;
+        }
+        pa[j >> 1][2 * (j & 1)] = pack<bf16>(p[0], p[1]);
+        pa[j >> 1][2 * (j & 1) + 1] = pack<bf16>(p[2], p[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DMAX, bf16>(acc, pa[kk], desc_mnmajor<BK>(sV, kk), 1);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(empty + s);
+    }
+    mbar_arrive(empty_q + slot);  // every product that reads Q is done
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = r0 + rw + 8 * r;
+      if (row >= g.SQ) continue;
+      const bool valid = row_sees(g, row);
+      const float l_safe = fmaxf(l[r], 1e-30f);
+      const float inv = 1.f / l_safe;
+      bf16* orow = o + b * so_.b + (long long)row * so_.s + h * so_.h;
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j) {
+        const int col = 8 * j + 2 * tq;
+        if (col < g.d)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              valid ? pack<bf16>(acc[4 * j + 2 * r] * inv,
+                                 acc[4 * j + 2 * r + 1] * inv)
+                    : 0u;
+      }
+      if (tq == 0)
+        lse[(long long)bh * g.SQ + row] =
+            (valid ? m[r] * kLn2 : kNegInf) + logf(l_safe);
+    }
+  }
+}
 
 // The backward kernels start their blocks in groups of kGroupSlices
 // slices (kv heads, or query heads, of the batch rows): block t belongs
@@ -2295,7 +2640,7 @@ struct DqCfg {
 // dQ). At d 128 with a key row, and in the tile mode, FUSED sums delta
 // before the key loop (see kEarly). TM (the tile mode): the
 // producer announces the key tiles of the causal band and each warpgroup's
-// mode for them (tile_dq_producer): a skipped cell's ds is exactly 0, a
+// mode for them (tile_row_producer): a skipped cell's ds is exactly 0, a
 // ZERO cell's scores add nothing, a MIXED cell's add the mask values that
 // the producer staged in shared memory, read here in the accumulator's
 // layout, and a DEAD cell is visited only for a fully masked row (lse <=
@@ -2368,11 +2713,32 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
             reinterpret_cast<float*>(sm + C::OFF_KM), skt, full_k, empty,
             load_kv);
     } else if constexpr (TM) {  // its first warp
-      if (threadIdx.x < kConsumers + 32)
-        tile_dq_producer<ST, C::LDM>(
-            g, b, h, r0, lse + (long long)bh * g.SQ, kt0, kt1,
+      if (threadIdx.x < kConsumers + 32) {
+        // bit w: warpgroup w's rows hold a fully masked row (full_row)
+        const float* lse_bh = lse + (long long)bh * g.SQ;
+        const int lane = threadIdx.x & 31;
+        auto full_rows = [&]() {
+          float l[4];  // rows r0 + 32 j + lane
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int row = r0 + 32 * j + lane;
+            l[j] = row < g.SQ ? lse_bh[row] : 0.f;
+          }
+          int fr = 0;
+#pragma unroll
+          for (int w = 0; w < 2; ++w)
+            fr |= __any_sync(0xffffffffu,
+                             full_row(g, l[2 * w], r0 + 64 * w + lane) |
+                                 full_row(g, l[2 * w + 1],
+                                          r0 + 64 * w + 32 + lane))
+                  << w;
+          return fr;
+        };
+        tile_row_producer<ST, C::LDM, false>(
+            g, b, h, r0, kt0, kt1, full_rows,
             reinterpret_cast<float*>(sm + C::OFF_KM), skt, smode, full_k,
-            empty, load_kv);
+            empty, load_kv, 0);
+      }
     } else if (threadIdx.x == kConsumers) {
       for (int i = 0, kt = kt1 - 1; kt >= kt0; --kt, ++i) {
         const int s = i % ST;
@@ -2772,8 +3138,7 @@ int tile_map(CUtensorMap* map, const void* base, int B, int S, int heads,
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
-template <int DMAX, bool KM, bool DROP, typename T = wg::bf16,
-          bool TM = false>
+template <int DMAX, bool KM, bool DROP, typename T = wg::bf16>
 cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                       void* lse, const Geom& g, const long long* st,
                       cudaStream_t stream) {
@@ -2785,24 +3150,61 @@ cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
   if (!err)
     err = tile_map<T>(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_fwd_wgmma<DMAX, KM, DROP, T, TM>;
+  auto kernel = wg::flash_fwd_wgmma<DMAX, KM, DROP, T>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   kernel<<<g.B * g.H * ((g.SQ + C::BQ - 1) / C::BQ),
-           KM || DROP || TM ? wg::kThreadsWs : wg::kThreadsWg, C::SMEM,
+           KM || DROP ? wg::kThreadsWs : wg::kThreadsWg, C::SMEM,
            stream>>>(
       tq, tk, tv, (T*)o, (float*)lse, g, strides_at(st, 3));
   return cudaGetLastError();
 }
 
-// The forward (kernels 1 and 4, every variant and the tile mode) runs
-// the wgmma kernel.
+// The tile mode's forward: g.blocks blocks (0: one an SM), each walking
+// its share of the items.
+template <int DMAX, bool DROP>
+cudaError_t fwd_tile_wgmma(const void* q, const void* k, const void* v,
+                           void* o, void* lse, const Geom& g,
+                           const long long* st, cudaStream_t stream) {
+  using C = wg::FwdTileCfg<DMAX>;
+  CUtensorMap tq, tk, tv;
+  int err = tile_map<wg::bf16>(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0),
+                               C::BQ);
+  if (!err)
+    err = tile_map<wg::bf16>(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1),
+                             C::BK);
+  if (!err)
+    err = tile_map<wg::bf16>(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2),
+                             C::BK);
+  if (err) return (cudaError_t)err;
+  auto kernel = wg::flash_fwd_tile_wgmma<DMAX, DROP>;
+  cudaError_t e = prepare(kernel, C::SMEM);
+  if (e != cudaSuccess) return e;
+  int blocks = g.blocks;
+  if (blocks <= 0) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&blocks, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int items = g.B * g.H * ((g.SQ + C::BQ - 1) / C::BQ);
+  kernel<<<blocks < items ? blocks : items, wg::kThreadsWs, C::SMEM,
+           stream>>>(
+      tq, tk, tv, (wg::bf16*)o, (float*)lse, g, strides_at(st, 3));
+  return cudaGetLastError();
+}
+
+// The forward (kernels 1 and 4, every variant) runs the wgmma kernel, and
+// the tile mode its own.
 template <int DMAX, bool KM, bool DROP, bool TM = false>
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Geom& g, const long long* st,
                    cudaStream_t stream) {
-  return fwd_wgmma<DMAX, KM, DROP, wg::bf16, TM>(q, k, v, o, lse, g, st,
-                                                 stream);
+  if constexpr (TM)
+    return fwd_tile_wgmma<DMAX, DROP>(q, k, v, o, lse, g, st, stream);
+  else
+    return fwd_wgmma<DMAX, KM, DROP>(q, k, v, o, lse, g, st, stream);
 }
 
 // dQ on wgmma: FUSED computes delta from O (strides so_) and writes it;
@@ -2918,8 +3320,8 @@ Geom make_geom(const int* geom, float scale, const void* km, void* dm,
   g.km_b = hb ? g.SK : (long long)g.H * g.SK;
   g.km_h = hb ? 0 : g.SK;
   g.km_q = 0;
-  g.tcls = nullptr;
-  g.tc_b = g.tc_h = 0;
+  g.tcls = g.tfull = nullptr;
+  g.tc_b = g.tc_h = g.tf_b = g.tf_h = 0;
   g.seed0 = drop ? drop[0] : 0u;
   g.seed1 = drop ? drop[1] : 0u;
   g.thresh = drop ? drop[2] : 0u;
@@ -2927,6 +3329,7 @@ Geom make_geom(const int* geom, float scale, const void* km, void* dm,
   g.b0 = drop ? drop[4] : 0u;
   g.h0 = drop ? drop[5] : 0u;
   g.dscale = dscale;
+  g.blocks = 0;
   return g;
 }
 
@@ -3054,19 +3457,26 @@ int bwd_dkv_entry(const void* q, const void* k, const void* v,
   } while (0)
 
 // kms: the tile mode mask's batch, head and query-row strides (elements,
-// 0 over a broadcast dim; its key stride is 1), then the class table's
-// batch and head strides (0 over a broadcast dim); tcls: the class table
-// (the backward kernels on wgmma).
+// 0 over a broadcast dim; its key stride is 1), the class table's batch
+// and head strides (0 over a broadcast dim), then the forward's block
+// count (0: one an SM); tcls, tfull: the class table and the full-row
+// flags (the wgmma kernels; the flags, one a cell row, the forward's).
 Geom tile_geom(const int* geom, float scale, const void* km,
-               const long long* kms, const void* tcls, void* dm,
-               const unsigned* drop, float dscale) {
+               const long long* kms, const void* tcls, const void* tfull,
+               void* dm, const unsigned* drop, float dscale) {
   Geom g = make_geom(geom, scale, km, dm, drop, dscale, 0);
   g.km_b = kms[0];
   g.km_h = kms[1];
   g.km_q = kms[2];
   g.tcls = (const uint8_t*)tcls;
+  g.tfull = (const uint8_t*)tfull;
   g.tc_b = kms[3];
   g.tc_h = kms[4];
+  // the flags' strides: the table's, one byte a cell row
+  const int nct = (g.SK + kCell - 1) / kCell;
+  g.tf_b = g.tc_b / nct;
+  g.tf_h = g.tc_h / nct;
+  g.blocks = (int)kms[5];
   return g;
 }
 
@@ -3103,18 +3513,21 @@ int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
 #undef PT_DQ_DELTA
 }
 
-// The backward's wgmma kernels (bf16, d <= 128) read the class table.
-bool wgmma_classes_given(const Geom& g, int dtype) {
-  return dtype != kBFloat16 || g.d > 128 || g.tcls;
+// The wgmma kernels (bf16, d <= 128) read the class table, the forward
+// also the full-row flags.
+bool wgmma_classes_given(const Geom& g, int dtype, bool flags) {
+  return dtype != kBFloat16 || g.d > 128 || (g.tcls && (g.tfull || !flags));
 }
 
 int tile_fwd_entry(const void* q, const void* k, const void* v, void* o,
-                   void* lse, const void* km, const long long* kms,
-                   const int* geom, float scale, const long long* strides,
+                   void* lse, const void* km, const void* tcls,
+                   const void* tfull, const long long* kms, const int* geom,
+                   float scale, const long long* strides,
                    const unsigned* drop, float dscale, int dtype,
                    void* stream) {
   const Geom g =
-      tile_geom(geom, scale, km, kms, nullptr, nullptr, drop, dscale);
+      tile_geom(geom, scale, km, kms, tcls, tfull, nullptr, drop, dscale);
+  if (!wgmma_classes_given(g, dtype, true)) return cudaErrorInvalidValue;
   PT_TILE_DISPATCH(fwd, q, k, v, o, lse, g, strides, (cudaStream_t)stream);
 }
 
@@ -3124,8 +3537,9 @@ int tile_bwd_dq_entry(const void* q, const void* k, const void* v,
                       const long long* kms, const int* geom, float scale,
                       const long long* strides, const unsigned* drop,
                       float dscale, int dtype, void* stream) {
-  const Geom g = tile_geom(geom, scale, km, kms, tcls, nullptr, drop, dscale);
-  if (!wgmma_classes_given(g, dtype)) return cudaErrorInvalidValue;
+  const Geom g =
+      tile_geom(geom, scale, km, kms, tcls, nullptr, nullptr, drop, dscale);
+  if (!wgmma_classes_given(g, dtype, false)) return cudaErrorInvalidValue;
   PT_TILE_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, g, strides,
                    (cudaStream_t)stream);
 }
@@ -3140,7 +3554,8 @@ int tile_bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                             float scale, const long long* strides,
                             const unsigned* drop, float dscale, int dtype,
                             void* stream) {
-  const Geom g = tile_geom(geom, scale, km, kms, tcls, nullptr, drop, dscale);
+  const Geom g =
+      tile_geom(geom, scale, km, kms, tcls, nullptr, nullptr, drop, dscale);
   if (dtype != kBFloat16 || g.d % 8 || g.d > 128 || g.H % g.HKV ||
       g.window || !g.km || !g.tcls)
     return cudaErrorInvalidValue;
@@ -3164,8 +3579,9 @@ int tile_bwd_dkv_entry(const void* q, const void* k, const void* v,
                        const int* geom, float scale,
                        const long long* strides, const unsigned* drop,
                        float dscale, int dtype, void* stream) {
-  const Geom g = tile_geom(geom, scale, km, kms, tcls, dm, drop, dscale);
-  if (!wgmma_classes_given(g, dtype)) return cudaErrorInvalidValue;
+  const Geom g =
+      tile_geom(geom, scale, km, kms, tcls, nullptr, dm, drop, dscale);
+  if (!wgmma_classes_given(g, dtype, false)) return cudaErrorInvalidValue;
   PT_TILE_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, g, strides,
                    (cudaStream_t)stream);
 }
@@ -3285,19 +3701,21 @@ extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
 // The tile mode of the flash entries: km is an fp32 mask that broadcasts
 // to [B, H, SQ, SK] with the strides kms = {batch, head, query row} (0
 // over a broadcast dim) and a unit key stride, added to every score, then
-// the class table's {batch, head} strides (tile_geom); tcls (the backward
-// entries): the class table of pt_flash_tile_classes, required for bf16
-// at d <= 128 (null otherwise); dm (or null) receives ds / scale per
-// element as [B * H, SQ, SK] fp32 (zeroed by the caller). Other arguments
-// as the pt_flash_* entries.
+// the class table's {batch, head} strides and the forward's block count
+// (tile_geom); tcls: the class table of pt_flash_tile_classes and (the
+// forward) tfull its full-row flags, required for bf16 at d <= 128 (null
+// otherwise); dm (or null) receives ds / scale per element as [B * H, SQ,
+// SK] fp32 (zeroed by the caller). Other arguments as the pt_flash_*
+// entries.
 extern "C" int pt_flash_tile_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, const void* km,
+                                 const void* tcls, const void* tfull,
                                  const long long* kms, const int* geom,
                                  float scale, const long long* strides,
                                  const unsigned* drop, float dscale,
                                  int dtype, void* stream) {
-  return tile_fwd_entry(q, k, v, o, lse, km, kms, geom, scale, strides, drop,
-                        dscale, dtype, stream);
+  return tile_fwd_entry(q, k, v, o, lse, km, tcls, tfull, kms, geom, scale,
+                        strides, drop, dscale, dtype, stream);
 }
 
 extern "C" int pt_flash_tile_bwd_dq(const void* q, const void* k,
@@ -3342,16 +3760,18 @@ extern "C" int pt_flash_tile_bwd_dkv(const void* q, const void* k,
 }
 
 // The tile mode's class table: km and kms[0..2] as above, mb and mh the
-// table's batch and head counts (1 over a broadcast dim); out: uint8 [mb,
-// mh, ceil(SQ / 64), ceil(SK / 64)] (tile_classes_kernel).
+// table's batch and head counts (1 over a broadcast dim), causal the
+// kernels' flag; out: uint8 [mb, mh, ceil(SQ / 64), ceil(SK / 64)], full:
+// uint8 [mb, mh, ceil(SQ / 64)] (tile_classes_kernel).
 extern "C" int pt_flash_tile_classes(const void* km, const long long* kms,
                                      int mb, int mh, int SQ, int SK,
-                                     void* out, void* stream) {
+                                     int causal, void* out, void* full,
+                                     void* stream) {
   if (mb < 1 || mh < 1 || SQ < 1 || SK < 1 || mb * mh > 65535)
     return cudaErrorInvalidValue;
-  const dim3 grid((SK + kCell - 1) / kCell, (SQ + kCell - 1) / kCell,
-                  mb * mh);
+  const dim3 grid((SQ + kCell - 1) / kCell, mb * mh);
   tile_classes_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)km, kms[0], kms[1], kms[2], mh, SQ, SK, (uint8_t*)out);
+      (const float*)km, kms[0], kms[1], kms[2], mh, SQ, SK, causal,
+      (uint8_t*)out, (uint8_t*)full);
   return cudaGetLastError();
 }

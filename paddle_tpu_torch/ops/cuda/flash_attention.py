@@ -83,17 +83,23 @@ where the row does not see the key (the causal mask).
 element as ``[b * h, sq, sk]`` fp32 when ``tmask_grad`` is set; the
 caller sums it over the broadcast dims. bfloat16 at ``d <= 128`` runs
 the wgmma kernels; fp32 and ``d > 128`` the fp32-FMA kernels, which
-visit every tile; float16 raises. On wgmma the backward skips what is
+visit every tile; float16 raises. On wgmma the kernels skip what is
 exactly zero: :func:`tile_classes` (a kernel of its own) classes each
 64 x 64 cell of the mask as DEAD (every value at or below ``-0.5e30``),
-ZERO (every value 0) or MIXED, once per backward; dQ and dK/dV skip a
-DEAD cell (its p is 0) unless its rows hold a fully masked row, dK/dV
-the query tiles before the causal band likewise, dQ every tile past it;
-a ZERO cell adds nothing, and a MIXED cell's mask is staged in shared
-memory by the producer warp. dQ computes delta itself
-(:func:`flash_bwd_dq_delta` with ``tmask``), dK/dV runs the wgmma kernel
-(a ring of 2 stages at ``d > 64``, where the mask tiles fill shared
-memory). Its launches count on ``flash_fwd.tile_launches``,
+ZERO (every value 0) or MIXED and flags each 64-row cell row that holds
+a fully masked row, once per attention call (:class:`_FlashFn` runs it
+with the forward and hands the table to dQ and dK/dV; a kernel entry
+called alone runs its own). The forward (128 rows x 64-key cells, one
+block a streaming multiprocessor walking the row tiles) skips a DEAD
+cell and a tile past its rows' causal band unless the cell row is
+flagged; dQ and dK/dV skip a DEAD cell (its p is 0) unless its rows
+hold a fully masked row, dK/dV the query tiles before the causal band
+likewise, dQ every tile past it; a ZERO cell adds nothing, and a MIXED
+cell's mask is staged in shared memory by the producer warp. dQ
+computes delta itself (:func:`flash_bwd_dq_delta` with ``tmask``),
+dK/dV runs the wgmma kernel (rings of 2 stages at ``d > 64``, where the
+mask tiles fill shared memory). Its launches count on
+``flash_fwd.tile_launches``,
 ``flash_bwd_dq.tile_launches`` (either dQ entry) and
 ``flash_bwd_dkv.tile_launches``, not on ``.launches``, and the class
 pass on ``tile_classes.launches``.
@@ -497,13 +503,17 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale=None,
     return dk.to(k.dtype), dv.to(v.dtype), dmask
 
 
-def tile_classes_ref(tmask, sq, sk):
+def tile_classes_ref(tmask, sq, sk, causal=False, full_rows=False):
     """Plain version of :func:`tile_classes`: uint8 ``[mb, mh, ceil(sq /
     64), ceil(sk / 64)]``, the class of each 64 x 64 cell of the mask
     (``mb``, ``mh``: 1 over a broadcast batch or head dim, whose one
     slice is classed): TILE_DEAD where every value is at or below
     ``-0.5e30``, TILE_ZERO where every value is 0, else TILE_MIXED; a
-    cell past ``sq`` or ``sk`` counts by its in-range part."""
+    cell past ``sq`` or ``sk`` counts by its in-range part. With
+    ``full_rows`` also the full-row flags, uint8 ``[mb, mh, ceil(sq /
+    64)]``: 1 where some row of the 64 that sees a key (bottom-right
+    causal under ``causal``) has no value above ``-0.5e30`` among the
+    keys it sees (a fully masked row)."""
     kb, kh, _ = _mask_strides(tmask)
     m = tmask[:None if kb else 1, :None if kh else 1].to(torch.float32)
     m = m.expand(-1, -1, sq, sk)
@@ -516,8 +526,20 @@ def tile_classes_ref(tmask, sq, sk):
                          CELL).amin((3, 5)).bool()
 
     dead, zero = every(m <= 0.5 * NEG_INF), every(m == 0)
-    return torch.where(dead, TILE_DEAD, torch.where(
+    classes = torch.where(dead, TILE_DEAD, torch.where(
         zero, TILE_ZERO, TILE_MIXED)).to(torch.uint8)
+    if not full_rows:
+        return classes
+    live = m > 0.5 * NEG_INF
+    vis = _visible(sq, sk, causal, 0, m.device)
+    if vis is not None:
+        live &= vis
+    sees = torch.ones(sq, dtype=torch.bool, device=m.device) \
+        if vis is None else vis.any(-1)
+    full = ~live.any(-1) & sees  # [mb, mh, sq]
+    full = torch.nn.functional.pad(full, (0, -sq % CELL))
+    flags = full.reshape(*full.shape[:2], -1, CELL).any(-1)
+    return classes, flags.to(torch.uint8)
 
 
 # -- kernels ------------------------------------------------------------------
@@ -545,14 +567,14 @@ def _lib():
     # the head-batched fused dQ also takes the key row
     lib.pt_hb_bwd_dq_delta.argtypes = [_P] * 9 + _TAIL
     lib.pt_hb_bwd_dq_delta.restype = _I
-    # the tile mode: the mask, the class table (backward) and the strides,
-    # and dK/dV's dmask
-    for entry, n_ptr in (("fwd", 7), ("bwd_dq", 10), ("bwd_dq_delta", 11),
+    # the tile mode: the mask, the class table (and the forward's
+    # full-row flags) and the strides, and dK/dV's dmask
+    for entry, n_ptr in (("fwd", 9), ("bwd_dq", 10), ("bwd_dq_delta", 11),
                          ("bwd_dkv", 12)):
         fn = getattr(lib, f"pt_flash_tile_{entry}")
         fn.argtypes = [_P] * n_ptr + _TAIL
         fn.restype = _I
-    lib.pt_flash_tile_classes.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P]
+    lib.pt_flash_tile_classes.argtypes = [_P, _P] + [_I] * 5 + [_P] * 3
     lib.pt_flash_tile_classes.restype = _I
     return lib
 
@@ -647,12 +669,13 @@ def _bwd_dkv(entry, name, q, k, v, do, lse, delta, kmask, dm_rows, scale,
     return (dk, dv) if dm is None else (dk, dv, dm)
 
 
-def _tile_args(q, k, kmask, tmask, window):
+def _tile_args(q, k, kmask, tmask, window, blocks=0):
     """The tile mode's checks (a call takes a key row or a tile mask, not
     both, and the tile mode no window): the tile mask's (batch, head,
     query-row) strides and the class table's (batch, head) strides (0
-    over a broadcast dim) as the host array the tile entries read, or
-    None without one."""
+    over a broadcast dim), then the forward's block count (``blocks``; 0:
+    one a streaming multiprocessor), as the host array the tile entries
+    read, or None without one."""
     if tmask is None:
         return None
     if kmask is not None or window:
@@ -660,50 +683,69 @@ def _tile_args(q, k, kmask, tmask, window):
     kb, kh, kq = _check_tmask(tmask, q, k)
     cells = -(-q.shape[1] // CELL) * -(-k.shape[1] // CELL)
     heads = q.shape[2] if kh else 1
-    return (ctypes.c_longlong * 5)(kb, kh, kq, kb and heads * cells,
-                                   kh and cells)
+    return (ctypes.c_longlong * 6)(kb, kh, kq, kb and heads * cells,
+                                   kh and cells, blocks)
 
 
-def tile_classes(tmask, sq, sk):
+def tile_classes(tmask, sq, sk, causal=False, full_rows=False):
     """The tile mode's class table: uint8 ``[mb, mh, ceil(sq / 64),
     ceil(sk / 64)]``, the class of each 64 x 64 cell of the fp32 mask
     ``tmask`` (4-D, broadcasting to ``[b, h, sq, sk]`` with a full,
-    contiguous key dim; ``mb``, ``mh`` 1 over a broadcast dim), as
-    :func:`tile_classes_ref` gives it. One launch reads the mask once
-    (``pt_flash_tile_classes``); the tile mode's backward on the wgmma
-    kernels reads the table to skip dead cells. Counts on
-    ``tile_classes.launches``."""
+    contiguous key dim; ``mb``, ``mh`` 1 over a broadcast dim), and with
+    ``full_rows`` also its full-row flags (uint8 ``[mb, mh, ceil(sq /
+    64)]``, bottom-right causal under ``causal``), as
+    :func:`tile_classes_ref` gives them. One launch reads the mask once
+    and writes both (``pt_flash_tile_classes``); the tile mode's wgmma
+    kernels read the table to skip dead cells, the forward also the
+    flags. Counts on ``tile_classes.launches``."""
     if not isinstance(tmask, torch.Tensor) or tmask.dtype != torch.float32 \
             or tmask.dim() != 4 or tmask.shape[3] != sk \
             or tmask.stride(3) != 1 or tmask.shape[2] not in (1, sq):
         raise ValueError(f"tmask must be a float32 [mb, mh, 1 or {sq}, "
                          f"{sk}] tensor with a contiguous key dim")
     if not tmask.is_cuda:
-        return tile_classes_ref(tmask, sq, sk)
+        return tile_classes_ref(tmask, sq, sk, causal, full_rows)
     kb, kh, kq = _mask_strides(tmask)
     mb, mh = (tmask.shape[0] if kb else 1), (tmask.shape[1] if kh else 1)
-    out = torch.empty((mb, mh, -(-sq // CELL), -(-sk // CELL)),
-                      dtype=torch.uint8, device=tmask.device)
+    rows = -(-sq // CELL)
+    out = torch.empty((mb, mh, rows, -(-sk // CELL)), dtype=torch.uint8,
+                      device=tmask.device)
+    flags = torch.empty((mb, mh, rows), dtype=torch.uint8,
+                        device=tmask.device)
     strides = (ctypes.c_longlong * 3)(kb, kh, kq)
     err = _lib().pt_flash_tile_classes(
         tmask.data_ptr(), ctypes.addressof(strides), mb, mh, sq, sk,
-        out.data_ptr(), torch.cuda.current_stream(tmask.device).cuda_stream)
+        int(causal), out.data_ptr(), flags.data_ptr(),
+        torch.cuda.current_stream(tmask.device).cuda_stream)
     if err:
         raise RuntimeError(f"tile_classes kernel launch failed (cudaError "
                            f"{err})")
     tile_classes.launches += 1
-    return out
+    return (out, flags) if full_rows else out
 
 
-def _tile_table(q, tmask, classes):
-    """The class table that the tile mode's kernels read on wgmma
-    (bfloat16 at ``d <= 128``): ``classes`` if the caller computed it,
-    else a new one; None for the fp32-FMA kernels, which visit every
+def _tile_wgmma(q):
+    """Whether the tile mode runs the wgmma kernels for q (CUDA, bfloat16
+    with ``d <= 128``), which read the class table."""
+    return q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] <= 128
+
+
+def _tile_table(q, tmask, table, causal):
+    """The (class table, full-row flags) pair that the tile mode's wgmma
+    kernels read: ``table`` if the caller computed it, else a new one
+    (one class pass); None for the fp32-FMA kernels, which visit every
     tile."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] > 128:
+    if not _tile_wgmma(q):
         return None
-    return tile_classes(tmask, q.shape[1], tmask.shape[3]) \
-        if classes is None else classes
+    return tile_classes(tmask, q.shape[1], tmask.shape[3], causal=causal,
+                        full_rows=True) if table is None else table
+
+
+def _classes(q, tmask, table, causal):
+    """The class table of :func:`_tile_table`'s pair (the backward reads
+    no flags), or None."""
+    table = _tile_table(q, tmask, table, causal)
+    return None if table is None else table[0]
 
 
 def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
@@ -716,9 +758,21 @@ def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
     sk]``), and ``dropout`` with two ``seed`` words, hashed at ``coords``
     (first batch row, first head, global heads; None: this tensor is the
     whole batch and all heads). Returns (O ``[b, sq, h, d]`` in q's
-    dtype, lse ``[b * h, sq]`` fp32)."""
+    dtype, lse ``[b * h, sq]`` fp32). In the tile mode on wgmma the call
+    runs the class pass too."""
+    return _flash_fwd(q, k, v, None, causal=causal, scale=scale,
+                      window=window, kmask=kmask, seed=seed, dropout=dropout,
+                      coords=coords, tmask=tmask)
+
+
+def _flash_fwd(q, k, v, table, *, causal, scale=None, window=0, kmask=None,
+               seed=None, dropout=0.0, coords=None, tmask=None, blocks=0):
+    """:func:`flash_fwd` given the tile mode's (class table, full-row
+    flags) pair (``table``, or None: computed here when the kernel reads
+    one); ``blocks``: the tile forward's grid (0: one block a streaming
+    multiprocessor)."""
     _check(q, k, v, causal, window)
-    kms = _tile_args(q, k, kmask, tmask, window)
+    kms = _tile_args(q, k, kmask, tmask, window, blocks)
     drop = _dropout_words(dropout, seed, coords, q.shape[2])
     if kmask is not None:
         _check_kmask(kmask, q.shape[0] * q.shape[2], q, k)
@@ -731,8 +785,9 @@ def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
                  or tmask is not None)
     if tmask is not None:
         res = _fwd(_lib().pt_flash_tile_fwd, "flash_fwd (tile mode)", q, k,
-                   v, (tmask, ctypes.addressof(kms)), scale, causal, window,
-                   drop)
+                   v, (tmask, *(_tile_table(q, tmask, table, causal)
+                                or (None, None)), ctypes.addressof(kms)),
+                   scale, causal, window, drop)
         flash_fwd.tile_launches += 1
         return res
     res = _fwd(_lib().pt_flash_fwd, "flash_fwd", q, k, v, kmask, scale,
@@ -781,7 +836,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
     if tmask is not None:
         dq = _bwd_dq(_lib().pt_flash_tile_bwd_dq, "flash_bwd_dq (tile mode)",
                      q, k, v, do, lse, delta,
-                     (tmask, _tile_table(q, tmask, None),
+                     (tmask, _classes(q, tmask, None, causal),
                       ctypes.addressof(kms)), scale, causal, window, drop)
         flash_bwd_dq.tile_launches += 1
         return dq
@@ -805,11 +860,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale=None,
                 coords=coords, tmask=tmask, tmask_grad=tmask_grad)
 
 
-def _dkv(q, k, v, do, lse, delta, classes, *, causal, scale=None, window=0,
+def _dkv(q, k, v, do, lse, delta, table, *, causal, scale=None, window=0,
          kmask=None, seed=None, dropout=0.0, coords=None, tmask=None,
          tmask_grad=False):
-    """:func:`flash_bwd_dkv` given the tile mode's class table
-    (``classes``, or None: computed here when the kernel reads one)."""
+    """:func:`flash_bwd_dkv` given the tile mode's table (``table``, as
+    :func:`_flash_fwd` takes it, or None: computed here when the kernel
+    reads one)."""
     rows = q.shape[0] * q.shape[2]
     drop = _check_bwd(q, k, v, do, lse, delta, causal, window, kmask, rows,
                       dropout, seed, coords)
@@ -830,7 +886,7 @@ def _dkv(q, k, v, do, lse, delta, classes, *, causal, scale=None, window=0,
                           device=q.device) if tmask_grad else None)
         _launch(_lib().pt_flash_tile_bwd_dkv, "flash_bwd_dkv (tile mode)",
                 (q, k, v, do, lse, delta, dk, dv, tmask, dm,
-                 _tile_table(q, tmask, classes), ctypes.addressof(kms)), q,
+                 _classes(q, tmask, table, causal), ctypes.addressof(kms)), q,
                 k, causal, window, scale, (q, k, v, do, dk, dv), drop)
         flash_bwd_dkv.tile_launches += 1
         return (dk, dv) if dm is None else (dk, dv, dm)
@@ -876,11 +932,12 @@ def flash_bwd_dq_delta(q, k, v, do, out, lse, *, causal, scale=None,
                      coords=coords, tmask=tmask)
 
 
-def _dq_delta(q, k, v, do, out, lse, classes, *, causal, scale=None,
+def _dq_delta(q, k, v, do, out, lse, table, *, causal, scale=None,
               window=0, seed=None, dropout=0.0, coords=None, tmask=None,
               kmask=None):
-    """:func:`flash_bwd_dq_delta` given the tile mode's class table
-    (``classes``, or None: computed here); ``kmask`` must be None."""
+    """:func:`flash_bwd_dq_delta` given the tile mode's table (``table``,
+    as :func:`_flash_fwd` takes it, or None: computed here); ``kmask``
+    must be None."""
     if kmask is not None:
         raise ValueError("flash_bwd_dq_delta takes no kmask")
     _check(q, k, v, causal, window, extra=(("do", do), ("out", out)))
@@ -905,7 +962,7 @@ def _dq_delta(q, k, v, do, out, lse, classes, *, causal, scale=None,
     res = _bwd_dq_delta(_lib().pt_flash_tile_bwd_dq_delta,
                         "flash_bwd_dq_delta (tile mode)", q, k, v, do, out,
                         lse, scale, causal, window, drop,
-                        (tmask, _tile_table(q, tmask, classes),
+                        (tmask, _classes(q, tmask, table, causal),
                          ctypes.addressof(kms)))
     flash_bwd_dq.tile_launches += 1
     return res
@@ -942,12 +999,12 @@ def _fusable(q):
 def _fused_delta(q, args):
     """Whether the backward takes :func:`flash_bwd_dq_delta` (CUDA,
     bfloat16 with ``d <= 128`` or float16 at 128, no key row; no dropout
-    outside the tile mode; the tile mode in bfloat16)."""
-    if not _fusable(q) or args["kmask"] is not None:
+    outside the tile mode; the tile mode on its wgmma kernels)."""
+    if args["kmask"] is not None:
         return False
     if args.get("tmask") is None:
-        return not args["dropout"]
-    return q.dtype == torch.bfloat16
+        return _fusable(q) and not args["dropout"]
+    return _tile_wgmma(q)
 
 
 def _sum_to(grad, shape):
@@ -960,19 +1017,24 @@ def _sum_to(grad, shape):
 class _FlashFn(torch.autograd.Function):
     """Forward kernel 1; backward: kernel 2 computing delta itself, then
     kernel 3 (bfloat16 on CUDA without key row, and without dropout
-    outside the tile mode; the tile mode's class pass first, its table
-    read by both), else delta as torch ops, then kernels 2 and 3.
-    kmask's gradient is kernel 3's dmask; tmask's is its per-element
-    dmask summed over the mask's broadcast dims."""
+    outside the tile mode), else delta as torch ops, then kernels 2 and
+    3. The tile mode on wgmma runs its class pass once, in the forward,
+    whose table the forward and both backward kernels read (a backward
+    given a context without it runs the pass itself). kmask's gradient
+    is kernel 3's dmask; tmask's is its per-element dmask summed over the
+    mask's broadcast dims."""
 
     @staticmethod
     def forward(ctx, q, k, v, kmask, tmask, causal, scale, window, seed,
                 dropout, coords):
         args = dict(causal=causal, scale=scale, window=window, kmask=kmask,
                     seed=seed, dropout=dropout, coords=coords, tmask=tmask)
-        out, lse = flash_fwd(q, k, v, **args)
+        table = None if tmask is None else _tile_table(q, tmask, None,
+                                                       causal)
+        out, lse = _flash_fwd(q, k, v, table, **args)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = args
+        ctx.table = table
         return out
 
     @staticmethod
@@ -981,16 +1043,16 @@ class _FlashFn(torch.autograd.Function):
         do = _upstream(do, q)
         args = ctx.args
         tmask = args.get("tmask")
-        classes = None
+        table = getattr(ctx, "table", None)
         if _fused_delta(q, args):
             if tmask is not None:  # once for both kernels
-                classes = tile_classes(tmask, q.shape[1], k.shape[1])
-            dq, delta = _dq_delta(q, k, v, do, out, lse, classes, **args)
+                table = _tile_table(q, tmask, table, args["causal"])
+            dq, delta = _dq_delta(q, k, v, do, out, lse, table, **args)
         else:
             delta = _delta(do, out)
             dq = flash_bwd_dq(q, k, v, do, lse, delta, **args)
         tgrad = tmask is not None and ctx.needs_input_grad[4]
-        dk, dv, *dm = _dkv(q, k, v, do, lse, delta, classes, **args,
+        dk, dv, *dm = _dkv(q, k, v, do, lse, delta, table, **args,
                            tmask_grad=tgrad)
         dkm = dm[0] if dm and tmask is None else None
         dtm = None

@@ -916,6 +916,140 @@ def test_tile_skip_rule_is_exact(case):
         _close_normalized(got.numpy(), want.numpy(), atol=1e-6, name=name)
 
 
+def _flags_np(mask, sq, sk, causal):
+    """The full-row flag of each 64-row cell row of ``mask`` (4-D,
+    broadcasting to ``[mb, mh, sq, sk]``) by a direct loop: set where
+    some row that sees a key (bottom-right causal under ``causal``) has
+    no value above -0.5e30 among the keys it sees."""
+    m = np.broadcast_to(mask, mask.shape[:2] + (sq, sk))
+    out = np.zeros(mask.shape[:2] + (-(-sq // 64),), np.uint8)
+    for r in range(sq):
+        last = r + sk - sq if causal else sk - 1
+        if last < 0:
+            continue
+        live = (m[:, :, r, :last + 1] > -0.5e30).any(-1)
+        out[:, :, r // 64] |= ~live
+    return out
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", SKIP_CASES,
+                         ids=[f"{c[1]}-sq{c[5]}sk{c[6]}" for c in SKIP_CASES])
+def test_tile_full_row_flags_match_numpy(case, causal):
+    """``tile_classes_ref``'s full-row flags (and the wrapper's on the
+    CPU) against a direct numpy loop on the skip rule's masks, with the
+    causal flag both ways (sq != sk: the bottom-right diagonal, rows that
+    see no key never flagged); the class table beside them is the one
+    ``tile_classes_ref`` gives alone."""
+    shape, kind, _, _, _, sq, sk, _ = case
+    m = _class_mask(kind, shape)
+    classes, flags = tfa.tile_classes(_t(m), sq, sk, causal=causal,
+                                      full_rows=True)
+    assert flags.dtype == torch.uint8
+    np.testing.assert_array_equal(flags.numpy(), _flags_np(m, sq, sk,
+                                                           causal))
+    np.testing.assert_array_equal(classes.numpy(),
+                                  tfa.tile_classes_ref(_t(m), sq, sk).numpy())
+    if kind in ("blocks", "random"):  # row 70 or row 3 is fully masked
+        assert flags.any()
+
+
+def _fwd_visits(cls, flags, sq, sk, causal):
+    """[b, h, sq, sk]: the pairs flash_fwd_tile_wgmma visits. Each 64-row
+    cell row (a warpgroup of a 128-row item) visits every key tile if the
+    class pass flags it, else the tiles whose cell is not DEAD up to the
+    causal band of its rows."""
+    b, h = cls.shape[:2]
+    vis = torch.zeros(b, h, sq, sk, dtype=torch.bool)
+    for rs in range(0, sq, 64):
+        last = min(rs + 64, sq) - 1 + (sk - sq) if causal else sk - 1
+        for kt in range(-(-sk // 64)):
+            go = flags[:, :, rs // 64].bool() | (
+                (cls[:, :, rs // 64, kt] != tfa.TILE_DEAD) & (64 * kt <= last))
+            vis[:, :, rs:rs + 64, 64 * kt:64 * kt + 64] |= go[..., None, None]
+    return vis
+
+
+@pytest.mark.parametrize("case", SKIP_CASES,
+                         ids=[f"{c[1]}-causal{int(c[2])}-sq{c[5]}sk{c[6]}"
+                              f"-p{c[7]}" for c in SKIP_CASES])
+def test_tile_fwd_skip_rule_is_exact(case):
+    """A plain model of the tile forward's skip rule: O and lse computed
+    over only the cells the forward visits (_fwd_visits, from the class
+    table and the full-row flags) equal ``flash_fwd_ref``, which visits
+    every pair, within 1e-6 of each's largest magnitude (lse over the
+    rows that see a live key; the others' equal), with dropout and with
+    fully masked rows (the "blocks" masks' row 70, "random"'s row 3:
+    their cell rows are visited whole), and the rule does skip."""
+    shape, kind, causal, h, h_kv, sq, sk, p = case
+    q, k, v, _ = (_t(a) for a in _inputs(50, h, h_kv, sq, sk))
+    mask = _t(_class_mask(kind, shape))
+    kw = dict(causal=causal, tmask=mask, seed=SEED if p else None,
+              dropout=p)
+    want_out, want_lse = tfa.flash_fwd_ref(q, k, v, **kw)
+    cls, flags = tfa.tile_classes_ref(mask, sq, sk, causal, full_rows=True)
+    vis = _fwd_visits(cls.expand(B, h, -1, -1), flags.expand(B, h, -1),
+                      sq, sk, causal)
+    assert not vis.all()
+    assert bool(flags.any()) == (kind in ("blocks", "random"))
+    grouped = (B, h_kv, h // h_kv, sq, sk)
+    s = tfa._masked_scores(q, k, 1.0 / math.sqrt(D), causal, 0, True,
+                           tmask=mask)
+    s = torch.where(vis.reshape(grouped), s, torch.tensor(-math.inf))
+    lse = torch.logsumexp(s, -1)
+    pr = torch.softmax(s, -1)
+    factor = tfa._drop_factor(tfa._dropout_words(p, kw["seed"], None, h),
+                              q, k)
+    if factor is not None:
+        pr = pr * factor
+    out = torch.einsum("bkgqc,bckd->bqkgd", pr, v)
+    sees = tfa._sees(q, k, causal)[None, :, None, None, None]
+    out = torch.where(sees, out, torch.zeros(())).reshape(B, sq, h, D)
+    _close_normalized(out.numpy(), want_out.numpy(), atol=1e-6, name="O")
+    lse = lse.reshape(B * h, sq)
+    live = want_lse > 0.5 * tfa.NEG_INF
+    assert torch.equal(live, lse > 0.5 * tfa.NEG_INF)
+    _close_normalized(lse[live].numpy(), want_lse[live].numpy(), atol=1e-6,
+                      name="lse")
+
+
+def test_tile_attention_runs_one_class_pass(monkeypatch):
+    """The tile mode's table is computed once per attention call: one
+    forward plus backward through ``flash_attention(tmask=)`` on the
+    wgmma path (``_tile_wgmma`` made true, so that the CPU runs the
+    wiring with the plain versions) calls ``tile_classes`` once, in the
+    forward, which hands its table to dQ and dK/dV; a forward under
+    ``torch.no_grad`` calls it once; the gradients are those of the
+    plain path."""
+    h, h_kv, sq, sk = 4, 2, 130, 150
+    q, k, v, do = (_t(a) for a in _inputs(51, h, h_kv, sq, sk))
+    mask = _t(_structured_np("blocks", (1, h, sq, sk)))
+    kw = dict(causal=True, seed=SEED, dropout=0.1)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, mask)]
+        tfa.flash_attention(*leaves[:3], tmask=leaves[3], **kw).backward(do)
+        return [t.grad for t in leaves]
+
+    want = grads()
+    calls = []
+    classes = tfa.tile_classes
+
+    def counted(*a, **kwargs):
+        calls.append(kwargs)
+        return classes(*a, **kwargs)
+
+    monkeypatch.setattr(tfa, "tile_classes", counted)
+    monkeypatch.setattr(tfa, "_tile_wgmma", lambda t: True)
+    got = grads()
+    assert calls == [dict(causal=True, full_rows=True)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with torch.no_grad():
+        tfa.flash_attention(q, k, v, tmask=mask, **kw)
+    assert len(calls) == 2
+
+
 def test_fused_tile_dq_plain_is_delta_then_dq():
     """The plain counterpart of the tile mode's fused dQ entry
     (``flash_bwd_dq_delta_ref`` given ``tmask``, dropout and ``coords``)

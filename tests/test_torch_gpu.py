@@ -978,10 +978,12 @@ def test_variant_kernels_match_plain(cuda, shape, dtype, head_batched,
 # The tile mode of kernels 1-3: (b, sq, sk, h, h_kv, d, causal, mask
 # dims kept full (b, h, sq) or a structured mask's name, dropout). The
 # random mask is -1e30 on ~30 % of its elements and on every element of
-# query row 5 (a fully masked row), else N(0, 1); the structured ones are
-# _structured_mask's, at the Transformer decoder's shape (b 64, s 256, h
-# 8, d 64, dropout 0.1) and at d 128 (the wgmma kernels' 2-stage rings)
-# with sq != sk.
+# query row 5 (a fully masked row: its cell row's full-row flag is set),
+# else N(0, 1); the structured ones are _structured_mask's, at the
+# Transformer decoder's shape (b 64, s 256, h 8, d 64, dropout 0.1), at
+# d 128 (the wgmma kernels' 2-stage rings) with sq != sk, and at the CPU
+# skip rule's shapes (several query tiles a head, GQA, the causal flag
+# beside a mask whose cells the forward skips or visits whole).
 _TILE = [
     (2, 100, 100, 4, 4, 64, False, (0, 0, 1), 0.0),
     (2, 100, 100, 4, 4, 64, False, (1, 0, 1), 0.1),
@@ -994,6 +996,9 @@ _TILE = [
     (64, 256, 256, 8, 8, 64, True, "blocks", 0.1),
     (2, 200, 300, 4, 2, 128, False, "causal_pad", 0.1),
     (2, 300, 200, 4, 4, 128, True, "blocks", 0.0),
+    (2, 192, 192, 4, 2, 64, False, "causal", 0.1),
+    (2, 260, 200, 4, 2, 64, True, "blocks", 0.1),
+    (2, 130, 130, 4, 4, 128, True, (1, 1, 1), 0.1),
 ]
 
 
@@ -1046,9 +1051,10 @@ def test_tile_mode_kernels_match_plain(cuda, shape, dtype):
     (fp32) or 1e-2 (bf16), lse as test_variant_kernels_match_plain, and
     the per-element dmask of each (batch, head) within 1e-4 or 1e-3
     relative; the launches count on ``tile_launches`` only. On the wgmma
-    kernels (bfloat16, d <= 128) each backward call also runs the class
-    pass (``tile_classes.launches``), and the fused dQ entry's dQ and
-    delta are held alike (delta within 1e-5 per row)."""
+    kernels (bfloat16, d <= 128) each call also runs the class pass
+    (``tile_classes.launches``; the forward reads its full-row flags),
+    and the fused dQ entry's dQ and delta are held alike (delta within
+    1e-5 per row)."""
     b, sq, sk, h, h_kv, d, causal, full, p = shape
     q, k, v, do = _flash_inputs(21, (b, sq, sk, h, h_kv, d, causal, 0),
                                 dtype, cuda)
@@ -1076,7 +1082,7 @@ def test_tile_mode_kernels_match_plain(cuda, shape, dtype):
             fa.flash_bwd_dkv.launches) == n
     assert (fa.flash_fwd.tile_launches, fa.flash_bwd_dq.tile_launches,
             fa.flash_bwd_dkv.tile_launches) == tuple(x + 1 for x in t)
-    assert fa.tile_classes.launches == classes + 2 * wgmma
+    assert fa.tile_classes.launches == classes + 3 * wgmma
     want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, **kw)
     want_dk, want_dv, want_dm = fa.flash_bwd_dkv_ref(
         *f32, want_lse, delta, tmask_grad=True, **kw)
@@ -1119,12 +1125,14 @@ _CLASS_MASKS = [
 ]
 
 
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("case", _CLASS_MASKS,
                          ids=[k for _, k in _CLASS_MASKS])
-def test_tile_classes_match_plain(cuda, case):
-    """The class pass against ``tile_classes_ref`` byte for byte, on the
-    mask as given and on an expanded view of its broadcast dims (stride
-    0: one slice is read)."""
+def test_tile_classes_match_plain(cuda, case, causal):
+    """The class pass against ``tile_classes_ref`` byte for byte, its
+    class table and its full-row flags (bottom-right causal or not), on
+    the mask as given and on an expanded view of its broadcast dims
+    (stride 0: one slice is read)."""
     (b, h, sq, sk), kind = case
     if kind == "random":
         m = _tile_mask(24, b, h, sq, sk, (b > 1, h > 1, sq > 1), cuda)
@@ -1140,19 +1148,54 @@ def test_tile_classes_match_plain(cuda, case):
     n = fa.tile_classes.launches
     for mask in (m, m.expand(2, 4, sq, sk) if m.shape[0] == m.shape[1] == 1
                  else m):
-        got = fa.tile_classes(mask, sq, sk)
-        want = fa.tile_classes_ref(mask, sq, sk)  # on the view's strides
-        assert got.dtype == torch.uint8 and torch.equal(got, want)
-    assert fa.tile_classes.launches == n + 2
+        got, flags = fa.tile_classes(mask, sq, sk, causal, full_rows=True)
+        # on the view's strides
+        want, want_flags = fa.tile_classes_ref(mask, sq, sk, causal,
+                                               full_rows=True)
+        assert got.dtype == flags.dtype == torch.uint8
+        assert torch.equal(got, want) and torch.equal(flags, want_flags)
+        assert torch.equal(fa.tile_classes(mask, sq, sk), want)
+    assert fa.tile_classes.launches == n + 4
+    # row 5 or 70 is fully masked (without the causal flag, which hides
+    # every key from them at sq 300, sk 200)
+    if not causal and kind in ("random", "blocks") and case[0][2] > 1:
+        assert want_flags.any()
     if kind == "minus1e4":
         assert (want[..., 0, 1] == fa.TILE_MIXED).all()
         assert (want[..., 1, 0] == fa.TILE_DEAD).all()
 
 
+def test_tile_attention_runs_one_class_pass(cuda):
+    """One class pass per attention call on the wgmma path: a forward
+    plus backward through ``flash_attention(tmask=...)`` (the forward's
+    table handed on to dQ and dK/dV) and a forward under
+    ``torch.no_grad`` each launch ``tile_classes`` once, beside one
+    forward and (with the backward) one dQ and one dK/dV."""
+    b, s, h, d = 2, 200, 4, 64
+    q, k, v, do = _flash_inputs(26, (b, s, s, h, h, d, True, 0),
+                                torch.bfloat16, cuda)
+    mask = torch.from_numpy(_structured_mask("blocks", b, h, s, s)).to(cuda)
+
+    def counts():
+        return (fa.tile_classes.launches, fa.flash_fwd.tile_launches,
+                fa.flash_bwd_dq.tile_launches, fa.flash_bwd_dkv.tile_launches)
+
+    n = counts()
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, tmask=mask, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert counts() == tuple(x + 1 for x in n)
+    with torch.no_grad():
+        fa.flash_attention(q, k, v, tmask=mask, causal=True)
+    torch.cuda.synchronize()
+    assert counts() == (n[0] + 2, n[1] + 2, n[2] + 1, n[3] + 1)
+
+
 def test_tile_backward_runs_the_fused_dq_and_wgmma_dkv(cuda, monkeypatch):
     """``flash_attention(tmask=...)``'s backward in bfloat16 at the
-    decoder's shape: one class pass, the fused dQ entry and dK/dV once
-    each, and no delta computed by torch ops; dQ, dK, dV within 1e-2 per
+    decoder's shape: one class pass (the forward's), the fused dQ entry
+    and dK/dV once each, and no delta computed by torch ops; dQ, dK, dV
+    within 1e-2 per
     tile of the plain versions given the forward's O and lse, and the
     mask's gradient within 1e-3 per (batch, head) slice."""
     b, s, h, d, rate = 8, 256, 8, 64, 0.1
