@@ -3,8 +3,8 @@ distributed paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Twenty-five phases in one process (phases 17 to 20 and 23 also spawn
-two processes each, phase 21 eight, two and four); any failure
+Twenty-six phases in one process (phases 17 to 20 and 23 also spawn
+two processes each, phase 21 eight, two and four, phase 26 one); any failure
 raises and exits non-zero, and
 only a run in which every phase passed prints the final line:
 
@@ -332,7 +332,31 @@ only a run in which every phase passed prints the final line:
    ``nn.LSTM(512, 1024, 2 layers, bidirect)`` forward and backward on
    [64, 256, 512] fp32, timed, and a small one on the card against the
    CPU (1e-4); (d) every case of ``tests/torch_layer_cases.py`` on the
-   card against the port's CPU result (outputs, gradients, state).
+   card against the port's CPU result (outputs, gradients, state);
+26. the top-level namespace: (a) a fresh interpreter runs ``import
+   paddle_tpu_torch as paddle``, resolves every name of its lazy tables,
+   finds each name still to port raising ``AttributeError`` naming its
+   ROADMAP item, imports neither JAX nor the reference, and feeds a
+   numpy-default dataset (float64 samples, int64 labels) through
+   ``paddle.io.DataLoader`` into a float32 ``Linear`` on the card
+   (batches float32 and int32); (b) phase 25a's Transformer-base written
+   only through top-level names (``paddle.seed``, ``paddle.nn``,
+   ``paddle.amp.decorate`` O2 bf16, ``paddle.Model(net).prepare(
+   paddle.optimizer.AdamW(grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0)))``
+   and ``fit`` over a dataset of int64 ids and Python-int lengths, 2
+   warm-up and 5 timed steps: ms a step, and the tile mode and kernels
+   4-6 exactly once a layer a step); ``paddle.summary`` (total params
+   equal to the sum of the numels) and ``paddle.flops``;
+   ``paddle.set_rng_state(paddle.get_rng_state())`` repeating a dropout
+   forward bit for bit; ``paddle.device``'s memory readings equal to
+   ``torch.cuda``'s; a ``paddle.autograd.PyLayer`` running the decoder's
+   causal self-attention on the tile mode (b64 s256 h8 d64 bf16) whose
+   backward recomputes under ``paddle.enable_grad()`` and calls
+   ``paddle.grad``, per 64-row tile within ``FLASH_REL_TOL`` of the fp32
+   plain version (so is the plain autograd call), launching kernel 1 and
+   the class pass twice and kernels 2 and 3 once; ``FLAGS_check_nan_inf``
+   raising ``FloatingPointError`` on ``paddle.log`` of a negative and on
+   ``x / 0``, and a ``TrainStep`` capturing its graph with the flag on.
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -363,6 +387,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -6574,12 +6599,382 @@ def phase_nn(card, smi):
             "lstm_ms": lstm_ms}
 
 
+# -- phase 26: the top-level namespace -----------------------------------------
+
+# a fresh interpreter on the card: ``import paddle_tpu_torch as paddle``,
+# every name of its lazy tables, the names still to port, and C.14's
+# reproduction (a numpy-default dataset into a float32 Linear)
+_NAMESPACE_PROBE = r"""
+import json, sys
+import numpy as np
+import paddle_tpu_torch as paddle
+ok, unported, bad = [], {}, {}
+for name in list(paddle._LAZY) + list(paddle._LAZY_ATTRS):
+    try:
+        getattr(paddle, name)
+        ok.append(name)
+    except Exception as e:
+        bad[name] = repr(e)
+for name, item in paddle._UNPORTED.items():
+    try:
+        getattr(paddle, name)
+        bad[name] = "resolved"
+    except AttributeError as e:
+        if "ROADMAP " + item in str(e):
+            unported[name] = item
+        else:
+            bad[name] = str(e)
+
+
+class DS(paddle.io.Dataset):
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        return np.random.RandomState(i).rand(4), np.int64(i % 3)
+
+
+x, y = next(iter(paddle.io.DataLoader(DS(), batch_size=4)))
+paddle.seed(0)
+net = paddle.nn.Linear(4, 3)
+loss = paddle.nn.functional.cross_entropy(net(x.cuda()), y.cuda())
+print(json.dumps({
+    "ok": ok, "unported": unported, "bad": bad,
+    "batch": [str(x.dtype), str(y.dtype)], "weight": str(net.weight.device),
+    "loss": float(loss), "dtype": str(paddle.float32),
+    "reference": sorted(n for n in sys.modules
+                        if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))}))
+"""
+
+
+def _namespace_26a(card):
+    """26a: the fresh interpreter's report, held."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _NAMESPACE_PROBE],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=root, env=dict(os.environ, PYTHONPATH=root))
+    if out.returncode != 0:
+        raise AssertionError(f"26a: the probe failed: {out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"[namespace] 26a a fresh `import paddle_tpu_torch as paddle` on "
+        f"{card}: {len(got['ok'])} lazy names resolved, "
+        f"{len(got['unported'])} raise naming their item "
+        f"({got['unported']}); C.14: batches {got['batch']}, "
+        f"Linear(4, 3) on {got['weight']} gives CE {got['loss']:.6f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if got["bad"] or got["reference"] or got["batch"] != [
+            "torch.float32", "torch.int32"] or not got[
+            "weight"].startswith("cuda") or not np.isfinite(got["loss"]) \
+            or got["dtype"] != "torch.float32":
+        raise AssertionError(f"26a: {got}")
+
+
+class _CopyTask(io.Dataset):
+    """A seeded copy task as a user's dataset yields it: int64 token ids,
+    the source's length as a Python int (the key-padding mask is made
+    from it in the network), target input and target."""
+
+    def __init__(self, n, vocab, s, t, seed=0):
+        rng = np.random.RandomState(seed)
+        self.lengths = rng.randint(s // 2, s + 1, n)
+        keep = np.arange(s)[None] < self.lengths[:, None]
+        self.src = np.where(keep, rng.randint(2, vocab, (n, s)), 0)
+        tgt = self.src[:, :t]
+        self.tgt_in = np.concatenate([np.full((n, 1), T_BOS), tgt[:, :-1]],
+                                     1)
+        self.tgt = tgt
+
+    def __len__(self):
+        return len(self.src)
+
+    def __getitem__(self, i):
+        return (self.src[i], int(self.lengths[i]), self.tgt_in[i],
+                self.tgt[i])
+
+
+def _paddle_seq2seq(paddle, vocab, **kw):
+    """Phase 25a's model through top-level names only: ``forward(src,
+    length, tgt_in)`` gives the logits."""
+    nn = paddle.nn
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            d = kw["d_model"]
+            self.src_emb = nn.Embedding(vocab, d)
+            self.tgt_emb = nn.Embedding(vocab, d)
+            self.transformer = nn.Transformer(**kw)
+            self.head = nn.Linear(d, vocab)
+
+        def forward(self, src, length, tgt_in):
+            t = self.transformer
+            keep = (paddle.arange(src.shape[1])[None]
+                    < length[:, None])[:, None, None, :]
+            return self.head(t(
+                self.src_emb(src), self.tgt_emb(tgt_in), keep,
+                t.generate_square_subsequent_mask(tgt_in.shape[1]), keep))
+
+    return Seq2Seq()
+
+
+def _plain_attention(q, k, v, mask):
+    """Softmax attention in fp32 with an additive mask, ``[b, s, h, d]``."""
+    qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = qt @ kt.transpose(-1, -2) / math.sqrt(q.shape[-1]) + mask
+    return (s.softmax(-1) @ vt).transpose(1, 2)
+
+
+def _pylayer_26b(paddle, mask, gen):
+    """26b: the decoder's causal self-attention on the tile mode inside a
+    ``PyLayer`` whose backward recomputes the forward under
+    ``enable_grad`` and calls ``paddle.grad``, against the same call
+    under plain autograd and the fp32 plain version; its launches."""
+    F = paddle.nn.functional
+
+    class CausalAttention(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v = (t.detach().requires_grad_()
+                       for t in ctx.saved_tensor())
+            with paddle.enable_grad():
+                out = F.scaled_dot_product_attention(q, k, v,
+                                                     attn_mask=mask)
+            return tuple(paddle.grad(out, [q, k, v], do))
+
+    b, s, h, d = T_BATCH, T_TGT, T_BASE["nhead"], \
+        T_BASE["d_model"] // T_BASE["nhead"]
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    runs = {}
+    for tag in ("pylayer", "autograd", "plain"):
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        _reset_tile_launches()
+        if tag == "pylayer":
+            out = CausalAttention.apply(*xs)
+        elif tag == "autograd":
+            out = F.scaled_dot_product_attention(*xs, attn_mask=mask)
+        else:
+            out = _plain_attention(*xs, mask)
+        grads = torch.autograd.grad(out, xs, do)
+        torch.cuda.synchronize()
+        runs[tag] = ([out, *grads], _tile_launches())
+    names = ("out", "dq", "dk", "dv")
+    err = {f"{tag} {n}": _tile_rel_err(g, w) for tag in ("pylayer",
+                                                          "autograd")
+           for n, g, w in zip(names, runs[tag][0], runs["plain"][0])}
+    abs_err = max((g.float() - w.float()).abs().max().item() for g, w in
+                  zip(runs["pylayer"][0], runs["autograd"][0]))
+    want = {"flash_fwd_tile": 2, "flash_bwd_dq_tile": 1,
+            "flash_bwd_dkv_tile": 1, "flash_tile_classes": 2}
+    log(f"[namespace] 26b PyLayer over the tile mode (b{b} s{s} h{h} d{d} "
+        f"bf16, the causal mask; backward recomputes under enable_grad and "
+        f"calls paddle.grad): per-tile error against the fp32 plain version "
+        f"{ {k: f'{e:.3e}' for k, e in err.items()} } (tol "
+        f"{FLASH_REL_TOL}); max abs difference from the same call under "
+        f"autograd {abs_err:.3e}; launches {runs['pylayer'][1]} (plain "
+        f"autograd {runs['autograd'][1]})")
+    if max(err.values()) > FLASH_REL_TOL or runs["pylayer"][1] != want:
+        raise AssertionError(f"26b: the PyLayer's attention: errors {err}, "
+                             f"launches {runs['pylayer'][1]} (want {want})")
+    return runs["pylayer"][1], max(err.values()), abs_err
+
+
+def _nan_flag_26b(paddle):
+    """26b: ``FLAGS_check_nan_inf`` on card tensors, and a ``TrainStep``
+    that still captures with the flag on."""
+    msgs = []
+    paddle.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        for bad in (lambda: paddle.log(paddle.to_tensor([-1.0, 2.0])),
+                    lambda: paddle.to_tensor([1.0]) / paddle.to_tensor(
+                        [0.0])):
+            try:
+                bad()
+            except FloatingPointError as e:
+                msgs.append(str(e))
+        paddle.seed(1)
+        net = paddle.nn.Sequential(paddle.nn.Linear(64, 128),
+                                   paddle.nn.ReLU(),
+                                   paddle.nn.Linear(128, 1))
+        step = TrainStep(net, paddle.optimizer.AdamW(
+            learning_rate=1e-3, parameters=net.parameters()),
+            lambda m, x, y: ((m(x) - y) ** 2).mean())
+        x, y = paddle.randn([32, 64]), paddle.randn([32, 1])
+        before = exec_cache.stats()["captures"]
+        losses = [float(step(x, y)) for _ in range(4)]
+        captured = exec_cache.stats()["captures"] - before
+    finally:
+        paddle.set_flags({"FLAGS_check_nan_inf": False})
+    log(f"[namespace] 26b FLAGS_check_nan_inf on the card: {msgs}; a "
+        f"TrainStep with the flag on: {captured} capture(s), losses "
+        f"{[round(v, 6) for v in losses]}")
+    if len(msgs) != 2 or captured < 1 or not all(np.isfinite(losses)):
+        raise AssertionError(f"26b: the nan flag: {msgs}, {captured} "
+                             f"captures, losses {losses}")
+
+
+def _fit_26b(paddle, card, smi):
+    """26b: Transformer-base through top-level names: ``paddle.seed``,
+    ``paddle.io.DataLoader`` (inside ``fit``), ``paddle.Model(net)
+    .prepare(AdamW(grad_clip=ClipGradByGlobalNorm(1.0)))``, ``fit``;
+    ``summary``, ``flops``, the RNG state, the device memory."""
+    import io as pyio
+
+    paddle.seed(26)
+    net = paddle.amp.decorate(_paddle_seq2seq(paddle, T_VOCAB, **T_BASE),
+                              level="O2", dtype="bfloat16")
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    data = _CopyTask(T_BATCH * n_steps, T_VOCAB, T_SRC, T_TGT, seed=26)
+    small = [torch.as_tensor(np.asarray(a[:2])).cuda() for a in (
+        data.src, data.lengths, data.tgt_in)]
+    buf = pyio.StringIO()
+    with contextlib.redirect_stdout(buf):
+        info = paddle.summary(net, input=small)
+    total = sum(p.numel() for p in net.parameters())
+    with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+        enc_flops = paddle.flops(net.transformer.encoder,
+                                 [1, T_SRC, T_BASE["d_model"]])
+    lines = len(buf.getvalue().splitlines())
+    log(f"[namespace] 26b paddle.summary: {info} ({lines} lines printed), "
+        f"sum of numels {total}; "
+        f"paddle.flops(encoder, [1, {T_SRC}, {T_BASE['d_model']}]) "
+        f"{enc_flops} (its Linear layers' multiply-accumulates)")
+    if info["total_params"] != total or info["trainable_params"] != total:
+        raise AssertionError(f"26b: summary {info}, numels {total}")
+
+    # the RNG state repeats a dropout step (residual dropout from the
+    # card's generator, attention dropout from the seed words)
+    ce = paddle.nn.CrossEntropyLoss(label_smoothing=0.1)
+
+    def loss_fn(logits, tgt):
+        return ce(logits.reshape([-1, logits.shape[-1]]), tgt.reshape([-1]))
+
+    batch = [torch.as_tensor(np.asarray(a[:8])).cuda()
+             for a in (data.src, data.lengths, data.tgt_in)]
+    with paddle.no_grad():
+        state = paddle.get_rng_state()
+        first = net(*batch)
+        paddle.set_rng_state(state)
+        again = net(*batch)
+        other = net(*batch)
+    differ = (first != other).float().mean().item()
+    log(f"[namespace] 26b set_rng_state(get_rng_state()) before a dropout "
+        f"forward (8 rows): logits repeated bit for bit "
+        f"{torch.equal(first, again)}; the next draw changes "
+        f"{differ:.4f} of them")
+    if not torch.equal(first, again) or differ == 0.0:
+        raise AssertionError("26b: the RNG state did not repeat the step")
+    del first, again, other
+
+    class Clock(paddle.callbacks.Callback):
+        def __init__(self):
+            self.t, self.losses = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+            self.losses.append(float(np.asarray(logs["loss"]).reshape(-1)[0]))
+
+    opt = paddle.optimizer.AdamW(
+        learning_rate=1e-4, parameters=net.parameters(),
+        multi_precision=True, grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    model = paddle.Model(net)
+    model.prepare(opt, loss_fn)
+    clock = Clock()
+    _reset_launches()
+    _reset_tile_launches()
+    model.fit(data, batch_size=T_BATCH, epochs=1, shuffle=False, verbose=0,
+              log_freq=1, callbacks=[clock])
+    ms = (clock.t[-1] - clock.t[WARMUP_STEPS - 1]) * 1e3 / TIMED_STEPS
+    tile, launched = _tile_launches(), _launch_counts()
+    dec, enc = T_BASE["num_decoder_layers"], T_BASE["num_encoder_layers"]
+    want_tile = {n: dec * n_steps for n in TILE_NAMES}
+    want_hb = {w.__name__: (enc + dec) * n_steps for w in HB_WRAPPERS}
+    mem = {"max_memory_allocated": (paddle.device.max_memory_allocated(),
+                                    torch.cuda.max_memory_allocated()),
+           "memory_allocated": (paddle.device.memory_allocated(),
+                                torch.cuda.memory_allocated()),
+           "memory_reserved": (paddle.device.memory_reserved(),
+                               torch.cuda.memory_reserved())}
+    props = paddle.device.get_device_properties()
+    log(f"[namespace] 26b Transformer-base ({total / 1e6:.1f} M) through "
+        f"paddle.Model.fit, O2 bf16, AdamW with ClipGradByGlobalNorm(1.0), "
+        f"b{T_BATCH} x src {T_SRC} x tgt {T_TGT} from a DataLoader over "
+        f"int64 ids and Python-int lengths, on {card} ({smi}): "
+        f"{ms:.2f} ms a step over {TIMED_STEPS} steps after "
+        f"{WARMUP_STEPS}; losses {[round(x, 4) for x in clock.losses]}; "
+        f"launches over {n_steps} steps: tile mode {tile}, {launched}; "
+        f"memory {mem}; get_device_properties {props}")
+    if len(clock.losses) != n_steps or not (
+            all(np.isfinite(clock.losses))
+            and abs(clock.losses[0] - np.log(T_VOCAB)) <= 1.0):
+        raise AssertionError(f"26b: losses {clock.losses}")
+    if tile != want_tile or any(launched[k] != v for k, v in
+                                want_hb.items()) \
+            or any(w.launches for w in FLASH_WRAPPERS):
+        raise AssertionError(f"26b: launches tile {tile} (want {want_tile}),"
+                             f" {launched} (want {want_hb}, kernels 1-3 "
+                             f"none)")
+    if any(a != b for a, b in mem.values()) or \
+            props["name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"26b: device memory {mem}, {props}")
+    # readings, not held: the same step as a bare eager loop on one batch
+    # already on the card, with the clip and without it (a second AdamW)
+    batch = [paddle.to_tensor(np.asarray(a[:T_BATCH])) for a in (
+        data.src, data.lengths, data.tgt_in, data.tgt)]
+    bare = {}
+    for tag, o in (("clip", opt), ("no clip", paddle.optimizer.AdamW(
+            learning_rate=1e-4, parameters=net.parameters(),
+            multi_precision=True))):
+        def step(o=o):
+            loss_fn(net(*batch[:3]), batch[3]).backward()
+            o.step()
+            o.clear_grad()
+
+        for _ in range(WARMUP_STEPS):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            step()
+        torch.cuda.synchronize()
+        bare[tag] = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    log(f"[namespace] 26b the same step as a bare eager loop (a reading): "
+        f"{bare['clip']:.2f} ms with ClipGradByGlobalNorm, "
+        f"{bare['no clip']:.2f} ms without; fit's {ms:.2f} ms less the "
+        f"bare step with the clip: {ms - bare['clip']:.2f} ms")
+    mask = net.transformer.generate_square_subsequent_mask(T_TGT)
+    return ms, dict(launched, **tile), mask
+
+
+def phase_namespace(card, smi):
+    """Phase 26: the top-level namespace on the card."""
+    import paddle_tpu_torch as paddle
+
+    t_phase = time.perf_counter()
+    _namespace_26a(card)
+    ms, launched, mask = _fit_26b(paddle, card, smi)
+    _release()
+    gen = torch.Generator("cuda").manual_seed(26)
+    pylayer, err, abs_err = _pylayer_26b(paddle, mask, gen)
+    _nan_flag_26b(paddle)
+    log(f"[namespace] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": ms, "launches": launched, "pylayer": pylayer,
+            "pylayer_err": err}
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19,20,21,22,23,24,25",
+                    "19,20,21,22,23,24,25,26",
                     help="phases to run after 1 and 2, comma-separated")
     ap.add_argument("--fault", choices=("experts", "dropout"),
                     help="plant a fault to show that a check catches it: "
@@ -6598,6 +6993,7 @@ def main():
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
     fleet_launches, pipe_launches, context, experts = {}, {}, {}, {}
     hybrid, vision, ops, functional, layers_nn = {}, {}, {}, {}, {}
+    namespace = {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -6630,13 +7026,15 @@ def main():
                    (23, lambda: ops.update(phase_tensor_ops(name))),
                    (24, lambda: functional.update(
                        phase_functional(name, smi))),
-                   (25, lambda: layers_nn.update(phase_nn(name, smi)))):
+                   (25, lambda: layers_nn.update(phase_nn(name, smi))),
+                   (26, lambda: namespace.update(
+                       phase_namespace(name, smi)))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
     _no_reference("the run")
-    if only != set(range(3, 26)):
+    if only != set(range(3, 27)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -6662,10 +7060,13 @@ def main():
     on_functional = {k: sum(c.get(k, 0) for c in
                             functional["launches"].values())
                      for k in replaces}
+    # and each kernel's launches over phase 26b's fit through the top-level
+    # names (the tile rows below carry theirs)
     kernels = [dict(name=k, route="cuda", source=sources[k.split("_")[0]],
                     replaces=replaces[k], launches=launches[k], **rows[k],
                     launches_phase21=on_hybrid[k],
-                    launches_phase24=on_functional[k])
+                    launches_phase24=on_functional[k],
+                    launches_phase26=namespace["launches"].get(k, 0))
                for k in replaces]
     # the tile mode of kernels 1-3 (a mode of the TPU's kernels 1-3 for
     # the masks the reference sends to its composite,
@@ -6677,6 +7078,7 @@ def main():
                                        if k.endswith("_tile")
                                        else "flash_fwd"],
                      launches=layers_nn["launches"][k],
+                     launches_phase26=namespace["launches"][k],
                      **layers_nn["rows"][k])
                 for k in TILE_NAMES]
     log(f"[done] launches on the ERNIE path (phase 12, "
@@ -6714,6 +7116,10 @@ def main():
         f"peak {layers_nn['peak']:.2f} GiB, cached decode "
         f"{layers_nn['decode_ms']:.2f} ms a step; LSTM 2 x bidirect "
         f"{layers_nn['lstm_ms']:.2f} ms forward + backward")
+    log(f"[done] the top-level namespace (phase 26): Transformer-base "
+        f"through paddle.Model.fit {namespace['ms']:.2f} ms a step; the "
+        f"PyLayer's launches {namespace['pylayer']}, worst per-tile error "
+        f"{namespace['pylayer_err']:.3e}")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

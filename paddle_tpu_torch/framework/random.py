@@ -22,13 +22,26 @@ that does eagerly: a CUDA graph would freeze its seed words);
 :func:`get_state` and :func:`set_state` save and restore every
 generator, so a step can be replayed with its own random numbers (the
 nan_check replay).
+
+The reference's names for the same (``random.py:89-107``,
+``compat.py:201-211``): :func:`get_rng_state` and :func:`set_rng_state`
+take and give the whole state (a dict of generator states, where the
+reference's is a JAX key); :func:`rng_scope` runs a block from a given
+state and puts the state before it back; ``get_cuda_rng_state`` and
+``set_cuda_rng_state`` are the same state in a one-element list. The
+same state gives the same draws: dropout masks, the random ops and the
+seed words of kernels 1-6.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 __all__ = ["seed", "next_seed_words", "generator", "draws", "note_draw",
-           "get_state", "set_state", "replace_state"]
+           "get_state", "set_state", "replace_state", "get_rng_state",
+           "set_rng_state", "rng_scope", "get_cuda_rng_state",
+           "set_cuda_rng_state"]
 
 _state: dict = {}
 _draws = [0]
@@ -106,3 +119,36 @@ def replace_state(state: dict) -> None:
     made it)."""
     _state.clear()
     set_state(state)
+
+
+def get_rng_state() -> dict:
+    """The whole random state (``paddle.get_rng_state``)."""
+    return get_state()
+
+
+def set_rng_state(state: dict) -> None:
+    """Make ``state`` (from :func:`get_rng_state`) the whole random
+    state: the draws that followed it follow again."""
+    replace_state(state)
+
+
+@contextlib.contextmanager
+def rng_scope(state):
+    """Draw from ``state`` within the block; the state before the block
+    is put back after it."""
+    before = get_state()
+    replace_state(state)
+    try:
+        yield
+    finally:
+        replace_state(before)
+
+
+def get_cuda_rng_state() -> list:
+    """:func:`get_rng_state` in a one-element list, as the reference
+    gives it."""
+    return [get_rng_state()]
+
+
+def set_cuda_rng_state(state) -> None:
+    set_rng_state(state[0] if isinstance(state, (list, tuple)) else state)

@@ -3,7 +3,11 @@
 
 Batches are collated as the reference collates them
 (``default_collate_fn``: numpy samples stacked) and handed out as CPU
-torch tensors; ``jit.TrainStep`` moves them to the model's device. The
+torch tensors in the reference's 32-bit dtypes (``tensor/_common.py``'s
+rule: int64 as int32, float64 as float32, complex128 as complex64, as
+``paddle_tpu/io/reader.py:53-57`` makes its tensors), whether the
+samples were numpy arrays, Python numbers or torch tensors;
+``jit.TrainStep`` moves them to the model's device. The
 reference's worker threads and processes (``num_workers > 0``) and
 ``prefetch.py`` are not ported (ROADMAP queue A.7): asking for workers
 raises.
@@ -13,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..tensor._common import _NARROW
 from .dataset import IterableDataset
 from .sampler import BatchSampler
 
@@ -45,7 +50,9 @@ def _to_tensor(item, to_tensor=True):
     if not to_tensor:
         return item
     if isinstance(item, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(item))
+        item = torch.from_numpy(np.ascontiguousarray(item))
+    if isinstance(item, torch.Tensor):
+        return item.to(_NARROW.get(item.dtype, item.dtype))
     if isinstance(item, dict):
         return {k: _to_tensor(v) for k, v in item.items()}
     if isinstance(item, (tuple, list)):

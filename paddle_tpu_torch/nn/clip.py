@@ -16,6 +16,10 @@ expert's over dp. Under pp > 1 each
 stage holds its own parameters, so :class:`ClipGradByGlobalNorm` sums
 the squared norm over the pp group too, counting a weight shared by two
 stages once (its later copies are marked ``_pp_shared_dup``).
+
+:func:`clip_grad_norm_` and :func:`clip_grad_value_` clip the ``.grad``
+of each parameter in place, as the reference's utilities do
+(``clip.py:75, 96``).
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch
 from ..distributed import _comm
 from ..distributed.shard import grad_layout
 
-__all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+__all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_"]
 
 
 def _skip(p, g):
@@ -51,12 +56,18 @@ def _sq_norms(pairs):
                            [g for _, g in pairs])
 
 
-class _Clip:
+class ClipGradBase:
+    """The base of the clips: ``clip(params_grads)`` gives the clipped
+    ``[(param, grad)]``."""
+
+    def __call__(self, params_grads):
+        raise NotImplementedError
+
     def __repr__(self):  # by settings (a train step's graph key reads it)
         return f"{type(self).__name__}({vars(self)})"
 
 
-class ClipGradByValue(_Clip):
+class ClipGradByValue(ClipGradBase):
     """Clamp every gradient element to ``[min, max]`` (``min`` defaults
     to ``-max``)."""
 
@@ -70,7 +81,7 @@ class ClipGradByValue(_Clip):
                 for p, g in params_grads]
 
 
-class ClipGradByNorm(_Clip):
+class ClipGradByNorm(ClipGradBase):
     """Scale each gradient to an L2 norm of at most ``clip_norm``."""
 
     def __init__(self, clip_norm):
@@ -97,7 +108,7 @@ class ClipGradByNorm(_Clip):
         return out
 
 
-class ClipGradByGlobalNorm(_Clip):
+class ClipGradByGlobalNorm(ClipGradBase):
     """Scale all gradients by ``min(clip_norm / global_norm, 1)``, the
     global norm over every clipped gradient in fp32."""
 
@@ -121,3 +132,44 @@ class ClipGradByGlobalNorm(_Clip):
                             max=1.0)
         return [(p, g if _skip(p, g) else (g * scale).to(g.dtype))
                 for p, g in params_grads]
+
+
+def _with_grads(parameters):
+    if isinstance(parameters, torch.Tensor):
+        parameters = [parameters]
+    return [p for p in parameters if p.grad is not None]
+
+
+@torch.no_grad()
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale every ``.grad`` by ``min(max_norm / (total + 1e-6), 1)``,
+    ``total`` the ``norm_type`` norm (fp32) over all of them; returns
+    ``total``. ``error_if_nonfinite`` raises ``RuntimeError`` when
+    ``total`` is nan or inf (the reference ignores it)."""
+    params = _with_grads(parameters)
+    if not params:
+        return torch.zeros(())
+    grads = [p.grad for p in params]
+    norm_type = float(norm_type)
+    if norm_type == float("inf"):
+        total = torch.stack([g.abs().max().to(torch.float32)
+                             for g in grads]).max()
+    else:
+        total = torch.stack([
+            (g.to(torch.float32).abs() ** norm_type).sum() for g in grads
+        ]).sum() ** (1.0 / norm_type)
+    if error_if_nonfinite and not bool(torch.isfinite(total)):
+        raise RuntimeError(f"the total norm of order {norm_type} of the "
+                           f"gradients is not finite")
+    scale = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    for g in grads:
+        g.copy_(g * scale)
+    return total
+
+
+@torch.no_grad()
+def clip_grad_value_(parameters, clip_value):
+    """Clamp every ``.grad`` to ``[-clip_value, clip_value]``."""
+    for p in _with_grads(parameters):
+        p.grad.clamp_(-clip_value, clip_value)

@@ -1,6 +1,10 @@
 """Weight initializers (counterpart of ``paddle_tpu/nn/initializer.py``).
 
 Each initializer fills a tensor in place: ``init(tensor, generator)``.
+Called on a shape, as the reference's are (``init(shape, dtype)``), it
+returns a new tensor on the current device in ``dtype``, or else in the
+default dtype (``framework.dtype.get_default_dtype``), narrowed as the
+reference's 32-bit mode narrows it (float64 lands as float32).
 Random ones draw in fp32 from ``generator`` (a ``torch.Generator`` on the
 tensor's device) and cast to the tensor's dtype, as the reference draws
 in fp32 from a JAX key and casts. The draws are not the reference's bits:
@@ -13,6 +17,11 @@ import math
 
 import numpy as np
 import torch
+
+from ..framework import random
+from ..framework.device import current_device
+from ..framework.dtype import get_default_dtype, to_torch_dtype
+from ..tensor._common import _NARROW
 
 __all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
            "XavierUniform", "XavierNormal", "KaimingUniform",
@@ -54,9 +63,16 @@ def _fan_in_out(shape):
 
 class Initializer:
     """``init(tensor, generator=None)`` fills ``tensor`` in place and
-    returns it."""
+    returns it; ``init(shape, dtype=None)`` returns a new tensor."""
 
     def __call__(self, tensor, generator=None):
+        if not isinstance(tensor, torch.Tensor):
+            d = get_default_dtype() if generator is None \
+                else to_torch_dtype(generator)
+            tensor = torch.empty(tuple(int(n) for n in tensor),
+                                 dtype=_NARROW.get(d, d),
+                                 device=current_device())
+            generator = random.generator(tensor.device)
         with torch.no_grad():
             tensor.copy_(self._values(tensor, generator))
         return tensor

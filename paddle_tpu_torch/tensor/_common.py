@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..framework.device import current_device
-from ..framework.dtype import to_torch_dtype
+from ..framework.dtype import get_default_dtype, to_torch_dtype
 
 _NARROW = {torch.int64: torch.int32, torch.float64: torch.float32,
            torch.complex128: torch.complex64}
@@ -36,11 +36,15 @@ def canon(out):
     return out
 
 
-def dtype_of(dtype, default=torch.float32):
+def dtype_of(dtype, default=None):
     """A dtype name, numpy or torch dtype as the reference's torch dtype
-    (int64 as int32, float64 as float32); ``default`` for None."""
+    (int64 as int32, float64 as float32); for None ``default``, else the
+    default dtype (``framework.dtype.set_default_dtype``, float32 unless
+    set), narrowed alike, as the reference's ops read it."""
     if dtype is None:
-        return default
+        if default is not None:
+            return default
+        dtype = get_default_dtype()
     d = to_torch_dtype(dtype)
     return _NARROW.get(d, d)
 

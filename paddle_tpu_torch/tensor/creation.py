@@ -54,12 +54,12 @@ def ones(shape, dtype=None, name=None):
 
 def full(shape, fill_value, dtype=None, name=None):
     """``fill_value`` everywhere; without ``dtype``, bool for a bool fill,
-    int32 for an int fill, float32 otherwise (``creation.py:47-56``)."""
+    int32 for an int fill, the default dtype otherwise
+    (``creation.py:47-56``)."""
     fill_value = scalar(fill_value)
     if dtype is None:
         dtype = ("bool" if isinstance(fill_value, bool)
-                 else "int32" if isinstance(fill_value, int)
-                 else "float32")
+                 else "int32" if isinstance(fill_value, int) else None)
     return torch.full(shape_list(shape), fill_value, dtype=dtype_of(dtype),
                       device=device_of())
 

@@ -2594,3 +2594,126 @@ def test_layer_sweep_on_the_card_equals_the_cpu(cuda, case):
     ``card_tol`` of its largest magnitude (or of 1), TF32 off."""
     torch.backends.cudnn.allow_tf32 = False
     assert lcases.card_error(case) <= case.card_tol
+
+
+# -- the top-level namespace (autograd, flags, RNG state, device memory) ------
+
+def test_pylayer_over_the_tile_mode_equals_the_plain_path(cuda):
+    """A ``PyLayer`` whose backward recomputes the tile-mode attention
+    under ``enable_grad`` and calls ``paddle.grad``: output and gradients
+    per 64-row tile within 1e-2 of the fp32 plain version, kernel 1 and
+    the class pass launched twice, dQ and dK/dV once."""
+    import paddle_tpu_torch as paddle
+
+    F = paddle.nn.functional
+    s = 256
+    mask = torch.triu(torch.full((s, s), float("-inf"), device=cuda), 1)
+
+    class CausalAttention(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v = (t.detach().requires_grad_()
+                       for t in ctx.saved_tensor())
+            with paddle.enable_grad():
+                out = F.scaled_dot_product_attention(q, k, v,
+                                                     attn_mask=mask)
+            return tuple(paddle.grad(out, [q, k, v], do))
+
+    gen = torch.Generator(cuda).manual_seed(0)
+    q, k, v, do = (torch.randn(2, s, 2, 64, device=cuda, generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for w in wrappers:
+        w.tile_launches = 0
+    fa.tile_classes.launches = 0
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = CausalAttention.apply(*xs)
+    got = [out, *torch.autograd.grad(out, xs, do)]
+    assert [w.tile_launches for w in wrappers] == [2, 1, 1]
+    assert fa.tile_classes.launches == 2
+    xs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    qt, kt, vt = (t.transpose(1, 2) for t in xs)
+    p = (qt @ kt.transpose(-1, -2) / 8.0 + mask).softmax(-1)
+    want_out = (p @ vt).transpose(1, 2)
+    want = [want_out, *torch.autograd.grad(want_out, xs, do.float())]
+    for g, w in zip(got, want):
+        assert _tile_rel_err(g, w.detach()) <= 1e-2
+
+
+def test_check_nan_inf_on_card_tensors_and_a_capture(cuda):
+    import paddle_tpu_torch as paddle
+
+    paddle.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        with pytest.raises(FloatingPointError, match="'log'"):
+            paddle.log(torch.tensor([-1.0, 2.0], device=cuda))
+        with pytest.raises(FloatingPointError):
+            _ = torch.ones(2, device=cuda) / torch.zeros(2, device=cuda)
+        paddle.seed(0)
+        nn = paddle.nn
+        net = nn.Sequential(nn.Linear(16, 32, device=cuda), nn.ReLU(),
+                            nn.Linear(32, 1, device=cuda))
+        step = TrainStep(net, AdamW(learning_rate=1e-3,
+                                    parameters=net.parameters()),
+                         lambda m, x, y: ((m(x) - y) ** 2).mean())
+        x, y = torch.randn(8, 16, device=cuda), torch.randn(8, 1,
+                                                            device=cuda)
+        before = exec_cache.stats()["captures"]
+        losses = [float(step(x, y)) for _ in range(4)]
+        assert exec_cache.stats()["captures"] > before
+        assert all(math.isfinite(v) for v in losses)
+    finally:
+        paddle.set_flags({"FLAGS_check_nan_inf": False})
+    assert torch.isinf(torch.ones(1, device=cuda) / 0).all()
+
+
+def test_device_memory_functions_equal_torch_cuda(cuda):
+    import paddle_tpu_torch as paddle
+
+    keep = torch.empty(1 << 20, device=cuda)
+    dev = paddle.device
+    assert dev.memory_allocated() == torch.cuda.memory_allocated()
+    assert dev.max_memory_allocated() == torch.cuda.max_memory_allocated()
+    assert dev.memory_reserved() == torch.cuda.memory_reserved()
+    assert dev.max_memory_reserved() == torch.cuda.max_memory_reserved()
+    assert dev.memory_stats()["allocation.all.current"] == \
+        torch.cuda.memory_stats()["allocation.all.current"]
+    dev.reset_max_memory_allocated()
+    assert dev.max_memory_allocated() == torch.cuda.memory_allocated()
+    props = dev.get_device_properties(0)
+    assert props["name"] == torch.cuda.get_device_name(0)
+    assert props["total_memory"] == \
+        torch.cuda.get_device_properties(0).total_memory
+    assert paddle.device_count() == torch.cuda.device_count()
+    del keep
+    dev.empty_cache()
+
+
+def test_rng_state_round_trip_on_the_card(cuda):
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    paddle.seed(11)
+    x = torch.ones(4096, device=cuda)
+
+    def draws():
+        return (paddle.randn([64]), paddle.nn.functional.dropout(x, 0.3),
+                trandom.next_seed_words(), paddle.rand([8]))
+
+    draws()
+    state = paddle.get_rng_state()
+    first = draws()
+    assert not torch.equal(first[0], draws()[0])
+    paddle.set_rng_state(state)
+    again = draws()
+    for a, b in zip(first, again):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    with trandom.rng_scope(state):
+        scoped = draws()
+    for a, b in zip(first, scoped):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
