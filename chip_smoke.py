@@ -113,14 +113,28 @@ only a run in which every phase passed prints the final line:
    the update's outputs). ``nan_check`` with a weight set to inf: the
    card names the leaf the CPU names, and leaves parameters, states and
    the step count as they were;
-15. O1 float16: kernels 1-3 in float16 at phase 6's shape against their
-   plain versions (1e-2 per 64-row tile, two calls bit-identical), timed
-   as CUDA-graph replays beside SDPA in float16; then the headline model
-   with fp32 parameters, 5 steps under ``auto_cast(level="O1",
-   dtype="float16")`` through ``GradScaler(init_loss_scaling=2**15)
-   .minimize`` (the scale after each step printed) and 5 under O1
-   bfloat16 without a scaler: finite losses, ms a step, and kernels 1-3
-   launching 12 times a step;
+15. float16: (a) kernels 1-3 in float16 at phase 6's shape against
+   their plain versions (1e-2 per 64-row tile, two calls
+   bit-identical), timed as CUDA-graph replays beside SDPA in float16;
+   then the headline model with fp32 parameters, 5 steps under
+   ``auto_cast(level="O1", dtype="float16")`` through
+   ``GradScaler(init_loss_scaling=2**15).minimize`` (the scale after
+   each step printed) and 5 under O1 bfloat16 without a scaler: finite
+   losses, ms a step, and kernels 1-3 launching 12 times a step; (b)
+   BERT-base MLM (phase 10's padded b64 x s512 batch, dropout 0.1, fp32
+   parameters) 5 steps under O1 float16 with ``GradScaler(2**15)``, then
+   3 under ``amp.decorate`` O2 float16: losses (the first near
+   ln(vocab)), the scale, ms a step, peak memory, kernels 4-6 once a
+   layer a step and no other kernel; (c) phase 25a's Transformer-base
+   under O1 float16 with ``GradScaler(2**15)``, 5 steps: the tile mode
+   and the class pass 6 times a step, kernels 4-6 12 times; (d) every
+   float16 kernel against its plain version and timed beside it, SDPA
+   in float16 and its bound: kernels 4-6 at BERT's shape (key row and
+   dropout) and at ERNIE's trunk (dropout, both directions), the
+   mma.sync dK/dV at the ERNIE proxy (d 128, dropout), kernels 1-3 at d
+   64 (dQ given delta and computing it), the tile mode at 25b's shape
+   and kernels 7 and 8 at phase 3's geometry and 2048 slots (each
+   element within two float16 ulps of itself, ``fp16_over``);
 16. fit and LBFGS: ``hapi.Model(LlamaForCausalLM(headline)).prepare(
    AdamW).fit`` over a seeded ``TensorDataset`` of 40 sequences (batch
    8, ``num_iters=5``, ``log_freq=1``, ``EarlyStopping`` and
@@ -199,7 +213,7 @@ only a run in which every phase passed prints the final line:
    experts`` holds rank 1's experts at their first values (a planted
    fault), and the phase must then fail; (c) ZeRO at sharding 2 on
    the dense headline step, two ranks over gloo (4 rows a rank), os_g, p_g_os and os_g
-   with offload, 3 eager steps each: losses within 1e-3 of one card's,
+   with offload, 2 eager steps each: losses within 1e-3 of one card's,
    step 1's gradients within 5e-2, each rank's peak and the bytes of
    masters and moments on the card and on the host; offload's peak
    below os_g's by at least 0.9 of the masters' and moments' bytes
@@ -220,7 +234,8 @@ only a run in which every phase passed prints the final line:
    path; every gate call handed one card's expert choices, see
    ``_steer_choices``) and again in fp32 (the gates free): step 1's
    loss within 1e-3 and its gradients (eight leaves, gathered over mp
-   and dp) within 5e-2, steps 2-3 within MOE_DRIFT_TOL; how many of the
+   and dp) within 5e-2, steps 2-3 within MOE_DRIFT_TOL (the eight ranks
+   run both dtypes in one spawn); how many of the
    ranks' own bf16 choices differ from one card's; how many of step 1's
    token choices in layer 1 took another expert or slot than on one
    card (none, in bf16); each rank's launches of kernels 1-3 (2 layers
@@ -373,7 +388,9 @@ time each whole backward
 (delta and the two backward kernels, as the autograd Function runs
 them) against SDPA's whole backward.
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
-line with every kernel's numbers, then as its last line
+line with every kernel's numbers (each with its float16 row and its
+float16 launches over phase 15's training steps), then as its last
+line
 ``{"ok": true, "device": {...}}``. Needs no network and no JAX; exits
 non-zero without a CUDA device or without the repository beside it.
 
@@ -423,12 +440,26 @@ from paddle_tpu_torch.quantization import quantize_kv
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.int8: 1979e12,
-                  torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
+                  torch.int8: 1979e12, torch.float32: 67e12}
 # kernel vs plain version on the same card, bf16 outputs: one bf16
 # rounding of an O(1) output is up to 2**-8 ~ 4e-3; the rest is fp32
 # summation order (streaming vs one-pass softmax)
 BF16_ATOL = 2e-2
+# float16 outputs: each element within two float16 ulps of its own
+# magnitude (2**-9 of it; each side rounds an fp32 result to float16
+# once, so they differ by at most one ulp), elements below 1/64 of the
+# largest held as if they were that size (fp32 summation order); a
+# kernel that rounded through bf16 (2**-8) would miss it
+
+
+def fp16_over(got, want):
+    """The worst ratio of |got - want| to that per-element limit (<= 1
+    passes)."""
+    want = want.float()
+    w = want.abs()
+    lim = 2.0 ** -9 * (w + w.max() / 64)
+    return ((got.float() - want).abs() / lim).max().item()
 
 # the repo's headline 0.44B Llama (benchmarks/serving_bench.py)
 FULL = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
@@ -482,10 +513,10 @@ def phase_build():
 
 # -- phase 3 ------------------------------------------------------------------
 
-def _pools(nkv, d, layers, gen, quant, m=M):
-    """One bf16 (or int8 + scales) pool per layer, the engine's layout,
-    and a scattered block table of ``m`` blocks a lane: lane 0 idle on
-    null block 0."""
+def _pools(nkv, d, layers, gen, quant, m=M, dtype=torch.bfloat16):
+    """One ``dtype`` (or int8 + scales) pool per layer, the engine's
+    layout, and a scattered block table of ``m`` blocks a lane: lane 0
+    idle on null block 0."""
     nblocks = LANES * m + 1
     shape = (layers, nblocks, BLOCK, nkv, d)
     k = torch.randn(shape, device="cuda", generator=gen)
@@ -496,7 +527,7 @@ def _pools(nkv, d, layers, gen, quant, m=M):
     if quant:
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
         return (kq, vq, ks, vs), tables
-    return (k.to(torch.bfloat16), v.to(torch.bfloat16)), tables
+    return (k.to(dtype), v.to(dtype)), tables
 
 
 REPS, ITERS = 5, 20
@@ -651,7 +682,7 @@ def _bound(nkv, g, d, pos, window, kv_dtype, quant):
     """Least time for the work of one call at the lanes' ``pos`` (one
     lane each): the larger of the bytes it must move over the HBM rate
     and its operations over the peak rate for the inputs' type. Bytes: q
-    and out (bf16), pos, the table entries of the blocks that hold
+    and out (16-bit), pos, the table entries of the blocks that hold
     visible slots, and each visible K/V slot once (plus its int8
     scales)."""
     nh = nkv * g
@@ -669,11 +700,12 @@ def _bound(nkv, g, d, pos, window, kv_dtype, quant):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _check_case(nkv, g, window, quant, gen, layers=2, m=M, pos=POS):
+def _check_case(nkv, g, window, quant, gen, layers=2, m=M, pos=POS,
+                dtype=torch.bfloat16):
     d = 128
-    pools, tables = _pools(nkv, d, layers, gen, quant, m=m)
+    pools, tables = _pools(nkv, d, layers, gen, quant, m=m, dtype=dtype)
     q = torch.randn(LANES, nkv * g, d, device="cuda",
-                    generator=gen).to(torch.bfloat16)
+                    generator=gen).to(dtype)
     pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     kern = pa.paged_attend_int8 if quant else pa.paged_attend
     ref = pa.paged_attend_int8_ref if quant else pa.paged_attend_ref
@@ -685,9 +717,18 @@ def _check_case(nkv, g, window, quant, gen, layers=2, m=M, pos=POS):
     torch.cuda.synchronize()
     want = ref(*args(0), window=window)
     err = (got.float() - want.float()).abs().max().item()
-    tag = f"{kern.__name__} nkv={nkv} g={g} window={window} M={m}"
-    log(f"[kernels] {tag}: max_abs_err {err:.3e} (tol {BF16_ATOL})")
-    if not err <= BF16_ATOL:
+    tag = f"{kern.__name__} nkv={nkv} g={g} window={window} M={m} " \
+        f"{str(dtype)[6:]}"
+    if dtype == torch.float16:
+        over = fp16_over(got, want)
+        log(f"[kernels] {tag}: max_abs_err {err:.3e}, {over:.3f} of the "
+            f"float16 per-element limit (max |out| "
+            f"{want.float().abs().max().item():.3f})")
+        ok = over <= 1
+    else:
+        log(f"[kernels] {tag}: max_abs_err {err:.3e} (tol {BF16_ATOL})")
+        ok = err <= BF16_ATOL
+    if not ok:
         raise AssertionError(f"{tag}: kernel disagrees with its plain "
                              f"version: max_abs_err {err}")
     return err, pools, tables, q, pos
@@ -704,8 +745,8 @@ def _library_call(q, pools, tables, pos, quant, layers):
     for li in range(layers):
         if quant:
             kq, vq, ks, vs = (p[li] for p in pools)
-            kc = (kq[idx].float() * ks[idx][..., None]).to(torch.bfloat16)
-            vc = (vq[idx].float() * vs[idx][..., None]).to(torch.bfloat16)
+            kc = (kq[idx].float() * ks[idx][..., None]).to(q.dtype)
+            vc = (vq[idx].float() * vs[idx][..., None]).to(q.dtype)
         else:
             kc, vc = pools[0][li][idx], pools[1][li][idx]
         # [L, M, B, nkv, d] -> [L, nkv, M*B, d]
@@ -724,14 +765,16 @@ def _library_call(q, pools, tables, pos, quant, layers):
     return call
 
 
-def _time_shape(quant, gen, layers, m, pos):
+def _time_shape(quant, gen, layers, m, pos, dtype=torch.bfloat16):
     """One kernel at one shape, cycling through the per-layer pools as
     the engine's decode step does (so K/V are not served from L2 by a
     repeat): checked against its plain version, then timed beside the
-    plain version, every SDPA backend and the bound. Returns the row."""
+    plain version, every SDPA backend and the bound. ``dtype``: q's and
+    the float pools'. Returns the row."""
     name = "paged_attend_int8" if quant else "paged_attend"
     err, pools, tables, q, pos_t = _check_case(12, 1, 0, quant, gen,
-                                                layers=layers, m=m, pos=pos)
+                                                layers=layers, m=m, pos=pos,
+                                                dtype=dtype)
     kern = pa.paged_attend_int8 if quant else pa.paged_attend
     ref = pa.paged_attend_int8_ref if quant else pa.paged_attend_ref
 
@@ -751,10 +794,9 @@ def _time_shape(quant, gen, layers, m, pos):
     plain_ms = _time_plain(lambda: ref(q, *(p[0] for p in pools), tables,
                                        pos_t), iters=20)
     bound_ms, bound_by = _bound(12, 1, 128, pos, 0,
-                                torch.int8 if quant else torch.bfloat16,
-                                quant)
+                                torch.int8 if quant else dtype, quant)
     log(f"[kernels] {name} L={LANES} M={m} B={BLOCK} nkv=12 d=128 "
-        f"pos={pos}: kernel_ms {_spread(times['kernel'])} (CUDA graphs of "
+        f"{str(dtype)[6:]} pos={pos}: kernel_ms {_spread(times['kernel'])} (CUDA graphs of "
         f"{ITERS} calls; median, min-max of {REPS}) plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} (fastest SDPA "
         f"backend, graphs too: {lib_txt}) bound_ms {bound_ms:.5f} "
@@ -1096,10 +1138,9 @@ LSE_ATOL = 1e-3
 DELTA_REL_TOL = 1e-5
 
 
-def _flash_inputs(b, sq, sk, h, h_kv, gen, d=128):
+def _flash_inputs(b, sq, sk, h, h_kv, gen, d=128, dtype=torch.bfloat16):
     def mk(*shape):
-        return torch.randn(*shape, device="cuda",
-                           generator=gen).to(torch.bfloat16)
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
     return mk(b, sq, h, d), mk(b, sk, h_kv, d), mk(b, sk, h_kv, d), \
         mk(b, sq, h, d)
 
@@ -1195,14 +1236,14 @@ def _flash_bound(q, k, causal, window, kernel, kmask=None):
     return ms, by, all_pairs_ms
 
 
-def _flash_check(case, gen, fused=False):
-    """Kernels 1-3 against their plain versions at ``case``; ``fused``:
-    v is a strided view of a ``[b, s, (h + 2 h_kv) d]`` projection row,
-    as the Llama attention hands it on (q and k come out of RoPE
-    contiguous)."""
+def _flash_check(case, gen, fused=False, dtype=torch.bfloat16):
+    """Kernels 1-3 against their plain versions at ``case`` in ``dtype``
+    (bf16 or fp16); ``fused``: v is a strided view of a ``[b, s, (h + 2
+    h_kv) d]`` projection row, as the Llama attention hands it on (q and
+    k come out of RoPE contiguous)."""
     name, b, sq, sk, h, h_kv, causal, window, d = case
     kw = dict(causal=causal, window=window)
-    q, k, v, do = _flash_inputs(b, sq, sk, h, h_kv, gen, d=d)
+    q, k, v, do = _flash_inputs(b, sq, sk, h, h_kv, gen, d=d, dtype=dtype)
     if fused:
         row = torch.cat([t.reshape(b, sk, -1) for t in (q, k, v)], -1)
         v = row[..., (h + h_kv) * d:].view(b, sk, h_kv, d)
@@ -1237,8 +1278,10 @@ def _flash_check(case, gen, fused=False):
                                   _normalized_err(dv, want_dv))}
     lse_err = (lse - want_lse).abs().max().item()
     log(f"[flash] {name} b={b} sq={sq} sk={sk} h={h} h_kv={h_kv} d={d} "
-        f"causal={causal} window={window}: per-tile relative error "
-        + ", ".join(f"{n} {rel[n]:.3e} (bf16 floor {floor[n]:.3e})"
+        f"{str(dtype)[6:]} causal={causal} window={window}: per-tile "
+        f"relative error "
+        + ", ".join(f"{n} {rel[n]:.3e} ({str(dtype)[6:]} floor "
+                    f"{floor[n]:.3e})"
                     for n in rel)
         + f" (tol {FLASH_REL_TOL}); O max_abs_err {loose['flash_fwd']:.3e}, "
         f"dQ {loose['flash_bwd_dq']:.3e}, dK/dV "
@@ -1596,8 +1639,10 @@ ENC_SEED = (20240607, -77)  # the two dropout seed words, fixed
 # size, within 1e-6 (~8 fp32 ulps): a row whose visible keys are all
 # padded has |lse| ~ 1e4, where one ulp is ~1e-3, phase 6's absolute
 # limit.
-ENC_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-DMASK_REL_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+ENC_REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2,
+               torch.float32: 1e-5}
+DMASK_REL_TOL = {torch.bfloat16: 1e-3, torch.float16: 1e-3,
+                 torch.float32: 1e-4}
 LSE_REL_TOL = 1e-6
 HB_WRAPPERS = (hf.hb_fwd, hf.hb_bwd_dq, hf.hb_bwd_dkv)
 FAMILIES = {
@@ -1654,9 +1699,9 @@ def _enc_check(case, family, gen, coords=None):
     delta = (do.float() * want_out.to(dtype).float()).sum(-1) \
         .permute(0, 2, 1).reshape(b * h, sq).contiguous()
     dq = bdq(q, k, v, do, want_lse, delta, **kw)
-    # kernel 5 as _HbFlashFn.backward runs it in bf16: computing delta
-    # from the same O (bf16), held like kernel 2's fused entry in phase 6
-    fused = family == "kernels 4-6" and dtype == torch.bfloat16
+    # kernel 5 as _HbFlashFn.backward runs it in bf16 and fp16: computing
+    # delta from the same O, held like kernel 2's fused entry in phase 6
+    fused = family == "kernels 4-6" and dtype != torch.float32
     if fused:
         dq_f, delta_f = hf.hb_bwd_dq_delta(q, k, v, do, want_out.to(dtype),
                                            want_lse, **kw)
@@ -1815,9 +1860,10 @@ def phase_encoder_kernels(layers):
 
 def _time_ernie_case(tag, inputs):
     """Kernels 4-6 at an ERNIE shape (the d-128 proxy, or phase 12's
-    trunk; bf16, dropout 0.1, no mask), and their whole backward as
-    ``_HbFlashFn.backward`` runs it, beside SDPA with the same dropout and
-    causality and the bound; timed only (the JSON rows are BERT's)."""
+    trunk; bf16 or fp16, dropout 0.1, no mask), and their whole backward
+    as ``_HbFlashFn.backward`` runs it, beside SDPA with the same dropout
+    and causality and the bound; returns each kernel's row (phase 9's
+    JSON rows are BERT's)."""
     q, k, v, do, out, lse, delta, kw = inputs
     causal = kw["causal"]
     library, contexts, fallbacks, minus = _sdpa_fns(
@@ -1835,15 +1881,19 @@ def _time_ernie_case(tag, inputs):
              "hb_bwd_dkv": lambda: hf.hb_bwd_dkv_ref(q, k, v, do, lse,
                                                      delta, **kw)}
     b, s, h, d = q.shape
+    rows = {}
     for kern, stage in (("hb_fwd", "hb_fwd"), ("hb_bwd_dq", "hb_bwd_dq_delta"),
                         ("hb_bwd_dkv", "hb_bwd_dkv"), ("hb_bwd", "hb_bwd")):
         name = whole if kern == "hb_bwd" else f"{kern}/{tag}"
         lib_ms, lib_txt = lib["fwd" if kern == "hb_fwd" else "bwd"]
         bound_ms, bound_by, _ = _flash_bound(q, k, causal, 0, stage)
         ms = _med(times[name])
-        plain_ms = (f"{_time_plain(plain[kern], iters=3):.4f}"
-                    if kern in plain else "not measured")
-        log(f"[encoder] {tag} {kern} b{b} s{s} h{h} d{d} bf16 "
+        fn = plain.get(kern)
+        rows[kern] = dict(ms=ms, plain_ms=fn and _time_plain(fn, iters=3),
+                          library_ms=lib_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        plain_ms = _ms(rows[kern]["plain_ms"])
+        log(f"[encoder] {tag} {kern} b{b} s{s} h{h} d{d} {str(q.dtype)[6:]} "
             f"{'causal' if causal else 'non-causal'} dropout {ENC_DROPOUT} "
             f"no mask: kernel_ms {_spread(times[name])} (CUDA graphs of "
             f"{ITERS} calls"
@@ -1857,6 +1907,7 @@ def _time_ernie_case(tag, inputs):
             f"{ms / lib_ms if lib_ms else float('nan'):.2f}x; bound_ms "
             f"{bound_ms:.5f} ({bound_by}); eager calls "
             f"{_spread(eager[name])} ms")
+    return rows
 
 
 # -- phase 10 -----------------------------------------------------------------
@@ -2586,7 +2637,13 @@ def _fp16_flash_check(gen):
     return errs, (q, k, v, do, out_h, want_lse, delta)
 
 
-def phase_o1_fp16(card):
+def phase_o1_fp16(card, smi):
+    """15a kernels 1-3 in float16 at the headline shape and the 0.44B
+    Llama under O1 float16 and bfloat16; 15b BERT-base and 15c
+    Transformer-base training under float16; 15d every float16 kernel
+    against its plain version, timed. Returns (each wrapper's float16
+    launches over 15a-15c's training steps, the float16 rows by kernel
+    name)."""
     t_phase = time.perf_counter()
     gen = torch.Generator("cuda").manual_seed(7)
     errs, (q, k, v, do, out, lse, delta) = _fp16_flash_check(gen)
@@ -2608,13 +2665,18 @@ def phase_o1_fp16(card):
     lib = {"flash_fwd": _library(times, "sdpa_fwd", how),
            "flash_bwd_dq": _library(times, "sdpa_bwd", how)}
     lib["flash_bwd_dkv"] = lib["flash_bwd_dq"]
+    rows = {}
     for name, (_, plain) in kernels.items():
         bound_ms, bound_by, _ = _flash_bound(
             q, k, True, 0, name + ("_delta" if name == "flash_bwd_dq" else ""))
         lib_ms, lib_txt = lib[name]
+        plain_ms = _time_plain(plain, iters=5)
+        rows[name] = dict(ms=_med(times[name]), plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=errs[name])
         log(f"[fp16] {name} float16 b8 s1024 h12 d128 causal: kernel_ms "
             f"{_spread(times[name])} (CUDA graphs of {ITERS} calls) plain_ms "
-            f"{_time_plain(plain, iters=5):.4f} library_ms {_ms(lib_ms)} "
+            f"{plain_ms:.4f} library_ms {_ms(lib_ms)} "
             f"(SDPA in float16, fastest backend: {lib_txt}) bound_ms "
             f"{bound_ms:.5f} ({bound_by}) max_abs_err {errs[name]:.3e}")
     del q, k, v, do, out, lse, delta, library
@@ -2662,9 +2724,302 @@ def phase_o1_fp16(card):
     if not abs(runs["float16"][0][0] - np.log(cfg.vocab_size)) < 0.7:
         raise AssertionError("the O1 float16 loss does not start near "
                              "ln(vocab)")
-    log(f"[o1] phase {time.perf_counter() - t_phase:.1f} s")
     del model, opt
     _release()
+    fp16_launches = dict(runs["float16"][3])
+    for got in (_bert_fp16_15b(card), _transformer_fp16_15c(card)):
+        for n, x in got.items():
+            fp16_launches[n] = fp16_launches.get(n, 0) + x
+    rows.update(_fp16_kernels_15d(smi))
+    log(f"[o1] phase {time.perf_counter() - t_phase:.1f} s; float16 "
+        f"launches over 15a-15c's training steps {fp16_launches}")
+    return fp16_launches, rows
+
+
+BERT_O1_STEPS, BERT_O2_STEPS = 5, 3
+
+
+def _bert_fp16_15b(card):
+    """15b: BERT-base MLM at b64 x s512 (phase 10's padded batch,
+    dropout 0.1, fp32 parameters from a seed) under ``auto_cast(O1,
+    float16)`` through ``GradScaler(2**15).minimize``, then
+    ``amp.decorate`` O2 float16 (parameters float16, fp32 masters) under
+    ``auto_cast(O2, float16)``: losses, the scale, ms a step, peak
+    memory; kernels 4-6 once a layer a step, kernels 1-3 never. Returns
+    the launches over both runs."""
+    trandom.seed(0)
+    cfg = BertConfig(max_position_embeddings=512)
+    model = BertForMaskedLM(cfg, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    ids, mask, labels = _mlm_batch(cfg, BERT_BATCH, BERT_SEQ)
+    layers = cfg.num_hidden_layers
+    total = dict.fromkeys(_launch_counts(), 0)
+    for level, steps in (("O1", BERT_O1_STEPS), ("O2", BERT_O2_STEPS)):
+        if level == "O2":
+            model, opt = amp.decorate(model, opt, level="O2",
+                                      dtype="float16")
+        _reset_launches()
+        losses, scales, ms = [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with amp.auto_cast(level=level, dtype="float16"):
+                loss = model(ids, None, mask, labels)
+            scaler.minimize(opt, scaler.scale(loss))
+            opt.clear_grad()
+            losses.append(float(loss))
+            scales.append(scaler.get_loss_scaling())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        total = {n: total[n] + launches[n] for n in total}
+        dtypes = sorted({str(p.dtype)[6:] for p in model.parameters()})
+        log(f"[o1] 15b BERT-base MLM {level} float16 on {card}, parameters "
+            f"{dtypes}, b{BERT_BATCH} x s{BERT_SEQ} ({int(mask.sum())} real "
+            f"tokens), dropout 0.1, GradScaler(init_loss_scaling=2**15): "
+            f"losses {[round(x, 5) for x in losses]} (ln(vocab) "
+            f"{np.log(cfg.vocab_size):.4f}); scale after each step "
+            f"{scales}; ms a step {[round(t, 2) for t in ms]} (median of "
+            f"steps 2-{steps} {_med(ms[1:]):.2f}); peak "
+            f"{peak:.3f} GiB; launches a step "
+            f"{ {n: x / steps for n, x in launches.items() if x} }")
+        want = {w.__name__: layers * steps for w in HB_WRAPPERS}
+        if not all(np.isfinite(losses)) \
+                or any(launches[n] != want.get(n, 0) for n in launches):
+            raise AssertionError(f"15b {level}: losses {losses}, launches "
+                                 f"{launches} (want {want}, no others)")
+        if level == "O1" and not abs(losses[0] - np.log(cfg.vocab_size)) \
+                < 0.7:
+            raise AssertionError(f"15b: the first loss {losses[0]} is not "
+                                 f"near ln(vocab)")
+    del model, opt
+    _release()
+    return {n: x for n, x in total.items() if x}
+
+
+def _transformer_fp16_15c(card):
+    """15c: phase 25a's Transformer-base and copy batch (fp32 parameters,
+    dropout 0.1) under ``auto_cast(O1, float16)`` through
+    ``GradScaler(2**15).minimize``, 5 steps: losses, ms a step, and the
+    tile mode (kernels 1-3 and the class pass) once a decoder layer a
+    step, kernels 4-6 once a layer a step, as 25a launches them in bf16.
+    Returns the launches."""
+    trandom.seed(0)
+    model = _seq2seq(T_VOCAB, "cuda", torch.Generator("cuda").manual_seed(25),
+                     **T_BASE)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    batch = _copy_batch(T_VOCAB, T_BATCH, T_SRC, T_TGT, "cuda", lo=128)
+    _reset_launches()
+    _reset_tile_launches()
+    losses, scales, ms = [], [], []
+    for _ in range(O1_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss = model(*batch)
+        scaler.minimize(opt, scaler.scale(loss))
+        opt.clear_grad()
+        losses.append(float(loss))
+        scales.append(scaler.get_loss_scaling())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    tile, launched = _tile_launches(), _launch_counts()
+    dec, enc = T_BASE["num_decoder_layers"], T_BASE["num_encoder_layers"]
+    want_tile = {n: dec * O1_STEPS for n in TILE_NAMES}
+    want_hb = {w.__name__: (enc + dec) * O1_STEPS for w in HB_WRAPPERS}
+    log(f"[o1] 15c Transformer-base O1 float16 on {card}, fp32 parameters, "
+        f"GradScaler(init_loss_scaling=2**15), b{T_BATCH} x src {T_SRC} x "
+        f"tgt {T_TGT}: losses {[round(x, 5) for x in losses]}; scale after "
+        f"each step {scales}; ms a step {[round(t, 2) for t in ms]} "
+        f"(median of steps 2-{O1_STEPS} {_med(ms[1:]):.2f}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches over "
+        f"{O1_STEPS} steps: tile mode {tile}, {launched}")
+    if not all(np.isfinite(losses)) or tile != want_tile \
+            or any(launched[n] != want_hb.get(n, 0) for n in launched):
+        raise AssertionError(f"15c: losses {losses}, launches tile {tile} "
+                             f"(want {want_tile}), {launched} (want "
+                             f"{want_hb}, no others)")
+    del model, opt
+    _release()
+    out = {k: v for k, v in launched.items() if v}
+    out.update(tile)
+    return out
+
+
+# 15d: kernels 4-6 at BERT's shape and the ERNIE trunk's (both directions)
+# and the mma.sync dK/dV at the ERNIE proxy, in float16, as phase 9 holds
+# them in bf16
+FP16_ENC_CASES = [
+    ("bert", 64, 512, 512, 12, 12, False, 0, torch.float16, True),
+    ("ernie_trunk", 4, 1024, 1024, 64, 64, False, 0, torch.float16, False),
+    ("ernie_trunk_causal", 4, 1024, 1024, 64, 64, True, 0, torch.float16,
+     False),
+    ("ernie_proxy", 4, 1024, 1024, 12, 12, False, 0, torch.float16, False,
+     128),
+]
+# kernels 1-3 at d 64 (given delta and computing it) in float16
+FP16_FLASH_CASE = ("d64", 4, 1024, 1024, 12, 12, True, 0, 64)
+
+
+def _fp16_rows(label, port, plain, bounds, errs, library, times=None):
+    """Rows of float16 kernels: ``port`` {row: fn(i)} timed as CUDA-graph
+    replays beside ``library`` (``_sdpa_fns``'s four) unless ``times`` are
+    given, ``plain`` {row: fn()}, ``bounds`` {row: (ms, by)}, ``errs``
+    {row: max abs error}; logs each and returns them."""
+    if times is None:
+        times, how, _ = _timed(port, *library)
+    else:
+        times, how = times
+    lib = {"fwd": _library(times, "sdpa_fwd", how),
+           "bwd": _library(times, "sdpa_bwd", how)}
+    rows = {}
+    for name in port:
+        lib_ms, lib_txt = lib["fwd" if "_fwd" in name else "bwd"]
+        bound_ms, bound_by = bounds[name]
+        rows[name] = dict(ms=_med(times[name]),
+                          plain_ms=_time_plain(plain[name], iters=2),
+                          library_ms=lib_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=errs[name])
+        log(f"[fp16] {name} float16 {label}: kernel_ms "
+            f"{_spread(times[name])} (CUDA graphs of {ITERS} calls) "
+            f"plain_ms {rows[name]['plain_ms']:.4f} library_ms "
+            f"{_ms(lib_ms)} (SDPA in float16, fastest backend: {lib_txt}) "
+            f"bound_ms {bound_ms:.5f} ({bound_by}) max_abs_err "
+            f"{errs[name]:.3e}")
+    return rows
+
+
+def _fp16_kernels_15d(smi):
+    """15d: every float16 kernel against its plain version on the card,
+    then timed beside its plain version, SDPA in float16 and its bound.
+    Returns the rows by kernel name (kernels 4-6 at BERT's shape, the
+    tile mode at the decoder's, kernels 7 and 8 at the served
+    geometry)."""
+    gen = torch.Generator("cuda").manual_seed(15)
+    rows, inputs, errs = {}, {}, {}
+    for case in FP16_ENC_CASES:
+        errs[case[0]], inputs[case[0]] = _enc_check(case, "kernels 4-6", gen)
+    # kernels 4-6 at BERT's shape, as the training step runs them
+    q, k, v, do, out, lse, delta, kw = inputs["bert"]
+    plain = {"hb_fwd": lambda: hf.hb_fwd_ref(q, k, v, **kw),
+             "hb_bwd_dq": lambda: hf.hb_bwd_dq_delta_ref(q, k, v, do, out,
+                                                         lse, **kw),
+             "hb_bwd_dkv": lambda: hf.hb_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                     **kw)}
+    port = {n: fn for n, fn in zip(plain, _family_fns(
+        "kernels 4-6", inputs["bert"], "bert").values())}
+    bounds = {n: _flash_bound(q, k, False, 0, stage, kmask=kw["kmask"])[:2]
+              for n, stage in zip(plain, ("hb_fwd", "hb_bwd_dq_delta",
+                                          "hb_bwd_dkv"))}
+    rows.update(_fp16_rows(
+        "b64 s512 h12 d64 non-causal kmask dropout 0.1 (kernel 5 computing "
+        "delta)", port, plain, bounds, errs["bert"],
+        _sdpa_fns(q, k, v, do, attn_mask=kw["kmask"][:, None].to(q.dtype),
+                  dropout_p=ENC_DROPOUT)))
+    del q, k, v, do, out, lse, delta
+    ernie = {}
+    for case in FP16_ENC_CASES[1:]:
+        ernie[case[0]] = _time_ernie_case(case[0], inputs.pop(case[0]))
+    log(f"[fp16] kernels 4-6 float16 at the ERNIE shapes: "
+        + "; ".join(f"{tag} " + ", ".join(
+            f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f})"
+            for n, r in rs.items()) for tag, rs in ernie.items()))
+    inputs.clear()
+    _release()
+    # kernels 1-3 at d 64: given delta and computing it
+    errs, (q, k, v, do, out, lse, delta) = _flash_check(
+        FP16_FLASH_CASE, gen, dtype=torch.float16)
+    kw = dict(causal=True, window=0)
+    port = {"flash_fwd/d64": lambda i: fa.flash_fwd(q, k, v, **kw),
+            "flash_bwd_dq/d64": lambda i: fa.flash_bwd_dq_delta(
+                q, k, v, do, out, lse, **kw),
+            "flash_bwd_dq (delta given)/d64": lambda i: fa.flash_bwd_dq(
+                q, k, v, do, lse, delta, **kw),
+            "flash_bwd_dkv/d64": lambda i: fa.flash_bwd_dkv(
+                q, k, v, do, lse, delta, **kw)}
+    plain = {"flash_fwd/d64": lambda: fa.flash_fwd_ref(q, k, v, **kw),
+             "flash_bwd_dq/d64": lambda: fa.flash_bwd_dq_delta_ref(
+                 q, k, v, do, out, lse, **kw),
+             "flash_bwd_dq (delta given)/d64": lambda: fa.flash_bwd_dq_ref(
+                 q, k, v, do, lse, delta, **kw),
+             "flash_bwd_dkv/d64": lambda: fa.flash_bwd_dkv_ref(
+                 q, k, v, do, lse, delta, **kw)}
+    stages = ("flash_fwd", "flash_bwd_dq_delta", "flash_bwd_dq",
+              "flash_bwd_dkv")
+    bounds = {n: _flash_bound(q, k, True, 0, st)[:2]
+              for n, st in zip(port, stages)}
+    errs = {n: errs[n.split(" ")[0].split("/")[0]] for n in port}
+    _fp16_rows("b4 s1024 h12 d64 causal", port, plain, bounds, errs,
+               _sdpa_fns(q, k, v, do, is_causal=True))
+    del q, k, v, do, out, lse, delta
+    _release()
+    rows.update(_fp16_tile_15d(gen))
+    # kernels 7 and 8 at the served geometry and at 2048 slots
+    layers = FULL["num_hidden_layers"]
+    for quant in (False, True):
+        name = "paged_attend_int8" if quant else "paged_attend"
+        row = _time_shape(quant, gen, layers, M, POS, dtype=torch.float16)
+        long_row = _time_shape(quant, gen, layers, M_LONG, POS_LONG,
+                               dtype=torch.float16)
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 long_row["max_abs_err"])
+        row["long"] = long_row
+        rows[name] = row
+    log(f"[fp16] 15d on {smi}: float16 rows {sorted(rows)}")
+    return rows
+
+
+def _fp16_tile_15d(gen):
+    """15d: the tile mode at 25b's shape (b64 s256 h8 d64, dropout 0.1, the
+    causal mask) in float16 against its plain version, then timed as the
+    main path runs it; returns its rows."""
+    b, s, h, d, rate = T_BATCH, T_TGT, T_BASE["nhead"], 64, 0.1
+    q, k, v, do = _flash_inputs(b, s, s, h, h, gen, d=d, dtype=torch.float16)
+    tile = torch.triu(torch.full((s, s), fa.NEG_INF, device="cuda"),
+                      1)[None, None]
+    kw = dict(causal=False, seed=(2025, -18), dropout=rate)
+    rel, errs, dm_err, lse_err, _, _ = _tile_check(q, k, v, do, tile, kw)
+    log(f"[fp16] the tile mode b{b} s{s} h{h} d{d} float16 dropout {rate} "
+        f"on the causal mask: per-tile relative error "
+        + ", ".join(f"{n} {e:.3e}" for n, e in rel.items() if n != "delta")
+        + f" (tol {FLASH_REL_TOL}); fused delta {rel['delta']:.3e} per row "
+        f"(tol 1e-5); dmask {dm_err:.3e} (tol 1e-3); lse {lse_err:.3e} "
+        f"(tol {LSE_ATOL}); class table "
+        f"{'equal' if errs['flash_tile_classes'] == 0 else 'DIFFERS'}")
+    if not (all(e <= FLASH_REL_TOL for n, e in rel.items() if n != "delta")
+            and rel["delta"] <= 1e-5 and dm_err <= 1e-3
+            and lse_err <= LSE_ATOL and errs["flash_tile_classes"] == 0):
+        raise AssertionError(f"15d: the float16 tile mode disagrees with "
+                             f"its plain version: {rel}, dmask {dm_err}, "
+                             f"lse {lse_err}")
+    kw = dict(kw, tmask=tile)
+    table = fa.tile_classes(tile, s, s, False, full_rows=True)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa._delta(do, out)
+    port = {"flash_fwd_tile": lambda i: fa._flash_fwd(q, k, v, table, **kw),
+            "flash_bwd_dq_tile": lambda i: fa._dq_delta(
+                q, k, v, do, out, lse, table, **kw),
+            "flash_bwd_dkv_tile": lambda i: fa._dkv(
+                q, k, v, do, lse, delta, table, **kw)}
+    plain = {"flash_fwd_tile": lambda: fa.flash_fwd_ref(q, k, v, **kw),
+             "flash_bwd_dq_tile": lambda: fa.flash_bwd_dq_delta_ref(
+                 q, k, v, do, out, lse, **kw),
+             "flash_bwd_dkv_tile": lambda: fa.flash_bwd_dkv_ref(
+                 q, k, v, do, lse, delta, **kw)}
+    bounds = {n: _tile_bound(q, k, tile, n[len("flash_"):-len("_tile")])
+              for n in port}
+    rows = _fp16_rows(f"b{b} s{s} h{h} d{d} dropout {rate}, the causal mask "
+                      f"(the tile mode, given the class table)", port, plain,
+                      bounds, errs, _sdpa_fns(
+                          q, k, v, do, attn_mask=tile[0, 0].to(q.dtype),
+                          dropout_p=rate))
+    del q, k, v, do, out, lse, delta
+    _release()
+    return rows
 
 
 # -- phase 16 -----------------------------------------------------------------
@@ -3726,6 +4081,7 @@ RANK_FLASH_CASE = ("dp 2 rank", TRAIN_BATCH // 2, TRAIN_SEQ, TRAIN_SEQ,
 # masters' and moments' bytes
 OFFLOAD_SAVING = 0.9
 ZERO_LEVELS = (("os_g", False), ("p_g_os", False), ("os_g", True))
+ZERO_STEPS = 2  # 20c's eager steps a level (step 1's gradients held)
 CKPT_TOL = 1e-3
 
 
@@ -4063,8 +4419,9 @@ def _digests(model, opt):
 
 def _rank_20c(root, ids, labels, ckpt, with_states):
     """One of 20c's two ranks sharing the card: the dense 0.44B step at
-    sharding 2 under each ZeRO level, 3 eager steps; after ``p_g_os`` the
-    20d save (parameters and, with ``with_states``, the AdamW states)."""
+    sharding 2 under each ZeRO level, ZERO_STEPS eager steps; after
+    ``p_g_os`` the 20d save (parameters and, with ``with_states``, the
+    AdamW states)."""
     from paddle_tpu_torch.distributed import checkpoint as ckp
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
@@ -4087,7 +4444,7 @@ def _rank_20c(root, ids, labels, ckpt, with_states):
         for w in FLASH_WRAPPERS:
             w.launches = 0
         losses, ms = [], []
-        for i in range(FLEET_STEPS):
+        for i in range(ZERO_STEPS):
             t0 = time.perf_counter()
             opt.clear_grad()
             loss = model(ids, labels)
@@ -4267,8 +4624,8 @@ def phase_experts(card, fault=False, fp32_witness=False):
                   [dict(o[tag], rank=o["rank"]) for o in ranks],
                   [{n[len(tag) + 1:]: a for n, a in got.items()
                     if n.startswith(tag + "/")} for got in arrays],
-                  p_loss[:FLEET_STEPS], ref_grads,
-                  {0: layers * FLEET_STEPS, 1: layers * FLEET_STEPS})
+                  p_loss[:ZERO_STEPS], ref_grads,
+                  {0: layers * ZERO_STEPS, 1: layers * ZERO_STEPS})
             if offload and not (all(o[tag]["pinned"] for o in ranks)
                                 and not any(o[tag]["states_device"]
                                             for o in ranks)):
@@ -4495,17 +4852,30 @@ def _my_choices(choices, dp, mp):
             c.shape[:2] + (-1,)) for k, c in choices.items()}
 
 
-def _rank_21a(root, ids, labels, dtype, choices):
-    """One of 21a's eight ranks sharing the card: the hybrid pipe in
-    ``dtype`` at dp 2 x mp 2 x pp 2 with SP and the experts over dp,
-    1F1B, 3 steps; each gate call routed by its part of one card's
-    ``choices`` unless they are None."""
+def _rank_21a(root, ids, labels, choices):
+    """One of 21a's eight ranks sharing the card: the hybrid pipe at dp 2
+    x mp 2 x pp 2 with SP and the experts over dp, 1F1B, 3 steps, in
+    bf16 with each gate call routed by its part of one card's
+    ``choices``, then in fp32 with its own gates (one spawn for both:
+    the eight processes' start-up is most of a run). Saves each dtype's
+    results under its name and its leaves as ``<dtype>/<key>``."""
     from paddle_tpu_torch.distributed import fleet
 
     dist = _rank_setup(root)
     fleet.init(is_collective=True, strategy=_strategy(
         dp=2, mp=2, pp=2, pipeline={"accumulate_steps": HYBRID_MICRO,
                                     "schedule": "1F1B"}))
+    out, arrays = {}, {}
+    for dtype, steer in (("bfloat16", choices), ("float32", None)):
+        got, leaves = _rank_21a_run(dist, fleet, ids, labels, dtype, steer)
+        out[dtype] = got
+        arrays.update({f"{dtype}/{k}": v for k, v in leaves.items()})
+    _save_rank(root, out, arrays)
+    dist.destroy_process_group()
+
+
+def _rank_21a_run(dist, fleet, ids, labels, dtype, choices):
+    """One dtype's run of a 21a rank: (its results, its leaves)."""
     hcg = fleet.get_hybrid_communicate_group()
     dp, mp = hcg.get_data_parallel_rank(), hcg.get_model_parallel_rank()
     pipe, opt = _hybrid_pipe({"sequence_parallel": True, "dtype": dtype})
@@ -4543,8 +4913,7 @@ def _rank_21a(root, ids, labels, dtype, choices):
     if dist.get_rank() == 0 and dtype == "bfloat16":  # launches read
         _flash_check(HYBRID_FLASH_CASE,
                      torch.Generator("cuda").manual_seed(21), fused=True)
-    _save_rank(root, out, leaves)
-    dist.destroy_process_group()
+    return out, leaves
 
 
 def _ernie_mp_model():
@@ -4739,15 +5108,18 @@ def _each(wrappers, n):
     return {w.__name__: n for w in wrappers}
 
 
-def _hybrid_21a(card, dtype, batch, one, per):
-    """21a in ``dtype``: eight ranks against one card's ``one`` (losses,
-    step 1's leaves and routing of layer 1, every gate call's choices);
-    the bf16 ranks are handed those choices. Returns rank 0's
-    launches."""
+def _hybrid_21a(card, dtype, spawned, one, per):
+    """21a in ``dtype``: the eight ranks' results (``spawned``, as
+    ``_spawn_ranks`` returns them for both dtypes) against one card's
+    ``one`` (losses, step 1's leaves and routing of layer 1, every gate
+    call's choices); the bf16 ranks were handed those choices. Returns
+    rank 0's launches."""
     one_losses, one_leaves, one_routes, one_choices = one
     steer = dtype == "bfloat16"
-    ranks, arrays, wall = _spawn_ranks(
-        _rank_21a, batch + (dtype, one_choices if steer else None), n=8)
+    ranks = [dict(o[dtype], rank=o["rank"]) for o in spawned[0]]
+    prefix = dtype + "/"
+    arrays = [{k[len(prefix):]: v for k, v in got.items()
+               if k.startswith(prefix)} for got in spawned[1]]
     tag = f"21a {dtype}"
     for o in ranks:
         dp, mp, stage = o["coords"]
@@ -4810,7 +5182,6 @@ def _hybrid_21a(card, dtype, batch, one, per):
         raise AssertionError(f"{tag}: bytes sent "
                              f"{[o['counters'] for o in ranks]}, expected "
                              f"{want_bytes} a rank")
-    log(f"[hybrid] {tag}: spawn to join {wall:.1f} s")
     return ranks[0]["launches"]
 
 
@@ -4912,11 +5283,13 @@ def phase_hybrid(card, fault=False):
     _enc_check(HYBRID_HB_CASE, "kernels 4-6",
                torch.Generator("cuda").manual_seed(21),
                coords=HYBRID_HB_COORDS)
-    # 21a: eight ranks, bf16 (the main path), then fp32
-    launches["21a"] = _hybrid_21a(card, "bfloat16", batch, one_moe, per)
-    _hybrid_21a(card, "float32", batch,
-                _pipe_one_card({"dtype": "float32"}, ids, labels,
-                               FLEET_STEPS), per)
+    # 21a: eight ranks, bf16 (the main path), then fp32, in one spawn
+    one_fp32 = _pipe_one_card({"dtype": "float32"}, ids, labels,
+                              FLEET_STEPS)
+    spawned = _spawn_ranks(_rank_21a, batch + (one_moe[3],), n=8)
+    launches["21a"] = _hybrid_21a(card, "bfloat16", spawned, one_moe, per)
+    _hybrid_21a(card, "float32", spawned, one_fp32, per)
+    log(f"[hybrid] 21a: spawn to join {spawned[2]:.1f} s (both dtypes)")
     # 21b's pipe and 21c's pipes on four ranks
     ranks, _, wall = _spawn_ranks(_rank_21_four, batch, n=4)
     ec = ErnieConfig(**ERNIE_PIPE)
@@ -6969,6 +7342,14 @@ def phase_namespace(card, smi):
             "pylayer_err": err}
 
 
+def _json_row(row):
+    """A float16 row for the kernels line (the long paged shape left to
+    the log), or None where the kernel has none (the class pass reads the
+    fp32 mask only)."""
+    return None if row is None else {k: v for k, v in row.items()
+                                     if k != "long"}
+
+
 def main():
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6993,7 +7374,7 @@ def main():
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
     fleet_launches, pipe_launches, context, experts = {}, {}, {}, {}
     hybrid, vision, ops, functional, layers_nn = {}, {}, {}, {}, {}
-    namespace = {}
+    namespace, fp16 = {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -7009,7 +7390,8 @@ def main():
                        phase_ernie_train(name))),
                    (13, phase_ernie_identity),
                    (14, lambda: graph.update(phase_train_graphs(name))),
-                   (15, lambda: phase_o1_fp16(name)),
+                   (15, lambda: fp16.update(zip(
+                       ("launches", "rows"), phase_o1_fp16(name, smi)))),
                    (16, lambda: phase_fit(name, graph.get("graph_ms",
                                                           float("nan")))),
                    (17, lambda: fleet_launches.update(
@@ -7061,12 +7443,17 @@ def main():
                             functional["launches"].values())
                      for k in replaces}
     # and each kernel's launches over phase 26b's fit through the top-level
-    # names (the tile rows below carry theirs)
+    # names (the tile rows below carry theirs), its float16 launches over
+    # phase 15's training steps (15a-15c) and its float16 row (phase 15;
+    # kernels 1-3 at the headline shape, 4-6 at BERT's, 7-8 at the served
+    # geometry)
     kernels = [dict(name=k, route="cuda", source=sources[k.split("_")[0]],
                     replaces=replaces[k], launches=launches[k], **rows[k],
                     launches_phase21=on_hybrid[k],
                     launches_phase24=on_functional[k],
-                    launches_phase26=namespace["launches"].get(k, 0))
+                    launches_phase26=namespace["launches"].get(k, 0),
+                    launches_phase15_fp16=fp16["launches"].get(k, 0),
+                    fp16=_json_row(fp16["rows"].get(k)))
                for k in replaces]
     # the tile mode of kernels 1-3 (a mode of the TPU's kernels 1-3 for
     # the masks the reference sends to its composite,
@@ -7079,6 +7466,8 @@ def main():
                                        else "flash_fwd"],
                      launches=layers_nn["launches"][k],
                      launches_phase26=namespace["launches"][k],
+                     launches_phase15_fp16=fp16["launches"].get(k, 0),
+                     fp16=_json_row(fp16["rows"].get(k)),
                      **layers_nn["rows"][k])
                 for k in TILE_NAMES]
     log(f"[done] launches on the ERNIE path (phase 12, "

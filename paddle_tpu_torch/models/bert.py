@@ -28,6 +28,7 @@ from ..distributed.shard import local_piece, mark_local
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn import functional as F
+from ..tensor.math import matmul as _matmul
 from ._weights import load_jax_weights
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertSelfAttention", "BertLayer",
@@ -84,15 +85,22 @@ def _param(shape, device):
 class _Linear(nn.Module):
     """``x @ weight + bias`` with ``weight`` ``[in, out]`` (the
     reference's ``Linear`` and its meta-parallel linears at degree 1);
-    ``has_bias=False`` leaves the bias out."""
+    ``has_bias=False`` leaves the bias out. The product is ``F.linear``,
+    which ``auto_cast`` casts as the op ``linear``: ``Linear`` and
+    ``ColumnParallelLinear`` add the bias inside it, ``RowParallelLinear``
+    (``row=True``) after it, so that under O1 its output is the fp32 sum
+    of the low-precision product and the fp32 bias, as the reference's."""
 
-    def __init__(self, n_in, n_out, device, has_bias=True):
+    def __init__(self, n_in, n_out, device, has_bias=True, row=False):
         super().__init__()
         self.weight = _param((n_in, n_out), device)
         self.bias = _param((n_out,), device) if has_bias else None
+        self.row = row
 
     def forward(self, x):
-        y = x @ self.weight
+        if not self.row:
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight)
         return y if self.bias is None else y + self.bias
 
 
@@ -147,7 +155,7 @@ class BertSelfAttention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.head_dim = h // self.num_heads
         self.qkv = _Linear(h, 3 * h, device)
-        self.out = _Linear(h, h, device)
+        self.out = _Linear(h, h, device, row=True)
         self.dropout_p = config.attention_probs_dropout_prob
 
     def forward(self, x, attn_mask=None):
@@ -173,7 +181,8 @@ class BertLayer(nn.Module):
         self.attention = BertSelfAttention(config, device)
         self.attn_norm = _LayerNorm(h, config.layer_norm_eps, device)
         self.inter = _Linear(h, config.intermediate_size, device)
-        self.output = _Linear(config.intermediate_size, h, device)
+        self.output = _Linear(config.intermediate_size, h, device,
+                              row=True)
         self.out_norm = _LayerNorm(h, config.layer_norm_eps, device)
         self.act = getattr(F, config.hidden_act)
 
@@ -276,8 +285,9 @@ class BertForMaskedLM(_BertHead):
         cross-entropy over the predicted tokens."""
         hidden, _ = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.transform_norm(F.gelu(self.transform(hidden)))
-        logits = h @ self.bert.embeddings.word_embeddings.weight.t() \
-            + self.decoder_bias
+        # the tied decoder is the reference's matmul (white under auto_cast)
+        logits = _matmul(h, self.bert.embeddings.word_embeddings.weight,
+                         transpose_y=True) + self.decoder_bias
         if labels is None:
             return logits
         return F.cross_entropy(

@@ -8,10 +8,11 @@ with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<digest>.so <name>.cu
 
 No PyTorch header is included, so a build takes seconds. The digest
-covers the source, the headers beside it and the flags, so an edited
-kernel rebuilds and an unchanged one is reused. ``-Xptxas -v`` puts each
-kernel's registers, shared memory and spills in
-``lib<name>-<digest>.log``. A missing ``nvcc`` or a failed build raises:
+covers every source and header in ``csrc`` (a source may include
+another: ``flash_attention_fp16.cu`` is ``flash_attention.cu`` built at
+float16) and the flags, so an edited kernel rebuilds and an unchanged
+one is reused. ``-Xptxas -v`` puts each kernel's registers, shared
+memory and spills in ``lib<name>-<digest>.log``. A missing ``nvcc`` or a failed build raises:
 there is no fallback. Wrappers declare ``argtypes`` for every entry
 point, ``ctypes.c_void_p`` for each pointer and the stream.
 """
@@ -49,8 +50,9 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(name.encode())
     for f in sorted(CSRC.iterdir()):
-        if f.name == f"{name}.cu" or f.suffix in (".cuh", ".h"):
+        if f.suffix in (".cu", ".cuh", ".h"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
     stem = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}"

@@ -48,9 +48,9 @@
 //     -1e30, whose softmax is uniform, so the backward takes p = 1 / SK
 //     on every key (lse cannot carry log(SK) at -1e30) and ds = 0 where
 //     the causal mask hides the key. dK/dV writes ds / scale per element
-//     into dm ([B * H, SQ, SK]) when dm is given. bf16 at d <= 128 runs
-//     the wgmma kernels; fp32 and d > 128 the FMA kernels, which visit
-//     every tile; no float16, no window. The wgmma kernels skip what is
+//     into dm ([B * H, SQ, SK]) when dm is given. bf16 and fp16 at d <=
+//     128 run the wgmma kernels; fp32 and d > 128 the FMA kernels, which
+//     visit every tile; no window. The wgmma kernels skip what is
 //     exactly zero: a class pass (tile_classes_kernel,
 //     pt_flash_tile_classes) reads the mask once and writes one byte per
 //     64 x 64 cell of each (mask batch, mask head) slice, DEAD (every
@@ -98,10 +98,13 @@
 // tile, kv head) for every call, head-batched too). No atomics anywhere:
 // every result is deterministic. Ragged edges are masked in the kernels,
 // so any sequence length >= 1 works; d is any multiple of 8 up to 256.
+// Element types. Every kernel takes its 16-bit element type T as a
+// template parameter, bf16 or fp16 (__half): this source builds bf16 and
+// fp32, and flash_attention_fp16.cu builds it again with PT_FLASH_FP16,
+// every family and variant at fp16 (kLowCode below). What follows says
+// bf16 for either.
 // Three families:
-//   - wgmma (namespace wg; bf16, d <= 128; their element type T is a
-//     template parameter, and float16 instantiates the three Llama-path
-//     kernels at d 128 without key row or dropout): the forward in every variant
+//   - wgmma (namespace wg; bf16, d <= 128): the forward in every variant
 //     (kernel 1; kernel 4 is flash_fwd_wgmma<64, true, true> on the BERT
 //     path), dQ in every variant (kernel 2 through the entry that computes
 //     delta on the Llama path; kernel 5 is flash_bwd_dq_wgmma<64, true,
@@ -142,8 +145,9 @@
 //     64-row query tiles in a 3-stage ring (Q, dO, lse and delta), and a
 //     warpgroup whose 64 keys are wholly padding for a query head skips
 //     that head (padded_tile: exact zeros, as the reference gives);
-//   - mma.sync (namespace tc; bf16): the key-row and dropout variants
-//     of dK/dV at 64 < d <= 128 (no model path runs them). 64-key tiles, each
+//   - mma.sync (namespace tc; bf16, m16n8k16 .bf16 or .f16): the key-row
+//     and dropout variants of dK/dV at 64 < d <= 128 (no model path runs
+//     them). 64-key tiles, each
 //     warp owning 16 keys with mma.sync.m16n8k16, tiles staged by
 //     synchronous 16-byte loads;
 //   - fp32 FMA (fp32 any d, bf16 with d > 128): a 16 x 16 thread grid,
@@ -184,6 +188,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -204,6 +210,25 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half(x);
+}
+
+// Two fp32 values rounded to T (bf16 or fp16) and packed in one word, lo
+// in the low half: an A operand pair of wgmma or mma.sync, or two outputs.
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Row stride of a [rows, DMAX] shared tile, in elements: the row length
@@ -986,17 +1011,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // mma.sync kernel: dK/dV with a key row or dropout at 64 < d <= 128
-// (bf16). The same grid, masks and arithmetic as above, but each warp
-// owns 16 keys of the output tile and computes its products with
-// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators); P and dS are
-// rounded to bf16 once as operands of the next product, as
+// (bf16 or fp16: T). The same grid, masks and arithmetic as above, but
+// each warp owns 16 keys of the output tile and computes its products
+// with mma.sync.m16n8k16 (T operands, fp32 accumulators); P and dS are
+// rounded to T once as operands of the next product, as
 // FlashAttention-2 does. Tiles are padded by 8 elements per row (16
 // bytes) so ldmatrix and the 32-bit fragment loads hit distinct banks;
 // columns d..DMAX are zero-filled so the contraction over the head
 // dimension runs in whole k16 steps.
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
 constexpr int kWarps = 4;
 constexpr int kThreadsTc = 32 * kWarps;
 
@@ -1004,28 +1028,33 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+// Two 16-bit elements (bf16 or fp16) as one word.
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one 16 x 8 fp32 tile.
+// c += a * b for one 16 x 8 fp32 tile of T (bf16 or fp16) operands.
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same_v<T, __half>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A fragment (16 x 16) of a row-major shared tile: rows r0.., cols k0..
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
+template <int LD, typename T>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const T* s,
                                        int r0, int k0, int lane) {
   const int g = lane >> 2, t = lane & 3;
   a[0] = ld32(s + (r0 + g) * LD + k0 + 2 * t);
@@ -1036,9 +1065,9 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
 
 // B fragment (16 x 8) with B[k][n] = M[n0 + n][k0 + k], M row-major: the
 // product contracts over M's columns (Q.K^T, dO.V^T).
-template <int LD>
+template <int LD, typename T>
 __device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const bf16* m, int n0, int k0,
+                                            const T* m, int n0, int k0,
                                             int lane) {
   const int g = lane >> 2, t = lane & 3;
   b0 = ld32(m + (n0 + g) * LD + k0 + 2 * t);
@@ -1048,10 +1077,10 @@ __device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1,
 // B fragments of two 16 x 8 tiles with B[k][n] = M[k0 + k][n0 + n], M
 // row-major: the product contracts over M's rows (P.V, dS.K, P^T.dO,
 // dS^T.Q). ldmatrix .trans reads the 8 x 8 blocks transposed.
-template <int LD>
-__device__ __forceinline__ void frag_b_cols(uint32_t (&b)[4], const bf16* m,
+template <int LD, typename T>
+__device__ __forceinline__ void frag_b_cols(uint32_t (&b)[4], const T* m,
                                             int k0, int n0, int lane) {
-  const bf16* p = m + (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8;
+  const T* p = m + (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8;
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -1061,8 +1090,8 @@ __device__ __forceinline__ void frag_b_cols(uint32_t (&b)[4], const bf16* m,
 
 // Rows [row0, row0 + R) of one (batch, head) slice into a shared [R, LD]
 // tile in 16-byte vectors; rows past `rows` and columns d..DMAX are 0.
-template <int R, int LD, int DMAX>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ g,
+template <int R, int LD, int DMAX, typename T>
+__device__ __forceinline__ void load_tile(T* sm, const T* __restrict__ g,
                                           long long row_stride, int row0,
                                           int rows, int d) {
   constexpr int kVpr = DMAX / 8;
@@ -1120,21 +1149,21 @@ __device__ __forceinline__ void probs_ds(const Geom& g, float (&s)[NT][4],
 // the four lanes of a key row are reduced by shuffles when the query
 // head's dmask row is written, and a query head whose work on the tile
 // is exactly zero (padded_tile) is skipped.
-template <int DMAX, bool KM, bool DROP>
+template <int DMAX, bool KM, bool DROP, typename T>
 __global__ void __launch_bounds__(kThreadsTc)
-flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, Geom g, Strides sq_, Strides sk_,
+                 const float* __restrict__ delta, T* __restrict__ dk,
+                 T* __restrict__ dv, Geom g, Strides sq_, Strides sk_,
                  Strides sv_, Strides sdo_, Strides sdk_, Strides sdv_) {
   constexpr int BQ = 32, BK = 64, LD = DMAX + 8;
   constexpr int KS = DMAX / 16, NT = BQ / 8, DT = DMAX / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [BK, LD]
-  bf16* sV = sK + BK * LD;                       // [BK, LD]
-  bf16* sQ = sV + BK * LD;                       // [BQ, LD]
-  bf16* sdO = sQ + BQ * LD;                      // [BQ, LD]
+  T* sK = reinterpret_cast<T*>(smem_raw);  // [BK, LD]
+  T* sV = sK + BK * LD;                    // [BK, LD]
+  T* sQ = sV + BK * LD;                    // [BQ, LD]
+  T* sdO = sQ + BQ * LD;                   // [BQ, LD]
   float* sLse = reinterpret_cast<float*>(sdO + BQ * LD);  // [BQ]
   float* sDelta = sLse + BQ;                               // [BQ]
   const int lane = threadIdx.x & 31, wk = (threadIdx.x >> 5) * 16;
@@ -1171,8 +1200,8 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int gi = 0; gi < group; ++gi) {
       const int h = hk * group + gi;
       const long long bh = (long long)b * g.H + h;
-      const bf16* qg = q + b * sq_.b + h * sq_.h;
-      const bf16* dog = dout + b * sdo_.b + h * sdo_.h;
+      const T* qg = q + b * sq_.b + h * sq_.h;
+      const T* dog = dout + b * sdo_.b + h * sdo_.h;
       const float* kmr = KM ? km_row(g, b, h) : nullptr;
       const uint32_t salt = DROP ? head_salt(g, (int)bh) : 0u;
       const bool skip = KM && padded_tile<BK>(g, kmr, c0);
@@ -1202,9 +1231,9 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int j = 0; j < NT; ++j) {
             uint32_t b0, b1;
             frag_b_rows<LD>(b0, b1, sQ, 8 * j, 16 * ks, lane);
-            mma(s[j], ak, b0, b1);
+            mma<T>(s[j], ak, b0, b1);
             frag_b_rows<LD>(b0, b1, sdO, 8 * j, 16 * ks, lane);
-            mma(dp[j], av, b0, b1);
+            mma<T>(dp[j], av, b0, b1);
           }
         }
         probs_ds<NT, KM, DROP>(g, s, dp, c0 + wk, r0, gq, tq, kmr, salt,
@@ -1221,23 +1250,25 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         // dV += P^T.dO and dK += dS^T.Q over this tile's query rows
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk) {
-          const uint32_t ap[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                                  pack(s[2 * kk][2], s[2 * kk][3]),
-                                  pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                  pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-          const uint32_t ad[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
-                                  pack(dp[2 * kk][2], dp[2 * kk][3]),
-                                  pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                  pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+          const uint32_t ap[4] = {
+              pack<T>(s[2 * kk][0], s[2 * kk][1]),
+              pack<T>(s[2 * kk][2], s[2 * kk][3]),
+              pack<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+              pack<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          const uint32_t ad[4] = {
+              pack<T>(dp[2 * kk][0], dp[2 * kk][1]),
+              pack<T>(dp[2 * kk][2], dp[2 * kk][3]),
+              pack<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+              pack<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
 #pragma unroll
           for (int j = 0; j < DT; j += 2) {
             uint32_t bb[4];
             frag_b_cols<LD>(bb, sdO, 16 * kk, 8 * j, lane);
-            mma(acc_v[j], ap, bb[0], bb[1]);
-            mma(acc_v[j + 1], ap, bb[2], bb[3]);
+            mma<T>(acc_v[j], ap, bb[0], bb[1]);
+            mma<T>(acc_v[j + 1], ap, bb[2], bb[3]);
             frag_b_cols<LD>(bb, sQ, 16 * kk, 8 * j, lane);
-            mma(acc_k[j], ad, bb[0], bb[1]);
-            mma(acc_k[j + 1], ad, bb[2], bb[3]);
+            mma<T>(acc_k[j], ad, bb[0], bb[1]);
+            mma<T>(acc_k[j + 1], ad, bb[2], bb[3]);
           }
         }
       }
@@ -1247,16 +1278,16 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       const int c = c0 + wk + gq + 8 * i;
       if (c >= g.SK) continue;
-      bf16* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
-      bf16* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
+      T* krow = dk + b * sdk_.b + (long long)c * sdk_.s + hk * sdk_.h;
+      T* vrow = dv + b * sdv_.b + (long long)c * sdv_.s + hk * sdv_.h;
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
         const int col = 8 * j + 2 * tq;
         if (col < g.d) {
           *reinterpret_cast<uint32_t*>(krow + col) =
-              pack(acc_k[j][2 * i], acc_k[j][2 * i + 1]);
+              pack<T>(acc_k[j][2 * i], acc_k[j][2 * i + 1]);
           *reinterpret_cast<uint32_t*>(vrow + col) =
-              pack(acc_v[j][2 * i], acc_v[j][2 * i + 1]);
+              pack<T>(acc_v[j][2 * i], acc_v[j][2 * i + 1]);
         }
       }
     }
@@ -1264,10 +1295,10 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 
-// Shared-memory bytes of the mma.sync kernel.
+// Shared-memory bytes of the mma.sync kernel (2-byte elements).
 template <int DMAX>
 struct Smem {
-  static constexpr size_t row = (DMAX + 8) * sizeof(bf16);
+  static constexpr size_t row = (DMAX + 8) * 2;
   static constexpr size_t dkv = 2 * 64 * row + 2 * 32 * row + 2 * 32 * 4;
 };
 
@@ -1309,21 +1340,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Two fp32 values rounded to T (bf16 or fp16) and packed in one word, lo
-// in the low half: an A operand pair of wgmma, or two outputs.
-template <typename T>
-__device__ __forceinline__ uint32_t pack(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // 1024-byte aligned base of the dynamic shared memory (the 128-byte
@@ -1948,12 +1964,12 @@ struct FwdTileCfg {
 // keep the bits that visiting every tile in the same order gives. A row
 // that sees no key outputs exactly 0 with lse -1e30. m starts at
 // -FLT_MAX, so that a first tile whose values are all -inf gives no NaN.
-template <int DMAX, bool DROP>
+template <int DMAX, bool DROP, typename T = bf16>
 __global__ void __launch_bounds__(kThreadsWs, 1)
 flash_fwd_tile_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     bf16* __restrict__ o, float* __restrict__ lse, Geom g,
+                     T* __restrict__ o, float* __restrict__ lse, Geom g,
                      Strides so_) {
   using C = FwdTileCfg<DMAX>;
   constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
@@ -2074,8 +2090,8 @@ flash_fwd_tile_wgmma(const __grid_constant__ CUtensorMap tm_q,
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < DMAX / 16; ++ks)
-        wgmma_ss<BK, bf16>(sc, desc_kmajor<BQ>(sQ, 64 * wq, ks),
-                           desc_kmajor<BK>(sK, 0, ks), ks);
+        wgmma_ss<BK, T>(sc, desc_kmajor<BQ>(sQ, 64 * wq, ks),
+                        desc_kmajor<BK>(sK, 0, ks), ks);
       wg_commit();
       wg_wait<0>();
       fence_regs(sc);
@@ -2134,8 +2150,8 @@ flash_fwd_tile_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        ? p[e] * g.dscale
                        : 0.f;
         }
-        pa[j >> 1][2 * (j & 1)] = pack<bf16>(p[0], p[1]);
-        pa[j >> 1][2 * (j & 1) + 1] = pack<bf16>(p[2], p[3]);
+        pa[j >> 1][2 * (j & 1)] = pack<T>(p[0], p[1]);
+        pa[j >> 1][2 * (j & 1) + 1] = pack<T>(p[2], p[3]);
       }
 #pragma unroll
       for (int j = 0; j < DMAX / 8; ++j) {
@@ -2147,7 +2163,7 @@ flash_fwd_tile_wgmma(const __grid_constant__ CUtensorMap tm_q,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<DMAX, bf16>(acc, pa[kk], desc_mnmajor<BK>(sV, kk), 1);
+        wgmma_rs<DMAX, T>(acc, pa[kk], desc_mnmajor<BK>(sV, kk), 1);
       wg_commit();
       wg_wait<0>();
       fence_regs(acc);
@@ -2164,14 +2180,14 @@ flash_fwd_tile_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const bool valid = row_sees(g, row);
       const float l_safe = fmaxf(l[r], 1e-30f);
       const float inv = 1.f / l_safe;
-      bf16* orow = o + b * so_.b + (long long)row * so_.s + h * so_.h;
+      T* orow = o + b * so_.b + (long long)row * so_.s + h * so_.h;
 #pragma unroll
       for (int j = 0; j < DMAX / 8; ++j) {
         const int col = 8 * j + 2 * tq;
         if (col < g.d)
           *reinterpret_cast<uint32_t*>(orow + col) =
-              valid ? pack<bf16>(acc[4 * j + 2 * r] * inv,
-                                 acc[4 * j + 2 * r + 1] * inv)
+              valid ? pack<T>(acc[4 * j + 2 * r] * inv,
+                              acc[4 * j + 2 * r + 1] * inv)
                     : 0u;
       }
       if (tq == 0)
@@ -3162,22 +3178,19 @@ cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
 
 // The tile mode's forward: g.blocks blocks (0: one an SM), each walking
 // its share of the items.
-template <int DMAX, bool DROP>
+template <typename T, int DMAX, bool DROP>
 cudaError_t fwd_tile_wgmma(const void* q, const void* k, const void* v,
                            void* o, void* lse, const Geom& g,
                            const long long* st, cudaStream_t stream) {
   using C = wg::FwdTileCfg<DMAX>;
   CUtensorMap tq, tk, tv;
-  int err = tile_map<wg::bf16>(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0),
-                               C::BQ);
+  int err = tile_map<T>(&tq, q, g.B, g.SQ, g.H, g.d, strides_at(st, 0), C::BQ);
   if (!err)
-    err = tile_map<wg::bf16>(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1),
-                             C::BK);
+    err = tile_map<T>(&tk, k, g.B, g.SK, g.HKV, g.d, strides_at(st, 1), C::BK);
   if (!err)
-    err = tile_map<wg::bf16>(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2),
-                             C::BK);
+    err = tile_map<T>(&tv, v, g.B, g.SK, g.HKV, g.d, strides_at(st, 2), C::BK);
   if (err) return (cudaError_t)err;
-  auto kernel = wg::flash_fwd_tile_wgmma<DMAX, DROP>;
+  auto kernel = wg::flash_fwd_tile_wgmma<DMAX, DROP, T>;
   cudaError_t e = prepare(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   int blocks = g.blocks;
@@ -3191,20 +3204,20 @@ cudaError_t fwd_tile_wgmma(const void* q, const void* k, const void* v,
   const int items = g.B * g.H * ((g.SQ + C::BQ - 1) / C::BQ);
   kernel<<<blocks < items ? blocks : items, wg::kThreadsWs, C::SMEM,
            stream>>>(
-      tq, tk, tv, (wg::bf16*)o, (float*)lse, g, strides_at(st, 3));
+      tq, tk, tv, (T*)o, (float*)lse, g, strides_at(st, 3));
   return cudaGetLastError();
 }
 
 // The forward (kernels 1 and 4, every variant) runs the wgmma kernel, and
 // the tile mode its own.
-template <int DMAX, bool KM, bool DROP, bool TM = false>
+template <typename T, int DMAX, bool KM, bool DROP, bool TM = false>
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Geom& g, const long long* st,
                    cudaStream_t stream) {
   if constexpr (TM)
-    return fwd_tile_wgmma<DMAX, DROP>(q, k, v, o, lse, g, st, stream);
+    return fwd_tile_wgmma<T, DMAX, DROP>(q, k, v, o, lse, g, st, stream);
   else
-    return fwd_wgmma<DMAX, KM, DROP>(q, k, v, o, lse, g, st, stream);
+    return fwd_wgmma<DMAX, KM, DROP, T>(q, k, v, o, lse, g, st, stream);
 }
 
 // dQ on wgmma: FUSED computes delta from O (strides so_) and writes it;
@@ -3240,12 +3253,12 @@ cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
 
 // dQ given delta (kernels 2 and 5, every variant and the tile mode) runs
 // the wgmma kernel.
-template <int DMAX, bool KM, bool DROP, bool TM = false>
+template <typename T, int DMAX, bool KM, bool DROP, bool TM = false>
 cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, const Geom& g, const long long* st,
                       cudaStream_t stream) {
-  return bwd_dq_wgmma<DMAX, false, KM, DROP, wg::bf16, TM>(
+  return bwd_dq_wgmma<DMAX, false, KM, DROP, T, TM>(
       q, k, v, dout, nullptr, lse, const_cast<void*>(delta), dq, g, st,
       Strides{}, strides_at(st, 4), stream);
 }
@@ -3283,23 +3296,23 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
 // or dropout (kernel 3 on the Llama path) and the tile mode at every d <=
 // 128 run the wgmma kernel; the key-row and dropout variants at 64 < d <=
 // 128 the mma.sync template.
-template <int DMAX, bool KM, bool DROP, bool TM = false>
+template <typename T, int DMAX, bool KM, bool DROP, bool TM = false>
 cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, const Geom& g, const long long* st,
                        cudaStream_t stream) {
   if constexpr (TM || DMAX == 64 || (!KM && !DROP)) {
-    return bwd_dkv_wgmma<DMAX, KM, DROP, wg::bf16, TM>(
+    return bwd_dkv_wgmma<DMAX, KM, DROP, T, TM>(
         q, k, v, dout, lse, delta, dk, dv, g, st, stream);
   } else {
-    auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP>;
+    auto kernel = tc::flash_bwd_dkv_tc<DMAX, KM, DROP, T>;
     const size_t smem = tc::Smem<DMAX>::dkv;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<dkv_grid(g, 64), tc::kThreadsTc, smem, stream>>>(
-        (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
-        (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
-        (tc::bf16*)dk, (tc::bf16*)dv, g, strides_at(st, 0),
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, g,
+        strides_at(st, 0),
         strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
         strides_at(st, 4), strides_at(st, 5));
     return cudaGetLastError();
@@ -3336,54 +3349,41 @@ Geom make_geom(const int* geom, float scale, const void* km, void* dm,
 // dtype codes shared with ops/cuda/flash_attention.py
 enum { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
-// float16 runs the Llama path only: d 128, no key row, no dropout, the
-// flash entries (hb = 0), on the wgmma kernels instantiated at __half
-// (the forward, dK/dV and the dQ that computes delta). Anything else is
-// refused (the wrapper raises first).
-template <bool KM, bool DROP>
-cudaError_t fwd_fp16(const void* q, const void* k, const void* v, void* o,
-                     void* lse, const Geom& g, const long long* st,
-                     cudaStream_t stream) {
-  if (KM || DROP || g.d != 128) return cudaErrorInvalidValue;
-  return fwd_wgmma<128, false, false, __half>(q, k, v, o, lse, g, st,
-                                              stream);
-}
+// The 16-bit element type of this library. flash_attention.cu builds the
+// bf16 and fp32 kernels; flash_attention_fp16.cu is this source with
+// PT_FLASH_FP16 defined, and builds the same templates at __half (no fp32)
+// into a library of its own, which nvcc compiles beside this one. Each
+// library refuses the other's dtypes.
+#ifdef PT_FLASH_FP16
+typedef __half Low;
+constexpr int kLowCode = kFloat16;
+#else
+typedef __nv_bfloat16 Low;
+constexpr int kLowCode = kBFloat16;
+#endif
 
-template <bool KM, bool DROP>
-cudaError_t bwd_dq_fp16(const void*, const void*, const void*, const void*,
-                        const void*, const void*, void*, const Geom&,
-                        const long long*, cudaStream_t) {
-  return cudaErrorInvalidValue;  // dQ given delta: no fp16 kernel
-}
-
-template <bool KM, bool DROP>
-cudaError_t bwd_dkv_fp16(const void* q, const void* k, const void* v,
-                         const void* dout, const void* lse, const void* delta,
-                         void* dk, void* dv, const Geom& g,
-                         const long long* st, cudaStream_t stream) {
-  if (KM || DROP || g.d != 128) return cudaErrorInvalidValue;
-  return bwd_dkv_wgmma<128, false, false, __half>(q, k, v, dout, lse, delta,
-                                                  dk, dv, g, st, stream);
-}
-
-// bf16 with d <= 128 takes the tensor-core kernels; fp32 (any d) and
-// bf16 with d > 128 the fp32-FMA kernels, with 64 x 64 tiles up to DMAX
-// 128 and 32 x 32 at DMAX 256 so that fp32 backward tiles fit in shared
-// memory.
+// The 16-bit type with d <= 128 takes the tensor-core kernels, with d >
+// 128 the fp32-FMA kernels; fp32 (any d) the fp32-FMA kernels, with 64 x
+// 64 tiles up to DMAX 128 and 32 x 32 at DMAX 256 so that fp32 backward
+// tiles fit in shared memory.
+#ifdef PT_FLASH_FP16
+#define PT_FLASH_F32(FN, KM, DROP, ...)
+#else
+#define PT_FLASH_F32(FN, KM, DROP, ...)                                 \
+  if (dtype == kFloat32) {                                              \
+    if (g.d <= 64) return FN<float, 64, 64, 64, KM, DROP>(__VA_ARGS__); \
+    if (g.d <= 128) return FN<float, 128, 64, 64, KM, DROP>(__VA_ARGS__); \
+    return FN<float, 256, 32, 32, KM, DROP>(__VA_ARGS__);                \
+  }
+#endif
 #define PT_FLASH_FAMILY(FN, KM, DROP, ...)                              \
   do {                                                                  \
-    if (dtype == kFloat16) return FN##_fp16<KM, DROP>(__VA_ARGS__);     \
-    if (dtype == kBFloat16) {                                           \
-      if (g.d <= 64) return FN##_tc<64, KM, DROP>(__VA_ARGS__);         \
-      if (g.d <= 128) return FN##_tc<128, KM, DROP>(__VA_ARGS__);       \
-      return FN<__nv_bfloat16, 256, 32, 32, KM, DROP>(__VA_ARGS__);      \
+    if (dtype == kLowCode) {                                            \
+      if (g.d <= 64) return FN##_tc<Low, 64, KM, DROP>(__VA_ARGS__);    \
+      if (g.d <= 128) return FN##_tc<Low, 128, KM, DROP>(__VA_ARGS__);  \
+      return FN<Low, 256, 32, 32, KM, DROP>(__VA_ARGS__);               \
     }                                                                   \
-    if (dtype == kFloat32) {                                            \
-      if (g.d <= 64) return FN<float, 64, 64, 64, KM, DROP>(__VA_ARGS__); \
-      if (g.d <= 128)                                                   \
-        return FN<float, 128, 64, 64, KM, DROP>(__VA_ARGS__);            \
-      return FN<float, 256, 32, 32, KM, DROP>(__VA_ARGS__);              \
-    }                                                                   \
+    PT_FLASH_F32(FN, KM, DROP, __VA_ARGS__)                             \
     return cudaErrorInvalidValue;                                       \
   } while (0)
 
@@ -3391,7 +3391,6 @@ cudaError_t bwd_dkv_fp16(const void* q, const void* k, const void* v,
 #define PT_FLASH_DISPATCH(FN, ...)                                      \
   do {                                                                  \
     if (g.d % 8 || g.d > 256 || g.H % g.HKV) return cudaErrorInvalidValue; \
-    if (dtype == kFloat16 && hb) return cudaErrorInvalidValue;          \
     if (g.km && drop) PT_FLASH_FAMILY(FN, true, true, __VA_ARGS__);     \
     if (g.km) PT_FLASH_FAMILY(FN, true, false, __VA_ARGS__);            \
     if (drop) PT_FLASH_FAMILY(FN, false, true, __VA_ARGS__);            \
@@ -3427,24 +3426,32 @@ int bwd_dkv_entry(const void* q, const void* k, const void* v,
                     (cudaStream_t)stream);
 }
 
-// The tile mode (TM): bf16 with d <= 128 on the wgmma kernels (the
-// backward ones reading the class table), fp32 (any d) and bf16 with d >
-// 128 on the fp32-FMA kernels, which visit every tile; no float16 and no
+// The tile mode (TM): the 16-bit type with d <= 128 on the wgmma kernels
+// (the backward ones reading the class table), fp32 (any d) and the 16-bit
+// type with d > 128 on the fp32-FMA kernels, which visit every tile; no
 // window.
+#ifdef PT_FLASH_FP16
+#define PT_TILE_F32(FN, DROP, ...)
+#else
+#define PT_TILE_F32(FN, DROP, ...)                                         \
+  if (dtype == kFloat32) {                                                 \
+    if (g.d <= 64)                                                         \
+      return FN<float, 64, 64, 64, false, DROP, true>(__VA_ARGS__);         \
+    if (g.d <= 128)                                                        \
+      return FN<float, 128, 64, 64, false, DROP, true>(__VA_ARGS__);        \
+    return FN<float, 256, 32, 32, false, DROP, true>(__VA_ARGS__);          \
+  }
+#endif
 #define PT_TILE_FAMILY(FN, DROP, ...)                                        \
   do {                                                                     \
-    if (dtype == kBFloat16) {                                              \
-      if (g.d <= 64) return FN##_tc<64, false, DROP, true>(__VA_ARGS__);    \
-      if (g.d <= 128) return FN##_tc<128, false, DROP, true>(__VA_ARGS__);  \
-      return FN<__nv_bfloat16, 256, 32, 32, false, DROP, true>(__VA_ARGS__); \
-    }                                                                      \
-    if (dtype == kFloat32) {                                               \
+    if (dtype == kLowCode) {                                               \
       if (g.d <= 64)                                                       \
-        return FN<float, 64, 64, 64, false, DROP, true>(__VA_ARGS__);       \
+        return FN##_tc<Low, 64, false, DROP, true>(__VA_ARGS__);            \
       if (g.d <= 128)                                                      \
-        return FN<float, 128, 64, 64, false, DROP, true>(__VA_ARGS__);      \
-      return FN<float, 256, 32, 32, false, DROP, true>(__VA_ARGS__);        \
+        return FN##_tc<Low, 128, false, DROP, true>(__VA_ARGS__);           \
+      return FN<Low, 256, 32, 32, false, DROP, true>(__VA_ARGS__);          \
     }                                                                      \
+    PT_TILE_F32(FN, DROP, __VA_ARGS__)                                     \
     return cudaErrorInvalidValue;                                          \
   } while (0)
 
@@ -3480,8 +3487,8 @@ Geom tile_geom(const int* geom, float scale, const void* km,
   return g;
 }
 
-// dQ that also computes delta (bf16, d <= 128, every variant; fp16 at d
-// 128 without key row or dropout): strides of q, k, v, dout, out, dq.
+// dQ that also computes delta (the 16-bit type, d <= 128, every variant):
+// strides of q, k, v, dout, out, dq.
 int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                        const void* dout, const void* out, const void* lse,
                        void* delta, void* dq, const void* km,
@@ -3490,20 +3497,13 @@ int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                        void* stream, int hb) {
   const Geom g = make_geom(geom, scale, km, nullptr, drop, dscale, hb);
   const Strides so_ = strides_at(strides, 4), sdq_ = strides_at(strides, 5);
-  if (dtype == kFloat16) {
-    if (hb || km || drop || g.d != 128 || g.H % g.HKV)
-      return cudaErrorInvalidValue;
-    return bwd_dq_wgmma<128, true, false, false, __half>(
-        q, k, v, dout, out, lse, delta, dq, g, strides, so_, sdq_,
-        (cudaStream_t)stream);
-  }
-  if (dtype != kBFloat16 || g.d % 8 || g.d > 128 || g.H % g.HKV)
+  if (dtype != kLowCode || g.d % 8 || g.d > 128 || g.H % g.HKV)
     return cudaErrorInvalidValue;
 #define PT_DQ_DELTA(KM, DROP)                                              \
-  return g.d <= 64 ? bwd_dq_wgmma<64, true, KM, DROP>(                     \
+  return g.d <= 64 ? bwd_dq_wgmma<64, true, KM, DROP, Low>(                \
                          q, k, v, dout, out, lse, delta, dq, g, strides,   \
                          so_, sdq_, (cudaStream_t)stream)                  \
-                   : bwd_dq_wgmma<128, true, KM, DROP>(                    \
+                   : bwd_dq_wgmma<128, true, KM, DROP, Low>(               \
                          q, k, v, dout, out, lse, delta, dq, g, strides,   \
                          so_, sdq_, (cudaStream_t)stream)
   if (km && drop) PT_DQ_DELTA(true, true);
@@ -3513,10 +3513,10 @@ int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
 #undef PT_DQ_DELTA
 }
 
-// The wgmma kernels (bf16, d <= 128) read the class table, the forward
-// also the full-row flags.
+// The wgmma kernels (the 16-bit type, d <= 128) read the class table, the
+// forward also the full-row flags.
 bool wgmma_classes_given(const Geom& g, int dtype, bool flags) {
-  return dtype != kBFloat16 || g.d > 128 || (g.tcls && (g.tfull || !flags));
+  return dtype != kLowCode || g.d > 128 || (g.tcls && (g.tfull || !flags));
 }
 
 int tile_fwd_entry(const void* q, const void* k, const void* v, void* o,
@@ -3544,8 +3544,8 @@ int tile_bwd_dq_entry(const void* q, const void* k, const void* v,
                    (cudaStream_t)stream);
 }
 
-// The tile mode's dQ that also computes delta (bf16, d <= 128): strides
-// of q, k, v, dout, out, dq.
+// The tile mode's dQ that also computes delta (the 16-bit type, d <=
+// 128): strides of q, k, v, dout, out, dq.
 int tile_bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                             const void* dout, const void* out,
                             const void* lse, void* delta, void* dq,
@@ -3556,15 +3556,15 @@ int tile_bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                             void* stream) {
   const Geom g =
       tile_geom(geom, scale, km, kms, tcls, nullptr, nullptr, drop, dscale);
-  if (dtype != kBFloat16 || g.d % 8 || g.d > 128 || g.H % g.HKV ||
+  if (dtype != kLowCode || g.d % 8 || g.d > 128 || g.H % g.HKV ||
       g.window || !g.km || !g.tcls)
     return cudaErrorInvalidValue;
   const Strides so_ = strides_at(strides, 4), sdq_ = strides_at(strides, 5);
 #define PT_TILE_DQ_DELTA(DROP)                                              \
-  return g.d <= 64 ? bwd_dq_wgmma<64, true, false, DROP, wg::bf16, true>(   \
+  return g.d <= 64 ? bwd_dq_wgmma<64, true, false, DROP, Low, true>(        \
                          q, k, v, dout, out, lse, delta, dq, g, strides,    \
                          so_, sdq_, (cudaStream_t)stream)                   \
-                   : bwd_dq_wgmma<128, true, false, DROP, wg::bf16, true>(  \
+                   : bwd_dq_wgmma<128, true, false, DROP, Low, true>(       \
                          q, k, v, dout, out, lse, delta, dq, g, strides,    \
                          so_, sdq_, (cudaStream_t)stream)
   if (drop) PT_TILE_DQ_DELTA(true);
@@ -3614,8 +3614,8 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                       strides, drop, dscale, dtype, stream, 0);
 }
 
-// dQ and delta = rowsum(dO * O) in one launch (bf16, d <= 128, no key
-// row or dropout: drop must be null and dtype bf16): delta [B * H, SQ]
+// dQ and delta = rowsum(dO * O) in one launch (the 16-bit type, d <= 128,
+// no key row or dropout: drop must be null): delta [B * H, SQ]
 // fp32 is written, not read. q, k, v, dout, out, dq strides.
 extern "C" int pt_flash_bwd_dq_delta(const void* q, const void* k,
                                      const void* v, const void* dout,
@@ -3703,10 +3703,10 @@ extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
 // over a broadcast dim) and a unit key stride, added to every score, then
 // the class table's {batch, head} strides and the forward's block count
 // (tile_geom); tcls: the class table of pt_flash_tile_classes and (the
-// forward) tfull its full-row flags, required for bf16 at d <= 128 (null
-// otherwise); dm (or null) receives ds / scale per element as [B * H, SQ,
-// SK] fp32 (zeroed by the caller). Other arguments as the pt_flash_*
-// entries.
+// forward) tfull its full-row flags, required for the 16-bit type at d <=
+// 128 (null otherwise); dm (or null) receives ds / scale per element as
+// [B * H, SQ, SK] fp32 (zeroed by the caller). Other arguments as the
+// pt_flash_* entries.
 extern "C" int pt_flash_tile_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, const void* km,
                                  const void* tcls, const void* tfull,
@@ -3731,9 +3731,9 @@ extern "C" int pt_flash_tile_bwd_dq(const void* q, const void* k,
                            geom, scale, strides, drop, dscale, dtype, stream);
 }
 
-// dQ and delta = rowsum(dO * O) in one launch (bf16, d <= 128; dropout
-// allowed): delta [B * H, SQ] fp32 is written, not read. q, k, v, dout,
-// out, dq strides.
+// dQ and delta = rowsum(dO * O) in one launch (the 16-bit type, d <=
+// 128; dropout allowed): delta [B * H, SQ] fp32 is written, not read. q,
+// k, v, dout, out, dq strides.
 extern "C" int pt_flash_tile_bwd_dq_delta(
     const void* q, const void* k, const void* v, const void* dout,
     const void* out, const void* lse, void* delta, void* dq, const void* km,

@@ -68,6 +68,7 @@
 // grid that skips dead splits without launching them; tensor cores buy
 // nothing at 4 flops per byte.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,12 +108,15 @@ struct Elems<float> { static constexpr int n = 4; };
 template <>
 struct Elems<__nv_bfloat16> { static constexpr int n = 8; };
 template <>
+struct Elems<__half> { static constexpr int n = 8; };
+template <>
 struct Elems<int8_t> { static constexpr int n = 16; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -121,6 +125,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half(x);
 }
 
 // The elements of one 16-byte vector as fp32 (little-endian: element 0
@@ -142,6 +150,16 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& r,
   for (int i = 0; i < 4; ++i) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void unpack<__half>(const uint4& r, float* f) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
 }
 // int8: (x + 128) goes into the low byte of 2^23's mantissa by a byte
@@ -605,9 +623,10 @@ Params make_params(const void* q, const void* kpool, const void* vpool,
 }  // namespace
 
 // dtype codes shared with ops/cuda/paged_attention.py
-enum { kFloat32 = 0, kBFloat16 = 1 };
+enum { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
-// q and the pools share one dtype: float32 or bfloat16. work holds
+// q and the pools share one dtype: float32, bfloat16 or float16 (the
+// 16-bit pools 8 elements a 16-byte load). work holds
 // L * nh * n_split * (d + 2) floats.
 extern "C" int pt_paged_attend(const void* q, const void* kpool,
                                const void* vpool, const void* tables,
@@ -620,11 +639,12 @@ extern "C" int pt_paged_attend(const void* q, const void* kpool,
                   L, nkv, g, d, B, M, window, split, n_split, scale);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16, __nv_bfloat16, false>(P, stream);
+  if (dtype == kFloat16) return launch<__half, __half, false>(P, stream);
   if (dtype == kFloat32) return launch<float, float, false>(P, stream);
   return cudaErrorInvalidValue;
 }
 
-// int8 pools with fp32 scales; q (and out) float32 or bfloat16.
+// int8 pools with fp32 scales; q (and out) float32, bfloat16 or float16.
 extern "C" int pt_paged_attend_int8(const void* q, const void* kpool,
                                     const void* vpool, const void* kscale,
                                     const void* vscale, const void* tables,
@@ -638,6 +658,7 @@ extern "C" int pt_paged_attend_int8(const void* q, const void* kpool,
                   nkv, g, d, B, M, window, split, n_split, scale);
   if (q_dtype == kBFloat16)
     return launch<__nv_bfloat16, int8_t, true>(P, stream);
+  if (q_dtype == kFloat16) return launch<__half, int8_t, true>(P, stream);
   if (q_dtype == kFloat32) return launch<float, int8_t, true>(P, stream);
   return cudaErrorInvalidValue;
 }

@@ -12,8 +12,8 @@ Every layer of the Llama training step runs each once: the forward in
 ``scaled_dot_product_attention(is_causal=True)`` (or
 ``sliding_window_attention``), the two backward kernels from
 :class:`_FlashFn`'s backward. That backward needs ``delta = rowsum(dO *
-O)`` in fp32 (JAX computes it outside Pallas): on CUDA in bfloat16
-without key row or dropout kernel 2 computes it itself
+O)`` in fp32 (JAX computes it outside Pallas): on CUDA in bfloat16 or
+float16 without key row or dropout kernel 2 computes it itself
 (:func:`flash_bwd_dq_delta`, which hands it on to kernel 3); otherwise
 it is a torch expression (:func:`_delta`) given to :func:`flash_bwd_dq`.
 
@@ -38,10 +38,11 @@ and dQ in every variant, dK/dV without key row or dropout and at ``d <=
 a ring of shared tiles (the heaviest tiles first), the key-row and
 dropout variants of dK/dV at ``64 < d <= 128`` with ``mma.sync``;
 fp32 inputs and ``d > 128`` take fp32-FMA kernels, so fp32 results match
-the CPU's plain versions to fp32 rounding. float16 runs the same wgmma
-kernels instantiated at ``__half`` for the Llama path only (``d ==
-128``, no key row or dropout; dQ through the entry computing delta);
-every other float16 call on CUDA raises (:func:`_fp16_kernel`). All read q/k/v through their
+the CPU's plain versions to fp32 rounding. float16 runs every one of
+these kernels and variants instantiated at ``__half`` (``csrc/
+flash_attention_fp16.cu``, a library of its own: :func:`_lib`), as
+bfloat16 runs them, with the same rule by head_dim. All read q/k/v
+through their
 (batch, seq, head) strides, so the ``[b, s, h, d]`` views of the fused
 QKV projection go in without the three transposes JAX makes (TMA needs
 16-byte aligned starts and strides, which the checks below require); a
@@ -81,9 +82,9 @@ keys, as the reference's softmax of equal scores is, and its dS is 0
 where the row does not see the key (the causal mask).
 :func:`flash_bwd_dkv` returns the mask's gradient ``ds / scale`` per
 element as ``[b * h, sq, sk]`` fp32 when ``tmask_grad`` is set; the
-caller sums it over the broadcast dims. bfloat16 at ``d <= 128`` runs
-the wgmma kernels; fp32 and ``d > 128`` the fp32-FMA kernels, which
-visit every tile; float16 raises. On wgmma the kernels skip what is
+caller sums it over the broadcast dims. bfloat16 and float16 at ``d <=
+128`` run the wgmma kernels; fp32 and ``d > 128`` the fp32-FMA kernels,
+which visit every tile. On wgmma the kernels skip what is
 exactly zero: :func:`tile_classes` (a kernel of its own) classes each
 64 x 64 cell of the mask as DEAD (every value at or below ``-0.5e30``),
 ZERO (every value 0) or MIXED and flags each 64-row cell row that holds
@@ -192,21 +193,6 @@ def _check(q, k, v, causal, window, extra=()):
                     f"{name} must start 16-byte aligned with batch, seq "
                     f"and head strides that are multiples of 16 bytes; got "
                     f"strides {t.stride()}")
-
-
-def _fp16_kernel(q, what, variant=False):
-    """Raise ``NotImplementedError`` for a float16 CUDA call that has no
-    kernel: float16 runs kernels 1-3 on the Llama path only (head_dim
-    128, no key row, no dropout; dQ through the entry that computes
-    delta). ``variant``: the call has a key row or dropout, or is a
-    head-batched (4-6) or given-delta dQ call."""
-    if q.is_cuda and q.dtype == torch.float16 \
-            and (variant or q.shape[-1] != 128):
-        raise NotImplementedError(
-            f"{what}: float16 runs only flash kernels 1-3 at head_dim 128 "
-            f"without key row or dropout (the Llama path; dQ computing "
-            f"delta itself); float16 for this call (head_dim "
-            f"{q.shape[-1]}) is ROADMAP queue A.9")
 
 
 def _vector_aligned(t):
@@ -552,9 +538,17 @@ _TAIL = [_P, _F, _P, _P, _F, _I, _P]
 _TENSOR_MAP_ERROR = 1000  # flash_attention.cu's kTensorMapError
 
 
+def _lib(dtype=None):
+    """The kernels' library for q's ``dtype``: float16 runs the float16
+    build of the same source (``csrc/flash_attention_fp16.cu``), every
+    other dtype ``csrc/flash_attention.cu``."""
+    return _load("flash_attention_fp16" if dtype == torch.float16
+                 else "flash_attention")
+
+
 @functools.cache
-def _lib():
-    lib = _build.library("flash_attention")
+def _load(name):
+    lib = _build.library(name)
     for prefix in ("pt_flash", "pt_hb"):
         for entry, n_ptr in (("fwd", 6), ("bwd_dq", 8), ("bwd_dkv", 10)):
             # pt_hb_bwd_dkv also takes the per-head dmask scratch
@@ -631,16 +625,15 @@ def _bwd_dq(entry, name, q, k, v, do, lse, delta, kmask, scale, causal,
 
 def _bwd_dq_delta(entry, name, q, k, v, do, out, lse, scale, causal, window,
                   drop, kmask=()):
-    """Launch a dQ entry that also computes delta (bfloat16 with ``d <=
-    128``, or float16 at 128; anything else raises); returns (dQ, delta
+    """Launch a dQ entry that also computes delta (bfloat16 or float16
+    with ``d <= 128``; anything else raises); returns (dQ, delta
     ``[b * h, sq]``). ``kmask``: the mask operands of an entry that takes
     them (``(key rows or None,)``; the tile mode's mask, class table and
     strides address)."""
     b, sq, h, d = q.shape
-    _fp16_kernel(q, name, name != "flash_bwd_dq_delta" or drop is not None)
     if not _fusable(q):
-        raise ValueError(f"{name} takes bfloat16 with head_dim <= 128 or "
-                         f"float16 at 128, got {q.dtype} and {d}")
+        raise ValueError(f"{name} takes float16 or bfloat16 with head_dim "
+                         f"<= 128, got {q.dtype} and {d}")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     _launch(entry, name, (q, k, v, do, out, lse, delta, dq, *kmask), q, k,
@@ -724,18 +717,13 @@ def tile_classes(tmask, sq, sk, causal=False, full_rows=False):
     return (out, flags) if full_rows else out
 
 
-def _tile_wgmma(q):
-    """Whether the tile mode runs the wgmma kernels for q (CUDA, bfloat16
-    with ``d <= 128``), which read the class table."""
-    return q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] <= 128
-
-
 def _tile_table(q, tmask, table, causal):
     """The (class table, full-row flags) pair that the tile mode's wgmma
     kernels read: ``table`` if the caller computed it, else a new one
     (one class pass); None for the fp32-FMA kernels, which visit every
-    tile."""
-    if not _tile_wgmma(q):
+    tile. The tile mode runs the wgmma kernels where :func:`_fusable`
+    holds."""
+    if not _fusable(q):
         return None
     return tile_classes(tmask, q.shape[1], tmask.shape[3], causal=causal,
                         full_rows=True) if table is None else table
@@ -751,8 +739,7 @@ def _classes(q, tmask, table, causal):
 def flash_fwd(q, k, v, *, causal, scale=None, window=0, kmask=None,
               seed=None, dropout=0.0, coords=None, tmask=None):
     """Attention forward. q ``[b, sq, h, d]``, k/v ``[b, sk, h_kv, d]``
-    (float32 or bfloat16; float16 on CUDA at ``d == 128`` without key
-    row, tile mask or dropout; last dim contiguous, ``h % h_kv == 0``,
+    (float32, bfloat16 or float16; last dim contiguous, ``h % h_kv == 0``,
     ``d % 8 == 0``, ``d <= 256``); optional ``kmask`` ``[b * h, 1, sk]``
     fp32, or ``tmask`` (the tile mode: fp32, broadcasting to ``[b, h, sq,
     sk]``), and ``dropout`` with two ``seed`` words, hashed at ``coords``
@@ -781,17 +768,16 @@ def _flash_fwd(q, k, v, table, *, causal, scale=None, window=0, kmask=None,
         return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
                              window=window, kmask=kmask, seed=seed,
                              dropout=dropout, coords=coords, tmask=tmask)
-    _fp16_kernel(q, "flash_fwd", kmask is not None or drop is not None
-                 or tmask is not None)
     if tmask is not None:
-        res = _fwd(_lib().pt_flash_tile_fwd, "flash_fwd (tile mode)", q, k,
-                   v, (tmask, *(_tile_table(q, tmask, table, causal)
-                                or (None, None)), ctypes.addressof(kms)),
+        res = _fwd(_lib(q.dtype).pt_flash_tile_fwd, "flash_fwd (tile mode)",
+                   q, k, v, (tmask, *(_tile_table(q, tmask, table, causal)
+                                      or (None, None)),
+                             ctypes.addressof(kms)),
                    scale, causal, window, drop)
         flash_fwd.tile_launches += 1
         return res
-    res = _fwd(_lib().pt_flash_fwd, "flash_fwd", q, k, v, kmask, scale,
-               causal, window, drop)
+    res = _fwd(_lib(q.dtype).pt_flash_fwd, "flash_fwd", q, k, v, kmask,
+               scale, causal, window, drop)
     flash_fwd.launches += 1
     return res
 
@@ -832,16 +818,15 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale=None, window=0,
                                 scale=scale, window=window, kmask=kmask,
                                 seed=seed, dropout=dropout, coords=coords,
                                 tmask=tmask)
-    _fp16_kernel(q, "flash_bwd_dq (given delta)", True)
     if tmask is not None:
-        dq = _bwd_dq(_lib().pt_flash_tile_bwd_dq, "flash_bwd_dq (tile mode)",
-                     q, k, v, do, lse, delta,
+        dq = _bwd_dq(_lib(q.dtype).pt_flash_tile_bwd_dq,
+                     "flash_bwd_dq (tile mode)", q, k, v, do, lse, delta,
                      (tmask, _classes(q, tmask, None, causal),
                       ctypes.addressof(kms)), scale, causal, window, drop)
         flash_bwd_dq.tile_launches += 1
         return dq
-    dq = _bwd_dq(_lib().pt_flash_bwd_dq, "flash_bwd_dq", q, k, v, do, lse,
-                 delta, kmask, scale, causal, window, drop)
+    dq = _bwd_dq(_lib(q.dtype).pt_flash_bwd_dq, "flash_bwd_dq", q, k, v, do,
+                 lse, delta, kmask, scale, causal, window, drop)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -876,22 +861,21 @@ def _dkv(q, k, v, do, lse, delta, table, *, causal, scale=None, window=0,
                                  scale=scale, window=window, kmask=kmask,
                                  seed=seed, dropout=dropout, coords=coords,
                                  tmask=tmask, tmask_grad=tmask_grad)
-    _fp16_kernel(q, "flash_bwd_dkv", kmask is not None or drop is not None
-                 or tmask is not None)
     if tmask is not None:
         b, sq, h, _ = q.shape
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
         dm = (torch.zeros((b * h, sq, k.shape[1]), dtype=torch.float32,
                           device=q.device) if tmask_grad else None)
-        _launch(_lib().pt_flash_tile_bwd_dkv, "flash_bwd_dkv (tile mode)",
+        _launch(_lib(q.dtype).pt_flash_tile_bwd_dkv,
+                "flash_bwd_dkv (tile mode)",
                 (q, k, v, do, lse, delta, dk, dv, tmask, dm,
                  _classes(q, tmask, table, causal), ctypes.addressof(kms)), q,
                 k, causal, window, scale, (q, k, v, do, dk, dv), drop)
         flash_bwd_dkv.tile_launches += 1
         return (dk, dv) if dm is None else (dk, dv, dm)
-    res = _bwd_dkv(_lib().pt_flash_bwd_dkv, "flash_bwd_dkv", q, k, v, do,
-                   lse, delta, kmask, rows, scale, causal, window, drop)
+    res = _bwd_dkv(_lib(q.dtype).pt_flash_bwd_dkv, "flash_bwd_dkv", q, k, v,
+                   do, lse, delta, kmask, rows, scale, causal, window, drop)
     flash_bwd_dkv.launches += 1
     return res
 
@@ -921,8 +905,8 @@ def flash_bwd_dq_delta(q, k, v, do, out, lse, *, causal, scale=None,
     rowsum(dO * O)`` ``[b * h, sq]`` fp32) from dO and the forward's O
     (both q's shape and dtype) and lse. One launch: each block sums delta
     for its query rows from the dO tile it holds, writes it out for
-    :func:`flash_bwd_dkv`, and goes on to dQ. Takes bfloat16 with ``d <=
-    128``, or float16 at 128, and no key row (on CUDA; anything else
+    :func:`flash_bwd_dkv`, and goes on to dQ. Takes bfloat16 or float16
+    with ``d <= 128``, and no key row (on CUDA; anything else
     raises); dropout (``seed``, ``dropout``, ``coords`` as the forward
     had them) only with the tile mode's ``tmask``, whose call runs the
     class pass too. Its launches count on ``flash_bwd_dq.launches``
@@ -954,12 +938,12 @@ def _dq_delta(q, k, v, do, out, lse, table, *, causal, scale=None,
         if drop is not None:
             raise ValueError("flash_bwd_dq_delta takes dropout only in the "
                              "tile mode (tmask)")
-        res = _bwd_dq_delta(_lib().pt_flash_bwd_dq_delta,
+        res = _bwd_dq_delta(_lib(q.dtype).pt_flash_bwd_dq_delta,
                             "flash_bwd_dq_delta", q, k, v, do, out, lse,
                             scale, causal, window, None)
         flash_bwd_dq.launches += 1
         return res
-    res = _bwd_dq_delta(_lib().pt_flash_tile_bwd_dq_delta,
+    res = _bwd_dq_delta(_lib(q.dtype).pt_flash_tile_bwd_dq_delta,
                         "flash_bwd_dq_delta (tile mode)", q, k, v, do, out,
                         lse, scale, causal, window, drop,
                         (tmask, _classes(q, tmask, table, causal),
@@ -990,21 +974,17 @@ def _upstream(do, q):
 
 def _fusable(q):
     """Whether a dQ kernel can compute delta itself for q: CUDA, bfloat16
-    with ``d <= 128`` or float16 at 128 (the wgmma kernels)."""
-    d = q.shape[-1]
-    return q.is_cuda and (q.dtype == torch.bfloat16 and d <= 128
-                          or q.dtype == torch.float16 and d == 128)
+    or float16 with ``d <= 128`` (the wgmma kernels)."""
+    return q.is_cuda and q.dtype in (torch.bfloat16, torch.float16) \
+        and q.shape[-1] <= 128
 
 
 def _fused_delta(q, args):
     """Whether the backward takes :func:`flash_bwd_dq_delta` (CUDA,
-    bfloat16 with ``d <= 128`` or float16 at 128, no key row; no dropout
-    outside the tile mode; the tile mode on its wgmma kernels)."""
-    if args["kmask"] is not None:
-        return False
-    if args.get("tmask") is None:
-        return _fusable(q) and not args["dropout"]
-    return _tile_wgmma(q)
+    bfloat16 or float16 with ``d <= 128``, no key row; no dropout outside
+    the tile mode; the tile mode on its wgmma kernels)."""
+    return _fusable(q) and args["kmask"] is None \
+        and (args.get("tmask") is not None or not args["dropout"])
 
 
 def _sum_to(grad, shape):
@@ -1016,9 +996,9 @@ def _sum_to(grad, shape):
 
 class _FlashFn(torch.autograd.Function):
     """Forward kernel 1; backward: kernel 2 computing delta itself, then
-    kernel 3 (bfloat16 on CUDA without key row, and without dropout
-    outside the tile mode), else delta as torch ops, then kernels 2 and
-    3. The tile mode on wgmma runs its class pass once, in the forward,
+    kernel 3 (bfloat16 or float16 on CUDA without key row, and without
+    dropout outside the tile mode), else delta as torch ops, then kernels
+    2 and 3. The tile mode on wgmma runs its class pass once, in the forward,
     whose table the forward and both backward kernels read (a backward
     given a context without it runs the pass itself). kmask's gradient
     is kernel 3's dmask; tmask's is its per-element dmask summed over the

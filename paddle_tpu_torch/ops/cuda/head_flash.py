@@ -7,7 +7,7 @@ of ``csrc/flash_attention.cu`` replace its Pallas TPU kernels:
 - :func:`hb_fwd` (``pt_hb_fwd``: O and lse) replaces ``_hb_fwd_kernel``;
 - :func:`hb_bwd_dq` (``pt_hb_bwd_dq``) and :func:`hb_bwd_dq_delta`
   (``pt_hb_bwd_dq_delta``: dQ and delta in one launch, what the CUDA
-  backward runs in bfloat16) replace ``_hb_dq_kernel``;
+  backward runs in bfloat16 and float16) replace ``_hb_dq_kernel``;
 - :func:`hb_bwd_dkv` (``pt_hb_bwd_dkv``: dK, dV and dmask) replaces
   ``_hb_dkv_kernel``.
 
@@ -17,7 +17,8 @@ their key mask is one row per batch row (``[b, 1, sk]``) whose gradient
 sums over heads and rows in the kernel. On Hopper kernels 1-3 already
 read ``[b, s, h, d]`` through strides, so kernels 4-6 are kernels 1-3's
 templates with the mask row read at the batch row, all three on the
-``wgmma`` family in bfloat16 at BERT's ``d`` 64: kernel 4 is
+``wgmma`` family in bfloat16 and float16 (the float16 library,
+``flash_attention._lib``) at BERT's ``d`` 64: kernel 4 is
 ``flash_fwd_wgmma<64, true, true>`` and kernel 5
 ``flash_bwd_dq_wgmma<64, true, true, true>`` (delta summed inside it).
 Kernels 4 and 5 skip key tiles (128 and 64 keys) that are wholly padding
@@ -137,9 +138,8 @@ def hb_fwd(q, k, v, *, causal=False, scale=None, window=0, kmask=None,
         return hb_fwd_ref(q, k, v, causal=causal, scale=scale, window=window,
                           kmask=kmask, seed=seed, dropout=dropout,
                           coords=coords)
-    _fa._fp16_kernel(q, "hb_fwd", True)
-    res = _fa._fwd(_fa._lib().pt_hb_fwd, "hb_fwd", q, k, v, kmask, scale,
-                   causal, window, drop)
+    res = _fa._fwd(_fa._lib(q.dtype).pt_hb_fwd, "hb_fwd", q, k, v, kmask,
+                   scale, causal, window, drop)
     hb_fwd.launches += 1
     return res
 
@@ -155,9 +155,8 @@ def hb_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
         return hb_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                              scale=scale, window=window, kmask=kmask,
                              seed=seed, dropout=dropout, coords=coords)
-    _fa._fp16_kernel(q, "hb_bwd_dq", True)
-    dq = _fa._bwd_dq(_fa._lib().pt_hb_bwd_dq, "hb_bwd_dq", q, k, v, do, lse,
-                     delta, kmask, scale, causal, window, drop)
+    dq = _fa._bwd_dq(_fa._lib(q.dtype).pt_hb_bwd_dq, "hb_bwd_dq", q, k, v,
+                     do, lse, delta, kmask, scale, causal, window, drop)
     hb_bwd_dq.launches += 1
     return dq
 
@@ -170,8 +169,8 @@ def hb_bwd_dq_delta(q, k, v, do, out, lse, *, causal=False, scale=None,
     (both q's shape and dtype) and lse, with the key row and dropout as
     :func:`hb_bwd_dq` takes them. One launch: each block sums delta for
     its query rows from the dO tile it holds, writes it out for
-    :func:`hb_bwd_dkv`, and goes on to dQ. Takes bfloat16 with ``d <=
-    128`` (on CUDA; anything else raises). Its launches count on
+    :func:`hb_bwd_dkv`, and goes on to dQ. Takes bfloat16 or float16
+    with ``d <= 128`` (on CUDA; anything else raises). Its launches count on
     ``hb_bwd_dq.launches``: it is kernel 5."""
     _fa._check(q, k, v, causal, window, extra=(("do", do), ("out", out)))
     _fa._check_stats(q, lse=lse)
@@ -183,9 +182,9 @@ def hb_bwd_dq_delta(q, k, v, do, out, lse, *, causal=False, scale=None,
         return hb_bwd_dq_delta_ref(q, k, v, do, out, lse, causal=causal,
                                    scale=scale, window=window, kmask=kmask,
                                    seed=seed, dropout=dropout, coords=coords)
-    res = _fa._bwd_dq_delta(_fa._lib().pt_hb_bwd_dq_delta, "hb_bwd_dq_delta",
-                            q, k, v, do, out, lse, scale, causal, window,
-                            drop, kmask=(kmask,))
+    res = _fa._bwd_dq_delta(_fa._lib(q.dtype).pt_hb_bwd_dq_delta,
+                            "hb_bwd_dq_delta", q, k, v, do, out, lse, scale,
+                            causal, window, drop, kmask=(kmask,))
     hb_bwd_dq.launches += 1
     return res
 
@@ -202,10 +201,9 @@ def hb_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
         return hb_bwd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                               scale=scale, window=window, kmask=kmask,
                               seed=seed, dropout=dropout, coords=coords)
-    _fa._fp16_kernel(q, "hb_bwd_dkv", True)
-    res = _fa._bwd_dkv(_fa._lib().pt_hb_bwd_dkv, "hb_bwd_dkv", q, k, v, do,
-                       lse, delta, kmask, b, scale, causal, window, drop,
-                       head_sum=True)
+    res = _fa._bwd_dkv(_fa._lib(q.dtype).pt_hb_bwd_dkv, "hb_bwd_dkv", q, k,
+                       v, do, lse, delta, kmask, b, scale, causal, window,
+                       drop, head_sum=True)
     hb_bwd_dkv.launches += 1
     return res
 
@@ -219,8 +217,9 @@ hb_bwd_dkv.launches = 0
 
 class _HbFlashFn(torch.autograd.Function):
     """Forward kernel 4; backward: kernel 5 computing delta itself, then
-    kernel 6 (bfloat16 on CUDA with ``d <= 128``), else delta as torch
-    ops, then kernels 5 and 6. kmask's gradient is kernel 6's dmask."""
+    kernel 6 (bfloat16 or float16 on CUDA with ``d <= 128``), else delta
+    as torch ops, then kernels 5 and 6. kmask's gradient is kernel 6's
+    dmask."""
 
     @staticmethod
     def forward(ctx, q, k, v, kmask, causal, scale, window, seed, dropout,

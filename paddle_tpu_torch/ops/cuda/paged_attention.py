@@ -58,7 +58,8 @@ __all__ = ["paged_attend", "paged_attend_int8", "paged_attend_ref",
 
 NEG_INF = -1e30
 _MAX_SMEM = 232448  # bytes a block may use on sm_90 (227 KB)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # paged_attention.cu
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1,  # paged_attention.cu
+               torch.float16: 2}
 _SPLIT_BYTES = 32 * 1024  # K+V bytes one split block reads
 
 
@@ -147,10 +148,12 @@ def _check(q, kpool, vpool, kscale, vscale, tables, pos, window):
                 raise ValueError(f"{name} must be float32 "
                                  f"[{nblocks}, {B}, {nkv}]")
         if q.dtype not in _DTYPE_CODE:
-            raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+            raise ValueError(f"q must be float32, bfloat16 or float16, got "
+                             f"{q.dtype}")
     elif kpool.dtype not in _DTYPE_CODE or q.dtype != kpool.dtype:
-        raise ValueError(f"q and the pools must share dtype float32 or "
-                         f"bfloat16; got {q.dtype} and {kpool.dtype}")
+        raise ValueError(f"q and the pools must share dtype float32, "
+                         f"bfloat16 or float16; got {q.dtype} and "
+                         f"{kpool.dtype}")
     # the kernel reads pool rows as 16-byte vectors
     if q.is_cuda and (kpool.data_ptr() % 16 or vpool.data_ptr() % 16):
         raise ValueError("kpool and vpool must be 16-byte aligned")
@@ -307,9 +310,9 @@ def paged_attend(q, kpool, vpool, tables, pos, *, window=0):
     kpool/vpool ``[num_blocks, B, nkv, d]``; tables ``[L, M]`` int32;
     pos ``[L]`` int32 (slot ``l`` is visible iff ``l <= pos``, and
     ``l > pos - window`` when ``window > 0``). Returns ``[L, nh, d]`` in
-    q's dtype. Pools and q share dtype float32 or bfloat16. On CUDA
-    tensors a call is two kernel launches (split, merge) and counts one
-    in ``paged_attend.launches``."""
+    q's dtype. Pools and q share dtype float32, bfloat16 or float16. On
+    CUDA tensors a call is two kernel launches (split, merge) and counts
+    one in ``paged_attend.launches``."""
     _check(q, kpool, vpool, None, None, tables, pos, window)
     if not q.is_cuda:
         return paged_attend_ref(q, kpool, vpool, tables, pos, window=window)
@@ -327,7 +330,7 @@ def paged_attend_int8(q, kpool, vpool, kscale, vscale, tables, pos, *,
     """:func:`paged_attend` over int8 pools: kpool/vpool ``[num_blocks,
     B, nkv, d]`` int8 with their fp32 scales ``[num_blocks, B, nkv]``
     (``quantization.quantize_kv``), dequantized in registers. q is
-    float32 or bfloat16; the result has q's dtype. Counts one in
+    float32, bfloat16 or float16; the result has q's dtype. Counts one in
     ``paged_attend_int8.launches`` per call on CUDA tensors."""
     _check(q, kpool, vpool, kscale, vscale, tables, pos, window)
     if not q.is_cuda:

@@ -1016,7 +1016,7 @@ def test_tile_fwd_skip_rule_is_exact(case):
 def test_tile_attention_runs_one_class_pass(monkeypatch):
     """The tile mode's table is computed once per attention call: one
     forward plus backward through ``flash_attention(tmask=)`` on the
-    wgmma path (``_tile_wgmma`` made true, so that the CPU runs the
+    wgmma path (``_fusable`` made true, so that the CPU runs the
     wiring with the plain versions) calls ``tile_classes`` once, in the
     forward, which hands its table to dQ and dK/dV; a forward under
     ``torch.no_grad`` calls it once; the gradients are those of the
@@ -1040,7 +1040,7 @@ def test_tile_attention_runs_one_class_pass(monkeypatch):
         return classes(*a, **kwargs)
 
     monkeypatch.setattr(tfa, "tile_classes", counted)
-    monkeypatch.setattr(tfa, "_tile_wgmma", lambda t: True)
+    monkeypatch.setattr(tfa, "_fusable", lambda t: True)
     got = grads()
     assert calls == [dict(causal=True, full_rows=True)]
     for g, w in zip(got, want):
@@ -1074,8 +1074,8 @@ def test_fused_tile_dq_plain_is_delta_then_dq():
 
 def test_tile_backward_routes_to_the_fused_dq():
     """On CUDA the Function's tile backward fuses delta into dQ for
-    bfloat16 with d <= 128, dropout or not (one class pass for both
-    kernels); fp32, float16 and d > 128 keep delta as torch ops, and so
+    bfloat16 and float16 with d <= 128, dropout or not (one class pass
+    for both kernels); fp32 and d > 128 keep delta as torch ops, and so
     does the CPU."""
     mask = torch.zeros(1, 1, 8, 8)
     args = dict(kmask=None, dropout=0.1, tmask=mask)
@@ -1088,7 +1088,8 @@ def test_tile_backward_routes_to_the_fused_dq():
     assert tfa._fused_delta(on_card(torch.bfloat16, 128),
                             dict(args, dropout=0.0))
     assert not tfa._fused_delta(on_card(torch.float32, 64), args)
-    assert not tfa._fused_delta(on_card(torch.float16, 128), args)
+    assert tfa._fused_delta(on_card(torch.float16, 128), args)
+    assert tfa._fused_delta(on_card(torch.float16, 64), args)
     assert not tfa._fused_delta(on_card(torch.bfloat16, 256), args)
     assert not tfa._fused_delta(torch.zeros(1, 8, 2, 64,
                                             dtype=torch.bfloat16), args)

@@ -1509,83 +1509,209 @@ def test_lamb_on_the_card_matches_the_cpu(cuda, dtype):
             assert (a.cpu().float() - b).abs().max().item() <= tol
 
 
-# -- the rest of the train path: float16 kernels 1-3, graphs, optimizer ----
+# -- the rest of the train path: float16 kernels 1-8, graphs, optimizer ----
 
-# float16 runs kernels 1-3 at head_dim 128 without key row or dropout
-# (the Llama path): (b, sq, sk, h, h_kv, d, causal, window) with causal,
-# a window, GQA, sq < sk, ragged, non-causal. Held per 64-row tile
-# within 1e-2 of the plain version on fp32 copies, as bf16 (one fp16
-# rounding of the output and of P and dS as operands).
+# float16 runs every kernel and variant that bfloat16 runs: (b, sq, sk,
+# h, h_kv, d, causal, window, variant) with the Llama path's shapes
+# (causal, a window, GQA, sq < sk, ragged, non-causal at d 128), d 64,
+# key rows, dropout (the mma.sync dK/dV at d 128 with both), the tile
+# mode, the head-batched kernels 4-6 and d > 128 (the fp32-FMA kernels).
+# Held per 64-row tile within 1e-2 of the plain version on fp32 copies,
+# as bf16 (one fp16 rounding of the output and of P and dS as operands);
+# lse within 1e-3, dmask per row within 1e-3.
 _FP16 = [
-    (2, 256, 256, 4, 4, 128, True, 0),
-    (1, 300, 300, 4, 4, 128, True, 64),
-    (2, 128, 128, 8, 2, 128, True, 0),
-    (1, 100, 250, 2, 2, 128, True, 0),
-    (2, 200, 200, 4, 4, 128, False, 0),
+    (2, 256, 256, 4, 4, 128, True, 0, ""),
+    (1, 300, 300, 4, 4, 128, True, 64, ""),
+    (2, 128, 128, 8, 2, 128, True, 0, ""),
+    (1, 100, 250, 2, 2, 128, True, 0, ""),
+    (2, 200, 200, 4, 4, 128, False, 0, ""),
+    (2, 256, 256, 4, 4, 64, True, 0, ""),
+    (2, 256, 256, 4, 2, 64, False, 0, "kmask"),
+    (2, 256, 256, 4, 4, 64, True, 0, "dropout"),
+    (2, 256, 256, 4, 4, 128, False, 0, "kmask_dropout"),
+    (2, 256, 256, 4, 4, 64, True, 0, "tile"),
+    (2, 256, 256, 4, 4, 128, True, 0, "tile"),
+    (2, 256, 256, 4, 4, 64, False, 0, "hb"),
+    (1, 128, 128, 2, 2, 256, True, 0, ""),
 ]
 
 
+def _fp16_case(shape, cuda):
+    """The inputs and keyword arguments of one ``_FP16`` case: (q, k, v,
+    dO in float16, their fp32 copies, the kernel keywords, the family:
+    ``"flash"`` or ``"hb"``)."""
+    b, sq, sk, h, _, d, causal, window, variant = shape
+    q, k, v, do = _flash_inputs(11, shape[:8], torch.float16, cuda)
+    rng = np.random.RandomState(12)
+    live = rng.randint(sk // 2, sk + 1, b)
+    live[0] = sk // 3
+    rows = torch.from_numpy(np.where(np.arange(sk)[None] < live[:, None],
+                                     0.0, -1e4).astype(np.float32)).to(cuda)
+    kw = dict(causal=causal, window=window)
+    if "kmask" in variant:
+        kw["kmask"] = rows[:, None].repeat_interleave(h, 0)  # [b * h, 1, sk]
+    if "dropout" in variant or variant == "hb":
+        kw.update(seed=_SEED, dropout=0.1)
+    if variant == "hb":
+        kw["kmask"] = rows[:, None]  # [b, 1, sk]
+    if variant == "tile":  # the causal mask with key padding, [b, 1, sq, sk]
+        vis = torch.ones(sq, sk, dtype=torch.bool, device=cuda).tril(sk - sq)
+        kw.update(causal=False, tmask=torch.where(
+            vis, rows[:, None, None, :], -1e9).contiguous(),
+            seed=_SEED, dropout=0.1)
+    return (q, k, v, do), [t.float() for t in (q, k, v, do)], kw, \
+        "hb" if variant == "hb" else "flash"
+
+
+_FP16_FNS = {
+    "flash": (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+              fa.flash_fwd_ref, fa.flash_bwd_dq_ref, fa.flash_bwd_dkv_ref,
+              fa.flash_attention),
+    "hb": (hf.hb_fwd, hf.hb_bwd_dq, hf.hb_bwd_dkv, hf.hb_fwd_ref,
+           hf.hb_bwd_dq_ref, hf.hb_bwd_dkv_ref, hf.hb_flash),
+}
+
+
 @pytest.mark.parametrize("shape", _FP16)
-def test_fp16_flash_kernels_match_plain(cuda, shape):
-    q, k, v, do = _flash_inputs(11, shape, torch.float16, cuda)
-    kw = dict(causal=shape[6], window=shape[7])
-    f32 = [t.float() for t in (q, k, v, do)]
-    out, lse = fa.flash_fwd(q, k, v, **kw)
-    want_out, want_lse = fa.flash_fwd_ref(*f32[:3], **kw)
+def test_fp16_flash_kernels_match_plain(cuda, shape, monkeypatch):
+    (q, k, v, do), f32, kw, family = _fp16_case(shape, cuda)
+    fwd, dq_fn, dkv_fn, fwd_ref, dq_ref, dkv_ref, attn = _FP16_FNS[family]
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                hf.hb_fwd, hf.hb_bwd_dq, hf.hb_bwd_dkv)
+    before = [c.launches + getattr(c, "tile_launches", 0) for c in counters]
+    out, lse = fwd(q, k, v, **kw)
+    want_out, want_lse = fwd_ref(*f32[:3], **kw)
     out_h = want_out.to(torch.float16)
-    dq, delta = fa.flash_bwd_dq_delta(q, k, v, do, out_h, want_lse, **kw)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, **kw)
     want_delta = fa._delta(do, out_h)
-    want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, want_delta, **kw)
-    want_dk, want_dv = fa.flash_bwd_dkv_ref(*f32, want_lse, want_delta, **kw)
-    for name, got, want in (("O", out, want_out), ("dQ", dq, want_dq),
-                            ("dK", dk, want_dk), ("dV", dv, want_dv)):
-        assert got.dtype == torch.float16
+    dq = dq_fn(q, k, v, do, want_lse, want_delta, **kw)  # given delta
+    dk, dv, *dm = dkv_fn(q, k, v, do, want_lse, want_delta, **kw)
+    want_dq = dq_ref(*f32, want_lse, want_delta, **kw)
+    want_dk, want_dv, *want_dm = dkv_ref(*f32, want_lse, want_delta, **kw)
+    fused = fa._fusable(q) and ("kmask" not in kw or family == "hb") \
+        and ("dropout" not in kw or family == "hb" or "tmask" in kw)
+    pairs = [("O", out, want_out), ("dQ", dq, want_dq), ("dK", dk, want_dk),
+             ("dV", dv, want_dv)]
+    if fused:  # the dQ entry that computes delta, as the backward runs it
+        entry = hf.hb_bwd_dq_delta if family == "hb" \
+            else fa.flash_bwd_dq_delta
+        dq2, delta = entry(q, k, v, do, out_h, want_lse, **{
+            n: x for n, x in kw.items()
+            if family == "hb" or n != "kmask"})
+        pairs.append(("dQ (computing delta)", dq2, want_dq))
+        torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-5)
+    torch.cuda.synchronize()
+    for name, got, want in pairs:
+        assert got.dtype == torch.float16, name
         assert _tile_rel_err(got, want) <= 1e-2, name
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
-    torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-5)
-    # autograd through _FlashFn takes the same kernels
+    if "kmask" in kw:
+        assert _row_rel(dm[0], want_dm[0]) <= 1e-3
+    # each call launched its kernel
+    after = [c.launches + getattr(c, "tile_launches", 0) for c in counters]
+    ran = [a - b_ for a, b_ in zip(after, before)]
+    first = 3 if family == "hb" else 0
+    assert ran[first:first + 3] == [1, 1 + fused, 1], ran
+    # autograd takes the same kernels: one launch of each, dQ through the
+    # entry that computes delta wherever that entry takes the call
     qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
-    n = fa.flash_bwd_dq.launches
-    fa.flash_attention(qa, ka, va, **kw).backward(do)
-    assert fa.flash_bwd_dq.launches == n + 1
+    a_kw = {n: x for n, x in kw.items() if n != "window" or x}
+    mod, entry = (hf, "hb_bwd_dq_delta") if family == "hb" \
+        else (fa, "_dq_delta")
+    real, took = getattr(mod, entry), []
+    monkeypatch.setattr(mod, entry, lambda *a, **k_: took.append(1)
+                        or real(*a, **k_))
+    before = [c.launches + getattr(c, "tile_launches", 0) for c in counters]
+    attn(qa, ka, va, **a_kw).backward(do)
+    after = [c.launches + getattr(c, "tile_launches", 0) for c in counters]
+    ran = [a - b_ for a, b_ in zip(after, before)]
+    assert ran[first:first + 3] == [1, 1, 1] and sum(ran) == 3, ran
+    assert len(took) == fused
     assert _tile_rel_err(qa.grad, want_dq) <= 1e-2
 
 
+def _fp16_over(got, want):
+    """The worst ratio of |got - want| to two float16 ulps of each
+    element's magnitude, elements below 1/64 of the largest held as if
+    they were that size (<= 1 passes)."""
+    want = want.float()
+    w = want.abs()
+    return ((got.float() - want).abs()
+            / (2.0 ** -9 * (w + w.max() / 64))).max().item()
+
+
 def test_fp16_raises_where_no_kernel_exists(cuda):
+    """The float16 calls that raised for want of a kernel (head_dim 64,
+    a key row, dropout, dQ given delta, kernels 4-6, and kernels 7 and 8
+    over float16) each launch their kernel now and match their plain
+    version: per 64-row tile within 1e-2 (outputs) and, for the paged
+    kernels, each element within two float16 ulps of its own magnitude
+    (2**-9 of it, elements below 1/64 of the largest held as if they
+    were that size: the kernels and their plain versions each round an
+    fp32 result to float16 once)."""
     q, k, v, do = _flash_inputs(3, (1, 64, 64, 2, 2, 128, True, 0),
                                 torch.float16, cuda)
     q64, k64, v64 = (t[..., :64].contiguous() for t in (q, k, v))
+    f32 = [t.float() for t in (q, k, v, do)]
     out, lse = fa.flash_fwd(q, k, v, causal=True)
     delta = fa._delta(do, out)
     km = torch.zeros(2, 1, 64, device=cuda)
-    calls = [
-        lambda: fa.flash_fwd(q64, k64, v64, causal=True),     # d != 128
-        lambda: fa.flash_fwd(q, k, v, causal=True, kmask=km),  # key row
-        lambda: fa.flash_fwd(q, k, v, causal=True, seed=(1, 2),
-                             dropout=0.1),                     # dropout
-        lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
-        lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True,
-                                 kmask=km),
-        lambda: hf.hb_fwd(q, k, v),                            # kernel 4
-        lambda: hf.hb_bwd_dq(q, k, v, do, lse, delta),         # kernel 5
-        lambda: hf.hb_bwd_dkv(q, k, v, do, lse, delta),        # kernel 6
-        lambda: hf.hb_bwd_dq_delta(q, k, v, do, out, lse),
+    km[:, :, 40:] = -1e4
+    drop = dict(seed=(1, 2), dropout=0.1)
+    calls = [  # (counter, kernel call, plain call on fp32 copies)
+        (fa.flash_fwd, lambda: fa.flash_fwd(q64, k64, v64, causal=True)[0],
+         lambda: fa.flash_fwd_ref(*(t.float() for t in (q64, k64, v64)),
+                                  causal=True)[0]),
+        (fa.flash_fwd, lambda: fa.flash_fwd(q, k, v, causal=True,
+                                            kmask=km)[0],
+         lambda: fa.flash_fwd_ref(*f32[:3], causal=True, kmask=km)[0]),
+        (fa.flash_fwd, lambda: fa.flash_fwd(q, k, v, causal=True, **drop)[0],
+         lambda: fa.flash_fwd_ref(*f32[:3], causal=True, **drop)[0]),
+        (fa.flash_bwd_dq,
+         lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+         lambda: fa.flash_bwd_dq_ref(*f32, lse, delta, causal=True)),
+        (fa.flash_bwd_dkv,
+         lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True,
+                                  kmask=km)[0],
+         lambda: fa.flash_bwd_dkv_ref(*f32, lse, delta, causal=True,
+                                      kmask=km)[0]),
+        (hf.hb_fwd, lambda: hf.hb_fwd(q, k, v, causal=True)[0],
+         lambda: hf.hb_fwd_ref(*f32[:3], causal=True)[0]),
+        (hf.hb_bwd_dq,
+         lambda: hf.hb_bwd_dq(q, k, v, do, lse, delta, causal=True),
+         lambda: hf.hb_bwd_dq_ref(*f32, lse, delta, causal=True)),
+        (hf.hb_bwd_dkv,
+         lambda: hf.hb_bwd_dkv(q, k, v, do, lse, delta, causal=True)[0],
+         lambda: hf.hb_bwd_dkv_ref(*f32, lse, delta, causal=True)[0]),
+        (hf.hb_bwd_dq,
+         lambda: hf.hb_bwd_dq_delta(q, k, v, do, out, lse, causal=True)[0],
+         lambda: hf.hb_bwd_dq_delta_ref(*f32, out.float(), lse,
+                                        causal=True)[0]),
     ]
-    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-         fa.flash_bwd_dkv.launches, hf.hb_fwd.launches)
-    for i, call in enumerate(calls):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-            fa.flash_bwd_dkv.launches, hf.hb_fwd.launches) == n
-    # kernels 7 and 8 take float32 or bfloat16 pools only
-    pool = torch.zeros(4, 16, 1, 128, dtype=torch.float16, device=cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
-        pa.paged_attend(torch.zeros(1, 1, 128, dtype=torch.float16,
-                                    device=cuda), pool, pool,
-                        torch.zeros(1, 4, dtype=torch.int32, device=cuda),
-                        torch.zeros(1, dtype=torch.int32, device=cuda))
+    for i, (counter, call, plain) in enumerate(calls):
+        n = counter.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert counter.launches == n + 1, i
+        assert got.dtype == torch.float16, i
+        assert _tile_rel_err(got, plain()) <= 1e-2, i
+    # kernels 7 and 8 take float16: pools, and q over int8 pools
+    q7, kp, vp, tab, pos = _inputs(5, 4, 4, 16, 2, 2, 128, [0, 9, 33, 63],
+                                   cuda)
+    q7, kp, vp = (t.to(torch.float16) for t in (q7, kp, vp))
+    n = pa.paged_attend.launches
+    got = pa.paged_attend(q7, kp, vp, tab, pos)
+    torch.cuda.synchronize()
+    assert pa.paged_attend.launches == n + 1 and got.dtype == torch.float16
+    want = pa.paged_attend_ref(q7, kp, vp, tab, pos)
+    assert _fp16_over(got, want) <= 1
+    (kq, ks), (vq, vs) = quantize_kv(kp.float()), quantize_kv(vp.float())
+    n = pa.paged_attend_int8.launches
+    got = pa.paged_attend_int8(q7, kq, vq, ks, vs, tab, pos)
+    torch.cuda.synchronize()
+    assert pa.paged_attend_int8.launches == n + 1
+    assert got.dtype == torch.float16
+    want = pa.paged_attend_int8_ref(q7, kq, vq, ks, vs, tab, pos)
+    assert _fp16_over(got, want) <= 1
 
 
 def test_backward_first_in_autograd_thread(cuda):

@@ -365,14 +365,16 @@ def test_fused_dq_delta_plain_matches_pallas(case):
 
 def test_backward_fuses_delta_by_device_and_dtype(monkeypatch):
     """``_HbFlashFn.backward`` takes kernel 5's fused entry on CUDA in
-    bfloat16 with ``d <= 128`` (key row and dropout included); on the CPU
-    it computes delta as torch ops, once per backward."""
+    bfloat16 and float16 with ``d <= 128`` (key row and dropout
+    included); on the CPU it computes delta as torch ops, once per
+    backward."""
     def on_card(dtype, d):  # what the routing reads of a CUDA tensor
         return types.SimpleNamespace(is_cuda=True, dtype=dtype,
                                      shape=(1, 8, 2, d))
 
     assert tfa._fusable(on_card(torch.bfloat16, 64))
     assert tfa._fusable(on_card(torch.bfloat16, 128))
+    assert tfa._fusable(on_card(torch.float16, 64))
     assert not tfa._fusable(on_card(torch.bfloat16, 136))
     assert not tfa._fusable(on_card(torch.float32, 64))
     assert not tfa._fusable(torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16))
@@ -513,3 +515,52 @@ def test_skipped_tiles_contribute_nothing(bk, causal, p):
     dq_c, delta_c = thf.hb_bwd_dq_delta(q, k, v, do, out, lse,
                                         kmask=_t(cut), **kw)
     assert torch.equal(dq, dq_c) and torch.equal(delta, delta_c)
+
+
+# -- float16 ------------------------------------------------------------------
+# The Pallas kernels follow their input dtype, as the plain versions do:
+# at float16 (O, dQ, dK, dV in float16; lse, delta and dmask fp32) both
+# compute in fp32 and round each output once, so the two stay within 2
+# float16 ulps of the larger magnitude (one rounding each, plus fp32
+# summation order); dmask as at fp32, lse (about 4.4 here) within 1e-4:
+# one of several runs of the first case read 4.4e-5 on a few rows, the
+# others 5e-7, with the same inputs.
+
+def _fp16_ulps(got, want):
+    """max |got - want| in float16 ulps of the larger of the two tensors'
+    largest magnitudes."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    top = max(np.abs(got).max(), np.abs(want).max())
+    return np.abs(got - want).max() / float(np.spacing(np.float16(top)))
+
+
+@pytest.mark.parametrize("case", CASES[:4], ids=IDS[:4])
+def test_fp16_plain_matches_pallas(case):
+    causal, window, h, h_kv, sq, sk, use_km, p = case
+    q, k, v, do = (x.astype(np.float16)
+                   for x in _inputs(2, h, h_kv, sq, sk))
+    km = _kmask(sk, use_km)
+    jout, jlse = _jax_fwd(q, k, v, km, causal, window, p)
+    assert jout.dtype == jnp.float16
+    kw = dict(causal=causal, window=window, kmask=_t(km),
+              seed=SEED if p else None, dropout=p)
+    out, lse = thf.hb_fwd(_t(q), _t(k), _t(v), **kw)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    assert _fp16_ulps(out.numpy(), jout) <= 2
+    np.testing.assert_allclose(lse.numpy(), _lse_bh(jlse), atol=1e-4,
+                               rtol=0)
+    jdq, jdk, jdv, jdm = jhf._hb_bwd_impl(
+        q, k, v, jout, jlse, do, causal, 1.0 / math.sqrt(D), True, BLOCK,
+        BLOCK, window, _seed(p), p,
+        kmask=None if km is None else jnp.asarray(km))
+    args = (_t(q), _t(k), _t(v), _t(do), _t(np.asarray(jout)),
+            _t(_lse_bh(jlse)))
+    dq, delta = thf.hb_bwd_dq_delta(*args, **kw)
+    dk, dv, *dm = thf.hb_bwd_dkv(*args[:4], args[5], delta, **kw)
+    for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk),
+                            ("dv", dv, jdv)):
+        assert got.dtype == torch.float16, name
+        assert np.asarray(want).dtype == np.float16, name
+        assert _fp16_ulps(got.numpy(), want) <= 2, name
+    if use_km:
+        _close_normalized(dm[0].numpy(), np.asarray(jdm), name="dmask")

@@ -217,8 +217,8 @@ def _bad_inputs(case):
         kp = kp.transpose(1, 2).contiguous().transpose(1, 2)
     elif case == "dtype_mismatch":
         q = q.to(torch.bfloat16)
-    elif case == "float16_pool":
-        q, kp, vp = q.half(), kp.half(), vp.half()
+    elif case == "float16_pool":  # a float16 pool beside a bfloat16 one
+        q, kp, vp = q.half(), kp.half(), vp.to(torch.bfloat16)
     elif case == "tables_int64":
         tab = tab.long()
     elif case == "pos_wrong_shape":
@@ -253,3 +253,64 @@ def test_paged_attend_int8_rejects(case):
         vq, vs = quantize_kv(vp)
     with pytest.raises(ValueError):
         pa.paged_attend_int8(q, kq, vq, ks, vs, tab, pos)
+
+
+# -- float16 ------------------------------------------------------------------
+# The Pallas kernels return q's dtype; at float16 both sides compute in
+# fp32 and round the output once: within 2 float16 ulps of the larger of
+# the two outputs' largest magnitudes.
+
+def _fp16_ulps(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    top = max(np.abs(got).max(), np.abs(want).max())
+    return np.abs(got - want).max() / float(np.spacing(np.float16(top)))
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_paged_ref_fp16_matches_pallas(window):
+    q, kp, vp, tab, pos = _inputs(seed=11, permute=True)
+    q, kp, vp = (x.astype(np.float16) for x in (q, kp, vp))
+    want = np.asarray(jpa.paged_attend(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tab),
+        jnp.asarray(pos), window=window, interpret=True))
+    assert want.dtype == np.float16
+    args = _t(q, kp, vp, tab, pos)
+    got = pa.paged_attend(*args, window=window)  # the CPU's plain route
+    assert got.dtype == torch.float16
+    assert _fp16_ulps(got.numpy(), want) <= 2
+    torch.testing.assert_close(
+        got, pa.paged_attend_ref(*args, window=window), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_paged_int8_ref_fp16_q_matches_pallas(window):
+    q, kp, vp, tab, pos = _inputs(seed=12)
+    q = q.astype(np.float16)
+    kq, ks = jax_quantize_kv(jnp.asarray(kp))
+    vq, vs = jax_quantize_kv(jnp.asarray(vp))
+    want = np.asarray(jpa.paged_attend_int8(
+        jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(tab), jnp.asarray(pos),
+        window=window, interpret=True))
+    assert want.dtype == np.float16
+    got = pa.paged_attend_int8(
+        *_t(q, np.asarray(kq), np.asarray(vq), np.asarray(ks),
+            np.asarray(vs), tab, pos), window=window)
+    assert got.dtype == torch.float16
+    assert _fp16_ulps(got.numpy(), want) <= 2
+
+
+@pytest.mark.parametrize("split", [B, 3 * B])
+def test_split_merge_model_fp16_matches_pallas(split):
+    """The split kernel's plain model over float16 pools: fp32 partials,
+    the merge's one rounding to float16."""
+    q, kp, vp, tab, pos = _inputs(seed=13, permute=True)
+    q, kp, vp = (x.astype(np.float16) for x in (q, kp, vp))
+    want = np.asarray(jpa.paged_attend(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tab),
+        jnp.asarray(pos), window=0, interpret=True))
+    q, kp, vp, tab, pos_t = _t(q, kp, vp, tab, pos)
+    m, l, acc = pa._split_partials_ref(q, kp, vp, tab, pos_t, window=0,
+                                       split=split)
+    out = pa._merge_splits_ref(m, l, acc, q.dtype)
+    assert out.dtype == torch.float16 and acc.dtype == torch.float32
+    assert _fp16_ulps(out.numpy(), want) <= 2
