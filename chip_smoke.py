@@ -254,8 +254,11 @@ only a run in which every phase passed prints the final line:
    the pipe with ring attention at pp 2 x sep 2 with the 8 experts
    (all on every rank, the gate global over sep), with Ulysses and with
    SP at pp 2 x mp 2 (no experts), and the MoE ``LlamaForCausalLM`` with
-   SP at mp 2, one step each, step 1 within 1e-3 of one card, each
-   rank's launches held to their formula;
+   SP at mp 2, and ``LlamaForCausalLM`` (no experts) with SP and
+   context parallelism together at mp 2 x sep 2 (a rank's sequence
+   chunk split further over mp; ring and Ulysses over sep on its 6
+   heads), one step each, step 1 within 1e-3 of one card, each rank's
+   launches held to their formula;
 22. the vision path (BASELINE configs 1 and 2): (a) ResNet-50 as
    ``benchmarks/baseline_configs.py`` builds it (1000 classes,
    ``amp.decorate`` O2 bf16, ``Momentum(0.1, 0.9, multi_precision=
@@ -297,7 +300,15 @@ only a run in which every phase passed prints the final line:
    within 6 standard errors, ``draws()`` counts each call; (c) two ranks
    sharing the card over gloo at mp 2 decode the 0.44B Llama (phase 4's
    widths) through ``generate()`` (16 greedy tokens) and
-   ``ServingEngine`` (two requests): their tokens must be one card's;
+   ``ServingEngine`` (two requests), each from its own shards (6 q and
+   6 kv heads a rank), in bf16 and with ``int8_weights`` + ``kv_int8``:
+   their tokens must be one card's (the int8 engine's up to a tie that
+   one card's logits hold within two bf16 ulps), each engine run must
+   launch kernel
+   7 (bf16) or 8 (int8) on every rank, once a layer a decode round, and
+   its phases must have run eagerly (gloo stages the collectives through
+   the host); readings: each rank's decode-weight and pool bytes, its
+   peak, and the launches;
    (d) ``BatchNorm1D`` at batch 1 in train mode inside a ``TrainStep``
    graph against the CPU: losses, parameters and running statistics.
    None of the eight kernels may launch in 23a, 23b or 23d.
@@ -765,14 +776,15 @@ def _library_call(q, pools, tables, pos, quant, layers):
     return call
 
 
-def _time_shape(quant, gen, layers, m, pos, dtype=torch.bfloat16):
+def _time_shape(quant, gen, layers, m, pos, dtype=torch.bfloat16, nkv=12):
     """One kernel at one shape, cycling through the per-layer pools as
     the engine's decode step does (so K/V are not served from L2 by a
     repeat): checked against its plain version, then timed beside the
     plain version, every SDPA backend and the bound. ``dtype``: q's and
-    the float pools'. Returns the row."""
+    the float pools'; ``nkv``: the q and kv heads (12 on one card, 6 on
+    a rank at mp 2). Returns the row."""
     name = "paged_attend_int8" if quant else "paged_attend"
-    err, pools, tables, q, pos_t = _check_case(12, 1, 0, quant, gen,
+    err, pools, tables, q, pos_t = _check_case(nkv, 1, 0, quant, gen,
                                                 layers=layers, m=m, pos=pos,
                                                 dtype=dtype)
     kern = pa.paged_attend_int8 if quant else pa.paged_attend
@@ -793,9 +805,9 @@ def _time_shape(quant, gen, layers, m, pos, dtype=torch.bfloat16):
     library_ms, lib_txt = _library(times, "sdpa")
     plain_ms = _time_plain(lambda: ref(q, *(p[0] for p in pools), tables,
                                        pos_t), iters=20)
-    bound_ms, bound_by = _bound(12, 1, 128, pos, 0,
+    bound_ms, bound_by = _bound(nkv, 1, 128, pos, 0,
                                 torch.int8 if quant else dtype, quant)
-    log(f"[kernels] {name} L={LANES} M={m} B={BLOCK} nkv=12 d=128 "
+    log(f"[kernels] {name} L={LANES} M={m} B={BLOCK} nkv={nkv} d=128 "
         f"{str(dtype)[6:]} pos={pos}: kernel_ms {_spread(times['kernel'])} (CUDA graphs of "
         f"{ITERS} calls; median, min-max of {REPS}) plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} (fastest SDPA "
@@ -824,8 +836,15 @@ def phase_kernels():
         # printed beside it
         row = _time_shape(quant, gen, layers, M, POS)
         long_row = _time_shape(quant, gen, layers, M_LONG, POS_LONG)
+        # a rank's shape at mp 2 (phase 23c: 6 q and 6 kv heads)
+        rank_row = _time_shape(quant, gen, layers, M, POS, nkv=6)
         row["max_abs_err"] = max(errs[name], row["max_abs_err"],
-                                 long_row["max_abs_err"])
+                                 long_row["max_abs_err"],
+                                 rank_row["max_abs_err"])
+        row["mp2_rank"] = rank_row
+        log(f"[kernels] {name} at a rank's 6 heads against half of the 12 "
+            f"heads' time: {rank_row['ms']:.4f} / {row['ms'] / 2:.4f} = "
+            f"{2 * rank_row['ms'] / row['ms']:.3f}")
         rows[name] = row
         log(f"[kernels] {name}: launches per decode round = {layers} "
             f"(layers), one per call (split and merge launches inside)")
@@ -5017,9 +5036,16 @@ HYBRID_FOUR = (
 )
 
 
+# 21c's legs of SP with context parallelism at mp 2 x sep 2, the
+# LlamaForCausalLM at the hybrid cell's depth without experts: (tag, mode)
+HYBRID_SP_CP = (("sp_ring_mp2_sep2", "ring"),
+                ("sp_ulysses_mp2_sep2", "ulysses"))
+
+
 def _rank_21_four(root, ids, labels):
     """One of four ranks sharing the card: 21b's ERNIE pipe at pp 2 x mp
-    2, then 21c's pipes (ring with the experts, Ulysses, SP)."""
+    2, then 21c's pipes (ring with the experts, Ulysses, SP), then 21c's
+    SP with ring and with Ulysses at mp 2 x sep 2 (one step each)."""
     from paddle_tpu_torch.distributed import fleet
 
     dist = _rank_setup(root)
@@ -5051,6 +5077,33 @@ def _rank_21_four(root, ids, labels):
             "counters": dict(pipe.counters),
             "layers": sorted(int(k) for k in pipe._modules)}
         del net, pipe, opt
+        _release()
+    for tag, mode in HYBRID_SP_CP:
+        fleet.init(is_collective=True, strategy=_strategy(mp=2, sep=2))
+        hcg = fleet.get_hybrid_communicate_group()
+        model = LlamaForCausalLM(LlamaConfig(**dict(
+            HYBRID, moe_num_experts=0, sequence_parallel=True,
+            context_parallel=True, context_parallel_mode=mode)),
+            device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+        net = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(_fleet_optimizer(model))
+        q = hcg.get_sep_parallel_rank()  # this rank's sequence chunk
+        x, y = (torch.from_numpy(a).cuda().chunk(2, 1)[q].contiguous()
+                for a in (ids, labels))
+        _reset_launches()
+        t0 = time.perf_counter()
+        loss = net(x, y)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        out[tag] = {
+            "losses": [float(loss.detach())],
+            "ms": [(time.perf_counter() - t0) * 1e3],
+            "launches": _launch_counts(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "seq": q, "mp": hcg.get_model_parallel_rank(),
+            "heads": model.llama.layers[0].self_attn._nh}
+        del net, model, opt, loss
         _release()
     _save_rank(root, out)
     dist.destroy_process_group()
@@ -5207,6 +5260,12 @@ def phase_hybrid(card, fault=False):
     with torch.no_grad():
         one_moe_llama = float(model(ids, labels))
     del model
+    model = LlamaForCausalLM(LlamaConfig(**dict(HYBRID, moe_num_experts=0)),
+                             device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    with torch.no_grad():
+        one_dense_llama = float(model(ids, labels))
+    del model
     model, opt, ebatch = _ernie_mp_model()
     _reset_launches()
     one_ernie, one_ernie_ms, one_ernie_leaves = _ernie_mp_steps(
@@ -5233,7 +5292,8 @@ def phase_hybrid(card, fault=False):
         f"b{TRAIN_BATCH} x s{TRAIN_SEQ} in {HYBRID_MICRO} microbatches) "
         f"losses {one_moe[0]}; without experts step 1 {one_dense[0]:.6f}; "
         f"the MoE LlamaForCausalLM (aux loss included) step 1 "
-        f"{one_moe_llama:.6f}; ERNIE at the 10B widths (trunk "
+        f"{one_moe_llama:.6f}, without experts {one_dense_llama:.6f}; "
+        f"ERNIE at the 10B widths (trunk "
         f"{ERNIE_MP['num_hidden_layers']}, attention dropout 0.1) losses "
         f"{one_ernie}, ms {[round(x, 1) for x in one_ernie_ms]}, peak "
         f"{one_ernie_peak:.3f} GiB, launches {one_ernie_launches}; its pipe "
@@ -5319,6 +5379,24 @@ def phase_hybrid(card, fault=False):
         else:
             want = lambda o: _each(FLASH_WRAPPERS, per * steps)
         _hold_launches(tag, rs, want)
+        launches[tag] = rs[0]["launches"]
+    for tag, mode in HYBRID_SP_CP:
+        rs = [dict(o[tag], rank=o["rank"]) for o in ranks]
+        for o in rs:
+            log(f"[hybrid] 21c {tag}: rank {o['rank']} of 4 (sep rank "
+                f"{o['seq']}, mp rank {o['mp']}; {o['heads']} heads, the "
+                f"residual stream [{TRAIN_BATCH}, {TRAIN_SEQ // 4}, "
+                f"{TRAIN['hidden_size']}]): loss {o['losses']}, launches "
+                f"{o['launches']}, peak {o['peak_gib']:.3f} GiB, ms a step "
+                f"{[round(x, 1) for x in o['ms']]} (host-staged)")
+        _hold_losses(f"21c {tag}", rs, [one_dense_llama], FLEET_CHECK_TOL)
+        if mode == "ring":  # the later block skipped on sep rank 0
+            want = lambda o: _each(FLASH_WRAPPERS, layers * (1 + o["seq"]))
+        else:
+            want = lambda o: _each(FLASH_WRAPPERS, layers)
+        _hold_launches(f"21c {tag}", rs, want)
+        if any(o["heads"] != 6 for o in rs):
+            raise AssertionError(f"21c {tag}: a rank does not hold 6 heads")
         launches[tag] = rs[0]["launches"]
     log(f"[hybrid] 21b/21c four ranks: spawn to join {wall:.1f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -5958,7 +6036,8 @@ def _random_on_card(ptt, cases, name):
 
 def _rank_23c(root, ids):
     """One of 23c's two ranks sharing the card: the 0.44B Llama at mp 2
-    from one card's weights, ``generate()`` and ``ServingEngine``."""
+    from one card's weights, ``generate()`` and ``ServingEngine`` on the
+    rank's shards, in bf16 and with int8 weights and pools."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import fleet
 
@@ -5975,50 +6054,168 @@ def _rank_23c(root, ids):
                              generator=torch.Generator("cuda").manual_seed(1))
     load_jax_weights(model, weights)
     del full, weights
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tokens = generate(model, ids, max_new_tokens=TENSOR_NEW, device="cuda")
-    eng = ServingEngine(model, ServingConfig(max_seq_len=MAX_SEQ_LEN),
-                        device="cuda")
-    reqs = [eng.submit(row, max_new_tokens=TENSOR_NEW) for row in ids]
-    done = eng.run()
-    torch.cuda.synchronize()
-    out = {"rank": dist.get_rank(), "generate": tokens.cpu().tolist(),
-           "engine": [np.asarray(done[r.request_id]).tolist() for r in reqs],
-           "seconds": time.perf_counter() - t0,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "shard": tuple(model.lm_head.weight.shape)}
+    out = {"rank": dist.get_rank(), "shard": tuple(model.lm_head.weight.shape),
+           "model_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+    for tag, int8 in (("bf16", False), ("int8", True)):
+        _reset_launches()
+        t0 = time.perf_counter()
+        tokens = generate(model, ids, max_new_tokens=TENSOR_NEW,
+                          int8_weights=int8, kv_int8=int8, device="cuda")
+        gen_launches = _launch_counts()
+        eng = ServingEngine(model, ServingConfig(
+            max_seq_len=MAX_SEQ_LEN, int8_weights=int8, kv_int8=int8),
+            device="cuda")
+        reqs = [eng.submit(row, max_new_tokens=TENSOR_NEW) for row in ids]
+        done = eng.run()
+        torch.cuda.synchronize()
+        st = eng.stats()
+        launches = _launch_counts()
+        out[tag] = {
+            "generate": tokens.cpu().tolist(),
+            "engine": [np.asarray(done[r.request_id]).tolist()
+                       for r in reqs],
+            "seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "weight_bytes": st["weight_bytes"],
+            "pool_bytes": st["kv_pool_bytes"],
+            "pool_shape": tuple(eng._kpool.shape),
+            "phase_modes": st["phase_modes"],
+            "graph_replays": st["graph_replays"],
+            "decode_steps": st["decode_steps"],
+            "verify_steps": st["verify_steps"],
+            "generate_launches": gen_launches, "launches": launches}
+        del eng
+        _release()
     with open(os.path.join(root, f"rank{dist.get_rank()}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
 
 
 TENSOR_NEW = 16
+# where a rank's int8 engine parts from one card's, one card's logits must
+# hold the two tokens within two bf16 ulps of the row's largest logit: a
+# tie that the fp32 partial sums over mp break otherwise (int8 pools
+# requantize a K/V element that moved by one bf16 ulp)
+TIE_REL = 2.0 ** -7
+
+
+def _tie_gap(model, prompt, toks, t, other):
+    """One card's int8 logits (``generate``'s arithmetic, the sequence fed
+    at once) after ``prompt`` and ``toks[:t]``: the gap between the
+    logits of ``toks[t]`` and ``other``, and the row's largest |logit|."""
+    from paddle_tpu_torch.models import generation as tgen
+
+    seq = torch.from_numpy(np.concatenate(
+        [prompt, np.asarray(toks[:t], np.int32)])[None]).cuda()
+    cfg = tgen._GenCfg(model.config)
+    cache = torch.zeros((FULL["num_hidden_layers"], 1, seq.shape[1],
+                         cfg.num_key_value_heads, cfg.head_dim),
+                        dtype=torch.bfloat16, device="cuda")
+    logits = tgen._forward(tgen._collect_params(model, int8_weights=True),
+                           seq, cache, cache.clone(), seq.shape[1], cfg,
+                           kv_int8=True)[0]
+    return (float(logits[toks[t]] - logits[other]),
+            float(logits.abs().max()))
+
+
+def _held_to_a_tie(model, ids, got, want):
+    """``got`` (a rank's int8 engine tokens) against one card's ``want``,
+    row by row: equal, or equal up to a first parting whose two tokens
+    one card's logits hold within ``TIE_REL`` of the row's largest logit.
+    Returns (held, [(row, position, gap, largest |logit|)])."""
+    ties = []
+    for row, (g, w) in enumerate(zip(got, want)):
+        t = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if t is None:
+            continue
+        gap, top = _tie_gap(model, ids[row], w, t, g[t])
+        ties.append((row, t, gap, top))
+    return all(abs(gap) <= TIE_REL * top for _, _, gap, top in ties), ties
 
 
 def _decode_at_mp2(card):
-    """23c (C.7): two ranks at mp 2 decode one card's tokens."""
+    """23c (C.7, A.6): two ranks at mp 2 decode one card's tokens from
+    their own shards, bf16 and int8; returns the ranks' launches."""
     ids = np.random.RandomState(3).randint(
         0, FULL["vocab_size"], (2, 8)).astype(np.int32)
     model = LlamaForCausalLM(LlamaConfig(**FULL), device="cuda",
                              generator=torch.Generator("cuda").manual_seed(0))
-    want = generate(model, ids, max_new_tokens=TENSOR_NEW,
-                    device="cuda").cpu().tolist()
-    del model
+    # one card's tokens, generate() and the engine (on graphs): the int8
+    # engine reads its pools through kernel 8, which dequantizes in fp32,
+    # generate(kv_int8=True) through bf16, so the two may part at a tie
+    want, want_engine = {}, {}
+    for tag, int8 in (("bf16", False), ("int8", True)):
+        want[tag] = generate(model, ids, max_new_tokens=TENSOR_NEW,
+                             int8_weights=int8, kv_int8=int8,
+                             device="cuda").cpu().tolist()
+        eng = ServingEngine(model, ServingConfig(
+            max_seq_len=MAX_SEQ_LEN, int8_weights=int8, kv_int8=int8),
+            device="cuda")
+        reqs = [eng.submit(row, max_new_tokens=TENSOR_NEW) for row in ids]
+        done = eng.run()
+        want_engine[tag] = [np.asarray(done[r.request_id]).tolist()
+                            for r in reqs]
+        del eng
     _release()
     ranks, _, wall = _spawn_ranks(_rank_23c, (ids,))
-    log(f"[tensor] 23c the 0.44B Llama at mp 2, two ranks sharing {card} "
-        f"over gloo (lm_head shard {ranks[0]['shard']}), 16 greedy tokens "
-        f"for 2 prompts of 8: one card {want}; "
-        + "; ".join(f"rank {r['rank']} generate equal "
-                    f"{r['generate'] == want}, engine equal "
-                    f"{r['engine'] == want}, peak {r['peak_gib']:.2f} GiB, "
-                    f"{r['seconds']:.1f} s" for r in ranks)
-        + f"; spawn to join {wall:.1f} s")
-    if any(r["generate"] != want or r["engine"] != want for r in ranks):
-        raise AssertionError("23c: a rank at mp 2 decoded other tokens "
-                             "than one card")
+    layers = FULL["num_hidden_layers"]
+    for tag, kernel in (("bf16", "paged_attend"),
+                        ("int8", "paged_attend_int8")):
+        log(f"[tensor] 23c the 0.44B Llama at mp 2 ({tag}"
+            + (", int8_weights + kv_int8" if tag == "int8" else "")
+            + f"), two ranks sharing {card} over gloo (lm_head shard "
+            f"{ranks[0]['shard']}), {TENSOR_NEW} greedy tokens for 2 "
+            f"prompts of 8: one card generate {want[tag]}, engine "
+            f"{want_engine[tag]} (equal {want[tag] == want_engine[tag]}); "
+            + "; ".join(
+                f"rank {r['rank']} generate equal one card's "
+                f"{r[tag]['generate'] == want[tag]}, engine equal one "
+                f"card's {r[tag]['engine'] == want_engine[tag]} "
+                f"({r[tag]['engine']}), decode weights "
+                f"{r[tag]['weight_bytes'] / 1e9:.4f} GB (the model's own "
+                f"shards {r['model_bytes'] / 1e9:.4f} GB), pool "
+                f"{r[tag]['pool_shape']} {r[tag]['pool_bytes'] / 1e9:.4f} "
+                f"GB, peak {r[tag]['peak_gib']:.3f} GiB, engine phases "
+                f"{r[tag]['phase_modes']} ({r[tag]['graph_replays']} graph "
+                f"replays), {r[tag]['decode_steps']} decode and "
+                f"{r[tag]['verify_steps']} verify rounds, launches: "
+                f"generate {r[tag]['generate_launches'][kernel]}, with the "
+                f"engine {r[tag]['launches']}, {r[tag]['seconds']:.1f} s"
+                for r in ranks))
+        for r in ranks:
+            got = r[tag]
+            held, ties = (got["engine"] == want_engine[tag], [])
+            if tag == "int8" and not held:
+                held, ties = _held_to_a_tie(model, ids, got["engine"],
+                                            want_engine[tag])
+                log(f"[tensor] 23c int8: rank {r['rank']}'s engine parts "
+                    f"from one card's at (row, position) "
+                    + ", ".join(f"({row}, {t}): one card's logits hold the "
+                                f"two tokens {gap:.4e} apart, the row's "
+                                f"largest |logit| {top:.4f} (a tie within "
+                                f"{TIE_REL * top:.4e})"
+                                for row, t, gap, top in ties))
+            if got["generate"] != want[tag] or not held:
+                raise AssertionError(f"23c {tag}: rank {r['rank']} at mp 2 "
+                                     f"decoded other tokens than one card")
+            exp = {kernel: layers * got["decode_steps"]}
+            if any(got["launches"][n] != exp.get(n, 0)
+                   for n in got["launches"]) or not got["decode_steps"]:
+                raise AssertionError(f"23c {tag}: rank {r['rank']} launched "
+                                     f"{got['launches']}, expected {exp}")
+            if got["phase_modes"] != {ph: "eager" for ph in
+                                      got["phase_modes"]} \
+                    or got["graph_replays"]:
+                raise AssertionError(f"23c {tag}: phases "
+                                     f"{got['phase_modes']} on gloo")
+            if got["pool_shape"][3] != FULL["num_attention_heads"] // 2:
+                raise AssertionError(f"23c {tag}: pool {got['pool_shape']} "
+                                     f"is not a rank's 6 kv heads")
+    del model
+    _release()
+    log(f"[tensor] 23c spawn to join {wall:.1f} s")
+    return {tag: ranks[0][tag]["launches"] for tag in ("bf16", "int8")}
 
 
 class _BnNet(torch.nn.Module):
@@ -6098,9 +6295,9 @@ def phase_tensor_ops(card):
         f"(none lies on these paths): {launched}")
     if any(launched.values()):
         raise AssertionError("the tensor ops launched an attention kernel")
-    _decode_at_mp2(card)
+    decode = _decode_at_mp2(card)
     log(f"[tensor] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"held": held, "worst": worst}
+    return {"held": held, "worst": worst, "launches_23c": decode}
 
 
 # -- phase 24: the nn.functional surface --------------------------------------
@@ -7453,6 +7650,8 @@ def main():
                     launches_phase24=on_functional[k],
                     launches_phase26=namespace["launches"].get(k, 0),
                     launches_phase15_fp16=fp16["launches"].get(k, 0),
+                    launches_phase23c=sum(ops["launches_23c"][t].get(k, 0)
+                                          for t in ("bf16", "int8")),
                     fp16=_json_row(fp16["rows"].get(k)))
                for k in replaces]
     # the tile mode of kernels 1-3 (a mode of the TPU's kernels 1-3 for
@@ -7495,7 +7694,8 @@ def main():
                     for fmt, r in vision.items()))
     log(f"[done] the tensor op surface (phase 23a): {ops['held']} rows held "
         f"on the card against the CPU, worst error by module "
-        f"{ops['worst']}")
+        f"{ops['worst']}; the sharded decode's launches on rank 0 (23c): "
+        f"{ops['launches_23c']}")
     log(f"[done] the nn.functional surface (phase 24a): "
         f"{functional['held']} rows held on the card against the CPU, "
         f"worst error by module {functional['worst']}; 24c launches "

@@ -38,8 +38,10 @@ bytes the reference's token all-to-all carries; ``comm_bytes`` counts
 them.
 
 Under sequence or context parallelism (``sequence_axis`` ``"mp"`` or
-``"sep"``) a rank's input is its column chunk ``[r * S / n, (r + 1) * S /
-n)`` of every row of its rows, not a contiguous run of the global token
+``"sep"``, or ``("sep", "mp")`` under both, a sep chunk split further
+over mp: sequence rank ``sep_rank * mp + mp_rank``) a rank's input is
+its column chunk ``[r * S / n, (r + 1) * S / n)`` of every row of its
+rows, not a contiguous run of the global token
 order (row by row) that the gate counts in. A token's slot then counts
 the tokens of its expert in every rank's earlier rows, in the earlier
 sequence ranks' chunks of its own row, and before it in its chunk: each
@@ -48,13 +50,13 @@ the sequence group, then the per-rank totals over dp as before. The
 capacity and the aux loss's means count the global tokens (the
 probabilities summed over dp and the sequence axis together). Each
 sequence rank runs its experts on its own tokens' slots, so their
-gradients, and the gate's, are partial over the sequence axis. Under SP
+gradients, and the gate's, are partial over the sequence axes. Under SP
 (``"mp"``) the layer sums all three over mp in the backward. Under
 context parallelism ``"sep"`` is one of the model's batch axes, over
 which ``fleet.distributed_model`` (and ``PipelineParallel``) sums every
 gradient but those of parameters laid out over a batch axis: the layer
 sums only the experts' over sep, and only when they are laid out over
-dp (dp > 1).
+dp (dp > 1). Under both, the sums over each axis follow the same rules.
 
 :func:`moe_dense` is the plain version: the reference's one-hot
 tensors and einsums in PyTorch, on one rank.
@@ -84,6 +86,24 @@ def capacity(top_k, tokens, experts, capacity_factor):
     """Slots per expert: ``ceil(top_k * T / E * capacity_factor)``, T the
     global token count (the reference's expression)."""
     return int(math.ceil(top_k * tokens / experts * capacity_factor))
+
+
+def _axes_group(axes):
+    """(degree, this rank's place, group) over the mesh axes ``axes``, as
+    ``_axis_group`` gives it for one axis; (1, 0, None) for none or at
+    degree 1."""
+    if not axes:
+        return 1, 0, None
+    if len(axes) == 1:
+        return _axis_group(axes[0])
+    import torch.distributed as dist
+
+    from .....distributed import env as env_mod
+
+    pair = env_mod.ensure_env().group(axes)
+    if len(pair[0]) == 1:
+        return 1, 0, None
+    return len(pair[0]), pair[0].index(dist.get_rank()), pair
 
 
 def _check_top_k(top_k):
@@ -125,21 +145,21 @@ class MoELayer(nn.Module):
         self.gate_type, self.act = gate, activation
         self.expert_axis = expert_axis
         self._n, self._rank, self._group = _axis_group("dp")
-        if sequence_axis not in (None, "mp", "sep"):
-            raise ValueError(f"sequence_axis must be None, 'mp' or 'sep', "
-                             f"got {sequence_axis!r}")
-        self._seq_n, self._seq_rank, self._seq_group = \
-            _axis_group(sequence_axis) if sequence_axis else (1, 0, None)
-        self._sum_gate = sequence_axis == "mp"
-        self._sum_experts = self._seq_n > 1 and (
-            sequence_axis == "mp" or self._n > 1)
-        # the group the tokens are split over: dp and the sequence axis
+        seq = (sequence_axis,) if isinstance(sequence_axis, str) \
+            else tuple(sequence_axis or ())
+        if seq not in ((), ("mp",), ("sep",), ("sep", "mp")):
+            raise ValueError(f"sequence_axis must be None, 'mp', 'sep' or "
+                             f"('sep', 'mp'), got {sequence_axis!r}")
+        self._seq_n, self._seq_rank, self._seq_group = _axes_group(seq)
+        # the gate's gradient is partial over mp (sep is a batch axis);
+        # the experts' over mp, and over sep too when laid out over dp
+        self._gate_group = _axes_group(("mp",) if "mp" in seq else ())[2]
+        self._expert_group = _axes_group(tuple(
+            a for a in seq if a == "mp" or self._n > 1))[2]
+        # the group the tokens are split over: dp and the sequence axes
         self._token_group = self._group
         if self._seq_n > 1:
-            from .....distributed import env as env_mod
-
-            self._token_group = env_mod.ensure_env().group(
-                ("dp", sequence_axis))
+            self._token_group = _axes_group(("dp",) + seq)[2]
         if num_experts % self._n:
             raise ValueError(f"num_experts = {num_experts} does not split "
                              f"evenly over dp = {self._n}")
@@ -216,9 +236,7 @@ class MoELayer(nn.Module):
         ``E * cap`` where the token is not dispatched); and every rank's
         count of first choices by expert ``[E]``."""
         E, k = self.num_experts, self.top_k
-        gate_weight = self.gate_weight
-        if self._sum_gate:
-            gate_weight = _comm.copy_to(gate_weight, self._seq_group)
+        gate_weight = _comm.copy_to(self.gate_weight, self._gate_group)
         logits = torch.matmul(tokens, gate_weight.to(tokens.dtype))
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         experts = torch.arange(E, device=tokens.device)
@@ -266,10 +284,9 @@ class MoELayer(nn.Module):
         if n > 1:
             self.comm_bytes += buf.numel() * buf.element_size()
             buf = _comm.reduce_scatter(buf, 0, self._group)
-        w_in, w_out = self.w_in, self.w_out
-        if self._sum_experts:  # each sequence rank ran its own tokens' slots
-            w_in = _comm.copy_to(w_in, self._seq_group)
-            w_out = _comm.copy_to(w_out, self._seq_group)
+        # each sequence rank ran its own tokens' slots
+        w_in = _comm.copy_to(self.w_in, self._expert_group)
+        w_out = _comm.copy_to(self.w_out, self._expert_group)
         h = _ACT[self.act](torch.bmm(buf, w_in.to(dt)))
         out = torch.bmm(h, w_out.to(dt))
         if n > 1:

@@ -183,9 +183,10 @@ class _Parallel:
     and sep, and over sharding as well under sharding > 1
     (``batch_group``; None: dp's). Under MoE, ``seq_axis`` names the
     axis the MoE layers' input sequence is split over (mp under SP, sep
-    under context parallelism; None); the groups the layers need are
-    made here, where every rank runs in one order (a pipeline stage
-    builds only its own layers)."""
+    under context parallelism, ``("sep", "mp")`` under both: SP splits
+    a rank's sequence chunk further over mp; None); the groups the
+    layers need are made here, where every rank runs in one order (a
+    pipeline stage builds only its own layers)."""
 
     def __init__(self, config):
         self.n, self.rank, self.group = _axis_group("mp")
@@ -203,16 +204,15 @@ class _Parallel:
             raise NotImplementedError(
                 "MoE with sharding_degree > 1 is not ported (ROADMAP A.6): "
                 "the experts and their gate lie over dp alone")
-        if self.sp and self.cp_n > 1:
-            raise NotImplementedError(
-                "sequence_parallel together with context_parallel over "
-                "sep > 1 is not ported (ROADMAP A.6)")
         self.seq_axis = None
         if moe and (self.sp or self.cp_n > 1):
             from ..distributed import env as env_mod
 
-            self.seq_axis = "mp" if self.sp else "sep"
-            env_mod.ensure_env().group(("dp", self.seq_axis))
+            axes = ("sep",) * (self.cp_n > 1) + ("mp",) * self.sp
+            self.seq_axis = axes if len(axes) > 1 else axes[0]
+            if len(axes) > 1:
+                env_mod.ensure_env().group(axes)
+            env_mod.ensure_env().group(("dp",) + axes)
 
     def leaf(self, kind, *args, **kw):
         """A column (``"col"``) or row (``"row"``) parallel linear, the
@@ -452,7 +452,13 @@ class LlamaForCausalLM(nn.Module):
     to the query heads, attention is ring or Ulysses over ``sep``
     (``context_parallel_mode``), and the loss divides by the count over
     dp and sep (``fleet.distributed_model`` then sums the gradients over
-    both). At sep 1 it is the plain model, op for op.
+    both). At sep 1 it is the plain model, op for op. With
+    ``sequence_parallel`` as well, SP splits the rank's chunk further
+    over mp (the residual stream ``[b, s / (sep mp), h]``): the
+    column-parallel projections gather the chunk over mp, ring or
+    Ulysses runs over sep on the rank's ``nh / mp`` heads, and the
+    row-parallel ones reduce-scatter back over mp; under MoE the gate
+    counts over the sequence split ``(sep, mp)``.
 
     With ``moe_num_experts > 1`` each layer's MLP is a ``MoELayer``
     (SiLU experts, the config's ``moe_top_k``; under dp > 1 each rank

@@ -62,6 +62,14 @@
 // H100, tools/torch_paged_sweep.py: splits of 16 KB read 10-33 % slower
 // at both of chip_smoke.py's shapes; 64 and 128 KB within 6 % of 32 KB.)
 //
+// A rank of a tensor-parallel decode passes its own q heads (nh of them)
+// and a pool of the kv heads they read: local q head i reads pool head
+// (i + qoff) / g, g the model's q heads per kv head. With qoff 0 and
+// nh = nkv * g that is one card's layout; otherwise (mp does not divide
+// the kv heads) a block's kGT heads of a group may lie partly outside
+// the rank's range: those are neither loaded nor written, and a block
+// with none in range returns at once.
+//
 // Left to later work: TMA (one bulk copy per pool block instead of
 // 16-byte copies), a ring that overlaps one step's copies with the last
 // step's arithmetic for spans longer than one step, and a persistent
@@ -93,7 +101,8 @@ struct Params {
   void* out;            // [L, nh, d]
   float* part_acc;      // [L, nh, n_split, d] fp32 partial accumulators
   float* part_ml;       // [L, nh, n_split, 2] fp32 partial max and sum
-  int L, nkv, g, d, B, M, window;
+  int L, nh, nkv, g, d, B, M, window;
+  int qoff;             // q head i reads kv head (i + qoff) / g
   int split, n_split;   // slots per split (a multiple of B), splits
   int chunks;           // head chunks per kv head: ceil(g / kGT)
   int group, nvec;      // lanes per pool row (a power of two), 16-byte
@@ -260,7 +269,11 @@ paged_split_kernel(const Params P) {
   const int rg = wl / G;   // row group in the warp
   const int rpw = 32 / G;  // rows a warp reads per load
   const int B = P.B, d = P.d, nkv = P.nkv, g = P.g;
-  const int nh = nkv * g;
+  const int nh = P.nh;
+  // the local q head of this block's head 0: kh * g + h0 - qoff; heads
+  // outside [0, nh) belong to another rank
+  const int qh0 = kh * g + h0 - P.qoff;
+  if (qh0 + kGT <= 0 || qh0 >= nh) return;  // none of this rank's
 
   // pos, the split's table entries and q do not depend on each other:
   // their loads go out together
@@ -269,19 +282,20 @@ paged_split_kernel(const Params P) {
   for (int j = tid; j < P.split / B && jb + j < P.M; j += kThreads)
     sTab[j] = P.tables[(size_t)ln * P.M + jb + j];
   // this lane's columns of the block's query heads, fp32
-  const TQ* q = static_cast<const TQ*>(P.q) +
-                ((size_t)ln * nh + (size_t)kh * g) * d;
+  const TQ* q = static_cast<const TQ*>(P.q) + (size_t)ln * nh * d;
   float qr[kGT][kC];
 #pragma unroll
   for (int h = 0; h < kGT; ++h)
 #pragma unroll
     for (int v = 0; v < kVPL; ++v) {
       const int vi = gl + v * G;
-      const bool live = h0 + h < g && vi < P.nvec;
+      const int qh = qh0 + h;
+      const bool live =
+          h0 + h < g && qh >= 0 && qh < nh && vi < P.nvec;
 #pragma unroll
       for (int e = 0; e < kE; ++e)
         qr[h][v * kE + e] =
-            live ? to_f32(q[(size_t)(h0 + h) * d + vi * kE + e]) : 0.f;
+            live ? to_f32(q[(size_t)qh * d + vi * kE + e]) : 0.f;
     }
   int lo, hi;
   visible_range(P, p, &lo, &hi);
@@ -450,7 +464,8 @@ paged_split_kernel(const Params P) {
   for (int i = tid; i < kGT * d; i += kThreads) {
     const int h = i / d;
     const int c = i % d;
-    if (h0 + h >= g) break;
+    if (h0 + h >= g || qh0 + h >= nh) break;
+    if (qh0 + h < 0) continue;  // another rank's head
     float mb = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, sM[w * kGT + h]);
@@ -461,8 +476,7 @@ paged_split_kernel(const Params P) {
       a += f * sAcc[(w * kGT + h) * d + c];
       lb += f * sL[w * kGT + h];
     }
-    const size_t at =
-        ((size_t)ln * nh + (size_t)kh * g + h0 + h) * P.n_split + split;
+    const size_t at = ((size_t)ln * nh + qh0 + h) * P.n_split + split;
     P.part_acc[at * d + c] = a;
     if (c == 0) {
       P.part_ml[2 * at] = mb;
@@ -480,7 +494,7 @@ paged_merge_kernel(const Params P) {
   float* sW = reinterpret_cast<float*>(smem4);  // [n] max, then weight
   float* sL = sW + P.n_split;                    // [n] sum
   const int tid = threadIdx.x;
-  const size_t row = (size_t)blockIdx.x * P.nkv * P.g + blockIdx.y;
+  const size_t row = (size_t)blockIdx.x * P.nh + blockIdx.y;
   // the splits the split kernel wrote: those that hold a visible slot
   int lo, hi, i0 = 0, n = 0;
   visible_range(P, P.pos[blockIdx.x], &lo, &hi);
@@ -539,7 +553,7 @@ cudaError_t run(const Params& P, void* stream) {
   if (err != cudaSuccess) return err;
   // the merge as a programmatic dependent launch of the split grid
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(P.L, P.nkv * P.g);
+  cfg.gridDim = dim3(P.L, P.nh);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 2 * sizeof(float) * P.n_split;
   cfg.stream = s;
@@ -593,8 +607,9 @@ cudaError_t launch(Params P, void* stream) {
 Params make_params(const void* q, const void* kpool, const void* vpool,
                    const void* kscale, const void* vscale,
                    const void* tables, const void* pos, void* out,
-                   void* work, int L, int nkv, int g, int d, int B, int M,
-                   int window, int split, int n_split, float scale) {
+                   void* work, int L, int nh, int nkv, int g, int qoff,
+                   int d, int B, int M, int window, int split, int n_split,
+                   float scale) {
   Params P{};
   P.q = q;
   P.kpool = kpool;
@@ -606,10 +621,12 @@ Params make_params(const void* q, const void* kpool, const void* vpool,
   P.out = out;
   // work: [L, nh, n_split, d] accumulators, then [L, nh, n_split, 2]
   P.part_acc = static_cast<float*>(work);
-  P.part_ml = P.part_acc + (size_t)L * nkv * g * n_split * d;
+  P.part_ml = P.part_acc + (size_t)L * nh * n_split * d;
   P.L = L;
+  P.nh = nh;
   P.nkv = nkv;
   P.g = g;
+  P.qoff = qoff;
   P.d = d;
   P.B = B;
   P.M = M;
@@ -627,16 +644,19 @@ enum { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 // q and the pools share one dtype: float32, bfloat16 or float16 (the
 // 16-bit pools 8 elements a 16-byte load). work holds
-// L * nh * n_split * (d + 2) floats.
+// L * nh * n_split * (d + 2) floats. q holds nh heads; head i reads kv
+// head (i + qoff) / g of the pools' nkv.
 extern "C" int pt_paged_attend(const void* q, const void* kpool,
                                const void* vpool, const void* tables,
                                const void* pos, void* out, void* work, int L,
-                               int nkv, int g, int d, int B, int M,
-                               int window, int split, int n_split,
-                               float scale, int dtype, void* stream) {
+                               int nh, int nkv, int g, int qoff, int d,
+                               int B, int M, int window, int split,
+                               int n_split, float scale, int dtype,
+                               void* stream) {
   const Params P =
       make_params(q, kpool, vpool, nullptr, nullptr, tables, pos, out, work,
-                  L, nkv, g, d, B, M, window, split, n_split, scale);
+                  L, nh, nkv, g, qoff, d, B, M, window, split, n_split,
+                  scale);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16, __nv_bfloat16, false>(P, stream);
   if (dtype == kFloat16) return launch<__half, __half, false>(P, stream);
@@ -649,13 +669,13 @@ extern "C" int pt_paged_attend_int8(const void* q, const void* kpool,
                                     const void* vpool, const void* kscale,
                                     const void* vscale, const void* tables,
                                     const void* pos, void* out, void* work,
-                                    int L, int nkv, int g, int d, int B,
-                                    int M, int window, int split,
-                                    int n_split, float scale, int q_dtype,
-                                    void* stream) {
+                                    int L, int nh, int nkv, int g, int qoff,
+                                    int d, int B, int M, int window,
+                                    int split, int n_split, float scale,
+                                    int q_dtype, void* stream) {
   const Params P =
       make_params(q, kpool, vpool, kscale, vscale, tables, pos, out, work, L,
-                  nkv, g, d, B, M, window, split, n_split, scale);
+                  nh, nkv, g, qoff, d, B, M, window, split, n_split, scale);
   if (q_dtype == kBFloat16)
     return launch<__nv_bfloat16, int8_t, true>(P, stream);
   if (q_dtype == kFloat16) return launch<__half, int8_t, true>(P, stream);

@@ -35,6 +35,17 @@ call's shapes and the card's SM count only. ``_split_partials_ref`` and
 tests call them. Left to later work: TMA copies, a ring across the
 steps of long spans, and a persistent grid that skips dead splits.
 
+A rank of a tensor-parallel decode runs them on its own heads: its q
+heads ``[L, nh_local, d]`` over a pool of the kv heads they read.
+Local q head ``i`` reads pool head ``(i + head_offset) // kv_group``
+(``kv_group`` the model's q heads per kv head): when mp divides the kv
+heads the offset is 0 and the groups are whole, as on one card; when
+it does not, a rank's q heads may start inside a group (12 q over 3 kv
+heads at mp 2: rank 1's six read kv heads 1, 1, 2, 2, 2, 2, its pool
+holds kv heads 1 and 2, offset 2), and the split kernel's blocks skip
+the heads that lie outside the rank's range. The pool then holds only
+the kv heads the rank reads, not K and V repeated per q head.
+
 Wrapper rules: CPU tensors go to the plain version
 (``paged_attend_ref``/``paged_attend_int8_ref``); CUDA tensors launch
 the kernels or raise — there is no fallback. Both paths first check
@@ -100,7 +111,8 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(q, kpool, vpool, kscale, vscale, tables, pos, window):
+def _check(q, kpool, vpool, kscale, vscale, tables, pos, window, kv_group,
+           head_offset):
     """Raise ``ValueError`` on anything the kernel does not take."""
     quant = kscale is not None
     named = [("q", q), ("kpool", kpool), ("vpool", vpool),
@@ -127,9 +139,16 @@ def _check(q, kpool, vpool, kscale, vscale, tables, pos, window):
     if d % 8 or d > 256:
         raise ValueError(f"head_dim must be a multiple of 8 and <= 256, "
                          f"got {d}")
-    if nkv < 1 or nh % nkv:
-        raise ValueError(f"num_heads {nh} is not a multiple of kv heads "
-                         f"{nkv}")
+    if kv_group is None:
+        if nkv < 1 or nh % nkv:
+            raise ValueError(f"num_heads {nh} is not a multiple of kv "
+                             f"heads {nkv}")
+    elif not (isinstance(kv_group, int) and isinstance(head_offset, int)
+              and kv_group >= 1 and 0 <= head_offset < kv_group
+              and (nh - 1 + head_offset) // kv_group < nkv):
+        raise ValueError(f"kv_group {kv_group!r} and head_offset "
+                         f"{head_offset!r} do not map {nh} q heads onto "
+                         f"{nkv} kv heads")
     if tables.dim() != 2 or tables.shape[0] != L \
             or tables.dtype != torch.int32:
         raise ValueError(f"tables must be int32 [L={L}, M]")
@@ -159,10 +178,30 @@ def _check(q, kpool, vpool, kscale, vscale, tables, pos, window):
         raise ValueError("kpool and vpool must be 16-byte aligned")
 
 
-def _attend_gathered(q, kc, vc, pos, window):
+def _heads(nh, nkv, kv_group, head_offset):
+    """(kv_group, head_offset) with their defaults: whole groups of
+    ``nh // nkv``."""
+    return (nh // nkv, 0) if kv_group is None else (kv_group, head_offset)
+
+
+def _per_head(kc, nh, kv_group, head_offset):
+    """K or V ``[..., S, nkv, d]`` as ``nh`` q heads read it: as it is
+    when the q heads are whole groups of its kv heads, else one kv row
+    per q head (``(i + head_offset) // kv_group``)."""
+    if head_offset == 0 and nh == kc.shape[2] * kv_group:
+        return kc
+    idx = (torch.arange(nh, device=kc.device) + head_offset) // kv_group
+    return kc.index_select(2, idx)
+
+
+def _attend_gathered(q, kc, vc, pos, window, kv_group=None, head_offset=0):
     """Plain fp32 attention of q ``[L, nh, d]`` over gathered fp32
-    ``[L, S, nkv, d]`` K/V with the kernel's masking; cast to q.dtype."""
+    ``[L, S, nkv, d]`` K/V with the kernel's masking and head map; cast
+    to q.dtype."""
     L, nh, d = q.shape
+    kv_group, head_offset = _heads(nh, kc.shape[2], kv_group, head_offset)
+    kc = _per_head(kc, nh, kv_group, head_offset)
+    vc = _per_head(vc, nh, kv_group, head_offset)
     S, nkv = kc.shape[1], kc.shape[2]
     qg = q.to(torch.float32).reshape(L, nkv, nh // nkv, d)
     s = torch.einsum("lkgd,lskd->lkgs", qg, kc) * (1.0 / math.sqrt(d))
@@ -177,7 +216,8 @@ def _attend_gathered(q, kc, vc, pos, window):
     return out.reshape(L, nh, d).to(q.dtype)
 
 
-def paged_attend_ref(q, kpool, vpool, tables, pos, *, window=0):
+def paged_attend_ref(q, kpool, vpool, tables, pos, *, window=0,
+                     kv_group=None, head_offset=0):
     """Plain version of :func:`paged_attend`: gather every table slot,
     then a non-streaming fp32 softmax attention."""
     L, _, d = q.shape
@@ -185,11 +225,11 @@ def paged_attend_ref(q, kpool, vpool, tables, pos, *, window=0):
     idx = tables.long()
     kc = kpool[idx].reshape(L, -1, nkv, d).to(torch.float32)
     vc = vpool[idx].reshape(L, -1, nkv, d).to(torch.float32)
-    return _attend_gathered(q, kc, vc, pos, window)
+    return _attend_gathered(q, kc, vc, pos, window, kv_group, head_offset)
 
 
 def paged_attend_int8_ref(q, kpool, vpool, kscale, vscale, tables, pos, *,
-                          window=0):
+                          window=0, kv_group=None, head_offset=0):
     """Plain version of :func:`paged_attend_int8`: gather, dequantize as
     ``int8.f32 * scale`` in fp32 (no cast to the model dtype, like the
     TPU kernel), then the same attention."""
@@ -200,26 +240,33 @@ def paged_attend_int8_ref(q, kpool, vpool, kscale, vscale, tables, pos, *,
         * kscale[idx].reshape(L, -1, nkv, 1)
     vc = vpool[idx].reshape(L, -1, nkv, d).to(torch.float32) \
         * vscale[idx].reshape(L, -1, nkv, 1)
-    return _attend_gathered(q, kc, vc, pos, window)
+    return _attend_gathered(q, kc, vc, pos, window, kv_group, head_offset)
 
 
 def _split_partials_ref(q, kpool, vpool, tables, pos, *, window, split,
-                        kscale=None, vscale=None):
+                        kscale=None, vscale=None, kv_group=None,
+                        head_offset=0):
     """Plain model of the split kernel: per split of ``split`` slots of
     each lane's gathered table, each (lane, head)'s max ``m``, sum ``l``
     and accumulator ``acc`` of its visible slots in fp32, ``[L, nh,
     n_split]`` twice and ``[L, nh, n_split, d]``. A split with no visible
     slot holds ``m = NEG_INF``, ``l = 0``, ``acc = 0``. With ``kscale``
-    the pools are int8, dequantized as in ``paged_attend_int8_ref``."""
+    the pools are int8, dequantized as in ``paged_attend_int8_ref``.
+    ``kv_group`` and ``head_offset`` map the q heads onto the kv heads
+    as the kernel does."""
     L, nh, d = q.shape
     nkv = kpool.shape[2]
-    g = nh // nkv
     idx = tables.long()
     kc = kpool[idx].reshape(L, -1, nkv, d).to(torch.float32)
     vc = vpool[idx].reshape(L, -1, nkv, d).to(torch.float32)
     if kscale is not None:
         kc = kc * kscale[idx].reshape(L, -1, nkv, 1)
         vc = vc * vscale[idx].reshape(L, -1, nkv, 1)
+    kv_group, head_offset = _heads(nh, nkv, kv_group, head_offset)
+    kc = _per_head(kc, nh, kv_group, head_offset)
+    vc = _per_head(vc, nh, kv_group, head_offset)
+    nkv = kc.shape[2]
+    g = nh // nkv
     S = kc.shape[1]
     n = -(-S // split)
     pad = n * split - S
@@ -264,27 +311,29 @@ _F = ctypes.c_float
 @functools.cache
 def _lib():
     lib = _build.library("paged_attention")
-    lib.pt_paged_attend.argtypes = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
+    lib.pt_paged_attend.argtypes = [_P] * 7 + [_I] * 11 + [_F, _I, _P]
     lib.pt_paged_attend.restype = _I
-    lib.pt_paged_attend_int8.argtypes = [_P] * 9 + [_I] * 9 + [_F, _I, _P]
+    lib.pt_paged_attend_int8.argtypes = [_P] * 9 + [_I] * 11 + [_F, _I, _P]
     lib.pt_paged_attend_int8.restype = _I
     return lib
 
 
-def _launch(entry, q, pools, tables, pos, window, stream, n_sm):
+def _launch(entry, q, pools, tables, pos, window, heads, stream, n_sm):
     """Run the C entry point ``entry`` on ``q``, ``pools`` (kpool, vpool
-    and, for int8, kscale, vscale), ``tables`` and ``pos``: choose the
+    and, for int8, kscale, vscale), ``tables`` and ``pos``, the q heads
+    mapped by ``heads`` (``kv_group``, ``head_offset``): choose the
     split, allocate the output and the fp32 workspace of the partials.
     Returns (the entry's error code, out)."""
     L, nh, d = q.shape
     B, nkv = pools[0].shape[1], pools[0].shape[2]
+    g, off = _heads(nh, nkv, *heads)
     M = tables.shape[1]
     elt = pools[0].element_size()
     split = _split_slots(L, nkv, M, B, d * elt, n_sm)
     n_split = -(-M * B // split)
     # the merge launch takes each split's max and sum, within the 48 KB
     # a block gets without asking
-    if _smem_bytes(nh // nkv, d, B, split, elt) > _MAX_SMEM \
+    if _smem_bytes(g, d, B, split, elt) > _MAX_SMEM \
             or 8 * n_split > 48 * 1024:
         raise ValueError(f"block_size {B} x head_dim {d} x {M} blocks needs "
                          f"more shared memory than a block has")
@@ -293,7 +342,7 @@ def _launch(entry, q, pools, tables, pos, window, stream, n_sm):
                        device=q.device)
     err = entry(q.data_ptr(), *(t.data_ptr() for t in pools),
                 tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                work.data_ptr(), L, nkv, nh // nkv, d, B, M, window, split,
+                work.data_ptr(), L, nh, nkv, g, off, d, B, M, window, split,
                 n_split, 1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype], stream)
     return err, out
 
@@ -303,21 +352,27 @@ def _stream_and_sms(q):
             _sm_count(q.device.index))
 
 
-def paged_attend(q, kpool, vpool, tables, pos, *, window=0):
+def paged_attend(q, kpool, vpool, tables, pos, *, window=0, kv_group=None,
+                 head_offset=0):
     """Decode attention over one layer's block pool.
 
     q ``[L, nh, d]`` (each lane's pending query, RoPE applied);
     kpool/vpool ``[num_blocks, B, nkv, d]``; tables ``[L, M]`` int32;
     pos ``[L]`` int32 (slot ``l`` is visible iff ``l <= pos``, and
     ``l > pos - window`` when ``window > 0``). Returns ``[L, nh, d]`` in
-    q's dtype. Pools and q share dtype float32, bfloat16 or float16. On
-    CUDA tensors a call is two kernel launches (split, merge) and counts
-    one in ``paged_attend.launches``."""
-    _check(q, kpool, vpool, None, None, tables, pos, window)
+    q's dtype. Pools and q share dtype float32, bfloat16 or float16.
+    Query head ``i`` reads kv head ``(i + head_offset) // kv_group``
+    (default: ``nh // nkv``, offset 0; a tensor-parallel rank's heads,
+    see the module note). On CUDA tensors a call is two kernel launches
+    (split, merge) and counts one in ``paged_attend.launches``."""
+    _check(q, kpool, vpool, None, None, tables, pos, window, kv_group,
+           head_offset)
     if not q.is_cuda:
-        return paged_attend_ref(q, kpool, vpool, tables, pos, window=window)
+        return paged_attend_ref(q, kpool, vpool, tables, pos, window=window,
+                                kv_group=kv_group, head_offset=head_offset)
     err, out = _launch(_lib().pt_paged_attend, q, (kpool, vpool), tables,
-                       pos, window, *_stream_and_sms(q))
+                       pos, window, (kv_group, head_offset),
+                       *_stream_and_sms(q))
     if err:
         raise RuntimeError(f"paged_attend kernel launch failed "
                            f"(cudaError {err})")
@@ -326,19 +381,23 @@ def paged_attend(q, kpool, vpool, tables, pos, *, window=0):
 
 
 def paged_attend_int8(q, kpool, vpool, kscale, vscale, tables, pos, *,
-                      window=0):
+                      window=0, kv_group=None, head_offset=0):
     """:func:`paged_attend` over int8 pools: kpool/vpool ``[num_blocks,
     B, nkv, d]`` int8 with their fp32 scales ``[num_blocks, B, nkv]``
     (``quantization.quantize_kv``), dequantized in registers. q is
-    float32, bfloat16 or float16; the result has q's dtype. Counts one in
+    float32, bfloat16 or float16; the result has q's dtype; the heads
+    map as in :func:`paged_attend`. Counts one in
     ``paged_attend_int8.launches`` per call on CUDA tensors."""
-    _check(q, kpool, vpool, kscale, vscale, tables, pos, window)
+    _check(q, kpool, vpool, kscale, vscale, tables, pos, window, kv_group,
+           head_offset)
     if not q.is_cuda:
         return paged_attend_int8_ref(q, kpool, vpool, kscale, vscale,
-                                     tables, pos, window=window)
+                                     tables, pos, window=window,
+                                     kv_group=kv_group,
+                                     head_offset=head_offset)
     err, out = _launch(_lib().pt_paged_attend_int8, q,
                        (kpool, vpool, kscale, vscale), tables, pos, window,
-                       *_stream_and_sms(q))
+                       (kv_group, head_offset), *_stream_and_sms(q))
     if err:
         raise RuntimeError(f"paged_attend_int8 kernel launch failed "
                            f"(cudaError {err})")

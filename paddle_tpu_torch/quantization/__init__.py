@@ -35,15 +35,26 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
     return (q.to(torch.float32) * s[..., None]).to(dtype)
 
 
-def quantize_weight_int8(w: torch.Tensor) -> dict:
+def quantize_weight_int8(w: torch.Tensor, group=None) -> dict:
     """Per-output-channel symmetric int8 weight-only quantization, the
     weight pack of ``generate(int8_weights=True)`` and the engine's
     ``int8_weights``: w ``[..., in, out]`` -> ``{"q": int8 [..., in,
     out], "s": fp32 [..., 1, out]}`` with ``s = max(max|w| / 127,
     1e-12)`` over the input axis and ``q = clip(round(w / s), -127,
-    127)``, half to even like ``jnp.round``."""
+    127)``, half to even like ``jnp.round``.
+
+    ``group`` (a ``distributed._comm`` group): ``w`` is this rank's
+    shard of a weight whose input axis is split over the group (a
+    row-parallel weight); the absmax is the maximum over the group, so
+    each rank's pack is its slice of the whole weight's."""
     w32 = w.to(torch.float32)
     amax = w32.abs().amax(dim=-2, keepdim=True)
+    if group is not None:
+        import torch.distributed as dist
+
+        from ..distributed import _comm
+
+        _comm.all_reduce(amax, group, op=dist.ReduceOp.MAX)
     s = torch.clamp_min(amax / amax.new_full((), 127.0), 1e-12)
     q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}

@@ -26,7 +26,11 @@ change a shape. Three phase programs serve the engine's lifetime:
   blocks are lane-private).
 
 Prefill and verify attend with the dense gathered read
-(:func:`_attend_lanes`), as in the reference. The layer math reuses
+(:func:`_attend_lanes`), as in the reference. Under tensor parallelism
+(mp > 1) each rank runs the phases on its own shards and its own heads'
+pools (``models/generation.py``'s note); the scheduler, the prefix
+cache, the drafter and preemption run on the host alike on every rank,
+which sees the same tokens. The layer math reuses
 ``models/generation.py``'s helpers, so engine outputs are
 token-identical to per-request greedy ``generate()`` calls, with
 ``int8_weights`` to ``generate(int8_weights=True)``'s.
@@ -39,8 +43,10 @@ each as a CUDA graph through ``jit/exec_cache.get_or_capture`` (in
 a round copies its host-built inputs (block tables, lengths, tokens —
 every per-round value, packed into one int32 buffer per phase) into the
 graph's static buffer and replays it. No phase function runs eagerly
-on CUDA, apart from the one warm-up call of each capture, and a capture
-that fails raises with the phase's name. The graph key holds what the
+on CUDA, apart from the one warm-up call of each capture and the phases
+of a tensor-parallel engine whose collectives go through the host
+(gloo; :meth:`ServingEngine._ensure_graphs`), and a capture that fails
+raises with the phase's name. The graph key holds what the
 reference's key holds (pool shape and dtype, ``kv_int8``,
 ``int8_weights``, the model config, lanes, M, C, k) plus the addresses
 of the weights and pools the graph binds; the pools of a collected
@@ -73,11 +79,13 @@ import weakref
 import numpy as np
 import torch
 
+from ..distributed import _comm
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..jit import exec_cache
 from ..models.generation import (
-    _GenCfg, _check_model_device, _collect_params, _layer, _mlp, _mm, _qkv,
+    _GenCfg, _check_model_device, _collect_params, _embed, _kv_per_head,
+    _layer, _logits, _mlp, _qkv, _row, _tensor_parallel,
 )
 from ..nn.functional.norm import rms_norm
 from ..ops.cuda import paged_attention as pa
@@ -175,7 +183,7 @@ class ServingConfig:
 
 # -- phase programs -----------------------------------------------------------
 
-def _attend_lanes(q, kc, vc, pos, nh, nkv, sliding_window=0):
+def _attend_lanes(q, kc, vc, pos, cfg):
     """``models/generation.py:_attend`` with PER-TOKEN positions: q
     ``[b, s, nh, d]`` against the gathered block slots kc/vc
     ``[b, S, nkv, d]``. Slot ``l`` is visible to the query at absolute
@@ -183,11 +191,13 @@ def _attend_lanes(q, kc, vc, pos, nh, nkv, sliding_window=0):
     positions out in order, so slot index == absolute position). Same
     math as ``_attend``: fp32 einsum, 1/sqrt(d), -1e30 mask, fp32
     softmax and AV."""
-    b, s, _, d = q.shape
+    b, s, nh, d = q.shape
     S = kc.shape[1]
-    g = nh // nkv
+    kc, g = _kv_per_head(kc, cfg)
+    vc, _ = _kv_per_head(vc, cfg)
+    sliding_window = cfg.sliding_window
     dev = q.device
-    qg = q.reshape(b, s, nkv, g, d)
+    qg = q.reshape(b, s, nh // g, g, d)
     logits = torch.einsum("bskgd,blkd->bskgl", qg.to(torch.float32),
                           kc.to(torch.float32)) / math.sqrt(d)
     slots = torch.arange(S, device=dev)[None, None, :]
@@ -202,7 +212,7 @@ def _attend_lanes(q, kc, vc, pos, nh, nkv, sliding_window=0):
 
 
 def _pool_forward(params, kpool, vpool, kscale, vscale, tables, ids, pos,
-                  wlimit, cfg, paged=False):
+                  wlimit, cfg, paged=False, tp=None):
     """Forward ``ids`` ``[b, s]`` at absolute positions ``pos``
     ``[b, s]`` against the block pool: per layer, write each token's K/V
     into its lane's block at ``pos`` — in place; writes at positions
@@ -211,16 +221,18 @@ def _pool_forward(params, kpool, vpool, kscale, vscale, tables, ids, pos,
     mode's fp32 scale pools (None otherwise). With ``paged`` and
     ``s == 1`` the attention is the paged kernel; otherwise the dense
     read over each lane's whole gathered table. Returns x
-    ``[b, s, hidden]``."""
+    ``[b, s, hidden]``. Under tensor parallelism (``tp``) the layer math
+    is the rank's (``models/generation.py``'s note), and the pools hold
+    the kv heads its q heads read."""
     b, s = ids.shape
     nh = cfg.num_attention_heads
     nkv = cfg.num_key_value_heads
-    d = cfg.hidden_size // nh
+    d = cfg.head_dim
     B = kpool.shape[2]
     M = tables.shape[1]
     dt = to_torch_dtype(cfg.dtype)
     quant = kscale is not None
-    x = params["embed"][ids.long()].to(dt)
+    x = _embed(params, ids, dt, tp)
     # pad positions can run past the table
     idx = torch.clamp_max(pos // B, M - 1).long()
     blk = torch.gather(tables, 1, idx)
@@ -242,13 +254,15 @@ def _pool_forward(params, kpool, vpool, kscale, vscale, tables, ids, pos,
         vpool[li, blk, off] = v
         if paged:
             qd = q.reshape(b, nh, d)
+            heads = dict(window=cfg.sliding_window, kv_group=cfg.kv_group,
+                         head_offset=cfg.head_offset)
             if quant:
                 out = pa.paged_attend_int8(
                     qd, kpool[li], vpool[li], kscale[li], vscale[li],
-                    tables, cur, window=cfg.sliding_window)
+                    tables, cur, **heads)
             else:
                 out = pa.paged_attend(qd, kpool[li], vpool[li], tables, cur,
-                                      window=cfg.sliding_window)
+                                      **heads)
             out = out[:, None]
         else:
             kc = kpool[li][tab].reshape(b, M * B, nkv, d)
@@ -258,22 +272,22 @@ def _pool_forward(params, kpool, vpool, kscale, vscale, tables, ids, pos,
                     kc, kscale[li][tab].reshape(b, M * B, nkv), dt)
                 vc = dequantize_kv(
                     vc, vscale[li][tab].reshape(b, M * B, nkv), dt)
-            out = _attend_lanes(q, kc, vc, pos, nh, nkv,
-                                sliding_window=cfg.sliding_window)
-        x = x + _mm(out.reshape(b, s, nh * d), layer_p["o"])
-        x = _mlp(x, layer_p, cfg)
+            out = _attend_lanes(q, kc, vc, pos, cfg)
+        x = x + _row(out.reshape(b, s, nh * d), layer_p["o"], tp)
+        x = _mlp(x, layer_p, cfg, tp)
     return x
 
 
-def _greedy(x, params, cfg):
-    """(greedy tokens, fp32 logits) of the final hidden states ``x``."""
+def _greedy(x, params, cfg, tp=None):
+    """(greedy tokens, fp32 logits) of the final hidden states ``x``
+    (under tensor parallelism the whole vocabulary's, on every rank)."""
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    logits = _mm(x, params["lm_head"]).to(torch.float32)
+    logits = _logits(x, params, tp)
     return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
 
 def _prefill_chunk(params, kpool, vpool, kscale, vscale, table, ids, start,
-                   ctx_len, last_idx, *, cfg):
+                   ctx_len, last_idx, *, cfg, tp=None):
     """One lane's prefill chunk: ``ids`` ``[1, C]`` at positions
     ``[start, start+C)``, writes below ``ctx_len``; greedy-samples from
     position ``last_idx`` within the chunk (``start``, ``ctx_len`` and
@@ -283,12 +297,12 @@ def _prefill_chunk(params, kpool, vpool, kscale, vscale, table, ids, start,
     pos = (start + torch.arange(C, dtype=torch.int32,
                                 device=ids.device))[None, :]
     x = _pool_forward(params, kpool, vpool, kscale, vscale, table, ids, pos,
-                      ctx_len, cfg)
-    return _greedy(x[0, last_idx.long()], params, cfg)
+                      ctx_len, cfg, tp=tp)
+    return _greedy(x[0, last_idx.long()], params, cfg, tp)
 
 
 def _decode_step(params, kpool, vpool, kscale, vscale, tables, cur_len,
-                 last_tok, *, cfg, paged=False):
+                 last_tok, *, cfg, paged=False, tp=None):
     """Every lane feeds its pending token at position ``cur_len``
     (write-then-attend, so the token sees itself) and greedy-samples the
     next. Idle lanes (cur_len 0, table row 0) write to the null block;
@@ -296,12 +310,12 @@ def _decode_step(params, kpool, vpool, kscale, vscale, tables, cur_len,
     logits."""
     x = _pool_forward(params, kpool, vpool, kscale, vscale, tables,
                       last_tok[:, None], cur_len[:, None], cur_len + 1, cfg,
-                      paged=paged)
-    return _greedy(x[:, -1], params, cfg)
+                      paged=paged, tp=tp)
+    return _greedy(x[:, -1], params, cfg, tp)
 
 
 def _verify_step(params, kpool, vpool, kscale, vscale, tables, cur_len, toks,
-                 wlimit, *, cfg):
+                 wlimit, *, cfg, tp=None):
     """The speculative verify step: ``toks`` ``[L, k+1]`` holds each
     lane's pending token then its draft, at positions ``cur_len + j``;
     writes at ``>= wlimit[b]`` go to the null block. Returns the greedy
@@ -311,8 +325,8 @@ def _verify_step(params, kpool, vpool, kscale, vscale, tables, cur_len, toks,
     pos = cur_len[:, None] + torch.arange(S, dtype=torch.int32,
                                           device=toks.device)[None, :]
     x = _pool_forward(params, kpool, vpool, kscale, vscale, tables, toks,
-                      pos, wlimit, cfg)
-    return _greedy(x, params, cfg)
+                      pos, wlimit, cfg, tp=tp)
+    return _greedy(x, params, cfg, tp)
 
 
 def _layouts(L, M, C, k):
@@ -364,7 +378,9 @@ class ServingEngine:
         self.model = model
         self.config = config or ServingConfig()
         cfg = self.config
-        self._gcfg = _GenCfg(model.config)
+        # under tensor parallelism the rank's shards, heads and pools
+        self._tp = _tensor_parallel(model)
+        self._gcfg = _GenCfg(model.config, self._tp)
         self._params = _collect_params(model,
                                        int8_weights=cfg.int8_weights)
         self.max_seq_len = int(cfg.max_seq_len
@@ -373,9 +389,8 @@ class ServingEngine:
                                              cfg.block_size)
         num_blocks = int(cfg.num_blocks
                          or cfg.max_lanes * self.blocks_per_lane + 1)
-        nh = self._gcfg.num_attention_heads
         nkv = self._gcfg.num_key_value_heads
-        d = self._gcfg.hidden_size // nh
+        d = self._gcfg.head_dim
         layers = self._params["ln1"].shape[0]
         dt = torch.int8 if cfg.kv_int8 else to_torch_dtype(self._gcfg.dtype)
         shape = (layers, num_blocks, cfg.block_size, nkv, d)
@@ -441,10 +456,11 @@ class ServingEngine:
         self._layouts = _layouts(cfg.max_lanes, self.blocks_per_lane,
                                  cfg.prefill_chunk,
                                  cfg.spec_k if self.spec_active else 0)
-        fns = {"decode": functools.partial(_decode_step, cfg=self._gcfg,
+        run = dict(cfg=self._gcfg, tp=self._tp)
+        fns = {"decode": functools.partial(_decode_step, **run,
                                            paged=self.paged_active),
-               "prefill": functools.partial(_prefill_chunk, cfg=self._gcfg),
-               "verify": functools.partial(_verify_step, cfg=self._gcfg)}
+               "prefill": functools.partial(_prefill_chunk, **run),
+               "verify": functools.partial(_verify_step, **run)}
         self._programs = {ph: functools.partial(_packed, fns[ph], layout)
                           for ph, layout in self._layouts.items()}
         self._graphs = None
@@ -501,22 +517,47 @@ class ServingEngine:
 
     def _ensure_graphs(self) -> None:
         """On CUDA: every phase program as a graph from
-        ``exec_cache.get_or_capture``, once per engine."""
+        ``exec_cache.get_or_capture``, once per engine. Under tensor
+        parallelism the phases hold collectives, so each phase's first
+        call runs eagerly (on zero inputs, whose writes land in the null
+        block, as a capture's warm-up call does) and the phase is
+        captured only if none of its collectives was host-staged
+        (``_comm.host_staged``: gloo, which two ranks sharing one card
+        run); else it stays eager, as ``jit.TrainStep`` does."""
         if self._graphs is not None or self.device.type != "cuda":
             return
         graphs = {}
         for phase, program in self._programs.items():
             n = sum(math.prod(shape) for _, shape in self._layouts[phase])
+            state = dict(self._state, flat=torch.zeros(
+                n, dtype=torch.int32, device=self.device))
+            if self._tp is not None and self._host_staged(program, state):
+                continue  # eager: _run calls the program itself
             before = exec_cache.stats()["captures"]
             graphs[phase] = exec_cache.get_or_capture(
-                self._graph_key(phase), program,
-                dict(self._state, flat=torch.zeros(
-                    n, dtype=torch.int32, device=self.device)),
+                self._graph_key(phase), program, state,
                 label=f"serving_{phase}",
-                counters=(pa.paged_attend, pa.paged_attend_int8))
+                counters=(pa.paged_attend, pa.paged_attend_int8),
+                warmup=self._tp is None)
             self.counters["graph_captures"] += \
                 exec_cache.stats()["captures"] - before
         self._graphs = graphs
+
+    def _host_staged(self, program, state) -> bool:
+        """Whether one call of ``program`` on ``state`` ran a collective
+        through the host; the call runs on the capture stream and counts
+        no kernel launch (it is no round of the engine)."""
+        launches = [(w, w.launches) for w in (pa.paged_attend,
+                                              pa.paged_attend_int8)]
+        side = exec_cache.side_stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        mark = _comm.host_staged()
+        with torch.cuda.stream(side):
+            program(**state)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        for w, n in launches:
+            w.launches = n
+        return _comm.host_staged() != mark
 
     def _pack(self, phase, **inputs) -> np.ndarray:
         """A phase's host-built inputs as its one int32 buffer."""
@@ -525,14 +566,15 @@ class ServingEngine:
 
     def _run(self, phase, **inputs) -> torch.Tensor:
         """One call of a phase program on host-built int32 ``inputs``:
-        a graph replay on CUDA, an eager call on the CPU. Returns the
-        sampled tokens (on CUDA the graph's output, overwritten by its
-        next replay)."""
+        a graph replay on CUDA, an eager call on the CPU and for a phase
+        left eager (``_ensure_graphs``). Returns the sampled tokens (a
+        graph's output is overwritten by its next replay)."""
         flat = self._pack(phase, **inputs)
-        if self.device.type != "cuda":
-            return self._programs[phase](flat=torch.from_numpy(flat),
-                                         **self._state)[0]
-        entry = self._graphs[phase]
+        entry = (self._graphs or {}).get(phase)
+        if entry is None:
+            return self._programs[phase](
+                flat=torch.from_numpy(flat).to(self.device),
+                **self._state)[0]
         entry.inputs["flat"].copy_(torch.from_numpy(flat).pin_memory(),
                                    non_blocking=True)
         self.counters["graph_replays"] += 1
@@ -811,7 +853,14 @@ class ServingEngine:
             kv_int8=self.config.kv_int8,
             kv_pool_bytes=self.kv_pool_bytes,
             paged_attention=self.paged_active,
-            graphs=self._graphs is not None,
+            graphs=bool(self._graphs),
+            phase_modes={ph: "graph" if ph in (self._graphs or {})
+                         else "eager" for ph in self._programs},
+            weight_bytes=sum(
+                t.numel() * t.element_size() for k in self._params
+                for t in (self._params[k].values()
+                          if isinstance(self._params[k], dict)
+                          else (self._params[k],))),
             paged_family=self._paged_family,
             prefix_cache=self.config.prefix_cache,
             shared_blocks=pool.shared_count,

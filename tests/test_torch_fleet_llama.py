@@ -31,6 +31,16 @@ and the parameters after them (within ``PARAM_TOL``, see there); under
 ``mp2`` and ``mp2_gqa`` also 2 ``Lamb`` steps with ``ClipGradByNorm``.
 Also: the uneven splits raise naming the dim and the degree, and
 ``LBFGS`` refuses more than one rank.
+
+Decode under tensor parallelism (``DECODE``, in the same spawns): each
+rank's ``generate()`` and ``ServingEngine`` decode from its own shards
+(no whole weight gathered) the reference's tokens on its mesh, at mp 2
+with 4, 2 and 1 kv heads (1: ``nkv % mp != 0``, a rank's q heads
+reading kv heads through an offset), dp 2 x mp 2 (each dp rank decodes
+its rows), int8 weights with int8 pools, speculative decoding
+(``spec_k=3``) and a seeded sampled decode (JAX's Gumbel draws handed
+to every rank); step 1's logits within ``TOL``; each rank's stacked
+decode weights and pools at their local shapes.
 """
 import os
 import pickle
@@ -77,7 +87,8 @@ def _child_setup():
 
 
 def _llama_worker(root, names):
-    """One rank: every config in ``names`` in turn, results pickled to
+    """One rank: every config in ``names`` in turn (``DECODE``'s through
+    :func:`_decode_rank`), results pickled to
     ``root/{name}.{rank}.pkl``."""
     _child_setup()
     from paddle_tpu_torch import distributed as dist
@@ -93,6 +104,11 @@ def _llama_worker(root, names):
                            init_method=f"file://{root}/store")
     ids, labels = (torch.from_numpy(a) for a in _batch())
     for name in names:
+        if name in DECODE:
+            out = _decode_rank(root, name)
+            with open(f"{root}/{name}.{dist.get_rank()}.pkl", "wb") as f:
+                pickle.dump(out, f)
+            continue
         dp, mp, nkv, sp = CONFIGS[name]
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
@@ -206,15 +222,18 @@ def _reference(name):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{name: (reference, [each rank's results])}: the ranks of the two
-    world sizes spawned once each."""
+    world sizes spawned once each, for the training configs and the
+    decode cases alike."""
     root = tmp_path_factory.mktemp("fleet_llama")
     refs = {}
-    for name in CONFIGS:
-        weights, refs[name] = _reference(name)
+    for name in list(CONFIGS) + list(DECODE):
+        weights, refs[name] = (_decode_reference(name) if name in DECODE
+                               else _reference(name))
         with open(root / f"{name}.weights.pkl", "wb") as f:
             pickle.dump(weights, f)
     by_world: dict = {}
-    for name, (dp, mp, _, _) in CONFIGS.items():
+    for name, (dp, mp) in [(n, c[:2]) for n, c in CONFIGS.items()] + [
+            (n, c[:2]) for n, c in DECODE.items()]:
         by_world.setdefault(dp * mp, []).append(name)
     for world, names in sorted(by_world.items()):
         sub = root / f"w{world}"
@@ -351,85 +370,243 @@ def test_uneven_splits_and_lbfgs_over_ranks_raise(tmp_path):
         assert "LBFGS over more than one rank" in errors[3]
 
 
-# -- decode at mp 2 -------------------------------------------------------------
+# -- decode under tensor parallelism ----------------------------------------------
 
 GEN_NEW = 4
+GEN_B, GEN_PROMPT = 2, 8
+# name: (dp, mp, num_key_value_heads, generate()'s options, engine's)
+SAMPLING = dict(do_sample=True, temperature=0.7, top_k=20, top_p=0.9,
+                seed=3)
+DECODE = {
+    "gen_mp2": (1, 2, 4, {}, {}),
+    "gen_mp2_kv2": (1, 2, 2, {}, {}),
+    "gen_mp2_kv1": (1, 2, 1, {}, {}),
+    "gen_dp2_mp2": (2, 2, 2, {}, {}),
+    "gen_int8": (1, 2, 1, dict(int8_weights=True, kv_int8=True),
+                 dict(int8_weights=True, kv_int8=True)),
+    "gen_spec3": (1, 2, 2, {}, dict(spec_k=3)),
+    "gen_sampled": (1, 2, 2, SAMPLING, None),
+}
 
 
 def _gen_ids():
-    return np.random.RandomState(17).randint(0, V, (2, 8)).astype(np.int32)
+    return np.random.RandomState(17).randint(
+        0, V, (GEN_B, GEN_PROMPT)).astype(np.int32)
 
 
-def _generate_worker(root):
-    """One rank at mp 2: greedy ``generate()`` and the serving engine on
-    the two rows as two requests, tokens pickled."""
-    _child_setup()
-    from paddle_tpu_torch import distributed as dist
-    from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.models import (
-        LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
-    )
-    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+def _jax_gumbel(seed, steps, shape):
+    """The Gumbel noise the reference's ``generate`` draws, step by step:
+    its key split once per sampled token."""
+    import jax
+    import jax.numpy as jnp
 
-    dist.init_parallel_env(backend="gloo",
-                           init_method=f"file://{root}/store")
-    fleet.init(is_collective=True, strategy=_strategy(mp=2))
-    with open(f"{root}/weights.pkl", "rb") as f:
-        weights = pickle.load(f)
-    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
-                             device="cpu")
-    load_jax_weights(model, weights)
-    ids = _gen_ids()
-    out = {"generate": generate(model, ids, max_new_tokens=GEN_NEW,
-                                device="cpu").numpy()}
-    eng = ServingEngine(model, ServingConfig(max_seq_len=32), device="cpu")
-    reqs = [eng.submit(row, max_new_tokens=GEN_NEW) for row in ids]
-    done = eng.run()
-    out["engine"] = np.stack([np.asarray(done[r.request_id]) for r in reqs])
-    with torch.no_grad():  # a shard written in place rebuilds the weights
-        model.lm_head.weight.mul_(-1)
-    out["flipped"] = generate(model, ids, max_new_tokens=GEN_NEW,
-                              device="cpu").numpy()
-    with open(f"{root}/gen.{dist.get_rank()}.pkl", "wb") as f:
-        pickle.dump(out, f)
-    dist.destroy_process_group()
+    key, out = jax.random.key(seed), []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.gumbel(sub, shape, jnp.float32)))
+    return out
 
 
-def test_generate_and_engine_at_mp2_match_reference(tmp_path):
-    """The reference decodes the tiny Llama at mp 2 on its mesh; the
-    port's two ranks decode the same weights through ``generate()`` and
-    ``ServingEngine`` (each rank the whole model, its weights gathered)
-    and give the reference's tokens, and again after ``lm_head``'s
-    shards are written in place."""
+def _decode_reference(name):
+    """The reference's weights for decode case ``name`` and its results on
+    its mesh: the tokens of ``generate()`` (and, for ``gen_mp2``, again
+    after the LM head is negated), step 1's logits, and under sampling
+    the noise it drew."""
+    import jax.numpy as jnp
+
     import paddle_tpu as pt
     from paddle_tpu.distributed import env as jenv
     from paddle_tpu.distributed import fleet as jfleet
     from paddle_tpu.models import LlamaConfig as JaxConfig
     from paddle_tpu.models import LlamaForCausalLM as JaxLlama
     from paddle_tpu.models import generate as jax_generate
+    from paddle_tpu.models import generation as jgen
 
+    dp, mp, nkv, opts, _ = DECODE[name]
     strategy = jfleet.DistributedStrategy()
-    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2}
+    strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
     jfleet.init(is_collective=True, strategy=strategy)
     try:
         pt.seed(11)
-        jm = JaxLlama(JaxConfig.tiny(num_hidden_layers=2))
+        jm = JaxLlama(JaxConfig.tiny(num_hidden_layers=2,
+                                     num_key_value_heads=nkv))
         weights = {n: np.asarray(p._data) for n, p in jm.named_parameters()}
-        ids = pt.to_tensor(_gen_ids())
-        want = jax_generate(jm, ids, max_new_tokens=GEN_NEW).numpy()
-        jm.lm_head.weight.set_value(-jm.lm_head.weight)
-        flipped = jax_generate(jm, ids, max_new_tokens=GEN_NEW).numpy()
+        ids = _gen_ids()
+        ref = {"tokens": jax_generate(jm, pt.to_tensor(ids),
+                                      max_new_tokens=GEN_NEW,
+                                      **opts).numpy()}
+        int8 = opts.get("int8_weights", False)
+        cfg = jgen._GenCfg(jm.config)
+        cache = jnp.zeros((2, GEN_B, GEN_PROMPT, nkv,
+                           cfg.hidden_size // cfg.num_attention_heads))
+        ref["logits"] = np.asarray(jgen._forward(
+            jgen._collect_params(jm, int8_weights=int8), jnp.asarray(ids),
+            cache, cache, jnp.asarray(GEN_PROMPT), cfg,
+            kv_int8=opts.get("kv_int8", False))[0])
+        if opts.get("do_sample"):
+            ref["noise"] = _jax_gumbel(opts["seed"], GEN_NEW, (GEN_B, V))
+        if name == "gen_mp2":
+            jm.lm_head.weight.set_value(-jm.lm_head.weight)
+            ref["flipped"] = jax_generate(jm, pt.to_tensor(ids),
+                                          max_new_tokens=GEN_NEW).numpy()
+        ref["whole"] = {n: a.shape for n, a in weights.items()}
     finally:
         jenv.reset_env()
-    with open(tmp_path / "weights.pkl", "wb") as f:
-        pickle.dump(weights, f)
-    spawn(_generate_worker, args=(str(tmp_path),), nprocs=2)
+    return dict(weights, _noise=ref.get("noise")), ref
+
+
+def _shapes(pack):
+    """Each stacked decode weight's shape (an int8 pack's int8 tensor)."""
+    return {k: tuple((v["q"] if isinstance(v, dict) else v).shape)
+            for k, v in pack.items()}
+
+
+def _decode_rank(root, name):
+    """One rank of decode case ``name``: ``generate()`` and the engine on
+    its dp rank's rows, step 1's logits, and the local shapes."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (
+        LlamaConfig, LlamaForCausalLM, generate, load_jax_weights,
+    )
+    from paddle_tpu_torch.models import generation as tgen
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    dp, mp, nkv, opts, engine = DECODE[name]
+    fleet.init(is_collective=True, strategy=_strategy(dp=dp, mp=mp))
+    hcg = fleet.get_hybrid_communicate_group()
+    with open(f"{root}/{name}.weights.pkl", "rb") as f:
+        weights = pickle.load(f)
+    noise = weights.pop("_noise")
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2,
+                                              num_key_value_heads=nkv),
+                             device="cpu")
+    load_jax_weights(model, weights)
+    r = hcg.get_data_parallel_rank()
+    rows = slice(r * GEN_B // dp, (r + 1) * GEN_B // dp)
+    ids = _gen_ids()[rows]
+    out = {"coords": (r, hcg.get_model_parallel_rank()), "rows": rows}
+    if noise is not None:  # the reference's draws, on every rank
+        draws = iter(noise)
+        own = tgen._gumbel
+        tgen._gumbel = lambda shape, gen, dev: torch.from_numpy(
+            next(draws)[rows])
+        try:
+            out["generate"] = generate(model, ids, max_new_tokens=GEN_NEW,
+                                       device="cpu", **opts).numpy()
+        finally:
+            tgen._gumbel = own
+        # the port's own draws: every mp rank draws the same
+        out["own_draws"] = generate(model, ids, max_new_tokens=GEN_NEW,
+                                    device="cpu", **opts).numpy()
+    else:
+        out["generate"] = generate(model, ids, max_new_tokens=GEN_NEW,
+                                   device="cpu", **opts).numpy()
+    if engine is not None:
+        eng = ServingEngine(model, ServingConfig(max_seq_len=32, **engine),
+                            device="cpu")
+        reqs = [eng.submit(row, max_new_tokens=GEN_NEW) for row in ids]
+        done = eng.run()
+        out["engine"] = np.stack([np.asarray(done[q.request_id])
+                                  for q in reqs])
+        out["pools"] = [tuple(t.shape) for t in
+                        (eng._kpool, eng._vpool, eng._kscale, eng._vscale)
+                        if t is not None]
+        out["phase_modes"] = eng.stats()["phase_modes"]
+    int8 = opts.get("int8_weights", False)
+    tp = tgen._tensor_parallel(model)
+    cfg = tgen._GenCfg(model.config, tp)
+    params = tgen._collect_params(model, int8_weights=int8)
+    out["shapes"] = _shapes(params)
+    cache = torch.zeros((2, len(ids), GEN_PROMPT, cfg.num_key_value_heads,
+                         cfg.head_dim))
+    out["logits"] = tgen._forward(
+        params, torch.from_numpy(ids), cache, cache.clone(), GEN_PROMPT,
+        cfg, kv_int8=opts.get("kv_int8", False), tp=tp).numpy()
+    if name == "gen_mp2":
+        with torch.no_grad():  # a shard written in place rebuilds them
+            model.lm_head.weight.mul_(-1)
+        out["flipped"] = generate(model, ids, max_new_tokens=GEN_NEW,
+                                  device="cpu").numpy()
+    return out
+
+
+def _local_shapes(name, whole, mp_rank):
+    """What mp rank ``mp_rank`` of case ``name`` must hold: each stacked
+    decode weight at its local shape (``whole``: the reference's global
+    parameter shapes), and the kv heads its q heads read, which its
+    pools hold."""
+    _, mp, nkv, _, _ = DECODE[name]
+    h = whole["lm_head.weight"][0]
+    nh = 4
+    d = h // nh
+    ffn = whole["llama.layers.0.mlp.down_proj.weight"][0]
+    heads, rep = nh // mp, nh // nkv
+    q0 = mp_rank * heads
+    kv = (q0 + heads - 1) // rep - q0 // rep + 1
+    return {"ln1": (2, h), "qkv": (2, h, (heads + 2 * kv) * d),
+            "o": (2, heads * d, h), "ln2": (2, h),
+            "gate_up": (2, h, 2 * ffn // mp), "down": (2, ffn // mp, h),
+            "embed": (V // mp, h), "norm": (h,), "lm_head": (h, V // mp)}, kv
+
+
+# the decode weights that are sharded in training (the norms are whole)
+SHARDED = {"qkv": "self_attn.qkv_proj", "o": "self_attn.o_proj",
+           "gate_up": "mlp.gate_up_proj", "down": "mlp.down_proj"}
+
+
+def _hold_decode(runs, name, keys=("generate", "engine")):
+    """Every rank's tokens equal the reference's rows, step 1's logits
+    within ``TOL``, and its decode weights and pools local."""
+    ref, ranks = runs[name]
+    whole = ref["whole"]
+    for o in ranks:
+        want_shapes, kv = _local_shapes(name, whole, o["coords"][1])
+        rows = o["rows"]
+        for key in keys:
+            if key in o:
+                np.testing.assert_array_equal(
+                    o[key], ref["tokens"][rows],
+                    err_msg=f"{name} {key} {o['coords']}")
+        _close(o["logits"], ref["logits"][rows], f"{name} logits")
+        assert o["shapes"] == want_shapes, (o["shapes"], want_shapes)
+        for k, leaf in SHARDED.items():
+            full = (2,) + whole[f"llama.layers.0.{leaf}.weight"]
+            assert o["shapes"][k] != full, (k, full)
+        assert o["shapes"]["embed"] != whole["llama.embed_tokens.weight"]
+        assert o["shapes"]["lm_head"] != whole["lm_head.weight"]
+        if "pools" in o:
+            d = whole["lm_head.weight"][0] // 4
+            assert all(p[3] == kv for p in o["pools"]), o["pools"]
+            assert all(p[4] == d for p in o["pools"][:2]), o["pools"]
+            assert set(o["phase_modes"].values()) == {"eager"}
+
+
+def test_generate_and_engine_at_mp2_match_reference(runs):
+    """The reference decodes the tiny Llama at mp 2 on its mesh; the
+    port's two ranks decode the same weights through ``generate()`` and
+    ``ServingEngine``, each from its own shards, and give the
+    reference's tokens, and again after ``lm_head``'s shards are written
+    in place."""
+    ref, ranks = runs["gen_mp2"]
+    want, flipped = ref["tokens"], ref["flipped"]
     assert not np.array_equal(want, flipped)
-    for r in range(2):
-        with open(tmp_path / f"gen.{r}.pkl", "rb") as f:
-            got = pickle.load(f)
+    for got in ranks:
+        r = got["coords"]
         assert got["generate"].shape == (2, GEN_NEW)
         np.testing.assert_array_equal(got["generate"], want, err_msg=f"{r}")
         np.testing.assert_array_equal(got["engine"], want, err_msg=f"{r}")
         np.testing.assert_array_equal(got["flipped"], flipped,
                                       err_msg=f"{r}")
+    _hold_decode(runs, "gen_mp2")
+
+
+@pytest.mark.parametrize("name", [n for n in DECODE if n != "gen_mp2"])
+def test_sharded_decode_matches_reference(runs, name):
+    """Each case's ranks decode the reference's tokens from their shards
+    (the module note); under sampling from the reference's draws, and
+    with the port's own generator every mp rank draws alike."""
+    _hold_decode(runs, name)
+    if DECODE[name][3].get("do_sample"):
+        _, ranks = runs[name]
+        assert all(np.array_equal(o["own_draws"], ranks[0]["own_draws"])
+                   for o in ranks)

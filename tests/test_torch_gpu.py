@@ -139,6 +139,58 @@ def test_paged_kernels_bit_identical(cuda, quant):
     assert torch.equal(a, b) and torch.equal(c, d)
 
 
+# a tensor-parallel rank's heads at the served geometry (12 q heads of d
+# 128, 8 lanes, 512 slots), (kv heads, mp, rank): the 0.44B Llama at mp
+# 2 (6 q and 6 kv heads a rank), and 12 q heads over 3 and over 1 kv
+# heads, whose ranks read their kv heads through an offset (rank 1 of
+# 12 over 3: kv heads 1, 1, 2, 2, 2, 2, offset 2)
+_RANK_HEADS = [(12, 2, 0), (12, 2, 1), (3, 2, 0), (3, 2, 1), (1, 2, 1)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("heads", _RANK_HEADS)
+def test_paged_kernels_at_a_rank_heads(cuda, heads, dtype, quant):
+    """Kernels 7 and 8 on one rank's q heads over a pool of the kv heads
+    they read: each launches once, and matches its plain version on the
+    rank's heads and the slice of the plain version over every head
+    (bf16 within 2e-2; float16 within two ulps, ``_fp16_over``)."""
+    nkv, mp, rank = heads
+    g = 12 // nkv
+    q, kp, vp, tab, ps = _inputs(13, 8, 32, 16, nkv, g, 128,
+                                 [0, 17, 64, 128, 200, 333, 480, 511], cuda)
+    n = 12 // mp
+    q0 = rank * n
+    lo, hi = q0 // g, (q0 + n - 1) // g
+    q = q.to(dtype)
+    mine = slice(q0, q0 + n)
+    ql = q[:, mine].contiguous()
+    kl, vl = (t[:, :, lo:hi + 1].contiguous() for t in (kp, vp))
+    hmap = dict(kv_group=g, head_offset=q0 - lo * g)
+    if quant:
+        fn, ref = pa.paged_attend_int8, pa.paged_attend_int8_ref
+        (kq, ks), (vq, vs) = quantize_kv(kl), quantize_kv(vl)
+        local = (ql, kq, vq, ks, vs, tab, ps)
+        whole = (q, *quantize_kv(kp)[:1], *quantize_kv(vp)[:1],
+                 quantize_kv(kp)[1], quantize_kv(vp)[1], tab, ps)
+    else:
+        fn, ref = pa.paged_attend, pa.paged_attend_ref
+        kl, vl, kp, vp = (t.to(dtype) for t in (kl, vl, kp, vp))
+        local = (ql, kl, vl, tab, ps)
+        whole = (q, kp, vp, tab, ps)
+    before = fn.launches
+    got = fn(*local, **hmap)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == dtype and got.shape == ql.shape
+    for want in (ref(*local, **hmap), ref(*whole)[:, mine]):
+        if dtype == torch.float16:
+            assert _fp16_over(got, want) <= 1
+        else:
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=0)
+
+
 def test_wrapper_rejects_a_cpu_cuda_mix(cuda):
     q, kp, vp, tab, pos = _inputs(8, 4, 4, 8, 2, 2, 16, [0, 5, 11, 31],
                                   cuda)

@@ -18,6 +18,8 @@ the JAX package.
 The CUDA kernels themselves are held against these plain versions on
 the card by ``tests/test_torch_gpu.py``.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -314,3 +316,90 @@ def test_split_merge_model_fp16_matches_pallas(split):
     out = pa._merge_splits_ref(m, l, acc, q.dtype)
     assert out.dtype == torch.float16 and acc.dtype == torch.float32
     assert _fp16_ulps(out.numpy(), want) <= 2
+
+
+# -- a tensor-parallel rank's heads ---------------------------------------------
+# A rank at mp holds q heads [rank * nh / mp, (rank + 1) * nh / mp) and a
+# pool of the kv heads those read; local q head i reads pool head
+# (i + head_offset) // kv_group. Its output is its slice of the whole
+# heads' output (the Pallas kernel on every head).
+
+RANK_CASES = {  # name: (nkv, q heads per kv head, mp)
+    "kv3_g4_mp2": (3, 4, 2),  # 12 q over 3 kv: rank 1 reads 1, 1, 2, 2, 2, 2
+    "kv1_g4_mp2": (1, 4, 2),
+    "kv2_g6_mp4": (2, 6, 4),  # 3 q heads a rank, one rank over both kv heads
+}
+
+
+def _rank_heads(nkv, g, mp, rank):
+    """(q head slice, kv head slice, kv_group, head_offset) of ``rank``,
+    as ``models/generation.py::_TensorParallel`` lays them out."""
+    heads = nkv * g // mp
+    q0 = rank * heads
+    lo = q0 // g
+    hi = (q0 + heads - 1) // g
+    return slice(q0, q0 + heads), slice(lo, hi + 1), g, q0 - lo * g
+
+
+def _rank_cases():
+    return [(name, r) for name, (_, _, mp) in RANK_CASES.items()
+            for r in range(mp)]
+
+
+@functools.cache
+def _every_head(name, int8):
+    """A case's inputs (int8: quantized pools and their scales) and the
+    Pallas kernel's output over every head, once per case."""
+    nkv, g, _ = RANK_CASES[name]
+    q, kp, vp, tab, pos = _inputs(seed=11, permute=True, nkv=nkv, g=g)
+    if not int8:
+        return (q, kp, vp, tab, pos), np.asarray(jpa.paged_attend(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(tab), jnp.asarray(pos), window=6, interpret=True))
+    kq, ks = (np.asarray(a) for a in jax_quantize_kv(jnp.asarray(kp)))
+    vq, vs = (np.asarray(a) for a in jax_quantize_kv(jnp.asarray(vp)))
+    return (q, kq, vq, ks, vs, tab, pos), np.asarray(jpa.paged_attend_int8(
+        *(jnp.asarray(a) for a in (q, kq, vq, ks, vs, tab, pos)), window=6,
+        interpret=True))
+
+
+@pytest.mark.parametrize("name,rank", _rank_cases())
+@pytest.mark.parametrize("int8", [False, True])
+def test_rank_heads_match_pallas_slice(name, rank, int8):
+    """The plain versions and the split-K model on one rank's heads equal
+    the rank's slice of the Pallas kernel over every head."""
+    nkv, g, mp = RANK_CASES[name]
+    qs, kvs, group, off = _rank_heads(nkv, g, mp, rank)
+    heads = dict(kv_group=group, head_offset=off)
+    arrays, want = _every_head(name, int8)
+    want = want[:, qs]
+    if int8:
+        q, kq, vq, ks, vs, tab, pos = arrays
+        local = _t(q[:, qs], kq[:, :, kvs], vq[:, :, kvs], ks[:, :, kvs],
+                   vs[:, :, kvs], tab, pos)
+        got = pa.paged_attend_int8(*local, window=6, **heads)
+        scales = dict(kscale=local[3], vscale=local[4])
+        local = local[:3] + local[5:]
+    else:
+        q, kp, vp, tab, pos = arrays
+        local = _t(q[:, qs], kp[:, :, kvs], vp[:, :, kvs], tab, pos)
+        got = pa.paged_attend(*local, window=6, **heads)
+        scales = {}
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+    m, l, acc = pa._split_partials_ref(*local, window=6, split=B, **scales,
+                                       **heads)
+    assert m.shape == (L, qs.stop - qs.start, M)
+    np.testing.assert_allclose(
+        pa._merge_splits_ref(m, l, acc, torch.float32).numpy(), want,
+        atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (4, -1), (2, 1), (0, 0)])
+def test_paged_attend_rejects_a_head_map_past_the_pool(heads):
+    """``kv_group`` and ``head_offset`` must map every q head onto a kv
+    head of the pool, the offset inside one group."""
+    q, kp, vp, tab, pos = _t(*_inputs(seed=12, nkv=2, g=4))
+    group, off = heads
+    with pytest.raises(ValueError):
+        pa.paged_attend(q[:, :6], kp, vp, tab, pos, kv_group=group,
+                        head_offset=off)
