@@ -224,6 +224,16 @@ only a run in which every phase passed prints the final line:
    plain model and optimizer: every tensor's sha1 equals the ranks'
    gathered state's, the next loss within 1e-3 of the ranks'; save and
    load GB/s (parameters only, said so, where the disk has no room);
+   (e) four ranks sharing the card over gloo, one spawn: the dense
+   headline step (all 12 layers) at mp 2 x sharding 2 under os_g and
+   p_g_os (4 rows and 6 heads a rank, 2 eager steps each; each slice
+   is a quarter), and (a)'s MoE Llama, its depth cut to 6, at dp 2 x
+   sharding 2 with its experts over sharding (4 a rank) under os_g (2
+   rows a rank, 2 eager steps): losses and step 1's gradients against
+   one card (for the MoE the same depth, eager) as in (c) and (b), each
+   rank's masters and moments beside (c)'s, its parameters, peak,
+   launches and ms a step; kernels 1-3 at both ranks' shapes against
+   their plain versions;
 21. the reference's hybrid step (``__graft_entry__.py``'s
    ``dryrun_multichip``): (a) ``LlamaForCausalLMPipe`` at the 0.44B
    widths, depth 4 (2 layers a stage), 8 experts a layer over dp
@@ -4070,16 +4080,24 @@ def phase_context(card):
 # T = 8192 tokens and C = ceil(2 * 8192 / 8 * 1.25) = 2560 slots
 MOE = dict(TRAIN, moe_num_experts=8, moe_top_k=2, moe_aux_loss_coeff=0.01)
 MOE_STEPS = 5
-# the MoE Llama's step-1 gradient leaves, held as 17c's are (relative
-# Frobenius error, FLEET_GRAD_REL_TOL); the experts' every 16th hidden
-# unit (4 of their 12.6 M a leaf would be 200 MB in fp32)
-MOE_GRAD_LEAVES = tuple(
-    f"llama.layers.{i}.{leaf}"
-    for i in (0, FULL["num_hidden_layers"] - 1)
-    for leaf in ("input_layernorm.weight", "self_attn.qkv_proj.weight",
-                 "self_attn.o_proj.weight", "post_attention_layernorm.weight",
-                 "mlp.gate_weight", "mlp.w_in", "mlp.w_out")) + (
-    "llama.norm.weight", "llama.embed_tokens.weight", "lm_head.weight")
+
+
+def _moe_leaf_names(layers):
+    """The MoE Llama's step-1 gradient leaves, held as 17c's are
+    (relative Frobenius error, FLEET_GRAD_REL_TOL): its first and last
+    layers', the final norm's, the embedding's and the LM head's (the
+    experts' every 16th hidden unit: 4 of their 12.6 M a leaf would be
+    200 MB in fp32)."""
+    return tuple(
+        f"llama.layers.{i}.{leaf}"
+        for i in (0, layers - 1)
+        for leaf in ("input_layernorm.weight", "self_attn.qkv_proj.weight",
+                     "self_attn.o_proj.weight",
+                     "post_attention_layernorm.weight", "mlp.gate_weight",
+                     "mlp.w_in", "mlp.w_out")) + (
+        "llama.norm.weight", "llama.embed_tokens.weight", "lm_head.weight")
+
+
 # 20b's later steps: at step 1 the ranks' loss equals one card's (the
 # global gate routes every token alike) and the gradients differ by the
 # bf16 roundings of the dp sum (each rank's partial gradient, then the
@@ -4102,23 +4120,47 @@ OFFLOAD_SAVING = 0.9
 ZERO_LEVELS = (("os_g", False), ("p_g_os", False), ("os_g", True))
 ZERO_STEPS = 2  # 20c's eager steps a level (step 1's gradients held)
 CKPT_TOL = 1e-3
+# 20e: four ranks sharing the card on gloo, one spawn: (i) the train cell
+# (all 12 layers) at mp 2 x sharding 2 under each of these levels,
+# ZERO_STEPS eager steps a level; (ii) 20a's MoE Llama at dp 2 x
+# sharding 2 with its experts over sharding, under os_g, ZERO_STEPS
+# eager steps (step 1 held at FLEET_CHECK_TOL, step 2 at MOE_DRIFT_TOL)
+ZERO_MP_LEVELS = ("os_g", "p_g_os")
+# (ii)'s depth is cut 12 -> 6: at 12 its four ranks' peaks (17.6 GiB
+# each, 7.9 of it masters and moments) did not fit on the card beside
+# what the run's main process holds by phase 20 (the whole run ran out
+# of memory there; --phases 20 alone fitted, NVIDIA H100 80GB HBM3,
+# 700 W); its yardstick is one card at the same depth, eager
+MOE_SHARDING = dict(MOE, num_hidden_layers=6, moe_expert_axis="sharding")
+# kernels 1-3 at the shapes 20e's ranks hand them: (i) 4 rows and 6
+# heads, (ii) 2 rows and 12 heads
+ZERO_MP_FLASH_CASE = ("mp 2 x sharding 2 rank", TRAIN_BATCH // 2, TRAIN_SEQ,
+                      TRAIN_SEQ, 6, 6, True, 0, 128)
+MOE_SHARDING_FLASH_CASE = ("dp 2 x sharding 2 rank", TRAIN_BATCH // 4,
+                           TRAIN_SEQ, TRAIN_SEQ, 12, 12, True, 0, 128)
 
 
-def _moe_grad_leaves(model):
-    """MOE_GRAD_LEAVES of the model's gradients as global fp32 arrays (an
-    expert leaf gathered over dp: collective under dp > 1); the
+def _moe_grad_leaves(model, opt=None):
+    """The model's gradient leaves (``_moe_leaf_names``) as global fp32
+    arrays (an expert leaf gathered over its axis, and under ZeRO,
+    ``opt._zero``, each slice over the ZeRO axis: collective); the
     vocab-sized ones every 8th vocab row, the experts every 16th hidden
     unit."""
     from paddle_tpu_torch.distributed.shard import gather_global
 
     params = dict(model.named_parameters())
+    plan = getattr(opt, "_zero", None)
     out = {}
-    for n in MOE_GRAD_LEAVES:
+    for n in _moe_leaf_names(model.config.num_hidden_layers):
         p = params[n]
-        g = p.grad.detach()
-        lay = getattr(p, "_dist_layout", None)
-        if lay is not None:
-            g = gather_global(g.contiguous(), lay)
+        if plan is not None:
+            (_, g), = plan.params_grads([p])
+            g = plan.full(p, g)
+        else:
+            g = p.grad.detach()
+            lay = getattr(p, "_dist_layout", None)
+            if lay is not None:
+                g = gather_global(g.contiguous(), lay)
         if n == "llama.embed_tokens.weight":
             g = g[::8]
         elif n == "lm_head.weight":
@@ -4285,15 +4327,15 @@ def _steer_choices(moe, forced=None):
     return got
 
 
-def _moe_fp32_one_card(ids, labels):
-    """The fp32 witness's yardstick: the MoE Llama in fp32 on one card,
-    3 eager steps. Returns (losses, step 1's gradient leaves, step 1's
-    buffer rows)."""
-    model = _moe_model(cfg=MOE_FP32)
+def _moe_eager_one_card(ids, labels, cfg=MOE_FP32, steps=FLEET_STEPS):
+    """A yardstick of eager ranks (the fp32 witness's, 20e's): the MoE
+    Llama (``cfg``) on one card, ``steps`` eager steps. Returns (losses,
+    step 1's gradient leaves, step 1's buffer rows)."""
+    model = _moe_model(cfg=cfg)
     opt = _fleet_optimizer(model)
     routes = _next_routes([blk.mlp for blk in model.llama.layers])
     losses = []
-    for i in range(FLEET_STEPS):
+    for i in range(steps):
         opt.clear_grad()
         loss = model(ids, labels)
         loss.backward()
@@ -4404,18 +4446,13 @@ def _state_bytes(opt, device):
 
 def _zero_grad_leaves(model, opt):
     """FLEET_GRAD_LEAVES of a ZeRO optimizer's gradient slices, gathered
-    whole (collective)."""
-    from paddle_tpu_torch.distributed.shard import gather_global
-
+    whole (over the ZeRO axis, then over mp; collective)."""
     names = {id(p): n for n, p in model.named_parameters()}
     got = {}
     for p, g in opt._params_grads():
         n = names[id(p)]
         if n in FLEET_GRAD_LEAVES:
-            lay = getattr(p, "_zero_layout", None)
-            if lay is not None:
-                g = gather_global(g.contiguous(), lay)
-            got[n] = g.detach().float().cpu().numpy()
+            got[n] = opt._zero.full(p, g).float().cpu().numpy()
     return _pick_leaves(got)
 
 
@@ -4514,6 +4551,161 @@ def _rank_20c(root, ids, labels, ckpt, with_states):
     dist.destroy_process_group()
 
 
+def _eager_zero_steps(model, opt, ids, labels, steps, leaves):
+    """``steps`` eager steps of a ZeRO rank, kernels 1-3 counted from 0;
+    step 1's gradient ``leaves(model, opt)`` taken outside the step's
+    time. Returns (the readings, the leaves)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in FLASH_WRAPPERS:
+        w.launches = 0
+    losses, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        opt.clear_grad()
+        loss = model(ids, labels)
+        loss.backward()
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 -= time.perf_counter()
+            got = leaves(model, opt)
+            t0 += time.perf_counter()
+        opt.step()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "ms": ms,
+            "launches": {w.__name__: w.launches for w in FLASH_WRAPPERS},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "states_device": _state_bytes(opt, "cuda"),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}, got
+
+
+def _rank_20e(root, ids, labels):
+    """One of 20e's four ranks sharing the card: (ii) first, while no
+    hybrid group is up to cut the one-card model's experts: the MoE Llama
+    at dp 2 x sharding 2, experts over sharding, under os_g, from the
+    one-card weights; then (i) the train cell at mp 2 x sharding 2 under
+    each of ZERO_MP_LEVELS."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    dist = _rank_setup(root)
+    rank = dist.get_rank()
+    out, arrays = {}, {}
+    full = _moe_model(cfg=MOE_SHARDING)  # no hybrid group yet: every expert
+    weights = {n: p.detach() for n, p in full.named_parameters()}
+    fleet.init(is_collective=True, strategy=_strategy(dp=2, sharding=2))
+    model = _moe_model(1, MOE_SHARDING)
+    load_jax_weights(model, weights)
+    del full, weights
+    _release()
+    # the batch rank dp * 2 + sharding is the global rank here
+    rows = slice(rank * TRAIN_BATCH // 4, (rank + 1) * TRAIN_BATCH // 4)
+    x, y = (torch.from_numpy(a[rows]).cuda() for a in (ids, labels))
+    model, opt, _ = group_sharded_parallel(model, _fleet_optimizer(model),
+                                           level="os_g")
+    moe = [blk.mlp for blk in model.llama.layers]
+    routes = _next_routes(moe)
+    run, got = _eager_zero_steps(model, opt, x, y, ZERO_STEPS,
+                                 _moe_grad_leaves)
+    out["moe"] = dict(run, experts=moe[0].w_in.shape[0],
+                      dispatched=[[int(v) for v in m.dispatched]
+                                  for m in moe])
+    arrays.update({f"moe/{n}": a for n, a in got.items()})
+    arrays["moe/routes"] = np.stack(routes)
+    del model, opt, moe
+    _release()
+    # (i): global rank = sharding * 2 + mp; a sharding rank's half
+    sh = rank // 2
+    rows = slice(sh * TRAIN_BATCH // 2, (sh + 1) * TRAIN_BATCH // 2)
+    x, y = (torch.from_numpy(a[rows]).cuda() for a in (ids, labels))
+    for level in ZERO_MP_LEVELS:
+        fleet.init(is_collective=True, strategy=_strategy(mp=2, sharding=2))
+        model = LlamaForCausalLM(LlamaConfig(**TRAIN), device="cuda",
+                                 generator=torch.Generator("cuda")
+                                 .manual_seed(0))
+        model, opt, _ = group_sharded_parallel(
+            model, _fleet_optimizer(model), level=level)
+        run, got = _eager_zero_steps(model, opt, x, y, ZERO_STEPS,
+                                     _zero_grad_leaves)
+        out[level] = dict(run, heads=model.llama.layers[0].self_attn._nh)
+        arrays.update({f"{level}/{n}": a for n, a in got.items()})
+        del model, opt
+        _release()
+    _save_rank(root, out, arrays)
+    dist.destroy_process_group()
+
+
+def _phase_20e(card, ids, labels, zero_20c):
+    """20e's four ranks (see ``_rank_20e``) held against one card: (i)
+    against ``_one_card()``'s losses and step 1's gradients, each rank's
+    masters and moments beside 20c's sharding-2 reading (``zero_20c``:
+    bytes a rank); (ii) step 1 against one card's eager step at its
+    depth, step 2 within MOE_DRIFT_TOL. Returns the launches of a rank of
+    each leg."""
+    layers = TRAIN["num_hidden_layers"]
+    (p_loss, _, p_peak, _, _), ref_grads = _one_card()
+    one, one_grads, one_routes = _moe_eager_one_card(
+        ids, labels, MOE_SHARDING, ZERO_STEPS)
+    ranks, arrays, wall = _spawn_ranks(
+        _rank_20e, (ids.cpu().numpy(), labels.cpu().numpy()), n=4)
+    launches = {}
+    for level in ZERO_MP_LEVELS:
+        for o in ranks:
+            r = o[level]
+            log(f"[experts] 20e: rank {o['rank']} of 4 sharing {card}, "
+                f"ZeRO {level} at mp 2 x sharding 2 on "
+                f"gloo, {TRAIN_BATCH // 2} rows, {r['heads']} heads: losses "
+                f"{r['losses']}, masters and moments "
+                f"{r['states_device'] / 2**30:.3f} GiB (20c at sharding 2: "
+                f"{zero_20c['states'] / 2**30:.3f}; ratio "
+                f"{r['states_device'] / zero_20c['states']:.4f}), parameters "
+                f"{r['param_bytes'] / 2**30:.3f} GiB (20c "
+                f"{zero_20c[level] / 2**30:.3f}), peak {r['peak_gib']:.3f} "
+                f"GiB (one card {p_peak:.3f}), kernels 1-3 {r['launches']}, "
+                f"ms a step {[round(x, 1) for x in r['ms']]} (host-staged)")
+        _hold("experts", f"20e mp 2 x sharding 2 {level}",
+              [dict(o[level], rank=o["rank"]) for o in ranks],
+              [{n[len(level) + 1:]: a for n, a in got.items()
+                if n.startswith(level + "/")} for got in arrays],
+              p_loss[:ZERO_STEPS], ref_grads,
+              {r: layers * ZERO_STEPS for r in range(4)})
+        if any(o[level]["heads"] != 6 for o in ranks):
+            raise AssertionError(f"20e {level}: a rank does not run 6 heads")
+        launches[level] = ranks[0][level]["launches"]
+    moe = [dict(o["moe"], rank=o["rank"]) for o in ranks]
+    got = [{n[4:]: a for n, a in a_.items() if n.startswith("moe/")}
+           for a_ in arrays]
+    for o in moe:
+        log(f"[experts] 20e: rank {o['rank']} of 4 sharing {card}, the MoE "
+            f"Llama ({MOE_SHARDING['num_hidden_layers']} layers) at dp 2 x "
+            f"sharding 2 on gloo, experts over sharding, "
+            f"ZeRO os_g: {o['experts']} experts a layer here, "
+            f"{TRAIN_BATCH // 4} rows, losses {o['losses']}, masters and "
+            f"moments {o['states_device'] / 2**30:.3f} GiB, parameters "
+            f"{o['param_bytes'] / 2**30:.3f} GiB, peak {o['peak_gib']:.3f} "
+            f"GiB, kernels 1-3 {o['launches']}, ms a step "
+            f"{[round(x, 1) for x in o['ms']]} (host-staged), tokens "
+            f"dispatched a layer at step {ZERO_STEPS} {o['dispatched']}")
+    drift = _moe_drift("20e experts over sharding", moe, got, one, one_routes)
+    _hold("experts", "20e MoE step 1", moe, got, one[:1], one_grads,
+          {r: MOE_SHARDING["num_hidden_layers"] * ZERO_STEPS
+           for r in range(4)})
+    if any(o["experts"] != MOE["moe_num_experts"] // 2 for o in moe):
+        raise AssertionError("20e: a rank does not hold half the experts")
+    if not drift <= MOE_DRIFT_TOL:
+        raise AssertionError(f"20e: the MoE losses left one card's by "
+                             f"{drift}")
+    log(f"[experts] 20e: spawn to join {wall:.1f} s")
+    for i, case in enumerate((ZERO_MP_FLASH_CASE, MOE_SHARDING_FLASH_CASE)):
+        _flash_check(case, torch.Generator("cuda").manual_seed(24 + i),
+                     fused=True)
+    launches["moe"] = moe[0]["launches"]
+    return launches
+
+
 def _load_20d(ckpt, with_states, want, ids, labels):
     """20d at one rank: the checkpoint into the plain model (and AdamW);
     every tensor's digest against the ZeRO ranks', the next loss against
@@ -4557,8 +4749,10 @@ def phase_experts(card, fault=False, fp32_witness=False):
     experts over dp 2 (two ranks on gloo), in bf16 and in fp32; 20c ZeRO
     at sharding 2 (two ranks, os_g, p_g_os, os_g with offload) on the
     dense cell; 20d the p_g_os ranks' sharded checkpoint loaded at one
-    rank. ``fault``: rank 1's experts are never updated in 20b;
-    ``fp32_witness``: 20b again in fp32, read and not held."""
+    rank; 20e four ranks: ZeRO at mp 2 x sharding 2 on the dense cell,
+    and the MoE Llama at dp 2 x sharding 2 with its experts over
+    sharding under os_g. ``fault``: rank 1's experts are never updated
+    in 20b; ``fp32_witness``: 20b again in fp32, read and not held."""
     import shutil
     import tempfile
 
@@ -4594,7 +4788,7 @@ def phase_experts(card, fault=False, fp32_witness=False):
     log(f"[experts] 20b: spawn to join {wall:.1f} s")
     if fp32_witness:
         t_fp32 = time.perf_counter()
-        one32, grads32, routes32 = _moe_fp32_one_card(ids, labels)
+        one32, grads32, routes32 = _moe_eager_one_card(ids, labels)
         ranks32, arrays32, _ = _spawn_ranks(_rank_20b,
                                             batch + (MOE_FP32, fault))
         err = _grad_errors(arrays32, grads32)
@@ -4663,6 +4857,9 @@ def phase_experts(card, fault=False, fp32_witness=False):
                         f"20c: offload's peak is not below {level}'s by "
                         f"the states: {saved} GiB, want {want:.3f}")
         c_launches = ranks[0]["p_g_os"]["launches"]
+        zero_20c = {"states": ranks[0]["os_g"]["states_device"],
+                    "os_g": ranks[0]["os_g"]["param_bytes"],
+                    "p_g_os": ranks[0]["p_g_os"]["param_bytes"]}
         log(f"[experts] 20c: spawn to join {wall:.1f} s")
         save = [o["save"] for o in ranks]
         secs, nbytes, loss, n = _load_20d(ckpt, with_states,
@@ -4683,9 +4880,11 @@ def phase_experts(card, fault=False, fp32_witness=False):
                                  f"the ranks' by {diff}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # 20e
+    e_launches = _phase_20e(card, ids, labels, zero_20c)
     log(f"[experts] phase {time.perf_counter() - t_phase:.1f} s")
     return {"20a": a["launches"], "20b": b_launches,
-            "20c": c_launches}
+            "20c": c_launches, "20e": e_launches}
 
 
 # -- phase 21 -----------------------------------------------------------------
@@ -7684,7 +7883,12 @@ def main():
     log(f"[done] launches of kernels 1-3 on the MoE Llama (phase 20a, "
         f"{MOE_STEPS} replays): {experts['20a']}; a rank at dp 2 (20b, "
         f"{FLEET_STEPS} steps): {experts['20b']}; a ZeRO p_g_os rank (20c, "
-        f"{FLEET_STEPS} steps): {experts['20c']}")
+        f"{ZERO_STEPS} steps): {experts['20c']}; a rank at mp 2 x "
+        f"sharding 2 (20e, 6 heads, {ZERO_STEPS} steps a level): "
+        f"{experts['20e']['os_g']} (os_g), {experts['20e']['p_g_os']} "
+        f"(p_g_os); the MoE Llama at dp 2 x sharding 2 (20e, "
+        f"{MOE_SHARDING['num_hidden_layers']} layers, experts over "
+        f"sharding, {ZERO_STEPS} steps): {experts['20e']['moe']}")
     log(f"[done] launches a rank on the hybrid phase (21, each kernel's "
         f"per rank over its run): "
         + "; ".join(f"{k} {v}" for k, v in hybrid.items()))

@@ -11,14 +11,15 @@ Counterpart of ``paddle_tpu/distributed/checkpoint.py``, in its format
 its regions come from its sharding; here each rank holds its piece of
 the global tensor, and the regions come from the tensor's layout
 (``_dist_layout``, a ``shard.Layout``, as a tensor-parallel, expert or
-ZeRO ``p_g_os`` parameter records it; :func:`optimizer_state` gives an
-optimizer's states and masters with theirs): one region per segment of
-the sharded dim, so a fused weight's rank writes one region per
-segment. A tensor without a layout is whole on every rank that holds
-it, as is a number. The ranks exchange the regions they hold (one
-``all_gather_object``); each region is written by the lowest rank that
-holds it, and the coordinator writes the index after a barrier, its
-presence the mark of a complete checkpoint (written atomically).
+ZeRO ``p_g_os`` parameter records it, both cuts under mp x ZeRO;
+:func:`optimizer_state` gives an optimizer's states and masters with
+theirs): one region per segment of each cut dim, so a fused weight's
+rank writes one region per segment. A tensor without a layout is whole
+on every rank that holds it, as is a number. The ranks exchange the
+regions they hold (one ``all_gather_object``); each region is written
+by the lowest rank that holds it, and the coordinator writes the index
+after a barrier, its presence the mark of a complete checkpoint
+(written atomically).
 
 Load reads, for each destination tensor, only this rank's regions (its
 layout's), each from the overlapping byte ranges of the region files
@@ -49,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..framework.io import to_tensor
-from .shard import _split_local, grad_layout
+from . import shard
 
 __all__ = ["save_state_dict", "load_state_dict", "load_checkpoint",
            "wait_all", "is_complete", "atomic_write_json",
@@ -120,8 +121,8 @@ def _host(t):
 
 def _pieces(t):
     """This rank's regions of ``t`` as ``{tag: (bounds, local tensor or
-    value)}`` and its global shape: one region per segment of its
-    layout's sharded dim, or the whole tensor."""
+    value)}`` and its global shape: one region per segment of each cut
+    dim of its layout (``shard.regions``), or the whole tensor."""
     layout = getattr(t, "_dist_layout", None) \
         if isinstance(t, torch.Tensor) else None
     if layout is None:
@@ -129,30 +130,14 @@ def _pieces(t):
             else list(np.shape(t))
         bounds = [[0, d] for d in shape]
         return {_region_tag(bounds): (bounds, t)}, shape
-    from .shard import _n_rank
-
-    n, rank = _n_rank(layout.axis)
-    shape = list(layout.shape)
-    out, off = {}, 0
-    for (size, sharded), part in zip(layout.segments,
-                                     _split_local(t, layout, n)):
-        lo, hi = (off + rank * (size // n), off + (rank + 1) * (size // n)) \
-            if sharded else (off, off + size)
-        bounds = [[0, d] for d in shape]
-        bounds[layout.dim] = [lo, hi]
-        out[_region_tag(bounds)] = (bounds, part)
-        off += size
-    return out, shape
+    return {_region_tag(b): (b, part)
+            for b, part, _ in shard.regions(t, layout)}, list(layout.shape)
 
 
 def _spec(t):
     layout = getattr(t, "_dist_layout", None) \
         if isinstance(t, torch.Tensor) else None
-    if layout is None:
-        return None
-    parts = [None] * len(layout.shape)
-    parts[layout.dim] = layout.axis
-    return parts
+    return None if layout is None else list(shard.layout_spec(layout))
 
 
 def _world():
@@ -530,7 +515,7 @@ def optimizer_state(optimizer):
             continue
         name = optimizer._name(p) or f"param_{i}"
         optimizer._work(p, p.detach())  # makes them, as a first step
-        layout = grad_layout(p)
+        layout = shard.grad_layout(p)
         tensors = dict(optimizer._accumulators[id(p)])
         if id(p) in optimizer._master_weights:
             tensors["master_weight"] = optimizer._master_weights[id(p)]

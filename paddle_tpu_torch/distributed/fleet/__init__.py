@@ -18,7 +18,9 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``:
   from GSPMD; Paddle's ``HybridParallelOptimizer`` does it in
   ``step``), by the same hooks ``DataParallel`` uses. A model with
   ``config.context_parallel`` holds a sequence chunk on each ``sep``
-  rank, so its gradients are summed over dp and sep together;
+  rank, so its gradients are summed over dp and sep together. A
+  parameter laid out over a batch axis (an expert over dp or sharding)
+  is summed over the other batch axes only;
 - :func:`distributed_optimizer` returns the optimizer, as the
   reference does: each tensor-parallel parameter records its layout
   (``shard.Layout``), from which the clips and Lamb take the group
@@ -97,7 +99,7 @@ def distributed_model(model):
     a context-parallel model, sep); else the model (see the module
     note)."""
     from ..collective import Group
-    from ..parallel import DataParallel, _batch_params, _sync_gradients
+    from ..parallel import DataParallel, _batch_sums, _sync_gradients
     from .meta_parallel.parallel_layers.pp_layers import PipelineLayer
     from .meta_parallel.pipeline_parallel import PipelineParallel
 
@@ -110,8 +112,10 @@ def distributed_model(model):
             and hcg.get_pipe_parallel_world_size() == 1:
         return DataParallel(model, group=group)
     if group.nranks > 1:
-        model._dp_sync_handles = _sync_gradients(
-            _batch_params(model.parameters(), group.axes), group._pair())
+        model._dp_sync_handles = [
+            h for sub, params in _batch_sums(model.parameters(), group.axes,
+                                             group._pair())
+            for h in _sync_gradients(params, sub)]
     return model
 
 

@@ -83,16 +83,18 @@ def _even(size, n, what):
 
 def _param(shape, init, dtype, device, generator, layout, n, rank):
     """A parameter drawn on its global ``shape`` by ``init`` and cut to
-    this rank's piece of ``layout`` (None: kept whole)."""
+    this rank's piece of ``layout`` at ``n > 1`` (at ``n`` 1 kept whole,
+    the dims the layout names recorded; None: whole, no dim named)."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     if generator is not False:
         init(w, generator)
     if layout is not None and n > 1:
-        w = shard.local_piece(w, layout, n, rank)
+        w = shard.local_piece(w, layout, [(n, rank)])
     p = nn.Parameter(w.to(dtype).contiguous())
-    if layout is not None:
-        shard.set_layout(p, layout.axis, layout.dim, layout.segments,
-                         layout.shape)
+    if layout is not None and n > 1:
+        shard.set_layout(p, layout)
+    elif layout is not None:
+        shard.annotate(p, *(c.dim for c in layout.cuts))
     return p
 
 
@@ -121,11 +123,9 @@ class VocabParallelEmbedding(nn.Module):
         self._n, self._rank, self._group = _axis_group("mp", mp_group)
         _even(num_embeddings, self._n, "num_embeddings (the vocab)")
         self._per = num_embeddings // self._n
-        layout = shard.Layout("mp", 0, ((num_embeddings, True),),
-                              (num_embeddings, embedding_dim))
+        layout = shard.cut_layout("mp", 0, (num_embeddings, embedding_dim))
         self.weight = _param((num_embeddings, embedding_dim), _normal(1.0),
-                             dtype, dev, generator,
-                             layout if self._n > 1 else None, self._n,
+                             dtype, dev, generator, layout, self._n,
                              self._rank)
 
     def forward(self, x):
@@ -186,15 +186,13 @@ class ColumnParallelLinear(nn.Module):
             if sharded:
                 _even(size, self._n, "a column-parallel output segment")
         self._rep = _replicated_cols(segs, self._n) if self.is_mp else None
-        wl = shard.Layout("mp", 1, segs, (in_features, out_features))
+        wl = shard.cut_layout("mp", 1, (in_features, out_features), segs)
         self.weight = _param((in_features, out_features), _xavier, dtype,
-                             dev, generator, wl if self.is_mp else None,
-                             self._n, self._rank)
+                             dev, generator, wl, self._n, self._rank)
         has_bias = True if has_bias is None else has_bias
-        bl = shard.Layout("mp", 0, segs, (out_features,))
+        bl = shard.cut_layout("mp", 0, (out_features,), segs)
         self.bias = _param((out_features,), _zeros, dtype, dev, generator,
-                           bl if self.is_mp else None, self._n, self._rank) \
-            if has_bias else None
+                           bl, self._n, self._rank) if has_bias else None
 
     def _enter(self, x):
         return _comm.copy_to(x, self._group)
@@ -229,11 +227,9 @@ class RowParallelLinear(nn.Module):
         self._n, self._rank, self._group = _axis_group("mp", mp_group)
         self.is_mp = self._n > 1
         _even(in_features, self._n, "a row-parallel input dim")
-        wl = shard.Layout("mp", 0, ((in_features, True),),
-                          (in_features, out_features))
+        wl = shard.cut_layout("mp", 0, (in_features, out_features))
         self.weight = _param((in_features, out_features), _xavier, dtype,
-                             dev, generator, wl if self.is_mp else None,
-                             self._n, self._rank)
+                             dev, generator, wl, self._n, self._rank)
         self.bias = _param((out_features,), _zeros, dtype, dev, generator,
                            None, 1, 0) if has_bias else None
 

@@ -233,10 +233,15 @@ class PipelineLayer(nn.Module):
             out.append((w, mine))
         return out
 
-    def allreduce_shared_weight_gradients(self):
+    def allreduce_shared_weight_gradients(self, zero=None):
         """Sum each shared weight's gradient over the stages that hold
-        it (collective over them)."""
+        it (collective over them). Under ZeRO (``zero``, the optimizer's
+        plan) the sum acts on the gradient as the plan holds it: this
+        rank's slice of it under ``os_g``."""
         for w, group in self._shared:
+            if zero is not None and zero.holds_grad(w):
+                zero.sum_grad(w, group)
+                continue
             g = w.grad if w.grad is not None else torch.zeros_like(w)
             w.grad = _comm.all_reduce(g.contiguous(), group)
 

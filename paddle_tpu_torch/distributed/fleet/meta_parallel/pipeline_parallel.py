@@ -38,8 +38,11 @@ is averaged over the microbatches, as Paddle does. The loss is then
 broadcast over the pp group, so every rank's ``train_batch`` returns
 it. ``train_batch`` then sums the shared weights' gradients over their
 stages, sums every gradient over the batch group once (after the last
-microbatch's backward; an expert laid out over dp is left as it is),
-and steps the optimizer; with a ``GradScaler`` the stages agree on
+microbatch's backward; an expert laid out over dp only over the other
+batch axes), and steps the optimizer. Under ZeRO
+(``group_sharded_parallel``) its hooks sum each backward's gradients
+over the batch group into this rank's slices instead, and the shared
+weights' sums act on the slices; with a ``GradScaler`` the stages agree on
 whether any gradient was not finite. The batch group is
 ``fleet.batch_axes`` of the layer's ``config``: dp, and sep for a
 context-parallel model, whose ranks hold sequence chunks.
@@ -70,7 +73,7 @@ import torch.distributed as dist
 from ... import _comm
 from ... import env as env_mod
 from ...collective import p2p
-from ...parallel import _batch_params
+from ...parallel import _batch_sums
 from .parallel_layers.pp_layers import PipelineLayer
 
 __all__ = ["PipelineParallel"]
@@ -186,6 +189,8 @@ class PipelineParallel:
         self._pp_pair = hcg.get_pipe_parallel_group()._pair()
         self._batch_axes = batch_axes(getattr(layers, "config", None))
         self._batch_pair = env_mod.ensure_env().group(self._batch_axes)
+        self._batch_sums = _batch_sums(layers.parameters(),
+                                       self._batch_axes, self._batch_pair)
 
     def __getattr__(self, name):
         return getattr(self.__dict__["_layers"], name)
@@ -357,24 +362,30 @@ class PipelineParallel:
         self.total_loss = self._broadcast_final_loss(total)
         return self.total_loss
 
-    def _reduce_gradients(self):
+    def _reduce_gradients(self, optimizer=None):
         """After the microbatches' backwards: each shared weight's
         gradient summed over its stages, then every gradient over the
-        batch group, once, in one all-reduce per dtype."""
-        self._layers.allreduce_shared_weight_gradients()
-        if len(self._batch_pair[0]) == 1:
+        batch group (an expert over dp over the other batch axes), once,
+        in one all-reduce per group and dtype. Under ZeRO
+        (``optimizer._zero``) the plan's hooks have summed every gradient
+        over the batch group already, each into this rank's slice, and
+        the shared weights' sums act on those."""
+        zero = getattr(optimizer, "_zero", None)
+        self._layers.allreduce_shared_weight_gradients(zero)
+        if zero is not None:
             return
-        by_dtype = {}
-        for p in _batch_params(self._layers.parameters(), self._batch_axes):
-            if p.grad is not None:
-                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for grads in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            _comm.all_reduce(flat, self._batch_pair)
-            off = 0
-            for g in grads:
-                g.copy_(flat[off:off + g.numel()].view_as(g))
-                off += g.numel()
+        for pair, params in self._batch_sums:
+            by_dtype = {}
+            for p in params:
+                if p.grad is not None:
+                    by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+            for grads in by_dtype.values():
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                _comm.all_reduce(flat, pair)
+                off = 0
+                for g in grads:
+                    g.copy_(flat[off:off + g.numel()].view_as(g))
+                    off += g.numel()
 
     def _found_inf_anywhere(self, scaler):
         """The scaler's ``found_inf`` maxed over every rank."""
@@ -390,7 +401,7 @@ class PipelineParallel:
         sums, the step (through ``scaler`` if given), ``clear_grad``,
         and ``lr_scheduler.step()``. Returns the loss."""
         loss = self.forward_backward_pipeline(data, scaler)
-        self._reduce_gradients()
+        self._reduce_gradients(optimizer)
         if scaler is not None:
             scaler.unscale_(optimizer)
             self._found_inf_anywhere(scaler)

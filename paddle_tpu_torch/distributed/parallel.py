@@ -18,12 +18,14 @@ The port runs one process per rank:
   divide by the global batch's count (``masked_token_mean``), so the sum
   is the gradient of the global mean, as in the reference; so gradients
   accumulated over several backwards sum each backward's part once. A
-  parameter laid out over the group's axes (an expert over dp) is not
-  summed: its gradient is whole on its rank.
+  parameter laid out over some of the group's axes (an expert over dp)
+  is summed over the others only: over its own its gradient is whole on
+  its rank.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import socket
 
@@ -126,16 +128,36 @@ class ParallelEnv:
     dev_id = device_id
 
 
-def _batch_params(params, axes):
-    """The parameters whose gradients a batch group over ``axes`` sums:
-    all but those laid out over one of ``axes`` (``shard.Layout``). Such
-    a parameter is not replicated there: each rank holds other experts
+def _batch_sums(params, axes, pair=None):
+    """``[(group, params)]``: the parameters whose gradients a batch group
+    over ``axes`` (its ``(ranks, process group)`` ``pair``; the mesh's
+    by default) sums, each under the group of the batch axes that its
+    layout does not cut (``shard.Layout``). Such a parameter is not
+    replicated over the axes it is cut on: each rank holds other experts
     (``MoELayer`` over dp), and its backward already sums every rank's
-    tokens into its gradient through the layer's collectives."""
-    axes = set(axes or ())
-    return [p for p in params
-            if getattr(getattr(p, "_dist_layout", None), "axis", None)
-            not in axes]
+    tokens on those axes into its gradient through the layer's
+    collectives; over the other batch axes it is summed as any other.
+    Groups of one rank are left out. Every group over a subset of
+    ``axes`` is made here, in one order on every rank."""
+    env = env_mod.ensure_env()
+    axes = env_mod._canon(axes) if axes else None
+    if axes is not None:
+        for k in range(1, len(axes)):
+            for sub in itertools.combinations(axes, k):
+                env.group(sub)
+    by_axes = {}
+    for p in params:
+        lay = getattr(p, "_dist_layout", None)
+        sub = axes if axes is None or lay is None \
+            else tuple(a for a in axes if a not in lay.axes)
+        if sub != ():
+            by_axes.setdefault(sub, []).append(p)
+    out = []
+    for sub, ps in by_axes.items():
+        g = pair if sub == axes and pair is not None else env.group(sub)
+        if len(g[0]) > 1:
+            out.append((g, ps))
+    return out
 
 
 def _sync_gradients(params, group, enabled=lambda: True):
@@ -209,9 +231,10 @@ class DataParallel:
         pair = group._pair()
         handles = []
         if len(pair[0]) > 1:
-            handles = _sync_gradients(
-                _batch_params(layers.parameters(), group.axes), pair,
-                lambda: self._sync[0])
+            for sub, params in _batch_sums(layers.parameters(), group.axes,
+                                           pair):
+                handles += _sync_gradients(params, sub,
+                                           lambda: self._sync[0])
         object.__setattr__(self, "_handles", handles)
 
     def __getattr__(self, name):

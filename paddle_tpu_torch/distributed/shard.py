@@ -8,15 +8,20 @@ chunks and the rank keeps the chunk at its place in the group. A dim
 that the axes do not divide stays whole, as the reference drops such an
 axis.
 
-A parameter records its layout (``_dist_layout``: the axis, the one
-sharded dim, the global shape and the dim's *segments*). A fused weight
-(the Llama's ``qkv_proj``, ``gate_up_proj``) is sharded segment by
-segment: the rank holds its chunk of each part of the dim, side by
-side, not the contiguous chunk of the whole, and a segment may be
-replicated (K and V when the mp degree does not divide their heads).
-:func:`local_piece`, :func:`gather_global` and :func:`global_sq_norms`
-read it; ``is_distributed`` is set on such a parameter, as Paddle sets
-it on its tensor-parallel weights.
+A parameter records its layout (``_dist_layout``, a :class:`Layout`):
+its global shape and its *cuts*, at most one a dim, as the reference
+never puts two axes on one dim. A cut is an axis, a dim and the dim's
+*segments*. A fused weight (the Llama's ``qkv_proj``, ``gate_up_proj``)
+is cut segment by segment: the rank holds its chunk of each part of the
+dim, side by side, not the contiguous chunk of the whole, and a segment
+may be replicated (K and V when the mp degree does not divide their
+heads). ZeRO adds an even cut of another dim (``add_cut``), so a weight
+at mp 2 x sharding 2 holds its sharding chunk of its mp piece.
+:func:`local_piece`, :func:`gather_global`, :func:`regions` and
+:func:`global_sq_norms` read every cut; ``is_distributed`` is set on
+such a parameter, as Paddle sets it on its tensor-parallel weights. A
+layer whose axis has degree 1 cuts nothing but records the dims it
+names (``annotate``), where ZeRO does not cut.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ from . import env as env_mod
 __all__ = ["PartitionSpec", "shard_tensor", "sharding_constraint",
            "replicate", "get_sharding", "shard_parameter", "local_piece",
            "gather_global", "global_sq_norms", "set_layout",
-           "grad_layout", "mark_local", "place"]
+           "grad_layout", "mark_local", "place", "Cut", "Layout",
+           "cut_layout", "add_cut", "layout_spec", "regions", "annotate"]
 
 
 class PartitionSpec(tuple):
@@ -43,11 +49,49 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple(self)!r}"
 
 
+class Cut(NamedTuple):
+    axis: str         # the mesh axis
+    dim: int          # the dim it cuts
+    segments: tuple   # ((global size, cut?), ...) along dim
+
+
 class Layout(NamedTuple):
-    axis: str         # the mesh axis of the sharded dim
-    dim: int          # the sharded dim
-    segments: tuple   # ((global size, sharded?), ...) along dim
+    """How a rank's tensor lies in the global one: its cuts, at most one
+    a dim (the tensor-parallel or expert cut first, then ZeRO's), and
+    the global shape."""
+    cuts: tuple       # Cut, ...
     shape: tuple      # the global shape
+
+    @property
+    def axes(self):
+        return tuple(c.axis for c in self.cuts)
+
+
+def cut_layout(axis, dim, shape, segments=None):
+    """A layout of one cut: ``dim`` of ``shape`` over ``axis``, by its
+    ``segments`` (one cut segment by default)."""
+    shape = tuple(shape)
+    dim %= len(shape)
+    segs = tuple(segments) if segments else ((shape[dim], True),)
+    return Layout((Cut(axis, dim, segs),), shape)
+
+
+def add_cut(layout, axis, dim, shape=None):
+    """``layout`` (None: whole, of ``shape``) with an even cut of ``dim``
+    over ``axis`` added."""
+    shape = tuple(layout.shape if layout is not None else shape)
+    cuts = layout.cuts if layout is not None else ()
+    if any(c.dim == dim for c in cuts):
+        raise ValueError(f"dim {dim} is cut already: {layout}")
+    return Layout(cuts + (Cut(axis, dim, ((shape[dim], True),)),), shape)
+
+
+def layout_spec(layout):
+    """The ``PartitionSpec`` of a layout (an axis on each cut dim)."""
+    parts = [None] * len(layout.shape)
+    for c in layout.cuts:
+        parts[c.dim] = c.axis
+    return PartitionSpec(*parts)
 
 
 def _pair(axes):
@@ -65,9 +109,7 @@ def get_sharding(t):
     None."""
     lay = getattr(t, "_dist_layout", None)
     if lay is not None:
-        parts = [None] * len(lay.shape)
-        parts[lay.dim] = lay.axis
-        return PartitionSpec(*parts)
+        return layout_spec(lay)
     return getattr(t, "_sharding_spec", None)
 
 
@@ -158,57 +200,97 @@ def _n_rank(axis):
     return len(ranks), ranks.index(env_mod.ensure_env().rank)
 
 
-def local_piece(full, layout: Layout, n=None, rank=None):
-    """This rank's part of the global tensor ``full`` (each segment's
-    chunk, or the whole replicated segment, side by side)."""
-    if n is None:
-        n, rank = _n_rank(layout.axis)
-    pieces, off = [], 0
-    for size, sharded in layout.segments:
-        if sharded:
-            if size % n:
-                raise ValueError(
-                    f"dim {layout.dim} segment of size {size} does not "
-                    f"split evenly over mp = {n}")
-            pieces.append(full.narrow(layout.dim, off + rank * (size // n),
-                                      size // n))
-        else:
-            pieces.append(full.narrow(layout.dim, off, size))
-        off += size
-    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, layout.dim)
+def _local_sizes(cut, n):
+    return [size // n if sharded else size for size, sharded in cut.segments]
 
 
-def _split_local(t, layout: Layout, n):
-    """The local tensor's segments (chunks and replicated parts)."""
-    sizes = [size // n if sharded else size
-             for size, sharded in layout.segments]
-    return list(torch.split(t, sizes, dim=layout.dim))
+def local_piece(full, layout: Layout, places=None):
+    """This rank's part of the global tensor ``full``: along each cut's
+    dim, each segment's chunk (or the whole replicated segment), side by
+    side. ``places``: ``(count, index)`` on each cut's group (by default
+    the mesh axes')."""
+    out = full
+    for i, cut in enumerate(layout.cuts):
+        n, rank = places[i] if places is not None else _n_rank(cut.axis)
+        pieces, off = [], 0
+        for size, sharded in cut.segments:
+            if sharded:
+                if size % n:
+                    raise ValueError(
+                        f"dim {cut.dim} segment of size {size} does not "
+                        f"split evenly over {cut.axis} = {n}")
+                pieces.append(out.narrow(cut.dim, off + rank * (size // n),
+                                         size // n))
+            else:
+                pieces.append(out.narrow(cut.dim, off, size))
+            off += size
+        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, cut.dim)
+    return out
+
+
+def regions(local, layout: Layout):
+    """The parts of this rank's tensor ``local``: ``[(bounds, part,
+    axes)]``, one for each segment of every cut dim, ``bounds`` the
+    part's ``[start, stop)`` in the global tensor on each dim and
+    ``axes`` the axes that cut it (a segment a cut replicates is not cut
+    by that axis)."""
+    out = [([[0, d] for d in layout.shape], local, ())]
+    for cut in layout.cuts:
+        n, rank = _n_rank(cut.axis)
+        split = []
+        for bounds, t, axes in out:
+            off = 0
+            for (size, sharded), part in zip(
+                    cut.segments, torch.split(t, _local_sizes(cut, n),
+                                              dim=cut.dim)):
+                b = [list(x) for x in bounds]
+                k = size // n
+                b[cut.dim] = [off + rank * k, off + (rank + 1) * k] \
+                    if sharded else [off, off + size]
+                split.append((b, part, axes + (cut.axis,) * sharded))
+                off += size
+        out = split
+    return out
+
+
+def _gather_cut(local, cut):
+    pair = _pair(cut.axis)
+    n = len(pair[0])
+    if n == 1:
+        return local
+    split = [torch.split(p, _local_sizes(cut, n), dim=cut.dim)
+             for p in _comm.all_gather_list(local.contiguous(), pair)]
+    out = []
+    for j, (_, sharded) in enumerate(cut.segments):
+        out.append(torch.cat([s[j] for s in split], cut.dim)
+                   if sharded else split[0][j])
+    return torch.cat(out, cut.dim)
 
 
 def gather_global(local, layout: Layout):
     """The global tensor from every member's local part (collective over
-    the layout's axis)."""
-    pair = _pair(layout.axis)
-    n = len(pair[0])
-    if n == 1:
-        return local
-    parts = _comm.all_gather_list(local, pair)
-    split = [_split_local(p, layout, n) for p in parts]
-    out = []
-    for j, (_, sharded) in enumerate(layout.segments):
-        out.append(torch.cat([s[j] for s in split], layout.dim)
-                   if sharded else split[0][j])
-    return torch.cat(out, layout.dim)
+    each cut's axis, the last cut first)."""
+    for cut in reversed(layout.cuts):
+        local = _gather_cut(local, cut)
+    return local
 
 
-def set_layout(param, axis, dim, segments=None, shape=None):
-    """Record ``param``'s layout (its global ``shape``, the ``segments``
-    of ``dim``, one sharded segment by default) and mark it
-    ``is_distributed``."""
-    shape = tuple(shape if shape is not None else param.shape)
-    segs = tuple(segments) if segments else ((shape[dim], True),)
-    param._dist_layout = Layout(axis, dim % len(shape), segs, shape)
-    param.is_distributed = any(s for _, s in segs)
+def annotate(param, *dims):
+    """Record the dims ``param``'s layer names a mesh axis on, whatever
+    the axis's degree (``_axis_dims``): ZeRO cuts another dim, as the
+    reference adds its axis to the first dim its spec leaves free."""
+    param._axis_dims = frozenset(getattr(param, "_axis_dims", ())) \
+        | {d % param.dim() for d in dims}
+    return param
+
+
+def set_layout(param, layout: Layout):
+    """Record ``param``'s layout and mark it ``is_distributed`` (when a
+    segment is cut)."""
+    param._dist_layout = layout
+    annotate(param, *(c.dim for c in layout.cuts))
+    param.is_distributed = any(s for c in layout.cuts
+                               for _, s in c.segments)
     return param
 
 
@@ -221,7 +303,7 @@ def shard_parameter(param, *spec):
                          f"spec {spec}")
     if not dims:
         return param
-    set_layout(param, spec[dims[0]], dims[0])
+    set_layout(param, cut_layout(spec[dims[0]], dims[0], param.shape))
     with torch.no_grad():
         param.data = local_piece(param.data, param._dist_layout) \
             .contiguous()
@@ -239,29 +321,26 @@ def grad_layout(param):
 def global_sq_norms(layouts, tensors):
     """The squared L2 norm of each global tensor, in fp32, from the
     local ``tensors`` and their ``layouts`` (None: replicated, counted
-    once): the sharded segments' squares summed over their axis in one
-    all-reduce per axis, the replicated ones counted once."""
-    sq, shard = [], {}
+    once): each part's squares summed over exactly the axes that cut it
+    (:func:`regions`), in one all-reduce per set of axes; a part no
+    axis cuts is counted once."""
+    sq, cut = [], {}
     for lay, t in zip(layouts, tensors):
         t32 = t.to(torch.float32)
         if lay is None:
             sq.append(torch.sum(torch.square(t32)))
             continue
-        n, _ = _n_rank(lay.axis)
-        rep = t32.new_zeros(())
-        sh = t32.new_zeros(())
-        for (_, sharded), part in zip(lay.segments,
-                                      _split_local(t32, lay, n)):
+        sq.append(t32.new_zeros(()))
+        i = len(sq) - 1
+        for _, part, axes in regions(t32, lay):
             s = torch.sum(torch.square(part))
-            if sharded:
-                sh = sh + s
+            if axes:
+                cut.setdefault(env_mod._canon(axes), []).append((i, s))
             else:
-                rep = rep + s
-        sq.append(rep)
-        shard.setdefault(lay.axis, []).append((len(sq) - 1, sh))
-    for axis, items in shard.items():
+                sq[i] = sq[i] + s
+    for axes, items in cut.items():
         red = _comm.all_reduce(torch.stack([s for _, s in items]),
-                               _pair(axis))
+                               _pair(axes))
         for (i, _), v in zip(items, red.unbind()):
             sq[i] = sq[i] + v
     return sq

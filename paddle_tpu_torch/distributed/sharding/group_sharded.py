@@ -6,30 +6,41 @@ parameters) are placed sharded over a mesh axis and GSPMD partitions the
 update and inserts the gathers. With one process per rank the port runs
 the stages Paddle runs:
 
-- the slice of a tensor is its first dim that the axis's degree divides
-  (``_sharded_put``'s choice); a tensor no dim of which divides stays
-  whole on every rank. Each slice records a ``shard.Layout``
-  (``_zero_layout``), so the clips and Lamb's trust ratio take global
-  norms (``shard.global_sq_norms``);
+- the slice of a tensor is its first dim that its layer names no axis on
+  (whatever that axis's degree: ``shard.annotate``) and whose *global*
+  size the axis's degree divides (``_sharded_put``'s choice); a tensor
+  no such dim of which exists stays whole on every rank, and one
+  already laid out over the axis (an expert over dp under ZeRO over dp)
+  is left as it is. The slice is cut from the rank's tensor-parallel
+  piece, so a weight at mp 2 x sharding 2 holds a quarter. Each slice
+  records a ``shard.Layout`` of both cuts (``_zero_layout``), so the
+  clips and Lamb's trust ratio take global norms
+  (``shard.global_sq_norms``);
 - the axis is ``sharding`` when its degree is > 1, else ``dp``, else
   none, and then ZeRO returns the model and optimizer as they are;
 - the batch is split over ``dp x sharding`` (Paddle's sharding ranks
   are data-parallel ranks; ``fleet.batch_axes``), and the losses divide
-  by the global count, so the summed gradient is the reference's;
+  by the global count, so the summed gradient is the reference's. The
+  sums tensor parallelism needs (a replicated parameter's over mp under
+  SP, the replicated K/V columns') run inside the model's backward, as
+  without ZeRO; ZeRO's sums come on top of them. A parameter is never
+  summed over an axis its layout cuts (an expert over dp);
 - ``os``: each backward's gradients are all-reduced over the batch
   group; each rank updates its slice of the parameter, of the fp32
   master and of the moments, and the parameter is all-gathered;
 - ``os_g``: as ``os``, but each gradient is reduce-scattered over the
-  axis (then all-reduced over dp when the axis is ``sharding``) into
-  the rank's slice, and the whole gradient is dropped;
+  axis (then all-reduced over the rest of the batch group) into the
+  rank's slice, and the whole gradient is dropped;
 - ``p_g_os``: each rank keeps only its slice of each parameter
   (``_dist_layout``, so ``load_jax_weights`` cuts and
   ``gather_jax_layout`` gathers). Before a layer's forward (each module
-  of an ``nn.ModuleList``, and the model for the rest) its slices are
-  all-gathered, and they are dropped after it; autograd keeps no copy
-  of a gathered weight (a saved-tensor hook records the slice and
-  gathers it again when the backward needs it). The gradient comes
-  back reduce-scattered;
+  of an ``nn.ModuleList`` or of a ``PipelineLayer`` stage, and the
+  model for the rest) its slices are all-gathered over the axis alone,
+  giving the rank's tensor-parallel piece, and they are dropped after
+  it; autograd keeps no copy of a gathered weight (a saved-tensor hook
+  records the slice and gathers it again when the backward needs it,
+  so under 1F1B no gathered copy outlives its microbatch's forward).
+  The gradient comes back reduce-scattered;
 - ``offload=True``: masters and moments are kept in pinned host memory
   (in plain CPU memory when the parameters are on the CPU, where
   pinning needs CUDA: the reference degrades the same way), and each
@@ -37,15 +48,16 @@ the stages Paddle runs:
   dropped there just after it, so the device holds one parameter's at a
   time (``Optimizer._offload_state``).
 
-The optimizer's ``state_dict`` gathers the slices whole and
-``set_state_dict`` cuts them again. A parameter that already has a
-layout (a tensor-parallel weight, an expert over dp) has no room for a
-second axis (``shard.Layout``), so ZeRO under mp > 1 or pp > 1, and of
-an MoE model, raises. Do not also wrap the model in ``DataParallel``:
-ZeRO sums the gradients itself.
+The optimizer's ``state_dict`` gathers the slices whole (over the axis,
+then over mp) and ``set_state_dict`` cuts them again. Under pp each
+stage's optimizer shards its own parameters; ``PipelineParallel``
+leaves the batch sums to ZeRO's hooks and sums a shared weight's
+gradient over its stages on the slice. Do not also wrap the model in
+``DataParallel``: ZeRO sums the gradients itself.
 """
 from __future__ import annotations
 
+import itertools
 import os
 
 import torch
@@ -53,10 +65,17 @@ from torch import nn
 
 from .. import _comm
 from .. import env as env_mod
-from ..parallel import _sync_gradients
-from ..shard import Layout, gather_global, set_layout
+from ..fleet import batch_axes
+from ..fleet.meta_parallel.parallel_layers.pp_layers import PipelineLayer
+from ..parallel import _batch_sums, _sync_gradients
+from ..shard import (
+    add_cut, gather_global, grad_layout, local_piece, set_layout,
+)
 
 __all__ = ["group_sharded_parallel", "save_group_sharded_model"]
+
+# the axes whose cuts a global norm may sum over
+_CUT_AXES = ("dp", "sharding", "sep", "mp")
 
 
 def _shard_axis():
@@ -70,10 +89,14 @@ def _shard_axis():
     return None
 
 
-def _shard_dim(shape, n):
-    """The first dim of ``shape`` that ``n`` divides, or None."""
+def _zero_dim(p, n):
+    """The dim ZeRO cuts ``p`` on: the first one that its layer names no
+    axis on and whose global size ``n`` divides; None."""
+    lay = getattr(p, "_dist_layout", None)
+    shape = lay.shape if lay is not None else tuple(p.shape)
+    taken = getattr(p, "_axis_dims", frozenset())
     for d, size in enumerate(shape):
-        if size > 0 and size % n == 0:
+        if d not in taken and size > 0 and size % n == 0:
             return d
     return None
 
@@ -96,49 +119,65 @@ class _Regather:
 
 
 class _GatherParam(torch.autograd.Function):
-    """The whole parameter from the axis's slices; the backward
-    reduce-scatters the gradient over the axis and sums it over dp."""
+    """The rank's tensor-parallel piece of a parameter from the axis's
+    slices; the backward reduce-scatters the gradient over the axis and
+    sums it over ``rest`` (the batch axes the parameter is replicated
+    on besides the axis)."""
 
     @staticmethod
-    def forward(ctx, piece, dim, shard, dp):
-        ctx.dim, ctx.shard, ctx.dp = dim, shard, dp
+    def forward(ctx, piece, dim, shard, rest):
+        ctx.dim, ctx.shard, ctx.rest = dim, shard, rest
         return _comm.all_gather(piece, dim, shard)
 
     @staticmethod
     def backward(ctx, g):
         part = _comm.reduce_scatter_raw(g.contiguous(), ctx.dim, ctx.shard)
-        if ctx.dp is not None:
-            _comm.all_reduce(part, ctx.dp)
+        if ctx.rest is not None:
+            _comm.all_reduce(part, ctx.rest)
         return part, None, None, None
 
 
 class _Plan:
     """One ZeRO setup: its level, groups and slices (``layouts``: id of
-    a parameter -> its slice's ``Layout``), and under ``os_g`` each
-    parameter's reduced gradient slice."""
+    a parameter -> its slice's ``Layout``, ``dims``: -> the dim ZeRO
+    cuts, ``rest``: -> the group its gradient slice is summed over
+    besides the axis, or None), and under ``os_g`` each parameter's
+    reduced gradient slice."""
 
     def __init__(self, level, axis, model, params):
         env = env_mod.ensure_env()
         self.level = level
+        # every group a sum below or a global norm may use, made in one
+        # order on every rank (a pipeline stage holds other parameters)
+        live = [a for a in _CUT_AXES if env.degree(a) > 1]
+        for k in range(1, len(live) + 1):
+            for sub in itertools.combinations(live, k):
+                env.group(sub)
         self.shard = env.group(axis)
         self.n = len(self.shard[0])
         self.rank = self.shard[0].index(env.rank)
-        self.dp = env.group("dp") \
-            if axis == "sharding" and env.degree("dp") > 1 else None
-        self.batch = env.group(("dp", "sharding") if axis == "sharding"
-                               else "dp")
-        self.layouts = {}
+        batch = batch_axes(getattr(model, "config", None))
+        self.layouts, self.dims, self.rest = {}, {}, {}
         self.grads = {}
         for p in params:
-            d = _shard_dim(p.shape, self.n)
-            if d is not None:
-                lay = Layout(axis, d, ((p.shape[d], True),), tuple(p.shape))
-                self.layouts[id(p)] = lay
-                p._zero_layout = lay
+            lay = getattr(p, "_dist_layout", None)
+            if lay is not None and axis in lay.axes:
+                continue  # laid out over the axis already
+            d = _zero_dim(p, self.n)
+            if d is None:
+                continue
+            z = add_cut(lay, axis, d, p.shape)
+            self.layouts[id(p)], self.dims[id(p)] = z, d
+            rest = tuple(a for a in batch if a not in z.axes)
+            self.rest[id(p)] = env.group(rest) \
+                if rest and len(env.group(rest)[0]) > 1 else None
+            p._zero_layout = z
         whole = [p for p in params if id(p) not in self.layouts]
         sliced = [p for p in params if id(p) in self.layouts]
-        self.handles = _sync_gradients(
-            params if level == "os" else whole, self.batch)
+        self.handles = []
+        for pair, ps in _batch_sums(params if level == "os" else whole,
+                                    batch):
+            self.handles += _sync_gradients(ps, pair)
         if level == "os_g":
             for p in sliced:
                 self.handles.append(p.register_post_accumulate_grad_hook(
@@ -148,31 +187,33 @@ class _Plan:
 
     # -- slices ---------------------------------------------------------------
 
-    def view(self, t):
-        """``t``'s slice (a view), by its shape; ``t`` if it has none."""
-        d = _shard_dim(t.shape, self.n)
+    def view(self, p, t):
+        """The slice (a view) of ``t``, shaped as ``p``'s tensor-parallel
+        piece; ``t`` when ZeRO does not cut ``p``."""
+        d = self.dims.get(id(p))
         if d is None:
             return t
         k = t.shape[d] // self.n
         return t.narrow(d, self.rank * k, k)
 
-    def part(self, t):
-        """The part of a parameter-shaped ``t`` this rank updates: its
-        slice's view under ``os`` and ``os_g``; ``t`` under ``p_g_os``,
-        where a parameter is its slice already."""
-        return t if self.level == "p_g_os" else self.view(t)
+    def part(self, p, t):
+        """The part of ``p``-shaped ``t`` this rank updates: its slice's
+        view under ``os`` and ``os_g``; ``t`` under ``p_g_os``, where a
+        parameter is its slice already."""
+        return t if self.level == "p_g_os" else self.view(p, t)
 
     def cut(self, p, t):
-        """``p``'s slice of a whole state or master ``t`` (a copy)."""
-        lay = self.layouts.get(id(p))
+        """``p``'s part of a whole (global) state or master ``t`` (a
+        copy): this rank's slice, or its tensor-parallel piece."""
+        lay = grad_layout(p)
         if lay is None or tuple(t.shape) != lay.shape:
             return t
-        return self.view(t).clone()
+        return local_piece(t, lay).clone()
 
     def full(self, p, v):
-        """The whole tensor of ``p``'s state or master slice ``v`` (a
-        copy; collective over the axis)."""
-        lay = self.layouts.get(id(p))
+        """The whole (global) tensor of ``p``'s state or master ``v`` (a
+        copy; collective over the axis, then over mp)."""
+        lay = grad_layout(p)
         if lay is None:
             return v.detach().clone()
         return gather_global(v.detach().to(p.device).contiguous(), lay)
@@ -181,15 +222,28 @@ class _Plan:
 
     def _reduce(self, p):
         """``os_g``: the gradient a backward accumulated, reduce-scattered
-        over the axis (and summed over dp) into this rank's slice; the
-        whole gradient dropped."""
+        over the axis (and summed over the rest of the batch group) into
+        this rank's slice; the whole gradient dropped."""
         g, p.grad = p.grad, None
-        lay = self.layouts[id(p)]
-        part = _comm.reduce_scatter_raw(g.contiguous(), lay.dim, self.shard)
-        if self.dp is not None:
-            _comm.all_reduce(part, self.dp)
+        part = _comm.reduce_scatter_raw(g.contiguous(), self.dims[id(p)],
+                                        self.shard)
+        if self.rest[id(p)] is not None:
+            _comm.all_reduce(part, self.rest[id(p)])
         held = self.grads.get(id(p))
         self.grads[id(p)] = part if held is None else held.add_(part)
+
+    def holds_grad(self, p):
+        """Whether ``p``'s gradient lives here (``os_g``'s slices), not
+        on ``p.grad``."""
+        return self.level == "os_g" and id(p) in self.dims
+
+    def sum_grad(self, p, group):
+        """Sum the gradient slice held for ``p`` over ``group`` (a shared
+        weight's stages)."""
+        g = self.grads.get(id(p))
+        if g is None:
+            g = self.view(p, torch.zeros_like(p)).contiguous()
+        self.grads[id(p)] = _comm.all_reduce(g, group)
 
     def params_grads(self, params):
         """``(param, this rank's gradient slice)`` for each trainable
@@ -198,11 +252,11 @@ class _Plan:
         for p in params:
             if not p.requires_grad:
                 continue
-            sliced = id(p) in self.layouts
+            sliced = id(p) in self.dims
             if self.level == "os_g" and sliced:
                 g = self.grads.get(id(p))
             elif self.level == "os" and sliced and p.grad is not None:
-                g = self.view(p.grad)
+                g = self.view(p, p.grad)
             else:
                 g = p.grad
             if g is not None:
@@ -223,22 +277,22 @@ class _Plan:
         if self.level == "p_g_os":
             return
         for p in params:
-            lay = self.layouts.get(id(p))
-            if lay is not None:
-                p.copy_(_comm.all_gather(self.view(p.detach()).contiguous(),
-                                         lay.dim, self.shard))
+            d = self.dims.get(id(p))
+            if d is not None:
+                p.copy_(_comm.all_gather(self.view(p, p.detach())
+                                         .contiguous(), d, self.shard))
 
     # -- p_g_os -----------------------------------------------------------------
 
     def _stage3(self, model, sliced):
         """Keep only each parameter's slice, and gather the slices of
-        each unit (a module of an ``nn.ModuleList``, or the model for the
-        parameters under none) around its forward."""
+        each unit (a module of an ``nn.ModuleList`` or of a
+        ``PipelineLayer``, or the model for the parameters under none)
+        around its forward."""
         with torch.no_grad():
             for p in sliced:
-                lay = self.layouts[id(p)]
-                p.data = self.view(p.data).clone()
-                set_layout(p, lay.axis, lay.dim, lay.segments, lay.shape)
+                p.data = self.view(p, p.data).clone()
+                set_layout(p, self.layouts[id(p)])
         mine = {id(p) for p in sliced}
         self.units = {}  # unit -> [(owner, name, param)]
 
@@ -247,38 +301,63 @@ class _Plan:
                 if p is not None and id(p) in mine:
                     self.units.setdefault(unit, []).append((mod, name, p))
             for child in mod.children():
-                walk(child, child if isinstance(mod, nn.ModuleList)
-                     else unit)
+                walk(child, child if isinstance(
+                    mod, (nn.ModuleList, PipelineLayer)) else unit)
 
         walk(model, model)
         self.installed = {}  # id(whole) -> (whole, slice)
-        self.scopes = []
+        self.scopes = {}  # unit -> (depth, saved-tensor scope)
         for unit in self.units:
             self.handles.append(unit.register_forward_pre_hook(
                 lambda m, args: self._enter(m)))
             self.handles.append(unit.register_forward_hook(
                 lambda m, args, out: self._exit(m)))
+        if isinstance(model, PipelineLayer):
+            # a shared layer's occurrence with a forward_func runs without
+            # calling the layer: gather around that call too
+            for idx, run in list(model._run.items()):
+                unit = model._modules[str(idx)]
+                if run is not unit and unit in self.units:
+                    model._run[idx] = self._around(unit, run)
+
+    def _around(self, unit, run):
+        def call(x):
+            self._enter(unit)
+            try:
+                return run(x)
+            finally:
+                self._exit(unit)
+        return call
 
     def _enter(self, unit):
+        depth, scope = self.scopes.get(unit, (0, None))
+        if depth:  # already gathered (a forward_func calling its layer)
+            self.scopes[unit] = (depth + 1, scope)
+            return
         scope = torch.autograd.graph.saved_tensors_hooks(self._pack,
                                                          self._unpack)
         scope.__enter__()
-        self.scopes.append(scope)
+        self.scopes[unit] = (1, scope)
         for owner, name, p in self.units[unit]:
-            whole = _GatherParam.apply(p, p._dist_layout.dim, self.shard,
-                                       self.dp)
+            whole = _GatherParam.apply(p, self.dims[id(p)], self.shard,
+                                       self.rest[id(p)])
             owner.__dict__[name] = whole  # found before _parameters
             self.installed[id(whole)] = (whole, p)
 
     def _exit(self, unit):
+        depth, scope = self.scopes[unit]
+        if depth > 1:
+            self.scopes[unit] = (depth - 1, scope)
+            return
+        del self.scopes[unit]
         for owner, name, _ in self.units[unit]:
             del self.installed[id(owner.__dict__.pop(name))]
-        self.scopes.pop().__exit__(None, None, None)
+        scope.__exit__(None, None, None)
 
     def _pack(self, t):
         hit = self.installed.get(id(t))
         if hit is not None and hit[0] is t:
-            return _Regather(hit[1], hit[1]._dist_layout.dim)
+            return _Regather(hit[1], self.dims[id(hit[1])])
         return t
 
     def _unpack(self, x):
@@ -296,27 +375,24 @@ def group_sharded_parallel(model, optimizer, level="p_g_os", scaler=None,
     """Shard ``optimizer``'s states (``os``), and its gradients
     (``os_g``), and the model's parameters (``p_g_os``) over the
     ``sharding`` axis (``dp`` when sharding is 1); see the module note.
-    Returns ``(model, optimizer, scaler)`` as the reference does. The
-    reducer's and the buffers' knobs are accepted and not read."""
+    ``model`` may be a ``PipelineParallel`` (its stage's layers are
+    sharded). Returns ``(model, optimizer, scaler)`` as the reference
+    does. The reducer's and the buffers' knobs are accepted and not
+    read."""
     if level not in ("os", "os_g", "p_g_os"):
         raise ValueError("level must be os, os_g or p_g_os")
     axis = _shard_axis()
     if axis is None:
         return model, optimizer, scaler
-    env = env_mod.ensure_env()
-    if env.degree("mp") > 1 or env.degree("pp") > 1:
-        raise NotImplementedError(
-            "group_sharded_parallel under mp > 1 or pp > 1 is not ported "
-            "(ROADMAP A.6): a tensor-parallel or pipelined parameter has "
-            "no room for a second sharded axis")
+    from ..fleet.meta_parallel.pipeline_parallel import PipelineParallel
+
+    given = model
+    if isinstance(model, PipelineParallel):
+        model = model._layers
     if not isinstance(model, nn.Module):
         raise TypeError("group_sharded_parallel takes the model itself, "
                         "not its DataParallel wrapper")
     params = [p for p in optimizer._parameter_list if p.requires_grad]
-    if any(getattr(p, "_dist_layout", None) is not None for p in params):
-        raise NotImplementedError(
-            "group_sharded_parallel of a model with laid-out parameters "
-            "(experts over dp) is not ported (ROADMAP A.6)")
     # states made before ZeRO: cut to this rank's slices
     old = (dict(optimizer._accumulators), dict(optimizer._master_weights))
     plan = _Plan(level, axis, model, params)
@@ -326,17 +402,17 @@ def group_sharded_parallel(model, optimizer, level="p_g_os", scaler=None,
     by_id = {id(p): p for p in params}
     for key, st in old[0].items():
         optimizer._accumulators[key] = {
-            k: optimizer._keep(plan.cut(by_id[key], v))
+            k: optimizer._keep(plan.view(by_id[key], v).clone())
             for k, v in st.items()}
     for key, m in old[1].items():
         optimizer._master_weights[key] = optimizer._keep(
-            plan.cut(by_id[key], m))
-    return model, optimizer, scaler
+            plan.view(by_id[key], m).clone())
+    return given, optimizer, scaler
 
 
 def _whole_state(model):
     """The model's ``state_dict`` with every sliced parameter gathered
-    whole (collective)."""
+    whole (collective: over the axis, then over mp)."""
     out = {}
     for name, t in model.state_dict(keep_vars=True).items():
         lay = getattr(t, "_dist_layout", None)

@@ -1,4 +1,4 @@
-"""Mixture-of-experts with the experts over the data-parallel ranks.
+"""Mixture-of-experts with the experts over a mesh axis.
 
 Counterpart of ``paddle_tpu/incubate/distributed/models/moe/
 moe_layer.py``. The reference routes with GShard's dense one-hot
@@ -21,21 +21,34 @@ the same routing by index:
   ``x.dtype`` first, as the reference casts ``combine``). A dropped
   token's row is 0: the residual carries it.
 
-Expert parallelism (``expert_axis="dp"``): under dp > 1 each rank holds
-``E / dp`` experts (``w_in`` and ``w_out`` laid out with
-``set_layout(w, "dp", 0)``) and routes its own tokens, but the gate is
-the reference's, global over the dp-split batch: the capacity counts
-every rank's tokens, a rank's slots start after the earlier ranks'
-tokens of the same expert (one all-gather of the per-expert counts),
-and the aux loss's means are over every token (the sum of the
-probabilities through ``_comm.reduce_from``). Each rank fills the slots
-of all E experts that its tokens take; a reduce-scatter over dp along
-the experts gives each rank its experts' buffers (the slots of two
-ranks never meet, so the sum is exact), and after the experts an
-all-gather returns every expert's outputs (its backward a
-reduce-scatter, as each rank's tokens read them). Those moves carry the
-bytes the reference's token all-to-all carries; ``comm_bytes`` counts
-them.
+The batch is split over the batch axes (``fleet.batch_axes``: dp, and
+sharding at degree > 1), but the gate is the reference's, global over
+every token any rank holds: the capacity counts every rank's tokens, a
+rank's slots start after the earlier ranks' tokens of the same expert
+(one all-gather of the per-expert counts over the batch group, in its
+order, which is the batch's), and the aux loss's means are over every
+token (the sum of the probabilities through ``_comm.reduce_from``).
+
+Expert parallelism (``expert_axis``, dp by default): at degree > 1 each
+rank holds ``E / n`` experts (``w_in`` and ``w_out`` cut on dim 0 over
+the axis, a ``shard.Layout``; at degree 1 dim 0 is only annotated, so
+ZeRO cuts another). Over a batch axis (``"dp"`` or ``"sharding"``)
+each rank fills the slots of all E experts that its tokens take; a
+reduce-scatter over the axis along the experts gives each rank its
+experts' buffers (the slots of two ranks never meet, so the sum is
+exact), and after the experts an all-gather returns every expert's
+outputs (its backward a reduce-scatter, as each rank's tokens read
+them). Those moves carry the bytes the reference's token all-to-all
+carries; ``comm_bytes`` counts them. The ranks of the other batch axis
+run their experts on their own tokens' slots, so the experts'
+gradients are partial over it, and the model's batch sum (which skips
+only the axes a parameter is cut on) adds them up: each expert's
+gradient counts every token once. Over ``"mp"`` (without SP) the tokens
+are replicated: every mp rank computes the same gate, takes its
+experts' part of the full buffer (no reduce-scatter), and the outputs
+come back by an all-gather whose backward takes the rank's own part;
+the tokens' gradient from the buffer is summed over mp. Under SP an mp
+axis raises, as does ``"sep"`` (ROADMAP A.6).
 
 Under sequence or context parallelism (``sequence_axis`` ``"mp"`` or
 ``"sep"``, or ``("sep", "mp")`` under both, a sep chunk split further
@@ -54,9 +67,8 @@ gradients, and the gate's, are partial over the sequence axes. Under SP
 (``"mp"``) the layer sums all three over mp in the backward. Under
 context parallelism ``"sep"`` is one of the model's batch axes, over
 which ``fleet.distributed_model`` (and ``PipelineParallel``) sums every
-gradient but those of parameters laid out over a batch axis: the layer
-sums only the experts' over sep, and only when they are laid out over
-dp (dp > 1). Under both, the sums over each axis follow the same rules.
+gradient, a parameter laid out over a batch axis over the others. Under
+both, the sums over each axis follow the same rules.
 
 :func:`moe_dense` is the plain version: the reference's one-hot
 tensors and einsums in PyTorch, on one rank.
@@ -69,10 +81,10 @@ import torch
 from torch import nn
 
 from .....distributed import _comm
+from .....distributed import env as env_mod
 from .....distributed import shard
-from .....distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
-    _axis_group,
-)
+from .....distributed.fleet import batch_axes
+from .....distributed.fleet.base.topology import get_hcg
 from .....framework.device import resolve_device
 
 __all__ = ["MoELayer", "moe_dense", "capacity"]
@@ -89,21 +101,20 @@ def capacity(top_k, tokens, experts, capacity_factor):
 
 
 def _axes_group(axes):
-    """(degree, this rank's place, group) over the mesh axes ``axes``, as
-    ``_axis_group`` gives it for one axis; (1, 0, None) for none or at
-    degree 1."""
-    if not axes:
+    """(degree, this rank's place, group) over the mesh axes ``axes`` of
+    the hybrid group; (1, 0, None) for none, at degree 1 or without a
+    hybrid group (``fleet.init``), as the tensor-parallel layers take
+    theirs."""
+    if not axes or get_hcg() is None:
         return 1, 0, None
-    if len(axes) == 1:
-        return _axis_group(axes[0])
-    import torch.distributed as dist
-
-    from .....distributed import env as env_mod
-
-    pair = env_mod.ensure_env().group(axes)
+    env = env_mod.ensure_env()
+    pair = env.group(axes)
     if len(pair[0]) == 1:
         return 1, 0, None
-    return len(pair[0]), pair[0].index(dist.get_rank()), pair
+    return len(pair[0]), pair[0].index(env.rank), pair
+
+
+_EXPERT_AXES = ("dp", "sharding", "mp")
 
 
 def _check_top_k(top_k):
@@ -131,10 +142,11 @@ class MoELayer(nn.Module):
                  dtype=torch.float32, device="cuda", generator=None):
         super().__init__()
         _check_top_k(top_k)
-        if expert_axis != "dp":
+        if expert_axis not in _EXPERT_AXES:
             raise NotImplementedError(
-                f"MoELayer with expert_axis={expert_axis!r} is not ported: "
-                "the experts lie over dp only (ROADMAP A.6)")
+                f"MoELayer with expert_axis={expert_axis!r} is not ported "
+                f"(ROADMAP A.6): the experts lie over one of "
+                f"{_EXPERT_AXES}")
         if activation not in _ACT:
             raise ValueError(f"activation must be one of {sorted(_ACT)}, "
                              f"got {activation!r}")
@@ -144,25 +156,31 @@ class MoELayer(nn.Module):
         self.capacity_factor = capacity_factor
         self.gate_type, self.act = gate, activation
         self.expert_axis = expert_axis
-        self._n, self._rank, self._group = _axis_group("dp")
         seq = (sequence_axis,) if isinstance(sequence_axis, str) \
             else tuple(sequence_axis or ())
         if seq not in ((), ("mp",), ("sep",), ("sep", "mp")):
             raise ValueError(f"sequence_axis must be None, 'mp', 'sep' or "
                              f"('sep', 'mp'), got {sequence_axis!r}")
+        if expert_axis == "mp" and "mp" in seq:
+            raise NotImplementedError(
+                "MoELayer with expert_axis='mp' under sequence parallelism "
+                "is not ported (ROADMAP A.6): its tokens are split over mp")
+        # the experts' axis; the batch axes the tokens are split over (dp,
+        # and sharding when its degree is > 1, as fleet.batch_axes)
+        self._n, self._rank, self._group = _axes_group((expert_axis,))
+        batch = tuple(a for a in batch_axes() if a != "sep")
+        self._batch_n, self._batch_rank, self._batch_group = \
+            _axes_group(batch)
         self._seq_n, self._seq_rank, self._seq_group = _axes_group(seq)
-        # the gate's gradient is partial over mp (sep is a batch axis);
-        # the experts' over mp, and over sep too when laid out over dp
-        self._gate_group = _axes_group(("mp",) if "mp" in seq else ())[2]
-        self._expert_group = _axes_group(tuple(
-            a for a in seq if a == "mp" or self._n > 1))[2]
-        # the group the tokens are split over: dp and the sequence axes
-        self._token_group = self._group
-        if self._seq_n > 1:
-            self._token_group = _axes_group(("dp",) + seq)[2]
+        # under SP the gate's and the experts' gradients are partial over
+        # mp (the batch axes' sums are the model's: a parameter laid out
+        # over one of them is summed over the others)
+        self._sp_group = _axes_group(("mp",) if "mp" in seq else ())[2]
+        # the group the tokens are split over: the batch and the sequence
+        self._token_group = _axes_group(batch + seq)[2]
         if num_experts % self._n:
             raise ValueError(f"num_experts = {num_experts} does not split "
-                             f"evenly over dp = {self._n}")
+                             f"evenly over {expert_axis} = {self._n}")
         self.gate_weight = nn.Parameter(torch.empty(
             (d_model, num_experts), dtype=dtype, device=dev))
         self.w_in = nn.Parameter(torch.empty(
@@ -171,10 +189,12 @@ class MoELayer(nn.Module):
         self.w_out = nn.Parameter(torch.empty(
             (num_experts // self._n, d_hidden, d_model), dtype=dtype,
             device=dev))
-        if self._n > 1:
-            for w, shape in ((self.w_in, (num_experts, d_model, d_hidden)),
-                             (self.w_out, (num_experts, d_hidden, d_model))):
-                shard.set_layout(w, expert_axis, 0, shape=shape)
+        for w, shape in ((self.w_in, (num_experts, d_model, d_hidden)),
+                         (self.w_out, (num_experts, d_hidden, d_model))):
+            if self._n > 1:
+                shard.set_layout(w, shard.cut_layout(expert_axis, 0, shape))
+            else:
+                shard.annotate(w, 0)
         if generator is not False:
             self._draw(generator)
         self.aux_loss = None
@@ -207,10 +227,10 @@ class MoELayer(nn.Module):
             rows, in_row = counts, torch.zeros_like(counts)
         before = torch.cumsum(rows, 1) - rows + in_row - own_before
         mine = rows.sum(1)
-        if self._n == 1:
+        if self._batch_n == 1:
             return before, mine
-        every = _comm.all_gather_list(mine, self._group)
-        before = before + sum(every[:self._rank],
+        every = _comm.all_gather_list(mine, self._batch_group)
+        before = before + sum(every[:self._batch_rank],
                               torch.zeros_like(mine))[:, None, :]
         return before, sum(every[1:], every[0])
 
@@ -236,7 +256,7 @@ class MoELayer(nn.Module):
         ``E * cap`` where the token is not dispatched); and every rank's
         count of first choices by expert ``[E]``."""
         E, k = self.num_experts, self.top_k
-        gate_weight = _comm.copy_to(self.gate_weight, self._gate_group)
+        gate_weight = _comm.copy_to(self.gate_weight, self._sp_group)
         logits = torch.matmul(tokens, gate_weight.to(tokens.dtype))
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         experts = torch.arange(E, device=tokens.device)
@@ -274,23 +294,35 @@ class MoELayer(nn.Module):
         E, k, n = self.num_experts, self.top_k, self._n
         dt = x.dtype
         # the global tokens: the batch and the sequence are split evenly
-        T = B * S * n * self._seq_n
+        T = B * S * self._batch_n * self._seq_n
         C = capacity(k, T, E, self.capacity_factor)
         tokens = x.reshape(B * S, H)
         probs, gates, rows, first = self.route(tokens, C, B)
+        over_mp = self.expert_axis == "mp"
+        # over mp every rank holds the same tokens and slots: a rank's
+        # experts read only their slots, so the tokens' gradient from the
+        # buffer is partial and summed over mp
+        src = _comm.copy_to(tokens, self._group) if over_mp else tokens
         buf = tokens.new_zeros((E * C + 1, H)).index_copy(
-            0, torch.cat(rows), tokens.repeat(k, 1))
+            0, torch.cat(rows), src.repeat(k, 1))
         buf = buf[:E * C].view(E, C, H)
-        if n > 1:
+        if n > 1 and over_mp:
+            buf = buf.narrow(0, self._rank * (E // n), E // n)
+        elif n > 1:
             self.comm_bytes += buf.numel() * buf.element_size()
             buf = _comm.reduce_scatter(buf, 0, self._group)
         # each sequence rank ran its own tokens' slots
-        w_in = _comm.copy_to(self.w_in, self._expert_group)
-        w_out = _comm.copy_to(self.w_out, self._expert_group)
+        w_in = _comm.copy_to(self.w_in, self._sp_group)
+        w_out = _comm.copy_to(self.w_out, self._sp_group)
         h = _ACT[self.act](torch.bmm(buf, w_in.to(dt)))
         out = torch.bmm(h, w_out.to(dt))
         if n > 1:
-            out = _comm.gather_reduce(out, 0, self._group)
+            # over mp every rank reads the same outputs: the backward
+            # takes this rank's experts' part (a sum would count the
+            # upstream gradient mp times); over a batch axis each rank's
+            # tokens read them, and the backward sums those parts
+            out = _comm.gather_from(out, 0, self._group) if over_mp \
+                else _comm.gather_reduce(out, 0, self._group)
             self.comm_bytes += out.numel() * out.element_size()
         flat = torch.cat([out.reshape(E * C, H), out.new_zeros((1, H))])
         y = None

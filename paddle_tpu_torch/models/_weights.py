@@ -45,7 +45,8 @@ def load_jax_weights(model, arrays) -> None:
     the whole of it and keeps its own stage's layers.
 
     A tensor-parallel parameter (one that records a ``_dist_layout``,
-    under mp > 1) takes this rank's piece of the global array: every
+    under mp > 1, or ZeRO ``p_g_os``'s slice of it) takes this rank's
+    piece of the global array, cut by each of its layout's cuts: every
     rank passes the same global arrays. The fused ``qkv_proj`` and
     ``gate_up_proj`` weights (and ERNIE's fused ``qkv`` weight and its
     1-D bias) are cut segment by segment, so a rank holds its own q, k

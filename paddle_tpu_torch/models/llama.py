@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..distributed import _comm
-from ..distributed.fleet import batch_axes
+from ..distributed.fleet import batch_axes, get_hcg
 from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
     LayerDesc, PipelineLayer,
 )
@@ -185,7 +185,8 @@ class _Parallel:
     axis the MoE layers' input sequence is split over (mp under SP, sep
     under context parallelism, ``("sep", "mp")`` under both: SP splits
     a rank's sequence chunk further over mp; None); the groups the
-    layers need are made here, where every rank runs in one order (a
+    layers need (the experts' axis, the batch axes, the sequence axes
+    and both) are made here, where every rank runs in one order (a
     pipeline stage builds only its own layers)."""
 
     def __init__(self, config):
@@ -200,19 +201,23 @@ class _Parallel:
 
             self.batch_group = env_mod.ensure_env().group(axes)
         moe = config.moe_num_experts > 1
-        if moe and "sharding" in axes:
-            raise NotImplementedError(
-                "MoE with sharding_degree > 1 is not ported (ROADMAP A.6): "
-                "the experts and their gate lie over dp alone")
         self.seq_axis = None
         if moe and (self.sp or self.cp_n > 1):
-            from ..distributed import env as env_mod
-
             axes = ("sep",) * (self.cp_n > 1) + ("mp",) * self.sp
             self.seq_axis = axes if len(axes) > 1 else axes[0]
-            if len(axes) > 1:
-                env_mod.ensure_env().group(axes)
-            env_mod.ensure_env().group(("dp",) + axes)
+        if moe and get_hcg() is not None:
+            from ..distributed import env as env_mod
+
+            env = env_mod.ensure_env()
+            batch = tuple(a for a in batch_axes() if a != "sep")
+            seq = (() if self.seq_axis is None
+                   else (self.seq_axis,) if isinstance(self.seq_axis, str)
+                   else self.seq_axis)
+            axis = config.moe_expert_axis
+            expert = (axis,) if axis in env_mod.AXIS_ORDER else ()
+            for group in (expert, batch, seq, batch + seq):
+                if group:
+                    env.group(group)
 
     def leaf(self, kind, *args, **kw):
         """A column (``"col"``) or row (``"row"``) parallel linear, the
@@ -461,8 +466,10 @@ class LlamaForCausalLM(nn.Module):
     counts over the sequence split ``(sep, mp)``.
 
     With ``moe_num_experts > 1`` each layer's MLP is a ``MoELayer``
-    (SiLU experts, the config's ``moe_top_k``; under dp > 1 each rank
-    holds its share of the experts) and the loss adds
+    (SiLU experts, the config's ``moe_top_k``; each rank holds its share
+    of the experts over ``moe_expert_axis``, dp, sharding or mp, and the
+    gate counts the tokens of every batch rank, dp x sharding) and the
+    loss adds
     ``moe_aux_loss_coeff`` times the layers' aux losses, as the
     reference's ``_add_moe_aux`` does; ``generate()`` and the serving
     engine refuse such a model, as the reference's do."""
@@ -657,11 +664,11 @@ class LlamaForCausalLMPipe(PipelineLayer):
     chunk of every microbatch's ids and labels (``[b, s / sep]``, chunks
     in sep order), attention is ring or Ulysses over sep, and the loss
     divides by the count over dp and sep, whose ranks' gradients
-    ``PipelineParallel`` sums. Under MoE the experts lie over dp and the
-    gate is global over the microbatch, under SP and context parallelism
-    too (``MoELayer``'s ``sequence_axis``); the pipe adds no aux loss:
-    the reference's pipe does not surface it either (its "Known
-    limitation")."""
+    ``PipelineParallel`` sums. Under MoE the experts lie over
+    ``moe_expert_axis`` and the gate is global over the microbatch,
+    under SP and context parallelism too (``MoELayer``'s
+    ``sequence_axis``); the pipe adds no aux loss: the reference's pipe
+    does not surface it either (its "Known limitation")."""
 
     def __init__(self, config: LlamaConfig, *, device="cuda", seed=0,
                  **kwargs):

@@ -8,11 +8,12 @@ norm, uncounted).
 
 A tensor-parallel parameter (one that records a ``_dist_layout``, under
 mp > 1) holds a piece of the global gradient: its norm is the global
-tensor's, its sharded parts' squares summed over its axis and its
-replicated parts counted once (``distributed.shard.global_sq_norms``),
-as the reference's norms over global arrays are; so is a gradient
-that ZeRO cut to this rank's slice (``shard.grad_layout``) and an
-expert's over dp. Under pp > 1 each
+tensor's, each part's squares summed over exactly the axes that cut it
+and a part no axis cuts counted once (``distributed.shard.
+global_sq_norms``), as the reference's norms over global arrays are; so
+is a gradient that ZeRO cut to this rank's slice (``shard.grad_layout``,
+its mp cut and ZeRO's: a K/V segment mp replicates is summed over the
+ZeRO axis alone) and an expert's over its axis. Under pp > 1 each
 stage holds its own parameters, so :class:`ClipGradByGlobalNorm` sums
 the squared norm over the pp group too, counting a weight shared by two
 stages once (its later copies are marked ``_pp_shared_dup``).

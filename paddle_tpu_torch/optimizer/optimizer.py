@@ -231,11 +231,12 @@ class Optimizer:
 
     # -- eager step -----------------------------------------------------------
 
-    def _part(self, t):
-        """The part of a parameter-shaped tensor ``t`` this rank updates:
-        ``t`` itself, or under ZeRO's ``os``/``os_g`` a view of its
-        slice (``_zero.part``)."""
-        return t if self._zero is None else self._zero.part(t)
+    def _part(self, p):
+        """The part of parameter ``p`` (detached) this rank updates: all
+        of it, or under ZeRO's ``os``/``os_g`` a view of its slice
+        (``_zero.part``)."""
+        t = p.detach()
+        return t if self._zero is None else self._zero.part(p, t)
 
     def _keep(self, t):
         """A new state or master as it is kept between steps
@@ -266,12 +267,12 @@ class Optimizer:
         if master:
             work = self._master_weights.get(key)
             if work is None:
-                work = self._part(p.detach()).to(torch.float32)
+                work = self._part(p).to(torch.float32)
                 if create:
                     self._master_weights[key] = self._keep(work)
             g = g.to(torch.float32)
         else:
-            work, g = self._part(p.detach()), g.to(p.dtype)
+            work, g = self._part(p), g.to(p.dtype)
         state = self._accumulators.get(key)
         if state is None:
             state = self._init_state(work)
@@ -354,7 +355,7 @@ class Optimizer:
         self._update(list(works), list(grads), list(states), group)
         for p, work, _, state, master in items:
             if master:  # rounds the fp32 master to p's dtype
-                self._part(p.detach()).copy_(work)
+                self._part(p).copy_(work)
             if self._offload_state:
                 self._park(p, work, state)
 
@@ -456,7 +457,7 @@ class Optimizer:
             if mk in state_dict:
                 self._master_weights[id(p)] = self._keep(
                     load(state_dict[mk], p))
-            work = self._master_weights.get(id(p), self._part(p.detach()))
+            work = self._master_weights.get(id(p), self._part(p))
             st = self._init_state(work)
             found = False
             for k in st:

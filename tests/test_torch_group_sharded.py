@@ -15,20 +15,31 @@ batch over ``dp x sharding``:
 - ``sharding 2`` at ``os``, ``os_g``, ``p_g_os``, ``os_g`` with
   ``offload``, and ``p_g_os`` with ``Lamb``; ``dp 2`` with sharding 1
   (ZeRO over dp) at ``os_g``; ``dp 2 x sharding 2`` at ``os_g`` and
-  ``p_g_os``;
+  ``p_g_os``; and under tensor parallelism ``mp 2 x sharding 2`` at
+  ``os_g``, ``p_g_os`` and ``p_g_os`` with ``Lamb``, and ``mp 2 x dp 2``
+  (ZeRO over dp) at ``os_g``: ZeRO cuts the rank's mp piece;
 - held: the losses against the reference within ``TOL`` and against the
-  port's unsharded run (``DataParallel`` over the same ranks) within
+  port's unsharded run (``fleet.distributed_model`` over the same
+  ranks and mp) within
   ``SELF_TOL``; the parameters after the steps within ``PARAM_TOL`` of
   the reference's and ``SELF_TOL`` of the port's unsharded ones; each
-  rank holds only its slices (the moments' and masters' shapes; under
-  ``p_g_os`` the parameters' too); ``state_dict`` is whole and the same
-  on every rank and ``set_state_dict`` cuts it back bit for bit; under
-  offload each update sees one parameter at a time;
+  parameter's states are cut as the reference's ``_sharded_put`` places
+  them on its mesh (its spec on the axes of degree > 1: the first dim
+  the layer names no axis on, even at degree 1, that the degree
+  divides), and under ``p_g_os`` the parameter itself; each rank holds
+  only its slices (the moments' shapes, and under ``p_g_os`` the
+  parameters'); ``state_dict`` is whole and the same on every rank and
+  ``set_state_dict`` cuts it back bit for bit; under offload each
+  update sees one parameter at a time;
 - ``save_group_sharded_model`` writes files that the reference's
-  ``paddle.load`` reads: its parameters load into the reference model
-  and give its loss;
-- ZeRO at world size 1 is the identity, and at dp 2 x mp 2 it raises.
+  ``paddle.load`` reads (at sharding 2 and in every config under mp):
+  its parameters load into the reference model and give its loss;
+- a sharded checkpoint (``distributed.checkpoint``) of the mp 2 x
+  sharding 2 ranks records both cuts and loads back at that layout and
+  at one rank;
+- ZeRO at world size 1 is the identity.
 """
+import json
 import os
 import pickle
 import sys
@@ -49,33 +60,49 @@ SELF_TOL = 1e-6
 # packages' summation orders flip moves it ~2 lr apart
 PARAM_TOL = 2e-3
 STEPS = 3
-# name: (dp, sharding, level, offload, optimizer)
+# name: (dp, mp, sharding, level, offload, optimizer)
 CONFIGS = {
-    "sh2_os": (1, 2, "os", False, "adamw"),
-    "sh2_os_g": (1, 2, "os_g", False, "adamw"),
-    "sh2_p_g_os": (1, 2, "p_g_os", False, "adamw"),
-    "sh2_offload": (1, 2, "os_g", True, "adamw"),
-    "sh2_lamb": (1, 2, "p_g_os", False, "lamb"),
-    "dp2_os_g": (2, 1, "os_g", False, "adamw"),
-    "dp2_sh2_os_g": (2, 2, "os_g", False, "adamw"),
-    "dp2_sh2_p_g_os": (2, 2, "p_g_os", False, "adamw"),
+    "sh2_os": (1, 1, 2, "os", False, "adamw"),
+    "sh2_os_g": (1, 1, 2, "os_g", False, "adamw"),
+    "sh2_p_g_os": (1, 1, 2, "p_g_os", False, "adamw"),
+    "sh2_offload": (1, 1, 2, "os_g", True, "adamw"),
+    "sh2_lamb": (1, 1, 2, "p_g_os", False, "lamb"),
+    "dp2_os_g": (2, 1, 1, "os_g", False, "adamw"),
+    "dp2_sh2_os_g": (2, 1, 2, "os_g", False, "adamw"),
+    "dp2_sh2_p_g_os": (2, 1, 2, "p_g_os", False, "adamw"),
+    "mp2_sh2_os_g": (1, 2, 2, "os_g", False, "adamw"),
+    "mp2_sh2_p_g_os": (1, 2, 2, "p_g_os", False, "adamw"),
+    "mp2_dp2_os_g": (2, 2, 1, "os_g", False, "adamw"),
+    "mp2_sh2_lamb": (1, 2, 2, "p_g_os", False, "lamb"),
 }
 # the port's unsharded runs each config is held against
-PLAIN = {"plain_2": (1, 2, None, False, "adamw"),
-         "plain_2_lamb": (1, 2, None, False, "lamb"),
-         "plain_4": (2, 2, None, False, "adamw")}
+PLAIN = {"plain_2": (1, 1, 2, None, False, "adamw"),
+         "plain_2_lamb": (1, 1, 2, None, False, "lamb"),
+         "plain_4": (2, 1, 2, None, False, "adamw"),
+         "plain_mp2_sh2": (1, 2, 2, None, False, "adamw"),
+         "plain_mp2_sh2_lamb": (1, 2, 2, None, False, "lamb")}
 # one reference run per mesh and optimizer (ZeRO is a layout there)
 REFERENCE = {"sh2_p_g_os": ("sh2_os", "sh2_os_g", "sh2_p_g_os",
                             "sh2_offload", "dp2_os_g"),
              "sh2_lamb": ("sh2_lamb",),
-             "dp2_sh2_p_g_os": ("dp2_sh2_os_g", "dp2_sh2_p_g_os")}
+             "dp2_sh2_p_g_os": ("dp2_sh2_os_g", "dp2_sh2_p_g_os"),
+             "mp2_sh2_p_g_os": ("mp2_sh2_os_g", "mp2_sh2_p_g_os",
+                                "mp2_dp2_os_g"),
+             "mp2_sh2_lamb": ("mp2_sh2_lamb",)}
+# the configs whose ranks save with save_group_sharded_model
+SAVED = ("sh2_p_g_os", "mp2_sh2_os_g", "mp2_sh2_p_g_os", "mp2_dp2_os_g",
+         "mp2_sh2_lamb")
+# the config whose ranks save a sharded checkpoint (distributed.checkpoint)
+CHECKPOINTED = "mp2_sh2_p_g_os"
 
 
 def _plain_of(name):
-    dp, sh, _, _, opt = CONFIGS[name]
-    if dp * sh == 4:
-        return "plain_4"
-    return "plain_2_lamb" if opt == "lamb" else "plain_2"
+    """The unsharded run over as many ranks, at the same mp, with the
+    same optimizer (ZeRO over dp is held against sharding's, as one
+    data-parallel sum)."""
+    dp, mp, sh, _, _, opt = CONFIGS[name]
+    return next(n for n, (d, m, h, _, _, o) in PLAIN.items()
+                if (d * h, m, o) == (dp * sh, mp, opt))
 
 
 def _batch():
@@ -98,6 +125,9 @@ def _run(root, name, spec):
     """One config on this rank: 3 steps, then the state."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.shard import (
+        get_sharding, grad_layout, layout_spec,
+    )
     from paddle_tpu_torch.distributed.sharding import (
         group_sharded_parallel, save_group_sharded_model,
     )
@@ -108,9 +138,10 @@ def _run(root, name, spec):
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW, Lamb
 
-    dp, sh, level, offload, opt_name = spec
+    dp, mp, sh, level, offload, opt_name = spec
     s = fleet.DistributedStrategy()
-    s.hybrid_configs = {"dp_degree": dp, "sharding_degree": sh}
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp,
+                        "sharding_degree": sh}
     fleet.init(is_collective=True, strategy=s)
     with open(f"{root}/weights.pkl", "rb") as f:
         weights = pickle.load(f)
@@ -157,6 +188,9 @@ def _run(root, name, spec):
     out["local"] = {n: tuple(p.shape) for n, p in named}
     out["moments"] = {n: tuple(opt._accumulators[id(p)]["moment1"].shape)
                       for n, p in named}
+    out["specs"] = {n: (_spec(get_sharding(p), p.dim()),
+                        _spec(layout_spec(grad_layout(p)), p.dim()))
+                    for n, p in named}
     sd = opt.state_dict()
     out["state"] = {k: v.numpy() for k, v in sd.items()
                     if isinstance(v, torch.Tensor)}
@@ -165,29 +199,45 @@ def _run(root, name, spec):
     out["state_roundtrip"] = all(
         torch.equal(again[k], v) for k, v in sd.items()
         if isinstance(v, torch.Tensor))
-    if name == "sh2_p_g_os":
-        save_group_sharded_model(model, f"{root}/saved", opt)
+    if name in SAVED:
+        save_group_sharded_model(model, f"{root}/saved_{name}", opt)
+    if name == CHECKPOINTED:
+        out["reloaded"] = _checkpoint_round_trip(root, model, opt, spec)
     return out
 
 
-def _edge_cases(root):
-    """ZeRO at dp 2 x mp 2: it raises on every rank."""
-    from paddle_tpu_torch.distributed import fleet
+def _checkpoint_round_trip(root, model, opt, spec):
+    """Save a sharded checkpoint (parameters, masters and moments from
+    both cuts), then load it into a fresh model and optimizer under the
+    same layout: their state gathered whole."""
+    from paddle_tpu_torch.distributed import checkpoint as tck
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models import (
+        LlamaConfig, LlamaForCausalLM, gather_jax_layout,
+    )
     from paddle_tpu_torch.optimizer import AdamW
 
-    s = fleet.DistributedStrategy()
-    s.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
-    fleet.init(is_collective=True, strategy=s)
-    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+    path = f"{root}/checkpoint"
+    tck.save_state_dict({**model.state_dict(keep_vars=True),
+                         **tck.optimizer_state(opt)}, path)
+    fresh = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
                              device="cpu")
-    opt = AdamW(parameters=model.parameters())
-    try:
-        group_sharded_parallel(model, opt, level="os_g")
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    again = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                  parameters=list(fresh.named_parameters()))
+    fresh, again, _ = group_sharded_parallel(fresh, again, level=spec[3])
+    state = {**fresh.state_dict(keep_vars=True),
+             **tck.optimizer_state(again)}
+    tck.load_state_dict(state, path)
+    again.set_state_dict(state)
+    return {"params": gather_jax_layout(fresh),
+            "state": {k: v.numpy() for k, v in again.state_dict().items()
+                      if isinstance(v, torch.Tensor)}}
+
+
+def _spec(spec, ndim):
+    """A spec as a tuple of ``ndim`` parts, None or an axis name."""
+    parts = tuple(spec or ())
+    return parts + (None,) * (ndim - len(parts))
 
 
 def _zero_worker(root, names):
@@ -197,8 +247,7 @@ def _zero_worker(root, names):
     dist.init_parallel_env(backend="gloo",
                            init_method=f"file://{root}/store")
     for name in names:
-        out = _edge_cases(root) if name == "edge" else \
-            _run(root, name, CONFIGS.get(name) or PLAIN[name])
+        out = _run(root, name, CONFIGS.get(name) or PLAIN[name])
         with open(f"{root}/{name}.{dist.get_rank()}.pkl", "wb") as f:
             pickle.dump(out, f)
     dist.destroy_process_group()
@@ -217,9 +266,9 @@ def _reference(name):
     from paddle_tpu.models import LlamaConfig as JaxConfig
     from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 
-    dp, sh, level, offload, opt_name = CONFIGS[name]
+    dp, mp, sh, level, offload, opt_name = CONFIGS[name]
     s = jfleet.DistributedStrategy()
-    s.hybrid_configs = {"dp_degree": dp, "mp_degree": 1, "pp_degree": 1,
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": 1,
                         "sharding_degree": sh}
     jfleet.init(is_collective=True, strategy=s)
     try:
@@ -248,6 +297,38 @@ def _reference(name):
     finally:
         jenv.reset_env()
     return weights, ref
+
+
+def _reference_specs(dp, mp, sh):
+    """Each parameter's spec as the reference's ZeRO places it on the
+    ``dp x mp x sharding`` mesh (``_sharded_put`` on the layer's own
+    placement: its states, and under ``p_g_os`` the parameter), on the
+    axes of degree > 1."""
+    import paddle_tpu as pt
+    from paddle_tpu.distributed import env as jenv
+    from paddle_tpu.distributed import fleet as jfleet
+    from paddle_tpu.distributed.sharding import group_sharded as jgs
+    from paddle_tpu.models import LlamaConfig as JaxConfig
+    from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+
+    s = jfleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": 1,
+                        "sharding_degree": sh}
+    jfleet.init(is_collective=True, strategy=s)
+    degrees = {"dp": dp, "mp": mp, "sharding": sh}
+    try:
+        pt.seed(11)
+        jm = JaxLlama(JaxConfig.tiny(num_hidden_layers=2))
+        axis = jgs._shard_axis()
+        out = {}
+        for n, p in jm.named_parameters():
+            spec = _spec(jgs._sharded_put(p._data, axis).sharding.spec,
+                         p._data.ndim)
+            out[n] = tuple(a if a is not None and degrees.get(a, 1) > 1
+                           else None for a in spec)
+        return out
+    finally:
+        jenv.reset_env()
 
 
 def _reference_loss(state):
@@ -280,10 +361,15 @@ def runs(tmp_path_factory):
     for ref_name, names in REFERENCE.items():
         weights, ref = _reference(ref_name)
         refs.update({n: ref for n in names})
+    specs = {}
+    for name, (dp, mp, sh, *_) in CONFIGS.items():
+        if (dp, mp, sh) not in specs:
+            specs[(dp, mp, sh)] = _reference_specs(dp, mp, sh)
+        refs[name] = {**refs[name], "specs": specs[(dp, mp, sh)]}
     out = {}
-    by_world = {2: [], 4: ["edge"]}
+    by_world = {2: [], 4: []}
     for name, spec in {**CONFIGS, **PLAIN}.items():
-        by_world[spec[0] * spec[1]].append(name)
+        by_world[spec[0] * spec[1] * spec[2]].append(name)
     for world, names in by_world.items():
         sub = root / f"w{world}"
         os.makedirs(sub)
@@ -296,7 +382,10 @@ def runs(tmp_path_factory):
                 with open(sub / f"{name}.{r}.pkl", "rb") as f:
                     ranks.append(pickle.load(f))
             out[name] = (refs.get(name), ranks)
-    out["saved"] = str(root / "w2" / "saved")
+    out["saved"] = {n: str(root / f"w{np.prod(CONFIGS[n][:3])}"
+                           / f"saved_{n}") for n in SAVED}
+    out["checkpoint"] = str(root / f"w{np.prod(CONFIGS[CHECKPOINTED][:3])}"
+                            / "checkpoint")
     return out
 
 
@@ -317,21 +406,43 @@ def test_zero_steps_match_reference_and_unsharded(runs, name):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
+def test_each_parameter_is_cut_as_the_reference_cuts_it(runs, name):
+    """The states' layout (``shard.grad_layout``) on the axes of degree
+    > 1 is the reference's spec; under ``p_g_os`` the parameter's
+    (``shard.get_sharding``) too, and under ``os``/``os_g`` the
+    parameter keeps its tensor-parallel cut alone."""
+    ref, ranks = runs[name]
+    level = CONFIGS[name][3]
+    for o in ranks:
+        for pname, (param_spec, state_spec) in o["specs"].items():
+            want = ref["specs"][pname]
+            assert state_spec == want, (pname, state_spec, want)
+            tp = tuple(a if a == "mp" else None for a in want)
+            assert param_spec == (want if level == "p_g_os" else tp), \
+                (pname, param_spec, want)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
 def test_each_rank_holds_only_its_slices(runs, name):
-    """Every tensor with a dim the axis divides is cut in two on it; the
-    rest (none in this model) stay whole. ``p_g_os`` cuts the parameters
-    too."""
-    dp, sh, level, _, _ = CONFIGS[name]
-    n = sh if sh > 1 else dp
-    _, ranks = runs[name]
+    """Each dim the reference's spec names an axis on is cut by that
+    axis's degree (ZeRO's dim read from the spec, not taken as the first
+    divisible one); the rest stay whole. ``p_g_os`` cuts the parameters
+    too; under ``os``/``os_g`` a parameter is its mp piece."""
+    dp, mp, sh, level, _, _ = CONFIGS[name]
+    degrees = {"dp": dp, "mp": mp, "sharding": sh}
+    ref, ranks = runs[name]
     for o in ranks:
         for pname, shape in o["moments"].items():
             full = o["params"][pname].shape
-            d = next(i for i, s in enumerate(full) if s % n == 0)
-            want = tuple(s // n if i == d else s for i, s in enumerate(full))
+            spec = ref["specs"][pname]
+            want = tuple(s // degrees[a] if a else s
+                         for s, a in zip(full, spec))
+            piece = tuple(s // mp if a == "mp" else s
+                          for s, a in zip(full, spec))
+            assert any(a not in (None, "mp") for a in spec), pname
             assert shape == want, (pname, shape, full)
             assert o["local"][pname] == (want if level == "p_g_os"
-                                         else full)
+                                         else piece)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -354,14 +465,14 @@ def test_offload_updates_one_parameter_at_a_time(runs):
         assert o["sizes"] and {tuple(s) for s in o["sizes"]} == {(1, 1)}
 
 
-def test_saved_group_sharded_model_loads_in_the_reference(runs):
+def _saved_loads_in_the_reference(runs, name):
     from paddle_tpu.framework.io import load as jload
 
-    _, ranks = runs["sh2_p_g_os"]
-    state = jload(os.path.join(runs["saved"], "model.pdparams"))
+    _, ranks = runs[name]
+    state = jload(os.path.join(runs["saved"][name], "model.pdparams"))
     for n, p in ranks[0]["params"].items():
         np.testing.assert_array_equal(np.asarray(state[n].numpy()), p)
-    opt = jload(os.path.join(runs["saved"], "model.pdopt"),
+    opt = jload(os.path.join(runs["saved"][name], "model.pdopt"),
                 return_numpy=True)
     for k, v in ranks[0]["state"].items():
         np.testing.assert_array_equal(opt[k], v)
@@ -378,10 +489,59 @@ def test_saved_group_sharded_model_loads_in_the_reference(runs):
     assert abs(_reference_loss(state) - want) <= TOL
 
 
-def test_zero_under_mp_raises(runs):
-    _, ranks = runs["edge"]
-    for msg in ranks:
-        assert msg is not None and "A.6" in msg and "mp > 1" in msg
+def test_saved_group_sharded_model_loads_in_the_reference(runs):
+    _saved_loads_in_the_reference(runs, "sh2_p_g_os")
+
+
+@pytest.mark.parametrize("name", [n for n in SAVED if n.startswith("mp2")])
+def test_saved_model_under_mp_loads_in_the_reference(runs, name):
+    """Written whole from both cuts (over the ZeRO axis, then over
+    mp)."""
+    _saved_loads_in_the_reference(runs, name)
+
+
+def test_checkpoint_at_mp2_sharding2_records_both_cuts_and_loads(runs):
+    """A sharded checkpoint of the ``mp 2 x sharding 2`` ``p_g_os`` ranks
+    records both cuts (the index's spec; one region per segment of each
+    cut dim), loads back at its own layout on every rank, and at one
+    rank into the plain model and optimizer, bit for bit against the
+    ranks' gathered state."""
+    from paddle_tpu_torch.distributed import checkpoint as tck
+    from paddle_tpu_torch.models import (
+        LlamaConfig, LlamaForCausalLM, gather_jax_layout,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _, ranks = runs[CHECKPOINTED]
+    path = runs["checkpoint"]
+    with open(os.path.join(path, "index.json")) as f:
+        index = json.load(f)["tensors"]
+    qkv = "llama.layers.0.self_attn.qkv_proj.weight"
+    assert index[qkv]["spec"] == ["sharding", "mp"]
+    assert index[f"{qkv}.moment1"]["spec"] == ["sharding", "mp"]
+    # q, k, v on dim 1 over mp, each cut over sharding on dim 0
+    assert len(index[qkv]["shards"]) == 3 * 2 * 2
+    assert index["llama.embed_tokens.weight"]["spec"] == ["mp", "sharding"]
+    for o in ranks:
+        for n, p in o["params"].items():
+            np.testing.assert_array_equal(o["reloaded"]["params"][n], p,
+                                          err_msg=n)
+        for k, v in o["state"].items():
+            np.testing.assert_array_equal(o["reloaded"]["state"][k], v,
+                                          err_msg=k)
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2),
+                             device="cpu")
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                parameters=list(model.named_parameters()))
+    state = {**model.state_dict(keep_vars=True), **tck.optimizer_state(opt)}
+    tck.load_state_dict(state, path)
+    opt.set_state_dict(state)
+    got = gather_jax_layout(model)
+    for n, p in ranks[0]["params"].items():
+        np.testing.assert_array_equal(got[n], p, err_msg=n)
+    sd = opt.state_dict()
+    for k, v in ranks[0]["state"].items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
 
 
 def test_zero_at_world_size_one_is_the_identity():

@@ -36,7 +36,11 @@ sequence chunks:
 - ``moe_mp2_sep2_sp``: the MoE Llama the same way, the gate counting
   over the sequence split ``(sep, mp)``;
 - ``pp2_mp2_sep2_sp``: the pipe with SP and ring at pp 2 x mp 2 x sep 2
-  (8 ranks).
+  (8 ranks);
+- ``hybrid_os_g``: ``hybrid`` under ZeRO ``os_g`` over dp
+  (``group_sharded_parallel``): the experts stay over dp, every other
+  parameter's states gain a dp cut beside its mp cut (the reference's
+  result is ``hybrid``'s: ZeRO is a layout there).
 
 Held, each against the reference within ``TOL``: the loss on every rank,
 every gradient (``gather_jax_layout``; canonical keys for the pipes),
@@ -80,7 +84,10 @@ CONFIGS = {
     "mp2_sep2_sp_ulysses": (1, 2, 1, 2, True, "ulysses", 0),
     "moe_mp2_sep2_sp": (1, 2, 1, 2, True, "ring", 4),
     "pp2_mp2_sep2_sp": (1, 2, 2, 2, True, "ring", 0),
+    "hybrid_os_g": (2, 2, 2, 1, True, None, 4),
 }
+# ZeRO under the pipe: name: its level (over dp, sharding being 1)
+ZERO = {"hybrid_os_g": "os_g"}
 # the reference's result does not depend on its layout (GSPMD keeps the
 # global meaning), nor on which exact attention it runs: these take the
 # reference of the named config (its compiles are the file's largest
@@ -89,12 +96,12 @@ CONFIGS = {
 SAME_REFERENCE = {"moe_mp2_sp": "moe_dp2_mp2_sp", "moe_sep2": "moe_dp2_sep2",
                   "moe_mp2_sep2_sp": "moe_dp2_mp2_sp",
                   "mp2_sep2_sp_ulysses": "mp2_sep2_sp_ring",
-                  "pp2_mp2_sep2_sp": "pp2_mp2_sp"}
+                  "pp2_mp2_sep2_sp": "pp2_mp2_sp", "hybrid_os_g": "hybrid"}
 WORLDS = {2: ["moe_mp2_sp", "moe_sep2"],
           4: ["pp2_mp2_sp", "pp2_sep2_ring", "pp2_sep2_ulysses",
               "moe_dp2_mp2_sp", "moe_dp2_sep2", "mp2_sep2_sp_ring",
               "mp2_sep2_sp_ulysses", "moe_mp2_sep2_sp", "errors"],
-          8: ["hybrid", "pp2_mp2_sep2_sp"]}
+          8: ["hybrid", "pp2_mp2_sep2_sp", "hybrid_os_g"]}
 
 
 def _batch():
@@ -322,8 +329,26 @@ def _dispatched(model, x, spec, rows, cols, mp_rank):
     return out
 
 
+def _zero_grads(model, opt):
+    """Under ZeRO: each gradient as its global tensor (the plan's slices
+    gathered over the axis and mp), the stages put together, as
+    ``gather_jax_layout(model, grads=True)`` gives them without ZeRO."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed import _comm
+
+    plan, out = opt._zero, {}
+    for n, p in model.named_parameters():
+        for _, g in plan.params_grads([p]):
+            out[n] = plan.full(p, g).numpy()
+    stages = [None] * len(model.pp_group()[0])
+    _comm.run(tdist.all_gather_object, None, model.pp_group(), stages, out)
+    return {k: v for stage in stages for k, v in stage.items()}
+
+
 def _run(root, name):
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (
         LlamaForCausalLM, LlamaForCausalLMPipe, gather_jax_layout,
@@ -347,13 +372,16 @@ def _run(root, name):
         model = LlamaForCausalLMPipe(cfg, device="cpu")
         load_jax_weights(model, weights)
         net = fleet.distributed_model(model)
-        out = {"loss": float(net.forward_backward_pipeline((x, y)))}
-        net._reduce_gradients()
-        out["grads"] = gather_jax_layout(model, grads=True)
-        out["counters"] = dict(model.counters)
-        out["stage"] = hcg.get_stage_id()
         opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
                     parameters=model.parameters(), grad_clip=clip)
+        if name in ZERO:
+            _, opt, _ = group_sharded_parallel(net, opt, level=ZERO[name])
+        out = {"loss": float(net.forward_backward_pipeline((x, y)))}
+        net._reduce_gradients(opt)
+        out["grads"] = gather_jax_layout(model, grads=True) \
+            if name not in ZERO else _zero_grads(model, opt)
+        out["counters"] = dict(model.counters)
+        out["stage"] = hcg.get_stage_id()
         opt.clear_grad()
         out["steps"] = [float(net.train_batch((x, y), opt))
                         for _ in range(STEPS)]
@@ -383,12 +411,11 @@ def _run(root, name):
 def _errors():
     """Each combination still refused, in one order on every rank (4)."""
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
     from paddle_tpu_torch.models import (
         LlamaConfig, LlamaForCausalLM, LlamaForCausalLMPipe,
     )
-    from paddle_tpu_torch.optimizer import LBFGS, AdamW
+    from paddle_tpu_torch.optimizer import LBFGS
 
     errors = []
 
@@ -400,24 +427,18 @@ def _errors():
         else:
             errors.append(None)
 
-    fleet.init(is_collective=True, strategy=_strategy(dp=2, sharding=2))
-    attempt(lambda: LlamaForCausalLM(LlamaConfig.tiny(moe_num_experts=4),
-                                     device="cpu"))
-    attempt(lambda: MoELayer(16, 32, 4, expert_axis="mp", device="cpu"))
+    fleet.init(is_collective=True, strategy=_strategy(mp=2, sep=2))
+    attempt(lambda: LlamaForCausalLM(LlamaConfig.tiny(
+        moe_num_experts=4, moe_expert_axis="mp", sequence_parallel=True),
+        device="cpu"))
+    attempt(lambda: MoELayer(16, 32, 4, expert_axis="sep", device="cpu"))
     fleet.init(is_collective=True, strategy=_strategy(dp=2, mp=2))
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                              device="cpu")
-    attempt(lambda: group_sharded_parallel(
-        model, AdamW(parameters=model.parameters()), "os"))
     attempt(lambda: fleet.distributed_optimizer(
         LBFGS(parameters=model.parameters())))
     attempt(lambda: LlamaForCausalLMPipe(
         LlamaConfig.tiny(vocab_size=127), device="cpu"), ValueError)
-    fleet.init(is_collective=True, strategy=_strategy(dp=2, pp=2))
-    model = LlamaForCausalLMPipe(LlamaConfig.tiny(num_hidden_layers=2),
-                                 device="cpu")
-    attempt(lambda: group_sharded_parallel(
-        model, AdamW(parameters=model.parameters()), "os"))
     return errors
 
 
@@ -523,13 +544,13 @@ def test_remaining_combinations_raise_naming_their_item(runs):
     _, ranks = runs["errors"]
     for errors in ranks:
         assert all(e is not None for e in errors), errors
-        moe_sharding, expert_axis, zero_mp, lbfgs, uneven, zero_pp = errors
-        assert "MoE with sharding_degree > 1" in moe_sharding
-        assert "expert_axis='mp'" in expert_axis
+        axis_mp_sp, axis_sep, lbfgs, uneven = errors
+        assert "expert_axis='mp'" in axis_mp_sp
+        assert "sequence parallelism" in axis_mp_sp
+        assert "expert_axis='sep'" in axis_sep
         assert "LBFGS" in lbfgs
         assert "vocab_size = 127" in uneven and "mp = 2" in uneven
-        for e in (moe_sharding, expert_axis, zero_mp, lbfgs, uneven,
-                  zero_pp):
+        for e in errors:
             assert "A.6" in e, e
 
 

@@ -30,8 +30,24 @@ the reference on its virtual mesh:
 - ``dp2_pp2``: the MoE Llama pipe at dp 2 x pp 2 (no aux loss, as the
   reference's pipe has none), each dp rank fed its chunk of each
   microbatch;
-- the errors: MoE with sharding 2 raises; under sequence and context
-  parallelism it builds (held in ``tests/test_torch_hybrid.py``).
+- ``MORE``: the MoE Llama with its batch over sharding too, and its
+  experts over any batch axis or mp: ``moe_sh2`` (sharding 2, every
+  expert on each rank), ``moe_dp2_sh2`` (experts over dp, each
+  sharding rank running them on its own tokens' slots),
+  ``moe_axis_sharding`` (dp 2 x sharding 2, the experts over sharding),
+  ``moe_axis_mp`` (mp 2, the experts over mp, the tokens replicated),
+  and under ZeRO ``moe_sh2_p_g_os`` (the experts gain a sharding cut on
+  dim 1), ``moe_dp2_os_g`` (the experts stay over dp) and
+  ``moe_axis_sharding_os_g`` (ZeRO over sharding, the experts laid out
+  over it already: their gradients summed over dp alone): the loss,
+  every gradient and 2 clipped ``AdamW`` steps against the reference,
+  the first layer's dispatched (token, expert, slot) set, global over
+  the ranks, and each rank's count of experts. The reference's results
+  do not depend on the layout (its gate is global): these take those of
+  ``moe_axis_sharding``, run on its own mesh (``SAME_REFERENCE``);
+- the errors: under sequence and context parallelism and at sharding 2
+  the MoE Llama builds (SP and context parallelism held in
+  ``tests/test_torch_hybrid.py``).
 """
 import os
 import pickle
@@ -60,7 +76,23 @@ LAYER_CASES = {  # name: (top_k, capacity_factor)
     "top1_keep": (1, 4.0), "top1_drop": (1, 0.5)}
 CONFIGS = {  # name: (dp, mp, pp)
     "dp2": (2, 1, 1), "dp2_mp2": (2, 2, 1), "dp2_pp2": (2, 1, 2)}
+MORE = {  # name: (dp, mp, sharding, moe_expert_axis, ZeRO level)
+    "moe_sh2": (1, 1, 2, "dp", None),
+    "moe_dp2_sh2": (2, 1, 2, "dp", None),
+    "moe_axis_sharding": (2, 1, 2, "sharding", None),
+    "moe_axis_mp": (1, 2, 1, "mp", None),
+    "moe_sh2_p_g_os": (1, 1, 2, "dp", "p_g_os"),
+    "moe_dp2_os_g": (2, 1, 1, "dp", "os_g"),
+    "moe_axis_sharding_os_g": (2, 1, 2, "sharding", "os_g"),
+}
+SAME_REFERENCE = {"moe_sh2": "moe_axis_sharding",
+                  "moe_dp2_sh2": "moe_axis_sharding",
+                  "moe_axis_mp": "moe_axis_sharding",
+                  "moe_sh2_p_g_os": "moe_axis_sharding",
+                  "moe_dp2_os_g": "moe_axis_sharding",
+                  "moe_axis_sharding_os_g": "moe_axis_sharding"}
 N_MICRO = 2
+MORE_STEPS = 2  # the AdamW steps of a MORE config
 
 
 def _batch():
@@ -97,11 +129,12 @@ def _dispatched_set(rows, cap, offset=0):
 # -- the reference ----------------------------------------------------------------
 
 
-def _jax_fleet(dp=1, mp=1, pp=1, acc=None):
+def _jax_fleet(dp=1, mp=1, pp=1, acc=None, sharding=1):
     from paddle_tpu.distributed import fleet as jfleet
 
     s = jfleet.DistributedStrategy()
-    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp}
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp,
+                        "sharding_degree": sharding}
     if acc:
         s.pipeline_configs = {"accumulate_steps": acc, "micro_batch_size": 1}
     jfleet.init(is_collective=True, strategy=s)
@@ -163,6 +196,35 @@ def _canonical(jm, grads=False):
     return {k: a for k, a in out.items() if a is not None}
 
 
+def _jax_dispatched(jm, ids):
+    """The first MoE layer's dispatched (token, expert, slot) set: its
+    input recorded in a forward, its gate's dispatch."""
+    import jax.numpy as jnp
+
+    import paddle_tpu as pt
+    from paddle_tpu.incubate.distributed.models.moe import moe_layer as jml
+
+    seen, forward = [], jml.MoELayer.forward
+
+    def recording(layer, x):
+        if not seen:
+            seen.append((layer, np.asarray(x.numpy())))
+        return forward(layer, x)
+
+    jml.MoELayer.forward = recording
+    try:
+        with pt.no_grad():
+            jm(pt.to_tensor(ids))
+    finally:
+        jml.MoELayer.forward = forward
+    layer, x = seen[0]
+    logits = jnp.asarray(x.reshape(-1, x.shape[-1])) \
+        @ jnp.asarray(layer.gate_weight.numpy())
+    cap = capacity(2, B * S, E, layer.capacity_factor)
+    dispatch = np.asarray(jml._top2_gating(logits, cap)[1])
+    return {tuple(int(i) for i in ix) for ix in np.argwhere(dispatch > 0)}
+
+
 def _jax_llama(name, ids, labels, ce_chunk=0):
     """The reference MoE Llama's (or pipe's) weights and results."""
     import paddle_tpu as pt
@@ -172,11 +234,15 @@ def _jax_llama(name, ids, labels, ce_chunk=0):
     from paddle_tpu.models.llama import LlamaForCausalLMPipe as JaxPipe
 
     dp, mp, pp = CONFIGS.get(name, (1, 1, 1))
-    jfleet = _jax_fleet(dp, mp, pp, acc=N_MICRO if pp > 1 else None)
+    sh, axis = 1, "dp"
+    if name in MORE:
+        dp, mp, sh, axis, _ = MORE[name]
+    jfleet = _jax_fleet(dp, mp, pp, acc=N_MICRO if pp > 1 else None,
+                        sharding=sh)
     try:
         cfg = JaxConfig.tiny(num_hidden_layers=2, moe_num_experts=E,
                              use_parallel_cross_entropy=not ce_chunk,
-                             ce_chunk_size=ce_chunk)
+                             ce_chunk_size=ce_chunk, moe_expert_axis=axis)
         pt.seed(11)
         data = (pt.to_tensor(ids), pt.to_tensor(labels))
         clip = pt.nn.ClipGradByGlobalNorm(1.0)
@@ -198,9 +264,10 @@ def _jax_llama(name, ids, labels, ce_chunk=0):
             return weights, ref
         jm = JaxLlama(cfg)
         weights = {n: np.asarray(p._data) for n, p in jm.named_parameters()}
+        dispatched = _jax_dispatched(jm, ids) if name in MORE else None
         loss = jm(*data)
         loss.backward()
-        ref = {"loss": float(loss.numpy()),
+        ref = {"dispatched": dispatched, "loss": float(loss.numpy()),
                "grads": {n: np.asarray(p.grad.numpy())
                          for n, p in jm.named_parameters()}}
         jm.clear_gradients()
@@ -209,7 +276,7 @@ def _jax_llama(name, ids, labels, ce_chunk=0):
             learning_rate=1e-3, weight_decay=0.01,
             parameters=jm.parameters(), grad_clip=clip))
         steps = []
-        for _ in range(STEPS):
+        for _ in range(MORE_STEPS if name in MORE else STEPS):
             loss = net(*data)
             loss.backward()
             opt.step()
@@ -328,7 +395,7 @@ def test_unported_moe_options_raise():
     with pytest.raises(NotImplementedError, match="top_k=3"):
         MoELayer(**LAYER, top_k=3, device="cpu")
     with pytest.raises(NotImplementedError, match="A.6"):
-        MoELayer(**LAYER, expert_axis="mp", device="cpu")
+        MoELayer(**LAYER, expert_axis="sep", device="cpu")
 
 
 def _port_llama(weights, device="cpu", **kw):
@@ -482,6 +549,82 @@ def _llama_config(root, name):
     return out
 
 
+def _grads(model, opt=None):
+    """Every gradient as the reference's global array, also under ZeRO
+    (``opt._zero``: its slices gathered over the axis and mp)."""
+    from paddle_tpu_torch.models import gather_jax_layout
+
+    plan = getattr(opt, "_zero", None)
+    if plan is None:
+        return gather_jax_layout(model, grads=True)
+    return {n: plan.full(p, g).numpy() for n, p in model.named_parameters()
+            for _, g in plan.params_grads([p])}
+
+
+def _dispatched(model, x, rows):
+    """The first MoE layer's dispatched set from this rank's tokens, by
+    their global (row * S + column) indices."""
+    seen = []
+    mlp = model.llama.layers[0].mlp
+    handle = mlp.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0]) if not seen else None)
+    with torch.no_grad():
+        model(x)
+        handle.remove()
+        xin = seen[0]
+        cap = capacity(2, B * S, E, mlp.capacity_factor)
+        _, _, routed, _ = mlp.route(xin.reshape(-1, xin.shape[-1]), cap,
+                                    xin.shape[0])
+    out = set()
+    for r in routed:
+        for t, v in enumerate(r.tolist()):
+            if v < E * cap:
+                out.add((int(rows[t // S]) * S + t % S, v // cap, v % cap))
+    return out
+
+
+def _llama_more(root, name):
+    """A ``MORE`` config on this rank: the dispatched set and the expert
+    count, the loss and gradients of one backward, then 3 clipped AdamW
+    steps (through ZeRO when the config names a level)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import gather_jax_layout
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    dp, mp, sh, axis, level = MORE[name]
+    fleet.init(is_collective=True,
+               strategy=_strategy(dp, mp, 1, sharding=sh))
+    hcg = fleet.get_hybrid_communicate_group()
+    with open(f"{root}/{name}.weights.pkl", "rb") as f:
+        weights = pickle.load(f)
+    ids, labels = _batch()
+    r = hcg.get_data_parallel_rank() * sh + hcg.get_sharding_parallel_rank()
+    rows = _rank_rows(B, dp * sh, r, 1)
+    x, y = torch.from_numpy(ids[rows]), torch.from_numpy(labels[rows])
+    model = _port_llama(weights, moe_expert_axis=axis)
+    out = {"dispatched": _dispatched(model, x, rows),
+           "experts": [blk.mlp.w_in.shape[0] for blk in model.llama.layers]}
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    if level is None:
+        net = fleet.distributed_model(model)
+    else:
+        model, opt, _ = group_sharded_parallel(model, opt, level=level)
+        net = model
+    loss = net(x, y)
+    loss.backward()
+    out.update(loss=float(loss.detach()), grads=_grads(model, opt))
+    opt.clear_grad()
+    step = TrainStep(net, opt, lambda m, i, l: m(i, l))
+    out["steps"] = [float(step(x, y)) for _ in range(MORE_STEPS)]
+    out["params"] = gather_jax_layout(model)
+    return out
+
+
 def _errors():
     """The MoE Llama built under SP (mp 2), context parallelism (sep 2)
     and sharding 2: the error message of each, None where it builds."""
@@ -515,6 +658,8 @@ def _moe_worker(root, names):
             out = _layer_dp2(root)
         elif name == "errors":
             out = _errors()
+        elif name in MORE:
+            out = _llama_more(root, name)
         else:
             out = _llama_config(root, name)
         with open(f"{root}/{name}.{dist.get_rank()}.pkl", "wb") as f:
@@ -531,11 +676,18 @@ def runs(tmp_path_factory):
     weights, refs = {}, {}
     weights["layer_dp2"], refs["layer_dp2"] = _jax_layer(
         2, 0.5, _layer_input(), dp=2)
-    for name in CONFIGS:
-        weights[name], refs[name] = _jax_llama(name, ids, labels)
+    for name in [*CONFIGS, *MORE]:
+        if name not in SAME_REFERENCE:
+            weights[name], refs[name] = _jax_llama(name, ids, labels)
+    for name, same in SAME_REFERENCE.items():
+        weights[name], refs[name] = weights[same], refs[same]
     out = {}
-    for world, names in ((2, ["layer_dp2", "dp2", "errors"]),
-                         (4, ["dp2_mp2", "dp2_pp2"])):
+    for world, names in ((2, ["layer_dp2", "dp2", "errors", "moe_sh2",
+                              "moe_axis_mp", "moe_sh2_p_g_os",
+                              "moe_dp2_os_g"]),
+                         (4, ["dp2_mp2", "dp2_pp2", "moe_dp2_sh2",
+                              "moe_axis_sharding",
+                              "moe_axis_sharding_os_g"])):
         sub = root / f"w{world}"
         os.makedirs(sub)
         for name in names:
@@ -573,7 +725,7 @@ def test_layer_over_dp2_is_the_global_gate(runs):
         assert o["comm_bytes"] == 2 * E * capacity(2, 16, E, 0.5) * 16 * 4
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", [*CONFIGS, *MORE])
 def test_moe_llama_loss_and_gradients_match_reference(runs, name):
     ref, ranks = runs[name]
     for o in ranks:
@@ -583,7 +735,7 @@ def test_moe_llama_loss_and_gradients_match_reference(runs, name):
             _close(o["grads"][n], g, n)
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", [*CONFIGS, *MORE])
 def test_moe_llama_clipped_adamw_steps_match_reference(runs, name):
     ref, ranks = runs[name]
     for o in ranks:
@@ -592,6 +744,29 @@ def test_moe_llama_clipped_adamw_steps_match_reference(runs, name):
         for n, p in o["params"].items():
             np.testing.assert_allclose(p, ref["params"][n], atol=PARAM_TOL,
                                        rtol=0, err_msg=n)
+
+
+@pytest.mark.parametrize("name", list(MORE))
+def test_moe_llama_dispatches_the_references_tokens(runs, name):
+    """The first layer's (token, expert, slot) set, global over the
+    ranks, is the reference's; ranks that hold other tokens route none
+    in common (over mp every rank routes the same tokens); each rank
+    holds ``E / degree`` experts of its axis."""
+    dp, mp, sh, axis, _ = MORE[name]
+    ref, ranks = runs[name]
+    assert set().union(*(o["dispatched"] for o in ranks)) \
+        == ref["dispatched"]
+    if axis == "mp":
+        assert all(o["dispatched"] == ref["dispatched"] for o in ranks)
+    else:
+        seen = {}
+        for o in ranks:
+            for tok, e, slot in o["dispatched"]:
+                seen.setdefault((e, slot), set()).add(tok)
+        assert all(len(t) == 1 for t in seen.values())
+    degree = {"dp": dp, "mp": mp, "sharding": sh}[axis]
+    for o in ranks:
+        assert o["experts"] == [E // degree] * 2, o["experts"]
 
 
 def test_clip_and_lamb_count_the_expert_shards_over_dp(runs):
@@ -610,11 +785,9 @@ def test_clip_and_lamb_count_the_expert_shards_over_dp(runs):
 
 def test_moe_under_sp_cp_or_sharding_raises(runs):
     """Under SP and context parallelism the MoE Llama builds (its gate
-    counts the sequence chunks: ``tests/test_torch_hybrid.py``); with
-    sharding 2 it still raises, naming its ROADMAP item."""
+    counts the sequence chunks: ``tests/test_torch_hybrid.py``), and at
+    sharding 2 too (its gate counts the sharding ranks' tokens:
+    ``MORE``)."""
     _, ranks = runs["errors"]
     for errors in ranks:
-        assert len(errors) == 3, errors
-        assert errors[0] is None and errors[1] is None, errors
-        assert "A.6" in errors[2] and "MoE" in errors[2]
-        assert "sharding_degree" in errors[2]
+        assert errors == [None, None, None], errors

@@ -16,6 +16,12 @@ Configurations (``CONFIGS``): the tiny Llama (4 layers, 4 heads, hidden
 pp 2 with 2 virtual stages, pp 4, pp 2 x mp 2 and dp 2 x pp 2 (1F1B);
 the tiny ERNIE pipe (dropout 0) on ``nlu`` and ``nlg`` at pp 2; and a
 model whose first and last layers are one ``SharedLayerDesc`` at pp 2.
+Under ZeRO (``ZERO``): the Llama pipe at pp 2 x sharding 2 under
+``p_g_os`` (the stage's layers gather their slices around each
+microbatch's forward) and at dp 2 x pp 2 under ``os_g`` (1F1B), and the
+shared model at pp 2 x sharding 2 under ``os_g`` (its shared weight's
+gradient summed over the two stages on the slice); the reference's
+results are those of the same pipe without ZeRO (``SAME_REFERENCE``).
 One b4 x s16 batch, its labels with ignored tokens in the first row
 only (so the microbatches' and dp shards' counts differ). Held, each
 against the reference: the loss of ``forward_backward_pipeline`` on
@@ -59,7 +65,18 @@ CONFIGS = {
     "ernie_nlu": ("nlu", 2, 1, 1, 1, 2, ""),
     "ernie_nlg": ("nlg", 2, 1, 1, 1, 2, ""),
     "shared": ("shared", 2, 1, 1, 1, 2, ""),
+    "pp2_sh2_p_g_os": ("llama", 2, 1, 1, 1, 2, ""),
+    "pp2_dp2_os_g": ("llama", 2, 1, 2, 1, 2, "1F1B"),
+    "shared_sh2_os_g": ("shared", 2, 1, 1, 1, 2, ""),
 }
+# ZeRO (group_sharded_parallel) under the pipe: name: (level, sharding
+# degree); the batch is split over dp x sharding
+ZERO = {"pp2_sh2_p_g_os": ("p_g_os", 2), "pp2_dp2_os_g": ("os_g", 1),
+        "shared_sh2_os_g": ("os_g", 2)}
+# ZeRO is a layout in the reference (GSPMD keeps the global meaning):
+# these take the reference of the config with the same mesh but for it
+SAME_REFERENCE = {"pp2_sh2_p_g_os": "gpipe", "pp2_dp2_os_g": "dp2_pp2",
+                  "shared_sh2_os_g": "shared"}
 # the port alone, each held bit for bit against a config above: GPipe at
 # 1F1B's microbatch count; GPipe with every block recomputed; GPipe
 # through a GradScaler (a power-of-two scale: unscaling is exact)
@@ -114,6 +131,24 @@ def _mse(out, labels):
     return ((out - labels) ** 2).mean()
 
 
+class _BatchMse:
+    """The mean squared error over the whole batch when its rows are
+    split over the batch ranks (dp x sharding): each microbatch's sum
+    over the batch's count (``PipelineParallel`` hands it in), its value
+    summed over the ranks."""
+
+    def token_count(self, labels):
+        return torch.tensor(labels.numel())
+
+    def __call__(self, out, labels, count):
+        from paddle_tpu_torch.distributed import _comm
+        from paddle_tpu_torch.distributed import env as env_mod
+
+        part = ((out - labels) ** 2).sum() / count
+        return _comm.reduce_from(
+            part, env_mod.ensure_env().group(("dp", "sharding")))
+
+
 def _port_model(name, spec, device="cpu"):
     from paddle_tpu_torch.distributed.fleet.meta_parallel import (
         LayerDesc, PipelineLayer, SharedLayerDesc,
@@ -133,22 +168,40 @@ def _port_model(name, spec, device="cpu"):
             [SharedLayerDesc("tied", _Tied, None, "weight", H)]
             + [LayerDesc(_Block, H) for _ in range(2)]
             + [SharedLayerDesc("tied", _Tied, None, "weight", H)],
-            loss_fn=_mse)
+            loss_fn=_BatchMse() if name in ZERO else _mse)
     return ErnieForPretrainingPipe(
         ErnieConfig.tiny(hidden_dropout_prob=0.0,
                          attention_probs_dropout_prob=0.0),
         model, device=device)
 
 
-def _strategy(spec):
+def _strategy(spec, sharding=1):
     from paddle_tpu_torch.distributed import fleet
 
     _, pp, mp, dp, _, acc, sched = spec
     s = fleet.DistributedStrategy()
-    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp}
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp,
+                        "sharding_degree": sharding}
     s.pipeline_configs = {"accumulate_steps": acc, "micro_batch_size": 1,
                           "schedule": sched}
     return s
+
+
+def _zero_grads(model, opt):
+    """Under ZeRO: each gradient as its global tensor (the plan's slices
+    gathered over the axis and mp), the stages put together, as
+    ``gather_jax_layout(model, grads=True)`` gives them without ZeRO."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed import _comm
+
+    plan, out = opt._zero, {}
+    for n, p in model.named_parameters():
+        for _, g in plan.params_grads([p]):
+            out[n] = plan.full(p, g).numpy()
+    stages = [None] * len(model.pp_group()[0])
+    _comm.run(tdist.all_gather_object, None, model.pp_group(), stages, out)
+    return {k: v for stage in stages for k, v in stage.items()}
 
 
 def _run_config(root, name, spec):
@@ -156,28 +209,35 @@ def _run_config(root, name, spec):
     ``forward_backward_pipeline``, then the steps and ``eval_batch``."""
     from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.models import gather_jax_layout, load_jax_weights
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
 
     scaler = GradScaler(init_loss_scaling=2.0 ** 10) \
         if name == "gpipe_scaler" else None
-    fleet.init(is_collective=True, strategy=_strategy(spec))
+    level, sharding = ZERO.get(name, (None, 1))
+    fleet.init(is_collective=True, strategy=_strategy(spec, sharding))
     hcg = fleet.get_hybrid_communicate_group()
     model = _port_model(name, spec)
     with open(f"{root}/{name}.weights.pkl", "rb") as f:
         load_jax_weights(model, pickle.load(f))
     net = fleet.distributed_model(model)
-    x, y = (torch.from_numpy(a) for a in _batch(spec[0]))
-    r, b = hcg.get_data_parallel_rank(), B // spec[3]
-    x, y = x[r * b:(r + 1) * b], y[r * b:(r + 1) * b]
-    out = {"stage": hcg.get_stage_id(), "dp": r,
-           "loss": float(net.forward_backward_pipeline((x, y)))}
-    net._reduce_gradients()
-    out["grads"] = gather_jax_layout(model, grads=True)
     opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
                 parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
+    if level is not None:
+        _, opt, _ = group_sharded_parallel(net, opt, level=level)
+    x, y = (torch.from_numpy(a) for a in _batch(spec[0]))
+    r = hcg.get_data_parallel_rank() * sharding \
+        + hcg.get_sharding_parallel_rank()
+    b = B // (spec[3] * sharding)
+    x, y = x[r * b:(r + 1) * b], y[r * b:(r + 1) * b]
+    out = {"stage": hcg.get_stage_id(), "dp": r,
+           "loss": float(net.forward_backward_pipeline((x, y)))}
+    net._reduce_gradients(opt)
+    out["grads"] = gather_jax_layout(model, grads=True) if level is None \
+        else _zero_grads(model, opt)
     opt.clear_grad()
     out["steps"] = [float(net.train_batch((x, y), opt, scaler=scaler))
                     for _ in range(STEPS)]
@@ -403,14 +463,17 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("pipeline")
     refs, weights = {}, {}
     for name, spec in CONFIGS.items():
-        weights[name], refs[name] = _reference(spec)
+        if name not in SAME_REFERENCE:
+            weights[name], refs[name] = _reference(spec)
+    for name, same in SAME_REFERENCE.items():
+        weights[name], refs[name] = weights[same], refs[same]
     weights["gpipe_n4"] = weights["1f1b"]
     weights["gpipe_recompute"] = weights["gpipe_scaler"] = weights["gpipe"]
     weights["ckpt"], refs["ckpt"] = _reference_pp1()
     out = {"ckpt_ref": (weights["ckpt"], refs["ckpt"])}
     worlds = {2: ["gpipe", *PORT_ONLY, "1f1b", "v2", "ernie_nlu",
                   "ernie_nlg", "shared", "ckpt2", "errors"],
-              4: ["pp4", "pp2_mp2", "dp2_pp2", "ckpt4"]}
+              4: ["pp4", "pp2_mp2", "dp2_pp2", "ckpt4", *ZERO]}
     for world, names in worlds.items():
         sub = root / f"w{world}"
         os.makedirs(sub)
