@@ -3,15 +3,16 @@ distributed paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
-Twenty-six phases in one process (phases 17 to 20 and 23 also spawn
-two processes each, phase 21 eight, two and four, phase 26 one); any failure
-raises and exits non-zero, and
+Twenty-seven phases in one process (phases 17 to 20 and 23 also spawn
+two processes each, phase 21 eight, two and four, phase 26 one, phase 27
+eight, four, three and four); any failure raises and exits non-zero,
+and
 only a run in which every phase passed prints the final line:
 
 1. device: name, capability (must be 9.0), versions, power limit;
 2. build: compile every kernel under ``paddle_tpu_torch/ops/cuda/csrc``
-   with nvcc (one process per source) and print ptxas's registers,
-   shared memory and spills;
+   with nvcc (one process per part of each source) and print ptxas's
+   registers, shared memory and spills;
 3. kernels at full width: each paged-attention kernel against its plain
    PyTorch version on the card (tolerance below), then timed beside the
    plain version, one library call and the byte bound at the served
@@ -236,7 +237,7 @@ only a run in which every phase passed prints the final line:
    their plain versions;
 21. the reference's hybrid step (``__graft_entry__.py``'s
    ``dryrun_multichip``): (a) ``LlamaForCausalLMPipe`` at the 0.44B
-   widths, depth 4 (2 layers a stage), 8 experts a layer over dp
+   widths, depth 2 (1 layer a stage), 8 experts a layer over dp
    (top-2, capacity 1.25), ``sequence_parallel=True`` and the parallel
    CE, at dp 2 x mp 2 x pp 2: eight ranks sharing the card over gloo,
    1F1B over 2 microbatches, 3 AdamW steps on b8 x s1024, against the
@@ -248,7 +249,7 @@ only a run in which every phase passed prints the final line:
    run both dtypes in one spawn); how many of the
    ranks' own bf16 choices differ from one card's; how many of step 1's
    token choices in layer 1 took another expert or slot than on one
-   card (none, in bf16); each rank's launches of kernels 1-3 (2 layers
+   card (none, in bf16); each rank's launches of kernels 1-3 (1 layer
    x 2 microbatches x 3 steps, none of kernels 4-8), peak, bytes sent
    (``[2, 512, 1536]`` a microbatch) and tokens dispatched a layer;
    kernels 1-3 at a rank's shape against their plain versions; (b)
@@ -392,7 +393,33 @@ only a run in which every phase passed prints the final line:
    plain version (so is the plain autograd call), launching kernel 1 and
    the class pass twice and kernels 2 and 3 once; ``FLAGS_check_nan_inf``
    raising ``FloatingPointError`` on ``paddle.log`` of a negative and on
-   ``x / 0``, and a ``TrainStep`` capturing its graph with the flag on.
+   ``x / 0``, and a ``TrainStep`` capturing its graph with the flag on;
+27. the model-parallel items of A.6: (b) kernels 1-3 at a rank's 1 and
+   2 heads (b8 d128 bf16 causal, q, k and v views of one projection
+   row) against their plain versions per tile at s1024 and at 27a's
+   s1020, and timed at s1024 as in phase 6; kernel 7 at one head over
+   its bf16 and fp32 pools and kernel 8 over its int8 pool as in phase
+   3; (a) the 0.44B Llama at mp 8 with SP (eight ranks sharing the card
+   over gloo, 2, 2, 2, 2, 1, 1, 1, 1 heads), b8 x s1020 (padded to 1024
+   for the scatter), ``ce_chunk_size=4096`` over each rank's vocab
+   columns, 2 eager AdamW steps with the clip: losses within 1e-3 of one
+   card's, step 1's gradients within ``MP8_GRAD_REL_TOL``, kernels 1-3
+   launched 12 x 2 a rank; before the steps, ``generate()`` and the
+   engine, 16 greedy tokens for 2 prompts of 8, on the bf16 model
+   (against one card's tokens, or a first parting that 23c's tie rule
+   or the rounding witness of ``MP8_ROUND_RATIO`` holds) and on the
+   shards of an fp32 copy of the same weights (fp32 and int8 pools,
+   equal to one card's), kernels 7 and 8 launched 12 a decode round on
+   every rank; (c) ``LBFGS`` with strong Wolfe at dp 2 x mp 2 (four
+   ranks) against one card, losses within 1e-4 and every rank making
+   the same closure calls; (d) class-sharded ``margin_cross_entropy``
+   on ArcFace's head (85742 classes over 3 ranks) against one card's;
+   (e) 20a's MoE Llama at depth 2, mp 2 x sep 2 with SP and ring, its
+   experts over (sep, mp), in bf16 with the ranks handed one card's
+   expert choices as 21a's bf16 leg is, then in fp32 with the ranks'
+   gates choosing for themselves: each leg's step 1 within 1e-3 of one
+   card, steps 2-3 within 1e-2, the tokens each rank dispatched and how
+   many of its own choices differed.
 
 Kernels and library calls are timed with CUDA events as the median of
 5 repetitions, the kernels' and the library's repetitions interleaved
@@ -439,6 +466,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from paddle_tpu_torch import amp, hapi, io
+from paddle_tpu_torch.distributed.shard import gather_global
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.jit import AsyncStepper, TrainStep, exec_cache
 from paddle_tpu_torch.models import (
@@ -703,16 +731,17 @@ def _bound(nkv, g, d, pos, window, kv_dtype, quant):
     """Least time for the work of one call at the lanes' ``pos`` (one
     lane each): the larger of the bytes it must move over the HBM rate
     and its operations over the peak rate for the inputs' type. Bytes: q
-    and out (16-bit), pos, the table entries of the blocks that hold
+    and out (fp32 beside fp32 pools, else 16-bit), pos, the table entries of the blocks that hold
     visible slots, and each visible K/V slot once (plus its int8
     scales)."""
     nh = nkv * g
     lanes = len(pos)
-    elt = 1 if quant else 2
+    qb = 4 if kv_dtype == torch.float32 else 2  # q's and out's elements
+    elt = 1 if quant else qb
     vis = [min(p + 1, window) if window else p + 1 for p in pos]
     live_blocks = sum(p // BLOCK - (p + 1 - v) // BLOCK + 1
                       for p, v in zip(pos, vis))
-    nbytes = (2 * lanes * nh * d * 2 + 4 * lanes + 4 * live_blocks
+    nbytes = (2 * lanes * nh * d * qb + 4 * lanes + 4 * live_blocks
               + 2 * sum(vis) * nkv * d * elt
               + (2 * sum(vis) * nkv * 4 if quant else 0))
     ops = sum(vis) * nh * (4 * d + 5)  # QK and PV dots + softmax
@@ -1396,19 +1425,17 @@ def _timed(port, library, contexts, fallbacks, minus):
     return times, how, _time_reps(port)
 
 
-def phase_flash(layers):
-    gen = torch.Generator("cuda").manual_seed(1)
-    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for case in FLASH_CASES[1:]:
-        e, _ = _flash_check(case, gen)
-        errs = {k: max(errs[k], e[k]) for k in errs}
-    e, (q, k, v, do, out, lse, delta) = _flash_check(FLASH_CASES[0], gen)
-    errs = {k_: max(errs[k_], e[k_]) for k_ in errs}
+def _flash_kernel_rows(q, k, v, do, out, lse, delta, errs, extra=None):
+    """Kernels 1-3 at one causal shape (kernel 2 as the Llama step runs
+    it, computing delta), and ``extra`` port calls ({name: fn(i)}), as
+    CUDA-graph replays beside SDPA's fastest backend; each kernel's row
+    (ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err from
+    ``errs``). Returns (rows, graph times, eager times, {kernel:
+    (library ms, how)})."""
     kw = dict(causal=True, window=0)
     kernels = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
                       lambda: fa.flash_fwd_ref(q, k, v, **kw)),
-        # kernel 2 as the Llama step runs it: computing delta itself
         "flash_bwd_dq": (
             lambda: fa.flash_bwd_dq_delta(q, k, v, do, out, lse, **kw),
             lambda: fa.flash_bwd_dq_delta_ref(q, k, v, do, out, lse, **kw)),
@@ -1418,38 +1445,53 @@ def phase_flash(layers):
     }
     # SDPA's causal mask is top-left aligned, equal to bottom-right at sq
     # == sk; its backward yields dQ, dK and dV together, so kernels 2 and
-    # 3 share one library time, and the whole backward (delta, 2 and 3 as
-    # _FlashFn.backward runs them) is held against it
+    # 3 share one library time
     library, contexts, fallbacks, minus = _sdpa_fns(q, k, v, do,
                                                     is_causal=True)
     port = {name: lambda i, f=kern: f() for name, (kern, _) in kernels.items()}
-    given = "flash_bwd_dq (delta given)"
-    port[given] = lambda i: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-    whole = "flash_bwd (delta + 2 + 3)"
-    port[whole] = _whole_backward(
-        fa._FlashFn, q, k, v, out, lse, do, kmask=None, seed=None,
-        dropout=0.0, scale=1.0 / q.shape[-1] ** 0.5, **kw)
+    port.update(extra or {})
     times, how, eager = _timed(port, library, contexts, fallbacks, minus)
     lib = {"flash_fwd": _library(times, "sdpa_fwd", how),
            "flash_bwd_dq": _library(times, "sdpa_bwd", how)}
-    lib["flash_bwd_dkv"] = lib[whole] = lib["flash_bwd_dq"]
+    lib["flash_bwd_dkv"] = lib["flash_bwd_dq"]
     rows = {}
-    for name, (kern, plain) in kernels.items():
-        ms = _med(times[name])
-        plain_ms = _time_plain(plain, iters=5)
+    for name, (_, plain) in kernels.items():
         bound_ms, bound_by, _ = _flash_bound(
             q, k, True, 0, name + ("_delta" if name == "flash_bwd_dq" else ""))
-        lib_ms, lib_txt = lib[name]
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=errs[name])
+        rows[name] = dict(ms=_med(times[name]),
+                          plain_ms=_time_plain(plain, iters=5),
+                          library_ms=lib[name][0], bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=errs[name])
+    return rows, times, eager, lib
+
+
+def phase_flash(layers):
+    gen = torch.Generator("cuda").manual_seed(1)
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for case in FLASH_CASES[1:]:
+        e, _ = _flash_check(case, gen)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+    e, (q, k, v, do, out, lse, delta) = _flash_check(FLASH_CASES[0], gen)
+    errs = {k_: max(errs[k_], e[k_]) for k_ in errs}
+    kw = dict(causal=True, window=0)
+    given = "flash_bwd_dq (delta given)"
+    whole = "flash_bwd (delta + 2 + 3)"
+    extra = {given: lambda i: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             whole: _whole_backward(
+                 fa._FlashFn, q, k, v, out, lse, do, kmask=None, seed=None,
+                 dropout=0.0, scale=1.0 / q.shape[-1] ** 0.5, **kw)}
+    rows, times, eager, lib = _flash_kernel_rows(q, k, v, do, out, lse,
+                                                 delta, errs, extra)
+    lib[whole] = lib["flash_bwd_dq"]
+    for name, row in rows.items():
         log(f"[flash] {name} b8 s1024 h12 d128 bf16 causal: kernel_ms "
             f"{_spread(times[name])} (CUDA graphs of {ITERS} calls; "
-            f"median, min-max of {REPS}) plain_ms {plain_ms:.4f} library_ms "
-            f"{_ms(lib_ms)} (fastest SDPA backend, graphs too: {lib_txt}) "
-            f"bound_ms {bound_ms:.5f} ({bound_by}); eager calls "
-            f"(host-inclusive) {_spread(eager[name])} ms; launches per "
-            f"train step = {layers} (layers)"
+            f"median, min-max of {REPS}) plain_ms {row['plain_ms']:.4f} "
+            f"library_ms {_ms(row['library_ms'])} (fastest SDPA backend, "
+            f"graphs too: {lib[name][1]}) bound_ms {row['bound_ms']:.5f} "
+            f"({row['bound_by']}); eager calls (host-inclusive) "
+            f"{_spread(eager[name])} ms; launches per train step = "
+            f"{layers} (layers)"
             + (f"; through the entry given delta {_spread(times[given])} ms"
                if name == "flash_bwd_dq" else ""))
     lib_ms, lib_txt = lib[whole]
@@ -3188,10 +3230,15 @@ FLEET_FLASH_CASE = ("mp 2 rank", 8, 1024, 1024, 6, 6, True, 0, 128)
 
 def _grad_leaves(model):
     """FLEET_GRAD_LEAVES of the model's gradients as global fp32 arrays
-    (collective under mp > 1); the vocab-sized ones every 8th vocab row,
-    which spans both mp shards."""
-    got = gather_jax_layout(model, grads=True)
-    out = {n: got[n] for n in FLEET_GRAD_LEAVES}
+    (collective under mp > 1: only these are gathered); the vocab-sized
+    ones every 8th vocab row, which spans every mp shard."""
+    params = dict(model.named_parameters())
+    out = {}
+    for n in FLEET_GRAD_LEAVES:
+        p = params[n]
+        lay = getattr(p, "_dist_layout", None)
+        g = p.grad if lay is None else gather_global(p.grad, lay)
+        out[n] = g.detach().float().cpu().numpy()
     out["llama.embed_tokens.weight"] = out["llama.embed_tokens.weight"][::8]
     out["lm_head.weight"] = out["lm_head.weight"][:, ::8]
     return out
@@ -4295,8 +4342,9 @@ def _next_routes(moe):
     dropped); then the layer routes as before."""
     got = []
     for mlp in moe:
-        def once(tokens, cap, n_rows=1, mlp=mlp, route=mlp.route):
-            out = route(tokens, cap, n_rows)
+        def once(tokens, cap, n_rows=1, valid=None, mlp=mlp,
+                 route=mlp.route):
+            out = route(tokens, cap, n_rows, valid)
             got.append(torch.stack(out[2]).cpu().numpy())
             del mlp.route  # the class's own again
             return out
@@ -4892,10 +4940,11 @@ def phase_experts(card, fault=False, fp32_witness=False):
 # 21a: the reference's hybrid step (__graft_entry__.py:130-164,
 # dryrun_multichip): the pipe at dp 2 x mp 2 x pp 2 with SP, experts over
 # dp and the parallel CE, 1F1B over 2 microbatches, at the 0.44B widths
-# with the depth cut from 12 to 4 (2 layers a stage) and 8 experts a
-# layer (top-2, capacity factor 1.25); canonical keys 0 (embedding), 1-4
-# (the decoder layers) and 5 (norm and head)
-HYBRID = dict(TRAIN, num_hidden_layers=4, moe_num_experts=8, moe_top_k=2,
+# with the depth cut from 12 to 2 (one layer a stage; 4 until the run
+# had to make room for phase 27 in its time limit) and 8 experts a layer
+# (top-2, capacity factor 1.25); canonical keys 0 (embedding), 1-2 (the
+# decoder layers) and 3 (norm and head)
+HYBRID = dict(TRAIN, num_hidden_layers=2, moe_num_experts=8, moe_top_k=2,
               use_parallel_cross_entropy=True)
 HYBRID_MICRO = 2
 # 21a holds both dtypes at the same limits: step 1's loss within
@@ -4907,11 +4956,12 @@ HYBRID_MICRO = 2
 # expert choices (``_steer_choices``: their own softmax, gates, counts,
 # slots and capacity, only the argmax handed over) and print how many
 # of their own differ; in fp32 the ranks' gates choose for themselves.
+_L = HYBRID["num_hidden_layers"]  # the pipe's last decoder layer's index
 HYBRID_LEAVES = ("0.embed_tokens.weight", "1.self_attn.qkv_proj.weight",
                  "1.mlp.gate_weight", "1.mlp.w_in",
-                 "4.post_attention_layernorm.weight",
-                 "4.self_attn.o_proj.weight", "5.norm.weight",
-                 "5.lm_head.weight")
+                 f"{_L}.post_attention_layernorm.weight",
+                 f"{_L}.self_attn.o_proj.weight", f"{_L + 1}.norm.weight",
+                 f"{_L + 1}.lm_head.weight")
 # 21b: ERNIE at the 10B widths, trunk 4 of 48, attention dropout 0.1 (its
 # pretraining rate), hidden dropout 0; the pipe as phase 18c builds it
 ERNIE_MP = dict(num_hidden_layers=4, dtype="bfloat16",
@@ -7738,6 +7788,678 @@ def phase_namespace(card, smi):
             "pylayer_err": err}
 
 
+# -- phase 27 -----------------------------------------------------------------
+
+# 27a: the 0.44B Llama at mp 8 with SP, its 12 heads over 8 ranks (2, 2,
+# 2, 2, 1, 1, 1, 1), the sequence padded (1020 % 8 = 4) and the chunked
+# CE over each rank's 4000 vocab columns of the head
+MP8 = dict(FULL, sequence_parallel=True, use_parallel_cross_entropy=False,
+           ce_chunk_size=CE_CHUNK)
+MP8_SEQ = 1020
+MP8_STEPS = 2
+MP8_NEW = 16
+# 27a's decode runs in the config's dtype (bf16 weights and pools, kernel
+# 7's bf16 variant at a rank's 1 or 2 heads) and, beside it, on an fp32
+# copy of the same weights (kernel 7's fp32 variant, kernel 8 over int8
+# pools). The fp32 tokens must equal one card's. The bf16 tokens must
+# equal one card's, or part first at a rounding: 23c's tie rule (one
+# card's two logits within TIE_REL of the row's largest), or else the
+# witness of _held_to_rounding at the parting position, from the three
+# forwards over one card's tokens: one card's bf16 logits L1 and fp32
+# logits Lf, rank 0's bf16 logits Lr at mp 8. Held if the ranks' logits
+# row stays within MP8_ROUND_RATIO times one card's own bf16 distance
+# from fp32 (max |Lr - Lf| <= ratio * max |L1 - Lf|) and the two tokens'
+# fp32 logits lie within the two distances of each other. The ratio:
+# the column-parallel products round as one card's do; a row-parallel
+# sum rounds each of its 8 bf16 partials (together about one rounding of
+# the sum, their sizes ~ 1/sqrt(8) of it) and then its 7 bf16 additions:
+# ~sqrt(8) = 2.8x one card's single rounding where the sums sit, less
+# over the whole layer; 4 leaves room for the max over 32000 logits. A wrong head
+# cut or a missing reduce moves every logit by O(|logit|), far beyond.
+MP8_DECODE = dict(MP8, dtype="float32")
+MP8_ROUND_RATIO = 4.0
+# step 1's gradients against one card's, at PERF.md's limit for mp
+# (17c's, 5e-2): each row-parallel sum and each reduce-scatter of SP adds
+# 8 bf16 partials where 17c added 2, but 17c read 2.4e-2 at layer 0. A
+# wrong head cut, a missing reduce or a pad row left in is wrong by O(1).
+# The losses keep 1e-3 (fp32 CE on the head's fp32 logits; 17c read
+# 1.3e-4).
+MP8_GRAD_REL_TOL = 5e-2
+# 27b: kernels 1-3 at a rank's heads of 27a (its 1 or 2 of d 128), held
+# per tile and timed at s1024, held per tile at s1020 too: 27a's padded
+# sequence is trimmed before attention, so the kernels see 1020 rows and
+# keys there (a ragged last tile of 60)
+RANK_HEAD_CASES = [(f"mp 8 rank, {h} head{'s' * (h > 1)}, s{s}", 8, s, s, h,
+                    h, True, 0, 128) for s in (1024, MP8_SEQ) for h in (1, 2)]
+# 27c: LBFGS at dp 2 x mp 2 against one card, fp32. Reduced: the width
+# (at the 0.44B Llama's, one host float64 vector of a rank's parameters is
+# ~1.8 GB; the history holds 20 of them a rank)
+LBFGS_CFG = dict(vocab_size=32000, hidden_size=256, intermediate_size=688,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 max_position_embeddings=256, dtype="float32")
+LBFGS_BATCH, LBFGS_SEQ, LBFGS_STEPS = 8, 256, 3
+# (max_iter 2: the host float64 two-loop over ~8.6 M parameters a rank is
+# the call's time; the CPU tests run 4 iterations a step, which fill and
+# roll the history)
+LBFGS_KW = dict(learning_rate=1.0, max_iter=2, history_size=10,
+                line_search_fn="strong_wolfe")
+LBFGS_LOSS_TOL = 1e-4
+# 27d: ArcFace's head (Deng et al. 2019, MS1M-ArcFace: 85742 classes,
+# 512-d features, margins 1.0 / 0.5 / 0.0, scale 64), a batch of 256, fp32,
+# over 3 ranks holding 28581, 28581 and 28580 classes. fp32 on both sides,
+# only the order of the sums differs: the loss within 1e-5 of its value,
+# the softmax within 1e-6 (its entries are <= 1), each rank's logit
+# gradient within 1e-5 of the whole gradient's largest |value|
+ARC = dict(classes=85742, dim=512, batch=256, margins=(1.0, 0.5, 0.0, 64.0))
+ARC_SPLIT = (28581, 28581, 28580)
+ARC_LOSS_RTOL, ARC_SOFTMAX_ATOL, ARC_GRAD_TOL = 1e-5, 1e-6, 1e-5
+# 27e: 20a's MoE Llama at depth 2, mp 2 x sep 2 with SP and ring context
+# parallelism, the experts over ("sep", "mp"): each rank 2 of the 8. As
+# 21a (see HYBRID_MICRO's note), in bf16 the ranks route by one card's
+# expert choices and print how many of their own differ (choosing for
+# themselves, the bf16 ranks part from one card by 3.6e-2 at step 3 on
+# the H100: PERF.md, phase 27). In fp32, from the same weights, the
+# ranks' gates choose for themselves, held at the same limits.
+EXPERTS_SEP_MP = dict(MOE, num_hidden_layers=2, sequence_parallel=True,
+                      context_parallel=True, moe_expert_axis=("sep", "mp"))
+EXPERTS_LEGS = (("bfloat16", True), ("float32", False))  # (dtype, steered)
+EXPERTS_STEPS = 3
+EXPERTS_TOL_FIRST, EXPERTS_TOL_LATER = 1e-3, 1e-2
+
+
+def _mp8_model(cfg, weights=None):
+    """The 0.44B Llama of ``cfg`` on the card: from a generator seeded 0,
+    or from one card's ``weights`` (cut to this rank's shards)."""
+    model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(0 if weights is None else 1))
+    if weights is not None:
+        load_jax_weights(model, weights)
+    return model
+
+
+def _mp8_steps(model, opt, ids, labels, leaves=True):
+    """MP8_STEPS eager steps; (losses, ms each, step 1's leaves)."""
+    losses, ms, grads = [], [], None
+    for i in range(MP8_STEPS):
+        t0 = time.perf_counter()
+        opt.clear_grad()
+        loss = model(ids, labels)
+        loss.backward()
+        if i == 0 and leaves:  # outside the step's time
+            torch.cuda.synchronize()
+            t0 -= time.perf_counter()
+            grads = _grad_leaves(model)
+            t0 += time.perf_counter()
+        opt.step()
+        losses.append(float(loss.detach()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, grads
+
+
+def _decode_tokens(model, prompts, kv_int8=False):
+    """``generate()``'s greedy tokens (once, beside the model's pools:
+    ``generate`` has no int8 pools), then the engine's (pools of the
+    model's dtype, or int8 with ``kv_int8``), and the launches each
+    made."""
+    _reset_launches()
+    gen = None if kv_int8 else generate(
+        model, prompts, max_new_tokens=MP8_NEW, device="cuda").cpu().tolist()
+    gen_launches = _launch_counts()
+    eng = ServingEngine(model, ServingConfig(max_seq_len=MAX_SEQ_LEN,
+                                             kv_int8=kv_int8), device="cuda")
+    reqs = [eng.submit(row, max_new_tokens=MP8_NEW) for row in prompts]
+    done = eng.run()
+    torch.cuda.synchronize()
+    out = {"generate": gen,
+           "engine": [np.asarray(done[r.request_id]).tolist() for r in reqs],
+           "decode_steps": eng.stats()["decode_steps"],
+           "pool": tuple(eng._kpool.shape),
+           "generate_launches": gen_launches, "launches": _launch_counts()}
+    del eng
+    return out
+
+
+def _witness_seqs(prompts, one):
+    """The rows 27a's witness feeds: each prompt followed by one card's
+    bf16 tokens but the last, ``generate()``'s rows then the engine's."""
+    return np.concatenate([
+        np.concatenate([prompts, np.asarray(one[k], np.int32)[:, :-1]], 1)
+        for k in ("generate", "engine")]).astype(np.int32)
+
+
+def _witness_logits(model, seqs):
+    """``model``'s logits over ``seqs`` fed at once (its training
+    forward, no cache), fp32 on the host."""
+    with torch.no_grad():
+        return model(torch.from_numpy(seqs).cuda()).float().cpu().numpy()
+
+
+def _held_to_rounding(got, want, rows0, logits, prompt_len):
+    """``got`` (a rank's bf16 tokens, ``generate()``'s or the engine's)
+    against one card's ``want``, row by row: equal, or equal up to a
+    first parting that 23c's tie rule or the rounding witness holds (see
+    MP8_ROUND_RATIO). ``logits``: one card's bf16 and fp32 and rank 0's
+    bf16 logits over ``_witness_seqs``, whose rows for these tokens start
+    at ``rows0``. Returns (held, a reading of each parting)."""
+    held, readings = True, []
+    for row, (g, w) in enumerate(zip(got, want)):
+        t = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if t is None:
+            continue
+        one, f32, rank = (x[rows0 + row, prompt_len - 1 + t] for x in logits)
+        a, b = w[t], g[t]  # one card's token, the rank's
+        r = dict(row=row, position=t, tokens=(a, b),
+                 gap_bf16=float(one[a] - one[b]),
+                 tie_within=TIE_REL * float(np.abs(one).max()),
+                 gap_fp32=float(f32[a] - f32[b]),
+                 one_card_off_fp32=float(np.abs(one - f32).max()),
+                 rank_off_fp32=float(np.abs(rank - f32).max()))
+        r["tie"] = abs(r["gap_bf16"]) <= r["tie_within"]
+        r["rounding"] = (r["rank_off_fp32"]
+                         <= MP8_ROUND_RATIO * r["one_card_off_fp32"]
+                         and abs(r["gap_fp32"])
+                         <= r["one_card_off_fp32"] + r["rank_off_fp32"])
+        held = held and (r["tie"] or r["rounding"])
+        readings.append(r)
+    return held, readings
+
+
+def _rank_27a(root, ids, labels, prompts, seqs):
+    """One of 27a's eight ranks sharing the card, on its mp 8 shards of
+    one card's weights: ``generate()`` and the engine on the bf16 model
+    (rank 0 keeps the witness's logits over ``seqs``), then on an fp32
+    copy's shards (fp32 and int8 pools), then 2 eager AdamW steps with
+    the clip through fleet."""
+    dist = _rank_setup(root)
+    from paddle_tpu_torch.distributed import fleet
+
+    cfg = LlamaConfig(**MP8)
+    full = _mp8_model(cfg)
+    weights = {n: p.detach() for n, p in full.named_parameters()}
+    del full
+    fleet.init(is_collective=True, strategy=_strategy(mp=8))
+    model = _mp8_model(cfg, weights)
+    out = {"bf16": _decode_tokens(model, prompts)}
+    witness = _witness_logits(model, seqs)
+    dec = _mp8_model(LlamaConfig(**MP8_DECODE), weights)
+    del weights
+    out.update({tag: _decode_tokens(dec, prompts, kv_int8=int8)
+                for tag, int8 in (("fp32", False), ("int8", True))})
+    del dec
+    _release()
+    attn = model.llama.layers[0].self_attn
+    opt = fleet.distributed_optimizer(_fleet_optimizer(model))
+    net = fleet.distributed_model(model)
+    ids, labels = (torch.from_numpy(a).cuda() for a in (ids, labels))
+    _reset_launches()
+    losses, ms, grads = _mp8_steps(net, opt, ids, labels)
+    torch.cuda.synchronize()
+    out.update(losses=losses, ms=ms, heads=attn._nh, kv_heads=attn._nkv,
+               train_launches=_launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if dist.get_rank() == 0:
+        grads["witness"] = witness
+    _save_rank(root, out, grads)
+    dist.destroy_process_group()
+
+
+DECODE_LEGS = (("bf16", "paged_attend"), ("fp32", "paged_attend"),
+               ("int8", "paged_attend_int8"))
+
+
+def _phase_27a(card):
+    """27a: the one card's run, then the eight ranks against it; returns
+    a 1-head rank's launches."""
+    ids, labels = _train_batch(MP8["vocab_size"], TRAIN_BATCH, MP8_SEQ)
+    prompts = np.random.RandomState(3).randint(
+        0, MP8["vocab_size"], (2, 8)).astype(np.int32)
+    cfg = LlamaConfig(**MP8)
+    model = _mp8_model(cfg)
+    one = {"bf16": _decode_tokens(model, prompts)}
+    seqs = _witness_seqs(prompts, one["bf16"])
+    w_one = _witness_logits(model, seqs)
+    dec = _mp8_model(LlamaConfig(**MP8_DECODE), {
+        n: p.detach() for n, p in model.named_parameters()})
+    w_f32 = _witness_logits(dec, seqs)
+    one.update({tag: _decode_tokens(dec, prompts, kv_int8=int8)
+                for tag, int8 in (("fp32", False), ("int8", True))})
+    del dec
+    opt = _fleet_optimizer(model)
+    want, _, want_grads = _mp8_steps(model, opt, ids, labels)
+    del model, opt
+    _release()
+    ranks, arrays, wall = _spawn_ranks(
+        _rank_27a, (ids.cpu().numpy(), labels.cpu().numpy(), prompts, seqs),
+        n=8)
+    steps = [max(abs(o["losses"][i] - want[i]) for o in ranks)
+             for i in range(MP8_STEPS)]
+    diff = max(steps)
+    err = _grad_errors(arrays, want_grads)
+    # AdamW's first update is lr * sign(g) (m / sqrt(v) = g / |g| at step
+    # 1): where the ranks' step-1 gradient has the other sign, the weight
+    # moves 2 lr the other way, not by a rounding
+    flips = max(sum(int((np.sign(a[n]) != np.sign(w)).sum())
+                    for n, w in want_grads.items())
+                / sum(w.size for w in want_grads.values()) for a in arrays)
+    layers = MP8["num_hidden_layers"]
+    for o in ranks:
+        log(f"[mp8] 27a rank {o['rank']} of 8 sharing {card} (gloo): "
+            f"{o['heads']} q heads, {o['kv_heads']} kv heads (replicated: "
+            f"mp 8 does not divide 12), losses {o['losses']}, kernels "
+            f"1-3 over {MP8_STEPS} steps {o['train_launches']}, peak "
+            f"{o['peak_gib']:.3f} GiB, ms a step "
+            f"{[round(x, 1) for x in o['ms']]} (host-staged, a reading "
+            f"only); decode: pools (bf16) {o['bf16']['pool']}, launches "
+            + ", ".join(f"{tag} generate {o[tag]['generate_launches'][k]}, "
+                        f"engine {o[tag]['launches'][k]} "
+                        f"({o[tag]['decode_steps']} rounds)"
+                        for tag, k in DECODE_LEGS))
+    log(f"[mp8] 27a the 0.44B Llama at mp 8, SP, b{TRAIN_BATCH} x "
+        f"s{MP8_SEQ} (padded to {-(-MP8_SEQ // 8) * 8}), ce_chunk_size "
+        f"{CE_CHUNK} over each rank's {MP8['vocab_size'] // 8} vocab "
+        f"columns: every rank's losses within {diff:.3e} of one card's "
+        f"{[round(x, 5) for x in want]} (tol {FLEET_CHECK_TOL}; each step "
+        f"{[f'{x:.3e}' for x in steps]}); step 1's gradients, relative "
+        f"Frobenius error (worst rank; tol "
+        f"{MP8_GRAD_REL_TOL}): "
+        + ", ".join(f"{n} {e:.3e}" for n, e in err.items())
+        + f"; their elements of the other sign than one card's (worst "
+        f"rank) {flips:.4e}; spawn to join {wall:.1f} s")
+    if not diff <= FLEET_CHECK_TOL \
+            or any(o["losses"] != ranks[0]["losses"] for o in ranks):
+        raise AssertionError("27a: the ranks' losses left one card's or "
+                             "each other's")
+    bad = {n: e for n, e in err.items() if not e <= MP8_GRAD_REL_TOL}
+    if bad:
+        raise AssertionError(f"27a: gradients left one card's: {bad}")
+    heads = sorted(o["heads"] for o in ranks)
+    if heads != [1] * 4 + [2] * 4:
+        raise AssertionError(f"27a: the ranks hold {heads} heads")
+    logits = (w_one, w_f32, arrays[0]["witness"])
+    for o in ranks:
+        tl = o["train_launches"]
+        if any(tl[w.__name__] != layers * MP8_STEPS for w in FLASH_WRAPPERS):
+            raise AssertionError(f"27a: rank {o['rank']} ({o['heads']} "
+                                 f"heads) launched kernels 1-3 {tl}")
+        for tag, kernel in DECODE_LEGS:
+            got, ref = o[tag], one[tag]
+            log(f"[mp8] 27a rank {o['rank']} {tag}: generate "
+                f"{got['generate']} (one card {ref['generate']}), engine "
+                f"{got['engine']} (one card {ref['engine']})")
+            if tag == "bf16":
+                held, readings = True, []
+                for k, rows0 in (("generate", 0), ("engine", 2)):
+                    h, r = _held_to_rounding(got[k], ref[k], rows0, logits,
+                                             prompts.shape[1])
+                    held = held and h
+                    readings += [dict(x, of=k) for x in r]
+                for r in readings:
+                    log(f"[mp8] 27a rank {o['rank']} bf16: {r['of']} parts "
+                        f"from one card at row {r['row']}, token "
+                        f"{r['position']} ({r['tokens'][0]} on one card, "
+                        f"{r['tokens'][1]} here): one card's bf16 logits "
+                        f"hold them {r['gap_bf16']:.4e} apart (23c's tie "
+                        f"within {r['tie_within']:.4e}: {r['tie']}); the "
+                        f"witness: fp32 {r['gap_fp32']:.4e} apart, the bf16 "
+                        f"rows' largest distance from fp32 one card "
+                        f"{r['one_card_off_fp32']:.4e}, rank 0 at mp 8 "
+                        f"{r['rank_off_fp32']:.4e} (ratio "
+                        f"{r['rank_off_fp32'] / r['one_card_off_fp32']:.3f}, "
+                        f"limit {MP8_ROUND_RATIO}): rounding "
+                        f"{r['rounding']}")
+            else:
+                held = got["generate"] == ref["generate"] \
+                    and got["engine"] == ref["engine"]
+            if not held:
+                raise AssertionError(f"27a {tag}: rank {o['rank']} decoded "
+                                     f"other tokens than one card")
+            n = got["launches"][kernel]
+            if n != layers * got["decode_steps"] or not n:
+                raise AssertionError(f"27a {tag}: rank {o['rank']} launched "
+                                     f"{kernel} {n} times")
+            if got["pool"][3] != o["heads"]:
+                raise AssertionError(f"27a {tag}: rank {o['rank']}'s pool "
+                                     f"{got['pool']} is not its "
+                                     f"{o['heads']} kv heads")
+    _release()
+    one_head = next(o for o in ranks if o["heads"] == 1)
+    return dict(one_head["train_launches"],
+                paged_attend=one_head["bf16"]["launches"]["paged_attend"],
+                paged_attend_int8=one_head["int8"]["launches"][
+                    "paged_attend_int8"])
+
+
+def _phase_27b():
+    """27b: kernels 1-3 at a rank's 1 and 2 heads (held per tile at s1024
+    and s1020, timed at s1024), kernel 7 at one head over its bf16 and
+    fp32 pools and kernel 8 over its int8 pool; each held and timed.
+    Returns the rows."""
+    gen = torch.Generator("cuda").manual_seed(27)
+    rows = {}
+    for case in RANK_HEAD_CASES:
+        errs, (q, k, v, do, out, lse, delta) = _flash_check(case, gen,
+                                                            fused=True)
+        h, s = case[4], case[2]
+        if s != 1024:
+            continue
+        got, times, _, lib = _flash_kernel_rows(q, k, v, do, out, lse, delta,
+                                                errs)
+        for name, row in got.items():
+            rows.setdefault(name, {})[f"mp8_rank_h{h}"] = row
+            log(f"[mp8] 27b {name} b8 s{s} h{h} d128 bf16 causal: "
+                f"kernel_ms {_spread(times[name])} (CUDA graphs of {ITERS} "
+                f"calls) plain_ms {row['plain_ms']:.4f} library_ms "
+                f"{_ms(row['library_ms'])} ({lib[name][1]}) bound_ms "
+                f"{row['bound_ms']:.5f} ({row['bound_by']}); kernel / "
+                f"bound {row['ms'] / row['bound_ms']:.2f}")
+    layers = FULL["num_hidden_layers"]
+    rows["paged_attend"] = {
+        "mp8_rank_h1": _time_shape(False, gen, layers, M, POS, nkv=1),
+        "mp8_rank_h1_fp32": _time_shape(False, gen, layers, M, POS,
+                                        dtype=torch.float32, nkv=1)}
+    rows["paged_attend_int8"] = {"mp8_rank_h1": _time_shape(
+        True, gen, layers, M, POS, nkv=1)}
+    return rows
+
+
+def _lbfgs_run(model, net, ids, labels):
+    """LBFGS_STEPS steps of LBFGS_KW through fleet: (losses, closure calls
+    each step)."""
+    from paddle_tpu_torch.distributed import fleet
+
+    calls = [0]
+
+    def closure():
+        calls[0] += 1
+        loss = net(ids, labels)
+        loss.backward()
+        return loss
+
+    opt = fleet.distributed_optimizer(
+        LBFGS(parameters=model.parameters(), **LBFGS_KW))
+    losses, counts = [], []
+    for _ in range(LBFGS_STEPS):
+        calls[0] = 0
+        losses.append(float(opt.step(closure)))
+        counts.append(calls[0])
+    return losses, counts
+
+
+def _arcface_inputs():
+    """The features, class centres and labels of 27d, seeded, on the
+    card: cosines come from the normalized product."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    x = torch.nn.functional.normalize(torch.randn(
+        ARC["batch"], ARC["dim"], device="cuda", generator=gen), dim=1)
+    w = torch.nn.functional.normalize(torch.randn(
+        ARC["dim"], ARC["classes"], device="cuda", generator=gen), dim=0)
+    label = torch.randint(0, ARC["classes"], (ARC["batch"],), device="cuda",
+                          generator=gen)
+    return x, w, label
+
+
+def _margin_ce(cos, label, group=None):
+    from paddle_tpu_torch.nn import functional as F
+
+    cos = cos.detach().requires_grad_()
+    loss, sm = F.margin_cross_entropy(cos, label, *ARC["margins"],
+                                      group=group, return_softmax=True)
+    loss.backward()
+    return float(loss.detach()), sm.detach(), cos.grad
+
+
+def _lbfgs_rank(weights, ids, labels):
+    """27c on this rank (dp 2 x mp 2): its shards of one card's weights,
+    its dp rows, LBFGS through fleet."""
+    from paddle_tpu_torch.distributed import fleet
+
+    fleet.init(is_collective=True, strategy=_strategy(dp=2, mp=2))
+    hcg = fleet.get_hybrid_communicate_group()
+    model = _mp8_model(LlamaConfig(**LBFGS_CFG), weights)
+    rows = slice(hcg.get_data_parallel_rank() * LBFGS_BATCH // 2,
+                 (hcg.get_data_parallel_rank() + 1) * LBFGS_BATCH // 2)
+    ids, labels = (torch.from_numpy(a[rows]).cuda() for a in (ids, labels))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, counts = _lbfgs_run(model, fleet.distributed_model(model), ids,
+                                labels)
+    return {"losses": losses, "calls": counts,
+            "seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _margin_rank(group, rank):
+    """27d on rank ``rank`` of the 3 of ``group``: its classes' cosines,
+    the class-sharded loss."""
+    x, w, label = _arcface_inputs()
+    lo = sum(ARC_SPLIT[:rank])
+    cos = (x @ w)[:, lo:lo + ARC_SPLIT[rank]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, sm, grad = _margin_ce(cos, label, group)
+    torch.cuda.synchronize()
+    return ({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+             "classes": cos.shape[1]},
+            {"softmax": sm.cpu().numpy(), "grad": grad.cpu().numpy()})
+
+
+def _experts_rank(weights, ids, labels, choices):
+    """27e on this rank (mp 2 x sep 2, SP, ring): its experts' shards of
+    one card's weights and its sequence chunk, each leg of EXPERTS_LEGS
+    (the bf16 leg routed by one card's expert ``choices``). Returns
+    {dtype: its results}."""
+    from paddle_tpu_torch.distributed import fleet
+
+    fleet.init(is_collective=True, strategy=_strategy(mp=2, sep=2))
+    hcg = fleet.get_hybrid_communicate_group()
+    chunk = ids.shape[1] // 2
+    sep, mp = hcg.get_sep_parallel_rank(), hcg.get_model_parallel_rank()
+    cols = slice(sep * chunk, (sep + 1) * chunk)
+    ids, labels = (torch.from_numpy(a[:, cols]).cuda()
+                   for a in (ids, labels))
+    # the rank's tokens under SP: its mp half of its sep chunk, each row
+    mine = sep * chunk + mp * (chunk // 2) + np.arange(chunk // 2)
+    out = {}
+    for dtype, steered in EXPERTS_LEGS:
+        torch.cuda.reset_peak_memory_stats()
+        model = _mp8_model(LlamaConfig(**dict(EXPERTS_SEP_MP, dtype=dtype)),
+                           weights)
+        differ = _steer_choices(
+            {str(i): blk.mlp for i, blk in enumerate(model.llama.layers)},
+            {k: c.reshape(c.shape[:2] + (ids.shape[0], -1))[..., mine]
+             .reshape(c.shape[:2] + (-1,)) for k, c in choices.items()}) \
+            if steered else None
+        net = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(_fleet_optimizer(model))
+        _reset_launches()
+        losses, dispatched = [], []
+        for _ in range(EXPERTS_STEPS):
+            opt.clear_grad()
+            loss = net(ids, labels)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            dispatched.append([int(blk.mlp.dispatched.sum())
+                               for blk in model.llama.layers])
+        out[dtype] = {
+            "losses": losses, "dispatched": dispatched,
+            "differ": None if differ is None else [
+                int(sum(c[i] for c in differ.values()))
+                for i in range(EXPERTS_STEPS)],
+            "experts": model.llama.layers[0].mlp.w_in.shape[0],
+            "launches": _launch_counts(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del net, opt, model
+        _release()
+    return out
+
+
+def _experts_one_card(batch):
+    """27e's yardstick: the MoE Llama on one card, each leg of
+    EXPERTS_LEGS from the same weights. Returns ({dtype: losses}, the
+    steered leg's expert choices)."""
+    cfg = dict(EXPERTS_SEP_MP, sequence_parallel=False, context_parallel=False)
+    base = _moe_model(cfg=cfg)
+    weights = {n: p.detach() for n, p in base.named_parameters()}
+    del base
+    want, choices = {}, None
+    for dtype, steered in EXPERTS_LEGS:
+        model = _mp8_model(LlamaConfig(**dict(cfg, dtype=dtype)), weights)
+        opt = _fleet_optimizer(model)
+        own = _steer_choices({str(i): blk.mlp for i, blk in
+                              enumerate(model.llama.layers)}) \
+            if steered else None
+        want[dtype] = []
+        for _ in range(EXPERTS_STEPS):
+            opt.clear_grad()
+            loss = model(*batch)
+            loss.backward()
+            opt.step()
+            want[dtype].append(float(loss.detach()))
+        if steered:
+            choices = {k: torch.stack(c).cpu().numpy()
+                       for k, c in own.items()}
+        del model, opt
+        _release()
+    return want, choices
+
+
+def _rank_27cde(root, lbfgs_batch, experts_batch, choices):
+    """One of the four ranks that run 27c, 27d (ranks 0-2) and 27e in one
+    spawn. The models' one-card weights are drawn first, before any
+    hybrid group."""
+    dist = _rank_setup(root)
+    from paddle_tpu_torch.distributed.collective import Group
+
+    def weights_of(model):
+        return {n: p.detach() for n, p in model.named_parameters()}
+
+    lbfgs_w = weights_of(_mp8_model(LlamaConfig(**LBFGS_CFG)))
+    moe_w = weights_of(_moe_model(cfg=EXPERTS_SEP_MP))
+    three = Group(ranks=[0, 1, 2], pg=torch.distributed.new_group([0, 1, 2]))
+    rank = dist.get_rank()
+    out = {"27c": _lbfgs_rank(lbfgs_w, *lbfgs_batch)}
+    del lbfgs_w
+    arrays = None
+    if rank < 3:
+        out["27d"], arrays = _margin_rank(three, rank)
+    _release()
+    out["27e"] = _experts_rank(moe_w, *experts_batch, choices)
+    _save_rank(root, out, arrays)
+    dist.destroy_process_group()
+
+
+def _phase_27cde(card):
+    """27c, 27d and 27e: one card's yardsticks, then one spawn of four
+    ranks."""
+    # 27c: LBFGS on one card
+    lbfgs_batch = _train_batch(LBFGS_CFG["vocab_size"], LBFGS_BATCH,
+                               LBFGS_SEQ, seed=5)
+    model = _mp8_model(LlamaConfig(**LBFGS_CFG))
+    t0 = time.perf_counter()
+    want_c, want_calls = _lbfgs_run(model, model, *lbfgs_batch)
+    one_s = time.perf_counter() - t0
+    del model
+    # 27d: margin CE on the whole logits
+    x, w, label = _arcface_inputs()
+    arc_loss, arc_sm, arc_grad = _margin_ce(x @ w, label)
+    arc_sm, arc_grad = arc_sm.cpu().numpy(), arc_grad.cpu().numpy()
+    del x, w
+    # 27e: the MoE Llama on one card, the bf16 leg's choices recorded
+    experts_batch = _train_batch(MOE["vocab_size"], TRAIN_BATCH, TRAIN_SEQ)
+    want_e, choices = _experts_one_card(experts_batch)
+    ranks, arrays, wall = _spawn_ranks(
+        _rank_27cde, (tuple(t.cpu().numpy() for t in lbfgs_batch),
+                      tuple(t.cpu().numpy() for t in experts_batch),
+                      choices), n=4)
+    log(f"[mp8] 27c, 27d, 27e: four ranks sharing {card} over gloo, spawn "
+        f"to join {wall:.1f} s")
+    # 27c
+    lb = [dict(o["27c"], rank=o["rank"]) for o in ranks]
+    diff = max(abs(a - b) for o in lb for a, b in zip(o["losses"], want_c))
+    log(f"[mp8] 27c LBFGS ({LBFGS_KW}) on the Llama at hidden "
+        f"{LBFGS_CFG['hidden_size']}, vocab {LBFGS_CFG['vocab_size']}, "
+        f"{LBFGS_CFG['num_hidden_layers']} layers, fp32, b{LBFGS_BATCH} x "
+        f"s{LBFGS_SEQ}: one card's losses {want_c} with {want_calls} "
+        f"closure calls ({one_s:.1f} s); at dp 2 x mp 2 "
+        + "; ".join(f"rank {o['rank']} {o['losses']}, {o['calls']} calls, "
+                    f"peak {o['peak_gib']:.3f} GiB, {o['seconds']:.1f} s"
+                    for o in lb)
+        + f"; within {diff:.3e} (tol {LBFGS_LOSS_TOL})")
+    if not diff <= LBFGS_LOSS_TOL:
+        raise AssertionError(f"27c: LBFGS's losses left one card's by {diff}")
+    if any(o["calls"] != lb[0]["calls"] for o in lb):
+        raise AssertionError("27c: the ranks made other closure calls")
+    if not want_c[-1] < want_c[0]:
+        raise AssertionError(f"27c: LBFGS did not lower the loss: {want_c}")
+    # 27d
+    scale = float(np.abs(arc_grad).max())
+    errs = []
+    for o, a in zip(ranks[:3], arrays[:3]):
+        lo = sum(ARC_SPLIT[:o["rank"]])
+        cols = slice(lo, lo + ARC_SPLIT[o["rank"]])
+        errs.append((abs(o["27d"]["loss"] - arc_loss) / abs(arc_loss),
+                     float(np.abs(a["softmax"] - arc_sm[:, cols]).max()),
+                     float(np.abs(a["grad"] - arc_grad[:, cols]).max())
+                     / scale))
+    log(f"[mp8] 27d margin_cross_entropy, ArcFace's head ({ARC['classes']} "
+        f"classes, {ARC['dim']}-d, margins {ARC['margins'][:3]}, scale "
+        f"{ARC['margins'][3]}, batch {ARC['batch']}, fp32) over 3 ranks "
+        f"holding {[o['27d']['classes'] for o in ranks[:3]]} classes: one "
+        f"card's loss {arc_loss:.6f}; each rank's (loss relative, softmax "
+        f"abs, logit gradient over its max) error {errs} (tol "
+        f"{ARC_LOSS_RTOL}, {ARC_SOFTMAX_ATOL}, {ARC_GRAD_TOL}); ms a call "
+        f"{[round(o['27d']['ms'], 2) for o in ranks[:3]]} (gloo)")
+    for e in errs:
+        if not (e[0] <= ARC_LOSS_RTOL and e[1] <= ARC_SOFTMAX_ATOL
+                and e[2] <= ARC_GRAD_TOL):
+            raise AssertionError(f"27d: a rank left one card's: {errs}")
+    # 27e
+    for dtype, steered in EXPERTS_LEGS:
+        ex = [dict(o["27e"][dtype], rank=o["rank"]) for o in ranks]
+        for o in ex:
+            log(f"[mp8] 27e {dtype} rank {o['rank']} (mp 2 x sep 2, SP, "
+                f"ring; experts over (sep, mp): {o['experts']} of "
+                f"{EXPERTS_SEP_MP['moe_num_experts']}): losses "
+                f"{o['losses']}, tokens dispatched a layer "
+                f"{o['dispatched']}, "
+                + (f"own gate choices unlike one card's (handed over) a "
+                   f"step {o['differ']}" if steered
+                   else "its gates choosing for themselves")
+                + f", launches "
+                f"{ {k: v for k, v in o['launches'].items() if v} }, peak "
+                f"{o['peak_gib']:.3f} GiB")
+        log(f"[mp8] 27e {dtype} one card's losses {want_e[dtype]} "
+            f"({EXPERTS_SEP_MP['num_hidden_layers']} layers)")
+        _hold_losses(f"27e {dtype}", ex, want_e[dtype], EXPERTS_TOL_FIRST,
+                     EXPERTS_TOL_LATER)
+        for o in ex:
+            if o["experts"] != EXPERTS_SEP_MP["moe_num_experts"] // 4 \
+                    or not all(d > 0 for step in o["dispatched"]
+                               for d in step):
+                raise AssertionError(f"27e {dtype}: rank {o['rank']} held "
+                                     f"{o['experts']} experts, dispatched "
+                                     f"{o['dispatched']}")
+            if not all(o["launches"][w.__name__] > 0
+                       for w in FLASH_WRAPPERS):
+                raise AssertionError(f"27e {dtype}: rank {o['rank']} "
+                                     f"launched {o['launches']}")
+
+
+def phase_mp8(card):
+    """Phase 27 (A.6's model-parallel items): 27a the 0.44B Llama at mp 8
+    with SP, padding and the vocab-parallel chunked CE, then decode in
+    bf16 and fp32; 27b kernels 1-3 at a rank's 1 and 2 heads and 7-8 at
+    1; 27c LBFGS at dp 2 x mp 2; 27d class-sharded margin CE over 3
+    ranks; 27e experts over (sep, mp), bf16 steered and fp32 unsteered.
+    Returns (27a's launches on a 1-head rank, 27b's rows)."""
+    _release()
+    rows = _phase_27b()
+    launches = _phase_27a(card)
+    _phase_27cde(card)
+    return launches, rows
+
+
 def _json_row(row):
     """A float16 row for the kernels line (the long paged shape left to
     the log), or None where the kernel has none (the class pass reads the
@@ -7751,7 +8473,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19,20,21,22,23,24,25,26",
+                    "19,20,21,22,23,24,25,26,27",
                     help="phases to run after 1 and 2, comma-separated")
     ap.add_argument("--fault", choices=("experts", "dropout"),
                     help="plant a fault to show that a check catches it: "
@@ -7770,7 +8492,7 @@ def main():
     rows, launches, ernie_launches, graph = {}, {}, {}, {}
     fleet_launches, pipe_launches, context, experts = {}, {}, {}, {}
     hybrid, vision, ops, functional, layers_nn = {}, {}, {}, {}, {}
-    namespace, fp16 = {}, {}
+    namespace, fp16, mp8 = {}, {}, {}
     for n, run in ((3, lambda: rows.update(phase_kernels())),
                    (4, lambda: launches.update(phase_serve(name))),
                    (5, phase_identity),
@@ -7806,13 +8528,15 @@ def main():
                        phase_functional(name, smi))),
                    (25, lambda: layers_nn.update(phase_nn(name, smi))),
                    (26, lambda: namespace.update(
-                       phase_namespace(name, smi)))):
+                       phase_namespace(name, smi))),
+                   (27, lambda: mp8.update(zip(
+                       ("launches", "rows"), phase_mp8(name))))):
         if n in only:
             t_run = time.perf_counter()
             run()
             log(f"[phase {n}] passed in {time.perf_counter() - t_run:.1f} s")
     _no_reference("the run")
-    if only != set(range(3, 27)):
+    if only != set(range(3, 28)):
         log(f"[done] phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         return 0
@@ -7851,6 +8575,8 @@ def main():
                     launches_phase15_fp16=fp16["launches"].get(k, 0),
                     launches_phase23c=sum(ops["launches_23c"][t].get(k, 0)
                                           for t in ("bf16", "int8")),
+                    launches_phase27a=mp8["launches"].get(k, 0),
+                    **mp8["rows"].get(k, {}),
                     fp16=_json_row(fp16["rows"].get(k)))
                for k in replaces]
     # the tile mode of kernels 1-3 (a mode of the TPU's kernels 1-3 for
@@ -7913,6 +8639,9 @@ def main():
         f"through paddle.Model.fit {namespace['ms']:.2f} ms a step; the "
         f"PyLayer's launches {namespace['pylayer']}, worst per-tile error "
         f"{namespace['pylayer_err']:.3e}")
+    log(f"[done] A.6's model-parallel items (phase 27): launches on a "
+        f"1-head rank of 27a (mp 8, {MP8_STEPS} steps, then decode): "
+        f"{mp8['launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

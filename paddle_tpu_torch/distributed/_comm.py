@@ -31,8 +31,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["run", "host_staged", "all_reduce", "all_gather",
-           "all_gather_list", "reduce_scatter_raw", "chunk_of",
-           "copy_to", "reduce_from", "scatter_to", "gather_from",
+           "all_gather_list", "all_gather_uneven", "reduce_scatter_raw",
+           "chunk_of", "copy_to", "reduce_from", "scatter_to", "gather_from",
            "gather_reduce", "reduce_scatter", "reduce_grad_cols"]
 
 
@@ -79,6 +79,19 @@ def all_gather_list(t, group):
     parts = [torch.empty_like(t) for _ in group[0]]
     run(dist.all_gather, t, group, parts, t)
     return parts
+
+
+def all_gather_uneven(t, dim, sizes, group):
+    """Every member's ``t``, in group order, member ``i``'s ``sizes[i]``
+    long along ``dim`` (each padded to the longest for the collective,
+    which takes equal pieces)."""
+    pad = max(sizes) - t.shape[dim]
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        t = torch.cat([t, t.new_zeros(shape)], dim)
+    return [p.narrow(dim, 0, k)
+            for p, k in zip(all_gather_list(t, group), sizes)]
 
 
 def chunk_of(t, dim, group):

@@ -24,7 +24,9 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``:
 - :func:`distributed_optimizer` returns the optimizer, as the
   reference does: each tensor-parallel parameter records its layout
   (``shard.Layout``), from which the clips and Lamb take the group
-  their norms are summed over. ``LBFGS`` raises at world size > 1.
+  their norms are summed over, and ``LBFGS`` its dot products (under
+  pp it raises, as the reference's: ``train_batch`` passes no
+  closure).
 """
 from __future__ import annotations
 
@@ -120,13 +122,8 @@ def distributed_model(model):
 
 
 def distributed_optimizer(optimizer, strategy=None):
-    """The optimizer itself (see the module note)."""
-    from ...optimizer.lbfgs import LBFGS
-
-    if isinstance(optimizer, LBFGS) and worker_num() > 1:
-        raise NotImplementedError(
-            "LBFGS over more than one rank is not ported (ROADMAP A.6): "
-            "its line search reads whole-model dot products")
+    """The optimizer itself (see the module note; ``LBFGS`` takes its dot
+    products and max-abs values over the ranks itself)."""
     return optimizer
 
 

@@ -13,9 +13,13 @@ how it is cut) and the layers call the conjugate collectives of
   enters through an identity whose backward all-reduces its gradient,
   and ``gather_output`` all-gathers the output's last dim. A fused
   projection (``out_segments``) is cut segment by segment, and a
-  replicated segment's gradient is summed over ``mp``;
-- :class:`RowParallelLinear`: weight ``[in/mp, out]``; the partial
-  product is all-reduced, the bias added after;
+  replicated segment's gradient is summed over ``mp``; a segment may be
+  cut in whole units (heads of ``d`` columns, ``(size, True, d)``), the
+  first ranks holding one head more when mp does not divide the heads;
+- :class:`RowParallelLinear`: weight ``[in/mp, out]`` (``in_unit``: its
+  rows cut in whole units, as the heads of the column-parallel product
+  before it); the partial product is all-reduced, the bias added
+  after;
 - :class:`ParallelCrossEntropy` on vocab-sharded logits, Megatron's
   way: the max, the sum of exponentials and the picked logit each
   all-reduced over ``mp``, in fp32;
@@ -65,20 +69,27 @@ def _axis_group(axis, group=None):
 
 def check_even(n, dims):
     """Raise ``ValueError`` naming the first of ``dims`` (``(name,
-    size)`` pairs: a model's vocab, heads, FFN widths) that mp = ``n``
-    does not split evenly; the reference pads such a dim."""
+    size)`` pairs: a model's vocab, FFN widths, flat attention widths)
+    that mp = ``n`` does not split evenly, as the reference raises on
+    a parameter dim that mp does not divide."""
     for what, size in dims:
-        if size % n:
-            raise ValueError(
-                f"{what} = {size} does not split evenly over mp = {n} "
-                f"(the reference pads such a dim; uneven splits are not "
-                f"ported, ROADMAP A.6)")
+        _even(size, n, what)
+
+
+def rank_heads(heads, n, rank):
+    """``(count, first)`` of the heads rank ``rank`` of ``n`` holds: whole
+    heads as ``torch.tensor_split`` cuts them, the first ``heads % n``
+    ranks one more (a rank may hold none), as a segment cut in units of
+    a head splits."""
+    sizes = shard.unit_sizes(heads, 1, n)
+    return sizes[rank], sum(sizes[:rank])
 
 
 def _even(size, n, what):
     if size % n:
-        raise ValueError(f"{what} = {size} does not split evenly over "
-                         f"mp = {n} (uneven splits are not ported)")
+        raise ValueError(
+            f"{what} = {size} does not split evenly over mp = {n} (the "
+            f"reference raises too: a parameter dim must divide over mp)")
 
 
 def _param(shape, init, dtype, device, generator, layout, n, rank):
@@ -144,13 +155,13 @@ def _segments(out_features, out_segments):
     return tuple(out_segments) if out_segments else ((out_features, True),)
 
 
-def _replicated_cols(segs, n):
+def _replicated_cols(segs, n, rank):
     """The local column range of the replicated segments (they must be
     adjacent), or None."""
     start, cols = 0, []
-    for size, sharded in segs:
-        local = size // n if sharded else size
-        if not sharded:
+    for seg in segs:
+        local = shard._span(seg, n, rank)[1]
+        if not seg[1]:
             cols.append((start, start + local))
         start += local
     if not cols:
@@ -179,13 +190,15 @@ class ColumnParallelLinear(nn.Module):
         self._n, self._rank, self._group = _axis_group("mp", mp_group)
         self.is_mp = self._n > 1
         segs = _segments(out_features, out_segments)
-        if sum(s for s, _ in segs) != out_features:
+        if sum(seg[0] for seg in segs) != out_features:
             raise ValueError(f"out_segments {segs} do not add up to "
                              f"out_features {out_features}")
-        for size, sharded in segs:
-            if sharded:
-                _even(size, self._n, "a column-parallel output segment")
-        self._rep = _replicated_cols(segs, self._n) if self.is_mp else None
+        _even(out_features, self._n, "a column-parallel output dim")
+        for seg in segs:
+            if seg[1] and len(seg) < 3:
+                _even(seg[0], self._n, "a column-parallel output segment")
+        self._rep = _replicated_cols(segs, self._n, self._rank) \
+            if self.is_mp else None
         wl = shard.cut_layout("mp", 1, (in_features, out_features), segs)
         self.weight = _param((in_features, out_features), _xavier, dtype,
                              dev, generator, wl, self._n, self._rank)
@@ -214,12 +227,15 @@ class RowParallelLinear(nn.Module):
     ``input_is_parallel`` the input arrives sharded on its last dim (a
     :class:`ColumnParallelLinear`'s output), else this rank's chunk of
     it is taken. The partial products are summed over ``mp``, then the
-    (replicated) bias is added."""
+    (replicated) bias is added. ``in_unit`` cuts ``in`` in whole units
+    (a head's ``d`` rows, the first ranks one more where mp does not
+    divide the heads; ``input_is_parallel`` then)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, input_is_parallel=False,
                  fuse_matmul_bias=False, mp_group=None, name=None, *,
-                 dtype=torch.float32, device="cuda", generator=None):
+                 in_unit=1, dtype=torch.float32, device="cuda",
+                 generator=None):
         super().__init__()
         dev = resolve_device(device)
         self._in_features, self._out_features = in_features, out_features
@@ -227,7 +243,8 @@ class RowParallelLinear(nn.Module):
         self._n, self._rank, self._group = _axis_group("mp", mp_group)
         self.is_mp = self._n > 1
         _even(in_features, self._n, "a row-parallel input dim")
-        wl = shard.cut_layout("mp", 0, (in_features, out_features))
+        wl = shard.cut_layout("mp", 0, (in_features, out_features),
+                              ((in_features, True, in_unit),))
         self.weight = _param((in_features, out_features), _xavier, dtype,
                              dev, generator, wl, self._n, self._rank)
         self.bias = _param((out_features,), _zeros, dtype, dev, generator,

@@ -220,6 +220,9 @@ class PipelineParallel:
             raise ValueError(f"interleaved stages need the microbatch "
                              f"count ({n}) to be a multiple of pp ({pp})")
         last = pp * v - 1
+        note = getattr(layers, "note_batch", None)
+        if note is not None and inputs is not None:
+            note(inputs)  # what every stage must know of the batch
         xs = self._split(inputs, n) if d == 0 else None
         ys = self._split(labels, n) \
             if labels is not None and d == pp - 1 else None

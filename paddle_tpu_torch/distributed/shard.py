@@ -15,7 +15,11 @@ never puts two axes on one dim. A cut is an axis, a dim and the dim's
 is cut segment by segment: the rank holds its chunk of each part of the
 dim, side by side, not the contiguous chunk of the whole, and a segment
 may be replicated (K and V when the mp degree does not divide their
-heads). ZeRO adds an even cut of another dim (``add_cut``), so a weight
+heads). A segment may be cut in whole *units* (a head of ``d``
+columns), as ``torch.tensor_split`` splits them: the first ``units %
+n`` ranks hold one unit more, and a rank may hold none. A segment cut
+by the element must split evenly (the reference raises on such a dim
+as well). ZeRO adds an even cut of another dim (``add_cut``), so a weight
 at mp 2 x sharding 2 holds its sharding chunk of its mp piece.
 :func:`local_piece`, :func:`gather_global`, :func:`regions` and
 :func:`global_sq_norms` read every cut; ``is_distributed`` is set on
@@ -36,7 +40,8 @@ __all__ = ["PartitionSpec", "shard_tensor", "sharding_constraint",
            "replicate", "get_sharding", "shard_parameter", "local_piece",
            "gather_global", "global_sq_norms", "set_layout",
            "grad_layout", "mark_local", "place", "Cut", "Layout",
-           "cut_layout", "add_cut", "layout_spec", "regions", "annotate"]
+           "cut_layout", "add_cut", "layout_spec", "regions", "annotate",
+           "unit_sizes"]
 
 
 class PartitionSpec(tuple):
@@ -52,7 +57,31 @@ class PartitionSpec(tuple):
 class Cut(NamedTuple):
     axis: str         # the mesh axis
     dim: int          # the dim it cuts
-    segments: tuple   # ((global size, cut?), ...) along dim
+    segments: tuple   # ((global size, cut?[, unit]), ...) along dim
+
+
+def unit_sizes(size, unit, n):
+    """The sizes of the ``n`` pieces of ``size`` cut in whole units of
+    ``unit``, as ``torch.tensor_split`` cuts ``size / unit`` units: the
+    first ``(size / unit) % n`` pieces one unit more."""
+    k, extra = divmod(size // unit, n)
+    return [(k + (r < extra)) * unit for r in range(n)]
+
+
+def _span(seg, n, rank):
+    """``(start, length)`` of rank ``rank``'s piece of segment ``seg``
+    (``(size, cut?[, unit])``) within it. A segment cut by the element
+    must split evenly (raises ``ValueError``), as the reference raises
+    on a parameter dim its mesh axis does not divide."""
+    size, sharded = seg[0], seg[1]
+    if not sharded:
+        return 0, size
+    unit = seg[2] if len(seg) > 2 else 1
+    if unit == 1 and size % n:
+        raise ValueError(f"a segment of size {size} does not split evenly "
+                         f"over {n} ranks (the reference raises too)")
+    sizes = unit_sizes(size, unit, n)
+    return sum(sizes[:rank]), sizes[rank]
 
 
 class Layout(NamedTuple):
@@ -64,7 +93,9 @@ class Layout(NamedTuple):
 
     @property
     def axes(self):
-        return tuple(c.axis for c in self.cuts)
+        """The mesh axes of the cuts (a cut over a tuple of axes names
+        each)."""
+        return tuple(a for c in self.cuts for a in _names(c.axis))
 
 
 def cut_layout(axis, dim, shape, segments=None):
@@ -200,8 +231,8 @@ def _n_rank(axis):
     return len(ranks), ranks.index(env_mod.ensure_env().rank)
 
 
-def _local_sizes(cut, n):
-    return [size // n if sharded else size for size, sharded in cut.segments]
+def _local_sizes(cut, n, rank):
+    return [_span(seg, n, rank)[1] for seg in cut.segments]
 
 
 def local_piece(full, layout: Layout, places=None):
@@ -213,17 +244,10 @@ def local_piece(full, layout: Layout, places=None):
     for i, cut in enumerate(layout.cuts):
         n, rank = places[i] if places is not None else _n_rank(cut.axis)
         pieces, off = [], 0
-        for size, sharded in cut.segments:
-            if sharded:
-                if size % n:
-                    raise ValueError(
-                        f"dim {cut.dim} segment of size {size} does not "
-                        f"split evenly over {cut.axis} = {n}")
-                pieces.append(out.narrow(cut.dim, off + rank * (size // n),
-                                         size // n))
-            else:
-                pieces.append(out.narrow(cut.dim, off, size))
-            off += size
+        for seg in cut.segments:
+            start, length = _span(seg, n, rank)
+            pieces.append(out.narrow(cut.dim, off + start, length))
+            off += seg[0]
         out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, cut.dim)
     return out
 
@@ -240,15 +264,15 @@ def regions(local, layout: Layout):
         split = []
         for bounds, t, axes in out:
             off = 0
-            for (size, sharded), part in zip(
-                    cut.segments, torch.split(t, _local_sizes(cut, n),
+            for seg, part in zip(
+                    cut.segments, torch.split(t, _local_sizes(cut, n, rank),
                                               dim=cut.dim)):
                 b = [list(x) for x in bounds]
-                k = size // n
-                b[cut.dim] = [off + rank * k, off + (rank + 1) * k] \
-                    if sharded else [off, off + size]
-                split.append((b, part, axes + (cut.axis,) * sharded))
-                off += size
+                start, length = _span(seg, n, rank)
+                b[cut.dim] = [off + start, off + start + length]
+                split.append((b, part,
+                              axes + (_names(cut.axis) if seg[1] else ())))
+                off += seg[0]
         out = split
     return out
 
@@ -258,12 +282,14 @@ def _gather_cut(local, cut):
     n = len(pair[0])
     if n == 1:
         return local
-    split = [torch.split(p, _local_sizes(cut, n), dim=cut.dim)
-             for p in _comm.all_gather_list(local.contiguous(), pair)]
+    sizes = [_local_sizes(cut, n, r) for r in range(n)]
+    split = [torch.split(p, sz, dim=cut.dim) for p, sz in zip(
+        _comm.all_gather_uneven(local.contiguous(), cut.dim,
+                                [sum(sz) for sz in sizes], pair), sizes)]
     out = []
-    for j, (_, sharded) in enumerate(cut.segments):
+    for j, seg in enumerate(cut.segments):
         out.append(torch.cat([s[j] for s in split], cut.dim)
-                   if sharded else split[0][j])
+                   if seg[1] else split[0][j])
     return torch.cat(out, cut.dim)
 
 
@@ -289,8 +315,8 @@ def set_layout(param, layout: Layout):
     segment is cut)."""
     param._dist_layout = layout
     annotate(param, *(c.dim for c in layout.cuts))
-    param.is_distributed = any(s for c in layout.cuts
-                               for _, s in c.segments)
+    param.is_distributed = any(seg[1] for c in layout.cuts
+                               for seg in c.segments)
     return param
 
 

@@ -29,26 +29,30 @@ rank's slots start after the earlier ranks' tokens of the same expert
 order, which is the batch's), and the aux loss's means are over every
 token (the sum of the probabilities through ``_comm.reduce_from``).
 
-Expert parallelism (``expert_axis``, dp by default): at degree > 1 each
-rank holds ``E / n`` experts (``w_in`` and ``w_out`` cut on dim 0 over
-the axis, a ``shard.Layout``; at degree 1 dim 0 is only annotated, so
-ZeRO cuts another). Over a batch axis (``"dp"`` or ``"sharding"``)
-each rank fills the slots of all E experts that its tokens take; a
-reduce-scatter over the axis along the experts gives each rank its
-experts' buffers (the slots of two ranks never meet, so the sum is
-exact), and after the experts an all-gather returns every expert's
-outputs (its backward a reduce-scatter, as each rank's tokens read
-them). Those moves carry the bytes the reference's token all-to-all
-carries; ``comm_bytes`` counts them. The ranks of the other batch axis
-run their experts on their own tokens' slots, so the experts'
-gradients are partial over it, and the model's batch sum (which skips
-only the axes a parameter is cut on) adds them up: each expert's
-gradient counts every token once. Over ``"mp"`` (without SP) the tokens
-are replicated: every mp rank computes the same gate, takes its
-experts' part of the full buffer (no reduce-scatter), and the outputs
-come back by an all-gather whose backward takes the rank's own part;
-the tokens' gradient from the buffer is summed over mp. Under SP an mp
-axis raises, as does ``"sep"`` (ROADMAP A.6).
+Expert parallelism (``expert_axis``, dp by default; any of dp,
+sharding, sep and mp, or a tuple of them, as the reference puts ``[E,
+C, H]`` over any mesh axes): at degree > 1 each rank holds ``E / n``
+experts (``w_in`` and ``w_out`` cut on dim 0 over the axes, a
+``shard.Layout``, the rank's block its place over them; at degree 1
+dim 0 is only annotated, so ZeRO cuts another). The buffer's expert
+dim is cut axis by axis, in mesh order. Over an axis the tokens are
+split on (a batch axis, or a sequence axis: mp under SP, sep under
+context parallelism) each rank fills the slots of all the experts that
+its tokens take; a reduce-scatter over the axis along the experts
+gives each rank its part of the buffers (the slots of two ranks never
+meet, so the sum is exact), and after the experts an all-gather
+returns every expert's outputs (its backward a reduce-scatter, as each
+rank's tokens read them). Those moves carry the bytes the reference's
+token all-to-all carries; ``comm_bytes`` counts them. Over an axis the
+tokens are replicated on (mp without SP, sep without context
+parallelism) every rank computes the same gate and takes its part of
+the buffer (no reduce-scatter), and the outputs come back by an
+all-gather whose backward takes the rank's own part; the tokens'
+gradient from the buffer is summed over those axes. The ranks of a
+batch axis the experts do not lie over run them on their own tokens'
+slots, so the experts' gradients are partial over it, and the model's
+batch sum (which skips only the axes a parameter is cut on) adds them
+up: each expert's gradient counts every token once.
 
 Under sequence or context parallelism (``sequence_axis`` ``"mp"`` or
 ``"sep"``, or ``("sep", "mp")`` under both, a sep chunk split further
@@ -64,7 +68,11 @@ capacity and the aux loss's means count the global tokens (the
 probabilities summed over dp and the sequence axis together). Each
 sequence rank runs its experts on its own tokens' slots, so their
 gradients, and the gate's, are partial over the sequence axes. Under SP
-(``"mp"``) the layer sums all three over mp in the backward. Under
+(``"mp"``) the layer sums all three over mp in the backward (the
+experts not when they lie over mp). A sequence that mp does not divide
+arrives padded at its end (``forward``'s ``seq_len``): its padding
+rows take no slot and count in neither the capacity nor the aux
+loss. Under
 context parallelism ``"sep"`` is one of the model's batch axes, over
 which ``fleet.distributed_model`` (and ``PipelineParallel``) sums every
 gradient, a parameter laid out over a batch axis over the others. Under
@@ -114,7 +122,32 @@ def _axes_group(axes):
     return len(pair[0]), pair[0].index(env.rank), pair
 
 
-_EXPERT_AXES = ("dp", "sharding", "mp")
+_EXPERT_AXES = ("dp", "sharding", "sep", "mp")
+
+
+def expert_axes(expert_axis):
+    """The mesh axes the experts lie over, in mesh order (``expert_axis``
+    a name or a tuple of names); raises naming a bad one."""
+    axes = (expert_axis,) if isinstance(expert_axis, str) \
+        else tuple(expert_axis)
+    bad = [a for a in axes if a not in _EXPERT_AXES]
+    if bad or not axes:
+        raise ValueError(f"expert_axis={expert_axis!r}: the experts lie "
+                         f"over one or more of {_EXPERT_AXES}")
+    return env_mod._canon(axes)
+
+
+def layer_groups(expert_axis, sequence_axis):
+    """The groups of more than one axis a layer of these axes uses, in
+    the order it makes them (a model makes them on every rank first: a
+    pipeline stage builds only its own layers)."""
+    experts = expert_axes(expert_axis)
+    batch = tuple(a for a in batch_axes() if a != "sep")
+    seq = (sequence_axis,) if isinstance(sequence_axis, str) \
+        else tuple(sequence_axis or ())
+    moving = batch + seq
+    rep = tuple(a for a in experts if a not in moving)
+    return [g for g in (experts, rep, batch, seq, batch + seq) if g]
 
 
 def _check_top_k(top_k):
@@ -142,11 +175,7 @@ class MoELayer(nn.Module):
                  dtype=torch.float32, device="cuda", generator=None):
         super().__init__()
         _check_top_k(top_k)
-        if expert_axis not in _EXPERT_AXES:
-            raise NotImplementedError(
-                f"MoELayer with expert_axis={expert_axis!r} is not ported "
-                f"(ROADMAP A.6): the experts lie over one of "
-                f"{_EXPERT_AXES}")
+        axes = expert_axes(expert_axis)
         if activation not in _ACT:
             raise ValueError(f"activation must be one of {sorted(_ACT)}, "
                              f"got {activation!r}")
@@ -161,26 +190,34 @@ class MoELayer(nn.Module):
         if seq not in ((), ("mp",), ("sep",), ("sep", "mp")):
             raise ValueError(f"sequence_axis must be None, 'mp', 'sep' or "
                              f"('sep', 'mp'), got {sequence_axis!r}")
-        if expert_axis == "mp" and "mp" in seq:
-            raise NotImplementedError(
-                "MoELayer with expert_axis='mp' under sequence parallelism "
-                "is not ported (ROADMAP A.6): its tokens are split over mp")
-        # the experts' axis; the batch axes the tokens are split over (dp,
+        # the experts' axes; the batch axes the tokens are split over (dp,
         # and sharding when its degree is > 1, as fleet.batch_axes)
-        self._n, self._rank, self._group = _axes_group((expert_axis,))
+        self._n, self._rank, self._group = _axes_group(axes)
         batch = tuple(a for a in batch_axes() if a != "sep")
+        # the buffer's expert dim cut axis by axis, in mesh order: over an
+        # axis the tokens are split on, a reduce-scatter (True); over one
+        # they are replicated on, the rank's part (False)
+        self._steps = [(a in batch + seq, g) for a, g in
+                       ((a, _axes_group((a,))) for a in axes) if g[0] > 1]
+        # the tokens' gradient from the buffer sums over the replicated
+        self._rep_group = _axes_group(
+            tuple(a for a in axes if a not in batch + seq))[2]
         self._batch_n, self._batch_rank, self._batch_group = \
             _axes_group(batch)
         self._seq_n, self._seq_rank, self._seq_group = _axes_group(seq)
         # under SP the gate's and the experts' gradients are partial over
         # mp (the batch axes' sums are the model's: a parameter laid out
-        # over one of them is summed over the others)
-        self._sp_group = _axes_group(("mp",) if "mp" in seq else ())[2]
+        # over one of them is summed over the others); experts that lie
+        # over mp hold every mp rank's tokens of their slots already
+        self._mp = _axes_group(("mp",) if "mp" in seq else ())
+        self._sp_group = self._mp[2]
+        self._expert_sp_group = None if "mp" in axes else self._sp_group
         # the group the tokens are split over: the batch and the sequence
         self._token_group = _axes_group(batch + seq)[2]
         if num_experts % self._n:
             raise ValueError(f"num_experts = {num_experts} does not split "
                              f"evenly over {expert_axis} = {self._n}")
+        cut = axes if len(axes) > 1 else axes[0]
         self.gate_weight = nn.Parameter(torch.empty(
             (d_model, num_experts), dtype=dtype, device=dev))
         self.w_in = nn.Parameter(torch.empty(
@@ -192,7 +229,7 @@ class MoELayer(nn.Module):
         for w, shape in ((self.w_in, (num_experts, d_model, d_hidden)),
                          (self.w_out, (num_experts, d_hidden, d_model))):
             if self._n > 1:
-                shard.set_layout(w, shard.cut_layout(expert_axis, 0, shape))
+                shard.set_layout(w, shard.cut_layout(cut, 0, shape))
             else:
                 shard.annotate(w, 0)
         if generator is not False:
@@ -246,7 +283,7 @@ class MoELayer(nn.Module):
         return [first, torch.argmax(probs * (1.0 - mask.to(probs.dtype)),
                                     dim=-1)]
 
-    def route(self, tokens, cap, n_rows=1):
+    def route(self, tokens, cap, n_rows=1, valid=None):
         """The gate on this rank's ``tokens`` ``[T, H]`` (``n_rows`` rows
         of ``T / n_rows`` tokens: the rank's chunk of each under sequence
         parallelism) at ``cap`` slots an expert: ``(probs, gates, rows,
@@ -254,7 +291,9 @@ class MoELayer(nn.Module):
         weights ``[T]`` (normalized over the two under top-2, 0 where
         dropped) and the buffer rows ``[T]`` (``expert * cap + slot``,
         ``E * cap`` where the token is not dispatched); and every rank's
-        count of first choices by expert ``[E]``."""
+        count of first choices by expert ``[E]``. ``valid`` ``[T]``
+        (None: all) marks the real tokens: the others (a padded
+        sequence's tail) take no slot and are counted nowhere."""
         E, k = self.num_experts, self.top_k
         gate_weight = _comm.copy_to(self.gate_weight, self._sp_group)
         logits = torch.matmul(tokens, gate_weight.to(tokens.dtype))
@@ -262,6 +301,8 @@ class MoELayer(nn.Module):
         experts = torch.arange(E, device=tokens.device)
         idx = self._choose(probs)
         masks = [i[:, None] == experts for i in idx]
+        if valid is not None:
+            masks = [m & valid[:, None] for m in masks]
         row_of = torch.arange(tokens.shape[0], device=tokens.device) \
             // (tokens.shape[0] // n_rows)
         counts = torch.stack([m.reshape(n_rows, -1, E).sum(1)
@@ -277,7 +318,7 @@ class MoELayer(nn.Module):
                 + before[j][row_of, i]
             if j == 1:  # after every first choice of the expert
                 pos = pos + total[0][i]
-            keep = pos < cap
+            keep = pos < cap if valid is None else (pos < cap) & valid
             gates.append(probs.gather(1, i[:, None])[:, 0] * keep)
             slots.append((i * cap + pos, keep))
         if k == 2:
@@ -289,41 +330,55 @@ class MoELayer(nn.Module):
                 for g, (row, keep) in zip(gates, slots)]
         return probs, gates, rows, total[0]
 
-    def forward(self, x):
+    def forward(self, x, seq_len=None):
+        """``x`` ``[B, S, H]`` -> ``[B, S, H]``. ``seq_len``: under SP,
+        the real length of the sequence mp splits (a sep chunk under
+        context parallelism), when it was padded at its end to ``S *
+        mp`` because mp does not divide it; the padding is kept out of
+        the gate."""
         B, S, H = x.shape
-        E, k, n = self.num_experts, self.top_k, self._n
+        E, k = self.num_experts, self.top_k
         dt = x.dtype
         # the global tokens: the batch and the sequence are split evenly
+        # (less the padding of each sequence mp splits)
         T = B * S * self._batch_n * self._seq_n
+        valid = None
+        mp_n, mp_rank, _ = self._mp
+        if seq_len is not None and seq_len < S * mp_n:
+            T = T // (S * mp_n) * seq_len
+            valid = (torch.arange(S, device=x.device)
+                     + mp_rank * S < seq_len).repeat(B)
         C = capacity(k, T, E, self.capacity_factor)
         tokens = x.reshape(B * S, H)
-        probs, gates, rows, first = self.route(tokens, C, B)
-        over_mp = self.expert_axis == "mp"
-        # over mp every rank holds the same tokens and slots: a rank's
-        # experts read only their slots, so the tokens' gradient from the
-        # buffer is partial and summed over mp
-        src = _comm.copy_to(tokens, self._group) if over_mp else tokens
+        probs, gates, rows, first = self.route(tokens, C, B, valid=valid)
+        # over an axis the tokens are replicated on, a rank's experts
+        # read only their slots, so the tokens' gradient from the buffer
+        # is partial and summed over it
+        src = _comm.copy_to(tokens, self._rep_group)
         buf = tokens.new_zeros((E * C + 1, H)).index_copy(
             0, torch.cat(rows), src.repeat(k, 1))
         buf = buf[:E * C].view(E, C, H)
-        if n > 1 and over_mp:
-            buf = buf.narrow(0, self._rank * (E // n), E // n)
-        elif n > 1:
-            self.comm_bytes += buf.numel() * buf.element_size()
-            buf = _comm.reduce_scatter(buf, 0, self._group)
+        for moving, (n, rank, group) in self._steps:
+            if moving:
+                self.comm_bytes += buf.numel() * buf.element_size()
+                buf = _comm.reduce_scatter(buf, 0, group)
+            else:
+                buf = buf.narrow(0, rank * (buf.shape[0] // n),
+                                 buf.shape[0] // n)
         # each sequence rank ran its own tokens' slots
-        w_in = _comm.copy_to(self.w_in, self._sp_group)
-        w_out = _comm.copy_to(self.w_out, self._sp_group)
+        w_in = _comm.copy_to(self.w_in, self._expert_sp_group)
+        w_out = _comm.copy_to(self.w_out, self._expert_sp_group)
         h = _ACT[self.act](torch.bmm(buf, w_in.to(dt)))
         out = torch.bmm(h, w_out.to(dt))
-        if n > 1:
-            # over mp every rank reads the same outputs: the backward
-            # takes this rank's experts' part (a sum would count the
-            # upstream gradient mp times); over a batch axis each rank's
+        for moving, (n, rank, group) in reversed(self._steps):
+            # over a replicated axis every rank reads the same outputs:
+            # the backward takes this rank's part (a sum would count the
+            # upstream gradient n times); over a split one each rank's
             # tokens read them, and the backward sums those parts
-            out = _comm.gather_from(out, 0, self._group) if over_mp \
-                else _comm.gather_reduce(out, 0, self._group)
-            self.comm_bytes += out.numel() * out.element_size()
+            out = _comm.gather_reduce(out, 0, group) if moving \
+                else _comm.gather_from(out, 0, group)
+            if moving:
+                self.comm_bytes += out.numel() * out.element_size()
         flat = torch.cat([out.reshape(E * C, H), out.new_zeros((1, H))])
         y = None
         for g, r in zip(gates, rows):
@@ -333,6 +388,8 @@ class MoELayer(nn.Module):
             y = part if y is None else y + part
         # the aux loss: E * sum(mean probability x share of first
         # choices), both over the global tokens
+        if valid is not None:
+            probs = probs * valid[:, None]
         me = _comm.reduce_from(probs.sum(0), self._token_group) / T
         self.aux_loss = torch.sum(me * (first.to(torch.float32) / T)) * E
         self.dispatched = torch.stack([(r < E * C).sum() for r in rows])

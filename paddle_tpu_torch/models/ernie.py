@@ -48,7 +48,7 @@ from torch import nn
 from ..distributed.fleet import batch_axes
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
-    _axis_group, check_even, masked_token_mean,
+    _axis_group, check_even, masked_token_mean, rank_heads,
 )
 from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
     LayerDesc, PipelineLayer,
@@ -123,18 +123,19 @@ class ErnieConfig:
         return cls(**kw)
 
 
-def _col(n_in, n_out, device, has_bias=True, segments=1):
+def _col(n_in, n_out, device, has_bias=True, segments=1, unit=1):
     """A column-parallel linear whose output stays sharded (its
-    ``segments`` equal parts, a fused projection, cut one by one)."""
+    ``segments`` equal parts, a fused projection, cut one by one, in
+    whole units of ``unit``: a head's columns)."""
     return ColumnParallelLinear(
         n_in, n_out, has_bias=has_bias, gather_output=False,
-        out_segments=((n_out // segments, True),) * segments,
+        out_segments=((n_out // segments, True, unit),) * segments,
         device=device, generator=False)
 
 
-def _row(n_in, n_out, device):
+def _row(n_in, n_out, device, unit=1):
     return RowParallelLinear(n_in, n_out, input_is_parallel=True,
-                             device=device, generator=False)
+                             in_unit=unit, device=device, generator=False)
 
 
 def _head(n_in, vocab, device, has_bias):
@@ -145,15 +146,19 @@ def _head(n_in, vocab, device, has_bias):
 
 
 def _check_even(config):
-    """Raise ``ValueError`` naming the first dim that mp does not split
-    evenly (the vocab, the trunk's and the branches' heads and FFN)."""
+    """Raise ``ValueError`` naming the first parameter dim that mp does
+    not split evenly, as the reference raises: the vocab, the trunk's
+    and the branches' FFN and flat attention widths (``hidden_size``,
+    ``task_hidden_size``). The heads need not divide: a rank takes whole
+    heads, the first ranks one more."""
     n, _, _ = _axis_group("mp")
     if n > 1:
         check_even(n, (
             ("vocab_size", config.vocab_size),
-            ("num_attention_heads", config.num_attention_heads),
+            ("the flat attention width hidden_size", config.hidden_size),
             ("intermediate_size", config.intermediate_size),
-            ("num_task_attention_heads", config.num_task_attention_heads),
+            ("the flat attention width task_hidden_size",
+             config.task_hidden_size),
             ("task_intermediate_size", config.task_intermediate_size)))
 
 
@@ -162,24 +167,33 @@ class ErnieSelfAttention(nn.Module):
     (strided views: the kernels read them through strides), attention
     with the pass's ``causal``, then the ``out`` projection. Under mp
     ``qkv`` is column-parallel (each rank its q, k and v heads side by
-    side) and ``out`` row-parallel, so a rank attends with its ``heads /
-    mp`` heads."""
+    side) and ``out`` row-parallel, so a rank attends with its whole
+    heads (``heads / mp``; the first ranks one more where mp does not
+    divide them, a rank possibly none)."""
 
     def __init__(self, hidden, heads, dropout, device):
         super().__init__()
         self.head_dim = hidden // heads
-        self.qkv = _col(hidden, 3 * hidden, device, segments=3)
-        self.out = _row(hidden, hidden, device)
-        self.num_heads = heads // self.qkv._n  # this rank's
+        self.qkv = _col(hidden, 3 * hidden, device, segments=3,
+                        unit=self.head_dim)
+        self.out = _row(hidden, hidden, device, unit=self.head_dim)
+        # this rank's heads and the first of them
+        self.num_heads, self._first = rank_heads(heads, self.qkv._n,
+                                                 self.qkv._rank)
+        self._heads = heads
         self.dropout_p = dropout
 
     def forward(self, x, attn_bias=None, causal=False):
         b, s = x.shape[0], x.shape[1]
+        w = self.num_heads * self.head_dim
         q, k, v = (t.reshape(b, s, self.num_heads, self.head_dim)
-                   for t in torch.chunk(self.qkv(x), 3, dim=-1))
+                   for t in torch.split(self.qkv(x), [w] * 3, dim=-1))
+        if self.num_heads == 0:  # nothing to add to out's sum
+            return self.out(q.reshape(b, s, 0))
         # this rank's rows (dp) and heads (mp), as the reference marks
         # them: attention dropout hashes them at their global places
         q = mark_local(q, batch_axes(), None, "mp", None)
+        q._heads = (self._first, self._heads)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_bias, self.dropout_p, is_causal=causal,
             training=self.training)

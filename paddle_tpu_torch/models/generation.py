@@ -37,6 +37,9 @@ import numpy as np
 import torch
 
 from ..distributed import _comm
+from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    rank_heads,
+)
 from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..nn.functional.norm import rms_norm
@@ -69,8 +72,10 @@ def _layer(params, li) -> dict:
 
 class _TensorParallel:
     """A rank's part of a tensor-parallel decode: the mp group, the
-    rank's vocab rows of the embedding, its ``heads`` q heads (global
-    ``rank * heads`` on) and the kv heads they read, ``kv_heads`` of
+    rank's vocab rows of the embedding, its ``heads`` q heads (whole
+    heads as training cuts them, ``mp_layers.rank_heads``: the first
+    ``nh % mp`` ranks one more, a rank possibly none) and the kv heads
+    they read, ``kv_heads`` of
     them from global kv head ``kv_lo`` on. Local q head ``i`` reads
     local kv head ``(i + head_offset) // kv_group``, ``kv_group`` the
     model's q heads per kv head (``_GenCfg``); the offset is 0
@@ -85,10 +90,11 @@ class _TensorParallel:
         nkv = cfg.num_key_value_heads or nh
         group = nh // nkv  # q heads per kv head
         self.group = par.group
-        self.heads = nh // par.n
-        q0 = par.rank * self.heads
+        # a rank without heads reads no kv head
+        self.heads, q0 = rank_heads(nh, par.n, par.rank)
         self.kv_lo = q0 // group
-        self.kv_heads = (q0 + self.heads - 1) // group - self.kv_lo + 1
+        self.kv_heads = 0 if self.heads == 0 else \
+            (q0 + self.heads - 1) // group - self.kv_lo + 1
         self.head_offset = q0 - self.kv_lo * group
         self.kv_whole = nkv % par.n != 0
         self.vocab = cfg.vocab_size // par.n
@@ -283,8 +289,11 @@ def _block(x, layer_p, cache_k, cache_v, li, pos, valid_len, cfg,
         v = dequantize_kv(*quantize_kv(v), v.dtype)
     cache_k[li, :, valid_len - s:valid_len] = k
     cache_v[li, :, valid_len - s:valid_len] = v
-    out = _attend(q, cache_k[li], cache_v[li], valid_len, cfg,
-                  key_pad=key_pad)
+    if cfg.num_attention_heads == 0:  # a rank without heads adds nothing
+        out = q
+    else:
+        out = _attend(q, cache_k[li], cache_v[li], valid_len, cfg,
+                      key_pad=key_pad)
     x = x + _row(out.reshape(b, s, -1), layer_p["o"], tp)
     return _mlp(x, layer_p, cfg, tp)
 

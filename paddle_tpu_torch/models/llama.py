@@ -28,6 +28,7 @@ from ..distributed.fleet.meta_parallel.parallel_layers.pp_layers import (
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding, _axis_group, check_even, masked_token_mean,
+    rank_heads,
 )
 from ..distributed.fleet.utils.sequence_parallel_utils import (
     ColumnSequenceParallelLinear, GatherOp, RowSequenceParallelLinear,
@@ -38,6 +39,7 @@ from ..framework.device import resolve_device
 from ..framework.dtype import to_torch_dtype
 from ..incubate.distributed.models.moe import MoELayer
 from ..nn import functional as F
+from ..nn.functional.loss import chunked_ce_over
 from ._weights import load_jax_weights
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
@@ -187,11 +189,18 @@ class _Parallel:
     a rank's sequence chunk further over mp; None); the groups the
     layers need (the experts' axis, the batch axes, the sequence axes
     and both) are made here, where every rank runs in one order (a
-    pipeline stage builds only its own layers)."""
+    pipeline stage builds only its own layers). Under SP ``seq_len`` is
+    the length of the sequence the embedding scatters over mp (the
+    rank's chunk under context parallelism), set by each forward
+    (:func:`_scatter_sequence`, the pipe's ``note_batch``): when mp does
+    not divide it, the sequence is padded at its end to a multiple of
+    mp, and the padding is trimmed after the final gather and kept out
+    of the MoE gate."""
 
     def __init__(self, config):
         self.n, self.rank, self.group = _axis_group("mp")
         self.sp = bool(config.sequence_parallel) and self.n > 1
+        self.seq_len = None
         self.cp_n, self.cp_rank, _ = _axis_group("sep") \
             if config.context_parallel else (1, 0, None)
         self.batch_group = None
@@ -207,17 +216,13 @@ class _Parallel:
             self.seq_axis = axes if len(axes) > 1 else axes[0]
         if moe and get_hcg() is not None:
             from ..distributed import env as env_mod
+            from ..incubate.distributed.models.moe.moe_layer import (
+                layer_groups,
+            )
 
             env = env_mod.ensure_env()
-            batch = tuple(a for a in batch_axes() if a != "sep")
-            seq = (() if self.seq_axis is None
-                   else (self.seq_axis,) if isinstance(self.seq_axis, str)
-                   else self.seq_axis)
-            axis = config.moe_expert_axis
-            expert = (axis,) if axis in env_mod.AXIS_ORDER else ()
-            for group in (expert, batch, seq, batch + seq):
-                if group:
-                    env.group(group)
+            for group in layer_groups(config.moe_expert_axis, self.seq_axis):
+                env.group(group)
 
     def leaf(self, kind, *args, **kw):
         """A column (``"col"``) or row (``"row"``) parallel linear, the
@@ -238,9 +243,18 @@ class _Parallel:
 
 
 def _check_even(config, n):
+    """The parameter dims mp must divide, as the reference's: the vocab,
+    the FFN width and the flat attention widths (the heads themselves
+    need not divide: a rank takes whole heads, the first ranks one
+    more)."""
+    nh, nkv = config.num_attention_heads, config.num_key_value_heads
+    d = config.hidden_size // nh
     check_even(n, (("vocab_size", config.vocab_size),
-                   ("num_attention_heads", config.num_attention_heads),
-                   ("intermediate_size", config.intermediate_size)))
+                   ("intermediate_size", config.intermediate_size),
+                   ("the flat attention width num_attention_heads * "
+                    "head_dim", nh * d),
+                   ("the fused qkv width (num_attention_heads + 2 * "
+                    "num_key_value_heads) * head_dim", (nh + 2 * nkv) * d)))
 
 
 class LlamaAttention(nn.Module):
@@ -254,20 +268,22 @@ class LlamaAttention(nn.Module):
         self.head_dim = h // self.num_heads
         d, nh, nkv, n = (self.head_dim, self.num_heads, self.num_kv_heads,
                          par.n)
-        # this rank's heads; K and V are replicated (and repeated per q
-        # head, as in the reference) when mp does not divide their heads
-        self._nh = nh // n
+        # this rank's whole heads (the first nh % n ranks one more; a rank
+        # may hold none); K and V are replicated (and repeated per q head,
+        # as in the reference) when mp does not divide their heads
+        self._nh, q0 = rank_heads(nh, n, par.rank)
         kv_sharded = nkv % n == 0
         self._nkv = nkv // n if kv_sharded else nkv
         rep = nh // nkv
         self.register_buffer("_kv_index", None if kv_sharded else torch.tensor(
-            [(par.rank * self._nh + i) // rep for i in range(self._nh)],
+            [(q0 + i) // rep for i in range(self._nh)], dtype=torch.int64,
             device=device), persistent=False)  # each local q head's kv head
         self.qkv_proj = par.leaf(
             "col", h, (nh + 2 * nkv) * d, dtype=dtype, device=device,
-            out_segments=((nh * d, True), (nkv * d, kv_sharded),
-                          (nkv * d, kv_sharded)))
-        self.o_proj = par.leaf("row", nh * d, h, dtype=dtype, device=device)
+            out_segments=((nh * d, True, d), (nkv * d, kv_sharded, d),
+                          (nkv * d, kv_sharded, d)))
+        self.o_proj = par.leaf("row", nh * d, h, dtype=dtype, device=device,
+                               in_unit=d)
 
     def forward(self, x):
         cfg = self.config
@@ -276,11 +292,21 @@ class LlamaAttention(nn.Module):
         b, s = qkv.shape[0], qkv.shape[1]  # the whole sequence under SP
         q, k, v = torch.split(
             qkv, [self._nh * d, self._nkv * d, self._nkv * d], dim=-1)
+        if self._nh == 0:
+            # a rank without heads adds nothing to o_proj's sum (its
+            # weight's piece is [0, hidden]); no attention runs
+            return self.o_proj(q)
+        # under SP a sequence mp does not divide arrives padded at its
+        # end (_scatter_sequence): the padding is neither query nor key
+        par = self._par
+        pad = s - par.seq_len if par.sp and par.seq_len is not None else 0
+        if pad:
+            s = par.seq_len
+            q, k, v = q[:, :s], k[:, :s], v[:, :s]
         # RoPE returns the projection's dtype (low under auto_cast O1,
         # where x, the fp32 RMSNorm output, is not). Under context
         # parallelism this rank holds chunk cp_rank of the sequence: its
         # tokens sit at global positions cp_rank * s + arange(s)
-        par = self._par
         pos = None
         if par.cp_n > 1:
             pos = torch.arange(s, device=q.device) + par.cp_rank * s
@@ -309,7 +335,10 @@ class LlamaAttention(nn.Module):
             out = F.sliding_window_attention(q, k, v, cfg.sliding_window)
         else:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self.o_proj(out.reshape(b, s, self._nh * d))
+        out = out.reshape(b, s, self._nh * d)
+        if pad:
+            out = torch.nn.functional.pad(out, (0, 0, 0, pad))
+        return self.o_proj(out)
 
 
 class LlamaMLP(nn.Module):
@@ -355,9 +384,13 @@ class LlamaDecoderLayer(nn.Module):
         eps, par = self.config.rms_norm_eps, self._par
         h = x + self.self_attn(
             F.rms_norm(x, par.norm_weight(self.input_layernorm), eps))
-        return h + self.mlp(
-            F.rms_norm(h, par.norm_weight(self.post_attention_layernorm),
-                       eps))
+        y = F.rms_norm(h, par.norm_weight(self.post_attention_layernorm),
+                       eps)
+        if isinstance(self.mlp, MoELayer) and par.sp:
+            # the padding of a sequence mp does not divide stays out of
+            # the gate
+            return h + self.mlp(y, seq_len=par.seq_len)
+        return h + self.mlp(y)
 
 
 class LlamaModel(nn.Module):
@@ -382,19 +415,34 @@ class LlamaModel(nn.Module):
         for blk in self.layers:
             x = blk(x)
         x = F.rms_norm(x, par.norm_weight(self.norm), self.config.rms_norm_eps)
-        return GatherOp.apply(x, par.group) if par.sp else x
+        return _gather_sequence(x, par)
 
 
 def _scatter_sequence(x, par):
     """Under SP, this rank's chunk of the sequence of ``x`` ``[b, s, h]``
-    (raises ``ValueError`` when mp does not divide it); else ``x``."""
+    (a rank's sep chunk under context parallelism), padded at its end
+    with zero rows to a multiple of mp when mp does not divide ``s``
+    (``s`` recorded as ``par.seq_len``: the attention and the MoE gate
+    leave the padding out); else ``x``."""
     if not par.sp:
         return x
-    if x.shape[1] % par.n:
-        raise ValueError(f"sequence length {x.shape[1]} does not split "
-                         f"evenly over mp = {par.n} under "
-                         f"sequence_parallel")
+    s = x.shape[1]
+    par.seq_len = s
+    pad = -s % par.n
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
     return ScatterOp.apply(x, par.group)
+
+
+def _gather_sequence(x, par):
+    """Under SP the whole sequence from the ranks' chunks, the padding of
+    :func:`_scatter_sequence` trimmed; else ``x``."""
+    if not par.sp:
+        return x
+    x = GatherOp.apply(x, par.group)
+    if par.seq_len is not None and par.seq_len < x.shape[1]:
+        x = x[:, :par.seq_len]
+    return x
 
 
 def _init_weights(module, generator, dev):
@@ -467,7 +515,8 @@ class LlamaForCausalLM(nn.Module):
 
     With ``moe_num_experts > 1`` each layer's MLP is a ``MoELayer``
     (SiLU experts, the config's ``moe_top_k``; each rank holds its share
-    of the experts over ``moe_expert_axis``, dp, sharding or mp, and the
+    of the experts over ``moe_expert_axis``: dp, sharding, sep or mp, or a
+    tuple of them such as ``("sep", "mp")`` under SP; and the
     gate counts the tokens of every batch rank, dp x sharding) and the
     loss adds
     ``moe_aux_loss_coeff`` times the layers' aux losses, as the
@@ -485,10 +534,6 @@ class LlamaForCausalLM(nn.Module):
         par = _Parallel(config)
         if par.n > 1:
             _check_even(config, par.n)
-            if config.ce_chunk_size > 0:
-                raise NotImplementedError(
-                    "ce_chunk_size under mp > 1 is not ported: the chunked "
-                    "loss reads the whole LM head (ROADMAP A.6)")
         self._par = par
         self.llama = LlamaModel(config, dtype, dev, par)
         self.lm_head = ColumnParallelLinear(
@@ -519,16 +564,20 @@ class LlamaForCausalLM(nn.Module):
         ``F.cross_entropy``, then ``masked_token_mean``. With
         ``ce_chunk_size > 0`` (and ``use_parallel_cross_entropy=False``)
         the LM head and the loss run together over vocab chunks
-        (``F.chunked_softmax_cross_entropy``): the full logits never
-        exist. The products go through ``F.linear`` (white under
+        (``chunked_ce_over``, ``F.chunked_softmax_cross_entropy`` over
+        the mp group): the full logits never exist; under mp each rank
+        runs its vocab columns of the head's shard and the loss takes
+        one MAX and two SUM all-reduces (the head is never gathered).
+        The products go through ``F.linear`` (white under
         ``amp.auto_cast``)."""
         cfg = self.config
         group = self._par.batch_group
         hidden = self.model(input_ids)
         if labels is not None and self.loss_fn is None \
                 and cfg.ce_chunk_size > 0:
-            per_tok = F.chunked_softmax_cross_entropy(
-                hidden, self.lm_head.weight, labels, cfg.ce_chunk_size)
+            per_tok = chunked_ce_over(
+                hidden, self.lm_head.weight, labels, cfg.ce_chunk_size,
+                self._par.group)
             return self._add_moe_aux(
                 masked_token_mean(per_tok, labels, -100, group=group))
         logits = self.lm_head(hidden)
@@ -617,7 +666,7 @@ class _HeadStage(nn.Module):
     def forward(self, x):
         par = self._par
         x = F.rms_norm(x, par.norm_weight(self.norm), self.config.rms_norm_eps)
-        return self.lm_head(GatherOp.apply(x, par.group) if par.sp else x)
+        return self.lm_head(_gather_sequence(x, par))
 
 
 class _PipeLoss:
@@ -686,9 +735,18 @@ class LlamaForCausalLMPipe(PipelineLayer):
                          recompute_interval=1 if config.recompute else 0,
                          **kwargs)
         self.config = config
+        self._par = par
         for idx, module in self.named_children():
             _init_weights(module, torch.Generator(device=dev).manual_seed(
                 seed + int(idx)), dev)
+
+    def note_batch(self, input_ids):
+        """Called by ``PipelineParallel`` on every stage with the batch's
+        ids: under SP each stage learns the sequence length, so that a
+        sequence mp does not divide is padded, trimmed and kept out of
+        the MoE gate alike on every stage."""
+        if self._par.sp:
+            self._par.seq_len = input_ids.shape[1]
 
 
 def to_pipe_layout(arrays, num_hidden_layers):

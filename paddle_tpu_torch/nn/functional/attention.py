@@ -101,10 +101,12 @@ def _dropout_coords(query):
     """Where ``query`` (``[b, s, h, d]``) lies in the global batch and
     heads, as the kernels' ``coords`` (first batch row, first head,
     global heads), from the spec a model recorded on it
-    (``shard.mark_local``: dim 0 over the batch axes, dim 2 over mp), or
-    None when it is the whole tensor. The reference's dropout hashes the
-    global query head (its arrays are global under GSPMD); so does a
-    rank here, and every layout drops what one card drops."""
+    (``shard.mark_local``: dim 0 over the batch axes, dim 2 over mp;
+    ``query._heads``, ``(first, global heads)``, where mp does not
+    divide the heads), or None when it is the whole tensor. The
+    reference's dropout hashes the global query head (its arrays are
+    global under GSPMD); so does a rank here, and every layout drops
+    what one card drops."""
     from ...distributed import shard
 
     spec = shard.get_sharding(query)
@@ -116,7 +118,8 @@ def _dropout_coords(query):
     nh, rh = shard.place(spec[2])
     if rb == 0 and nh == 1:
         return None
-    return rb * b, rh * h, nh * h
+    first, heads = getattr(query, "_heads", (rh * h, nh * h))
+    return rb * b, first, heads
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

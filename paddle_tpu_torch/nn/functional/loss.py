@@ -600,23 +600,75 @@ def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
     """Combined-margin softmax CE (ArcFace family, ``loss.py:761-787``):
     the target cosine ``cos(theta)`` becomes ``cos(margin1 * theta +
     margin2) - margin3``, all logits times ``scale``; with
-    ``return_softmax`` also the softmax. The reference ignores ``group``
-    because its arrays are global; a rank's logits here are its own
-    shard, so a ``group`` of more than one rank raises (ROADMAP A.6).
-    A black op under ``auto_cast``."""
-    if group is not None and group is not False and _group_size(group) > 1:
-        raise NotImplementedError(
-            "margin_cross_entropy over a group of more than one rank (the "
-            "class-sharded form) is not ported (ROADMAP A.6)")
+    ``return_softmax`` also the softmax. A black op under ``auto_cast``.
+
+    The reference ignores ``group`` because its arrays are global. Here
+    a ``group`` of more than one rank (a ``distributed.Group``) means
+    the classes are sharded over it: this rank's ``logits`` are ``[N,
+    C_local]`` (``C_local`` may differ between ranks; the offsets come
+    from an all-gather of the counts) and ``label`` holds global class
+    ids. The margin is applied on the rank that owns the target, the
+    log-softmax takes one MAX and one SUM all-reduce over the group,
+    the loss is the same on every rank, ``return_softmax`` gives this
+    rank's shard, and the gradient of the local logits is that slice of
+    the whole logits' gradient."""
+    sharded = group is not None and group is not False \
+        and _group_size(group) > 1
     x, t = cast_inputs("margin_cross_entropy", *tensors(logits, label))
     c = x.shape[1]
     t = t.reshape(-1).long()
+    if sharded:
+        if not hasattr(group, "_pair"):
+            raise TypeError(
+                f"margin_cross_entropy over {group!r}: a group of more "
+                f"than one rank must be a distributed.Group (the classes "
+                f"are sharded over its ranks)")
+        return _margin_ce_sharded(x, t, margin1, margin2, margin3, scale,
+                                  group._pair(), return_softmax, reduction)
     cos_t = torch.gather(x, 1, t[:, None]).clamp(-1.0, 1.0)
     cos_m = torch.cos(margin1 * torch.arccos(cos_t) + margin2) - margin3
     adj = x + _F.one_hot(t, c).to(x.dtype) * (cos_m - cos_t)
     logp = torch.log_softmax(adj * scale, dim=1)
     loss = _reduce(-torch.gather(logp, 1, t[:, None])[:, 0], reduction)
     return (loss, torch.exp(logp)) if return_softmax else loss
+
+
+def _margin_ce_sharded(x, t, margin1, margin2, margin3, scale, group,
+                       return_softmax, reduction):
+    """:func:`margin_cross_entropy` on this rank's classes ``x`` ``[N,
+    C_local]`` of the classes sharded over ``group`` (``(ranks, process
+    group)``); ``t`` the global targets."""
+    import torch.distributed as dist
+
+    from ...distributed import _comm
+
+    c = x.shape[1]
+    counts = _comm.all_gather_list(
+        torch.tensor([c], dtype=torch.int64, device=x.device),
+        group)
+    c0 = int(sum(int(k) for k in counts[:group[0].index(dist.get_rank())]))
+    local = t - c0
+    mine = (local >= 0) & (local < c)
+    idx = torch.where(mine, local, torch.zeros_like(local))[:, None]
+    # the owner's target cosine (0 elsewhere keeps arccos finite there)
+    cos_t = torch.where(mine[:, None], torch.gather(x, 1, idx),
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+    cos_t = cos_t.clamp(-1.0, 1.0)
+    cos_m = torch.cos(margin1 * torch.arccos(cos_t) + margin2) - margin3
+    hot = _F.one_hot(idx[:, 0], c).to(x.dtype) * mine[:, None].to(x.dtype)
+    z = (x + hot * (cos_m - cos_t)) * scale
+    # log-sum-exp over the group: the max is a constant shift; the sum
+    # and the target's logit are all-reduced forward and passed through
+    # backward (every rank differentiates the same loss)
+    m = torch.amax(z.detach(), dim=1, keepdim=True)
+    m = _comm.all_reduce(m.contiguous(), group, dist.ReduceOp.MAX)
+    se = _comm.reduce_from(torch.exp(z - m).sum(1, keepdim=True), group)
+    lse = m + torch.log(se)
+    picked = _comm.reduce_from(
+        torch.where(mine[:, None], torch.gather(z, 1, idx),
+                    torch.zeros((), dtype=z.dtype, device=z.device)), group)
+    loss = _reduce((lse - picked)[:, 0], reduction)
+    return (loss, torch.exp(z - lse)) if return_softmax else loss
 
 
 def _chunk(w, c0, chunk):
@@ -646,12 +698,18 @@ class _ChunkedCE(torch.autograd.Function):
     keeps each row's running max, sum and picked logit; the backward
     recomputes each chunk's logits and turns ``softmax - onehot`` into
     that chunk's ``dW`` columns and a share of ``dh``. No ``[N, V]``
-    tensor is ever live: at most one ``[N, chunk]`` chunk of logits."""
+    tensor is ever live: at most one ``[N, chunk]`` chunk of logits.
+    Over a ``group`` ``w`` is this rank's vocab columns (from global
+    column ``v0`` on, of ``v_all``): the running max, sum and picked
+    logit over its chunks take one MAX and two SUM all-reduces, and
+    ``dh`` is this rank's part (the caller sums it over the group)."""
 
     @staticmethod
-    def forward(ctx, hd, w, lab, chunk):
+    def forward(ctx, hd, w, lab, chunk, group=None, v0=0, v_all=None):
         n, v = hd.shape[0], w.shape[1]
         dev = hd.device
+        valid = (lab >= 0) & (lab < (v if v_all is None else v_all))
+        lab = lab - v0
         m = torch.full((n,), _NEG, dtype=torch.float32, device=dev)
         s = torch.zeros(n, dtype=torch.float32, device=dev)
         ll = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -665,17 +723,25 @@ class _ChunkedCE(torch.autograd.Function):
             picked = torch.gather(
                 logits, 1, torch.clamp(lab - c0, 0, chunk - 1)[:, None])[:, 0]
             ll = ll + torch.where(in_chunk, picked, 0.0)
+        if group is not None:
+            import torch.distributed as dist
+
+            from ...distributed import _comm
+
+            m_all = _comm.all_reduce(m.clone(), group, dist.ReduceOp.MAX)
+            s = _comm.all_reduce(s * torch.exp(m - m_all), group)
+            m = m_all
+            ll = _comm.all_reduce(ll, group)
         lse = m + torch.log(torch.clamp(s, min=1e-30))
-        valid = (lab >= 0) & (lab < v)
-        ctx.save_for_backward(hd, w, lab, lse)
+        ctx.save_for_backward(hd, w, lab, lse, valid)
         ctx.chunk = chunk
         return torch.where(valid, lse - ll, 0.0)
 
     @staticmethod
     def backward(ctx, g):
-        hd, w, lab, lse = ctx.saved_tensors
+        hd, w, lab, lse, valid = ctx.saved_tensors
         chunk, v = ctx.chunk, w.shape[1]
-        g = torch.where((lab >= 0) & (lab < v), g.to(torch.float32), 0.0)
+        g = torch.where(valid, g.to(torch.float32), 0.0)
         dh = torch.zeros(hd.shape, dtype=torch.float32, device=hd.device)
         dw = torch.empty_like(w)
         rows = torch.arange(hd.shape[0], device=hd.device)
@@ -689,7 +755,7 @@ class _ChunkedCE(torch.autograd.Function):
             dh += torch.matmul(dlog, _chunk(w, c0, chunk).t())
             cw = min(chunk, v - c0)
             dw[:, c0:c0 + cw] = torch.matmul(hd.t(), dlog[:, :cw])
-        return dh.to(hd.dtype), dw, None, None
+        return dh.to(hd.dtype), dw, None, None, None, None, None
 
 
 def chunked_softmax_cross_entropy(hidden, weight, label, chunk_size,
@@ -702,6 +768,17 @@ def chunked_softmax_cross_entropy(hidden, weight, label, chunk_size,
     reference rematerialises each chunk in its backward
     (``jax.checkpoint`` in a ``scan``); here the autograd Function's
     backward does, and the chunk products stay ``torch.matmul``."""
+    return chunked_ce_over(hidden, weight, label, chunk_size)
+
+
+def chunked_ce_over(hidden, weight, label, chunk_size, group=None):
+    """:func:`chunked_softmax_cross_entropy` over the vocab columns of a
+    column-parallel head. ``group`` (``(ranks, process group)``, the
+    head's mp group): ``weight`` is this rank's equal share of the vocab
+    columns, ``label`` holds global ids, and the loss is the whole
+    vocabulary's on every rank (a MAX and two SUM all-reduces of ``[N]``
+    rows); the head is never gathered, and ``hidden``'s gradient is
+    summed over the group. ``None`` or one rank is the plain form."""
     if chunk_size <= 0:
         raise ValueError(
             f"chunked_softmax_cross_entropy: chunk_size must be > 0, "
@@ -710,4 +787,14 @@ def chunked_softmax_cross_entropy(hidden, weight, label, chunk_size,
     hd = hidden.reshape(-1, hidden.shape[-1])
     lab = label.reshape(-1).long()
     chunk = int(min(chunk_size, weight.shape[1]))
-    return _ChunkedCE.apply(hd, weight, lab, chunk).reshape(label.shape)
+    if group is None or len(group[0]) == 1:
+        return _ChunkedCE.apply(hd, weight, lab, chunk).reshape(label.shape)
+    import torch.distributed as dist
+
+    from ...distributed import _comm
+
+    n, v = len(group[0]), weight.shape[1]
+    v0 = group[0].index(dist.get_rank()) * v
+    hd = _comm.copy_to(hd, group)
+    return _ChunkedCE.apply(hd, weight, lab, chunk, group, v0,
+                            n * v).reshape(label.shape)

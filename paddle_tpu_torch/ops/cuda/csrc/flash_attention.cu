@@ -192,6 +192,17 @@
 
 #include "hopper.cuh"
 
+// The build compiles this source in parts, one nvcc process each
+// (ops/cuda/_build.py, PARTS), and links them into one library:
+// -DPT_PART=n keeps part n's entries (0 the forwards, 1 dQ, 2 dK/dV, 3
+// the tile mode's dK/dV), so each process instantiates only their
+// kernels. Without PT_PART every entry is built.
+#ifdef PT_PART
+#define PT_IN_PART(n) (PT_PART == (n))
+#else
+#define PT_IN_PART(n) 1
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;      // a 16 x 16 grid of threads
@@ -3397,6 +3408,7 @@ constexpr int kLowCode = kBFloat16;
     PT_FLASH_FAMILY(FN, false, false, __VA_ARGS__);                     \
   } while (0)
 
+#if PT_IN_PART(0)
 int fwd_entry(const void* q, const void* k, const void* v, void* o,
               void* lse, const void* km, const int* geom, float scale,
               const long long* strides, const unsigned* drop, float dscale,
@@ -3404,7 +3416,9 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o,
   const Geom g = make_geom(geom, scale, km, nullptr, drop, dscale, hb);
   PT_FLASH_DISPATCH(fwd, q, k, v, o, lse, g, strides, (cudaStream_t)stream);
 }
+#endif
 
+#if PT_IN_PART(1)
 int bwd_dq_entry(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, const void* km, const int* geom, float scale,
@@ -3414,7 +3428,9 @@ int bwd_dq_entry(const void* q, const void* k, const void* v,
   PT_FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, g, strides,
                     (cudaStream_t)stream);
 }
+#endif
 
+#if PT_IN_PART(2)
 int bwd_dkv_entry(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, const void* km, void* dm,
@@ -3425,6 +3441,7 @@ int bwd_dkv_entry(const void* q, const void* k, const void* v,
   PT_FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, g, strides,
                     (cudaStream_t)stream);
 }
+#endif
 
 // The tile mode (TM): the 16-bit type with d <= 128 on the wgmma kernels
 // (the backward ones reading the class table), fp32 (any d) and the 16-bit
@@ -3489,6 +3506,7 @@ Geom tile_geom(const int* geom, float scale, const void* km,
 
 // dQ that also computes delta (the 16-bit type, d <= 128, every variant):
 // strides of q, k, v, dout, out, dq.
+#if PT_IN_PART(1)
 int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                        const void* dout, const void* out, const void* lse,
                        void* delta, void* dq, const void* km,
@@ -3512,6 +3530,7 @@ int bwd_dq_delta_entry(const void* q, const void* k, const void* v,
   PT_DQ_DELTA(false, false);
 #undef PT_DQ_DELTA
 }
+#endif
 
 // The wgmma kernels (the 16-bit type, d <= 128) read the class table, the
 // forward also the full-row flags.
@@ -3519,6 +3538,7 @@ bool wgmma_classes_given(const Geom& g, int dtype, bool flags) {
   return dtype != kLowCode || g.d > 128 || (g.tcls && (g.tfull || !flags));
 }
 
+#if PT_IN_PART(0)
 int tile_fwd_entry(const void* q, const void* k, const void* v, void* o,
                    void* lse, const void* km, const void* tcls,
                    const void* tfull, const long long* kms, const int* geom,
@@ -3530,7 +3550,9 @@ int tile_fwd_entry(const void* q, const void* k, const void* v, void* o,
   if (!wgmma_classes_given(g, dtype, true)) return cudaErrorInvalidValue;
   PT_TILE_DISPATCH(fwd, q, k, v, o, lse, g, strides, (cudaStream_t)stream);
 }
+#endif
 
+#if PT_IN_PART(1)
 int tile_bwd_dq_entry(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, const void* km, const void* tcls,
@@ -3543,9 +3565,11 @@ int tile_bwd_dq_entry(const void* q, const void* k, const void* v,
   PT_TILE_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, g, strides,
                    (cudaStream_t)stream);
 }
+#endif
 
 // The tile mode's dQ that also computes delta (the 16-bit type, d <=
 // 128): strides of q, k, v, dout, out, dq.
+#if PT_IN_PART(1)
 int tile_bwd_dq_delta_entry(const void* q, const void* k, const void* v,
                             const void* dout, const void* out,
                             const void* lse, void* delta, void* dq,
@@ -3571,7 +3595,9 @@ int tile_bwd_dq_delta_entry(const void* q, const void* k, const void* v,
   PT_TILE_DQ_DELTA(false);
 #undef PT_TILE_DQ_DELTA
 }
+#endif
 
+#if PT_IN_PART(3)
 int tile_bwd_dkv_entry(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, const void* km, void* dm,
@@ -3585,6 +3611,7 @@ int tile_bwd_dkv_entry(const void* q, const void* k, const void* v,
   PT_TILE_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, g, strides,
                    (cudaStream_t)stream);
 }
+#endif
 
 }  // namespace
 
@@ -3593,6 +3620,7 @@ int tile_bwd_dkv_entry(const void* q, const void* k, const void* v,
 // fp32; km and dm contiguous fp32 rows of SK.
 
 // q, k, v, o strides. km: [B * H, 1, SK] or null.
+#if PT_IN_PART(0)
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, const void* km,
                             const int* geom, float scale,
@@ -3601,8 +3629,10 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   return fwd_entry(q, k, v, o, lse, km, geom, scale, strides, drop, dscale,
                    dtype, stream, 0);
 }
+#endif
 
 // q, k, v, dout, dq strides.
+#if PT_IN_PART(1)
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, const void* km,
@@ -3613,10 +3643,12 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   return bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, geom, scale,
                       strides, drop, dscale, dtype, stream, 0);
 }
+#endif
 
 // dQ and delta = rowsum(dO * O) in one launch (the 16-bit type, d <= 128,
 // no key row or dropout: drop must be null): delta [B * H, SQ]
 // fp32 is written, not read. q, k, v, dout, out, dq strides.
+#if PT_IN_PART(1)
 extern "C" int pt_flash_bwd_dq_delta(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* out, const void* lse,
@@ -3629,8 +3661,10 @@ extern "C" int pt_flash_bwd_dq_delta(const void* q, const void* k,
                             geom, scale, strides, nullptr, dscale, dtype,
                             stream, 0);
 }
+#endif
 
 // q, k, v, dout, dk, dv strides. dm: [B * H, 1, SK] (with km).
+#if PT_IN_PART(2)
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k,
                                 const void* v, const void* dout,
                                 const void* lse, const void* delta,
@@ -3642,9 +3676,11 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k,
   return bwd_dkv_entry(q, k, v, dout, lse, delta, dk, dv, km, dm, geom,
                        scale, strides, drop, dscale, dtype, stream, 0);
 }
+#endif
 
 // The head-batched entries (head_flash.py): as above with km [B, 1, SK]
 // one row per batch row, and dm [B, 1, SK] summed over every head.
+#if PT_IN_PART(0)
 extern "C" int pt_hb_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, const void* km,
                          const int* geom, float scale,
@@ -3653,7 +3689,9 @@ extern "C" int pt_hb_fwd(const void* q, const void* k, const void* v,
   return fwd_entry(q, k, v, o, lse, km, geom, scale, strides, drop, dscale,
                    dtype, stream, 1);
 }
+#endif
 
+#if PT_IN_PART(1)
 extern "C" int pt_hb_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, const void* km,
@@ -3663,9 +3701,11 @@ extern "C" int pt_hb_bwd_dq(const void* q, const void* k, const void* v,
   return bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, geom, scale,
                       strides, drop, dscale, dtype, stream, 1);
 }
+#endif
 
 // Kernel 5 computing delta itself, as pt_flash_bwd_dq_delta with the key
 // row km [B, 1, SK] (or null) and dropout (drop or null).
+#if PT_IN_PART(1)
 extern "C" int pt_hb_bwd_dq_delta(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* out, const void* lse,
@@ -3677,9 +3717,11 @@ extern "C" int pt_hb_bwd_dq_delta(const void* q, const void* k,
   return bwd_dq_delta_entry(q, k, v, dout, out, lse, delta, dq, km, geom,
                             scale, strides, drop, dscale, dtype, stream, 1);
 }
+#endif
 
 // dm_heads: [B * H, 1, SK] fp32 scratch (with km) for the per-head dmask
 // rows of the dK/dV pass, which a second pass sums over heads into dm.
+#if PT_IN_PART(2)
 extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv,
@@ -3697,6 +3739,7 @@ extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
                                            H, SK);
   return cudaGetLastError();
 }
+#endif
 
 // The tile mode of the flash entries: km is an fp32 mask that broadcasts
 // to [B, H, SQ, SK] with the strides kms = {batch, head, query row} (0
@@ -3707,6 +3750,7 @@ extern "C" int pt_hb_bwd_dkv(const void* q, const void* k, const void* v,
 // 128 (null otherwise); dm (or null) receives ds / scale per element as
 // [B * H, SQ, SK] fp32 (zeroed by the caller). Other arguments as the
 // pt_flash_* entries.
+#if PT_IN_PART(0)
 extern "C" int pt_flash_tile_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, const void* km,
                                  const void* tcls, const void* tfull,
@@ -3717,7 +3761,9 @@ extern "C" int pt_flash_tile_fwd(const void* q, const void* k, const void* v,
   return tile_fwd_entry(q, k, v, o, lse, km, tcls, tfull, kms, geom, scale,
                         strides, drop, dscale, dtype, stream);
 }
+#endif
 
+#if PT_IN_PART(1)
 extern "C" int pt_flash_tile_bwd_dq(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -3730,10 +3776,12 @@ extern "C" int pt_flash_tile_bwd_dq(const void* q, const void* k,
   return tile_bwd_dq_entry(q, k, v, dout, lse, delta, dq, km, tcls, kms,
                            geom, scale, strides, drop, dscale, dtype, stream);
 }
+#endif
 
 // dQ and delta = rowsum(dO * O) in one launch (the 16-bit type, d <=
 // 128; dropout allowed): delta [B * H, SQ] fp32 is written, not read. q,
 // k, v, dout, out, dq strides.
+#if PT_IN_PART(1)
 extern "C" int pt_flash_tile_bwd_dq_delta(
     const void* q, const void* k, const void* v, const void* dout,
     const void* out, const void* lse, void* delta, void* dq, const void* km,
@@ -3744,7 +3792,9 @@ extern "C" int pt_flash_tile_bwd_dq_delta(
                                  tcls, kms, geom, scale, strides, drop,
                                  dscale, dtype, stream);
 }
+#endif
 
+#if PT_IN_PART(3)
 extern "C" int pt_flash_tile_bwd_dkv(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
@@ -3758,11 +3808,13 @@ extern "C" int pt_flash_tile_bwd_dkv(const void* q, const void* k,
                             kms, geom, scale, strides, drop, dscale, dtype,
                             stream);
 }
+#endif
 
 // The tile mode's class table: km and kms[0..2] as above, mb and mh the
 // table's batch and head counts (1 over a broadcast dim), causal the
 // kernels' flag; out: uint8 [mb, mh, ceil(SQ / 64), ceil(SK / 64)], full:
 // uint8 [mb, mh, ceil(SQ / 64)] (tile_classes_kernel).
+#if PT_IN_PART(0)
 extern "C" int pt_flash_tile_classes(const void* km, const long long* kms,
                                      int mb, int mh, int SQ, int SK,
                                      int causal, void* out, void* full,
@@ -3775,3 +3827,4 @@ extern "C" int pt_flash_tile_classes(const void* km, const long long* kms,
       (uint8_t*)out, (uint8_t*)full);
   return cudaGetLastError();
 }
+#endif

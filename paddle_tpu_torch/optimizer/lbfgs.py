@@ -9,6 +9,16 @@ several times: the Armijo backtracking search, or ``line_search_fn=
 "strong_wolfe"`` (bracketing, then bisection). The arithmetic is the
 reference's line for line, so a card run and a CPU run differ only by
 what the closure returns.
+
+Over more than one rank (``fleet``'s mp, dp, ZeRO or expert layouts)
+each rank's flat vectors hold its parameters' local pieces, and every
+quantity the reference reads of the whole model is global: each dot
+product sums the pieces' partial dots over the axes that cut them
+(``shard.regions``; a part replicated over an axis counts once), one
+float64 all-reduce per set of axes, and each max-abs is a MAX over
+every rank. The loss is MAX-reduced as well, so that every rank takes
+the same branch of the searches (a rank that left a loop alone would
+hang the others in the next collective).
 """
 from __future__ import annotations
 
@@ -18,6 +28,89 @@ import torch
 from .optimizer import Optimizer
 
 __all__ = ["LBFGS"]
+
+
+class _Global:
+    """The global reductions over this process's ranks for the flat
+    vectors of ``params``: ``dot(a, b)``, ``max_abs(v)`` and ``same``
+    (the MAX of a scalar every rank holds)."""
+
+    def __init__(self, params):
+        import torch.distributed as dist
+
+        from ..distributed import env as env_mod
+        from ..distributed import shard
+
+        env = env_mod.ensure_env()
+        self.world = env.group(env_mod.AXIS_ORDER)
+        by_axes, off = {}, 0
+        for p in params:
+            lay = getattr(p, "_dist_layout", None)
+            idx = torch.arange(off, off + p.numel()).reshape(p.shape)
+            parts = [(None, idx, ())] if lay is None \
+                else shard.regions(idx, lay)
+            for _, part, axes in parts:
+                key = env_mod._canon(axes) if axes else ()
+                by_axes.setdefault(key, []).append(part.reshape(-1))
+            off += p.numel()
+        # the largest bucket's partial is the whole local dot less the
+        # others' (one BLAS dot over the vector, gathers of the rest only)
+        big = max(by_axes, key=lambda k: sum(t.numel() for t in by_axes[k]))
+        self.big = env.group(big) if big else None
+        self.buckets = [(env.group(k) if k else None, torch.cat(v).numpy())
+                        for k, v in by_axes.items() if k != big]
+        # NCCL reduces CUDA tensors, gloo CPU ones
+        self.device = "cpu" if dist.get_backend(self.world[1]) == "gloo" \
+            else "cuda"
+
+    def _reduce(self, value, group, op=None):
+        """``value`` reduced over ``group`` (a SUM; unchanged without a
+        group of more than one rank)."""
+        import torch.distributed as dist
+
+        from ..distributed import _comm
+
+        if group is None or len(group[0]) == 1:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=self.device)
+        _comm.all_reduce(t, group, op or dist.ReduceOp.SUM)
+        return float(t[0])
+
+    def dot(self, a, b):
+        rest, total = float(a @ b), 0.0
+        for group, idx in self.buckets:
+            part = float(a[idx] @ b[idx])
+            rest -= part
+            total += self._reduce(part, group)
+        return total + self._reduce(rest, self.big)
+
+    def max_abs(self, v):
+        import torch.distributed as dist
+
+        return self._reduce(float(np.abs(v).max(initial=0.0)), self.world,
+                            dist.ReduceOp.MAX)
+
+    def same(self, loss):
+        import torch.distributed as dist
+
+        return self._reduce(loss, self.world, dist.ReduceOp.MAX)
+
+
+class _Local:
+    """One rank's reductions: the reference's own."""
+
+    @staticmethod
+    def dot(a, b):
+        return float(a @ b)
+
+    @staticmethod
+    def max_abs(v):
+        return float(np.abs(v).max(initial=0.0))
+
+    @staticmethod
+    def same(loss):
+        return loss
+
 
 
 class LBFGS(Optimizer):
@@ -39,6 +132,19 @@ class LBFGS(Optimizer):
         self._y: list[np.ndarray] = []
         self._prev_flat = None
         self._prev_grad = None
+        self._red = None
+
+    def _reductions(self):
+        """:class:`_Global` over more than one rank, else :class:`_Local`
+        (made at the first step, after ``fleet`` laid the parameters
+        out)."""
+        if self._red is None:
+            from ..distributed import env as env_mod
+
+            env = env_mod.get_env()
+            self._red = _Global(self._parameter_list) \
+                if env is not None and env.world_size > 1 else _Local()
+        return self._red
 
     # -- flat views over the parameter list (host float64) --
     def _flat_params(self):
@@ -61,19 +167,20 @@ class LBFGS(Optimizer):
             i += n
 
     def _direction(self, g):
+        dot = self._reductions().dot
         q = g.copy()
         alphas = []
         for s, y in zip(reversed(self._s), reversed(self._y)):
-            rho = 1.0 / max(float(y @ s), 1e-20)
-            a = rho * (s @ q)
+            rho = 1.0 / max(dot(y, s), 1e-20)
+            a = rho * dot(s, q)
             alphas.append((a, rho, s, y))
             q -= a * y
         if self._y:
             y = self._y[-1]
             s = self._s[-1]
-            q *= float(s @ y) / max(float(y @ y), 1e-20)
+            q *= dot(s, y) / max(dot(y, y), 1e-20)
         for a, rho, s, y in reversed(alphas):
-            b = rho * (y @ q)
+            b = rho * dot(y, q)
             q += (a - b) * s
         return -q
 
@@ -109,7 +216,7 @@ class LBFGS(Optimizer):
             self._assign(flat + step_size * d)
             f = eval_closure()
             evals += 1
-            return f, float(self._flat_grads() @ d)
+            return f, self._reductions().dot(self._flat_grads(), d)
 
         t_prev, f_prev, g_prev = 0.0, base, gd
         bracket = None
@@ -138,8 +245,8 @@ class LBFGS(Optimizer):
             return f_new, t_prev, evals, f_new < base
         lo, hi, f_lo, f_hi, g_lo, g_hi = bracket
         for _ in range(10):
-            if evals >= eval_budget or abs(hi - lo) * float(
-                    np.abs(d).max(initial=0.0)) <= self.tolerance_change:
+            if evals >= eval_budget or abs(hi - lo) * \
+                    self._reductions().max_abs(d) <= self.tolerance_change:
                 break
             mid = 0.5 * (lo + hi)
             f_mid, g_mid = phi(mid)
@@ -170,22 +277,24 @@ class LBFGS(Optimizer):
                 "LBFGS.step needs a closure that reevaluates the model "
                 "and returns the loss")
 
+        red = self._reductions()
+
         def eval_closure():
             self.clear_grad()
             loss = closure()
-            return float(loss.detach().double().cpu())
+            return red.same(float(loss.detach().double().cpu()))
 
         loss = eval_closure()
         evals = 1
         for _ in range(self.max_iter):
             flat = self._flat_params()
             g = self._flat_grads()
-            if float(np.abs(g).max(initial=0.0)) <= self.tolerance_grad:
+            if red.max_abs(g) <= self.tolerance_grad:
                 break
             if self._prev_flat is not None:
                 s = flat - self._prev_flat
                 y = g - self._prev_grad
-                if float(y @ s) > 1e-10:
+                if red.dot(y, s) > 1e-10:
                     self._s.append(s)
                     self._y.append(y)
                     if len(self._s) > self.history_size:
@@ -194,10 +303,10 @@ class LBFGS(Optimizer):
             self._prev_flat = flat
             self._prev_grad = g
             d = self._direction(g)
-            gd = float(g @ d)
+            gd = red.dot(g, d)
             if gd > -1e-20:  # not a descent direction: reset history
                 d = -g
-                gd = float(g @ d)
+                gd = red.dot(g, d)
                 self._s.clear()
                 self._y.clear()
             t = float(self.get_lr())
@@ -217,8 +326,7 @@ class LBFGS(Optimizer):
                     evals += 1
                 break
             loss = trial
-            if abs(float(np.abs(t * d).max(initial=0.0))) \
-                    <= self.tolerance_change:
+            if red.max_abs(t * d) <= self.tolerance_change:
                 break
             if evals >= self.max_eval:
                 break

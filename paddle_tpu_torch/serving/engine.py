@@ -252,7 +252,9 @@ def _pool_forward(params, kpool, vpool, kscale, vscale, tables, ids, pos,
             vscale[li, blk, off] = v_s
         kpool[li, blk, off] = k
         vpool[li, blk, off] = v
-        if paged:
+        if nh == 0:  # a tensor-parallel rank without heads adds nothing
+            out = q
+        elif paged:
             qd = q.reshape(b, nh, d)
             heads = dict(window=cfg.sliding_window, kv_group=cfg.kv_group,
                          head_offset=cfg.head_offset)

@@ -33,7 +33,11 @@ mp 2 (the joint loss, every gradient through ``gather_jax_layout``, 2
 canonical gradients, 2 ``train_batch`` steps, ``eval_batch``); the
 fused ``qkv`` weight and bias cut segment by segment by
 ``load_jax_weights`` and put back bit for bit by ``gather_jax_layout``;
-and the uneven splits, each raising ``ValueError`` naming its dim.
+``pretrain_heads_mp2``: trunk and branch heads that mp 2 does not divide
+(3 of each: a rank holds 2, the other 1), against the reference at the
+same config; and the parameter dims mp does not divide (vocab, FFN,
+flat attention widths), each raising ``ValueError`` naming its dim, as
+the reference raises.
 """
 import os
 import pickle
@@ -75,7 +79,12 @@ REF_LAYOUT = (2, 2)
 MP = {"pretrain_mp2": ("pretrain", 1, 2),
       "pretrain_dp2_mp2": ("pretrain", 2, 2),
       "cls_mp2": ("cls", 1, 2),
-      "cls_dp2_mp2": ("cls", 2, 2)}
+      "cls_dp2_mp2": ("cls", 2, 2),
+      "pretrain_heads_mp2": ("heads", 1, 2)}
+# trunk and branch heads that mp 2 does not divide (their flat widths it
+# does), the ``"heads"`` model: pretraining at this config
+HEADS = dict(hidden_size=48, num_attention_heads=3, task_hidden_size=24,
+             num_task_attention_heads=3)
 # the pipe at pp 2 x mp 2: name -> task
 PIPE = {"pipe_nlu": "nlu", "pipe_nlg": "nlg"}
 
@@ -205,7 +214,8 @@ def _jax_mp(name):
     jfleet = _jax_fleet(*REF_LAYOUT)
     try:
         pt.seed(5)
-        cfg = ErnieConfig.tiny(**NO_DROP)
+        cfg = ErnieConfig.tiny(**NO_DROP, **(HEADS if model == "heads"
+                                            else {}))
         ids, types, mask, mlm, lm = (pt.to_tensor(a) for a in _batch())
         if model == "cls":
             jm = ErnieForSequenceClassification(cfg, num_classes=3)
@@ -372,7 +382,7 @@ def _port_mp(root, name):
     rows = slice(r * B // dp, (r + 1) * B // dp)
     ids, types, mask, mlm, lm = (torch.from_numpy(a[rows])
                                  for a in _batch())
-    cfg = ErnieConfig.tiny(**NO_DROP)
+    cfg = ErnieConfig.tiny(**NO_DROP, **(HEADS if model == "heads" else {}))
     out = {"dp": r, "mp": hcg.get_model_parallel_rank()}
     if model == "cls":
         tm = ErnieForSequenceClassification(cfg, num_classes=3,
@@ -395,6 +405,8 @@ def _port_mp(root, name):
             k: getattr(qkv, k).detach().numpy().copy()
             for k in ("weight", "bias")})
     load_jax_weights(tm, weights)
+    out["heads"] = [tm.ernie.encoder[0].attention.num_heads,
+                    tm.ernie.nlu_branch.layer[0].attention.num_heads]
     net = fleet.distributed_model(tm)
     loss = net(ids, types, mask, mlm, lm)
     loss.backward()
@@ -450,8 +462,10 @@ def _errors():
 
     _init(mp=2)
     errors = []
-    for kw in ({"vocab_size": 127}, {"num_attention_heads": 1},
-               {"intermediate_size": 129}, {"num_task_attention_heads": 1},
+    for kw in ({"vocab_size": 127},
+               {"hidden_size": 63, "num_attention_heads": 3},
+               {"intermediate_size": 129},
+               {"task_hidden_size": 33, "num_task_attention_heads": 3},
                {"task_intermediate_size": 65}):
         for build in (lambda c: ErnieForPretraining(c, device="cpu"),
                       lambda c: ErnieForPretrainingPipe(c, "nlg",
@@ -502,7 +516,8 @@ def runs(tmp_path_factory):
     for name, task in PIPE.items():
         inputs[name], refs[name] = _jax_pipe(task)
     worlds = {2: ["bert_dp2", "ernie_dp2", "ernie_mp2", "ernie_dp2_local",
-                  "pretrain_mp2", "cls_mp2", "errors"],
+                  "pretrain_mp2", "cls_mp2", "pretrain_heads_mp2",
+                  "errors"],
               4: ["pretrain_dp2_mp2", "cls_dp2_mp2",
                   "pipe_nlu", "pipe_nlg"]}
     out = {}
@@ -598,7 +613,8 @@ def test_dropout_on_local_coordinates_is_caught(runs):
 # -- ERNIE under mp ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["pretrain_mp2", "pretrain_dp2_mp2"])
+@pytest.mark.parametrize("name", ["pretrain_mp2", "pretrain_dp2_mp2",
+                                  "pretrain_heads_mp2"])
 def test_pretraining_under_mp_matches_reference(runs, name):
     """The joint loss on every rank, every gradient, 2 clipped AdamW
     steps and the parameters after them."""
@@ -669,12 +685,20 @@ def test_pipe_at_pp2_mp2_matches_reference(runs, name):
 
 
 def test_uneven_splits_raise_naming_the_dim(runs):
+    """The parameter dims mp does not divide raise, for the model and the
+    pipe, saying the reference raises too; heads that mp does not divide
+    run (``pretrain_heads_mp2``: the ranks hold 2 and 1 heads of the
+    trunk and of the branches)."""
     _, ranks = runs["errors"]
-    dims = ["vocab_size = 127", "num_attention_heads = 1",
-            "intermediate_size = 129", "num_task_attention_heads = 1",
+    dims = ["vocab_size = 127", "hidden_size = 63",
+            "intermediate_size = 129", "task_hidden_size = 33",
             "task_intermediate_size = 65"]
     for errors in ranks:
         assert len(errors) == 2 * len(dims), errors
         for i, dim in enumerate(dims):
             for e in errors[2 * i:2 * i + 2]:
-                assert dim in e and "mp = 2" in e and "A.6" in e, e
+                assert dim in e and "mp = 2" in e, e
+                assert "reference raises too" in e and "pad" not in e, e
+    heads = sorted((o["mp"], o["heads"])
+                   for o in runs["pretrain_heads_mp2"][1])
+    assert [h for _, h in heads] == [[2, 2], [1, 1]], heads

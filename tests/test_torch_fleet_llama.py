@@ -20,7 +20,17 @@ under:
 - ``mp2_gqa``: mp 2 with 1 kv head (nkv % mp != 0: K and V replicated,
   repeated per q head);
 - ``dp2``: dp 2 through ``DataParallel``;
-- ``dp2_mp2``: dp 2 x mp 2, four ranks.
+- ``dp2_mp2``: dp 2 x mp 2, four ranks;
+- heads that mp does not divide, their flat width divided (the
+  reference's GSPMD cuts the flat columns mid-head; a port rank holds
+  whole heads, the first ranks one more): ``mp2_h3`` (3 heads at hidden
+  48), ``mp2_h1`` (1 head: rank 1 holds none) and ``mp3_h4`` (4 heads
+  over 3 ranks, vocab and FFN 129), K and V replicated in each;
+- ``mp2_sp_s15``: SP at a sequence of 15, which the embedding pads to
+  16 and the final gather trims;
+- ``mp2_chunked``: ``ce_chunk_size=32`` under mp 2 with
+  ``use_parallel_cross_entropy=False``, the chunked loss over each
+  rank's vocab columns of the LM head.
 
 Held, each against the reference within ``TOL``: the logits (the
 ranks' shards put together by batch and vocab), the loss on every rank,
@@ -29,8 +39,11 @@ every gradient (through ``gather_jax_layout``), and the losses of 3
 ``fleet.distributed_model``/``distributed_optimizer`` and ``TrainStep``,
 and the parameters after them (within ``PARAM_TOL``, see there); under
 ``mp2`` and ``mp2_gqa`` also 2 ``Lamb`` steps with ``ClipGradByNorm``.
-Also: the uneven splits raise naming the dim and the degree, and
-``LBFGS`` refuses more than one rank.
+``LBFGS`` over the ranks (``mp2``, ``dp2_mp2``; Armijo and strong Wolfe,
+3 steps, history 10): the losses within ``TOL`` of the reference's and
+every rank making as many closure calls as the reference. Also: the
+parameter dims mp does not divide (vocab, FFN, the flat attention
+width) raise naming the dim and the degree, as the reference raises.
 
 Decode under tensor parallelism (``DECODE``, in the same spawns): each
 rank's ``generate()`` and ``ServingEngine`` decode from its own shards
@@ -61,22 +74,61 @@ TOL = 1e-5
 PARAM_TOL = 2e-3
 STEPS = 3
 LAMB = ("mp2", "mp2_gqa")  # also 2 Lamb steps with ClipGradByNorm(0.05)
-CONFIGS = {  # name: (dp, mp, num_key_value_heads, sequence_parallel)
-    "mp2": (1, 2, 2, False),
-    "mp2_sp": (1, 2, 2, True),
-    "mp2_gqa": (1, 2, 1, False),
-    "dp2": (2, 1, 2, False),
-    "dp2_mp2": (2, 2, 2, False),
+# name: (dp, mp, num_key_value_heads, sequence_parallel, more of the
+# config, sequence length)
+CONFIGS = {
+    "mp2": (1, 2, 2, False, {}, S),
+    "mp2_sp": (1, 2, 2, True, {}, S),
+    "mp2_gqa": (1, 2, 1, False, {}, S),
+    "dp2": (2, 1, 2, False, {}, S),
+    "dp2_mp2": (2, 2, 2, False, {}, S),
+    "mp2_h3": (1, 2, 3, False, dict(hidden_size=48, num_attention_heads=3),
+               S),
+    "mp2_h1": (1, 2, 1, False, dict(num_attention_heads=1), S),
+    "mp3_h4": (1, 3, 4, False, dict(hidden_size=48, vocab_size=129,
+                                    intermediate_size=129), S),
+    "mp2_sp_s15": (1, 2, 2, True, {}, 15),
+    "mp2_chunked": (1, 2, 2, False, dict(use_parallel_cross_entropy=False,
+                                         ce_chunk_size=32), S),
 }
+# LBFGS over the ranks: (config, line search). The reference's result
+# does not depend on its layout (its arrays are global): it runs on
+# mp2's mesh, and dp2_mp2's ranks are held to it too
+LBFGS_CASES = [(n, search) for n in ("mp2", "dp2_mp2")
+               for search in (None, "strong_wolfe")]
+LBFGS_STEPS = 3
 
 
-def _batch():
+def _batch(seq=S):
     rng = np.random.RandomState(7)
     ids = rng.randint(0, V, (B, S)).astype(np.int32)
     labels = rng.randint(0, V, (B, S)).astype(np.int32)
     labels[0, :3] = -100
     labels[1, 4:6] = -100  # the first dp shard: 5 ignored, the second 0
-    return ids, labels
+    return ids[:, :seq], labels[:, :seq]
+
+
+def _lbfgs(opt_cls, model, step_fn, search):
+    """``LBFGS_STEPS`` steps of L-BFGS with ``search``: the losses and
+    the closure calls of each step."""
+    calls = [0]
+
+    def closure():
+        calls[0] += 1
+        loss = step_fn()
+        loss.backward()
+        return loss
+
+    opt = opt_cls(learning_rate=1.0, max_iter=4, history_size=10,
+                  line_search_fn=search, parameters=model.parameters())
+    losses, counts = [], []
+    for _ in range(LBFGS_STEPS):
+        calls[0] = 0
+        v = opt.step(closure)
+        losses.append(float(v) if isinstance(v, torch.Tensor)
+                      else float(v.numpy()))
+        counts.append(calls[0])
+    return losses, counts
 
 
 def _child_setup():
@@ -98,18 +150,19 @@ def _llama_worker(root, names):
         LlamaConfig, LlamaForCausalLM, gather_jax_layout, load_jax_weights,
     )
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ClipGradByNorm
-    from paddle_tpu_torch.optimizer import AdamW, Lamb
+    from paddle_tpu_torch.optimizer import LBFGS, AdamW, Lamb
 
     dist.init_parallel_env(backend="gloo",
                            init_method=f"file://{root}/store")
-    ids, labels = (torch.from_numpy(a) for a in _batch())
     for name in names:
-        if name in DECODE:
-            out = _decode_rank(root, name)
+        if name in DECODE or name == "errors":
+            out = _decode_rank(root, name) if name in DECODE \
+                else _uneven_errors()
             with open(f"{root}/{name}.{dist.get_rank()}.pkl", "wb") as f:
                 pickle.dump(out, f)
             continue
-        dp, mp, nkv, sp = CONFIGS[name]
+        dp, mp, nkv, sp, more, seq = CONFIGS[name]
+        ids, labels = (torch.from_numpy(a) for a in _batch(seq))
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
         fleet.init(is_collective=True, strategy=strategy)
@@ -117,18 +170,23 @@ def _llama_worker(root, names):
         with open(f"{root}/{name}.weights.pkl", "rb") as f:
             weights = pickle.load(f)
         cfg = LlamaConfig.tiny(num_hidden_layers=2, num_key_value_heads=nkv,
-                               sequence_parallel=sp)
+                               sequence_parallel=sp, **more)
         model = LlamaForCausalLM(cfg, device="cpu")
         load_jax_weights(model, weights)
         r, b = hcg.get_data_parallel_rank(), B // dp
         mine = slice(r * b, (r + 1) * b)
         x, y = ids[mine], labels[mine]
+        attn = model.llama.layers[0].self_attn
         out = {"coords": (r, hcg.get_model_parallel_rank()),
-               "sp_layer": type(model.llama.layers[0].self_attn.qkv_proj)
-               .__name__}
+               "sp_layer": type(attn.qkv_proj).__name__,
+               "heads": attn._nh}
         net = fleet.distributed_model(model)
         with torch.no_grad():
-            out["logits"] = net(x).numpy()
+            logits = net(x)
+        if not cfg.use_parallel_cross_entropy and mp > 1:
+            # the head gathers its output: keep this rank's vocab columns
+            logits = logits.chunk(mp, -1)[hcg.get_model_parallel_rank()]
+        out["logits"] = logits.numpy()
         loss = net(x, y)
         loss.backward()
         out["loss"] = float(loss)
@@ -150,6 +208,12 @@ def _llama_worker(root, names):
             out["lamb"] = [float(TrainStep(net, opt)(x, y))
                            for _ in range(2)]
             out["lamb_params"] = gather_jax_layout(model)
+        for case, search in LBFGS_CASES:
+            if case == name:
+                load_jax_weights(model, weights)
+                out[f"lbfgs_{search}"] = _lbfgs(
+                    lambda **kw: fleet.distributed_optimizer(LBFGS(**kw)),
+                    model, lambda: net(x, y), search)
         with open(f"{root}/{name}.{dist.get_rank()}.pkl", "wb") as f:
             pickle.dump(out, f)
     dist.destroy_process_group()
@@ -164,17 +228,17 @@ def _reference(name):
     from paddle_tpu.models import LlamaConfig as JaxConfig
     from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 
-    dp, mp, nkv, sp = CONFIGS[name]
+    dp, mp, nkv, sp, more, seq = CONFIGS[name]
     strategy = jfleet.DistributedStrategy()
     strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
     jfleet.init(is_collective=True, strategy=strategy)
     try:
         cfg = JaxConfig.tiny(num_hidden_layers=2, num_key_value_heads=nkv,
-                             sequence_parallel=sp)
+                             sequence_parallel=sp, **more)
         pt.seed(11)
         jm = JaxLlama(cfg)
         weights = {n: np.asarray(p._data) for n, p in jm.named_parameters()}
-        ids, labels = (pt.to_tensor(a) for a in _batch())
+        ids, labels = (pt.to_tensor(a) for a in _batch(seq))
         ref = {"logits": np.asarray(jm(ids).numpy())}
         loss = jm(ids, labels)
         loss.backward()
@@ -214,6 +278,15 @@ def _reference(name):
             ref["lamb"] = lamb
             ref["lamb_params"] = {n: np.asarray(p._data)
                                   for n, p in jm.named_parameters()}
+        for case, search in LBFGS_CASES:
+            if case == name == "mp2":
+                pt.seed(11)  # the same weights again
+                jm = JaxLlama(cfg)
+                net = jfleet.distributed_model(jm)
+                ref[f"lbfgs_{search}"] = _lbfgs(
+                    lambda **kw: jfleet.distributed_optimizer(
+                        pt.optimizer.LBFGS(**kw)),
+                    jm, lambda: net(ids, labels), search)
     finally:
         jenv.reset_env()
     return weights, ref
@@ -231,7 +304,7 @@ def runs(tmp_path_factory):
                                else _reference(name))
         with open(root / f"{name}.weights.pkl", "wb") as f:
             pickle.dump(weights, f)
-    by_world: dict = {}
+    by_world: dict = {2: ["errors"]}
     for name, (dp, mp) in [(n, c[:2]) for n, c in CONFIGS.items()] + [
             (n, c[:2]) for n, c in DECODE.items()]:
         by_world.setdefault(dp * mp, []).append(name)
@@ -239,15 +312,16 @@ def runs(tmp_path_factory):
         sub = root / f"w{world}"
         os.makedirs(sub)
         for name in names:
-            os.link(root / f"{name}.weights.pkl",
-                    sub / f"{name}.weights.pkl")
+            if name in refs:
+                os.link(root / f"{name}.weights.pkl",
+                        sub / f"{name}.weights.pkl")
         spawn(_llama_worker, args=(str(sub), names), nprocs=world)
         for name in names:
             ranks = []
             for r in range(world):
                 with open(sub / f"{name}.{r}.pkl", "rb") as f:
                     ranks.append(pickle.load(f))
-            refs[name] = (refs[name], ranks)
+            refs[name] = (refs.get(name), ranks)
     return refs
 
 
@@ -262,7 +336,7 @@ def _close(got, want, name, tol=TOL):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_logits_match_reference(runs, name):
     ref, ranks = runs[name]
-    dp, mp, _, _ = CONFIGS[name]
+    dp = CONFIGS[name][0]
     rows = []
     for r in range(dp):
         shards = sorted((o["coords"][1], o["logits"]) for o in ranks
@@ -310,6 +384,32 @@ def test_lamb_and_per_parameter_clip_match_reference(runs, name):
                                        atol=PARAM_TOL, rtol=0, err_msg=n)
 
 
+@pytest.mark.parametrize("name", LBFGS_CASES,
+                         ids=[f"{n}-{s}" for n, s in LBFGS_CASES])
+def test_lbfgs_over_ranks_matches_reference(runs, name):
+    """Every rank's L-BFGS losses are the reference's on its global
+    arrays, and each step made as many closure calls on every rank as
+    there (every rank took the same branches of the search)."""
+    case, search = name
+    _, ranks = runs[case]
+    want_losses, want_calls = runs["mp2"][0][f"lbfgs_{search}"]
+    for o in ranks:
+        losses, calls = o[f"lbfgs_{search}"]
+        np.testing.assert_allclose(losses, want_losses, atol=TOL, rtol=0)
+        assert calls == want_calls, (calls, want_calls)
+    assert want_losses[-1] < want_losses[0]
+
+
+def test_ranks_hold_whole_heads_the_first_ranks_one_more(runs):
+    """Where mp does not divide the heads each rank attends with its
+    whole heads (``torch.tensor_split``'s counts; a rank may hold
+    none), and the results above match the reference all the same."""
+    for name, want in (("mp2_h3", [2, 1]), ("mp2_h1", [1, 0]),
+                       ("mp3_h4", [2, 1, 1]), ("mp2", [2, 2])):
+        got = sorted(((o["coords"][1], o["heads"]) for o in runs[name][1]))
+        assert [h for _, h in got] == want, (name, got)
+
+
 def test_layers_are_the_sequence_parallel_ones_under_sp(runs):
     assert {o["sp_layer"] for o in runs["mp2_sp"][1]} == {
         "ColumnSequenceParallelLinear"}
@@ -317,37 +417,28 @@ def test_layers_are_the_sequence_parallel_ones_under_sp(runs):
         "ColumnParallelLinear"}
 
 
-def _uneven_worker(root):
-    _child_setup()
-    from paddle_tpu_torch import distributed as dist
+def _uneven_errors():
+    """What the parameter dims mp 2 does not divide raise, as the
+    reference raises on them (vocab, FFN, the flat attention width), and
+    what ``fleet.distributed_optimizer`` makes of ``LBFGS`` (itself)."""
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import LBFGS
 
-    dist.init_parallel_env(mp=2, backend="gloo",
-                           init_method=f"file://{root}/store")
     fleet.init(strategy=_strategy(mp=2))
     errors = []
-    for kw in ({"vocab_size": 127}, {"intermediate_size": 129}):
+    for kw in ({"vocab_size": 127}, {"intermediate_size": 129},
+               {"hidden_size": 45, "num_attention_heads": 3}):
         try:
             LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1, **kw),
                              device="cpu")
         except ValueError as e:
             errors.append(str(e))
-    model = LlamaForCausalLM(LlamaConfig.tiny(
-        num_hidden_layers=1, sequence_parallel=True), device="cpu")
-    try:
-        model(torch.zeros((1, 15), dtype=torch.int64))
-    except ValueError as e:
-        errors.append(str(e))
-    from paddle_tpu_torch.optimizer import LBFGS
-
-    try:
-        fleet.distributed_optimizer(LBFGS(parameters=model.parameters()))
-    except NotImplementedError as e:
-        errors.append(str(e))
-    with open(f"{root}/errors.{dist.get_rank()}.pkl", "wb") as f:
-        pickle.dump(errors, f)
-    dist.destroy_process_group()
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    opt = LBFGS(parameters=model.parameters())
+    errors.append(fleet.distributed_optimizer(opt) is opt)
+    return errors
 
 
 def _strategy(**degrees):
@@ -358,34 +449,46 @@ def _strategy(**degrees):
     return s
 
 
-def test_uneven_splits_and_lbfgs_over_ranks_raise(tmp_path):
-    spawn(_uneven_worker, args=(str(tmp_path),), nprocs=2)
-    for r in range(2):
-        with open(tmp_path / f"errors.{r}.pkl", "rb") as f:
-            errors = pickle.load(f)
+def test_uneven_splits_and_lbfgs_over_ranks_raise(runs):
+    """The parameter dims mp does not divide raise, naming the dim and
+    the degree and saying the reference raises too (it pads none of
+    them); ``LBFGS`` over the ranks is no longer refused (its runs:
+    ``test_lbfgs_over_ranks_matches_reference``)."""
+    for errors in runs["errors"][1]:
         assert len(errors) == 4, errors
         assert "vocab_size = 127" in errors[0] and "mp = 2" in errors[0]
         assert "intermediate_size = 129" in errors[1]
-        assert "sequence length 15" in errors[2] and "mp = 2" in errors[2]
-        assert "LBFGS over more than one rank" in errors[3]
+        assert "flat attention width" in errors[2] and "45" in errors[2]
+        for e in errors[:3]:
+            assert "reference raises too" in e and "pad" not in e, e
+            assert "A.6" not in e, e
+        assert errors[3] is True
 
 
 # -- decode under tensor parallelism ----------------------------------------------
 
 GEN_NEW = 4
 GEN_B, GEN_PROMPT = 2, 8
-# name: (dp, mp, num_key_value_heads, generate()'s options, engine's)
+# name: (dp, mp, num_key_value_heads, generate()'s options, engine's,
+# more of the config)
 SAMPLING = dict(do_sample=True, temperature=0.7, top_k=20, top_p=0.9,
                 seed=3)
 DECODE = {
-    "gen_mp2": (1, 2, 4, {}, {}),
-    "gen_mp2_kv2": (1, 2, 2, {}, {}),
-    "gen_mp2_kv1": (1, 2, 1, {}, {}),
-    "gen_dp2_mp2": (2, 2, 2, {}, {}),
+    "gen_mp2": (1, 2, 4, {}, {}, {}),
+    "gen_mp2_kv2": (1, 2, 2, {}, {}, {}),
+    "gen_mp2_kv1": (1, 2, 1, {}, {}, {}),
+    "gen_dp2_mp2": (2, 2, 2, {}, {}, {}),
     "gen_int8": (1, 2, 1, dict(int8_weights=True, kv_int8=True),
-                 dict(int8_weights=True, kv_int8=True)),
-    "gen_spec3": (1, 2, 2, {}, dict(spec_k=3)),
-    "gen_sampled": (1, 2, 2, SAMPLING, None),
+                 dict(int8_weights=True, kv_int8=True), {}),
+    "gen_spec3": (1, 2, 2, {}, dict(spec_k=3), {}),
+    "gen_sampled": (1, 2, 2, SAMPLING, None, {}),
+    # heads that mp does not divide: each rank decodes its whole heads
+    "gen_mp2_h3": (1, 2, 3, {}, {}, dict(hidden_size=48,
+                                         num_attention_heads=3)),
+    "gen_mp2_h1": (1, 2, 1, {}, {}, dict(num_attention_heads=1)),
+    # (d 24: the paged kernels take head dims in multiples of 8)
+    "gen_mp3_h4": (1, 3, 4, {}, {}, dict(hidden_size=96, vocab_size=129,
+                                         intermediate_size=129)),
 }
 
 
@@ -422,14 +525,14 @@ def _decode_reference(name):
     from paddle_tpu.models import generate as jax_generate
     from paddle_tpu.models import generation as jgen
 
-    dp, mp, nkv, opts, _ = DECODE[name]
+    dp, mp, nkv, opts, _, more = DECODE[name]
     strategy = jfleet.DistributedStrategy()
     strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
     jfleet.init(is_collective=True, strategy=strategy)
     try:
         pt.seed(11)
         jm = JaxLlama(JaxConfig.tiny(num_hidden_layers=2,
-                                     num_key_value_heads=nkv))
+                                     num_key_value_heads=nkv, **more))
         weights = {n: np.asarray(p._data) for n, p in jm.named_parameters()}
         ids = _gen_ids()
         ref = {"tokens": jax_generate(jm, pt.to_tensor(ids),
@@ -444,7 +547,8 @@ def _decode_reference(name):
             cache, cache, jnp.asarray(GEN_PROMPT), cfg,
             kv_int8=opts.get("kv_int8", False))[0])
         if opts.get("do_sample"):
-            ref["noise"] = _jax_gumbel(opts["seed"], GEN_NEW, (GEN_B, V))
+            ref["noise"] = _jax_gumbel(opts["seed"], GEN_NEW,
+                                       (GEN_B, jm.config.vocab_size))
         if name == "gen_mp2":
             jm.lm_head.weight.set_value(-jm.lm_head.weight)
             ref["flipped"] = jax_generate(jm, pt.to_tensor(ids),
@@ -471,14 +575,15 @@ def _decode_rank(root, name):
     from paddle_tpu_torch.models import generation as tgen
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
-    dp, mp, nkv, opts, engine = DECODE[name]
+    dp, mp, nkv, opts, engine, more = DECODE[name]
     fleet.init(is_collective=True, strategy=_strategy(dp=dp, mp=mp))
     hcg = fleet.get_hybrid_communicate_group()
     with open(f"{root}/{name}.weights.pkl", "rb") as f:
         weights = pickle.load(f)
     noise = weights.pop("_noise")
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=2,
-                                              num_key_value_heads=nkv),
+                                              num_key_value_heads=nkv,
+                                              **more),
                              device="cpu")
     load_jax_weights(model, weights)
     r = hcg.get_data_parallel_rank()
@@ -535,18 +640,21 @@ def _local_shapes(name, whole, mp_rank):
     decode weight at its local shape (``whole``: the reference's global
     parameter shapes), and the kv heads its q heads read, which its
     pools hold."""
-    _, mp, nkv, _, _ = DECODE[name]
-    h = whole["lm_head.weight"][0]
-    nh = 4
+    _, mp, nkv, _, _, more = DECODE[name]
+    h, vocab = whole["lm_head.weight"]
+    nh = more.get("num_attention_heads", 4)
     d = h // nh
     ffn = whole["llama.layers.0.mlp.down_proj.weight"][0]
-    heads, rep = nh // mp, nh // nkv
-    q0 = mp_rank * heads
-    kv = (q0 + heads - 1) // rep - q0 // rep + 1
+    # whole heads, the first nh % mp ranks one more
+    heads = nh // mp + (mp_rank < nh % mp)
+    q0 = mp_rank * (nh // mp) + min(mp_rank, nh % mp)
+    rep = nh // nkv
+    kv = 0 if heads == 0 else (q0 + heads - 1) // rep - q0 // rep + 1
     return {"ln1": (2, h), "qkv": (2, h, (heads + 2 * kv) * d),
             "o": (2, heads * d, h), "ln2": (2, h),
             "gate_up": (2, h, 2 * ffn // mp), "down": (2, ffn // mp, h),
-            "embed": (V // mp, h), "norm": (h,), "lm_head": (h, V // mp)}, kv
+            "embed": (vocab // mp, h), "norm": (h,),
+            "lm_head": (h, vocab // mp)}, kv
 
 
 # the decode weights that are sharded in training (the norms are whole)
@@ -571,11 +679,15 @@ def _hold_decode(runs, name, keys=("generate", "engine")):
         assert o["shapes"] == want_shapes, (o["shapes"], want_shapes)
         for k, leaf in SHARDED.items():
             full = (2,) + whole[f"llama.layers.0.{leaf}.weight"]
-            assert o["shapes"][k] != full, (k, full)
+            # (a rank holding every q head, the 1 of gen_mp2_h1, holds
+            # the whole qkv: its K and V are replicated)
+            assert o["shapes"][k] != full or want_shapes[k] == full, \
+                (k, full)
         assert o["shapes"]["embed"] != whole["llama.embed_tokens.weight"]
         assert o["shapes"]["lm_head"] != whole["lm_head.weight"]
         if "pools" in o:
-            d = whole["lm_head.weight"][0] // 4
+            d = whole["lm_head.weight"][0] \
+                // DECODE[name][5].get("num_attention_heads", 4)
             assert all(p[3] == kv for p in o["pools"]), o["pools"]
             assert all(p[4] == d for p in o["pools"][:2]), o["pools"]
             assert set(o["phase_modes"].values()) == {"eager"}

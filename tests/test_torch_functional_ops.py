@@ -405,9 +405,9 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="SAME"):
         TF.conv2d_transpose(x, torch.zeros(1, 1, 2, 2), padding="SAME")
 
-    class Two:
-        nranks = 2
-    with pytest.raises(NotImplementedError, match="A.6"):
+    class Two:  # not a distributed.Group: the class-sharded form needs one
+        nranks = 2  # (its parity: tests/test_torch_margin_ce_sampler.py)
+    with pytest.raises(TypeError, match="distributed.Group"):
         TF.margin_cross_entropy(torch.zeros(2, 3), torch.zeros(2), group=Two())
     with pytest.raises(ValueError, match="NCHW"):
         TF.max_pool2d(torch.zeros(1, 4, 4, 1), 2, return_mask=True,

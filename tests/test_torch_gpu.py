@@ -143,24 +143,30 @@ def test_paged_kernels_bit_identical(cuda, quant):
 # 128, 8 lanes, 512 slots), (kv heads, mp, rank): the 0.44B Llama at mp
 # 2 (6 q and 6 kv heads a rank), and 12 q heads over 3 and over 1 kv
 # heads, whose ranks read their kv heads through an offset (rank 1 of
-# 12 over 3: kv heads 1, 1, 2, 2, 2, 2, offset 2)
-_RANK_HEADS = [(12, 2, 0), (12, 2, 1), (3, 2, 0), (3, 2, 1), (1, 2, 1)]
+# 12 over 3: kv heads 1, 1, 2, 2, 2, 2, offset 2), and at mp 8, which
+# does not divide the 12 heads: the first 4 ranks hold 2, the others 1
+_RANK_HEADS = [(12, 2, 0), (12, 2, 1), (3, 2, 0), (3, 2, 1), (1, 2, 1),
+               (12, 8, 0), (12, 8, 7), (3, 8, 5)]
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("heads", _RANK_HEADS)
 def test_paged_kernels_at_a_rank_heads(cuda, heads, dtype, quant):
     """Kernels 7 and 8 on one rank's q heads over a pool of the kv heads
     they read: each launches once, and matches its plain version on the
     rank's heads and the slice of the plain version over every head
-    (bf16 within 2e-2; float16 within two ulps, ``_fp16_over``)."""
+    (bf16 within 2e-2; float16 within two ulps, ``_fp16_over``; fp32,
+    where only the order of the sums differs, within 1e-4)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        .mp_layers import rank_heads
+
     nkv, mp, rank = heads
     g = 12 // nkv
     q, kp, vp, tab, ps = _inputs(13, 8, 32, 16, nkv, g, 128,
                                  [0, 17, 64, 128, 200, 333, 480, 511], cuda)
-    n = 12 // mp
-    q0 = rank * n
+    n, q0 = rank_heads(12, mp, rank)
     lo, hi = q0 // g, (q0 + n - 1) // g
     q = q.to(dtype)
     mine = slice(q0, q0 + n)
@@ -187,7 +193,8 @@ def test_paged_kernels_at_a_rank_heads(cuda, heads, dtype, quant):
         if dtype == torch.float16:
             assert _fp16_over(got, want) <= 1
         else:
-            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+            atol = 1e-4 if dtype == torch.float32 else 2e-2
+            torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                        rtol=0)
 
 
@@ -622,6 +629,42 @@ def test_flash_kernels_match_plain(cuda, shape, dtype):
                             ("dk", dk, want32_dk), ("dv", dv, want32_dv)):
         err = _tile_rel_err(got, want)
         assert err <= rel_tol, f"{name}: per-tile relative error {err}"
+
+
+@pytest.mark.parametrize("h, s", [(1, 1024), (2, 1024), (1, 1020),
+                                  (2, 1020)],
+                         ids=["1", "2", "1-s1020", "2-s1020"])
+def test_flash_kernels_at_a_rank_heads(cuda, h, s):
+    """Kernels 1-3 at a tensor-parallel rank's 1 and 2 heads (the 0.44B
+    Llama's 12 heads at mp 8) at the train shape, b8 s1024 d128 bf16
+    causal, where kernels 2 and 3 start their blocks in groups of 16
+    heads, and at s1020, the sequence that mp 8 pads under SP and trims
+    before attention (a ragged last tile): each launches once, and every
+    output tile is within 1e-2 of the plain version on fp32 copies
+    (``test_flash_kernels_match_plain``'s limits)."""
+    q, k, v, do = _flash_inputs(5, (8, s, s, h, h, 128, True, 0),
+                                torch.bfloat16, cuda)
+    n = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+         fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    f32 = [t.float() for t in (q, k, v, do)]
+    want_out, want_lse = fa.flash_fwd_ref(*f32[:3], causal=True)
+    delta = fa._delta(do, want_out.to(q.dtype))
+    dq, delta_f = fa.flash_bwd_dq_delta(q, k, v, do, want_out.to(q.dtype),
+                                        want_lse, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, causal=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(x + 1 for x in n)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(delta_f, delta, atol=1e-4, rtol=1e-5)
+    want_dq = fa.flash_bwd_dq_ref(*f32, want_lse, delta, causal=True)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(*f32, want_lse, delta,
+                                            causal=True)
+    for name, got, want in (("O", out, want_out), ("dq", dq, want_dq),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        err = _tile_rel_err(got, want)
+        assert err <= 1e-2, f"{name}: per-tile relative error {err}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

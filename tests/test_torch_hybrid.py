@@ -40,7 +40,17 @@ sequence chunks:
 - ``hybrid_os_g``: ``hybrid`` under ZeRO ``os_g`` over dp
   (``group_sharded_parallel``): the experts stay over dp, every other
   parameter's states gain a dp cut beside its mp cut (the reference's
-  result is ``hybrid``'s: ZeRO is a layout there).
+  result is ``hybrid``'s: ZeRO is a layout there);
+- the experts over the sequence axes (``AXIS``): ``moe_sep2_axis_sep``
+  (over sep under ring context parallelism: the buffer reduce-scattered
+  over sep), ``moe_mp2_sp_axis_mp`` (over mp under SP) and
+  ``moe_mp2_sep2_sp_axis_sep_mp`` (over ``("sep", "mp")`` under both);
+- a sequence of 15 that mp 2 does not divide under SP (``SEQ``): the
+  pipe ``pp2_mp2_sp_s15`` and the MoE Llama ``moe_mp2_sp_s15``, whose
+  padding row never reaches the gate (its dispatched set is the
+  reference's, which has no padding); and ``moe_mp2_sep2_sp_s14``, a
+  sequence of 14 under SP and ring at mp 2 x sep 2, each sep chunk of 7
+  padded to 8, the experts over ``("sep", "mp")``.
 
 Held, each against the reference within ``TOL``: the loss on every rank,
 every gradient (``gather_jax_layout``; canonical keys for the pipes),
@@ -49,8 +59,8 @@ the parameters after them (``PARAM_TOL``). For the MoE models also the
 first layer's dispatched (token, expert, slot) set, global over the
 ranks; for the pipes the bytes ``PipelineLayer.counters`` counts
 (``[mb, s / mp, h]``, ``[mb, s / sep, h]`` or under both ``[mb, s /
-(sep mp), h]`` a boundary). And every combination that still raises,
-with its ROADMAP A.6 message.
+(sep mp), h]`` a boundary, ``s`` padded to a multiple of mp). And the
+combinations that still raise, and those that no longer do.
 """
 import os
 import pickle
@@ -85,7 +95,22 @@ CONFIGS = {
     "moe_mp2_sep2_sp": (1, 2, 1, 2, True, "ring", 4),
     "pp2_mp2_sep2_sp": (1, 2, 2, 2, True, "ring", 0),
     "hybrid_os_g": (2, 2, 2, 1, True, None, 4),
+    "moe_sep2_axis_sep": (1, 1, 1, 2, False, "ring", 4),
+    "moe_mp2_sp_axis_mp": (1, 2, 1, 1, True, None, 4),
+    "moe_mp2_sep2_sp_axis_sep_mp": (1, 2, 1, 2, True, "ring", 4),
+    "pp2_mp2_sp_s15": (1, 2, 2, 1, True, None, 0),
+    "moe_mp2_sp_s15": (1, 2, 1, 1, True, None, 4),
+    "moe_mp2_sep2_sp_s14": (1, 2, 1, 2, True, "ring", 4),
 }
+# the experts' axes where not dp
+AXIS = {"moe_sep2_axis_sep": "sep", "moe_mp2_sp_axis_mp": "mp",
+        "moe_mp2_sep2_sp_axis_sep_mp": ("sep", "mp"),
+        "moe_mp2_sep2_sp_s14": ("sep", "mp")}
+# the sequence length where not S
+SEQ = {"pp2_mp2_sp_s15": 15, "moe_mp2_sp_s15": 15, "moe_mp2_sep2_sp_s14": 14}
+# the layout the reference runs where not the config's own (its result
+# does not depend on it, see SAME_REFERENCE; one device compiles fastest)
+REF_SPEC = {"moe_mp2_sep2_sp_s14": (1, 1, 1, 1, False, None, 4)}
 # ZeRO under the pipe: name: its level (over dp, sharding being 1)
 ZERO = {"hybrid_os_g": "os_g"}
 # the reference's result does not depend on its layout (GSPMD keeps the
@@ -96,21 +121,27 @@ ZERO = {"hybrid_os_g": "os_g"}
 SAME_REFERENCE = {"moe_mp2_sp": "moe_dp2_mp2_sp", "moe_sep2": "moe_dp2_sep2",
                   "moe_mp2_sep2_sp": "moe_dp2_mp2_sp",
                   "mp2_sep2_sp_ulysses": "mp2_sep2_sp_ring",
-                  "pp2_mp2_sep2_sp": "pp2_mp2_sp", "hybrid_os_g": "hybrid"}
-WORLDS = {2: ["moe_mp2_sp", "moe_sep2"],
+                  "pp2_mp2_sep2_sp": "pp2_mp2_sp", "hybrid_os_g": "hybrid",
+                  "moe_sep2_axis_sep": "moe_dp2_sep2",
+                  "moe_mp2_sp_axis_mp": "moe_dp2_mp2_sp",
+                  "moe_mp2_sep2_sp_axis_sep_mp": "moe_dp2_mp2_sp"}
+WORLDS = {2: ["moe_mp2_sp", "moe_sep2", "moe_sep2_axis_sep",
+              "moe_mp2_sp_axis_mp", "moe_mp2_sp_s15"],
           4: ["pp2_mp2_sp", "pp2_sep2_ring", "pp2_sep2_ulysses",
               "moe_dp2_mp2_sp", "moe_dp2_sep2", "mp2_sep2_sp_ring",
-              "mp2_sep2_sp_ulysses", "moe_mp2_sep2_sp", "errors"],
+              "mp2_sep2_sp_ulysses", "moe_mp2_sep2_sp",
+              "moe_mp2_sep2_sp_axis_sep_mp", "pp2_mp2_sp_s15",
+              "moe_mp2_sep2_sp_s14", "errors"],
           8: ["hybrid", "pp2_mp2_sep2_sp", "hybrid_os_g"]}
 
 
-def _batch():
+def _batch(seq=S):
     rng = np.random.RandomState(7)
     ids = rng.randint(0, V, (B, S)).astype(np.int32)
     labels = rng.randint(0, V, (B, S)).astype(np.int32)
     labels[0, :3] = -100
     labels[1, 9:12] = -100  # the rows' and the chunks' counts differ
-    return ids, labels
+    return ids[:, :seq], labels[:, :seq]
 
 
 def _config(module, spec, **kw):
@@ -120,6 +151,12 @@ def _config(module, spec, **kw):
         sequence_parallel=sp, context_parallel=mode is not None,
         context_parallel_mode=mode or "ring", moe_num_experts=experts,
         use_parallel_cross_entropy=True, **kw)
+
+
+def _padded(seq, spec):
+    """The sequence as SP scatters it: padded to a multiple of mp."""
+    mp = spec[1] if spec[4] else 1
+    return -(-seq // mp) * mp
 
 
 def _close(got, want, name, tol=TOL):
@@ -206,12 +243,13 @@ def _reference(name):
         capacity,
     )
 
-    spec = CONFIGS[name]
+    spec = REF_SPEC.get(name, CONFIGS[name])
+    seq = SEQ.get(name, S)
     jfleet = _jax_fleet(spec)
     try:
         pt.seed(11)
         cfg = _config(jllama, spec)
-        data = tuple(pt.to_tensor(a) for a in _batch())
+        data = tuple(pt.to_tensor(a) for a in _batch(seq))
         clip = pt.nn.ClipGradByGlobalNorm(1.0)
         if spec[2] > 1:
             jm = jllama.LlamaForCausalLMPipe(cfg)
@@ -233,10 +271,10 @@ def _reference(name):
         weights = {n: np.asarray(p._data) for n, p in jm.named_parameters()}
         ref = {}
         if spec[6]:
-            cap = capacity(2, B * S, spec[6], 1.25)
+            cap = capacity(2, B * seq, spec[6], 1.25)
             assert jm.llama.layers[0].mlp.capacity_factor == 1.25
             assert isinstance(jm.llama.layers[0].mlp, JM)
-            ref["dispatched"] = _jax_dispatched(jm, _batch()[0], cap)
+            ref["dispatched"] = _jax_dispatched(jm, _batch(seq)[0], cap)
         loss = jm(*data)
         loss.backward()
         ref["loss"] = float(loss.numpy())
@@ -283,7 +321,7 @@ def _strategy(dp=1, mp=1, pp=1, sep=1, sharding=1):
     return s
 
 
-def _rank_inputs(spec, hcg):
+def _rank_inputs(spec, hcg, seq=S):
     """This rank's ids and labels: its dp rows (under the pipe its chunk
     of each microbatch) and, under context parallelism, its sequence
     chunk of them."""
@@ -292,15 +330,17 @@ def _rank_inputs(spec, hcg):
     r = hcg.get_data_parallel_rank()
     rows = (rows.reshape(N_MICRO, dp, -1)[:, r] if pp > 1
             else rows.reshape(dp, -1)[r]).reshape(-1)
-    cols = np.arange(S)
+    cols = np.arange(seq)
     if spec[5] is not None:
         cols = cols.reshape(sep, -1)[hcg.get_sep_parallel_rank()]
-    return [torch.from_numpy(a[rows][:, cols]) for a in _batch()], rows, cols
+    return ([torch.from_numpy(a[rows][:, cols]) for a in _batch(seq)], rows,
+            cols)
 
 
-def _dispatched(model, x, spec, rows, cols, mp_rank):
+def _dispatched(model, x, spec, rows, cols, mp_rank, seq=S):
     """The first MoE layer's dispatched set from this rank's tokens, by
-    their global (row * S + column) indices."""
+    their global (row * seq + column) indices; under SP a padded column
+    (past ``seq``) is no token."""
     from paddle_tpu_torch.incubate.distributed.models.moe.moe_layer import (
         capacity,
     )
@@ -315,16 +355,22 @@ def _dispatched(model, x, spec, rows, cols, mp_rank):
         xin = seen[0]
         b, s_loc = xin.shape[0], xin.shape[1]
         # under SP the layer sees the mp rank's chunk of the columns (of
-        # its sep chunk's under context parallelism)
+        # its sep chunk's under context parallelism), padded to a
+        # multiple of mp
+        valid = None
         if spec[4]:
+            pad = _padded(len(cols), spec) - len(cols)
+            cols = np.concatenate([cols, np.full(pad, S)])
             cols = cols.reshape(spec[1], -1)[mp_rank]
-        cap = capacity(2, B * S, spec[6], mlp.capacity_factor)
-        _, _, routed, _ = mlp.route(xin.reshape(b * s_loc, -1), cap, b)
+            valid = torch.from_numpy(cols < S).repeat(b)
+        cap = capacity(2, B * seq, spec[6], mlp.capacity_factor)
+        _, _, routed, _ = mlp.route(xin.reshape(b * s_loc, -1), cap, b,
+                                    valid)
     out = set()
     for r in routed:
         for t, v in enumerate(r.tolist()):
             if v < spec[6] * cap:
-                g = int(rows[t // s_loc]) * S + int(cols[t % s_loc])
+                g = int(rows[t // s_loc]) * seq + int(cols[t % s_loc])
                 out.add((g, v // cap, v % cap))
     return out
 
@@ -365,8 +411,9 @@ def _run(root, name):
     hcg = fleet.get_hybrid_communicate_group()
     with open(f"{root}/{name}.weights.pkl", "rb") as f:
         weights = pickle.load(f)
-    (x, y), rows, cols = _rank_inputs(spec, hcg)
-    cfg = _config(tllama, spec)
+    seq = SEQ.get(name, S)
+    (x, y), rows, cols = _rank_inputs(spec, hcg, seq)
+    cfg = _config(tllama, spec, moe_expert_axis=AXIS.get(name, "dp"))
     clip = ClipGradByGlobalNorm(1.0)
     if pp > 1:
         model = LlamaForCausalLMPipe(cfg, device="cpu")
@@ -392,7 +439,8 @@ def _run(root, name):
     out = {}
     if spec[6]:
         out["dispatched"] = _dispatched(model, x, spec, rows, cols,
-                                        hcg.get_model_parallel_rank())
+                                        hcg.get_model_parallel_rank(), seq)
+        out["experts"] = model.llama.layers[0].mlp.w_in.shape[0]
     net = fleet.distributed_model(model)
     loss = net(x, y)
     loss.backward()
@@ -409,7 +457,10 @@ def _run(root, name):
 
 
 def _errors():
-    """Each combination still refused, in one order on every rank (4)."""
+    """The combinations still refused, and those no longer refused, in
+    one order on every rank (4): each message, None where it builds."""
+    import torch.distributed as tdist
+
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
     from paddle_tpu_torch.models import (
@@ -439,6 +490,16 @@ def _errors():
         LBFGS(parameters=model.parameters())))
     attempt(lambda: LlamaForCausalLMPipe(
         LlamaConfig.tiny(vocab_size=127), device="cpu"), ValueError)
+    # under pp, train_batch steps without a closure: LBFGS raises there,
+    # as the reference's does
+    fleet.init(is_collective=True, strategy=_strategy(mp=2, pp=2))
+    pipe = LlamaForCausalLMPipe(LlamaConfig.tiny(num_hidden_layers=2),
+                                device="cpu")
+    net = fleet.distributed_model(pipe)
+    ids = torch.zeros((2, 8), dtype=torch.int64)
+    attempt(lambda: net.train_batch(
+        (ids, ids), LBFGS(parameters=pipe.parameters())), ValueError)
+    tdist.barrier()
     return errors
 
 
@@ -521,6 +582,15 @@ def test_gate_dispatches_the_references_tokens(runs, name):
         for tok, e, slot in o["dispatched"]:
             seen.setdefault((e, slot), set()).add(tok)
     assert all(len(t) == 1 for t in seen.values())
+    # a padded column is never dispatched: every token is a real one
+    assert all(tok < B * SEQ.get(name, S) for tok, _, _ in got)
+    # each rank holds E over the degree of its expert axes
+    spec = CONFIGS[name]
+    axes = AXIS.get(name, "dp")
+    degree = 1
+    for a in ((axes,) if isinstance(axes, str) else axes):
+        degree *= {"dp": spec[0], "mp": spec[1], "sep": spec[3]}[a]
+    assert all(o["experts"] == spec[6] // degree for o in ranks)
 
 
 @pytest.mark.parametrize("name", [n for n, c in CONFIGS.items()
@@ -532,7 +602,8 @@ def test_pipe_sends_the_sequence_chunk(runs, name):
     those bytes."""
     dp, mp, _, sep, sp = CONFIGS[name][:5]
     _, ranks = runs[name]
-    s_local = S // (sep * (mp if sp else 1))
+    s_local = _padded(SEQ.get(name, S), CONFIGS[name]) \
+        // (sep * (mp if sp else 1))
     mb = B // N_MICRO // dp
     for o in ranks:
         c = o["counters"]
@@ -541,17 +612,18 @@ def test_pipe_sends_the_sequence_chunk(runs, name):
 
 
 def test_remaining_combinations_raise_naming_their_item(runs):
+    """The experts over mp under SP or over sep, and LBFGS over the ranks,
+    build (a sep chunk mp does not divide under SP and context
+    parallelism runs: ``moe_mp2_sep2_sp_s14``); a vocab mp does not
+    divide raises as the reference's does; under pp LBFGS raises for
+    want of a closure, as there."""
     _, ranks = runs["errors"]
     for errors in ranks:
-        assert all(e is not None for e in errors), errors
-        axis_mp_sp, axis_sep, lbfgs, uneven = errors
-        assert "expert_axis='mp'" in axis_mp_sp
-        assert "sequence parallelism" in axis_mp_sp
-        assert "expert_axis='sep'" in axis_sep
-        assert "LBFGS" in lbfgs
+        axis_mp_sp, axis_sep, lbfgs, uneven, lbfgs_pp = errors
+        assert axis_mp_sp is None and axis_sep is None and lbfgs is None
         assert "vocab_size = 127" in uneven and "mp = 2" in uneven
-        for e in errors:
-            assert "A.6" in e, e
+        assert "reference raises too" in uneven
+        assert "closure" in lbfgs_pp
 
 
 def test_gate_routes_by_the_choices_it_is_handed():

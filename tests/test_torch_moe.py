@@ -39,7 +39,12 @@ the reference on its virtual mesh:
   and under ZeRO ``moe_sh2_p_g_os`` (the experts gain a sharding cut on
   dim 1), ``moe_dp2_os_g`` (the experts stay over dp) and
   ``moe_axis_sharding_os_g`` (ZeRO over sharding, the experts laid out
-  over it already: their gradients summed over dp alone): the loss,
+  over it already: their gradients summed over dp alone); and the
+  experts over a tuple of axes: ``moe_axis_dp_sharding`` (dp 2 x
+  sharding 2, each rank one expert, both axes reduce-scattering the
+  buffer) and ``moe_axis_dp_mp`` (dp 2 x mp 2: the buffer
+  reduce-scattered over dp, then each mp rank's part of it, the tokens
+  replicated over mp): the loss,
   every gradient and 2 clipped ``AdamW`` steps against the reference,
   the first layer's dispatched (token, expert, slot) set, global over
   the ranks, and each rank's count of experts. The reference's results
@@ -84,13 +89,17 @@ MORE = {  # name: (dp, mp, sharding, moe_expert_axis, ZeRO level)
     "moe_sh2_p_g_os": (1, 1, 2, "dp", "p_g_os"),
     "moe_dp2_os_g": (2, 1, 1, "dp", "os_g"),
     "moe_axis_sharding_os_g": (2, 1, 2, "sharding", "os_g"),
+    "moe_axis_dp_sharding": (2, 1, 2, ("dp", "sharding"), None),
+    "moe_axis_dp_mp": (2, 2, 1, ("dp", "mp"), None),
 }
 SAME_REFERENCE = {"moe_sh2": "moe_axis_sharding",
                   "moe_dp2_sh2": "moe_axis_sharding",
                   "moe_axis_mp": "moe_axis_sharding",
                   "moe_sh2_p_g_os": "moe_axis_sharding",
                   "moe_dp2_os_g": "moe_axis_sharding",
-                  "moe_axis_sharding_os_g": "moe_axis_sharding"}
+                  "moe_axis_sharding_os_g": "moe_axis_sharding",
+                  "moe_axis_dp_sharding": "moe_axis_sharding",
+                  "moe_axis_dp_mp": "moe_axis_sharding"}
 N_MICRO = 2
 MORE_STEPS = 2  # the AdamW steps of a MORE config
 
@@ -394,8 +403,10 @@ def test_gate_ties_go_to_the_lowest_expert():
 def test_unported_moe_options_raise():
     with pytest.raises(NotImplementedError, match="top_k=3"):
         MoELayer(**LAYER, top_k=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        MoELayer(**LAYER, expert_axis="sep", device="cpu")
+    with pytest.raises(ValueError, match="expert_axis='pp'"):
+        MoELayer(**LAYER, expert_axis="pp", device="cpu")
+    with pytest.raises(ValueError, match="expert_axis=\\('dp', 'pp'\\)"):
+        MoELayer(**LAYER, expert_axis=("dp", "pp"), device="cpu")
 
 
 def _port_llama(weights, device="cpu", **kw):
@@ -687,7 +698,8 @@ def runs(tmp_path_factory):
                               "moe_dp2_os_g"]),
                          (4, ["dp2_mp2", "dp2_pp2", "moe_dp2_sh2",
                               "moe_axis_sharding",
-                              "moe_axis_sharding_os_g"])):
+                              "moe_axis_sharding_os_g",
+                              "moe_axis_dp_sharding", "moe_axis_dp_mp"])):
         sub = root / f"w{world}"
         os.makedirs(sub)
         for name in names:
@@ -751,7 +763,7 @@ def test_moe_llama_dispatches_the_references_tokens(runs, name):
     """The first layer's (token, expert, slot) set, global over the
     ranks, is the reference's; ranks that hold other tokens route none
     in common (over mp every rank routes the same tokens); each rank
-    holds ``E / degree`` experts of its axis."""
+    holds ``E / degree`` experts of its axes."""
     dp, mp, sh, axis, _ = MORE[name]
     ref, ranks = runs[name]
     assert set().union(*(o["dispatched"] for o in ranks)) \
@@ -764,7 +776,9 @@ def test_moe_llama_dispatches_the_references_tokens(runs, name):
             for tok, e, slot in o["dispatched"]:
                 seen.setdefault((e, slot), set()).add(tok)
         assert all(len(t) == 1 for t in seen.values())
-    degree = {"dp": dp, "mp": mp, "sharding": sh}[axis]
+    degree = 1
+    for a in ((axis,) if isinstance(axis, str) else axis):
+        degree *= {"dp": dp, "mp": mp, "sharding": sh}[a]
     for o in ranks:
         assert o["experts"] == [E // degree] * 2, o["experts"]
 

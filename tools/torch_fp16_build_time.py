@@ -2,25 +2,29 @@
 """Time the build of the flash kernels' two libraries against one source
 that holds both 16-bit types.
 
-    python tools/torch_fp16_build_time.py [--rounds N]
+    python tools/torch_fp16_build_time.py [--rounds N] [--parts]
 
 ``csrc/flash_attention.cu`` builds the bf16 and fp32 kernels and
 ``csrc/flash_attention_fp16.cu`` (the same source with ``PT_FLASH_FP16``)
-the float16 ones; ``ops/cuda/_build.py`` runs one ``nvcc`` for each,
-all started together, beside ``paged_attention.cu``. The alternative is
-one source whose dispatch instantiates every family at both bf16 and
-float16. This script writes that source from ``flash_attention.cu``
-(its dispatch macros and the two fused-dQ entries made to branch on the
-dtype code, nothing else changed), then times, with the flags of
-``_build.py``:
+the float16 ones; ``ops/cuda/_build.py`` builds each apart (each in
+the parts of ``_build.PARTS`` as well; this script builds whole
+sources), all started together, beside ``paged_attention.cu``. The
+alternative is one source whose dispatch instantiates every family at
+both bf16 and float16. This script writes that source from
+``flash_attention.cu`` (its dispatch macros and the two fused-dQ
+entries made to branch on the dtype code, nothing else changed), then
+times, with the flags of ``_build.py``:
 
 1. the split build: the two flash sources and the paged source in
-   parallel, as ``_build.build()`` runs them;
+   parallel, one ``nvcc`` each;
 2. the one-source build: the merged source and the paged source in
    parallel.
 
 The two builds alternate for ``--rounds`` rounds (split, one, one,
-split, ...: the host's drift falls on both alike). Each flash library
+split, ...: the host's drift falls on both alike). With ``--parts`` it
+times instead ``_build.build()`` itself, with its ``PARTS`` and with
+none (one process a source), alternating the same way, each into an
+empty directory. Each flash library
 must load and export the entries. Prints the card's name and power
 limit, each build's wall seconds and kernel count (ptxas's "Compiling
 entry function" lines), and the medians. Outputs go under
@@ -131,7 +135,8 @@ def merged(src):
 
 
 def _nvcc(src, out):
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
+           str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -158,10 +163,42 @@ def _round(label, sources, out_dir):
     return wall
 
 
+def _parts_round(label, parts, out_dir):
+    """``_build.build()`` of every source with ``parts`` as its
+    ``PARTS``, into an empty ``out_dir``; print and return the wall
+    seconds."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    saved = _build.BUILD_DIR, dict(_build.PARTS)
+    _build.BUILD_DIR = out_dir
+    _build.PARTS.clear()
+    _build.PARTS.update(parts)
+    try:
+        t0 = time.perf_counter()
+        libs = _build.build()
+        wall = time.perf_counter() - t0
+    finally:
+        _build.BUILD_DIR = saved[0]
+        _build.PARTS.clear()
+        _build.PARTS.update(saved[1])
+    for name, so in libs.items():
+        if name.startswith("flash"):
+            lib = ctypes.CDLL(str(so))
+            for e in ("pt_flash_fwd", "pt_hb_bwd_dq_delta",
+                      "pt_flash_bwd_dkv", "pt_flash_tile_bwd_dkv",
+                      "pt_flash_tile_classes"):
+                getattr(lib, e)
+    print(f"{label} build wall {wall:.1f} s", flush=True)
+    return wall
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
-    rounds = ap.parse_args().rounds
+    ap.add_argument("--parts", action="store_true",
+                    help="time _build.build() with its PARTS against one "
+                    "process a source")
+    args = ap.parse_args()
+    rounds = args.rounds
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -169,6 +206,20 @@ def main():
     out = _build.BUILD_DIR / "build_time"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
+    if args.parts:
+        walls = {"parts": [], "whole": []}
+        kinds = {"parts": dict(_build.PARTS), "whole": {}}
+        for r in range(rounds):
+            for key in ("parts", "whole") if r % 2 == 0 \
+                    else ("whole", "parts"):
+                walls[key].append(_parts_round(
+                    f"{key} ({kinds[key] or 'one process a source'})",
+                    kinds[key], out / key))
+        parts, whole = (statistics.median(walls[k])
+                        for k in ("parts", "whole"))
+        print(f"medians of {rounds}: parts {parts:.1f} s, one process a "
+              f"source {whole:.1f} s")
+        return
     csrc = _build.CSRC
     for f in csrc.iterdir():
         if f.suffix in (".cuh", ".h"):
